@@ -1,0 +1,27 @@
+"""Accelerator selection (counterpart of
+``deepspeed_tpu/accelerator/real_accelerator.py``): the CUDA accelerator,
+or the CPU one when asked for by name or by ``DS_ACCELERATOR=cpu``. Asking
+for CUDA without a CUDA device raises: the port never falls back to the
+CPU on its own."""
+
+from __future__ import annotations
+
+import os
+from typing import Optional
+
+import torch
+
+from deepspeed_tpu_torch.accelerator.abstract_accelerator import DeepSpeedAccelerator
+from deepspeed_tpu_torch.accelerator.cuda_accelerator import CPU_Accelerator, CUDA_Accelerator
+
+
+def get_accelerator(name: Optional[str] = None) -> DeepSpeedAccelerator:
+    name = name or os.environ.get("DS_ACCELERATOR", "cuda")
+    if name == "cpu":
+        return CPU_Accelerator()
+    if name != "cuda":
+        raise ValueError(f"unknown accelerator {name!r} (expected cuda | cpu)")
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: deepspeed_tpu_torch serves on an NVIDIA "
+                           "GPU; pass device='cpu' to run the kernels' plain versions")
+    return CUDA_Accelerator()

@@ -1,0 +1,514 @@
+"""Decoder transformer: the serving subset of
+``deepspeed_tpu/models/transformer.py`` in PyTorch.
+
+Same ``TransformerConfig`` fields, same parameter-tree keys and ``[in, out]``
+matmul layout (so weights made by the JAX package load unchanged, see
+``checkpoint/from_jax.py``), same paged-KV serving entry points. Where the
+JAX package runs one ``lax.scan`` over stacked layer weights, the port keeps
+one parameter sub-tree per layer and loops over them in Python.
+
+KV pools are ``[n_layer, num_blocks, block_size, KV, Hd]`` tensors updated
+IN PLACE: JAX donated the pool buffers through every fused step and returned
+new ones; the port writes the new k/v into the same tensors with
+``index_copy_`` and returns the pools dict unchanged, so callers written for
+either convention work.
+
+Attention dispatch (``attention_backend``): ``"auto"`` and ``"flash"`` call
+the kernel wrappers in ``ops/kernels`` (the hand-written CUDA kernel for
+CUDA tensors, its plain version for CPU tensors); ``"xla"`` keeps the plain
+einsum paths of the JAX package's non-kernel branch.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from deepspeed_tpu_torch.ops.attention import mha_attention
+from deepspeed_tpu_torch.ops.kernels.flash_attention import flash_attention
+from deepspeed_tpu_torch.ops.kernels.paged_decode_attention import paged_decode_attention
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    """The JAX package's ``TransformerConfig``, field for field. Training
+    and sharding knobs (remat, scan_layers, sequence_parallel, manual_tp,
+    loss_chunk, fused_cross_entropy, dropout) are carried for config parity;
+    the serving slice does not read them."""
+    vocab_size: int = 50257
+    n_layer: int = 12
+    n_head: int = 12
+    d_model: int = 768
+    d_ff: Optional[int] = None           # default 4*d_model (or 8/3 for swiglu)
+    max_seq: int = 1024
+    n_kv_head: Optional[int] = None      # GQA; default n_head
+    pos_embedding: str = "learned"       # learned | rope | alibi | none
+    norm: str = "layernorm"              # layernorm | rmsnorm
+    activation: str = "gelu"             # gelu (tanh) | gelu_exact | quick_gelu | swiglu | relu
+    parallel_residual: bool = False      # gpt-neox style
+    norm_position: str = "pre"           # pre (GPT) | post (BERT add&norm)
+    causal: bool = True
+    tie_embeddings: bool = True
+    embed_layernorm: bool = False        # BLOOM word_embeddings_layernorm
+    attn_bias: bool = False              # qkv/out biases (gpt2/opt/bloom/neox)
+    rope_theta: float = 10000.0
+    rope_dim: int = 0                    # 0 = full head dim; else partial
+    rope_interleaved: bool = False       # GPT-J pairing vs NeoX half-split
+    lm_head_bias: bool = False
+    norm_eps: float = 1e-5
+    dropout: float = 0.0
+    remat: Any = True
+    scan_layers: bool = True
+    sequence_parallel: str = "none"
+    attention_backend: str = "auto"      # auto | flash = kernels; xla = plain einsum
+    attn_block_q: Optional[int] = None
+    attn_block_k: Optional[int] = None
+    sparse_attention: Optional[Any] = None
+    loss_chunk: int = 0
+    fused_cross_entropy: str = "auto"
+    attn_scale: Optional[float] = None   # None = head_dim**-0.5
+    act_quant_bits: int = 0
+    act_quant_sym: bool = True
+    manual_tp: Optional[str] = None
+    init_std: float = 0.02
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_model // self.n_head
+
+    @property
+    def kv_heads(self) -> int:
+        return self.n_kv_head or self.n_head
+
+    @property
+    def ff_dim(self) -> int:
+        if self.d_ff is not None:
+            return self.d_ff
+        if self.activation == "swiglu":
+            d = int(8 * self.d_model / 3)
+            return (d + 127) // 128 * 128
+        return 4 * self.d_model
+
+
+# --------------------------------------------------------------------- #
+# parameters
+
+
+class ParamTree(nn.Module):
+    """A nested dict of tensors held as a module: ``tree["attn"]["wq"]``
+    reads like the JAX pytree, lists (the per-layer trees) become
+    ``nn.ModuleList``, and ``.parameters()`` / ``state_dict()`` work as
+    usual. Tensors are frozen parameters (serving has no gradients)."""
+
+    def __init__(self, tree: Dict[str, Any]):
+        super().__init__()
+        self._keys = tuple(tree)
+        for key, value in tree.items():
+            if isinstance(value, dict):
+                self.add_module(key, ParamTree(value))
+            elif isinstance(value, (list, tuple)):
+                self.add_module(key, nn.ModuleList(ParamTree(v) for v in value))
+            else:
+                self.register_parameter(
+                    key, nn.Parameter(torch.as_tensor(value), requires_grad=False))
+
+    def __getitem__(self, key):
+        if key not in self._keys:
+            raise KeyError(key)
+        return getattr(self, key)
+
+    def get(self, key, default=None):
+        return self[key] if key in self._keys else default
+
+    def to_dict(self) -> Dict[str, Any]:
+        out = {}
+        for key in self._keys:
+            v = getattr(self, key)
+            if isinstance(v, ParamTree):
+                out[key] = v.to_dict()
+            elif isinstance(v, nn.ModuleList):
+                out[key] = [t.to_dict() for t in v]
+            else:
+                out[key] = v.data
+        return out
+
+    def map(self, fn) -> "ParamTree":
+        """A new tree with ``fn`` applied to every tensor (this one is left
+        as it is, unlike ``nn.Module.to``)."""
+        def walk(x):
+            if isinstance(x, dict):
+                return {k: walk(v) for k, v in x.items()}
+            if isinstance(x, list):
+                return [walk(v) for v in x]
+            return fn(x)
+        return ParamTree(walk(self.to_dict()))
+
+
+def init_params(cfg: TransformerConfig, generator: Optional[torch.Generator] = None,
+                device="cpu", dtype=torch.float32) -> ParamTree:
+    """Random parameters in the JAX package's tree layout (keys, shapes,
+    std, depth-scaled out/down projections), one sub-tree per layer, drawn
+    from ``generator`` on ``device``. The values differ from ``jax.random``'s;
+    to hold the two packages to each other, convert one tree with
+    ``checkpoint.from_jax.params_from_jax``."""
+    std = cfg.init_std
+    L, D, Fd = cfg.n_layer, cfg.d_model, cfg.ff_dim
+    H, KV, Hd = cfg.n_head, cfg.kv_heads, cfg.head_dim
+    out_std = std / math.sqrt(2 * L)
+
+    def dense(shape, scale=std):
+        w = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
+        return (w * scale).to(dtype)
+
+    def zeros(*shape):
+        return torch.zeros(shape, device=device, dtype=dtype)
+
+    def norm_params():
+        p = {"scale": torch.ones((D,), device=device, dtype=dtype)}
+        if cfg.norm == "layernorm":
+            p["bias"] = zeros(D)
+        return p
+
+    params: Dict[str, Any] = {"embed": {"tokens": dense((cfg.vocab_size, D))}}
+    layers = []
+    for _ in range(L):
+        attn = {"wq": dense((D, H * Hd)), "wk": dense((D, KV * Hd)),
+                "wv": dense((D, KV * Hd)), "wo": dense((H * Hd, D), out_std)}
+        if cfg.attn_bias:
+            attn.update(bq=zeros(H * Hd), bk=zeros(KV * Hd), bv=zeros(KV * Hd), bo=zeros(D))
+        if cfg.activation == "swiglu":
+            mlp_p = {"w_gate": dense((D, Fd)), "w_up": dense((D, Fd)),
+                     "w_down": dense((Fd, D), out_std)}
+        else:
+            mlp_p = {"w_up": dense((D, Fd)), "b_up": zeros(Fd),
+                     "w_down": dense((Fd, D), out_std), "b_down": zeros(D)}
+        layers.append({"ln_attn": norm_params(), "attn": attn,
+                       "ln_mlp": norm_params(), "mlp": mlp_p})
+    params["layers"] = layers
+    params["ln_f"] = norm_params()
+    if cfg.pos_embedding == "learned":
+        params["embed"]["positions"] = dense((cfg.max_seq, D))
+    if cfg.embed_layernorm:
+        params["embed"]["ln"] = norm_params()
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense((D, cfg.vocab_size))
+        if cfg.lm_head_bias:
+            params["lm_head_bias"] = zeros(cfg.vocab_size)
+    return ParamTree(params)
+
+
+# --------------------------------------------------------------------- #
+# blocks
+
+
+def _norm(cfg: TransformerConfig, x, p):
+    x32 = x.float()
+    if cfg.norm == "rmsnorm":
+        var = x32.square().mean(dim=-1, keepdim=True)
+        out = x32 * torch.rsqrt(var + cfg.norm_eps) * p["scale"].float()
+    else:
+        mean = x32.mean(dim=-1, keepdim=True)
+        var = x32.var(dim=-1, keepdim=True, unbiased=False)
+        out = (x32 - mean) * torch.rsqrt(var + cfg.norm_eps)
+        out = out * p["scale"].float() + p["bias"].float()
+    return out.to(x.dtype)
+
+
+def _rope(x, positions, theta: float, rope_dim: int = 0, interleaved: bool = False):
+    """Rotary position embedding on ``x [B, S, H, Hd]`` at ``positions
+    [B, S]``: NeoX/Llama half-split pairs, or GPT-J interleaved pairs;
+    ``rope_dim`` > 0 rotates only the first ``rope_dim`` dims."""
+    Hd = x.shape[-1]
+    rd = rope_dim or Hd
+    half = rd // 2
+    xr = x[..., :rd]
+    freqs = torch.exp(-math.log(theta)
+                      * torch.arange(0, half, dtype=torch.float32, device=x.device) / half)
+    angles = positions[:, :, None].float() * freqs[None, None, :]
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    if interleaved:
+        x1, x2 = xr[..., 0::2], xr[..., 1::2]
+        rotated = torch.stack([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                              dim=-1).reshape(xr.shape)
+    else:
+        x1, x2 = xr[..., :half], xr[..., half:]
+        rotated = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    if rd != Hd:
+        rotated = torch.cat([rotated, x[..., rd:].to(rotated.dtype)], dim=-1)
+    return rotated.to(x.dtype)
+
+
+def _alibi_slopes(n_head: int, device="cpu"):
+    start = 2.0**(-8.0 / n_head)
+    return torch.tensor([start**(i + 1) for i in range(n_head)], dtype=torch.float32,
+                        device=device)
+
+
+def _qkv_project(cfg: TransformerConfig, x, lp, positions):
+    """q ``[B,T,H,Hd]``, k/v ``[B,T,KV,Hd]`` from ``x [B,T,D]``: projections,
+    optional biases, head reshape, rope."""
+    B, T, _ = x.shape
+    H, KV, Hd = cfg.n_head, cfg.kv_heads, cfg.head_dim
+    q, k, v = x @ lp["wq"], x @ lp["wk"], x @ lp["wv"]
+    if cfg.attn_bias:
+        q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
+    q, k, v = q.reshape(B, T, H, Hd), k.reshape(B, T, KV, Hd), v.reshape(B, T, KV, Hd)
+    if cfg.pos_embedding == "rope":
+        q = _rope(q, positions, cfg.rope_theta, cfg.rope_dim, cfg.rope_interleaved)
+        k = _rope(k, positions, cfg.rope_theta, cfg.rope_dim, cfg.rope_interleaved)
+    return q, k, v
+
+
+def _out_project(cfg: TransformerConfig, out, lp):
+    out = out @ lp["wo"]
+    return out + lp["bo"] if cfg.attn_bias else out
+
+
+def mlp(cfg: TransformerConfig, x, lp):
+    if cfg.activation == "swiglu":
+        return (F.silu(x @ lp["w_gate"]) * (x @ lp["w_up"])) @ lp["w_down"]
+    h = x @ lp["w_up"] + lp["b_up"]
+    if cfg.activation == "gelu":
+        h = F.gelu(h, approximate="tanh")
+    elif cfg.activation == "gelu_exact":
+        h = F.gelu(h)
+    elif cfg.activation == "quick_gelu":
+        h = h * torch.sigmoid(1.702 * h)
+    else:
+        h = F.relu(h)
+    return h @ lp["w_down"] + lp["b_down"]
+
+
+def cached_embed(cfg: TransformerConfig, params, tokens, pos, dtype):
+    """Embedding of ``tokens [B, T]`` at cache offset ``pos`` (an int, or a
+    ``[B]`` tensor of per-request offsets). Returns (x, positions [B, T])."""
+    B, T = tokens.shape
+    x = params["embed"]["tokens"][tokens].to(dtype)
+    pos = torch.as_tensor(pos, dtype=torch.long, device=tokens.device).reshape(-1, 1)
+    positions = (pos + torch.arange(T, device=tokens.device)[None, :]).expand(B, T)
+    if cfg.pos_embedding == "learned":
+        # junk pad positions of a bucket may run past the table: clamp the
+        # lookup (JAX's gather clamps the same way); rope reads positions as is
+        table = params["embed"]["positions"]
+        x = x + table[positions.clamp(max=table.shape[0] - 1)].to(x.dtype)
+    if cfg.embed_layernorm:
+        x = _norm(cfg, x, params["embed"]["ln"])
+    return x, positions
+
+
+def _decode_block(cfg: TransformerConfig, h, lp, attn_fn):
+    """The pre-LN residual wiring of every cache-decode block:
+    ``attn_fn(x_normed)`` returns the attention output (and updates the
+    layer's pools in place)."""
+    a = attn_fn(_norm(cfg, h, lp["ln_attn"]))
+    if cfg.parallel_residual:
+        return h + a + mlp(cfg, _norm(cfg, h, lp["ln_mlp"]), lp["mlp"])
+    h = h + a
+    return h + mlp(cfg, _norm(cfg, h, lp["ln_mlp"]), lp["mlp"])
+
+
+def _head_weight(cfg: TransformerConfig, params):
+    """``[D, vocab]`` projection (tied embedding transpose or lm_head)."""
+    return params["embed"]["tokens"].T if cfg.tie_embeddings else params["lm_head"]
+
+
+def cached_head(cfg: TransformerConfig, params, x):
+    """Final norm + logits projection of the cached path."""
+    logits = _norm(cfg, x, params["ln_f"]) @ _head_weight(cfg, params)
+    bias = params.get("lm_head_bias")
+    return logits if bias is None else logits + bias
+
+
+# --------------------------------------------------------------------- #
+# paged KV cache
+
+
+def init_paged_kv_cache(cfg: TransformerConfig, num_blocks: int, block_size: int,
+                        dtype=torch.bfloat16, device="cpu") -> Dict[str, torch.Tensor]:
+    """Paged KV pools: k/v ``[n_layer, num_blocks, block_size, kv_heads, Hd]``.
+    Block 0 is the allocator's dummy block (padding tokens and inactive
+    decode rows write there; nothing reads it)."""
+    shape = (cfg.n_layer, num_blocks, block_size, cfg.kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _pool_scatter(pool, kv_new, slots):
+    """Write per-token k or v ``[N, KV, Hd]`` into one layer's pool
+    ``[num_blocks, bs, KV, Hd]`` at flat slots ``[N]`` (block_id * bs +
+    offset), in place. Padding positions all land in the dummy block 0, so
+    repeated indices there are harmless."""
+    flat = pool.view(pool.shape[0] * pool.shape[1], *pool.shape[2:])
+    flat.index_copy_(0, slots.long(), kv_new.to(pool.dtype))
+
+
+def _paged_gather(pool, block_tables):
+    """Dense ``[B, max_blocks * bs, KV, Hd]`` gather of each request's cache
+    through its block table."""
+    Nb, bs = pool.shape[0], pool.shape[1]
+    flat = pool.view(Nb * bs, *pool.shape[2:])
+    idx = (block_tables.long()[:, :, None] * bs
+           + torch.arange(bs, device=pool.device)[None, None, :])
+    return flat[idx.reshape(block_tables.shape[0], -1)]
+
+
+def _grouped_cache_einsum(cfg: TransformerConfig, q, ck, cv, positions, pad_bias):
+    """Grouped-head attention of q ``[B,T,H,Hd]`` against an unrepeated cache
+    ck/cv ``[B,S,KV,Hd]`` with per-row causal masking at ``positions``
+    (head h reads kv head h // G). Scores and softmax in fp32. Returns
+    ``[B, T, H*Hd]``."""
+    B, T, H, Hd = q.shape
+    S, KV = ck.shape[1], ck.shape[2]
+    G = H // KV
+    scale = Hd**-0.5 if cfg.attn_scale is None else cfg.attn_scale
+    q5 = q.reshape(B, T, KV, G, Hd)
+    scores = torch.einsum("btcgd,bscd->bcgts", q5.float(), ck.float()) * scale
+    kpos = torch.arange(S, device=q.device)[None, None, None, None, :]
+    qpos = positions[:, None, None, :, None]
+    if cfg.pos_embedding == "alibi":
+        slopes5 = _alibi_slopes(H, q.device).reshape(KV, G)
+        scores = scores + slopes5[None, :, :, None, None] * (kpos - qpos).float()
+    scores = torch.where(kpos <= qpos, scores, torch.full_like(scores, -1e30))
+    if pad_bias is not None:
+        scores = scores + pad_bias.float()[:, None, None, None, :]
+    probs = torch.softmax(scores, dim=-1).to(cv.dtype)
+    return torch.einsum("bcgts,bscd->btcgd", probs, cv).reshape(B, T, H * Hd)
+
+
+def _use_kernels(cfg: TransformerConfig) -> bool:
+    if cfg.attention_backend not in ("auto", "flash", "xla"):
+        raise ValueError(f"attention_backend={cfg.attention_backend!r} "
+                         "(expected auto | flash | xla)")
+    return cfg.attention_backend != "xla"
+
+
+def _paged_decode_attention(cfg: TransformerConfig, x, lp, positions, pos, kp, vp,
+                            block_tables, pad_bias):
+    """One fused decode step over all running requests: x ``[B, 1, D]``, pos
+    ``[B]`` int32 cache depths, kp/vp one layer's pools, block_tables
+    ``[B, max_blocks]`` int32. Writes each request's new k/v at its slot,
+    then attends through the paged kernel (or, off its envelope, the gather
+    + grouped einsum). Returns ``[B, 1, D]``."""
+    B = x.shape[0]
+    H, Hd = cfg.n_head, cfg.head_dim
+    bs = kp.shape[1]
+    q, k, v = _qkv_project(cfg, x, lp, positions)
+    pos_l = pos.long()
+    slots = block_tables.long()[torch.arange(B, device=x.device), pos_l // bs] * bs + pos_l % bs
+    _pool_scatter(kp, k[:, 0], slots)
+    _pool_scatter(vp, v[:, 0], slots)
+    slopes = _alibi_slopes(H, x.device) if cfg.pos_embedding == "alibi" else None
+    o = None
+    if _use_kernels(cfg):
+        o = paged_decode_attention(q[:, 0], kp, vp, block_tables, pos, pad_bias=pad_bias,
+                                   alibi_slopes=slopes, scale=cfg.attn_scale)
+    if o is not None:
+        out = o.reshape(B, 1, H * Hd)
+    else:
+        out = _grouped_cache_einsum(cfg, q, _paged_gather(kp, block_tables),
+                                    _paged_gather(vp, block_tables), positions, pad_bias)
+    return _out_project(cfg, out, lp)
+
+
+def _paged_prefill_attention(cfg: TransformerConfig, x, lp, positions, kp, vp, slots):
+    """Prefill attention of ONE fresh request: causal self-attention over its
+    own prompt, its k/v scattered into the request's pool blocks. x
+    ``[1, T, D]``; slots ``[T]`` flat pool slots (pads routed to the dummy
+    block)."""
+    B, T, _ = x.shape
+    H, KV, Hd = cfg.n_head, cfg.kv_heads, cfg.head_dim
+    q, k, v = _qkv_project(cfg, x, lp, positions)
+    _pool_scatter(kp, k.reshape(T, KV, Hd), slots)
+    _pool_scatter(vp, v.reshape(T, KV, Hd), slots)
+    slopes = _alibi_slopes(H, x.device) if cfg.pos_embedding == "alibi" else None
+    if _use_kernels(cfg):
+        out = flash_attention(q, k, v, causal=True, alibi_slopes=slopes, scale=cfg.attn_scale)
+    else:
+        out = mha_attention(q, k, v, causal=True, alibi_slopes=slopes, scale=cfg.attn_scale)
+    return _out_project(cfg, out.reshape(B, T, H * Hd), lp)
+
+
+def _paged_chunk_attention(cfg: TransformerConfig, x, lp, positions, kp, vp,
+                           block_tables, slots):
+    """Prefill-chunk attention of ONE request with cached context (a prefix
+    hit or earlier chunks): the chunk's k/v land at ``slots``, then its
+    queries attend causally over everything the request has cached via the
+    paged gather and the grouped einsum (no kernel, as in the JAX package)."""
+    B, T, _ = x.shape
+    KV, Hd = cfg.kv_heads, cfg.head_dim
+    q, k, v = _qkv_project(cfg, x, lp, positions)
+    _pool_scatter(kp, k.reshape(T, KV, Hd), slots)
+    _pool_scatter(vp, v.reshape(T, KV, Hd), slots)
+    out = _grouped_cache_einsum(cfg, q, _paged_gather(kp, block_tables),
+                                _paged_gather(vp, block_tables), positions, None)
+    return _out_project(cfg, out, lp)
+
+
+def _check_paged_config(cfg: TransformerConfig):
+    if cfg.norm_position == "post" or not cfg.causal:
+        raise ValueError("the paged KV path serves pre-LN causal LMs only")
+    if cfg.sparse_attention is not None:
+        raise NotImplementedError(
+            "sparse_attention is not supported by the paged KV decode path")
+    if cfg.act_quant_bits:
+        raise NotImplementedError(
+            "activation fake-quant (act_quant_bits) is not ported: ROADMAP.md "
+            "queue 1, compression")
+
+
+def forward_paged_prefill(cfg: TransformerConfig, params, tokens, pools, slots, last_idx):
+    """Prefill ONE admitted request into its blocks. tokens ``[1, T]``
+    right-padded prompt; slots ``[T]`` flat pool slots; last_idx index of the
+    last real token. Returns (logits ``[1, vocab]`` at last_idx, pools)."""
+    _check_paged_config(cfg)
+    x, positions = cached_embed(cfg, params, tokens, 0, pools["k"].dtype)
+    for i, lp in enumerate(params["layers"]):
+        kp, vp = pools["k"][i], pools["v"][i]
+        x = _decode_block(cfg, x, lp, lambda xn: _paged_prefill_attention(
+            cfg, xn, lp["attn"], positions, kp, vp, slots))
+    xl = x[:, last_idx:last_idx + 1]
+    return cached_head(cfg, params, xl)[:, 0, :], pools
+
+
+def forward_paged_prefill_chunk(cfg: TransformerConfig, params, tokens, pools,
+                                block_tables, slots, start_pos, last_idx):
+    """Prefill ONE CHUNK of a request with ``start_pos`` tokens already
+    cached. tokens ``[1, T]`` the chunk, right-padded; block_tables
+    ``[1, max_blocks]``; slots ``[T]``; last_idx the chunk's last real
+    token. Returns (logits ``[1, vocab]`` at last_idx, pools)."""
+    _check_paged_config(cfg)
+    x, positions = cached_embed(cfg, params, tokens, start_pos, pools["k"].dtype)
+    for i, lp in enumerate(params["layers"]):
+        kp, vp = pools["k"][i], pools["v"][i]
+        x = _decode_block(cfg, x, lp, lambda xn: _paged_chunk_attention(
+            cfg, xn, lp["attn"], positions, kp, vp, block_tables, slots))
+    xl = x[:, last_idx:last_idx + 1]
+    return cached_head(cfg, params, xl)[:, 0, :], pools
+
+
+def forward_paged_decode(cfg: TransformerConfig, params, tokens, pools, block_tables,
+                         pos, pad_bias=None):
+    """One fused decode step over ALL running requests: tokens ``[B, 1]``,
+    block_tables ``[B, max_blocks]`` int32, pos ``[B]`` int32. Returns
+    (logits ``[B, vocab]``, pools)."""
+    _check_paged_config(cfg)
+    x, positions = cached_embed(cfg, params, tokens, pos, pools["k"].dtype)
+    for i, lp in enumerate(params["layers"]):
+        kp, vp = pools["k"][i], pools["v"][i]
+        x = _decode_block(cfg, x, lp, lambda xn: _paged_decode_attention(
+            cfg, xn, lp["attn"], positions, pos, kp, vp, block_tables, pad_bias))
+    return cached_head(cfg, params, x)[:, 0, :], pools
+
+
+def copy_paged_block(pools, src: int, dst: int):
+    """Copy one pool block across every layer (the scheduler's copy-on-write
+    split), in place."""
+    for key in ("k", "v"):
+        pools[key][:, dst].copy_(pools[key][:, src])
+    return pools

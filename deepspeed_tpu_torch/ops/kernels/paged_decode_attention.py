@@ -1,0 +1,165 @@
+"""Paged decode attention: the CUDA kernel ``csrc/paged_decode_attention.cu``
+and its plain PyTorch version.
+
+Replaces the TPU kernel ``deepspeed_tpu/ops/pallas/paged_decode_attention.py``
+``_kernel``: one new query token per running request against a KV cache
+kept as a pool of fixed-size blocks ``[num_blocks, block_size, KV, Hd]``
+shared by every request, each request reading its blocks through its row of
+``block_tables`` with its own position ``pos[b]``.
+
+What bounds it on the H100, and what the simple design does about it: a
+decode step does about one FLOP per K/V byte per query head of the group,
+far below the bf16 ridge, so it is bound by the live K/V bytes over
+3.35 TB/s. The kernel reads each live K/V byte once per kv group (all
+``H // KV`` query heads of the group share one CTA), walks only the blocks
+up to ``pos[b]``, and keeps the running softmax in fp32. It does not split
+a long history over several CTAs yet.
+
+:func:`paged_decode_attention` returns None off the kernel's envelope (as
+the JAX function does), takes the plain version for CPU tensors only, and
+for CUDA tensors launches the kernel or raises. ``launches`` counts kernel
+launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from deepspeed_tpu_torch.ops.kernels import build
+
+_NEG = -1e30
+
+#: kernel launches since the last reset (set it to 0 to start counting)
+launches = 0
+
+_DTYPE_CODE = {torch.float16: 0, torch.bfloat16: 1}
+_KERNEL_GROUPS = (1, 2, 4, 8)       # H // KV values the kernel is built for
+
+
+def paged_envelope_ok(H: int, KV: int, Hd: int, bs: int) -> bool:
+    """Whether (heads, kv_heads, head_dim, block_size) sits inside the
+    envelope of ``deepspeed_tpu``'s paged kernel, which this module keeps so
+    the two packages take the same paths."""
+    return H % KV == 0 and Hd % 64 == 0 and bs % 128 == 0
+
+
+def paged_decode_attention_plain(q, kp, vp, block_tables, pos, pad_bias=None,
+                                 alibi_slopes=None, scale: Optional[float] = None):
+    """The kernel's math in plain PyTorch: q pre-scaled in its own dtype,
+    then fp32 scores over the gathered table, ALiBi and pad bias over
+    logical positions, keys past ``pos[b]`` masked, natural-exp softmax."""
+    B, H, Hd = q.shape
+    Nb, bs, KV = kp.shape[0], kp.shape[1], kp.shape[2]
+    G = H // KV
+    scale = Hd**-0.5 if scale is None else scale
+    qs = (q * scale).float().reshape(B, KV, G, Hd)
+    # dead tail entries may hold anything: point them at block 0 (masked)
+    live = (torch.arange(block_tables.shape[1], device=q.device)[None, :]
+            <= (pos.long() // bs)[:, None])
+    table = torch.where(live, block_tables.long(), 0)
+    idx = (table[:, :, None] * bs
+           + torch.arange(bs, device=q.device)[None, None, :]).reshape(B, -1)
+    k = kp.reshape(Nb * bs, KV, Hd)[idx].float()          # [B, n*bs, KV, Hd]
+    v = vp.reshape(Nb * bs, KV, Hd)[idx].float()
+    s = torch.einsum("bcgd,bscd->bcgs", qs, k)
+    kpos = torch.arange(idx.shape[1], device=q.device)
+    rel = (kpos[None, :] - pos.long()[:, None]).float()   # [B, n*bs]
+    if alibi_slopes is not None:
+        s = s + alibi_slopes.float().reshape(1, KV, G, 1) * rel[:, None, None, :]
+    if pad_bias is not None:
+        s = s + pad_bias.float()[:, None, None, :]
+    s = torch.where(rel[:, None, None, :] <= 0, s, torch.full_like(s, _NEG))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    o = torch.einsum("bcgs,bscd->bcgd", p, v) / p.sum(dim=-1, keepdim=True)
+    return o.reshape(B, H, Hd).to(q.dtype)
+
+
+def _lib():
+    lib = build.load("paged_decode_attention")
+    fn = lib.ds_paged_decode_attention
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(name, x, ref, shape, dtype):
+    if x.device != ref.device:
+        raise ValueError(f"{name} is on {x.device}, q on {ref.device}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name} shape {tuple(x.shape)}, expected {tuple(shape)}")
+    if x.dtype != dtype:
+        raise TypeError(f"{name} dtype {x.dtype}, expected {dtype}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if x.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def paged_decode_attention_cuda(q, kp, vp, block_tables, pos, pad_bias=None,
+                                alibi_slopes=None, scale: Optional[float] = None):
+    """Launch the kernel on CUDA tensors (shape inside the envelope)."""
+    global launches
+    B, H, Hd = q.shape
+    Nb, bs, KV = kp.shape[0], kp.shape[1], kp.shape[2]
+    n_max = block_tables.shape[1]
+    if q.dtype not in _DTYPE_CODE:
+        raise TypeError(f"paged_decode_attention kernel takes fp16/bf16, got {q.dtype}")
+    if Hd not in (64, 128) or H // KV not in _KERNEL_GROUPS:
+        raise ValueError(f"paged_decode_attention kernel takes head_dim 64/128 and "
+                         f"H/KV in {_KERNEL_GROUPS}, got Hd={Hd}, H/KV={H // KV}")
+    scale = Hd**-0.5 if scale is None else scale
+    qs = (q * scale).contiguous()          # pre-scaled in q's dtype, as the TPU kernel
+    _check("q", qs, q, (B, H, Hd), q.dtype)
+    _check("kp", kp, q, (Nb, bs, KV, Hd), q.dtype)
+    _check("vp", vp, q, (Nb, bs, KV, Hd), q.dtype)
+    _check("block_tables", block_tables, q, (B, n_max), torch.int32)
+    _check("pos", pos, q, (B,), torch.int32)
+    bias = slopes = None
+    if pad_bias is not None:
+        bias = pad_bias.to(torch.float32).contiguous()
+        _check("pad_bias", bias, q, (B, n_max * bs), torch.float32)
+    if alibi_slopes is not None:
+        slopes = alibi_slopes.to(device=q.device, dtype=torch.float32).reshape(H).contiguous()
+    out = torch.empty_like(qs)
+    fn = _lib()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(qs.data_ptr(), kp.data_ptr(), vp.data_ptr(), block_tables.data_ptr(),
+                pos.data_ptr(), None if bias is None else bias.data_ptr(),
+                None if slopes is None else slopes.data_ptr(), out.data_ptr(),
+                B, H, KV, Hd, bs, n_max, _DTYPE_CODE[q.dtype], stream)
+    if rc != 0:
+        raise RuntimeError(f"paged_decode_attention launch failed: CUDA error {rc}")
+    launches += 1
+    return out
+
+
+def paged_decode_attention(q, kp, vp, block_tables, pos, *, pad_bias=None,
+                           alibi_slopes=None, scale: Optional[float] = None):
+    """Attention of one new token per request against a paged KV cache.
+
+    q ``[B, H, Hd]`` (rope applied); kp/vp ``[num_blocks, block_size, KV,
+    Hd]`` with each request's new k/v already written at its slot;
+    ``block_tables`` ``[B, max_blocks]`` int32 pool block ids; ``pos``
+    ``[B]`` int32 position of each request's new token (it attends logical
+    positions ``<= pos[b]``); ``pad_bias`` ``[B, max_blocks * block_size]``
+    additive f32 bias over logical positions. GQA head h reads kv head
+    ``h // (H // KV)``. Returns ``[B, H, Hd]``, or None when the shape is
+    outside the envelope (:func:`paged_envelope_ok`)."""
+    B, H, Hd = q.shape
+    bs, KV = kp.shape[1], kp.shape[2]
+    if not paged_envelope_ok(H, KV, Hd, bs):
+        return None
+    if q.is_cuda:
+        return paged_decode_attention_cuda(q, kp, vp, block_tables, pos, pad_bias,
+                                           alibi_slopes, scale)
+    if q.device.type == "cpu":
+        return paged_decode_attention_plain(q, kp, vp, block_tables, pos, pad_bias,
+                                            alibi_slopes, scale)
+    raise ValueError(f"paged_decode_attention: no kernel for device {q.device}")

@@ -1,0 +1,90 @@
+"""The port's paged decode attention against the JAX package's Pallas
+kernel (interpret mode) on random block tables, mirroring
+``tests/unit/ops/test_paged_decode_attention.py``: B 1-3, KV in {1, 2, 4},
+Hd in {64, 128}, block size 128, pad bias and ALiBi on and off, positions on
+block boundaries. fp32, 1e-5. Off-envelope shapes return None in both."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from deepspeed_tpu.ops.pallas.paged_decode_attention import \
+    paged_decode_attention as jax_paged
+from deepspeed_tpu_torch.ops.kernels import paged_decode_attention as pda
+
+TOL = 1e-5
+
+
+def random_paged_case(r, B, KV, Hd, bs, n_max, G=None):
+    """Pools + per-request non-overlapping random block tables + positions."""
+    H = KV * (int(r.choice([1, 2, 4])) if G is None else G)
+    num_blocks = B * n_max + 1
+    kp = r.normal(size=(num_blocks, bs, KV, Hd)).astype(np.float32)
+    vp = r.normal(size=(num_blocks, bs, KV, Hd)).astype(np.float32)
+    q = r.normal(size=(B, H, Hd)).astype(np.float32)
+    perm = r.permutation(num_blocks - 1) + 1     # dummy block 0 never mapped
+    bt = perm[:B * n_max].reshape(B, n_max).astype(np.int32)
+    pos = r.integers(0, n_max * bs, size=B).astype(np.int32)
+    return q, kp, vp, bt, pos
+
+
+def _both(q, kp, vp, bt, pos, bias=None, slopes=None):
+    j = lambda x: None if x is None else jnp.asarray(x)
+    t = lambda x: None if x is None else torch.from_numpy(np.ascontiguousarray(x))
+    want = jax_paged(j(q), j(kp), j(vp), j(bt), j(pos), pad_bias=j(bias),
+                     alibi_slopes=j(slopes), interpret=True)
+    got = pda.paged_decode_attention(t(q), t(kp), t(vp), t(bt), t(pos), pad_bias=t(bias),
+                                     alibi_slopes=t(slopes))
+    return got, want
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_plain_matches_jax_kernel(seed):
+    r = np.random.default_rng(200 + seed)
+    B = int(r.integers(1, 4))
+    KV = int(r.choice([1, 2, 4]))
+    Hd = int(r.choice([64, 128]))
+    n_max = int(r.integers(1, 4))
+    q, kp, vp, bt, pos = random_paged_case(r, B, KV, Hd, 128, n_max)
+    H = q.shape[1]
+    bias = (r.normal(size=(B, n_max * 128)) * 0.2).astype(np.float32) if seed % 2 else None
+    slopes = r.uniform(0.05, 0.4, size=H).astype(np.float32) if seed >= 2 else None
+    got, want = _both(q, kp, vp, bt, pos, bias, slopes)
+    assert got.shape == (B, H, Hd)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL, rtol=0)
+
+
+@pytest.mark.parametrize("Hd,G", [(64, 1), (128, 4)])
+def test_positions_on_block_boundaries(Hd, G):
+    """Rows at very different depths in one call, each masked by its own
+    pos: the first token, the last slot of a block, the first of the next."""
+    r = np.random.default_rng(11 + G)
+    q, kp, vp, bt, _ = random_paged_case(r, 4, 2, Hd, 128, 3, G=G)
+    pos = np.asarray([0, 127, 128, 255], np.int32)
+    got, want = _both(q, kp, vp, bt, pos)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL, rtol=0)
+
+
+def test_dead_tail_entries_are_ignored():
+    """Table entries past a request's last live block may hold anything."""
+    r = np.random.default_rng(5)
+    q, kp, vp, bt, _ = random_paged_case(r, 2, 2, 64, 128, 3)
+    pos = np.asarray([10, 140], np.int32)
+    got, _ = _both(q, kp, vp, bt, pos)
+    junk = bt.copy()
+    junk[0, 1:] = 10**6
+    junk[1, 2:] = -5
+    got2 = pda.paged_decode_attention(*(torch.from_numpy(x) for x in (q, kp, vp, junk, pos)))
+    np.testing.assert_array_equal(got.numpy(), got2.numpy())
+
+
+def test_envelope_returns_none_in_both():
+    bt = np.zeros((1, 2), np.int32)
+    pos = np.zeros(1, np.int32)
+    for Hd, bs in ((64, 64), (48, 128)):           # block not 128-aligned; odd head dim
+        q = np.zeros((1, 4, Hd), np.float32)
+        kp = np.zeros((3, bs, 4, Hd), np.float32)
+        assert pda.paged_envelope_ok(4, 4, Hd, bs) is False
+        got, want = _both(q, kp, kp, bt, pos)
+        assert got is None and want is None
