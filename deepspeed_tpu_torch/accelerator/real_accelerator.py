@@ -22,6 +22,19 @@ def get_accelerator(name: Optional[str] = None) -> DeepSpeedAccelerator:
     if name != "cuda":
         raise ValueError(f"unknown accelerator {name!r} (expected cuda | cpu)")
     if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: deepspeed_tpu_torch serves on an NVIDIA "
+        raise RuntimeError("no CUDA device: deepspeed_tpu_torch runs on an NVIDIA "
                            "GPU; pass device='cpu' to run the kernels' plain versions")
     return CUDA_Accelerator()
+
+
+def resolve_device(device=None) -> torch.device:
+    """An entry point's device: ``None`` -> ``cuda:0``, raising without a
+    CUDA device; the CPU only when asked for (the tests run the kernels'
+    plain versions there)."""
+    if device is None:
+        return get_accelerator("cuda").device(0)
+    dev = torch.device(device)
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    get_accelerator(dev.type)        # raises for cuda without a CUDA device
+    return dev

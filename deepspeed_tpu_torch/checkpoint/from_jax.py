@@ -1,4 +1,4 @@
-"""Carry a parameter tree made by the JAX package into the port.
+"""Carry state between the JAX package and the port, both ways.
 
 ``deepspeed_tpu.models.transformer.init_params`` returns a pytree with
 stacked ``[n_layer, ...]`` leaves under ``params["layers"]`` and ``[in, out]``
@@ -6,7 +6,11 @@ matmul weights. :func:`params_from_jax` takes that tree with its leaves as
 numpy arrays (``jax.tree.map(np.asarray, params)``; this module never
 imports JAX) and returns the port's
 :class:`~deepspeed_tpu_torch.models.transformer.ParamTree`: the same keys,
-the same layout, one sub-tree per layer."""
+the same layout, one sub-tree per layer. :func:`params_to_jax` goes back.
+:func:`adam_state_from_jax` carries the JAX optimizer's Adam moments and
+step count (optax ``ScaleByAdamState`` or the fused ``FusedAdamState``) into
+the port's :class:`~deepspeed_tpu_torch.runtime.optimizers.AdamState`, so a
+run started in one package resumes in the other."""
 
 from __future__ import annotations
 
@@ -15,17 +19,12 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from deepspeed_tpu_torch.models.transformer import ParamTree, TransformerConfig
+from deepspeed_tpu_torch.models.transformer import ParamTree, TransformerConfig, map_tree
+from deepspeed_tpu_torch.runtime.optimizers import AdamState
 
 
 def _tensor(a, dtype):
     return torch.as_tensor(np.array(a, dtype=np.float32)).to(dtype)
-
-
-def _convert(tree, dtype):
-    if isinstance(tree, dict):
-        return {k: _convert(v, dtype) for k, v in tree.items()}
-    return _tensor(tree, dtype)
 
 
 def params_from_jax(cfg: TransformerConfig, tree: Dict[str, Any],
@@ -45,6 +44,59 @@ def params_from_jax(cfg: TransformerConfig, tree: Dict[str, Any],
             return _tensor(a[i], dtype)
         return take(layers)
 
-    out = {k: _convert(v, dtype) for k, v in tree.items() if k != "layers"}
+    out = {k: map_tree(lambda a: _tensor(a, dtype), v) for k, v in tree.items() if k != "layers"}
     out["layers"] = [layer(i) for i in range(L)]
     return ParamTree(out)
+
+
+def params_to_jax(cfg: TransformerConfig, tree) -> Dict[str, Any]:
+    """The JAX package's layout (stacked ``[n_layer, ...]`` layer leaves,
+    numpy fp32) from the port's tree (a ParamTree or its nested dict)."""
+    if isinstance(tree, ParamTree):
+        tree = tree.to_dict()
+
+    def host(x):
+        if isinstance(x, dict):
+            return {k: host(v) for k, v in x.items()}
+        return torch.as_tensor(x).detach().to("cpu", torch.float32).numpy()
+
+    layers = [host(lp) for lp in tree["layers"]]
+    if len(layers) != cfg.n_layer:
+        raise ValueError(f"{len(layers)} layer trees, expected n_layer={cfg.n_layer}")
+
+    def stack(*leaves):
+        if isinstance(leaves[0], dict):
+            return {k: stack(*(lf[k] for lf in leaves)) for k in leaves[0]}
+        return np.stack(leaves)
+
+    out = {k: host(v) for k, v in tree.items() if k != "layers"}
+    out["layers"] = stack(*layers)
+    return out
+
+
+def _find_adam(state):
+    """The node of a JAX optimizer state that holds ``mu``, ``nu`` and
+    ``count`` (the state itself, or an element of an optax chain's tuple)."""
+    if all(hasattr(state, a) for a in ("mu", "nu", "count")):
+        return state
+    if isinstance(state, (tuple, list)):
+        for s in state:
+            found = _find_adam(s)
+            if found is not None:
+                return found
+    return None
+
+
+def adam_state_from_jax(cfg: TransformerConfig, opt_state) -> AdamState:
+    """The port's Adam state from the JAX engine's ``state.opt_state``
+    (leaves as numpy: ``jax.tree.map(np.asarray, opt_state)``), for the
+    engine-built adam / adamw / fusedadam. Moments come back in fp32, keyed
+    by the port's leaf names."""
+    node = _find_adam(opt_state)
+    if node is None:
+        raise ValueError("no Adam state (mu, nu, count) in this optimizer state")
+
+    def named(tree):
+        return {n: p.data for n, p in params_from_jax(cfg, tree).named_parameters()}
+
+    return AdamState(count=int(np.asarray(node.count)), mu=named(node.mu), nu=named(node.nu))

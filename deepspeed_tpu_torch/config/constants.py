@@ -1,0 +1,69 @@
+"""Config key names and defaults that the training slice reads (the subset
+of ``deepspeed_tpu/config/constants.py`` it needs, same names and values)."""
+
+#############################################
+# Batch size
+#############################################
+TRAIN_BATCH_SIZE = "train_batch_size"
+TRAIN_BATCH_SIZE_DEFAULT = None
+
+TRAIN_MICRO_BATCH_SIZE_PER_GPU = "train_micro_batch_size_per_gpu"
+TRAIN_MICRO_BATCH_SIZE_PER_GPU_DEFAULT = None
+
+GRADIENT_ACCUMULATION_STEPS = "gradient_accumulation_steps"
+GRADIENT_ACCUMULATION_STEPS_DEFAULT = None
+
+#############################################
+# Optimizer and lr scheduler
+#############################################
+OPTIMIZER = "optimizer"
+OPTIMIZER_TYPE_DEFAULT = None
+OPTIMIZER_PARAMS = "params"
+TYPE = "type"
+SCHEDULER = "scheduler"
+SCHEDULER_TYPE_DEFAULT = None
+SCHEDULER_PARAMS = "params"
+
+#############################################
+# Steps, timers
+#############################################
+STEPS_PER_PRINT = "steps_per_print"
+STEPS_PER_PRINT_DEFAULT = 10
+
+WALL_CLOCK_BREAKDOWN = "wall_clock_breakdown"
+WALL_CLOCK_BREAKDOWN_DEFAULT = False
+
+#############################################
+# bf16 / fp16 / amp
+#############################################
+BFLOAT16 = "bf16"
+BFLOAT16_OLD = "bfloat16"  # keeping for backwards compatibility
+FP16 = "fp16"
+AMP = "amp"
+
+#############################################
+# Gradient clipping
+#############################################
+GRADIENT_CLIPPING = "gradient_clipping"
+GRADIENT_CLIPPING_DEFAULT = 0.0
+
+#############################################
+# Data types
+#############################################
+DATA_TYPES = "data_types"
+GRAD_ACCUM_DTYPE = "grad_accum_dtype"
+GRAD_ACCUM_DTYPE_DEFAULT = None
+
+#############################################
+# ZeRO
+#############################################
+ZERO_OPTIMIZATION = "zero_optimization"
+ZERO_STAGE = "stage"
+ZERO_STAGE_DEFAULT = 0
+
+#############################################
+# Vocab-head loss kernel: overrides the model config's fused_cross_entropy
+# ("auto"|"on"|"off") when set
+#############################################
+FUSED_CROSS_ENTROPY = "fused_cross_entropy"
+FUSED_CROSS_ENTROPY_DEFAULT = None

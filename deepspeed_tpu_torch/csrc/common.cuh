@@ -65,4 +65,38 @@ template <> __device__ __forceinline__ void mma16816<__half>(float* c, const uin
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// Copy rows [row0, row0 + ROWS) of a [S, row_stride] slab into a [ROWS,
+// PITCH] shared tile with 16-byte vectors (HD elements per row); rows past S
+// are zero. All THREADS threads of the block take part.
+template <typename T, int HD, int PITCH, int ROWS, int THREADS>
+__device__ __forceinline__ void load_tile(T* dst, const T* src, int row0, int S,
+                                          long row_stride, int tid) {
+  constexpr int kVec = 8;
+  constexpr int kPerRow = HD / kVec;
+  for (int i = tid; i < ROWS * kPerRow; i += THREADS) {
+    const int r = i / kPerRow, c = (i % kPerRow) * kVec;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (row0 + r < S)
+      val = *reinterpret_cast<const uint4*>(src + (long)(row0 + r) * row_stride + c);
+    *reinterpret_cast<uint4*>(dst + r * PITCH + c) = val;
+  }
+}
+
+// The log2-domain additive bias of one (query, key) logit, the TPU kernels'
+// _block_bias: ALiBi (slope already times log2 e), -1e30 for a key past S or
+// above the causal diagonal, plus the key-side mask bias.
+__device__ __forceinline__ float attn_bias(int qpos, int kpos, int S, int causal, float slope,
+                                           const float* maskb) {
+  const bool valid = kpos < S && (!causal || qpos >= kpos);
+  float bias = valid ? slope * (float)(kpos - qpos) : kMasked;
+  if (maskb != nullptr && kpos < S) bias += maskb[kpos] * kLog2e;
+  return bias;
+}
+
+// One 32-bit word (two adjacent 16-bit elements) from shared memory.
+template <typename T>
+__device__ __forceinline__ uint32_t ld32(const T* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
 }  // namespace ds

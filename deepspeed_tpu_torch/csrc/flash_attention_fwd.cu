@@ -30,20 +30,10 @@ constexpr int kBQ = 64;        // q rows per CTA (4 warps x 16)
 constexpr int kBK = 64;        // keys per k/v tile
 constexpr int kThreads = 128;
 
-// Copy rows [row0, row0 + 64) of a [S, row_stride] slab into a [64, PITCH]
-// shared tile with 16-byte vectors; rows past S are zero.
 template <typename T, int HD, int PITCH>
 __device__ __forceinline__ void load_tile(T* dst, const T* src, int row0, int S,
                                           long row_stride, int tid) {
-  constexpr int kVec = 8;
-  constexpr int kPerRow = HD / kVec;
-  for (int i = tid; i < kBK * kPerRow; i += kThreads) {
-    const int r = i / kPerRow, c = (i % kPerRow) * kVec;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < S)
-      val = *reinterpret_cast<const uint4*>(src + (long)(row0 + r) * row_stride + c);
-    *reinterpret_cast<uint4*>(dst + r * PITCH + c) = val;
-  }
+  ds::load_tile<T, HD, PITCH, kBK, kThreads>(dst, src, row0, S, row_stride, tid);
 }
 
 template <typename T, int HD>
@@ -121,10 +111,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       for (int e = 0; e < 4; ++e) {
         const int row = e >> 1;
         const int kpos = k0 + nt * 8 + 2 * t + (e & 1);
-        const bool valid = kpos < S && (!causal || qpos[row] >= kpos);
-        float bias = valid ? slope * (float)(kpos - qpos[row]) : ds::kMasked;
-        if (maskb != nullptr && kpos < S) bias += maskb[kpos] * ds::kLog2e;
-        const float x = s[nt][e] * scale_log2 + bias;
+        const float x = s[nt][e] * scale_log2 +
+                        ds::attn_bias(qpos[row], kpos, S, causal, slope, maskb);
         s[nt][e] = x;
         rowmax[row] = fmaxf(rowmax[row], x);
       }

@@ -24,29 +24,13 @@ from typing import Optional
 import numpy as np
 import torch
 
-from deepspeed_tpu_torch.accelerator import get_accelerator
+from deepspeed_tpu_torch.accelerator.real_accelerator import resolve_device
 from deepspeed_tpu_torch.inference.block_allocator import DUMMY_BLOCK, BlockAllocator
 from deepspeed_tpu_torch.inference.config import DeepSpeedInferenceConfig, DtypeEnum
 from deepspeed_tpu_torch.inference.scheduler import ContinuousBatchingScheduler
 from deepspeed_tpu_torch.models.transformer import copy_paged_block
 from deepspeed_tpu_torch.utils.logging import log_dist
-
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported to deepspeed_tpu_torch yet (ROADMAP.md queue 1: {item})")
-
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` → ``cuda:0``, raising without a CUDA device; the CPU only
-    when asked for (the tests run the kernels' plain versions there)."""
-    if device is None:
-        return get_accelerator("cuda").device(0)
-    dev = torch.device(device)
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {dev}")
-    get_accelerator(dev.type)        # raises for cuda without a CUDA device
-    return dev
+from deepspeed_tpu_torch.utils.not_ported import not_ported
 
 
 class InferenceEngine:
@@ -85,27 +69,27 @@ class InferenceEngine:
         c = self._config
         srv = c.serving
         if DtypeEnum.from_any(c.dtype) == DtypeEnum.int8:
-            _not_ported("int8 weight-only quantization (dtype='int8')", "int8 inference")
+            not_ported("int8 weight-only quantization (dtype='int8')", "queue 1: int8 inference")
         if int(c.tensor_parallel.tp_size) > 1 or int(srv.tp) > 1 or int(c.mp_size) > 1:
-            _not_ported("tensor-parallel serving", "sharded serving")
+            not_ported("tensor-parallel serving", "queue 1: sharded serving")
         if int(srv.replicas.dp) > 1:
-            _not_ported("serving replicas (serving.replicas.dp > 1)", "sharded serving")
+            not_ported("serving replicas (serving.replicas.dp > 1)", "queue 1: sharded serving")
         if int(c.moe.ep_size) > 1 or int(c.ep_size) > 1 or hasattr(model, "moe"):
-            _not_ported("MoE inference", "MoE")
+            not_ported("MoE inference", "queue 1: MoE")
         off = dict(c.zero or {}).get("offload_param", {})
         if str(off.get("device", "none")).lower() in ("cpu", "nvme"):
-            _not_ported("ZeRO-Inference weight streaming", "ZeRO-Inference")
+            not_ported("ZeRO-Inference weight streaming", "queue 1: ZeRO-Inference")
         if c.telemetry_enabled():
-            _not_ported("serving telemetry", "telemetry and control plane")
+            not_ported("serving telemetry", "queue 1: telemetry and control plane")
         if c.checkpoint is not None or isinstance(model, str):
-            _not_ported("checkpoint loading", "checkpoint ingestion")
+            not_ported("checkpoint loading", "queue 1: checkpoint ingestion")
         if srv.kv_host.enabled:
-            _not_ported("the tiered KV cache (serving.kv_host)", "tiered KV cache")
+            not_ported("the tiered KV cache (serving.kv_host)", "queue 1: tiered KV cache")
         if str(srv.speculative.mode) == "ngram":
-            _not_ported("speculative decoding (serving.speculative.mode='ngram')",
-                        "speculative decoding")
+            not_ported("speculative decoding (serving.speculative.mode='ngram')",
+                       "queue 1: speculative decoding")
         if str(srv.paged) == "off":
-            _not_ported("the static generate path (serving.paged='off')", "static generate")
+            not_ported("the static generate path (serving.paged='off')", "queue 1: static generate")
 
     # ------------------------------------------------------------------ #
     # helpers shared with the JAX engine
@@ -197,7 +181,7 @@ class InferenceEngine:
             if mode == "on":
                 raise ValueError("serving.paged='on' but this engine cannot page: the "
                                  "model must be a causal LM with forward_paged_decode")
-            _not_ported("the static generate path (non-paged models)", "static generate")
+            not_ported("the static generate path (non-paged models)", "queue 1: static generate")
         max_new = max_new_tokens if max_new_tokens is not None else self._config.max_out_tokens
         if max_new <= 0:
             return [p.copy() for p in prompts]
@@ -399,7 +383,7 @@ class _ServeSession:
             for i, r in enumerate(reqs):
                 sched.record_decode(r, int(tok[i]))
         else:
-            _not_ported(f"the {kind!r} serving action", "speculative decoding")
+            not_ported(f"the {kind!r} serving action", "queue 1: speculative decoding")
 
     # ---- lifecycle ---- #
 

@@ -1,4 +1,4 @@
-"""Decoder transformer: the serving subset of
+"""Decoder transformer: the serving and training subsets of
 ``deepspeed_tpu/models/transformer.py`` in PyTorch.
 
 Same ``TransformerConfig`` fields, same parameter-tree keys and ``[in, out]``
@@ -17,6 +17,15 @@ Attention dispatch (``attention_backend``): ``"auto"`` and ``"flash"`` call
 the kernel wrappers in ``ops/kernels`` (the hand-written CUDA kernel for
 CUDA tensors, its plain version for CPU tensors); ``"xla"`` keeps the plain
 einsum paths of the JAX package's non-kernel branch.
+
+Training (:func:`lm_loss`) runs the same blocks under autograd: flash
+attention is differentiable through the backward kernels, ``remat`` True /
+"full" recomputes each block in the backward pass
+(``torch.utils.checkpoint``, non-reentrant), and the vocab head runs the
+plain ``chunked_vocab_ce`` (the fused CE kernel is not ported yet).
+Dropout draws from an explicit ``torch.Generator`` through per-layer integer
+seeds taken before each checkpointed block, so a recomputed block draws the
+same mask.
 """
 
 from __future__ import annotations
@@ -28,10 +37,12 @@ from typing import Any, Dict, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from deepspeed_tpu_torch.ops.attention import mha_attention
 from deepspeed_tpu_torch.ops.kernels.flash_attention import flash_attention
 from deepspeed_tpu_torch.ops.kernels.paged_decode_attention import paged_decode_attention
+from deepspeed_tpu_torch.utils.not_ported import not_ported
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,20 +113,22 @@ class TransformerConfig:
 class ParamTree(nn.Module):
     """A nested dict of tensors held as a module: ``tree["attn"]["wq"]``
     reads like the JAX pytree, lists (the per-layer trees) become
-    ``nn.ModuleList``, and ``.parameters()`` / ``state_dict()`` work as
-    usual. Tensors are frozen parameters (serving has no gradients)."""
+    ``nn.ModuleList``, and ``.parameters()`` / ``named_parameters()`` /
+    ``state_dict()`` work as usual (names like ``layers.0.attn.wq``).
+    Tensors are frozen parameters (serving) unless ``requires_grad`` is set
+    (the training engine's trees)."""
 
-    def __init__(self, tree: Dict[str, Any]):
+    def __init__(self, tree: Dict[str, Any], requires_grad: bool = False):
         super().__init__()
         self._keys = tuple(tree)
         for key, value in tree.items():
             if isinstance(value, dict):
-                self.add_module(key, ParamTree(value))
+                self.add_module(key, ParamTree(value, requires_grad))
             elif isinstance(value, (list, tuple)):
-                self.add_module(key, nn.ModuleList(ParamTree(v) for v in value))
+                self.add_module(key, nn.ModuleList(ParamTree(v, requires_grad) for v in value))
             else:
                 self.register_parameter(
-                    key, nn.Parameter(torch.as_tensor(value), requires_grad=False))
+                    key, nn.Parameter(torch.as_tensor(value), requires_grad=requires_grad))
 
     def __getitem__(self, key):
         if key not in self._keys:
@@ -137,16 +150,19 @@ class ParamTree(nn.Module):
                 out[key] = v.data
         return out
 
-    def map(self, fn) -> "ParamTree":
+    def map(self, fn, requires_grad: bool = False) -> "ParamTree":
         """A new tree with ``fn`` applied to every tensor (this one is left
         as it is, unlike ``nn.Module.to``)."""
-        def walk(x):
-            if isinstance(x, dict):
-                return {k: walk(v) for k, v in x.items()}
-            if isinstance(x, list):
-                return [walk(v) for v in x]
-            return fn(x)
-        return ParamTree(walk(self.to_dict()))
+        return ParamTree(map_tree(fn, self.to_dict()), requires_grad)
+
+
+def map_tree(fn, tree):
+    """``fn`` over every leaf of a nested dict / list tree."""
+    if isinstance(tree, dict):
+        return {k: map_tree(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [map_tree(fn, v) for v in tree]
+    return fn(tree)
 
 
 def init_params(cfg: TransformerConfig, generator: Optional[torch.Generator] = None,
@@ -512,3 +528,207 @@ def copy_paged_block(pools, src: int, dst: int):
     for key in ("k", "v"):
         pools[key][:, dst].copy_(pools[key][:, src])
     return pools
+
+
+# --------------------------------------------------------------------- #
+# training forward (lm_loss and what it runs)
+
+
+def key_mask_bias(attn_mask):
+    """``[B, S]`` 1=keep attention mask -> additive key-side bias ``[B, S]``
+    (0 keep / -1e9 drop) in fp32; None passes through."""
+    if attn_mask is None:
+        return None
+    return torch.where(attn_mask > 0, 0.0, -1e9).to(torch.float32)
+
+
+def _dropout(cfg: TransformerConfig, x, generator: Optional[torch.Generator]):
+    """Inverted dropout drawn from ``generator``; identity when the rate is
+    0 or no generator is given (eval / inference)."""
+    if not cfg.dropout or generator is None:
+        return x
+    keep = 1.0 - cfg.dropout
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x)).to(x.dtype)
+
+
+def _seeds(rng: Optional[torch.Generator], n: int):
+    """``n`` integer seeds from ``rng`` (None each without one): a dropout
+    generator rebuilt from its seed draws the same mask when a checkpointed
+    block is recomputed."""
+    if rng is None:
+        return [None] * n
+    return [int(s) for s in torch.randint(0, 2**62, (n,), generator=rng)]
+
+
+def _generator(seed: Optional[int], device):
+    return None if seed is None else torch.Generator(device=device).manual_seed(seed)
+
+
+def attention(cfg: TransformerConfig, x, lp, positions, mask_bias):
+    """Multi-head attention of one training block: projections, rope,
+    ALiBi, then flash attention (kernels A, C, D on the card) for
+    ``attention_backend`` auto / flash, or the plain ``mha_attention`` for
+    xla. GQA kv goes in unrepeated."""
+    if cfg.sparse_attention is not None:
+        not_ported("sparse attention", "queue 1: sparse attention")
+    if cfg.sequence_parallel != "none":
+        not_ported(f"sequence parallelism ({cfg.sequence_parallel})", "queue 1: sequence/")
+    if cfg.manual_tp:
+        not_ported("manual tensor parallelism (manual_tp)", "queue 1: runtime/pipe/")
+    if cfg.act_quant_bits:
+        not_ported("activation fake-quant (act_quant_bits)", "queue 1: compression")
+    B, S, _ = x.shape
+    H, Hd = cfg.n_head, cfg.head_dim
+    q, k, v = _qkv_project(cfg, x, lp, positions)
+    slopes = _alibi_slopes(H, x.device) if cfg.pos_embedding == "alibi" else None
+    if _use_kernels(cfg):
+        out = flash_attention(q, k, v, mask_bias=mask_bias, causal=cfg.causal,
+                              alibi_slopes=slopes, scale=cfg.attn_scale)
+    else:
+        out = mha_attention(q, k, v, mask_bias=mask_bias, causal=cfg.causal,
+                            alibi_slopes=slopes, scale=cfg.attn_scale)
+    return _out_project(cfg, out.reshape(B, S, H * Hd), lp)
+
+
+def block(cfg: TransformerConfig, x, lp, positions, mask_bias, seed: Optional[int] = None):
+    """One transformer block (pre-LN, parallel-residual or post-LN wiring).
+    ``seed`` (training with dropout only) seeds the block's dropout."""
+    gen = _generator(seed, x.device) if cfg.dropout else None
+    if cfg.norm_position == "post":
+        a = _dropout(cfg, attention(cfg, x, lp["attn"], positions, mask_bias), gen)
+        x = _norm(cfg, x + a, lp["ln_attn"])
+        return _norm(cfg, x + _dropout(cfg, mlp(cfg, x, lp["mlp"]), gen), lp["ln_mlp"])
+    a = _dropout(cfg, attention(cfg, _norm(cfg, x, lp["ln_attn"]), lp["attn"], positions,
+                                mask_bias), gen)
+    if cfg.parallel_residual:
+        return x + a + _dropout(cfg, mlp(cfg, _norm(cfg, x, lp["ln_mlp"]), lp["mlp"]), gen)
+    x = x + a
+    return x + _dropout(cfg, mlp(cfg, _norm(cfg, x, lp["ln_mlp"]), lp["mlp"]), gen)
+
+
+def _remat(remat) -> bool:
+    """Whether each block is recomputed in the backward pass: True / "full"
+    (the JAX package's full remat), or not at all (False / "none")."""
+    if remat is True or remat == "full":
+        return True
+    if not remat or remat == "none":
+        return False
+    if remat in ("selective", "dots", "offload_dots"):
+        not_ported(f"the remat policy {remat!r}", "queue 3: remat policies")
+    raise ValueError(f"unknown remat policy {remat!r} (expected True/'full', "
+                     "'dots', 'selective', 'offload_dots', False/'none')")
+
+
+def run_layers(cfg: TransformerConfig, x, layer_params, positions, mask_bias,
+               rng: Optional[torch.Generator] = None):
+    """Run the layer blocks over ``x`` with the config's remat policy.
+    ``rng`` (training loss paths only) seeds per-layer dropout; None keeps
+    every path deterministic."""
+    layers = list(layer_params)
+    seeds = _seeds(rng if cfg.dropout else None, len(layers))
+    full = _remat(cfg.remat)
+    for lp, seed in zip(layers, seeds):
+        if full:
+            x = checkpoint(block, cfg, x, lp, positions, mask_bias, seed, use_reentrant=False)
+        else:
+            x = block(cfg, x, lp, positions, mask_bias, seed)
+    return x
+
+
+def hidden_states(cfg: TransformerConfig, params, tokens, attn_mask=None,
+                  rng: Optional[torch.Generator] = None):
+    """tokens ``[B, S]`` -> final normed hidden states ``[B, S, D]`` (the
+    forward body without the vocab projection). ``rng`` enables dropout."""
+    if cfg.norm_position == "post":
+        raise ValueError("norm_position='post' is not supported by the LM "
+                         "forward paths; use run_layers (e.g. BertModel)")
+    B, S = tokens.shape
+    tokens = tokens.long()
+    x = params["embed"]["tokens"][tokens]
+    positions = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
+    if cfg.pos_embedding == "learned":
+        x = x + params["embed"]["positions"][:S][None, :, :]
+    if cfg.embed_layernorm:
+        x = _norm(cfg, x, params["embed"]["ln"])
+    k_embed, k_layers = (_seeds(rng, 2) if cfg.dropout else (None, None))
+    x = _dropout(cfg, x, _generator(k_embed, x.device))
+    x = run_layers(cfg, x, params["layers"], positions, key_mask_bias(attn_mask),
+                   rng=_generator(k_layers, "cpu"))
+    return _norm(cfg, x, params["ln_f"])
+
+
+def _head_bias(params):
+    """Optional ``[vocab]`` logits bias (GPT-J's lm_head carries one)."""
+    return params.get("lm_head_bias", 0)
+
+
+def forward(cfg: TransformerConfig, params, tokens, attn_mask=None):
+    """tokens ``[B, S]`` -> logits ``[B, S, vocab]``."""
+    x = hidden_states(cfg, params, tokens, attn_mask)
+    return x @ _head_weight(cfg, params) + _head_bias(params)
+
+
+def _token_ce(logits, labels, valid):
+    """Per-token nll sum and valid count from ``[N, V]`` fp32 logits."""
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, 1, labels[:, None])[:, 0]
+    return torch.sum((lse - gold) * valid), torch.sum(valid)
+
+
+def _chunk_ce(h, w, hb, labels, valid):
+    return _token_ce((h @ w + hb).float(), labels, valid)
+
+
+def chunked_vocab_ce(h, w, hb, safe_labels, valid, chunk: int):
+    """Mean token cross-entropy for a vocab head ``h @ w + hb`` from
+    ``[B, S, D]`` features. With ``chunk > 0`` dividing B*S, the projection
+    and CE run over token chunks, each recomputed in the backward pass, so
+    the ``[B, S, vocab]`` fp32 logits are never held at once."""
+    B, S, D = h.shape
+    vf = valid.to(torch.float32)
+    if chunk <= 0 or (B * S) % chunk != 0:
+        nll, n = _chunk_ce(h.reshape(B * S, D), w, hb, safe_labels.reshape(-1), vf.reshape(-1))
+        return nll / torch.clamp(n, min=1)
+    nc = (B * S) // chunk
+    hf, lf, vff = h.reshape(nc, chunk, D), safe_labels.reshape(nc, chunk), vf.reshape(nc, chunk)
+    nll = n = 0.0
+    for i in range(nc):
+        c_nll, c_n = checkpoint(_chunk_ce, hf[i], w, hb, lf[i], vff[i], use_reentrant=False)
+        nll, n = nll + c_nll, n + c_n
+    return nll / torch.clamp(n, min=1)
+
+
+def _check_fused_ce(cfg) -> None:
+    """Refuse ``fused_cross_entropy="on"``: the fused logits-free CE kernel
+    is not ported yet, so "auto" means the plain path on every device."""
+    mode = getattr(cfg, "fused_cross_entropy", "auto")
+    if mode == "on":
+        not_ported("the fused cross-entropy kernel (fused_cross_entropy='on')",
+                    "queue 2: K3 fused CE")
+    if mode not in ("auto", "off"):
+        raise ValueError(f"fused_cross_entropy={mode!r} (expected 'auto', 'on' or 'off')")
+
+
+def vocab_head_ce(cfg, h, w, hb, safe_labels, valid):
+    """Mean token CE for a vocab head ``h @ w + hb``: the single dispatch
+    every loss head goes through (``chunked_vocab_ce`` with
+    ``cfg.loss_chunk``)."""
+    _check_fused_ce(cfg)
+    return chunked_vocab_ce(h, w, hb, safe_labels, valid, getattr(cfg, "loss_chunk", 0))
+
+
+def lm_loss(cfg: TransformerConfig, params, batch, rng: Optional[torch.Generator] = None,
+            ignore_index: int = -100):
+    """Next-token cross-entropy. batch: dict(input_ids ``[B, S]``, optional
+    labels ``[B, S]`` (else the inputs shifted left, the last position
+    ignored), optional attention_mask ``[B, S]``)."""
+    tokens = batch["input_ids"]
+    labels = batch.get("labels")
+    if labels is None:
+        labels = torch.cat([tokens[:, 1:], torch.full_like(tokens[:, :1], ignore_index)], dim=1)
+    x = hidden_states(cfg, params, tokens, batch.get("attention_mask"), rng=rng)
+    valid = labels != ignore_index
+    safe_labels = torch.where(valid, labels, torch.zeros_like(labels)).long()
+    return vocab_head_ce(cfg, x, _head_weight(cfg, params), _head_bias(params), safe_labels,
+                         valid)

@@ -33,7 +33,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # library name -> its source; every source may include csrc/common.cuh
 SOURCES: Dict[str, str] = {
     "flash_attention": "flash_attention_fwd.cu",
+    "flash_attention_bwd": "flash_attention_bwd.cu",
     "paged_decode_attention": "paged_decode_attention.cu",
+    "fused_adam": "fused_adam.cu",
 }
 _HEADERS = ("common.cuh",)
 

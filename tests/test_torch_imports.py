@@ -40,11 +40,22 @@ def test_no_forbidden_imports():
     assert not bad, bad
 
 
+# the training slice's modules, which the import check below must cover
+TRAINING_MODULES = (
+    "deepspeed_tpu_torch.config.constants", "deepspeed_tpu_torch.config.precision",
+    "deepspeed_tpu_torch.config.core", "deepspeed_tpu_torch.runtime.utils",
+    "deepspeed_tpu_torch.runtime.loss_scaler", "deepspeed_tpu_torch.runtime.lr_schedules",
+    "deepspeed_tpu_torch.runtime.optimizers", "deepspeed_tpu_torch.runtime.engine",
+    "deepspeed_tpu_torch.ops.adam.fused_adam_kernel",
+)
+
+
 def test_import_leaves_jax_and_pydantic_out():
     mods = ["deepspeed_tpu_torch"] + sorted(
         "deepspeed_tpu_torch." + ".".join(p.relative_to(ROOT / "deepspeed_tpu_torch")
                                           .with_suffix("").parts)
         for p in (ROOT / "deepspeed_tpu_torch").rglob("*.py") if p.name != "__init__.py")
+    assert set(TRAINING_MODULES) <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -70,6 +81,21 @@ def test_init_inference_needs_cuda_or_cpu():
     assert engine.device.type == "cpu"
 
 
+def test_initialize_needs_cuda_or_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid here")
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import llama
+
+    model = llama("tiny", n_layer=1, d_model=64, n_head=1, d_ff=64, vocab_size=32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        deepspeed_tpu_torch.initialize(model=model, config={"train_batch_size": 1})
+    engine, optimizer, loader, sched = deepspeed_tpu_torch.initialize(
+        model=model, config={"train_batch_size": 1}, device="cpu")
+    assert engine.device.type == "cpu" and optimizer is engine.optimizer
+    assert loader is None and sched is None
+
+
 def test_kernel_wrappers_refuse_unsupported_cuda_inputs_without_fallback():
     """The wrappers take the plain version for CPU tensors only: any other
     device either launches the kernel or raises (no quiet fallback)."""
@@ -85,3 +111,12 @@ def test_kernel_wrappers_refuse_unsupported_cuda_inputs_without_fallback():
     with pytest.raises(ValueError, match="no kernel for device"):
         pda.paged_decode_attention(qd, kp, kp, bt, torch.zeros(1, dtype=torch.int32,
                                                                device="meta"))
+    from deepspeed_tpu_torch.ops.adam import fused_adam_kernel as fad
+    rows = torch.zeros((1, 2, 8), device="meta")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        fa.flash_attention_dq(q, q, q, q, rows, rows)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        fa.flash_attention_dkv(q, q, q, q, rows, rows)
+    flat = torch.zeros(16, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        fad.fused_adam_step(flat, flat, flat, flat, step=1)
