@@ -8,9 +8,11 @@ Phases, each printing one JSON line:
   env           torch / CUDA versions and the card (nvidia-smi name, power limit)
   build         nvcc build of every kernel of the serving path, from csrc/
   kernel        each kernel against its plain PyTorch version on the card, in
-                bf16, at the serving path's shapes and at edge shapes, with
-                its time, the plain version's, the library call's (SDPA for
-                flash attention) and the bound
+                bf16, at its path's shapes and at edge shapes, with planted
+                faults that must read above each limit, its time, the plain
+                version's, the library call's (SDPA for attention, fused
+                AdamW, F.linear + F.cross_entropy for the fused CE) and the
+                bound
   slice_parity  Llama-7B width cut to 2 layers: the same seeded weights served
                 on the card (kernels) and on the CPU (plain versions, fp32);
                 greedy tokens must agree wherever the CPU's top-2 logit
@@ -19,24 +21,40 @@ Phases, each printing one JSON line:
                 through init_inference + generate_batch with the default
                 serving config; the kernels' launch counters must match the
                 scheduler's prefill and decode actions
-  train_parity  Llama-7B width cut to 2 layers: the same seeded weights and
+  generate_parity  Llama-7B width cut to 2 layers: static generate
+                (engine.generate) on the card (bf16, dense decode kernel)
+                and on the CPU (fp32, plain versions); greedy tokens must
+                agree wherever the CPU's top-2 margin exceeds the tolerance
+  generate      full Llama-2-7B (32 layers, bf16) through init_inference +
+                generate on an [8, 512] prompt batch, 64 new tokens, greedy:
+                tokens/s, prefill ms, ms per decode step, peak memory; the
+                dense decode kernel launched 32 x (generated - 1) times
+  train_parity  Llama-7B width cut to 1 layer: the same seeded weights and
                 batches trained 3 steps through initialize + train_batch on
                 the card (bf16, kernels) and on the CPU (fp32, plain
-                versions); per-step losses and each leaf's update must agree
+                versions), fused cross-entropy "on" in both; each leaf's
+                first gradient (with a fault planted in the attention and CE
+                backward kernels, which must read above the limit),
+                per-step losses and each leaf's update must agree
   train         Llama-7B width cut to 8 layers (bf16, random seeded weights)
                 through initialize + train_batch with the slice's training
                 config (FusedAdam, WarmupLR, clipping, gas 2) on one
-                [8, 2048] token batch: 1 warm-up + 5 timed steps, every loss
+                [8, 2048] token batch, fused cross-entropy "auto" (or as
+                --fused-ce says): 1 warm-up + 5 timed steps, every loss
                 finite and falling, the kernels' launch counters per step
-                equal to 2 L gas (A), L gas (C, D) and one per leaf (E)
-  kernels       every ported kernel with its launches in the serve and train
-                phases
+                equal to 2 L gas (A), L gas (C, D), one per leaf (E) and gas
+                (each fused CE kernel; 0 with --fused-ce off)
+  kernels       every ported kernel with its launches in the serve, generate
+                and train phases
   profile       (only with --phases profile) the serve phase's prompts through
                 fresh engines after a warm-up: warm tokens/s, device kernel
                 time by class under torch.profiler, the device's idle share
   train_profile (only with --phases train_profile) one warm train step of the
                 train phase's configuration under torch.profiler: device
                 time by class and the device's idle share
+  generate_profile (only with --phases generate_profile) the generate
+                phase's call after a warm-up, timed and then under
+                torch.profiler: device time by class and the idle share
 
 The last line is {"ok": true, "device": {...}}. Any failure raises, so the
 script exits non-zero and prints no result line; it also exits non-zero
@@ -53,9 +71,9 @@ import subprocess
 import sys
 import time
 
-PHASES = ("env", "build", "kernel", "slice_parity", "serve", "train_parity", "train", "kernels",
-          "profile", "train_profile")
-DEFAULT_PHASES = PHASES[:-2]      # "profile" and "train_profile" run only when asked for
+PHASES = ("env", "build", "kernel", "slice_parity", "serve", "generate_parity", "generate",
+          "train_parity", "train", "kernels", "profile", "train_profile", "generate_profile")
+DEFAULT_PHASES = PHASES[:-3]      # the three profiles run only when asked for
 # Kernel vs plain version, bf16 outputs: the largest difference in each output
 # row (over head_dim), in bf16 ulps of that row's largest |plain| value, so
 # one limit holds at every output scale (a row over 500 keys is ~20x smaller
@@ -72,6 +90,8 @@ MARGIN_TOL = 0.1                # logit units: bf16 serving vs fp32 CPU referenc
 # correct summation orders.
 GRAD_FLOOR = 2.0**-10
 ADAM_TOL = 1e-6                 # kernel E: u, m, v error relative to the largest plain value
+CE_TOL = 1e-4                   # kernel F: nll and log2-domain lse, absolute fp32 (PERF.md §6)
+DB_TOL = 1e-4                   # kernel G: db relative to its largest plain value
 FP32_PEAK_TFLOPS = 67.0         # H100 SXM fp32 outside the tensor cores (data sheet)
 TRAIN_CONFIG = {"train_batch_size": 8, "train_micro_batch_size_per_gpu": 4,
                 "gradient_accumulation_steps": 2,
@@ -82,10 +102,11 @@ TRAIN_CONFIG = {"train_batch_size": 8, "train_micro_batch_size_per_gpu": 4,
                               "params": {"warmup_min_lr": 0.0, "warmup_max_lr": 3e-4,
                                          "warmup_num_steps": 2}},
                 "gradient_clipping": 1.0, "bf16": {"enabled": True},
-                "fused_cross_entropy": "off"}
+                "fused_cross_entropy": "auto"}
 TRAIN_LAYERS = 8                # Llama-2-7B width, depth cut 32 -> 8 (PERF.md section 4)
 TRAIN_SEQ = 2048
 TRAIN_STEPS = 6                 # 1 warm-up + 5 timed
+PARITY_LAYERS = 1               # train_parity's depth: its fp32 CPU side is most of the run
 PARITY_LOSS_TOL = 3e-2          # absolute, bf16 card vs fp32 CPU (PERF.md section 6)
 PARITY_UPDATE_TOL = 0.5         # |card update - CPU update| / |CPU update|, per leaf
 # |card grad - CPU grad| / |CPU grad| per leaf, first batch at the initial
@@ -166,7 +187,9 @@ def phase_env(state):
 
 
 _KERNEL_NAMES = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
-                 "paged_decode_kernel", "fused_adam_kernel")
+                 "paged_decode_kernel", "dense_decode_kernel", "fused_adam_kernel",
+                 "fused_ce_fwd_kernel", "fused_ce_combine_kernel", "fused_ce_ds_kernel",
+                 "fused_ce_db_kernel", "ce_dh_gemm_kernel", "ce_dw_gemm_kernel")
 
 
 def ptxas_summary(log):
@@ -380,10 +403,226 @@ def phase_kernel(state, seed):
             rec["bound_ms"], rec["bound_by"] = bound(nbytes, flops)
             results["paged_decode_attention"] = rec
         emit("kernel", **rec)
+    _check_dense_decode(gen, results, failures)
     _check_backward_kernels(gen, fa, results, failures)
     from deepspeed_tpu_torch.ops.adam import fused_adam_kernel as fad
     _check_fused_adam(gen, fad, results, failures)
+    _check_fused_ce(gen, results, failures)
     check(not failures, "kernel checks failed: " + "; ".join(failures))
+
+
+def _dense_faults(dda, q, ck, cv, pos, pad, slopes):
+    """The plain version with a kernel fault planted: the kv head index off
+    by one, and the last live 128-key block dropped (from pos 128 on) or,
+    below that, the key past pos left unmasked."""
+    import torch
+    faults = {"kv_head_shifted": dda.decode_attention_plain(q, ck.roll(1, 2), cv.roll(1, 2),
+                                                            pos, pad, slopes)}
+    if pos >= 128:
+        drop = torch.zeros(ck.shape[:2], device=q.device)
+        drop[:, pos // 128 * 128:] = -1e9
+        if pad is not None:
+            drop = drop + pad
+        faults["last_block_dropped"] = dda.decode_attention_plain(q, ck, cv, pos, drop, slopes)
+    else:
+        faults["key_past_pos_unmasked"] = dda.decode_attention_plain(q, ck, cv, pos + 1, pad,
+                                                                     slopes)
+    return faults
+
+
+def _check_dense_decode(gen, results, failures):
+    """Kernel G5 (the dense decode kernel, TPU K5) against its plain version
+    at the generate phase's shape (Llama-7B heads, 8 rows, a 1024-slot
+    workspace at pos 575) and at edge shapes; timed at the generate shape
+    against SDPA of one query over the live prefix."""
+    import torch
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops.kernels import decode_attention as dda
+    dev, dt = "cuda", torch.bfloat16
+    # (B, H, KV, Hd, Smax, pos, bias, alibi)
+    cases = {
+        "slice": (GEN_BATCH, 32, 32, 128, GEN_SMAX, GEN_PROMPT + GEN_MAX_NEW - 1, False, False),
+        "gqa4_pos0_bias": (2, 32, 8, 128, 256, 0, True, False),
+        "gqa8_last_slot_alibi": (3, 16, 2, 128, 384, 383, False, True),
+        "gpt2_hd64_bias_alibi": (2, 12, 12, 64, 512, 200, True, True),
+    }
+    for name, (B, H, KV, Hd, Smax, pos, bias, alibi) in cases.items():
+        q = torch.randn((B, H, Hd), generator=gen, device=dev).to(dt)
+        ck = torch.randn((B, Smax, KV, Hd), generator=gen, device=dev).to(dt)
+        cv = torch.randn((B, Smax, KV, Hd), generator=gen, device=dev).to(dt)
+        pad = (torch.randn((B, Smax), generator=gen, device=dev) * 0.2) if bias else None
+        slopes = (torch.rand((H,), generator=gen, device=dev) * 0.3 + 0.05) if alibi else None
+        run = lambda: dda.decode_attention(q, ck, cv, pos, pad_bias=pad, alibi_slopes=slopes)
+        plain = lambda: dda.decode_attention_plain(q, ck, cv, pos, pad, slopes)
+        o, ro = run(), plain()
+        faults = _dense_faults(dda, q, ck, cv, pos, pad, slopes)
+        torch.cuda.synchronize()
+        rec = {"kernel": "dense_decode_attention", "case": name,
+               "shape": [B, H, KV, Hd, Smax], "pos": pos, "bias": bias, "alibi": alibi,
+               **_hold("dense_decode_attention", name, [o], [ro],
+                       {f: [r] for f, r in faults.items()}, failures)}
+        if name == "slice":
+            rec["ms"] = cuda_ms(run)
+            rec["plain_ms"] = cuda_ms(plain, reps=20)
+            G = H // KV
+            qt = (q * Hd**-0.5).reshape(B, H, 1, Hd)
+            kt = ck[:, :pos + 1].transpose(1, 2).repeat_interleave(G, dim=1).contiguous()
+            vt = cv[:, :pos + 1].transpose(1, 2).repeat_interleave(G, dim=1).contiguous()
+            rec["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                                               scale=1.0))
+            rec["library"] = "SDPA of one query over the live prefix (GQA repeated outside)"
+            live = B * (pos + 1) * KV * Hd
+            nbytes = q.element_size() * (2 * q.numel() + 2 * live)
+            rec["bound_ms"], rec["bound_by"] = bound(nbytes, 4 * B * (pos + 1) * H * Hd)
+            results["dense_decode_attention"] = rec
+        emit("kernel", **rec)
+
+
+def _ce_case(gen, N, D, V, bias, tied, masked):
+    """Inputs of the fused CE kernels: h [N, D] (unit rows, as after the
+    final norm), W [D, V] (std 0.02; a [V, D] embedding read as W.T when
+    tied), bias, labels, and the nll coefficient of a masked mean."""
+    import torch
+    dev, dt = "cuda", torch.bfloat16
+    h = torch.randn((N, D), generator=gen, device=dev).to(dt)
+    shape = (V, D) if tied else (D, V)
+    w = (torch.randn(shape, generator=gen, device=dev) * 0.02).to(dt)
+    w = w.T if tied else w
+    b = (torch.randn((V,), generator=gen, device=dev) * 0.5) if bias else None
+    labels = torch.randint(0, V, (N,), generator=gen, device=dev, dtype=torch.int32)
+    valid = torch.ones((N,), device=dev)
+    if masked:
+        valid[torch.rand((N,), generator=gen, device=dev) < 0.1] = 0.0
+    return h, w, b, labels, valid / valid.sum().clamp(min=1)
+
+
+def _ce_faults(fce, h, w, b, labels, lse, coef, ds):
+    """Plain versions with a kernel fault planted. F: the last vocab tile
+    dropped, the gold logit read one column off. G: the onehot not
+    subtracted, the last token tile skipped. dh: the 32-wide K chunk that
+    holds the first token's label dropped, W's rows shifted by one. dW: the
+    last 32 tokens dropped, h's rows shifted by one."""
+    import torch
+    N, V = ds.shape
+    drop = torch.zeros((V,), device=h.device) if b is None else b.clone()
+    drop[(V - 1) // 128 * 128:] = -1e30
+    f = {"last_vocab_tile_dropped": fce.fused_ce_fwd_plain(h, w, drop, labels),
+         "gold_one_column_off": fce.fused_ce_fwd_plain(h, w, b, (labels + 1) % V)}
+    rds, _ = fce.fused_ce_ds_plain(h, w, b, labels, lse, coef)
+    onehot = torch.zeros_like(rds, dtype=torch.float32)
+    onehot[torch.arange(N, device=h.device), labels.long()] = coef
+    cut = rds.clone()
+    cut[(N - 1) // 128 * 128:] = 0
+    g = {"onehot_not_subtracted": (rds.float() + onehot).to(rds.dtype),
+         "last_token_tile_skipped": cut}
+    k_cut = ds.clone()
+    k0 = int(labels[0]) // 32 * 32
+    k_cut[:, k0:k0 + 32] = 0
+    dh = {"gold_k_chunk_dropped": fce.fused_ce_dh_plain(k_cut, w),
+          "w_rows_shifted": fce.fused_ce_dh_plain(ds, w.roll(1, 0))}
+    t_cut = ds.clone()
+    t_cut[(N - 1) // 32 * 32:] = 0
+    dw = {"last_k_chunk_dropped": fce.fused_ce_dw_plain(h, t_cut),
+          "h_rows_shifted": fce.fused_ce_dw_plain(h.roll(1, 0), ds)}
+    return f, g, dh, dw
+
+
+def _ce_library_ms(h, w, labels):
+    """The yardsticks: F.linear + F.cross_entropy forward, and its autograd
+    backward (forward + backward minus forward) for G, dh and dW together."""
+    import torch
+    import torch.nn.functional as F
+    hh, ww = h.detach().requires_grad_(), w.detach().requires_grad_()
+    lab = labels.long()
+    fwd = lambda: F.cross_entropy(F.linear(hh, ww.T), lab)
+    both = lambda: torch.autograd.grad(fwd(), (hh, ww))
+    f_ms = cuda_ms(fwd, reps=10)
+    return f_ms, cuda_ms(both, reps=10) - f_ms
+
+
+def _check_fused_ce(gen, results, failures):
+    """Kernels F, G and the dh / dW products (TPU K3) against their plain
+    versions at the train phase's micro-batch (N 8192, D 4096, V 32000,
+    Llama's untied head) and at edge shapes: GPT-2's tied head (V 50257,
+    read as embed.T) with a bias, N and V off the tiles, masked tokens.
+    Each kernel is fed the plain version's inputs (G the plain lse, the
+    products the plain ds), so each is held alone."""
+    import torch
+    from deepspeed_tpu_torch.ops.kernels import fused_cross_entropy as fce
+    # (N, D, V, bias, tied, masked)
+    cases = {
+        "slice": (TRAIN_CONFIG["train_micro_batch_size_per_gpu"] * TRAIN_SEQ, 4096, 32000,
+                  False, False, True),
+        "gpt2_tied_bias": (1000, 768, 50257, True, True, True),
+        "ragged_bias": (300, 512, 1000, True, False, True),
+    }
+    for name, (N, D, V, bias, tied, masked) in cases.items():
+        h, w, b, labels, coef = _ce_case(gen, N, D, V, bias, tied, masked)
+        nll, lse = fce.fused_ce_fwd(h, w, b, labels)
+        rnll, rlse = fce.fused_ce_fwd_plain(h, w, b, labels)
+        ds, db = fce.fused_ce_ds(h, w, b, labels, rlse, coef)
+        rds, rdb = fce.fused_ce_ds_plain(h, w, b, labels, rlse, coef)
+        dh, dw = fce.fused_ce_dh(rds, w), fce.fused_ce_dw(h, rds, w)
+        rdh, rdw = fce.fused_ce_dh_plain(rds, w), fce.fused_ce_dw_plain(h, rds)
+        f_f, f_g, f_dh, f_dw = _ce_faults(fce, h, w, b, labels, rlse, coef, rds)
+        torch.cuda.synchronize()
+        shape = {"shape": [N, D, V], "bias": bias, "tied": tied, "masked": masked}
+        ce_err = lambda x, y: float((x - y).abs().max())
+        rec_f = {"kernel": "fused_ce_fwd", "case": name, **shape,
+                 "max_abs_err": max(ce_err(lse, rlse), ce_err(nll, rnll)),
+                 "lse_err": ce_err(lse, rlse), "nll_err": ce_err(nll, rnll), "tol": CE_TOL,
+                 "fault_err": {k: max(ce_err(lse, r[1]), ce_err(nll, r[0]))
+                               for k, r in f_f.items()}}
+        if not (torch.isfinite(nll).all() and rec_f["max_abs_err"] <= CE_TOL):
+            failures.append(f"fused_ce_fwd {name}: {rec_f['max_abs_err']} > {CE_TOL}")
+        for k, e in rec_f["fault_err"].items():
+            if not e > CE_TOL:
+                failures.append(f"fused_ce_fwd {name}: planted fault {k} reads {e} <= {CE_TOL}")
+        rec_g = {"kernel": "fused_ce_ds", "case": name, **shape,
+                 **_hold("fused_ce_ds", name, [ds], [rds], {k: [r] for k, r in f_g.items()},
+                         failures, GRAD_FLOOR)}
+        if bias:
+            rec_g["db_rel_err"] = float((db - rdb).abs().max() / rdb.abs().max())
+            if not rec_g["db_rel_err"] <= DB_TOL:
+                failures.append(f"fused_ce_ds {name}: db {rec_g['db_rel_err']} > {DB_TOL}")
+        rec_dh = {"kernel": "fused_ce_dh_gemm", "case": name, **shape,
+                  **_hold("fused_ce_dh_gemm", name, [dh], [rdh],
+                          {k: [r] for k, r in f_dh.items()}, failures, GRAD_FLOOR)}
+        rec_dw = {"kernel": "fused_ce_dw_gemm", "case": name, **shape,
+                  **_hold("fused_ce_dw_gemm", name, [dw], [rdw],
+                          {k: [r] for k, r in f_dw.items()}, failures, GRAD_FLOOR)}
+        if name == "slice":
+            elem = h.element_size()
+            flops = 2 * N * D * V
+            in_bytes = elem * (h.numel() + w.numel()) + 4 * N
+            rec_f["ms"] = cuda_ms(lambda: fce.fused_ce_fwd(h, w, b, labels), reps=10)
+            rec_g["ms"] = cuda_ms(lambda: fce.fused_ce_ds(h, w, b, labels, rlse, coef), reps=10)
+            rec_dh["ms"] = cuda_ms(lambda: fce.fused_ce_dh(rds, w), reps=10)
+            rec_dw["ms"] = cuda_ms(lambda: fce.fused_ce_dw(h, rds, w), reps=10)
+            rec_f["plain_ms"] = cuda_ms(lambda: fce.fused_ce_fwd_plain(h, w, b, labels),
+                                        reps=3, warmup=1)
+            rec_g["plain_ms"] = cuda_ms(
+                lambda: fce.fused_ce_ds_plain(h, w, b, labels, rlse, coef), reps=3, warmup=1)
+            rec_dh["plain_ms"] = cuda_ms(lambda: fce.fused_ce_dh_plain(rds, w), reps=3, warmup=1)
+            rec_dw["plain_ms"] = cuda_ms(lambda: fce.fused_ce_dw_plain(h, rds), reps=3, warmup=1)
+            f_ms, bwd_ms = _ce_library_ms(h, w, labels)
+            rec_f["library_ms"] = f_ms
+            rec_f["library"] = "F.linear + F.cross_entropy forward"
+            for rec in (rec_g, rec_dh, rec_dw):
+                rec["library_ms"] = bwd_ms
+                rec["library"] = "F.linear + F.cross_entropy backward (G, dh and dW together)"
+            rec_f["bound_ms"], rec_f["bound_by"] = bound(in_bytes + 8 * N, flops)
+            rec_g["bound_ms"], rec_g["bound_by"] = bound(in_bytes + 8 * N + elem * N * V, flops)
+            rec_dh["bound_ms"], rec_dh["bound_by"] = bound(elem * (N * V + D * V + N * D),
+                                                           flops)
+            rec_dw["bound_ms"], rec_dw["bound_by"] = bound(elem * (h.numel() + N * V + D * V),
+                                                           flops)
+            results.update({"fused_ce_fwd": rec_f, "fused_ce_ds": rec_g,
+                            "fused_ce_dh_gemm": rec_dh, "fused_ce_dw_gemm": rec_dw})
+        for rec in (rec_f, rec_g, rec_dh, rec_dw):
+            emit("kernel", **rec)
+        del h, w, nll, lse, rnll, rlse, ds, rds, dh, dw, rdh, rdw, f_f, f_g, f_dh, f_dw
+        torch.cuda.empty_cache()
 
 
 def _bwd_case(gen, fa, B, S, H, KV, Hd, causal, alibi, mask, masked_row):
@@ -655,6 +894,9 @@ def _serve_prompts(cfg, seed):
 
 
 SERVE_MAX_NEW = 32
+GEN_BATCH, GEN_PROMPT, GEN_MAX_NEW = 8, 512, 64
+# the workspace generate allocates: min(max_seq 2048, max(576, max_out_tokens 1024))
+GEN_SMAX = 1024
 
 
 def phase_serve(state, seed):
@@ -711,6 +953,127 @@ def phase_serve(state, seed):
     torch.cuda.empty_cache()
 
 
+def phase_generate_parity(state, seed):
+    """Static generate (engine.generate, the dense decode kernel) on the card
+    against the CPU's plain versions, Llama-7B width at 2 layers."""
+    import numpy as np
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import llama
+
+    model = llama("7b", n_layer=2)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = model.init_params(gen, device="cuda", dtype=torch.bfloat16)
+    gpu = deepspeed_tpu_torch.init_inference(model, params=params, dtype="bf16", device="cuda")
+    cpu = deepspeed_tpu_torch.init_inference(
+        model, params=params.map(lambda t: t.to("cpu", torch.float32)), dtype="fp32",
+        device="cpu")
+    P, max_new = 100, 8
+    ids = np.random.default_rng(seed + 4).integers(0, model.config.vocab_size, size=(2, P))
+    got, want = gpu.generate(ids, max_new_tokens=max_new), cpu.generate(ids, max_new_tokens=max_new)
+    check(got.shape == want.shape == (2, P + max_new), f"shapes {got.shape} vs {want.shape}")
+    compared = diverged = 0
+    for g, w in zip(got, want):
+        mism = np.nonzero(g != w)[0]
+        compared += (mism[0] if mism.size else g.size) - P
+        if mism.size:
+            top2 = torch.topk(cpu.forward(w[:mism[0]])[0, -1].float(), 2).values
+            margin = float(top2[0] - top2[1])
+            check(margin < MARGIN_TOL, f"greedy tokens diverge at {mism[0]} where the CPU "
+                                       f"margin {margin} >= {MARGIN_TOL}")
+            diverged += 1
+    del gpu, cpu, params
+    torch.cuda.empty_cache()
+    emit("generate_parity", layers=model.config.n_layer, d_model=model.config.d_model,
+         batch=[2, P], max_new_tokens=max_new, tokens_compared=int(compared),
+         near_tie_divergences=diverged, margin_tol=MARGIN_TOL)
+
+
+def _generate_engine(seed):
+    import numpy as np
+    import deepspeed_tpu_torch
+    model, params = _llama7b(seed)
+    engine = deepspeed_tpu_torch.init_inference(model, params=params, dtype="bf16")
+    ids = np.random.default_rng(seed + 5).integers(0, model.config.vocab_size,
+                                                   size=(GEN_BATCH, GEN_PROMPT))
+    return model, engine, ids
+
+
+def phase_generate(state, seed):
+    """Full Llama-2-7B static generate: a warm-up and a timed prefill-only
+    call (max_new_tokens 1: prefill plus the first token), then the timed
+    full call with the dense decode kernel's counter read around it."""
+    import numpy as np
+    import torch
+    from deepspeed_tpu_torch.accelerator import get_accelerator
+    from deepspeed_tpu_torch.ops.kernels import decode_attention as dda
+
+    acc = get_accelerator("cuda")
+    t0 = time.perf_counter()
+    model, engine, ids = _generate_engine(seed)
+    cfg = model.config
+    engine.generate(ids, max_new_tokens=1)          # allocates the workspace, warms up
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    engine.generate(ids, max_new_tokens=1)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    acc.reset_peak_memory_stats()
+    dda.launches = 0
+    t0 = time.perf_counter()
+    out = engine.generate(ids, max_new_tokens=GEN_MAX_NEW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dda.launches
+    generated = out.shape[1] - GEN_PROMPT
+    check(out.shape == (GEN_BATCH, GEN_PROMPT + GEN_MAX_NEW), f"output shape {out.shape}")
+    check(np.array_equal(out[:, :GEN_PROMPT], ids), "output does not start with its prompt")
+    check(((out >= 0) & (out < cfg.vocab_size)).all(), "token outside the vocabulary")
+    check(engine._workspace[1] == GEN_SMAX, f"workspace Smax {engine._workspace[1]}")
+    want = cfg.n_layer * (generated - 1)
+    check(launches == want, f"dense decode launches {launches} != {cfg.n_layer} x "
+                            f"({generated} - 1)")
+    state.setdefault("gen_launches", {})["dense_decode_attention"] = launches
+    emit("generate", model="llama-2-7b", layers=cfg.n_layer, dtype="bf16",
+         batch=[GEN_BATCH, GEN_PROMPT], max_new_tokens=GEN_MAX_NEW, workspace_smax=GEN_SMAX,
+         generated_tokens=int(GEN_BATCH * generated), wall_s=wall,
+         tokens_per_s=GEN_BATCH * generated / wall, prefill_ms=prefill_s * 1e3,
+         decode_ms_per_step=(wall - prefill_s) / (generated - 1) * 1e3, init_s=init_s,
+         peak_mem_gb=acc.max_memory_allocated() / 1e9, memory=acc.memory_report(),
+         launches={"dense_decode_attention": launches}, card=state.get("card"))
+    del engine
+    torch.cuda.empty_cache()
+
+
+def phase_generate_profile(state, seed):
+    """Where the generate phase's time goes (not in the default run): its
+    call after a warm-up, once timed with the host clock and once under
+    torch.profiler (device time by class, the idle share against the timed
+    call)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    _, engine, ids = _generate_engine(seed)
+    engine.generate(ids, max_new_tokens=GEN_MAX_NEW)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.generate(ids, max_new_tokens=GEN_MAX_NEW)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        engine.generate(ids, max_new_tokens=GEN_MAX_NEW)
+        torch.cuda.synchronize()
+    by_class, top = _device_time(prof)
+    busy_ms = sum(by_class.values())
+    emit("generate_profile", card=state.get("card"), timed_wall_ms=wall_ms,
+         tokens_per_s_warm=GEN_BATCH * GEN_MAX_NEW / wall_ms * 1e3, device_busy_ms=busy_ms,
+         device_idle_share=1.0 - busy_ms / wall_ms, device_ms_by_class=by_class,
+         top_kernels=top)
+    del engine
+    torch.cuda.empty_cache()
+
+
 def _train_engine(model, params, config, device=None):
     import deepspeed_tpu_torch
     return deepspeed_tpu_torch.initialize(model=model, model_parameters=params, config=config,
@@ -736,51 +1099,63 @@ def _grads(engine, batch):
 
 
 @contextlib.contextmanager
-def _planted(fa, fault):
-    """Kernel C or D fed a faulted input wherever the model's backward calls
-    it, inside the ``with`` body: delta not subtracted in dq
-    ("dq_delta_not_subtracted"), or the last q tile's rows left out of dk
-    and dv ("dkv_last_q_tile_skipped": lse = 1e30 there, so p = 0)."""
+def _planted(fault):
+    """Kernel C, D or G fed a faulted input wherever the model's backward
+    calls it, inside the ``with`` body: delta not subtracted in dq
+    ("dq_delta_not_subtracted"), the last q tile's rows left out of dk and
+    dv ("dkv_last_q_tile_skipped": lse = 1e30 there, so p = 0), or G's
+    onehot at the next vocab column ("ce_ds_labels_shifted")."""
     import torch
-    name = "flash_attention_dq" if fault.startswith("dq_") else "flash_attention_dkv"
-    real = getattr(fa, name)
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    from deepspeed_tpu_torch.ops.kernels import fused_cross_entropy as fce
+    if fault == "ce_ds_labels_shifted":
+        mod, name = fce, "fused_ce_ds"
+        real = fce.fused_ce_ds
 
-    def faulted(q, k, v, do, lse, delta, *args):
-        if fault == "dq_delta_not_subtracted":
-            delta = torch.zeros_like(delta)
-        else:
-            lse = lse.clone()
-            lse[:, :, (q.shape[1] - 1) // 64 * 64:] = 1e30
-        return real(q, k, v, do, lse, delta, *args)
+        def faulted(h, w, bias, labels, lse, coef):
+            return real(h, w, bias, (labels + 1) % w.shape[1], lse, coef)
+    else:
+        mod = fa
+        name = "flash_attention_dq" if fault.startswith("dq_") else "flash_attention_dkv"
+        real = getattr(fa, name)
 
-    setattr(fa, name, faulted)
+        def faulted(q, k, v, do, lse, delta, *args):
+            if fault == "dq_delta_not_subtracted":
+                delta = torch.zeros_like(delta)
+            else:
+                lse = lse.clone()
+                lse[:, :, (q.shape[1] - 1) // 64 * 64:] = 1e30
+            return real(q, k, v, do, lse, delta, *args)
+
+    setattr(mod, name, faulted)
     try:
         yield
     finally:
-        setattr(fa, name, real)
+        setattr(mod, name, real)
 
 
 def phase_train_parity(state, seed):
-    """Llama-7B width at 2 layers: the same fp32 weights and batches on the
+    """Llama-7B width at PARITY_LAYERS: the same fp32 weights and batches on the
     card (bf16 params, fp32 masters, kernels) and on the CPU (fp32, plain
-    versions). First the gradients of the first batch at the initial
-    weights: each leaf's within PARITY_GRAD_TOL of the CPU's (relative
-    norm), and the same read with a fault planted in kernel C or D above
-    it. Then 3 train_batch steps: per-step losses agree within
+    versions), fused cross-entropy "on" in both (K3's kernels on the card,
+    its plain version on the CPU). First the gradients of the first batch
+    at the initial weights: each leaf's within PARITY_GRAD_TOL of the CPU's
+    (relative norm), and the same read with a fault planted in kernel C, D
+    or G above it (G's on the head leaf). Then 3 train_batch steps: per-step losses agree within
     PARITY_LOSS_TOL; each leaf's update (final - initial) on the card is
     within PARITY_UPDATE_TOL of the CPU's, relative to the CPU update's
     norm."""
     import numpy as np
     import torch
     from deepspeed_tpu_torch.models import llama
-    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
 
-    model = llama("7b", n_layer=2)
+    model = llama("7b", n_layer=PARITY_LAYERS)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     init = model.init_params(gen, device="cuda", dtype=torch.float32)
     cpu_init = init.map(lambda t: t.to("cpu"))
     B, S = 2, 256
-    config = {**TRAIN_CONFIG, "train_batch_size": B, "train_micro_batch_size_per_gpu": 1}
+    config = {**TRAIN_CONFIG, "train_batch_size": B, "train_micro_batch_size_per_gpu": 1,
+              "fused_cross_entropy": "on"}
     cpu_config = {k: v for k, v in config.items() if k != "bf16"}
     gpu = _train_engine(model, init, config)
     del init
@@ -798,13 +1173,15 @@ def phase_train_parity(state, seed):
     if not grads[worst_g] <= PARITY_GRAD_TOL:
         failures.append(f"leaf {worst_g} gradient differs by {grads[worst_g]} of the CPU's")
     fault_grads = {}
-    for fault in ("dq_delta_not_subtracted", "dkv_last_q_tile_skipped"):
-        with _planted(fa, fault):
+    for fault in ("dq_delta_not_subtracted", "dkv_last_q_tile_skipped", "ce_ds_labels_shifted"):
+        with _planted(fault):
             rel = grad_rel(_grads(gpu, batches[0]))
-        fault_grads[fault] = {"worst": max(rel.values()),
+        fault_grads[fault] = {"worst": max(rel.values()), "head": rel["lm_head"],
                               "median": float(np.median(list(rel.values())))}
-        if not fault_grads[fault]["worst"] > PARITY_GRAD_TOL:
-            failures.append(f"planted fault {fault} reads {fault_grads[fault]} <= {PARITY_GRAD_TOL}")
+        read = fault_grads[fault]["head" if fault.startswith("ce_") else "worst"]
+        if not read > PARITY_GRAD_TOL:
+            failures.append(f"planted fault {fault} reads {fault_grads[fault]} "
+                            f"<= {PARITY_GRAD_TOL}")
     del want_g
 
     losses = []
@@ -859,8 +1236,11 @@ def _train_setup(seed):
 def _train_counters():
     from deepspeed_tpu_torch.ops.adam import fused_adam_kernel as fad
     from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    from deepspeed_tpu_torch.ops.kernels import fused_cross_entropy as fce
     return {"flash_attention_fwd": fa.launches, "flash_attention_bwd_dq": fa.dq_launches,
-            "flash_attention_bwd_dkv": fa.dkv_launches, "fused_adam": fad.launches}
+            "flash_attention_bwd_dkv": fa.dkv_launches, "fused_adam": fad.launches,
+            "fused_ce_fwd": fce.fwd_launches, "fused_ce_ds": fce.ds_launches,
+            "fused_ce_dh_gemm": fce.dh_launches, "fused_ce_dw_gemm": fce.dw_launches}
 
 
 def phase_train(state, seed):
@@ -869,6 +1249,7 @@ def phase_train(state, seed):
     from deepspeed_tpu_torch.accelerator import get_accelerator
     from deepspeed_tpu_torch.ops.adam import fused_adam_kernel as fad
     from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    from deepspeed_tpu_torch.ops.kernels import fused_cross_entropy as fce
 
     acc = get_accelerator("cuda")
     t0 = time.perf_counter()
@@ -881,11 +1262,16 @@ def phase_train(state, seed):
     want = {"flash_attention_fwd": 2 * cfg.n_layer * gas,     # forward + remat recompute
             "flash_attention_bwd_dq": cfg.n_layer * gas,
             "flash_attention_bwd_dkv": cfg.n_layer * gas,
-            "fused_adam": leaves}
+            "fused_adam": leaves,
+            # the vocab head lies outside remat: each CE kernel once a micro-step
+            **dict.fromkeys(("fused_ce_fwd", "fused_ce_ds", "fused_ce_dh_gemm",
+                             "fused_ce_dw_gemm"),
+                            0 if TRAIN_CONFIG["fused_cross_entropy"] == "off" else gas)}
     check(leaves == 9 * cfg.n_layer + 3, f"{leaves} parameter leaves")
     acc.reset_peak_memory_stats()
 
     fa.launches = fa.dq_launches = fa.dkv_launches = fad.launches = 0
+    fce.fwd_launches = fce.ds_launches = fce.dh_launches = fce.dw_launches = 0
     losses, step_s, per_step = [], [], []
     for _ in range(TRAIN_STEPS):
         before = _train_counters()
@@ -954,7 +1340,14 @@ def _kernel_class(name):
                         ("flash_bwd_dq_kernel", "flash_bwd_dq"),
                         ("flash_bwd_dkv_kernel", "flash_bwd_dkv"),
                         ("fused_adam_kernel", "fused_adam"),
-                        ("paged_decode_kernel", "paged_decode_attention")):
+                        ("paged_decode_kernel", "paged_decode_attention"),
+                        ("dense_decode_kernel", "dense_decode_attention"),
+                        ("fused_ce_fwd_kernel", "fused_ce_fwd"),
+                        ("fused_ce_combine_kernel", "fused_ce_fwd"),
+                        ("fused_ce_ds_kernel", "fused_ce_ds"),
+                        ("fused_ce_db_kernel", "fused_ce_ds"),
+                        ("ce_dh_gemm_kernel", "fused_ce_dh_gemm"),
+                        ("ce_dw_gemm_kernel", "fused_ce_dw_gemm")):
         if kernel in n:
             return cls
     if any(t in n for t in ("gemm", "gemv", "cutlass", "xmma", "nvjet", "cublas")):
@@ -1021,6 +1414,7 @@ def _device_time(prof):
 def phase_kernels(state):
     res = state.get("kernel_results", {})
     serve = state.get("launches", {})
+    gen = state.get("gen_launches", {})
     train = state.get("train_launches", {})
     rows = []
     meta = {
@@ -1042,10 +1436,27 @@ def phase_kernels(state):
         "fused_adam": (
             "deepspeed_tpu_torch/csrc/fused_adam.cu",
             "deepspeed_tpu/ops/adam/fused_adam_kernel.py:47 (_adam_kernel)"),
+        "dense_decode_attention": (
+            "deepspeed_tpu_torch/csrc/dense_decode_attention.cu",
+            "deepspeed_tpu/ops/pallas/decode_attention.py:45 (_kernel)"),
+        "fused_ce_fwd": (
+            "deepspeed_tpu_torch/csrc/fused_cross_entropy.cu",
+            "deepspeed_tpu/ops/pallas/fused_cross_entropy.py:66 (_fwd_kernel)"),
+        "fused_ce_ds": (
+            "deepspeed_tpu_torch/csrc/fused_cross_entropy.cu",
+            "deepspeed_tpu/ops/pallas/fused_cross_entropy.py:120 (_dh_kernel) and :142 "
+            "(_dw_kernel): their shared ds and db"),
+        "fused_ce_dh_gemm": (
+            "deepspeed_tpu_torch/csrc/fused_cross_entropy.cu",
+            "deepspeed_tpu/ops/pallas/fused_cross_entropy.py:120 (_dh_kernel)"),
+        "fused_ce_dw_gemm": (
+            "deepspeed_tpu_torch/csrc/fused_cross_entropy.cu",
+            "deepspeed_tpu/ops/pallas/fused_cross_entropy.py:142 (_dw_kernel)"),
     }
     for name, (source, replaces) in meta.items():
         r = res.get(name, {})
-        by_path = {p: n[name] for p, n in (("serve", serve), ("train", train)) if name in n}
+        by_path = {p: n[name] for p, n in (("serve", serve), ("generate", gen), ("train", train))
+                   if name in n}
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                      "launches": sum(by_path.values()) if by_path else None,
                      "launches_by_path": by_path, "max_abs_err": r.get("max_abs_err"),
@@ -1060,7 +1471,11 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases", default=",".join(DEFAULT_PHASES),
                     help="comma-separated subset of " + ",".join(PHASES))
+    ap.add_argument("--fused-ce", choices=("auto", "on", "off"), default="auto",
+                    help="fused_cross_entropy of the train and train_profile phases "
+                         "(off: the plain vocab head, to compare against)")
     args = ap.parse_args(argv)
+    TRAIN_CONFIG["fused_cross_entropy"] = args.fused_ce
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES)
     if unknown:
@@ -1075,15 +1490,18 @@ def main(argv=None):
 
     state = {}
     t0 = time.perf_counter()
+    seconds = {}
     for p in PHASES:
         if p not in phases:
             continue
         fn = globals()[f"phase_{p}"]
+        t = time.perf_counter()
         if p not in ("env", "build", "kernels"):
             fn(state, args.seed)
         else:
             fn(state)
-    emit("done", seconds=time.perf_counter() - t0)
+        seconds[p] = time.perf_counter() - t
+    emit("done", seconds=time.perf_counter() - t0, phase_seconds=seconds)
     print(json.dumps({"ok": True,
                       "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

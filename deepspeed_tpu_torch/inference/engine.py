@@ -1,5 +1,5 @@
-"""Inference engine: the paged continuous-batching serving path of
-``deepspeed_tpu/inference/engine.py`` in PyTorch.
+"""Inference engine: the serving paths of ``deepspeed_tpu/inference/engine.py``
+in PyTorch.
 
 ``InferenceEngine.generate_batch`` serves many prompts through the
 :class:`ContinuousBatchingScheduler` over a paged KV cache. Each scheduler
@@ -10,10 +10,17 @@ copy-on-write of a shared block if needed, a ``decode`` runs
 ``forward_paged_decode`` over every running request at once (paged
 decode-attention kernel, once per layer).
 
-Where the JAX engine jit-compiles each step with donated pool buffers, the
-port runs eagerly and updates the pools in place. Settings outside this
-slice of the port raise ``NotImplementedError`` naming the ROADMAP item
-that will bring them.
+``InferenceEngine.generate`` is static generation over a persistent dense KV
+workspace: one right-padded prefill of the whole batch, then one
+``forward_cached`` per new token (dense decode-attention kernel, once per
+layer); ``generate_batch`` takes it per request for ``serving.paged="off"``
+and for models that cannot page. ``forward`` is the full-sequence forward.
+
+Where the JAX engine jit-compiles each step with donated buffers (and runs
+the whole decode loop on the device), the port runs eagerly, updates the
+pools and the workspace in place, and loops over tokens on the host.
+Settings outside the port's slices raise ``NotImplementedError`` naming
+the ROADMAP item that will bring them.
 """
 
 from __future__ import annotations
@@ -56,6 +63,7 @@ class InferenceEngine:
         self.params = params.map(
             lambda t: t.to(device=self.device,
                            dtype=self.dtype if t.is_floating_point() else t.dtype))
+        self._workspace = None       # (B, Smax, cache): static generate's KV workspace
         self._paged_workspace = None
         self._paged_alloc = None     # persistent prefix-cache allocator
         self._serve_rid_base = 0     # rids unique across generate_batch calls
@@ -88,8 +96,6 @@ class InferenceEngine:
         if str(srv.speculative.mode) == "ngram":
             not_ported("speculative decoding (serving.speculative.mode='ngram')",
                        "queue 1: speculative decoding")
-        if str(srv.paged) == "off":
-            not_ported("the static generate path (serving.paged='off')", "queue 1: static generate")
 
     # ------------------------------------------------------------------ #
     # helpers shared with the JAX engine
@@ -112,17 +118,25 @@ class InferenceEngine:
         return np.where(t < n_valid, slot, DUMMY_BLOCK * bs + p_t % bs)
 
     @staticmethod
-    def _sample_host(logits, temperature, top_k, generator):
-        """Greedy argmax, or temperature / top-k sampling with a CPU
-        ``torch.Generator``. Returns host int64 tokens ``[B]``."""
-        if temperature > 0.0:
-            logits = logits.float() / temperature
-            if top_k > 0:
-                kth = torch.topk(logits, top_k, dim=-1).values[..., -1:]
-                logits = torch.where(logits < kth, float("-inf"), logits)
-            probs = torch.softmax(logits, dim=-1).cpu()
-            return torch.multinomial(probs, 1, generator=generator)[:, 0].numpy()
-        return logits.argmax(dim=-1).cpu().numpy()
+    def _sample(logits, temperature, top_k, generator):
+        """Next tokens ``[B]`` on the logits' device from logits ``[B, V]``:
+        greedy argmax, or temperature / top-k sampling in fp32 from
+        ``generator`` (a generator on that device), the counterpart of the
+        JAX engine's ``_sample_jit``."""
+        if temperature <= 0.0:
+            return logits.argmax(dim=-1)
+        logits = logits.float() / max(temperature, 1e-6)
+        if top_k > 0:
+            kth = torch.topk(logits, min(top_k, logits.shape[-1]), dim=-1).values[..., -1:]
+            logits = torch.where(logits < kth, float("-inf"), logits)
+        probs = torch.softmax(logits, dim=-1)
+        return torch.multinomial(probs, 1, generator=generator)[:, 0]
+
+    def _reject_encoders(self, what: str) -> None:
+        """Generation needs a causal LM."""
+        if getattr(getattr(self.module, "config", None), "causal", True) is False:
+            raise ValueError(f"{type(self.module).__name__} is an encoder; {what} requires a "
+                             "causal LM; use engine.forward for hidden states / MLM logits")
 
     def _paged_supported(self) -> bool:
         return (hasattr(self.module, "forward_paged_decode")
@@ -159,6 +173,114 @@ class InferenceEngine:
         return alloc
 
     # ------------------------------------------------------------------ #
+    # full-sequence forward and static generation
+
+    def _ids(self, input_ids):
+        ids = torch.as_tensor(np.asarray(input_ids), dtype=torch.long)
+        return (ids[None, :] if ids.ndim == 1 else ids).to(self.device)
+
+    @torch.no_grad()
+    def forward(self, input_ids, attention_mask=None):
+        """Full-sequence forward: tokens ``[B, S]`` (or ``[S]``) -> logits
+        ``[B, S, vocab]`` on the engine's device."""
+        mask = None
+        if attention_mask is not None:
+            mask = torch.as_tensor(np.asarray(attention_mask)).to(self.device)
+            mask = mask[None, :] if mask.ndim == 1 else mask
+        return self.module.forward(self.params, self._ids(input_ids), mask)
+
+    def generate(self, input_ids, max_new_tokens: Optional[int] = None,
+                 temperature: float = 0.0, top_k: int = 0, seed: int = 0,
+                 eos_token_id: Optional[int] = None):
+        """Autoregressive generation (greedy, or sampled from a generator
+        seeded with ``seed``) for a batch of equal-length prompts ``[B, S]``
+        (or one ``[S]``). Returns int32 numpy ``[B, S + n]``: the prompts and
+        ``n <= max_new_tokens`` new tokens (fewer when every row has emitted
+        ``eos_token_id``; a row that has keeps emitting it). Models with a
+        KV-cache forward run over the persistent dense workspace; others
+        recompute the full prefix per token."""
+        input_ids = self._ids(input_ids)
+        self._reject_encoders("generate()")
+        max_new = max_new_tokens if max_new_tokens is not None else self._config.max_out_tokens
+        max_len = input_ids.shape[1] + max_new
+        cfg = getattr(self.module, "config", None)
+        if cfg is not None and hasattr(cfg, "max_seq") and max_len > cfg.max_seq:
+            raise ValueError(f"Input+generated length {max_len} exceeds model max_seq "
+                             f"{cfg.max_seq}; reduce max_new_tokens (reference "
+                             "max_out_tokens check)")
+        gen = torch.Generator(device=self.device).manual_seed(int(seed))
+        if hasattr(self.module, "forward_cached") and hasattr(self.module, "init_cache"):
+            out = self._generate_cached(input_ids, max_new, temperature, top_k, gen,
+                                        eos_token_id)
+        else:
+            out = self._generate_full(input_ids, max_new, temperature, top_k, gen, eos_token_id)
+        return out.cpu().numpy().astype(np.int32)
+
+    @torch.no_grad()
+    def _generate_full(self, tokens, max_new, temperature, top_k, gen, eos_token_id):
+        """Models without a cached forward: the full prefix per new token."""
+        for _ in range(max_new):
+            nxt = self._sample(self.forward(tokens)[:, -1, :], temperature, top_k, gen)
+            tokens = torch.cat([tokens, nxt[:, None]], dim=1)
+            if eos_token_id is not None and bool((nxt == eos_token_id).all()):
+                break
+        return tokens
+
+    def _kv_workspace(self, B: int, need_len: int):
+        """The persistent KV workspace: allocated once, reused across calls,
+        replaced by a larger one when a call needs more length or batch. A
+        call with a smaller batch runs on a copy of the first ``B`` rows and
+        leaves the workspace as it is; reuse is safe because causality hides
+        the slots past the current position. Returns ``(cache, Smax)``."""
+        ws = self._workspace
+        if ws is not None and ws[0] >= B and ws[1] >= need_len:
+            if ws[0] == B:
+                return ws[2], ws[1]
+            return {k: c[:, :B].clone() for k, c in ws[2].items()}, ws[1]
+        cfg = self.module.config
+        Smax = min(cfg.max_seq, max(need_len, int(self._config.max_out_tokens)))
+        self._workspace = None           # free the old workspace before allocating
+        cache = self.module.init_cache(B, Smax, dtype=self.dtype, device=self.device)
+        self._workspace = (B, Smax, cache)
+        return cache, Smax
+
+    @torch.no_grad()
+    def _generate_cached(self, input_ids, max_new, temperature, top_k, gen, eos_token_id):
+        """Prefill the right-padded 128-bucket at pos 0, take the first token
+        from the logits at the last prompt position, then one
+        ``forward_cached`` per token at pos = prompt length + step. With an
+        eos the loop reads one flag from the device per token to stop early
+        (the JAX engine tests ``all(done)`` inside its device loop); without
+        one it never syncs."""
+        if max_new <= 0:
+            return input_ids
+        B, P = input_ids.shape
+        cfg = self.module.config
+        cache, Smax = self._kv_workspace(B, min(cfg.max_seq, P + max_new))
+        bucket = self._bucket(P, Smax)
+        toks = torch.zeros((B, bucket), dtype=torch.long, device=self.device)
+        toks[:, :P] = input_ids
+        logits, cache = self.module.forward_cached(self.params, toks, cache, 0)
+        first = self._sample(logits[:, P - 1, :], temperature, top_k, gen)
+        out_cap = min(Smax, self._bucket(max_new, Smax))
+        out = torch.zeros((B, out_cap), dtype=torch.long, device=self.device)
+        out[:, 0] = first
+        eos = -1 if eos_token_id is None else int(eos_token_id)
+        done = first == eos if eos >= 0 else None
+        tok, step = first, 1
+        while step < max_new and not (done is not None and bool(done.all())):
+            logits, cache = self.module.forward_cached(self.params, tok[:, None], cache,
+                                                       P + step - 1)
+            nxt = self._sample(logits[:, -1, :], temperature, top_k, gen)
+            if done is not None:
+                nxt = torch.where(done, eos, nxt)    # rows already done keep emitting eos
+                done = done | (nxt == eos)
+            out[:, step] = nxt
+            tok, step = nxt, step + 1
+        return torch.cat([input_ids, out[:, :step]], dim=1)
+
+    # ------------------------------------------------------------------ #
+    # paged continuous batching
 
     def generate_batch(self, prompts, max_new_tokens: Optional[int] = None,
                        temperature: float = 0.0, top_k: int = 0, seed: int = 0,
@@ -167,22 +289,31 @@ class InferenceEngine:
         over the paged KV cache. Returns a list of 1-D int32 numpy arrays
         (prompt + generated tokens, stopping at eos / max_new per request)
         in the order the prompts were given. ``config.serving`` governs the
-        path: prefix caching (default on) shares computed KV blocks across
+        path: ``paged="auto"`` pages whenever the model can, ``"on"``
+        requires it, ``"off"`` (and a model that cannot page under auto)
+        serves each request through :meth:`generate` with seed ``seed + i``;
+        prefix caching (default on) shares computed KV blocks across
         requests and across calls; ``prefill_chunk_tokens`` interleaves
         prefill chunks with decode steps."""
         prompts = [np.asarray(p, np.int32).reshape(-1) for p in prompts]
         if not prompts:
             return []
+        self._reject_encoders("generate_batch()")
         srv = self._config.serving
         mode = str(srv.paged)
         if mode not in ("auto", "on", "off"):
             raise ValueError(f"serving.paged={mode!r} (expected auto|on|off)")
-        if not self._paged_supported():
-            if mode == "on":
-                raise ValueError("serving.paged='on' but this engine cannot page: the "
-                                 "model must be a causal LM with forward_paged_decode")
-            not_ported("the static generate path (non-paged models)", "queue 1: static generate")
+        supported = self._paged_supported()
+        if mode == "on" and not supported:
+            raise ValueError("serving.paged='on' but this engine cannot page: the "
+                             "model must be a causal LM with forward_paged_decode")
         max_new = max_new_tokens if max_new_tokens is not None else self._config.max_out_tokens
+        if mode == "off" or not supported:
+            # static path, one request at a time; the seed offset keeps
+            # sampled requests (and duplicate prompts) off one stream
+            return [self.generate(p[None, :], max_new_tokens=max_new, temperature=temperature,
+                                  top_k=top_k, seed=seed + i, eos_token_id=eos_token_id)[0]
+                    for i, p in enumerate(prompts)]
         if max_new <= 0:
             return [p.copy() for p in prompts]
 
@@ -249,7 +380,7 @@ class InferenceEngine:
                                             rid_base=self._serve_rid_base)
         session = _ServeSession(
             self, sched, pools, max_new=max_new, temperature=temperature, top_k=top_k,
-            generator=torch.Generator().manual_seed(int(seed)),
+            generator=torch.Generator(device=self.device).manual_seed(int(seed)),
             eos_token_id=eos_token_id, W=W, n_max=n_max, bs=bs, num_blocks=num_blocks,
             chunk_tokens=chunk_tokens)
         self._active_session = session
@@ -315,7 +446,9 @@ class _ServeSession:
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.engine.device)
 
     def _sample(self, logits):
-        return self.engine._sample_host(logits, self.temperature, self.top_k, self.generator)
+        """Host int64 tokens ``[B]``."""
+        return self.engine._sample(logits, self.temperature, self.top_k,
+                                   self.generator).cpu().numpy()
 
     @torch.no_grad()
     def _exec(self, action) -> None:

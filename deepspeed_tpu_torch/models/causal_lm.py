@@ -62,6 +62,15 @@ class CausalLM(nn.Module):
         s = seq_len or cfg.max_seq
         return 6.0 * self.num_parameters + 12.0 * cfg.n_layer * cfg.d_model * s
 
+    # ---- KV-cache inference (see transformer.forward_cached) ----
+
+    def init_cache(self, batch_size: int, max_len: Optional[int] = None, dtype=torch.bfloat16,
+                   device="cpu") -> Dict[str, torch.Tensor]:
+        return T.init_kv_cache(self.config, batch_size, max_len, dtype, device)
+
+    def forward_cached(self, params, tokens, cache, pos: int, pad_bias=None):
+        return T.forward_cached(self.config, params, tokens, cache, pos, pad_bias)
+
     # ---- paged KV serving (see transformer.forward_paged_*) ----
 
     def init_paged_cache(self, num_blocks: int, block_size: int, dtype=torch.bfloat16,

@@ -18,11 +18,17 @@ the kernel wrappers in ``ops/kernels`` (the hand-written CUDA kernel for
 CUDA tensors, its plain version for CPU tensors); ``"xla"`` keeps the plain
 einsum paths of the JAX package's non-kernel branch.
 
+The dense KV workspace of static generation (:func:`init_kv_cache`,
+:func:`forward_cached`) is ``[n_layer, B, Smax, KV, Hd]``, also updated in
+place: the new k/v land at ``pos`` (JAX's ``dynamic_update_slice``), and a
+one-token step attends through the dense decode kernel (K5).
+
 Training (:func:`lm_loss`) runs the same blocks under autograd: flash
 attention is differentiable through the backward kernels, ``remat`` True /
 "full" recomputes each block in the backward pass
 (``torch.utils.checkpoint``, non-reentrant), and the vocab head runs the
-plain ``chunked_vocab_ce`` (the fused CE kernel is not ported yet).
+fused logits-free CE kernels (K3) where ``fused_cross_entropy`` selects
+them, else the plain ``chunked_vocab_ce``.
 Dropout draws from an explicit ``torch.Generator`` through per-layer integer
 seeds taken before each checkpointed block, so a recomputed block draws the
 same mask.
@@ -40,8 +46,11 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from deepspeed_tpu_torch.ops.attention import mha_attention
+from deepspeed_tpu_torch.ops.kernels.decode_attention import decode_attention
 from deepspeed_tpu_torch.ops.kernels.flash_attention import flash_attention
+from deepspeed_tpu_torch.ops.kernels.fused_cross_entropy import fused_cross_entropy
 from deepspeed_tpu_torch.ops.kernels.paged_decode_attention import paged_decode_attention
+from deepspeed_tpu_torch.sequence._streaming import chunked_attention
 from deepspeed_tpu_torch.utils.not_ported import not_ported
 
 
@@ -260,6 +269,13 @@ def _rope(x, positions, theta: float, rope_dim: int = 0, interleaved: bool = Fal
     return rotated.to(x.dtype)
 
 
+# cache length beyond which the kernel-less cached attention streams its
+# softmax over key chunks (sequence/_streaming.py) instead of materialising
+# T x Smax logits; the JAX package's constants
+DENSE_STREAM_THRESHOLD = 4096
+DENSE_STREAM_CHUNK = 1024
+
+
 def _alibi_slopes(n_head: int, device="cpu"):
     start = 2.0**(-8.0 / n_head)
     return torch.tensor([start**(i + 1) for i in range(n_head)], dtype=torch.float32,
@@ -339,6 +355,76 @@ def cached_head(cfg: TransformerConfig, params, x):
     logits = _norm(cfg, x, params["ln_f"]) @ _head_weight(cfg, params)
     bias = params.get("lm_head_bias")
     return logits if bias is None else logits + bias
+
+
+# --------------------------------------------------------------------- #
+# dense KV workspace (static generate)
+
+
+def init_kv_cache(cfg: TransformerConfig, batch_size: int, max_len: Optional[int] = None,
+                  dtype=torch.bfloat16, device="cpu") -> Dict[str, torch.Tensor]:
+    """Preallocated KV cache: k/v ``[n_layer, B, max_len, kv_heads, Hd]``."""
+    Smax = max_len or cfg.max_seq
+    shape = (cfg.n_layer, batch_size, Smax, cfg.kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _cached_attention(cfg: TransformerConfig, x, lp, positions, pos: int, ck, cv, pad_bias):
+    """Attention of T new tokens against one layer's cache ck/cv ``[B, Smax,
+    KV, Hd]``, their k/v written at ``pos`` in place first (JAX's
+    ``dynamic_update_slice``, whose start clamps so the update fits).
+    positions ``[B, T]`` = pos + arange(T) per row. T == 1 goes through the
+    dense decode kernel; off its envelope, and for T > 1, a cache longer
+    than DENSE_STREAM_THRESHOLD streams the softmax, a shorter one takes the
+    grouped einsum. Returns ``[B, T, D]``."""
+    B, T, _ = x.shape
+    H, Hd = cfg.n_head, cfg.head_dim
+    Smax = ck.shape[1]
+    q, k, v = _qkv_project(cfg, x, lp, positions)
+    start = max(0, min(pos, Smax - T))
+    ck[:, start:start + T] = k.to(ck.dtype)
+    cv[:, start:start + T] = v.to(cv.dtype)
+    slopes = _alibi_slopes(H, x.device) if cfg.pos_embedding == "alibi" else None
+    if T == 1 and _use_kernels(cfg):
+        o = decode_attention(q[:, 0], ck, cv, pos, pad_bias=pad_bias, alibi_slopes=slopes,
+                             scale=cfg.attn_scale)
+        if o is not None:
+            return _out_project(cfg, o.reshape(B, 1, H * Hd), lp)
+    if Smax > DENSE_STREAM_THRESHOLD:
+        pb = None if pad_bias is None else pad_bias.float()
+        o, _ = chunked_attention(q, ck, cv, pb, slopes, pos, 0, True, DENSE_STREAM_CHUNK,
+                                 q.dtype, cfg.attn_scale)
+        return _out_project(cfg, o.reshape(B, T, H * Hd), lp)
+    return _out_project(cfg, _grouped_cache_einsum(cfg, q, ck, cv, positions, pad_bias), lp)
+
+
+def cached_block(cfg: TransformerConfig, h, lp, ck, cv, positions, pos: int, pad_bias=None):
+    """ONE layer of the KV-cache path: pre-LN attention against, and append
+    to, the layer's cache ck/cv ``[B, Smax, KV, Hd]``."""
+    return _decode_block(cfg, h, lp, lambda xn: _cached_attention(
+        cfg, xn, lp["attn"], positions, pos, ck, cv, pad_bias))
+
+
+def forward_cached(cfg: TransformerConfig, params, tokens, cache, pos: int, pad_bias=None):
+    """tokens ``[B, T]`` (a prompt bucket or one token) attended against,
+    and appended to, ``cache`` at offset ``pos`` (a host int). Returns
+    (logits ``[B, T, vocab]``, cache) with the cache updated in place.
+    ``pad_bias`` ``[B, Smax]`` additive f32 masks cache slots."""
+    if cfg.norm_position == "post":
+        raise ValueError("norm_position='post' is not supported by the "
+                         "KV-cache decode path (pre-LN only)")
+    if cfg.sparse_attention is not None:
+        raise NotImplementedError(
+            "sparse_attention is not supported by the KV-cache decode path; "
+            "serve with the dense forward() or drop the sparsity config")
+    if cfg.act_quant_bits:
+        not_ported("activation fake-quant (act_quant_bits)", "queue 1: compression")
+    pos = int(pos)
+    x, positions = cached_embed(cfg, params, tokens, pos, cache["k"].dtype)
+    for i, lp in enumerate(params["layers"]):
+        x = cached_block(cfg, x, lp, cache["k"][i], cache["v"][i], positions, pos, pad_bias)
+    return cached_head(cfg, params, x), cache
 
 
 # --------------------------------------------------------------------- #
@@ -699,22 +785,32 @@ def chunked_vocab_ce(h, w, hb, safe_labels, valid, chunk: int):
     return nll / torch.clamp(n, min=1)
 
 
-def _check_fused_ce(cfg) -> None:
-    """Refuse ``fused_cross_entropy="on"``: the fused logits-free CE kernel
-    is not ported yet, so "auto" means the plain path on every device."""
+def _use_fused_ce(cfg, h) -> bool:
+    """Whether the vocab head runs the fused logits-free CE kernels (K3).
+    "on" always (the plain version for CPU tensors; fp32 on the card
+    raises); "auto", like the JAX package's "accelerator and single
+    device", when ``h`` lies on a CUDA device in fp16 / bf16 and no process
+    group of more than one rank is up; "off" never."""
     mode = getattr(cfg, "fused_cross_entropy", "auto")
+    if mode == "off":
+        return False
     if mode == "on":
-        not_ported("the fused cross-entropy kernel (fused_cross_entropy='on')",
-                    "queue 2: K3 fused CE")
-    if mode not in ("auto", "off"):
+        return True
+    if mode != "auto":
         raise ValueError(f"fused_cross_entropy={mode!r} (expected 'auto', 'on' or 'off')")
+    dist = torch.distributed
+    single = not (dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1)
+    return h.is_cuda and h.dtype in (torch.float16, torch.bfloat16) and single
 
 
 def vocab_head_ce(cfg, h, w, hb, safe_labels, valid):
     """Mean token CE for a vocab head ``h @ w + hb``: the single dispatch
-    every loss head goes through (``chunked_vocab_ce`` with
-    ``cfg.loss_chunk``)."""
-    _check_fused_ce(cfg)
+    every loss head goes through. The fused kernels (see
+    :func:`_use_fused_ce`) never form the ``[tokens, vocab]`` logits;
+    otherwise ``chunked_vocab_ce`` with ``cfg.loss_chunk``."""
+    if _use_fused_ce(cfg, h):
+        bias = None if isinstance(hb, (int, float)) else hb
+        return fused_cross_entropy(h, w, safe_labels, bias=bias, valid=valid)
     return chunked_vocab_ce(h, w, hb, safe_labels, valid, getattr(cfg, "loss_chunk", 0))
 
 

@@ -30,14 +30,16 @@ CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = CSRC / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
-# library name -> its source; every source may include csrc/common.cuh
+# library name -> its source; every source may include the shared headers
 SOURCES: Dict[str, str] = {
     "flash_attention": "flash_attention_fwd.cu",
     "flash_attention_bwd": "flash_attention_bwd.cu",
     "paged_decode_attention": "paged_decode_attention.cu",
+    "dense_decode_attention": "dense_decode_attention.cu",
     "fused_adam": "fused_adam.cu",
+    "fused_cross_entropy": "fused_cross_entropy.cu",
 }
-_HEADERS = ("common.cuh",)
+_HEADERS = ("common.cuh", "decode_attention.cuh")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 

@@ -50,12 +50,22 @@ TRAINING_MODULES = (
 )
 
 
+# the third slice's modules (static generate with K5, fused CE K3)
+GENERATE_AND_CE_MODULES = (
+    "deepspeed_tpu_torch.ops.kernels.decode_attention",
+    "deepspeed_tpu_torch.ops.kernels.fused_cross_entropy",
+    "deepspeed_tpu_torch.ops.transformer.inference_kernels",
+    "deepspeed_tpu_torch.sequence._streaming",
+)
+
+
 def test_import_leaves_jax_and_pydantic_out():
     mods = ["deepspeed_tpu_torch"] + sorted(
         "deepspeed_tpu_torch." + ".".join(p.relative_to(ROOT / "deepspeed_tpu_torch")
                                           .with_suffix("").parts)
         for p in (ROOT / "deepspeed_tpu_torch").rglob("*.py") if p.name != "__init__.py")
     assert set(TRAINING_MODULES) <= set(mods)
+    assert set(GENERATE_AND_CE_MODULES) <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -120,3 +130,18 @@ def test_kernel_wrappers_refuse_unsupported_cuda_inputs_without_fallback():
     flat = torch.zeros(16, device="meta")
     with pytest.raises(ValueError, match="no kernel for device"):
         fad.fused_adam_step(flat, flat, flat, flat, step=1)
+    from deepspeed_tpu_torch.ops.kernels import decode_attention as dda
+    from deepspeed_tpu_torch.ops.kernels import fused_cross_entropy as fce
+    ck = torch.zeros((1, 128, 2, 64), device="meta")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        dda.decode_attention(qd, ck, ck, 0)
+    h, w = torch.zeros((4, 8), device="meta"), torch.zeros((8, 16), device="meta")
+    lab = torch.zeros(4, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        fce.fused_ce_fwd(h, w, None, lab)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        fce.fused_ce_ds(h, w, None, lab, lab.float(), lab.float())
+    with pytest.raises(ValueError, match="no kernel for device"):
+        fce.fused_ce_dh(h, w.T)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        fce.fused_ce_dw(h, h, w)

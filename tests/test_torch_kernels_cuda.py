@@ -12,12 +12,16 @@ import pytest
 import torch
 
 from deepspeed_tpu_torch.ops.adam import fused_adam_kernel as fad
+from deepspeed_tpu_torch.ops.kernels import decode_attention as dda
 from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+from deepspeed_tpu_torch.ops.kernels import fused_cross_entropy as fce
 from deepspeed_tpu_torch.ops.kernels import paged_decode_attention as pda
 
 ULP_TOL = 3.0     # bf16 ulps of each output row's largest value (as chip_smoke.py)
 LSE_TOL = 1e-4    # log2-domain lse, fp32 in both from the same bf16 inputs
 ADAM_TOL = 1e-6   # fused Adam u / m / v, fp32 error relative to the largest plain value
+CE_TOL = 1e-4     # fused CE nll and log2-domain lse: absolute fp32, the same bf16 inputs
+DB_TOL = 1e-4     # fused CE db: fp32 sums in another order, relative to the largest value
 
 
 GRAD_FLOOR = 2.0**-10   # backward rows: reference magnitude floored at this share of the max
@@ -206,3 +210,90 @@ def test_fused_adam_kernel_matches_plain(cuda, n, p_dtype, g_dtype, emit, adam_w
     for a, b in ((out, ref), (m, rm), (v, rv)):
         err = float((a.float() - b.float()).abs().max() / b.float().abs().max())
         assert err <= ADAM_TOL, err
+
+
+@pytest.mark.parametrize("B,H,KV,Hd,Smax,pos,bias,alibi", [
+    (8, 32, 32, 128, 1024, 575, False, False),     # Llama-7B static generate
+    (2, 32, 8, 128, 256, 0, True, False),          # GQA 4, first token, pad bias
+    (3, 16, 2, 128, 384, 383, False, True),        # GQA 8, last slot, ALiBi
+    (2, 12, 12, 64, 512, 200, True, True),         # GPT-2 heads
+])
+def test_dense_decode_kernel_matches_plain(cuda, B, H, KV, Hd, Smax, pos, bias, alibi):
+    r = np.random.default_rng(B * H + Smax + pos)
+    q = _randn(r, (B, H, Hd), cuda)
+    ck, cv = _randn(r, (B, Smax, KV, Hd), cuda), _randn(r, (B, Smax, KV, Hd), cuda)
+    kw = {}
+    if bias:
+        kw["pad_bias"] = torch.from_numpy(
+            (r.normal(size=(B, Smax)) * 0.2).astype(np.float32)).to(cuda)
+    if alibi:
+        kw["alibi_slopes"] = torch.from_numpy(r.uniform(0.05, 0.4, H).astype(np.float32)).to(cuda)
+    n0 = dda.launches
+    out = dda.decode_attention(q, ck, cv, pos, **kw)
+    ref = dda.decode_attention_plain(q, ck, cv, pos, **kw)
+    torch.cuda.synchronize()
+    assert dda.launches == n0 + 1
+    assert out.dtype == torch.bfloat16 and torch.isfinite(out.float()).all()
+    assert _ulp_err(out, ref) <= ULP_TOL
+
+
+def _ce_inputs(r, N, D, V, cuda, bias, tied):
+    h = _randn(r, (N, D), cuda)
+    if tied:
+        w = (_randn(r, (V, D), cuda).float() * 0.05).to(torch.bfloat16).T   # embed.T, in place
+    else:
+        w = (_randn(r, (D, V), cuda).float() * 0.05).to(torch.bfloat16)
+    b = torch.from_numpy((r.normal(size=V) * 0.5).astype(np.float32)).to(cuda) if bias else None
+    labels = torch.from_numpy(r.integers(0, V, size=N).astype(np.int32)).to(cuda)
+    return h, w, b, labels
+
+
+@pytest.mark.parametrize("N,D,V,bias,tied", [
+    (1000, 512, 32000, False, False),      # Llama's vocab, N off the tile
+    (300, 768, 50257, True, True),         # GPT-2: V off the tile, tied embed.T, a bias
+    (130, 256, 1000, True, False),         # untied with a bias
+])
+def test_fused_ce_kernels_match_plain(cuda, N, D, V, bias, tied):
+    """F, G and both products against their plain versions."""
+    r = np.random.default_rng(N + V)
+    h, w, b, labels = _ce_inputs(r, N, D, V, cuda, bias, tied)
+    counts = (fce.fwd_launches, fce.ds_launches, fce.dh_launches, fce.dw_launches)
+    nll, lse = fce.fused_ce_fwd(h, w, b, labels)
+    rnll, rlse = fce.fused_ce_fwd_plain(h, w, b, labels)
+    coef = torch.from_numpy(r.uniform(0, 2e-3, N).astype(np.float32)).to(cuda)
+    coef[::7] = 0.0                         # masked tokens
+    ds, db = fce.fused_ce_ds(h, w, b, labels, rlse, coef)
+    rds, rdb = fce.fused_ce_ds_plain(h, w, b, labels, rlse, coef)
+    dh, dw = fce.fused_ce_dh(rds, w), fce.fused_ce_dw(h, rds, w)
+    rdh, rdw = fce.fused_ce_dh_plain(rds, w), fce.fused_ce_dw_plain(h, rds)
+    torch.cuda.synchronize()
+    assert (fce.fwd_launches, fce.ds_launches, fce.dh_launches, fce.dw_launches) == tuple(
+        c + 1 for c in counts)
+    assert float((lse - rlse).abs().max()) <= CE_TOL
+    assert float((nll - rnll).abs().max()) <= CE_TOL
+    assert ds.shape == (N, V) and _ulp_err(ds, rds, GRAD_FLOOR) <= ULP_TOL
+    assert dh.shape == (N, D) and _ulp_err(dh, rdh, GRAD_FLOOR) <= ULP_TOL
+    assert dw.shape == (D, V) and _ulp_err(dw, rdw, GRAD_FLOOR) <= ULP_TOL
+    if bias:
+        assert float((db - rdb).abs().max() / rdb.abs().max()) <= DB_TOL
+    else:
+        assert db is None
+
+
+def test_fused_cross_entropy_autograd_runs_the_kernels(cuda):
+    """loss.backward() through fused_cross_entropy launches F once, G and
+    each product once, and gives finite gradients for h, a tied W and b."""
+    r = np.random.default_rng(9)
+    h, w, b, labels = _ce_inputs(r, 256, 256, 2000, cuda, True, True)
+    embed = w.T.detach().clone().requires_grad_()
+    h, b = h.requires_grad_(), b.requires_grad_()
+    valid = torch.ones(256, device=cuda)
+    valid[:10] = 0
+    n = (fce.fwd_launches, fce.ds_launches, fce.dh_launches, fce.dw_launches)
+    fce.fused_cross_entropy(h, embed.T, labels, bias=b, valid=valid).backward()
+    torch.cuda.synchronize()
+    assert (fce.fwd_launches, fce.ds_launches, fce.dh_launches, fce.dw_launches) == tuple(
+        c + 1 for c in n)
+    assert all(torch.isfinite(x.grad.float()).all() for x in (h, embed, b))
+    with pytest.raises(TypeError, match="fp16/bf16"):
+        fce.fused_cross_entropy(h.detach().float(), embed.detach().T.float(), labels)

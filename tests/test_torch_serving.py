@@ -5,7 +5,8 @@ GPT-2-shaped tiny model: mixed prompt lengths, a second call that hits the
 prefix cache, prefix caching off, and eviction pressure. Tokens must agree
 wherever the JAX model's top-2 logit margin exceeds 1e-3 (an argmax near-tie
 may flip between two correct implementations). Settings outside the
-port's first slice raise."""
+port's slices raise (``serving.paged="off"``, the static path, is held to
+the JAX engine in ``test_torch_generate.py``)."""
 
 import jax
 import numpy as np
@@ -140,7 +141,6 @@ def test_eviction_pressure(pair):
     ({"zero": {"offload_param": {"device": "cpu"}}}, "ZeRO-Inference"),
     ({"telemetry": True}, "telemetry"),
     ({"telemetry": {"events": True}}, "telemetry"),
-    ({"serving": {"paged": "off"}}, "static generate"),
     ({"checkpoint": "ckpt_dir"}, "checkpoint ingestion"),
 ])
 def test_out_of_slice_settings_raise(setting, item):

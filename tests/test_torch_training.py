@@ -119,6 +119,60 @@ def test_engine_matches_jax_engine(one_device_mesh, shape):
     assert max(errs) <= LEAF_TOL, errs
 
 
+# The embedding after 3 Adam steps of the fused-CE engines: Adam amplifies
+# fp32 rounding in the rows whose micro-step gradients nearly cancel, so
+# this leaf moves with the order of the head's sums. The JAX package's own
+# fused and plain CE paths leave it 3.5e-5 apart after these 3 steps (llama
+# shape), the port's fused path 6.6e-5 from the JAX fused path.
+EMBED_ADAM_TOL = 1e-4
+
+
+@pytest.mark.parametrize("shape", ["llama", "gpt2"])
+def test_engine_with_fused_ce_matches_jax_engine(one_device_mesh, shape):
+    """``fused_cross_entropy: "on"`` in both packages: the JAX package's K3
+    Pallas kernels (interpret mode) against the port's K3 plain version
+    (the CPU side of the autograd Function the card runs), GPT-2's tied
+    head read as embed.T in place. First the loss gradients at the initial
+    weights, every leaf within LEAF_TOL (but the key bias, whose exact
+    gradient is zero); then 3 engine steps."""
+    kw = {"llama": LLAMA, "gpt2": GPT2}[shape]
+    jmodel, jparams = _jax_params(kw, seed=4)
+    on = {**kw, "fused_cross_entropy": "on", "remat": False}
+    batch = _batches(4, 1, 2)[0]
+    jcfg = JT.TransformerConfig(**on)
+    want = jax.grad(lambda p: JT.lm_loss(jcfg, p, jax.tree.map(jnp.asarray, batch)))(
+        jax.tree.map(jnp.asarray, jparams))
+    cfg = TransformerConfig(**on)
+    params = params_from_jax(cfg, jparams).map(lambda t: t, requires_grad=True)
+    PT.lm_loss(cfg, params, {k: torch.from_numpy(v).long() for k, v in batch.items()}).backward()
+    grads = params.map(torch.zeros_like)
+    for (_, p), (_, g) in zip(params.named_parameters(), grads.named_parameters()):
+        g.data.copy_(p.grad)
+    errs = jax.tree.map(lambda a, b: float(np.abs(a - b).max() / np.abs(b).max()),
+                        params_to_jax(cfg, grads), jax.tree.map(np.asarray, want))
+    errs["layers"]["attn"].pop("bk", None)
+    assert max(jax.tree.leaves(errs)) <= LEAF_TOL, errs
+
+    config = _config(fused_cross_entropy="on")
+    jeng, _, _, _ = deepspeed_tpu.initialize(model=jmodel, model_parameters=jparams,
+                                             config=config, mesh=one_device_mesh)
+    peng = _port(kw, jparams, config)
+    assert peng.module.config.fused_cross_entropy == "on"
+    for step, batch in enumerate(_batches(11, 3, 4)):
+        want, got = float(jeng.train_batch(batch)), float(peng.train_batch(batch))
+        assert abs(got - want) <= LOSS_TOL * abs(want), (step, got, want)
+    errs = _leaf_errs(peng.module.config, peng, jeng.state.params)
+    if "bk" in errs["layers"]["attn"]:
+        # as in test_engine_matches_jax_engine: rounding noise that Adam
+        # normalises, up to lr a step in each package's own direction
+        errs["layers"]["attn"].pop("bk")
+        got = params_to_jax(peng.module.config, peng.state.params)["layers"]["attn"]["bk"]
+        assert np.abs(got - np.asarray(jeng.state.params["layers"]["attn"]["bk"])).max() <= \
+            2 * sum(peng._lr_fn(s) for s in range(3))
+    assert errs["embed"].pop("tokens") <= EMBED_ADAM_TOL
+    assert max(jax.tree.leaves(errs)) <= LEAF_TOL, errs
+
+
 def test_resume_from_jax_state(one_device_mesh):
     """Two steps in the JAX engine, then params, moments and step count
     carried into the port; step 3 in both lands on the same params."""
@@ -346,7 +400,6 @@ def test_config_fields_match_jax():
     ({"checkpoint": {"save_dir": "x"}}, "checkpoint"),
     ({"elasticity": {"enabled": True}}, "elasticity"),
     ({"autotuning": {"enabled": True}}, "autotuning"),
-    ({"fused_cross_entropy": "on"}, "K3"),
 ])
 def test_outside_the_slice_raises_naming_its_item(over, match):
     _, jparams = _jax_params(LLAMA)
