@@ -44,8 +44,22 @@ Phases, each printing one JSON line:
                 finite and falling, the kernels' launch counters per step
                 equal to 2 L gas (A), L gas (C, D), one per leaf (E) and gas
                 (each fused CE kernel; 0 with --fused-ce off)
-  kernels       every ported kernel with its launches in the serve, generate
-                and train phases
+  train_lamb_parity  Llama-7B width cut to 1 layer: FusedLamb + MoQ
+                (quantize_training, nearest rounding, 10 -> 8 bits within the
+                run) through initialize + train_batch on the card (bf16,
+                kernels) and on the CPU (bf16 compute params over fp32
+                masters, plain versions); per-step losses, each leaf's master
+                update and the Quantizer's state must agree
+  train_lamb    Llama-7B width cut to 8 layers through initialize +
+                train_batch with FusedLamb and MoQ (64 groups, 16 -> 8 bits,
+                period 2, symmetric, stochastic rounding), the train phase's
+                batch, clipping, WarmupLR and fused CE: 1 warm-up + 5 timed
+                steps, every loss finite and falling, per step the LAMB
+                moments and apply kernels once per port leaf, the ratio kernel
+                once per JAX leaf, the stochastic-rounding kernel once per
+                port leaf of each quantized JAX leaf
+  kernels       every ported kernel with its launches in the serve, generate,
+                train and train_lamb phases
   profile       (only with --phases profile) the serve phase's prompts through
                 fresh engines after a warm-up: warm tokens/s, device kernel
                 time by class under torch.profiler, the device's idle share
@@ -72,7 +86,8 @@ import sys
 import time
 
 PHASES = ("env", "build", "kernel", "slice_parity", "serve", "generate_parity", "generate",
-          "train_parity", "train", "kernels", "profile", "train_profile", "generate_profile")
+          "train_parity", "train", "train_lamb_parity", "train_lamb", "kernels", "profile",
+          "train_profile", "generate_profile")
 DEFAULT_PHASES = PHASES[:-3]      # the three profiles run only when asked for
 # Kernel vs plain version, bf16 outputs: the largest difference in each output
 # row (over head_dim), in bf16 ulps of that row's largest |plain| value, so
@@ -93,6 +108,25 @@ ADAM_TOL = 1e-6                 # kernel E: u, m, v error relative to the larges
 CE_TOL = 1e-4                   # kernel F: nll and log2-domain lse, absolute fp32 (PERF.md §6)
 DB_TOL = 1e-4                   # kernel G: db relative to its largest plain value
 FP32_PEAK_TFLOPS = 67.0         # H100 SXM fp32 outside the tensor cores (data sheet)
+LAMB_RATIO_TOL = 1e-6           # fused LAMB trust ratio, relative (p, m, v: ADAM_TOL)
+# K8 against its plain twin fed the kernel's own Philox noise: the share of
+# elements that differ (the same fp32 operations: 0 expected; planted faults
+# differ in a large share)
+SR_MISMATCH_TOL = 1e-6
+MOQ_TRAIN = {"enabled": True, "quantize_groups": 64,
+             "quantize_bits": {"start_bits": 16, "target_bits": 8},
+             "quantize_schedule": {"quantize_period": 2},
+             "quantize_algo": {"q_type": "symmetric", "q_rounding": "stochastic"}}
+LAMB_CONFIG = {"train_batch_size": 8, "train_micro_batch_size_per_gpu": 4,
+               "gradient_accumulation_steps": 2,
+               "optimizer": {"type": "FusedLamb",
+                             "params": {"lr": 1e-3, "betas": [0.9, 0.999], "eps": 1e-6,
+                                        "weight_decay": 0.01}},
+               "scheduler": {"type": "WarmupLR",
+                             "params": {"warmup_min_lr": 0.0, "warmup_max_lr": 1e-3,
+                                        "warmup_num_steps": 2}},
+               "gradient_clipping": 1.0, "bf16": {"enabled": True},
+               "fused_cross_entropy": "auto", "quantize_training": MOQ_TRAIN}
 TRAIN_CONFIG = {"train_batch_size": 8, "train_micro_batch_size_per_gpu": 4,
                 "gradient_accumulation_steps": 2,
                 "optimizer": {"type": "FusedAdam",
@@ -189,7 +223,9 @@ def phase_env(state):
 _KERNEL_NAMES = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
                  "paged_decode_kernel", "dense_decode_kernel", "fused_adam_kernel",
                  "fused_ce_fwd_kernel", "fused_ce_combine_kernel", "fused_ce_ds_kernel",
-                 "fused_ce_db_kernel", "ce_dh_gemm_kernel", "ce_dw_gemm_kernel")
+                 "fused_ce_db_kernel", "ce_dh_gemm_kernel", "ce_dw_gemm_kernel",
+                 "lamb_moments_kernel", "lamb_ratio_kernel", "lamb_apply_kernel",
+                 "sr_quantize_kernel")
 
 
 def ptxas_summary(log):
@@ -408,6 +444,8 @@ def phase_kernel(state, seed):
     from deepspeed_tpu_torch.ops.adam import fused_adam_kernel as fad
     _check_fused_adam(gen, fad, results, failures)
     _check_fused_ce(gen, results, failures)
+    _check_fused_lamb(gen, results, failures)
+    _check_sr_quantize(gen, results, failures)
     check(not failures, "kernel checks failed: " + "; ".join(failures))
 
 
@@ -815,6 +853,260 @@ def _check_fused_adam(gen, fad, results, failures):
         torch.cuda.empty_cache()
 
 
+def _lamb_plain_group(fl, ps, gs, ms, vs, lr, bc1, bc2, kw, skip_first_block=False):
+    """One LAMB group step in plain PyTorch (pure): the new p's, m's, v's and
+    the ratio. ``skip_first_block`` plants a fault: the ratio's sums leave
+    out the elements that block 0 of leaf 0 reads."""
+    import torch
+    out_m, out_v, us = [], [], []
+    p_sq = u_sq = 0.0
+    for i, (p, g, m, v) in enumerate(zip(ps, gs, ms, vs)):
+        m2, v2, u = fl._moments_plain(p, g, m, v, bc1, bc2, kw["b1"], kw["b2"], kw["eps"],
+                                      kw["weight_decay"])
+        pf = p.float()
+        sp, su = pf * pf, u * u
+        if skip_first_block and i == 0:
+            n = p.numel()
+            e = torch.arange(n, device=p.device)
+            keep = ((e // 8) % (fl.lamb_blocks(n) * 256) >= 256) | (e >= n // 8 * 8)
+            sp, su = sp * keep, su * keep
+        p_sq = p_sq + sp.double().sum()
+        u_sq = u_sq + su.double().sum()
+        out_m.append(m2)
+        out_v.append(v2)
+        us.append(u)
+        del sp, su
+    ratio = fl.ratio_plain(p_sq, u_sq)
+    out_p = [(p.float() - lr * (ratio * u)).to(p.dtype) for p, u in zip(ps, us)]
+    return out_p, out_m, out_v, ratio
+
+
+def _check_fused_lamb(gen, results, failures):
+    """K7 (moments per leaf, one ratio per group, apply per leaf) against its
+    plain version on the engine's call: fp32 masters, grads, step 3, at the
+    train path's largest leaf (the 32000 x 4096 embedding, one leaf) and
+    largest group (w_up over 8 layers, one ratio across the 8 leaves), plus
+    ragged leaves with bf16 grads. Planted faults: bias correction dropped,
+    weight decay dropped from u, the first block's partial sums skipped. The
+    params have unit scale and wd is 0.1, so that a dropped decay term moves
+    the ratio and p above the limit in one step. Timed at the embedding
+    leaf, kernel by kernel."""
+    import torch
+    from deepspeed_tpu_torch.ops.lamb import fused_lamb_kernel as fl
+    kw = dict(b1=0.9, b2=0.999, eps=1e-6, weight_decay=0.1)
+    lr, step = 1e-3, 3
+    bc1, bc2 = fl.bias_corrections(step, kw["b1"], kw["b2"])
+    cases = {"embedding_leaf": (1, 32000 * 4096, torch.float32),
+             "w_up_group_8_layers": (8, 4096 * 11008, torch.float32),
+             "ragged_3x4099_bf16_grads": (3, 4099, torch.bfloat16)}
+    for name, (L, n, g_dtype) in cases.items():
+        randn = lambda s: torch.randn(n, generator=gen, device="cuda").mul_(s)
+        ps = [randn(1.0) for _ in range(L)]
+        # leaf 0's first 2048 elements (the vectors block 0 takes first) 10x
+        # larger, as a few large rows would be: block 0's partials then hold a
+        # share of sum p^2 unlike their share of sum u^2, so the planted
+        # skipped-partial fault moves the ratio (with uniform statistics the
+        # two shares cancel to ~4e-7)
+        ps[0][:2048].mul_(10.0)
+        gs = [randn(1e-3).to(g_dtype) for _ in range(L)]
+        ms, vs = [], []
+        for _ in range(L):          # moments as two earlier steps left them
+            g_prev = randn(1e-3)
+            ms.append(g_prev * (1 - kw["b1"]))
+            vs.append(g_prev.square_().mul_(1 - kw["b2"]))
+            del g_prev
+        pk, mk, vk = ([x.clone() for x in xs] for xs in (ps, ms, vs))
+        ratio = fl.lamb_group_step(pk, gs, mk, vk, step=step, lr=lr, **kw)
+        torch.cuda.synchronize()
+
+        def reading(ref):
+            rel = max(float((a.float() - b.float()).abs().max() / b.float().abs().max())
+                      for xs, rs in zip((pk, mk, vk), ref[:3]) for a, b in zip(xs, rs))
+            return rel, abs(float(ratio) - float(ref[3])) / float(ref[3])
+
+        ref = _lamb_plain_group(fl, ps, gs, ms, vs, lr, bc1, bc2, kw)
+        rel, ratio_rel = reading(ref)
+        max_abs = max(float((a.float() - b.float()).abs().max())
+                      for xs, rs in zip((pk, mk, vk), ref[:3]) for a, b in zip(xs, rs))
+        ratio_plain = float(ref[3])
+        del ref
+        faults = {}
+        for fault in ("bias_correction_dropped", "weight_decay_dropped",
+                      "first_block_partial_skipped"):
+            f_ref = _lamb_plain_group(
+                fl, ps, gs, ms, vs, lr, *((1.0, 1.0) if fault == "bias_correction_dropped"
+                                          else (bc1, bc2)),
+                {**kw, "weight_decay": 0.0} if fault == "weight_decay_dropped" else kw,
+                skip_first_block=fault == "first_block_partial_skipped")
+            faults[fault] = max(reading(f_ref))
+            del f_ref
+        if not (rel <= ADAM_TOL and ratio_rel <= LAMB_RATIO_TOL):
+            failures.append(f"fused_lamb {name}: p/m/v {rel} (limit {ADAM_TOL}), ratio "
+                            f"{ratio_rel} (limit {LAMB_RATIO_TOL})")
+        for f, e in faults.items():
+            if not e > max(ADAM_TOL, LAMB_RATIO_TOL):
+                failures.append(f"fused_lamb {name}: planted fault {f} reads {e}")
+        rec = {"kernel": "fused_lamb", "case": name, "leaves": L, "n_per_leaf": n,
+               "g_dtype": str(g_dtype), "max_abs_err": max_abs, "rel_err": rel,
+               "rel_tol": ADAM_TOL, "ratio": float(ratio), "ratio_plain": ratio_plain,
+               "ratio_rel_err": ratio_rel, "ratio_tol": LAMB_RATIO_TOL, "fault_err": faults}
+        del pk, mk, vk
+        if name == "embedding_leaf":
+            p, g, m, v = ps[0], gs[0], ms[0], vs[0]
+            blocks = fl.lamb_blocks(n)
+            part = torch.empty((blocks, 2), dtype=torch.float64, device="cuda")
+            akw = dict(bc1=bc1, bc2=bc2, eps=kw["eps"], weight_decay=kw["weight_decay"])
+            mom = lambda: fl.lamb_moments(p, g, m, v, part, b1=kw["b1"], b2=kw["b2"], **akw)
+            mom()
+            r = fl.lamb_ratio(part)
+            parts = {
+                "fused_lamb_moments": (
+                    mom, lambda: fl._moments_plain(p, g, m, v, bc1, bc2, kw["b1"], kw["b2"],
+                                                   kw["eps"], kw["weight_decay"]),
+                    bound(n * (4 * 4 + 2 * 4) + 16 * blocks, 20 * n, FP32_PEAK_TFLOPS)),
+                "fused_lamb_ratio": (
+                    lambda: fl.lamb_ratio(part),
+                    lambda: fl.ratio_plain(*part.sum(0)),
+                    bound(16 * blocks + 4, 2 * blocks, FP32_PEAK_TFLOPS)),
+                "fused_lamb_apply": (
+                    lambda: fl.lamb_apply(p, m, v, r, lr=lr, **akw),
+                    lambda: p.float() - lr * (r * fl.lamb_u_plain(p, m, v, bc1, bc2, kw["eps"],
+                                                                   kw["weight_decay"])),
+                    bound(n * (3 * 4 + 4), 12 * n, FP32_PEAK_TFLOPS)),
+            }
+            for kname, (run, plain, (b_ms, b_by)) in parts.items():
+                results[kname] = {**rec, "kernel": kname, "ms": cuda_ms(run),
+                                  "plain_ms": cuda_ms(plain, reps=10, warmup=2),
+                                  "library_ms": None, "library": "none (no single PyTorch "
+                                  "call computes a LAMB step)", "bound_ms": b_ms,
+                                  "bound_by": b_by}
+            # one pass that kept u would move 28 B an element; the two passes 40
+            rec["one_pass_bound_ms"] = bound(28 * n, 0)[0]
+            rec["two_pass_bound_ms"] = bound(40 * n, 0)[0]
+            rec["ms_by_kernel"] = {k: results[k]["ms"] for k in parts}
+            del part, r
+        emit("kernel", **rec)
+        del ps, gs, ms, vs
+        torch.cuda.empty_cache()
+
+
+def _sr_plain(qk, leaves, groups, bits, seed, fault=None):
+    """K8's plain twin over the leaves of one stacked tensor, fed the
+    kernel's own Philox draws, or a planted fault: the draws shifted
+    arithmetically (u in [-0.5, 0.5)), round to nearest, one stream for
+    every block (the counter restarting every 1024 elements)."""
+    import torch
+    scale, qmax, gs = qk._span_scales(leaves, groups, bits)
+    outs, off = [], 0
+    for t in leaves:
+        n = t.numel()
+        x = t.reshape(-1).float()
+        s = scale[torch.arange(off, off + n, device=t.device) // gs]
+        if fault == "round_to_nearest":
+            q = torch.round(x / s)
+        else:
+            w = qk.philox_words(seed, off, n, t.device,
+                                counter_mod=256 if fault == "one_stream_per_block" else 0)
+            if fault == "arithmetic_shift":
+                u = (torch.where(w >= 2**31, w - 2**32, w) >> 8).float() * 2.0**-24
+            else:
+                u = (w & 0xFFFFFF).float() * 2.0**-24
+            del w
+            q = torch.floor(x / s + u)
+        outs.append((torch.clamp(q, -qmax - 1, qmax) * s).to(t.dtype).reshape(t.shape))
+        off += n
+    return outs
+
+
+def _check_sr_quantize(gen, results, failures):
+    """K8 against its plain twin fed the same Philox draws, bit for bit
+    (the share of differing elements must be <= SR_MISMATCH_TOL, each
+    planted fault's above it), at the train path's largest leaf (the
+    embedding, 64 groups, 16 bits: the run's first bit width) and at the
+    w_up leaves of 8 layers with 43 groups of 2^23 elements, which span
+    layers (8 bits). Then its statistics on x = (k + 0.3) s: every output is
+    floor(x/s) s or (floor(x/s) + 1) s, the mean over 64 seeds is within 4
+    sigma of x, a seed repeats bit for bit, and adjacent blocks' rounding is
+    uncorrelated (|r| within 4 / sqrt(N)). Timed at the embedding leaf, in
+    place, the kernel alone (the scales are torch amax outside it)."""
+    import torch
+    from deepspeed_tpu_torch.ops.quantizer import kernels as qk
+    cases = {"embedding_leaf": (1, (32000, 4096), 64, 16),
+             "w_up_8_layers_43_groups": (8, (4096, 11008), 43, 8)}
+    for name, (L, shape, groups, bits) in cases.items():
+        leaves = [torch.randn(shape, generator=gen, device="cuda").mul_(0.02)
+                  .to(torch.bfloat16) for _ in range(L)]
+        got = qk.ds_sr_quantize_span(leaves, groups, bits, seed=7)
+        torch.cuda.synchronize()
+
+        def share(ref):
+            diff = sum(int((a != b).sum()) for a, b in zip(got, ref))
+            return diff / sum(t.numel() for t in leaves)
+
+        ref = _sr_plain(qk, leaves, groups, bits, 7)
+        err = share(ref)
+        max_abs = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, ref))
+        del ref
+        faults = {}
+        for fault in ("arithmetic_shift", "round_to_nearest", "one_stream_per_block"):
+            faults[fault] = share(_sr_plain(qk, leaves, groups, bits, 7, fault))
+        if not err <= SR_MISMATCH_TOL:
+            failures.append(f"sr_quantize {name}: {err} of the elements differ")
+        for f, e in faults.items():
+            if not e > SR_MISMATCH_TOL:
+                failures.append(f"sr_quantize {name}: planted fault {f} reads {e}")
+        rec = {"kernel": "sr_quantize", "case": name, "leaves": L, "shape": list(shape),
+               "groups": groups, "bits": bits, "max_abs_err": max_abs, "mismatch_share": err,
+               "mismatch_tol": SR_MISMATCH_TOL, "fault_mismatch_share": faults}
+        if name == "embedding_leaf":
+            x = leaves[0]
+            scale, qmax, gs = qk._span_scales([x], groups, bits)
+            n = x.numel()
+            rec["ms"] = cuda_ms(lambda: qk._kernel(x, x, scale, gs, 0, qmax, 7))
+            flat = x.reshape(groups, -1)
+            rec["plain_ms"] = cuda_ms(lambda: qk.sr_quantize_plain(
+                flat, scale[:, None], qmax, qk.philox_uniform(7, 0, n, "cuda").reshape(
+                    groups, -1)), reps=3, warmup=1)
+            rec["library_ms"] = None
+            rec["library"] = ("none (torch.fake_quantize_* rounds to nearest; no PyTorch call "
+                              "rounds stochastically)")
+            # bf16 read and written once, the scales once; ~31 operations an
+            # element (Philox4x32-10 shared by four, then the rounding)
+            rec["bound_ms"], rec["bound_by"] = bound(4 * n + 4 * groups, 31 * n,
+                                                     FP32_PEAK_TFLOPS)
+            results["sr_quantize"] = rec
+        emit("kernel", **rec)
+        del leaves, got
+        torch.cuda.empty_cache()
+
+    # statistics on a grid: x = (k + 0.3) s, s a power of two, 64 groups
+    s, qmax = 2.0**-4, 127
+    k = torch.randint(-20, 20, (64, 16384), generator=gen, device="cuda")
+    x = ((k + 0.3) * s).to(torch.bfloat16)
+    x[:, 0] = qmax * s                          # each group's max: scale = s exactly
+    xf = x.float()
+    lo = torch.floor(xf / s) * s
+    outs = torch.stack([qk.ds_sr_quantize(x, 64, 8, seed=i).float() for i in range(64)])
+    support = bool(((outs == lo) | (outs == lo + s)).all())
+    frac = xf / s - torch.floor(xf / s)
+    sigma = float((s * s * frac * (1 - frac) / 64).mean().sqrt()) / xf.numel() ** 0.5
+    bias = abs(float((outs.mean(0) - xf).mean()))
+    repeat = bool(torch.equal(qk.ds_sr_quantize(x, 64, 8, seed=3),
+                              qk.ds_sr_quantize(x, 64, 8, seed=3)))
+    up = (outs[0] != lo).float().reshape(-1, 1024)        # one 1024-element block a row
+    a, b = up[:-1].reshape(-1), up[1:].reshape(-1)
+    corr = float(torch.corrcoef(torch.stack([a, b]))[0, 1])
+    corr_tol = 4 / a.numel() ** 0.5
+    stats = {"kernel": "sr_quantize", "case": "grid_statistics", "support_exact": support,
+             "mean_bias": bias, "mean_bias_tol": 4 * sigma, "seed_repeats": repeat,
+             "adjacent_block_corr": corr, "corr_tol": corr_tol}
+    if not (support and bias <= 4 * sigma and repeat and abs(corr) <= corr_tol):
+        failures.append(f"sr_quantize statistics: {stats}")
+    emit("kernel", **stats)
+    del k, x, xf, lo, outs, up
+    torch.cuda.empty_cache()
+
+
 def _last_logits(engine, tokens):
     """Logits at the last position of ``tokens`` through the engine's own
     paged prefill on a scratch pool (the margin probe of slice_parity)."""
@@ -1214,9 +1506,10 @@ def phase_train_parity(state, seed):
     check(not failures, "train_parity failed: " + "; ".join(failures))
 
 
-def _train_setup(seed):
+def _train_setup(seed, config=None):
     """The train phase's engine (Llama-2-7B width, TRAIN_LAYERS layers,
-    random bf16 weights drawn on the card) and its one token batch."""
+    random bf16 weights drawn on the card; ``config`` default TRAIN_CONFIG)
+    and its one token batch."""
     import numpy as np
     import torch
     from deepspeed_tpu_torch.models import llama
@@ -1224,7 +1517,7 @@ def _train_setup(seed):
     model = llama("7b", n_layer=TRAIN_LAYERS)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     params = model.init_params(gen, device="cuda", dtype=torch.bfloat16)
-    engine = _train_engine(model, params, TRAIN_CONFIG)
+    engine = _train_engine(model, params, config or TRAIN_CONFIG)
     del params
     torch.cuda.empty_cache()
     rng = np.random.default_rng(seed + 2)
@@ -1237,19 +1530,31 @@ def _train_counters():
     from deepspeed_tpu_torch.ops.adam import fused_adam_kernel as fad
     from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
     from deepspeed_tpu_torch.ops.kernels import fused_cross_entropy as fce
+    from deepspeed_tpu_torch.ops.lamb import fused_lamb_kernel as fl
+    from deepspeed_tpu_torch.ops.quantizer import kernels as qk
     return {"flash_attention_fwd": fa.launches, "flash_attention_bwd_dq": fa.dq_launches,
             "flash_attention_bwd_dkv": fa.dkv_launches, "fused_adam": fad.launches,
             "fused_ce_fwd": fce.fwd_launches, "fused_ce_ds": fce.ds_launches,
-            "fused_ce_dh_gemm": fce.dh_launches, "fused_ce_dw_gemm": fce.dw_launches}
+            "fused_ce_dh_gemm": fce.dh_launches, "fused_ce_dw_gemm": fce.dw_launches,
+            "fused_lamb_moments": fl.moments_launches, "fused_lamb_ratio": fl.ratio_launches,
+            "fused_lamb_apply": fl.apply_launches, "sr_quantize": qk.launches}
+
+
+def _reset_train_counters():
+    from deepspeed_tpu_torch.ops.adam import fused_adam_kernel as fad
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    from deepspeed_tpu_torch.ops.kernels import fused_cross_entropy as fce
+    from deepspeed_tpu_torch.ops.lamb import fused_lamb_kernel as fl
+    from deepspeed_tpu_torch.ops.quantizer import kernels as qk
+    fa.launches = fa.dq_launches = fa.dkv_launches = fad.launches = 0
+    fce.fwd_launches = fce.ds_launches = fce.dh_launches = fce.dw_launches = 0
+    fl.moments_launches = fl.ratio_launches = fl.apply_launches = qk.launches = 0
 
 
 def phase_train(state, seed):
     import numpy as np
     import torch
     from deepspeed_tpu_torch.accelerator import get_accelerator
-    from deepspeed_tpu_torch.ops.adam import fused_adam_kernel as fad
-    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
-    from deepspeed_tpu_torch.ops.kernels import fused_cross_entropy as fce
 
     acc = get_accelerator("cuda")
     t0 = time.perf_counter()
@@ -1270,8 +1575,7 @@ def phase_train(state, seed):
     check(leaves == 9 * cfg.n_layer + 3, f"{leaves} parameter leaves")
     acc.reset_peak_memory_stats()
 
-    fa.launches = fa.dq_launches = fa.dkv_launches = fad.launches = 0
-    fce.fwd_launches = fce.ds_launches = fce.dh_launches = fce.dw_launches = 0
+    _reset_train_counters()
     losses, step_s, per_step = [], [], []
     for _ in range(TRAIN_STEPS):
         before = _train_counters()
@@ -1303,6 +1607,144 @@ def phase_train(state, seed):
          flops_per_token=flops_tok, init_s=init_s,
          peak_mem_gb=acc.max_memory_allocated() / 1e9, memory=acc.memory_report(),
          launches=launches, launches_per_step=want, card=state.get("card"))
+    del engine, batch
+    torch.cuda.empty_cache()
+
+
+def phase_train_lamb_parity(state, seed):
+    """Llama-7B width at PARITY_LAYERS with FusedLamb and MoQ (nearest
+    rounding, 10 -> 8 bits with period 1, so the bits drop within the run):
+    the same fp32 weights and [1, 256] batches for 3 train_batch steps on the
+    card (bf16 compute params over fp32 masters, kernels) and on the CPU (the
+    same precision, plain versions). MoQ quantizes the compute params, which
+    the next update overwrites from the masters; an fp32 engine keeps no
+    masters and accumulates the quantization in its weights, so the CPU side
+    runs bf16 too, to compute the same function. Per-step losses within
+    PARITY_LOSS_TOL, each leaf's master update within PARITY_UPDATE_TOL of
+    the CPU's, the Quantizer's state equal."""
+    import numpy as np
+    import torch
+    from deepspeed_tpu_torch.models import llama
+
+    model = llama("7b", n_layer=PARITY_LAYERS)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    init = model.init_params(gen, device="cuda", dtype=torch.float32)
+    cpu_init = init.map(lambda t: t.to("cpu"))
+    S = 256
+    moq = {**MOQ_TRAIN, "quantize_groups": 1,
+           "quantize_bits": {"start_bits": 10, "target_bits": 8},
+           "quantize_schedule": {"quantize_period": 1},
+           "quantize_algo": {"q_type": "symmetric", "q_rounding": "nearest"}}
+    config = {**LAMB_CONFIG, "train_batch_size": 1, "train_micro_batch_size_per_gpu": 1,
+              "gradient_accumulation_steps": 1, "quantize_training": moq}
+    gpu = _train_engine(model, init, config)
+    del init
+    cpu = _train_engine(model, cpu_init, config, device="cpu")
+    rng = np.random.default_rng(seed + 6)
+    batches = [{"input_ids": rng.integers(0, model.config.vocab_size, size=(1, S))}
+               for _ in range(3)]
+    failures, losses, qstates = [], [], []
+    for batch in batches:
+        got, want = float(gpu.train_batch(batch)), float(cpu.train_batch(batch))
+        losses.append({"card_bf16": got, "cpu_bf16": want, "diff": got - want})
+        if not (np.isfinite(got) and abs(got - want) <= PARITY_LOSS_TOL):
+            failures.append(f"loss {got} on the card vs {want} on the CPU")
+        qstates.append(gpu.quantizer.state_dict() == cpu.quantizer.state_dict())
+    if not all(qstates):
+        failures.append(f"Quantizer state differs: {gpu.quantizer.state_dict()} vs "
+                        f"{cpu.quantizer.state_dict()}")
+    updates = {}
+    init_named = dict(cpu_init.named_parameters())
+    for name, master in gpu.state.master.items():
+        w0 = init_named[name].detach()
+        d_cpu = cpu.state.master[name] - w0
+        d_gpu = master.to("cpu") - w0
+        updates[name] = float((d_gpu - d_cpu).norm() / d_cpu.norm().clamp(min=1e-30))
+    worst = max(updates, key=updates.get)
+    if not updates[worst] <= PARITY_UPDATE_TOL:
+        failures.append(f"leaf {worst} update differs by {updates[worst]} of the CPU's")
+    bits = sorted({v["bits"] for v in gpu.quantizer.state_dict()["leaf_state"].values()})
+    del gpu, cpu
+    torch.cuda.empty_cache()
+    emit("train_lamb_parity", layers=model.config.n_layer, d_model=model.config.d_model,
+         batch=[1, S], steps=len(batches), optimizer="FusedLamb", moq=moq, losses=losses,
+         loss_tol=PARITY_LOSS_TOL, quantizer_state_equal=qstates, bits_at_end=bits,
+         update_rel_diff_worst={worst: updates[worst]},
+         update_rel_diff_median=float(np.median(list(updates.values()))),
+         update_tol=PARITY_UPDATE_TOL)
+    check(not failures, "train_lamb_parity failed: " + "; ".join(failures))
+
+
+def phase_train_lamb(state, seed):
+    """The train phase's model and batch with LAMB_CONFIG (FusedLamb, MoQ
+    with stochastic rounding): 1 warm-up + 5 timed steps; every loss finite
+    and falling; per step, the K7 moments and apply kernels once per port
+    leaf, the ratio kernel once per JAX leaf, K8 once per port leaf of each
+    JAX leaf of stacked rank >= 2, and the attention and CE kernels as in
+    the train phase (no Adam)."""
+    import numpy as np
+    import torch
+    from deepspeed_tpu_torch.accelerator import get_accelerator
+    from deepspeed_tpu_torch.runtime.utils import jax_leaves
+
+    acc = get_accelerator("cuda")
+    t0 = time.perf_counter()
+    model, engine, batch = _train_setup(seed, LAMB_CONFIG)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    cfg = model.config
+    gas = engine.gradient_accumulation_steps()
+    named = dict(engine.state.params.named_parameters())
+    groups = jax_leaves(named)
+    quantized = sum(len(ns) for path, ns in groups.items()
+                    if named[ns[0]].dim() + (path[0] == "layers") >= 2)
+    want = {"flash_attention_fwd": 2 * cfg.n_layer * gas,
+            "flash_attention_bwd_dq": cfg.n_layer * gas,
+            "flash_attention_bwd_dkv": cfg.n_layer * gas,
+            "fused_adam": 0,
+            **dict.fromkeys(("fused_ce_fwd", "fused_ce_ds", "fused_ce_dh_gemm",
+                             "fused_ce_dw_gemm"),
+                            0 if LAMB_CONFIG["fused_cross_entropy"] == "off" else gas),
+            "fused_lamb_moments": len(named), "fused_lamb_apply": len(named),
+            "fused_lamb_ratio": len(groups), "sr_quantize": quantized}
+    check((len(named), len(groups), quantized) == (9 * cfg.n_layer + 3, 12,
+                                                   9 * cfg.n_layer + 2),
+          f"{len(named)} port leaves, {len(groups)} JAX leaves, {quantized} quantized")
+    acc.reset_peak_memory_stats()
+
+    _reset_train_counters()
+    losses, step_s, per_step = [], [], []
+    for _ in range(TRAIN_STEPS):
+        before = _train_counters()
+        t = time.perf_counter()
+        loss = float(engine.train_batch(batch))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        losses.append(loss)
+        after = _train_counters()
+        per_step.append({k: after[k] - before[k] for k in after})
+    launches = _train_counters()
+
+    check(all(np.isfinite(losses)), f"non-finite train loss: {losses}")
+    check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+    for k, n in want.items():
+        check(all(s[k] == n for s in per_step), f"{k} launches per step {per_step} != {n}")
+        check(launches[k] == n * TRAIN_STEPS, f"{k} launches {launches[k]}")
+    state["train_lamb_launches"] = launches
+    tokens = LAMB_CONFIG["train_batch_size"] * TRAIN_SEQ
+    step = statistics.median(step_s[1:])
+    flops_tok = model.flops_per_token(TRAIN_SEQ)
+    peak = acc.peak_tflops()
+    qstate = engine.quantizer.state_dict()
+    emit("train_lamb", model="llama-2-7b width", layers=cfg.n_layer, seq=TRAIN_SEQ,
+         dtype="bf16", config=LAMB_CONFIG, params=model.num_parameters, losses=losses,
+         step_s=step_s, step_ms_median_timed=step * 1e3, tokens_per_step=tokens,
+         tokens_per_s=tokens / step, model_tflops_per_s=flops_tok * tokens / step / 1e12,
+         mfu=flops_tok * tokens / step / (peak * 1e12), init_s=init_s,
+         peak_mem_gb=acc.max_memory_allocated() / 1e9, launches=launches,
+         launches_per_step=want, quantizer_qsteps=qstate["qsteps"],
+         quantizer_bits={k: v["bits"] for k, v in qstate["leaf_state"].items()},
+         card=state.get("card"))
     del engine, batch
     torch.cuda.empty_cache()
 
@@ -1347,7 +1789,11 @@ def _kernel_class(name):
                         ("fused_ce_ds_kernel", "fused_ce_ds"),
                         ("fused_ce_db_kernel", "fused_ce_ds"),
                         ("ce_dh_gemm_kernel", "fused_ce_dh_gemm"),
-                        ("ce_dw_gemm_kernel", "fused_ce_dw_gemm")):
+                        ("ce_dw_gemm_kernel", "fused_ce_dw_gemm"),
+                        ("lamb_moments_kernel", "fused_lamb_moments"),
+                        ("lamb_ratio_kernel", "fused_lamb_ratio"),
+                        ("lamb_apply_kernel", "fused_lamb_apply"),
+                        ("sr_quantize_kernel", "sr_quantize")):
         if kernel in n:
             return cls
     if any(t in n for t in ("gemm", "gemv", "cutlass", "xmma", "nvjet", "cublas")):
@@ -1416,6 +1862,7 @@ def phase_kernels(state):
     serve = state.get("launches", {})
     gen = state.get("gen_launches", {})
     train = state.get("train_launches", {})
+    train_lamb = state.get("train_lamb_launches", {})
     rows = []
     meta = {
         "flash_attention_fwd": (
@@ -1452,11 +1899,26 @@ def phase_kernels(state):
         "fused_ce_dw_gemm": (
             "deepspeed_tpu_torch/csrc/fused_cross_entropy.cu",
             "deepspeed_tpu/ops/pallas/fused_cross_entropy.py:142 (_dw_kernel)"),
+        "fused_lamb_moments": (
+            "deepspeed_tpu_torch/csrc/fused_lamb.cu",
+            "deepspeed_tpu/ops/lamb/fused_lamb_kernel.py:38 (_lamb_kernel: moments, u, "
+            "sum p^2 and sum u^2)"),
+        "fused_lamb_ratio": (
+            "deepspeed_tpu_torch/csrc/fused_lamb.cu",
+            "deepspeed_tpu/ops/lamb/fused_lamb_kernel.py:38 (_lamb_kernel: the norms' "
+            "reduction across its sequential grid)"),
+        "fused_lamb_apply": (
+            "deepspeed_tpu_torch/csrc/fused_lamb.cu",
+            "deepspeed_tpu/ops/lamb/fused_lamb_kernel.py:38 (_lamb_kernel: u, applied as "
+            "p - lr ratio u)"),
+        "sr_quantize": (
+            "deepspeed_tpu_torch/csrc/sr_quantize.cu",
+            "deepspeed_tpu/ops/quantizer/kernels.py:80 (_sr_kernel)"),
     }
     for name, (source, replaces) in meta.items():
         r = res.get(name, {})
-        by_path = {p: n[name] for p, n in (("serve", serve), ("generate", gen), ("train", train))
-                   if name in n}
+        by_path = {p: n[name] for p, n in (("serve", serve), ("generate", gen), ("train", train),
+                                           ("train_lamb", train_lamb)) if name in n}
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                      "launches": sum(by_path.values()) if by_path else None,
                      "launches_by_path": by_path, "max_abs_err": r.get("max_abs_err"),

@@ -9,7 +9,9 @@ imports JAX) and returns the port's
 the same layout, one sub-tree per layer. :func:`params_to_jax` goes back.
 :func:`adam_state_from_jax` carries the JAX optimizer's Adam moments and
 step count (optax ``ScaleByAdamState`` or the fused ``FusedAdamState``) into
-the port's :class:`~deepspeed_tpu_torch.runtime.optimizers.AdamState`, so a
+the port's :class:`~deepspeed_tpu_torch.runtime.optimizers.AdamState`, and
+:func:`opt_state_from_jax` the state of any engine-built optimizer (the
+LAMB moments, SGD's trace, Lion's momentum, Adagrad's sum of squares), so a
 run started in one package resumes in the other."""
 
 from __future__ import annotations
@@ -20,7 +22,9 @@ import numpy as np
 import torch
 
 from deepspeed_tpu_torch.models.transformer import ParamTree, TransformerConfig, map_tree
-from deepspeed_tpu_torch.runtime.optimizers import AdamState
+from deepspeed_tpu_torch.config import core as config_core
+from deepspeed_tpu_torch.runtime.optimizers import (AdagradState, AdamState, LionState,
+                                                    SGDState)
 
 
 def _tensor(a, dtype):
@@ -74,17 +78,21 @@ def params_to_jax(cfg: TransformerConfig, tree) -> Dict[str, Any]:
     return out
 
 
-def _find_adam(state):
-    """The node of a JAX optimizer state that holds ``mu``, ``nu`` and
-    ``count`` (the state itself, or an element of an optax chain's tuple)."""
-    if all(hasattr(state, a) for a in ("mu", "nu", "count")):
+def _find(state, attrs=("mu", "nu", "count")):
+    """The node of a JAX optimizer state that holds ``attrs`` (the state
+    itself, or an element of an optax chain's tuple)."""
+    if all(hasattr(state, a) for a in attrs):
         return state
     if isinstance(state, (tuple, list)):
         for s in state:
-            found = _find_adam(s)
+            found = _find(s, attrs)
             if found is not None:
                 return found
     return None
+
+
+def _named(cfg, tree):
+    return {n: p.data for n, p in params_from_jax(cfg, tree).named_parameters()}
 
 
 def adam_state_from_jax(cfg: TransformerConfig, opt_state) -> AdamState:
@@ -92,11 +100,36 @@ def adam_state_from_jax(cfg: TransformerConfig, opt_state) -> AdamState:
     (leaves as numpy: ``jax.tree.map(np.asarray, opt_state)``), for the
     engine-built adam / adamw / fusedadam. Moments come back in fp32, keyed
     by the port's leaf names."""
-    node = _find_adam(opt_state)
+    node = _find(opt_state)
     if node is None:
         raise ValueError("no Adam state (mu, nu, count) in this optimizer state")
+    return AdamState(count=int(np.asarray(node.count)), mu=_named(cfg, node.mu),
+                     nu=_named(cfg, node.nu))
 
-    def named(tree):
-        return {n: p.data for n, p in params_from_jax(cfg, tree).named_parameters()}
 
-    return AdamState(count=int(np.asarray(node.count)), mu=named(node.mu), nu=named(node.nu))
+def opt_state_from_jax(cfg: TransformerConfig, name: str, opt_state):
+    """The port's optimizer state for config ``optimizer.type`` ``name`` from
+    the JAX engine's ``state.opt_state`` (numpy leaves): the Adam family and
+    lamb / fusedlamb (``ScaleByAdamState`` in the optax chain or
+    ``FusedLambState``) -> ``AdamState``; sgd (``TraceState.trace``) ->
+    ``SGDState``; lion (``ScaleByLionState``: mu, count) -> ``LionState``;
+    adagrad (``ScaleByRssState.sum_of_squares``) -> ``AdagradState``. The
+    JAX trace and sum-of-squares states keep no count: theirs comes back 0
+    (neither optimizer reads it)."""
+    name = name.lower()
+    if name == config_core.SGD_OPTIMIZER:
+        node = _find(opt_state, ("trace",))
+        if node is None:
+            raise ValueError("no TraceState (trace) in this optimizer state")
+        return SGDState(count=0, trace=_named(cfg, node.trace))
+    if name == config_core.ADAGRAD_OPTIMIZER:
+        node = _find(opt_state, ("sum_of_squares",))
+        if node is None:
+            raise ValueError("no ScaleByRssState (sum_of_squares) in this optimizer state")
+        return AdagradState(count=0, sum_of_squares=_named(cfg, node.sum_of_squares))
+    if name == config_core.LION_OPTIMIZER:
+        node = _find(opt_state, ("mu", "count"))
+        if node is None:
+            raise ValueError("no ScaleByLionState (mu, count) in this optimizer state")
+        return LionState(count=int(np.asarray(node.count)), mu=_named(cfg, node.mu))
+    return adam_state_from_jax(cfg, opt_state)

@@ -6,8 +6,9 @@ for the subset that training on one device reads: the batch-size triad
 resolved and validated as the JAX package does (reference
 ``runtime/config.py:853-907``); the optimizer and scheduler names and
 params; ``gradient_clipping``; fp16 / bf16 / amp; the gradient accumulation
-dtype; ``fused_cross_entropy``; ``steps_per_print`` and
-``wall_clock_breakdown``.
+dtype; ``fused_cross_entropy``; ``quantize_training`` (MoQ, read as the
+JAX package reads it: on only with ``enabled: true``); ``steps_per_print``
+and ``wall_clock_breakdown``.
 
 The world size is 1. ``zero_optimization.stage`` 0-3 is accepted: on one
 device every ZeRO stage replicates everything, as the JAX sharding rules do
@@ -54,7 +55,7 @@ _READ = {
     C.TRAIN_BATCH_SIZE, C.TRAIN_MICRO_BATCH_SIZE_PER_GPU, C.GRADIENT_ACCUMULATION_STEPS,
     C.STEPS_PER_PRINT, C.WALL_CLOCK_BREAKDOWN, C.OPTIMIZER, C.SCHEDULER, C.GRADIENT_CLIPPING,
     C.FP16, C.BFLOAT16, C.BFLOAT16_OLD, C.AMP, C.DATA_TYPES, C.ZERO_OPTIMIZATION,
-    C.FUSED_CROSS_ENTROPY, "mesh",
+    C.FUSED_CROSS_ENTROPY, "mesh", "quantize_training",
 }
 # keys the JAX package reads whose effect is on multi-device runs or on
 # engine features outside training itself; on one device they change nothing
@@ -67,7 +68,6 @@ _NO_EFFECT_ON_ONE_DEVICE = {
 _NOT_PORTED = {
     "pipeline": ("pipeline parallelism", "runtime/pipe/"),
     "compression_training": ("compression", "compression"),
-    "quantize_training": ("MoQ quantization-aware training", "compression"),
     "telemetry": ("training telemetry", "telemetry and control plane"),
     "tensorboard": ("the tensorboard monitor", "telemetry and control plane"),
     "wandb": ("the wandb monitor", "telemetry and control plane"),
@@ -131,6 +131,10 @@ def _refuse_outside_slice(param_dict: Dict) -> None:
     opt = (param_dict.get(C.OPTIMIZER) or {}).get(C.TYPE)
     if opt is not None and str(opt).lower() in _ONEBIT:
         not_ported(f"the 1-bit optimizer {opt}", "queue 1: runtime/fp16/onebit/")
+    qt = param_dict.get("quantize_training") or {}
+    if qt.get("enabled", False) and (qt.get("eigenvalue") or {}).get("enabled", False):
+        not_ported("the MoQ eigenvalue schedule (quantize_training.eigenvalue)",
+                   "queue 1: compression (MoQ eigenvalue, runtime/eigenvalue.py)")
     if param_dict.get(C.WALL_CLOCK_BREAKDOWN, False):
         not_ported("wall_clock_breakdown timers", "queue 1: telemetry and control plane")
 
@@ -206,6 +210,11 @@ class DeepSpeedConfig:
             raise DeepSpeedConfigError(
                 f"data_types.grad_accum_dtype={self.gradient_accumulation_dtype!r} "
                 "(expected 'fp32', 'fp16' or 'bf16')")
+
+        # MoQ: progressive quantization-aware training (runtime/quantize.py)
+        qt = param_dict.get("quantize_training", {})
+        self.quantize_training_enabled = bool(qt.get("enabled", False))
+        self.quantize_training = qt if self.quantize_training_enabled else {}
 
         self.fused_cross_entropy = param_dict.get(C.FUSED_CROSS_ENTROPY,
                                                   C.FUSED_CROSS_ENTROPY_DEFAULT)

@@ -38,8 +38,10 @@ SOURCES: Dict[str, str] = {
     "dense_decode_attention": "dense_decode_attention.cu",
     "fused_adam": "fused_adam.cu",
     "fused_cross_entropy": "fused_cross_entropy.cu",
+    "fused_lamb": "fused_lamb.cu",
+    "sr_quantize": "sr_quantize.cu",
 }
-_HEADERS = ("common.cuh", "decode_attention.cuh")
+_HEADERS = ("common.cuh", "decode_attention.cuh", "elementwise.cuh")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 

@@ -7,8 +7,14 @@ buffers and then released, and one optimizer update (``_apply_update``):
 unscale by ``loss_scale * gas``, skip on an fp16 overflow, clip on the
 pre-clip global norm, ``master <- master - lr * u`` per leaf with ``u`` the
 optimizer's descent direction (one kernel E launch that writes the master
-in place) and the scheduled lr taken before the step counter moves, and
-the compute-dtype params refreshed from the masters in place. With ``gas == 1`` the micro-step's gradients feed the update directly
+in place for the Adam family) and the scheduled lr taken before the step
+counter moves, and the compute-dtype params refreshed from the masters in
+place. LAMB's trust ratio spans one JAX leaf (all layers of a stacked leaf),
+so it updates each group of per-layer leaves at once: the moments pass over
+every leaf of the group, then the group's ratio on the device, then the
+apply pass. With ``quantize_training`` enabled, ``train_batch`` then
+fake-quantizes the compute-dtype params (MoQ, ``runtime/quantize.py``) as the
+JAX engine's ``_quantize_step`` does. With ``gas == 1`` the micro-step's gradients feed the update directly
 in the compute dtype, with no buffers, as the JAX engine's fused path does.
 The ``forward`` / ``backward`` / ``step`` trio gives the same result.
 
@@ -38,8 +44,9 @@ from deepspeed_tpu_torch.runtime import lr_schedules
 from deepspeed_tpu_torch.runtime.loss_scaler import (LossScaleState, has_overflow,
                                                      make_loss_scale_state)
 from deepspeed_tpu_torch.runtime.loss_scaler import update as scaler_update
-from deepspeed_tpu_torch.runtime.optimizers import AdamState, build_optimizer
-from deepspeed_tpu_torch.runtime.utils import clip_grad_norm_, global_norm
+from deepspeed_tpu_torch.runtime.optimizers import build_optimizer
+from deepspeed_tpu_torch.runtime.quantize import quantizer_from_config
+from deepspeed_tpu_torch.runtime.utils import clip_grad_norm_, global_norm, jax_leaves
 from deepspeed_tpu_torch.utils.logging import log_dist
 from deepspeed_tpu_torch.utils.not_ported import not_ported
 
@@ -52,7 +59,7 @@ class TrainState:
     """What one update reads and writes (the JAX engine's ``TrainState``)."""
     params: ParamTree                        # compute-dtype params (requires_grad)
     master: Optional[Dict[str, torch.Tensor]]  # fp32 masters by leaf name (None for fp32)
-    opt_state: AdamState
+    opt_state: Any                           # the optimizer's state (runtime/optimizers.py)
     acc_grads: Optional[Dict[str, torch.Tensor]]  # accumulation buffers (None: gas 1)
     scaler: LossScaleState
     micro_steps: int = 0
@@ -120,6 +127,11 @@ class DeepSpeedEngine:
         self.tx = build_optimizer(self._config.optimizer_name, self._config.optimizer_params)
         self._optimizer_name = self._config.optimizer_name or "adamw"
 
+        # ---- MoQ (quantize_training) ----
+        self.quantizer = (quantizer_from_config(self._config.quantize_training)
+                          if self._config.quantize_training_enabled else None)
+        self._moq_seen_skipped = 0
+
         # ---- lr schedule ----
         self.lr_scheduler = None
         base_lr = (self._config.optimizer_params or {}).get("lr", 1e-3)
@@ -164,6 +176,7 @@ class DeepSpeedEngine:
             lambda a: torch.as_tensor(a).detach().to(dev, self.compute_dtype, copy=True), tree),
             requires_grad=True)
         self._names = [n for n, _ in params.named_parameters()]
+        self._groups = list(jax_leaves(self._names).values())
         master = None
         if self.mixed_precision:
             fp32 = ParamTree(map_tree(
@@ -203,12 +216,14 @@ class DeepSpeedEngine:
                 n: torch.zeros(p.shape, dtype=self.grad_acc_dtype, device=p.device)
                 for n, p in self.state.params.named_parameters()}
 
-    def load_train_state(self, params=None, master=None, opt_state: Optional[AdamState] = None,
+    def load_train_state(self, params=None, master=None, opt_state=None,
                          global_steps: Optional[int] = None) -> None:
         """Carry a training state in (e.g. one taken from the JAX package
         with ``checkpoint.from_jax``): ``params`` a tree of the model's
-        layout, ``master`` and the optimizer moments by leaf name. Values are
-        copied into the engine's own tensors; what is not given stays."""
+        layout, ``master`` and the optimizer state's tensors by leaf name
+        (an ``AdamState``, ``SGDState``, ``LionState`` or ``AdagradState``
+        of the engine's optimizer). Values are copied into the engine's own
+        tensors; what is not given stays."""
         named = self._param_dict(self.state.params)
         with torch.no_grad():
             if params is not None:
@@ -224,10 +239,14 @@ class DeepSpeedEngine:
                     m.copy_(master[n])
                     named[n].copy_(m)
             if opt_state is not None:
-                for n in self._names:
-                    self.state.opt_state.mu[n].copy_(opt_state.mu[n])
-                    self.state.opt_state.nu[n].copy_(opt_state.nu[n])
-                self.state.opt_state.count = int(opt_state.count)
+                mine = self.state.opt_state
+                if type(opt_state) is not type(mine):
+                    raise TypeError(f"{type(opt_state).__name__} given, the engine's "
+                                    f"{self._optimizer_name} keeps a {type(mine).__name__}")
+                for field in mine.FIELDS:
+                    for n in self._names:
+                        getattr(mine, field)[n].copy_(getattr(opt_state, field)[n])
+                mine.count = int(opt_state.count)
         if global_steps is not None:
             self.state.global_steps = int(global_steps)
 
@@ -286,16 +305,28 @@ class DeepSpeedEngine:
         if not overflow:
             st.opt_state.count += 1
             params = self._param_dict(st.params)
+            targets = st.master if st.master is not None else params
+
+            def clipped(n):
+                g = unscaled(n)
+                if clip > 0.0:
+                    clip_grad_norm_([g], clip, norm=norm)
+                return g
+
             with torch.no_grad():
-                for n in names:
-                    g = unscaled(n)
-                    if clip > 0.0:
-                        clip_grad_norm_([g], clip, norm=norm)
-                    target = st.master[n] if st.master is not None else params[n]
-                    self.tx.leaf_update(st.opt_state, n, g, target, lr)
-                    if st.master is not None:
-                        params[n].copy_(target)
-                    del g
+                if self.tx.group_update is not None:
+                    # one trust ratio per JAX leaf; the compute params are
+                    # refreshed after the group's apply pass
+                    for group in self._groups:
+                        self.tx.group_update(st.opt_state, group, clipped, targets, lr)
+                        if st.master is not None:
+                            for n in group:
+                                params[n].copy_(targets[n])
+                else:
+                    for n in names:
+                        self.tx.leaf_update(st.opt_state, n, clipped(n), targets[n], lr)
+                        if st.master is not None:
+                            params[n].copy_(targets[n])
         st.scaler = scaler_update(st.scaler, overflow)
         if from_buffers:
             for g in st.acc_grads.values():
@@ -343,9 +374,24 @@ class DeepSpeedEngine:
             self.state.micro_steps += gas
             self._apply_update(gas)
             loss = torch.stack(losses).mean()
+        if self.quantizer is not None:
+            self._quantize_step()
         self._losses = loss
         self._report_progress(loss)
         return loss
+
+    def _quantize_step(self) -> None:
+        """MoQ after the update (the JAX engine's ``_quantize_step``, run by
+        ``train_batch`` only): walk the per-leaf bit schedule and
+        fake-quantize the compute-dtype params in place, never the fp32
+        masters. An fp16 overflow step skipped its update and does not
+        advance the schedule."""
+        overflow = False
+        if self.fp16_enabled():
+            cur = self.state.skipped_steps
+            overflow = cur > self._moq_seen_skipped
+            self._moq_seen_skipped = cur
+        self.quantizer.quantize_tree(self._param_dict(self.state.params), overflow=overflow)
 
     def forward(self, batch):
         """Loss of one micro-batch, with its graph kept for ``backward``."""

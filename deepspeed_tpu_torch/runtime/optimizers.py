@@ -1,33 +1,40 @@
 """Optimizer factory (counterpart of ``deepspeed_tpu/runtime/optimizers.py``).
 
-The engine-built optimizers of the training slice, ``adam``, ``adamw`` and
-``fusedadam``, keep the JAX engine's update: ``master <- master - lr * u``
-with ``u`` the positive descent direction and ``lr`` the engine's scheduled
-lr (``runtime/engine.py _apply_update``). The three share one Adam
-(``optax.scale_by_adam`` and the fused kernel compute the same function),
-which runs kernel E on the card (the port of the TPU's Pallas
-``_adam_kernel``) with the subtraction fused in (``emit="param"``, the same
-two fp32 roundings as ``master - lr * u``); they differ only in how weight
-decay applies. The rest of the JAX factory raises ``NotImplementedError``
-naming its ROADMAP.md item.
+The engine-built optimizers keep the JAX engine's update: ``master <- master
+- lr * u`` with ``u`` the positive descent direction and ``lr`` the engine's
+scheduled lr (``runtime/engine.py _apply_update``).
+
+- ``adam``, ``adamw`` and ``fusedadam`` share one :class:`Adam`
+  (``optax.scale_by_adam`` and the fused kernel compute the same function),
+  which runs kernel E on the card (the port of the TPU's Pallas
+  ``_adam_kernel``) with the subtraction fused in (``emit="param"``, the same
+  two fp32 roundings as ``master - lr * u``); they differ only in how weight
+  decay applies.
+- ``lamb`` and ``fusedlamb`` share one :class:`Lamb` (optax ``scale_by_adam``
+  + ``add_decayed_weights`` + ``scale_by_trust_ratio`` and the fused kernel
+  compute the same function, with no clamp on the ratio), which runs the K7
+  kernels on the card. Its trust ratio spans one JAX leaf, so the engine
+  hands it each group of per-layer leaves at once (``group_update``).
+- ``sgd`` (optax ``trace``), ``lion`` (``scale_by_lion``) and ``adagrad``
+  (``scale_by_rss``), each followed by ``add_decayed_weights``, are plain
+  elementwise PyTorch on the card, as the JAX package leaves them to XLA.
+
+The 1-bit optimizers raise ``NotImplementedError`` naming their ROADMAP.md
+item.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
 from deepspeed_tpu_torch.config import core as config_core
 from deepspeed_tpu_torch.ops.adam import fused_adam_kernel as fused
+from deepspeed_tpu_torch.ops.lamb import fused_lamb_kernel as lamb
 
 _NOT_PORTED = {
-    config_core.FUSED_LAMB_OPTIMIZER: "queue 2: K7 fused LAMB",
-    config_core.LAMB_OPTIMIZER: "queue 1: training step (lamb, sgd, lion, adagrad)",
-    config_core.SGD_OPTIMIZER: "queue 1: training step (lamb, sgd, lion, adagrad)",
-    config_core.ADAGRAD_OPTIMIZER: "queue 1: training step (lamb, sgd, lion, adagrad)",
-    config_core.LION_OPTIMIZER: "queue 1: training step (lamb, sgd, lion, adagrad)",
     config_core.ONEBIT_ADAM_OPTIMIZER: "queue 1: runtime/fp16/onebit/",
     config_core.ZERO_ONE_ADAM_OPTIMIZER: "queue 1: runtime/fp16/onebit/",
     config_core.ONEBIT_LAMB_OPTIMIZER: "queue 1: runtime/fp16/onebit/",
@@ -42,6 +49,36 @@ class AdamState:
     count: int
     mu: Dict[str, torch.Tensor]
     nu: Dict[str, torch.Tensor]
+    FIELDS = ("mu", "nu")
+
+
+@dataclasses.dataclass
+class SGDState:
+    """optax ``TraceState``: the momentum buffer per leaf (fp32)."""
+    count: int
+    trace: Dict[str, torch.Tensor]
+    FIELDS = ("trace",)
+
+
+@dataclasses.dataclass
+class LionState:
+    """optax ``ScaleByLionState``: the update count and the fp32 momentum."""
+    count: int
+    mu: Dict[str, torch.Tensor]
+    FIELDS = ("mu",)
+
+
+@dataclasses.dataclass
+class AdagradState:
+    """optax ``ScaleByRssState``: the running sum of squared gradients."""
+    count: int
+    sum_of_squares: Dict[str, torch.Tensor]
+    FIELDS = ("sum_of_squares",)
+
+
+def _full(named_params, value: float = 0.0):
+    return {n: torch.full(p.shape, value, dtype=torch.float32, device=p.device)
+            for n, p in named_params.items()}
 
 
 class Adam:
@@ -56,10 +93,10 @@ class Adam:
         self.weight_decay = float(weight_decay)
         self.adam_w_mode = bool(adam_w_mode)
 
+    group_update = None           # one leaf at a time
+
     def init(self, named_params: Dict[str, torch.Tensor]) -> AdamState:
-        zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-        return AdamState(count=0, mu={n: zeros(p) for n, p in named_params.items()},
-                         nu={n: zeros(p) for n, p in named_params.items()})
+        return AdamState(count=0, mu=_full(named_params), nu=_full(named_params))
 
     def leaf_update(self, state: AdamState, name: str, grad: torch.Tensor,
                     param: torch.Tensor, lr: float) -> None:
@@ -74,17 +111,120 @@ class Adam:
                               adam_w_mode=self.adam_w_mode, emit="param", out=flat)
 
 
+class Lamb:
+    """LAMB over groups of leaves: Adam's unscaled update plus ``wd * p``,
+    scaled by one trust ratio ``||p|| / ||u||`` per group (a JAX leaf),
+    through ``lamb_moments`` / ``lamb_ratio`` / ``lamb_apply`` (the K7
+    kernels on CUDA tensors, their plain versions on the CPU)."""
+
+    def __init__(self, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-6,
+                 weight_decay: float = 0.0, bias_correction: bool = True):
+        self.b1, self.b2, self.eps = float(b1), float(b2), float(eps)
+        self.weight_decay = float(weight_decay)
+        self.bias_correction = bool(bias_correction)
+
+    def init(self, named_params: Dict[str, torch.Tensor]) -> AdamState:
+        return AdamState(count=0, mu=_full(named_params), nu=_full(named_params))
+
+    def group_update(self, state: AdamState, names: List[str],
+                     grad: Callable[[str], torch.Tensor], params: Dict[str, torch.Tensor],
+                     lr: float) -> torch.Tensor:
+        """``param <- param - lr * ratio * u`` in place for the leaves
+        ``names`` of one JAX leaf at update count ``state.count``; ``grad(n)``
+        returns leaf n's unscaled, clipped gradient (called once each, in
+        order, so only one is alive at a time). The ratio stays on the
+        device and is returned."""
+        flat = lambda d: [d[n].view(-1) for n in names]
+        return lamb.lamb_group_step(
+            flat(params), lambda i: grad(names[i]).reshape(-1), flat(state.mu), flat(state.nu),
+            step=state.count, lr=lr, b1=self.b1, b2=self.b2, eps=self.eps,
+            weight_decay=self.weight_decay, bias_correction=self.bias_correction)
+
+
+class SGD:
+    """optax ``trace(decay=momentum, nesterov)`` then ``+ wd * p``."""
+    group_update = None
+
+    def __init__(self, momentum: float = 0.0, nesterov: bool = False,
+                 weight_decay: float = 0.0):
+        self.momentum, self.nesterov = float(momentum), bool(nesterov)
+        self.weight_decay = float(weight_decay)
+
+    def init(self, named_params: Dict[str, torch.Tensor]) -> SGDState:
+        return SGDState(count=0, trace=_full(named_params))
+
+    def leaf_update(self, state: SGDState, name: str, grad: torch.Tensor,
+                    param: torch.Tensor, lr: float) -> None:
+        g = grad.float()
+        t = state.trace[name]
+        t.copy_(g + self.momentum * t)
+        u = g + self.momentum * t if self.nesterov else t
+        if self.weight_decay:
+            u = u + self.weight_decay * param
+        param.sub_(lr * u)
+
+
+class Lion:
+    """optax ``scale_by_lion(b1, b2)`` then ``+ wd * p``:
+    ``u = sign((1 - b1) g + b1 m)``, then ``m <- (1 - b2) g + b2 m``."""
+    group_update = None
+
+    def __init__(self, b1: float = 0.9, b2: float = 0.99, weight_decay: float = 0.0):
+        self.b1, self.b2 = float(b1), float(b2)
+        self.weight_decay = float(weight_decay)
+
+    def init(self, named_params: Dict[str, torch.Tensor]) -> LionState:
+        return LionState(count=0, mu=_full(named_params))
+
+    def leaf_update(self, state: LionState, name: str, grad: torch.Tensor,
+                    param: torch.Tensor, lr: float) -> None:
+        g = grad.float()
+        m = state.mu[name]
+        u = torch.sign((1.0 - self.b1) * g + self.b1 * m)
+        m.copy_((1.0 - self.b2) * g + self.b2 * m)
+        if self.weight_decay:
+            u = u + self.weight_decay * param
+        param.sub_(lr * u)
+
+
+class Adagrad:
+    """optax ``scale_by_rss(initial_accumulator_value, eps)`` then
+    ``+ wd * p``: ``s <- s + g^2``, ``u = where(s > 0, rsqrt(s + eps), 0) * g``."""
+    group_update = None
+
+    def __init__(self, initial_accumulator_value: float = 0.0, eps: float = 1e-10,
+                 weight_decay: float = 0.0):
+        self.initial_accumulator_value = float(initial_accumulator_value)
+        self.eps = float(eps)
+        self.weight_decay = float(weight_decay)
+
+    def init(self, named_params: Dict[str, torch.Tensor]) -> AdagradState:
+        return AdagradState(count=0, sum_of_squares=_full(named_params,
+                                                          self.initial_accumulator_value))
+
+    def leaf_update(self, state: AdagradState, name: str, grad: torch.Tensor,
+                    param: torch.Tensor, lr: float) -> None:
+        g = grad.float()
+        s = state.sum_of_squares[name]
+        s.add_(g * g)
+        u = torch.where(s > 0, torch.rsqrt(s + self.eps), torch.zeros_like(s)) * g
+        if self.weight_decay:
+            u = u + self.weight_decay * param
+        param.sub_(lr * u)
+
+
 def _adam_args(params: Dict[str, Any]) -> Dict[str, Any]:
     betas = params.get("betas", (0.9, 0.999))
     return dict(b1=betas[0], b2=betas[1], eps=params.get("eps", 1e-8),
                 weight_decay=params.get("weight_decay", 0.0))
 
 
-def build_optimizer(name: Optional[str], params: Optional[Dict[str, Any]] = None) -> Adam:
+def build_optimizer(name: Optional[str], params: Optional[Dict[str, Any]] = None):
     """The engine-built optimizer for config ``optimizer.type`` ``name``
     (default adamw) with ``optimizer.params`` (``lr`` is the engine's)."""
     params = dict(params or {})
     name = (name or config_core.ADAMW_OPTIMIZER).lower()
+    wd = params.get("weight_decay", 0.0)
     if name == config_core.ADAM_OPTIMIZER:
         # reference Adam applies L2-style weight decay unless adam_w_mode
         return Adam(adam_w_mode=params.get("adam_w_mode", False), **_adam_args(params))
@@ -92,6 +232,18 @@ def build_optimizer(name: Optional[str], params: Optional[Dict[str, Any]] = None
         return Adam(adam_w_mode=True, **_adam_args(params))
     if name == config_core.FUSED_ADAM_OPTIMIZER:
         return Adam(adam_w_mode=params.get("adam_w_mode", True), **_adam_args(params))
+    if name in (config_core.FUSED_LAMB_OPTIMIZER, config_core.LAMB_OPTIMIZER):
+        betas = params.get("betas", (0.9, 0.999))
+        return Lamb(b1=betas[0], b2=betas[1], eps=params.get("eps", 1e-6), weight_decay=wd)
+    if name == config_core.SGD_OPTIMIZER:
+        return SGD(momentum=params.get("momentum", 0.0), nesterov=params.get("nesterov", False),
+                   weight_decay=wd)
+    if name == config_core.ADAGRAD_OPTIMIZER:
+        return Adagrad(initial_accumulator_value=params.get("initial_accumulator_value", 0.0),
+                       eps=params.get("eps", 1e-10), weight_decay=wd)
+    if name == config_core.LION_OPTIMIZER:
+        betas = params.get("betas", (0.9, 0.99))
+        return Lion(b1=betas[0], b2=betas[1], weight_decay=wd)
     if name in _NOT_PORTED:
         raise NotImplementedError(f"optimizer {name} is not ported to deepspeed_tpu_torch yet "
                                   f"(ROADMAP.md {_NOT_PORTED[name]})")

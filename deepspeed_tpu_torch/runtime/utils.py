@@ -1,10 +1,12 @@
 """Gradient norms and clipping (the training subset of
 ``deepspeed_tpu/runtime/utils.py``: ``global_norm`` :111, ``clip_grad_norm_``
-:118) over a list of tensors instead of a pytree."""
+:118) over a list of tensors instead of a pytree, and the map from the
+port's per-layer leaves to the JAX package's stacked leaves
+(:func:`jax_leaves`)."""
 
 from __future__ import annotations
 
-from typing import Iterable, Optional, Sequence, Tuple
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -29,3 +31,25 @@ def clip_grad_norm_(grads: Sequence[torch.Tensor], max_norm: float,
     for g in grads:
         g.mul_(coef.to(g.dtype))
     return grads, norm
+
+
+def jax_leaves(names: Iterable[str]) -> Dict[Tuple[str, ...], List[str]]:
+    """The JAX leaves that the port's leaf names form, in the JAX package's
+    flattened order (dict keys sorted at every level), each with its port
+    names in layer order. The JAX package stacks the layers into one
+    ``[n_layer, ...]`` leaf per key, so ``layers.0.attn.wq`` ...
+    ``layers.{L-1}.attn.wq`` form the leaf ``("layers", "attn", "wq")``;
+    every other name is a leaf of its own."""
+    groups: Dict[Tuple[str, ...], List[Tuple[int, str]]] = {}
+    for name in names:
+        parts = name.split(".")
+        if parts[0] == "layers" and len(parts) > 2 and parts[1].isdigit():
+            groups.setdefault(("layers",) + tuple(parts[2:]), []).append((int(parts[1]), name))
+        else:
+            groups.setdefault(tuple(parts), []).append((0, name))
+    return {path: [n for _, n in sorted(groups[path])] for path in sorted(groups)}
+
+
+def keystr(path: Sequence[str]) -> str:
+    """``jax.tree_util.keystr`` of a path of dict keys: ``['layers']['attn']['wq']``."""
+    return "".join(f"[{k!r}]" for k in path)

@@ -59,6 +59,15 @@ GENERATE_AND_CE_MODULES = (
 )
 
 
+# the fourth slice's modules (LAMB on K7, MoQ with K8, the training layer)
+LAMB_AND_MOQ_MODULES = (
+    "deepspeed_tpu_torch.ops.lamb.fused_lamb_kernel",
+    "deepspeed_tpu_torch.ops.quantizer.kernels",
+    "deepspeed_tpu_torch.ops.transformer.training_kernels",
+    "deepspeed_tpu_torch.runtime.quantize",
+)
+
+
 def test_import_leaves_jax_and_pydantic_out():
     mods = ["deepspeed_tpu_torch"] + sorted(
         "deepspeed_tpu_torch." + ".".join(p.relative_to(ROOT / "deepspeed_tpu_torch")
@@ -66,6 +75,7 @@ def test_import_leaves_jax_and_pydantic_out():
         for p in (ROOT / "deepspeed_tpu_torch").rglob("*.py") if p.name != "__init__.py")
     assert set(TRAINING_MODULES) <= set(mods)
     assert set(GENERATE_AND_CE_MODULES) <= set(mods)
+    assert set(LAMB_AND_MOQ_MODULES) <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -145,3 +155,9 @@ def test_kernel_wrappers_refuse_unsupported_cuda_inputs_without_fallback():
         fce.fused_ce_dh(h, w.T)
     with pytest.raises(ValueError, match="no kernel for device"):
         fce.fused_ce_dw(h, h, w)
+    from deepspeed_tpu_torch.ops.lamb import fused_lamb_kernel as fl
+    from deepspeed_tpu_torch.ops.quantizer import kernels as qk
+    with pytest.raises(ValueError, match="no kernel for device"):
+        fl.fused_lamb_step(flat, flat, flat, flat, step=1)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        qk.ds_sr_quantize(h, 4)

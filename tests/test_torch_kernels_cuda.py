@@ -16,12 +16,15 @@ from deepspeed_tpu_torch.ops.kernels import decode_attention as dda
 from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
 from deepspeed_tpu_torch.ops.kernels import fused_cross_entropy as fce
 from deepspeed_tpu_torch.ops.kernels import paged_decode_attention as pda
+from deepspeed_tpu_torch.ops.lamb import fused_lamb_kernel as fl
+from deepspeed_tpu_torch.ops.quantizer import kernels as qk
 
 ULP_TOL = 3.0     # bf16 ulps of each output row's largest value (as chip_smoke.py)
 LSE_TOL = 1e-4    # log2-domain lse, fp32 in both from the same bf16 inputs
 ADAM_TOL = 1e-6   # fused Adam u / m / v, fp32 error relative to the largest plain value
 CE_TOL = 1e-4     # fused CE nll and log2-domain lse: absolute fp32, the same bf16 inputs
 DB_TOL = 1e-4     # fused CE db: fp32 sums in another order, relative to the largest value
+RATIO_TOL = 1e-6  # fused LAMB trust ratio, relative: fp64 sums of fp32 squares in another order
 
 
 GRAD_FLOOR = 2.0**-10   # backward rows: reference magnitude floored at this share of the max
@@ -297,3 +300,84 @@ def test_fused_cross_entropy_autograd_runs_the_kernels(cuda):
     assert all(torch.isfinite(x.grad.float()).all() for x in (h, embed, b))
     with pytest.raises(TypeError, match="fp16/bf16"):
         fce.fused_cross_entropy(h.detach().float(), embed.detach().T.float(), labels)
+
+
+@pytest.mark.parametrize("L,n,p_dtype,g_dtype,wd,bc", [
+    (1, 1_000_000, torch.float32, torch.float32, 0.01, True),    # one leaf, the engine's call
+    (3, 4099, torch.float32, torch.bfloat16, 0.01, True),        # ragged leaves, bf16 grads
+    (8, 65536, torch.float32, torch.float32, 0.0, False),        # a stacked group, no decay
+    (2, 777, torch.bfloat16, torch.float32, 0.01, True),         # bf16 params
+])
+def test_fused_lamb_kernels_match_plain(cuda, L, n, p_dtype, g_dtype, wd, bc):
+    """K7 over a group of L leaves (moments, one ratio, apply) against the
+    plain version of the same group: p, m, v within ADAM_TOL of their largest
+    value, the ratio within RATIO_TOL; launches L + 1 + L."""
+    r = np.random.default_rng(L * n)
+    ps = [_randn(r, (n,), cuda, torch.float32).mul_(0.02).to(p_dtype) for _ in range(L)]
+    gs = [_randn(r, (n,), cuda, torch.float32).mul_(1e-3).to(g_dtype) for _ in range(L)]
+    ms = [_randn(r, (n,), cuda, torch.float32).mul_(1e-4) for _ in range(L)]
+    vs = [_randn(r, (n,), cuda, torch.float32).square_().mul_(1e-7) for _ in range(L)]
+    kw = dict(step=3, lr=1e-3, b1=0.9, b2=0.999, eps=1e-6, weight_decay=wd, bias_correction=bc)
+    cpu = lambda xs: [x.cpu().clone() for x in xs]
+    rp, rm, rv = cpu(ps), cpu(ms), cpu(vs)
+    want = fl.lamb_group_step(rp, cpu(gs), rm, rv, **kw)
+    n0 = (fl.moments_launches, fl.ratio_launches, fl.apply_launches)
+    ratio = fl.lamb_group_step(ps, gs, ms, vs, **kw)
+    torch.cuda.synchronize()
+    assert (fl.moments_launches, fl.ratio_launches, fl.apply_launches) == (
+        n0[0] + L, n0[1] + 1, n0[2] + L)
+    assert abs(float(ratio) - float(want)) <= RATIO_TOL * float(want)
+    for got, ref in ((ps, rp), (ms, rm), (vs, rv)):
+        a, b = torch.cat([x.float().cpu() for x in got]), torch.cat([x.float() for x in ref])
+        err = float((a - b).abs().max() / b.abs().max())
+        assert err <= (ADAM_TOL if p_dtype == torch.float32 or got is not ps else 2**-8), err
+
+
+def test_fused_lamb_repeats_bit_for_bit(cuda):
+    r = np.random.default_rng(3)
+    base = [_randn(r, (300_000,), cuda, torch.float32) for _ in range(4)]
+    runs = []
+    for _ in range(2):
+        p, g, m, v = (x.clone() for x in base)
+        v.square_()
+        ratio = fl.lamb_group_step([p], [g], [m], [v], step=1, lr=1e-3, weight_decay=0.01)
+        runs.append((ratio, p, m, v))
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.parametrize("shape,groups,bits,dtype", [
+    ((4096, 512), 64, 8, torch.bfloat16),     # one leaf, 64 groups
+    ((3, 1000, 7), 3, 8, torch.bfloat16),     # a group per leaf, leaves of 7000 (not 8-aligned)
+    ((2, 96, 10), 3, 4, torch.float32),       # 3 groups over 2 leaves: group 1 spans both
+    ((1, 1001), 7, 16, torch.float16),
+])
+def test_sr_quantize_kernel_matches_plain_with_its_noise(cuda, shape, groups, bits, dtype):
+    """K8 on the leaves of a stacked tensor, one launch per leaf with its
+    offset, against the plain version fed the kernel's own Philox noise:
+    equal bit for bit; a seed repeats and another moves."""
+    r = np.random.default_rng(bits + groups)
+    x = _randn(r, shape, cuda, dtype)
+    leaves = [x[i].clone() for i in range(shape[0])]
+    flat = x.reshape(groups, -1).float()
+    noise = qk.philox_uniform(17, 0, x.numel(), device=cuda).reshape(groups, -1)
+    want = qk.sr_quantize_plain(flat, qk._sym_scale(flat, bits)[0], 2.0 ** (bits - 1) - 1,
+                                noise).to(dtype).reshape(shape)
+    n0 = qk.launches
+    got = qk.ds_sr_quantize_span(leaves, groups, bits, seed=17)
+    torch.cuda.synchronize()
+    assert qk.launches == n0 + len(leaves)
+    assert torch.equal(torch.stack(got), want)
+    again = qk.ds_sr_quantize_span(leaves, groups, bits, seed=17)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    other = qk.ds_sr_quantize_span(leaves, groups, bits, seed=18)
+    assert not all(torch.equal(a, b) for a, b in zip(got, other))
+    qk.ds_sr_quantize_span(leaves, groups, bits, seed=17, out=leaves)      # in place
+    assert torch.equal(torch.stack(leaves), want)
+
+
+def test_sr_quantize_wrapper_raises_instead_of_falling_back(cuda):
+    x = torch.zeros(64, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="noise"):
+        qk.ds_sr_quantize(x, 4, noise=torch.zeros(4, 16, device=cuda))
+    with pytest.raises(TypeError, match="fp16 / bf16 / fp32"):
+        qk.ds_sr_quantize(x.double(), 4)

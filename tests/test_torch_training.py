@@ -391,8 +391,8 @@ def test_config_fields_match_jax():
 @pytest.mark.parametrize("over,match", [
     ({"zero_optimization": {"stage": 2, "offload_optimizer": {"device": "cpu"}}}, "offload"),
     ({"optimizer": {"type": "OneBitAdam", "params": {}}}, "onebit"),
-    ({"optimizer": {"type": "Lamb", "params": {}}}, "lamb"),
-    ({"optimizer": {"type": "FusedLamb", "params": {}}}, "K7"),
+    ({"optimizer": {"type": "onebitlamb", "params": {}}}, "lamb"),
+    ({"quantize_training": {"enabled": True, "eigenvalue": {"enabled": True}}}, "eigenvalue"),
     ({"pipeline": {"stages": 2}}, "runtime/pipe"),
     ({"mesh": {"dp": 1, "sp": 2}}, "multi-device"),
     ({"compression_training": {"weight_quantization": {}}}, "compression"),
