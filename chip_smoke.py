@@ -229,14 +229,18 @@ _KERNEL_NAMES = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kerne
 
 
 def ptxas_summary(log):
-    """Registers and spill bytes of every kernel instantiation from nvcc's
-    ``-Xptxas=-v`` output, folded to one line per (kernel, dtype, head dim):
-    the most registers and spill bytes over its other template arguments."""
+    """Registers, static shared memory and spill bytes of every kernel
+    instantiation from nvcc's ``-Xptxas=-v`` output, folded to one line per
+    (kernel, dtype, head dim): the most of each over its other template
+    arguments; and every ptxas warning (a wgmma serialised, setmaxnreg
+    ignored)."""
     import re
-    rows = {}
+    rows, warnings = {}, []
     for text in log.values():
         key = None
         for ln in text.splitlines():
+            if "warning" in ln.lower():
+                warnings.append(ln.strip()[:200])
             m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", ln)
             if m:
                 name = m.group(1)
@@ -244,23 +248,33 @@ def ptxas_summary(log):
                 dt = "bf16" if "bfloat16" in name else "fp16" if "__half" in name else ""
                 hd = re.search(r"Li(64|128)E", name)
                 key = f"{kern} {dt} hd{hd.group(1)}" if hd else f"{kern} {dt}".strip()
-                rows.setdefault(key, {"registers": 0, "spill_bytes": 0})
+                rows.setdefault(key, {"registers": 0, "smem_bytes": 0, "spill_bytes": 0})
             if key is None:
                 continue
             r = re.search(r"Used (\d+) registers", ln)
             if r:
                 rows[key]["registers"] = max(rows[key]["registers"], int(r.group(1)))
+            sm = re.search(r"(\d+) bytes smem", ln)
+            if sm:
+                rows[key]["smem_bytes"] = max(rows[key]["smem_bytes"], int(sm.group(1)))
             sp = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
             if sp:
                 rows[key]["spill_bytes"] = max(rows[key]["spill_bytes"],
                                                int(sp.group(1)) + int(sp.group(2)))
-    return rows
+    return rows, warnings
 
 
 def phase_build(state):
+    """nvcc of every kernel with ptxas's report. G, dh and dW take their
+    ring as dynamic shared memory, which ptxas does not count: it is read
+    from the library. ptxas reports their launch bound's 168 registers;
+    setmaxnreg moves the consumer warpgroups to 232 at run time."""
     from deepspeed_tpu_torch.ops.kernels import build
     seconds, log = build.build(ptxas_verbose=True)
-    emit("build", seconds=seconds, built=sorted(log), ptxas=ptxas_summary(log))
+    rows, warnings = ptxas_summary(log)
+    gemm_smem = build.load("fused_cross_entropy").ds_ce_gemm_smem_bytes()
+    emit("build", seconds=seconds, built=sorted(log), ptxas=rows, ptxas_warnings=warnings,
+         ce_backward_dynamic_smem_bytes=gemm_smem)
 
 
 def _flash_case(gen, B, S, H, KV, Hd, causal, alibi, mask):
@@ -539,29 +553,58 @@ def _ce_faults(fce, h, w, b, labels, lse, coef, ds):
     dropped, the gold logit read one column off. G: the onehot not
     subtracted, the last token tile skipped. dh: the 32-wide K chunk that
     holds the first token's label dropped, W's rows shifted by one. dW: the
-    last 32 tokens dropped, h's rows shifted by one."""
+    last 32 tokens dropped, h's rows shifted by one. Aimed at the wgmma
+    mainloop of G, dh and dW: one 64-deep K chunk in the middle of the
+    reduction dropped (a ring slot skipped; in dh the chunk that holds the
+    label nearest V / 2), and the output's columns permuted within one
+    64-wide block (16-byte chunks swapped in pairs, as a swizzle off by one;
+    in G and dW the first whole block that holds a label)."""
     import torch
     N, V = ds.shape
+    D = h.shape[1]
     drop = torch.zeros((V,), device=h.device) if b is None else b.clone()
     drop[(V - 1) // 128 * 128:] = -1e30
     f = {"last_vocab_tile_dropped": fce.fused_ce_fwd_plain(h, w, drop, labels),
          "gold_one_column_off": fce.fused_ce_fwd_plain(h, w, b, (labels + 1) % V)}
+    mid = lambda n: (n + 63) // 64 // 2 * 64          # the middle 64-deep chunk of n
+    swz = torch.arange(64, device=h.device) ^ 8
+
+    def swizzled(x, c0):
+        y = x.clone()
+        y[:, c0:c0 + 64] = x[:, c0:c0 + 64][:, swz]
+        return y
+
+    c_lab = next(c for c in (int(x) // 64 * 64 for x in labels.tolist()) if c + 64 <= V)
     rds, _ = fce.fused_ce_ds_plain(h, w, b, labels, lse, coef)
     onehot = torch.zeros_like(rds, dtype=torch.float32)
     onehot[torch.arange(N, device=h.device), labels.long()] = coef
     cut = rds.clone()
     cut[(N - 1) // 128 * 128:] = 0
+    h_cut = h.clone()
+    h_cut[:, mid(D):mid(D) + 64] = 0
     g = {"onehot_not_subtracted": (rds.float() + onehot).to(rds.dtype),
-         "last_token_tile_skipped": cut}
+         "last_token_tile_skipped": cut,
+         "mid_k_chunk_dropped": fce.fused_ce_ds_plain(h_cut, w, b, labels, lse, coef)[0],
+         "cols_swizzled_in_64_block": swizzled(rds, c_lab)}
     k_cut = ds.clone()
     k0 = int(labels[0]) // 32 * 32
     k_cut[:, k0:k0 + 32] = 0
+    v_mid = int(labels[(labels - V // 2).abs().argmin()]) // 64 * 64
+    k_mid = ds.clone()
+    k_mid[:, v_mid:v_mid + 64] = 0
+    rdh = fce.fused_ce_dh_plain(ds, w)
     dh = {"gold_k_chunk_dropped": fce.fused_ce_dh_plain(k_cut, w),
-          "w_rows_shifted": fce.fused_ce_dh_plain(ds, w.roll(1, 0))}
+          "w_rows_shifted": fce.fused_ce_dh_plain(ds, w.roll(1, 0)),
+          "mid_k_chunk_dropped": fce.fused_ce_dh_plain(k_mid, w),
+          "cols_swizzled_in_64_block": swizzled(rdh, 0)}
     t_cut = ds.clone()
     t_cut[(N - 1) // 32 * 32:] = 0
+    t_mid = ds.clone()
+    t_mid[mid(N):mid(N) + 64] = 0
     dw = {"last_k_chunk_dropped": fce.fused_ce_dw_plain(h, t_cut),
-          "h_rows_shifted": fce.fused_ce_dw_plain(h.roll(1, 0), ds)}
+          "h_rows_shifted": fce.fused_ce_dw_plain(h.roll(1, 0), ds),
+          "mid_k_chunk_dropped": fce.fused_ce_dw_plain(h, t_mid),
+          "cols_swizzled_in_64_block": swizzled(fce.fused_ce_dw_plain(h, ds), c_lab)}
     return f, g, dh, dw
 
 
@@ -582,9 +625,11 @@ def _check_fused_ce(gen, results, failures):
     """Kernels F, G and the dh / dW products (TPU K3) against their plain
     versions at the train phase's micro-batch (N 8192, D 4096, V 32000,
     Llama's untied head) and at edge shapes: GPT-2's tied head (V 50257,
-    read as embed.T) with a bias, N and V off the tiles, masked tokens.
-    Each kernel is fed the plain version's inputs (G the plain lse, the
-    products the plain ds), so each is held alone."""
+    read as embed.T) with a bias, an untied V 50257 W (copied into padded
+    rows), N and V off the tiles, a reduction off the 64-deep chunk, masked
+    tokens. Each kernel is fed the plain version's inputs (G the plain lse,
+    the products the plain ds), so each is held alone. At the slice shape
+    two launches of G, dh and dW must also be bit-equal."""
     import torch
     from deepspeed_tpu_torch.ops.kernels import fused_cross_entropy as fce
     # (N, D, V, bias, tied, masked)
@@ -593,6 +638,11 @@ def _check_fused_ce(gen, results, failures):
                   False, False, True),
         "gpt2_tied_bias": (1000, 768, 50257, True, True, True),
         "ragged_bias": (300, 512, 1000, True, False, True),
+        # an untied W [768, 50257]: its rows are copied into padded rows for TMA
+        "untied_v50257_bias": (1000, 768, 50257, True, False, True),
+        # K % 64 != 0 in all three products (D 776, V 1000, N 1000), and M and
+        # N end in partial 128- and 256-wide tiles in each
+        "ragged_k": (1000, 776, 1000, False, False, True),
     }
     for name, (N, D, V, bias, tied, masked) in cases.items():
         h, w, b, labels, coef = _ce_case(gen, N, D, V, bias, tied, masked)
@@ -616,9 +666,15 @@ def _check_fused_ce(gen, results, failures):
         for k, e in rec_f["fault_err"].items():
             if not e > CE_TOL:
                 failures.append(f"fused_ce_fwd {name}: planted fault {k} reads {e} <= {CE_TOL}")
+        # G is held on ds and on ds without its gold column: a row's ulp is
+        # set by its gold entry (about -coef), which hides the softmax part
+        # (coef p, p ~ 1 / V) that a dropped K chunk of the logits moves
+        gold = torch.zeros(ds.shape, dtype=torch.bool, device=h.device)
+        gold[torch.arange(N, device=h.device), labels.long()] = True
+        soft = lambda x: x.float().masked_fill(gold, 0.0)
         rec_g = {"kernel": "fused_ce_ds", "case": name, **shape,
-                 **_hold("fused_ce_ds", name, [ds], [rds], {k: [r] for k, r in f_g.items()},
-                         failures, GRAD_FLOOR)}
+                 **_hold("fused_ce_ds", name, [ds, soft(ds)], [rds, soft(rds)],
+                         {k: [r, soft(r)] for k, r in f_g.items()}, failures, GRAD_FLOOR)}
         if bias:
             rec_g["db_rel_err"] = float((db - rdb).abs().max() / rdb.abs().max())
             if not rec_g["db_rel_err"] <= DB_TOL:
@@ -630,6 +686,14 @@ def _check_fused_ce(gen, results, failures):
                   **_hold("fused_ce_dw_gemm", name, [dw], [rdw],
                           {k: [r] for k, r in f_dw.items()}, failures, GRAD_FLOOR)}
         if name == "slice":
+            again = (fce.fused_ce_ds(h, w, b, labels, rlse, coef), fce.fused_ce_dh(rds, w),
+                     fce.fused_ce_dw(h, rds, w))
+            for rec, x, y in ((rec_g, ds, again[0][0]), (rec_dh, dh, again[1]),
+                              (rec_dw, dw, again[2])):
+                rec["repeat_bit_equal"] = bool(torch.equal(x, y))
+                if not rec["repeat_bit_equal"]:
+                    failures.append(f"{rec['kernel']} {name}: two launches differ")
+            del again
             elem = h.element_size()
             flops = 2 * N * D * V
             in_bytes = elem * (h.numel() + w.numel()) + 4 * N
@@ -659,7 +723,7 @@ def _check_fused_ce(gen, results, failures):
                             "fused_ce_dh_gemm": rec_dh, "fused_ce_dw_gemm": rec_dw})
         for rec in (rec_f, rec_g, rec_dh, rec_dw):
             emit("kernel", **rec)
-        del h, w, nll, lse, rnll, rlse, ds, rds, dh, dw, rdh, rdw, f_f, f_g, f_dh, f_dw
+        del h, w, nll, lse, rnll, rlse, ds, rds, dh, dw, rdh, rdw, f_f, f_g, f_dh, f_dw, gold
         torch.cuda.empty_cache()
 
 

@@ -16,22 +16,21 @@
 //
 //   fused_ce_fwd_kernel (F)  one CTA per (128-token tile, vocab split of ~8
 //       tiles): for each 128-column vocab tile, s = (h W + b) log2e from
-//       bf16 mma.sync with fp32 accumulators (K loop over D through shared
-//       memory), staged in shared memory; two threads per token fold the
-//       tile into the running (max, sum, gold) in registers. Writes one
+//       bf16 mma.sync with fp32 accumulators (K loop over D through a
+//       cp.async ring), staged in shared memory; two threads per token fold
+//       the tile into the running (max, sum, gold) in registers. Writes one
 //       (m, l, gold) triple per token and split.
 //   fused_ce_combine_kernel  merges the splits: lse = log2-domain logsumexp,
 //       nll = (lse - gold) / log2e, both [N] fp32.
-//   fused_ce_ds_kernel (G)   one CTA per (token tile, vocab tile): recomputes
-//       s exactly as F, ds = (exp2(s - lse) - onehot) coef in fp32, written
-//       once in h's dtype to ds [N, V] (row stride padded to 8), and the
-//       tile's fp32 column sums of ds (db partials, one row per token tile).
+//   fused_ce_ds_kernel (G)   one CTA per (128-token, 256-vocab) tile:
+//       recomputes s as F does, ds = (exp2(s - lse) - onehot) coef in fp32
+//       from the accumulator registers, written once in h's dtype to ds
+//       [N, V] (row stride padded to 8), and the tile's fp32 column sums of
+//       ds (db partials, one row per token tile).
 //   fused_ce_db_kernel       db[v] = sum of the partials over token tiles, in
 //       order.
 //   ce_dh_gemm_kernel, ce_dw_gemm_kernel  dh = ds W^T and dW = h^T ds (or,
-//       for a tied head stored [V, D], dE = ds^T h): one mma.sync tile
-//       product templated on the operands' layouts, fp32 accumulators over
-//       the whole reduction, cast once at the end.
+//       for a tied head stored [V, D], dE = ds^T h), cast once at the end.
 //
 // Memory: the forward holds nothing of size N x V; the backward holds ds,
 // N x V x 2 B (0.52 GB at N 8192, V 32000), where the plain path holds the
@@ -44,25 +43,39 @@
 // ds. Rows >= N and columns >= V are masked in-kernel (zero operands,
 // skipped columns), which equals the TPU package's -1e30 pad bias.
 //
-// Layouts: A and B tiles are copied to shared memory as they lie in global
-// memory, 16-byte cp.async where the row stride allows (else element by
-// element, e.g. an untied W with V = 50257), and mma fragments are read in
-// the right orientation from there (ldmatrix, .trans for M/N-contiguous
-// tiles). A tied head (W = embed.T, stored
-// [V, D]) is read in place, never copied.
+// Bound on the H100: each kernel does one 2 N D V product (2.15e12 FLOPs
+// at N 8192, D 4096, V 32000: 2.2 ms at 989 TFLOP/s); the backward does
+// three (6.5 ms) and moves ds three times (~0.5 ms): all bound by
+// operations, so the tensor cores' rate is the design's target.
 //
-// Bound on the H100: F does 2 N D V FLOPs (2.15e12 at N 8192, D 4096,
-// V 32000, 2.2 ms at 989 TFLOP/s); the backward does three such products
-// (6.5 ms) and moves ds three times (~0.5 ms): all bound by operations. This
-// first design runs mma.sync on 128 x 128 x 32 tiles with a three-stage
-// cp.async pipeline and ldmatrix fragment loads; wgmma and TMA are the way
-// to the bound.
+// G, dh and dW run on the Hopper mainloop of wgmma_gemm.cuh: 128 x 256
+// output tiles, 64-deep K chunks brought by TMA (128-byte swizzle) into a
+// four-stage ring guarded by mbarriers, one producer warp, two consumer
+// warpgroups running m64n256k16 wgmma from shared memory with fp32 register
+// accumulators. The three products take each operand as it lies in memory,
+// K-major (rows of the reduction) or MN-major:
+//
+//   G    A = h [N, D] K-major; B = W [D, V] MN-major, tied W stored [V, D]
+//        K-major
+//   dh   A = ds [N, V] K-major; B = W^T: stored [D, V] K-major, tied [V, D]
+//        MN-major
+//   dW   A = h^T and B = ds, both MN-major (tied: A = ds^T, B = h)
+//
+// TMA needs 16-byte aligned rows: the wrapper copies an operand whose row
+// stride is not a multiple of 8 elements into padded rows first (an untied
+// W with V = 50257, h with D % 8 != 0); a tied head is read in place.
+//
+// F still runs the first design's mainloop: mma.sync m16n8k16 on 128 x 128
+// x 32 tiles fed by ldmatrix from a three-stage cp.async ring in which all
+// 256 threads copy and compute (16-byte copies where the row stride allows,
+// else element by element); its redesign on the Hopper mainloop is next.
 #include "common.cuh"
+#include "wgmma_gemm.cuh"
 
 namespace {
 
-constexpr int kBM = 128;          // tile rows (tokens in F and G)
-constexpr int kBN = 128;          // tile columns (vocab in F and G)
+constexpr int kBM = 128;          // F's tile rows (tokens)
+constexpr int kBN = 128;          // F's tile columns (vocab)
 constexpr int kBK = 32;           // reduction chunk
 constexpr int kThreads = 256;     // 8 warps: 4 along M x 2 along N, 32 x 64 each
 constexpr int kPitchK = kBK + 8;  // a K-contiguous tile: [128][kPitchK]
@@ -127,13 +140,12 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* row) {
 }
 
 // The mma A fragment of the 16 x 16 block at (m0, k0) of a tile stored
-// K-contiguous ([m][k], plain ldmatrix) or M-contiguous ([k][m], .trans).
-// Fragment i = (rows m0 + 8 (i & 1), columns k0 + 8 (i >> 1)).
-template <typename T, bool KC>
+// K-contiguous ([m][k]). Fragment i = (rows m0 + 8 (i & 1), columns k0 + 8
+// (i >> 1)).
+template <typename T>
 __device__ __forceinline__ void a_frag(uint32_t* a, const T* As, int m0, int k0, int lane) {
   const int i = lane >> 3, j = lane & 7;
-  if (KC) ldmatrix_x4<false>(a, As + (m0 + 8 * (i & 1) + j) * kPitchK + k0 + 8 * (i >> 1));
-  else ldmatrix_x4<true>(a, As + (k0 + 8 * (i >> 1) + j) * kPitchMN + m0 + 8 * (i & 1));
+  ldmatrix_x4<false>(a, As + (m0 + 8 * (i & 1) + j) * kPitchK + k0 + 8 * (i >> 1));
 }
 
 // The mma B fragments of two 16 x 8 blocks, columns n0 .. n0 + 15 at k0,
@@ -146,15 +158,15 @@ __device__ __forceinline__ void b_frag2(uint32_t* b, const T* Bs, int n0, int k0
   else ldmatrix_x4<true>(b, Bs + (k0 + 8 * (i & 1) + j) * kPitchMN + n0 + 8 * (i >> 1));
 }
 
-// acc = A[m0:m0+128, :K] B[:K, n0:n0+128] in fp32 on the tensor cores.
-// A is [M, K] stored K-contiguous (A_KC, row stride lda) or [K, M] stored
-// M-contiguous; B is [N, K] stored K-contiguous (B_KC) or [K, N] stored
-// N-contiguous. As / Bs hold kStages chunks each: the next chunks load
+// acc = A[m0:m0+128, :K] B[:K, n0:n0+128] in fp32 on the tensor cores (F's
+// mainloop). A is [M, K] stored K-contiguous (row stride lda); B is [N, K]
+// stored K-contiguous (B_KC) or [K, N] stored N-contiguous. As / Bs hold
+// kStages chunks each: the next chunks load
 // (cp.async) while the tensor cores run on this one. Warp (wm, wn) owns
 // rows wm*32 + [0, 32) and columns wn*64 + [0, 64): acc[mt][nt][e] is row
 // wm*32 + mt*16 + g + 8*(e >= 2), column wn*64 + nt*8 + 2t + (e & 1), with
 // g = lane / 4, t = lane % 4.
-template <typename T, bool A_KC, bool B_KC>
+template <typename T, bool B_KC>
 __device__ __forceinline__ void tile_product(float (&acc)[2][8][4], const T* __restrict__ A,
                                              long lda, bool a_vec, const T* __restrict__ B,
                                              long ldb, bool b_vec, int m0, int n0, int M, int N,
@@ -167,10 +179,9 @@ __device__ __forceinline__ void tile_product(float (&acc)[2][8][4], const T* __r
     for (int nt = 0; nt < 8; ++nt) acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] = acc[mt][nt][3] = 0.f;
 
   auto load = [&](int stage, int k0) {
-    T* as = As + stage * kTileElems<A_KC>;
+    T* as = As + stage * kTileElems<true>;
     T* bs = Bs + stage * kTileElems<B_KC>;
-    if (A_KC) load_window<T, kBM, kBK, kPitchK>(as, A, lda, m0, k0, M, K, a_vec, tid);
-    else load_window<T, kBK, kBM, kPitchMN>(as, A, lda, k0, m0, K, M, a_vec, tid);
+    load_window<T, kBM, kBK, kPitchK>(as, A, lda, m0, k0, M, K, a_vec, tid);
     if (B_KC) load_window<T, kBN, kBK, kPitchK>(bs, B, ldb, n0, k0, N, K, b_vec, tid);
     else load_window<T, kBK, kBN, kPitchMN>(bs, B, ldb, k0, n0, K, N, b_vec, tid);
   };
@@ -187,13 +198,13 @@ __device__ __forceinline__ void tile_product(float (&acc)[2][8][4], const T* __r
     __syncthreads();                // ... for every thread; and chunk kc - 1's stage is free
     if (kc + kStages - 1 < nk) load((kc + kStages - 1) % kStages, (kc + kStages - 1) * kBK);
     cp_async_commit();
-    const T* as = As + (kc % kStages) * kTileElems<A_KC>;
+    const T* as = As + (kc % kStages) * kTileElems<true>;
     const T* bs = Bs + (kc % kStages) * kTileElems<B_KC>;
 #pragma unroll
     for (int kk = 0; kk < kBK; kk += 16) {
       uint32_t a[2][4], b[8][2];
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt) a_frag<T, A_KC>(a[mt], as, wm * 32 + mt * 16, kk, lane);
+      for (int mt = 0; mt < 2; ++mt) a_frag<T>(a[mt], as, wm * 32 + mt * 16, kk, lane);
 #pragma unroll
       for (int np = 0; np < 4; ++np)
         b_frag2<T, B_KC>(&b[2 * np][0], bs, wn * 64 + np * 16, kk, lane);
@@ -234,17 +245,17 @@ __device__ __forceinline__ void stage_logits(const float (&acc)[2][8][4], float*
 }
 
 // Dynamic shared memory of a tile product's pipeline.
-template <typename T, bool A_KC, bool B_KC>
+template <typename T, bool B_KC>
 constexpr size_t pipeline_bytes() {
-  return kStages * sizeof(T) * (kTileElems<A_KC> + kTileElems<B_KC>);
+  return kStages * sizeof(T) * (kTileElems<true> + kTileElems<B_KC>);
 }
 
-// F and G stage the fp32 logits over the pipeline's memory once the
-// product is done (tile_product ends and starts with a barrier).
+// F stages the fp32 logits over the pipeline's memory once the product is
+// done (tile_product ends and starts with a barrier).
 template <typename T, bool W_KC>
 constexpr size_t head_smem_bytes() {
-  return sizeof(float) * kBM * kSPitch > pipeline_bytes<T, true, W_KC>()
-             ? sizeof(float) * kBM * kSPitch : pipeline_bytes<T, true, W_KC>();
+  return sizeof(float) * kBM * kSPitch > pipeline_bytes<T, W_KC>()
+             ? sizeof(float) * kBM * kSPitch : pipeline_bytes<T, W_KC>();
 }
 
 // F. part [3][vsplit][N]: the running max, sum and gold logit (log2 domain)
@@ -269,7 +280,7 @@ fused_ce_fwd_kernel(const T* __restrict__ h, int h_vec, const T* __restrict__ w,
   for (int vt = split; vt < nvt; vt += vsplit) {
     const int v0 = vt * kBN;
     float acc[2][8][4];
-    tile_product<T, true, W_KC>(acc, h, D, h_vec, w, ldw, w_vec, m0, v0, N, V, D, As, Bs);
+    tile_product<T, W_KC>(acc, h, D, h_vec, w, ldw, w_vec, m0, v0, N, V, D, As, Bs);
     stage_logits(acc, S, bias, v0, V);
     __syncthreads();
     const int ncol = min(kBN, V - v0);
@@ -310,64 +321,115 @@ __global__ void fused_ce_combine_kernel(const float* __restrict__ part, float* _
   nll[i] = (lse2 - gold) / ds::kLog2e;
 }
 
-// G. ds [N, ld_ds] in T; db_part [N / 128 tiles][V] fp32 or null.
+// G. ds [N, ld_ds] in T (columns V .. ld_ds - 1 zero) and db_part
+// [ceil(N / 128)][V] fp32, one row per token tile (null without a bias).
+// The logits tile from the wgmma mainloop (A = h [N, D] K-major; B = W
+// [D, V] MN-major, or a tied head stored [V, D] K-major), then ds from the
+// registers, staged in shared memory and stored as 16-byte rows.
 template <typename T, bool W_KC>
-__global__ void __launch_bounds__(kThreads)
-fused_ce_ds_kernel(const T* __restrict__ h, int h_vec, const T* __restrict__ w, long ldw,
-                   int w_vec, const float* __restrict__ bias, const int* __restrict__ labels,
+__global__ void __launch_bounds__(ds::kGemmThreads, 1)
+fused_ce_ds_kernel(const __grid_constant__ CUtensorMap hmap, const __grid_constant__ CUtensorMap wmap,
+                   const float* __restrict__ bias, const int* __restrict__ labels,
                    const float* __restrict__ lse, const float* __restrict__ coef,
                    T* __restrict__ dsout, long ld_ds, float* __restrict__ db_part, int N, int D,
                    int V) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* As = reinterpret_cast<T*>(smem);            // kStages chunks each
-  T* Bs = As + kStages * kTileElems<true>;
-  float* S = reinterpret_cast<float*>(smem);     // after each product, over the stages
-  const int v0 = blockIdx.x * kBN, m0 = blockIdx.y * kBM;
-  const int tid = threadIdx.x;
-
-  float acc[2][8][4];
-  tile_product<T, true, W_KC>(acc, h, D, h_vec, w, ldw, w_vec, m0, v0, N, V, D, As, Bs);
-  stage_logits(acc, S, bias, v0, V);
-  __syncthreads();
-
-  // ds = (exp2(s - lse) - onehot) * coef in fp32, in place; zero outside
-  // rows < N and columns < V
-  {
-    const int r = tid >> 1, half = tid & 1, row = m0 + r;
-    float* srow = S + r * kSPitch;
-    if (row < N) {
-      const float lse_r = lse[row], c_r = coef[row];
-      const int lc = labels[row] - v0;
-      for (int c = half; c < kBN; c += 2) {
-        float d = 0.f;
-        if (v0 + c < V) d = (exp2f(srow[c] - lse_r) - (c == lc ? 1.f : 0.f)) * c_r;
-        srow[c] = d;
-      }
-    } else {
-      for (int c = half; c < kBN; c += 2) srow[c] = 0.f;
+  ds::gemm_tile_run<T, true, W_KC>(&hmap, &wmap, N, V, D, [=](float (&acc)[128],
+                                                              unsigned char* smem,
+                                                              const ds::GemmTile& tile) {
+    const int tid = threadIdx.x, lane = tid & 31, t = lane & 3;
+    const int r0 = tile.m0 + tid / 128 * 64 + tid / 32 % 4 * 16 + (lane >> 2);
+    bool live[2];
+    float lse_r[2], c_r[2];
+    int lab[2];
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2) {   // this thread's rows r0 and r0 + 8
+      const int row = r0 + 8 * h2;
+      live[h2] = row < N;
+      lse_r[h2] = live[h2] ? lse[row] : 0.f;
+      c_r[h2] = live[h2] ? coef[row] : 0.f;
+      lab[h2] = live[h2] ? labels[row] : -1;
     }
-  }
-  __syncthreads();
+    // ds = (exp2(s - lse) - onehot) * coef in fp32 with s = (acc + b) log2e
+    // (the TPU kernels' _block_logits and _softmax_minus_onehot); zero
+    // outside rows < N and columns < V
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = tile.n0 + 8 * i + 2 * t + e;
+        const float b = bias != nullptr && col < V ? bias[col] : 0.f;
+#pragma unroll
+        for (int h2 = 0; h2 < 2; ++h2) {
+          float& a = acc[4 * i + 2 * h2 + e];
+          a = live[h2] && col < V
+                  ? (exp2f((a + b) * ds::kLog2e - lse_r[h2]) - (col == lab[h2] ? 1.f : 0.f)) * c_r[h2]
+                  : 0.f;
+        }
+      }
+    T* out = reinterpret_cast<T*>(smem);
+    float* colsum = reinterpret_cast<float*>(smem + ds::kGemmBM * ds::kOutPitch * sizeof(T));
+    ds::consumer_sync();   // both warpgroups are done reading the ring
+    ds::stage_out_tile<T>(acc, out);
+    if (db_part != nullptr) {
+      // the fp32 ds summed down each column: the thread's two rows, the 8
+      // lanes of the column (16 rows a warp), then the 8 warps in order
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float v = acc[4 * i + e] + acc[4 * i + 2 + e];
+          v += __shfl_xor_sync(0xffffffffu, v, 4);
+          v += __shfl_xor_sync(0xffffffffu, v, 8);
+          v += __shfl_xor_sync(0xffffffffu, v, 16);
+          if (lane < 4) colsum[tid / 32 * ds::kGemmBN + 8 * i + 2 * t + e] = v;
+        }
+    }
+    ds::consumer_sync();
+    ds::store_out_tile<T>(out, dsout, ld_ds, tile.m0, tile.n0, N, (int)ld_ds);
+    if (db_part != nullptr && tile.n0 + tid < V) {   // thread tid sums column tid
+      float s = 0.f;
+#pragma unroll
+      for (int w = 0; w < ds::kGemmConsumers / 32; ++w) s += colsum[w * ds::kGemmBN + tid];
+      db_part[(long)tile.mt * V + tile.n0 + tid] = s;
+    }
+  });
+}
 
-  // ds in T, 16-byte stores along rows (columns V .. ld_ds - 1 get zeros)
-  constexpr int kPerRow = kBN / 8;
-  for (int i = tid; i < kBM * kPerRow; i += kThreads) {
-    const int r = i / kPerRow, c = (i % kPerRow) * 8;
-    const int row = m0 + r, col = v0 + c;
-    if (row >= N || col >= ld_ds) continue;
-    const float* s = S + r * kSPitch + c;
-    uint4 v;
-    v.x = ds::pack_f32<T>(s[0], s[1]);
-    v.y = ds::pack_f32<T>(s[2], s[3]);
-    v.z = ds::pack_f32<T>(s[4], s[5]);
-    v.w = ds::pack_f32<T>(s[6], s[7]);
-    *reinterpret_cast<uint4*>(dsout + (long)row * ld_ds + col) = v;
-  }
-  if (db_part != nullptr && tid < kBN && v0 + tid < V) {
-    float s = 0.f;
-    for (int r = 0; r < kBM; ++r) s += S[r * kSPitch + tid];
-    db_part[(long)blockIdx.y * V + v0 + tid] = s;
-  }
+// C [M, N] (row stride ldc) from the accumulators, rounded once to T.
+template <typename T>
+__device__ __forceinline__ void store_product(const float (&acc)[128], unsigned char* smem,
+                                              T* __restrict__ C, long ldc,
+                                              const ds::GemmTile& tile, int M, int N) {
+  T* out = reinterpret_cast<T*>(smem);
+  ds::consumer_sync();   // both warpgroups are done reading the ring
+  ds::stage_out_tile<T>(acc, out);
+  ds::consumer_sync();
+  ds::store_out_tile<T>(out, C, ldc, tile.m0, tile.n0, M, N);
+}
+
+// dh [N, D] = ds [N, V] W^T: A = ds (K-major); B = W^T, stored [D, V]
+// (K-major) or, for a tied head, [V, D] (MN-major).
+template <typename T, bool B_K>
+__global__ void __launch_bounds__(ds::kGemmThreads, 1)
+ce_dh_gemm_kernel(const __grid_constant__ CUtensorMap amap, const __grid_constant__ CUtensorMap bmap,
+                  T* __restrict__ C, long ldc, int M, int N, int K) {
+  ds::gemm_tile_run<T, true, B_K>(&amap, &bmap, M, N, K, [=](float (&acc)[128], unsigned char* smem,
+                                                             const ds::GemmTile& tile) {
+    store_product<T>(acc, smem, C, ldc, tile, M, N);
+  });
+}
+
+// dW [D, V] = h^T ds (A = h^T, B = ds), or for a tied head stored [V, D],
+// dE [V, D] = ds^T h (A = ds^T, B = h): both operands MN-major.
+template <typename T>
+__global__ void __launch_bounds__(ds::kGemmThreads, 1)
+ce_dw_gemm_kernel(const __grid_constant__ CUtensorMap amap, const __grid_constant__ CUtensorMap bmap,
+                  T* __restrict__ C, long ldc, int M, int N, int K) {
+  ds::gemm_tile_run<T, false, false>(&amap, &bmap, M, N, K, [=](float (&acc)[128],
+                                                                unsigned char* smem,
+                                                                const ds::GemmTile& tile) {
+    store_product<T>(acc, smem, C, ldc, tile, M, N);
+  });
 }
 
 __global__ void fused_ce_db_kernel(const float* __restrict__ db_part, float* __restrict__ db,
@@ -377,56 +439,6 @@ __global__ void fused_ce_db_kernel(const float* __restrict__ db_part, float* __r
   float s = 0.f;
   for (int i = 0; i < n_tiles; ++i) s += db_part[(long)i * V + v];
   db[v] = s;
-}
-
-// C [M, N] (row stride ldc) = A B, cast once to T.
-template <typename T, bool A_KC, bool B_KC>
-__device__ __forceinline__ void gemm_body(const T* __restrict__ A, long lda, bool a_vec,
-                                          const T* __restrict__ B, long ldb, bool b_vec,
-                                          T* __restrict__ C, long ldc, int M, int N, int K,
-                                          T* As, T* Bs) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = warp >> 1, wn = warp & 1;
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-  float acc[2][8][4];
-  tile_product<T, A_KC, B_KC>(acc, A, lda, a_vec, B, ldb, b_vec, m0, n0, M, N, K, As, Bs);
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = m0 + wm * 32 + mt * 16 + g + (e >= 2 ? 8 : 0);
-        const int col = n0 + wn * 64 + nt * 8 + 2 * t + (e & 1);
-        if (row < M && col < N) C[(long)row * ldc + col] = ds::from_float<T>(acc[mt][nt][e]);
-      }
-}
-
-// dh [N, D] = ds [N, V] W^T: A = ds (K-contiguous); B = W^T as [D, V]
-// (K-contiguous, W stored [D, V]) or [V, D] (N-contiguous, tied W stored
-// [V, D]).
-template <typename T, bool B_KC>
-__global__ void __launch_bounds__(kThreads)
-ce_dh_gemm_kernel(const T* __restrict__ A, long lda, int a_vec, const T* __restrict__ B, long ldb,
-                  int b_vec, T* __restrict__ C, long ldc, int M, int N, int K) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* As = reinterpret_cast<T*>(smem);
-  gemm_body<T, true, B_KC>(A, lda, a_vec, B, ldb, b_vec, C, ldc, M, N, K, As,
-                           As + kStages * kTileElems<true>);
-}
-
-// dW [D, V] = h^T ds (A = h read M-contiguous, B = ds N-contiguous), or for
-// a tied head stored [V, D], dE [V, D] = ds^T h (A = ds, B = h): the same
-// layouts.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-ce_dw_gemm_kernel(const T* __restrict__ A, long lda, int a_vec, const T* __restrict__ B, long ldb,
-                  int b_vec, T* __restrict__ C, long ldc, int M, int N, int K) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* As = reinterpret_cast<T*>(smem);
-  gemm_body<T, false, false>(A, lda, a_vec, B, ldb, b_vec, C, ldc, M, N, K, As,
-                             As + kStages * kTileElems<false>);
 }
 
 template <typename T, bool W_KC>
@@ -446,45 +458,48 @@ int launch_fwd(const void* h, int h_vec, const void* w, long ldw, int w_vec, con
   return (int)cudaGetLastError();
 }
 
+// One launch of a wgmma product kernel over the ceil(M / 128) x ceil(N /
+// 256) output tiles.
+template <typename Kern, typename... Args>
+int launch_tiles(Kern kern, int M, int N, cudaStream_t st, Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)ds::kGemmSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<ds::gemm_grid(M, N), ds::kGemmThreads, ds::kGemmSmemBytes, st>>>(args...);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, bool W_KC>
-int launch_ds(const void* h, int h_vec, const void* w, long ldw, int w_vec, const float* bias,
+int launch_ds(const void* h, long ldh, const void* w, long ldw, const float* bias,
               const int* labels, const float* lse, const float* coef, void* dsout, long ld_ds,
               float* db_part, float* db, int N, int D, int V, cudaStream_t st) {
-  constexpr size_t smem = head_smem_bytes<T, W_KC>();
-  auto kern = fused_ce_ds_kernel<T, W_KC>;
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int n_tiles = (N + kBM - 1) / kBM;
-  dim3 grid((V + kBN - 1) / kBN, n_tiles);
-  kern<<<grid, kThreads, smem, st>>>(static_cast<const T*>(h), h_vec, static_cast<const T*>(w), ldw,
-                                     w_vec, bias, labels, lse, coef, static_cast<T*>(dsout), ld_ds,
-                                     db_part, N, D, V);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || db_part == nullptr) return (int)err;
+  CUtensorMap hmap, wmap;
+  if (!ds::make_gemm_maps<T, true, W_KC>(&hmap, &wmap, h, ldh, w, ldw, N, V, D))
+    return (int)cudaErrorInvalidValue;
+  int err = launch_tiles(fused_ce_ds_kernel<T, W_KC>, N, V, st, hmap, wmap, bias, labels, lse,
+                         coef, static_cast<T*>(dsout), ld_ds, db_part, N, D, V);
+  if (err != 0 || db_part == nullptr) return err;
+  const int n_tiles = (N + ds::kGemmBM - 1) / ds::kGemmBM;
   fused_ce_db_kernel<<<(V + 255) / 256, 256, 0, st>>>(db_part, db, n_tiles, V);
   return (int)cudaGetLastError();
 }
 
-// The dh product (A K-contiguous) or the dW product (A and B M/N-contiguous).
-template <typename T, bool A_KC, bool B_KC>
-int launch_gemm(const void* A, long lda, int a_vec, const void* B, long ldb, int b_vec, void* C,
-                long ldc, int M, int N, int K, cudaStream_t st) {
-  constexpr size_t smem = pipeline_bytes<T, A_KC, B_KC>();
-  void (*kern)(const T*, long, int, const T*, long, int, T*, long, int, int, int);
-  if constexpr (A_KC) kern = ce_dh_gemm_kernel<T, B_KC>;
-  else kern = ce_dw_gemm_kernel<T>;
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
-  kern<<<grid, kThreads, smem, st>>>(static_cast<const T*>(A), lda, a_vec, static_cast<const T*>(B),
-                                     ldb, b_vec, static_cast<T*>(C), ldc, M, N, K);
-  return (int)cudaGetLastError();
+// The dh product (A K-major) or the dW product (A and B MN-major).
+template <typename T, bool A_K, bool B_K>
+int launch_gemm(const void* A, long lda, const void* B, long ldb, void* C, long ldc, int M, int N,
+                int K, cudaStream_t st) {
+  CUtensorMap amap, bmap;
+  if (!ds::make_gemm_maps<T, A_K, B_K>(&amap, &bmap, A, lda, B, ldb, M, N, K))
+    return (int)cudaErrorInvalidValue;
+  T* c = static_cast<T*>(C);
+  if constexpr (A_K) return launch_tiles(ce_dh_gemm_kernel<T, B_K>, M, N, st, amap, bmap, c, ldc, M, N, K);
+  else return launch_tiles(ce_dw_gemm_kernel<T>, M, N, st, amap, bmap, c, ldc, M, N, K);
 }
 
 }  // namespace
 
 // dtype 0 = fp16, 1 = bf16 (every operand). w_kc: W is stored [V, D] (a tied
-// head, W = embed.T) rather than [D, V]; ldw its row stride. *_vec: the
+// head, W = embed.T) rather than [D, V]; ldw its row stride. F's *_vec: the
 // operand's row stride is a multiple of 8 elements and its base 16-byte
 // aligned. Each returns cudaGetLastError() after its launches.
 
@@ -503,44 +518,49 @@ extern "C" int ds_fused_ce_fwd(const void* h, int h_vec, const void* w, int w_kc
   return (int)cudaErrorInvalidValue;
 }
 
-// G: lse [N] (log2 domain, from F), coef [N] f32 (the nll cotangent);
-// dsout [N, ld_ds] out; db_part [N / 128 rounded up, V] f32 scratch and db
-// [V] f32 out, both null without a bias.
-extern "C" int ds_fused_ce_ds(const void* h, int h_vec, const void* w, int w_kc, long ldw,
-                              int w_vec, const float* bias, const int* labels, const float* lse,
+// G: h [N, D] (row stride ldh); W as for F; lse [N] (log2 domain, from
+// F), coef [N] f32 (the nll cotangent); dsout [N, ld_ds] out; db_part
+// [N / 128 rounded up, V] f32 scratch and db [V] f32 out, both null without
+// a bias. TMA reads h and W: their row strides must be multiples of 8
+// elements and their bases 16-byte aligned (else cudaErrorInvalidValue).
+extern "C" int ds_fused_ce_ds(const void* h, long ldh, const void* w, int w_kc, long ldw,
+                              const float* bias, const int* labels, const float* lse,
                               const float* coef, void* dsout, long ld_ds, float* db_part,
                               float* db, int N, int D, int V, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define DS_DS(T, KC) launch_ds<T, KC>(h, h_vec, w, ldw, w_vec, bias, labels, lse, coef, dsout, \
-                                      ld_ds, db_part, db, N, D, V, st)
+#define DS_DS(T, KC) launch_ds<T, KC>(h, ldh, w, ldw, bias, labels, lse, coef, dsout, ld_ds, \
+                                      db_part, db, N, D, V, st)
   if (dtype == 1) return w_kc ? DS_DS(__nv_bfloat16, true) : DS_DS(__nv_bfloat16, false);
   if (dtype == 0) return w_kc ? DS_DS(__half, true) : DS_DS(__half, false);
 #undef DS_DS
   return (int)cudaErrorInvalidValue;
 }
 
-// dh [M, N] = A [M, K] (K-contiguous, row stride lda) times B, where B is
-// [N, K] K-contiguous (b_kc) or [K, N] N-contiguous, row stride ldb.
-extern "C" int ds_ce_dh_gemm(const void* A, long lda, int a_vec, const void* B, long ldb,
-                             int b_vec, int b_kc, void* C, long ldc, int M, int N, int K,
-                             int dtype, void* stream) {
+// dh [M, N] = A [M, K] (K-major, row stride lda) times B, stored [N, K]
+// (K-major, b_kc) or [K, N] (MN-major), row stride ldb; the same alignment
+// as G.
+extern "C" int ds_ce_dh_gemm(const void* A, long lda, const void* B, long ldb, int b_kc, void* C,
+                             long ldc, int M, int N, int K, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define DS_DH(T, KC) launch_gemm<T, true, KC>(A, lda, a_vec, B, ldb, b_vec, C, ldc, M, N, K, st)
+#define DS_DH(T, KC) launch_gemm<T, true, KC>(A, lda, B, ldb, C, ldc, M, N, K, st)
   if (dtype == 1) return b_kc ? DS_DH(__nv_bfloat16, true) : DS_DH(__nv_bfloat16, false);
   if (dtype == 0) return b_kc ? DS_DH(__half, true) : DS_DH(__half, false);
 #undef DS_DH
   return (int)cudaErrorInvalidValue;
 }
 
-// C [M, N] = A^T B with A [K, M] and B [K, N], both row-major (row strides
-// lda, ldb): dW = h^T ds, or dE = ds^T h for a tied head.
-extern "C" int ds_ce_dw_gemm(const void* A, long lda, int a_vec, const void* B, long ldb,
-                             int b_vec, void* C, long ldc, int M, int N, int K, int dtype,
-                             void* stream) {
+// C [M, N] = A^T B with A stored [K, M] and B stored [K, N] (row strides
+// lda, ldb; the same alignment as G): dW = h^T ds, or dE = ds^T h for a tied
+// head.
+extern "C" int ds_ce_dw_gemm(const void* A, long lda, const void* B, long ldb, void* C, long ldc,
+                             int M, int N, int K, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define DS_DW(T) launch_gemm<T, false, false>(A, lda, a_vec, B, ldb, b_vec, C, ldc, M, N, K, st)
+#define DS_DW(T) launch_gemm<T, false, false>(A, lda, B, ldb, C, ldc, M, N, K, st)
   if (dtype == 1) return DS_DW(__nv_bfloat16);
   if (dtype == 0) return DS_DW(__half);
 #undef DS_DW
   return (int)cudaErrorInvalidValue;
 }
+
+// Dynamic shared memory of each launch of G, dh and dW (for the build log).
+extern "C" int ds_ce_gemm_smem_bytes() { return (int)ds::kGemmSmemBytes; }

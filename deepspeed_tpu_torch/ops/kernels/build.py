@@ -30,7 +30,7 @@ CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = CSRC / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
-# library name -> its source; every source may include the shared headers
+# library name -> its source; every source may include any header in csrc/
 SOURCES: Dict[str, str] = {
     "flash_attention": "flash_attention_fwd.cu",
     "flash_attention_bwd": "flash_attention_bwd.cu",
@@ -41,7 +41,6 @@ SOURCES: Dict[str, str] = {
     "fused_lamb": "fused_lamb.cu",
     "sr_quantize": "sr_quantize.cu",
 }
-_HEADERS = ("common.cuh", "decode_attention.cuh", "elementwise.cuh")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -64,11 +63,13 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``name``'s library lives: the file name hashes the source, the
-    shared headers and the flags."""
+    """Where ``name``'s library lives: the file name hashes the source, every
+    header in ``csrc/`` (``*.cuh``, so a new header can never leave a stale
+    library loaded) and the flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in (SOURCES[name],) + _HEADERS:
-        h.update((CSRC / f).read_bytes())
+    for f in [CSRC / SOURCES[name], *sorted(CSRC.glob("*.cuh"))]:
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 

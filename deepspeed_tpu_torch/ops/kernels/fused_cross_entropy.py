@@ -14,15 +14,23 @@ four launches, each with its own counter:
 - :func:`fused_ce_dh` (``dh_launches``): ``dh = ds W^T``;
 - :func:`fused_ce_dw` (``dw_launches``): ``dW = h^T ds``.
 
-What bounds them on the H100 and what the design does about it, and why the
-TPU kernels' VMEM accumulators do not carry over: see the source's header.
-The backward holds ds (N x V x 2 bytes, 0.52 GB at N 8192, V 32000) where
-the plain vocab-head path holds about 2.5 GB of logits and softmax.
+G, dh and dW run on a Hopper mainloop (``csrc/wgmma_gemm.cuh``): TMA loads
+into a ring of shared-memory stages guarded by mbarriers, and wgmma products
+with fp32 register accumulators. F still runs the first design's mma.sync
+mainloop fed by ``cp.async``. What bounds them on the H100, what the designs
+do about it, and why the TPU kernels' VMEM accumulators do not carry over:
+see the source's header. The backward holds ds (N x V x 2 bytes, 0.52 GB at
+N 8192, V 32000) where the plain vocab-head path holds about 2.5 GB of
+logits and softmax.
 
-A tied head (``W = embed.T``, stored ``[V, D]``) is read in place by every
-kernel, and its gradient comes back as the transpose of a ``[V, D]`` tensor:
-no copy of W is made. A W that is neither ``[D, V]`` nor ``[V, D]`` in
-memory is copied once per call (the port's heads never are).
+Each operand of G, dh and dW is read as it lies in memory, K-major or
+MN-major (:func:`ds_operands`, :func:`dh_operands`, :func:`dw_operands`,
+decided from shapes and strides, so the CPU tests check them). A tied head
+(``W = embed.T``, stored ``[V, D]``) is read in place, and its gradient
+comes back as the transpose of a ``[V, D]`` tensor. TMA needs row strides
+that are multiples of 8 elements: an operand without one (an untied W with
+V = 50257, h with D % 8 != 0) is copied once per call into padded rows
+(:func:`_tma_rows`). F reads any row stride.
 
 :func:`fused_cross_entropy` is the counterpart of the JAX function: the
 per-token nll goes through a ``torch.autograd.Function`` and the masked
@@ -35,14 +43,15 @@ raises (fp32 included).
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
 from deepspeed_tpu_torch.ops.kernels import build
 
 _LOG2E = 1.4426950408889634
-_BM = 128                          # token tile of F and G (db partial rows)
-_BN = 128                          # vocab tile of F and G
+_BM = 128                          # token tile of F and G (G's db partial rows)
+_BN = 128                          # vocab tile of F
 
 #: kernel launches since the last reset (set them to 0 to start counting)
 fwd_launches = 0
@@ -123,14 +132,6 @@ def _vec(x, ld) -> int:
     return int(ld % 8 == 0 and x.data_ptr() % 16 == 0)
 
 
-def _rows(x):
-    """``(x, row stride)`` for a matrix read row by row: unit column stride
-    (copied once otherwise)."""
-    if x.stride(1) != 1 or x.stride(0) < x.shape[1]:
-        x = x.contiguous()
-    return x, x.stride(0)
-
-
 def _head_weight(w):
     """W ``[D, V]`` as the kernels read it: ``(tensor, stored_as_vd, ld)``,
     where ``stored_as_vd`` means the memory is ``[V, D]`` (a tied head,
@@ -196,10 +197,89 @@ def fused_ce_fwd_cuda(h, w, bias, labels):
     return nll, lse
 
 
+# --------------------------------------------------------------------- #
+# operands of the TMA + wgmma products (G, dh, dW), decided from shapes and
+# strides alone so the CPU tests reach every decision
+
+
+@dataclasses.dataclass(frozen=True)
+class Operand:
+    """One operand of a G / dh / dW product as the kernel reads it.
+
+    ``rows`` is a row-major view of its memory (unit column stride, row
+    stride ``ld``, a multiple of 8 elements, base 16-byte aligned), which
+    TMA reads in 128-byte boxes. ``major`` says what runs along those rows:
+    ``"K"`` (the reduction axis: A stored ``[M, K]``, B stored ``[N, K]``)
+    or ``"MN"`` (A stored ``[K, M]``, B stored ``[K, N]``)."""
+
+    rows: torch.Tensor
+    major: str
+
+    @property
+    def ld(self) -> int:
+        return self.rows.stride(0)
+
+
+def _tma_rows(x):
+    """The matrix ``x`` as TMA reads it, row by row.
+
+    A view with unit column stride whose row stride is a multiple of 8
+    elements and whose base is 16-byte aligned is returned as it is (read in
+    place). Otherwise (an untied W with V = 50257, h with D % 8 != 0, a
+    plain ``[N, V]`` ds with V odd, a column-strided view) it is copied once
+    into a buffer of ``[rows, cols rounded up to 8]``: the copy reads
+    ``2 rows cols`` bytes and writes ``2 rows cols_rounded_up`` (16-bit
+    elements). The pad columns are never read: the TMA map's extent is
+    ``cols``."""
+    r, c = x.shape
+    if x.stride(1) == 1 and x.stride(0) >= c and x.stride(0) % 8 == 0 and x.data_ptr() % 16 == 0:
+        return x
+    buf = torch.empty((r, -(-c // 8) * 8), dtype=x.dtype, device=x.device)
+    buf[:, :c].copy_(x)
+    return buf[:, :c]
+
+
+def _operand(x, major):
+    return Operand(_tma_rows(x), major)
+
+
+def _weight_rows(w):
+    """W ``[D, V]``'s memory as a row-major view and whether it is a tied
+    head's ``[V, D]`` (``W = embed.T``)."""
+    w, vd, _ = _head_weight(w)
+    return (w.T if vd else w), vd
+
+
+def ds_operands(h, w):
+    """G's product ``h W``: A = h ``[N, D]``, K-major; B = W as it lies,
+    ``[D, V]`` (MN-major) or a tied head's ``[V, D]`` (K-major)."""
+    rows, vd = _weight_rows(w)
+    return _operand(h, "K"), _operand(rows, "K" if vd else "MN")
+
+
+def dh_operands(ds, w):
+    """dh's product ``ds W^T``: A = ds ``[N, V]``, K-major; B = W^T, whose
+    memory is W's ``[D, V]`` (``[N, K]``: K-major) or a tied head's ``[V,
+    D]`` (``[K, N]``: MN-major)."""
+    rows, vd = _weight_rows(w)
+    return _operand(ds, "K"), _operand(rows, "MN" if vd else "K")
+
+
+def dw_operands(h, ds, w):
+    """dW's product: ``(A, B, tied)``. Untied: ``h^T ds`` ``[D, V]``, A =
+    h^T (h's ``[N, D]`` is ``[K, M]``) and B = ds (``[K, N]``), both
+    MN-major. Tied (``[V, D]`` memory): the kernel writes ``dE = ds^T h``
+    ``[V, D]``, A = ds^T and B = h, the same layouts."""
+    _, vd = _weight_rows(w)
+    a, b = (ds, h) if vd else (h, ds)
+    return _operand(a, "MN"), _operand(b, "MN"), vd
+
+
 def fused_ce_ds_cuda(h, w, bias, labels, lse, coef):
     """Launch G on CUDA tensors. Returns ``(ds, db)``: ds ``[N, V]`` in h's
     dtype (a view of an ``[N, V rounded up to 8]`` buffer), db ``[V]`` fp32
-    or None without a bias."""
+    or None without a bias. h or W is copied first when TMA cannot read its
+    rows in place (:func:`_tma_rows`)."""
     global ds_launches
     _check_inputs(h, w, bias, labels)
     N, D = h.shape
@@ -207,19 +287,19 @@ def fused_ce_ds_cuda(h, w, bias, labels, lse, coef):
     for name, x in (("lse", lse), ("coef", coef)):
         if x.shape != (N,) or x.dtype != torch.float32 or not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous fp32 [{N}]")
-    w, vd, ldw = _head_weight(w)
-    b = _bias(bias, V)
+    a, b_op = ds_operands(h, w)
+    bias32 = _bias(bias, V)
     ld = -(-V // 8) * 8
     ds = torch.empty((N, ld), dtype=h.dtype, device=h.device)
     db_part = db = None
-    if b is not None:
+    if bias32 is not None:
         db_part = torch.empty((-(-N // _BM), V), dtype=torch.float32, device=h.device)
         db = torch.empty((V,), dtype=torch.float32, device=h.device)
-    fn = _bind("ds_fused_ce_ds", [_P, _I, _P, _I, _L, _I] + [_P] * 5 + [_L, _P, _P] + [_I] * 4
-               + [_P])
-    _launch(fn, "fused_ce_ds", h.device, h.data_ptr(), _vec(h, D), w.data_ptr(), int(vd), ldw,
-            _vec(w, ldw), _ptr(b), labels.data_ptr(), lse.data_ptr(), coef.data_ptr(),
-            ds.data_ptr(), ld, _ptr(db_part), _ptr(db), N, D, V, _DTYPE_CODE[h.dtype])
+    fn = _bind("ds_fused_ce_ds", [_P, _L, _P, _I, _L] + [_P] * 5 + [_L, _P, _P] + [_I] * 4 + [_P])
+    _launch(fn, "fused_ce_ds", h.device, a.rows.data_ptr(), a.ld, b_op.rows.data_ptr(),
+            int(b_op.major == "K"), b_op.ld, _ptr(bias32), labels.data_ptr(), lse.data_ptr(),
+            coef.data_ptr(), ds.data_ptr(), ld, _ptr(db_part), _ptr(db), N, D, V,
+            _DTYPE_CODE[h.dtype])
     ds_launches += 1
     return ds[:, :V], db
 
@@ -232,18 +312,17 @@ def _check_pair(a, b, name):
 
 
 def fused_ce_dh_cuda(ds, w):
-    """Launch the dh product on CUDA tensors: ``ds [N, V] W^T`` -> ``[N, D]``."""
+    """Launch the dh product on CUDA tensors: ``ds [N, V] W^T`` -> ``[N, D]``
+    (operands as :func:`dh_operands` says)."""
     global dh_launches
     _check_pair(ds, w, "fused_ce_dh")
     N, V = ds.shape
     D = w.shape[0]
-    ds, lda = _rows(ds)
-    w, vd, ldw = _head_weight(w)
+    a, b = dh_operands(ds, w)
     dh = torch.empty((N, D), dtype=ds.dtype, device=ds.device)
-    fn = _bind("ds_ce_dh_gemm", [_P, _L, _I, _P, _L, _I, _I, _P, _L] + [_I] * 4 + [_P])
-    # W^T as [K=V, N=D]: stored [D, V] it is K-contiguous, stored [V, D] N-contiguous
-    _launch(fn, "fused_ce_dh", ds.device, ds.data_ptr(), lda, _vec(ds, lda), w.data_ptr(), ldw,
-            _vec(w, ldw), int(not vd), dh.data_ptr(), D, N, D, V, _DTYPE_CODE[ds.dtype])
+    fn = _bind("ds_ce_dh_gemm", [_P, _L, _P, _L, _I, _P, _L] + [_I] * 4 + [_P])
+    _launch(fn, "fused_ce_dh", ds.device, a.rows.data_ptr(), a.ld, b.rows.data_ptr(), b.ld,
+            int(b.major == "K"), dh.data_ptr(), D, N, D, V, _DTYPE_CODE[ds.dtype])
     dh_launches += 1
     return dh
 
@@ -256,20 +335,14 @@ def fused_ce_dw_cuda(h, ds, w):
     _check_pair(h, ds, "fused_ce_dw")
     N, D = h.shape
     V = ds.shape[1]
-    ds, ldd = _rows(ds)
-    _, vd, _ = _head_weight(w)
-    fn = _bind("ds_ce_dw_gemm", [_P, _L, _I, _P, _L, _I, _P, _L] + [_I] * 4 + [_P])
-    if vd:
-        out = torch.empty((V, D), dtype=h.dtype, device=h.device)
-        args = (ds.data_ptr(), ldd, _vec(ds, ldd), h.data_ptr(), D, _vec(h, D), out.data_ptr(),
-                D, V, D, N)
-    else:
-        out = torch.empty((D, V), dtype=h.dtype, device=h.device)
-        args = (h.data_ptr(), D, _vec(h, D), ds.data_ptr(), ldd, _vec(ds, ldd), out.data_ptr(),
-                V, D, V, N)
-    _launch(fn, "fused_ce_dw", h.device, *args, _DTYPE_CODE[h.dtype])
+    a, b, tied = dw_operands(h, ds, w)
+    M, Ncols = (V, D) if tied else (D, V)
+    out = torch.empty((M, Ncols), dtype=h.dtype, device=h.device)
+    fn = _bind("ds_ce_dw_gemm", [_P, _L, _P, _L, _P, _L] + [_I] * 4 + [_P])
+    _launch(fn, "fused_ce_dw", h.device, a.rows.data_ptr(), a.ld, b.rows.data_ptr(), b.ld,
+            out.data_ptr(), Ncols, M, Ncols, N, _DTYPE_CODE[h.dtype])
     dw_launches += 1
-    return out.T if vd else out
+    return out.T if tied else out
 
 
 # --------------------------------------------------------------------- #

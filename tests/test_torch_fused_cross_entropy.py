@@ -132,3 +132,95 @@ def test_vocab_head_dispatch():
     off = PT.vocab_head_ce(cfg, h, w, 0, labels, valid)
     assert fce.fwd_launches == calls            # the CPU never counts a kernel launch
     torch.testing.assert_close(on, off, atol=1e-6, rtol=1e-6)
+
+
+# --------------------------------------------------------------------- #
+# The operands of G, dh and dW as their TMA + wgmma kernels read them: which
+# is K- or MN-major for an untied and a tied W, when the wrapper copies one
+# into padded rows, and that the products read from those operands equal the
+# plain versions (exactly: both are fp32 sums of the same bf16 products).
+
+
+def _bf16(r, shape, scale=1.0):
+    return torch.from_numpy((r.normal(size=shape) * scale).astype(np.float32)).to(torch.bfloat16)
+
+
+def _head(r, D, V, tied):
+    """W ``[D, V]``; tied: the transpose of a ``[V, D]`` embedding."""
+    return _bf16(r, (V, D), 0.05).T if tied else _bf16(r, (D, V), 0.05)
+
+
+def _operands(product, h, w, ds):
+    if product == "ds":
+        return fce.ds_operands(h, w)
+    if product == "dh":
+        return fce.dh_operands(ds, w)
+    return fce.dw_operands(h, ds, w)[:2]
+
+
+def _planned_product(a, b):
+    """``A @ B`` in fp32 from the operands' rows: a K-major A is stored
+    ``[M, K]``, an MN-major one ``[K, M]``; a K-major B ``[N, K]``, an
+    MN-major one ``[K, N]``."""
+    am = a.rows if a.major == "K" else a.rows.T
+    bm = b.rows.T if b.major == "K" else b.rows
+    return am.float() @ bm.float()
+
+
+def _plain_product(product, h, w, ds, tied):
+    """The plain versions' products in fp32: G's logits (``_log2_logits``
+    without bias and log2e), ``fused_ce_dh_plain`` and ``fused_ce_dw_plain``
+    before their cast."""
+    if product == "ds":
+        return h.float() @ w.float()
+    if product == "dh":
+        return ds.float() @ w.float().T
+    dw = h.float().T @ ds.float()
+    return dw.T if tied else dw             # a tied head's kernel writes dE = dW^T
+
+
+@pytest.mark.parametrize("product,tied,want", [
+    ("ds", False, ("K", "MN")),             # h [N, D]; W [D, V] has V along its rows
+    ("ds", True, ("K", "K")),               # the tied W's memory is [V, D]: D along its rows
+    ("dh", False, ("K", "K")),              # ds [N, V]; W^T's memory [D, V] = [N, K]
+    ("dh", True, ("K", "MN")),              # W^T's memory [V, D] = [K, N]
+    ("dw", False, ("MN", "MN")),            # h^T from h [N, D] = [K, M]; ds [N, V] = [K, N]
+    ("dw", True, ("MN", "MN")),             # dE = ds^T h: ds = [K, M], h = [K, N]
+])
+def test_tma_operands_are_read_as_stored(product, tied, want):
+    r = np.random.default_rng(5)
+    N, D, V = 40, 64, 96
+    h, w, ds = _bf16(r, (N, D)), _head(r, D, V, tied), _bf16(r, (N, V), 1e-3)
+    a, b = _operands(product, h, w, ds)
+    assert (a.major, b.major) == want
+    stored = {"ds": (h, w), "dh": (ds, w), "dw": (ds, h) if tied else (h, ds)}[product]
+    assert [x.rows.data_ptr() for x in (a, b)] == [x.data_ptr() for x in stored]   # in place
+    assert product != "dw" or fce.dw_operands(h, ds, w)[2] == tied
+    torch.testing.assert_close(_planned_product(a, b), _plain_product(product, h, w, ds, tied))
+
+
+# (N, D, V, tied, ds as G writes it, misaligned h) -> which operands of
+# (G, dh, dW) are copied into padded rows, as (A, B) pairs
+@pytest.mark.parametrize("N,D,V,tied,ds_padded,h_offset,copied", [
+    (40, 64, 101, False, False, 0, {"ds": (0, 1), "dh": (1, 1), "dw": (0, 1)}),   # V odd: W, ds
+    (40, 64, 101, False, True, 0, {"ds": (0, 1), "dh": (0, 1), "dw": (0, 0)}),    # G's ds in place
+    (40, 60, 96, True, False, 0, {"ds": (1, 1), "dh": (0, 1), "dw": (0, 1)}),     # D % 8: h, embed
+    (40, 60, 96, False, False, 0, {"ds": (1, 0), "dh": (0, 0), "dw": (1, 0)}),    # D % 8: h only
+    (40, 64, 96, False, False, 1, {"ds": (1, 0), "dh": (0, 0), "dw": (1, 0)}),    # h's base 2 B off
+])
+def test_tma_operands_copy_unaligned_rows_once(N, D, V, tied, ds_padded, h_offset, copied):
+    r = np.random.default_rng(N + D + V)
+    h = torch.empty(N * D + h_offset, dtype=torch.bfloat16)[h_offset:].view(N, D)
+    h.copy_(_bf16(r, (N, D)))
+    w = _head(r, D, V, tied)
+    ds = _bf16(r, (N, V), 1e-3)
+    if ds_padded:                           # as G returns it: a view of [N, V rounded up to 8]
+        ds = torch.zeros((N, -(-V // 8) * 8), dtype=torch.bfloat16)[:, :V].copy_(ds)
+    stored = {"ds": (h, w), "dh": (ds, w), "dw": (ds, h) if tied else (h, ds)}
+    for product, want in copied.items():
+        ops = _operands(product, h, w, ds)
+        for op, x, copy in zip(ops, stored[product], want):
+            assert op.ld % 8 == 0 and op.rows.data_ptr() % 16 == 0 and op.rows.stride(1) == 1
+            assert op.ld == (-(-op.rows.shape[1] // 8) * 8 if copy else op.ld)
+            assert (op.rows.data_ptr() != x.data_ptr()) == bool(copy), (product, x.shape)
+        torch.testing.assert_close(_planned_product(*ops), _plain_product(product, h, w, ds, tied))

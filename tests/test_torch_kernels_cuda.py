@@ -240,12 +240,12 @@ def test_dense_decode_kernel_matches_plain(cuda, B, H, KV, Hd, Smax, pos, bias, 
     assert _ulp_err(out, ref) <= ULP_TOL
 
 
-def _ce_inputs(r, N, D, V, cuda, bias, tied):
-    h = _randn(r, (N, D), cuda)
+def _ce_inputs(r, N, D, V, cuda, bias, tied, dtype=torch.bfloat16):
+    h = _randn(r, (N, D), cuda, dtype)
     if tied:
-        w = (_randn(r, (V, D), cuda).float() * 0.05).to(torch.bfloat16).T   # embed.T, in place
+        w = (_randn(r, (V, D), cuda).float() * 0.05).to(dtype).T   # embed.T, in place
     else:
-        w = (_randn(r, (D, V), cuda).float() * 0.05).to(torch.bfloat16)
+        w = (_randn(r, (D, V), cuda).float() * 0.05).to(dtype)
     b = torch.from_numpy((r.normal(size=V) * 0.5).astype(np.float32)).to(cuda) if bias else None
     labels = torch.from_numpy(r.integers(0, V, size=N).astype(np.int32)).to(cuda)
     return h, w, b, labels
@@ -255,11 +255,16 @@ def _ce_inputs(r, N, D, V, cuda, bias, tied):
     (1000, 512, 32000, False, False),      # Llama's vocab, N off the tile
     (300, 768, 50257, True, True),         # GPT-2: V off the tile, tied embed.T, a bias
     (130, 256, 1000, True, False),         # untied with a bias
+    (1000, 768, 50257, True, False),       # untied V = 50257: W copied into padded rows
+    (1000, 776, 1000, False, False),       # K % 64 != 0 in all three products; M, N ragged
+    (257, 776, 1000, False, True),         # the same, tied (B K-major in G, MN-major in dh)
+    (200, 100, 1000, True, True),          # D % 8 != 0: h and the tied W copied
 ])
-def test_fused_ce_kernels_match_plain(cuda, N, D, V, bias, tied):
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_fused_ce_kernels_match_plain(cuda, N, D, V, bias, tied, dtype):
     """F, G and both products against their plain versions."""
     r = np.random.default_rng(N + V)
-    h, w, b, labels = _ce_inputs(r, N, D, V, cuda, bias, tied)
+    h, w, b, labels = _ce_inputs(r, N, D, V, cuda, bias, tied, dtype)
     counts = (fce.fwd_launches, fce.ds_launches, fce.dh_launches, fce.dw_launches)
     nll, lse = fce.fused_ce_fwd(h, w, b, labels)
     rnll, rlse = fce.fused_ce_fwd_plain(h, w, b, labels)
@@ -275,12 +280,36 @@ def test_fused_ce_kernels_match_plain(cuda, N, D, V, bias, tied):
     assert float((lse - rlse).abs().max()) <= CE_TOL
     assert float((nll - rnll).abs().max()) <= CE_TOL
     assert ds.shape == (N, V) and _ulp_err(ds, rds, GRAD_FLOOR) <= ULP_TOL
+    if dtype == torch.bfloat16:
+        # the softmax part alone (a row's ulp is otherwise its gold entry's);
+        # in fp16 it lies in subnormals at these V (coef p < 6.1e-5)
+        gold = torch.zeros((N, V), dtype=torch.bool, device=cuda)
+        gold[torch.arange(N, device=cuda), labels.long()] = True
+        assert _ulp_err(ds.float().masked_fill(gold, 0), rds.float().masked_fill(gold, 0),
+                        GRAD_FLOOR) <= ULP_TOL
     assert dh.shape == (N, D) and _ulp_err(dh, rdh, GRAD_FLOOR) <= ULP_TOL
     assert dw.shape == (D, V) and _ulp_err(dw, rdw, GRAD_FLOOR) <= ULP_TOL
     if bias:
         assert float((db - rdb).abs().max() / rdb.abs().max()) <= DB_TOL
     else:
         assert db is None
+
+
+@pytest.mark.parametrize("tied", [False, True])
+def test_fused_ce_backward_kernels_repeat_bit_for_bit(cuda, tied):
+    """Two launches of G, dh and dW give the same bits (no split-K, no
+    atomics: every output element is one fp32 sum in a fixed order)."""
+    r = np.random.default_rng(11)
+    N, D, V = 1000, 776, 1000
+    h, w, b, labels = _ce_inputs(r, N, D, V, cuda, True, tied)
+    _, lse = fce.fused_ce_fwd_plain(h, w, b, labels)
+    coef = torch.full((N,), 1.0 / N, device=cuda)
+    outs = []
+    for _ in range(2):
+        ds, db = fce.fused_ce_ds(h, w, b, labels, lse, coef)
+        outs.append((ds, db, fce.fused_ce_dh(ds, w), fce.fused_ce_dw(h, ds, w)))
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(*outs))
 
 
 def test_fused_cross_entropy_autograd_runs_the_kernels(cuda):
