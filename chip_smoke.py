@@ -9,22 +9,25 @@ Phases, each printing one JSON line:
   build         nvcc build of every kernel of the serving path, from csrc/
   kernel        each kernel against its plain PyTorch version on the card, in
                 bf16, at its path's shapes and at edge shapes, with planted
-                faults that must read above each limit, its time, the plain
+                faults that must read above each limit, two launches of A, D,
+                G, dh and dW bit-equal, its time, the plain
                 version's, the library call's (SDPA for attention, fused
                 AdamW, F.linear + F.cross_entropy for the fused CE) and the
                 bound
   slice_parity  Llama-7B width cut to 2 layers: the same seeded weights served
                 on the card (kernels) and on the CPU (plain versions, fp32);
-                greedy tokens must agree wherever the CPU's top-2 logit
-                margin exceeds the bf16 tolerance
+                the CPU's greedy tokens fed to both sides' paged prefill and
+                decode steps, every position's logits within LOGIT_ULP_TOL,
+                faults planted in kernel A through the model above it
   serve         full Llama-2-7B (32 layers, bf16, random seeded weights)
                 through init_inference + generate_batch with the default
                 serving config; the kernels' launch counters must match the
                 scheduler's prefill and decode actions
-  generate_parity  Llama-7B width cut to 2 layers: static generate
-                (engine.generate) on the card (bf16, dense decode kernel)
-                and on the CPU (fp32, plain versions); greedy tokens must
-                agree wherever the CPU's top-2 margin exceeds the tolerance
+  generate_parity  Llama-7B width cut to 2 layers: the CPU's static
+                generate tokens fed to forward_cached on the card (bf16,
+                dense decode kernel) and on the CPU (fp32, plain versions);
+                every position's logits within LOGIT_ULP_TOL, a dense-decode
+                fault planted through the model above it
   generate      full Llama-2-7B (32 layers, bf16) through init_inference +
                 generate on an [8, 512] prompt batch, 64 new tokens, greedy:
                 tokens/s, prefill ms, ms per decode step, peak memory; the
@@ -97,7 +100,9 @@ DEFAULT_PHASES = PHASES[:-3]      # the three profiles run only when asked for
 # must read above it, or the check could not tell them from a sound kernel.
 ULP_TOL = 3.0
 LSE_TOL = 1e-4                  # log2-domain lse: sound reads <= 4e-6, a dropped key >= 0.016
-MARGIN_TOL = 0.1                # logit units: bf16 serving vs fp32 CPU reference
+# slice_parity / generate_parity: teacher-forced logits, bf16 card vs fp32 CPU,
+# per position in bf16 ulps of its largest |CPU logit| (PERF.md section 6)
+LOGIT_ULP_TOL = 8.0
 # Backward kernels C and D: the same ulp measure, with each row's magnitude
 # floored at 2^-10 of the gradient's largest value: a dq row of a query that
 # sees one key (or a dk row of a key that one query sees) is dp - delta's
@@ -158,18 +163,23 @@ def check(cond, msg):
         raise RuntimeError(msg)
 
 
-def ulp_err(out, ref, floor=0.0):
+def row_ulp_errs(out, ref, floor=0.0):
     """Largest |out - ref| of each row (the last axis) in bf16 ulps of the
     row's largest |ref|; the ulp of x in [2^e, 2^(e+1)) is 2^(e-7). With
     ``floor`` > 0 a row's magnitude is at least ``floor`` times the
     tensor's largest |ref|; without, a row that should be all zeros reads
-    inf unless ``out`` is zero there too."""
+    inf unless ``out`` is zero there too. One reading a row."""
     import torch
     out, ref = out.float(), ref.float()
     diff = (out - ref).abs().amax(-1)
     mag = ref.abs().amax(-1).clamp(min=floor * float(ref.abs().max()))
     ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
-    return float(torch.where(diff == 0, torch.zeros_like(diff), diff / ulp).max())
+    return torch.where(diff == 0, torch.zeros_like(diff), diff / ulp)
+
+
+def ulp_err(out, ref, floor=0.0):
+    """The worst row of :func:`row_ulp_errs`."""
+    return float(row_ulp_errs(out, ref, floor).max())
 
 
 def cuda_ms(fn, reps=30, warmup=5):
@@ -265,16 +275,21 @@ def ptxas_summary(log):
 
 
 def phase_build(state):
-    """nvcc of every kernel with ptxas's report. G, dh and dW take their
-    ring as dynamic shared memory, which ptxas does not count: it is read
-    from the library. ptxas reports their launch bound's 168 registers;
-    setmaxnreg moves the consumer warpgroups to 232 at run time."""
+    """nvcc of every kernel with ptxas's report. G, dh, dW, A and D take
+    their rings as dynamic shared memory, which ptxas does not count: it is
+    read from the libraries. ptxas reports the 384-thread launch bound's 168
+    registers; setmaxnreg moves the consumer warpgroups to 232 (G, dh, dW,
+    A) or 240 (D) at run time."""
     from deepspeed_tpu_torch.ops.kernels import build
     seconds, log = build.build(ptxas_verbose=True)
     rows, warnings = ptxas_summary(log)
     gemm_smem = build.load("fused_cross_entropy").ds_ce_gemm_smem_bytes()
+    fwd, bwd = build.load("flash_attention"), build.load("flash_attention_bwd")
+    attn_smem = {f"{k} hd{hd}": fn(hd) for hd in (64, 128)
+                 for k, fn in (("flash_fwd_kernel", fwd.ds_flash_fwd_smem_bytes),
+                               ("flash_bwd_dkv_kernel", bwd.ds_flash_dkv_smem_bytes))}
     emit("build", seconds=seconds, built=sorted(log), ptxas=rows, ptxas_warnings=warnings,
-         ce_backward_dynamic_smem_bytes=gemm_smem)
+         ce_backward_dynamic_smem_bytes=gemm_smem, attention_dynamic_smem_bytes=attn_smem)
 
 
 def _flash_case(gen, B, S, H, KV, Hd, causal, alibi, mask):
@@ -404,6 +419,12 @@ def phase_kernel(state, seed):
         if not rec["fault_lse_err"] > LSE_TOL:
             failures.append(f"flash {name}: lse of last_key_dropped reads "
                             f"{rec['fault_lse_err']} <= {LSE_TOL}")
+        if name in ("train_slice", "gqa4_unaligned"):     # no split, no atomics: same bits
+            o2, lse2 = fa.flash_attention(*args, return_lse=True)
+            rec["repeat_bit_equal"] = bool(torch.equal(o, o2) and torch.equal(lse, lse2))
+            if not rec["repeat_bit_equal"]:
+                failures.append(f"flash {name}: two launches differ")
+            del o2, lse2
         if name in ("slice", "train_slice", "gpt2_hd64"):   # the serve, train and Hd 64 call sites
             q, k, v = args[0], args[1], args[2]
             rec["ms"] = cuda_ms(lambda: fa.flash_attention(*args))
@@ -788,7 +809,9 @@ def _sdpa_backward_ms(q, k, v, do, causal):
 
 def _check_backward_kernels(gen, fa, results, failures):
     """Kernels C and D against their plain versions at the train path's
-    shape and at edge shapes; timed at the Hd 128 and Hd 64 call sites."""
+    shape and at edge shapes; timed at the Hd 128 and Hd 64 call sites.
+    Two launches of D must give the same bits at the train shape and in a
+    GQA case."""
     import torch
     # (B, S, H, KV, Hd, causal, alibi, mask, masked_row); "slice" = one
     # micro-batch of the train phase (Llama-7B heads, S 2048)
@@ -807,6 +830,8 @@ def _check_backward_kernels(gen, fa, results, failures):
         rdq = fa.flash_attention_dq_plain(*args, **kw)
         rdk, rdv = fa.flash_attention_dkv_plain(*args, **kw)
         fdq, fdkv = _bwd_faults(fa, args, kw)
+        again = fa.flash_attention_dkv(*args, **kw) if name in ("slice", "gqa4_ragged_s200") \
+            else None
         torch.cuda.synchronize()
         shape = {"shape": [B, S, H, KV, Hd], "causal": causal, "alibi": alibi, "mask": mask,
                  "fully_masked_row": masked_row}
@@ -816,6 +841,12 @@ def _check_backward_kernels(gen, fa, results, failures):
         rec_d = {"kernel": "flash_attention_bwd_dkv", "case": name, **shape,
                  **_hold("flash_attention_bwd_dkv", name, [dk, dv], [rdk, rdv],
                          {f: list(r) for f, r in fdkv.items()}, failures, GRAD_FLOOR)}
+        if again is not None:                  # no split, no atomics: same bits
+            rec_d["repeat_bit_equal"] = bool(torch.equal(dk, again[0]) and
+                                             torch.equal(dv, again[1]))
+            if not rec_d["repeat_bit_equal"]:
+                failures.append(f"flash_attention_bwd_dkv {name}: two launches differ")
+            del again
         if name in ("slice", "gpt2_hd64"):     # the Hd 128 and Hd 64 call sites
             q, k, v, do = args[:4]
             elem = q.element_size()
@@ -1171,61 +1202,161 @@ def _check_sr_quantize(gen, results, failures):
     torch.cuda.empty_cache()
 
 
-def _last_logits(engine, tokens):
-    """Logits at the last position of ``tokens`` through the engine's own
-    paged prefill on a scratch pool (the margin probe of slice_parity)."""
+def paged_logits(engine, tokens, n_prompt):
+    """Teacher-forced logits of the serving path: the engine's own paged
+    prefill of ``tokens[:n_prompt]`` (kernel A on the card) on a scratch
+    pool, then one paged decode step (kernel B) for each later token of
+    ``tokens``. Returns ``[len(tokens) - n_prompt + 1, vocab]`` fp32 on the
+    CPU: the logits at the prompt's last position and after each fed token,
+    whatever the engine would have sampled."""
     import torch
     from deepspeed_tpu_torch.models import transformer as T
+    cfg, dev = engine.module.config, engine.device
     n = len(tokens)
-    Tb = -(-n // 128) * 128
-    pools = engine.module.init_paged_cache(Tb // 128 + 1, 128, dtype=engine.dtype,
-                                           device=engine.device)
-    toks = torch.zeros((1, Tb), dtype=torch.long, device=engine.device)
-    toks[0, :n] = torch.as_tensor(tokens, dtype=torch.long)
-    slots = torch.arange(Tb, device=engine.device) + 128     # blocks 1.., in order
-    logits, _ = T.forward_paged_prefill(engine.module.config, engine.params, toks,
-                                        pools, slots, n - 1)
-    return logits[0].float()
+    Tb = -(-n_prompt // 128) * 128
+    blocks = -(-max(Tb, n) // 128)
+    pools = engine.module.init_paged_cache(blocks + 1, 128, dtype=engine.dtype, device=dev)
+    toks = torch.as_tensor(tokens, dtype=torch.long)
+    prompt = torch.zeros((1, Tb), dtype=torch.long, device=dev)
+    prompt[0, :n_prompt] = toks[:n_prompt]
+    slots = torch.arange(Tb, device=dev) + 128                # blocks 1.., in order
+    table = torch.arange(1, blocks + 1, dtype=torch.int32, device=dev)[None]
+    with torch.no_grad():
+        logits, _ = T.forward_paged_prefill(cfg, engine.params, prompt, pools, slots,
+                                            n_prompt - 1)
+        out = [logits[0].float().cpu()]
+        for p in range(n_prompt, n):
+            pos = torch.tensor([p], dtype=torch.int32, device=dev)
+            logits, _ = T.forward_paged_decode(cfg, engine.params, toks[p:p + 1].to(dev)[None],
+                                               pools, table, pos)
+            out.append(logits[0].float().cpu())
+    return torch.stack(out)
 
 
-def phase_slice_parity(state, seed):
-    import numpy as np
+def cached_logits(engine, ids, n_prompt):
+    """Teacher-forced logits of static generate: ``forward_cached`` over the
+    right-padded 128-bucket of ``ids[:, :n_prompt]`` at pos 0, then one
+    ``forward_cached`` step (the dense decode kernel on the card) for each
+    later column of ``ids``. Returns ``[B, ids.shape[1], vocab]`` fp32 on the
+    CPU: every prompt position's logits and those after each fed token."""
+    import torch
+    B, n = ids.shape
+    dev = engine.device
+    bucket = -(-n_prompt // 128) * 128
+    ids = torch.as_tensor(ids, dtype=torch.long)
+    cache = engine.module.init_cache(B, max(bucket, n), dtype=engine.dtype, device=dev)
+    prompt = torch.zeros((B, bucket), dtype=torch.long, device=dev)
+    prompt[:, :n_prompt] = ids[:, :n_prompt]
+    with torch.no_grad():
+        logits, cache = engine.module.forward_cached(engine.params, prompt, cache, 0)
+        out = [logits[:, :n_prompt].float().cpu()]
+        for p in range(n_prompt, n):
+            logits, cache = engine.module.forward_cached(engine.params, ids[:, p:p + 1].to(dev),
+                                                         cache, p)
+            out.append(logits[:, -1:].float().cpu())
+    return torch.cat(out, dim=1)
+
+
+def logit_parity(got, want, faults):
+    """Teacher-forced logits (one row a position) against the CPU's with
+    phase kernel's per-row measure: each position's largest difference in
+    bf16 ulps of its largest |CPU logit|. Every position is compared; each
+    planted fault's logits must read above LOGIT_ULP_TOL. Returns the
+    record and the failures."""
+    import torch
+    errs = row_ulp_errs(got, want)
+    rec = {"positions_compared": int(errs.numel()), "ulp_err": float(errs.max()),
+           "ulp_err_median": float(errs.median()), "ulp_tol": LOGIT_ULP_TOL,
+           "fault_ulp_err": {f: float(row_ulp_errs(x, want).max()) for f, x in faults.items()}}
+    failures = []
+    if not bool(torch.isfinite(got).all()):
+        failures.append("non-finite logits")
+    if not rec["ulp_err"] <= LOGIT_ULP_TOL:
+        failures.append(f"logits differ by {rec['ulp_err']} bf16 ulps > {LOGIT_ULP_TOL}")
+    for f, e in rec["fault_ulp_err"].items():
+        if not e > LOGIT_ULP_TOL:
+            failures.append(f"planted fault {f} reads {e} ulps <= {LOGIT_ULP_TOL}")
+    return rec, failures
+
+
+@contextlib.contextmanager
+def planted_attention_fault(fault):
+    """A kernel fault fed through the model inside the ``with`` body, where
+    the model calls the kernel: "flash_kv_head_shifted" (kernel A reads the
+    next kv head), "flash_last_key_tile_dropped" (kernel A skips the last
+    128-key tile: a ragged tile lost) or "decode_kv_head_shifted" (the dense
+    decode kernel reads the next kv head)."""
+    import torch
+    from deepspeed_tpu_torch.models import transformer as T
+    name = "decode_attention" if fault.startswith("decode_") else "flash_attention"
+    real = getattr(T, name)
+    if fault == "flash_last_key_tile_dropped":
+        def faulted(q, k, v, mask_bias=None, **kw):
+            B, S = q.shape[:2]
+            drop = torch.zeros((B, S), device=q.device)
+            drop[:, (S - 1) // 128 * 128:] = -1e9
+            return real(q, k, v, mask_bias=drop if mask_bias is None else drop + mask_bias, **kw)
+    else:
+        def faulted(q, k, v, *args, **kw):
+            return real(q, k.roll(1, 2), v.roll(1, 2), *args, **kw)
+    setattr(T, name, faulted)
+    try:
+        yield
+    finally:
+        setattr(T, name, real)
+
+
+def _parity_engines(seed):
+    """Llama-7B width at 2 layers: the same seeded weights served on the card
+    (bf16, kernels) and on the CPU (fp32, plain versions)."""
     import torch
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.models import llama
-
     model = llama("7b", n_layer=2)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     params = model.init_params(gen, device="cuda", dtype=torch.bfloat16)
-    gpu = deepspeed_tpu_torch.init_inference(model, params=params, dtype="bf16",
-                                             device="cuda")
+    gpu = deepspeed_tpu_torch.init_inference(model, params=params, dtype="bf16", device="cuda")
     cpu = deepspeed_tpu_torch.init_inference(
         model, params=params.map(lambda t: t.to("cpu", torch.float32)), dtype="fp32",
         device="cpu")
+    return model, gpu, cpu
+
+
+def phase_slice_parity(state, seed):
+    """The serving path, teacher-forced: the CPU's greedy tokens (prompt +
+    8 new) fed to the card's paged prefill and decode steps and to the
+    CPU's; the logits at every generated position held with logit_parity,
+    a kernel-A fault planted through the model on the card."""
+    import numpy as np
+    import torch
+
+    model, gpu, cpu = _parity_engines(seed)
     rng = np.random.default_rng(seed)
     prompts = [rng.integers(0, model.config.vocab_size, size=n) for n in (40, 130, 200)]
     max_new = 8
-    got = gpu.generate_batch(prompts, max_new_tokens=max_new)
-    want = cpu.generate_batch(prompts, max_new_tokens=max_new)
-    compared = diverged = 0
-    for p, g, w in zip(prompts, got, want):
-        g, w = np.asarray(g), np.asarray(w)
-        check(g.shape == w.shape, f"length mismatch {g.shape} vs {w.shape}")
-        mism = np.nonzero(g != w)[0]
-        n_ok = (mism[0] if mism.size else g.size) - p.size
-        compared += n_ok
-        if mism.size:
-            top2 = torch.topk(_last_logits(cpu, w[:mism[0]]), 2).values
-            margin = float(top2[0] - top2[1])
-            check(margin < MARGIN_TOL,
-                  f"greedy tokens diverge at {mism[0]} where the CPU margin {margin} "
-                  f">= {MARGIN_TOL}")
-            diverged += 1
-    del gpu, cpu, params
+    want_tokens = cpu.generate_batch(prompts, max_new_tokens=max_new)
+    got_tokens = gpu.generate_batch(prompts, max_new_tokens=max_new)
+    got, want = [], []
+    faults = {f: [] for f in ("flash_kv_head_shifted", "flash_last_key_tile_dropped")}
+    for p, w in zip(prompts, want_tokens):
+        w = np.asarray(w)
+        check(w.shape == (p.size + max_new,), f"CPU output shape {w.shape}")
+        toks = w[:-1]                     # the last token is sampled, never fed
+        want.append(paged_logits(cpu, toks, p.size))
+        got.append(paged_logits(gpu, toks, p.size))
+        for f in faults:
+            with planted_attention_fault(f):
+                faults[f].append(paged_logits(gpu, toks, p.size))
+    same = sum(int(np.array_equal(np.asarray(g), np.asarray(w)))
+               for g, w in zip(got_tokens, want_tokens))
+    rec, failures = logit_parity(torch.cat(got), torch.cat(want),
+                                 {f: torch.cat(x) for f, x in faults.items()})
+    del gpu, cpu
     torch.cuda.empty_cache()
     emit("slice_parity", layers=model.config.n_layer, d_model=model.config.d_model,
-         prompts=len(prompts), tokens_compared=int(compared),
-         near_tie_divergences=diverged, margin_tol=MARGIN_TOL)
+         prompts=[int(p.size) for p in prompts], new_tokens=max_new,
+         greedy_rows_equal=same, **rec)
+    check(not failures, "slice_parity failed: " + "; ".join(failures))
 
 
 def _llama7b(seed):
@@ -1310,39 +1441,37 @@ def phase_serve(state, seed):
 
 
 def phase_generate_parity(state, seed):
-    """Static generate (engine.generate, the dense decode kernel) on the card
-    against the CPU's plain versions, Llama-7B width at 2 layers."""
+    """Static generate, teacher-forced: the CPU's greedy tokens (engine.generate,
+    [2, 100] + 8) fed to forward_cached on the card (bf16, the dense decode
+    kernel) and on the CPU (fp32, plain versions); the logits at every
+    prompt position and after each fed token held with logit_parity, a
+    dense-decode fault planted through the model on the card."""
     import numpy as np
     import torch
-    import deepspeed_tpu_torch
-    from deepspeed_tpu_torch.models import llama
 
-    model = llama("7b", n_layer=2)
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    params = model.init_params(gen, device="cuda", dtype=torch.bfloat16)
-    gpu = deepspeed_tpu_torch.init_inference(model, params=params, dtype="bf16", device="cuda")
-    cpu = deepspeed_tpu_torch.init_inference(
-        model, params=params.map(lambda t: t.to("cpu", torch.float32)), dtype="fp32",
-        device="cpu")
+    model, gpu, cpu = _parity_engines(seed)
     P, max_new = 100, 8
     ids = np.random.default_rng(seed + 4).integers(0, model.config.vocab_size, size=(2, P))
-    got, want = gpu.generate(ids, max_new_tokens=max_new), cpu.generate(ids, max_new_tokens=max_new)
-    check(got.shape == want.shape == (2, P + max_new), f"shapes {got.shape} vs {want.shape}")
-    compared = diverged = 0
-    for g, w in zip(got, want):
-        mism = np.nonzero(g != w)[0]
-        compared += (mism[0] if mism.size else g.size) - P
-        if mism.size:
-            top2 = torch.topk(cpu.forward(w[:mism[0]])[0, -1].float(), 2).values
-            margin = float(top2[0] - top2[1])
-            check(margin < MARGIN_TOL, f"greedy tokens diverge at {mism[0]} where the CPU "
-                                       f"margin {margin} >= {MARGIN_TOL}")
-            diverged += 1
-    del gpu, cpu, params
+    want_ids = cpu.generate(ids, max_new_tokens=max_new)
+    got_ids = gpu.generate(ids, max_new_tokens=max_new)
+    check(got_ids.shape == want_ids.shape == (2, P + max_new),
+          f"shapes {got_ids.shape} vs {want_ids.shape}")
+    toks = want_ids[:, :-1]
+    want = cached_logits(cpu, toks, P)
+    got = cached_logits(gpu, toks, P)
+    with planted_attention_fault("decode_kv_head_shifted"):
+        fault = cached_logits(gpu, toks, P)
+    rec, failures = logit_parity(got.flatten(0, 1), want.flatten(0, 1),
+                                 {"decode_kv_head_shifted": fault.flatten(0, 1)})
+    # the dense decode kernel's positions alone (the prompt's go through the einsum)
+    rec["decode_ulp_err"] = float(row_ulp_errs(got[:, P:], want[:, P:]).max())
+    rec["decode_positions_compared"] = int(got[:, P:].shape[0] * got[:, P:].shape[1])
+    same = int(sum(np.array_equal(g, w) for g, w in zip(got_ids, want_ids)))
+    del gpu, cpu
     torch.cuda.empty_cache()
     emit("generate_parity", layers=model.config.n_layer, d_model=model.config.d_model,
-         batch=[2, P], max_new_tokens=max_new, tokens_compared=int(compared),
-         near_tie_divergences=diverged, margin_tol=MARGIN_TOL)
+         batch=[2, P], new_tokens=max_new, greedy_rows_equal=same, **rec)
+    check(not failures, "generate_parity failed: " + "; ".join(failures))
 
 
 def _generate_engine(seed):

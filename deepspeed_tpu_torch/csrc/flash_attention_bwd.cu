@@ -15,18 +15,28 @@
 //   dq += ds k                                     (fp32 registers)
 // ds is re-packed from the accumulators straight into A fragments.
 //
-// flash_bwd_dkv_kernel (kernel D): one CTA of 4 warps per (64-row k tile,
-// kv head, batch row). The k and v tiles stay in shared memory for the whole
-// CTA; the loop runs over the G query heads of the kv group and, for each,
-// over the q tiles from the causal diagonal down, with q/do tiles and the
-// tile's lse/delta streamed through shared memory. Each warp owns 16 keys
-// and computes S^T = k q^T directly (keys as rows), so p^T and ds^T come out
-// of the accumulators already in A-fragment order:
-//   p^T rounded to do's dtype;  dv += p^T do
-//   ds^T = p^T * (dp^T - delta) * scale, rounded to q's dtype;  dk += ds^T q
-// dk and dv sum over the whole group inside the CTA: no atomics, and each
-// dq tile is written once by C, so the gradients repeat bit for bit from run
-// to run.
+// flash_bwd_dkv_kernel (kernel D), k-stationary and warp-specialised on
+// the Hopper pieces of wgmma_attention.cuh: one CTA of three warpgroups per
+// (128-key tile, kv head, batch row). The producer warp brings the k and v
+// tiles by TMA once, then streams, for each of the G query heads of the kv
+// group and each 64-row q tile from the causal diagonal down, the q and do
+// tiles (TMA) and the tile's lse and delta rows (plain loads by its lanes)
+// through a two-stage ring guarded by mbarriers. Each consumer warpgroup
+// owns 64 keys and computes S^T = k q^T directly (keys as rows), so p^T and
+// ds^T come out of the accumulators already as register-A fragments:
+//   s^T = k q^T, dp^T = v do^T      wgmma m64n64k16, all operands K-major
+//   p^T = exp2(s^T - lse) rounded to do's dtype
+//   ds^T = p^T (dp^T - delta) scale, rounded to q's dtype
+//   dv += p^T do, dk += ds^T q      wgmma m64n{Hd}k16, A from registers,
+//                                   do and q MN-major (the same smem tiles)
+// A warpgroup skips a q tile wholly above its keys (causal), after the
+// tile's full barrier, so that its release counts toward the right phase.
+// dk and dv stay in fp32 registers (setmaxnreg gives the consumers 240) and
+// sum over the whole group inside the CTA, in a fixed order: no atomics, no
+// split over keys or q tiles, and each dq tile is written once by C, so the
+// gradients repeat bit for bit from run to run. The TMA maps are 3-D (head
+// columns, S, B): rows past S arrive as zeros, keys past S are masked by
+// the bias and never stored, and q rows past S read lse = +1e30 (p = 0).
 //
 // Rounding points are the TPU kernels': in dq, p stays fp32 and ds is cast
 // to k's dtype (_dq_kernel :205); in dkv, p is cast to do's dtype and that
@@ -35,15 +45,17 @@
 //
 // Bound on the H100: at training lengths (S = 2048, Hd = 128) the backward is
 // compute-bound (C does 3 and D 4 causal S x S x Hd products against 2 bytes
-// per element of q/k/v/do/dq/dk/dv). This simple design keeps the products
-// on the tensor cores (mma.sync) and never writes an S x S tile; wgmma, TMA
-// and a pipelined k/v ring are later work.
+// per element of q/k/v/do/dq/dk/dv). C still runs the first design
+// (mma.sync, one unpipelined shared buffer); D issues its four products
+// with wgmma on TMA-fed tiles.
 #include "common.cuh"
+#include "wgmma_attention.cuh"
+#include "wgmma_gemm.cuh"
 
 namespace {
 
-constexpr int kBQ = 64;        // q rows per tile (4 warps x 16)
-constexpr int kBK = 64;        // keys per tile
+constexpr int kBQ = 64;        // kernel C: q rows per tile (4 warps x 16)
+constexpr int kBK = 64;        // kernel C: keys per tile
 constexpr int kThreads = 128;
 
 template <typename T, int HD>
@@ -176,139 +188,217 @@ __device__ __forceinline__ float round_to(float x) {
   return ds::to_float(ds::from_float<T>(x));
 }
 
+// Kernel D's tiles: 128 keys a CTA (64 per consumer warpgroup) and 64 q
+// rows a ring stage; every box is 64 columns (128 B) wide.
+constexpr int kDkvBK = 128;
+constexpr int kDkvBQ = 64;
+constexpr int kDkvStages = 2;
+constexpr int kDkvThreads = 384;       // warpgroups 0, 1 consume; 2 produces
+constexpr int kDkvConsumers = 256;
+constexpr int kKvBox = kDkvBK * 128;   // one 64-column box of k or v, 16 KB
+constexpr int kQBox = kDkvBQ * 128;    // one 64-column box of q or do, 8 KB
+
+template <int HD>
+struct DkvShape {
+  static constexpr int kKvBytes = kKvBox * (HD / 64);     // one of k, v
+  static constexpr int kQBytes = kQBox * (HD / 64);       // one of q, do
+  // q, do, then the tile's lse and delta rows (64 floats each), 1 KB aligned
+  static constexpr int kStageBytes = 2 * kQBytes + 1024;
+  static constexpr size_t kSmem =
+      1024 + 2 * kKvBytes + kDkvStages * kStageBytes + (2 * kDkvStages + 1) * 8;
+};
+
 template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     const T* __restrict__ dO, const float* __restrict__ lse,
+__global__ void __launch_bounds__(kDkvThreads, 1)
+flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap qmap,
+                     const __grid_constant__ CUtensorMap kmap,
+                     const __grid_constant__ CUtensorMap vmap,
+                     const __grid_constant__ CUtensorMap domap, const float* __restrict__ lse,
                      const float* __restrict__ delta, const float* __restrict__ mask,
                      const float* __restrict__ slopes, T* __restrict__ dk, T* __restrict__ dv,
                      int S, int H, int KV, int causal, float scale_log2, float scale) {
-  constexpr int PITCH = HD + 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* ks = reinterpret_cast<T*>(smem);        // [kBK, PITCH], fixed for the CTA
-  T* vs = ks + kBK * PITCH;
-  T* qs = vs + kBK * PITCH;                  // [kBQ, PITCH], one q tile at a time
-  T* dos = qs + kBQ * PITCH;
-  float* lse_s = reinterpret_cast<float*>(dos + kBQ * PITCH);   // [kBQ]
-  float* delta_s = lse_s + kBQ;
+  using Sh = DkvShape<HD>;
+  extern __shared__ unsigned char dkv_smem_raw[];
+  unsigned char* smem = ds::align_1024(dkv_smem_raw);
+  unsigned char* ks = smem;                     // [128 keys, Hd], fixed for the CTA
+  unsigned char* vs = ks + Sh::kKvBytes;
+  unsigned char* ring = vs + Sh::kKvBytes;      // q, do, lse, delta of one q tile a stage
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kDkvStages * Sh::kStageBytes);
+  uint64_t* empty = full + kDkvStages;
+  uint64_t* kvbar = empty + kDkvStages;
 
-  const int kt = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  // the key tiles of one (kv head, batch row) are neighbours, so the blocks
+  // that run together share their q / do tiles in L2; key tile 0, which sees
+  // every q tile under causal attention, first
+  const int nkt = (S + kDkvBK - 1) / kDkvBK;
+  const int kt = (int)blockIdx.x % nkt;
+  const int kvh = (int)blockIdx.x / nkt % KV, b = (int)blockIdx.x / nkt / KV;
   const int G = H / KV;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int k0 = kt * kBK;
-  const long q_stride = (long)H * HD;
-  const long kv_stride = (long)KV * HD;
-  const long kvoff = (long)b * S * kv_stride + (long)kvh * HD;
+  const int k0 = kt * kDkvBK;
+  const int nq = (S + kDkvBQ - 1) / kDkvBQ;
+  const int qt0 = causal ? k0 / kDkvBQ : 0;    // q tiles from the diagonal down
+  const int tid = threadIdx.x;
 
-  ds::load_tile<T, HD, PITCH, kBK, kThreads>(ks, k + kvoff, k0, S, kv_stride, tid);
-  ds::load_tile<T, HD, PITCH, kBK, kThreads>(vs, v + kvoff, k0, S, kv_stride, tid);
-
-  const int r0 = warp * 16 + g;                 // this thread's key rows r0, r0 + 8
-  const int kpos[2] = {k0 + r0, k0 + r0 + 8};
-  const float* maskb = mask ? mask + (long)b * S : nullptr;
-
-  float adk[HD / 8][4], adv[HD / 8][4];
+  if (tid == 0) {
 #pragma unroll
-  for (int d = 0; d < HD / 8; ++d) {
-    adk[d][0] = adk[d][1] = adk[d][2] = adk[d][3] = 0.f;
-    adv[d][0] = adv[d][1] = adv[d][2] = adv[d][3] = 0.f;
+    for (int s = 0; s < kDkvStages; ++s) {
+      ds::mbar_init(&full[s], 32);                        // the producer warp's lanes
+      ds::mbar_init(&empty[s], kDkvConsumers / 32);       // one arrive per consumer warp
+    }
+    ds::mbar_init(kvbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  const int nq = (S + kBQ - 1) / kBQ;
-  const int qt0 = causal ? k0 / kBQ : 0;        // q tiles from the diagonal down
+  __syncthreads();
 
-  for (int gi = 0; gi < G; ++gi) {
-    const int h = kvh * G + gi;
-    const float slope = slopes ? slopes[h] * ds::kLog2e : 0.f;
-    const long qoff = (long)b * S * q_stride + (long)h * HD;
-    const long row_off = ((long)b * H + h) * S;
-    for (int qt = qt0; qt < nq; ++qt) {
-      const int q0 = qt * kBQ;
-      __syncthreads();   // every warp is done with the previous q / do tile
-      ds::load_tile<T, HD, PITCH, kBQ, kThreads>(qs, q + qoff, q0, S, q_stride, tid);
-      ds::load_tile<T, HD, PITCH, kBQ, kThreads>(dos, dO + qoff, q0, S, q_stride, tid);
-      for (int i = tid; i < kBQ; i += kThreads) {
-        const bool in = q0 + i < S;
-        lse_s[i] = in ? lse[row_off + q0 + i] : -ds::kMasked;   // rows past S: p = 0
-        delta_s[i] = in ? delta[row_off + q0 + i] : 0.f;
+  if (tid >= kDkvConsumers) {   // producer warpgroup: its first warp
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (tid < kDkvConsumers + 32) {
+      const int lane = tid & 31;
+      if (lane == 0) {
+        ds::mbar_expect_tx(kvbar, 2 * Sh::kKvBytes);
+#pragma unroll
+        for (int j = 0; j < HD / 64; ++j) {
+          ds::tma_load_3d(ks + j * kKvBox, &kmap, kvbar, kvh * HD + 64 * j, k0, b);
+          ds::tma_load_3d(vs + j * kKvBox, &vmap, kvbar, kvh * HD + 64 * j, k0, b);
+        }
       }
-      __syncthreads();
-
-#pragma unroll
-      for (int c = 0; c < kBQ / 16; ++c) {     // 16 q rows at a time
-        // S^T = k q^T and dP^T = v do^T for this warp's 16 keys x 16 q rows
-        float st[2][4], dpt[2][4];
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          st[j][0] = st[j][1] = st[j][2] = st[j][3] = 0.f;
-          dpt[j][0] = dpt[j][1] = dpt[j][2] = dpt[j][3] = 0.f;
-        }
-#pragma unroll
-        for (int kk = 0; kk < HD / 16; ++kk) {
-          const int ao = r0 * PITCH + kk * 16 + 2 * t;
-          uint32_t ka[4] = {ds::ld32(ks + ao), ds::ld32(ks + ao + 8 * PITCH),
-                            ds::ld32(ks + ao + 8), ds::ld32(ks + ao + 8 * PITCH + 8)};
-          uint32_t va[4] = {ds::ld32(vs + ao), ds::ld32(vs + ao + 8 * PITCH),
-                            ds::ld32(vs + ao + 8), ds::ld32(vs + ao + 8 * PITCH + 8)};
-#pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            const int bo = (c * 16 + j * 8 + g) * PITCH + kk * 16 + 2 * t;
-            uint32_t bq[2] = {ds::ld32(qs + bo), ds::ld32(qs + bo + 8)};
-            ds::mma16816<T>(st[j], ka, bq);
-            uint32_t bd[2] = {ds::ld32(dos + bo), ds::ld32(dos + bo + 8)};
-            ds::mma16816<T>(dpt[j], va, bd);
+      int it = 0;
+      for (int gi = 0; gi < G; ++gi) {
+        const int h = kvh * G + gi;
+        const long row_off = ((long)b * H + h) * S;
+        for (int qt = qt0; qt < nq; ++qt, ++it) {
+          const int s = it % kDkvStages, q0 = qt * kDkvBQ;
+          ds::mbar_wait(&empty[s], ((it / kDkvStages) & 1) ^ 1);   // first pass: free
+          unsigned char* st = ring + s * Sh::kStageBytes;
+          float* lse_s = reinterpret_cast<float*>(st + 2 * Sh::kQBytes);
+          for (int i = lane; i < kDkvBQ; i += 32) {
+            const bool in = q0 + i < S;
+            lse_s[i] = in ? lse[row_off + q0 + i] : -ds::kMasked;   // rows past S: p = 0
+            lse_s[kDkvBQ + i] = in ? delta[row_off + q0 + i] : 0.f;
           }
-        }
-        // p^T rounded to do's dtype; ds^T = p^T (dp^T - delta) scale
+          if (lane == 0) {
+            ds::mbar_expect_tx(&full[s], 2 * Sh::kQBytes);
 #pragma unroll
-        for (int j = 0; j < 2; ++j) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int row = e >> 1;
-            const int qi = c * 16 + j * 8 + 2 * t + (e & 1);
-            const float x = st[j][e] * scale_log2 +
-                            ds::attn_bias(q0 + qi, kpos[row], S, causal, slope, maskb);
-            const float p = round_to<T>(exp2f(x - lse_s[qi]));
-            st[j][e] = p;
-            dpt[j][e] = p * (dpt[j][e] - delta_s[qi]) * scale;
+            for (int j = 0; j < HD / 64; ++j) {
+              ds::tma_load_3d(st + j * kQBox, &qmap, &full[s], h * HD + 64 * j, q0, b);
+              ds::tma_load_3d(st + Sh::kQBytes + j * kQBox, &domap, &full[s], h * HD + 64 * j,
+                              q0, b);
+            }
+          } else {
+            ds::mbar_arrive(&full[s]);
           }
-        }
-        uint32_t pa[4], da[4];
-        pa[0] = ds::pack_f32<T>(st[0][0], st[0][1]);
-        pa[1] = ds::pack_f32<T>(st[0][2], st[0][3]);
-        pa[2] = ds::pack_f32<T>(st[1][0], st[1][1]);
-        pa[3] = ds::pack_f32<T>(st[1][2], st[1][3]);
-        da[0] = ds::pack_f32<T>(dpt[0][0], dpt[0][1]);
-        da[1] = ds::pack_f32<T>(dpt[0][2], dpt[0][3]);
-        da[2] = ds::pack_f32<T>(dpt[1][0], dpt[1][1]);
-        da[3] = ds::pack_f32<T>(dpt[1][2], dpt[1][3]);
-        // dv += p^T do, dk += ds^T q over these 16 q rows
-        const int ro = (c * 16 + 2 * t) * PITCH + g;
-#pragma unroll
-        for (int d = 0; d < HD / 8; ++d) {
-          const T* dd = dos + ro + d * 8;
-          uint32_t bdo[2] = {ds::pack_raw<T>(dd[0], dd[PITCH]),
-                             ds::pack_raw<T>(dd[8 * PITCH], dd[9 * PITCH])};
-          ds::mma16816<T>(adv[d], pa, bdo);
-          const T* qd = qs + ro + d * 8;
-          uint32_t bqq[2] = {ds::pack_raw<T>(qd[0], qd[PITCH]),
-                             ds::pack_raw<T>(qd[8 * PITCH], qd[9 * PITCH])};
-          ds::mma16816<T>(adk[d], da, bqq);
         }
       }
     }
-  }
+  } else {   // consumer warpgroups: 64 keys each
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int wg = tid / 128, lane = tid & 31;
+    const int t = lane & 3;
+    const int kw0 = k0 + wg * 64;                              // the warpgroup's first key
+    const int kpos[2] = {kw0 + tid / 32 % 4 * 16 + (lane >> 2),
+                         kw0 + tid / 32 % 4 * 16 + (lane >> 2) + 8};
+    const float* maskb = mask ? mask + (long)b * S : nullptr;
+    float adk[HD / 2], adv[HD / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) adk[i] = adv[i] = 0.f;
+    const uint32_t k_base = ds::smem_u32(ks) + wg * 64 * 128;
+    const uint32_t v_base = ds::smem_u32(vs) + wg * 64 * 128;
 
+    ds::mbar_wait(kvbar, 0);
+    int it = 0;
+    for (int gi = 0; gi < G; ++gi) {
+      const int h = kvh * G + gi;
+      const float slope = slopes ? slopes[h] * ds::kLog2e : 0.f;
+      for (int qt = qt0; qt < nq; ++qt, ++it) {
+        const int s = it % kDkvStages, q0 = qt * kDkvBQ;
+        ds::mbar_wait(&full[s], (it / kDkvStages) & 1);
+        // a q tile wholly above this warpgroup's keys adds nothing
+        if (causal && q0 + kDkvBQ - 1 < kw0) {
+          if (lane == 0) ds::mbar_arrive(&empty[s]);
+          continue;
+        }
+        const uint32_t q_base = ds::smem_u32(ring + s * Sh::kStageBytes);
+        const uint32_t do_base = q_base + Sh::kQBytes;
+        const float* lse_s = reinterpret_cast<const float*>(ring + s * Sh::kStageBytes +
+                                                            2 * Sh::kQBytes);
+        const float* delta_s = lse_s + kDkvBQ;
+
+        // s^T = k q^T and dp^T = v do^T: 64 keys x 64 q rows, 16-deep steps along Hd
+        float st[kDkvBQ / 2], dpt[kDkvBQ / 2];
+          ds::wgmma_fence();
 #pragma unroll
-  for (int row = 0; row < 2; ++row) {
-    if (kpos[row] >= S) continue;
-    const long o = ((long)b * S + kpos[row]) * kv_stride + (long)kvh * HD + 2 * t;
+        for (int kk = 0; kk < HD / 16; ++kk) {
+          const uint32_t ka = kk / 4 * kKvBox + kk % 4 * 32, qa = kk / 4 * kQBox + kk % 4 * 32;
+          ds::wgmma_ss<T, kDkvBQ, 0, 0>(st, ds::gmma_desc(k_base + ka, 16, 1024),
+                                        ds::gmma_desc(q_base + qa, 16, 1024), kk > 0);
+          ds::wgmma_ss<T, kDkvBQ, 0, 0>(dpt, ds::gmma_desc(v_base + ka, 16, 1024),
+                                        ds::gmma_desc(do_base + qa, 16, 1024), kk > 0);
+        }
+        ds::wgmma_commit();
+          ds::wgmma_wait<0>();
+        ds::fence_regs(st);
+        ds::fence_regs(dpt);
+
+        // p^T rounded to do's dtype; ds^T = p^T (dp^T - delta) scale
+        const bool biased = slopes != nullptr || mask != nullptr || kw0 + 64 > S ||
+                            (causal && q0 < kw0 + 63);
+        if (biased) {
 #pragma unroll
-    for (int d = 0; d < HD / 8; ++d) {
-      *reinterpret_cast<uint32_t*>(dk + o + d * 8) =
-          ds::pack_f32<T>(adk[d][2 * row], adk[d][2 * row + 1]);
-      *reinterpret_cast<uint32_t*>(dv + o + d * 8) =
-          ds::pack_f32<T>(adv[d][2 * row], adv[d][2 * row + 1]);
+          for (int i = 0; i < kDkvBQ / 8; ++i) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              st[4 * i + e] = st[4 * i + e] * scale_log2 +
+                              ds::attn_bias(q0 + 8 * i + 2 * t + (e & 1), kpos[e >> 1], S,
+                                            causal, slope, maskb);
+          }
+        } else {
+#pragma unroll
+          for (int i = 0; i < kDkvBQ / 2; ++i) st[i] *= scale_log2;
+        }
+#pragma unroll
+        for (int i = 0; i < kDkvBQ / 8; ++i) {
+          // this thread's two q columns 8 i + 2 t, + 1
+          const float2 lse2 = *reinterpret_cast<const float2*>(lse_s + 8 * i + 2 * t);
+          const float2 delta2 = *reinterpret_cast<const float2*>(delta_s + 8 * i + 2 * t);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float p = round_to<T>(ds::exp2_ftz(st[4 * i + e] - ((e & 1) ? lse2.y : lse2.x)));
+            st[4 * i + e] = p;
+            dpt[4 * i + e] = p * (dpt[4 * i + e] - ((e & 1) ? delta2.y : delta2.x)) * scale;
+          }
+        }
+        uint32_t pa[kDkvBQ / 16][4], da[kDkvBQ / 16][4];
+        ds::acc_to_a<T, kDkvBQ>(st, pa);
+        ds::acc_to_a<T, kDkvBQ>(dpt, da);
+
+        // dv += p^T do, dk += ds^T q: do and q [q rows, Hd] MN-major, 64-row boxes 8 KB apart
+          ds::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kDkvBQ / 16; ++kk) {
+          ds::wgmma_rs<T, HD, 1>(adv, pa[kk], ds::gmma_desc(do_base + kk * 16 * 128, kQBox, 1024));
+          ds::wgmma_rs<T, HD, 1>(adk, da[kk], ds::gmma_desc(q_base + kk * 16 * 128, kQBox, 1024));
+        }
+        ds::wgmma_commit();
+          ds::wgmma_wait<0>();
+        ds::fence_regs(adv);
+        ds::fence_regs(adk);
+        if (lane == 0) ds::mbar_arrive(&empty[s]);
+      }
+    }
+
+    // epilogue: dk and dv cast once to k's dtype; keys past S are not stored
+    const long kv_stride = (long)KV * HD;
+#pragma unroll
+    for (int row = 0; row < 2; ++row) {
+      if (kpos[row] >= S) continue;
+      const long off = ((long)b * S + kpos[row]) * kv_stride + (long)kvh * HD + 2 * t;
+#pragma unroll
+      for (int i = 0; i < HD / 8; ++i) {
+        *reinterpret_cast<uint32_t*>(dk + off + 8 * i) =
+            ds::pack_f32<T>(adk[4 * i + 2 * row], adk[4 * i + 2 * row + 1]);
+        *reinterpret_cast<uint32_t*>(dv + off + 8 * i) =
+            ds::pack_f32<T>(adv[4 * i + 2 * row], adv[4 * i + 2 * row + 1]);
+      }
     }
   }
 }
@@ -331,15 +421,20 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dO, cons
                const float* delta, const float* mask, const float* slopes, void* dk, void* dv,
                int B, int S, int H, int KV, int causal, float scale_log2, float scale,
                cudaStream_t stream) {
-  constexpr int PITCH = HD + 8;
-  constexpr int smem = (2 * kBK + 2 * kBQ) * PITCH * (int)sizeof(T) + 2 * kBQ * (int)sizeof(float);
+  using Sh = DkvShape<HD>;
+  CUtensorMap qmap, kmap, vmap, domap;
+  if (!ds::make_tma_map_bsc<T>(&qmap, q, B, S, (long)H * HD, kDkvBQ) ||
+      !ds::make_tma_map_bsc<T>(&domap, dO, B, S, (long)H * HD, kDkvBQ) ||
+      !ds::make_tma_map_bsc<T>(&kmap, k, B, S, (long)KV * HD, kDkvBK) ||
+      !ds::make_tma_map_bsc<T>(&vmap, v, B, S, (long)KV * HD, kDkvBK))
+    return (int)cudaErrorNotSupported;
   auto kern = flash_bwd_dkv_kernel<T, HD>;
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Sh::kSmem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((S + kBK - 1) / kBK, KV, B);
-  kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dO), lse, delta, mask, slopes, static_cast<T*>(dk),
+  const int grid = (S + kDkvBK - 1) / kDkvBK * KV * B;
+  kern<<<grid, kDkvThreads, Sh::kSmem, stream>>>(
+      qmap, kmap, vmap, domap, lse, delta, mask, slopes, static_cast<T*>(dk),
       static_cast<T*>(dv), S, H, KV, causal, scale_log2, scale);
   return (int)cudaGetLastError();
 }
@@ -366,6 +461,11 @@ extern "C" int ds_flash_attention_bwd_dq(const void* q, const void* k, const voi
   if (dtype == 0 && head_dim == 64) return DS_DQ(__half, 64);
 #undef DS_DQ
   return (int)cudaErrorInvalidValue;
+}
+
+// Dynamic shared memory of one kernel-D block at head_dim.
+extern "C" int ds_flash_dkv_smem_bytes(int head_dim) {
+  return (int)(head_dim == 128 ? DkvShape<128>::kSmem : DkvShape<64>::kSmem);
 }
 
 extern "C" int ds_flash_attention_bwd_dkv(const void* q, const void* k, const void* v,

@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import dataclasses
 import inspect
+import os
 from typing import Any, Callable, Dict, Optional
 
 import torch
@@ -155,7 +156,8 @@ class DeepSpeedEngine:
             gen = torch.Generator(device=self.device).manual_seed(0)
             model_parameters = model.init_params(gen, device=self.device)
         self.state = self._init_state(model_parameters)
-        self._rng = torch.Generator().manual_seed(42)   # dropout stream (the JAX DS_SEED default)
+        # dropout stream, seeded from DS_SEED as the JAX engine's key is
+        self._rng = torch.Generator().manual_seed(int(os.environ.get("DS_SEED", 42)))
         self._cached_loss = None
         self._losses = None
         self._global_grad_norm = None

@@ -176,6 +176,47 @@ def test_flash_backward_kernels_match_plain(cuda, B, S, H, KV, Hd, causal, alibi
         assert _ulp_err(out, ref, GRAD_FLOOR) <= ULP_TOL
 
 
+@pytest.mark.parametrize("B,S,H,KV,Hd,causal,dtype", [
+    (1, 100, 8, 8, 64, True, torch.float16),       # S below one 128-row tile
+    (2, 300, 16, 4, 128, False, torch.float16),    # GQA 4, full attention, ragged S
+])
+def test_flash_kernels_fp16(cuda, B, S, H, KV, Hd, causal, dtype):
+    """Kernels A and D in fp16 against their plain versions."""
+    r = np.random.default_rng(S + Hd)
+    q, k, v = (_randn(r, (B, S, n, Hd), cuda, dtype) for n in (H, KV, KV))
+    o, lse = fa.flash_attention(q, k, v, causal=causal, return_lse=True)
+    ro, rlse = fa.flash_attention_plain(q, k, v, causal=causal)
+    do = _randn(r, (B, S, H, Hd), cuda, dtype)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    dk, dv = fa.flash_attention_dkv(q, k, v, do, lse, delta, causal=causal)
+    rdk, rdv = fa.flash_attention_dkv_plain(q, k, v, do, lse, delta, causal=causal)
+    torch.cuda.synchronize()
+    assert o.dtype == dk.dtype == dtype
+    assert _ulp_err(o, ro) <= ULP_TOL
+    assert float((lse - rlse).abs().max()) <= LSE_TOL
+    for out, ref in ((dk, rdk), (dv, rdv)):
+        assert _ulp_err(out, ref, GRAD_FLOOR) <= ULP_TOL
+
+
+@pytest.mark.parametrize("B,S,H,KV", [
+    (4, 2048, 32, 32),     # the train phase's micro-batch
+    (1, 200, 32, 8),       # GQA 4, ragged S
+])
+def test_flash_kernels_repeat_bit_for_bit(cuda, B, S, H, KV):
+    """Two launches of A (o, lse) and of D (dk, dv) give the same bits: no
+    split over keys or q tiles, no atomics."""
+    r = np.random.default_rng(S + KV)
+    q, k, v, _ = _attn_inputs(r, B, S, H, KV, 128, cuda, False, False)
+    do = _randn(r, (B, S, H, 128), cuda)
+    runs = []
+    for _ in range(2):
+        o, lse = fa.flash_attention(q, k, v, return_lse=True)
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+        runs.append((o, lse, *fa.flash_attention_dkv(q, k, v, do, lse, delta)))
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(*runs))
+
+
 def test_flash_attention_autograd_runs_the_kernels(cuda):
     """loss.backward() through flash_attention launches A once, C and D once."""
     r = np.random.default_rng(5)
