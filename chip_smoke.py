@@ -9,8 +9,8 @@ Phases, each printing one JSON line:
   build         nvcc build of every kernel of the serving path, from csrc/
   kernel        each kernel against its plain PyTorch version on the card, in
                 bf16, at its path's shapes and at edge shapes, with planted
-                faults that must read above each limit, two launches of A, D,
-                G, dh and dW bit-equal, its time, the plain
+                faults that must read above each limit, two launches of A, C,
+                D, F, G, dh and dW bit-equal, its time, the plain
                 version's, the library call's (SDPA for attention, fused
                 AdamW, F.linear + F.cross_entropy for the fused CE) and the
                 bound
@@ -274,12 +274,25 @@ def ptxas_summary(log):
     return rows, warnings
 
 
+# the kernels on TMA + wgmma: ptxas must spill nothing in them
+_WGMMA_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
+                  "fused_ce_fwd_kernel", "fused_ce_ds_kernel", "ce_dh_gemm_kernel",
+                  "ce_dw_gemm_kernel")
+
+
+def wgmma_spills(rows):
+    """The spill bytes of every TMA + wgmma kernel row that has any."""
+    return {k: r["spill_bytes"] for k, r in rows.items()
+            if k.split()[0] in _WGMMA_KERNELS and r["spill_bytes"]}
+
+
 def phase_build(state):
-    """nvcc of every kernel with ptxas's report. G, dh, dW, A and D take
-    their rings as dynamic shared memory, which ptxas does not count: it is
-    read from the libraries. ptxas reports the 384-thread launch bound's 168
-    registers; setmaxnreg moves the consumer warpgroups to 232 (G, dh, dW,
-    A) or 240 (D) at run time."""
+    """nvcc of every kernel with ptxas's report. A, C, D, F, G, dh and dW
+    take their rings as dynamic shared memory, which ptxas does not count:
+    it is read from the libraries. ptxas reports the 384-thread launch
+    bound's 168 registers; setmaxnreg moves the consumer warpgroups to 232
+    (F, G, dh, dW, A) or 240 (C, D) at run time. Fails if ptxas spills in
+    any of them."""
     from deepspeed_tpu_torch.ops.kernels import build
     seconds, log = build.build(ptxas_verbose=True)
     rows, warnings = ptxas_summary(log)
@@ -287,9 +300,12 @@ def phase_build(state):
     fwd, bwd = build.load("flash_attention"), build.load("flash_attention_bwd")
     attn_smem = {f"{k} hd{hd}": fn(hd) for hd in (64, 128)
                  for k, fn in (("flash_fwd_kernel", fwd.ds_flash_fwd_smem_bytes),
+                               ("flash_bwd_dq_kernel", bwd.ds_flash_dq_smem_bytes),
                                ("flash_bwd_dkv_kernel", bwd.ds_flash_dkv_smem_bytes))}
     emit("build", seconds=seconds, built=sorted(log), ptxas=rows, ptxas_warnings=warnings,
-         ce_backward_dynamic_smem_bytes=gemm_smem, attention_dynamic_smem_bytes=attn_smem)
+         ce_dynamic_smem_bytes=gemm_smem, attention_dynamic_smem_bytes=attn_smem)
+    spills = wgmma_spills(rows)
+    check(not spills, f"ptxas spills in the TMA + wgmma kernels: {spills}")
 
 
 def _flash_case(gen, B, S, H, KV, Hd, causal, alibi, mask):
@@ -571,7 +587,10 @@ def _ce_case(gen, N, D, V, bias, tied, masked):
 
 def _ce_faults(fce, h, w, b, labels, lse, coef, ds):
     """Plain versions with a kernel fault planted. F: the last vocab tile
-    dropped, the gold logit read one column off. G: the onehot not
+    dropped, the gold logit read one column off; aimed at its wgmma
+    mainloop and split: one 64-deep K chunk in the middle of D dropped, and
+    one 256-wide vocab tile's partial (the one holding the label nearest V /
+    2) left out of the combine. G: the onehot not
     subtracted, the last token tile skipped. dh: the 32-wide K chunk that
     holds the first token's label dropped, W's rows shifted by one. dW: the
     last 32 tokens dropped, h's rows shifted by one. Aimed at the wgmma
@@ -585,9 +604,16 @@ def _ce_faults(fce, h, w, b, labels, lse, coef, ds):
     D = h.shape[1]
     drop = torch.zeros((V,), device=h.device) if b is None else b.clone()
     drop[(V - 1) // 128 * 128:] = -1e30
-    f = {"last_vocab_tile_dropped": fce.fused_ce_fwd_plain(h, w, drop, labels),
-         "gold_one_column_off": fce.fused_ce_fwd_plain(h, w, b, (labels + 1) % V)}
     mid = lambda n: (n + 63) // 64 // 2 * 64          # the middle 64-deep chunk of n
+    h_cut = h.clone()
+    h_cut[:, mid(D):mid(D) + 64] = 0
+    part = fce.fused_ce_fwd_tiles_plain(h, w, b, labels)
+    vt = int(labels[(labels - V // 2).abs().argmin()]) // 256
+    f = {"last_vocab_tile_dropped": fce.fused_ce_fwd_plain(h, w, drop, labels),
+         "gold_one_column_off": fce.fused_ce_fwd_plain(h, w, b, (labels + 1) % V),
+         "mid_k_chunk_dropped": fce.fused_ce_fwd_plain(h_cut, w, b, labels),
+         "vocab_tile_left_out": fce.fused_ce_combine_plain(
+             torch.cat([part[:, :vt], part[:, vt + 1:]], dim=1))}
     swz = torch.arange(64, device=h.device) ^ 8
 
     def swizzled(x, c0):
@@ -601,8 +627,6 @@ def _ce_faults(fce, h, w, b, labels, lse, coef, ds):
     onehot[torch.arange(N, device=h.device), labels.long()] = coef
     cut = rds.clone()
     cut[(N - 1) // 128 * 128:] = 0
-    h_cut = h.clone()
-    h_cut[:, mid(D):mid(D) + 64] = 0
     g = {"onehot_not_subtracted": (rds.float() + onehot).to(rds.dtype),
          "last_token_tile_skipped": cut,
          "mid_k_chunk_dropped": fce.fused_ce_ds_plain(h_cut, w, b, labels, lse, coef)[0],
@@ -650,7 +674,8 @@ def _check_fused_ce(gen, results, failures):
     rows), N and V off the tiles, a reduction off the 64-deep chunk, masked
     tokens. Each kernel is fed the plain version's inputs (G the plain lse,
     the products the plain ds), so each is held alone. At the slice shape
-    two launches of G, dh and dW must also be bit-equal."""
+    two launches of F, G, dh and dW must also be bit-equal, and two of F at
+    the tied GPT-2 shape."""
     import torch
     from deepspeed_tpu_torch.ops.kernels import fused_cross_entropy as fce
     # (N, D, V, bias, tied, masked)
@@ -687,6 +712,12 @@ def _check_fused_ce(gen, results, failures):
         for k, e in rec_f["fault_err"].items():
             if not e > CE_TOL:
                 failures.append(f"fused_ce_fwd {name}: planted fault {k} reads {e} <= {CE_TOL}")
+        if name in ("slice", "gpt2_tied_bias"):   # no split-K, no atomics: same bits
+            nll2, lse2 = fce.fused_ce_fwd(h, w, b, labels)
+            rec_f["repeat_bit_equal"] = bool(torch.equal(nll, nll2) and torch.equal(lse, lse2))
+            if not rec_f["repeat_bit_equal"]:
+                failures.append(f"fused_ce_fwd {name}: two launches differ")
+            del nll2, lse2
         # G is held on ds and on ds without its gold column: a row's ulp is
         # set by its gold entry (about -coef), which hides the softmax part
         # (coef p, p ~ 1 / V) that a dropped K chunk of the logits moves
@@ -765,20 +796,35 @@ def _bwd_case(gen, fa, B, S, H, KV, Hd, causal, alibi, mask, masked_row):
 def _bwd_faults(fa, args, kw):
     """The plain backward with a kernel fault planted. Both kernels: the last
     key tile skipped (the keys past the last multiple of 64 dropped from the
-    sums), delta not subtracted. D also: the last q tile skipped and, for
-    G > 1, dk / dv taken from the first query head of each group only."""
+    sums), delta not subtracted. C also, aimed at its ring and its two
+    warpgroups: one 64-key k/v stage skipped in the middle of the causal
+    range (keys from the 64-multiple below S / 2), and each 128-row q tile's
+    lse and delta read from the other warpgroup's rows (rows shifted by 64
+    within the tile; rows past S read lse = 1e30, delta = 0). D also: the
+    last q tile skipped and, for G > 1, dk / dv taken from the first query
+    head of each group only."""
     import torch
     q, k, v, do, lse, delta = args
     B, S, H, _ = q.shape
     KV = k.shape[2]
-    drop = torch.zeros((B, S), device=q.device)
-    drop[:, (S - 1) // 64 * 64:] = -1e9
-    if kw["mask_bias"] is not None:
-        drop = drop + kw["mask_bias"]
-    no_tile = {**kw, "mask_bias": drop}
+
+    def keys_dropped(k0):
+        drop = torch.zeros((B, S), device=q.device)
+        drop[:, k0:k0 + 64] = -1e9
+        return {**kw, "mask_bias": drop if kw["mask_bias"] is None else drop + kw["mask_bias"]}
+
+    no_tile = keys_dropped((S - 1) // 64 * 64)
     zero_delta = (q, k, v, do, lse, torch.zeros_like(delta))
+    n128 = -(-S // 128) * 128
+    swap = (torch.arange(n128, device=q.device) ^ 64)[:S]   # row r reads row r ^ 64 of its tile
+    pad = lambda x, value: torch.nn.functional.pad(x, (0, n128 - S), value=value)
+    rows_shifted = (q, k, v, do, pad(lse, 1e30)[..., swap].contiguous(),
+                    pad(delta, 0.0)[..., swap].contiguous())
     dq = {"last_key_tile_skipped": fa.flash_attention_dq_plain(*args, **no_tile),
-          "delta_not_subtracted": fa.flash_attention_dq_plain(*zero_delta, **kw)}
+          "delta_not_subtracted": fa.flash_attention_dq_plain(*zero_delta, **kw),
+          "mid_kv_stage_skipped": fa.flash_attention_dq_plain(
+              *args, **keys_dropped(S // 2 // 64 * 64)),
+          "lse_delta_rows_shifted_64": fa.flash_attention_dq_plain(*rows_shifted, **kw)}
     dkv = {"last_key_tile_skipped": fa.flash_attention_dkv_plain(*args, **no_tile),
            "delta_not_subtracted": fa.flash_attention_dkv_plain(*zero_delta, **kw)}
     lse_cut = lse.clone()
@@ -810,8 +856,8 @@ def _sdpa_backward_ms(q, k, v, do, causal):
 def _check_backward_kernels(gen, fa, results, failures):
     """Kernels C and D against their plain versions at the train path's
     shape and at edge shapes; timed at the Hd 128 and Hd 64 call sites.
-    Two launches of D must give the same bits at the train shape and in a
-    GQA case."""
+    Two launches of C and of D must give the same bits at the train shape
+    and in a GQA case."""
     import torch
     # (B, S, H, KV, Hd, causal, alibi, mask, masked_row); "slice" = one
     # micro-batch of the train phase (Llama-7B heads, S 2048)
@@ -830,8 +876,9 @@ def _check_backward_kernels(gen, fa, results, failures):
         rdq = fa.flash_attention_dq_plain(*args, **kw)
         rdk, rdv = fa.flash_attention_dkv_plain(*args, **kw)
         fdq, fdkv = _bwd_faults(fa, args, kw)
-        again = fa.flash_attention_dkv(*args, **kw) if name in ("slice", "gqa4_ragged_s200") \
-            else None
+        again = None
+        if name in ("slice", "gqa4_ragged_s200"):
+            again = (fa.flash_attention_dq(*args, **kw), *fa.flash_attention_dkv(*args, **kw))
         torch.cuda.synchronize()
         shape = {"shape": [B, S, H, KV, Hd], "causal": causal, "alibi": alibi, "mask": mask,
                  "fully_masked_row": masked_row}
@@ -842,10 +889,12 @@ def _check_backward_kernels(gen, fa, results, failures):
                  **_hold("flash_attention_bwd_dkv", name, [dk, dv], [rdk, rdv],
                          {f: list(r) for f, r in fdkv.items()}, failures, GRAD_FLOOR)}
         if again is not None:                  # no split, no atomics: same bits
-            rec_d["repeat_bit_equal"] = bool(torch.equal(dk, again[0]) and
-                                             torch.equal(dv, again[1]))
-            if not rec_d["repeat_bit_equal"]:
-                failures.append(f"flash_attention_bwd_dkv {name}: two launches differ")
+            rec_c["repeat_bit_equal"] = bool(torch.equal(dq, again[0]))
+            rec_d["repeat_bit_equal"] = bool(torch.equal(dk, again[1]) and
+                                             torch.equal(dv, again[2]))
+            for rec in (rec_c, rec_d):
+                if not rec["repeat_bit_equal"]:
+                    failures.append(f"{rec['kernel']} {name}: two launches differ")
             del again
         if name in ("slice", "gpt2_hd64"):     # the Hd 128 and Hd 64 call sites
             q, k, v, do = args[:4]

@@ -36,50 +36,13 @@ template <> __device__ __forceinline__ uint32_t pack_f32<__half>(float lo, float
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// Two 16-bit values packed into one 32-bit register without conversion.
-template <typename T>
-__device__ __forceinline__ uint32_t pack_raw(T lo, T hi) {
-  return static_cast<uint32_t>(*reinterpret_cast<const uint16_t*>(&lo)) |
-         (static_cast<uint32_t>(*reinterpret_cast<const uint16_t*>(&hi)) << 16);
-}
-
-// D += A (16x16, row-major) * B (16x8, column-major), fp32 accumulators, on
-// the tensor cores: mma.sync m16n8k16. Fragment ownership for lane
-// (g = lane / 4, t = lane % 4):
-//   a[0] (g, 2t..2t+1)   a[1] (g+8, 2t..2t+1)   a[2] (g, 2t+8..)   a[3] (g+8, 2t+8..)
-//   b[0] (k 2t..2t+1, n g)   b[1] (k 2t+8..2t+9, n g)
-//   c[0..1] (g, 2t..2t+1)    c[2..3] (g+8, 2t..2t+1)
-template <typename T> __device__ __forceinline__ void mma16816(float* c, const uint32_t* a, const uint32_t* b);
-template <> __device__ __forceinline__ void mma16816<__nv_bfloat16>(float* c, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-template <> __device__ __forceinline__ void mma16816<__half>(float* c, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// Copy rows [row0, row0 + ROWS) of a [S, row_stride] slab into a [ROWS,
-// PITCH] shared tile with 16-byte vectors (HD elements per row); rows past S
-// are zero. All THREADS threads of the block take part.
-template <typename T, int HD, int PITCH, int ROWS, int THREADS>
-__device__ __forceinline__ void load_tile(T* dst, const T* src, int row0, int S,
-                                          long row_stride, int tid) {
-  constexpr int kVec = 8;
-  constexpr int kPerRow = HD / kVec;
-  for (int i = tid; i < ROWS * kPerRow; i += THREADS) {
-    const int r = i / kPerRow, c = (i % kPerRow) * kVec;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < S)
-      val = *reinterpret_cast<const uint4*>(src + (long)(row0 + r) * row_stride + c);
-    *reinterpret_cast<uint4*>(dst + r * PITCH + c) = val;
-  }
+// 2^x on the SFU in one instruction (ex2.approx.ftz: a result below 2^-126
+// flushes to 0, where exp2f would return a subnormal; a p that small adds
+// nothing at bf16 / fp16 precision, nor to an fp32 sum of terms >= 1).
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // The log2-domain additive bias of one (query, key) logit, the TPU kernels'
@@ -91,12 +54,6 @@ __device__ __forceinline__ float attn_bias(int qpos, int kpos, int S, int causal
   float bias = valid ? slope * (float)(kpos - qpos) : kMasked;
   if (maskb != nullptr && kpos < S) bias += maskb[kpos] * kLog2e;
   return bias;
-}
-
-// One 32-bit word (two adjacent 16-bit elements) from shared memory.
-template <typename T>
-__device__ __forceinline__ uint32_t ld32(const T* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
 }
 
 }  // namespace ds

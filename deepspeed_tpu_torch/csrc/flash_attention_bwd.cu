@@ -5,181 +5,253 @@
 // q/do [B,S,H,Hd] and k/v [B,S,KV,Hd] in place, so one pair serves every
 // call site. The forward (flash_attention_fwd.cu) saved o and the log2-domain
 // lse; p is recomputed as exp2(s - lse), so no S x S tensor is ever stored.
+// Both kernels are warp-specialised on the Hopper pieces of
+// wgmma_attention.cuh: three warpgroups, the third's first warp the
+// producer (TMA through 3-D maps over (head columns, S, B), so rows past S
+// arrive as zeros), two consumer warpgroups running wgmma with fp32
+// register accumulators, and a ring of stages guarded by "full" (TMA bytes)
+// and "empty" (one arrive per consumer warp) mbarriers.
 //
-// flash_bwd_dq_kernel (kernel C): one CTA of 4 warps per (64-row q tile,
-// query head, batch row). Each warp keeps its 16 q rows and 16 do rows as
-// mma.sync A fragments (loaded once) and streams 64-key k/v tiles through
-// shared memory up to the causal diagonal, 16 keys at a time:
-//   s  = q k^T * scale * log2e + bias,  p = exp2(s - lse)
-//   dp = do v^T,  ds = p * (dp - delta) * scale   (rounded to k's dtype)
-//   dq += ds k                                     (fp32 registers)
-// ds is re-packed from the accumulators straight into A fragments.
+// flash_bwd_dq_kernel (kernel C), q-stationary, the mirror of D: one CTA
+// per (128-row q tile, query head, batch row), launched longest tile first
+// so the causal triangle's heavy tiles start in the first wave. The
+// producer brings the q and do tiles by TMA once, then streams 64-key k/v
+// tiles of the kv head h / G through a four-stage ring, from key 0 up to
+// the causal diagonal. Each consumer warpgroup owns 64 q rows, with their
+// lse and delta in registers, and per k/v tile computes
+//   s = q k^T, dp = do v^T      wgmma m64n64k16, all operands K-major
+//   p = exp2(s scale log2e + bias - lse)   in fp32
+//   ds = p (dp - delta) scale   rounded to k's dtype, as register-A fragments
+//   dq += ds k                  wgmma m64n{Hd}k16, k MN-major (the stage
+//                               that served s, read the other way)
+// The bias runs only on tiles that have one (alibi, a key mask, keys past
+// S, the causal diagonal: a warp-uniform branch); a warpgroup skips a tile
+// wholly above its rows (causal), after the tile's full barrier, so that its
+// release counts toward the right phase. 64-key stages keep s, dp and the
+// ds fragments at 32 + 32 + 16 registers beside dq's Hd / 2.
 //
-// flash_bwd_dkv_kernel (kernel D), k-stationary and warp-specialised on
-// the Hopper pieces of wgmma_attention.cuh: one CTA of three warpgroups per
-// (128-key tile, kv head, batch row). The producer warp brings the k and v
-// tiles by TMA once, then streams, for each of the G query heads of the kv
-// group and each 64-row q tile from the causal diagonal down, the q and do
-// tiles (TMA) and the tile's lse and delta rows (plain loads by its lanes)
-// through a two-stage ring guarded by mbarriers. Each consumer warpgroup
-// owns 64 keys and computes S^T = k q^T directly (keys as rows), so p^T and
-// ds^T come out of the accumulators already as register-A fragments:
+// flash_bwd_dkv_kernel (kernel D), k-stationary: one CTA per (128-key
+// tile, kv head, batch row). The producer warp brings the k and v tiles by
+// TMA once, then streams, for each of the G query heads of the kv group and
+// each 64-row q tile from the causal diagonal down, the q and do tiles
+// (TMA) and the tile's lse and delta rows (plain loads by its lanes)
+// through a two-stage ring. Each consumer warpgroup owns 64 keys and
+// computes S^T = k q^T directly (keys as rows), so p^T and ds^T come out of
+// the accumulators already as register-A fragments:
 //   s^T = k q^T, dp^T = v do^T      wgmma m64n64k16, all operands K-major
 //   p^T = exp2(s^T - lse) rounded to do's dtype
 //   ds^T = p^T (dp^T - delta) scale, rounded to q's dtype
 //   dv += p^T do, dk += ds^T q      wgmma m64n{Hd}k16, A from registers,
 //                                   do and q MN-major (the same smem tiles)
-// A warpgroup skips a q tile wholly above its keys (causal), after the
-// tile's full barrier, so that its release counts toward the right phase.
+// A warpgroup skips a q tile wholly above its keys (causal) as C does.
 // dk and dv stay in fp32 registers (setmaxnreg gives the consumers 240) and
-// sum over the whole group inside the CTA, in a fixed order: no atomics, no
-// split over keys or q tiles, and each dq tile is written once by C, so the
-// gradients repeat bit for bit from run to run. The TMA maps are 3-D (head
-// columns, S, B): rows past S arrive as zeros, keys past S are masked by
-// the bias and never stored, and q rows past S read lse = +1e30 (p = 0).
+// sum over the whole group inside the CTA, in a fixed order.
+//
+// No atomics and no split over keys or q tiles in either kernel: each dq
+// tile is written once by C, each dk / dv tile once by D, so the gradients
+// repeat bit for bit from run to run. Keys past S are masked by the bias and
+// never stored; q rows past S read lse = +1e30 (p = 0) and are never stored.
 //
 // Rounding points are the TPU kernels': in dq, p stays fp32 and ds is cast
 // to k's dtype (_dq_kernel :205); in dkv, p is cast to do's dtype and that
 // rounded p feeds both p^T do and ds, which is cast to q's dtype
-// (_dkv_kernel :246-251). Every product accumulates in fp32.
+// (_dkv_kernel :246-251). Every product accumulates in fp32; exp2 is one
+// ex2.approx.ftz (a p below 2^-126 flushes to 0).
 //
 // Bound on the H100: at training lengths (S = 2048, Hd = 128) the backward is
 // compute-bound (C does 3 and D 4 causal S x S x Hd products against 2 bytes
-// per element of q/k/v/do/dq/dk/dv). C still runs the first design
-// (mma.sync, one unpipelined shared buffer); D issues its four products
-// with wgmma on TMA-fed tiles.
+// per element of q/k/v/do/dq/dk/dv): wgmma on TMA-fed tiles, with the
+// producer a ring ahead of the products, is what both designs do about it.
 #include "common.cuh"
 #include "wgmma_attention.cuh"
 #include "wgmma_gemm.cuh"
 
 namespace {
 
-constexpr int kBQ = 64;        // kernel C: q rows per tile (4 warps x 16)
-constexpr int kBK = 64;        // kernel C: keys per tile
-constexpr int kThreads = 128;
+// Kernel C's tiles: 128 q rows a CTA (64 per consumer warpgroup) and 64
+// keys a ring stage; every box is 64 columns (128 B) wide.
+constexpr int kDqBQ = 128;
+constexpr int kDqBK = 64;
+constexpr int kDqStages = 4;
+constexpr int kDqThreads = 384;        // warpgroups 0, 1 consume; 2 produces
+constexpr int kDqConsumers = 256;
+constexpr int kDqQBox = kDqBQ * 128;   // one 64-column box of q or do, 16 KB
+constexpr int kDqKvBox = kDqBK * 128;  // one 64-column box of k or v, 8 KB
+
+template <int HD>
+struct DqShape {
+  static constexpr int kQBytes = kDqQBox * (HD / 64);     // one of q, do
+  static constexpr int kKvBytes = kDqKvBox * (HD / 64);   // one of k, v
+  static constexpr int kStageBytes = 2 * kKvBytes;        // k and v
+  static constexpr size_t kSmem =
+      1024 + 2 * kQBytes + kDqStages * kStageBytes + (2 * kDqStages + 1) * 8;
+};
 
 template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                    const T* __restrict__ dO, const float* __restrict__ lse,
+__global__ void __launch_bounds__(kDqThreads, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
+                    const __grid_constant__ CUtensorMap kmap,
+                    const __grid_constant__ CUtensorMap vmap,
+                    const __grid_constant__ CUtensorMap domap, const float* __restrict__ lse,
                     const float* __restrict__ delta, const float* __restrict__ mask,
                     const float* __restrict__ slopes, T* __restrict__ dq, int S, int H, int KV,
                     int causal, float scale_log2, float scale) {
-  constexpr int PITCH = HD + 8;   // shared row pitch in elements: staggers banks
-  __shared__ __align__(16) T ks[kBK * PITCH];
-  __shared__ __align__(16) T vs[kBK * PITCH];
+  using Sh = DqShape<HD>;
+  extern __shared__ unsigned char dq_smem_raw[];
+  unsigned char* smem = ds::align_1024(dq_smem_raw);
+  unsigned char* qs = smem;                     // [128 q rows, Hd], fixed for the CTA
+  unsigned char* dos = qs + Sh::kQBytes;
+  unsigned char* ring = dos + Sh::kQBytes;      // k and v of one key tile a stage
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kDqStages * Sh::kStageBytes);
+  uint64_t* empty = full + kDqStages;
+  uint64_t* qbar = empty + kDqStages;
 
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  // the q tiles of one (head, batch row) are neighbours, so the blocks that
+  // run together share their k/v tiles in L2; each head's last (longest)
+  // tile first
+  const int nqt = (S + kDqBQ - 1) / kDqBQ;
+  const int qt = nqt - 1 - (int)blockIdx.x % nqt;
+  const int r = (int)blockIdx.x / nqt;
+  const int h = r % H, b = r / H;
   const int kvh = h / (H / KV);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int q0 = qt * kBQ;
-  const long q_stride = (long)H * HD;
-  const long kv_stride = (long)KV * HD;
-  const long qoff = (long)b * S * q_stride + (long)h * HD;
-  const T* kb = k + (long)b * S * kv_stride + (long)kvh * HD;
-  const T* vb = v + (long)b * S * kv_stride + (long)kvh * HD;
+  const int q0 = qt * kDqBQ;
+  int n_kt = (S + kDqBK - 1) / kDqBK;
+  if (causal) n_kt = min(n_kt, (q0 + kDqBQ - 1) / kDqBK + 1);   // tiles up to the diagonal
+  const int tid = threadIdx.x;
 
-  // stage the q and do tiles through ks / vs; keep this warp's rows as A fragments
-  ds::load_tile<T, HD, PITCH, kBQ, kThreads>(ks, q + qoff, q0, S, q_stride, tid);
-  ds::load_tile<T, HD, PITCH, kBQ, kThreads>(vs, dO + qoff, q0, S, q_stride, tid);
-  __syncthreads();
-  const int r0 = warp * 16 + g;
-  uint32_t qf[HD / 16][4], df[HD / 16][4];
+  if (tid == 0) {
 #pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    const int o = r0 * PITCH + kk * 16 + 2 * t;
-    qf[kk][0] = ds::ld32(ks + o);
-    qf[kk][1] = ds::ld32(ks + o + 8 * PITCH);
-    qf[kk][2] = ds::ld32(ks + o + 8);
-    qf[kk][3] = ds::ld32(ks + o + 8 * PITCH + 8);
-    df[kk][0] = ds::ld32(vs + o);
-    df[kk][1] = ds::ld32(vs + o + 8 * PITCH);
-    df[kk][2] = ds::ld32(vs + o + 8);
-    df[kk][3] = ds::ld32(vs + o + 8 * PITCH + 8);
+    for (int s = 0; s < kDqStages; ++s) {
+      ds::mbar_init(&full[s], 1);
+      ds::mbar_init(&empty[s], kDqConsumers / 32);
+    }
+    ds::mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  float acc[HD / 8][4];
+  if (tid >= kDqConsumers) {   // producer warpgroup: one thread starts every load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (tid == kDqConsumers) {
+      ds::mbar_expect_tx(qbar, 2 * Sh::kQBytes);
 #pragma unroll
-  for (int d = 0; d < HD / 8; ++d) acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
-  const int qpos[2] = {q0 + r0, q0 + r0 + 8};
-  float lse_r[2], delta_r[2];
-#pragma unroll
-  for (int row = 0; row < 2; ++row) {
-    const bool in = qpos[row] < S;
-    const long i = ((long)b * H + h) * S + qpos[row];
-    lse_r[row] = in ? lse[i] : -ds::kMasked;     // rows past S get p = 0
-    delta_r[row] = in ? delta[i] : 0.f;
-  }
-  const float slope = slopes ? slopes[h] * ds::kLog2e : 0.f;
-  const float* maskb = mask ? mask + (long)b * S : nullptr;
-
-  int n_kt = (S + kBK - 1) / kBK;
-  if (causal) n_kt = min(n_kt, (q0 + kBQ - 1) / kBK + 1);
-
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kBK;
-    ds::load_tile<T, HD, PITCH, kBK, kThreads>(ks, kb, k0, S, kv_stride, tid);
-    ds::load_tile<T, HD, PITCH, kBK, kThreads>(vs, vb, k0, S, kv_stride, tid);
-    __syncthreads();
-
-#pragma unroll
-    for (int c = 0; c < kBK / 16; ++c) {       // 16 keys at a time
-      float s[2][4], dp[2][4];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-        dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
-        const int o = (c * 16 + j * 8 + g) * PITCH + 2 * t;
-#pragma unroll
-        for (int kk = 0; kk < HD / 16; ++kk) {
-          uint32_t bk[2] = {ds::ld32(ks + o + kk * 16), ds::ld32(ks + o + kk * 16 + 8)};
-          ds::mma16816<T>(s[j], qf[kk], bk);
-          uint32_t bv[2] = {ds::ld32(vs + o + kk * 16), ds::ld32(vs + o + kk * 16 + 8)};
-          ds::mma16816<T>(dp[j], df[kk], bv);
-        }
+      for (int j = 0; j < HD / 64; ++j) {
+        ds::tma_load_3d(qs + j * kDqQBox, &qmap, qbar, h * HD + 64 * j, q0, b);
+        ds::tma_load_3d(dos + j * kDqQBox, &domap, qbar, h * HD + 64 * j, q0, b);
       }
-      // ds = p * (dp - delta) * scale, p = exp2(s - lse) in fp32
+      for (int kt = 0; kt < n_kt; ++kt) {
+        const int s = kt % kDqStages;
+        ds::mbar_wait(&empty[s], ((kt / kDqStages) & 1) ^ 1);   // first pass: free
+        unsigned char* st = ring + s * Sh::kStageBytes;
+        ds::mbar_expect_tx(&full[s], Sh::kStageBytes);
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int row = e >> 1;
-          const int kpos = k0 + c * 16 + j * 8 + 2 * t + (e & 1);
-          const float x = s[j][e] * scale_log2 +
-                          ds::attn_bias(qpos[row], kpos, S, causal, slope, maskb);
-          const float p = exp2f(x - lse_r[row]);
-          s[j][e] = p * (dp[j][e] - delta_r[row]) * scale;
+        for (int j = 0; j < HD / 64; ++j) {
+          ds::tma_load_3d(st + j * kDqKvBox, &kmap, &full[s], kvh * HD + 64 * j, kt * kDqBK, b);
+          ds::tma_load_3d(st + Sh::kKvBytes + j * kDqKvBox, &vmap, &full[s], kvh * HD + 64 * j,
+                          kt * kDqBK, b);
         }
-      }
-      // dq += ds k: ds (16 q x 16 keys, rounded to T) from the accumulators
-      uint32_t pa[4];
-      pa[0] = ds::pack_f32<T>(s[0][0], s[0][1]);
-      pa[1] = ds::pack_f32<T>(s[0][2], s[0][3]);
-      pa[2] = ds::pack_f32<T>(s[1][0], s[1][1]);
-      pa[3] = ds::pack_f32<T>(s[1][2], s[1][3]);
-      const T* kr = ks + (c * 16 + 2 * t) * PITCH + g;
-#pragma unroll
-      for (int d = 0; d < HD / 8; ++d) {
-        const T* kd = kr + d * 8;
-        uint32_t bf[2] = {ds::pack_raw<T>(kd[0], kd[PITCH]),
-                          ds::pack_raw<T>(kd[8 * PITCH], kd[9 * PITCH])};
-        ds::mma16816<T>(acc[d], pa, bf);
       }
     }
-    __syncthreads();   // the next tile overwrites ks / vs
-  }
+  } else {   // consumer warpgroups: 64 q rows each
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int wg = tid / 128, lane = tid & 31;
+    const int t = lane & 3;
+    const int row0 = q0 + wg * 64;                             // the warpgroup's first row
+    const int qpos[2] = {row0 + tid / 32 % 4 * 16 + (lane >> 2),
+                         row0 + tid / 32 % 4 * 16 + (lane >> 2) + 8};
+    float lse_r[2], delta_r[2];
+#pragma unroll
+    for (int row = 0; row < 2; ++row) {
+      const bool in = qpos[row] < S;
+      const long i = ((long)b * H + h) * S + qpos[row];
+      lse_r[row] = in ? lse[i] : -ds::kMasked;     // rows past S get p = 0
+      delta_r[row] = in ? delta[i] : 0.f;
+    }
+    const float slope = slopes ? slopes[h] * ds::kLog2e : 0.f;
+    const float* maskb = mask ? mask + (long)b * S : nullptr;
+    float acc[HD / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+    const uint32_t q_base = ds::smem_u32(qs) + wg * 64 * 128;
+    const uint32_t do_base = ds::smem_u32(dos) + wg * 64 * 128;
 
+    ds::mbar_wait(qbar, 0);
+    for (int kt = 0; kt < n_kt; ++kt) {
+      const int s = kt % kDqStages, k0 = kt * kDqBK;
+      ds::mbar_wait(&full[s], (kt / kDqStages) & 1);
+      // a key tile wholly above this warpgroup's rows adds nothing
+      if (causal && k0 > row0 + 63) {
+        if (lane == 0) ds::mbar_arrive(&empty[s]);
+        continue;
+      }
+      const uint32_t k_base = ds::smem_u32(ring + s * Sh::kStageBytes);
+      const uint32_t v_base = k_base + Sh::kKvBytes;
+
+      // s = q k^T and dp = do v^T: 64 q rows x 64 keys, 16-deep steps along Hd
+      float sc[kDqBK / 2], dp[kDqBK / 2];
+      ds::wgmma_fence();
 #pragma unroll
-  for (int row = 0; row < 2; ++row) {
-    const int sq = qpos[row];
-    if (sq >= S) continue;
-    T* out = dq + ((long)b * S + sq) * q_stride + (long)h * HD + 2 * t;
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const uint32_t qa = kk / 4 * kDqQBox + kk % 4 * 32, ka = kk / 4 * kDqKvBox + kk % 4 * 32;
+        ds::wgmma_ss<T, kDqBK, 0, 0>(sc, ds::gmma_desc(q_base + qa, 16, 1024),
+                                     ds::gmma_desc(k_base + ka, 16, 1024), kk > 0);
+        ds::wgmma_ss<T, kDqBK, 0, 0>(dp, ds::gmma_desc(do_base + qa, 16, 1024),
+                                     ds::gmma_desc(v_base + ka, 16, 1024), kk > 0);
+      }
+      ds::wgmma_commit();
+      ds::wgmma_wait<0>();
+      ds::fence_regs(sc);
+      ds::fence_regs(dp);
+
+      // log2-domain logits + bias (only where a tile has any: alibi, a key
+      // mask, keys past S or the causal diagonal)
+      const bool biased = slopes != nullptr || mask != nullptr || k0 + kDqBK > S ||
+                          (causal && k0 + kDqBK - 1 > row0);
+      if (biased) {
 #pragma unroll
-    for (int d = 0; d < HD / 8; ++d)
-      *reinterpret_cast<uint32_t*>(out + d * 8) =
-          ds::pack_f32<T>(acc[d][2 * row], acc[d][2 * row + 1]);
+        for (int i = 0; i < kDqBK / 8; ++i) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            sc[4 * i + e] = sc[4 * i + e] * scale_log2 +
+                            ds::attn_bias(qpos[e >> 1], k0 + 8 * i + 2 * t + (e & 1), S, causal,
+                                          slope, maskb);
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < kDqBK / 2; ++i) sc[i] *= scale_log2;
+      }
+      // ds = p (dp - delta) scale with p = exp2(s - lse) in fp32
+#pragma unroll
+      for (int i = 0; i < kDqBK / 2; ++i) {
+        const int row = (i >> 1) & 1;
+        const float p = ds::exp2_ftz(sc[i] - lse_r[row]);
+        sc[i] = p * (dp[i] - delta_r[row]) * scale;
+      }
+      uint32_t da[kDqBK / 16][4];
+      ds::acc_to_a<T, kDqBK>(sc, da);   // ds rounded to k's dtype
+
+      // dq += ds k: k [keys, Hd] MN-major, 64-row boxes 8 KB apart
+      ds::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kDqBK / 16; ++kk)
+        ds::wgmma_rs<T, HD, 1>(acc, da[kk], ds::gmma_desc(k_base + kk * 16 * 128, kDqKvBox, 1024));
+      ds::wgmma_commit();
+      ds::wgmma_wait<0>();
+      ds::fence_regs(acc);
+      if (lane == 0) ds::mbar_arrive(&empty[s]);
+    }
+
+    // epilogue: dq cast once to k's dtype; rows past S are not stored
+    const long q_stride = (long)H * HD;
+#pragma unroll
+    for (int row = 0; row < 2; ++row) {
+      if (qpos[row] >= S) continue;
+      T* out = dq + ((long)b * S + qpos[row]) * q_stride + (long)h * HD + 2 * t;
+#pragma unroll
+      for (int i = 0; i < HD / 8; ++i)
+        *reinterpret_cast<uint32_t*>(out + 8 * i) =
+            ds::pack_f32<T>(acc[4 * i + 2 * row], acc[4 * i + 2 * row + 1]);
+    }
   }
 }
 
@@ -325,7 +397,7 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap qmap,
 
         // s^T = k q^T and dp^T = v do^T: 64 keys x 64 q rows, 16-deep steps along Hd
         float st[kDkvBQ / 2], dpt[kDkvBQ / 2];
-          ds::wgmma_fence();
+        ds::wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < HD / 16; ++kk) {
           const uint32_t ka = kk / 4 * kKvBox + kk % 4 * 32, qa = kk / 4 * kQBox + kk % 4 * 32;
@@ -335,7 +407,7 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap qmap,
                                         ds::gmma_desc(do_base + qa, 16, 1024), kk > 0);
         }
         ds::wgmma_commit();
-          ds::wgmma_wait<0>();
+        ds::wgmma_wait<0>();
         ds::fence_regs(st);
         ds::fence_regs(dpt);
 
@@ -372,14 +444,14 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap qmap,
         ds::acc_to_a<T, kDkvBQ>(dpt, da);
 
         // dv += p^T do, dk += ds^T q: do and q [q rows, Hd] MN-major, 64-row boxes 8 KB apart
-          ds::wgmma_fence();
+        ds::wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < kDkvBQ / 16; ++kk) {
           ds::wgmma_rs<T, HD, 1>(adv, pa[kk], ds::gmma_desc(do_base + kk * 16 * 128, kQBox, 1024));
           ds::wgmma_rs<T, HD, 1>(adk, da[kk], ds::gmma_desc(q_base + kk * 16 * 128, kQBox, 1024));
         }
         ds::wgmma_commit();
-          ds::wgmma_wait<0>();
+        ds::wgmma_wait<0>();
         ds::fence_regs(adv);
         ds::fence_regs(adk);
         if (lane == 0) ds::mbar_arrive(&empty[s]);
@@ -408,11 +480,21 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dO, const
               const float* delta, const float* mask, const float* slopes, void* dq, int B,
               int S, int H, int KV, int causal, float scale_log2, float scale,
               cudaStream_t stream) {
-  dim3 grid((S + kBQ - 1) / kBQ, H, B);
-  flash_bwd_dq_kernel<T, HD><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dO), lse, delta, mask, slopes, static_cast<T*>(dq), S, H, KV,
-      causal, scale_log2, scale);
+  using Sh = DqShape<HD>;
+  CUtensorMap qmap, kmap, vmap, domap;
+  if (!ds::make_tma_map_bsc<T>(&qmap, q, B, S, (long)H * HD, kDqBQ) ||
+      !ds::make_tma_map_bsc<T>(&domap, dO, B, S, (long)H * HD, kDqBQ) ||
+      !ds::make_tma_map_bsc<T>(&kmap, k, B, S, (long)KV * HD, kDqBK) ||
+      !ds::make_tma_map_bsc<T>(&vmap, v, B, S, (long)KV * HD, kDqBK))
+    return (int)cudaErrorNotSupported;
+  auto kern = flash_bwd_dq_kernel<T, HD>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Sh::kSmem);
+  if (err != cudaSuccess) return (int)err;
+  const int grid = (S + kDqBQ - 1) / kDqBQ * H * B;
+  kern<<<grid, kDqThreads, Sh::kSmem, stream>>>(qmap, kmap, vmap, domap, lse, delta, mask,
+                                                slopes, static_cast<T*>(dq), S, H, KV, causal,
+                                                scale_log2, scale);
   return (int)cudaGetLastError();
 }
 
@@ -445,7 +527,8 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dO, cons
 // (lse log2-domain, as the forward wrote it; delta = sum(do * o) over Hd);
 // mask [B,S] f32 additive key bias or null; slopes [H] f32 or null.
 // scale_log2 = scale * log2(e). dtype 0 = fp16, 1 = bf16; head_dim 64 or
-// 128. Each returns cudaGetLastError() after its launch.
+// 128. Each returns cudaGetLastError() after its launch
+// (cudaErrorNotSupported when the TMA maps cannot be made).
 extern "C" int ds_flash_attention_bwd_dq(const void* q, const void* k, const void* v,
                                          const void* dO, const float* lse, const float* delta,
                                          const float* mask, const float* slopes, void* dq,
@@ -461,6 +544,11 @@ extern "C" int ds_flash_attention_bwd_dq(const void* q, const void* k, const voi
   if (dtype == 0 && head_dim == 64) return DS_DQ(__half, 64);
 #undef DS_DQ
   return (int)cudaErrorInvalidValue;
+}
+
+// Dynamic shared memory of one kernel-C block at head_dim.
+extern "C" int ds_flash_dq_smem_bytes(int head_dim) {
+  return (int)(head_dim == 128 ? DqShape<128>::kSmem : DqShape<64>::kSmem);
 }
 
 // Dynamic shared memory of one kernel-D block at head_dim.

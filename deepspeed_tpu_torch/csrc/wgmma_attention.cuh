@@ -1,5 +1,5 @@
-// Hopper (sm_90a) pieces of the flash-attention kernels A (forward) and D
-// (dk, dv), on top of wgmma_gemm.cuh's mbarrier, TMA, descriptor and
+// Hopper (sm_90a) pieces of the flash-attention kernels A (forward), C (dq)
+// and D (dk, dv), on top of wgmma_gemm.cuh's mbarrier, TMA, descriptor and
 // setmaxnreg helpers:
 //
 //   - wgmma at N = 64 and N = 128 (m64n64k16, m64n128k16), with A from
@@ -13,7 +13,7 @@
 // Accumulator layout (as wgmma_gemm.cuh): in a warpgroup, thread (warp w,
 // g = lane / 4, t = lane % 4) holds d[4 i + e] = C[w * 16 + g + 8 (e >= 2),
 // 8 i + 2 t + (e & 1)]. The register-A fragment of a 64 x 16 slice at
-// columns 16 kk.. is mma.sync's m16n8k16 A fragment of each warp's 16 rows:
+// columns 16 kk.. holds, for each warp's 16 rows, four packed pairs:
 // a[0] (g, 2t..2t+1), a[1] (g+8, 2t..), a[2] (g, 2t+8..), a[3] (g+8, 2t+8..),
 // which are exactly d[8 kk + 0..1], d[8 kk + 2..3], d[8 kk + 4..5] and
 // d[8 kk + 6..7]: the accumulator of a product is the A operand of the next
@@ -31,15 +31,6 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// 2^x on the SFU in one instruction (ex2.approx.ftz: a result below 2^-126
-// flushes to 0, where exp2f would return a subnormal; a p that small adds
-// nothing at bf16 / fp16 precision).
-__device__ __forceinline__ float exp2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
 }
 
 // The register-A fragments of every 16-column step of a 64 x N fp32

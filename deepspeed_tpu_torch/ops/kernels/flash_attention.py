@@ -8,14 +8,16 @@ and Hd = 128) and their packed-heads twins ``_packed_*_kernel`` (MHA with
 Hd < 128, e.g. GPT-2's 64). The Hopper kernels read ``[B, S, H, Hd]`` in
 place for both, so one kernel covers each pair of call sites.
 
-What bounds them on the H100, and what the simple design does about it: at
-prefill lengths the forward is memory-bound on the q/k/v/o bytes (it reaches
-the bf16 ridge of about 295 FLOP/byte only near S = 1000 at Hd = 128); the
+What bounds them on the H100, and what the designs do about it: at prefill
+lengths the forward is memory-bound on the q/k/v/o bytes (it reaches the
+bf16 ridge of about 295 FLOP/byte only near S = 1000 at Hd = 128); the
 backward at training lengths does 3 (dq) and 4 (dk, dv) S x S x Hd products
-and is compute-bound. None of the kernels writes an S x S tile: the forward
-keeps its running softmax in fp32 registers and writes the log2-domain lse,
-from which the backward recomputes p. See the sources' headers for the
-layouts.
+and is compute-bound. All three run on TMA + wgmma (``csrc/wgmma_attention.cuh``):
+A and C q-stationary, D k-stationary, each with a producer warp feeding a
+ring of shared-memory stages and two consumer warpgroups. None of the
+kernels writes an S x S tile: the forward keeps its running softmax in fp32
+registers and writes the log2-domain lse, from which the backward
+recomputes p. See the sources' headers for the layouts.
 
 :func:`flash_attention` is differentiable: its autograd Function saves
 ``(q, k, v, o, lse, mask, slopes)``, computes ``delta = sum(do * o)`` in fp32

@@ -14,23 +14,27 @@ four launches, each with its own counter:
 - :func:`fused_ce_dh` (``dh_launches``): ``dh = ds W^T``;
 - :func:`fused_ce_dw` (``dw_launches``): ``dW = h^T ds``.
 
-G, dh and dW run on a Hopper mainloop (``csrc/wgmma_gemm.cuh``): TMA loads
-into a ring of shared-memory stages guarded by mbarriers, and wgmma products
-with fp32 register accumulators. F still runs the first design's mma.sync
-mainloop fed by ``cp.async``. What bounds them on the H100, what the designs
-do about it, and why the TPU kernels' VMEM accumulators do not carry over:
-see the source's header. The backward holds ds (N x V x 2 bytes, 0.52 GB at
-N 8192, V 32000) where the plain vocab-head path holds about 2.5 GB of
-logits and softmax.
+All four run on a Hopper mainloop (``csrc/wgmma_gemm.cuh``): TMA loads into
+a ring of shared-memory stages guarded by mbarriers, and wgmma products with
+fp32 register accumulators. F folds each 128 x 256 logits tile from the
+accumulator registers into one (max, sum, gold) partial per token and vocab
+tile; a second launch combines a token's partials in order
+(:func:`fused_ce_fwd_tiles_plain` and :func:`fused_ce_combine_plain` are
+that schedule in plain PyTorch). What bounds them on the H100, what the
+designs do about it, and why the TPU kernels' VMEM accumulators do not carry
+over: see the source's header. The backward holds ds (N x V x 2 bytes, 0.52
+GB at N 8192, V 32000) where the plain vocab-head path holds about 2.5 GB
+of logits and softmax.
 
-Each operand of G, dh and dW is read as it lies in memory, K-major or
-MN-major (:func:`ds_operands`, :func:`dh_operands`, :func:`dw_operands`,
+Each operand is read as it lies in memory, K-major or MN-major
+(:func:`ds_operands` for F and G, :func:`dh_operands`, :func:`dw_operands`,
 decided from shapes and strides, so the CPU tests check them). A tied head
 (``W = embed.T``, stored ``[V, D]``) is read in place, and its gradient
 comes back as the transpose of a ``[V, D]`` tensor. TMA needs row strides
 that are multiples of 8 elements: an operand without one (an untied W with
-V = 50257, h with D % 8 != 0) is copied once per call into padded rows
-(:func:`_tma_rows`). F reads any row stride.
+V = 50257, h with D % 8 != 0) is copied into padded rows (:func:`_tma_rows`);
+:class:`_FusedCE` copies h and W once in the forward and keeps the copies
+for the backward.
 
 :func:`fused_cross_entropy` is the counterpart of the JAX function: the
 per-token nll goes through a ``torch.autograd.Function`` and the masked
@@ -50,8 +54,9 @@ import torch
 from deepspeed_tpu_torch.ops.kernels import build
 
 _LOG2E = 1.4426950408889634
+_MASKED = -1e30
 _BM = 128                          # token tile of F and G (G's db partial rows)
-_BN = 128                          # vocab tile of F
+_BN = 256                          # vocab tile of F and G (F's partials)
 
 #: kernel launches since the last reset (set them to 0 to start counting)
 fwd_launches = 0
@@ -83,6 +88,32 @@ def fused_ce_fwd_plain(h, w, bias, labels):
     lse = (m + torch.log2(torch.exp2(s - m).sum(dim=-1, keepdim=True)))[:, 0]
     gold = torch.gather(s, 1, labels.long()[:, None])[:, 0]
     return (lse - gold) / _LOG2E, lse
+
+
+def fused_ce_fwd_tiles_plain(h, w, bias, labels):
+    """F's schedule in plain PyTorch: the ``[3, ceil(V / 256), N]`` fp32
+    partials that the kernel writes, each 256-wide vocab tile's max, sum of
+    ``exp2(s - max)`` and gold logit (0 where the label lies in another
+    tile), from the same log2-domain logits."""
+    s = _log2_logits(h, w, bias)
+    N, V = s.shape
+    nvt = -(-V // _BN)
+    s = torch.nn.functional.pad(s, (0, nvt * _BN - V), value=_MASKED).reshape(N, nvt, _BN)
+    m = s.amax(dim=-1)
+    l = torch.exp2(s - m[..., None]).sum(dim=-1)
+    rows, lab = torch.arange(N, device=s.device), labels.long()
+    gold = torch.zeros_like(m)
+    gold[rows, lab // _BN] = s[rows, lab // _BN, lab % _BN]
+    return torch.stack([m.T, l.T, gold.T])
+
+
+def fused_ce_combine_plain(part):
+    """The combine kernel's math: a token's partials merged in tile order
+    into ``(nll, lse)`` ``[N]`` fp32 (lse in the log2 domain)."""
+    m, l, gold = part
+    mx = m.amax(dim=0)
+    lse = mx + torch.log2((l * torch.exp2(m - mx)).sum(dim=0))
+    return (lse - gold.sum(dim=0)) / _LOG2E, lse
 
 
 def fused_ce_ds_plain(h, w, bias, labels, lse, coef):
@@ -127,11 +158,6 @@ def _launch(fn, name, dev, *args):
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
 
 
-def _vec(x, ld) -> int:
-    """Whether 16-byte vector loads may read rows of ``x`` (row stride ld)."""
-    return int(ld % 8 == 0 and x.data_ptr() % 16 == 0)
-
-
 def _head_weight(w):
     """W ``[D, V]`` as the kernels read it: ``(tensor, stored_as_vd, ld)``,
     where ``stored_as_vd`` means the memory is ``[V, D]`` (a tied head,
@@ -159,8 +185,8 @@ def _check_inputs(h, w, bias, labels):
             raise ValueError(f"{name} is on {x.device}, h on {h.device}")
     if labels.dtype != torch.int32:
         raise TypeError(f"labels must be int32, got {labels.dtype}")
-    if not h.is_contiguous():
-        raise ValueError("h must be contiguous")
+    if h.stride(1) != 1:
+        raise ValueError("h must have unit column stride")
 
 
 def _bias(bias, V):
@@ -176,35 +202,14 @@ def _ptr(x):
     return None if x is None else x.data_ptr()
 
 
-def fused_ce_fwd_cuda(h, w, bias, labels):
-    """Launch F on CUDA tensors. Returns ``(nll, lse)`` ``[N]`` fp32."""
-    global fwd_launches
-    _check_inputs(h, w, bias, labels)
-    N, D = h.shape
-    V = w.shape[1]
-    w, vd, ldw = _head_weight(w)
-    b = _bias(bias, V)
-    nvt = -(-V // _BN)
-    vsplit = -(-nvt // 8)          # ~8 vocab tiles a CTA: many CTA waves, a small combine
-    part = torch.empty((3, vsplit, N), dtype=torch.float32, device=h.device)
-    nll = torch.empty((N,), dtype=torch.float32, device=h.device)
-    lse = torch.empty_like(nll)
-    fn = _bind("ds_fused_ce_fwd", [_P, _I, _P, _I, _L, _I, _P, _P, _P, _P, _P] + [_I] * 5 + [_P])
-    _launch(fn, "fused_ce_fwd", h.device, h.data_ptr(), _vec(h, D), w.data_ptr(), int(vd), ldw,
-            _vec(w, ldw), _ptr(b), labels.data_ptr(), part.data_ptr(), nll.data_ptr(),
-            lse.data_ptr(), N, D, V, vsplit, _DTYPE_CODE[h.dtype])
-    fwd_launches += 1
-    return nll, lse
-
-
 # --------------------------------------------------------------------- #
-# operands of the TMA + wgmma products (G, dh, dW), decided from shapes and
-# strides alone so the CPU tests reach every decision
+# operands of the TMA + wgmma products (F, G, dh, dW), decided from shapes
+# and strides alone so the CPU tests reach every decision
 
 
 @dataclasses.dataclass(frozen=True)
 class Operand:
-    """One operand of a G / dh / dW product as the kernel reads it.
+    """One operand of an F / G / dh / dW product as the kernel reads it.
 
     ``rows`` is a row-major view of its memory (unit column stride, row
     stride ``ld``, a multiple of 8 elements, base 16-byte aligned), which
@@ -251,8 +256,9 @@ def _weight_rows(w):
 
 
 def ds_operands(h, w):
-    """G's product ``h W``: A = h ``[N, D]``, K-major; B = W as it lies,
-    ``[D, V]`` (MN-major) or a tied head's ``[V, D]`` (K-major)."""
+    """The logits product ``h W`` of F and G: A = h ``[N, D]``, K-major; B =
+    W as it lies, ``[D, V]`` (MN-major) or a tied head's ``[V, D]``
+    (K-major)."""
     rows, vd = _weight_rows(w)
     return _operand(h, "K"), _operand(rows, "K" if vd else "MN")
 
@@ -273,6 +279,37 @@ def dw_operands(h, ds, w):
     _, vd = _weight_rows(w)
     a, b = (ds, h) if vd else (h, ds)
     return _operand(a, "MN"), _operand(b, "MN"), vd
+
+
+def tma_ready(h, w):
+    """``(h, w)`` as F, G, dh and dW read them in place: each copied once
+    into padded rows where TMA cannot read its rows (:func:`_tma_rows`),
+    the same tensors otherwise. W keeps its ``[D, V]`` shape (a tied head's
+    copy is still the transpose of a ``[V, D]`` buffer)."""
+    rows, vd = _weight_rows(w)
+    rows = _tma_rows(rows)
+    return _tma_rows(h), (rows.T if vd else rows)
+
+
+def fused_ce_fwd_cuda(h, w, bias, labels):
+    """Launch F (and the combine) on CUDA tensors. Returns ``(nll, lse)``
+    ``[N]`` fp32. h or W is copied first when TMA cannot read its rows in
+    place (:func:`_tma_rows`)."""
+    global fwd_launches
+    _check_inputs(h, w, bias, labels)
+    N, D = h.shape
+    V = w.shape[1]
+    a, b_op = ds_operands(h, w)
+    bias32 = _bias(bias, V)
+    part = torch.empty((3, -(-V // _BN), N), dtype=torch.float32, device=h.device)
+    nll = torch.empty((N,), dtype=torch.float32, device=h.device)
+    lse = torch.empty_like(nll)
+    fn = _bind("ds_fused_ce_fwd", [_P, _L, _P, _I, _L] + [_P] * 5 + [_I] * 4 + [_P])
+    _launch(fn, "fused_ce_fwd", h.device, a.rows.data_ptr(), a.ld, b_op.rows.data_ptr(),
+            int(b_op.major == "K"), b_op.ld, _ptr(bias32), labels.data_ptr(), part.data_ptr(),
+            nll.data_ptr(), lse.data_ptr(), N, D, V, _DTYPE_CODE[h.dtype])
+    fwd_launches += 1
+    return nll, lse
 
 
 def fused_ce_ds_cuda(h, w, bias, labels, lse, coef):
@@ -392,6 +429,8 @@ class _FusedCE(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, h, w, bias, labels):
+        if h.is_cuda:
+            h, w = tma_ready(h, w)       # one copy of an unaligned operand, kept for the backward
         nll, lse = fused_ce_fwd(h, w, bias, labels)
         ctx.save_for_backward(h, w, bias, labels, lse)
         return nll

@@ -6,8 +6,11 @@ bias present and absent, and a tied head (W = embed.T, the gradient taken in
 embed). fp32: loss within 1e-5 relative, each gradient within 1e-5 of its
 largest value (fp32 sums in other orders). bf16: the same within 2^-7 of
 each gradient's largest value (one bf16 ulp at the top of the range: ds and
-the outputs round at the same points). Also the dispatch of
-``vocab_head_ce`` by ``fused_cross_entropy`` auto / on / off."""
+the outputs round at the same points). F's schedule (per-256-column-tile
+partials, then the combine in tile order) is held to the plain forward and
+to the JAX forward at 1e-5 absolute in fp32. Also the dispatch of
+``vocab_head_ce`` by ``fused_cross_entropy`` auto / on / off, and the
+operands the TMA kernels read."""
 
 import dataclasses
 
@@ -89,6 +92,33 @@ def test_empty_mask_gives_zero_loss_and_grads():
     assert got == 0.0 and all(np.abs(g).max() == 0 for g in grads)
 
 
+@pytest.mark.parametrize("N,D,V,bias", [
+    (37, 16, 1000, True),                   # ragged V: 4 tiles, the last 232 wide
+    (24, 16, 50257, True),                  # GPT-2's vocab: 197 tiles, the last 81 wide
+    (64, 32, 256, False),                   # one whole tile, no bias
+])
+def test_fwd_tile_schedule_matches_plain_and_jax(N, D, V, bias):
+    """F's schedule in plain PyTorch (the partials of each 256-wide vocab
+    tile, combined in tile order) against the plain forward per token, and
+    its masked mean against the JAX kernel's forward in interpret mode, all
+    within 1e-5 absolute in fp32."""
+    h, w, b, labels, valid = _inputs(N + V, N, D, V, bias, True)
+    th, tw, tl = torch.from_numpy(h), torch.from_numpy(w), torch.from_numpy(labels)
+    tb = torch.from_numpy(b) if bias else None
+    part = fce.fused_ce_fwd_tiles_plain(th, tw, tb, tl)
+    assert part.shape == (3, -(-V // 256), N)
+    nll, lse = fce.fused_ce_combine_plain(part)
+    rnll, rlse = fce.fused_ce_fwd_plain(th, tw, tb, tl)
+    torch.testing.assert_close(nll, rnll, atol=1e-5, rtol=0)
+    torch.testing.assert_close(lse, rlse, atol=1e-5, rtol=0)
+    vf = torch.from_numpy(valid.astype(np.float32))
+    got = float((nll * vf).sum() / vf.sum().clamp(min=1))
+    want = float(jax_fce(jnp.asarray(h), jnp.asarray(w), jnp.asarray(labels),
+                         bias=None if b is None else jnp.asarray(b), valid=jnp.asarray(valid),
+                         interpret=True))
+    assert abs(got - want) <= 1e-5
+
+
 def test_pieces_match_a_dense_reference():
     """F's nll / lse and G's ds / db against logits formed in full."""
     h, w, b, labels, _ = _inputs(2, 20, 16, 70, True, False)
@@ -151,7 +181,7 @@ def _head(r, D, V, tied):
 
 
 def _operands(product, h, w, ds):
-    if product == "ds":
+    if product in ("fwd", "ds"):
         return fce.ds_operands(h, w)
     if product == "dh":
         return fce.dh_operands(ds, w)
@@ -168,10 +198,10 @@ def _planned_product(a, b):
 
 
 def _plain_product(product, h, w, ds, tied):
-    """The plain versions' products in fp32: G's logits (``_log2_logits``
-    without bias and log2e), ``fused_ce_dh_plain`` and ``fused_ce_dw_plain``
-    before their cast."""
-    if product == "ds":
+    """The plain versions' products in fp32: F's and G's logits
+    (``_log2_logits`` without bias and log2e), ``fused_ce_dh_plain`` and
+    ``fused_ce_dw_plain`` before their cast."""
+    if product in ("fwd", "ds"):
         return h.float() @ w.float()
     if product == "dh":
         return ds.float() @ w.float().T
@@ -180,6 +210,8 @@ def _plain_product(product, h, w, ds, tied):
 
 
 @pytest.mark.parametrize("product,tied,want", [
+    ("fwd", False, ("K", "MN")),            # F reads the logits' operands as G does
+    ("fwd", True, ("K", "K")),
     ("ds", False, ("K", "MN")),             # h [N, D]; W [D, V] has V along its rows
     ("ds", True, ("K", "K")),               # the tied W's memory is [V, D]: D along its rows
     ("dh", False, ("K", "K")),              # ds [N, V]; W^T's memory [D, V] = [N, K]
@@ -193,7 +225,8 @@ def test_tma_operands_are_read_as_stored(product, tied, want):
     h, w, ds = _bf16(r, (N, D)), _head(r, D, V, tied), _bf16(r, (N, V), 1e-3)
     a, b = _operands(product, h, w, ds)
     assert (a.major, b.major) == want
-    stored = {"ds": (h, w), "dh": (ds, w), "dw": (ds, h) if tied else (h, ds)}[product]
+    stored = {"fwd": (h, w), "ds": (h, w), "dh": (ds, w),
+              "dw": (ds, h) if tied else (h, ds)}[product]
     assert [x.rows.data_ptr() for x in (a, b)] == [x.data_ptr() for x in stored]   # in place
     assert product != "dw" or fce.dw_operands(h, ds, w)[2] == tied
     torch.testing.assert_close(_planned_product(a, b), _plain_product(product, h, w, ds, tied))
@@ -224,3 +257,29 @@ def test_tma_operands_copy_unaligned_rows_once(N, D, V, tied, ds_padded, h_offse
             assert op.ld == (-(-op.rows.shape[1] // 8) * 8 if copy else op.ld)
             assert (op.rows.data_ptr() != x.data_ptr()) == bool(copy), (product, x.shape)
         torch.testing.assert_close(_planned_product(*ops), _plain_product(product, h, w, ds, tied))
+
+
+@pytest.mark.parametrize("D,V,tied,h_copied,w_copied", [
+    (64, 96, False, False, False),          # Llama-like: everything read in place
+    (64, 101, False, False, True),          # an untied W with V odd
+    (60, 96, True, True, True),             # D % 8: h and the tied embedding
+    (64, 101, True, False, False),          # a tied head with V odd: its rows are D long
+])
+def test_tma_ready_copies_once_and_keeps_shapes(D, V, tied, h_copied, w_copied):
+    """What the autograd Function hands F and the backward on the card: h
+    and W as TMA reads them in place (each copied at most once, here), with
+    their shapes and values, W still ``[D, V]`` and still tied or not."""
+    r = np.random.default_rng(D + V)
+    N = 40
+    h, w = _bf16(r, (N, D)), _head(r, D, V, tied)
+    h2, w2 = fce.tma_ready(h, w)
+    assert (h2.data_ptr() != h.data_ptr(), w2.data_ptr() != w.data_ptr()) == (h_copied, w_copied)
+    assert h2.shape == h.shape and w2.shape == w.shape and torch.equal(h2, h) and torch.equal(w2, w)
+    assert fce._weight_rows(w2)[1] == tied
+    for op in fce.ds_operands(h2, w2):      # F and G now read both in place
+        assert op.ld % 8 == 0 and op.rows.stride(1) == 1
+    assert [op.rows.data_ptr() for op in fce.ds_operands(h2, w2)] == [
+        h2.data_ptr(), w2.data_ptr()]
+    nll, lse = fce.fused_ce_fwd(h2, w2, None, torch.zeros(N, dtype=torch.int32))
+    rnll, rlse = fce.fused_ce_fwd_plain(h, w, None, torch.zeros(N, dtype=torch.int32))
+    assert torch.equal(nll, rnll) and torch.equal(lse, rlse)

@@ -181,20 +181,22 @@ def test_flash_backward_kernels_match_plain(cuda, B, S, H, KV, Hd, causal, alibi
     (2, 300, 16, 4, 128, False, torch.float16),    # GQA 4, full attention, ragged S
 ])
 def test_flash_kernels_fp16(cuda, B, S, H, KV, Hd, causal, dtype):
-    """Kernels A and D in fp16 against their plain versions."""
+    """Kernels A, C and D in fp16 against their plain versions."""
     r = np.random.default_rng(S + Hd)
     q, k, v = (_randn(r, (B, S, n, Hd), cuda, dtype) for n in (H, KV, KV))
     o, lse = fa.flash_attention(q, k, v, causal=causal, return_lse=True)
     ro, rlse = fa.flash_attention_plain(q, k, v, causal=causal)
     do = _randn(r, (B, S, H, Hd), cuda, dtype)
     delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    dq = fa.flash_attention_dq(q, k, v, do, lse, delta, causal=causal)
+    rdq = fa.flash_attention_dq_plain(q, k, v, do, lse, delta, causal=causal)
     dk, dv = fa.flash_attention_dkv(q, k, v, do, lse, delta, causal=causal)
     rdk, rdv = fa.flash_attention_dkv_plain(q, k, v, do, lse, delta, causal=causal)
     torch.cuda.synchronize()
-    assert o.dtype == dk.dtype == dtype
+    assert o.dtype == dq.dtype == dk.dtype == dtype
     assert _ulp_err(o, ro) <= ULP_TOL
     assert float((lse - rlse).abs().max()) <= LSE_TOL
-    for out, ref in ((dk, rdk), (dv, rdv)):
+    for out, ref in ((dq, rdq), (dk, rdk), (dv, rdv)):
         assert _ulp_err(out, ref, GRAD_FLOOR) <= ULP_TOL
 
 
@@ -203,8 +205,8 @@ def test_flash_kernels_fp16(cuda, B, S, H, KV, Hd, causal, dtype):
     (1, 200, 32, 8),       # GQA 4, ragged S
 ])
 def test_flash_kernels_repeat_bit_for_bit(cuda, B, S, H, KV):
-    """Two launches of A (o, lse) and of D (dk, dv) give the same bits: no
-    split over keys or q tiles, no atomics."""
+    """Two launches of A (o, lse), of C (dq) and of D (dk, dv) give the same
+    bits: no split over keys or q tiles, no atomics."""
     r = np.random.default_rng(S + KV)
     q, k, v, _ = _attn_inputs(r, B, S, H, KV, 128, cuda, False, False)
     do = _randn(r, (B, S, H, 128), cuda)
@@ -212,7 +214,8 @@ def test_flash_kernels_repeat_bit_for_bit(cuda, B, S, H, KV):
     for _ in range(2):
         o, lse = fa.flash_attention(q, k, v, return_lse=True)
         delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
-        runs.append((o, lse, *fa.flash_attention_dkv(q, k, v, do, lse, delta)))
+        runs.append((o, lse, fa.flash_attention_dq(q, k, v, do, lse, delta),
+                     *fa.flash_attention_dkv(q, k, v, do, lse, delta)))
     torch.cuda.synchronize()
     assert all(torch.equal(x, y) for x, y in zip(*runs))
 
@@ -351,6 +354,21 @@ def test_fused_ce_backward_kernels_repeat_bit_for_bit(cuda, tied):
         outs.append((ds, db, fce.fused_ce_dh(ds, w), fce.fused_ce_dw(h, ds, w)))
     torch.cuda.synchronize()
     assert all(torch.equal(x, y) for x, y in zip(*outs))
+
+
+@pytest.mark.parametrize("N,D,V,bias,tied", [
+    (8192, 512, 32000, False, False),       # the train micro-batch's tokens, Llama's vocab
+    (1000, 768, 50257, True, True),         # GPT-2's tied head with a bias
+])
+def test_fused_ce_fwd_repeats_bit_for_bit(cuda, N, D, V, bias, tied):
+    """Two launches of F (and its combine) give the same bits: each (token,
+    vocab tile) partial is written once and combined in tile order."""
+    r = np.random.default_rng(N + D)
+    h, w, b, labels = _ce_inputs(r, N, D, V, cuda, bias, tied)
+    first = fce.fused_ce_fwd(h, w, b, labels)
+    second = fce.fused_ce_fwd(h, w, b, labels)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
 
 
 def test_fused_cross_entropy_autograd_runs_the_kernels(cuda):
