@@ -9,11 +9,13 @@ Phases, each printing one JSON line:
   build         nvcc build of every kernel of the serving path, from csrc/
   kernel        each kernel against its plain PyTorch version on the card, in
                 bf16, at its path's shapes and at edge shapes, with planted
-                faults that must read above each limit, two launches of A, C,
-                D, F, G, dh and dW bit-equal, its time, the plain
-                version's, the library call's (SDPA for attention, fused
-                AdamW, F.linear + F.cross_entropy for the fused CE) and the
-                bound
+                faults that must read above each limit (for the decode
+                kernels B and K5 also in their split algorithm: a middle
+                split's partial dropped, the combine's rescale left out),
+                two launches of A, B, C, D, F, G, dh, dW and K5 bit-equal,
+                its time, the plain version's, the library call's (SDPA for
+                attention, fused AdamW, F.linear + F.cross_entropy for the
+                fused CE) and the bound; B and K5 also by device time
   slice_parity  Llama-7B width cut to 2 layers: the same seeded weights served
                 on the card (kernels) and on the CPU (plain versions, fp32);
                 the CPU's greedy tokens fed to both sides' paged prefill and
@@ -200,6 +202,22 @@ def cuda_ms(fn, reps=30, warmup=5):
     return statistics.median(times)
 
 
+def device_ms(fn, reps=20):
+    """Device time of one call of ``fn``: every kernel it launches, summed
+    from torch.profiler over ``reps`` calls after a warm-up (no host time,
+    unlike :func:`cuda_ms`)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by_class, _ = _device_time(prof)
+    return sum(by_class.values()) / reps
+
+
 def bound(nbytes, flops, peak_tflops=None):
     """Least time the card could take (ms) and what bounds it: the bytes over
     the card's memory rate, the FLOPs over the peak for their type (default
@@ -231,7 +249,8 @@ def phase_env(state):
 
 
 _KERNEL_NAMES = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
-                 "paged_decode_kernel", "dense_decode_kernel", "fused_adam_kernel",
+                 "paged_decode_kernel", "paged_decode_combine_kernel", "dense_decode_kernel",
+                 "dense_decode_combine_kernel", "fused_adam_kernel",
                  "fused_ce_fwd_kernel", "fused_ce_combine_kernel", "fused_ce_ds_kernel",
                  "fused_ce_db_kernel", "ce_dh_gemm_kernel", "ce_dw_gemm_kernel",
                  "lamb_moments_kernel", "lamb_ratio_kernel", "lamb_apply_kernel",
@@ -274,16 +293,18 @@ def ptxas_summary(log):
     return rows, warnings
 
 
-# the kernels on TMA + wgmma: ptxas must spill nothing in them
-_WGMMA_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
-                  "fused_ce_fwd_kernel", "fused_ce_ds_kernel", "ce_dh_gemm_kernel",
-                  "ce_dw_gemm_kernel")
+# kernels that must not spill: those on TMA + wgmma, and the two decode
+# kernels (split + cp.async ring) with their combine kernels
+_NO_SPILL_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
+                     "fused_ce_fwd_kernel", "fused_ce_ds_kernel", "ce_dh_gemm_kernel",
+                     "ce_dw_gemm_kernel", "paged_decode_kernel", "paged_decode_combine_kernel",
+                     "dense_decode_kernel", "dense_decode_combine_kernel")
 
 
-def wgmma_spills(rows):
-    """The spill bytes of every TMA + wgmma kernel row that has any."""
+def spilling_kernels(rows):
+    """The spill bytes of every row of a kernel that must not spill and does."""
     return {k: r["spill_bytes"] for k, r in rows.items()
-            if k.split()[0] in _WGMMA_KERNELS and r["spill_bytes"]}
+            if k.split()[0] in _NO_SPILL_KERNELS and r["spill_bytes"]}
 
 
 def phase_build(state):
@@ -292,7 +313,8 @@ def phase_build(state):
     it is read from the libraries. ptxas reports the 384-thread launch
     bound's 168 registers; setmaxnreg moves the consumer warpgroups to 232
     (F, G, dh, dW, A) or 240 (C, D) at run time. Fails if ptxas spills in
-    any of them."""
+    any of them, or in the decode kernels B and K5 or their combine kernels
+    (every dtype, head dim and group size)."""
     from deepspeed_tpu_torch.ops.kernels import build
     seconds, log = build.build(ptxas_verbose=True)
     rows, warnings = ptxas_summary(log)
@@ -304,8 +326,8 @@ def phase_build(state):
                                ("flash_bwd_dkv_kernel", bwd.ds_flash_dkv_smem_bytes))}
     emit("build", seconds=seconds, built=sorted(log), ptxas=rows, ptxas_warnings=warnings,
          ce_dynamic_smem_bytes=gemm_smem, attention_dynamic_smem_bytes=attn_smem)
-    spills = wgmma_spills(rows)
-    check(not spills, f"ptxas spills in the TMA + wgmma kernels: {spills}")
+    spills = spilling_kernels(rows)
+    check(not spills, f"ptxas spills in kernels that must not spill: {spills}")
 
 
 def _flash_case(gen, B, S, H, KV, Hd, causal, alibi, mask):
@@ -372,6 +394,34 @@ def _paged_faults(pda, q, kp, vp, bt, pos_t, pad, slopes):
         "last_block_dropped": pda.paged_decode_attention_plain(q, kp, vp, bt, pos_t, drop,
                                                                slopes),
     }
+
+
+def _split_faults(partials, dtype, merge, mid=True):
+    """Faults planted in the decode kernels' split algorithm (plain per-split
+    partials ``(m, l, acc, live)`` and the plain ``merge``): the middle live
+    split's partial dropped in every row with three or more (with ``mid``:
+    not under ALiBi, whose slopes leave a middle split of a long history
+    below a bf16 ulp of the output), and a combine that leaves out the
+    e^(m_s - M) rescale (rows with two or more splits)."""
+    m, l, acc, live = partials
+    n_live = live.sum(-1)
+    faults = {}
+    if mid and int(n_live.max()) >= 3:
+        mid = live.clone()
+        rows = (n_live >= 3).nonzero().flatten()
+        mid[rows, n_live[rows] // 2] = False
+        faults["mid_split_dropped"] = merge(m, l, acc, mid, dtype)
+    if int(n_live.max()) >= 2:
+        faults["combine_unscaled"] = merge(m, l, acc, live, dtype, rescale=False)
+    return faults
+
+
+def _repeat(name, case, run, o, rec, failures):
+    """A second launch must give the same bits (splits merged in order)."""
+    import torch
+    rec["repeat_bit_equal"] = bool(torch.equal(o, run()))
+    if not rec["repeat_bit_equal"]:
+        failures.append(f"{name} {case}: two launches differ")
 
 
 def _hold(name, case, outs, refs, faults, failures, floor=0.0):
@@ -457,9 +507,13 @@ def phase_kernel(state, seed):
         emit("kernel", **rec)
 
     # B: (B, H, KV, Hd, bs, n_max, pos, bias, alibi); "slice" = a Llama-7B
-    # fused decode step: 8 rows at ragged depths, 16-block tables
+    # fused decode step: 8 rows at ragged depths, 16-block tables;
+    # "serve_width" = the serve's real table (n_max 4096 / 128), one row at
+    # its last slot (32 live splits), one at 0 (31 empty splits)
     paged_cases = {
         "slice": (8, 32, 32, 128, 128, 16, [543, 31, 127, 128, 300, 0, 511, 255], False, False),
+        "serve_width": (8, 32, 32, 128, 128, 32, [4095, 0, 543, 31, 1000, 2047, 128, 300],
+                        False, False),
         "gqa4_bias_alibi": (3, 32, 8, 128, 128, 4, [127, 128, 511], True, True),
         "gpt2_hd64_boundaries": (4, 12, 12, 64, 128, 8, [0, 255, 256, 1023], False, False),
         "g2_hd64_bs256_bias": (2, 8, 4, 64, 256, 3, [255, 700], True, False),
@@ -473,13 +527,18 @@ def phase_kernel(state, seed):
         plain = lambda: pda.paged_decode_attention_plain(q, kp, vp, bt, pos_t, pad, slopes)
         o, ro = run(), plain()
         faults = _paged_faults(pda, q, kp, vp, bt, pos_t, pad, slopes)
+        faults.update(_split_faults(pda.paged_decode_partials_plain(q, kp, vp, bt, pos_t, pad,
+                                                                    slopes),
+                                    q.dtype, pda.merge_partials_plain, mid=not alibi))
         torch.cuda.synchronize()
         rec = {"kernel": "paged_decode_attention", "case": name,
                "shape": [B, H, KV, Hd, bs, n_max], "pos": pos, "bias": bias, "alibi": alibi,
                **_hold("paged_decode_attention", name, [o], [ro],
                        {f: [r] for f, r in faults.items()}, failures)}
         if name == "slice":
+            _repeat("paged_decode_attention", name, run, o, rec, failures)
             rec["ms"] = cuda_ms(run)
+            rec["device_ms"] = device_ms(run)
             rec["plain_ms"] = cuda_ms(plain, reps=20)
             rec["library_ms"] = None
             elem = q.element_size()
@@ -520,9 +579,11 @@ def _dense_faults(dda, q, ck, cv, pos, pad, slopes):
 
 
 def _check_dense_decode(gen, results, failures):
-    """Kernel G5 (the dense decode kernel, TPU K5) against its plain version
-    at the generate phase's shape (Llama-7B heads, 8 rows, a 1024-slot
-    workspace at pos 575) and at edge shapes; timed at the generate shape
+    """The dense decode kernel (TPU K5) against its plain version at the
+    generate phase's shape (Llama-7B heads, 8 rows, a 1024-slot workspace at
+    pos 575), at a 4096-slot workspace at its last slot (32 splits) and at
+    edge shapes, with faults planted in the plain version and in its split
+    algorithm; two launches bit-equal and timed at the generate shape
     against SDPA of one query over the live prefix."""
     import torch
     import torch.nn.functional as F
@@ -534,6 +595,7 @@ def _check_dense_decode(gen, results, failures):
         "gqa4_pos0_bias": (2, 32, 8, 128, 256, 0, True, False),
         "gqa8_last_slot_alibi": (3, 16, 2, 128, 384, 383, False, True),
         "gpt2_hd64_bias_alibi": (2, 12, 12, 64, 512, 200, True, True),
+        "smax4096_last_slot": (GEN_BATCH, 32, 32, 128, 4096, 4095, False, False),
     }
     for name, (B, H, KV, Hd, Smax, pos, bias, alibi) in cases.items():
         q = torch.randn((B, H, Hd), generator=gen, device=dev).to(dt)
@@ -545,20 +607,25 @@ def _check_dense_decode(gen, results, failures):
         plain = lambda: dda.decode_attention_plain(q, ck, cv, pos, pad, slopes)
         o, ro = run(), plain()
         faults = _dense_faults(dda, q, ck, cv, pos, pad, slopes)
+        faults.update(_split_faults(dda.decode_partials_plain(q, ck, cv, pos, pad, slopes),
+                                    q.dtype, dda.merge_partials_plain, mid=not alibi))
         torch.cuda.synchronize()
         rec = {"kernel": "dense_decode_attention", "case": name,
                "shape": [B, H, KV, Hd, Smax], "pos": pos, "bias": bias, "alibi": alibi,
                **_hold("dense_decode_attention", name, [o], [ro],
                        {f: [r] for f, r in faults.items()}, failures)}
         if name == "slice":
+            _repeat("dense_decode_attention", name, run, o, rec, failures)
             rec["ms"] = cuda_ms(run)
+            rec["device_ms"] = device_ms(run)
             rec["plain_ms"] = cuda_ms(plain, reps=20)
             G = H // KV
             qt = (q * Hd**-0.5).reshape(B, H, 1, Hd)
             kt = ck[:, :pos + 1].transpose(1, 2).repeat_interleave(G, dim=1).contiguous()
             vt = cv[:, :pos + 1].transpose(1, 2).repeat_interleave(G, dim=1).contiguous()
-            rec["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt,
-                                                                               scale=1.0))
+            sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=1.0)
+            rec["library_ms"] = cuda_ms(sdpa)
+            rec["library_device_ms"] = device_ms(sdpa)
             rec["library"] = "SDPA of one query over the live prefix (GQA repeated outside)"
             live = B * (pos + 1) * KV * Hd
             nbytes = q.element_size() * (2 * q.numel() + 2 * live)
@@ -2025,7 +2092,9 @@ def _kernel_class(name):
                         ("flash_bwd_dkv_kernel", "flash_bwd_dkv"),
                         ("fused_adam_kernel", "fused_adam"),
                         ("paged_decode_kernel", "paged_decode_attention"),
+                        ("paged_decode_combine_kernel", "paged_decode_attention"),
                         ("dense_decode_kernel", "dense_decode_attention"),
+                        ("dense_decode_combine_kernel", "dense_decode_attention"),
                         ("fused_ce_fwd_kernel", "fused_ce_fwd"),
                         ("fused_ce_combine_kernel", "fused_ce_fwd"),
                         ("fused_ce_ds_kernel", "fused_ce_ds"),

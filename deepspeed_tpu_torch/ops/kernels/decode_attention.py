@@ -7,18 +7,21 @@ workspace ``[B, Smax, KV, Hd]`` of static generation, with one position
 ``pos`` for the whole batch (keys past it masked), an optional additive pad
 bias ``[B, Smax]`` and ALiBi slopes.
 
-What bounds it on the H100, and what the simple design does about it: a
-decode step does about one FLOP per K/V byte per query head of the group,
-far below the bf16 ridge, so it is bound by the live K/V bytes over
-3.35 TB/s. One CTA serves a (kv head, row) with all ``H // KV`` query heads
-of the group, so each live K/V byte is read once, and walks only the
-128-key blocks up to ``pos``; the loop body is shared with the paged kernel
-(``csrc/decode_attention.cuh``).
+What bounds it on the H100, and what the design does about it: a decode
+step does about one FLOP per K/V byte per query head of the group, far below
+the bf16 ridge, so it is bound by the live K/V bytes over 3.35 TB/s. The
+live prefix ``[0, pos]`` of every row is cut into ``pos // 128 + 1`` splits
+of 128 keys spread over CTAs, each streaming its K/V tiles through an
+asynchronous shared-memory ring for all ``H // KV`` query heads of its kv
+group (each live byte is read once per group) and writing one fp32 partial;
+a second kernel merges each row's partials in split order. The device body
+is shared with the paged kernel (``csrc/decode_attention.cuh``).
 
 :func:`decode_attention` returns None off the JAX kernel's envelope (so both
 packages take the same path), takes the plain version for CPU tensors only,
-and for CUDA tensors launches the kernel or raises. ``pos`` is a host int.
-``launches`` counts kernel launches.
+and for CUDA tensors launches the kernel or raises. ``pos`` is a host int, so
+the split count is known on the host. ``launches`` counts calls that
+launched the kernels (the split kernel and its combine: one a call).
 """
 
 from __future__ import annotations
@@ -30,8 +33,11 @@ import torch
 
 from deepspeed_tpu_torch.ops.kernels import build
 # the two decode kernels share one device body, so one set of instantiations
-from deepspeed_tpu_torch.ops.kernels.paged_decode_attention import (_DTYPE_CODE, _KERNEL_GROUPS,
-                                                                    _check)
+from deepspeed_tpu_torch.ops.kernels.paged_decode_attention import (SPLIT_KEYS, _DTYPE_CODE,
+                                                                    _KERNEL_GROUPS, _check,
+                                                                    _launch,
+                                                                    merge_partials_plain,
+                                                                    split_partials_plain)
 
 _NEG = -1e30
 
@@ -45,12 +51,43 @@ def dense_envelope_ok(H: int, KV: int, Hd: int, Smax: int) -> bool:
     return H % KV == 0 and Hd % 64 == 0 and Smax % 128 == 0
 
 
+def decode_partials_plain(q, ck, cv, pos: int, pad_bias=None, alibi_slopes=None,
+                          scale: Optional[float] = None, splits: Optional[int] = None):
+    """The kernel's per-split partials in plain PyTorch: ``splits`` splits
+    (default one per :data:`SPLIT_KEYS` keys of ``Smax``, the kernel's, whose
+    splits past ``pos`` it never launches) of ``ceil(Smax / splits)`` keys.
+    Returns m, l, acc (as :func:`split_partials_plain`) and ``live``
+    ``[B, S]``: the splits that start at or before ``pos``."""
+    B, H, Hd = q.shape
+    Smax, KV = ck.shape[1], ck.shape[2]
+    G = H // KV
+    scale = Hd**-0.5 if scale is None else scale
+    qs = (q * scale).float().reshape(B, KV, G, Hd)
+    s = torch.einsum("bcgd,bscd->bcgs", qs, ck.float())
+    rel = (torch.arange(Smax, device=q.device) - pos).float()
+    if alibi_slopes is not None:
+        s = s + alibi_slopes.float().reshape(1, KV, G, 1) * rel
+    if pad_bias is not None:
+        s = s + pad_bias.float()[:, None, None, :]
+    s = torch.where(rel <= 0, s, torch.full_like(s, _NEG))
+    width = -(-Smax // (splits or -(-Smax // SPLIT_KEYS)))
+    m, l, acc = split_partials_plain(s, cv.float(), width)
+    live = (torch.arange(m.shape[-1], device=q.device) * width <= pos)[None, :].expand(B, -1)
+    return m, l, acc, live
+
+
 def decode_attention_plain(q, ck, cv, pos: int, pad_bias=None, alibi_slopes=None,
-                           scale: Optional[float] = None):
+                           scale: Optional[float] = None, splits: Optional[int] = None):
     """The kernel's math in plain PyTorch: q pre-scaled in its own dtype,
     then fp32 scores over the live keys ``[0, pos]`` (the masked tail adds
     exactly zero), ALiBi and pad bias over key positions, natural-exp
-    softmax, output in q's dtype."""
+    softmax, output in q's dtype. With ``splits`` it runs the kernel's
+    algorithm: per-split partials merged in split order
+    (:func:`decode_partials_plain`); without, one pass over the live keys."""
+    if splits is not None:
+        m, l, acc, live = decode_partials_plain(q, ck, cv, pos, pad_bias, alibi_slopes, scale,
+                                                splits)
+        return merge_partials_plain(m, l, acc, live, q.dtype)
     B, H, Hd = q.shape
     KV = ck.shape[2]
     G = H // KV
@@ -73,14 +110,14 @@ def _lib():
     fn = build.load("dense_decode_attention").ds_dense_decode_attention
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, p]
+        fn.argtypes = [p, p, p, p, p, p, p, ctypes.c_float, i, i, i, i, i, i, i, p]
         fn.restype = ctypes.c_int
     return fn
 
 
 def decode_attention_cuda(q, ck, cv, pos: int, pad_bias=None, alibi_slopes=None,
                           scale: Optional[float] = None):
-    """Launch the kernel on CUDA tensors (shape inside the envelope)."""
+    """Launch the kernels on CUDA tensors (shape inside the envelope)."""
     global launches
     B, H, Hd = q.shape
     Smax, KV = ck.shape[1], ck.shape[2]
@@ -92,8 +129,8 @@ def decode_attention_cuda(q, ck, cv, pos: int, pad_bias=None, alibi_slopes=None,
     if not 0 <= pos < Smax:
         raise ValueError(f"pos {pos} outside the cache [0, {Smax})")
     scale = Hd**-0.5 if scale is None else scale
-    qs = (q * scale).contiguous()          # pre-scaled in q's dtype, as the TPU kernel
-    _check("q", qs, q, (B, H, Hd), q.dtype)
+    q = q.contiguous()                     # the kernel pre-scales it in q's dtype
+    _check("q", q, q, (B, H, Hd), q.dtype)
     _check("ck", ck, q, (B, Smax, KV, Hd), q.dtype)
     _check("cv", cv, q, (B, Smax, KV, Hd), q.dtype)
     bias = slopes = None
@@ -102,14 +139,13 @@ def decode_attention_cuda(q, ck, cv, pos: int, pad_bias=None, alibi_slopes=None,
         _check("pad_bias", bias, q, (B, Smax), torch.float32)
     if alibi_slopes is not None:
         slopes = alibi_slopes.to(device=q.device, dtype=torch.float32).reshape(H).contiguous()
-    out = torch.empty_like(qs)
-    fn = _lib()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(qs.data_ptr(), ck.data_ptr(), cv.data_ptr(),
-                None if bias is None else bias.data_ptr(),
-                None if slopes is None else slopes.data_ptr(), out.data_ptr(),
-                B, H, KV, Hd, Smax, pos, _DTYPE_CODE[q.dtype], stream)
+    splits = pos // SPLIT_KEYS + 1
+    out = torch.empty_like(q)
+    part = torch.empty(B * H * splits * (Hd + 2), device=q.device, dtype=torch.float32)
+    rc = _launch(_lib(), q, q.data_ptr(), ck.data_ptr(), cv.data_ptr(),
+                 None if bias is None else bias.data_ptr(),
+                 None if slopes is None else slopes.data_ptr(), out.data_ptr(),
+                 part.data_ptr(), scale, B, H, KV, Hd, Smax, pos, _DTYPE_CODE[q.dtype])
     if rc != 0:
         raise RuntimeError(f"decode_attention launch failed: CUDA error {rc}")
     launches += 1

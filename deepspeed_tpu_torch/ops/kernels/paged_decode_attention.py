@@ -7,18 +7,24 @@ kept as a pool of fixed-size blocks ``[num_blocks, block_size, KV, Hd]``
 shared by every request, each request reading its blocks through its row of
 ``block_tables`` with its own position ``pos[b]``.
 
-What bounds it on the H100, and what the simple design does about it: a
-decode step does about one FLOP per K/V byte per query head of the group,
-far below the bf16 ridge, so it is bound by the live K/V bytes over
-3.35 TB/s. The kernel reads each live K/V byte once per kv group (all
-``H // KV`` query heads of the group share one CTA), walks only the blocks
-up to ``pos[b]``, and keeps the running softmax in fp32. It does not split
-a long history over several CTAs yet.
+What bounds it on the H100, and what the design does about it: a decode
+step does about one FLOP per K/V byte per query head of the group, far below
+the bf16 ridge, so it is bound by the live K/V bytes over 3.35 TB/s. The
+kernel cuts each request's keys into splits of :data:`SPLIT_KEYS` keys
+spread over CTAs (flash-decoding), each CTA streaming its K/V tiles through
+an asynchronous shared-memory ring and writing one fp32 partial (m, l, acc)
+for all ``H // KV`` query heads of its kv group (each live byte is read once
+per group); a second kernel merges a request's partials in split order, so
+two launches give the same bits. The split count comes from shapes alone
+(``n_max * block_size / 128``): a CTA whose splits lie past ``pos[b]``
+returns at once, and the launch never reads the device.
 
 :func:`paged_decode_attention` returns None off the kernel's envelope (as
 the JAX function does), takes the plain version for CPU tensors only, and
-for CUDA tensors launches the kernel or raises. ``launches`` counts kernel
-launches.
+for CUDA tensors launches the kernel or raises. ``launches`` counts calls
+that launched the kernels (the split kernel and its combine: one a call). :func:`split_partials_plain` and :func:`merge_partials_plain` are
+the kernel's split algorithm in plain PyTorch (``splits=`` of the plain
+versions).
 """
 
 from __future__ import annotations
@@ -27,10 +33,13 @@ import ctypes
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from deepspeed_tpu_torch.ops.kernels import build
 
 _NEG = -1e30
+#: keys of one split (one fp32 partial): ``kSplitKeys`` in ``csrc/decode_attention.cuh``
+SPLIT_KEYS = 128
 
 #: kernel launches since the last reset (set it to 0 to start counting)
 launches = 0
@@ -46,11 +55,49 @@ def paged_envelope_ok(H: int, KV: int, Hd: int, bs: int) -> bool:
     return H % KV == 0 and Hd % 64 == 0 and bs % 128 == 0
 
 
-def paged_decode_attention_plain(q, kp, vp, block_tables, pos, pad_bias=None,
-                                 alibi_slopes=None, scale: Optional[float] = None):
-    """The kernel's math in plain PyTorch: q pre-scaled in its own dtype,
-    then fp32 scores over the gathered table, ALiBi and pad bias over
-    logical positions, keys past ``pos[b]`` masked, natural-exp softmax."""
+def split_partials_plain(s, v, width: int):
+    """Per-split fp32 partials of the kernel's split algorithm: scores ``s``
+    ``[B, KV, G, T]`` (keys past pos already at -1e30) and values ``v``
+    ``[B, T, KV, Hd]`` cut into splits of ``width`` keys (the last padded
+    with masked keys); each split's max ``m``, sum ``l`` of exp(s - m) and
+    ``acc`` = sum of exp(s - m) v. Returns m, l ``[B, KV, G, S]`` and acc
+    ``[B, KV, G, S, Hd]``."""
+    B, KV, G, T = s.shape
+    Hd = v.shape[-1]
+    S = -(-T // width)
+    pad = S * width - T
+    if pad:
+        s = F.pad(s, (0, pad), value=_NEG)
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    s = s.reshape(B, KV, G, S, width)
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    acc = torch.einsum("bcgsw,bswcd->bcgsd", p, v.reshape(B, S, width, KV, Hd))
+    return m, p.sum(dim=-1), acc
+
+
+def merge_partials_plain(m, l, acc, live, dtype, rescale: bool = True):
+    """The combine kernel's merge: over the splits with ``live`` ``[B, S]``
+    set, M = max m, then in split order L = sum l e^(m - M) and
+    A = sum acc e^(m - M); returns A / L as ``[B, KV * G, Hd]`` in
+    ``dtype``. ``rescale=False`` leaves out the e^(m - M) factor (a planted
+    fault)."""
+    B, KV, G, S = m.shape
+    lv = live[:, None, None, :]
+    big = torch.where(lv, m, torch.full_like(m, _NEG)).amax(dim=-1, keepdim=True)
+    w = torch.exp(m - big) if rescale else torch.ones_like(m)
+    w = torch.where(lv, w, torch.zeros_like(w))
+    L = torch.zeros_like(m[..., 0])
+    A = torch.zeros_like(acc[..., 0, :])
+    for i in range(S):
+        L = L + l[..., i] * w[..., i]
+        A = A + acc[..., i, :] * w[..., i, None]
+    return (A / L[..., None]).reshape(B, KV * G, -1).to(dtype)
+
+
+def _paged_scores(q, kp, vp, block_tables, pos, pad_bias, alibi_slopes, scale):
+    """fp32 scores ``[B, KV, G, n_max * bs]`` over the gathered table (keys
+    past ``pos[b]`` at -1e30) and the gathered fp32 values."""
     B, H, Hd = q.shape
     Nb, bs, KV = kp.shape[0], kp.shape[1], kp.shape[2]
     G = H // KV
@@ -72,6 +119,40 @@ def paged_decode_attention_plain(q, kp, vp, block_tables, pos, pad_bias=None,
     if pad_bias is not None:
         s = s + pad_bias.float()[:, None, None, :]
     s = torch.where(rel[:, None, None, :] <= 0, s, torch.full_like(s, _NEG))
+    return s, v
+
+
+def paged_decode_partials_plain(q, kp, vp, block_tables, pos, pad_bias=None,
+                                alibi_slopes=None, scale: Optional[float] = None,
+                                splits: Optional[int] = None):
+    """The kernel's per-split partials in plain PyTorch: ``splits`` splits
+    (default one per :data:`SPLIT_KEYS` keys, the kernel's) of
+    ``ceil(n_max * bs / splits)`` keys each. Returns m, l, acc (as
+    :func:`split_partials_plain`) and ``live`` ``[B, S]``: the splits that
+    start at or before ``pos[b]``."""
+    s, v = _paged_scores(q, kp, vp, block_tables, pos, pad_bias, alibi_slopes, scale)
+    T = s.shape[-1]
+    width = -(-T // (splits or -(-T // SPLIT_KEYS)))
+    m, l, acc = split_partials_plain(s, v, width)
+    start = torch.arange(m.shape[-1], device=q.device) * width
+    return m, l, acc, start[None, :] <= pos.long()[:, None]
+
+
+def paged_decode_attention_plain(q, kp, vp, block_tables, pos, pad_bias=None,
+                                 alibi_slopes=None, scale: Optional[float] = None,
+                                 splits: Optional[int] = None):
+    """The kernel's math in plain PyTorch: q pre-scaled in its own dtype,
+    then fp32 scores over the gathered table, ALiBi and pad bias over
+    logical positions, keys past ``pos[b]`` masked, natural-exp softmax.
+    With ``splits`` it runs the kernel's algorithm: per-split partials
+    merged in split order (:func:`paged_decode_partials_plain`); without,
+    one pass over all keys."""
+    if splits is not None:
+        m, l, acc, live = paged_decode_partials_plain(q, kp, vp, block_tables, pos, pad_bias,
+                                                      alibi_slopes, scale, splits)
+        return merge_partials_plain(m, l, acc, live, q.dtype)
+    B, H, Hd = q.shape
+    s, v = _paged_scores(q, kp, vp, block_tables, pos, pad_bias, alibi_slopes, scale)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     o = torch.einsum("bcgs,bscd->bcgd", p, v) / p.sum(dim=-1, keepdim=True)
@@ -83,7 +164,7 @@ def _lib():
     fn = lib.ds_paged_decode_attention
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
+        fn.argtypes = [p, p, p, p, p, p, p, p, p, ctypes.c_float, i, i, i, i, i, i, i, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -101,9 +182,21 @@ def _check(name, x, ref, shape, dtype):
         raise ValueError(f"{name} must be 16-byte aligned")
 
 
+def _launch(fn, q, *args):
+    """Call ``fn`` (a decode kernel's C entry) as ``fn(*args, stream)`` on
+    q's device and its current stream (read without building a Stream
+    object: the wrapper's host time is most of a decode call's)."""
+    idx = q.device.index
+    if idx != torch.cuda.current_device():
+        with torch.cuda.device(idx):
+            return _launch(fn, q, *args)
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    return fn(*args, raw(idx) if raw is not None else torch.cuda.current_stream(idx).cuda_stream)
+
+
 def paged_decode_attention_cuda(q, kp, vp, block_tables, pos, pad_bias=None,
                                 alibi_slopes=None, scale: Optional[float] = None):
-    """Launch the kernel on CUDA tensors (shape inside the envelope)."""
+    """Launch the kernels on CUDA tensors (shape inside the envelope)."""
     global launches
     B, H, Hd = q.shape
     Nb, bs, KV = kp.shape[0], kp.shape[1], kp.shape[2]
@@ -114,8 +207,8 @@ def paged_decode_attention_cuda(q, kp, vp, block_tables, pos, pad_bias=None,
         raise ValueError(f"paged_decode_attention kernel takes head_dim 64/128 and "
                          f"H/KV in {_KERNEL_GROUPS}, got Hd={Hd}, H/KV={H // KV}")
     scale = Hd**-0.5 if scale is None else scale
-    qs = (q * scale).contiguous()          # pre-scaled in q's dtype, as the TPU kernel
-    _check("q", qs, q, (B, H, Hd), q.dtype)
+    q = q.contiguous()                     # the kernel pre-scales it in q's dtype
+    _check("q", q, q, (B, H, Hd), q.dtype)
     _check("kp", kp, q, (Nb, bs, KV, Hd), q.dtype)
     _check("vp", vp, q, (Nb, bs, KV, Hd), q.dtype)
     _check("block_tables", block_tables, q, (B, n_max), torch.int32)
@@ -126,14 +219,14 @@ def paged_decode_attention_cuda(q, kp, vp, block_tables, pos, pad_bias=None,
         _check("pad_bias", bias, q, (B, n_max * bs), torch.float32)
     if alibi_slopes is not None:
         slopes = alibi_slopes.to(device=q.device, dtype=torch.float32).reshape(H).contiguous()
-    out = torch.empty_like(qs)
-    fn = _lib()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(qs.data_ptr(), kp.data_ptr(), vp.data_ptr(), block_tables.data_ptr(),
-                pos.data_ptr(), None if bias is None else bias.data_ptr(),
-                None if slopes is None else slopes.data_ptr(), out.data_ptr(),
-                B, H, KV, Hd, bs, n_max, _DTYPE_CODE[q.dtype], stream)
+    splits = n_max * bs // SPLIT_KEYS     # bs % 128 == 0 (the envelope)
+    out = torch.empty_like(q)
+    part = torch.empty(B * H * splits * (Hd + 2), device=q.device, dtype=torch.float32)
+    rc = _launch(_lib(), q, q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+                 block_tables.data_ptr(), pos.data_ptr(),
+                 None if bias is None else bias.data_ptr(),
+                 None if slopes is None else slopes.data_ptr(), out.data_ptr(),
+                 part.data_ptr(), scale, B, H, KV, Hd, bs, n_max, _DTYPE_CODE[q.dtype])
     if rc != 0:
         raise RuntimeError(f"paged_decode_attention launch failed: CUDA error {rc}")
     launches += 1

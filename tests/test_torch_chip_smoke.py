@@ -14,8 +14,10 @@ import torch
 import chip_smoke
 import deepspeed_tpu_torch
 from deepspeed_tpu_torch.models import CausalLM, TransformerConfig
+from deepspeed_tpu_torch.ops.kernels import decode_attention as dda
 from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
 from deepspeed_tpu_torch.ops.kernels import fused_cross_entropy as fce
+from deepspeed_tpu_torch.ops.kernels import paged_decode_attention as pda
 
 LLAMA = dict(vocab_size=64, max_seq=384, n_layer=2, n_head=4, n_kv_head=2, d_model=256,
              d_ff=512, pos_embedding="rope", norm="rmsnorm", activation="swiglu",
@@ -98,6 +100,12 @@ def test_generate_parity_sees_a_planted_decode_fault(engine):
     ("void (anonymous namespace)::flash_bwd_dq_kernel<__half, 64>(__half const*)",
      "flash_bwd_dq"),
     ("sm90_xmma_gemm_bf16bf16_bf16f32", "matmul"),
+    ("void (anonymous namespace)::paged_decode_combine_kernel<__nv_bfloat16, 128, 1>(float "
+     "const*, int const*, __nv_bfloat16*, int, int, int, int)", "paged_decode_attention"),
+    ("void (anonymous namespace)::dense_decode_combine_kernel<__half, 64, 4>(float const*, "
+     "__half*, int, int, int, int)", "dense_decode_attention"),
+    ("void (anonymous namespace)::dense_decode_kernel<__nv_bfloat16, 128, 1>(__nv_bfloat16 "
+     "const*)", "dense_decode_attention"),
 ])
 def test_kernel_class_maps_the_attention_kernels(name, cls):
     assert chip_smoke._kernel_class(name) == cls
@@ -163,6 +171,36 @@ def test_fused_ce_faults_read_above_the_limit(N, D, V, bias, tied):
     assert err(fce.fused_ce_combine_plain(fce.fused_ce_fwd_tiles_plain(h, w, b, labels))) < 1e-5
 
 
+@pytest.mark.parametrize("kind", ["paged", "dense"])
+def test_decode_split_faults_read_above_the_limit(kind):
+    """The decode kernels' split algorithm in plain PyTorch reads within
+    ULP_TOL of the one-pass plain version (bf16 in and out), and its planted
+    faults (the middle split's partial dropped, the combine's rescale left
+    out) read above it."""
+    r = np.random.default_rng(7)
+    bf = lambda *shape: torch.from_numpy(r.normal(size=shape).astype(np.float32)).bfloat16()
+    q = bf(3, 8, 64)
+    if kind == "paged":
+        kp, vp = bf(19, 128, 2, 64), bf(19, 128, 2, 64)
+        bt = torch.from_numpy((r.permutation(18)[:18] + 1).reshape(3, 6).astype(np.int32))
+        pos = torch.tensor([700, 0, 300], dtype=torch.int32)
+        args = (q, kp, vp, bt, pos)
+        ref = pda.paged_decode_attention_plain(*args)
+        sound = pda.paged_decode_attention_plain(*args, splits=6)
+        faults = chip_smoke._split_faults(pda.paged_decode_partials_plain(*args),
+                                          q.dtype, pda.merge_partials_plain)
+    else:
+        ck, cv = bf(3, 768, 2, 64), bf(3, 768, 2, 64)
+        ref = dda.decode_attention_plain(q, ck, cv, 600)
+        sound = dda.decode_attention_plain(q, ck, cv, 600, splits=6)
+        faults = chip_smoke._split_faults(dda.decode_partials_plain(q, ck, cv, 600),
+                                          q.dtype, dda.merge_partials_plain)
+    assert chip_smoke.ulp_err(sound, ref) <= chip_smoke.ULP_TOL
+    assert set(faults) == {"mid_split_dropped", "combine_unscaled"}
+    for name, bad in faults.items():
+        assert chip_smoke.ulp_err(bad, ref) > chip_smoke.ULP_TOL, name
+
+
 _PTXAS = """ptxas info    : Compiling entry function '{name}' for 'sm_90a'
 ptxas info    : Function properties for {name}
     0 bytes stack frame, {spill} bytes spill stores, {spill} bytes spill loads
@@ -183,4 +221,18 @@ def test_ptxas_records_of_c_and_f_and_the_spill_gate():
     assert rows["flash_bwd_dq_kernel bf16 hd128"] == {"registers": 168, "smem_bytes": 0,
                                                       "spill_bytes": 0}
     assert rows["fused_ce_fwd_kernel fp16"]["spill_bytes"] == 8 and not warnings
-    assert chip_smoke.wgmma_spills(rows) == {"fused_ce_fwd_kernel fp16": 8}
+    assert chip_smoke.spilling_kernels(rows) == {"fused_ce_fwd_kernel fp16": 8}
+
+
+@pytest.mark.parametrize("kernel", ["paged_decode_kernel", "paged_decode_combine_kernel",
+                                    "dense_decode_kernel", "dense_decode_combine_kernel"])
+def test_spill_gate_holds_the_decode_kernels(kernel):
+    """The decode kernels and their combine kernels have rows of their own
+    (one per dtype and head dim, the worst group size), and a spill in any
+    of them fails the build phase."""
+    name = f"_ZN12_GLOBAL__N_1{len(kernel)}{kernel}I13__nv_bfloat16Li64ELi8EEEvPKT_"
+    rows, _ = chip_smoke.ptxas_summary({"decode": _PTXAS.format(name=name, spill=0)
+                                        + _PTXAS.format(name=name.replace("Li8E", "Li2E"),
+                                                        spill=12)})
+    assert set(rows) == {f"{kernel} bf16 hd64"}
+    assert chip_smoke.spilling_kernels(rows) == {f"{kernel} bf16 hd64": 24}

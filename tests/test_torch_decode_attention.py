@@ -2,9 +2,11 @@
 (K5, interpret mode), mirroring ``tests/unit/ops/test_decode_attention.py``:
 MHA, GQA and MQA, Hd 64 and 128, Smax 128-512, pos at the first token, mid
 and the last slot, pad bias and ALiBi on and off, and random configurations.
-fp32, 2e-5 absolute (fp32 sums in another order). A bf16 cache keeps bf16
-out, within one bf16 ulp of the JAX kernel. Off-envelope shapes return None
-in both."""
+fp32, 2e-5 absolute (fp32 sums in another order). The kernel's split
+algorithm (``splits=``: 1, 2 and one per 128-key block, at pos 0, on a split
+boundary and with the later splits empty) against the same kernel at 1e-5.
+A bf16 cache keeps bf16 out, within one bf16 ulp of the JAX kernel.
+Off-envelope shapes return None in both."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -67,6 +69,36 @@ def test_random_configurations(seed):
     q, ck, cv, pad, slopes = _case(r, B, H, KV, Hd, Smax, r.integers(0, 2), r.integers(0, 2))
     got, want = _both(q, ck, cv, pos, pad, slopes)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=5e-5, rtol=0)
+
+
+# (B, H, KV, Hd, Smax, pos, bias, alibi): pos 0; pos on a split boundary
+# (the first key of split 1); the last key of a split at G 4; later splits
+# all empty (pos 300 of 1024 slots)
+SPLIT_CASES = [
+    (2, 4, 4, 64, 512, 0, False, False),
+    (2, 4, 4, 64, 512, 128, True, True),
+    (2, 8, 2, 64, 512, 255, False, True),
+    (1, 8, 2, 128, 1024, 300, True, False),
+]
+
+
+@pytest.mark.parametrize("B,H,KV,Hd,Smax,pos,bias,alibi", SPLIT_CASES)
+@pytest.mark.parametrize("splits", [1, 2, "per_block"])
+def test_split_plain_matches_jax_kernel(B, H, KV, Hd, Smax, pos, bias, alibi, splits):
+    """The kernel's split algorithm in plain PyTorch (per-split fp32
+    partials merged in split order; one split per 128-key block is the
+    kernel's) against the JAX kernel, fp32, 1e-5."""
+    splits = Smax // 128 if splits == "per_block" else splits
+    r = np.random.default_rng(Smax + pos + H)
+    q, ck, cv, pad, slopes = _case(r, B, H, KV, Hd, Smax, bias, alibi)
+    _, want = _both(q, ck, cv, pos, pad, slopes)
+    t = lambda x: None if x is None else torch.from_numpy(x)
+    got = dda.decode_attention_plain(t(q), t(ck), t(cv), pos, t(pad), t(slopes), splits=splits)
+    assert got.shape == (B, H, Hd)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=0)
+    m, l, acc, live = dda.decode_partials_plain(t(q), t(ck), t(cv), pos, splits=splits)
+    width = -(-Smax // splits)
+    assert live[0].tolist() == [i * width <= pos for i in range(splits)]
 
 
 def test_bf16_cache():

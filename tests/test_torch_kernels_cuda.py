@@ -86,10 +86,15 @@ def test_flash_kernel_matches_plain(cuda, B, S, H, KV, Hd, causal, alibi, mask):
     (3, 32, 8, 128, 128, [127, 128, 511], True, True),
     (4, 12, 12, 64, 128, [0, 255, 256, 1023], False, False),
     (2, 16, 2, 128, 256, [5, 700], True, False),
+    # split boundaries (128 keys a split) and the serve's real table: n_max 32,
+    # one row at its last slot (32 live splits), one at 0 (31 empty splits)
+    (4, 32, 4, 128, 128, [127, 128, 255, 256], False, True),
+    (8, 32, 32, 128, 128, [4095, 0, 543, 31, 128, 2047, 1000, 255], False, False),
+    (2, 16, 2, 64, 256, [4095, 129], True, True),
 ])
 def test_paged_kernel_matches_plain(cuda, B, H, KV, Hd, bs, pos, bias, alibi):
     r = np.random.default_rng(B * H + bs)
-    n_max = max(pos) // bs + 2
+    n_max = min(max(pos) // bs + 2, 4096 // bs)     # a dead tail block, at most 4096 slots
     nb = B * n_max + 1
     kp, vp = _randn(r, (nb, bs, KV, Hd), cuda), _randn(r, (nb, bs, KV, Hd), cuda)
     q = _randn(r, (B, H, Hd), cuda)
@@ -108,6 +113,31 @@ def test_paged_kernel_matches_plain(cuda, B, H, KV, Hd, bs, pos, bias, alibi):
     torch.cuda.synchronize()
     assert pda.launches == n0 + 1
     assert _ulp_err(out, ref) <= ULP_TOL
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("G", [1, 8])
+def test_decode_kernels_repeat_bit_for_bit(cuda, dtype, G):
+    """Both decode kernels merge their per-split partials in split order,
+    without atomics: two launches give the same bits, at many splits."""
+    r = np.random.default_rng(G)
+    B, KV, Hd, bs, n_max = 4, 4, 128, 128, 16
+    H = KV * G
+    nb = B * n_max + 1
+    kp, vp = _randn(r, (nb, bs, KV, Hd), cuda, dtype), _randn(r, (nb, bs, KV, Hd), cuda, dtype)
+    q = _randn(r, (B, H, Hd), cuda, dtype)
+    bt = torch.from_numpy((r.permutation(nb - 1)[:B * n_max] + 1)
+                          .reshape(B, n_max).astype(np.int32)).to(cuda)
+    pos = torch.tensor([2047, 0, 700, 128], dtype=torch.int32, device=cuda)
+    a = pda.paged_decode_attention(q, kp, vp, bt, pos)
+    b = pda.paged_decode_attention(q, kp, vp, bt, pos)
+    ck, cv = _randn(r, (B, 2048, KV, Hd), cuda, dtype), _randn(r, (B, 2048, KV, Hd), cuda, dtype)
+    c = dda.decode_attention(q, ck, cv, 1500)
+    d = dda.decode_attention(q, ck, cv, 1500)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and torch.equal(c, d)
+    assert _ulp_err(a, pda.paged_decode_attention_plain(q, kp, vp, bt, pos)) <= ULP_TOL
+    assert _ulp_err(c, dda.decode_attention_plain(q, ck, cv, 1500)) <= ULP_TOL
 
 
 def test_wrappers_raise_instead_of_falling_back(cuda):
@@ -264,6 +294,9 @@ def test_fused_adam_kernel_matches_plain(cuda, n, p_dtype, g_dtype, emit, adam_w
     (2, 32, 8, 128, 256, 0, True, False),          # GQA 4, first token, pad bias
     (3, 16, 2, 128, 384, 383, False, True),        # GQA 8, last slot, ALiBi
     (2, 12, 12, 64, 512, 200, True, True),         # GPT-2 heads
+    (8, 32, 32, 128, 4096, 4095, False, False),    # 32 splits of 128 keys
+    (2, 32, 8, 128, 512, 128, True, True),         # pos on a split boundary
+    (3, 16, 16, 64, 1024, 127, False, True),       # the last key of split 0
 ])
 def test_dense_decode_kernel_matches_plain(cuda, B, H, KV, Hd, Smax, pos, bias, alibi):
     r = np.random.default_rng(B * H + Smax + pos)

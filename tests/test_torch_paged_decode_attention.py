@@ -2,7 +2,9 @@
 kernel (interpret mode) on random block tables, mirroring
 ``tests/unit/ops/test_paged_decode_attention.py``: B 1-3, KV in {1, 2, 4},
 Hd in {64, 128}, block size 128, pad bias and ALiBi on and off, positions on
-block boundaries. fp32, 1e-5. Off-envelope shapes return None in both."""
+block boundaries, and the kernel's split algorithm (``splits=``: 1, 2 and
+one per block, pos 0, on split boundaries, rows whose later splits are all
+empty). fp32, 1e-5. Off-envelope shapes return None in both."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -64,6 +66,42 @@ def test_positions_on_block_boundaries(Hd, G):
     pos = np.asarray([0, 127, 128, 255], np.int32)
     got, want = _both(q, kp, vp, bt, pos)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL, rtol=0)
+
+
+# (B, KV, G, Hd, n_max, pos, bias, alibi): pos 0, on a split boundary and at
+# the last slot; rows at very different depths under one n_max (the later
+# splits of most rows empty) at G 4 with pad bias and ALiBi; two rows past
+# the first split with a pad bias
+SPLIT_CASES = [
+    (3, 2, 1, 64, 4, [0, 128, 511], False, False),
+    (4, 2, 4, 128, 8, [1023, 0, 5, 127], True, True),
+    (2, 1, 4, 64, 6, [256, 640], True, False),
+]
+
+
+@pytest.mark.parametrize("B,KV,G,Hd,n_max,pos,bias,alibi", SPLIT_CASES)
+@pytest.mark.parametrize("splits", [1, 2, "per_block"])
+def test_split_plain_matches_jax_kernel(B, KV, G, Hd, n_max, pos, bias, alibi, splits):
+    """The kernel's split algorithm in plain PyTorch (per-split fp32
+    partials merged in split order, splits past pos[b] left out; one split
+    per 128-key block is the kernel's) against the JAX kernel, fp32, 1e-5."""
+    splits = n_max if splits == "per_block" else splits
+    r = np.random.default_rng(31 * B + n_max + G)
+    q, kp, vp, bt, _ = random_paged_case(r, B, KV, Hd, 128, n_max, G=G)
+    pos = np.asarray(pos, np.int32)
+    H = KV * G
+    pad = (r.normal(size=(B, n_max * 128)) * 0.2).astype(np.float32) if bias else None
+    slopes = r.uniform(0.05, 0.4, size=H).astype(np.float32) if alibi else None
+    _, want = _both(q, kp, vp, bt, pos, pad, slopes)
+    t = lambda x: None if x is None else torch.from_numpy(x)
+    got = pda.paged_decode_attention_plain(t(q), t(kp), t(vp), t(bt), t(pos), t(pad),
+                                           t(slopes), splits=splits)
+    assert got.shape == (B, H, Hd)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL, rtol=0)
+    live = pda.paged_decode_partials_plain(t(q), t(kp), t(vp), t(bt), t(pos),
+                                           splits=splits)[3]
+    width = -(-n_max * 128 // splits)
+    assert live.tolist() == [[i * width <= p for i in range(splits)] for p in pos]
 
 
 def test_dead_tail_entries_are_ignored():
