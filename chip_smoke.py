@@ -12,10 +12,12 @@ Phases, each printing one JSON line:
                 faults that must read above each limit (for the decode
                 kernels B and K5 also in their split algorithm: a middle
                 split's partial dropped, the combine's rescale left out),
-                two launches of A, B, C, D, F, G, dh, dW and K5 bit-equal,
-                its time, the plain version's, the library call's (SDPA for
-                attention, fused AdamW, F.linear + F.cross_entropy for the
-                fused CE) and the bound; B and K5 also by device time
+                two launches of A, B, C, D, F, G, dh, dW, K5, K8 and K8's
+                absmax bit-equal, K8's scales bit-equal to the plain
+                version's, its time, the plain version's, the library
+                call's (SDPA for attention, fused AdamW, F.linear +
+                F.cross_entropy for the fused CE, vector_norm(inf) for the
+                absmax) and the bound; B, K5 and K8 also by device time
   slice_parity  Llama-7B width cut to 2 layers: the same seeded weights served
                 on the card (kernels) and on the CPU (plain versions, fp32);
                 the CPU's greedy tokens fed to both sides' paged prefill and
@@ -61,8 +63,8 @@ Phases, each printing one JSON line:
                 batch, clipping, WarmupLR and fused CE: 1 warm-up + 5 timed
                 steps, every loss finite and falling, per step the LAMB
                 moments and apply kernels once per port leaf, the ratio kernel
-                once per JAX leaf, the stochastic-rounding kernel once per
-                port leaf of each quantized JAX leaf
+                once per JAX leaf, the stochastic-rounding kernel and its
+                absmax kernel once per port leaf of each quantized JAX leaf
   kernels       every ported kernel with its launches in the serve, generate,
                 train and train_lamb phases
   profile       (only with --phases profile) the serve phase's prompts through
@@ -71,6 +73,9 @@ Phases, each printing one JSON line:
   train_profile (only with --phases train_profile) one warm train step of the
                 train phase's configuration under torch.profiler: device
                 time by class and the device's idle share
+  train_lamb_profile (only with --phases train_lamb_profile) the same for
+                the train_lamb phase's configuration: K7's three kernels,
+                K8 and its absmax kernel among the classes
   generate_profile (only with --phases generate_profile) the generate
                 phase's call after a warm-up, timed and then under
                 torch.profiler: device time by class and the idle share
@@ -92,8 +97,8 @@ import time
 
 PHASES = ("env", "build", "kernel", "slice_parity", "serve", "generate_parity", "generate",
           "train_parity", "train", "train_lamb_parity", "train_lamb", "kernels", "profile",
-          "train_profile", "generate_profile")
-DEFAULT_PHASES = PHASES[:-3]      # the three profiles run only when asked for
+          "train_profile", "train_lamb_profile", "generate_profile")
+DEFAULT_PHASES = PHASES[:-4]      # the four profiles run only when asked for
 # Kernel vs plain version, bf16 outputs: the largest difference in each output
 # row (over head_dim), in bf16 ulps of that row's largest |plain| value, so
 # one limit holds at every output scale (a row over 500 keys is ~20x smaller
@@ -202,8 +207,8 @@ def cuda_ms(fn, reps=30, warmup=5):
     return statistics.median(times)
 
 
-def device_ms(fn, reps=20):
-    """Device time of one call of ``fn``: every kernel it launches, summed
+def device_ms_by_class(fn, reps=20):
+    """Device time of one call of ``fn`` by kernel class (:func:`_kernel_class`),
     from torch.profiler over ``reps`` calls after a warm-up (no host time,
     unlike :func:`cuda_ms`)."""
     import torch
@@ -215,7 +220,12 @@ def device_ms(fn, reps=20):
             fn()
         torch.cuda.synchronize()
     by_class, _ = _device_time(prof)
-    return sum(by_class.values()) / reps
+    return {c: ms / reps for c, ms in by_class.items()}
+
+
+def device_ms(fn, reps=20):
+    """Device time of one call of ``fn``: every kernel it launches."""
+    return sum(device_ms_by_class(fn, reps).values())
 
 
 def bound(nbytes, flops, peak_tflops=None):
@@ -254,7 +264,7 @@ _KERNEL_NAMES = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kerne
                  "fused_ce_fwd_kernel", "fused_ce_combine_kernel", "fused_ce_ds_kernel",
                  "fused_ce_db_kernel", "ce_dh_gemm_kernel", "ce_dw_gemm_kernel",
                  "lamb_moments_kernel", "lamb_ratio_kernel", "lamb_apply_kernel",
-                 "sr_quantize_kernel")
+                 "sr_quantize_kernel", "sr_absmax_kernel", "sr_scale_kernel")
 
 
 def ptxas_summary(log):
@@ -293,12 +303,14 @@ def ptxas_summary(log):
     return rows, warnings
 
 
-# kernels that must not spill: those on TMA + wgmma, and the two decode
-# kernels (split + cp.async ring) with their combine kernels
+# kernels that must not spill: those on TMA + wgmma, the two decode kernels
+# (split + cp.async ring) with their combine kernels, and K8 with its scale
+# pass
 _NO_SPILL_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
                      "fused_ce_fwd_kernel", "fused_ce_ds_kernel", "ce_dh_gemm_kernel",
                      "ce_dw_gemm_kernel", "paged_decode_kernel", "paged_decode_combine_kernel",
-                     "dense_decode_kernel", "dense_decode_combine_kernel")
+                     "dense_decode_kernel", "dense_decode_combine_kernel", "sr_quantize_kernel",
+                     "sr_absmax_kernel", "sr_scale_kernel")
 
 
 def spilling_kernels(rows):
@@ -314,7 +326,7 @@ def phase_build(state):
     bound's 168 registers; setmaxnreg moves the consumer warpgroups to 232
     (F, G, dh, dW, A) or 240 (C, D) at run time. Fails if ptxas spills in
     any of them, or in the decode kernels B and K5 or their combine kernels
-    (every dtype, head dim and group size)."""
+    (every dtype, head dim and group size), or in K8 or its scale pass."""
     from deepspeed_tpu_torch.ops.kernels import build
     seconds, log = build.build(ptxas_verbose=True)
     rows, warnings = ptxas_summary(log)
@@ -1229,63 +1241,193 @@ def _sr_plain(qk, leaves, groups, bits, seed, fault=None):
     return outs
 
 
+def _sr_leaves(gen, dtype, shapes, views):
+    """Seeded leaves of one stacked tensor. With ``views`` they are carved
+    out of one buffer at odd element offsets (a gap of one element before
+    each), so their addresses sit off 16-byte boundaries, as views of a
+    flat buffer would."""
+    import torch
+    sizes = [int(torch.Size(sh).numel()) for sh in shapes]
+    if not views:
+        return [torch.randn(sh, generator=gen, device="cuda").mul_(0.02).to(dtype)
+                for sh in shapes]
+    buf = torch.randn(sum(sizes) + 2 * len(sizes) + 1, generator=gen,
+                      device="cuda").mul_(0.02).to(dtype)
+    leaves, at = [], 3
+    for sh, n in zip(shapes, sizes):
+        leaves.append(buf[at:at + n].view(sh))
+        at += n + 1
+    return leaves
+
+
+def _group_pieces(leaves, groups):
+    """max |x| of every (group, leaf) piece of the stacked view, as
+    {group: [piece maxima in leaf order]} (fp32 on the card)."""
+    total = sum(t.numel() for t in leaves)
+    gs, pieces, off = total // groups, {}, 0
+    for t in leaves:
+        flat, n = t.reshape(-1), t.numel()
+        for g in range(off // gs, (off + n - 1) // gs + 1):
+            lo, hi = max(g * gs, off) - off, min((g + 1) * gs, off + n) - off
+            pieces.setdefault(g, []).append(flat[lo:hi].float().abs().amax())
+        off += n
+    return pieces
+
+
+def _scale_faults(qk, leaves, groups, bits):
+    """Planted faults of the scale pass: scales as amax times the fp32
+    reciprocal of qmax (what a CUDA tensor divided by a Python number
+    computes), and, where a group spans leaves, the piece that holds its max
+    left out of it."""
+    import torch
+    qmax = 2.0 ** (bits - 1) - 1
+    pieces = _group_pieces(leaves, groups)
+    amax = torch.stack([torch.stack(ps).max() for _, ps in sorted(pieces.items())])
+    one = torch.ones_like(amax)
+    recip = amax * torch.full((), 1.0 / qmax, dtype=torch.float32, device=amax.device)
+    faults = {"reciprocal_scale": torch.where(recip == 0, one, recip)}
+    if any(len(ps) > 1 for ps in pieces.values()):
+        dropped = torch.stack([torch.stack(ps).sort().values[-2] if len(ps) > 1
+                               else torch.stack(ps).max() for _, ps in sorted(pieces.items())])
+        faults["piece_left_out"] = torch.where(dropped == 0, one, qk._div(dropped, qmax))
+    return faults
+
+
+def _time_sr_quantize(qk, x, groups, bits, rec, results):
+    """Times at one leaf, in place: the quantization kernel alone (CUDA
+    events and device time), its plain version, the absmax pass (its
+    kernels' device time, the torch scale pass it replaces, the library's
+    group max), and the whole span call. Emits the absmax record."""
+    import torch
+    n, elem = x.numel(), x.element_size()
+    scale, qmax, gs = qk.span_scales([x], groups, bits)
+    plain_scale = qk._span_scales([x], groups, bits)[0]
+    quantize = lambda: qk._kernel(x, x, scale, gs, 0, qmax, 7)
+    rec["ms"] = cuda_ms(quantize)
+    rec["device_ms"] = device_ms(quantize)
+    flat = x.reshape(groups, -1)
+    rec["plain_ms"] = cuda_ms(lambda: qk.sr_quantize_plain(
+        flat, scale[:, None], qmax, qk.philox_uniform(7, 0, n, "cuda").reshape(
+            groups, -1)), reps=3, warmup=1)
+    rec["library_ms"] = None
+    rec["library"] = ("none (torch.fake_quantize_* rounds to nearest; no PyTorch call "
+                      "rounds stochastically)")
+    # x read and written once, the scales once; ~31 operations an element
+    # (Philox4x32-10 shared by four, then the rounding)
+    rec["bound_ms"], rec["bound_by"] = bound(2 * elem * n + 4 * groups, 31 * n,
+                                             FP32_PEAK_TFLOPS)
+    span = lambda: qk.ds_sr_quantize_span([x], groups, bits, seed=7, out=[x])
+    rec["span_ms"] = cuda_ms(span)
+    rec["span_device_ms"] = device_ms(span)
+    results["sr_quantize"] = rec
+
+    scales = lambda: qk.span_scales([x], groups, bits)
+    by_class = device_ms_by_class(scales)
+    abs_rec = {"kernel": "sr_absmax", "case": "embedding_leaf", "shape": list(x.shape),
+               "groups": groups, "bits": bits,
+               "max_abs_err": float((scale - plain_scale).abs().max()),
+               "ms": cuda_ms(scales), "device_ms": by_class.get("sr_absmax"),
+               "call_device_ms": sum(by_class.values()),
+               "plain_ms": cuda_ms(lambda: qk._span_scales([x], groups, bits)),
+               "library_ms": cuda_ms(lambda: torch.linalg.vector_norm(
+                   flat, float("inf"), dim=1, dtype=torch.float32)),
+               "library": "torch.linalg.vector_norm(ord=inf, dim=1): max |x| a group, "
+                          "without the division"}
+    # x read once, the scales written once; one max an element
+    abs_rec["bound_ms"], abs_rec["bound_by"] = bound(elem * n + 4 * groups, n, FP32_PEAK_TFLOPS)
+    results["sr_absmax"] = abs_rec
+    emit("kernel", **abs_rec)
+
+
 def _check_sr_quantize(gen, results, failures):
-    """K8 against its plain twin fed the same Philox draws, bit for bit
-    (the share of differing elements must be <= SR_MISMATCH_TOL, each
-    planted fault's above it), at the train path's largest leaf (the
-    embedding, 64 groups, 16 bits: the run's first bit width) and at the
-    w_up leaves of 8 layers with 43 groups of 2^23 elements, which span
-    layers (8 bits). Then its statistics on x = (k + 0.3) s: every output is
-    floor(x/s) s or (floor(x/s) + 1) s, the mean over 64 seeds is within 4
-    sigma of x, a seed repeats bit for bit, and adjacent blocks' rounding is
-    uncorrelated (|r| within 4 / sqrt(N)). Timed at the embedding leaf, in
-    place, the kernel alone (the scales are torch amax outside it)."""
+    """K8 and its group-absmax scale pass on the card. Scales: the kernel's
+    against the plain version's (torch amax per group piece, correctly
+    rounded division), bit for bit; planted faults read above 0 (the
+    reciprocal scale where a case has >= 1000 groups, so that some group
+    is certain to round differently; the max piece of a group spanning
+    leaves left out, where one does). Quantization: against its plain twin
+    fed the same Philox draws, bit for bit (the share of differing elements
+    must be <= SR_MISMATCH_TOL, each planted fault's above it), out of place
+    and in place. Cases: the train path's largest leaf (the embedding, 64
+    groups, 16 bits: the run's first bit width), the w_up leaves of 8
+    layers with 43 groups of 2^23 elements, which span layers (8 bits),
+    leaves at odd stacked offsets and odd addresses with 11-element groups,
+    fp16 and fp32. Each kernel repeats bit for bit. Then the statistics on
+    x = (k + 0.3) s: every output is floor(x/s) s or (floor(x/s) + 1) s,
+    the mean over 64 seeds is within 4 sigma of x, a seed repeats bit for
+    bit, and adjacent blocks' rounding is uncorrelated (|r| within 4 /
+    sqrt(N)). Timed at the embedding leaf, in place: the quantization
+    kernel, the absmax pass, the whole span call, the torch scale pass
+    they replace."""
     import torch
     from deepspeed_tpu_torch.ops.quantizer import kernels as qk
-    cases = {"embedding_leaf": (1, (32000, 4096), 64, 16),
-             "w_up_8_layers_43_groups": (8, (4096, 11008), 43, 8)}
-    for name, (L, shape, groups, bits) in cases.items():
-        leaves = [torch.randn(shape, generator=gen, device="cuda").mul_(0.02)
-                  .to(torch.bfloat16) for _ in range(L)]
+    bf16, fp16, fp32 = torch.bfloat16, torch.float16, torch.float32
+    # dtype, leaf shapes, groups, bits, leaves carved at odd addresses
+    cases = {"embedding_leaf": (bf16, [(32000, 4096)], 64, 16, False),
+             "w_up_8_layers_43_groups": (bf16, [(4096, 11008)] * 8, 43, 8, False),
+             "odd_offsets_and_addresses": (bf16, [(3, 1001)] * 5, 1365, 8, True),
+             "fp16_3_layers": (fp16, [(1024, 1000)] * 3, 5, 16, False),
+             "fp32_odd_addresses": (fp32, [(777, 1001)] * 3, 7, 8, True)}
+    for name, (dtype, shapes, groups, bits, views) in cases.items():
+        leaves = _sr_leaves(gen, dtype, shapes, views)
+        scale, qmax, gs = qk.span_scales(leaves, groups, bits)
+        plain_scale = qk._span_scales(leaves, groups, bits)[0]
+        scale_diff = lambda ref: int((scale != ref).sum())
+        scale_err = scale_diff(plain_scale)
+        scale_faults = {f: scale_diff(r) for f, r in
+                        _scale_faults(qk, leaves, groups, bits).items()}
+        required = [f for f in scale_faults
+                    if f == "piece_left_out" or groups >= 1000]
+        scale_repeat = bool(torch.equal(scale, qk.span_scales(leaves, groups, bits)[0]))
         got = qk.ds_sr_quantize_span(leaves, groups, bits, seed=7)
+        repeat = all(torch.equal(a, b) for a, b in
+                     zip(got, qk.ds_sr_quantize_span(leaves, groups, bits, seed=7)))
+        if views:
+            base = leaves[0]._base.clone()
+            in_place = [base[t.storage_offset():t.storage_offset() + t.numel()].view(t.shape)
+                        for t in leaves]
+        else:
+            in_place = [t.clone() for t in leaves]
+        qk.ds_sr_quantize_span(in_place, groups, bits, seed=7, out=in_place)
         torch.cuda.synchronize()
 
-        def share(ref):
-            diff = sum(int((a != b).sum()) for a, b in zip(got, ref))
+        def share(outs, ref):
+            diff = sum(int((a != b).sum()) for a, b in zip(outs, ref))
             return diff / sum(t.numel() for t in leaves)
 
         ref = _sr_plain(qk, leaves, groups, bits, 7)
-        err = share(ref)
-        max_abs = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, ref))
-        del ref
+        err = max(share(got, ref), share(in_place, ref))
+        max_abs = max(float((a.float() - b.float()).abs().max())
+                      for outs in (got, in_place) for a, b in zip(outs, ref))
+        del ref, in_place
         faults = {}
         for fault in ("arithmetic_shift", "round_to_nearest", "one_stream_per_block"):
-            faults[fault] = share(_sr_plain(qk, leaves, groups, bits, 7, fault))
+            faults[fault] = share(got, _sr_plain(qk, leaves, groups, bits, 7, fault))
         if not err <= SR_MISMATCH_TOL:
             failures.append(f"sr_quantize {name}: {err} of the elements differ")
         for f, e in faults.items():
             if not e > SR_MISMATCH_TOL:
                 failures.append(f"sr_quantize {name}: planted fault {f} reads {e}")
-        rec = {"kernel": "sr_quantize", "case": name, "leaves": L, "shape": list(shape),
-               "groups": groups, "bits": bits, "max_abs_err": max_abs, "mismatch_share": err,
-               "mismatch_tol": SR_MISMATCH_TOL, "fault_mismatch_share": faults}
+        if scale_err:
+            failures.append(f"sr_absmax {name}: {scale_err} of {groups} scales differ")
+        for f in required:
+            if not scale_faults[f] > 0:
+                failures.append(f"sr_absmax {name}: planted fault {f} reads 0")
+        if not (repeat and scale_repeat):
+            failures.append(f"sr_quantize {name}: two launches differ "
+                            f"(quantization {repeat}, scales {scale_repeat})")
+        rec = {"kernel": "sr_quantize", "case": name, "dtype": str(dtype).split(".")[-1],
+               "leaves": len(shapes), "shape": list(shapes[0]), "groups": groups,
+               "group_size": gs, "bits": bits, "odd_addresses": views,
+               "offsets": [sum(int(torch.Size(sh).numel()) for sh in shapes[:i])
+                           for i in range(len(shapes))],
+               "max_abs_err": max_abs, "mismatch_share": err,
+               "mismatch_tol": SR_MISMATCH_TOL, "fault_mismatch_share": faults,
+               "scales_differing": scale_err, "scale_faults_differing": scale_faults,
+               "scale_faults_required": required, "repeat_bit_equal": repeat,
+               "scale_repeat_bit_equal": scale_repeat}
         if name == "embedding_leaf":
-            x = leaves[0]
-            scale, qmax, gs = qk._span_scales([x], groups, bits)
-            n = x.numel()
-            rec["ms"] = cuda_ms(lambda: qk._kernel(x, x, scale, gs, 0, qmax, 7))
-            flat = x.reshape(groups, -1)
-            rec["plain_ms"] = cuda_ms(lambda: qk.sr_quantize_plain(
-                flat, scale[:, None], qmax, qk.philox_uniform(7, 0, n, "cuda").reshape(
-                    groups, -1)), reps=3, warmup=1)
-            rec["library_ms"] = None
-            rec["library"] = ("none (torch.fake_quantize_* rounds to nearest; no PyTorch call "
-                              "rounds stochastically)")
-            # bf16 read and written once, the scales once; ~31 operations an
-            # element (Philox4x32-10 shared by four, then the rounding)
-            rec["bound_ms"], rec["bound_by"] = bound(4 * n + 4 * groups, 31 * n,
-                                                     FP32_PEAK_TFLOPS)
-            results["sr_quantize"] = rec
+            _time_sr_quantize(qk, leaves[0], groups, bits, rec, results)
         emit("kernel", **rec)
         del leaves, got
         torch.cuda.empty_cache()
@@ -1846,7 +1988,8 @@ def _train_counters():
             "fused_ce_fwd": fce.fwd_launches, "fused_ce_ds": fce.ds_launches,
             "fused_ce_dh_gemm": fce.dh_launches, "fused_ce_dw_gemm": fce.dw_launches,
             "fused_lamb_moments": fl.moments_launches, "fused_lamb_ratio": fl.ratio_launches,
-            "fused_lamb_apply": fl.apply_launches, "sr_quantize": qk.launches}
+            "fused_lamb_apply": fl.apply_launches, "sr_quantize": qk.launches,
+            "sr_absmax": qk.scale_launches}
 
 
 def _reset_train_counters():
@@ -1857,7 +2000,8 @@ def _reset_train_counters():
     from deepspeed_tpu_torch.ops.quantizer import kernels as qk
     fa.launches = fa.dq_launches = fa.dkv_launches = fad.launches = 0
     fce.fwd_launches = fce.ds_launches = fce.dh_launches = fce.dw_launches = 0
-    fl.moments_launches = fl.ratio_launches = fl.apply_launches = qk.launches = 0
+    fl.moments_launches = fl.ratio_launches = fl.apply_launches = 0
+    qk.launches = qk.scale_launches = 0
 
 
 def phase_train(state, seed):
@@ -1988,9 +2132,9 @@ def phase_train_lamb(state, seed):
     """The train phase's model and batch with LAMB_CONFIG (FusedLamb, MoQ
     with stochastic rounding): 1 warm-up + 5 timed steps; every loss finite
     and falling; per step, the K7 moments and apply kernels once per port
-    leaf, the ratio kernel once per JAX leaf, K8 once per port leaf of each
-    JAX leaf of stacked rank >= 2, and the attention and CE kernels as in
-    the train phase (no Adam)."""
+    leaf, the ratio kernel once per JAX leaf, K8 and its absmax kernel once
+    per port leaf of each JAX leaf of stacked rank >= 2, and the attention
+    and CE kernels as in the train phase (no Adam)."""
     import numpy as np
     import torch
     from deepspeed_tpu_torch.accelerator import get_accelerator
@@ -2015,7 +2159,8 @@ def phase_train_lamb(state, seed):
                              "fused_ce_dw_gemm"),
                             0 if LAMB_CONFIG["fused_cross_entropy"] == "off" else gas),
             "fused_lamb_moments": len(named), "fused_lamb_apply": len(named),
-            "fused_lamb_ratio": len(groups), "sr_quantize": quantized}
+            "fused_lamb_ratio": len(groups), "sr_quantize": quantized,
+            "sr_absmax": quantized}
     check((len(named), len(groups), quantized) == (9 * cfg.n_layer + 3, 12,
                                                    9 * cfg.n_layer + 2),
           f"{len(named)} port leaves, {len(groups)} JAX leaves, {quantized} quantized")
@@ -2063,10 +2208,21 @@ def phase_train_profile(state, seed):
     warm-up step, a step timed with the host clock, and a step under
     torch.profiler, whose device events give kernel time by class and the
     device's idle share against the timed step."""
+    _profile_train_step(state, seed, "train_profile", TRAIN_CONFIG)
+
+
+def phase_train_lamb_profile(state, seed):
+    """:func:`phase_train_profile` for the train_lamb phase's configuration
+    (FusedLamb and MoQ): K7's three kernels, K8 and its absmax kernel each
+    a class of their own (not in the default run)."""
+    _profile_train_step(state, seed, "train_lamb_profile", LAMB_CONFIG)
+
+
+def _profile_train_step(state, seed, phase, config):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    _, engine, batch = _train_setup(seed)
+    _, engine, batch = _train_setup(seed, config)
     engine.train_batch(batch)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2078,7 +2234,7 @@ def phase_train_profile(state, seed):
         torch.cuda.synchronize()
     by_class, top = _device_time(prof)
     busy_ms = sum(by_class.values())
-    emit("train_profile", card=state.get("card"), timed_step_ms=wall_ms,
+    emit(phase, card=state.get("card"), timed_step_ms=wall_ms,
          device_busy_ms=busy_ms, device_idle_share=1.0 - busy_ms / wall_ms,
          device_ms_by_class=by_class, top_kernels=top)
     del engine, batch
@@ -2104,7 +2260,9 @@ def _kernel_class(name):
                         ("lamb_moments_kernel", "fused_lamb_moments"),
                         ("lamb_ratio_kernel", "fused_lamb_ratio"),
                         ("lamb_apply_kernel", "fused_lamb_apply"),
-                        ("sr_quantize_kernel", "sr_quantize")):
+                        ("sr_quantize_kernel", "sr_quantize"),
+                        ("sr_absmax_kernel", "sr_absmax"),
+                        ("sr_scale_kernel", "sr_absmax")):
         if kernel in n:
             return cls
     if any(t in n for t in ("gemm", "gemv", "cutlass", "xmma", "nvjet", "cublas")):
@@ -2225,6 +2383,10 @@ def phase_kernels(state):
         "sr_quantize": (
             "deepspeed_tpu_torch/csrc/sr_quantize.cu",
             "deepspeed_tpu/ops/quantizer/kernels.py:80 (_sr_kernel)"),
+        "sr_absmax": (
+            "deepspeed_tpu_torch/csrc/sr_quantize.cu",
+            "deepspeed_tpu/ops/quantizer/kernels.py:48 (_sym_scale: the group max |x| / qmax "
+            "that XLA fuses before the pallas_call :102; not a pallas_call site)"),
     }
     for name, (source, replaces) in meta.items():
         r = res.get(name, {})

@@ -19,13 +19,23 @@ every leaf it touches, and the kernel runs once per leaf, in place, with the
 leaf's offset in the stacked view (its noise depends on the stacked index
 and the seed only).
 
+On the card a span's scales come from the group-absmax kernel of the same
+source (:func:`span_scales`: one launch per leaf folding max |x| into a
+``[groups]`` buffer, the last one also dividing by qmax), where the JAX
+package lets XLA fuse the reduction; :func:`_span_scales` is its plain
+version. Every scale is ``amax / qmax`` correctly rounded in fp32, as the
+JAX package divides: a CUDA tensor divided by a Python number is multiplied
+by its reciprocal instead, one ulp off for some values, so the plain forms
+divide by a 0-dim tensor on the same device.
+
 The kernel's noise is a Philox4x32-10 stream (:func:`philox_uniform` is the
 same stream in PyTorch, so the card's result can be held to the plain
 version bit for bit). On the CPU the plain version draws its noise from a
 ``torch.Generator`` seeded with ``seed`` unless ``noise`` is given; the TPU
 and the JAX package off the TPU draw other bits again, so only the
-distribution is shared across packages. ``launches`` counts kernel
-launches; a CUDA tensor launches the kernel or raises.
+distribution is shared across packages. ``launches`` counts quantization
+kernel launches and ``scale_launches`` absmax kernel launches (one a leaf
+each); a CUDA tensor launches the kernels or raises.
 """
 
 from __future__ import annotations
@@ -37,8 +47,10 @@ import torch
 
 from deepspeed_tpu_torch.ops.kernels import build
 
-#: kernel launches since the last reset (set it to 0 to start counting)
+#: quantization and absmax kernel launches since the last reset (set them to
+#: 0 to start counting)
 launches = 0
+scale_launches = 0
 
 _DTYPE_CODE = {torch.float16: 0, torch.bfloat16: 1, torch.float32: 2}
 SEED_MIX = 1000003          # the TPU kernel's odd multiplicative seed hash
@@ -50,17 +62,28 @@ _MASK32 = 0xFFFFFFFF
 # ------------------------------------------------------------------ #
 # deterministic forms (plain PyTorch; the JAX package leaves them to XLA)
 
+def _div(x, q: float):
+    """``x / q`` correctly rounded on every device: the divisor is a 0-dim
+    tensor beside ``x`` (CUDA multiplies by the reciprocal of a Python
+    number)."""
+    return x / torch.full((), q, dtype=x.dtype, device=x.device)
+
+
+def _scale_of(amax, qmax: float):
+    scale = _div(amax, qmax)
+    return torch.where(scale == 0, torch.ones_like(scale), scale)
+
+
 def _sym_scale(flat, bits: int):
     qmax = 2.0 ** (bits - 1) - 1
-    scale = flat.abs().amax(dim=1, keepdim=True) / qmax
-    return torch.where(scale == 0, torch.ones_like(scale), scale), qmax
+    return _scale_of(flat.abs().amax(dim=1, keepdim=True), qmax), qmax
 
 
 def _asym_scale(flat, bits: int):
     lo = flat.amin(dim=1, keepdim=True)
     hi = flat.amax(dim=1, keepdim=True)
     levels = 2.0 ** bits - 1
-    return torch.where(hi > lo, (hi - lo) / levels, torch.ones_like(lo)), lo, levels
+    return torch.where(hi > lo, _div(hi - lo, levels), torch.ones_like(lo)), lo, levels
 
 
 def ds_quantize(x, groups: int, bits: int = 8):
@@ -156,24 +179,39 @@ def sr_quantize_plain(x, scale, qmax: float, noise):
     return (q * scale).to(x.dtype)
 
 
-def _kernel(x, out, scale, group_size: int, offset: int, qmax: float, seed: int):
-    global launches
-    n = x.numel()
-    if x.dtype not in _DTYPE_CODE or out.dtype != x.dtype:
-        raise TypeError(f"sr_quantize takes fp16 / bf16 / fp32, got {x.dtype} -> {out.dtype}")
-    for name, t in (("x", x), ("out", out), ("scale", scale)):
+def _check(x, **others):
+    """Dtype, contiguity and device of a kernel's tensors (``others`` on
+    ``x``'s device)."""
+    if x.dtype not in _DTYPE_CODE:
+        raise TypeError(f"sr_quantize takes fp16 / bf16 / fp32, got {x.dtype}")
+    for name, t in (("x", x), *others.items()):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+
+
+def _lib_fn(name: str, argtypes):
+    fn = getattr(build.load("sr_quantize"), name)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn
+
+
+_P, _L, _I = ctypes.c_void_p, ctypes.c_long, ctypes.c_int
+
+
+def _kernel(x, out, scale, group_size: int, offset: int, qmax: float, seed: int):
+    global launches
+    n = x.numel()
+    _check(x, out=out, scale=scale)
+    if out.dtype != x.dtype:
+        raise TypeError(f"sr_quantize takes fp16 / bf16 / fp32, got {x.dtype} -> {out.dtype}")
     if out.numel() != n or scale.dtype != torch.float32:
         raise ValueError("out must match x, scale must be fp32")
-    fn = build.load("sr_quantize").ds_sr_quantize
-    if fn.argtypes is None:
-        P, L = ctypes.c_void_p, ctypes.c_long
-        fn.argtypes = [P, P, ctypes.c_int, L, L, L, P, ctypes.c_float, ctypes.c_uint,
-                       ctypes.c_uint, P]
-        fn.restype = ctypes.c_int
+    fn = _lib_fn("ds_sr_quantize", [_P, _P, _I, _L, _L, _L, _P, ctypes.c_float, ctypes.c_uint,
+                                    ctypes.c_uint, _P])
     k0, k1 = philox_key(seed)
     with torch.cuda.device(x.device):
         rc = fn(x.data_ptr(), out.data_ptr(), _DTYPE_CODE[x.dtype], n, offset, group_size,
@@ -182,6 +220,34 @@ def _kernel(x, out, scale, group_size: int, offset: int, qmax: float, seed: int)
         raise RuntimeError(f"sr_quantize launch failed: CUDA error {rc}")
     launches += 1
     return out
+
+
+def span_scales(leaves: Sequence[torch.Tensor], groups: int, bits: int):
+    """Per-group symmetric scales ``[groups]`` (fp32) of the flattened
+    concatenation of ``leaves``: ``max|x| / qmax`` over each group, 1 where
+    that is 0; returns ``(scale, qmax, group_size)``. On the card the absmax
+    kernel runs once per leaf (the first call zeroes the buffer, the last
+    divides by qmax); on the CPU :func:`_span_scales`."""
+    global scale_launches
+    leaves = list(leaves)
+    if leaves[0].device.type != "cuda":
+        return _span_scales(leaves, groups, bits)
+    gs = _group_size(leaves, groups)
+    qmax = 2.0 ** (bits - 1) - 1
+    scale = torch.empty(groups, dtype=torch.float32, device=leaves[0].device)
+    fn = _lib_fn("ds_sr_absmax", [_P, _I, _L, _L, _L, _P, _L, _I, _I, ctypes.c_float, _P])
+    off = 0
+    with torch.cuda.device(scale.device):
+        stream = torch.cuda.current_stream(scale.device).cuda_stream
+        for i, t in enumerate(leaves):
+            _check(t, scale=scale)
+            rc = fn(t.data_ptr(), _DTYPE_CODE[t.dtype], t.numel(), off, gs, scale.data_ptr(),
+                    groups, i == 0, i == len(leaves) - 1, qmax, stream)
+            if rc != 0:
+                raise RuntimeError(f"sr_absmax launch failed: CUDA error {rc}")
+            scale_launches += 1
+            off += t.numel()
+    return scale, qmax, gs
 
 
 def ds_sr_quantize(x, groups: int, bits: int = 8, seed: int = 0,
@@ -195,13 +261,17 @@ def ds_sr_quantize(x, groups: int, bits: int = 8, seed: int = 0,
                                out=None if out is None else [out])[0]
 
 
-def _span_scales(leaves: Sequence[torch.Tensor], groups: int, bits: int):
-    """Per-group symmetric scales ``[groups]`` (fp32) of the flattened
-    concatenation of ``leaves``, from each leaf's pieces (torch ``amax``)."""
+def _group_size(leaves, groups: int) -> int:
     total = sum(t.numel() for t in leaves)
     if total % groups:
         raise ValueError(f"cannot reshape {total} elements into {groups} groups")
-    gs = total // groups
+    return total // groups
+
+
+def _span_scales(leaves: Sequence[torch.Tensor], groups: int, bits: int):
+    """:func:`span_scales` in plain PyTorch on any device: each leaf's group
+    pieces reduced by torch ``amax``, the division correctly rounded."""
+    gs = _group_size(leaves, groups)
     amax = torch.zeros(groups, dtype=torch.float32, device=leaves[0].device)
     off = 0
     for t in leaves:
@@ -221,8 +291,7 @@ def _span_scales(leaves: Sequence[torch.Tensor], groups: int, bits: int):
                 e = end
         off += n
     qmax = 2.0 ** (bits - 1) - 1
-    scale = amax / qmax
-    return torch.where(scale == 0, torch.ones_like(scale), scale), qmax, gs
+    return _scale_of(amax, qmax), qmax, gs
 
 
 def ds_sr_quantize_span(leaves: Sequence[torch.Tensor], groups: int, bits: int = 8,
@@ -231,14 +300,15 @@ def ds_sr_quantize_span(leaves: Sequence[torch.Tensor], groups: int, bits: int =
     """:func:`ds_sr_quantize` of the flattened concatenation of ``leaves``
     (one JAX leaf stored as per-layer port leaves), returned as one tensor
     per leaf (``out``: where to write them; may be ``leaves`` itself).
-    CUDA tensors run the kernel once per leaf."""
+    CUDA tensors run the absmax kernel, then the quantization kernel,
+    once per leaf each."""
     leaves = list(leaves)
     dev = leaves[0].device
     if dev.type == "cuda":
         if noise is not None:
             raise ValueError("the kernel draws its own noise (Philox); noise= is for the "
                              "plain version")
-        scale, qmax, gs = _span_scales(leaves, groups, bits)
+        scale, qmax, gs = span_scales(leaves, groups, bits)
         out = out if out is not None else [torch.empty_like(t) for t in leaves]
         off = 0
         for t, o in zip(leaves, out):

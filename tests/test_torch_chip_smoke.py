@@ -106,6 +106,12 @@ def test_generate_parity_sees_a_planted_decode_fault(engine):
      "__half*, int, int, int, int)", "dense_decode_attention"),
     ("void (anonymous namespace)::dense_decode_kernel<__nv_bfloat16, 128, 1>(__nv_bfloat16 "
      "const*)", "dense_decode_attention"),
+    ("void (anonymous namespace)::sr_quantize_kernel<__nv_bfloat16, 0, true>(__nv_bfloat16 "
+     "const*, __nv_bfloat16*, (anonymous namespace)::Leaf, float const*, float, unsigned int, "
+     "unsigned int)", "sr_quantize"),
+    ("void (anonymous namespace)::sr_absmax_kernel<__half>(__half const*, "
+     "(anonymous namespace)::Leaf, unsigned int*)", "sr_absmax"),
+    ("void (anonymous namespace)::sr_scale_kernel(float*, long, float)", "sr_absmax"),
 ])
 def test_kernel_class_maps_the_attention_kernels(name, cls):
     assert chip_smoke._kernel_class(name) == cls
@@ -236,3 +242,34 @@ def test_spill_gate_holds_the_decode_kernels(kernel):
                                                         spill=12)})
     assert set(rows) == {f"{kernel} bf16 hd64"}
     assert chip_smoke.spilling_kernels(rows) == {f"{kernel} bf16 hd64": 24}
+
+
+@pytest.mark.parametrize("kernel", ["sr_quantize_kernel", "sr_absmax_kernel", "sr_scale_kernel"])
+def test_spill_gate_holds_k8_and_its_scale_pass(kernel):
+    """K8's quantization kernel and its scale pass's two kernels have rows
+    of their own (one per dtype, the worst over their template arguments),
+    and a spill in any of them fails the build phase."""
+    name = f"_ZN12_GLOBAL__N_1{len(kernel)}{kernel}I13__nv_bfloat16Li2ELb1EEEvPKT_"
+    rows, _ = chip_smoke.ptxas_summary({"sr": _PTXAS.format(name=name, spill=0)
+                                        + _PTXAS.format(name=name.replace("Li2E", "Li3E"),
+                                                        spill=8)})
+    assert set(rows) == {f"{kernel} bf16"}
+    assert chip_smoke.spilling_kernels(rows) == {f"{kernel} bf16": 16}
+
+
+@pytest.mark.parametrize("dtype,sizes,groups,bits,faults", [
+    (torch.bfloat16, (3003,) * 5, 1365, 8, {"reciprocal_scale"}),     # 11-element groups
+    (torch.float32, (777777,) * 3, 7, 8, {"piece_left_out"}),          # groups spanning leaves
+])
+def test_sr_scale_faults_read_above_zero(dtype, sizes, groups, bits, faults):
+    """The planted faults of K8's scale pass differ from the sound plain
+    scales in some group: the reciprocal of qmax where there are >= 1000
+    groups, the max piece of a group spanning leaves left out."""
+    from deepspeed_tpu_torch.ops.quantizer import kernels as qk
+    gen = torch.Generator().manual_seed(5)
+    leaves = [torch.randn(n, generator=gen).mul_(0.02).to(dtype) for n in sizes]
+    sound = qk._span_scales(leaves, groups, bits)[0]
+    planted = chip_smoke._scale_faults(qk, leaves, groups, bits)
+    assert faults <= set(planted)
+    for f in faults:
+        assert int((planted[f] != sound).sum()) > 0, f

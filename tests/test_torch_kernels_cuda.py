@@ -466,34 +466,87 @@ def test_fused_lamb_repeats_bit_for_bit(cuda):
     assert all(torch.equal(a, b) for a, b in zip(*runs))
 
 
-@pytest.mark.parametrize("shape,groups,bits,dtype", [
-    ((4096, 512), 64, 8, torch.bfloat16),     # one leaf, 64 groups
-    ((3, 1000, 7), 3, 8, torch.bfloat16),     # a group per leaf, leaves of 7000 (not 8-aligned)
-    ((2, 96, 10), 3, 4, torch.float32),       # 3 groups over 2 leaves: group 1 spans both
-    ((1, 1001), 7, 16, torch.float16),
+def _sr_leaves(x, views):
+    """The leaves ``x[i]``: each its own allocation, or (``views``) carved
+    out of one buffer at odd element offsets, so their addresses sit off
+    16-byte boundaries."""
+    if not views:
+        return [x[i].clone() for i in range(x.shape[0])]
+    n = x[0].numel()
+    buf = torch.zeros(x.numel() + 2 * x.shape[0] + 1, dtype=x.dtype, device=x.device)
+    leaves = []
+    for i in range(x.shape[0]):
+        at = 3 + i * (n + 1)
+        leaves.append(buf[at:at + n].view(x[i].shape).copy_(x[i]))
+    return leaves
+
+
+@pytest.mark.parametrize("shape,groups,bits,dtype,views", [
+    ((4096, 512), 64, 8, torch.bfloat16, False),     # one leaf, 64 groups
+    ((3, 1000, 7), 3, 8, torch.bfloat16, False),     # a group per leaf, leaves of 7000 (not 8-aligned)
+    ((2, 96, 10), 3, 4, torch.float32, False),       # 3 groups over 2 leaves: group 1 spans both
+    ((1, 1001), 7, 16, torch.float16, False),
+    ((5, 3, 1001), 1365, 8, torch.bfloat16, True),   # odd offsets and addresses, 11-element groups
+    ((3, 777, 11), 7, 8, torch.float32, True),       # groups of 3663 spanning leaves
+    ((4, 1003), 4, 16, torch.float16, True),
 ])
-def test_sr_quantize_kernel_matches_plain_with_its_noise(cuda, shape, groups, bits, dtype):
+def test_sr_quantize_kernel_matches_plain_with_its_noise(cuda, shape, groups, bits, dtype, views):
     """K8 on the leaves of a stacked tensor, one launch per leaf with its
     offset, against the plain version fed the kernel's own Philox noise:
-    equal bit for bit; a seed repeats and another moves."""
+    equal bit for bit out of place and in place (leaves at odd addresses
+    take the one-element path out of place and the vector path with a lead
+    in place); the absmax kernel's scales equal the plain scale pass's; a
+    seed repeats and another moves."""
     r = np.random.default_rng(bits + groups)
     x = _randn(r, shape, cuda, dtype)
-    leaves = [x[i].clone() for i in range(shape[0])]
+    leaves = _sr_leaves(x, views)
     flat = x.reshape(groups, -1).float()
+    plain_scale = qk._sym_scale(flat, bits)[0]
     noise = qk.philox_uniform(17, 0, x.numel(), device=cuda).reshape(groups, -1)
-    want = qk.sr_quantize_plain(flat, qk._sym_scale(flat, bits)[0], 2.0 ** (bits - 1) - 1,
+    want = qk.sr_quantize_plain(flat, plain_scale, 2.0 ** (bits - 1) - 1,
                                 noise).to(dtype).reshape(shape)
-    n0 = qk.launches
+    n0, s0 = qk.launches, qk.scale_launches
     got = qk.ds_sr_quantize_span(leaves, groups, bits, seed=17)
     torch.cuda.synchronize()
-    assert qk.launches == n0 + len(leaves)
+    assert (qk.launches, qk.scale_launches) == (n0 + len(leaves), s0 + len(leaves))
     assert torch.equal(torch.stack(got), want)
+    scale = qk.span_scales(leaves, groups, bits)[0]
+    assert torch.equal(scale, plain_scale.reshape(-1))
+    assert torch.equal(scale, qk._span_scales(leaves, groups, bits)[0])
+    assert torch.equal(scale, qk.span_scales(leaves, groups, bits)[0])
     again = qk.ds_sr_quantize_span(leaves, groups, bits, seed=17)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     other = qk.ds_sr_quantize_span(leaves, groups, bits, seed=18)
     assert not all(torch.equal(a, b) for a, b in zip(got, other))
     qk.ds_sr_quantize_span(leaves, groups, bits, seed=17, out=leaves)      # in place
     assert torch.equal(torch.stack(leaves), want)
+
+
+@pytest.mark.parametrize("form", ["sym", "asym", "span_plain", "span_kernel"])
+@pytest.mark.parametrize("bits", [8, 14, 16])                  # qmax 127, 8191, 32767
+def test_card_scales_divide_as_numpy_does(cuda, bits, form):
+    """The port's group scales on the card are ``amax / qmax`` (symmetric)
+    and ``(max - min) / levels`` (asymmetric) correctly rounded in fp32, as
+    numpy and the JAX package divide, for 4096 random amax values: no
+    multiplication by a reciprocal."""
+    r = np.random.default_rng(bits)
+    G, L = 4096, 16
+    amax = (r.uniform(0.5, 1.0, G) * 2.0 ** r.integers(-20, 20, G)).astype(np.float32)
+    x = (r.uniform(-1.0, 1.0, (G, L)) * amax[:, None]).astype(np.float32)
+    x[np.arange(G), r.integers(0, L, G)] = amax * r.choice([-1.0, 1.0], G).astype(np.float32)
+    qmax, levels = np.float32(2 ** (bits - 1) - 1), np.float32(2 ** bits - 1)
+    xt = torch.from_numpy(x).to(cuda)
+    leaves = [xt.reshape(-1)[:1000 * L + 5], xt.reshape(-1)[1000 * L + 5:]]   # a group spans both
+    if form == "asym":
+        got = qk._asym_scale(xt, bits)[0].reshape(-1)
+        want = (x.max(axis=1) - x.min(axis=1)) / levels
+    else:
+        got = {"sym": lambda: qk._sym_scale(xt, bits)[0].reshape(-1),
+               "span_plain": lambda: qk._span_scales(leaves, G, bits)[0],
+               "span_kernel": lambda: qk.span_scales(leaves, G, bits)[0]}[form]()
+        want = np.abs(x).max(axis=1) / qmax
+    assert want.dtype == np.float32
+    assert np.array_equal(got.cpu().numpy(), want)
 
 
 def test_sr_quantize_wrapper_raises_instead_of_falling_back(cuda):

@@ -124,6 +124,33 @@ def test_sr_plain_with_given_noise_is_the_kernel_arithmetic():
     assert torch.equal(torch.stack(leaves), want)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("sizes,groups,bits", [
+    ((7000,), 7, 8),                    # one leaf
+    ((1001, 999, 1003), 7, 16),         # odd leaf sizes, groups of 429 spanning leaves
+    ((1001, 999, 1003), 13, 14),        # groups of 231
+    ((5, 11, 17), 3, 8),                # a group spans all three leaves
+])
+def test_span_scales_are_bit_equal_to_jax(sizes, groups, bits, dtype):
+    """The port's group scales (the plain scale pass over leaves and the
+    flat form) are the JAX package's ``_sym_scale`` bit for bit, and both
+    are numpy's correctly rounded fp32 ``amax / qmax``."""
+    r = np.random.default_rng(sum(sizes) + groups + bits)
+    x = (r.normal(size=sum(sizes)) * 2.0 ** r.integers(-12, 12, size=sum(sizes))).astype(
+        np.float32)
+    t = torch.from_numpy(x).to(getattr(torch, dtype))
+    flat = t.float().numpy().reshape(groups, -1)        # the leaf's values, as fp32
+    want = np.asarray(JK._sym_scale(jnp.asarray(flat), bits)[0]).reshape(-1)
+    qmax = np.float32(2 ** (bits - 1) - 1)
+    assert np.array_equal(want, np.abs(flat).max(axis=1) / qmax)
+    leaves = list(torch.split(t, list(sizes)))
+    got, got_qmax, gs = K._span_scales(leaves, groups, bits)
+    assert (got_qmax, gs) == (float(qmax), sum(sizes) // groups)
+    assert np.array_equal(got.numpy(), want)
+    assert np.array_equal(K.span_scales(leaves, groups, bits)[0].numpy(), want)
+    assert np.array_equal(K._sym_scale(torch.from_numpy(flat), bits)[0].numpy().reshape(-1), want)
+
+
 def test_sr_asym_support():
     x = torch.from_numpy(_x((4, 64), 2))
     out = K.ds_sr_quantize_asym(x, 4, 4, seed=1)
