@@ -17,7 +17,15 @@ Phases, each printing one JSON line:
                 version's, its time, the plain version's, the library
                 call's (SDPA for attention, fused AdamW, F.linear +
                 F.cross_entropy for the fused CE, vector_norm(inf) for the
-                absmax) and the bound; B, K5 and K8 also by device time
+                absmax) and the bound; B, K5 and K8 also by device time;
+                each of A, B, C, D and K5 also at head_dim 96; A, C and D
+                with block-sparse layouts (the train_sparse shape, blocks of
+                64 that straddle the tiles, GQA, an all-zero row block),
+                their faults (the layout ignored, one live tile dropped from
+                a list, the partial-tile element mask left out) above the
+                limit, the tiles each walked equal to its lists' lengths,
+                and at the train_sparse shape timed against dense A / C / D
+                and SDPA given the layout as a boolean mask
   slice_parity  Llama-7B width cut to 2 layers: the same seeded weights served
                 on the card (kernels) and on the CPU (plain versions, fp32);
                 the CPU's greedy tokens fed to both sides' paged prefill and
@@ -65,8 +73,22 @@ Phases, each printing one JSON line:
                 moments and apply kernels once per port leaf, the ratio kernel
                 once per JAX leaf, the stochastic-rounding kernel and its
                 absmax kernel once per port leaf of each quantized JAX leaf
+  sparse_parity train_parity for the sparse path: Llama-7B width cut to 1
+                layer with the Fixed sparsity config at S 1024; A, C and D
+                walk the layout on the card, their plain layout-aware
+                versions run on the CPU; the layout ignored (dense causal)
+                planted on the card must read above the gradient limit
+  train_sparse  replace_self_attention(Llama-7B width cut to 8 layers, Fixed
+                sparsity: block 128, 4 local blocks, 1 global,
+                unidirectional) at S 4096, micro 2 x gas 2, through
+                initialize + train_batch with the train phase's config: 1
+                warm-up + 5 timed steps, every loss finite and falling, per
+                step A = 2 L gas and C = D = L gas launches, the tiles they
+                walked equal to the layout's live blocks; then the same
+                step with sparse attention off
   kernels       every ported kernel with its launches in the serve, generate,
-                train and train_lamb phases
+                train, train_lamb and train_sparse phases (A, C and D with a
+                layout in rows of their own)
   profile       (only with --phases profile) the serve phase's prompts through
                 fresh engines after a warm-up: warm tokens/s, device kernel
                 time by class under torch.profiler, the device's idle share
@@ -79,6 +101,8 @@ Phases, each printing one JSON line:
   generate_profile (only with --phases generate_profile) the generate
                 phase's call after a warm-up, timed and then under
                 torch.profiler: device time by class and the idle share
+  train_sparse_profile (only with --phases train_sparse_profile) the
+                train_profile breakdown for the train_sparse configuration
 
 The last line is {"ok": true, "device": {...}}. Any failure raises, so the
 script exits non-zero and prints no result line; it also exits non-zero
@@ -96,9 +120,10 @@ import sys
 import time
 
 PHASES = ("env", "build", "kernel", "slice_parity", "serve", "generate_parity", "generate",
-          "train_parity", "train", "train_lamb_parity", "train_lamb", "kernels", "profile",
-          "train_profile", "train_lamb_profile", "generate_profile")
-DEFAULT_PHASES = PHASES[:-4]      # the four profiles run only when asked for
+          "train_parity", "train", "train_lamb_parity", "train_lamb", "sparse_parity",
+          "train_sparse", "kernels", "profile", "train_profile", "train_lamb_profile",
+          "generate_profile", "train_sparse_profile")
+DEFAULT_PHASES = PHASES[:-5]      # the five profiles run only when asked for
 # Kernel vs plain version, bf16 outputs: the largest difference in each output
 # row (over head_dim), in bf16 ulps of that row's largest |plain| value, so
 # one limit holds at every output scale (a row over 500 keys is ~20x smaller
@@ -152,6 +177,8 @@ TRAIN_CONFIG = {"train_batch_size": 8, "train_micro_batch_size_per_gpu": 4,
 TRAIN_LAYERS = 8                # Llama-2-7B width, depth cut 32 -> 8 (PERF.md section 4)
 TRAIN_SEQ = 2048
 TRAIN_STEPS = 6                 # 1 warm-up + 5 timed
+SPARSE_SEQ = 4096               # train_sparse: Llama-2's published context
+SPARSE_PARITY_SEQ = 1024        # sparse_parity: two local windows of the Fixed layout
 PARITY_LAYERS = 1               # train_parity's depth: its fp32 CPU side is most of the run
 PARITY_LOSS_TOL = 3e-2          # absolute, bf16 card vs fp32 CPU (PERF.md section 6)
 PARITY_UPDATE_TOL = 0.5         # |card update - CPU update| / |CPU update|, per leaf
@@ -285,7 +312,7 @@ def ptxas_summary(log):
                 name = m.group(1)
                 kern = next((k for k in _KERNEL_NAMES if k in name), name[:40])
                 dt = "bf16" if "bfloat16" in name else "fp16" if "__half" in name else ""
-                hd = re.search(r"Li(64|128)E", name)
+                hd = re.search(r"Li(64|96|128)E", name)
                 key = f"{kern} {dt} hd{hd.group(1)}" if hd else f"{kern} {dt}".strip()
                 rows.setdefault(key, {"registers": 0, "smem_bytes": 0, "spill_bytes": 0})
             if key is None:
@@ -465,6 +492,10 @@ def phase_kernel(state, seed):
     from deepspeed_tpu_torch.ops.kernels import paged_decode_attention as pda
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
+    # the head-dim-96 and block-layout cases draw from their own generator,
+    # so every other case sees the same inputs as before they were added
+    gen96 = torch.Generator(device="cuda").manual_seed(seed + 96)
+    pick = lambda name: gen96 if name.startswith("hd96") else gen
     results = state.setdefault("kernel_results", {})
     failures = []
 
@@ -478,9 +509,11 @@ def phase_kernel(state, seed):
         "gpt2_hd64": (2, 200, 12, 12, 64, True, False, False),
         "alibi_mask_full": (2, 130, 8, 2, 64, False, True, True),
         "alibi_mask_causal_hd128": (1, 257, 16, 16, 128, True, True, True),
+        "hd96_gqa4_mask": (2, 300, 16, 4, 96, True, False, True),
+        "hd96_neox20b": (1, 2048, 64, 64, 96, True, False, False),
     }
     for name, (B, S, H, KV, Hd, causal, alibi, mask) in flash_cases.items():
-        args = _flash_case(gen, B, S, H, KV, Hd, causal, alibi, mask)
+        args = _flash_case(pick(name), B, S, H, KV, Hd, causal, alibi, mask)
         o, lse = fa.flash_attention(*args, return_lse=True)
         ro, rlse = fa.flash_attention_plain(*args)
         faults = _flash_faults(fa, *args)
@@ -516,6 +549,12 @@ def phase_kernel(state, seed):
             rec["bound_ms"], rec["bound_by"] = bound(nbytes, flops)
             if name == "slice":
                 results["flash_attention_fwd"] = rec
+        if name == "hd96_neox20b":      # gpt_neox 20b's heads: what the zero padding costs
+            padded = [fa.pad_head_dim(x, 128) for x in args[:3]]
+            rec["ms"] = cuda_ms(lambda: fa.flash_attention(*args))
+            rec["prepadded_hd128_ms"] = cuda_ms(
+                lambda: fa.flash_attention(*padded, *args[3:], scale=96**-0.5))
+            del padded
         emit("kernel", **rec)
 
     # B: (B, H, KV, Hd, bs, n_max, pos, bias, alibi); "slice" = a Llama-7B
@@ -530,12 +569,12 @@ def phase_kernel(state, seed):
         "gpt2_hd64_boundaries": (4, 12, 12, 64, 128, 8, [0, 255, 256, 1023], False, False),
         "g2_hd64_bs256_bias": (2, 8, 4, 64, 256, 3, [255, 700], True, False),
         "g8_alibi": (2, 16, 2, 128, 128, 2, [5, 200], False, True),
+        "hd96_gqa4_bias": (3, 16, 4, 96, 128, 6, [0, 300, 767], True, False),
     }
     for name, (B, H, KV, Hd, bs, n_max, pos, bias, alibi) in paged_cases.items():
-        q, kp, vp, bt, pos_t, pad, slopes = _paged_case(gen, B, H, KV, Hd, bs, n_max, pos,
+        q, kp, vp, bt, pos_t, pad, slopes = _paged_case(pick(name), B, H, KV, Hd, bs, n_max, pos,
                                                        bias, alibi)
-        run = lambda: pda.paged_decode_attention(q, kp, vp, bt, pos_t, pad_bias=pad,
-                                                 alibi_slopes=slopes)
+        run = lambda: pda.paged_decode_attention_cuda(q, kp, vp, bt, pos_t, pad, slopes)
         plain = lambda: pda.paged_decode_attention_plain(q, kp, vp, bt, pos_t, pad, slopes)
         o, ro = run(), plain()
         faults = _paged_faults(pda, q, kp, vp, bt, pos_t, pad, slopes)
@@ -561,8 +600,9 @@ def phase_kernel(state, seed):
             rec["bound_ms"], rec["bound_by"] = bound(nbytes, flops)
             results["paged_decode_attention"] = rec
         emit("kernel", **rec)
-    _check_dense_decode(gen, results, failures)
-    _check_backward_kernels(gen, fa, results, failures)
+    _check_dense_decode(pick, results, failures)
+    _check_backward_kernels(pick, fa, results, failures)
+    _check_sparse_kernels(gen96, fa, results, failures)
     from deepspeed_tpu_torch.ops.adam import fused_adam_kernel as fad
     _check_fused_adam(gen, fad, results, failures)
     _check_fused_ce(gen, results, failures)
@@ -590,7 +630,7 @@ def _dense_faults(dda, q, ck, cv, pos, pad, slopes):
     return faults
 
 
-def _check_dense_decode(gen, results, failures):
+def _check_dense_decode(pick, results, failures):
     """The dense decode kernel (TPU K5) against its plain version at the
     generate phase's shape (Llama-7B heads, 8 rows, a 1024-slot workspace at
     pos 575), at a 4096-slot workspace at its last slot (32 splits) and at
@@ -608,14 +648,16 @@ def _check_dense_decode(gen, results, failures):
         "gqa8_last_slot_alibi": (3, 16, 2, 128, 384, 383, False, True),
         "gpt2_hd64_bias_alibi": (2, 12, 12, 64, 512, 200, True, True),
         "smax4096_last_slot": (GEN_BATCH, 32, 32, 128, 4096, 4095, False, False),
+        "hd96_gqa8_bias_alibi": (2, 16, 2, 96, 512, 400, True, True),
     }
     for name, (B, H, KV, Hd, Smax, pos, bias, alibi) in cases.items():
+        gen = pick(name)
         q = torch.randn((B, H, Hd), generator=gen, device=dev).to(dt)
         ck = torch.randn((B, Smax, KV, Hd), generator=gen, device=dev).to(dt)
         cv = torch.randn((B, Smax, KV, Hd), generator=gen, device=dev).to(dt)
         pad = (torch.randn((B, Smax), generator=gen, device=dev) * 0.2) if bias else None
         slopes = (torch.rand((H,), generator=gen, device=dev) * 0.3 + 0.05) if alibi else None
-        run = lambda: dda.decode_attention(q, ck, cv, pos, pad_bias=pad, alibi_slopes=slopes)
+        run = lambda: dda.decode_attention_cuda(q, ck, cv, pos, pad, slopes)
         plain = lambda: dda.decode_attention_plain(q, ck, cv, pos, pad, slopes)
         o, ro = run(), plain()
         faults = _dense_faults(dda, q, ck, cv, pos, pad, slopes)
@@ -932,7 +974,7 @@ def _sdpa_backward_ms(q, k, v, do, causal):
     return cuda_ms(both, reps=10) - cuda_ms(fwd, reps=10)
 
 
-def _check_backward_kernels(gen, fa, results, failures):
+def _check_backward_kernels(pick, fa, results, failures):
     """Kernels C and D against their plain versions at the train path's
     shape and at edge shapes; timed at the Hd 128 and Hd 64 call sites.
     Two launches of C and of D must give the same bits at the train shape
@@ -947,9 +989,11 @@ def _check_backward_kernels(gen, fa, results, failures):
         "gqa8_alibi": (2, 256, 16, 2, 128, True, True, False, False),
         "mask_fully_masked_row": (2, 192, 8, 8, 128, True, False, True, True),
         "full_alibi_mask_gqa4_hd64": (2, 130, 4, 1, 64, False, True, True, False),
+        "hd96_gqa4_alibi": (2, 256, 16, 4, 96, True, True, False, False),
+        "hd96_neox20b": (1, 2048, 64, 64, 96, True, False, False, False),
     }
     for name, (B, S, H, KV, Hd, causal, alibi, mask, masked_row) in cases.items():
-        args, kw = _bwd_case(gen, fa, B, S, H, KV, Hd, causal, alibi, mask, masked_row)
+        args, kw = _bwd_case(pick(name), fa, B, S, H, KV, Hd, causal, alibi, mask, masked_row)
         dq = fa.flash_attention_dq(*args, **kw)
         dk, dv = fa.flash_attention_dkv(*args, **kw)
         rdq = fa.flash_attention_dq_plain(*args, **kw)
@@ -997,8 +1041,249 @@ def _check_backward_kernels(gen, fa, results, failures):
             if name == "slice":
                 results["flash_attention_bwd_dq"] = rec_c
                 results["flash_attention_bwd_dkv"] = rec_d
+        if name == "hd96_neox20b":      # gpt_neox 20b's heads: what the zero padding costs
+            padded = [fa.pad_head_dim(x, 128) for x in args[:4]] + list(args[4:])
+            hd96 = {**kw, "scale": 96**-0.5}
+            rec_c["ms"] = cuda_ms(lambda: fa.flash_attention_dq(*args, **kw))
+            rec_d["ms"] = cuda_ms(lambda: fa.flash_attention_dkv(*args, **kw))
+            rec_c["prepadded_hd128_ms"] = cuda_ms(lambda: fa.flash_attention_dq(*padded, **hd96))
+            rec_d["prepadded_hd128_ms"] = cuda_ms(lambda: fa.flash_attention_dkv(*padded, **hd96))
+            del padded
         emit("kernel", **rec_c)
         emit("kernel", **rec_d)
+
+
+# The layout cases of A, C and D: (B, S, H, KV, Hd, layout, causal, faults);
+# "train_sparse" = one micro-batch of the train_sparse phase (Llama-7B heads,
+# S 4096, the Fixed layout: 192 of 528 causal 128-blocks a head),
+# "block64" = BigBird blocks of 64 (tiles straddle them: partial tiles in
+# every kernel), "gqa4" = per-head BigBird layouts with H 32 over KV 8 (D sums
+# over the group's own lists), "zero_row_block" = a random layout with an
+# all-zero row block (o = 0, lse = 1e30, zero gradients there)
+SPARSE_CASES = {
+    "train_sparse": (2, SPARSE_SEQ, 32, 32, 128, "fixed128", True,
+                     ("layout_ignored", "tile_dropped")),
+    "block64": (1, 1024, 8, 8, 128, "bigbird64", False,
+                ("layout_ignored", "tile_dropped", "partial_mask_left_out")),
+    "gqa4": (1, 2048, 32, 8, 128, "bigbird128", False, ("layout_ignored", "tile_dropped")),
+    "zero_row_block": (2, 1024, 8, 8, 128, "zero_row", True, ("layout_ignored",)),
+}
+
+
+def sparse_layout(kind, H, S):
+    """The block layouts of the sparse cases (CPU int64 ``[H, nb, nb]``)."""
+    import torch
+    from deepspeed_tpu_torch.ops import sparse_attention as sa
+    if kind == "fixed128":
+        return sparse_config(H).make_layout(S)
+    if kind.startswith("bigbird"):
+        return sa.BigBirdSparsityConfig(num_heads=H, block=int(kind[7:]),
+                                        different_layout_per_head=True).make_layout(S)
+    gen = torch.Generator().manual_seed(S + H)
+    lay = (torch.rand((H, S // 128, S // 128), generator=gen) > 0.5).long()
+    lay[0, 3] = 0                              # head 0's rows 384..511 attend nothing
+    return lay
+
+
+def sparse_config(H):
+    """The train_sparse path's sparsity: Fixed, block 128, 4 local blocks, 1
+    global, unidirectional."""
+    from deepspeed_tpu_torch.ops.sparse_attention import FixedSparsityConfig
+    return FixedSparsityConfig(num_heads=H, block=128, num_local_blocks=4, num_global_blocks=1,
+                               attention="unidirectional")
+
+
+def _atoms(keep, S):
+    """A kept-block mask ``[H, nb, nb]`` refined to 64-token blocks (every
+    kernel tile is whole 64-token blocks when the layout block is 64 or 128)."""
+    r = S // keep.shape[-1] // 64
+    return keep.repeat_interleave(r, 1).repeat_interleave(r, 2)
+
+
+def _layout_faults(fa, kernel, keep, S, causal, KV, wanted):
+    """Layouts that plant a fault in ``kernel`` ("fwd" A, "dq" C, "dkv" D),
+    each to feed its plain version: the whole layout ignored (None: dense
+    attention), the middle live tile of the longest live-tile list dropped,
+    and each partial tile taken whole (its element mask left out)."""
+    import torch
+    H = keep.shape[0]
+    tq, tk = fa._TILES[kernel]
+    out = {}
+    if "layout_ignored" in wanted:
+        out["layout_ignored"] = None
+    if "tile_dropped" in wanted:
+        offsets, entries = fa.live_tiles(keep, S, causal, kernel, KV)
+        lengths = offsets[1:] - offsets[:-1]
+        row = int(lengths.argmax())
+        code = int(entries[int(offsets[row]) + int(lengths[row]) // 2]) >> 1
+        atoms = _atoms(keep, S).clone()
+        if kernel == "dkv":            # row = (kv head, key tile); code = (group head, q tile)
+            nq = -(-S // tq)
+            h = row // (-(-S // tk)) * (H // KV) + code // nq
+            qt, kt = code % nq, row % (-(-S // tk))
+        else:                          # row = (head, q tile); code = k tile
+            h, qt, kt = row // (-(-S // tq)), row % (-(-S // tq)), code
+        atoms[h, qt * tq // 64:(qt + 1) * tq // 64, kt * tk // 64:(kt + 1) * tk // 64] = False
+        out["tile_dropped"] = atoms
+    if "partial_mask_left_out" in wanted:
+        live, full = fa._tile_grid(keep, S, tq, tk, causal)
+        check(bool((live & ~full).any()), f"{kernel}: the case has no partial tile")
+        whole = live.repeat_interleave(tq // 64, 1).repeat_interleave(tk // 64, 2)
+        n = S // 64
+        out["partial_mask_left_out"] = whole[:, :n, :n] | _atoms(keep, S)
+    return out
+
+
+def _sdpa_mask(keep, S, causal, device):
+    """The layout as SDPA's boolean ``[1, H, S, S]`` mask (True = attend)."""
+    import torch
+    lb = S // keep.shape[-1]
+    tok = keep.to(device).repeat_interleave(lb, 1).repeat_interleave(lb, 2)
+    if causal:
+        tok &= torch.ones((S, S), dtype=torch.bool, device=device).tril()
+    return tok[None]
+
+
+def live_pairs(keep, S, causal):
+    """Token pairs the kept blocks hold (below the diagonal when causal),
+    summed over heads: the work a layout leaves."""
+    lb = S // keep.shape[-1]
+    if not causal:
+        return int(keep.sum()) * lb * lb
+    nb = keep.shape[-1]
+    diag = keep[:, range(nb), range(nb)].sum()
+    return int(keep.sum() - diag) * lb * lb + int(diag) * lb * (lb + 1) // 2
+
+
+def _check_sparse_kernels(gen, fa, results, failures):
+    """A, C and D with a block layout against their layout-aware plain
+    versions (the per-row ulp measures; lse within LSE_TOL), with the
+    layout's faults planted in each plain version (above the limit), two
+    launches bit-equal, the tiles each kernel walked equal to its lists'
+    lengths; at the train_sparse shape timed against the plain versions,
+    dense A / C / D on the same inputs and SDPA with the layout as a
+    boolean mask (its backward for C + D)."""
+    import torch
+    import torch.nn.functional as F
+    for name, (B, S, H, KV, Hd, kind, causal, wanted) in SPARSE_CASES.items():
+        lay = sparse_layout(kind, H, S)
+        keep = fa._layout_keep(lay, S, H, causal)
+        q, k, v, _, _, _ = _flash_case(gen, B, S, H, KV, Hd, causal, False, False)
+        kw = {"causal": causal, "block_layout": lay}
+        fa.reset_tile_counts()
+        o, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+        do = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+        args = (q, k, v, do, lse, delta)
+        dq = fa.flash_attention_dq(*args, **kw)
+        dk, dv = fa.flash_attention_dkv(*args, **kw)
+        walked = fa.tile_counts()
+        want_walked = {kern: B * len(fa.live_tiles(keep, S, causal, kern, KV)[1])
+                       for kern in ("fwd", "dq", "dkv")}
+        again = fa.flash_attention(q, k, v, return_lse=True, **kw)
+        again = (*again, fa.flash_attention_dq(*args, **kw), *fa.flash_attention_dkv(*args, **kw))
+        ro, rlse = fa.flash_attention_plain(q, k, v, **kw)
+        rdq = fa.flash_attention_dq_plain(*args, **kw)
+        rdk, rdv = fa.flash_attention_dkv_plain(*args, **kw)
+        plant = lambda kern, fn: {
+            f: fn({**kw, "block_layout": lf})
+            for f, lf in _layout_faults(fa, kern, keep, S, causal, KV, wanted).items()}
+        f_fwd = plant("fwd", lambda k_: fa.flash_attention_plain(q, k, v, **k_))
+        f_dq = plant("dq", lambda k_: fa.flash_attention_dq_plain(*args, **k_))
+        f_dkv = plant("dkv", lambda k_: fa.flash_attention_dkv_plain(*args, **k_))
+        torch.cuda.synchronize()
+        shape = {"shape": [B, S, H, KV, Hd], "layout": kind, "causal": causal,
+                 "live_blocks": int(keep.sum()), "blocks": H * keep.shape[-1] ** 2}
+        recs = {
+            "fwd": {"kernel": "flash_attention_fwd_layout",
+                    **_hold("flash_attention_fwd_layout", name, [o], [ro],
+                            {f: [r[0]] for f, r in f_fwd.items()}, failures)},
+            "dq": {"kernel": "flash_attention_bwd_dq_layout",
+                   **_hold("flash_attention_bwd_dq_layout", name, [dq], [rdq],
+                           {f: [r] for f, r in f_dq.items()}, failures, GRAD_FLOOR)},
+            "dkv": {"kernel": "flash_attention_bwd_dkv_layout",
+                    **_hold("flash_attention_bwd_dkv_layout", name, [dk, dv], [rdk, rdv],
+                            {f: list(r) for f, r in f_dkv.items()}, failures, GRAD_FLOOR)},
+        }
+        rec_a = recs["fwd"]
+        rec_a["lse_err"] = float((lse - rlse).abs().max())
+        if not rec_a["lse_err"] <= LSE_TOL:
+            failures.append(f"flash layout {name}: lse err {rec_a['lse_err']} > {LSE_TOL}")
+        for kern, rec in recs.items():
+            outs = {"fwd": (o, lse), "dq": (dq,), "dkv": (dk, dv)}[kern]
+            reps = {"fwd": again[:2], "dq": again[2:3], "dkv": again[3:]}[kern]
+            rec.update(case=name, **shape, tiles_walked=walked[kern],
+                       tiles_in_lists=want_walked[kern],
+                       repeat_bit_equal=all(torch.equal(a, b) for a, b in zip(outs, reps)))
+            if rec["tiles_walked"] != rec["tiles_in_lists"]:
+                failures.append(f"{rec['kernel']} {name}: walked {rec['tiles_walked']} tiles, "
+                                f"its lists hold {rec['tiles_in_lists']}")
+            if not rec["repeat_bit_equal"]:
+                failures.append(f"{rec['kernel']} {name}: two launches differ")
+        if kind == "zero_row":
+            rows = slice(384, 512)
+            dead = (float(o[:, rows, 0].float().abs().max()) == 0.0
+                    and bool((lse[:, 0, rows] == 1e30).all())
+                    and float(dq[:, rows, 0].float().abs().max()) == 0.0)
+            rec_a["dead_rows_zero"] = dead
+            if not dead:
+                failures.append(f"flash layout {name}: a row with no live key is not o = 0, "
+                                "lse = 1e30, dq = 0")
+        del again, f_fwd, f_dq, f_dkv, ro, rdq, rdk, rdv
+        if name == "train_sparse":
+            pairs = live_pairs(keep, S, causal) * B
+            elem = q.element_size()
+            one = 2 * pairs * Hd                   # one live S x S x Hd product, in FLOPs
+            rows_bytes = 2 * 4 * B * H * S
+            recs["fwd"]["ms"] = cuda_ms(lambda: fa.flash_attention(q, k, v, **kw))
+            recs["dq"]["ms"] = cuda_ms(lambda: fa.flash_attention_dq(*args, **kw))
+            recs["dkv"]["ms"] = cuda_ms(lambda: fa.flash_attention_dkv(*args, **kw))
+            recs["fwd"]["dense_ms"] = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=causal))
+            recs["dq"]["dense_ms"] = cuda_ms(lambda: fa.flash_attention_dq(*args, causal=causal))
+            recs["dkv"]["dense_ms"] = cuda_ms(
+                lambda: fa.flash_attention_dkv(*args, causal=causal))
+            # device time too: by CUDA events a call of these short kernels
+            # also reads the wrapper's host time
+            for kern, run, dense in (
+                    ("fwd", lambda: fa.flash_attention(q, k, v, **kw),
+                     lambda: fa.flash_attention(q, k, v, causal=causal)),
+                    ("dq", lambda: fa.flash_attention_dq(*args, **kw),
+                     lambda: fa.flash_attention_dq(*args, causal=causal)),
+                    ("dkv", lambda: fa.flash_attention_dkv(*args, **kw),
+                     lambda: fa.flash_attention_dkv(*args, causal=causal))):
+                recs[kern]["device_ms"] = device_ms(run)
+                recs[kern]["dense_device_ms"] = device_ms(dense)
+            recs["fwd"]["plain_ms"] = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, **kw),
+                                              reps=3, warmup=1)
+            recs["dq"]["plain_ms"] = cuda_ms(lambda: fa.flash_attention_dq_plain(*args, **kw),
+                                             reps=3, warmup=1)
+            recs["dkv"]["plain_ms"] = cuda_ms(lambda: fa.flash_attention_dkv_plain(*args, **kw),
+                                              reps=3, warmup=1)
+            mask = _sdpa_mask(keep, S, causal, q.device)
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            recs["fwd"]["library_ms"] = cuda_ms(
+                lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask), reps=10)
+            qg, kg, vg = (x.detach().requires_grad_() for x in (qt, kt, vt))
+            fwd = lambda: F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask)
+            both = lambda: torch.autograd.grad(fwd(), (qg, kg, vg), do.transpose(1, 2))
+            lib = cuda_ms(both, reps=10) - cuda_ms(fwd, reps=10)
+            recs["dq"]["library_ms"] = recs["dkv"]["library_ms"] = lib
+            recs["fwd"]["library"] = "SDPA with the layout as a boolean [1, H, S, S] mask"
+            recs["dq"]["library"] = recs["dkv"]["library"] = (
+                "SDPA backward with the boolean mask (dq, dk, dv together)")
+            del mask, qg, kg, vg
+            recs["fwd"]["bound_ms"], recs["fwd"]["bound_by"] = bound(
+                elem * (2 * q.numel() + k.numel() + v.numel()) + 4 * B * H * S, 2 * one)
+            recs["dq"]["bound_ms"], recs["dq"]["bound_by"] = bound(
+                elem * (2 * q.numel() + k.numel() + v.numel() + do.numel()) + rows_bytes, 3 * one)
+            recs["dkv"]["bound_ms"], recs["dkv"]["bound_by"] = bound(
+                elem * (q.numel() + 2 * k.numel() + 2 * v.numel() + do.numel()) + rows_bytes,
+                4 * one)
+            for kern, rec in recs.items():
+                rec["live_pair_share_of_causal"] = pairs / (B * H * S * (S + 1) // 2)
+                results[rec["kernel"]] = rec
+        for rec in recs.values():
+            emit("kernel", **rec)
 
 
 def _check_fused_adam(gen, fad, results, failures):
@@ -1888,15 +2173,57 @@ def phase_train_parity(state, seed):
     PARITY_LOSS_TOL; each leaf's update (final - initial) on the card is
     within PARITY_UPDATE_TOL of the CPU's, relative to the CPU update's
     norm."""
+    from deepspeed_tpu_torch.models import llama
+    _train_parity("train_parity", seed, llama("7b", n_layer=PARITY_LAYERS), 2, 256,
+                  {f: (lambda f=f: _planted(f), "head" if f.startswith("ce_") else "worst")
+                   for f in ("dq_delta_not_subtracted", "dkv_last_q_tile_skipped",
+                             "ce_ds_labels_shifted")})
+
+
+def phase_sparse_parity(state, seed):
+    """:func:`phase_train_parity` for the sparse train path: Llama-7B width at
+    PARITY_LAYERS with the train_sparse phase's sparsity config
+    (replace_self_attention) at S SPARSE_PARITY_SEQ (two 512-token local
+    windows, so the layout drops pairs): A, C and D walk the layout on the
+    card, their plain layout-aware versions run on the CPU. The planted
+    fault: the layout ignored on the card (dense causal attention), which
+    must read above the gradient limit."""
+    from deepspeed_tpu_torch.models import llama
+    from deepspeed_tpu_torch.ops.sparse_attention import replace_self_attention
+    model = replace_self_attention(llama("7b", n_layer=PARITY_LAYERS), sparse_config(32),
+                                   max_seq=SPARSE_PARITY_SEQ)
+    _train_parity("sparse_parity", seed, model, 2, SPARSE_PARITY_SEQ,
+                  {"layout_ignored": (_layout_ignored, "worst")})
+
+
+@contextlib.contextmanager
+def _layout_ignored():
+    """Inside the ``with`` body the block-sparse kernels run without their
+    layout (dense causal attention) wherever the sparse model calls them."""
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    real = fa.flash_attention
+
+    def faulted(q, k, v, *args, block_layout=None, **kw):
+        return real(q, k, v, *args, **kw)
+
+    fa.flash_attention = faulted
+    try:
+        yield
+    finally:
+        fa.flash_attention = real
+
+
+def _train_parity(phase, seed, model, B, S, faults):
+    """The card (bf16, kernels) against the CPU (fp32, plain versions) for
+    ``model`` on [B, S] batches, as :func:`phase_train_parity` says;
+    ``faults``: name -> (context manager planting it, the leaf read: "worst"
+    or "head")."""
     import numpy as np
     import torch
-    from deepspeed_tpu_torch.models import llama
 
-    model = llama("7b", n_layer=PARITY_LAYERS)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     init = model.init_params(gen, device="cuda", dtype=torch.float32)
     cpu_init = init.map(lambda t: t.to("cpu"))
-    B, S = 2, 256
     config = {**TRAIN_CONFIG, "train_batch_size": B, "train_micro_batch_size_per_gpu": 1,
               "fused_cross_entropy": "on"}
     cpu_config = {k: v for k, v in config.items() if k != "bf16"}
@@ -1916,13 +2243,12 @@ def phase_train_parity(state, seed):
     if not grads[worst_g] <= PARITY_GRAD_TOL:
         failures.append(f"leaf {worst_g} gradient differs by {grads[worst_g]} of the CPU's")
     fault_grads = {}
-    for fault in ("dq_delta_not_subtracted", "dkv_last_q_tile_skipped", "ce_ds_labels_shifted"):
-        with _planted(fault):
+    for fault, (planted, leaf) in faults.items():
+        with planted():
             rel = grad_rel(_grads(gpu, batches[0]))
         fault_grads[fault] = {"worst": max(rel.values()), "head": rel["lm_head"],
                               "median": float(np.median(list(rel.values())))}
-        read = fault_grads[fault]["head" if fault.startswith("ce_") else "worst"]
-        if not read > PARITY_GRAD_TOL:
+        if not fault_grads[fault][leaf] > PARITY_GRAD_TOL:
             failures.append(f"planted fault {fault} reads {fault_grads[fault]} "
                             f"<= {PARITY_GRAD_TOL}")
     del want_g
@@ -1946,7 +2272,7 @@ def phase_train_parity(state, seed):
         failures.append(f"leaf {worst} update differs by {updates[worst]} of the CPU's")
     del gpu, cpu
     torch.cuda.empty_cache()
-    emit("train_parity", layers=model.config.n_layer, d_model=model.config.d_model,
+    emit(phase, layers=model.config.n_layer, d_model=model.config.d_model,
          batch=[B, S], steps=len(batches),
          grad_rel_diff_worst={worst_g: grads[worst_g]},
          grad_rel_diff_median=float(np.median(list(grads.values()))), grad_tol=PARITY_GRAD_TOL,
@@ -1954,27 +2280,57 @@ def phase_train_parity(state, seed):
          update_rel_diff_worst={worst: updates[worst]},
          update_rel_diff_median=float(np.median(list(updates.values()))),
          update_tol=PARITY_UPDATE_TOL)
-    check(not failures, "train_parity failed: " + "; ".join(failures))
+    check(not failures, f"{phase} failed: " + "; ".join(failures))
 
 
-def _train_setup(seed, config=None):
+def _train_setup(seed, config=None, sparse=False, seq=TRAIN_SEQ):
     """The train phase's engine (Llama-2-7B width, TRAIN_LAYERS layers,
     random bf16 weights drawn on the card; ``config`` default TRAIN_CONFIG)
-    and its one token batch."""
+    and its one token batch of ``seq`` tokens a row; with ``sparse`` the
+    model takes the train_sparse path's sparsity config."""
     import numpy as np
     import torch
     from deepspeed_tpu_torch.models import llama
+    from deepspeed_tpu_torch.ops.sparse_attention import replace_self_attention
 
+    config = config or TRAIN_CONFIG
     model = llama("7b", n_layer=TRAIN_LAYERS)
+    if sparse:
+        model = replace_self_attention(model, sparse_config(model.config.n_head), max_seq=seq)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     params = model.init_params(gen, device="cuda", dtype=torch.bfloat16)
-    engine = _train_engine(model, params, config or TRAIN_CONFIG)
+    engine = _train_engine(model, params, config)
     del params
     torch.cuda.empty_cache()
     rng = np.random.default_rng(seed + 2)
-    tokens = rng.integers(0, model.config.vocab_size,
-                          size=(TRAIN_CONFIG["train_batch_size"], TRAIN_SEQ))
+    tokens = rng.integers(0, model.config.vocab_size, size=(config["train_batch_size"], seq))
     return model, engine, {"input_ids": torch.from_numpy(tokens).cuda()}
+
+
+def _sparse_train_config():
+    """The train_sparse path's config: the train phase's, at micro 2 x gas 2."""
+    return {**TRAIN_CONFIG, "train_batch_size": 4, "train_micro_batch_size_per_gpu": 2,
+            "gradient_accumulation_steps": 2}
+
+
+def _timed_steps(engine, batch, steps):
+    """``steps`` train_batch calls: losses, host-clock seconds, and the
+    kernels' launches (and A / C / D's walked tiles) of each step."""
+    import torch
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    losses, step_s, per_step = [], [], []
+    for _ in range(steps):
+        before = _train_counters()
+        fa.reset_tile_counts()
+        t = time.perf_counter()
+        loss = float(engine.train_batch(batch))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        losses.append(loss)
+        after = _train_counters()
+        per_step.append({**{k: after[k] - before[k] for k in after},
+                         **{f"tiles_{k}": n for k, n in fa.tile_counts().items()}})
+    return losses, step_s, per_step
 
 
 def _train_counters():
@@ -2029,16 +2385,7 @@ def phase_train(state, seed):
     acc.reset_peak_memory_stats()
 
     _reset_train_counters()
-    losses, step_s, per_step = [], [], []
-    for _ in range(TRAIN_STEPS):
-        before = _train_counters()
-        t = time.perf_counter()
-        loss = float(engine.train_batch(batch))
-        torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t)
-        losses.append(loss)
-        after = _train_counters()
-        per_step.append({k: after[k] - before[k] for k in after})
+    losses, step_s, per_step = _timed_steps(engine, batch, TRAIN_STEPS)
     launches = _train_counters()
 
     check(all(np.isfinite(losses)), f"non-finite train loss: {losses}")
@@ -2167,16 +2514,7 @@ def phase_train_lamb(state, seed):
     acc.reset_peak_memory_stats()
 
     _reset_train_counters()
-    losses, step_s, per_step = [], [], []
-    for _ in range(TRAIN_STEPS):
-        before = _train_counters()
-        t = time.perf_counter()
-        loss = float(engine.train_batch(batch))
-        torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t)
-        losses.append(loss)
-        after = _train_counters()
-        per_step.append({k: after[k] - before[k] for k in after})
+    losses, step_s, per_step = _timed_steps(engine, batch, TRAIN_STEPS)
     launches = _train_counters()
 
     check(all(np.isfinite(losses)), f"non-finite train loss: {losses}")
@@ -2203,6 +2541,78 @@ def phase_train_lamb(state, seed):
     torch.cuda.empty_cache()
 
 
+def phase_train_sparse(state, seed):
+    """The sparse train path at full width: replace_self_attention(Llama-2-7B
+    width at TRAIN_LAYERS, the Fixed sparsity config, max_seq SPARSE_SEQ)
+    through initialize + train_batch at micro 2 x gas 2 with the train
+    phase's optimizer, schedule, clipping, bf16, remat and fused CE: 1
+    warm-up + 5 timed steps, every loss finite and falling, per step A = 2 L
+    gas, C = D = L gas launches and the tiles they walked equal to the
+    layout's live blocks (A: one 128 x 128 tile a block, C and D: two). Then
+    the same step with sparse_attention off at the same shape (1 warm-up +
+    3 timed). MFU counts the attention pairs each step computes (causal,
+    and kept by the layout)."""
+    import numpy as np
+    import torch
+    from deepspeed_tpu_torch.accelerator import get_accelerator
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+
+    acc = get_accelerator("cuda")
+    config = _sparse_train_config()
+    runs = {}
+    for label, sparse, steps in (("sparse", True, TRAIN_STEPS), ("dense", False, 4)):
+        t0 = time.perf_counter()
+        model, engine, batch = _train_setup(seed, config, sparse=sparse, seq=SPARSE_SEQ)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        cfg = model.config
+        gas, micro = engine.gradient_accumulation_steps(), config["train_micro_batch_size_per_gpu"]
+        S, H, L = SPARSE_SEQ, cfg.n_head, cfg.n_layer
+        keep = fa._layout_keep(sparse_config(H).make_layout(S), S, H, True)
+        pairs = live_pairs(keep, S, True) / H if sparse else S * (S + 1) // 2
+        acc.reset_peak_memory_stats()
+        _reset_train_counters()
+        losses, step_s, per_step = _timed_steps(engine, batch, steps)
+        check(all(np.isfinite(losses)), f"non-finite {label} train loss: {losses}")
+        check(losses[-1] < losses[0], f"the {label} loss did not fall: {losses}")
+        want = {"flash_attention_fwd": 2 * L * gas, "flash_attention_bwd_dq": L * gas,
+                "flash_attention_bwd_dkv": L * gas}
+        if sparse:
+            n_live = int(keep.sum())        # 128-token blocks: A walks one tile a block
+            want.update(tiles_fwd=2 * L * gas * micro * n_live,
+                        tiles_dq=L * gas * micro * 2 * n_live,
+                        tiles_dkv=L * gas * micro * 2 * n_live)
+            # every kernel's launches over the run; A, C and D ran with the
+            # layout, so they count in the layout rows of the kernels line
+            total = {k: sum(s[k] for s in per_step) for k in _train_counters()}
+            state["train_sparse_launches"] = {
+                (k + "_layout" if k.startswith("flash_attention") else k): n
+                for k, n in total.items()}
+        for k, n in want.items():
+            check(all(s[k] == n for s in per_step), f"{label}: {k} per step {per_step} != {n}")
+        tokens = config["train_batch_size"] * S
+        step = statistics.median(step_s[1:])
+        flops_tok = 6.0 * model.num_parameters + 12.0 * L * cfg.d_model * pairs / S
+        runs[label] = {
+            "losses": losses, "step_s": step_s, "step_ms_median_timed": step * 1e3,
+            "tokens_per_s": tokens / step, "flops_per_token": flops_tok,
+            "attention_pairs_per_head": pairs,
+            "mfu": flops_tok * tokens / step / (acc.peak_tflops() * 1e12),
+            "peak_mem_gb": acc.max_memory_allocated() / 1e9, "init_s": init_s,
+            "launches_per_step": {k: per_step[-1][k] for k in want},
+            "launches": {k: sum(s[k] for s in per_step) for k in _train_counters()}}
+        if sparse:
+            runs[label]["live_blocks"] = int(keep.sum())
+            runs[label]["causal_blocks"] = H * (keep.shape[-1] * (keep.shape[-1] + 1) // 2)
+        check(batch["input_ids"].shape == (config["train_batch_size"], S), "batch shape")
+        check(runs[label]["peak_mem_gb"] < 80, f"{label}: peak memory {runs[label]}")
+        del engine, batch
+        torch.cuda.empty_cache()
+    emit("train_sparse", model="llama-2-7b width", layers=TRAIN_LAYERS, seq=SPARSE_SEQ,
+         dtype="bf16", config=config, sparsity="Fixed block 128, 4 local, 1 global, "
+         "unidirectional", peak_tflops=acc.peak_tflops(), card=state.get("card"), **runs)
+
+
 def phase_train_profile(state, seed):
     """Where one warm train step's time goes (not in the default run): a
     warm-up step, a step timed with the host clock, and a step under
@@ -2218,11 +2628,18 @@ def phase_train_lamb_profile(state, seed):
     _profile_train_step(state, seed, "train_lamb_profile", LAMB_CONFIG)
 
 
-def _profile_train_step(state, seed, phase, config):
+def phase_train_sparse_profile(state, seed):
+    """:func:`phase_train_profile` for the train_sparse phase's
+    configuration (the sparse model at SPARSE_SEQ, micro 2 x gas 2)."""
+    _profile_train_step(state, seed, "train_sparse_profile", _sparse_train_config(),
+                        sparse=True, seq=SPARSE_SEQ)
+
+
+def _profile_train_step(state, seed, phase, config, sparse=False, seq=TRAIN_SEQ):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    _, engine, batch = _train_setup(seed, config)
+    _, engine, batch = _train_setup(seed, config, sparse=sparse, seq=seq)
     engine.train_batch(batch)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2332,6 +2749,7 @@ def phase_kernels(state):
     gen = state.get("gen_launches", {})
     train = state.get("train_launches", {})
     train_lamb = state.get("train_lamb_launches", {})
+    train_sparse = state.get("train_sparse_launches", {})
     rows = []
     meta = {
         "flash_attention_fwd": (
@@ -2388,10 +2806,17 @@ def phase_kernels(state):
             "deepspeed_tpu/ops/quantizer/kernels.py:48 (_sym_scale: the group max |x| / qmax "
             "that XLA fuses before the pallas_call :102; not a pallas_call site)"),
     }
+    for kern, (line, what) in {"flash_attention_fwd": (127, "_fwd_kernel"),
+                               "flash_attention_bwd_dq": (182, "_dq_kernel"),
+                               "flash_attention_bwd_dkv": (218, "_dkv_kernel")}.items():
+        meta[kern + "_layout"] = (
+            meta[kern][0], f"deepspeed_tpu/ops/pallas/flash_attention.py:{line} ({what} "
+            "with has_layout: the block-sparse layout, _layout_spec :523)")
     for name, (source, replaces) in meta.items():
         r = res.get(name, {})
         by_path = {p: n[name] for p, n in (("serve", serve), ("generate", gen), ("train", train),
-                                           ("train_lamb", train_lamb)) if name in n}
+                                           ("train_lamb", train_lamb),
+                                           ("train_sparse", train_sparse)) if name in n}
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                      "launches": sum(by_path.values()) if by_path else None,
                      "launches_by_path": by_path, "max_abs_err": r.get("max_abs_err"),

@@ -67,3 +67,8 @@ ZERO_STAGE_DEFAULT = 0
 #############################################
 FUSED_CROSS_ENTROPY = "fused_cross_entropy"
 FUSED_CROSS_ENTROPY_DEFAULT = None
+
+#############################################
+# Sparse attention (kept, read by nothing: the model's sparsity config decides)
+#############################################
+SPARSE_ATTENTION = "sparse_attention"

@@ -55,7 +55,7 @@ _READ = {
     C.TRAIN_BATCH_SIZE, C.TRAIN_MICRO_BATCH_SIZE_PER_GPU, C.GRADIENT_ACCUMULATION_STEPS,
     C.STEPS_PER_PRINT, C.WALL_CLOCK_BREAKDOWN, C.OPTIMIZER, C.SCHEDULER, C.GRADIENT_CLIPPING,
     C.FP16, C.BFLOAT16, C.BFLOAT16_OLD, C.AMP, C.DATA_TYPES, C.ZERO_OPTIMIZATION,
-    C.FUSED_CROSS_ENTROPY, "mesh", "quantize_training",
+    C.FUSED_CROSS_ENTROPY, C.SPARSE_ATTENTION, "mesh", "quantize_training",
 }
 # keys the JAX package reads whose effect is on multi-device runs or on
 # engine features outside training itself; on one device they change nothing
@@ -79,7 +79,6 @@ _NOT_PORTED = {
     "nebula": ("nebula checkpointing", "checkpoint ingestion"),
     "elasticity": ("elastic training", "elasticity/"),
     "autotuning": ("autotuning", "autotuning/"),
-    "sparse_attention": ("sparse attention", "sparse attention"),
     "activation_checkpointing": ("the activation_checkpointing section",
                                  "activation_checkpointing/"),
     "curriculum_learning": ("curriculum learning", "data_pipeline/"),
@@ -215,6 +214,10 @@ class DeepSpeedConfig:
         qt = param_dict.get("quantize_training", {})
         self.quantize_training_enabled = bool(qt.get("enabled", False))
         self.quantize_training = qt if self.quantize_training_enabled else {}
+
+        # the sparse attention section, kept as the JAX package keeps it: the
+        # model's sparsity config (ops/sparse_attention) decides, nothing reads it
+        self.sparse_attention = param_dict.get(C.SPARSE_ATTENTION, None)
 
         self.fused_cross_entropy = param_dict.get(C.FUSED_CROSS_ENTROPY,
                                                   C.FUSED_CROSS_ENTROPY_DEFAULT)

@@ -35,8 +35,10 @@
 //   the host for every pool pointer (32 layers a step on a host-bound path)
 //   and passed as a __grid_constant__; cp.async needs no descriptor.
 // * Math from shared memory. Each warp owns a quarter of a tile's keys. Hd / 8
-//   lanes split a key row (16 at Hd 128, 8 at Hd 64), each on a 16-byte
-//   slice, with q (pre-scaled in T, then fp32) held in registers for that
+//   lanes split a key row (16 at Hd 128, 12 at Hd 96, 8 at Hd 64), each on a
+//   16-byte slice; a row takes a power-of-two group of lanes (16 at Hd 96,
+//   whose last four hold zeros and load nothing), so the shuffle reductions
+//   stay butterflies, with q (pre-scaled in T, then fp32) held in registers for that
 //   slice: the score is a shuffle reduction over the row's lanes, and P V
 //   reuses the same lane-to-slice map, so a lane multiplies its own V slice
 //   by the probabilities its row group already holds. Each warp keeps its own
@@ -138,13 +140,14 @@ __device__ __forceinline__ void decode_split(const T* __restrict__ q_row, float 
                                              float* __restrict__ part_acc,
                                              float* __restrict__ part_ml, char* smem) {
   constexpr int TK = decode_tile_keys<G>();
-  constexpr int LPR = HD / 8;                  // lanes on one key row, 16 B each
+  constexpr int VPR = HD / 8;                  // 16-byte slices of one key row
+  constexpr int LPR = VPR <= 8 ? 8 : 16;       // lanes on one key row (a power of two)
   constexpr int RPW = 32 / LPR;                // rows a warp reads at once
   constexpr int KPW = TK / kDecodeWarps;       // keys of a tile per warp
   constexpr int NP = KPW / RPW;                // passes of a warp over its keys
   constexpr int TILES = kSplitKeys / TK;       // tiles of a full split
-  constexpr int CHUNKS = TK * HD / 8;          // 16-byte chunks of a K (or V) tile
-  static_assert(NP >= 1 && KPW % RPW == 0 && CHUNKS % kDecodeThreads == 0, "tile shape");
+  constexpr int CHUNKS = TK * VPR;             // 16-byte chunks of a K (or V) tile
+  static_assert(HD % 8 == 0 && VPR <= LPR && NP >= 1 && KPW % RPW == 0, "tile shape");
 
   const int split0 = blockIdx.z, zstep = gridDim.z;
   if (split0 >= n_live) return;                // an empty CTA costs one compare
@@ -156,6 +159,7 @@ __device__ __forceinline__ void decode_split(const T* __restrict__ q_row, float 
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int grp = lane / LPR, sub = lane % LPR;
+  const bool slice = sub < VPR;                // the lane holds a slice of the row
 
   // tiles of split s: up to the one holding pos
   auto n_tiles = [&](int s) { return min(TILES, (pos - s * kSplitKeys) / TK + 1); };
@@ -165,9 +169,10 @@ __device__ __forceinline__ void decode_split(const T* __restrict__ q_row, float 
     T* sk = ring + stage * 2 * TK * HD;
     T* sv = sk + TK * HD;
 #pragma unroll
-    for (int i = 0; i < CHUNKS / kDecodeThreads; ++i) {
+    for (int i = 0; i < (CHUNKS + kDecodeThreads - 1) / kDecodeThreads; ++i) {
       const int c = tid + i * kDecodeThreads;
-      const int r = c / LPR, ch = c % LPR;
+      if (CHUNKS % kDecodeThreads != 0 && c >= CHUNKS) break;
+      const int r = c / VPR, ch = c % VPR;
       const long g_off = (r0 + r) * row_stride + ch * 8;
       cp_async16(sk + r * HD + ch * 8, kc + g_off);
       cp_async16(sv + r * HD + ch * 8, vc + g_off);
@@ -178,7 +183,9 @@ __device__ __forceinline__ void decode_split(const T* __restrict__ q_row, float 
   float qf[G][8];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(q_row + (long)(kvh * G + g) * HD + sub * 8);
+    const uint4 raw = slice ? *reinterpret_cast<const uint4*>(q_row + (long)(kvh * G + g) * HD +
+                                                               sub * 8)
+                            : make_uint4(0, 0, 0, 0);
     const T* e = reinterpret_cast<const T*>(&raw);
 #pragma unroll
     for (int u = 0; u < 8; ++u) qf[g][u] = to_float(from_float<T>(to_float(e[u]) * scale));
@@ -222,7 +229,8 @@ __device__ __forceinline__ void decode_split(const T* __restrict__ q_row, float 
     for (int p = 0; p < NP; ++p) {
       const int kt = warp * KPW + p * RPW + grp;
       float kf[8];
-      unpack8<T>(*reinterpret_cast<const uint4*>(sk + kt * HD + sub * 8), kf);
+      unpack8<T>(slice ? *reinterpret_cast<const uint4*>(sk + kt * HD + sub * 8)
+                       : make_uint4(0, 0, 0, 0), kf);
 #pragma unroll
       for (int g = 0; g < G; ++g) {
         float d = 0.f;
@@ -287,7 +295,8 @@ __device__ __forceinline__ void decode_split(const T* __restrict__ q_row, float 
     for (int p = 0; p < NP; ++p) {
       const int kt = warp * KPW + p * RPW + grp;
       float vf[8];
-      unpack8<T>(*reinterpret_cast<const uint4*>(sv + kt * HD + sub * 8), vf);
+      unpack8<T>(slice ? *reinterpret_cast<const uint4*>(sv + kt * HD + sub * 8)
+                       : make_uint4(0, 0, 0, 0), vf);
 #pragma unroll
       for (int g = 0; g < G; ++g)
 #pragma unroll
@@ -303,7 +312,7 @@ __device__ __forceinline__ void decode_split(const T* __restrict__ q_row, float 
         for (int g = 0; g < G; ++g)
 #pragma unroll
           for (int u = 0; u < 8; ++u) acc[g][u] += __shfl_xor_sync(0xffffffffu, acc[g][u], off);
-      if (grp == 0) {
+      if (grp == 0 && slice) {
 #pragma unroll
         for (int g = 0; g < G; ++g)
 #pragma unroll

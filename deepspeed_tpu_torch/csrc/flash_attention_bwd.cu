@@ -47,6 +47,15 @@
 // dk and dv stay in fp32 registers (setmaxnreg gives the consumers 240) and
 // sum over the whole group inside the CTA, in a fixed order.
 //
+// Block-sparse attention (has_layout): C walks each (head, q tile)'s list of
+// live 64-key tiles, D each (kv head, key tile)'s list of (query head of the
+// group, 64-row q tile) pairs, in the dense loops' order; D's producer
+// decodes each step and hands it (head, first q row, partial flag) to the
+// consumers in the stage beside lse and delta, which keeps their registers
+// for dk and dv. Partial tiles take the layout per element (ds::keep_bits);
+// a row the layout leaves no key has lse = +1e30, so p = 0 and its gradients
+// are 0, as in the TPU kernels.
+//
 // No atomics and no split over keys or q tiles in either kernel: each dq
 // tile is written once by C, each dk / dv tile once by D, so the gradients
 // repeat bit for bit from run to run. Keys past S are masked by the bias and
@@ -95,7 +104,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
                     const __grid_constant__ CUtensorMap domap, const float* __restrict__ lse,
                     const float* __restrict__ delta, const float* __restrict__ mask,
                     const float* __restrict__ slopes, T* __restrict__ dq, int S, int H, int KV,
-                    int causal, float scale_log2, float scale) {
+                    int causal, float scale_log2, float scale, const ds::TileList tl) {
   using Sh = DqShape<HD>;
   extern __shared__ unsigned char dq_smem_raw[];
   unsigned char* smem = ds::align_1024(dq_smem_raw);
@@ -117,6 +126,8 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
   const int q0 = qt * kDqBQ;
   int n_kt = (S + kDqBK - 1) / kDqBK;
   if (causal) n_kt = min(n_kt, (q0 + kDqBQ - 1) / kDqBK + 1);   // tiles up to the diagonal
+  int n_it;   // with a layout: this (head, q tile)'s live 64-key tiles
+  const int* walk = ds::tile_walk(tl, h * nqt + qt, n_kt, n_it);
   const int tid = threadIdx.x;
 
   if (tid == 0) {
@@ -139,9 +150,10 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
         ds::tma_load_3d(qs + j * kDqQBox, &qmap, qbar, h * HD + 64 * j, q0, b);
         ds::tma_load_3d(dos + j * kDqQBox, &domap, qbar, h * HD + 64 * j, q0, b);
       }
-      for (int kt = 0; kt < n_kt; ++kt) {
-        const int s = kt % kDqStages;
-        ds::mbar_wait(&empty[s], ((kt / kDqStages) & 1) ^ 1);   // first pass: free
+      for (int it = 0; it < n_it; ++it) {
+        const int kt = walk ? walk[it] >> 1 : it;
+        const int s = it % kDqStages;
+        ds::mbar_wait(&empty[s], ((it / kDqStages) & 1) ^ 1);   // first pass: free
         unsigned char* st = ring + s * Sh::kStageBytes;
         ds::mbar_expect_tx(&full[s], Sh::kStageBytes);
 #pragma unroll
@@ -151,6 +163,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
                           kt * kDqBK, b);
         }
       }
+      if (tl.walked != nullptr) atomicAdd(tl.walked, (unsigned long long)n_it);
     }
   } else {   // consumer warpgroups: 64 q rows each
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
@@ -176,9 +189,11 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
     const uint32_t do_base = ds::smem_u32(dos) + wg * 64 * 128;
 
     ds::mbar_wait(qbar, 0);
-    for (int kt = 0; kt < n_kt; ++kt) {
-      const int s = kt % kDqStages, k0 = kt * kDqBK;
-      ds::mbar_wait(&full[s], (kt / kDqStages) & 1);
+    for (int it = 0; it < n_it; ++it) {
+      const int ent = walk ? walk[it] : 2 * it;
+      const bool partial = ent & 1;
+      const int s = it % kDqStages, k0 = (ent >> 1) * kDqBK;
+      ds::mbar_wait(&full[s], (it / kDqStages) & 1);
       // a key tile wholly above this warpgroup's rows adds nothing
       if (causal && k0 > row0 + 63) {
         if (lane == 0) ds::mbar_arrive(&empty[s]);
@@ -204,17 +219,20 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
       ds::fence_regs(dp);
 
       // log2-domain logits + bias (only where a tile has any: alibi, a key
-      // mask, keys past S or the causal diagonal)
+      // mask, keys past S, the causal diagonal or a partial layout tile)
       const bool biased = slopes != nullptr || mask != nullptr || k0 + kDqBK > S ||
-                          (causal && k0 + kDqBK - 1 > row0);
+                          (causal && k0 + kDqBK - 1 > row0) || partial;
       if (biased) {
+        const uint32_t keep = partial ? ds::keep_bits<kDqBK / 8>(tl, h, qpos, true, k0, S) : ~0u;
 #pragma unroll
         for (int i = 0; i < kDqBK / 8; ++i) {
 #pragma unroll
           for (int e = 0; e < 4; ++e)
             sc[4 * i + e] = sc[4 * i + e] * scale_log2 +
-                            ds::attn_bias(qpos[e >> 1], k0 + 8 * i + 2 * t + (e & 1), S, causal,
-                                          slope, maskb);
+                            ((keep >> (2 * i + (e >> 1))) & 1
+                                 ? ds::attn_bias(qpos[e >> 1], k0 + 8 * i + 2 * t + (e & 1), S,
+                                                 causal, slope, maskb)
+                                 : ds::neg_inf());
         }
       } else {
 #pragma unroll
@@ -274,7 +292,8 @@ template <int HD>
 struct DkvShape {
   static constexpr int kKvBytes = kKvBox * (HD / 64);     // one of k, v
   static constexpr int kQBytes = kQBox * (HD / 64);       // one of q, do
-  // q, do, then the tile's lse and delta rows (64 floats each), 1 KB aligned
+  // q, do, then the tile's lse and delta rows (64 floats each) and its walk
+  // step (query head, first q row, partial flag), 1 KB aligned
   static constexpr int kStageBytes = 2 * kQBytes + 1024;
   static constexpr size_t kSmem =
       1024 + 2 * kKvBytes + kDkvStages * kStageBytes + (2 * kDkvStages + 1) * 8;
@@ -288,7 +307,8 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap qmap,
                      const __grid_constant__ CUtensorMap domap, const float* __restrict__ lse,
                      const float* __restrict__ delta, const float* __restrict__ mask,
                      const float* __restrict__ slopes, T* __restrict__ dk, T* __restrict__ dv,
-                     int S, int H, int KV, int causal, float scale_log2, float scale) {
+                     int S, int H, int KV, int causal, float scale_log2, float scale,
+                     const ds::TileList tl) {
   using Sh = DkvShape<HD>;
   extern __shared__ unsigned char dkv_smem_raw[];
   unsigned char* smem = ds::align_1024(dkv_smem_raw);
@@ -309,6 +329,12 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap qmap,
   const int k0 = kt * kDkvBK;
   const int nq = (S + kDkvBQ - 1) / kDkvBQ;
   const int qt0 = causal ? k0 / kDkvBQ : 0;    // q tiles from the diagonal down
+  // the walk: (query head gi of the group, q tile qt) pairs, gi-major; with a
+  // layout this (kv head, key tile)'s live list, coded gi * nq + qt. The
+  // producer decodes each step and passes it to the consumers in the stage,
+  // beside lse and delta, which keeps their registers for dk and dv.
+  int n_it;
+  const int* walk = ds::tile_walk(tl, kvh * nkt + kt, G * (nq - qt0), n_it);
   const int tid = threadIdx.x;
 
   if (tid == 0) {
@@ -334,33 +360,36 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap qmap,
           ds::tma_load_3d(vs + j * kKvBox, &vmap, kvbar, kvh * HD + 64 * j, k0, b);
         }
       }
-      int it = 0;
-      for (int gi = 0; gi < G; ++gi) {
-        const int h = kvh * G + gi;
+      for (int it = 0; it < n_it; ++it) {
+        const int e = walk ? walk[it] : 2 * ((it / (nq - qt0)) * nq + qt0 + it % (nq - qt0));
+        const int h = kvh * G + (e >> 1) / nq;
         const long row_off = ((long)b * H + h) * S;
-        for (int qt = qt0; qt < nq; ++qt, ++it) {
-          const int s = it % kDkvStages, q0 = qt * kDkvBQ;
-          ds::mbar_wait(&empty[s], ((it / kDkvStages) & 1) ^ 1);   // first pass: free
-          unsigned char* st = ring + s * Sh::kStageBytes;
-          float* lse_s = reinterpret_cast<float*>(st + 2 * Sh::kQBytes);
-          for (int i = lane; i < kDkvBQ; i += 32) {
-            const bool in = q0 + i < S;
-            lse_s[i] = in ? lse[row_off + q0 + i] : -ds::kMasked;   // rows past S: p = 0
-            lse_s[kDkvBQ + i] = in ? delta[row_off + q0 + i] : 0.f;
-          }
-          if (lane == 0) {
-            ds::mbar_expect_tx(&full[s], 2 * Sh::kQBytes);
+        const int s = it % kDkvStages, q0 = (e >> 1) % nq * kDkvBQ;
+        ds::mbar_wait(&empty[s], ((it / kDkvStages) & 1) ^ 1);   // first pass: free
+        unsigned char* st = ring + s * Sh::kStageBytes;
+        float* lse_s = reinterpret_cast<float*>(st + 2 * Sh::kQBytes);
+        for (int i = lane; i < kDkvBQ; i += 32) {
+          const bool in = q0 + i < S;
+          lse_s[i] = in ? lse[row_off + q0 + i] : -ds::kMasked;   // rows past S: p = 0
+          lse_s[kDkvBQ + i] = in ? delta[row_off + q0 + i] : 0.f;
+        }
+        if (lane == 0) {
+          int* step = reinterpret_cast<int*>(lse_s + 2 * kDkvBQ);
+          step[0] = h;
+          step[1] = q0;
+          step[2] = e & 1;
+          ds::mbar_expect_tx(&full[s], 2 * Sh::kQBytes);
 #pragma unroll
-            for (int j = 0; j < HD / 64; ++j) {
-              ds::tma_load_3d(st + j * kQBox, &qmap, &full[s], h * HD + 64 * j, q0, b);
-              ds::tma_load_3d(st + Sh::kQBytes + j * kQBox, &domap, &full[s], h * HD + 64 * j,
-                              q0, b);
-            }
-          } else {
-            ds::mbar_arrive(&full[s]);
+          for (int j = 0; j < HD / 64; ++j) {
+            ds::tma_load_3d(st + j * kQBox, &qmap, &full[s], h * HD + 64 * j, q0, b);
+            ds::tma_load_3d(st + Sh::kQBytes + j * kQBox, &domap, &full[s], h * HD + 64 * j,
+                            q0, b);
           }
+        } else {
+          ds::mbar_arrive(&full[s]);
         }
       }
+      if (lane == 0 && tl.walked != nullptr) atomicAdd(tl.walked, (unsigned long long)n_it);
     }
   } else {   // consumer warpgroups: 64 keys each
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
@@ -377,85 +406,88 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap qmap,
     const uint32_t v_base = ds::smem_u32(vs) + wg * 64 * 128;
 
     ds::mbar_wait(kvbar, 0);
-    int it = 0;
-    for (int gi = 0; gi < G; ++gi) {
-      const int h = kvh * G + gi;
+    for (int it = 0; it < n_it; ++it) {
+      const int s = it % kDkvStages;
+      ds::mbar_wait(&full[s], (it / kDkvStages) & 1);
+      const int* step = reinterpret_cast<const int*>(ring + s * Sh::kStageBytes +
+                                                     2 * Sh::kQBytes) + 2 * kDkvBQ;
+      const int h = step[0], q0 = step[1];
+      const bool partial = step[2] != 0;
       const float slope = slopes ? slopes[h] * ds::kLog2e : 0.f;
-      for (int qt = qt0; qt < nq; ++qt, ++it) {
-        const int s = it % kDkvStages, q0 = qt * kDkvBQ;
-        ds::mbar_wait(&full[s], (it / kDkvStages) & 1);
-        // a q tile wholly above this warpgroup's keys adds nothing
-        if (causal && q0 + kDkvBQ - 1 < kw0) {
-          if (lane == 0) ds::mbar_arrive(&empty[s]);
-          continue;
-        }
-        const uint32_t q_base = ds::smem_u32(ring + s * Sh::kStageBytes);
-        const uint32_t do_base = q_base + Sh::kQBytes;
-        const float* lse_s = reinterpret_cast<const float*>(ring + s * Sh::kStageBytes +
-                                                            2 * Sh::kQBytes);
-        const float* delta_s = lse_s + kDkvBQ;
+      // a q tile wholly above this warpgroup's keys adds nothing
+      if (causal && q0 + kDkvBQ - 1 < kw0) {
+        if (lane == 0) ds::mbar_arrive(&empty[s]);
+        continue;
+      }
+      const uint32_t q_base = ds::smem_u32(ring + s * Sh::kStageBytes);
+      const uint32_t do_base = q_base + Sh::kQBytes;
+      const float* lse_s = reinterpret_cast<const float*>(ring + s * Sh::kStageBytes +
+                                                          2 * Sh::kQBytes);
+      const float* delta_s = lse_s + kDkvBQ;
 
-        // s^T = k q^T and dp^T = v do^T: 64 keys x 64 q rows, 16-deep steps along Hd
-        float st[kDkvBQ / 2], dpt[kDkvBQ / 2];
-        ds::wgmma_fence();
+      // s^T = k q^T and dp^T = v do^T: 64 keys x 64 q rows, 16-deep steps along Hd
+      float st[kDkvBQ / 2], dpt[kDkvBQ / 2];
+      ds::wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < HD / 16; ++kk) {
-          const uint32_t ka = kk / 4 * kKvBox + kk % 4 * 32, qa = kk / 4 * kQBox + kk % 4 * 32;
-          ds::wgmma_ss<T, kDkvBQ, 0, 0>(st, ds::gmma_desc(k_base + ka, 16, 1024),
-                                        ds::gmma_desc(q_base + qa, 16, 1024), kk > 0);
-          ds::wgmma_ss<T, kDkvBQ, 0, 0>(dpt, ds::gmma_desc(v_base + ka, 16, 1024),
-                                        ds::gmma_desc(do_base + qa, 16, 1024), kk > 0);
-        }
-        ds::wgmma_commit();
-        ds::wgmma_wait<0>();
-        ds::fence_regs(st);
-        ds::fence_regs(dpt);
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const uint32_t ka = kk / 4 * kKvBox + kk % 4 * 32, qa = kk / 4 * kQBox + kk % 4 * 32;
+        ds::wgmma_ss<T, kDkvBQ, 0, 0>(st, ds::gmma_desc(k_base + ka, 16, 1024),
+                                      ds::gmma_desc(q_base + qa, 16, 1024), kk > 0);
+        ds::wgmma_ss<T, kDkvBQ, 0, 0>(dpt, ds::gmma_desc(v_base + ka, 16, 1024),
+                                      ds::gmma_desc(do_base + qa, 16, 1024), kk > 0);
+      }
+      ds::wgmma_commit();
+      ds::wgmma_wait<0>();
+      ds::fence_regs(st);
+      ds::fence_regs(dpt);
 
-        // p^T rounded to do's dtype; ds^T = p^T (dp^T - delta) scale
-        const bool biased = slopes != nullptr || mask != nullptr || kw0 + 64 > S ||
-                            (causal && q0 < kw0 + 63);
-        if (biased) {
-#pragma unroll
-          for (int i = 0; i < kDkvBQ / 8; ++i) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e)
-              st[4 * i + e] = st[4 * i + e] * scale_log2 +
-                              ds::attn_bias(q0 + 8 * i + 2 * t + (e & 1), kpos[e >> 1], S,
-                                            causal, slope, maskb);
-          }
-        } else {
-#pragma unroll
-          for (int i = 0; i < kDkvBQ / 2; ++i) st[i] *= scale_log2;
-        }
+      // p^T rounded to do's dtype; ds^T = p^T (dp^T - delta) scale
+      const bool biased = slopes != nullptr || mask != nullptr || kw0 + 64 > S ||
+                          (causal && q0 < kw0 + 63) || partial;
+      if (biased) {
+        const uint32_t keep = partial ? ds::keep_bits<kDkvBQ / 8>(tl, h, kpos, false, q0, S) : ~0u;
 #pragma unroll
         for (int i = 0; i < kDkvBQ / 8; ++i) {
-          // this thread's two q columns 8 i + 2 t, + 1
-          const float2 lse2 = *reinterpret_cast<const float2*>(lse_s + 8 * i + 2 * t);
-          const float2 delta2 = *reinterpret_cast<const float2*>(delta_s + 8 * i + 2 * t);
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float p = round_to<T>(ds::exp2_ftz(st[4 * i + e] - ((e & 1) ? lse2.y : lse2.x)));
-            st[4 * i + e] = p;
-            dpt[4 * i + e] = p * (dpt[4 * i + e] - ((e & 1) ? delta2.y : delta2.x)) * scale;
-          }
+          for (int e = 0; e < 4; ++e)
+            st[4 * i + e] = st[4 * i + e] * scale_log2 +
+                            ((keep >> (2 * i + (e >> 1))) & 1
+                                 ? ds::attn_bias(q0 + 8 * i + 2 * t + (e & 1), kpos[e >> 1], S,
+                                                 causal, slope, maskb)
+                                 : ds::neg_inf());
         }
-        uint32_t pa[kDkvBQ / 16][4], da[kDkvBQ / 16][4];
-        ds::acc_to_a<T, kDkvBQ>(st, pa);
-        ds::acc_to_a<T, kDkvBQ>(dpt, da);
-
-        // dv += p^T do, dk += ds^T q: do and q [q rows, Hd] MN-major, 64-row boxes 8 KB apart
-        ds::wgmma_fence();
+      } else {
 #pragma unroll
-        for (int kk = 0; kk < kDkvBQ / 16; ++kk) {
-          ds::wgmma_rs<T, HD, 1>(adv, pa[kk], ds::gmma_desc(do_base + kk * 16 * 128, kQBox, 1024));
-          ds::wgmma_rs<T, HD, 1>(adk, da[kk], ds::gmma_desc(q_base + kk * 16 * 128, kQBox, 1024));
-        }
-        ds::wgmma_commit();
-        ds::wgmma_wait<0>();
-        ds::fence_regs(adv);
-        ds::fence_regs(adk);
-        if (lane == 0) ds::mbar_arrive(&empty[s]);
+        for (int i = 0; i < kDkvBQ / 2; ++i) st[i] *= scale_log2;
       }
+#pragma unroll
+      for (int i = 0; i < kDkvBQ / 8; ++i) {
+        // this thread's two q columns 8 i + 2 t, + 1
+        const float2 lse2 = *reinterpret_cast<const float2*>(lse_s + 8 * i + 2 * t);
+        const float2 delta2 = *reinterpret_cast<const float2*>(delta_s + 8 * i + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = round_to<T>(ds::exp2_ftz(st[4 * i + e] - ((e & 1) ? lse2.y : lse2.x)));
+          st[4 * i + e] = p;
+          dpt[4 * i + e] = p * (dpt[4 * i + e] - ((e & 1) ? delta2.y : delta2.x)) * scale;
+        }
+      }
+      uint32_t pa[kDkvBQ / 16][4], da[kDkvBQ / 16][4];
+      ds::acc_to_a<T, kDkvBQ>(st, pa);
+      ds::acc_to_a<T, kDkvBQ>(dpt, da);
+
+      // dv += p^T do, dk += ds^T q: do and q [q rows, Hd] MN-major, 64-row boxes 8 KB apart
+      ds::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kDkvBQ / 16; ++kk) {
+        ds::wgmma_rs<T, HD, 1>(adv, pa[kk], ds::gmma_desc(do_base + kk * 16 * 128, kQBox, 1024));
+        ds::wgmma_rs<T, HD, 1>(adk, da[kk], ds::gmma_desc(q_base + kk * 16 * 128, kQBox, 1024));
+      }
+      ds::wgmma_commit();
+      ds::wgmma_wait<0>();
+      ds::fence_regs(adv);
+      ds::fence_regs(adk);
+      if (lane == 0) ds::mbar_arrive(&empty[s]);
     }
 
     // epilogue: dk and dv cast once to k's dtype; keys past S are not stored
@@ -479,7 +511,7 @@ template <typename T, int HD>
 int launch_dq(const void* q, const void* k, const void* v, const void* dO, const float* lse,
               const float* delta, const float* mask, const float* slopes, void* dq, int B,
               int S, int H, int KV, int causal, float scale_log2, float scale,
-              cudaStream_t stream) {
+              const ds::TileList& tl, cudaStream_t stream) {
   using Sh = DqShape<HD>;
   CUtensorMap qmap, kmap, vmap, domap;
   if (!ds::make_tma_map_bsc<T>(&qmap, q, B, S, (long)H * HD, kDqBQ) ||
@@ -494,7 +526,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dO, const
   const int grid = (S + kDqBQ - 1) / kDqBQ * H * B;
   kern<<<grid, kDqThreads, Sh::kSmem, stream>>>(qmap, kmap, vmap, domap, lse, delta, mask,
                                                 slopes, static_cast<T*>(dq), S, H, KV, causal,
-                                                scale_log2, scale);
+                                                scale_log2, scale, tl);
   return (int)cudaGetLastError();
 }
 
@@ -502,7 +534,7 @@ template <typename T, int HD>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dO, const float* lse,
                const float* delta, const float* mask, const float* slopes, void* dk, void* dv,
                int B, int S, int H, int KV, int causal, float scale_log2, float scale,
-               cudaStream_t stream) {
+               const ds::TileList& tl, cudaStream_t stream) {
   using Sh = DkvShape<HD>;
   CUtensorMap qmap, kmap, vmap, domap;
   if (!ds::make_tma_map_bsc<T>(&qmap, q, B, S, (long)H * HD, kDkvBQ) ||
@@ -517,7 +549,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dO, cons
   const int grid = (S + kDkvBK - 1) / kDkvBK * KV * B;
   kern<<<grid, kDkvThreads, Sh::kSmem, stream>>>(
       qmap, kmap, vmap, domap, lse, delta, mask, slopes, static_cast<T*>(dk),
-      static_cast<T*>(dv), S, H, KV, causal, scale_log2, scale);
+      static_cast<T*>(dv), S, H, KV, causal, scale_log2, scale, tl);
   return (int)cudaGetLastError();
 }
 
@@ -527,17 +559,23 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dO, cons
 // (lse log2-domain, as the forward wrote it; delta = sum(do * o) over Hd);
 // mask [B,S] f32 additive key bias or null; slopes [H] f32 or null.
 // scale_log2 = scale * log2(e). dtype 0 = fp16, 1 = bf16; head_dim 64 or
-// 128. Each returns cudaGetLastError() after its launch
-// (cudaErrorNotSupported when the TMA maps cannot be made).
+// 128. tile_offsets / tile_entries / blocks / nb / walked: a block layout's
+// live-tile lists (ds::TileList; C: one per (head, 128-row q tile) of
+// 64-key tiles, D: one per (kv head, 128-key tile) of (group head, 64-row q
+// tile) pairs), all null without a layout. Each returns cudaGetLastError()
+// after its launch (cudaErrorNotSupported when the TMA maps cannot be made).
 extern "C" int ds_flash_attention_bwd_dq(const void* q, const void* k, const void* v,
                                          const void* dO, const float* lse, const float* delta,
                                          const float* mask, const float* slopes, void* dq,
                                          int B, int S, int H, int KV, int head_dim, int causal,
                                          float scale_log2, float scale, int dtype,
-                                         void* stream) {
+                                         const int* tile_offsets, const int* tile_entries,
+                                         const unsigned char* blocks, int nb,
+                                         unsigned long long* walked, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const ds::TileList tl{tile_offsets, tile_entries, blocks, nb, walked};
 #define DS_DQ(T, HD) launch_dq<T, HD>(q, k, v, dO, lse, delta, mask, slopes, dq, B, S, H, KV, \
-                                      causal, scale_log2, scale, st)
+                                      causal, scale_log2, scale, tl, st)
   if (dtype == 1 && head_dim == 128) return DS_DQ(__nv_bfloat16, 128);
   if (dtype == 1 && head_dim == 64) return DS_DQ(__nv_bfloat16, 64);
   if (dtype == 0 && head_dim == 128) return DS_DQ(__half, 128);
@@ -562,10 +600,13 @@ extern "C" int ds_flash_attention_bwd_dkv(const void* q, const void* k, const vo
                                           const float* slopes, void* dk, void* dv, int B, int S,
                                           int H, int KV, int head_dim, int causal,
                                           float scale_log2, float scale, int dtype,
-                                          void* stream) {
+                                          const int* tile_offsets, const int* tile_entries,
+                                          const unsigned char* blocks, int nb,
+                                          unsigned long long* walked, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const ds::TileList tl{tile_offsets, tile_entries, blocks, nb, walked};
 #define DS_DKV(T, HD) launch_dkv<T, HD>(q, k, v, dO, lse, delta, mask, slopes, dk, dv, B, S, \
-                                        H, KV, causal, scale_log2, scale, st)
+                                        H, KV, causal, scale_log2, scale, tl, st)
   if (dtype == 1 && head_dim == 128) return DS_DKV(__nv_bfloat16, 128);
   if (dtype == 1 && head_dim == 64) return DS_DKV(__nv_bfloat16, 64);
   if (dtype == 0 && head_dim == 128) return DS_DKV(__half, 128);

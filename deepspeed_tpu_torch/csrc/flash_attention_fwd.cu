@@ -32,6 +32,16 @@
 // stored. The q tiles of one head launch together, longest first, so they
 // share each k/v tile in L2.
 //
+// Block-sparse attention (the TPU kernel's has_layout mode): the wrapper
+// passes each (head, q tile)'s live k tiles (ds::TileList), and the producer
+// and the consumers walk that list in place of 0 .. the diagonal, both
+// counting ring phases by list position, so a dead tile costs neither TMA
+// bytes nor products and an empty list leaves o = 0, lse = +1e30 (the rule
+// below). A tile that straddles layout blocks (blocks below 128, or not
+// aligned to 128) comes flagged partial and takes the layout per element
+// (ds::keep_bits: -inf, not -1e30, so a row with nothing live yet in it
+// adds no mass); a whole tile runs as the dense kernel does.
+//
 // The TPU kernel's conventions: logits scaled by scale*log2(e) plus the
 // bias, masked entries -1e30, running max from -1e30, exp2, p cast to v's
 // dtype before p v, o = acc / l (l = 1 where a row has no mass), lse = m +
@@ -69,7 +79,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant
                  const __grid_constant__ CUtensorMap vmap, T* __restrict__ o,
                  float* __restrict__ lse, const float* __restrict__ mask,
                  const float* __restrict__ slopes, int S, int H, int KV, int causal,
-                 float scale_log2) {
+                 float scale_log2, const ds::TileList tl) {
   using Sh = FwdShape<HD>;
   extern __shared__ unsigned char fwd_smem_raw[];
   unsigned char* smem = ds::align_1024(fwd_smem_raw);
@@ -90,6 +100,10 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant
   const int q0 = qt * kBQ;
   int n_kt = (S + kBK - 1) / kBK;
   if (causal) n_kt = min(n_kt, (q0 + kBQ - 1) / kBK + 1);   // tiles up to the diagonal
+  // with a layout: this (head, q tile)'s live k tiles; producer and consumers
+  // walk the same list, so their ring phases agree whatever its length
+  int n_it;
+  const int* walk = ds::tile_walk(tl, h * nqt + qt, n_kt, n_it);
   const int tid = threadIdx.x;
 
   if (tid == 0) {
@@ -110,9 +124,10 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant
 #pragma unroll
       for (int j = 0; j < HD / 64; ++j)
         ds::tma_load_3d(qs + j * kBox, &qmap, qbar, h * HD + 64 * j, q0, b);
-      for (int kt = 0; kt < n_kt; ++kt) {
-        const int s = kt % kStages;
-        ds::mbar_wait(&empty[s], ((kt / kStages) & 1) ^ 1);   // first pass: free
+      for (int it = 0; it < n_it; ++it) {
+        const int kt = walk ? walk[it] >> 1 : it;
+        const int s = it % kStages;
+        ds::mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);   // first pass: free
         unsigned char* ks = ring + s * Sh::kStageBytes;
         ds::mbar_expect_tx(&full[s], Sh::kStageBytes);
 #pragma unroll
@@ -122,6 +137,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant
                           kt * kBK, b);
         }
       }
+      if (tl.walked != nullptr) atomicAdd(tl.walked, (unsigned long long)n_it);
     }
   } else {   // consumer warpgroups: 64 q rows each
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
@@ -139,11 +155,13 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant
     const uint32_t q_base = ds::smem_u32(qs) + wg * 64 * 128;
 
     ds::mbar_wait(qbar, 0);
-    for (int kt = 0; kt < n_kt; ++kt) {
-      const int s = kt % kStages, k0 = kt * kBK;
+    for (int it = 0; it < n_it; ++it) {
+      const int e = walk ? walk[it] : 2 * it;
+      const bool partial = e & 1;
+      const int s = it % kStages, k0 = (e >> 1) * kBK;
       const uint32_t k_base = ds::smem_u32(ring + s * Sh::kStageBytes);
       const uint32_t v_base = k_base + Sh::kTileBytes;
-      ds::mbar_wait(&full[s], (kt / kStages) & 1);
+      ds::mbar_wait(&full[s], (it / kStages) & 1);
 
       // s = q k^T: 64 rows x 128 keys, 16-deep steps along Hd
       float sc[kBK / 2];
@@ -158,20 +176,23 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant
       ds::wgmma_wait<0>();
       ds::fence_regs(sc);
       // log2-domain logits + bias (only where a tile has any: alibi, a key
-      // mask, keys past S or the causal diagonal)
+      // mask, keys past S, the causal diagonal or a partial layout tile)
       const bool biased = slopes != nullptr || mask != nullptr || k0 + kBK > S ||
-                          (causal && k0 + kBK - 1 > row0);
+                          (causal && k0 + kBK - 1 > row0) || partial;
       float rowmax[2] = {ds::kMasked, ds::kMasked};
       if (biased) {
+        const uint32_t keep = partial ? ds::keep_bits<kBK / 8>(tl, h, qpos, true, k0, S) : ~0u;
 #pragma unroll
         for (int i = 0; i < kBK / 8; ++i) {
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int row = e >> 1;
-            sc[4 * i + e] = sc[4 * i + e] * scale_log2 +
-                            ds::attn_bias(qpos[row], k0 + 8 * i + 2 * t + (e & 1), S, causal,
-                                          slope, maskb);
-            rowmax[row] = fmaxf(rowmax[row], sc[4 * i + e]);
+          for (int c = 0; c < 4; ++c) {
+            const int row = c >> 1;
+            const float bias = (keep >> (2 * i + row)) & 1
+                                   ? ds::attn_bias(qpos[row], k0 + 8 * i + 2 * t + (c & 1), S,
+                                                   causal, slope, maskb)
+                                   : ds::neg_inf();
+            sc[4 * i + c] = sc[4 * i + c] * scale_log2 + bias;
+            rowmax[row] = fmaxf(rowmax[row], sc[4 * i + c]);
           }
         }
       } else {
@@ -239,7 +260,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant
 template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse, const float* mask,
            const float* slopes, int B, int S, int H, int KV, int causal, float scale_log2,
-           cudaStream_t stream) {
+           const ds::TileList& tl, cudaStream_t stream) {
   using Sh = FwdShape<HD>;
   CUtensorMap qmap, kmap, vmap;
   if (!ds::make_tma_map_bsc<T>(&qmap, q, B, S, (long)H * HD, kBQ) ||
@@ -252,7 +273,7 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, con
   if (err != cudaSuccess) return (int)err;
   const int grid = (S + kBQ - 1) / kBQ * H * B;
   kern<<<grid, kThreads, Sh::kSmem, stream>>>(qmap, kmap, vmap, static_cast<T*>(o), lse, mask,
-                                              slopes, S, H, KV, causal, scale_log2);
+                                              slopes, S, H, KV, causal, scale_log2, tl);
   return (int)cudaGetLastError();
 }
 
@@ -265,16 +286,22 @@ extern "C" int ds_flash_fwd_smem_bytes(int head_dim) {
 
 // q/o [B,S,H,Hd], k/v [B,S,KV,Hd] contiguous and 16-byte aligned; lse
 // [B,H,S] f32; mask [B,S] f32 additive key bias or null; slopes [H] f32 or
-// null. dtype 0 = fp16, 1 = bf16; head_dim 64 or 128. Returns
+// null. dtype 0 = fp16, 1 = bf16; head_dim 64 or 128. tile_offsets /
+// tile_entries: the live-tile lists of a block layout, one per (head, q
+// tile) (ds::TileList), blocks its kept blocks [H, nb, nb] uint8, walked a
+// counter of the tiles walked; all null (nb 0) without a layout. Returns
 // cudaGetLastError() after the launch (cudaErrorNotSupported when the TMA
 // maps cannot be made).
 extern "C" int ds_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                       float* lse, const float* mask, const float* slopes,
                                       int B, int S, int H, int KV, int head_dim, int causal,
-                                      float scale_log2, int dtype, void* stream) {
+                                      float scale_log2, int dtype, const int* tile_offsets,
+                                      const int* tile_entries, const unsigned char* blocks,
+                                      int nb, unsigned long long* walked, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const ds::TileList tl{tile_offsets, tile_entries, blocks, nb, walked};
 #define DS_FWD(T, HD) launch<T, HD>(q, k, v, o, lse, mask, slopes, B, S, H, KV, causal, \
-                                    scale_log2, st)
+                                    scale_log2, tl, st)
   if (dtype == 1 && head_dim == 128) return DS_FWD(__nv_bfloat16, 128);
   if (dtype == 1 && head_dim == 64) return DS_FWD(__nv_bfloat16, 64);
   if (dtype == 0 && head_dim == 128) return DS_FWD(__half, 128);

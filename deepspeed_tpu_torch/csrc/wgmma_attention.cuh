@@ -128,6 +128,65 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// A kernel's live-tile lists for a block-sparse layout (every pointer null
+// without one). List r is entries[offsets[r] .. offsets[r + 1]), in walk
+// order; an entry is (tile << 1) | partial, where a partial tile straddles
+// layout blocks and takes the element mask below. blocks: the kept blocks
+// [H, nb, nb] (uint8, the causal diagonal's upper blocks already dropped);
+// walked: each CTA's producer adds its list's length (a count a run can
+// hold to the layout's own).
+struct TileList {
+  const int* offsets;
+  const int* entries;
+  const unsigned char* blocks;
+  int nb;
+  unsigned long long* walked;
+};
+
+// The walk of list ``row``: its entries and length, or (no layout) null and
+// ``dense``, the kernel's own tile count.
+__device__ __forceinline__ const int* tile_walk(const TileList& tl, int row, int dense,
+                                                int& n) {
+  if (tl.entries == nullptr) {
+    n = dense;
+    return nullptr;
+  }
+  const int o0 = tl.offsets[row];
+  n = tl.offsets[row + 1] - o0;
+  return tl.entries + o0;
+}
+
+// The element mask of a partial tile, for one thread: bit 2 g + r is set
+// where head h's layout keeps the pairs (fixed[r], the 8 positions from
+// first + 8 g) and both lie inside S. fixed holds the thread's two
+// accumulator rows (A, C: query positions; D: keys) and the NG groups of 8
+// run along the other side; one bit serves a group since a layout block (a
+// multiple of 8 tokens, as S is) never splits 8 aligned positions. A pair
+// whose bit is clear takes a -inf logit, so it adds nothing to its row's
+// mass even while the row's running max is still at -1e30 (a -1e30 logit
+// there would read p = 1). Rolled, so the mask costs one register in the
+// tile loop.
+template <int NG>
+__device__ __forceinline__ uint32_t keep_bits(const TileList& tl, int h, const int (&fixed)[2],
+                                              bool q_fixed, int first, int S) {
+  static_assert(2 * NG <= 32, "one bit a group and row");
+  const int lb = S / tl.nb;
+  const unsigned char* lay = tl.blocks + (long)h * tl.nb * tl.nb;
+  uint32_t bits = 0;
+#pragma unroll 1
+  for (int g = 0; g < NG; ++g) {
+    const int other = first + 8 * g;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qp = q_fixed ? fixed[r] : other, kp = q_fixed ? other : fixed[r];
+      if (qp < S && kp < S && lay[(qp / lb) * tl.nb + kp / lb] != 0) bits |= 1u << (2 * g + r);
+    }
+  }
+  return bits;
+}
+
+__device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
+
 // 1024-byte alignment of the dynamic shared memory (the swizzle atoms').
 __device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
   return reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(p) + 1023) &

@@ -37,6 +37,7 @@ same mask.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, Optional
 
@@ -651,14 +652,54 @@ def _generator(seed: Optional[int], device):
     return None if seed is None else torch.Generator(device=device).manual_seed(seed)
 
 
+@functools.lru_cache(maxsize=16)
+def _sparse_layout(sc, S: int) -> torch.Tensor:
+    """``sc.make_layout(S)`` once per (config, S): every layer of every step
+    reads the same layout."""
+    return sc.make_layout(S)
+
+
+def _sparse_model_attention(cfg: TransformerConfig, q, k, v, mask_bias, slopes):
+    """Model-level block-sparse attention (``cfg.sparse_attention`` set),
+    the JAX package's ``_sparse_model_attention``: every layer computes
+    softmax over the sparsity layout's support only. With a layout block of
+    128 or more and ``attention_backend`` "flash", or "auto" on a CUDA
+    device, the block-sparse flash kernels (zero blocks skipped forward and
+    backward; their plain versions on the CPU, as the JAX package runs its
+    kernel in interpret mode there); otherwise the exact dense token-bias
+    form, which refuses S past its DENSE_SPARSE_MAX_SEQ."""
+    from deepspeed_tpu_torch.ops.sparse_attention.sparse_self_attention import (
+        sparse_attention_core)
+    B, S, H, Hd = q.shape
+    if k.shape[2] != H:
+        raise NotImplementedError("sparse attention requires n_kv_head == n_head (MHA)")
+    if slopes is not None:
+        raise NotImplementedError("sparse attention does not compose with alibi")
+    if cfg.sequence_parallel != "none":
+        raise NotImplementedError("sparse attention does not compose with sequence parallelism")
+    sc = cfg.sparse_attention
+    # Dense/base configs carry no direction: cfg.causal alone governs
+    mode = getattr(sc, "attention", None)
+    if mode is not None and (mode == "unidirectional") != bool(cfg.causal):
+        raise ValueError(f"sparsity config attention={mode!r} disagrees with "
+                         f"the model's causal={cfg.causal}")
+    layout = _sparse_layout(sc, S)
+    if layout.shape[0] != H:
+        raise ValueError(f"sparsity config num_heads={layout.shape[0]} != model n_head={H}")
+    mb = None if mask_bias is None else mask_bias.float()
+    kernels = _use_kernels(cfg) and (cfg.attention_backend == "flash" or q.is_cuda)
+    return sparse_attention_core(q, k, v, layout, sc.block, bool(cfg.causal), mb,
+                                 scale=cfg.attn_scale,
+                                 use_pallas=kernels and sc.block >= 128 and sc.block % 8 == 0)
+
+
 def attention(cfg: TransformerConfig, x, lp, positions, mask_bias):
     """Multi-head attention of one training block: projections, rope,
     ALiBi, then flash attention (kernels A, C, D on the card) for
     ``attention_backend`` auto / flash, or the plain ``mha_attention`` for
-    xla. GQA kv goes in unrepeated."""
-    if cfg.sparse_attention is not None:
-        not_ported("sparse attention", "queue 1: sparse attention")
-    if cfg.sequence_parallel != "none":
+    xla; block-sparse attention (:func:`_sparse_model_attention`) when the
+    config carries a sparsity config. GQA kv goes in unrepeated."""
+    if cfg.sequence_parallel != "none" and cfg.sparse_attention is None:
         not_ported(f"sequence parallelism ({cfg.sequence_parallel})", "queue 1: sequence/")
     if cfg.manual_tp:
         not_ported("manual tensor parallelism (manual_tp)", "queue 1: runtime/pipe/")
@@ -668,7 +709,9 @@ def attention(cfg: TransformerConfig, x, lp, positions, mask_bias):
     H, Hd = cfg.n_head, cfg.head_dim
     q, k, v = _qkv_project(cfg, x, lp, positions)
     slopes = _alibi_slopes(H, x.device) if cfg.pos_embedding == "alibi" else None
-    if _use_kernels(cfg):
+    if cfg.sparse_attention is not None:
+        out = _sparse_model_attention(cfg, q, k, v, mask_bias, slopes)
+    elif _use_kernels(cfg):
         out = flash_attention(q, k, v, mask_bias=mask_bias, causal=cfg.causal,
                               alibi_slopes=slopes, scale=cfg.attn_scale)
     else:

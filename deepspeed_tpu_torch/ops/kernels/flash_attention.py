@@ -19,6 +19,25 @@ kernels writes an S x S tile: the forward keeps its running softmax in fp32
 registers and writes the log2-domain lse, from which the backward
 recomputes p. See the sources' headers for the layouts.
 
+Head dims: the kernels are built for Hd 64 and 128 (64-column TMA boxes);
+any other multiple of 8 up to 128 is zero-padded here to the next of the
+two (q k^T and p v do not change with zero columns; the scale stays the
+one of the true Hd) and the outputs are sliced back.
+
+Block-sparse attention (``block_layout``, the TPU kernels' ``has_layout``
+mode): an ``[H, nb, nb]`` (or ``[nb, nb]``) layout whose entries > 0 keep a
+(query block, key block) pair of S / nb tokens each. :func:`live_tiles`
+turns it, once per (layout, S, causal), into each kernel's live-tile lists:
+per (head, 128-row q tile) the k tiles of A (128 keys) and of C (64 keys),
+and per (kv head, 128-key tile) the (query head of the group, 64-row q
+tile) pairs of D, each flagged full or partial. The producer and the
+consumers of each kernel walk the same list, so a dead tile costs neither
+bytes nor products; on a partial tile (one that straddles layout blocks,
+which never happens at a block that is a multiple of 128) the layout masks
+each element. A row with no live key gets o = 0 and lse = +1e30, and zero
+gradients, as in the TPU kernels. ``tile_counts()`` reads the tiles each
+kernel walked on the card since ``reset_tile_counts()``.
+
 :func:`flash_attention` is differentiable: its autograd Function saves
 ``(q, k, v, o, lse, mask, slopes)``, computes ``delta = sum(do * o)`` in fp32
 with plain torch (as the JAX package does in XLA) and runs C and D. Each
@@ -31,6 +50,8 @@ went through them).
 from __future__ import annotations
 
 import ctypes
+import math
+from collections import OrderedDict
 from typing import Optional
 
 import torch
@@ -49,10 +70,12 @@ dkv_launches = 0
 _DTYPE_CODE = {torch.float16: 0, torch.bfloat16: 1}
 
 
-def _log2_logits(q, k, mask_bias, causal: bool, alibi_slopes, scale: float):
+def _log2_logits(q, k, mask_bias, causal: bool, alibi_slopes, scale: float, block_layout=None):
     """The kernels' log2-domain logits ``[B, KV, G, S, S]`` in fp32: scaled
     q k^T with ALiBi, -1e30 above the causal diagonal, plus the key-side
-    mask bias (the TPU kernels' ``_block_bias``)."""
+    mask bias (the TPU kernels' ``_block_bias``); -inf where ``block_layout``
+    drops the pair, so that it adds nothing to a row's mass (the TPU kernels
+    skip such blocks)."""
     B, S, H, Hd = q.shape
     KV = k.shape[2]
     G = H // KV
@@ -70,6 +93,11 @@ def _log2_logits(q, k, mask_bias, causal: bool, alibi_slopes, scale: float):
     s = s + bias
     if mask_bias is not None:
         s = s + mask_bias.float()[:, None, None, None, :] * _LOG2E
+    if block_layout is not None:
+        keep = _layout_keep(block_layout, S, H, causal).to(q.device)
+        lb = S // keep.shape[-1]
+        keep = keep.repeat_interleave(lb, 1).repeat_interleave(lb, 2).reshape(KV, G, S, S)
+        s = s.masked_fill(~keep, float("-inf"))
     return s
 
 
@@ -78,15 +106,15 @@ def _scale(q, scale):
 
 
 def flash_attention_plain(q, k, v, mask_bias=None, causal: bool = True,
-                          alibi_slopes=None, scale: Optional[float] = None):
+                          alibi_slopes=None, scale: Optional[float] = None, block_layout=None):
     """Kernel A's math in plain PyTorch, fp32 throughout: log2-domain
     logits with the same masking conventions (the running max starts at
     -1e30, so a row whose every logit is at or below it has no mass), p
     rounded to v's dtype before the P V product, and the log2-domain lse
-    ``[B, H, S]`` (+1e30 for a row with no mass). Returns ``(out [B, S, H,
-    Hd] in q's dtype, lse)``."""
+    ``[B, H, S]`` (+1e30 for a row with no mass, and so for a row that the
+    layout leaves no key). Returns ``(out [B, S, H, Hd] in q's dtype, lse)``."""
     B, S, H, Hd = q.shape
-    s = _log2_logits(q, k, mask_bias, causal, alibi_slopes, _scale(q, scale))
+    s = _log2_logits(q, k, mask_bias, causal, alibi_slopes, _scale(q, scale), block_layout)
     m = s.amax(dim=-1, keepdim=True).clamp(min=_MASKED)
     p = torch.exp2(s - m)
     l = p.sum(dim=-1, keepdim=True)
@@ -97,12 +125,13 @@ def flash_attention_plain(q, k, v, mask_bias=None, causal: bool = True,
     return o.reshape(B, S, H, Hd).to(q.dtype), lse.reshape(B, H, S)
 
 
-def _p_and_ds_terms(q, k, v, do, lse, delta, mask_bias, causal, alibi_slopes, scale):
+def _p_and_ds_terms(q, k, v, do, lse, delta, mask_bias, causal, alibi_slopes, scale,
+                    block_layout):
     """p = exp2(s - lse) ``[B, KV, G, Sq, Sk]`` and dp - delta, both fp32."""
     B, S, H, Hd = q.shape
     KV = k.shape[2]
     G = H // KV
-    s = _log2_logits(q, k, mask_bias, causal, alibi_slopes, scale)
+    s = _log2_logits(q, k, mask_bias, causal, alibi_slopes, scale, block_layout)
     p = torch.exp2(s - lse.float().reshape(B, KV, G, S, 1))
     do5 = do.float().reshape(B, S, KV, G, Hd)
     dp = torch.einsum("bqcgd,bkcd->bcgqk", do5, v.float())
@@ -110,7 +139,8 @@ def _p_and_ds_terms(q, k, v, do, lse, delta, mask_bias, causal, alibi_slopes, sc
 
 
 def flash_attention_dq_plain(q, k, v, do, lse, delta, mask_bias=None, causal: bool = True,
-                             alibi_slopes=None, scale: Optional[float] = None):
+                             alibi_slopes=None, scale: Optional[float] = None,
+                             block_layout=None):
     """Kernel C's math (the TPU ``_dq_kernel``) in plain PyTorch: p stays
     fp32, ``ds = p (dp - delta) scale`` is rounded to k's dtype, ``dq = ds
     k`` accumulates in fp32 and comes back in q's dtype ``[B, S, H, Hd]``.
@@ -118,14 +148,16 @@ def flash_attention_dq_plain(q, k, v, do, lse, delta, mask_bias=None, causal: bo
     forward; delta = sum(do * o) over Hd)."""
     B, S, H, Hd = q.shape
     sc = _scale(q, scale)
-    p, dpd = _p_and_ds_terms(q, k, v, do, lse, delta, mask_bias, causal, alibi_slopes, sc)
+    p, dpd = _p_and_ds_terms(q, k, v, do, lse, delta, mask_bias, causal, alibi_slopes, sc,
+                             block_layout)
     ds = (p * dpd * sc).to(k.dtype).float()
     dq = torch.einsum("bcgqk,bkcd->bqcgd", ds, k.float())
     return dq.reshape(B, S, H, Hd).to(q.dtype)
 
 
 def flash_attention_dkv_plain(q, k, v, do, lse, delta, mask_bias=None, causal: bool = True,
-                              alibi_slopes=None, scale: Optional[float] = None):
+                              alibi_slopes=None, scale: Optional[float] = None,
+                              block_layout=None):
     """Kernel D's math (the TPU ``_dkv_kernel``) in plain PyTorch: p is
     rounded to do's dtype and that p feeds both ``dv = p^T do`` and ``ds =
     p (dp - delta) scale``, which is rounded to q's dtype for ``dk = ds^T
@@ -135,13 +167,172 @@ def flash_attention_dkv_plain(q, k, v, do, lse, delta, mask_bias=None, causal: b
     KV = k.shape[2]
     G = H // KV
     sc = _scale(q, scale)
-    p, dpd = _p_and_ds_terms(q, k, v, do, lse, delta, mask_bias, causal, alibi_slopes, sc)
+    p, dpd = _p_and_ds_terms(q, k, v, do, lse, delta, mask_bias, causal, alibi_slopes, sc,
+                             block_layout)
     p = p.to(do.dtype).float()
     ds = (p * dpd * sc).to(q.dtype).float()
     dv = torch.einsum("bcgqk,bqcgd->bkcd", p, do.float().reshape(B, S, KV, G, Hd))
     dk = torch.einsum("bcgqk,bqcgd->bkcd", ds, q.float().reshape(B, S, KV, G, Hd))
     return dk.to(q.dtype), dv.to(q.dtype)
 
+
+# --------------------------------------------------------------------- #
+# block layouts and the kernels' live-tile lists
+
+def _layout_keep(block_layout, S: int, H: int, causal: bool) -> torch.Tensor:
+    """The layout as a bool ``[H, nb, nb]`` CPU tensor (entries > 0 keep; a
+    2-D layout broadcast over the heads), with the blocks above the causal
+    diagonal dropped (the TPU kernels skip them); the JAX package's checks."""
+    layout = torch.as_tensor(block_layout).detach().cpu()
+    if layout.ndim == 2:
+        layout = layout[None].expand(H, *layout.shape)
+    nb = layout.shape[-1]
+    if layout.ndim != 3 or layout.shape[0] != H or layout.shape[1] != nb:
+        raise ValueError(f"block_layout shape {tuple(torch.as_tensor(block_layout).shape)}; "
+                         f"expected [{H}, nb, nb] or [nb, nb]")
+    if S % nb != 0:
+        raise ValueError(f"seq len {S} not divisible by layout blocks {nb}")
+    lb = S // nb
+    if lb < 8 or lb % 8 != 0:
+        raise ValueError(
+            f"layout block size {lb} (= S/{nb}) must be a multiple of 8 for the "
+            "kernels' tiling; use a coarser SparsityConfig block")
+    keep = layout > 0
+    if causal:
+        keep = keep & torch.ones((nb, nb), dtype=torch.bool).tril()
+    return keep
+
+
+# the kernels' tiles: A 128 q x 128 k, C 128 q x 64 k, D 128 k x 64 q
+_TILES = {"fwd": (128, 128), "dq": (128, 64), "dkv": (64, 128)}
+
+
+def _tile_grid(keep, S: int, tq: int, tk: int, causal: bool):
+    """``(live, full)`` bool ``[H, ceil(S / tq), ceil(S / tk)]``: a tile is
+    live when it holds a kept (query, key) pair below the causal diagonal,
+    full when every pair of it inside S is kept (so it needs no element mask)."""
+    H, nb, _ = keep.shape
+    lb = S // nb
+    a = math.gcd(lb, 64)                      # atoms: every tile and block is whole atoms
+    atoms = keep.repeat_interleave(lb // a, 1).repeat_interleave(lb // a, 2)
+    n, nq, nk = S // a, -(-S // tq), -(-S // tk)
+
+    def tiles(fill, reduce):
+        grid = torch.full((H, nq * tq // a, nk * tk // a), fill, dtype=torch.bool)
+        grid[:, :n, :n] = atoms
+        return reduce(grid.view(H, nq, tq // a, nk, tk // a), (2, 4))
+
+    live = tiles(False, torch.any)
+    full = tiles(True, torch.all)
+    if causal:        # a tile wholly above the diagonal holds no pair of the causal mask
+        q_last = torch.clamp(torch.arange(nq) * tq + tq, max=S) - 1
+        live &= (torch.arange(nk) * tk)[None, :] <= q_last[:, None]
+    return live, full
+
+
+def _csr(live, full, code):
+    """``(offsets, entries)`` int32 of one list per row of ``live`` ``[R,
+    M]``: entries ``code << 1 | partial`` of the live candidates, in order."""
+    offsets = torch.zeros(live.shape[0] + 1, dtype=torch.int32)
+    offsets[1:] = live.sum(-1).cumsum(0)
+    entries = (code.expand_as(live) * 2 + (~full).int())[live]
+    return offsets, entries.to(torch.int32)
+
+
+def live_tiles(keep, S: int, causal: bool, kernel: str, kv_heads: int):
+    """The live-tile lists of kernel ``kernel`` ("fwd" A, "dq" C, "dkv" D)
+    for the kept blocks ``keep`` ``[H, nb, nb]``: ``(offsets, entries)``,
+    CPU int32. A and C: one list per (head, 128-row q tile), the k tile
+    indices in ascending order. D: one list per (kv head, 128-key tile),
+    the (query head of the group g, 64-row q tile t) pairs coded g * nq +
+    t, g-major as D's dense loop walks them. Each entry is ``index << 1 |
+    partial``."""
+    tq, tk = _TILES[kernel]
+    live, full = _tile_grid(keep, S, tq, tk, causal)
+    H, nq, nk = live.shape
+    if kernel != "dkv":
+        return _csr(live.reshape(H * nq, nk), full.reshape(H * nq, nk), torch.arange(nk))
+    G = H // kv_heads
+    by_key = lambda x: x.reshape(kv_heads, G, nq, nk).permute(0, 3, 1, 2).reshape(
+        kv_heads * nk, G * nq)
+    return _csr(by_key(live), by_key(full), torch.arange(G * nq))
+
+
+class _Layout:
+    """One layout's device-side pieces for the kernels: the kept blocks as
+    uint8 ``[H, nb, nb]`` (for the partial tiles' element mask) and each
+    kernel's live-tile lists, made on first use."""
+
+    def __init__(self, keep, S, causal, device):
+        self.keep, self.S, self.causal, self.device = keep, S, causal, device
+        self.nb = keep.shape[-1]
+        self.blocks = keep.to(torch.uint8).contiguous().to(device)
+        self._lists = {}
+
+    def lists(self, kernel: str, kv_heads: int):
+        key = (kernel, kv_heads if kernel == "dkv" else 0)
+        if key not in self._lists:
+            self._lists[key] = tuple(x.to(self.device) for x in
+                                     live_tiles(self.keep, self.S, self.causal, kernel, kv_heads))
+        return self._lists[key]
+
+
+_LAYOUTS: "OrderedDict[tuple, _Layout]" = OrderedDict()
+# the last layout object seen at each (S, H, causal, device): the model passes
+# the same layout tensor to every layer, so its pieces are found without
+# reading its content again (the object is held, so its id is not reused)
+_LAST: dict = {}
+
+
+def _device_layout(block_layout, S, H, causal, device) -> _Layout:
+    """The cached :class:`_Layout` of a layout's content at (S, causal, device)."""
+    where = (S, H, bool(causal), str(device))
+    last = _LAST.get(where)
+    version = getattr(block_layout, "_version", None)
+    if last is not None and last[0] is block_layout and version is not None \
+            and last[1] == version:
+        return last[2]
+    keep = _layout_keep(block_layout, S, H, causal)
+    key = (keep.numpy().tobytes(), tuple(keep.shape)) + where
+    hit = _LAYOUTS.get(key)
+    if hit is None:
+        hit = _LAYOUTS[key] = _Layout(keep, S, causal, device)
+        if len(_LAYOUTS) > 64:
+            _LAYOUTS.popitem(last=False)
+    _LAYOUTS.move_to_end(key)
+    _LAST[where] = (block_layout, version, hit)
+    return hit
+
+
+#: tiles walked on the card by A, C and D with a layout, one device counter
+#: each (a kernel's producer adds its CTA's list length)
+_walked = {}
+
+
+def _walked_counter(device):
+    if device not in _walked:
+        _walked[device] = torch.zeros(3, dtype=torch.int64, device=device)
+    return _walked[device]
+
+
+def reset_tile_counts():
+    """Set the tile counters of every device to 0."""
+    for c in _walked.values():
+        c.zero_()
+
+
+def tile_counts():
+    """``{"fwd": n, "dq": n, "dkv": n}``: the tiles A, C and D walked over
+    their live-tile lists since :func:`reset_tile_counts`, summed over the
+    devices (reading them synchronises)."""
+    total = [0, 0, 0]
+    for c in _walked.values():
+        total = [t + int(x) for t, x in zip(total, c.tolist())]
+    return dict(zip(("fwd", "dq", "dkv"), total))
+
+
+# --------------------------------------------------------------------- #
+# the kernels
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -167,6 +358,20 @@ def _check(name, x, ref, shape, dtype=None):
         raise ValueError(f"{name} must be 16-byte aligned")
 
 
+def kernel_head_dim(Hd: int) -> int:
+    """The head dim the kernels run a head of ``Hd`` at: 64 or 128, the
+    columns past Hd zero."""
+    if Hd % 8 or not 8 <= Hd <= 128:
+        raise ValueError(f"flash_attention kernels take a head_dim that is a multiple of 8 "
+                         f"up to 128, got {Hd}")
+    return 64 if Hd <= 64 else 128
+
+
+def pad_head_dim(x, hd: int):
+    """``x`` ``[..., Hd]`` with zero columns up to ``hd`` (itself when Hd = hd)."""
+    return x if x.shape[-1] == hd else torch.nn.functional.pad(x, (0, hd - x.shape[-1]))
+
+
 def _kernel_inputs(q, k, v, mask_bias, alibi_slopes):
     """Check what every kernel of this module takes; returns the fp32 mask
     and slopes (or None) on q's device."""
@@ -177,7 +382,7 @@ def _kernel_inputs(q, k, v, mask_bias, alibi_slopes):
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("q, k and v must share one dtype")
     if Hd not in (64, 128):
-        raise ValueError(f"flash_attention kernels take head_dim 64 or 128, got {Hd}")
+        raise ValueError(f"the kernels run head_dim 64 or 128 (pad_head_dim), got {Hd}")
     _check("q", q, q, (B, S, H, Hd))
     _check("k", k, q, (B, S, KV, Hd))
     _check("v", v, q, (B, S, KV, Hd))
@@ -194,6 +399,23 @@ def _ptr(x):
     return None if x is None else x.data_ptr()
 
 
+def _tile_args(q, block_layout, causal, kernel, kv_heads):
+    """The kernels' five layout arguments: list offsets, list entries, the
+    kept blocks, nb and the walked-tile counter (all null / 0 without a
+    layout)."""
+    if block_layout is None:
+        return [None, None, None, 0, None]
+    S, H = q.shape[1], q.shape[2]
+    lay = _device_layout(block_layout, S, H, causal, q.device)
+    offsets, entries = lay.lists(kernel, kv_heads)
+    walked = _walked_counter(q.device)[("fwd", "dq", "dkv").index(kernel):]
+    return [offsets.data_ptr(), entries.data_ptr(), lay.blocks.data_ptr(), lay.nb,
+            walked.data_ptr()]
+
+
+_TILE_ARGTYPES = [_P, _P, _P, _I, _P]
+
+
 def _launch(fn, name, q, *args):
     with torch.cuda.device(q.device):
         rc = fn(*args, torch.cuda.current_stream(q.device).cuda_stream)
@@ -202,19 +424,24 @@ def _launch(fn, name, q, *args):
 
 
 def flash_attention_cuda(q, k, v, mask_bias=None, causal: bool = True,
-                         alibi_slopes=None, scale: Optional[float] = None):
+                         alibi_slopes=None, scale: Optional[float] = None, block_layout=None):
     """Launch kernel A on CUDA tensors. Returns ``(out, lse)``."""
     global launches
     B, S, H, Hd = q.shape
+    sc = _scale(q, scale)
+    hd = kernel_head_dim(Hd)
+    q, k, v = (pad_head_dim(x, hd) for x in (q, k, v))
     mask, slopes = _kernel_inputs(q, k, v, mask_bias, alibi_slopes)
     o = torch.empty_like(q)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
-    fn = _bind("flash_attention", "ds_flash_attention_fwd", [_P] * 7 + [_I] * 6 + [_F, _I, _P])
+    tiles = _tile_args(q, block_layout, causal, "fwd", k.shape[2])
+    fn = _bind("flash_attention", "ds_flash_attention_fwd",
+               [_P] * 7 + [_I] * 6 + [_F, _I] + _TILE_ARGTYPES + [_P])
     _launch(fn, "flash_attention_fwd", q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            o.data_ptr(), lse.data_ptr(), _ptr(mask), _ptr(slopes), B, S, H, k.shape[2], Hd,
-            int(bool(causal)), _scale(q, scale) * _LOG2E, _DTYPE_CODE[q.dtype])
+            o.data_ptr(), lse.data_ptr(), _ptr(mask), _ptr(slopes), B, S, H, k.shape[2], hd,
+            int(bool(causal)), sc * _LOG2E, _DTYPE_CODE[q.dtype], *tiles)
     launches += 1
-    return o, lse
+    return (o if hd == Hd else o[..., :Hd].contiguous()), lse
 
 
 def _bwd_inputs(q, k, v, do, lse, delta, mask_bias, alibi_slopes):
@@ -227,38 +454,48 @@ def _bwd_inputs(q, k, v, do, lse, delta, mask_bias, alibi_slopes):
 
 
 def flash_attention_dq_cuda(q, k, v, do, lse, delta, mask_bias=None, causal: bool = True,
-                            alibi_slopes=None, scale: Optional[float] = None):
+                            alibi_slopes=None, scale: Optional[float] = None,
+                            block_layout=None):
     """Launch kernel C on CUDA tensors. Returns dq ``[B, S, H, Hd]``."""
     global dq_launches
     B, S, H, Hd = q.shape
+    sc = _scale(q, scale)
+    hd = kernel_head_dim(Hd)
+    q, k, v, do = (pad_head_dim(x, hd) for x in (q, k, v, do))
     mask, slopes = _bwd_inputs(q, k, v, do, lse, delta, mask_bias, alibi_slopes)
     dq = torch.empty_like(q)
-    sc = _scale(q, scale)
+    tiles = _tile_args(q, block_layout, causal, "dq", k.shape[2])
     fn = _bind("flash_attention_bwd", "ds_flash_attention_bwd_dq",
-               [_P] * 9 + [_I] * 6 + [_F, _F, _I, _P])
+               [_P] * 9 + [_I] * 6 + [_F, _F, _I] + _TILE_ARGTYPES + [_P])
     _launch(fn, "flash_attention_bwd_dq", q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), _ptr(mask), _ptr(slopes),
-            dq.data_ptr(), B, S, H, k.shape[2], Hd, int(bool(causal)), sc * _LOG2E, sc,
-            _DTYPE_CODE[q.dtype])
+            dq.data_ptr(), B, S, H, k.shape[2], hd, int(bool(causal)), sc * _LOG2E, sc,
+            _DTYPE_CODE[q.dtype], *tiles)
     dq_launches += 1
-    return dq
+    return dq if hd == Hd else dq[..., :Hd].contiguous()
 
 
 def flash_attention_dkv_cuda(q, k, v, do, lse, delta, mask_bias=None, causal: bool = True,
-                             alibi_slopes=None, scale: Optional[float] = None):
+                             alibi_slopes=None, scale: Optional[float] = None,
+                             block_layout=None):
     """Launch kernel D on CUDA tensors. Returns ``(dk, dv)`` ``[B, S, KV, Hd]``."""
     global dkv_launches
     B, S, H, Hd = q.shape
+    sc = _scale(q, scale)
+    hd = kernel_head_dim(Hd)
+    q, k, v, do = (pad_head_dim(x, hd) for x in (q, k, v, do))
     mask, slopes = _bwd_inputs(q, k, v, do, lse, delta, mask_bias, alibi_slopes)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    sc = _scale(q, scale)
+    tiles = _tile_args(q, block_layout, causal, "dkv", k.shape[2])
     fn = _bind("flash_attention_bwd", "ds_flash_attention_bwd_dkv",
-               [_P] * 10 + [_I] * 6 + [_F, _F, _I, _P])
+               [_P] * 10 + [_I] * 6 + [_F, _F, _I] + _TILE_ARGTYPES + [_P])
     _launch(fn, "flash_attention_bwd_dkv", q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), _ptr(mask), _ptr(slopes),
-            dk.data_ptr(), dv.data_ptr(), B, S, H, k.shape[2], Hd, int(bool(causal)),
-            sc * _LOG2E, sc, _DTYPE_CODE[q.dtype])
+            dk.data_ptr(), dv.data_ptr(), B, S, H, k.shape[2], hd, int(bool(causal)),
+            sc * _LOG2E, sc, _DTYPE_CODE[q.dtype], *tiles)
     dkv_launches += 1
+    if hd != Hd:
+        dk, dv = dk[..., :Hd].contiguous(), dv[..., :Hd].contiguous()
     return dk, dv
 
 
@@ -272,38 +509,41 @@ def _dispatch(cuda_fn, plain_fn, name, q, *args):
 
 
 def flash_attention_dq(q, k, v, do, lse, delta, mask_bias=None, causal: bool = True,
-                       alibi_slopes=None, scale: Optional[float] = None):
+                       alibi_slopes=None, scale: Optional[float] = None, block_layout=None):
     """dq of flash attention from the forward's lse and ``delta = sum(do *
     o)``: kernel C on the card, :func:`flash_attention_dq_plain` on the CPU."""
     return _dispatch(flash_attention_dq_cuda, flash_attention_dq_plain, "flash_attention_dq",
-                     q, k, v, do, lse, delta, mask_bias, causal, alibi_slopes, scale)
+                     q, k, v, do, lse, delta, mask_bias, causal, alibi_slopes, scale,
+                     block_layout)
 
 
 def flash_attention_dkv(q, k, v, do, lse, delta, mask_bias=None, causal: bool = True,
-                        alibi_slopes=None, scale: Optional[float] = None):
+                        alibi_slopes=None, scale: Optional[float] = None, block_layout=None):
     """(dk, dv) of flash attention, summed over each kv group: kernel D on
     the card, :func:`flash_attention_dkv_plain` on the CPU."""
     return _dispatch(flash_attention_dkv_cuda, flash_attention_dkv_plain,
                      "flash_attention_dkv", q, k, v, do, lse, delta, mask_bias, causal,
-                     alibi_slopes, scale)
+                     alibi_slopes, scale, block_layout)
 
 
-def _forward(q, k, v, mask_bias, causal, alibi_slopes, scale):
+def _forward(q, k, v, mask_bias, causal, alibi_slopes, scale, block_layout):
     return _dispatch(flash_attention_cuda, flash_attention_plain, "flash_attention",
-                     q, k, v, mask_bias, causal, alibi_slopes, scale)
+                     q, k, v, mask_bias, causal, alibi_slopes, scale, block_layout)
 
 
 class _FlashAttention(torch.autograd.Function):
     """Kernel A forward; kernels C and D backward (the TPU package's
     ``jax.custom_vjp`` around ``_fwd_kernel`` / ``_dq_kernel`` /
     ``_dkv_kernel``). The forward reads nothing but its inputs, so a
-    rematerialising checkpoint recomputes exactly the saved o and lse."""
+    rematerialising checkpoint recomputes exactly the saved o and lse. The
+    block layout rides along for the backward as it is (its live-tile lists
+    are cached by content)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, mask_bias, alibi_slopes, causal, scale):
-        o, lse = _forward(q, k, v, mask_bias, causal, alibi_slopes, scale)
+    def forward(ctx, q, k, v, mask_bias, alibi_slopes, causal, scale, block_layout):
+        o, lse = _forward(q, k, v, mask_bias, causal, alibi_slopes, scale, block_layout)
         ctx.save_for_backward(q, k, v, o, lse, mask_bias, alibi_slopes)
-        ctx.causal, ctx.scale = causal, scale
+        ctx.causal, ctx.scale, ctx.block_layout = causal, scale, block_layout
         return o
 
     @staticmethod
@@ -312,10 +552,11 @@ class _FlashAttention(torch.autograd.Function):
         do = do.contiguous()
         # delta in fp32 with plain torch, as the JAX package does in XLA
         delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
-        args = (q, k, v, do, lse, delta, mask_bias, ctx.causal, slopes, ctx.scale)
+        args = (q, k, v, do, lse, delta, mask_bias, ctx.causal, slopes, ctx.scale,
+                ctx.block_layout)
         dq = flash_attention_dq(*args)
         dk, dv = flash_attention_dkv(*args)
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_attention(q, k, v, mask_bias=None, causal: bool = True, alibi_slopes=None,
@@ -327,24 +568,27 @@ def flash_attention(q, k, v, mask_bias=None, causal: bool = True, alibi_slopes=N
     counterpart of ``deepspeed_tpu.ops.pallas.flash_attention`` (the
     kernels' tiles are fixed, so there are no block-size knobs), and
     differentiable in q, k and v through kernels C and D.
+
+    ``block_layout``: an ``[H, nb, nb]`` or ``[nb, nb]`` block-sparsity
+    layout (:mod:`deepspeed_tpu_torch.ops.sparse_attention`), indexed by
+    the query head; entries > 0 keep a block of S / nb tokens (a multiple of
+    8). Dead blocks are skipped in the forward and the backward; causal,
+    ``mask_bias`` and ALiBi compose with it.
+
     ``return_lse=True`` returns ``(out, lse)`` with lse the log2-domain
     logsumexp ``[B, H, S]``; it is forward-only here (its gradient serves
-    ring attention, not ported). The block-sparse ``block_layout`` belongs
-    to the sparse-attention slice and is refused."""
+    ring attention, not ported)."""
     H = q.shape[2]
     if H % k.shape[2]:
         raise ValueError(f"q heads {H} not a multiple of kv heads {k.shape[2]}")
-    if block_layout is not None:
-        raise NotImplementedError(
-            "block-sparse flash attention (block_layout) is not ported yet: "
-            "ROADMAP.md queue 1, sparse attention")
     needs_grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
     if return_lse:
         if needs_grad:
             raise NotImplementedError(
                 "a differentiable return_lse (ring attention) is not ported yet: "
-                "ROADMAP.md queue 1, sequence/")
-        return _forward(q, k, v, mask_bias, causal, alibi_slopes, scale)
+                "ROADMAP.md queue 2, sequence/")
+        return _forward(q, k, v, mask_bias, causal, alibi_slopes, scale, block_layout)
     if needs_grad:
-        return _FlashAttention.apply(q, k, v, mask_bias, alibi_slopes, causal, scale)
-    return _forward(q, k, v, mask_bias, causal, alibi_slopes, scale)[0]
+        return _FlashAttention.apply(q, k, v, mask_bias, alibi_slopes, causal, scale,
+                                     block_layout)
+    return _forward(q, k, v, mask_bias, causal, alibi_slopes, scale, block_layout)[0]

@@ -2,8 +2,9 @@
 CPU: the per-row bf16-ulp measure, the teacher-forced logits of the serving
 and static-generate paths with a planted kernel fault (which must read above
 the limit that holds the card's logits to the CPU's), the planted faults of
-the backward kernels C and D and of the fused CE forward F (each must read
-above its limit against the sound plain version), the build phase's ptxas
+the backward kernels C and D, of the fused CE forward F and of A, C and D
+with a block layout (each must read above its limit against the sound plain
+version), the train_sparse layout's live blocks, the build phase's ptxas
 records and spill gate, and the profile's mapping of kernel names to their
 classes."""
 
@@ -273,3 +274,77 @@ def test_sr_scale_faults_read_above_zero(dtype, sizes, groups, bits, faults):
     assert faults <= set(planted)
     for f in faults:
         assert int((planted[f] != sound).sum()) > 0, f
+
+
+@pytest.mark.parametrize("kind,S,causal", [("fixed128", 1024, True), ("bigbird64", 512, False)])
+def test_layout_faults_read_above_the_limit(kind, S, causal):
+    """The layout faults planted in A, C and D (the layout ignored, the
+    middle live tile of the longest list dropped, and at blocks of 64 each
+    partial tile taken whole) read above ULP_TOL against the sound plain
+    versions, in the kernel phase's measure (bf16 inputs, GRAD_FLOOR for
+    the gradients); the sound layout reads 0 against itself."""
+    B, H, KV, Hd = 1, 4, 2, 64
+    r = np.random.default_rng(S)
+    bf = lambda *shape: torch.from_numpy(r.normal(size=shape).astype(np.float32)).bfloat16()
+    q, k, v, do = bf(B, S, H, Hd), bf(B, S, KV, Hd), bf(B, S, KV, Hd), bf(B, S, H, Hd)
+    lay = chip_smoke.sparse_layout(kind, H, S)
+    keep = fa._layout_keep(lay, S, H, causal)
+    kw = {"causal": causal, "block_layout": lay}
+    o, lse = fa.flash_attention_plain(q, k, v, **kw)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, do, lse, delta)
+    wanted = ("layout_ignored", "tile_dropped") + (("partial_mask_left_out",)
+                                                   if kind.endswith("64") else ())
+    runs = {"fwd": lambda k_: [fa.flash_attention_plain(q, k, v, **k_)[0]],
+            "dq": lambda k_: [fa.flash_attention_dq_plain(*args, **k_)],
+            "dkv": lambda k_: list(fa.flash_attention_dkv_plain(*args, **k_))}
+    for kern, run in runs.items():
+        floor = 0.0 if kern == "fwd" else chip_smoke.GRAD_FLOOR
+        sound = run(kw)
+        faults = chip_smoke._layout_faults(fa, kern, keep, S, causal, KV, wanted)
+        assert set(faults) == set(wanted)
+        for name, bad_layout in faults.items():
+            bad = run({**kw, "block_layout": bad_layout})
+            err = max(chip_smoke.ulp_err(b, s, floor) for b, s in zip(bad, sound))
+            assert err > chip_smoke.ULP_TOL, (kern, name, err)
+
+
+def test_the_train_sparse_layout_and_its_live_pairs():
+    """The train_sparse layout at S 4096: 192 of the 528 causal 128-blocks a
+    head (34.4 % of the causal pairs), and the kernels' lists hold one
+    128 x 128 tile a live block for A and two for C and D."""
+    S, H = chip_smoke.SPARSE_SEQ, 32
+    keep = fa._layout_keep(chip_smoke.sparse_layout("fixed128", H, S), S, H, True)
+    assert int(keep.sum()) == 192 * H
+    assert chip_smoke.live_pairs(keep, S, True) / (H * S * (S + 1) / 2) == pytest.approx(
+        0.344, abs=5e-4)
+    for kern, per_block in (("fwd", 1), ("dq", 2), ("dkv", 2)):
+        offsets, entries = fa.live_tiles(keep, S, True, kern, H)
+        assert len(entries) == per_block * 192 * H and not (entries & 1).any()   # no partial
+    dense = torch.ones((H, 32, 32), dtype=torch.bool).tril()
+    assert chip_smoke.live_pairs(dense, S, True) == H * S * (S + 1) // 2
+
+
+def test_layout_ignored_plants_dense_attention_through_the_model():
+    """Through the sparse model (its kernel path: the plain versions on the
+    CPU) the planted fault gives the dense model's logits, and the sound run
+    differs from them."""
+    from deepspeed_tpu_torch.models import transformer as T
+    from deepspeed_tpu_torch.ops.sparse_attention import replace_self_attention
+    cfg = TransformerConfig(**{**LLAMA, "n_kv_head": 4, "max_seq": 1024,
+                               "attention_backend": "flash"})
+    model = CausalLM(cfg)
+    sparse = replace_self_attention(model, chip_smoke.sparse_config(4))
+    params = model.init_params(torch.Generator().manual_seed(0), device="cpu")
+    tokens = torch.from_numpy(np.random.default_rng(4).integers(0, 64, size=(1, 1024)))
+    dense = T.forward(cfg, params, tokens)
+    sound = T.forward(sparse.config, params, tokens)
+    with chip_smoke._layout_ignored():
+        bad = T.forward(sparse.config, params, tokens)
+    assert torch.equal(bad, dense) and not torch.allclose(sound, dense)
+
+
+def test_ptxas_rows_of_the_decode_kernels_at_head_dim_96():
+    name = "_ZN12_GLOBAL__N_119paged_decode_kernelI13__nv_bfloat16Li96ELi8EEEvPKT_"
+    rows, _ = chip_smoke.ptxas_summary({"decode": _PTXAS.format(name=name, spill=0)})
+    assert set(rows) == {"paged_decode_kernel bf16 hd96"}

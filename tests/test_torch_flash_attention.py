@@ -89,6 +89,46 @@ def test_bucket_with_junk_tail_rows():
 
 
 def test_block_layout_refused():
-    q = torch.zeros((1, 16, 2, 64))
-    with pytest.raises(NotImplementedError, match="block_layout"):
-        fa.flash_attention(q, q, q, block_layout=np.ones((2, 2, 2)))
+    """Layouts the kernels cannot tile are refused as the JAX package
+    refuses them; a dense layout is plain attention (layouts themselves are
+    held to the JAX kernel by tests/test_torch_sparse_attention.py)."""
+    q = torch.from_numpy(np.random.default_rng(0).normal(size=(1, 16, 2, 64)).astype(np.float32))
+    with pytest.raises(ValueError, match="not divisible by layout blocks"):
+        fa.flash_attention(q, q, q, block_layout=np.ones((2, 3, 3)))
+    with pytest.raises(ValueError, match="multiple of 8"):
+        fa.flash_attention(q, q, q, block_layout=np.ones((2, 4, 4)))
+    for jax_layout in (np.ones((2, 4, 4)), np.ones((2, 3, 3))):
+        with pytest.raises(ValueError, match="layout"):
+            jax_flash(_j(q.numpy()), _j(q.numpy()), _j(q.numpy()),
+                      block_layout=jnp.asarray(jax_layout), interpret=True)
+    dense = fa.flash_attention(q, q, q, block_layout=np.ones((2, 2, 2)))
+    torch.testing.assert_close(dense, fa.flash_attention(q, q, q), atol=0, rtol=0)
+
+
+def test_head_dim_padding_matches_plain_at_hd96():
+    """What the kernel wrappers do at a head_dim between the kernels' 64 and
+    128: zero columns up to 128, the scale of the true Hd, the outputs
+    sliced back. Against the plain versions at Hd 96: o, lse, dq, dk, dv."""
+    q, k, v, slopes, bias = _inputs(12, 2, 40, 4, 2, 96, True, True)
+    do = np.random.default_rng(13).normal(size=q.shape).astype(np.float32)
+    q, k, v, do, slopes, bias = map(_t, (q, k, v, do, slopes, bias))
+    kw = {"mask_bias": bias, "alibi_slopes": slopes, "causal": True}
+    hd = fa.kernel_head_dim(96)
+    assert hd == 128 and fa.kernel_head_dim(64) == 64 and fa.kernel_head_dim(40) == 64
+    pq, pk, pv, pdo = (fa.pad_head_dim(x, hd) for x in (q, k, v, do))
+    o, lse = fa.flash_attention_plain(q, k, v, **kw)
+    po, plse = fa.flash_attention_plain(pq, pk, pv, scale=96**-0.5, **kw)
+    torch.testing.assert_close(po[..., :96], o, atol=TOL, rtol=0)
+    assert float(po[..., 96:].abs().max()) == 0.0
+    torch.testing.assert_close(plse, lse, atol=TOL, rtol=0)
+    delta = (do * o).sum(-1).transpose(1, 2).contiguous()
+    args, pargs = (q, k, v, do, lse, delta), (pq, pk, pv, pdo, plse, delta)
+    dq = fa.flash_attention_dq_plain(*args, **kw)
+    pdq = fa.flash_attention_dq_plain(*pargs, scale=96**-0.5, **kw)
+    torch.testing.assert_close(pdq[..., :96], dq, atol=TOL, rtol=0)
+    for got, want in zip(fa.flash_attention_dkv_plain(*pargs, scale=96**-0.5, **kw),
+                         fa.flash_attention_dkv_plain(*args, **kw)):
+        torch.testing.assert_close(got[..., :96], want, atol=TOL, rtol=0)
+    for bad in (100, 136):
+        with pytest.raises(ValueError, match="multiple of 8 up to 128"):
+            fa.kernel_head_dim(bad)

@@ -68,6 +68,15 @@ LAMB_AND_MOQ_MODULES = (
 )
 
 
+# the sparse-attention slice's modules
+SPARSE_MODULES = (
+    "deepspeed_tpu_torch.ops.sparse_attention.sparsity_config",
+    "deepspeed_tpu_torch.ops.sparse_attention.sparse_self_attention",
+    "deepspeed_tpu_torch.ops.sparse_attention.sparse_attention_utils",
+    "deepspeed_tpu_torch.ops.sparse_attention.kernels",
+)
+
+
 def test_import_leaves_jax_and_pydantic_out():
     mods = ["deepspeed_tpu_torch"] + sorted(
         "deepspeed_tpu_torch." + ".".join(p.relative_to(ROOT / "deepspeed_tpu_torch")
@@ -76,6 +85,7 @@ def test_import_leaves_jax_and_pydantic_out():
     assert set(TRAINING_MODULES) <= set(mods)
     assert set(GENERATE_AND_CE_MODULES) <= set(mods)
     assert set(LAMB_AND_MOQ_MODULES) <= set(mods)
+    assert set(SPARSE_MODULES) <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "

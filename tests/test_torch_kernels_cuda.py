@@ -60,6 +60,7 @@ def _randn(r, shape, dev, dtype=torch.bfloat16):
     (2, 300, 8, 2, 128, True, True, True),         # GQA, unaligned, ALiBi + key mask
     (2, 200, 12, 12, 64, True, False, False),      # GPT-2 heads (the TPU's packed path)
     (1, 130, 4, 1, 64, False, True, True),         # full attention
+    (2, 200, 8, 2, 96, True, False, True),         # Hd 96, zero-padded to 128
 ])
 def test_flash_kernel_matches_plain(cuda, B, S, H, KV, Hd, causal, alibi, mask):
     r = np.random.default_rng(S + H)
@@ -146,9 +147,10 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
     x = torch.zeros((1, 16, 2, 64), device=cuda)
     with pytest.raises(TypeError, match="fp16/bf16"):
         fa.flash_attention(x, x, x)
-    y = torch.zeros((1, 16, 2, 96), device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head_dim"):
-        fa.flash_attention(y, y, y)
+    for hd in (100, 136):      # not a multiple of 8, and past 128
+        y = torch.zeros((1, 16, 2, hd), device=cuda, dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="head_dim"):
+            fa.flash_attention(y, y, y)
     z = torch.zeros((1, 2, 16, 64), device=cuda, dtype=torch.bfloat16).transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
         fa.flash_attention(z, z, z)
@@ -184,6 +186,7 @@ def _attn_inputs(r, B, S, H, KV, Hd, cuda, alibi, mask, masked_row=False):
     (2, 200, 12, 12, 64, True, False, False),      # GPT-2 heads (the TPU's packed path)
     (2, 130, 4, 1, 64, False, True, True),         # full attention, ALiBi + key mask
     (2, 192, 8, 8, 128, True, False, True),        # a fully masked batch row
+    (2, 256, 8, 4, 96, True, True, False),         # Hd 96, zero-padded to 128
 ])
 def test_flash_backward_kernels_match_plain(cuda, B, S, H, KV, Hd, causal, alibi, mask):
     """Kernels C (dq) and D (dk, dv) against their plain versions, from
@@ -248,6 +251,90 @@ def test_flash_kernels_repeat_bit_for_bit(cuda, B, S, H, KV):
                      *fa.flash_attention_dkv(q, k, v, do, lse, delta)))
     torch.cuda.synchronize()
     assert all(torch.equal(x, y) for x, y in zip(*runs))
+
+
+def _layout(kind, H, S):
+    """Block layouts of the sparse cases: the Fixed config of the train path
+    at block 128 or 64, BigBird (random blocks, bidirectional), and a random
+    layout at block 32 with an all-zero row block in head 0."""
+    from deepspeed_tpu_torch.ops import sparse_attention as sa
+    if kind in ("fixed128", "fixed64"):
+        return sa.FixedSparsityConfig(num_heads=H, block=int(kind[5:]), num_local_blocks=4,
+                                      num_global_blocks=1,
+                                      attention="unidirectional").make_layout(S)
+    if kind == "bigbird128":
+        return sa.BigBirdSparsityConfig(num_heads=H, block=128,
+                                        different_layout_per_head=True).make_layout(S)
+    r = np.random.default_rng(S)
+    lay = torch.from_numpy((r.random((H, S // 32, S // 32)) > 0.6).astype(np.int64))
+    lay[0, 2] = 0
+    return lay
+
+
+@pytest.mark.parametrize("B,S,H,KV,Hd,kind,causal,mask", [
+    (1, 1024, 8, 8, 128, "fixed128", True, False),   # the train path's layout
+    (2, 512, 4, 4, 128, "fixed64", True, False),     # blocks straddle A's 128-wide tiles
+    (2, 384, 8, 2, 128, "bigbird128", False, False), # GQA 4, bidirectional
+    (1, 320, 4, 2, 96, "random32", False, True),     # ragged S, Hd 96, a key mask, a dead row
+    (2, 256, 4, 4, 64, "random32", True, False),
+])
+def test_flash_layout_kernels_match_plain(cuda, B, S, H, KV, Hd, kind, causal, mask):
+    """A, C and D with a block layout against their layout-aware plain
+    versions; rows the layout leaves no key read o = 0, lse = 1e30 and zero
+    gradients."""
+    r = np.random.default_rng(S + H + Hd)
+    q, k, v, kw = _attn_inputs(r, B, S, H, KV, Hd, cuda, False, mask)
+    kw.update(causal=causal, block_layout=_layout(kind, H, S))
+    o, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+    ro, rlse = fa.flash_attention_plain(q, k, v, **kw)
+    do = _randn(r, (B, S, H, Hd), cuda)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, do, lse, delta)
+    dq, (dk, dv) = fa.flash_attention_dq(*args, **kw), fa.flash_attention_dkv(*args, **kw)
+    rdq = fa.flash_attention_dq_plain(*args, **kw)
+    rdk, rdv = fa.flash_attention_dkv_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert _ulp_err(o, ro) <= ULP_TOL
+    assert float((lse - rlse).abs().max()) <= LSE_TOL
+    for out, ref in ((dq, rdq), (dk, rdk), (dv, rdv)):
+        assert torch.isfinite(out.float()).all()
+        assert _ulp_err(out, ref, GRAD_FLOOR) <= ULP_TOL
+    if kind == "random32":        # head 0's row block 2 is dead: o = 0, lse = 1e30, dq = 0
+        rows = slice(64, 96)
+        assert float(o[:, rows, 0].abs().max()) == 0.0 and float(dq[:, rows, 0].abs().max()) == 0.0
+        assert bool((lse[:, 0, rows] == 1e30).all())
+
+
+@pytest.mark.parametrize("kind,causal", [("fixed128", True), ("fixed64", True),
+                                         ("bigbird128", False)])
+def test_flash_layout_walks_the_live_tiles(cuda, kind, causal):
+    """Each kernel's producer walks exactly its live-tile lists (the device
+    counters read B times the lists' lengths), and a dense layout walks the
+    same tiles in the same order as no layout: the same bits."""
+    B, S, H, KV, Hd = 2, 512, 4, 2, 128
+    r = np.random.default_rng(11)
+    q, k, v, _ = _attn_inputs(r, B, S, H, KV, Hd, cuda, False, False)
+    do = _randn(r, (B, S, H, Hd), cuda)
+    lay = _layout(kind, H, S)
+    keep = fa._layout_keep(lay, S, H, causal)
+    want = {kern: B * len(fa.live_tiles(keep, S, causal, kern, KV)[1])
+            for kern in ("fwd", "dq", "dkv")}
+
+    def run(layout):
+        o, lse = fa.flash_attention(q, k, v, causal=causal, block_layout=layout,
+                                    return_lse=True)
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+        args = (q, k, v, do, lse, delta)
+        return (o, lse, fa.flash_attention_dq(*args, causal=causal, block_layout=layout),
+                *fa.flash_attention_dkv(*args, causal=causal, block_layout=layout))
+
+    fa.reset_tile_counts()
+    run(lay)
+    assert fa.tile_counts() == want
+    dense = run(torch.ones((S // 128, S // 128), dtype=torch.int64))
+    plain = run(None)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(dense, plain))
 
 
 def test_flash_attention_autograd_runs_the_kernels(cuda):
@@ -315,6 +402,45 @@ def test_dense_decode_kernel_matches_plain(cuda, B, H, KV, Hd, Smax, pos, bias, 
     assert dda.launches == n0 + 1
     assert out.dtype == torch.bfloat16 and torch.isfinite(out.float()).all()
     assert _ulp_err(out, ref) <= ULP_TOL
+
+
+@pytest.mark.parametrize("G,bias,alibi,dtype", [
+    (4, True, False, torch.bfloat16),
+    (8, False, True, torch.bfloat16),
+    (1, True, True, torch.float16),
+])
+def test_decode_kernels_take_head_dim_96(cuda, G, bias, alibi, dtype):
+    """B and the dense decode kernel at Hd 96 (12 16-byte slices a key row,
+    on 16-lane row groups) against their plain versions, and two launches
+    bit-equal. The model's paths keep the JAX package's envelope (Hd a
+    multiple of 64), so the kernels are called directly."""
+    r = np.random.default_rng(96 + G)
+    B, KV, Hd, bs, n_max = 3, 4, 96, 128, 6
+    H = KV * G
+    nb = B * n_max + 1
+    kp, vp = _randn(r, (nb, bs, KV, Hd), cuda, dtype), _randn(r, (nb, bs, KV, Hd), cuda, dtype)
+    q = _randn(r, (B, H, Hd), cuda, dtype)
+    bt = torch.from_numpy((r.permutation(nb - 1)[:B * n_max] + 1)
+                          .reshape(B, n_max).astype(np.int32)).to(cuda)
+    pos = torch.tensor([0, 300, 767], dtype=torch.int32, device=cuda)
+    ck, cv = _randn(r, (B, 512, KV, Hd), cuda, dtype), _randn(r, (B, 512, KV, Hd), cuda, dtype)
+    pkw, dkw = {}, {}
+    if bias:
+        pkw["pad_bias"] = torch.from_numpy(
+            (r.normal(size=(B, n_max * bs)) * 0.2).astype(np.float32)).to(cuda)
+        dkw["pad_bias"] = pkw["pad_bias"][:, :512].contiguous()
+    if alibi:
+        pkw["alibi_slopes"] = dkw["alibi_slopes"] = torch.from_numpy(
+            r.uniform(0.05, 0.4, H).astype(np.float32)).to(cuda)
+    paged = lambda: pda.paged_decode_attention_cuda(q, kp, vp, bt, pos, **pkw)
+    dense = lambda: dda.decode_attention_cuda(q, ck, cv, 400, **dkw)
+    a, b, c, d = paged(), paged(), dense(), dense()
+    ra = pda.paged_decode_attention_plain(q, kp, vp, bt, pos, pkw.get("pad_bias"),
+                                          pkw.get("alibi_slopes"))
+    rc = dda.decode_attention_plain(q, ck, cv, 400, dkw.get("pad_bias"), dkw.get("alibi_slopes"))
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and torch.equal(c, d)
+    assert _ulp_err(a, ra) <= ULP_TOL and _ulp_err(c, rc) <= ULP_TOL
 
 
 def _ce_inputs(r, N, D, V, cuda, bias, tied, dtype=torch.bfloat16):
