@@ -25,7 +25,11 @@ Phases, each printing one JSON line:
                 a list, the partial-tile element mask left out) above the
                 limit, the tiles each walked equal to its lists' lengths,
                 and at the train_sparse shape timed against dense A / C / D
-                and SDPA given the layout as a boolean mask
+                and SDPA given the layout as a boolean mask; C and D through
+                flash_attention(..., return_lse=True) with an lse cotangent
+                (dense, GQA with ALiBi, a layout with an empty row block)
+                against their plain versions fed delta - log2(e) dlse, the
+                cotangent left out planted as the fault
   slice_parity  Llama-7B width cut to 2 layers: the same seeded weights served
                 on the card (kernels) and on the CPU (plain versions, fp32);
                 the CPU's greedy tokens fed to both sides' paged prefill and
@@ -35,6 +39,22 @@ Phases, each printing one JSON line:
                 through init_inference + generate_batch with the default
                 serving config; the kernels' launch counters must match the
                 scheduler's prefill and decode actions
+  spec_parity   Llama-7B width cut to 2 layers: the CPU's greedy tokens fed
+                in windows of 1-8 tokens through forward_paged_verify on the
+                card (bf16, kernel B once per window position) and on the CPU
+                (fp32, plain versions), every live window position's logits
+                within LOGIT_ULP_TOL, and within it of the card's own
+                teacher-forced decode steps; kernel B handed pos instead of
+                pos + t planted through the model above it
+  spec_serve    full Llama-2-7B with serving.speculative ngram, k 4, on 8
+                repetitive prompts (64 new tokens each): spec off, spec on
+                with the n-gram proposer, and spec on with an oracle proposer
+                (the spec-off output's next tokens), all of them and with its
+                third candidate wrong; tokens/s, accepted tokens a fused
+                step, stats, launches of A = L x prefills and B = L x
+                (decodes + 8 x verifies), verify steps in the oracle runs,
+                rows equal to spec off but where they first part at a
+                near-tie of the spec-off logits
   generate_parity  Llama-7B width cut to 2 layers: the CPU's static
                 generate tokens fed to forward_cached on the card (bf16,
                 dense decode kernel) and on the CPU (fp32, plain versions);
@@ -86,9 +106,10 @@ Phases, each printing one JSON line:
                 step A = 2 L gas and C = D = L gas launches, the tiles they
                 walked equal to the layout's live blocks; then the same
                 step with sparse attention off
-  kernels       every ported kernel with its launches in the serve, generate,
-                train, train_lamb and train_sparse phases (A, C and D with a
-                layout in rows of their own)
+  kernels       every ported kernel with its launches in the serve, spec_serve
+                (its oracle run), generate, train, train_lamb and train_sparse
+                phases (A, C and D with a layout in rows of their own; C's and
+                D's rows also carry their readings with an lse cotangent)
   profile       (only with --phases profile) the serve phase's prompts through
                 fresh engines after a warm-up: warm tokens/s, device kernel
                 time by class under torch.profiler, the device's idle share
@@ -119,7 +140,8 @@ import subprocess
 import sys
 import time
 
-PHASES = ("env", "build", "kernel", "slice_parity", "serve", "generate_parity", "generate",
+PHASES = ("env", "build", "kernel", "slice_parity", "serve", "spec_parity", "spec_serve",
+          "generate_parity", "generate",
           "train_parity", "train", "train_lamb_parity", "train_lamb", "sparse_parity",
           "train_sparse", "kernels", "profile", "train_profile", "train_lamb_profile",
           "generate_profile", "train_sparse_profile")
@@ -495,6 +517,7 @@ def phase_kernel(state, seed):
     # the head-dim-96 and block-layout cases draw from their own generator,
     # so every other case sees the same inputs as before they were added
     gen96 = torch.Generator(device="cuda").manual_seed(seed + 96)
+    genlse = torch.Generator(device="cuda").manual_seed(seed + 11)
     pick = lambda name: gen96 if name.startswith("hd96") else gen
     results = state.setdefault("kernel_results", {})
     failures = []
@@ -603,6 +626,7 @@ def phase_kernel(state, seed):
     _check_dense_decode(pick, results, failures)
     _check_backward_kernels(pick, fa, results, failures)
     _check_sparse_kernels(gen96, fa, results, failures)
+    _check_lse_backward(genlse, fa, results, failures)
     from deepspeed_tpu_torch.ops.adam import fused_adam_kernel as fad
     _check_fused_adam(gen, fad, results, failures)
     _check_fused_ce(gen, results, failures)
@@ -1284,6 +1308,103 @@ def _check_sparse_kernels(gen, fa, results, failures):
                 results[rec["kernel"]] = rec
         for rec in recs.values():
             emit("kernel", **rec)
+
+
+# The differentiable lse: (B, S, H, KV, Hd, causal, alibi, layout); "dense" =
+# the Llama-7B heads at S 1024, "gqa4_alibi" = GQA 4 under ALiBi,
+# "zero_row" = the sparse cases' random layout whose head 0 rows 384..511
+# keep no key (lse = 1e30 there: the lse cotangent must drop out)
+LSE_CASES = {
+    "dense": (2, 1024, 32, 32, 128, True, False, None),
+    "gqa4_alibi": (2, 512, 32, 8, 128, True, True, None),
+    "zero_row": (2, 1024, 8, 8, 128, True, False, "zero_row"),
+}
+
+
+def lse_delta(o, do, dlse):
+    """C's and D's row term for a loss on both o and the log2-domain lse:
+    delta' = sum(do * o) - log2(e) * dlse, fp32 ``[B, H, S]``."""
+    import math
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2)
+    return (delta - dlse.float() / math.log(2.0)).contiguous()
+
+
+def _check_lse_backward(gen, fa, results, failures):
+    """C and D through the two-output Function of ``flash_attention(...,
+    return_lse=True)`` with a nonzero lse cotangent: dq, dk, dv against the
+    plain versions fed delta' (the per-row ulp measures), the cotangent left
+    out (delta unchanged) planted as the fault, two backward passes
+    bit-equal, one launch of each kernel a backward; at the dense case the
+    kernels timed with delta' against their bound and plain versions."""
+    import torch
+    for name, (B, S, H, KV, Hd, causal, alibi, kind) in LSE_CASES.items():
+        q, k, v, _, causal, slopes = _flash_case(gen, B, S, H, KV, Hd, causal, alibi, False)
+        kw = {"causal": causal, "alibi_slopes": slopes,
+              "block_layout": None if kind is None else sparse_layout(kind, H, S)}
+        do = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
+        dlse = torch.randn((B, H, S), generator=gen, device="cuda")
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+
+        def backward():
+            o, lse = fa.flash_attention(*leaves, return_lse=True, **kw)
+            return (o, lse), torch.autograd.grad((o, lse), leaves, (do, dlse))
+
+        n = (fa.dq_launches, fa.dkv_launches)
+        (o, lse), (dq, dk, dv) = backward()
+        launched = (fa.dq_launches - n[0], fa.dkv_launches - n[1])
+        _, again = backward()
+        o, lse = o.detach(), lse.detach()
+        args = (q, k, v, do, lse, lse_delta(o, do, dlse))
+        rdq = fa.flash_attention_dq_plain(*args, **kw)
+        rdk, rdv = fa.flash_attention_dkv_plain(*args, **kw)
+        dropped = args[:5] + (lse_delta(o, do, torch.zeros_like(dlse)),)
+        fdq = fa.flash_attention_dq_plain(*dropped, **kw)
+        fdk, fdv = fa.flash_attention_dkv_plain(*dropped, **kw)
+        torch.cuda.synchronize()
+        shape = {"case": name, "shape": [B, S, H, KV, Hd], "causal": causal, "alibi": alibi,
+                 "layout": kind, "launches_a_backward": list(launched)}
+        rec_c = {"kernel": "flash_attention_bwd_dq_lse", **shape,
+                 **_hold("flash_attention_bwd_dq_lse", name, [dq], [rdq],
+                         {"lse_cotangent_left_out": [fdq]}, failures, GRAD_FLOOR)}
+        rec_d = {"kernel": "flash_attention_bwd_dkv_lse", **shape,
+                 **_hold("flash_attention_bwd_dkv_lse", name, [dk, dv], [rdk, rdv],
+                         {"lse_cotangent_left_out": [fdk, fdv]}, failures, GRAD_FLOOR)}
+        rec_c["repeat_bit_equal"] = bool(torch.equal(dq, again[0]))
+        rec_d["repeat_bit_equal"] = bool(torch.equal(dk, again[1]) and torch.equal(dv, again[2]))
+        if launched != (1, 1):
+            failures.append(f"lse backward {name}: C and D launched {launched} times, not once")
+        for rec in (rec_c, rec_d):
+            if not rec["repeat_bit_equal"]:
+                failures.append(f"{rec['kernel']} {name}: two backward passes differ")
+        if kind == "zero_row":
+            rows = slice(384, 512)
+            dead = (bool((lse[:, 0, rows] == 1e30).all())
+                    and float(dq[:, rows, 0].float().abs().max()) == 0.0)
+            rec_c["dead_rows_zero"] = dead
+            if not dead:
+                failures.append(f"lse backward {name}: a row with no live key has lse != 1e30 "
+                                "or dq != 0")
+        del again, rdq, rdk, rdv, fdq, fdk, fdv
+        if name == "dense":
+            elem = q.element_size()
+            tri = B * H * (S * (S + 1) // 2) * Hd * 2
+            rows_bytes = 2 * 4 * B * H * S
+            rec_c["ms"] = cuda_ms(lambda: fa.flash_attention_dq(*args, **kw))
+            rec_d["ms"] = cuda_ms(lambda: fa.flash_attention_dkv(*args, **kw))
+            rec_c["plain_ms"] = cuda_ms(lambda: fa.flash_attention_dq_plain(*args, **kw),
+                                        reps=3, warmup=1)
+            rec_d["plain_ms"] = cuda_ms(lambda: fa.flash_attention_dkv_plain(*args, **kw),
+                                        reps=3, warmup=1)
+            rec_c["library_ms"] = rec_d["library_ms"] = None     # no PyTorch call takes dlse
+            rec_c["bound_ms"], rec_c["bound_by"] = bound(
+                elem * (2 * q.numel() + k.numel() + v.numel() + do.numel()) + rows_bytes, 3 * tri)
+            rec_d["bound_ms"], rec_d["bound_by"] = bound(
+                elem * (q.numel() + 2 * k.numel() + 2 * v.numel() + do.numel()) + rows_bytes,
+                4 * tri)
+            results["flash_attention_bwd_dq_lse"] = rec_c
+            results["flash_attention_bwd_dkv_lse"] = rec_d
+        emit("kernel", **rec_c)
+        emit("kernel", **rec_d)
 
 
 def _check_fused_adam(gen, fad, results, failures):
@@ -1981,6 +2102,309 @@ def phase_serve(state, seed):
          card=state.get("card"))
     del engine
     torch.cuda.empty_cache()
+
+
+SPEC_K = 4                      # serving.speculative.k of the spec phases
+SPEC_WB = 1 << SPEC_K.bit_length()   # the engine's verify window: 8
+SPEC_MAX_NEW = 64
+SPEC_PARITY_NEW = 16
+
+
+def verify_logits(engine, rows, W=SPEC_WB):
+    """Teacher-forced logits of the verify step: each row ``(tokens,
+    n_prompt)`` prefilled (the engine's paged prefill) on a scratch pool,
+    then its own tokens fed in windows of 1 .. W (a pending token and its
+    candidates; the width cycles with the row and the step) right-padded
+    to ``W``, every row in one ``forward_paged_verify`` a step, rows that are
+    done idle on the dummy block. Returns per row ``[len(tokens) - n_prompt,
+    vocab]`` fp32 on the CPU: the logits after each fed token (the rows of
+    :func:`paged_logits` after its first)."""
+    import numpy as np
+    import torch
+    from deepspeed_tpu_torch.models import transformer as T
+    cfg, dev, bs = engine.module.config, engine.device, 128
+    n_max = -(-(max(len(t) for t, _ in rows) + W) // bs)
+    pools = engine.module.init_paged_cache(1 + len(rows) * n_max, bs, dtype=engine.dtype,
+                                           device=dev)
+    tables = [np.arange(1 + i * n_max, 1 + (i + 1) * n_max, dtype=np.int32)
+              for i in range(len(rows))]
+
+    def slots_of(table, start, nv, width):
+        t = np.arange(width)
+        p = start + t
+        return np.where(t < nv, table[np.minimum(p // bs, n_max - 1)] * bs + p % bs, p % bs)
+
+    with torch.no_grad():
+        for (tokens, n_prompt), table in zip(rows, tables):
+            Tb = -(-n_prompt // bs) * bs
+            prompt = torch.zeros((1, Tb), dtype=torch.long)
+            prompt[0, :n_prompt] = torch.as_tensor(np.asarray(tokens[:n_prompt]))
+            T.forward_paged_prefill(cfg, engine.params, prompt.to(dev), pools,
+                                    torch.as_tensor(slots_of(table, 0, n_prompt, Tb)).to(dev),
+                                    n_prompt - 1)
+        starts = [n for _, n in rows]
+        outs = [[] for _ in rows]
+        step = 0
+        while any(s < len(t) for s, (t, _) in zip(starts, rows)):
+            toks = np.zeros((len(rows), W), np.int64)
+            slots = np.stack([slots_of(np.zeros(1, np.int32), 0, 0, W)] * len(rows))
+            bt = np.zeros((len(rows), n_max), np.int32)
+            pos = np.zeros((len(rows),), np.int32)
+            nvs = []
+            for i, ((tokens, _), table) in enumerate(zip(rows, tables)):
+                nv = min(1 + (i + step) % W, len(tokens) - starts[i])
+                nvs.append(max(nv, 0))
+                if nv <= 0:
+                    continue
+                toks[i, :nv] = tokens[starts[i]:starts[i] + nv]
+                slots[i] = slots_of(table, starts[i], nv, W)
+                bt[i], pos[i] = table, starts[i]
+            logits, _ = engine.module.forward_paged_verify(
+                engine.params, torch.as_tensor(toks).to(dev), pools, torch.as_tensor(bt).to(dev),
+                torch.as_tensor(slots).to(dev), torch.as_tensor(pos).to(dev))
+            for i, nv in enumerate(nvs):
+                outs[i].append(logits[i, :nv].float().cpu())
+                starts[i] += nv
+            step += 1
+    return [torch.cat(o) for o in outs]
+
+
+@contextlib.contextmanager
+def planted_verify_fault(W=SPEC_WB):
+    """Kernel B handed each window query at the window's ``pos`` instead of
+    ``pos + t`` inside the ``with`` body (the verify step calls it for t =
+    0 .. W - 1 in order, a layer at a time): query t then misses the
+    window's keys 1 .. t and reads ALiBi / position at the wrong offset."""
+    from deepspeed_tpu_torch.models import transformer as T
+    real = T.paged_decode_attention
+    calls = [0]
+
+    def faulted(q, kp, vp, block_tables, pos, **kw):
+        t = calls[0] % W
+        calls[0] += 1
+        return real(q, kp, vp, block_tables, pos - t, **kw)
+
+    T.paged_decode_attention = faulted
+    try:
+        yield
+    finally:
+        T.paged_decode_attention = real
+
+
+def phase_spec_parity(state, seed):
+    """The verify step, teacher-forced: the CPU's greedy tokens (prompt + 16
+    new) fed in windows through forward_paged_verify on the card (bf16,
+    kernel B once per window position) and on the CPU (fp32, plain
+    versions), the logits at every live window position held with
+    logit_parity; the card's verify logits also held to its own
+    teacher-forced decode steps on the same tokens; kernel B handed pos
+    instead of pos + t planted on the card above the limit."""
+    import numpy as np
+    import torch
+
+    model, gpu, cpu = _parity_engines(seed)
+    rng = np.random.default_rng(seed + 5)
+    prompts = [rng.integers(0, model.config.vocab_size, size=n) for n in (40, 130, 200)]
+    want_tokens = cpu.generate_batch(prompts, max_new_tokens=SPEC_PARITY_NEW)
+    rows = [(np.asarray(w)[:-1], p.size) for p, w in zip(prompts, want_tokens)]
+    for (toks, _), p in zip(rows, prompts):
+        check(toks.size == p.size + SPEC_PARITY_NEW - 1, f"CPU output of {toks.size + 1} tokens")
+    want = torch.cat(verify_logits(cpu, rows))
+    got = torch.cat(verify_logits(gpu, rows))
+    decode = torch.cat([paged_logits(gpu, t, n)[1:] for t, n in rows])
+    with planted_verify_fault():
+        fault = torch.cat(verify_logits(gpu, rows))
+    rec_cpu, failures = logit_parity(got, want, {"verify_pos_not_advanced": fault})
+    rec_dec, fail_dec = logit_parity(got, decode, {"verify_pos_not_advanced": fault})
+    del gpu, cpu
+    torch.cuda.empty_cache()
+    emit("spec_parity", layers=model.config.n_layer, d_model=model.config.d_model,
+         prompts=[int(p.size) for p in prompts], new_tokens=SPEC_PARITY_NEW, window=SPEC_WB,
+         card_vs_cpu=rec_cpu, verify_vs_card_decode=rec_dec)
+    failures += [f"verify vs the card's decode: {f}" for f in fail_dec]
+    check(not failures, "spec_parity failed: " + "; ".join(failures))
+
+
+def spec_prompts(cfg, seed, n=8):
+    """``n`` repetitive prompts: a seeded random motif of 8-32 tokens
+    repeated to 128-512 tokens."""
+    import numpy as np
+    rng = np.random.default_rng(seed + 7)
+    return [np.resize(rng.integers(0, cfg.vocab_size, size=int(rng.integers(8, 33))),
+                      int(rng.integers(128, 513))) for _ in range(n)]
+
+
+class OracleProposer:
+    """A proposer that knows the answer: the next ``k`` tokens of the
+    spec-off output whose prefix the request's sequence is (nothing once a
+    request has left every such output). With ``wrong_at`` the candidate at
+    that index is replaced by the next token id (a rejection mid-window)."""
+
+    def __init__(self, outputs, vocab, wrong_at=None):
+        import numpy as np
+        self.outputs = [np.asarray(o, np.int32) for o in outputs]
+        self.vocab, self.wrong_at = vocab, wrong_at
+
+    def propose(self, seq, k):
+        import numpy as np
+        seq = np.asarray(seq, np.int32)
+        for o in self.outputs:
+            if o.size > seq.size and np.array_equal(o[:seq.size], seq):
+                cands = o[seq.size:seq.size + k].copy()
+                if self.wrong_at is not None and cands.size > self.wrong_at:
+                    cands[self.wrong_at] = (cands[self.wrong_at] + 1) % self.vocab
+                return cands
+        return np.zeros((0,), np.int32)
+
+
+def spec_launches(n_layer, actions, window=SPEC_WB):
+    """Launches a serve must make: A once a layer a prefill (a prefill chunk
+    takes the einsum), B once a layer a decode step and ``window`` times a
+    layer a verify step."""
+    return {"flash_attention_fwd": n_layer * actions.get("prefill", 0),
+            "paged_decode_attention": n_layer * (actions.get("decode", 0)
+                                                 + window * actions.get("verify", 0))}
+
+
+def near_tie(logits, tol=LOGIT_ULP_TOL):
+    """Whether a position's two largest logits lie within ``tol`` bf16 ulps
+    of its largest |logit| of each other (where two right implementations
+    may pick different tokens)."""
+    import math
+    top = sorted(float(x) for x in logits.float().topk(2).values)
+    ulp = 2.0 ** (math.floor(math.log2(float(logits.float().abs().max()))) - 7)
+    return top[1] - top[0] <= tol * ulp
+
+
+def _serve_with_proposer(engine, prompts, max_new, proposer):
+    """generate_batch with the session's proposer replaced."""
+    session = engine.open_serve_session(max_new=max_new)
+    session.sched.spec_proposer = proposer
+    try:
+        for p in prompts:
+            session.add(p)
+        while session.step():
+            pass
+    finally:
+        session.close()
+    session.end()
+    done = sorted(session.sched.finished, key=lambda r: r.rid)
+    check(all(r.error is None for r in done), "a request retired without completing")
+    return [r.output for r in done]
+
+
+def _divergences(engine, prompts, got, want, judged=None):
+    """Rows of ``got`` that differ from ``want``: (row, first differing
+    generated index, whether ``want``'s teacher-forced decode logits there
+    are a near-tie). ``judged`` keeps each (row, index) judgment for the
+    next call against the same ``want``."""
+    import numpy as np
+    judged = {} if judged is None else judged
+    out = []
+    for i, (p, g, w) in enumerate(zip(prompts, got, want)):
+        g, w = np.asarray(g), np.asarray(w)
+        diff = np.nonzero(g != w)[0] if g.shape == w.shape else [min(g.size, w.size)]
+        if len(diff):
+            j = int(diff[0])
+            if (i, j) not in judged:
+                judged[i, j] = bool(j >= p.size and
+                                    near_tie(paged_logits(engine, w[:j], p.size)[-1]))
+            out.append({"row": i, "index": j - p.size, "near_tie": judged[i, j]})
+    return out
+
+
+# spec_serve's runs: (speculative mode, proposer: None = the engine's own
+# n-gram proposer, else the index of the wrong candidate of an oracle, -1
+# for none)
+SPEC_RUNS = {"off": ("off", None), "ngram": ("ngram", None), "oracle": ("ngram", -1),
+             "oracle_2_of_4": ("ngram", 2)}
+
+
+def phase_spec_serve(state, seed):
+    """Full Llama-2-7B with n-gram speculation (k 4) on the default serving
+    config, one model for every run: 8 repetitive prompts served with
+    speculation off, with the n-gram proposer, with an oracle proposer (the
+    spec-off output's next tokens) and with an oracle whose third candidate
+    is wrong (two of four accepted), after a short warm-up serve; tokens/s,
+    accepted tokens a fused step, the scheduler's stats; launches of A and
+    B equal to spec_launches; verify steps in the oracle runs; the rows of
+    the speculating runs equal to spec off but where they first part at a
+    near-tie."""
+    import numpy as np
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.accelerator import get_accelerator
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    from deepspeed_tpu_torch.ops.kernels import paged_decode_attention as pda
+
+    acc = get_accelerator("cuda")
+    acc.reset_peak_memory_stats()
+    model, params = _llama7b(seed)
+    cfg = model.config
+    prompts = spec_prompts(cfg, seed)
+
+    def serve(mode, ps, max_new, proposer=None):
+        engine = deepspeed_tpu_torch.init_inference(
+            model, params=params, dtype="bf16",
+            serving={"speculative": {"mode": mode, "k": SPEC_K}})
+        fa.launches = 0
+        pda.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if proposer is None:
+            outs = engine.generate_batch(ps, max_new_tokens=max_new)
+        else:
+            outs = _serve_with_proposer(engine, ps, max_new, proposer)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"flash_attention_fwd": fa.launches, "paged_decode_attention": pda.launches}
+        rec = (outs, wall, launches, dict(engine._last_serve_actions),
+               dict(engine._last_serve_stats))
+        del engine
+        torch.cuda.empty_cache()
+        return rec
+
+    warm = [p[:100] for p in prompts[:2]]       # first launches, cuBLAS's and the allocator's
+    serve("ngram", warm, 8, OracleProposer(serve("off", warm, 8)[0], cfg.vocab_size))
+    runs, outs, failures = {}, {}, []
+    for label, (mode, wrong) in SPEC_RUNS.items():
+        proposer = None if wrong is None else OracleProposer(
+            outs["off"], cfg.vocab_size, None if wrong < 0 else wrong)
+        outs[label], wall, launches, actions, stats = serve(mode, prompts, SPEC_MAX_NEW, proposer)
+        for p, o in zip(prompts, outs[label]):
+            o = np.asarray(o)
+            check(o.shape == (p.size + SPEC_MAX_NEW,), f"{label}: output shape {o.shape}")
+            check(np.array_equal(o[:p.size], p), f"{label}: output does not start with its prompt")
+            check(((o >= 0) & (o < cfg.vocab_size)).all(), f"{label}: token outside the vocabulary")
+        want = spec_launches(cfg.n_layer, actions)
+        if launches != want or not all(launches.values()):
+            failures.append(f"{label}: launches {launches}, expected {want} from {actions}")
+        if wrong is not None and not stats["verify_steps"] > 0:
+            failures.append(f"{label}: no verify step")
+        steps = stats["decode_steps"] + stats["verify_steps"]
+        generated = sum(np.asarray(o).size - p.size for p, o in zip(prompts, outs[label]))
+        runs[label] = {"wall_s": wall, "generated_tokens": int(generated),
+                       "tokens_per_s": generated / wall,
+                       "accepted_tokens_a_fused_step": stats["emitted_tokens"] / steps,
+                       "ms_a_fused_step": wall * 1e3 / steps, "actions": actions,
+                       "stats": stats, "launches": launches}
+    ref = deepspeed_tpu_torch.init_inference(model, params=params, dtype="bf16")
+    judged = {}
+    for label in list(SPEC_RUNS)[1:]:
+        div = _divergences(ref, prompts, outs[label], outs["off"], judged)
+        runs[label]["rows_equal_to_off"] = len(prompts) - len(div)
+        runs[label]["near_tie_rows"] = sum(d["near_tie"] for d in div)
+        runs[label]["divergences"] = div
+        failures += [f"{label}: row {d['row']} parts from spec off at generated token "
+                     f"{d['index']}, not a near-tie" for d in div if not d["near_tie"]]
+    del ref, params
+    torch.cuda.empty_cache()
+    state["spec_launches"] = runs["oracle"]["launches"]
+    emit("spec_serve", model="llama-2-7b", layers=cfg.n_layer, dtype="bf16", k=SPEC_K,
+         window=SPEC_WB, requests=len(prompts), prompt_tokens=[int(p.size) for p in prompts],
+         max_new_tokens=SPEC_MAX_NEW, runs=runs, peak_mem_gb=acc.max_memory_allocated() / 1e9,
+         card=state.get("card"))
+    check(not failures, "spec_serve failed: " + "; ".join(failures))
 
 
 def phase_generate_parity(state, seed):
@@ -2746,6 +3170,7 @@ def _device_time(prof):
 def phase_kernels(state):
     res = state.get("kernel_results", {})
     serve = state.get("launches", {})
+    spec = state.get("spec_launches", {})
     gen = state.get("gen_launches", {})
     train = state.get("train_launches", {})
     train_lamb = state.get("train_lamb_launches", {})
@@ -2814,7 +3239,8 @@ def phase_kernels(state):
             "with has_layout: the block-sparse layout, _layout_spec :523)")
     for name, (source, replaces) in meta.items():
         r = res.get(name, {})
-        by_path = {p: n[name] for p, n in (("serve", serve), ("generate", gen), ("train", train),
+        by_path = {p: n[name] for p, n in (("serve", serve), ("spec_serve", spec),
+                                           ("generate", gen), ("train", train),
                                            ("train_lamb", train_lamb),
                                            ("train_sparse", train_sparse)) if name in n}
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -2823,6 +3249,11 @@ def phase_kernels(state):
                      "ms": r.get("ms"), "plain_ms": r.get("plain_ms"),
                      "bound_ms": r.get("bound_ms"), "bound_by": r.get("bound_by"),
                      "library_ms": r.get("library_ms")})
+        lse = res.get(name + "_lse")
+        if lse:             # C and D fed delta - log2(e) dlse: flash_lse's backward (:579)
+            rows[-1]["with_lse_cotangent"] = {
+                k: lse.get(k) for k in ("shape", "max_abs_err", "ulp_err", "ms", "plain_ms",
+                                        "bound_ms", "bound_by")}
     print(json.dumps({"kernels": rows}), flush=True)
 
 

@@ -111,8 +111,9 @@ class QuantizationConfig(ConfigModel):
 @config
 class SpeculativeConfig(ConfigModel):
     """Speculative decoding ("serving.speculative"): ``mode`` off | ngram |
-    auto (auto is reserved and means off). n-gram self-speculation belongs
-    to a later slice of the port; the engine refuses ``mode="ngram"``."""
+    auto (auto is reserved and means off); ngram proposes up to ``k``
+    tokens from the longest recurring tail n-gram of ``min_match`` ..
+    ``max_match`` tokens (``inference/spec.py``), greedy serving only."""
     mode: str = "off"
     k: int = 4
     min_match: int = 2

@@ -8,7 +8,11 @@ action runs one forward of the model: a ``prefill`` runs
 tail after a prefix-cache hit) runs ``forward_paged_prefill_chunk`` after a
 copy-on-write of a shared block if needed, a ``decode`` runs
 ``forward_paged_decode`` over every running request at once (paged
-decode-attention kernel, once per layer).
+decode-attention kernel, once per layer), and with
+``serving.speculative.mode="ngram"`` a ``verify`` runs
+``forward_paged_verify`` over each request's window of n-gram candidates
+(the paged kernel once per window position and layer) and keeps the
+longest prefix greedy decode agrees with.
 
 ``InferenceEngine.generate`` is static generation over a persistent dense KV
 workspace: one right-padded prefill of the whole batch, then one
@@ -35,8 +39,9 @@ from deepspeed_tpu_torch.accelerator.real_accelerator import resolve_device
 from deepspeed_tpu_torch.inference.block_allocator import DUMMY_BLOCK, BlockAllocator
 from deepspeed_tpu_torch.inference.config import DeepSpeedInferenceConfig, DtypeEnum
 from deepspeed_tpu_torch.inference.scheduler import ContinuousBatchingScheduler
+from deepspeed_tpu_torch.inference.spec import NgramProposer
 from deepspeed_tpu_torch.models.transformer import copy_paged_block
-from deepspeed_tpu_torch.utils.logging import log_dist
+from deepspeed_tpu_torch.utils.logging import log_dist, warn_once
 from deepspeed_tpu_torch.utils.not_ported import not_ported
 
 
@@ -93,9 +98,6 @@ class InferenceEngine:
             not_ported("checkpoint loading", "queue 1: checkpoint ingestion")
         if srv.kv_host.enabled:
             not_ported("the tiered KV cache (serving.kv_host)", "queue 1: tiered KV cache")
-        if str(srv.speculative.mode) == "ngram":
-            not_ported("speculative decoding (serving.speculative.mode='ngram')",
-                       "queue 1: speculative decoding")
 
     # ------------------------------------------------------------------ #
     # helpers shared with the JAX engine
@@ -309,6 +311,9 @@ class InferenceEngine:
                              "model must be a causal LM with forward_paged_decode")
         max_new = max_new_tokens if max_new_tokens is not None else self._config.max_out_tokens
         if mode == "off" or not supported:
+            if str(srv.speculative.mode) == "ngram":
+                warn_once("serving.speculative is ignored on the static (non-paged) serving "
+                          "path: speculation needs the paged engine (serving.paged)")
             # static path, one request at a time; the seed offset keeps
             # sampled requests (and duplicate prompts) off one stream
             return [self.generate(p[None, :], max_new_tokens=max_new, temperature=temperature,
@@ -369,20 +374,42 @@ class InferenceEngine:
             raise ValueError("prefix caching / chunked prefill need "
                              "forward_paged_prefill_chunk on the model")
         caching = chunk_ok and pc_mode != "off"
-        spec_mode = str(srv.speculative.mode)
+        spec = srv.speculative
+        spec_mode = str(spec.mode)
         if spec_mode not in ("off", "ngram", "auto"):
             raise ValueError(f"serving.speculative.mode={spec_mode!r} (expected off|ngram|auto)")
+        spec_on = spec_mode == "ngram"          # "auto" is reserved: off
+        if spec_on and not hasattr(self.module, "forward_paged_verify"):
+            raise ValueError("serving.speculative.mode='ngram' but the model has no "
+                             "forward_paged_verify (the fused verify step); serve a causal "
+                             "LM of the model zoo or set mode='off'")
+        if spec_on and temperature > 0.0:
+            # acceptance is exact for greedy argmax only
+            warn_once("serving.speculative is greedy-only: temperature > 0 disables "
+                      "speculation for this call")
+            spec_on = False
+        spec_k = int(spec.k)
+        if spec_on and spec_k < 1:
+            raise ValueError("serving.speculative.k must be >= 1")
+        proposer, spec_wb = None, 0
+        if spec_on:
+            proposer = NgramProposer(min_match=int(spec.min_match),
+                                     max_match=int(spec.max_match))
+            # the JAX engine's window bucket: the next power of two above k
+            spec_wb = 1 << spec_k.bit_length()
 
         pools, pools_reused = self._paged_pools(num_blocks, bs)
         alloc = self._paged_allocator(num_blocks, bs, caching, pools_reused)
         sched = ContinuousBatchingScheduler(alloc, W, n_max, prefix_caching=caching,
                                             chunk_tokens=chunk_tokens,
-                                            rid_base=self._serve_rid_base)
+                                            rid_base=self._serve_rid_base,
+                                            spec_k=spec_k if spec_on else 0,
+                                            spec_proposer=proposer)
         session = _ServeSession(
             self, sched, pools, max_new=max_new, temperature=temperature, top_k=top_k,
             generator=torch.Generator(device=self.device).manual_seed(int(seed)),
             eos_token_id=eos_token_id, W=W, n_max=n_max, bs=bs, num_blocks=num_blocks,
-            chunk_tokens=chunk_tokens)
+            chunk_tokens=chunk_tokens, spec_wb=spec_wb)
         self._active_session = session
         return session
 
@@ -394,7 +421,7 @@ class _ServeSession:
     _UNSET = object()
 
     def __init__(self, engine, sched, pools, *, max_new, temperature, top_k, generator,
-                 eos_token_id, W, n_max, bs, num_blocks, chunk_tokens):
+                 eos_token_id, W, n_max, bs, num_blocks, chunk_tokens, spec_wb):
         self.engine = engine
         self.sched = sched
         self.pools = pools
@@ -408,6 +435,7 @@ class _ServeSession:
         self.bs = bs
         self.num_blocks = num_blocks
         self.chunk_tokens = chunk_tokens
+        self.spec_wb = spec_wb          # verify window width (0: speculation off)
         #: scheduler actions executed, by kind (plain host counters)
         self.actions = collections.Counter()
         self._closed = False
@@ -515,8 +543,53 @@ class _ServeSession:
             tok = self._sample(logits)
             for i, r in enumerate(reqs):
                 sched.record_decode(r, int(tok[i]))
+        elif kind == "verify":
+            self._verify(payload)
         else:
-            not_ported(f"the {kind!r} serving action", "queue 1: speculative decoding")
+            raise ValueError(f"unknown scheduler action {kind!r}")
+
+    def _verify(self, reqs) -> None:
+        """One speculative step: each request's window (its pending token
+        and candidates, right-padded to ``spec_wb``) through
+        ``forward_paged_verify``, greedy argmax at every window position,
+        and acceptance of the longest candidate prefix the argmax agrees
+        with plus the token at the first mismatch (cut at eos): the tokens
+        that as many decode steps would emit."""
+        engine, sched = self.engine, self.sched
+        bs, W, n_max, wb = self.bs, self.W, self.n_max, self.spec_wb
+        bt = np.zeros((W, n_max), np.int32)       # zeros → dummy block
+        pos = np.zeros((W,), np.int32)
+        toks = np.zeros((W, wb), np.int64)
+        slots = np.zeros((W, wb), np.int64)
+        idle = np.zeros((1,), np.int32)
+        for i in range(W):
+            if i >= len(reqs):                    # idle rows write to the dummy block
+                slots[i] = engine._flat_slots(idle, 0, 0, wb, bs)
+                continue
+            r = reqs[i]
+            nv = 1 + len(r.spec_tokens)
+            toks[i, 0] = r.last_token
+            toks[i, 1:nv] = r.spec_tokens
+            table = np.asarray(r.blocks, np.int32)
+            bt[i, :table.size] = table
+            pos[i] = r.pos
+            slots[i] = engine._flat_slots(table, r.pos, nv, wb, bs)
+        logits, self.pools = engine.module.forward_paged_verify(
+            engine.params, self._tensor(toks, torch.long), self.pools,
+            self._tensor(bt, torch.int32), self._tensor(slots, torch.long),
+            self._tensor(pos, torch.int32))
+        # the decode step's own argmax (_sample at temperature 0), so ties break alike
+        greedy = engine._sample(logits.reshape(W * wb, -1), 0.0, 0, None)
+        greedy = greedy.reshape(W, wb).cpu().numpy()
+        for i, r in enumerate(reqs):
+            cands = r.spec_tokens
+            n_acc = 0
+            while n_acc < len(cands) and int(greedy[i, n_acc]) == cands[n_acc]:
+                n_acc += 1
+            emitted = list(cands[:n_acc]) + [int(greedy[i, n_acc])]
+            if r.eos is not None and int(r.eos) in emitted:
+                emitted = emitted[:emitted.index(int(r.eos)) + 1]
+            sched.record_verify(r, emitted)
 
     # ---- lifecycle ---- #
 

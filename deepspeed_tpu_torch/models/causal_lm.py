@@ -88,3 +88,7 @@ class CausalLM(nn.Module):
     def forward_paged_decode(self, params, tokens, pools, block_tables, pos, pad_bias=None):
         return T.forward_paged_decode(self.config, params, tokens, pools, block_tables, pos,
                                       pad_bias)
+
+    def forward_paged_verify(self, params, tokens, pools, block_tables, slots, pos):
+        return T.forward_paged_verify(self.config, params, tokens, pools, block_tables, slots,
+                                      pos)

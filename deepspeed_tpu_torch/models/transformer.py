@@ -50,7 +50,8 @@ from deepspeed_tpu_torch.ops.attention import mha_attention
 from deepspeed_tpu_torch.ops.kernels.decode_attention import decode_attention
 from deepspeed_tpu_torch.ops.kernels.flash_attention import flash_attention
 from deepspeed_tpu_torch.ops.kernels.fused_cross_entropy import fused_cross_entropy
-from deepspeed_tpu_torch.ops.kernels.paged_decode_attention import paged_decode_attention
+from deepspeed_tpu_torch.ops.kernels.paged_decode_attention import (paged_decode_attention,
+                                                                    paged_envelope_ok)
 from deepspeed_tpu_torch.sequence._streaming import chunked_attention
 from deepspeed_tpu_torch.utils.not_ported import not_ported
 
@@ -519,6 +520,37 @@ def _paged_decode_attention(cfg: TransformerConfig, x, lp, positions, pos, kp, v
     return _out_project(cfg, out, lp)
 
 
+def _paged_verify_attention(cfg: TransformerConfig, x, lp, positions, wpos, kp, vp,
+                            block_tables, slots):
+    """Verify attention over all running requests at once: row b's window
+    (its pending token and its candidates) x ``[B, W, D]`` at positions
+    ``pos[b] + t``, its k/v written at ``slots`` ``[B, W]`` (pads and idle
+    rows to the dummy block); window query t attends every key at or
+    before its own position. Where the decode step takes the paged kernel,
+    verify runs it once per window position (scatter position t, then
+    query position t at ``wpos[t, :B]``), the t decode steps
+    it replaces, so that an argmax near-tie breaks as decode would break
+    it; elsewhere the whole window is scattered and attends through the
+    gather + grouped einsum. Returns ``[B, W, D]``."""
+    B, W, _ = x.shape
+    H, KV, Hd = cfg.n_head, cfg.kv_heads, cfg.head_dim
+    q, k, v = _qkv_project(cfg, x, lp, positions)
+    if _use_kernels(cfg) and paged_envelope_ok(H, KV, Hd, kp.shape[1]):
+        slopes = _alibi_slopes(H, x.device) if cfg.pos_embedding == "alibi" else None
+        outs = []
+        for t in range(W):
+            _pool_scatter(kp, k[:, t], slots[:, t])
+            _pool_scatter(vp, v[:, t], slots[:, t])
+            outs.append(paged_decode_attention(q[:, t], kp, vp, block_tables, wpos[t, :B],
+                                               alibi_slopes=slopes, scale=cfg.attn_scale))
+        return _out_project(cfg, torch.stack(outs, dim=1).reshape(B, W, H * Hd), lp)
+    _pool_scatter(kp, k.reshape(B * W, KV, Hd), slots.reshape(-1))
+    _pool_scatter(vp, v.reshape(B * W, KV, Hd), slots.reshape(-1))
+    out = _grouped_cache_einsum(cfg, q, _paged_gather(kp, block_tables),
+                                _paged_gather(vp, block_tables), positions, None)
+    return _out_project(cfg, out, lp)
+
+
 def _paged_prefill_attention(cfg: TransformerConfig, x, lp, positions, kp, vp, slots):
     """Prefill attention of ONE fresh request: causal self-attention over its
     own prompt, its k/v scattered into the request's pool blocks. x
@@ -607,6 +639,30 @@ def forward_paged_decode(cfg: TransformerConfig, params, tokens, pools, block_ta
         x = _decode_block(cfg, x, lp, lambda xn: _paged_decode_attention(
             cfg, xn, lp["attn"], positions, pos, kp, vp, block_tables, pad_bias))
     return cached_head(cfg, params, x)[:, 0, :], pools
+
+
+def forward_paged_verify(cfg: TransformerConfig, params, tokens, pools, block_tables, slots,
+                         pos):
+    """One fused verify step of speculative decoding over all running
+    requests: tokens ``[B, W]`` (row b's pending last token, its proposed
+    candidates, pads), slots ``[B, W]`` flat pool slots (pads and idle rows
+    on the dummy block), block_tables ``[B, max_blocks]`` int32, pos ``[B]``
+    int32 cache depths. Returns (logits ``[B, W, vocab]`` at every window
+    position, pools), the pools updated in place. Rejected candidates' k/v
+    stay past the committed position, never read and overwritten as decode
+    goes on; the scheduler rewinds pos and the prefix cache."""
+    _check_paged_config(cfg)
+    x, positions = cached_embed(cfg, params, tokens, pos, pools["k"].dtype)
+    # kernel B's pos of each window slot: int32 rows padded to 16 bytes, so
+    # that every row starts where the kernel's 16-byte check wants it
+    B, W = tokens.shape
+    wpos = torch.zeros((W, -(-B // 4) * 4), dtype=torch.int32, device=tokens.device)
+    wpos[:, :B] = positions.t()
+    for i, lp in enumerate(params["layers"]):
+        kp, vp = pools["k"][i], pools["v"][i]
+        x = _decode_block(cfg, x, lp, lambda xn: _paged_verify_attention(
+            cfg, xn, lp["attn"], positions, wpos, kp, vp, block_tables, slots))
+    return cached_head(cfg, params, x), pools
 
 
 def copy_paged_block(pools, src: int, dst: int):

@@ -40,7 +40,10 @@ kernel walked on the card since ``reset_tile_counts()``.
 
 :func:`flash_attention` is differentiable: its autograd Function saves
 ``(q, k, v, o, lse, mask, slopes)``, computes ``delta = sum(do * o)`` in fp32
-with plain torch (as the JAX package does in XLA) and runs C and D. Each
+with plain torch (as the JAX package does in XLA) and runs C and D. With
+``return_lse=True`` the lse is differentiable too (the JAX package's
+``flash_lse``, through which ring attention combines blocks): its cotangent
+folds into the row term, ``delta' = delta - log2(e) * dlse``. Each
 wrapper takes the plain version for CPU tensors only; for a CUDA tensor it
 launches its kernel or raises. ``launches``, ``dq_launches`` and
 ``dkv_launches`` count kernel launches of A, C and D (a run's proof that it
@@ -534,26 +537,37 @@ def _forward(q, k, v, mask_bias, causal, alibi_slopes, scale, block_layout):
 class _FlashAttention(torch.autograd.Function):
     """Kernel A forward; kernels C and D backward (the TPU package's
     ``jax.custom_vjp`` around ``_fwd_kernel`` / ``_dq_kernel`` /
-    ``_dkv_kernel``). The forward reads nothing but its inputs, so a
-    rematerialising checkpoint recomputes exactly the saved o and lse. The
-    block layout rides along for the backward as it is (its live-tile lists
-    are cached by content)."""
+    ``_dkv_kernel``: ``flash``, and ``flash_lse`` when the lse is used too).
+    The forward reads nothing but its inputs, so a rematerialising
+    checkpoint recomputes exactly the saved o and lse. The block layout
+    rides along for the backward as it is (its live-tile lists are cached
+    by content).
+
+    The lse is the log2-domain ``log2(sum_k exp2(s2_k))`` with s2 =
+    log2(e) * s, so d lse / d s_k = log2(e) p_k: an lse cotangent adds
+    log2(e) * dlse * p_k to ds_k = p_k (dp_k - delta), and C and D take
+    ``delta - log2(e) * dlse`` as their row term with no other change
+    (``bwd_impl(res, g, glse)`` of the JAX package). A row with no mass
+    (lse = +1e30) has p = 0 and drops its lse cotangent there too."""
 
     @staticmethod
     def forward(ctx, q, k, v, mask_bias, alibi_slopes, causal, scale, block_layout):
+        ctx.set_materialize_grads(False)     # an unused output's cotangent stays None
         o, lse = _forward(q, k, v, mask_bias, causal, alibi_slopes, scale, block_layout)
         ctx.save_for_backward(q, k, v, o, lse, mask_bias, alibi_slopes)
         ctx.causal, ctx.scale, ctx.block_layout = causal, scale, block_layout
-        return o
+        return o, lse
 
     @staticmethod
-    def backward(ctx, do):
+    def backward(ctx, do, dlse):
         q, k, v, o, lse, mask_bias, slopes = ctx.saved_tensors
-        do = do.contiguous()
+        do = torch.zeros_like(o) if do is None else do.contiguous()
         # delta in fp32 with plain torch, as the JAX package does in XLA
-        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
-        args = (q, k, v, do, lse, delta, mask_bias, ctx.causal, slopes, ctx.scale,
-                ctx.block_layout)
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2)
+        if dlse is not None:
+            delta = delta - _LOG2E * dlse.float()
+        args = (q, k, v, do, lse, delta.contiguous(), mask_bias, ctx.causal, slopes,
+                ctx.scale, ctx.block_layout)
         dq = flash_attention_dq(*args)
         dk, dv = flash_attention_dkv(*args)
         return dq, dk, dv, None, None, None, None, None
@@ -576,19 +590,14 @@ def flash_attention(q, k, v, mask_bias=None, causal: bool = True, alibi_slopes=N
     ``mask_bias`` and ALiBi compose with it.
 
     ``return_lse=True`` returns ``(out, lse)`` with lse the log2-domain
-    logsumexp ``[B, H, S]``; it is forward-only here (its gradient serves
-    ring attention, not ported)."""
+    logsumexp ``[B, H, S]`` (+1e30 for a row with no mass); both are
+    differentiable, the lse's cotangent running through C and D."""
     H = q.shape[2]
     if H % k.shape[2]:
         raise ValueError(f"q heads {H} not a multiple of kv heads {k.shape[2]}")
-    needs_grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
-    if return_lse:
-        if needs_grad:
-            raise NotImplementedError(
-                "a differentiable return_lse (ring attention) is not ported yet: "
-                "ROADMAP.md queue 2, sequence/")
-        return _forward(q, k, v, mask_bias, causal, alibi_slopes, scale, block_layout)
-    if needs_grad:
-        return _FlashAttention.apply(q, k, v, mask_bias, alibi_slopes, causal, scale,
-                                     block_layout)
-    return _forward(q, k, v, mask_bias, causal, alibi_slopes, scale, block_layout)[0]
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        o, lse = _FlashAttention.apply(q, k, v, mask_bias, alibi_slopes, causal, scale,
+                                       block_layout)
+    else:
+        o, lse = _forward(q, k, v, mask_bias, causal, alibi_slopes, scale, block_layout)
+    return (o, lse) if return_lse else o

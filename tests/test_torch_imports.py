@@ -77,6 +77,12 @@ SPARSE_MODULES = (
 )
 
 
+# the speculative-decoding slice's modules
+SPEC_MODULES = (
+    "deepspeed_tpu_torch.inference.spec",
+)
+
+
 def test_import_leaves_jax_and_pydantic_out():
     mods = ["deepspeed_tpu_torch"] + sorted(
         "deepspeed_tpu_torch." + ".".join(p.relative_to(ROOT / "deepspeed_tpu_torch")
@@ -86,6 +92,7 @@ def test_import_leaves_jax_and_pydantic_out():
     assert set(GENERATE_AND_CE_MODULES) <= set(mods)
     assert set(LAMB_AND_MOQ_MODULES) <= set(mods)
     assert set(SPARSE_MODULES) <= set(mods)
+    assert set(SPEC_MODULES) <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "

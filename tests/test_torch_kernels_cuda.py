@@ -349,6 +349,41 @@ def test_flash_attention_autograd_runs_the_kernels(cuda):
     assert all(torch.isfinite(x.grad.float()).all() for x in (q, k, v))
 
 
+@pytest.mark.parametrize("B,S,H,KV,Hd,causal,alibi,kind", [
+    (2, 512, 32, 32, 128, True, False, None),      # Llama-7B heads
+    (1, 300, 16, 4, 128, True, True, None),        # GQA 4, ALiBi, ragged S
+    (2, 256, 8, 2, 64, False, False, None),        # full attention, Hd 64
+    (1, 320, 4, 2, 96, False, False, "random32"),  # a layout with a dead row block, Hd 96
+])
+def test_flash_lse_backward_runs_the_kernels(cuda, B, S, H, KV, Hd, causal, alibi, kind):
+    """return_lse=True with a gradient: one launch each of A, C and D, and
+    dq, dk, dv of a loss on o and lse against the plain backward fed
+    delta - log2(e) dlse; rows the layout leaves no key keep lse = 1e30 and
+    dq = 0."""
+    r = np.random.default_rng(7 * S + H)
+    q, k, v, kw = _attn_inputs(r, B, S, H, KV, Hd, cuda, alibi, False)
+    kw.update(causal=causal, block_layout=None if kind is None else _layout(kind, H, S))
+    leaves = [x.requires_grad_() for x in (q, k, v)]
+    do = _randn(r, (B, S, H, Hd), cuda)
+    dlse = torch.from_numpy(r.normal(size=(B, H, S)).astype(np.float32)).to(cuda)
+    n = (fa.launches, fa.dq_launches, fa.dkv_launches)
+    o, lse = fa.flash_attention(*leaves, return_lse=True, **kw)
+    dq, dk, dv = torch.autograd.grad((o, lse), leaves, (do, dlse))
+    torch.cuda.synchronize()
+    assert (fa.launches, fa.dq_launches, fa.dkv_launches) == (n[0] + 1, n[1] + 1, n[2] + 1)
+    o, lse = o.detach(), lse.detach()
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2) - 1.4426950408889634 * dlse
+    args = (q.detach(), k.detach(), v.detach(), do, lse, delta.contiguous())
+    rdq = fa.flash_attention_dq_plain(*args, **kw)
+    rdk, rdv = fa.flash_attention_dkv_plain(*args, **kw)
+    for out, ref in ((dq, rdq), (dk, rdk), (dv, rdv)):
+        assert torch.isfinite(out.float()).all()
+        assert _ulp_err(out, ref, GRAD_FLOOR) <= ULP_TOL
+    if kind == "random32":        # head 0's row block 2 is dead
+        rows = slice(64, 96)
+        assert bool((lse[:, 0, rows] == 1e30).all()) and float(dq[:, rows, 0].abs().max()) == 0.0
+
+
 @pytest.mark.parametrize("n,p_dtype,g_dtype,emit,adam_w,wd,bc", [
     (1_000_000, torch.float32, torch.float32, "param", True, 0.1, True),    # the engine's call
     (1_000_000, torch.float32, torch.float32, "update", True, 0.1, True),

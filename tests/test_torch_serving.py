@@ -2,11 +2,13 @@
 the JAX engine (``attention_backend="flash"``: its Pallas kernels in
 interpret mode), same weights, fp32, greedy, on a Llama-shaped and a
 GPT-2-shaped tiny model: mixed prompt lengths, a second call that hits the
-prefix cache, prefix caching off, and eviction pressure. Tokens must agree
-wherever the JAX model's top-2 logit margin exceeds 1e-3 (an argmax near-tie
-may flip between two correct implementations). Settings outside the
-port's slices raise (``serving.paged="off"``, the static path, is held to
-the JAX engine in ``test_torch_generate.py``)."""
+prefix cache, prefix caching off, eviction pressure, and n-gram
+speculation. Tokens must agree wherever the JAX model's top-2 logit margin
+exceeds 1e-3 (an argmax near-tie may flip between two correct
+implementations). Settings outside the port's slices raise
+(``serving.paged="off"``, the static path, is held to the JAX engine in
+``test_torch_generate.py``; speculation in depth in
+``test_torch_spec.py``)."""
 
 import jax
 import numpy as np
@@ -131,7 +133,7 @@ def test_eviction_pressure(pair):
 
 
 @pytest.mark.parametrize("setting,item", [
-    ({"serving": {"speculative": {"mode": "ngram"}}}, "speculative decoding"),
+    ({"mp_size": 2}, "sharded serving"),
     ({"serving": {"kv_host": {"enabled": True}}}, "tiered KV cache"),
     ({"serving": {"tp": 2}}, "sharded serving"),
     ({"tensor_parallel": {"tp_size": 2}}, "sharded serving"),
@@ -147,6 +149,23 @@ def test_out_of_slice_settings_raise(setting, item):
     model = CausalLM(TransformerConfig(**SHAPES["gpt2"]))
     with pytest.raises(NotImplementedError, match=item):
         deepspeed_tpu_torch.init_inference(model, device="cpu", **setting)
+
+
+def test_speculative_decoding_setting_serves(pair):
+    """serving.speculative.mode="ngram" serves through generate_batch: the
+    same tokens and scheduler stats as the JAX engine with it on, and the
+    same tokens as the port with it off."""
+    spec = {"speculative": {"mode": "ngram", "k": 3}}
+    jeng, peng = pair.engines(**spec)
+    r = np.random.default_rng(5)
+    prompts = [np.tile(r.integers(0, 64, size=n), 4).astype(np.int32) for n in (3, 7)]
+    pair.serve(jeng, peng, prompts, 10)
+    assert peng._last_serve_stats["verify_steps"] > 0
+    off = deepspeed_tpu_torch.init_inference(pair.pmodel, params=pair.params, dtype="fp32",
+                                             device="cpu", serving=BASE_SERVING)
+    want = off.generate_batch(prompts, max_new_tokens=10)
+    got = peng.generate_batch(prompts, max_new_tokens=10)
+    assert all(np.array_equal(g, w) for g, w in zip(got, want))
 
 
 def test_config_fields_aliases_and_unknown_keys():
