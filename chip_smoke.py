@@ -106,9 +106,24 @@ Phases, each printing one JSON line:
                 step A = 2 L gas and C = D = L gas launches, the tiles they
                 walked equal to the layout's live blocks; then the same
                 step with sparse attention off
+  resume        Llama-7B width cut to 2 layers (S 2048, micro 2 x gas 2, the
+                train phase's config) trained from the engine's own dataloader
+                (64 seeded motif samples, shuffled): run U takes 6 steps; run R
+                takes 3, saves a crash-safe tag (async: the snapshot, then the
+                persist), and a new engine from another init seed auto_resumes
+                and takes 3 more. R's losses at steps 4-6 and every master
+                after step 6 must be bit-equal to U's, the launches per step
+                the train phase's rule; planted faults must read above that
+                limit (a resume without the optimizer states, a load without
+                the data fast-forward), and an explicit load of the tag with
+                one byte of state.npz flipped must raise and leave the
+                engine's state untouched. Bytes a tag, snapshot ms, save and
+                load s (GB/s; a load without the manifest's verification and
+                the verification alone too), peak memory, free disk; the tag
+                is deleted
   kernels       every ported kernel with its launches in the serve, spec_serve
-                (its oracle run), generate, train, train_lamb and train_sparse
-                phases (A, C and D with a layout in rows of their own; C's and
+                (its oracle run), generate, train, train_lamb, train_sparse and
+                resume phases (A, C and D with a layout in rows of their own; C's and
                 D's rows also carry their readings with an lse cotangent)
   profile       (only with --phases profile) the serve phase's prompts through
                 fresh engines after a warm-up: warm tokens/s, device kernel
@@ -135,6 +150,8 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -143,7 +160,7 @@ import time
 PHASES = ("env", "build", "kernel", "slice_parity", "serve", "spec_parity", "spec_serve",
           "generate_parity", "generate",
           "train_parity", "train", "train_lamb_parity", "train_lamb", "sparse_parity",
-          "train_sparse", "kernels", "profile", "train_profile", "train_lamb_profile",
+          "train_sparse", "resume", "kernels", "profile", "train_profile", "train_lamb_profile",
           "generate_profile", "train_sparse_profile")
 DEFAULT_PHASES = PHASES[:-5]      # the five profiles run only when asked for
 # Kernel vs plain version, bf16 outputs: the largest difference in each output
@@ -201,6 +218,13 @@ TRAIN_SEQ = 2048
 TRAIN_STEPS = 6                 # 1 warm-up + 5 timed
 SPARSE_SEQ = 4096               # train_sparse: Llama-2's published context
 SPARSE_PARITY_SEQ = 1024        # sparse_parity: two local windows of the Fixed layout
+RESUME_LAYERS = 2               # resume: Llama-2-7B width, depth cut 32 -> 2 (PERF.md section 4)
+RESUME_SAMPLES = 64             # resume's dataset: seeded motifs repeated to TRAIN_SEQ
+RESUME_STEPS = 6                # run U; run R takes half, saves, resumes, takes the rest
+RESUME_CONFIG = {**TRAIN_CONFIG, "train_batch_size": 4, "train_micro_batch_size_per_gpu": 2,
+                 "gradient_accumulation_steps": 2}
+# where resume writes its tag: inside the checkout (git-ignored), deleted after
+RESUME_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), ".resume_ckpt")
 PARITY_LAYERS = 1               # train_parity's depth: its fp32 CPU side is most of the run
 PARITY_LOSS_TOL = 3e-2          # absolute, bf16 card vs fp32 CPU (PERF.md section 6)
 PARITY_UPDATE_TOL = 0.5         # |card update - CPU update| / |CPU update|, per leaf
@@ -304,7 +328,8 @@ def phase_env(state):
     state["card"] = card
     emit("env", torch=torch.__version__, cuda=torch.version.cuda,
          python=sys.version.split()[0], device=torch.cuda.get_device_name(0),
-         count=torch.cuda.device_count(), nvidia_smi=card)
+         count=torch.cuda.device_count(), nvidia_smi=card,
+         checkout_disk_free_gb=shutil.disk_usage(os.path.dirname(RESUME_DIR)).free / 1e9)
 
 
 _KERNEL_NAMES = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
@@ -2784,6 +2809,24 @@ def _reset_train_counters():
     qk.launches = qk.scale_launches = 0
 
 
+def train_launch_rule(engine):
+    """The kernels' launches in one train_batch of the train phase's path:
+    A twice a layer a micro-step (forward and remat recompute), C and D once,
+    E once a parameter leaf, each fused CE kernel once a micro-step (the
+    head lies outside remat; 0 with the plain head)."""
+    cfg = engine.module.config
+    gas = engine.gradient_accumulation_steps()
+    leaves = len(list(engine.state.params.parameters()))
+    check(leaves == 9 * cfg.n_layer + 3, f"{leaves} parameter leaves")
+    return {"flash_attention_fwd": 2 * cfg.n_layer * gas,
+            "flash_attention_bwd_dq": cfg.n_layer * gas,
+            "flash_attention_bwd_dkv": cfg.n_layer * gas,
+            "fused_adam": leaves,
+            **dict.fromkeys(("fused_ce_fwd", "fused_ce_ds", "fused_ce_dh_gemm",
+                             "fused_ce_dw_gemm"),
+                            0 if engine._config.fused_cross_entropy == "off" else gas)}
+
+
 def phase_train(state, seed):
     import numpy as np
     import torch
@@ -2795,17 +2838,7 @@ def phase_train(state, seed):
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     cfg = model.config
-    gas = engine.gradient_accumulation_steps()
-    leaves = len(list(engine.state.params.parameters()))
-    want = {"flash_attention_fwd": 2 * cfg.n_layer * gas,     # forward + remat recompute
-            "flash_attention_bwd_dq": cfg.n_layer * gas,
-            "flash_attention_bwd_dkv": cfg.n_layer * gas,
-            "fused_adam": leaves,
-            # the vocab head lies outside remat: each CE kernel once a micro-step
-            **dict.fromkeys(("fused_ce_fwd", "fused_ce_ds", "fused_ce_dh_gemm",
-                             "fused_ce_dw_gemm"),
-                            0 if TRAIN_CONFIG["fused_cross_entropy"] == "off" else gas)}
-    check(leaves == 9 * cfg.n_layer + 3, f"{leaves} parameter leaves")
+    want = train_launch_rule(engine)
     acc.reset_peak_memory_stats()
 
     _reset_train_counters()
@@ -3037,6 +3070,200 @@ def phase_train_sparse(state, seed):
          "unidirectional", peak_tflops=acc.peak_tflops(), card=state.get("card"), **runs)
 
 
+def resume_dataset(vocab, seed, n=RESUME_SAMPLES, seq=TRAIN_SEQ):
+    """``n`` seeded samples, each a random motif of 8-32 tokens repeated to
+    ``seq`` tokens (as spec_prompts makes its prompts): the loss falls on
+    them, and a replayed or skipped batch changes it."""
+    import numpy as np
+    rng = np.random.default_rng(seed + 11)
+    return [{"input_ids": np.resize(rng.integers(0, vocab, size=int(rng.integers(8, 33))),
+                                    seq).astype(np.int32)} for _ in range(n)]
+
+
+def resume_engine(data, seed, init_seed, config=None, device=None, model=None):
+    """The resume phase's engine: Llama-2-7B width at RESUME_LAYERS (or
+    ``model``), random bf16 weights from ``init_seed``, fed by the engine's
+    own dataloader over ``data`` shuffled with ``seed``."""
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import llama
+    from deepspeed_tpu_torch.runtime.dataloader import DeepSpeedDataLoader
+
+    config = config or RESUME_CONFIG
+    device = torch.device(device or "cuda")
+    model = model or llama("7b", n_layer=RESUME_LAYERS)
+    gen = torch.Generator(device=device).manual_seed(init_seed)
+    params = model.init_params(gen, device=device, dtype=torch.bfloat16)
+    engine = deepspeed_tpu_torch.initialize(model=model, model_parameters=params,
+                                            config=config, training_data=data,
+                                            device=device)[0]
+    del params
+    engine.set_dataloader(DeepSpeedDataLoader(
+        data, batch_size=config["train_micro_batch_size_per_gpu"], shuffle=True, seed=seed))
+    return engine
+
+
+def tag_bytes(tag_dir):
+    return sum(os.path.getsize(os.path.join(tag_dir, f)) for f in os.listdir(tag_dir))
+
+
+def state_bytes(engine):
+    """Bytes of the engine's checkpointed state: every leaf of its state
+    tree, each stored once (a tag adds its meta, manifest and npz headers)."""
+    from deepspeed_tpu_torch.runtime.checkpoint_engine.engine import _flatten_tree, _state_tree
+    import math
+    return sum(math.prod(leaf.shape) * leaf.dtype.itemsize
+               for leaf in _flatten_tree(_state_tree(engine)).values())
+
+
+def state_fingerprint(engine):
+    """Every leaf of the engine's training state as the int64 sum of its
+    elements' bits (one number a tensor), the counters and scaler as
+    numbers, and the dropout stream's state: equal before and after a load
+    that must not touch the engine."""
+    import torch
+    from deepspeed_tpu_torch.runtime.checkpoint_engine.engine import _flatten_tree, _state_tree
+    bits = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    out = {}
+    for k, leaf in _flatten_tree(_state_tree(engine)).items():
+        if hasattr(leaf, "tensors"):
+            out[k] = [int(t.detach().view(bits[t.element_size()]).sum(dtype=torch.int64))
+                      for t in leaf.tensors]
+        else:
+            out[k] = leaf.snapshot().item()
+    out["rng"] = engine._rng.get_state().tolist()
+    return out
+
+
+def loss_gap(got, want):
+    """The largest |got - want| / |want| over the steps."""
+    return max(abs(g - w) / abs(w) for g, w in zip(got, want))
+
+
+def phase_resume(state, seed):
+    """Train, save, get killed, resume: run U takes RESUME_STEPS train_batch
+    calls from the engine's own dataloader; run R takes half, saves a tag
+    (async, so the snapshot and the persist time apart) and frees the
+    engine, and a new engine from another init seed auto_resumes and takes
+    the rest. The losses must be finite (every batch is new data: six steps
+    need not lower them); the resumed losses and masters must be bit-equal
+    to U's (the limit is 0); a resume without the optimizer states and a load without
+    the data fast-forward must read above it; a flipped byte in state.npz
+    must make an explicit load raise and leave the engine untouched."""
+    import numpy as np
+    import torch
+    from deepspeed_tpu_torch.accelerator import get_accelerator
+    from deepspeed_tpu_torch.runtime.checkpoint_engine.safe_engine import (
+        STATE_FILE, CheckpointCorruptError)
+    from deepspeed_tpu_torch.utils import fault_injection as fi
+
+    acc = get_accelerator("cuda")
+    config = RESUME_CONFIG
+    half = RESUME_STEPS // 2
+    data = resume_dataset(32000, seed)
+    no_verify = {**config, "checkpoint": {"verify_on_load": False}}
+    shutil.rmtree(RESUME_DIR, ignore_errors=True)
+    acc.reset_peak_memory_stats()
+    _reset_train_counters()
+    out = {}
+    try:
+        # ---- run U: uninterrupted ----
+        engine = resume_engine(data, seed, seed + 100)
+        want = train_launch_rule(engine)
+        need = state_bytes(engine)
+        free = shutil.disk_usage(os.path.dirname(RESUME_DIR)).free
+        check(free > 1.05 * need, f"the disk holds {free / 1e9:.1f} GB free, a tag needs "
+              f"{need / 1e9:.1f} GB: resume cannot save its tag here")
+        losses_u, step_s, per_step = _timed_steps(engine, None, RESUME_STEPS)
+        masters_u = {n: m.cpu() for n, m in engine.state.master.items()}
+        del engine
+        torch.cuda.empty_cache()
+
+        # ---- run R: 3 steps, save, free; a new engine resumes ----
+        engine = resume_engine(data, seed, seed + 100)
+        losses_r, _, steps_r = _timed_steps(engine, None, half)
+        per_step += steps_r
+        t0 = time.perf_counter()
+        engine.save_checkpoint(RESUME_DIR, asynchronous=True)
+        snapshot_s = time.perf_counter() - t0
+        engine.flush_checkpoints()
+        save_s = time.perf_counter() - t0
+        engine.destroy()
+        del engine
+        torch.cuda.empty_cache()
+        tag = f"global_step{half}"
+        nbytes = tag_bytes(os.path.join(RESUME_DIR, tag))
+
+        engine = resume_engine(data, seed, seed + 200)
+        t0 = time.perf_counter()
+        path, _ = engine.auto_resume(RESUME_DIR)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        check(path is not None and path.endswith(tag), f"auto_resume found {path}")
+        check(engine.global_steps == half, f"resumed at step {engine.global_steps}")
+        more, _, steps_r = _timed_steps(engine, None, RESUME_STEPS - half)
+        per_step += steps_r
+        losses_r += more
+        launches = _train_counters()
+        mismatched = [n for n, m in engine.state.master.items()
+                      if not torch.equal(m.cpu(), masters_u[n])]
+        del engine, masters_u
+        torch.cuda.empty_cache()
+        # every batch is new data, so six steps need not lower the loss
+        check(all(np.isfinite(losses_u)), f"run U's losses are not finite: {losses_u}")
+        check(losses_r[half:] == losses_u[half:],
+              f"resumed losses {losses_r[half:]} != uninterrupted {losses_u[half:]}")
+        check(not mismatched, f"masters after step {RESUME_STEPS} differ: {mismatched}")
+        for k, n in want.items():
+            check(all(s[k] == n for s in per_step), f"resume: {k} per step {per_step} != {n}")
+        state["resume_launches"] = {k: launches[k] for k in want}
+
+        # ---- planted faults, each against the limit 0 ----
+        faults = {}
+        for name, kw in (("no_optimizer_states", {"load_optimizer_states": False,
+                                                  "load_data_progress": True}),
+                         ("no_fast_forward", {})):
+            engine = resume_engine(data, seed, seed + 300, config=no_verify)
+            t0 = time.perf_counter()
+            engine.load_checkpoint(RESUME_DIR, **kw)
+            torch.cuda.synchronize()
+            unverified_load_s = time.perf_counter() - t0
+            got = [float(engine.train_batch()) for _ in range(RESUME_STEPS - half)]
+            faults[name] = loss_gap(got, losses_u[half:])
+            check(faults[name] > 0.0, f"planted fault {name} reads {faults[name]}")
+            if name == "no_fast_forward":
+                # the corrupt tag's load, with the manifest verified as by default
+                engine._config.checkpoint_config.verify_on_load = True
+                before = state_fingerprint(engine)
+                fi.bit_flip(os.path.join(RESUME_DIR, tag, STATE_FILE))
+                t0 = time.perf_counter()
+                try:
+                    engine.load_checkpoint(RESUME_DIR, tag=tag)
+                    raised = False
+                except CheckpointCorruptError:
+                    raised = True
+                verify_s = time.perf_counter() - t0     # the hash of every byte, then the raise
+                check(raised, "a load of the tag with a flipped byte did not raise")
+                check(state_fingerprint(engine) == before,
+                      "the failed load of the corrupt tag touched the engine's state")
+            del engine
+            torch.cuda.empty_cache()
+        out = dict(losses_uninterrupted=losses_u, losses_resumed=losses_r, step_s=step_s,
+                   resumed_equal=True, fault_loss_gap=faults, limit=0.0,
+                   corrupt_load="raised CheckpointCorruptError, state untouched",
+                   tag_bytes=nbytes, state_bytes=need, snapshot_ms=snapshot_s * 1e3,
+                   save_s=save_s, save_gb_per_s=nbytes / save_s / 1e9,
+                   load_s=load_s, load_gb_per_s=nbytes / load_s / 1e9,
+                   unverified_load_s=unverified_load_s, verify_s=verify_s,
+                   disk_free_gb=free / 1e9, peak_mem_gb=acc.max_memory_allocated() / 1e9,
+                   launches=state["resume_launches"], launches_per_step=want)
+    finally:
+        shutil.rmtree(RESUME_DIR, ignore_errors=True)
+    emit("resume", model="llama-2-7b width", layers=RESUME_LAYERS, seq=TRAIN_SEQ,
+         dtype="bf16", config=config, samples=RESUME_SAMPLES, steps=RESUME_STEPS,
+         card=state.get("card"), **out)
+
+
 def phase_train_profile(state, seed):
     """Where one warm train step's time goes (not in the default run): a
     warm-up step, a step timed with the host clock, and a step under
@@ -3175,6 +3402,7 @@ def phase_kernels(state):
     train = state.get("train_launches", {})
     train_lamb = state.get("train_lamb_launches", {})
     train_sparse = state.get("train_sparse_launches", {})
+    resume = state.get("resume_launches", {})
     rows = []
     meta = {
         "flash_attention_fwd": (
@@ -3242,7 +3470,8 @@ def phase_kernels(state):
         by_path = {p: n[name] for p, n in (("serve", serve), ("spec_serve", spec),
                                            ("generate", gen), ("train", train),
                                            ("train_lamb", train_lamb),
-                                           ("train_sparse", train_sparse)) if name in n}
+                                           ("train_sparse", train_sparse),
+                                           ("resume", resume)) if name in n}
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                      "launches": sum(by_path.values()) if by_path else None,
                      "launches_by_path": by_path, "max_abs_err": r.get("max_abs_err"),

@@ -10,21 +10,58 @@ same surface on an NVIDIA H100 with hand-written Hopper kernels. It imports
     engine = deepspeed_tpu_torch.init_inference(llama("7b"), dtype="bf16")
     outputs = engine.generate_batch(prompts, max_new_tokens=32)
 
-    engine, optimizer, _, lr_scheduler = deepspeed_tpu_torch.initialize(
-        model=llama("7b", n_layer=8), config=ds_config)
-    loss = engine.train_batch({"input_ids": tokens})
+    engine, optimizer, loader, lr_scheduler = deepspeed_tpu_torch.initialize(
+        model=llama("7b", n_layer=8), config=ds_config, training_data=dataset)
+    loss = engine.train_batch()              # from the engine's dataloader
+    engine.save_checkpoint("ckpt")           # the JAX package's crash-safe tags
+    engine.auto_resume("ckpt")               # in a new process: exact resume
+
+The exports below load lazily, so ``import deepspeed_tpu_torch`` builds no
+kernel and imports no model code.
 """
+
+__version__ = "0.1.0"
+
+_LAZY_EXPORTS = {
+    "DeepSpeedEngine": ("deepspeed_tpu_torch.runtime.engine", "DeepSpeedEngine"),
+    "InferenceEngine": ("deepspeed_tpu_torch.inference.engine", "InferenceEngine"),
+    "DeepSpeedInferenceConfig": ("deepspeed_tpu_torch.inference.config",
+                                 "DeepSpeedInferenceConfig"),
+    "DeepSpeedConfig": ("deepspeed_tpu_torch.config.core", "DeepSpeedConfig"),
+    "DeepSpeedConfigError": ("deepspeed_tpu_torch.config.core", "DeepSpeedConfigError"),
+    "DeepSpeedTransformerLayer": ("deepspeed_tpu_torch.ops.transformer.training_kernels",
+                                  "DeepSpeedTransformerLayer"),
+    "DeepSpeedTransformerConfig": ("deepspeed_tpu_torch.ops.transformer.training_kernels",
+                                   "DeepSpeedTransformerConfig"),
+    "log_dist": ("deepspeed_tpu_torch.utils.logging", "log_dist"),
+    "add_tuning_arguments": ("deepspeed_tpu_torch.runtime.lr_schedules",
+                             "add_tuning_arguments"),
+}
+
+
+def __getattr__(name):
+    entry = _LAZY_EXPORTS.get(name)
+    if entry is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    import importlib
+    obj = getattr(importlib.import_module(entry[0]), entry[1])
+    globals()[name] = obj
+    return obj
+
+
+def __dir__():
+    return sorted(list(globals()) + list(_LAZY_EXPORTS))
 
 
 def initialize(args=None, model=None, optimizer=None, model_parameters=None,
                training_data=None, lr_scheduler=None, mpu=None, dist_init_required=None,
                collate_fn=None, config=None, config_params=None, device=None):
     """Build the training engine (counterpart of
-    ``deepspeed_tpu.initialize``). Returns ``(engine, optimizer, None,
-    lr_scheduler)``: the engine's dataloader is not ported, so
-    ``training_data`` raises. ``device`` defaults to ``cuda:0`` and raises
-    without a CUDA device; ``device="cpu"`` runs the kernels' plain
-    versions (the CPU tests)."""
+    ``deepspeed_tpu.initialize``). Returns ``(engine, optimizer,
+    training_dataloader, lr_scheduler)``; the dataloader batches
+    ``training_data`` (None without it). ``device`` defaults to ``cuda:0``
+    and raises without a CUDA device; ``device="cpu"`` runs the kernels'
+    plain versions (the CPU tests)."""
     from deepspeed_tpu_torch.runtime.engine import DeepSpeedEngine
 
     if config is None:
@@ -39,8 +76,9 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
                                   "runtime/zero/ multi-rank)")
     engine = DeepSpeedEngine(model=model, config=config, model_parameters=model_parameters,
                              optimizer=optimizer, lr_scheduler=lr_scheduler,
-                             training_data=training_data, device=device)
-    return engine, engine.optimizer, None, engine.lr_scheduler
+                             training_data=training_data, collate_fn=collate_fn,
+                             device=device)
+    return engine, engine.optimizer, engine.training_dataloader, engine.lr_scheduler
 
 
 def init_inference(model, config=None, params=None, device=None, **kwargs):
@@ -60,3 +98,17 @@ def init_inference(model, config=None, params=None, device=None, **kwargs):
             params = cfg_params
     return InferenceEngine(model, config=DeepSpeedInferenceConfig(**config),
                            params=params, device=device)
+
+
+def add_config_arguments(parser):
+    """Add --deepspeed / --deepspeed_config CLI args."""
+    group = parser.add_argument_group("DeepSpeed-TPU", "DeepSpeed-TPU configurations")
+    group.add_argument("--deepspeed", default=False, action="store_true",
+                       help="Enable DeepSpeed-TPU (helper flag to ease transition)")
+    group.add_argument("--deepspeed_config", default=None, type=str,
+                       help="Path to the framework json config file")
+    group.add_argument("--deepscale", default=False, action="store_true",
+                       help="Deprecated alias of --deepspeed")
+    group.add_argument("--deepscale_config", default=None, type=str,
+                       help="Deprecated alias of --deepspeed_config")
+    return parser

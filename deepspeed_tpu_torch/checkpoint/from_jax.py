@@ -12,7 +12,10 @@ step count (optax ``ScaleByAdamState`` or the fused ``FusedAdamState``) into
 the port's :class:`~deepspeed_tpu_torch.runtime.optimizers.AdamState`, and
 :func:`opt_state_from_jax` the state of any engine-built optimizer (the
 LAMB moments, SGD's trace, Lion's momentum, Adagrad's sum of squares), so a
-run started in one package resumes in the other."""
+run started in one package resumes in the other. :func:`opt_state_to_jax`
+goes back: the JAX engine's flattened optimizer state, keyed by
+``keystr`` path in its flatten order (``jax.tree.unflatten`` of the JAX
+engine's treedef over ``list(values())`` rebuilds its state)."""
 
 from __future__ import annotations
 
@@ -24,7 +27,8 @@ import torch
 from deepspeed_tpu_torch.models.transformer import ParamTree, TransformerConfig, map_tree
 from deepspeed_tpu_torch.config import core as config_core
 from deepspeed_tpu_torch.runtime.optimizers import (AdagradState, AdamState, LionState,
-                                                    SGDState)
+                                                    SGDState, jax_state_layout)
+from deepspeed_tpu_torch.runtime.utils import jax_leaves, keystr
 
 
 def _tensor(a, dtype):
@@ -133,3 +137,23 @@ def opt_state_from_jax(cfg: TransformerConfig, name: str, opt_state):
             raise ValueError("no ScaleByLionState (mu, count) in this optimizer state")
         return LionState(count=int(np.asarray(node.count)), mu=_named(cfg, node.mu))
     return adam_state_from_jax(cfg, opt_state)
+
+
+def opt_state_to_jax(name: str, opt_state, params=None) -> Dict[str, np.ndarray]:
+    """The JAX engine's flattened optimizer state for config
+    ``optimizer.type`` ``name`` (and ``optimizer.params`` ``params``) from
+    the port's state: ``{keystr path: numpy leaf}`` in the JAX flatten
+    order, the per-layer moments stacked into ``[n_layer, ...]`` fp32
+    leaves, ``count`` a 0-d int32."""
+    prefix, fields = jax_state_layout(name, params)
+    out: Dict[str, np.ndarray] = {}
+    for field in fields:
+        if field == "count":
+            out[prefix + ".count"] = np.asarray(opt_state.count, np.int32)
+            continue
+        named = getattr(opt_state, field)
+        for path, names in jax_leaves(named).items():
+            host = [named[n].detach().to("cpu", torch.float32).numpy() for n in names]
+            out[prefix + "." + field + keystr(path)] = (np.stack(host) if path[0] == "layers"
+                                                       else host[0])
+    return out

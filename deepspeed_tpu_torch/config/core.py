@@ -7,8 +7,9 @@ resolved and validated as the JAX package does (reference
 ``runtime/config.py:853-907``); the optimizer and scheduler names and
 params; ``gradient_clipping``; fp16 / bf16 / amp; the gradient accumulation
 dtype; ``fused_cross_entropy``; ``quantize_training`` (MoQ, read as the
-JAX package reads it: on only with ``enabled: true``); ``steps_per_print``
-and ``wall_clock_breakdown``.
+JAX package reads it: on only with ``enabled: true``); the ``checkpoint``
+section (:class:`CheckpointConfig`, the crash-safe engine's knobs) and
+``dataloader_drop_last``; ``steps_per_print`` and ``wall_clock_breakdown``.
 
 The world size is 1. ``zero_optimization.stage`` 0-3 is accepted: on one
 device every ZeRO stage replicates everything, as the JAX sharding rules do
@@ -21,6 +22,7 @@ other key raises, so a misspelt option is never silently dropped.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import os
 from typing import Any, Dict, Optional, Union
@@ -32,6 +34,36 @@ from deepspeed_tpu_torch.utils.not_ported import not_ported
 
 class DeepSpeedConfigError(Exception):
     pass
+
+
+@dataclasses.dataclass
+class CheckpointConfig:
+    """The ``"checkpoint"`` section's fault-tolerance knobs (the JAX
+    package's ``CheckpointConfig``, same names and defaults)."""
+    # storage engine: "safe" = the crash-safe two-phase npz + manifest
+    # format; "orbax" (multi-host sharded writes) is refused by name
+    engine: str = "safe"
+    # two-phase async save: snapshot on the training thread, persist on the
+    # background writer. Off by default so save_checkpoint() returning
+    # means "durably on disk" unless opted in.
+    async_save: bool = False
+    # bounded writer queue: snapshots held in host memory at once
+    max_pending: int = 2
+    # retention: keep this many newest tags (0 = keep all). The newest
+    # VERIFIED tag and the `latest` target are never GC'd.
+    keep_last: int = 0
+    # transient I/O error retry budget (exponential backoff)
+    retries: int = 3
+    retry_backoff_s: float = 0.5
+    # verify the blake2b manifest before any load touches engine state
+    verify_on_load: bool = True
+    # SIGTERM/SIGINT grace handling: drain the writer, emergency-save to
+    # save_dir, exit 128+signum. Requires save_dir.
+    preemption_save: bool = False
+    save_dir: Optional[str] = None
+
+
+_TAG_VALIDATION_MODES = ("Warn", "Ignore", "Fail")
 
 
 ADAGRAD_OPTIMIZER = "adagrad"
@@ -55,14 +87,15 @@ _READ = {
     C.TRAIN_BATCH_SIZE, C.TRAIN_MICRO_BATCH_SIZE_PER_GPU, C.GRADIENT_ACCUMULATION_STEPS,
     C.STEPS_PER_PRINT, C.WALL_CLOCK_BREAKDOWN, C.OPTIMIZER, C.SCHEDULER, C.GRADIENT_CLIPPING,
     C.FP16, C.BFLOAT16, C.BFLOAT16_OLD, C.AMP, C.DATA_TYPES, C.ZERO_OPTIMIZATION,
-    C.FUSED_CROSS_ENTROPY, C.SPARSE_ATTENTION, "mesh", "quantize_training",
+    C.FUSED_CROSS_ENTROPY, C.SPARSE_ATTENTION, "mesh", "quantize_training", "checkpoint",
+    "dataloader_drop_last",
 }
 # keys the JAX package reads whose effect is on multi-device runs or on
 # engine features outside training itself; on one device they change nothing
 _NO_EFFECT_ON_ONE_DEVICE = {
     "dump_state", "disable_allgather", "communication_data_type", "prescale_gradients",
     "gradient_predivide_factor", "sparse_gradients", "memory_breakdown",
-    "zero_allow_untested_optimizer", "dataloader_drop_last",
+    "zero_allow_untested_optimizer",
 }
 # sections that are not ported: key -> (what, ROADMAP.md item)
 _NOT_PORTED = {
@@ -75,8 +108,7 @@ _NOT_PORTED = {
     "comet": ("the comet monitor", "telemetry and control plane"),
     "comms_logger": ("the comms logger", "telemetry and control plane"),
     "flops_profiler": ("the flops profiler", "profiling/"),
-    "checkpoint": ("checkpoint save/load", "checkpoint ingestion"),
-    "nebula": ("nebula checkpointing", "checkpoint ingestion"),
+    "nebula": ("nebula checkpointing", "checkpoint ingestion (orbax)"),
     "elasticity": ("elastic training", "elasticity/"),
     "autotuning": ("autotuning", "autotuning/"),
     "activation_checkpointing": ("the activation_checkpointing section",
@@ -134,6 +166,13 @@ def _refuse_outside_slice(param_dict: Dict) -> None:
     if qt.get("enabled", False) and (qt.get("eigenvalue") or {}).get("enabled", False):
         not_ported("the MoQ eigenvalue schedule (quantize_training.eigenvalue)",
                    "queue 1: compression (MoQ eigenvalue, runtime/eigenvalue.py)")
+    ckpt = param_dict.get("checkpoint") or {}
+    if str(ckpt.get("engine", "safe")).lower() == "orbax":
+        not_ported("the orbax checkpoint engine (checkpoint.engine='orbax')",
+                   "queue 1: checkpoint ingestion (orbax)")
+    if ckpt.get("load_universal", False):
+        not_ported("universal checkpoints (checkpoint.load_universal)",
+                   "queue 1: checkpoint ingestion (checkpoint/ tools)")
     if param_dict.get(C.WALL_CLOCK_BREAKDOWN, False):
         not_ported("wall_clock_breakdown timers", "queue 1: telemetry and control plane")
 
@@ -219,12 +258,40 @@ class DeepSpeedConfig:
         # model's sparsity config (ops/sparse_attention) decides, nothing reads it
         self.sparse_attention = param_dict.get(C.SPARSE_ATTENTION, None)
 
+        self._initialize_checkpoint_params(param_dict)
+        self.dataloader_drop_last = bool(param_dict.get("dataloader_drop_last", False))
+
         self.fused_cross_entropy = param_dict.get(C.FUSED_CROSS_ENTROPY,
                                                   C.FUSED_CROSS_ENTROPY_DEFAULT)
         if self.fused_cross_entropy not in (None, "auto", "on", "off"):
             raise DeepSpeedConfigError(
                 f"fused_cross_entropy={self.fused_cross_entropy!r} "
                 "(expected 'auto', 'on' or 'off')")
+
+    def _initialize_checkpoint_params(self, param_dict: Dict) -> None:
+        """The ``checkpoint`` section, read as the JAX package reads it."""
+        ckpt = dict(param_dict.get("checkpoint") or {})
+        # the reference's keys beside the knobs: tags are validated across
+        # processes and node-local storage spreads them (no effect on one
+        # device); load_universal is refused above
+        mode = str(ckpt.pop("tag_validation", "Warn")).title()
+        if mode not in _TAG_VALIDATION_MODES:
+            raise DeepSpeedConfigError(
+                f"Checkpoint config contains invalid tag_validation value: {mode}")
+        ckpt.pop("use_node_local_storage", None)
+        ckpt.pop("load_universal", None)
+        known = {f.name for f in dataclasses.fields(CheckpointConfig)}
+        unknown = sorted(set(ckpt) - known)
+        if unknown:
+            raise DeepSpeedConfigError(f"unknown checkpoint config keys {unknown}")
+        self.checkpoint_config = CheckpointConfig(**ckpt)
+        if self.checkpoint_config.engine != "safe":
+            raise DeepSpeedConfigError(
+                f"checkpoint.engine={self.checkpoint_config.engine!r} "
+                "(expected 'safe' or 'orbax')")
+        if self.checkpoint_config.preemption_save and not self.checkpoint_config.save_dir:
+            raise DeepSpeedConfigError(
+                "checkpoint.preemption_save requires checkpoint.save_dir")
 
     # ------------------------------------------------------------------ #
     # Batch triad (reference runtime/config.py:853-907)

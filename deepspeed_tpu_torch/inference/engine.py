@@ -95,7 +95,7 @@ class InferenceEngine:
         if c.telemetry_enabled():
             not_ported("serving telemetry", "queue 1: telemetry and control plane")
         if c.checkpoint is not None or isinstance(model, str):
-            not_ported("checkpoint loading", "queue 1: checkpoint ingestion")
+            not_ported("checkpoint loading", "queue 1: checkpoint ingestion (module_inject/)")
         if srv.kv_host.enabled:
             not_ported("the tiered KV cache (serving.kv_host)", "queue 1: tiered KV cache")
 

@@ -18,14 +18,22 @@ JAX engine's ``_quantize_step`` does. With ``gas == 1`` the micro-step's gradien
 in the compute dtype, with no buffers, as the JAX engine's fused path does.
 The ``forward`` / ``backward`` / ``step`` trio gives the same result.
 
+``train_batch()`` without a batch draws ``gas`` micro-batches from a standing
+stream: a ``set_dataiterator`` iterator, or the engine's own dataloader
+(``training_data``, ``set_dataloader``; ``runtime/dataloader.py``) rolling
+over epochs. ``save_checkpoint`` / ``load_checkpoint`` / ``auto_resume``
+write and read the JAX package's crash-safe tags
+(``runtime/checkpoint_engine/``), and a resume fast-forwards the data stream
+to the recorded progress.
+
 Where the JAX engine compiles the whole batch into one program over
 immutable arrays, the port runs eagerly and updates in place: gradients
 live in ``param.grad`` only until they are accumulated, and the update runs
 leaf by leaf, so one unscaled fp32 gradient is alive at a time. The state is the JAX
 ``TrainState``'s fields as attributes of :class:`TrainState`.
 
-Settings outside this slice (a client optimizer, the dataloader, offload,
-the 1-bit optimizers, pipeline and multi-device runs, ...) raise
+Settings outside this slice (a client optimizer, offload, the 1-bit
+optimizers, pipeline and multi-device runs, ...) raise
 ``NotImplementedError`` naming their ROADMAP.md item.
 """
 
@@ -36,6 +44,7 @@ import inspect
 import os
 from typing import Any, Callable, Dict, Optional
 
+import numpy as np
 import torch
 
 from deepspeed_tpu_torch.accelerator.real_accelerator import resolve_device
@@ -45,10 +54,10 @@ from deepspeed_tpu_torch.runtime import lr_schedules
 from deepspeed_tpu_torch.runtime.loss_scaler import (LossScaleState, has_overflow,
                                                      make_loss_scale_state)
 from deepspeed_tpu_torch.runtime.loss_scaler import update as scaler_update
-from deepspeed_tpu_torch.runtime.optimizers import build_optimizer
+from deepspeed_tpu_torch.runtime.optimizers import build_optimizer, optimizer_momenta
 from deepspeed_tpu_torch.runtime.quantize import quantizer_from_config
 from deepspeed_tpu_torch.runtime.utils import clip_grad_norm_, global_norm, jax_leaves
-from deepspeed_tpu_torch.utils.logging import log_dist
+from deepspeed_tpu_torch.utils.logging import log_dist, logger
 from deepspeed_tpu_torch.utils.not_ported import not_ported
 
 _DTYPES = {None: torch.float32, "fp32": torch.float32, "fp16": torch.float16,
@@ -87,12 +96,10 @@ def _loss_fn_of(model) -> Callable:
 class DeepSpeedEngine:
 
     def __init__(self, model, config: Optional[Any] = None, model_parameters=None,
-                 optimizer=None, lr_scheduler=None, training_data=None, device=None):
+                 optimizer=None, lr_scheduler=None, training_data=None, collate_fn=None,
+                 device=None):
         if optimizer is not None:
             not_ported("a client optimizer", "queue 1: training step (client optimizers)")
-        if training_data is not None:
-            not_ported("training_data (the engine's dataloader)",
-                       "queue 1: training step (dataloader)")
         self.client_model = model
         self.loss_fn = _loss_fn_of(model)
         self._config = DeepSpeedConfig(config if config is not None else {})
@@ -148,6 +155,28 @@ class DeepSpeedEngine:
         else:
             self._lr_fn = lambda step: base_lr
 
+        # ---- fault tolerance: data-pipeline progress (recorded in every
+        # checkpoint's meta.json so auto_resume can fast-forward the data
+        # pipeline), the async checkpoint writer, the preemption handler ----
+        self._data_progress = {"consumed_samples": 0, "iterations": 0}
+        # True only for a user-provided set_dataiterator stream: resume
+        # fast-forwards it in place; loader-derived iterators are instead
+        # re-created by the epoch-aware resume_loader_iterator path
+        self._data_iter_external = False
+        self._data_iterator = None
+        self._batch_fn = None
+        self._ckpt_writer = None
+        self._preemption = None
+        self._training_mode = True
+
+        # ---- dataloader ----
+        self.training_dataloader = None
+        if training_data is not None:
+            from deepspeed_tpu_torch.runtime.dataloader import DeepSpeedDataLoader
+            self.training_dataloader = DeepSpeedDataLoader(
+                training_data, batch_size=self.train_micro_batch_size_per_gpu(),
+                collate_fn=collate_fn, drop_last=self._config.dataloader_drop_last)
+
         # ---- state ----
         if model_parameters is None:
             if not hasattr(model, "init_params"):
@@ -157,11 +186,15 @@ class DeepSpeedEngine:
             model_parameters = model.init_params(gen, device=self.device)
         self.state = self._init_state(model_parameters)
         # dropout stream, seeded from DS_SEED as the JAX engine's key is
-        self._rng = torch.Generator().manual_seed(int(os.environ.get("DS_SEED", 42)))
+        self._rng_seed = int(os.environ.get("DS_SEED", 42))
+        self._rng = torch.Generator().manual_seed(self._rng_seed)
         self._cached_loss = None
         self._losses = None
         self._global_grad_norm = None
         self._skipped_before_step = None
+        ccfg = self._config.checkpoint_config
+        if ccfg.preemption_save:
+            self.enable_preemption_handler(ccfg.save_dir)
         log_dist(f"DeepSpeedEngine ready: optimizer={self._optimizer_name}, "
                  f"dtype={self.compute_dtype}, device={self.device}, "
                  f"micro_bs={self.train_micro_batch_size_per_gpu()} x "
@@ -341,21 +374,30 @@ class DeepSpeedEngine:
 
     def train_batch(self, batch=None, data_iter=None):
         """Run one full training batch (gas micro-steps + update). ``batch``
-        is a dict whose leaves have leading dim ``gas * micro_bs``; returns
-        the mean loss (a 0-dim tensor on the device)."""
-        if data_iter is not None or batch is None:
-            not_ported("train_batch without a batch (data_iter / the engine's dataloader)",
-                       "queue 1: training step (dataloader)")
+        is a dict whose leaves have leading dim ``gas * micro_bs``; without
+        one, ``gas`` micro-batches come from ``data_iter``, the
+        ``set_dataiterator`` stream, or the engine's dataloader. Returns the
+        mean loss (a 0-dim tensor on the device)."""
         gas = self.gradient_accumulation_steps()
         micro_bs = self.train_micro_batch_size_per_gpu()
         expected = gas * micro_bs
-        lead = next(iter(batch.values())).shape[0]
-        if lead != expected:
-            raise ValueError(
-                f"train_batch leading dim {lead} != gas({gas}) * micro_bs({micro_bs}) * dp(1) "
-                f"= {expected}")
-        batch = {k: x.reshape((gas, -1) + tuple(x.shape[1:]))
-                 for k, x in self._batch_to_device(batch).items()}
+        if batch is not None and self._batch_fn is not None:
+            # the batch_fn normalizes the raw batch before any shape check
+            batch = self._batch_fn(batch)
+        if batch is not None:
+            lead = next(iter(batch.values())).shape[0]
+            if lead != expected:
+                raise ValueError(
+                    f"train_batch leading dim {lead} != gas({gas}) * micro_bs({micro_bs}) "
+                    f"* dp(1) = {expected}")
+            batch = {k: x.reshape((gas, -1) + tuple(x.shape[1:]))
+                     for k, x in self._batch_to_device(batch).items()}
+        else:
+            micros = [next(self._standing_iterator(data_iter)) for _ in range(gas)]
+            if self._batch_fn is not None:
+                micros = [self._batch_fn(m) for m in micros]
+            micros = [self._batch_to_device(m) for m in micros]
+            batch = {k: torch.stack([m[k] for m in micros]) for k in micros[0]}
         self._skipped_before_step = self.state.skipped_steps
         if gas == 1:
             loss = self._micro_grads({k: x[0] for k, x in batch.items()})
@@ -378,9 +420,26 @@ class DeepSpeedEngine:
             loss = torch.stack(losses).mean()
         if self.quantizer is not None:
             self._quantize_step()
+        self._data_progress["iterations"] += 1
+        self._data_progress["consumed_samples"] += self.train_batch_size()
         self._losses = loss
         self._report_progress(loss)
         return loss
+
+    def _standing_iterator(self, data_iter=None):
+        """The micro-batch stream of a batchless ``train_batch``: ``data_iter``,
+        else the ``set_dataiterator`` stream, else a standing stream over
+        the engine's dataloader that rolls over epochs (the stream
+        ``auto_resume``'s fast-forward rebuilds, so a resume is exact)."""
+        if data_iter is not None:
+            return data_iter
+        if self._data_iterator is None:
+            if self.training_dataloader is None:
+                raise ValueError("train_batch needs a batch, a data_iter, or engine training_data")
+            from deepspeed_tpu_torch.runtime.dataloader import RepeatingLoader
+            self._data_iterator = iter(RepeatingLoader(self.training_dataloader))
+            self._data_iter_external = False
+        return self._data_iterator
 
     def _quantize_step(self) -> None:
         """MoQ after the update (the JAX engine's ``_quantize_step``, run by
@@ -446,6 +505,260 @@ class DeepSpeedEngine:
                      f"lr={self.get_lr()}, loss={float(loss)}", ranks=[0])
 
     # ------------------------------------------------------------------ #
+    # the data pipeline
+
+    def set_dataloader(self, loader) -> None:
+        """Replace the training dataloader and start a standing iterator
+        over it (successive batchless train_batch calls consume successive
+        micro-batches)."""
+        self.training_dataloader = loader
+        self._data_iterator = iter(loader) if loader is not None else None
+        self._data_iter_external = False
+        # progress describes the data pipeline; a new pipeline starts at 0
+        self._data_progress = {"consumed_samples": 0, "iterations": 0}
+
+    def set_dataiterator(self, iterator) -> None:
+        """A standing iterator yielding micro-batches for batchless
+        train_batch calls."""
+        self._data_iterator = iterator
+        self._data_iter_external = iterator is not None
+        self._data_progress = {"consumed_samples": 0, "iterations": 0}
+
+    def set_batch_fn(self, fn) -> None:
+        """Post-process every batch (or micro-batch from an iterator)
+        before the step."""
+        self._batch_fn = fn
+
+    def _fast_forward_data(self, iterations: int) -> None:
+        """Advance the data pipeline past ``iterations`` consumed
+        train_batch calls (``iterations * gas`` micro-batches), so a resume
+        neither replays nor skips batches: a ``set_dataiterator`` stream is
+        advanced in place (create it fresh before ``auto_resume``); the
+        engine's dataloader gets a standing stream at that position, its
+        epoch seed replayed by counter."""
+        micro = int(iterations) * self.gradient_accumulation_steps()
+        if micro <= 0:
+            return
+        it = self._data_iterator
+        if it is not None and (self._data_iter_external or self.training_dataloader is None):
+            for _ in range(micro):
+                next(it)
+            log_dist(f"auto_resume: fast-forwarded data iterator by {micro} micro-batches",
+                     ranks=[0])
+            return
+        if self.training_dataloader is None:
+            logger.warning(
+                f"auto_resume: {micro} micro-batches of recorded progress but no "
+                f"engine-owned data pipeline to fast-forward; pass a freshly-created "
+                f"iterator via set_dataiterator BEFORE auto_resume, or expect replayed batches")
+            return
+        from deepspeed_tpu_torch.runtime.dataloader import resume_loader_iterator
+        self._data_iterator = resume_loader_iterator(self.training_dataloader, micro)
+        self._data_iter_external = False
+        log_dist(f"auto_resume: dataloader fast-forwarded by {micro} micro-batches", ranks=[0])
+
+    # ------------------------------------------------------------------ #
+    # checkpoints (the JAX package's crash-safe format)
+
+    def save_checkpoint(self, save_dir, tag=None, client_state=None, save_latest=True,
+                        asynchronous=None):
+        """Two-phase crash-safe save. The device -> host snapshot is done
+        when this returns; ``asynchronous`` (default the config's
+        ``checkpoint.async_save``) leaves the persist to the background
+        writer, otherwise the tag is durably on disk on return."""
+        from deepspeed_tpu_torch.runtime.checkpoint_engine.engine import save_engine_checkpoint
+        return save_engine_checkpoint(self, save_dir, tag=tag, client_state=client_state,
+                                      save_latest=save_latest, asynchronous=asynchronous)
+
+    def load_checkpoint(self, load_dir, tag=None, load_optimizer_states=True,
+                        load_lr_scheduler_states=True, load_module_only=False, strict=False,
+                        load_data_progress=False):
+        """Load a tag (default: the newest intact one under ``load_dir``),
+        all or nothing. Returns ``(path, client_state)``, ``(None, {})``
+        when there is nothing to load (unless ``strict``)."""
+        from deepspeed_tpu_torch.runtime.checkpoint_engine.engine import load_engine_checkpoint
+        return load_engine_checkpoint(self, load_dir, tag=tag,
+                                      load_optimizer_states=load_optimizer_states,
+                                      load_module_only=load_module_only, strict=strict,
+                                      load_data_progress=load_data_progress)
+
+    def auto_resume(self, save_dir, tag=None, strict=False):
+        """Restore params, masters, optimizer, loss scaler, RNG and counters
+        from the newest intact tag under ``save_dir`` (walking back past
+        corrupt or partial tags) and fast-forward the data pipeline to the
+        recorded progress, so the resumed losses equal an uninterrupted
+        run's. Returns ``(path, client_state)``; ``(None, {})`` when there
+        is nothing to resume (a fresh start) unless ``strict``."""
+        return self.load_checkpoint(save_dir, tag=tag, strict=strict, load_data_progress=True)
+
+    def flush_checkpoints(self, timeout=None):
+        """Block until every queued async checkpoint is durably committed.
+        Raises the writer's error if a queued save failed."""
+        if self._ckpt_writer is not None:
+            self._ckpt_writer.drain(timeout=timeout, raise_on_error=True)
+
+    def emergency_save(self, save_dir):
+        """Preemption-grace save: drain in-flight async saves (bounded, best
+        effort), then one synchronous verified save of the current state."""
+        if self._ckpt_writer is not None:
+            try:
+                self._ckpt_writer.drain(timeout=30)
+            except Exception as e:
+                logger.warning(f"emergency save: drain failed ({e}); "
+                               f"taking the synchronous save anyway")
+        # the flight recorder's event dump beside the tag comes with
+        # telemetry (ROADMAP.md queue 1 item 4)
+        return self.save_checkpoint(save_dir, asynchronous=False)
+
+    def enable_preemption_handler(self, save_dir, signals=None, exit_on_signal=True):
+        """Install the SIGTERM/SIGINT grace handler: on signal, drain the
+        checkpoint writer, emergency-save to ``save_dir``, exit
+        ``128+signum``."""
+        from deepspeed_tpu_torch.runtime.checkpoint_engine.safe_engine import PreemptionHandler
+        if self._preemption is not None:
+            self._preemption.uninstall()
+        kwargs = {} if signals is None else {"signals": tuple(signals)}
+        self._preemption = PreemptionHandler(
+            self, save_dir, exit_on_signal=exit_on_signal, **kwargs).install()
+        return self._preemption
+
+    def disable_preemption_handler(self):
+        if self._preemption is not None:
+            self._preemption.uninstall()
+            self._preemption = None
+
+    def _checkpoint_writer(self):
+        """The engine's async writer, made on first use."""
+        if self._ckpt_writer is None:
+            from deepspeed_tpu_torch.runtime.checkpoint_engine.engine import (
+                _checkpoint_cfg, _notify_ckpt_result)
+            from deepspeed_tpu_torch.runtime.checkpoint_engine.safe_engine import (
+                AsyncCheckpointWriter)
+            ccfg = _checkpoint_cfg(self)
+            self._ckpt_writer = AsyncCheckpointWriter(
+                max_pending=ccfg.max_pending, retries=ccfg.retries,
+                retry_backoff_s=ccfg.retry_backoff_s, keep_last=ccfg.keep_last,
+                on_result=lambda ok, steps: _notify_ckpt_result(self, ok, steps))
+        return self._ckpt_writer
+
+    def save_16bit_model(self, save_dir, save_filename: str = "model_16bit.npz",
+                         exclude_frozen_parameters: bool = False):
+        """Write the module weights as one 16-bit flat-key .npz in the JAX
+        package's layout (stacked layer leaves; fp32 rounded to bf16; bf16
+        stored as raw bits under ``key::bf16``). Returns the path."""
+        from deepspeed_tpu_torch.runtime.checkpoint_engine.engine import _nest
+        from deepspeed_tpu_torch.utils.pytree import leaf_paths
+
+        if exclude_frozen_parameters:
+            raise NotImplementedError(
+                "exclude_frozen_parameters: the functional engine has no "
+                "frozen-parameter registry; filter the tree before saving")
+        os.makedirs(save_dir, exist_ok=True)
+        path = os.path.join(save_dir, save_filename)
+        tree = _nest(jax_leaves(self._names), self._param_dict(self.state.params))
+        flat = {}
+        for key, leaf in leaf_paths(tree).items():
+            a = leaf.snapshot()
+            if a.dtype == torch.float32:
+                a = a.to(torch.bfloat16)
+            if a.dtype == torch.bfloat16:
+                flat[key + "::bf16"] = a.view(torch.int16).numpy().view(np.uint16)
+            else:
+                flat[key] = a.numpy()
+        np.savez(path, **flat)
+        log_dist(f"saved 16-bit model weights to {path}", ranks=[0])
+        return path
+
+    def save_fp16_model(self, save_dir, save_filename: str = "model_16bit.npz"):
+        """Alias of save_16bit_model."""
+        return self.save_16bit_model(save_dir, save_filename)
+
+    # ------------------------------------------------------------------ #
+    # the rest of the engine surface
+
+    def zero_grad(self) -> None:
+        """Zero the gradient-accumulation buffers and drop a pending
+        forward's graph (between trio steps)."""
+        if self.state.acc_grads is not None:
+            for g in self.state.acc_grads.values():
+                g.zero_()
+        for p in self.state.params.parameters():
+            p.grad = None
+        self._cached_loss = None
+
+    def set_train_batch_size(self, train_batch_size: int) -> None:
+        """Change the global batch through the gradient-accumulation steps;
+        the micro-batch size stays."""
+        micro = self.train_micro_batch_size_per_gpu()
+        if train_batch_size % micro:
+            raise ValueError(
+                f"Train batch size ({train_batch_size}) must be divisible by "
+                f"micro-batch ({micro}) x data parallelism (1)")
+        new_gas = train_batch_size // micro
+        if new_gas < 1:
+            raise ValueError(f"Train batch size ({train_batch_size}) must cover "
+                             f"at least one micro-batch per dp rank ({micro})")
+        self._config.train_batch_size = train_batch_size
+        self._config.gradient_accumulation_steps = new_gas
+        if new_gas > 1 and self._config.gradient_accumulation_dtype is None and \
+                self.grad_acc_dtype != torch.float32:
+            # an engine born at gas 1 accumulated in the compute dtype (no
+            # buffers); gas > 1 accumulates in fp32, so reallocate
+            self.grad_acc_dtype = torch.float32
+            self.state.acc_grads = None
+        if self._uses_acc_grad_buffers():
+            self._ensure_acc_grads()
+
+    def get_batch_info(self):
+        """(train_batch_size, micro_batch_size, gradient_accumulation_steps)."""
+        return (self.train_batch_size(), self.train_micro_batch_size_per_gpu(),
+                self.gradient_accumulation_steps())
+
+    def train(self, mode: bool = True):
+        """Mode toggle kept for the reference surface: dropout is chosen per
+        call (train_batch draws it, eval_batch never), so this records
+        intent only."""
+        self._training_mode = bool(mode)
+        return self
+
+    def eval(self):
+        return self.train(False)
+
+    def module_state_dict(self) -> ParamTree:
+        """The module parameters (the compute-dtype tree)."""
+        return self.state.params
+
+    def load_module_state_dict(self, state_dict, strict: bool = True) -> None:
+        """Replace the module parameters with ``state_dict`` (a ParamTree or
+        its nested dict, the model's layout); the fp32 masters follow so the
+        optimizer continues from the new weights. ``strict=False`` overlays
+        only the leaves present in ``state_dict`` (by dotted name)."""
+        tree = state_dict.to_dict() if isinstance(state_dict, ParamTree) else state_dict
+        src = dict(ParamTree(tree).named_parameters())
+        named = self._param_dict(self.state.params)
+        if strict and (set(src) != set(named) or
+                       any(tuple(src[n].shape) != tuple(p.shape) for n, p in named.items())):
+            raise ValueError("state_dict structure does not match module parameters (pass "
+                             "strict=False to overlay matching leaves only)")
+        with torch.no_grad():
+            for n, p in named.items():
+                if n in src:
+                    p.copy_(src[n])
+                    if self.state.master is not None:
+                        self.state.master[n].copy_(p)
+
+    def destroy(self) -> None:
+        """Stop the checkpoint writer and the preemption handler and drop
+        the state: the engine is unusable afterwards."""
+        self.disable_preemption_handler()
+        if self._ckpt_writer is not None:
+            self._ckpt_writer.stop()
+            self._ckpt_writer = None
+        self._cached_loss = None
+        self._data_iterator = None
+        self.state = None
+
+    # ------------------------------------------------------------------ #
     # accessors
 
     def train_batch_size(self) -> int:
@@ -469,6 +782,33 @@ class DeepSpeedEngine:
     def steps_per_print(self) -> int:
         return self._config.steps_per_print
 
+    def zero_optimization(self) -> bool:
+        return self._config.zero_optimization_stage > 0
+
+    def zero_optimization_stage(self) -> int:
+        return self._config.zero_optimization_stage
+
+    def zero_enabled(self) -> bool:
+        return self._config.zero_enabled
+
+    def optimizer_name(self):
+        return self._optimizer_name
+
+    def scheduler_name(self):
+        return self._config.scheduler_name
+
+    def scheduler_params(self):
+        return self._config.scheduler_params
+
+    def dynamic_loss_scale(self) -> bool:
+        # static fp16 (loss_scale != 0) reports False, like the reference
+        return self.fp16_enabled() and self._config.fp16_config.dynamic_loss_scale
+
+    def get_mom(self):
+        """Momentum per param group: SGD's ``momentum``, the Adam family's
+        and Lion's ``betas``."""
+        return [optimizer_momenta(self._optimizer_name, self._config.optimizer_params)]
+
     def was_step_applied(self) -> bool:
         """True when the most recent boundary step updated params (not an
         fp16 overflow skip)."""
@@ -479,6 +819,10 @@ class DeepSpeedEngine:
     @property
     def global_steps(self) -> int:
         return self.state.global_steps
+
+    @property
+    def micro_steps(self) -> int:
+        return self.state.micro_steps
 
     @property
     def skipped_steps(self) -> int:

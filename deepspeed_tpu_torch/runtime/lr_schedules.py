@@ -187,3 +187,36 @@ class WarmupDecayLR(_ScheduleBase):
         super().__init__(
             warmup_decay_lr_fn(total_num_steps, warmup_min_lr, warmup_max_lr, warmup_num_steps, warmup_type),
             last_batch_iteration)
+
+
+def add_tuning_arguments(parser):
+    """Add the LR-schedule tuning CLI group (the JAX package's
+    ``add_tuning_arguments``). Defaults are ``None`` so only what the user
+    passed overrides the config."""
+    group = parser.add_argument_group("Convergence Tuning",
+                                      "Convergence tuning configurations")
+    group.add_argument("--lr_schedule", type=str, default=None,
+                       help=f"LR schedule: one of {VALID_LR_SCHEDULES}")
+    # LRRangeTest
+    group.add_argument("--lr_range_test_min_lr", type=float, default=None)
+    group.add_argument("--lr_range_test_step_size", type=int, default=None)
+    group.add_argument("--lr_range_test_step_rate", type=float, default=None)
+    # type=bool would turn ANY non-empty string (incl. "false") into True
+    group.add_argument("--lr_range_test_staircase", default=None,
+                       type=lambda s: s.lower() in ("1", "true", "yes"))
+    # OneCycle
+    group.add_argument("--cycle_first_step_size", type=int, default=None)
+    group.add_argument("--cycle_first_stair_count", type=int, default=None)
+    group.add_argument("--cycle_second_step_size", type=int, default=None)
+    group.add_argument("--cycle_second_stair_count", type=int, default=None)
+    group.add_argument("--decay_step_size", type=int, default=None)
+    group.add_argument("--cycle_min_lr", type=float, default=None)
+    group.add_argument("--cycle_max_lr", type=float, default=None)
+    group.add_argument("--decay_lr_rate", type=float, default=None)
+    # Warmup(Decay)LR
+    group.add_argument("--warmup_min_lr", type=float, default=None)
+    group.add_argument("--warmup_max_lr", type=float, default=None)
+    group.add_argument("--warmup_num_steps", type=int, default=None)
+    group.add_argument("--warmup_type", type=str, default=None)
+    group.add_argument("--total_num_steps", type=int, default=None)
+    return parser

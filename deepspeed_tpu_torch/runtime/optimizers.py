@@ -213,6 +213,50 @@ class Adagrad:
         param.sub_(lr * u)
 
 
+def jax_state_layout(name: Optional[str], params: Optional[Dict[str, Any]] = None):
+    """Where the JAX engine's optimizer state keeps its leaves, for config
+    ``optimizer.type`` ``name`` and ``optimizer.params``: ``(prefix,
+    fields)``, the state node's path (``jax.tree_util.keystr``: ``""`` for
+    the fused ``FusedAdamState`` / ``FusedLambState``, ``"[i]"`` for element
+    i of an optax chain) and the fields it flattens, in order (``count`` is
+    a 0-d int32 leaf; the others hold one leaf per parameter leaf, in the
+    parameter tree's flatten order). The chain elements without leaves
+    (``add_decayed_weights``, ``identity``, ``scale_by_trust_ratio``) hold
+    no place in the flattened state."""
+    params = dict(params or {})
+    name = (name or config_core.ADAMW_OPTIMIZER).lower()
+    if name in (config_core.FUSED_ADAM_OPTIMIZER, config_core.FUSED_LAMB_OPTIMIZER):
+        return "", ("count", "mu", "nu")
+    if name == config_core.ADAM_OPTIMIZER:
+        # L2 decay runs first in the chain, ahead of scale_by_adam
+        l2 = params.get("weight_decay", 0.0) and not params.get("adam_w_mode", False)
+        return ("[1]" if l2 else "[0]"), ("count", "mu", "nu")
+    if name in (config_core.ADAMW_OPTIMIZER, config_core.LAMB_OPTIMIZER):
+        return "[0]", ("count", "mu", "nu")
+    if name == config_core.SGD_OPTIMIZER:
+        return "[0]", ("trace",)
+    if name == config_core.LION_OPTIMIZER:
+        return "[0]", ("count", "mu")
+    if name == config_core.ADAGRAD_OPTIMIZER:
+        return "[0]", ("sum_of_squares",)
+    raise ValueError(f"no JAX state layout for optimizer {name}")
+
+
+def optimizer_momenta(name: Optional[str], params: Optional[Dict[str, Any]]):
+    """The momenta ``build_optimizer`` applies for this config (the JAX
+    package's ``optimizer_momenta``): ``momentum`` for SGD, the betas tuple
+    for the Adam family and Lion, None for a client optimizer."""
+    if name is None or name == "client":
+        return None
+    params = params or {}
+    lname = name.lower()
+    if lname in ("sgd", "rmsprop"):
+        return params.get("momentum", 0.0)
+    if lname == "lion":
+        return tuple(params.get("betas", (0.9, 0.99)))
+    return tuple(params.get("betas", (0.9, 0.999)))
+
+
 def _adam_args(params: Dict[str, Any]) -> Dict[str, Any]:
     betas = params.get("betas", (0.9, 0.999))
     return dict(b1=betas[0], b2=betas[1], eps=params.get("eps", 1e-8),

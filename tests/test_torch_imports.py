@@ -83,6 +83,17 @@ SPEC_MODULES = (
 )
 
 
+# the resumable-training slice's modules (dataloader, checkpoints, entry surface)
+RESUME_MODULES = (
+    "deepspeed_tpu_torch.utils.pytree", "deepspeed_tpu_torch.utils.fault_injection",
+    "deepspeed_tpu_torch.runtime.dataloader",
+    "deepspeed_tpu_torch.runtime.checkpoint_engine.safe_engine",
+    "deepspeed_tpu_torch.runtime.checkpoint_engine.checkpoint_engine",
+    "deepspeed_tpu_torch.runtime.checkpoint_engine.engine",
+    "deepspeed_tpu_torch.models.presets",
+)
+
+
 def test_import_leaves_jax_and_pydantic_out():
     mods = ["deepspeed_tpu_torch"] + sorted(
         "deepspeed_tpu_torch." + ".".join(p.relative_to(ROOT / "deepspeed_tpu_torch")
@@ -93,6 +104,7 @@ def test_import_leaves_jax_and_pydantic_out():
     assert set(LAMB_AND_MOQ_MODULES) <= set(mods)
     assert set(SPARSE_MODULES) <= set(mods)
     assert set(SPEC_MODULES) <= set(mods)
+    assert set(RESUME_MODULES) <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "

@@ -397,7 +397,7 @@ def test_config_fields_match_jax():
     ({"mesh": {"dp": 1, "sp": 2}}, "multi-device"),
     ({"compression_training": {"weight_quantization": {}}}, "compression"),
     ({"telemetry": {"enabled": True}}, "telemetry"),
-    ({"checkpoint": {"save_dir": "x"}}, "checkpoint"),
+    ({"checkpoint": {"engine": "orbax"}}, "checkpoint"),
     ({"elasticity": {"enabled": True}}, "elasticity"),
     ({"autotuning": {"enabled": True}}, "autotuning"),
 ])
@@ -412,8 +412,8 @@ def test_engine_refusals():
     with pytest.raises(NotImplementedError, match="client optimizer"):
         deepspeed_tpu_torch.initialize(model=model, optimizer=object(), config=_config(),
                                        device="cpu")
-    with pytest.raises(NotImplementedError, match="dataloader"):
-        deepspeed_tpu_torch.initialize(model=model, training_data=[1], config=_config(),
+    with pytest.raises(NotImplementedError, match="checkpoint ingestion"):
+        deepspeed_tpu_torch.initialize(model=model, config=_config(nebula={"enabled": True}),
                                        device="cpu")
     with pytest.raises(DeepSpeedConfigError, match="unknown config key"):
         deepspeed_tpu_torch.initialize(model=model, config=_config(train_batchsize=3),
@@ -425,5 +425,5 @@ def test_engine_refusals():
     engine = deepspeed_tpu_torch.initialize(model=model, config=_config(), device="cpu")[0]
     with pytest.raises(ValueError, match="leading dim"):
         engine.train_batch(_batches(0, 1, 3)[0])
-    with pytest.raises(NotImplementedError, match="dataloader"):
+    with pytest.raises(ValueError, match="needs a batch, a data_iter, or engine training_data"):
         engine.train_batch()
