@@ -121,9 +121,27 @@ Phases, each printing one JSON line:
                 load s (GB/s; a load without the manifest's verification and
                 the verification alone too), peak memory, free disk; the tag
                 is deleted
+  ingest        full Llama-2-7B from an HF-format checkpoint: seeded bf16 weights
+                at the LlamaPolicy config of the published config.json written
+                as safetensors shards (<= 5 GB each) with an index under
+                .ingest_ckpt/ in the checkout, loaded by init_inference(<dir>,
+                dtype="bf16"): every leaf bit-equal to those written; the serve
+                phase's prompts through the loaded engine and an engine given
+                the weights in memory, every token equal (limit 0), A = L x
+                prefills, B = L x decode steps; q_proj and k_proj left
+                un-transposed planted in the load (tokens or teacher-forced
+                logits must differ above LOGIT_ULP_TOL), a shard dropped from
+                the index or missing on disk must raise. Load s and GB/s, host
+                peak RSS, device peak memory. Then gpt2 125m, bloom 560m and
+                gpt-neox 20b at their published widths cut to 2 layers, each
+                written and loaded on the card (bf16) and on the CPU (fp32),
+                teacher-forced logits within LOGIT_ULP_TOL; and a Megatron
+                meta json (GPT-2-medium width, 2 layers, tp 2, version 0)
+                serving tokens equal to the same weights given directly. The
+                checkpoints are deleted
   kernels       every ported kernel with its launches in the serve, spec_serve
-                (its oracle run), generate, train, train_lamb, train_sparse and
-                resume phases (A, C and D with a layout in rows of their own; C's and
+                (its oracle run), generate, train, train_lamb, train_sparse,
+                resume and ingest phases (A, C and D with a layout in rows of their own; C's and
                 D's rows also carry their readings with an lse cotangent)
   profile       (only with --phases profile) the serve phase's prompts through
                 fresh engines after a warm-up: warm tokens/s, device kernel
@@ -160,7 +178,7 @@ import time
 PHASES = ("env", "build", "kernel", "slice_parity", "serve", "spec_parity", "spec_serve",
           "generate_parity", "generate",
           "train_parity", "train", "train_lamb_parity", "train_lamb", "sparse_parity",
-          "train_sparse", "resume", "kernels", "profile", "train_profile", "train_lamb_profile",
+          "train_sparse", "resume", "ingest", "kernels", "profile", "train_profile", "train_lamb_profile",
           "generate_profile", "train_sparse_profile")
 DEFAULT_PHASES = PHASES[:-5]      # the five profiles run only when asked for
 # Kernel vs plain version, bf16 outputs: the largest difference in each output
@@ -3264,6 +3282,583 @@ def phase_resume(state, seed):
          card=state.get("card"), **out)
 
 
+# --------------------------------------------------------------------- #
+# ingest: HF-format checkpoints written from seeded weights, loaded, served
+
+INGEST_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), ".ingest_ckpt")
+SHARD_BYTES = 5 * 10**9          # the shard size HF writes by default ("5GB")
+# The published config.json files, written out by their numbers
+# (meta-llama/Llama-2-7b-hf, gpt2, bigscience/bloom-560m,
+# EleutherAI/gpt-neox-20b; torch_dtype is that of the files written here).
+# The three families are cut to INGEST_FAMILY_LAYERS layers (PERF.md section 4).
+LLAMA2_7B_HF = {"architectures": ["LlamaForCausalLM"], "model_type": "llama",
+                "vocab_size": 32000, "hidden_size": 4096, "intermediate_size": 11008,
+                "num_hidden_layers": 32, "num_attention_heads": 32, "num_key_value_heads": 32,
+                "max_position_embeddings": 4096, "rms_norm_eps": 1e-05, "rope_scaling": None,
+                "hidden_act": "silu", "tie_word_embeddings": False, "bos_token_id": 1,
+                "eos_token_id": 2, "torch_dtype": "bfloat16"}
+INGEST_FAMILIES = {
+    "gpt2-125m": {"architectures": ["GPT2LMHeadModel"], "model_type": "gpt2",
+                  "vocab_size": 50257, "n_positions": 1024, "n_embd": 768, "n_layer": 12,
+                  "n_head": 12, "layer_norm_epsilon": 1e-05, "activation_function": "gelu_new",
+                  "torch_dtype": "bfloat16"},
+    "bloom-560m": {"architectures": ["BloomForCausalLM"], "model_type": "bloom",
+                   "vocab_size": 250880, "hidden_size": 1024, "n_layer": 24, "n_head": 16,
+                   "layer_norm_epsilon": 1e-05, "torch_dtype": "bfloat16"},
+    "gpt-neox-20b": {"architectures": ["GPTNeoXForCausalLM"], "model_type": "gpt_neox",
+                     "vocab_size": 50432, "hidden_size": 6144, "num_hidden_layers": 44,
+                     "num_attention_heads": 64, "intermediate_size": 24576,
+                     "max_position_embeddings": 2048, "rotary_pct": 0.25,
+                     "rotary_emb_base": 10000, "layer_norm_eps": 1e-05,
+                     "use_parallel_residual": True, "tie_word_embeddings": False,
+                     "hidden_act": "gelu", "torch_dtype": "bfloat16"},
+}
+INGEST_FAMILY_LAYERS = 2
+INGEST_DEVICE = "cuda"           # the card; the CPU tests run the phase on "cpu"
+INGEST_PROMPTS = (40, 130)       # the families' and the Megatron model's prompt lengths
+INGEST_FAMILY_NEW = 8
+_LAYER_KEY = {"gpt2": "n_layer", "bloom": "n_layer", "gpt_neox": "num_hidden_layers",
+              "llama": "num_hidden_layers"}
+_ST_DTYPE = {"torch.bfloat16": "BF16", "torch.float16": "F16", "torch.float32": "F32"}
+
+
+def _nbytes(shape, dtype):
+    import math
+    import torch
+    return math.prod(shape) * torch.empty((), dtype=dtype).element_size()
+
+
+def write_safetensors(path, entries):
+    """One safetensors file (an 8-byte little-endian header length, the JSON
+    header, the raw bytes: the inverse of the port's reader) from
+    ``entries``, (name, shape, dtype, make) with ``make()`` giving the tensor
+    on any device; one tensor is copied to the host at a time. Wider dtypes
+    go first, so every offset is aligned to its dtype. Returns the file's
+    bytes."""
+    import struct
+    import torch
+    entries = sorted(entries, key=lambda e: -torch.empty((), dtype=e[2]).element_size())
+    header, offset = {}, 0
+    for name, shape, dtype, _ in entries:
+        n = _nbytes(shape, dtype)
+        header[name] = {"dtype": _ST_DTYPE[str(dtype)], "shape": list(shape),
+                        "data_offsets": [offset, offset + n]}
+        offset += n
+    blob = json.dumps(header).encode()
+    blob += b" " * (-len(blob) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(blob)))
+        f.write(blob)
+        for name, shape, dtype, make in entries:
+            with torch.no_grad():
+                t = make().to(dtype).contiguous().cpu()
+            check(tuple(t.shape) == tuple(shape), f"{name}: shape {tuple(t.shape)} != {shape}")
+            f.write(t.reshape(-1).view(torch.uint8).numpy())
+    return 8 + len(blob) + offset
+
+
+def write_hf_checkpoint(d, hf_config, entries, shard_bytes=None):
+    """An HF checkpoint directory: config.json, safetensors shards of at
+    most ``shard_bytes`` (SHARD_BYTES) of tensors each, in ``entries``'
+    order, and model.safetensors.index.json. Returns the shards' bytes."""
+    shard_bytes = shard_bytes or SHARD_BYTES
+    os.makedirs(d, exist_ok=True)
+    shards, size = [[]], 0
+    for e in entries:
+        n = _nbytes(e[1], e[2])
+        if shards[-1] and size + n > shard_bytes:
+            shards.append([])
+            size = 0
+        shards[-1].append(e)
+        size += n
+    weight_map, total = {}, 0
+    for i, shard in enumerate(shards):
+        fname = f"model-{i + 1:05d}-of-{len(shards):05d}.safetensors"
+        total += write_safetensors(os.path.join(d, fname), shard)
+        weight_map.update({e[0]: fname for e in shard})
+    with open(os.path.join(d, "model.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {"total_size": sum(_nbytes(e[1], e[2]) for e in entries)},
+                   "weight_map": weight_map}, f, indent=2)
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump(hf_config, f, indent=2)
+    return total
+
+
+def hf_entries(model_type, cfg, params, dtype):
+    """The HF tensors of the port's tree ``params`` for ``model_type``
+    (llama, gpt2, bloom or gpt_neox), as write_safetensors entries: the
+    inverse of each policy's ``map_params`` (nn.Linear weights back to
+    [out, in]; GPT-2's Conv1D weights stay [in, out]; bloom / neox qkv fused
+    per head [H, 3, Hd])."""
+    import torch
+    H, Hd, D = cfg.n_head, cfg.head_dim, cfg.d_model
+    out = []
+
+    def put(name, shape, make):
+        out.append((name, tuple(shape), dtype, make))
+
+    def plain(name, t):
+        put(name, t.shape, lambda: t)
+
+    def linear(name, t):
+        put(name, t.shape[::-1], lambda: t.t())
+
+    def norm(prefix, p):
+        plain(prefix + ".weight", p["scale"])
+        if p.get("bias") is not None:
+            plain(prefix + ".bias", p["bias"])
+
+    def cat(name, ts, dim):
+        shape = list(ts[0].shape)
+        shape[dim] *= len(ts)
+        put(name, shape, lambda: torch.cat(ts, dim))
+
+    def headwise(prefix, a):
+        qkv = [a[k] for k in ("wq", "wk", "wv")]
+        put(prefix + ".weight", (3 * H * Hd, D), lambda: torch.stack(
+            [w.t().reshape(H, Hd, D) for w in qkv], 1).reshape(3 * H * Hd, D))
+        b = [a[k] for k in ("bq", "bk", "bv")]
+        put(prefix + ".bias", (3 * H * Hd,), lambda: torch.stack(
+            [x.reshape(H, Hd) for x in b], 1).reshape(3 * H * Hd))
+
+    def mlp(prefix, m):
+        linear(prefix + "dense_h_to_4h.weight", m["w_up"])
+        plain(prefix + "dense_h_to_4h.bias", m["b_up"])
+        linear(prefix + "dense_4h_to_h.weight", m["w_down"])
+        plain(prefix + "dense_4h_to_h.bias", m["b_down"])
+
+    embed, layers = params["embed"], params["layers"]
+    if model_type == "llama":
+        plain("model.embed_tokens.weight", embed["tokens"])
+        for i, lp in enumerate(layers):
+            p = f"model.layers.{i}."
+            norm(p + "input_layernorm", lp["ln_attn"])
+            for k, n in (("wq", "q_proj"), ("wk", "k_proj"), ("wv", "v_proj"), ("wo", "o_proj")):
+                linear(f"{p}self_attn.{n}.weight", lp["attn"][k])
+            norm(p + "post_attention_layernorm", lp["ln_mlp"])
+            for k, n in (("w_gate", "gate_proj"), ("w_up", "up_proj"), ("w_down", "down_proj")):
+                linear(f"{p}mlp.{n}.weight", lp["mlp"][k])
+        norm("model.norm", params["ln_f"])
+        linear("lm_head.weight", params["lm_head"])
+    elif model_type == "gpt2":
+        plain("transformer.wte.weight", embed["tokens"])
+        plain("transformer.wpe.weight", embed["positions"])
+        for i, lp in enumerate(layers):
+            p, a, m = f"transformer.h.{i}.", lp["attn"], lp["mlp"]
+            norm(p + "ln_1", lp["ln_attn"])
+            cat(p + "attn.c_attn.weight", [a["wq"], a["wk"], a["wv"]], 1)
+            cat(p + "attn.c_attn.bias", [a["bq"], a["bk"], a["bv"]], 0)
+            plain(p + "attn.c_proj.weight", a["wo"])
+            plain(p + "attn.c_proj.bias", a["bo"])
+            norm(p + "ln_2", lp["ln_mlp"])
+            for k, n in (("w_up", "c_fc.weight"), ("b_up", "c_fc.bias"),
+                         ("w_down", "c_proj.weight"), ("b_down", "c_proj.bias")):
+                plain(p + "mlp." + n, m[k])
+        norm("transformer.ln_f", params["ln_f"])
+    elif model_type == "bloom":
+        plain("transformer.word_embeddings.weight", embed["tokens"])
+        norm("transformer.word_embeddings_layernorm", embed["ln"])
+        for i, lp in enumerate(layers):
+            p, a = f"transformer.h.{i}.", lp["attn"]
+            norm(p + "input_layernorm", lp["ln_attn"])
+            headwise(p + "self_attention.query_key_value", a)
+            linear(p + "self_attention.dense.weight", a["wo"])
+            plain(p + "self_attention.dense.bias", a["bo"])
+            norm(p + "post_attention_layernorm", lp["ln_mlp"])
+            mlp(p + "mlp.", lp["mlp"])
+        norm("transformer.ln_f", params["ln_f"])
+    elif model_type == "gpt_neox":
+        plain("gpt_neox.embed_in.weight", embed["tokens"])
+        for i, lp in enumerate(layers):
+            p, a = f"gpt_neox.layers.{i}.", lp["attn"]
+            norm(p + "input_layernorm", lp["ln_attn"])
+            headwise(p + "attention.query_key_value", a)
+            linear(p + "attention.dense.weight", a["wo"])
+            plain(p + "attention.dense.bias", a["bo"])
+            norm(p + "post_attention_layernorm", lp["ln_mlp"])
+            mlp(p + "mlp.", lp["mlp"])
+        norm("gpt_neox.final_layer_norm", params["ln_f"])
+        linear("embed_out.weight", params["lm_head"])
+    else:
+        raise ValueError(f"no HF writer for model_type {model_type!r}")
+    return out
+
+
+def megatron_state_dict(params):
+    """The Megatron-GPT names of a GPT-2-style tree (learned positions,
+    biases, layernorm), torch [out, in] weights, fused qkv in the version-0
+    block layout [q | k | v]: the inverse of ``map_megatron_params``."""
+    import torch
+    sd = {"word_embeddings.weight": params["embed"]["tokens"],
+          "position_embeddings.weight": params["embed"]["positions"],
+          "transformer.final_layernorm.weight": params["ln_f"]["scale"],
+          "transformer.final_layernorm.bias": params["ln_f"]["bias"]}
+    for i, lp in enumerate(params["layers"]):
+        p, a, m = f"transformer.layers.{i}.", lp["attn"], lp["mlp"]
+        sd.update({
+            p + "input_layernorm.weight": lp["ln_attn"]["scale"],
+            p + "input_layernorm.bias": lp["ln_attn"]["bias"],
+            p + "attention.query_key_value.weight": torch.cat(
+                [a["wq"].t(), a["wk"].t(), a["wv"].t()], 0),
+            p + "attention.query_key_value.bias": torch.cat([a["bq"], a["bk"], a["bv"]]),
+            p + "attention.dense.weight": a["wo"].t(),
+            p + "attention.dense.bias": a["bo"],
+            p + "post_attention_layernorm.weight": lp["ln_mlp"]["scale"],
+            p + "post_attention_layernorm.bias": lp["ln_mlp"]["bias"],
+            p + "mlp.dense_h_to_4h.weight": m["w_up"].t(),
+            p + "mlp.dense_h_to_4h.bias": m["b_up"],
+            p + "mlp.dense_4h_to_h.weight": m["w_down"].t(),
+            p + "mlp.dense_4h_to_h.bias": m["b_down"]})
+    return sd
+
+
+def write_megatron_checkpoint(d, params, tp):
+    """A version-0 ds_inference checkpoint of ``params`` at TP degree
+    ``tp``: one torch file per rank (each column- or row-parallel tensor
+    split by the loader's merge strategies, fused qkv split q/k/v-aware) and
+    the meta json. Returns the meta json's path."""
+    import torch
+    from deepspeed_tpu_torch.checkpoint.reshape_utils import split_qkv_shards, split_tp_shards
+    from deepspeed_tpu_torch.module_inject.megatron import megatron_merge_strategies
+    os.makedirs(d, exist_ok=True)
+    strategies = megatron_merge_strategies(0)
+    ranks = [{} for _ in range(tp)]
+    for name, t in megatron_state_dict(params).items():
+        t = t.detach().cpu().contiguous()
+        strat = next((s for k, s in strategies.items() if k in name), None)
+        if strat is None:
+            pieces = [t] * tp
+        elif isinstance(strat, tuple):
+            pieces = split_qkv_shards(t, strat[0], tp)
+        else:
+            pieces = split_tp_shards(t, strat, tp)
+        for r, piece in zip(ranks, pieces):
+            r[name] = piece.clone()     # a view would save its whole storage
+    files = [f"mp_rank_{r:02d}_model_states.pt" for r in range(tp)]
+    for fname, sd in zip(files, ranks):
+        torch.save({"module": sd}, os.path.join(d, fname))
+    meta = os.path.join(d, "checkpoints.json")
+    with open(meta, "w") as f:
+        json.dump({"type": "Megatron", "checkpoints": files, "base_dir": d, "version": 0}, f)
+    return meta
+
+
+@contextlib.contextmanager
+def untransposed_qk():
+    """The planted fault of phase ingest: inside the ``with`` body the llama
+    policy leaves q_proj and k_proj as stored ([out, in] read as [in, out]),
+    which square Llama-width matrices let through without a shape error."""
+    from deepspeed_tpu_torch.module_inject import policies
+    real = policies.POLICIES["llama"]
+
+    class Untransposed(policies.LlamaPolicy):
+        def map_params(self, get, cfg):
+            def raw(name):
+                t = get(name)
+                return t.t() if name.endswith(("q_proj.weight", "k_proj.weight")) else t
+            return super().map_params(raw, cfg)
+
+    policies.POLICIES["llama"] = Untransposed()
+    try:
+        yield
+    finally:
+        policies.POLICIES["llama"] = real
+
+
+def missing_shard_faults(d, load):
+    """``load(d)`` with the first shard's entries dropped from the index
+    (the first tensor read has no file: KeyError) and with the last shard
+    missing on disk (FileNotFoundError before any read). Returns what each
+    raised (None where nothing did); the directory is restored."""
+    idx = os.path.join(d, "model.safetensors.index.json")
+    with open(idx) as f:
+        index = json.load(f)
+    files = sorted(set(index["weight_map"].values()))
+    out = {}
+    try:
+        with open(idx, "w") as f:
+            json.dump({"weight_map": {n: s for n, s in index["weight_map"].items()
+                                      if s != files[0]}}, f)
+        try:
+            load(d)
+            out["shard_dropped_from_index"] = None
+        except KeyError as e:
+            out["shard_dropped_from_index"] = f"KeyError: {e}"
+    finally:
+        with open(idx, "w") as f:
+            json.dump(index, f)
+    gone = os.path.join(d, files[-1])
+    os.rename(gone, gone + ".moved")
+    try:
+        load(d)
+        out["shard_missing_on_disk"] = None
+    except FileNotFoundError as e:
+        out["shard_missing_on_disk"] = f"FileNotFoundError: {e}"
+    finally:
+        os.rename(gone + ".moved", gone)
+    return out
+
+
+def _equal_leaves(got, want):
+    """Names of the leaves of ``want`` that ``got`` lacks or holds other bits for."""
+    import torch
+    got = dict(got.named_parameters())
+    return [n for n, w in want.named_parameters()
+            if n not in got or not torch.equal(got[n], w)]
+
+
+def serve_launch_rule(cfg, actions):
+    """The serving path's launches: A once a layer per prefill, B once a
+    layer per decode step."""
+    return {"flash_attention_fwd": cfg.n_layer * actions.get("prefill", 0),
+            "paged_decode_attention": cfg.n_layer * actions.get("decode", 0)}
+
+
+def prefill_launch_rule(cfg, prefills):
+    """Kernel A's launches in ``prefills`` paged prefills."""
+    return cfg.n_layer * prefills
+
+
+def host_rss_gb():
+    """This process's resident set now (VmRSS of /proc/self/status), GB."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024 / 1e9
+    raise RuntimeError("no VmRSS in /proc/self/status")
+
+
+@contextlib.contextmanager
+def sampled_host_peak(every_s=0.005):
+    """``[peak]``: the largest resident set (GB) seen while the ``with`` body
+    runs, sampled from a thread every ``every_s`` (the body's copies release
+    the interpreter lock). getrusage's ru_maxrss keeps the whole run's peak,
+    earlier phases' included, and nothing here may reset it."""
+    import threading
+    stop = threading.Event()
+    peak = [host_rss_gb()]
+
+    def sample():
+        while not stop.is_set():
+            peak[0] = max(peak[0], host_rss_gb())
+            stop.wait(every_s)
+
+    sampler = threading.Thread(target=sample, daemon=True)
+    sampler.start()
+    try:
+        yield peak
+    finally:
+        stop.set()
+        sampler.join(timeout=5)
+        check(not sampler.is_alive(), "the RSS sampler did not stop")
+        peak[0] = max(peak[0], host_rss_gb())
+
+
+def _family_parity(name, hf, seed):
+    """One family at INGEST_FAMILY_LAYERS layers: seeded bf16 weights written
+    as an HF checkpoint, loaded on the card (bf16, kernels) and on the CPU
+    (fp32, plain versions); the CPU's greedy tokens fed to both sides'
+    paged prefill and decode steps, held with logit_parity."""
+    import numpy as np
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import CausalLM
+    from deepspeed_tpu_torch.module_inject import policy_for
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    from deepspeed_tpu_torch.ops.kernels import paged_decode_attention as pda
+    hf = {**hf, _LAYER_KEY[hf["model_type"]]: INGEST_FAMILY_LAYERS}
+    cfg = policy_for(hf["model_type"]).zoo_config(hf)
+    gen = torch.Generator(device=INGEST_DEVICE).manual_seed(seed + 1)
+    params = CausalLM(cfg).init_params(gen, device=INGEST_DEVICE, dtype=torch.bfloat16)
+    d = os.path.join(INGEST_DIR, name)
+    nbytes = write_hf_checkpoint(d, hf, hf_entries(hf["model_type"], cfg, params,
+                                                   torch.bfloat16))
+    gpu = deepspeed_tpu_torch.init_inference(d, dtype="bf16", device=INGEST_DEVICE)
+    bad = _equal_leaves(gpu.params, params)
+    del params
+    cpu = deepspeed_tpu_torch.init_inference(d, dtype="fp32", device="cpu")
+    rng = np.random.default_rng(seed + 21)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n) for n in INGEST_PROMPTS]
+    want_tokens = cpu.generate_batch(prompts, max_new_tokens=INGEST_FAMILY_NEW)
+    got, want = [], []
+    fa.launches = pda.launches = 0
+    for p, w in zip(prompts, want_tokens):
+        toks = np.asarray(w)[:-1]
+        got.append(paged_logits(gpu, toks, p.size))
+        want.append(paged_logits(cpu, toks, p.size))
+    launches = {"flash_attention_fwd": fa.launches, "paged_decode_attention": pda.launches}
+    rec, failures = logit_parity(torch.cat(got), torch.cat(want), {})
+    del gpu, cpu
+    shutil.rmtree(d, ignore_errors=True)
+    torch.cuda.empty_cache()
+    check(not bad, f"{name}: loaded leaves differ from those written: {bad}")
+    check(launches["flash_attention_fwd"] == prefill_launch_rule(cfg, len(prompts)),
+          f"{name}: kernel A launches {launches}")
+    check(not failures, f"{name}: " + "; ".join(failures))
+    return {"layers": cfg.n_layer, "d_model": cfg.d_model, "head_dim": cfg.head_dim,
+            "vocab": cfg.vocab_size, "pos_embedding": cfg.pos_embedding,
+            "rope_dim": cfg.rope_dim, "checkpoint_bytes": nbytes, "prompts": list(INGEST_PROMPTS),
+            "new_tokens": INGEST_FAMILY_NEW, "leaves_equal": True,
+            "teacher_forced_launches": launches, **rec}
+
+
+def _megatron_serve(seed, model=None):
+    """A ds_inference meta json of GPT-2-medium width at 2 layers, tp 2,
+    version 0: served through init_inference(model, checkpoint=meta) with
+    tokens equal to the same weights given directly. The vocabulary is
+    Megatron's padded 50304 (--make-vocab-size-divisible-by 128), which the
+    vocab-parallel embedding splits over the ranks."""
+    import dataclasses
+    import numpy as np
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import CausalLM, gpt2_medium
+    model = model or CausalLM(dataclasses.replace(
+        gpt2_medium().config, n_layer=INGEST_FAMILY_LAYERS, vocab_size=50304))
+    gen = torch.Generator(device=INGEST_DEVICE).manual_seed(seed + 2)
+    params = model.init_params(gen, device=INGEST_DEVICE, dtype=torch.bfloat16)
+    meta = write_megatron_checkpoint(os.path.join(INGEST_DIR, "megatron"), params, tp=2)
+    loaded = deepspeed_tpu_torch.init_inference(model, checkpoint=meta, dtype="bf16",
+                                                device=INGEST_DEVICE)
+    bad = _equal_leaves(loaded.params, params)
+    direct = deepspeed_tpu_torch.init_inference(model, params=params, dtype="bf16",
+                                                device=INGEST_DEVICE)
+    rng = np.random.default_rng(seed + 22)
+    prompts = [rng.integers(0, model.config.vocab_size, size=n) for n in INGEST_PROMPTS]
+    got = loaded.generate_batch(prompts, max_new_tokens=INGEST_FAMILY_NEW)
+    want = direct.generate_batch(prompts, max_new_tokens=INGEST_FAMILY_NEW)
+    equal = sum(int(np.array_equal(g, w)) for g, w in zip(got, want))
+    del loaded, direct, params
+    torch.cuda.empty_cache()
+    check(not bad, f"megatron: loaded leaves differ from those written: {bad}")
+    check(equal == len(prompts), f"megatron: {equal} of {len(prompts)} rows equal")
+    return {"d_model": model.config.d_model, "n_head": model.config.n_head,
+            "layers": model.config.n_layer, "tp": 2, "version": 0,
+            "rows_equal": equal, "prompts": list(INGEST_PROMPTS),
+            "new_tokens": INGEST_FAMILY_NEW, "leaves_equal": True}
+
+
+def phase_ingest(state, seed):
+    """Serve a full-size Llama-2-7B from an HF-format checkpoint: seeded bf16
+    weights (init_params at the LlamaPolicy config of the published
+    config.json) written as safetensors shards with an index, loaded by
+    init_inference(<dir>, dtype="bf16"), every leaf bit-equal to those
+    written; the serve phase's prompts through the loaded engine and an
+    engine given the weights in memory, every token equal (limit 0), A = L
+    x prefills and B = L x decode steps on the loaded engine; planted
+    faults (q_proj and k_proj left un-transposed; a shard dropped from the
+    index or missing on disk) must show or raise. Then three more families
+    at 2 layers held to the CPU, and a Megatron meta json."""
+    import dataclasses
+    import resource
+    import numpy as np
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.accelerator import get_accelerator
+    from deepspeed_tpu_torch.models import CausalLM
+    from deepspeed_tpu_torch.module_inject import load_hf_checkpoint, policy_for
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    from deepspeed_tpu_torch.ops.kernels import paged_decode_attention as pda
+
+    acc = get_accelerator("cuda")
+    model = CausalLM(policy_for("llama").zoo_config(LLAMA2_7B_HF))
+    cfg = model.config
+    gen = torch.Generator(device=INGEST_DEVICE).manual_seed(seed)
+    params = model.init_params(gen, device=INGEST_DEVICE, dtype=torch.bfloat16)
+    entries = hf_entries("llama", cfg, params, torch.bfloat16)
+    need = sum(_nbytes(e[1], e[2]) for e in entries)
+    shutil.rmtree(INGEST_DIR, ignore_errors=True)
+    free = shutil.disk_usage(os.path.dirname(INGEST_DIR)).free
+    check(free > 1.05 * need, f"the disk holds {free / 1e9:.1f} GB free, the checkpoint "
+          f"needs {need / 1e9:.1f} GB: ingest cannot write it here")
+    out = {}
+    try:
+        t0 = time.perf_counter()
+        nbytes = write_hf_checkpoint(INGEST_DIR, LLAMA2_7B_HF, entries)
+        write_s = time.perf_counter() - t0
+        del entries
+        shards = sorted(f for f in os.listdir(INGEST_DIR) if f.endswith(".safetensors"))
+        rss_before = host_rss_gb()
+        torch.cuda.synchronize()
+        acc.reset_peak_memory_stats()
+        resident = acc.max_memory_allocated()      # the peak since the reset: what is held now
+        with sampled_host_peak() as rss_peak:
+            t0 = time.perf_counter()
+            loaded = deepspeed_tpu_torch.init_inference(INGEST_DIR, dtype="bf16",
+                                                        device=INGEST_DEVICE)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+        load_peak = acc.max_memory_allocated() - resident
+        bad = _equal_leaves(loaded.params, params)
+        check(not bad, f"loaded leaves differ from those written: {bad}")
+        check(dataclasses.asdict(loaded.module.config) == dataclasses.asdict(cfg),
+              f"loaded config {loaded.module.config} != {cfg}")
+
+        prompts = _serve_prompts(cfg, seed)
+        fa.launches = pda.launches = 0
+        t0 = time.perf_counter()
+        outs = loaded.generate_batch(prompts, max_new_tokens=SERVE_MAX_NEW)
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        launches = {"flash_attention_fwd": fa.launches, "paged_decode_attention": pda.launches}
+        actions = dict(loaded._last_serve_actions)
+        del loaded
+        torch.cuda.empty_cache()
+        memory = deepspeed_tpu_torch.init_inference(model, params=params, dtype="bf16",
+                                                    device=INGEST_DEVICE)
+        want = memory.generate_batch(prompts, max_new_tokens=SERVE_MAX_NEW)
+        equal = sum(int(np.array_equal(g, w)) for g, w in zip(outs, want))
+        generated = sum(np.asarray(o).size - p.size for p, o in zip(prompts, outs))
+        check(equal == len(prompts), f"{equal} of {len(prompts)} rows equal the in-memory "
+              "engine's")
+        check(actions.get("prefill", 0) > 0 and actions.get("decode", 0) > 0,
+              f"the serve ran no prefill or no decode step: {actions}")
+        check(launches == serve_launch_rule(cfg, actions),
+              f"launches {launches} != {cfg.n_layer} x prefills, x decodes {actions}")
+        state["ingest_launches"] = launches
+
+        # ---- planted faults ----
+        with untransposed_qk():
+            faulted = deepspeed_tpu_torch.init_inference(INGEST_DIR, dtype="bf16",
+                                                         device=INGEST_DEVICE)
+        fault_outs = faulted.generate_batch(prompts, max_new_tokens=SERVE_MAX_NEW)
+        rows_differ = sum(int(not np.array_equal(g, w)) for g, w in zip(fault_outs, want))
+        toks = np.asarray(want[0])[:-1]
+        fault_ulp = float(row_ulp_errs(paged_logits(faulted, toks, prompts[0].size),
+                                       paged_logits(memory, toks, prompts[0].size)).max())
+        del faulted, memory, params
+        torch.cuda.empty_cache()
+        check(rows_differ > 0 or fault_ulp > LOGIT_ULP_TOL,
+              f"the un-transposed q/k load reads {fault_ulp} ulps and changes no row")
+        raised = missing_shard_faults(
+            INGEST_DIR, lambda d: load_hf_checkpoint(d, dtype=torch.bfloat16,
+                                                     device=INGEST_DEVICE))
+        check(all(raised.values()), f"a missing shard did not raise: {raised}")
+        shutil.rmtree(INGEST_DIR, ignore_errors=True)
+
+        families = {name: _family_parity(name, hf, seed) for name, hf in INGEST_FAMILIES.items()}
+        out = dict(checkpoint_bytes=nbytes, shards=len(shards), write_s=write_s,
+                   write_gb_per_s=nbytes / write_s / 1e9, load_s=load_s,
+                   load_gb_per_s=nbytes / load_s / 1e9,
+                   host_rss_gb_before_load=rss_before, host_peak_rss_gb=rss_peak[0],
+                   process_peak_rss_gb=resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+                   * 1024 / 1e9,
+                   device_load_peak_gb=load_peak / 1e9, resident_before_load_gb=resident / 1e9,
+                   leaves_equal=True, requests=len(prompts), max_new_tokens=SERVE_MAX_NEW,
+                   generated_tokens=int(generated), serve_s=serve_s,
+                   tokens_per_s=generated / serve_s, rows_equal_in_memory=equal, limit=0,
+                   actions=actions, launches=launches,
+                   fault_untransposed_qk={"rows_differ": rows_differ, "ulp_err": fault_ulp,
+                                          "ulp_tol": LOGIT_ULP_TOL},
+                   fault_missing_shard=raised, families=families,
+                   megatron=_megatron_serve(seed), disk_free_gb=free / 1e9)
+    finally:
+        shutil.rmtree(INGEST_DIR, ignore_errors=True)
+    emit("ingest", model="llama-2-7b (HF format, seeded bf16 weights)", layers=cfg.n_layer,
+         dtype="bf16", max_seq=cfg.max_seq, norm_eps=cfg.norm_eps, card=state.get("card"),
+         **out)
+
+
 def phase_train_profile(state, seed):
     """Where one warm train step's time goes (not in the default run): a
     warm-up step, a step timed with the host clock, and a step under
@@ -3403,6 +3998,7 @@ def phase_kernels(state):
     train_lamb = state.get("train_lamb_launches", {})
     train_sparse = state.get("train_sparse_launches", {})
     resume = state.get("resume_launches", {})
+    ingest = state.get("ingest_launches", {})
     rows = []
     meta = {
         "flash_attention_fwd": (
@@ -3471,7 +4067,8 @@ def phase_kernels(state):
                                            ("generate", gen), ("train", train),
                                            ("train_lamb", train_lamb),
                                            ("train_sparse", train_sparse),
-                                           ("resume", resume)) if name in n}
+                                           ("resume", resume), ("ingest", ingest))
+                   if name in n}
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                      "launches": sum(by_path.values()) if by_path else None,
                      "launches_by_path": by_path, "max_abs_err": r.get("max_abs_err"),

@@ -16,6 +16,8 @@ same surface on an NVIDIA H100 with hand-written Hopper kernels. It imports
     engine.save_checkpoint("ckpt")           # the JAX package's crash-safe tags
     engine.auto_resume("ckpt")               # in a new process: exact resume
 
+    engine = deepspeed_tpu_torch.init_inference("Llama-2-7b-hf/", dtype="bf16")
+
 The exports below load lazily, so ``import deepspeed_tpu_torch`` builds no
 kernel and imports no model code.
 """
@@ -36,6 +38,7 @@ _LAZY_EXPORTS = {
     "log_dist": ("deepspeed_tpu_torch.utils.logging", "log_dist"),
     "add_tuning_arguments": ("deepspeed_tpu_torch.runtime.lr_schedules",
                              "add_tuning_arguments"),
+    "module_inject": ("deepspeed_tpu_torch.module_inject", None),
 }
 
 
@@ -44,7 +47,8 @@ def __getattr__(name):
     if entry is None:
         raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
     import importlib
-    obj = getattr(importlib.import_module(entry[0]), entry[1])
+    mod = importlib.import_module(entry[0])
+    obj = mod if entry[1] is None else getattr(mod, entry[1])
     globals()[name] = obj
     return obj
 
@@ -84,7 +88,9 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
 def init_inference(model, config=None, params=None, device=None, **kwargs):
     """Build the serving engine (counterpart of
     ``deepspeed_tpu.init_inference``). ``params`` (a parameter tree) supplies
-    the weights explicitly; without it the model's seeded random init runs.
+    the weights explicitly; else ``model`` given as an HF checkpoint path, or
+    ``checkpoint`` (an HF path, or a Megatron meta json as a path or dict),
+    loads them; else the model's seeded random init runs.
     ``device`` defaults to ``cuda:0`` and raises without a CUDA device;
     ``device="cpu"`` runs the kernels' plain versions (the CPU tests)."""
     from deepspeed_tpu_torch.inference.config import DeepSpeedInferenceConfig

@@ -170,9 +170,6 @@ def _refuse_outside_slice(param_dict: Dict) -> None:
     if str(ckpt.get("engine", "safe")).lower() == "orbax":
         not_ported("the orbax checkpoint engine (checkpoint.engine='orbax')",
                    "queue 1: checkpoint ingestion (orbax)")
-    if ckpt.get("load_universal", False):
-        not_ported("universal checkpoints (checkpoint.load_universal)",
-                   "queue 1: checkpoint ingestion (checkpoint/ tools)")
     if param_dict.get(C.WALL_CLOCK_BREAKDOWN, False):
         not_ported("wall_clock_breakdown timers", "queue 1: telemetry and control plane")
 
@@ -273,13 +270,15 @@ class DeepSpeedConfig:
         ckpt = dict(param_dict.get("checkpoint") or {})
         # the reference's keys beside the knobs: tags are validated across
         # processes and node-local storage spreads them (no effect on one
-        # device); load_universal is refused above
+        # device); load_universal is read as the JAX package reads it (its
+        # engine does not act on it either: the offline tools in checkpoint/
+        # convert a universal checkpoint)
         mode = str(ckpt.pop("tag_validation", "Warn")).title()
         if mode not in _TAG_VALIDATION_MODES:
             raise DeepSpeedConfigError(
                 f"Checkpoint config contains invalid tag_validation value: {mode}")
         ckpt.pop("use_node_local_storage", None)
-        ckpt.pop("load_universal", None)
+        self.load_universal_checkpoint = ckpt.pop("load_universal", False)
         known = {f.name for f in dataclasses.fields(CheckpointConfig)}
         unknown = sorted(set(ckpt) - known)
         if unknown:

@@ -49,7 +49,6 @@ class InferenceEngine:
 
     def __init__(self, model, config: Optional[DeepSpeedInferenceConfig] = None,
                  params=None, device=None):
-        self.module = model
         self._config = config or DeepSpeedInferenceConfig()
         self._refuse_outside_slice(model)
         self.device = resolve_device(device)
@@ -59,6 +58,9 @@ class InferenceEngine:
                 and getattr(cfg, "attention_backend", "auto") != "xla"):
             raise ValueError("the CUDA attention kernels take fp16/bf16: serve with "
                              "dtype='bf16' (or 'fp16') on the GPU")
+        if params is None:
+            model, params = self._load_checkpoint(model)
+        self.module = model
         if params is None:
             if not hasattr(model, "init_params"):
                 raise ValueError("InferenceEngine needs params (or a model with init_params)")
@@ -94,10 +96,38 @@ class InferenceEngine:
             not_ported("ZeRO-Inference weight streaming", "queue 1: ZeRO-Inference")
         if c.telemetry_enabled():
             not_ported("serving telemetry", "queue 1: telemetry and control plane")
-        if c.checkpoint is not None or isinstance(model, str):
-            not_ported("checkpoint loading", "queue 1: checkpoint ingestion (module_inject/)")
         if srv.kv_host.enabled:
             not_ported("the tiered KV cache (serving.kv_host)", "queue 1: tiered KV cache")
+
+    def _load_checkpoint(self, model):
+        """The JAX engine's checkpoint branch: an HF checkpoint (a directory
+        or weights file, as ``config.checkpoint`` or the model given as a
+        path) loads through the per-architecture policies, streamed onto the
+        engine's device in its dtype; a ds_inference meta json (a path
+        ending in .json, or a dict) loads the Megatron per-rank files
+        against ``model.config``. Returns ``(model, params)``, params None
+        without a checkpoint."""
+        ckpt = self._config.checkpoint
+        if isinstance(model, str) and ckpt is None:
+            ckpt, model = model, None
+        if isinstance(ckpt, str) and not ckpt.endswith(".json"):
+            from deepspeed_tpu_torch.module_inject import load_hf_checkpoint
+            loaded, params = load_hf_checkpoint(ckpt, dtype=self.dtype, device=self.device)
+            n_params = sum(p.numel() for p in params.parameters())
+            log_dist(f"InferenceEngine: loaded HF checkpoint {ckpt} "
+                     f"({n_params / 1e6:.1f}M params)", ranks=[0])
+            return (loaded if model is None else model), params
+        if isinstance(ckpt, (dict, str)):
+            from deepspeed_tpu_torch.module_inject.megatron import load_megatron_checkpoint
+            if model is None or not hasattr(model, "config"):
+                raise ValueError("Megatron meta-json checkpoints need the model "
+                                 "(with .config) passed to init_inference")
+            params = load_megatron_checkpoint(ckpt, model.config, dtype=self.dtype,
+                                              device=self.device)
+            log_dist("InferenceEngine: loaded Megatron ds_inference checkpoint "
+                     f"({len(list(params.parameters()))} tensors)", ranks=[0])
+            return model, params
+        return model, None
 
     # ------------------------------------------------------------------ #
     # helpers shared with the JAX engine

@@ -58,6 +58,7 @@ import torch
 from deepspeed_tpu_torch.utils import fault_injection
 from deepspeed_tpu_torch.utils.fault_injection import SimulatedCrash
 from deepspeed_tpu_torch.utils.logging import logger
+from deepspeed_tpu_torch.utils.not_ported import not_ported
 
 MANIFEST = "manifest.json"
 STATE_FILE = "state.npz"
@@ -419,6 +420,37 @@ def write_tag(save_dir: str, payload: CheckpointPayload, *,
         except Exception as e:   # GC must never fail a committed save
             logger.warning(f"checkpoint retention GC failed: {e}")
     return total
+
+
+def unflatten_dotted(flat: Dict[str, Any]) -> Dict[str, Any]:
+    """{'a.b.c': leaf} -> nested dicts: the inverse of the save-side
+    flattening for dict-only trees (integer segments stay string keys; the
+    offline tools walk dict sections only)."""
+    out: Dict[str, Any] = {}
+    for key, leaf in flat.items():
+        parts = key.split(".")
+        node = out
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = leaf
+    return out
+
+
+def read_state_tree(tag_dir: str) -> Dict[str, Any]:
+    """The offline tools' reader of ONE tag's state tree: a ``state.npz``
+    written by either package, rebuilt to nested dicts (bf16 leaves as
+    torch bf16 tensors, the rest numpy). A legacy orbax ``state/`` tag is
+    refused."""
+    npz_path = os.path.join(tag_dir, STATE_FILE)
+    if os.path.isfile(npz_path):
+        flat = read_npz(npz_path)
+        flat.pop("__rng_key_data__", None)
+        flat.pop("__torch_rng_state__", None)
+        return unflatten_dotted(flat)
+    if os.path.isdir(os.path.join(tag_dir, "state")):
+        not_ported("legacy orbax checkpoint tags", "queue 1: checkpoint ingestion (orbax)")
+    raise FileNotFoundError(
+        f"no checkpoint state ({STATE_FILE} or state/) under {tag_dir}")
 
 
 # --------------------------------------------------------------------- #

@@ -94,6 +94,18 @@ RESUME_MODULES = (
 )
 
 
+# the checkpoint-ingestion slice's modules (checkpoint/ tools, module_inject/)
+INGEST_MODULES = (
+    "deepspeed_tpu_torch.checkpoint._safetensors", "deepspeed_tpu_torch.checkpoint.reshape_utils",
+    "deepspeed_tpu_torch.checkpoint.state_dict_factory",
+    "deepspeed_tpu_torch.checkpoint.zero_to_fp32",
+    "deepspeed_tpu_torch.checkpoint.universal_checkpoint",
+    "deepspeed_tpu_torch.checkpoint.reshape_pipeline",
+    "deepspeed_tpu_torch.module_inject.policies", "deepspeed_tpu_torch.module_inject.loader",
+    "deepspeed_tpu_torch.module_inject.megatron",
+)
+
+
 def test_import_leaves_jax_and_pydantic_out():
     mods = ["deepspeed_tpu_torch"] + sorted(
         "deepspeed_tpu_torch." + ".".join(p.relative_to(ROOT / "deepspeed_tpu_torch")
@@ -105,10 +117,32 @@ def test_import_leaves_jax_and_pydantic_out():
     assert set(SPARSE_MODULES) <= set(mods)
     assert set(SPEC_MODULES) <= set(mods)
     assert set(RESUME_MODULES) <= set(mods)
+    assert set(INGEST_MODULES) <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+
+
+def test_ingestion_imports_no_checkpoint_package_and_resolves_lazily():
+    """The card's machine has no safetensors, transformers or ml_dtypes:
+    the ingestion modules import none of them (nor jax or the JAX package),
+    and ``deepspeed_tpu_torch.module_inject`` loads only when first read."""
+    absent = FORBIDDEN + ("safetensors", "transformers", "ml_dtypes")
+    code = ("import sys\n"
+            "import deepspeed_tpu_torch\n"
+            "assert 'deepspeed_tpu_torch.module_inject' not in sys.modules\n"
+            "mi = deepspeed_tpu_torch.module_inject\n"
+            "assert mi is sys.modules['deepspeed_tpu_torch.module_inject']\n"
+            "assert 'module_inject' in dir(deepspeed_tpu_torch)\n"
+            "import deepspeed_tpu_torch.checkpoint, deepspeed_tpu_torch.module_inject.megatron\n"
+            "assert callable(mi.load_hf_checkpoint) and 'llama' in mi.POLICIES\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{absent!r}))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr

@@ -143,7 +143,6 @@ def test_eviction_pressure(pair):
     ({"zero": {"offload_param": {"device": "cpu"}}}, "ZeRO-Inference"),
     ({"telemetry": True}, "telemetry"),
     ({"telemetry": {"events": True}}, "telemetry"),
-    ({"checkpoint": "ckpt_dir"}, "checkpoint ingestion"),
 ])
 def test_out_of_slice_settings_raise(setting, item):
     model = CausalLM(TransformerConfig(**SHAPES["gpt2"]))

@@ -155,3 +155,43 @@ def test_sparse_is_refused_by_the_decode_paths_and_by_sequence_parallelism():
                            sparse_attention=_sparsity(psa, 32))
     with pytest.raises(NotImplementedError, match="sequence parallelism"):
         PT.forward(sp, params, torch.zeros((1, 64), dtype=torch.long))
+
+
+def test_the_sparse_layout_is_built_and_read_once_per_config_and_length(monkeypatch):
+    """Two forward + backward passes of a 2-layer sparse model with full
+    remat (each block's forward recomputed in the backward): the sparsity
+    config's ``make_layout`` runs once for (config, S); every forward, dq
+    and dk/dv call of every layer gets the same layout object, so the
+    kernels' ``_device_layout`` (the CUDA path's cache of live-tile lists,
+    fed here each call's layout) reads the layout's content once and takes
+    its identity path after."""
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    _, pcfg, tree = _pair(128, "flash", remat=True)
+    sc = pcfg.sparse_attention
+    made, calls = [], []
+    make_layout, dispatch = type(sc).make_layout, fa._dispatch
+    monkeypatch.setattr(type(sc), "make_layout",
+                        lambda self, seq: made.append(seq) or make_layout(self, seq))
+
+    def spy(cuda_fn, plain_fn, name, q, *args):
+        calls.append((name, args[-1], q.shape[1], q.shape[2]))
+        return dispatch(cuda_fn, plain_fn, name, q, *args)
+    monkeypatch.setattr(fa, "_dispatch", spy)
+    PT._sparse_layout.cache_clear()
+    params = params_from_jax(pcfg, tree).map(lambda t: t.clone(), requires_grad=True)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, LLAMA["vocab_size"],
+                                                                size=(2, S)))
+    for _ in range(2):
+        PT.lm_loss(pcfg, params, {"input_ids": tokens}).backward()
+    assert made == [S]
+    # 2 passes x 2 layers x (forward, its remat recompute, dq, dkv)
+    assert len(calls) == 16 and {c[0] for c in calls} == {
+        "flash_attention", "flash_attention_dq", "flash_attention_dkv"}
+    assert all(c[1] is calls[0][1] for c in calls)
+    read = []
+    layout_keep = fa._layout_keep
+    monkeypatch.setattr(fa, "_layout_keep", lambda *a: read.append(a[1]) or layout_keep(*a))
+    fa._LAST.clear()
+    for _, layout, seq, heads in calls:
+        fa._device_layout(layout, seq, heads, True, torch.device("cpu"))
+    assert read == [S]
