@@ -139,10 +139,27 @@ Phases, each printing one JSON line:
                 meta json (GPT-2-medium width, 2 layers, tp 2, version 0)
                 serving tokens equal to the same weights given directly. The
                 checkpoints are deleted
+  telemetry     full Llama-2-7B served with telemetry={"events": True} and
+                without, the serve phase's prompts, 4 pairs of fresh engines
+                alternating which goes first: tokens equal (limit 0),
+                tokens/s of each serve, TTFT / TPOT p50 and p99 from the metrics
+                registry, A = L x (prefill_steps - prefill_chunks) and B = L x
+                decode_steps from the registry's counters, the snapshot and
+                the exported serving trace valid (tools/validate_trace.py),
+                the same host syncs on and off; the decode.tick clock within
+                10 % of CUDA-event time over the same steps with 100 ms of
+                device time planted after each decode forward, and a copy of the decode
+                step that stops its clock before the token read outside it;
+                then the train phase's configuration 3 steps with telemetry
+                on and 3 off from the same seeded state: losses bit-equal,
+                launches per step the train rule, one host sync a step on and
+                none off (counted through the accelerator), train/mfu within
+                3 % of flops_per_token x tokens/s / peak on the phase's clock
   kernels       every ported kernel with its launches in the serve, spec_serve
                 (its oracle run), generate, train, train_lamb, train_sparse,
-                resume and ingest phases (A, C and D with a layout in rows of their own; C's and
-                D's rows also carry their readings with an lse cotangent)
+                resume, ingest and telemetry phases (A, C and D with a layout in rows of
+                their own; C's and D's rows also carry their readings with an lse
+                cotangent)
   profile       (only with --phases profile) the serve phase's prompts through
                 fresh engines after a warm-up: warm tokens/s, device kernel
                 time by class under torch.profiler, the device's idle share
@@ -178,8 +195,8 @@ import time
 PHASES = ("env", "build", "kernel", "slice_parity", "serve", "spec_parity", "spec_serve",
           "generate_parity", "generate",
           "train_parity", "train", "train_lamb_parity", "train_lamb", "sparse_parity",
-          "train_sparse", "resume", "ingest", "kernels", "profile", "train_profile", "train_lamb_profile",
-          "generate_profile", "train_sparse_profile")
+          "train_sparse", "resume", "ingest", "telemetry", "kernels", "profile",
+          "train_profile", "train_lamb_profile", "generate_profile", "train_sparse_profile")
 DEFAULT_PHASES = PHASES[:-5]      # the five profiles run only when asked for
 # Kernel vs plain version, bf16 outputs: the largest difference in each output
 # row (over head_dim), in bf16 ulps of that row's largest |plain| value, so
@@ -3989,6 +4006,341 @@ def _device_time(prof):
                       for ms, n, k in sorted(top, reverse=True)[:15]]
 
 
+# ---- phase telemetry: the serving and training paths with telemetry on ----
+
+TEL_TRAIN_STEPS = 3
+TEL_SERVE_PAIRS = 4       # serves with telemetry on and off, alternating which goes first
+CLOCK_TOL = 0.10          # summed decode.tick vs CUDA-event time over the same steps
+MFU_TOL = 0.03            # train/mfu vs the phase's own MFU, relative
+CLOCK_SLEEP_MS = 100.0    # device time planted at the end of each decode forward (clock check)
+CLOCK_MAX_NEW = 8
+TEL_DEVICE = None         # the engines' device (None: cuda:0) and serving dtype
+TEL_DTYPE = "bf16"
+
+
+def _validate_trace_tool():
+    """``tools/validate_trace.py`` of the checkout, loaded as a tool (its
+    chrome-trace checks import nothing of the package)."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
+                        "validate_trace.py")
+    spec = importlib.util.spec_from_file_location("validate_trace", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _reset_telemetry():
+    """The process-global registry and flight recorder, emptied (the counts
+    of one run must not leak into the next)."""
+    from deepspeed_tpu_torch.monitor import get_flight_recorder, get_registry
+    get_registry().reset()
+    get_flight_recorder().clear()
+
+
+def _cuda_event():
+    import torch
+    e = torch.cuda.Event(enable_timing=True)
+    e.record()
+    return e
+
+
+def _device_sleep_fn(ms):
+    """A callable that queues ``ms`` of device time (``torch.cuda._sleep``,
+    its cycles calibrated on the card here) without waiting for it."""
+    import torch
+    cycles = 10_000_000
+    torch.cuda._sleep(cycles)
+    torch.cuda.synchronize()
+    e0 = _cuda_event()
+    torch.cuda._sleep(cycles)
+    e1 = _cuda_event()
+    e1.synchronize()
+    n = int(cycles * ms / e0.elapsed_time(e1))
+    return lambda: torch.cuda._sleep(n)
+
+
+def early_clock_decode(self, reqs):
+    """The planted clock fault: a copy of ``_ServeSession._decode`` whose
+    ``decode.tick`` clock stops after the forward is dispatched, before the
+    token read, so it times the launch queue and not the device."""
+    import numpy as np
+    import torch
+    engine, sched, model = self.engine, self.sched, self.engine.module
+    W, n_max = self.W, self.n_max
+    bt = np.zeros((W, n_max), np.int32)
+    pos = np.zeros((W,), np.int32)
+    toks = np.zeros((W, 1), np.int64)
+    for i, r in enumerate(reqs):
+        bt[i, :len(r.blocks)] = r.blocks
+        pos[i] = r.pos
+        toks[i, 0] = r.last_token
+    t0 = time.monotonic_ns()
+    logits, self.pools = model.forward_paged_decode(
+        engine.params, self._tensor(toks, torch.long), self.pools,
+        self._tensor(bt, torch.int32), self._tensor(pos, torch.int32))
+    dur = time.monotonic_ns() - t0             # the fault: before the read
+    tok = self._sample(logits)
+    self.ev.emit("decode.tick", t_ns=t0, dur_ns=dur, rids=[r.rid for r in reqs], n=len(reqs))
+    sched.telemetry.phase("decode", dur / 1e6)
+    for i, r in enumerate(reqs):
+        sched.record_decode(r, int(tok[i]))
+
+
+def decode_clock_ratio(engine, prompts, decode, sleep):
+    """Serve ``prompts`` through ``engine`` (telemetry events on) with
+    ``decode`` as the session's decode step and ``sleep`` queued at the end
+    of every decode forward (device work the host does not wait for: queued
+    ahead of the forward, it would fill the launch queue and stall the
+    host's dispatch behind it): the summed ``decode.tick`` durations over
+    the CUDA-event time of the same steps (events recorded on entry to and
+    return from the step)."""
+    from deepspeed_tpu_torch.inference import engine as ie
+    from deepspeed_tpu_torch.monitor import get_flight_recorder
+    model = engine.module
+    forward = model.forward_paged_decode
+    pairs = []
+
+    def timed(self, reqs):
+        e0 = _cuda_event()
+        decode(self, reqs)
+        pairs.append((e0, _cuda_event()))
+
+    def slowed(*args, **kw):
+        out = forward(*args, **kw)
+        sleep()
+        return out
+
+    get_flight_recorder().clear()
+    sound = ie._ServeSession._decode
+    ie._ServeSession._decode = timed
+    model.forward_paged_decode = slowed
+    try:
+        engine.generate_batch(prompts, max_new_tokens=CLOCK_MAX_NEW)
+    finally:
+        ie._ServeSession._decode = sound
+        del model.forward_paged_decode
+    pairs[-1][1].synchronize()
+    event_ms = sum(a.elapsed_time(b) for a, b in pairs)
+    ticks = [e.dur_ns for e in get_flight_recorder().snapshot() if e.kind == "decode.tick"]
+    check(len(ticks) == len(pairs) > 0, f"{len(ticks)} decode.tick events, {len(pairs)} steps")
+    return sum(ticks) / 1e6 / event_ms, event_ms
+
+
+def registry_launch_rule(cfg, counters):
+    """A and B launches of a serve from the metrics registry's step
+    counters: A once a layer per whole-prompt prefill (admissions that
+    scheduled prefill work less those that began with a chunk: with
+    chunking off each has one), B once a layer per decode step and per
+    verify-window position."""
+    return {"flash_attention_fwd": cfg.n_layer * int(counters["serving/prefill_steps"]
+                                                     - counters["serving/prefill_chunks"]),
+            "paged_decode_attention": cfg.n_layer * int(
+                counters["serving/decode_steps"]
+                + SPEC_WB * counters["serving/spec_verify_steps"])}
+
+
+def _tel_train(seed, telemetry):
+    """The train phase's configuration, TEL_TRAIN_STEPS steps from its
+    seeded state: losses (read after the steps), per-step host syncs
+    through the accelerator, launches and host-clock seconds, and the
+    engine's telemetry snapshot."""
+    import torch
+    import deepspeed_tpu_torch.accelerator.abstract_accelerator as accel
+    config = dict(TRAIN_CONFIG)
+    if telemetry:
+        config["telemetry"] = {"events": True}
+    model, engine, batch = _train_setup(seed, config)
+    losses, syncs, launches, step_s = [], [], [], []
+    for _ in range(TEL_TRAIN_STEPS):
+        before = _train_counters()
+        s0 = accel.syncs
+        t = time.perf_counter()
+        losses.append(engine.train_batch(batch))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        syncs.append(accel.syncs - s0)
+        after = _train_counters()
+        launches.append({k: after[k] - before[k] for k in after})
+    losses = [float(x) for x in losses]
+    snap = engine.telemetry_snapshot()
+    rule = train_launch_rule(engine)
+    engine.destroy()
+    del engine, batch
+    torch.cuda.empty_cache()
+    return model, losses, syncs, launches, step_s, snap, rule
+
+
+def phase_telemetry(state, seed):
+    """Full Llama-2-7B served with ``telemetry={"events": True}`` and
+    without (the serve phase's prompts), TEL_SERVE_PAIRS pairs of fresh
+    engines over one weight tree, alternating which side goes first: tokens
+    equal, tokens/s of every serve, TTFT / TPOT p50 and p99 from the
+    registry, A and B launches against the registry's step counters, the
+    snapshot and the exported serving trace valid, the same host syncs; the
+    decode clock against CUDA events with device time planted after each
+    decode forward (sound within CLOCK_TOL, the early-clock copy outside it). Then the train phase's configuration for
+    TEL_TRAIN_STEPS steps with telemetry on and off: losses bit-equal,
+    launches equal to the train rule, one host sync a step on and none
+    off, ``train/mfu`` within MFU_TOL of the phase's own."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import deepspeed_tpu_torch
+    import deepspeed_tpu_torch.accelerator.abstract_accelerator as accel
+    from deepspeed_tpu_torch.accelerator import get_accelerator
+    from deepspeed_tpu_torch.inference import engine as ie
+    from deepspeed_tpu_torch.monitor import get_flight_recorder, validate_snapshot
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    from deepspeed_tpu_torch.ops.kernels import paged_decode_attention as pda
+
+    failures = []
+    t_phase = time.perf_counter()
+    model, params = _llama7b(seed)
+    cfg = model.config
+    prompts = _serve_prompts(cfg, seed)
+    rng = np.random.default_rng(seed + 7)
+    shared = rng.integers(0, cfg.vocab_size, size=128)
+    warm = [np.concatenate([shared, rng.integers(0, cfg.vocab_size, size=n)]) for n in (9, 40)]
+
+    def engine(on):
+        """A fresh engine over the one weight tree, warmed up (a prefill, a
+        cache-hit chunk, decodes), so every measured serve does the same work."""
+        eng = deepspeed_tpu_torch.init_inference(
+            model, params=params, dtype=TEL_DTYPE, device=TEL_DEVICE,
+            **({"telemetry": {"events": True}} if on else {}))
+        eng.generate_batch(warm, max_new_tokens=4)
+        return eng
+
+    runs = {}
+    for i in range(TEL_SERVE_PAIRS):      # alternating which side serves first
+        for on in ((True, False) if i % 2 == 0 else (False, True)):
+            name = f"{'on' if on else 'off'}{i}"
+            eng = engine(on)
+            _reset_telemetry()
+            fa.launches = pda.launches = 0
+            s0 = accel.syncs
+            t0 = time.perf_counter()
+            outs = eng.generate_batch(prompts, max_new_tokens=SERVE_MAX_NEW)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            gen = sum(np.asarray(o).size - p.size for p, o in zip(prompts, outs))
+            runs[name] = {"outs": [np.asarray(o) for o in outs], "wall_s": wall,
+                          "tokens_per_s": gen / wall, "syncs": accel.syncs - s0,
+                          "a": fa.launches, "b": pda.launches,
+                          "snap": eng.telemetry_snapshot(),
+                          "actions": eng._last_serve_actions}
+            if name == "on0":
+                trace_dir = tempfile.mkdtemp(prefix="ds_telemetry_")
+                trace = eng.export_serving_trace(os.path.join(trace_dir, "serve_trace.json"))
+                trace_errors = _validate_trace_tool().validate_path(trace, kind="chrome")
+                shutil.rmtree(trace_dir, ignore_errors=True)
+                n_events = len(get_flight_recorder())
+            del eng
+    r_on = runs["on0"]
+    rows_equal = sum(np.array_equal(a, b) for a, b in zip(r_on["outs"], runs["off0"]["outs"]))
+    if rows_equal != len(prompts):
+        failures.append(f"telemetry changed tokens: {rows_equal} of {len(prompts)} rows equal")
+    snap = r_on["snap"]
+    try:
+        validate_snapshot(snap)
+    except ValueError as e:
+        failures.append(f"snapshot invalid: {e}")
+    if trace_errors:
+        failures.append(f"serving trace invalid: {trace_errors[:3]}")
+    c, h = snap["counters"], snap["histograms"]
+    serve_launches = {"flash_attention_fwd": r_on["a"], "paged_decode_attention": r_on["b"]}
+    want = registry_launch_rule(cfg, c)
+    if serve_launches != want or not (c["serving/decode_steps"] > 0
+                                      and c["serving/prefill_steps"] > 0):
+        failures.append(f"launches {serve_launches} != the registry's rule {want}")
+    if serve_launches != serve_launch_rule(cfg, r_on["actions"]):
+        failures.append(f"launches {serve_launches} != the actions' rule {r_on['actions']}")
+    if h["serving/ttft_ms"]["count"] != len(prompts) or c["serving/requests"] != len(prompts):
+        failures.append(f"ttft count {h['serving/ttft_ms']['count']} for {len(prompts)} requests")
+    for name, r in runs.items():
+        same = [np.array_equal(a, b) for a, b in zip(r["outs"], r_on["outs"])]
+        if not all(same) or (r["a"], r["b"], r["syncs"]) != (r_on["a"], r_on["b"],
+                                                             r_on["syncs"]):
+            failures.append(f"run {name}: rows equal {sum(same)}, launches A {r['a']} B "
+                            f"{r['b']}, host syncs {r['syncs']} (on0: {r_on['a']}, "
+                            f"{r_on['b']}, {r_on['syncs']})")
+    tps = {side: sorted(r["tokens_per_s"] for k, r in runs.items() if k.startswith(side))
+           for side in ("on", "off")}
+    wins_on = sum(runs[f"on{i}"]["tokens_per_s"] > runs[f"off{i}"]["tokens_per_s"]
+                  for i in range(TEL_SERVE_PAIRS))
+
+    # the decode clock against CUDA events, device time planted ahead of each step
+    sleep = _device_sleep_fn(CLOCK_SLEEP_MS)
+    clock_prompts = [rng.integers(0, cfg.vocab_size, size=n) for n in (96, 160)]
+    on = engine(True)
+    ratio, event_ms = decode_clock_ratio(on, clock_prompts, ie._ServeSession._decode, sleep)
+    fault_prompts = [rng.integers(0, cfg.vocab_size, size=n) for n in (96, 160)]
+    fault_ratio, fault_event_ms = decode_clock_ratio(on, fault_prompts, early_clock_decode,
+                                                     sleep)
+    if abs(ratio - 1.0) > CLOCK_TOL:
+        failures.append(f"decode.tick / CUDA-event time {ratio:.3f} outside {CLOCK_TOL}")
+    if abs(fault_ratio - 1.0) <= CLOCK_TOL:
+        failures.append(f"the early-clock fault read {fault_ratio:.3f}, inside {CLOCK_TOL}")
+    del on, model, params
+    torch.cuda.empty_cache()
+
+    # training with telemetry on and off from the same seeded state
+    tmodel, l_on, sy_on, la_on, st_on, tsnap, rule = _tel_train(seed, True)
+    _, l_off, sy_off, la_off, _, _, _ = _tel_train(seed, False)
+    if l_on != l_off:
+        failures.append(f"train losses differ: on {l_on}, off {l_off}")
+    if sy_on != [1] * TEL_TRAIN_STEPS or sy_off != [0] * TEL_TRAIN_STEPS:
+        failures.append(f"host syncs a step: on {sy_on}, off {sy_off}")
+    for k, n in rule.items():
+        if any(s[k] != n for s in la_on + la_off):
+            failures.append(f"{k} launches a step on {[s[k] for s in la_on]}, "
+                            f"off {[s[k] for s in la_off]} != {n}")
+    acc = get_accelerator("cuda") if TEL_DEVICE is None else get_accelerator(TEL_DEVICE)
+    peak = acc.peak_tflops()
+    flops_tok = tmodel.flops_per_token(TRAIN_SEQ)
+    tokens = TRAIN_CONFIG["train_batch_size"] * TRAIN_SEQ
+    own_mfu = flops_tok * tokens / st_on[-1] / (peak * 1e12) if peak else 0.0
+    gauge_mfu = tsnap["gauges"]["train/mfu"]
+    if peak and abs(gauge_mfu / own_mfu - 1.0) > MFU_TOL:
+        failures.append(f"train/mfu {gauge_mfu:.4f} vs the phase's {own_mfu:.4f}")
+    if tsnap["counters"]["train/steps"] != TEL_TRAIN_STEPS:
+        failures.append(f"train/steps {tsnap['counters']['train/steps']}")
+    launches = dict(serve_launches)
+    for k in rule:
+        launches[k] = launches.get(k, 0) + sum(s[k] for s in la_on)
+    state["telemetry_launches"] = launches
+
+    hist = lambda name: {q: h[name][q] for q in ("count", "p50", "p99", "mean")}
+    emit("telemetry", model="llama-2-7b", layers=cfg.n_layer, requests=len(prompts),
+         max_new_tokens=SERVE_MAX_NEW, rows_equal=int(rows_equal),
+         tokens_per_s={k: r["tokens_per_s"] for k, r in runs.items()},
+         tokens_per_s_median_on=statistics.median(tps["on"]),
+         tokens_per_s_median_off=statistics.median(tps["off"]),
+         pairs_on_faster=wins_on, pairs=TEL_SERVE_PAIRS,
+         wall_s={k: r["wall_s"] for k, r in runs.items()},
+         ttft_ms=hist("serving/ttft_ms"), tpot_ms=hist("serving/tpot_ms"),
+         queue_wait_ms=hist("serving/queue_wait_ms"),
+         phase_ms={k.split("phase=")[1].split('"')[1]: v["mean"] for k, v in h.items()
+                   if k.startswith("serving/phase_ms")},
+         serving_counters={k: v for k, v in c.items() if k.startswith("serving/") and v},
+         events=n_events, trace_valid=not trace_errors,
+         host_syncs_serve={k: r["syncs"] for k, r in runs.items()},
+         launches_serve=serve_launches, launches_registry_rule=want,
+         decode_clock_ratio=ratio, decode_event_ms=event_ms,
+         fault_early_clock_ratio=fault_ratio, fault_event_ms=fault_event_ms,
+         clock_tol=CLOCK_TOL, clock_sleep_ms=CLOCK_SLEEP_MS,
+         train_losses_on=l_on, train_losses_off=l_off, train_losses_equal=l_on == l_off,
+         train_syncs_on=sy_on, train_syncs_off=sy_off, train_step_s_on=st_on,
+         train_mfu_gauge=gauge_mfu, train_mfu_own=own_mfu, mfu_tol=MFU_TOL,
+         train_step_time_ms=tsnap["histograms"]["train/step_time_ms"]["mean"],
+         train_tokens_per_s=tsnap["gauges"]["train/tokens_per_sec"],
+         train_launches_per_step=rule, phase_s=time.perf_counter() - t_phase,
+         card=state.get("card"))
+    check(not failures, "telemetry failed: " + "; ".join(failures))
+
+
 def phase_kernels(state):
     res = state.get("kernel_results", {})
     serve = state.get("launches", {})
@@ -3999,6 +4351,7 @@ def phase_kernels(state):
     train_sparse = state.get("train_sparse_launches", {})
     resume = state.get("resume_launches", {})
     ingest = state.get("ingest_launches", {})
+    telemetry = state.get("telemetry_launches", {})
     rows = []
     meta = {
         "flash_attention_fwd": (
@@ -4067,7 +4420,8 @@ def phase_kernels(state):
                                            ("generate", gen), ("train", train),
                                            ("train_lamb", train_lamb),
                                            ("train_sparse", train_sparse),
-                                           ("resume", resume), ("ingest", ingest))
+                                           ("resume", resume), ("ingest", ingest),
+                                           ("telemetry", telemetry))
                    if name in n}
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                      "launches": sum(by_path.values()) if by_path else None,

@@ -2,11 +2,19 @@
 ``deepspeed_tpu/accelerator/abstract_accelerator.py``): the surface callers
 use instead of a hard-coded backend. Devices are ``torch.device``s, RNG is a
 ``torch.Generator``, memory stats come from the CUDA caching allocator, and
-the device's peak rates live here (the roofline and MFU denominators)."""
+the device's peak rates live here (the roofline and MFU denominators).
+
+Host syncs go through the accelerator so they can be counted:
+:meth:`DeepSpeedAccelerator.synchronize` and :meth:`DeepSpeedAccelerator.to_host`
+(a blocking device read) add one to the module's ``syncs`` counter (a plain
+int; set it to 0 before a run, read it after)."""
 
 from __future__ import annotations
 
 import abc
+
+#: synchronize() calls and to_host() reads, on any accelerator
+syncs = 0
 
 
 class DeepSpeedAccelerator(abc.ABC):
@@ -23,9 +31,29 @@ class DeepSpeedAccelerator(abc.ABC):
     def device_count(self) -> int:
         ...
 
-    @abc.abstractmethod
     def synchronize(self) -> None:
+        """Wait for the device's queued work (counted in ``syncs``)."""
+        global syncs
+        syncs += 1
+        self._synchronize()
+
+    @abc.abstractmethod
+    def _synchronize(self) -> None:
         ...
+
+    def to_host(self, tensor):
+        """``tensor`` on the host: a blocking device read of a device
+        tensor (counted in ``syncs``, on the CPU too, so the tests see the
+        same count as the card)."""
+        global syncs
+        syncs += 1
+        return tensor.detach().cpu()
+
+    def range_push(self, name: str) -> None:
+        """Open a named range on the device profiler's timeline."""
+
+    def range_pop(self) -> None:
+        """Close the innermost :meth:`range_push` range."""
 
     @abc.abstractmethod
     def default_generator(self, seed: int = 0):
@@ -46,7 +74,8 @@ class DeepSpeedAccelerator(abc.ABC):
 
     @abc.abstractmethod
     def peak_tflops(self) -> float:
-        """Dense bf16 peak TFLOP/s of one device, 0.0 when unknown."""
+        """Dense bf16 peak TFLOP/s of one device, 0.0 when unknown
+        (``DS_PEAK_TFLOPS`` overrides it, as in the JAX package)."""
 
     @abc.abstractmethod
     def memory_bandwidth(self) -> float:

@@ -4,6 +4,8 @@ tests use."""
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 from deepspeed_tpu_torch.accelerator.abstract_accelerator import DeepSpeedAccelerator
@@ -28,8 +30,14 @@ class CUDA_Accelerator(DeepSpeedAccelerator):
     def device_count(self) -> int:
         return torch.cuda.device_count()
 
-    def synchronize(self) -> None:
+    def _synchronize(self) -> None:
         torch.cuda.synchronize()
+
+    def range_push(self, name: str) -> None:
+        torch.cuda.nvtx.range_push(name)
+
+    def range_pop(self) -> None:
+        torch.cuda.nvtx.range_pop()
 
     def default_generator(self, seed: int = 0):
         return torch.Generator(device=self.device()).manual_seed(int(seed))
@@ -61,6 +69,9 @@ class CUDA_Accelerator(DeepSpeedAccelerator):
         return 0.0, 0.0
 
     def peak_tflops(self) -> float:
+        env = os.environ.get("DS_PEAK_TFLOPS")
+        if env:
+            return float(env)
         return self._peak()[0]
 
     def memory_bandwidth(self) -> float:
@@ -86,7 +97,7 @@ class CPU_Accelerator(DeepSpeedAccelerator):
     def device_count(self) -> int:
         return 1
 
-    def synchronize(self) -> None:
+    def _synchronize(self) -> None:
         pass
 
     def default_generator(self, seed: int = 0):
@@ -102,7 +113,8 @@ class CPU_Accelerator(DeepSpeedAccelerator):
         return {"cpu": {}}
 
     def peak_tflops(self) -> float:
-        return 0.0
+        env = os.environ.get("DS_PEAK_TFLOPS")
+        return float(env) if env else 0.0
 
     def memory_bandwidth(self) -> float:
         return 0.0

@@ -27,6 +27,16 @@ def get_accelerator(name: Optional[str] = None) -> DeepSpeedAccelerator:
     return CUDA_Accelerator()
 
 
+def default_accelerator() -> DeepSpeedAccelerator:
+    """For host-side tools that serve no engine (span ranges, timers,
+    memory gauges): the CUDA accelerator when a device is there, else the
+    CPU's."""
+    try:
+        return get_accelerator()
+    except RuntimeError:
+        return get_accelerator("cpu")
+
+
 def resolve_device(device=None) -> torch.device:
     """An entry point's device: ``None`` -> ``cuda:0``, raising without a
     CUDA device; the CPU only when asked for (the tests run the kernels'

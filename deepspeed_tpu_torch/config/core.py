@@ -9,7 +9,9 @@ params; ``gradient_clipping``; fp16 / bf16 / amp; the gradient accumulation
 dtype; ``fused_cross_entropy``; ``quantize_training`` (MoQ, read as the
 JAX package reads it: on only with ``enabled: true``); the ``checkpoint``
 section (:class:`CheckpointConfig`, the crash-safe engine's knobs) and
-``dataloader_drop_last``; ``steps_per_print`` and ``wall_clock_breakdown``.
+``dataloader_drop_last``; ``steps_per_print`` and ``wall_clock_breakdown``;
+``telemetry`` (``monitor/config.py``: the engine refuses its unported
+sub-blocks) and the ``tensorboard`` / ``wandb`` / ``csv_monitor`` sinks.
 
 The world size is 1. ``zero_optimization.stage`` 0-3 is accepted: on one
 device every ZeRO stage replicates everything, as the JAX sharding rules do
@@ -29,6 +31,7 @@ from typing import Any, Dict, Optional, Union
 
 from deepspeed_tpu_torch.config import constants as C
 from deepspeed_tpu_torch.config.precision import AMPConfig, BF16Config, FP16Config
+from deepspeed_tpu_torch.monitor.config import get_monitor_config, get_telemetry_config
 from deepspeed_tpu_torch.utils.not_ported import not_ported
 
 
@@ -88,7 +91,7 @@ _READ = {
     C.STEPS_PER_PRINT, C.WALL_CLOCK_BREAKDOWN, C.OPTIMIZER, C.SCHEDULER, C.GRADIENT_CLIPPING,
     C.FP16, C.BFLOAT16, C.BFLOAT16_OLD, C.AMP, C.DATA_TYPES, C.ZERO_OPTIMIZATION,
     C.FUSED_CROSS_ENTROPY, C.SPARSE_ATTENTION, "mesh", "quantize_training", "checkpoint",
-    "dataloader_drop_last",
+    "dataloader_drop_last", "telemetry", "tensorboard", "wandb", "csv_monitor",
 }
 # keys the JAX package reads whose effect is on multi-device runs or on
 # engine features outside training itself; on one device they change nothing
@@ -101,12 +104,8 @@ _NO_EFFECT_ON_ONE_DEVICE = {
 _NOT_PORTED = {
     "pipeline": ("pipeline parallelism", "runtime/pipe/"),
     "compression_training": ("compression", "compression"),
-    "telemetry": ("training telemetry", "telemetry and control plane"),
-    "tensorboard": ("the tensorboard monitor", "telemetry and control plane"),
-    "wandb": ("the wandb monitor", "telemetry and control plane"),
-    "csv_monitor": ("the csv monitor", "telemetry and control plane"),
     "comet": ("the comet monitor", "telemetry and control plane"),
-    "comms_logger": ("the comms logger", "telemetry and control plane"),
+    "comms_logger": ("the comms logger", "comm/"),
     "flops_profiler": ("the flops profiler", "profiling/"),
     "nebula": ("nebula checkpointing", "checkpoint ingestion (orbax)"),
     "elasticity": ("elastic training", "elasticity/"),
@@ -170,8 +169,6 @@ def _refuse_outside_slice(param_dict: Dict) -> None:
     if str(ckpt.get("engine", "safe")).lower() == "orbax":
         not_ported("the orbax checkpoint engine (checkpoint.engine='orbax')",
                    "queue 1: checkpoint ingestion (orbax)")
-    if param_dict.get(C.WALL_CLOCK_BREAKDOWN, False):
-        not_ported("wall_clock_breakdown timers", "queue 1: telemetry and control plane")
 
 
 class DeepSpeedConfig:
@@ -203,6 +200,8 @@ class DeepSpeedConfig:
         self.steps_per_print = param_dict.get(C.STEPS_PER_PRINT, C.STEPS_PER_PRINT_DEFAULT)
         self.wall_clock_breakdown = param_dict.get(C.WALL_CLOCK_BREAKDOWN,
                                                    C.WALL_CLOCK_BREAKDOWN_DEFAULT)
+        self.monitor_config = get_monitor_config(param_dict)
+        self.telemetry_config = get_telemetry_config(param_dict)
 
         zero = param_dict.get(C.ZERO_OPTIMIZATION, {})
         if isinstance(zero, bool):        # the reference's deprecated boolean form

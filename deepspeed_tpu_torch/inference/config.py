@@ -14,6 +14,7 @@ from typing import Any, Dict, Optional, Union
 import torch
 
 from deepspeed_tpu_torch.config.config_utils import ConfigModel, alias, sub
+from deepspeed_tpu_torch.monitor.config import TelemetryConfig, get_telemetry_config
 from deepspeed_tpu_torch.utils.logging import warn_once
 
 config = dataclasses.dataclass(init=False)
@@ -207,9 +208,10 @@ class DeepSpeedInferenceConfig(ConfigModel):
     checkpoint_config: InferenceCheckpointConfig = sub(InferenceCheckpointConfig,
                                                        alias="ckpt_config")
     serving: ServingConfig = sub(ServingConfig)
-    # serving telemetry: a dict, a bool or "on"/"off" as in the JAX package;
-    # the engine refuses it switched on (the monitor slice is not ported)
-    telemetry: Any = None
+    # serving telemetry (TTFT/TPOT histograms, queue depth, KV utilization,
+    # the flight recorder): a dict, a bool or "on"/"off", parsed by
+    # monitor/config.get_telemetry_config as in the JAX package
+    telemetry: TelemetryConfig = sub(TelemetryConfig)
     return_tuple: bool = True
     training_mp_size: int = 1
     replace_method: str = "auto"
@@ -235,18 +237,13 @@ class DeepSpeedInferenceConfig(ConfigModel):
         moe = data.get("moe")
         if isinstance(moe, bool):
             data["moe"] = DeepSpeedMoEConfig(enabled=moe)
+        if "telemetry" in data:
+            # dicts too: the sub-blocks accept shorthands only
+            # get_telemetry_config understands
+            data["telemetry"] = get_telemetry_config({"telemetry": data["telemetry"]})
         super().__init__(**data)
 
     def telemetry_enabled(self) -> bool:
         """Whether ``telemetry`` switches anything on (JAX semantics: a bool,
         "on"/"off", or a dict with ``enabled`` or an enabled sub-block)."""
-        t = self.telemetry
-        if t is None or t is False or t == "off":
-            return False
-        if t is True or t == "on":
-            return True
-        if isinstance(t, dict):
-            if "enabled" in t:
-                return bool(t["enabled"])
-            return any(v not in (None, False, "off", {}) for v in t.values())
-        raise ValueError(f"telemetry={t!r}: expected a bool, 'on'/'off' or a dict")
+        return bool(self.telemetry.enabled)

@@ -23,6 +23,20 @@ and for models that cannot page. ``forward`` is the full-sequence forward.
 Where the JAX engine jit-compiles each step with donated buffers (and runs
 the whole decode loop on the device), the port runs eagerly, updates the
 pools and the workspace in place, and loops over tokens on the host.
+
+With ``telemetry`` on, the scheduler feeds the serving series of the
+metrics registry (TTFT, TPOT, queue and KV gauges, step counters) and, with
+``telemetry.events``, the flight recorder gets the JAX engine's event
+stream: ``serve.begin`` / ``serve.end`` around ``generate_batch`` and the
+timed ``req.prefill``, ``req.prefill_chunk``, ``req.cow_copy``,
+``decode.tick`` and ``req.spec_verify`` spans, each with its
+``serving/phase_ms`` observation. A span that ends with a token read is
+clocked from before its forward is dispatched until the token is on the
+host, so it times the device work and not the launch queue. A span with
+no token read (a copy-on-write copy, a non-final prefill chunk) is timed
+on the card by a pair of CUDA events and emitted at the session's next
+token read, which the loop makes anyway: telemetry adds no sync.
+
 Settings outside the port's slices raise ``NotImplementedError`` naming
 the ROADMAP item that will bring them.
 """
@@ -30,17 +44,19 @@ the ROADMAP item that will bring them.
 from __future__ import annotations
 
 import collections
-from typing import Optional
+import time
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
-from deepspeed_tpu_torch.accelerator.real_accelerator import resolve_device
+from deepspeed_tpu_torch.accelerator.real_accelerator import get_accelerator, resolve_device
 from deepspeed_tpu_torch.inference.block_allocator import DUMMY_BLOCK, BlockAllocator
 from deepspeed_tpu_torch.inference.config import DeepSpeedInferenceConfig, DtypeEnum
-from deepspeed_tpu_torch.inference.scheduler import ContinuousBatchingScheduler
+from deepspeed_tpu_torch.inference.scheduler import ContinuousBatchingScheduler, ServingTelemetry
 from deepspeed_tpu_torch.inference.spec import NgramProposer
 from deepspeed_tpu_torch.models.transformer import copy_paged_block
+from deepspeed_tpu_torch.monitor.config import refuse_unported
 from deepspeed_tpu_torch.utils.logging import log_dist, warn_once
 from deepspeed_tpu_torch.utils.not_ported import not_ported
 
@@ -52,6 +68,7 @@ class InferenceEngine:
         self._config = config or DeepSpeedInferenceConfig()
         self._refuse_outside_slice(model)
         self.device = resolve_device(device)
+        self._acc = get_accelerator(self.device.type)
         self.dtype = DtypeEnum.from_any(self._config.dtype).torch
         cfg = getattr(model, "config", None)
         if (self.device.type == "cuda" and self.dtype == torch.float32
@@ -77,6 +94,27 @@ class InferenceEngine:
         self._active_session = None  # at most ONE serving session owns the pools
         self._last_serve_stats = {}
         self._last_serve_actions = {}
+
+        # ---- telemetry (serving stats + build watchdog) ----
+        tcfg = self._config.telemetry
+        self._telemetry = tcfg if tcfg.enabled else None
+        self._serving_tel = None
+        # flight recorder: None when off, so every emit site gates at one
+        # None check and allocates nothing
+        self._events = None
+        if self._telemetry is not None:
+            from deepspeed_tpu_torch.monitor.metrics import get_registry
+            from deepspeed_tpu_torch.monitor.trace import get_compile_watchdog
+            reg = get_registry()
+            reg.set_enabled(True)
+            self._tel_reg = reg
+            self._tel_watchdog = get_compile_watchdog()
+            self._serving_tel = ServingTelemetry(reg)
+            if tcfg.events.enabled:
+                from deepspeed_tpu_torch.monitor.events import TaggedRecorder, get_flight_recorder
+                # one global ring; the wrapper stamps replica= on every event
+                self._events = TaggedRecorder(get_flight_recorder().enable(
+                    capacity=tcfg.events.capacity))
         log_dist(f"InferenceEngine ready: dtype={self.dtype}, device={self.device}",
                  ranks=[0])
 
@@ -94,8 +132,7 @@ class InferenceEngine:
         off = dict(c.zero or {}).get("offload_param", {})
         if str(off.get("device", "none")).lower() in ("cpu", "nvme"):
             not_ported("ZeRO-Inference weight streaming", "queue 1: ZeRO-Inference")
-        if c.telemetry_enabled():
-            not_ported("serving telemetry", "queue 1: telemetry and control plane")
+        refuse_unported(c.telemetry)
         if srv.kv_host.enabled:
             not_ported("the tiered KV cache (serving.kv_host)", "queue 1: tiered KV cache")
 
@@ -128,6 +165,44 @@ class InferenceEngine:
                      f"({len(list(params.parameters()))} tensors)", ranks=[0])
             return model, params
         return model, None
+
+    # ------------------------------------------------------------------ #
+    # telemetry
+
+    def telemetry_snapshot(self) -> Dict:
+        """Whole-process registry snapshot plus the build watchdog's
+        summary under ``"compile"``. Empty dict when telemetry is off."""
+        if self._telemetry is None:
+            return {}
+        from deepspeed_tpu_torch.monitor.health import sample_memory_gauges
+        sample_memory_gauges(self._tel_reg, self._acc)
+        snap = self._tel_reg.snapshot()
+        snap["compile"] = self._tel_watchdog.summary()
+        return snap
+
+    def export_serving_trace(self, path: str) -> str:
+        """Render the flight recorder's serving events as chrome-trace JSON
+        (Perfetto / chrome://tracing): one track per request with its
+        admission-to-retire span and prefill / decode / COW child slices,
+        plus queue-depth and KV-block counter tracks. Requires
+        ``telemetry.events``; ``tools/validate_trace.py`` checks the file."""
+        if self._events is None:
+            raise ValueError(
+                "serving trace export needs the flight recorder: set "
+                "telemetry.events (e.g. telemetry={'events': True}) on "
+                "init_inference")
+        from deepspeed_tpu_torch.monitor.events import export_serving_trace
+        return export_serving_trace(self._events.snapshot(), path)
+
+    def set_replica(self, name: str) -> None:
+        """Name this engine's replica: the tag lands on every flight-recorder
+        event it emits and on its ``serving/phase_ms`` /
+        ``serving/wasted_tokens`` label sets (default ``r0``)."""
+        name = str(name)
+        if self._events is not None:
+            self._events.replica = name
+        if self._serving_tel is not None:
+            self._serving_tel.replica = name
 
     # ------------------------------------------------------------------ #
     # helpers shared with the JAX engine
@@ -355,6 +430,10 @@ class InferenceEngine:
         session = self.open_serve_session(max_new=max_new, temperature=temperature,
                                           top_k=top_k, seed=seed,
                                           eos_token_id=eos_token_id)
+        ev = self._events
+        t_serve0 = time.monotonic_ns() if ev is not None else 0
+        if ev is not None:
+            ev.emit("serve.begin", t_ns=t_serve0, requests=len(prompts))
         try:
             for p in prompts:
                 session.add(p)
@@ -362,6 +441,9 @@ class InferenceEngine:
                 pass
         finally:
             session.close()
+        if ev is not None:
+            ev.emit("serve.end", t_ns=t_serve0, dur_ns=time.monotonic_ns() - t_serve0,
+                    requests=len(prompts))
         session.end()
         failed = [r for r in session.sched.finished if r.error is not None]
         if failed:
@@ -430,8 +512,13 @@ class InferenceEngine:
 
         pools, pools_reused = self._paged_pools(num_blocks, bs)
         alloc = self._paged_allocator(num_blocks, bs, caching, pools_reused)
-        sched = ContinuousBatchingScheduler(alloc, W, n_max, prefix_caching=caching,
+        if self._serving_tel is not None:
+            self._serving_tel.tp.set(1.0)      # one device: no head-sharded pools
+        sched = ContinuousBatchingScheduler(alloc, W, n_max,
+                                            telemetry=self._serving_tel,
+                                            prefix_caching=caching,
                                             chunk_tokens=chunk_tokens,
+                                            events=self._events,
                                             rid_base=self._serve_rid_base,
                                             spec_k=spec_k if spec_on else 0,
                                             spec_proposer=proposer)
@@ -469,6 +556,10 @@ class _ServeSession:
         #: scheduler actions executed, by kind (plain host counters)
         self.actions = collections.Counter()
         self._closed = False
+        # flight recorder (None when off) and the spans with no token read
+        # of their own, waiting for the next one (CUDA only)
+        self.ev = engine._events
+        self._pending_spans = []
 
     # ---- request front-end ---- #
 
@@ -503,16 +594,69 @@ class _ServeSession:
     def _tensor(self, a, dtype):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.engine.device)
 
+    def _to_host(self, t):
+        """The loop's one device read a step (through the accelerator,
+        which counts it); spans waiting for a read are resolved after it."""
+        out = self.engine._acc.to_host(t).numpy()
+        if self._pending_spans:
+            self._flush_spans()
+        return out
+
     def _sample(self, logits):
         """Host int64 tokens ``[B]``."""
-        return self.engine._sample(logits, self.temperature, self.top_k,
-                                   self.generator).cpu().numpy()
+        return self._to_host(self.engine._sample(logits, self.temperature, self.top_k,
+                                                 self.generator))
+
+    # ---- flight-recorder spans ---- #
+
+    def _span(self, kind, rid, phase, t0, **data):
+        """Emit one timed span that ended with a token read (``t0`` taken
+        before its forward was dispatched), with its phase_ms sample."""
+        dur = time.monotonic_ns() - t0
+        self.ev.emit(kind, rid=rid, t_ns=t0, dur_ns=dur, **data)
+        tel = self.sched.telemetry
+        if tel is not None:
+            tel.phase(phase, dur / 1e6, rid=rid)
+
+    def _unread_span_start(self):
+        """Start of a span the loop reads no token for (a COW copy, a
+        non-final chunk): the host clock, plus a CUDA event on the card."""
+        t0 = time.monotonic_ns()
+        if self.engine.device.type != "cuda":
+            return t0, None
+        e0 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        return t0, e0
+
+    def _unread_span_end(self, start, kind, rid, phase, **data):
+        """On the CPU the work is done: emit now. On the card, close the
+        span with a second CUDA event and emit it after the next token
+        read, its duration the device time between the two events."""
+        t0, e0 = start
+        if e0 is None:
+            self._span(kind, rid, phase, t0, **data)
+            return
+        e1 = torch.cuda.Event(enable_timing=True)
+        e1.record()
+        self._pending_spans.append((kind, rid, phase, t0, e0, e1, data))
+
+    def _flush_spans(self, wait: bool = False) -> None:
+        tel = self.sched.telemetry
+        for kind, rid, phase, t0, e0, e1, data in self._pending_spans:
+            if wait:
+                e1.synchronize()
+            dur = int(e0.elapsed_time(e1) * 1e6)
+            self.ev.emit(kind, rid=rid, t_ns=t0, dur_ns=dur, **data)
+            if tel is not None:
+                tel.phase(phase, dur / 1e6, rid=rid)
+        self._pending_spans.clear()
 
     @torch.no_grad()
     def _exec(self, action) -> None:
         engine, sched, model = self.engine, self.sched, self.engine.module
         cfg = model.config
-        bs, W, n_max = self.bs, self.W, self.n_max
+        bs, n_max = self.bs, self.n_max
+        ev = self.ev
         kind, payload = action
         self.actions[kind] += 1
         if kind == "wait":
@@ -525,17 +669,24 @@ class _ServeSession:
             toks = np.zeros((1, Tb), np.int64)
             toks[0, :L] = prefix
             slots = engine._flat_slots(np.asarray(req.blocks, np.int32), 0, L, Tb, bs)
+            t0 = time.monotonic_ns() if ev is not None else 0
             logits, self.pools = model.forward_paged_prefill(
                 engine.params, self._tensor(toks, torch.long), self.pools,
                 self._tensor(slots, torch.long), L - 1)
-            sched.record_prefill(req, int(self._sample(logits)[0]))
+            tok = int(self._sample(logits)[0])
+            if ev is not None:
+                self._span("req.prefill", req.rid, "prefill", t0, tokens=L)
+            sched.record_prefill(req, tok)
         elif kind == "prefill_chunk":
             req = payload
             if req.cow_pending is not None:
                 # copy-on-write split: the request restarts mid-block inside a
                 # SHARED cached block — give it a private copy before it writes
                 src, dst = req.cow_pending
+                span = self._unread_span_start() if ev is not None else None
                 self.pools = copy_paged_block(self.pools, src, dst)
+                if ev is not None:
+                    self._unread_span_end(span, "req.cow_copy", req.rid, "cow", src=src, dst=dst)
                 req.cow_pending = None
             start = req.pos
             remaining = req.prefill_target - start
@@ -550,33 +701,61 @@ class _ServeSession:
             nb = min(n_max, 1 << max(int(table.size) - 1, 0).bit_length())
             bt = np.zeros((1, nb), np.int32)
             bt[0, :table.size] = table
+            final = start + step == req.prefill_target
+            span = None
+            if ev is not None:
+                span = (time.monotonic_ns(), None) if final else self._unread_span_start()
             logits, self.pools = model.forward_paged_prefill_chunk(
                 engine.params, self._tensor(toks, torch.long), self.pools,
                 self._tensor(bt, torch.int32), self._tensor(slots, torch.long), start,
                 step - 1)
-            if start + step == req.prefill_target:
-                sched.record_prefill_chunk(req, step, int(self._sample(logits)[0]))
+            if final:
+                tok = int(self._sample(logits)[0])
+                if ev is not None:
+                    self._span("req.prefill_chunk", req.rid, "prefill_chunk", span[0],
+                               start=start, tokens=step)
+                sched.record_prefill_chunk(req, step, tok)
             else:
+                if ev is not None:
+                    self._unread_span_end(span, "req.prefill_chunk", req.rid, "prefill_chunk",
+                                          start=start, tokens=step)
                 sched.record_prefill_chunk(req, step)
         elif kind == "decode":
-            reqs = payload
-            bt = np.zeros((W, n_max), np.int32)       # zeros → dummy block
-            pos = np.zeros((W,), np.int32)
-            toks = np.zeros((W, 1), np.int64)
-            for i, r in enumerate(reqs):
-                bt[i, :len(r.blocks)] = r.blocks
-                pos[i] = r.pos
-                toks[i, 0] = r.last_token
-            logits, self.pools = model.forward_paged_decode(
-                engine.params, self._tensor(toks, torch.long), self.pools,
-                self._tensor(bt, torch.int32), self._tensor(pos, torch.int32))
-            tok = self._sample(logits)
-            for i, r in enumerate(reqs):
-                sched.record_decode(r, int(tok[i]))
+            self._decode(payload)
         elif kind == "verify":
             self._verify(payload)
         else:
             raise ValueError(f"unknown scheduler action {kind!r}")
+
+    def _decode(self, reqs) -> None:
+        """One fused decode step over every running row. ``decode.tick`` is
+        clocked from before the forward is dispatched until the sampled
+        tokens are on the host."""
+        engine, sched, model = self.engine, self.sched, self.engine.module
+        W, n_max = self.W, self.n_max
+        ev = self.ev
+        bt = np.zeros((W, n_max), np.int32)       # zeros → dummy block
+        pos = np.zeros((W,), np.int32)
+        toks = np.zeros((W, 1), np.int64)
+        for i, r in enumerate(reqs):
+            bt[i, :len(r.blocks)] = r.blocks
+            pos[i] = r.pos
+            toks[i, 0] = r.last_token
+        t0 = time.monotonic_ns() if ev is not None else 0
+        logits, self.pools = model.forward_paged_decode(
+            engine.params, self._tensor(toks, torch.long), self.pools,
+            self._tensor(bt, torch.int32), self._tensor(pos, torch.int32))
+        tok = self._sample(logits)
+        if ev is not None:
+            # emitted BEFORE record_decode so a retirement this tick
+            # triggers lands after its final decode slice
+            dur = time.monotonic_ns() - t0
+            ev.emit("decode.tick", t_ns=t0, dur_ns=dur, rids=[r.rid for r in reqs],
+                    n=len(reqs))
+            if sched.telemetry is not None:
+                sched.telemetry.phase("decode", dur / 1e6)
+        for i, r in enumerate(reqs):
+            sched.record_decode(r, int(tok[i]))
 
     def _verify(self, reqs) -> None:
         """One speculative step: each request's window (its pending token
@@ -587,6 +766,7 @@ class _ServeSession:
         that as many decode steps would emit."""
         engine, sched = self.engine, self.sched
         bs, W, n_max, wb = self.bs, self.W, self.n_max, self.spec_wb
+        ev = self.ev
         bt = np.zeros((W, n_max), np.int32)       # zeros → dummy block
         pos = np.zeros((W,), np.int32)
         toks = np.zeros((W, wb), np.int64)
@@ -604,13 +784,18 @@ class _ServeSession:
             bt[i, :table.size] = table
             pos[i] = r.pos
             slots[i] = engine._flat_slots(table, r.pos, nv, wb, bs)
+        t0 = time.monotonic_ns() if ev is not None else 0
         logits, self.pools = engine.module.forward_paged_verify(
             engine.params, self._tensor(toks, torch.long), self.pools,
             self._tensor(bt, torch.int32), self._tensor(slots, torch.long),
             self._tensor(pos, torch.int32))
         # the decode step's own argmax (_sample at temperature 0), so ties break alike
         greedy = engine._sample(logits.reshape(W * wb, -1), 0.0, 0, None)
-        greedy = greedy.reshape(W, wb).cpu().numpy()
+        greedy = self._to_host(greedy).reshape(W, wb)
+        dur = time.monotonic_ns() - t0 if ev is not None else 0
+        if ev is not None and sched.telemetry is not None:
+            # one ledger sample per fused verify step
+            sched.telemetry.phase("verify", dur / 1e6)
         for i, r in enumerate(reqs):
             cands = r.spec_tokens
             n_acc = 0
@@ -619,6 +804,11 @@ class _ServeSession:
             emitted = list(cands[:n_acc]) + [int(greedy[i, n_acc])]
             if r.eos is not None and int(r.eos) in emitted:
                 emitted = emitted[:emitted.index(int(r.eos)) + 1]
+            if ev is not None:
+                # emitted BEFORE record_verify so a retirement this step
+                # triggers lands after its slice
+                ev.emit("req.spec_verify", rid=r.rid, t_ns=t0, dur_ns=dur,
+                        window=1 + len(cands), accepted=len(emitted) - 1)
             sched.record_verify(r, emitted)
 
     # ---- lifecycle ---- #
@@ -629,6 +819,9 @@ class _ServeSession:
         if self._closed:
             return
         self._closed = True
+        if self._pending_spans:
+            # only when a serve stopped after a step with no token read
+            self._flush_spans(wait=True)
         engine = self.engine
         engine._serve_rid_base = self.sched._next_rid
         engine._last_serve_stats = dict(self.sched.stats)
@@ -639,5 +832,10 @@ class _ServeSession:
     def end(self) -> None:
         """Success-path epilogue: hand the pools back to the engine's
         persistent workspace so the next serve reuses them (and, with prefix
-        caching, re-hits this serve's blocks)."""
-        self.engine._paged_workspace = (self.num_blocks, self.bs, self.pools)
+        caching, re-hits this serve's blocks), and the memory gauges after
+        the serve when telemetry is on."""
+        engine = self.engine
+        if engine._telemetry is not None:
+            from deepspeed_tpu_torch.monitor.health import sample_memory_gauges
+            sample_memory_gauges(engine._tel_reg, engine._acc)
+        engine._paged_workspace = (self.num_blocks, self.bs, self.pools)

@@ -2,9 +2,9 @@
 ``deepspeed_tpu/inference/scheduler.py``: Orca iteration-level scheduling,
 vLLM eviction and prefix caching, Sarathi-style chunked prefill, all host
 side). The state machine is kept identical so that one request trace
-schedules identically in both packages; the telemetry and flight-recorder
-hooks belong to the monitor slice and are left out (``telemetry`` and
-``events`` must be None).
+schedules identically in both packages, and so are its telemetry hooks
+(:class:`ServingTelemetry` into the metrics registry) and flight-recorder
+events: the same series and the same event stream for the same trace.
 
 The engine drives one *step* at a time: :meth:`next_action` returns one of
 
@@ -56,6 +56,342 @@ class PoolExhausted(RuntimeError):
     def __init__(self, msg: str, req: "Request"):
         super().__init__(msg)
         self.req = req
+
+
+class ServingTelemetry:
+    """Registry adapter for the Orca/vLLM-style iteration-level serving
+    stats (the JAX package's class, same 41 series): the scheduler calls
+    these hooks as its state machine moves and the series land in the
+    process-global metrics registry (``deepspeed_tpu_torch.monitor.metrics``).
+    The series of what the port does not serve yet (timeouts and shedding
+    under deadlines the closed loop never sets, retries, the host KV tier,
+    engine restarts) exist and read 0.
+
+    Invariants the tests pin: TTFT is observed exactly ONCE per request —
+    the first token after the ORIGINAL arrival, even when a preemption
+    forces a re-prefill later — and ``serving/preemptions`` equals the
+    number of eviction events (``serving/recompute_tokens`` the prefix
+    tokens those evictions will prefill again). With prefix caching,
+    ``serving/prefix_cache_hit_tokens`` counts prompt tokens whose prefill
+    was SKIPPED via cache hits (hits / lookups is the admission hit rate),
+    and ``serving/cold_blocks`` gauges the freed-but-cached pool blocks."""
+
+    _SERIES = ("ttft", "tpot", "queue_wait", "queue_depth", "running",
+               "kv_blocks_used",
+               "kv_blocks_free", "kv_block_utilization", "kv_fragmentation",
+               "cold_blocks", "prefill_steps", "prefill_chunks",
+               "decode_steps", "prefix_cache_lookups", "prefix_cache_hits",
+               "prefix_cache_hit_tokens",
+               "kv_host_blocks", "kv_host_bytes", "kv_spills",
+               "kv_fetch_hits", "kv_fetch_tokens", "kv_host_errors",
+               "preemptions", "recompute_tokens", "requests", "finished",
+               "rejected_requests",
+               "generated_tokens", "spec_verify_steps",
+               "spec_proposed_tokens", "spec_accepted_tokens",
+               "spec_rollbacks", "spec_acceptance_rate", "tp",
+               "step_faults", "engine_restarts", "request_retries",
+               "timeouts", "shed_requests", "phase_ms", "wasted_tokens")
+
+    def __init__(self, registry=None, replica: str = "r0"):
+        if registry is None:
+            from deepspeed_tpu_torch.monitor.metrics import get_registry
+            registry = get_registry()
+        self.registry = registry
+        #: replica label stamped on phase/waste observations — mutable,
+        #: the router renames engines after construction (set_replica)
+        self.replica = replica
+        self.ensure()
+
+    def ensure(self) -> None:
+        """Pre-create every serving family so zero-valued series (e.g. a
+        run with no preemptions) still appear in snapshots. Re-run by the
+        scheduler per serve call — re-creates after a registry reset."""
+        for name in self._SERIES:
+            getattr(self, name)
+
+    # families resolved per access (get-or-create under the registry
+    # lock; serving events are host-side per engine step, not a jit hot
+    # loop) so a registry reset between bench metrics can't orphan them
+
+    @property
+    def ttft(self):
+        return self.registry.histogram(
+            "serving/ttft_ms", "request arrival -> first generated token")
+
+    @property
+    def tpot(self):
+        return self.registry.histogram(
+            "serving/tpot_ms", "per-output-token latency after the first")
+
+    @property
+    def queue_wait(self):
+        return self.registry.histogram(
+            "serving/queue_wait_ms",
+            "request submission -> first admission wait (one observation "
+            "per request; preemption re-admissions do not re-observe)")
+
+    @property
+    def rejected_requests(self):
+        return self.registry.counter(
+            "serving/rejected_requests",
+            "submissions refused by admission control (queue bound / pool "
+            "pressure) before enqueueing")
+
+    @property
+    def queue_depth(self):
+        return self.registry.gauge(
+            "serving/queue_depth", "requests waiting for admission")
+
+    @property
+    def running(self):
+        return self.registry.gauge(
+            "serving/running", "running-batch occupancy (fused decode rows)")
+
+    @property
+    def kv_blocks_used(self):
+        return self.registry.gauge(
+            "serving/kv_blocks_used",
+            "pool blocks referenced by live requests (excl. dummy)")
+
+    @property
+    def kv_blocks_free(self):
+        return self.registry.gauge(
+            "serving/kv_blocks_free",
+            "allocatable pool blocks: free list + reclaimable cold "
+            "(GLOBAL per slice under tensor parallelism — block ids are "
+            "shard-invariant, see serving/tp)")
+
+    @property
+    def tp(self):
+        return self.registry.gauge(
+            "serving/tp",
+            "tensor-parallel degree of the serving mesh: KV pools are "
+            "head-sharded over tp, so block-count gauges are global per "
+            "slice while per-shard pool BYTES are 1/tp")
+
+    @property
+    def kv_block_utilization(self):
+        return self.registry.gauge(
+            "serving/kv_block_utilization", "used / allocatable pool blocks")
+
+    @property
+    def kv_fragmentation(self):
+        return self.registry.gauge(
+            "serving/kv_fragmentation",
+            "internal fragmentation: unfilled slot fraction of referenced "
+            "blocks (capacity minus cached tokens; shared blocks counted "
+            "once)")
+
+    @property
+    def cold_blocks(self):
+        return self.registry.gauge(
+            "serving/cold_blocks",
+            "freed-but-cached blocks held for prefix reuse (LRU-reclaimed "
+            "under allocation pressure)")
+
+    @property
+    def prefill_steps(self):
+        return self.registry.counter(
+            "serving/prefill_steps", "request admissions that scheduled "
+            "prefill work (one per admission, however many chunks)")
+
+    @property
+    def prefill_chunks(self):
+        return self.registry.counter(
+            "serving/prefill_chunks",
+            "chunked-prefill compute steps (incl. cache-hit tail chunks)")
+
+    @property
+    def decode_steps(self):
+        return self.registry.counter(
+            "serving/decode_steps", "fused decode steps (all rows at once)")
+
+    @property
+    def prefix_cache_lookups(self):
+        return self.registry.counter(
+            "serving/prefix_cache_lookups", "admission-time cache probes")
+
+    @property
+    def prefix_cache_hits(self):
+        return self.registry.counter(
+            "serving/prefix_cache_hits",
+            "admission probes that matched at least one full block")
+
+    @property
+    def prefix_cache_hit_tokens(self):
+        return self.registry.counter(
+            "serving/prefix_cache_hit_tokens",
+            "prompt tokens whose prefill was skipped via cache hits")
+
+    @property
+    def kv_host_blocks(self):
+        return self.registry.gauge(
+            "serving/kv_host_blocks",
+            "demoted KV blocks resident in the host-RAM tier (tiered KV "
+            "cache; LRU-bounded by serving.kv_host.max_host_blocks)")
+
+    @property
+    def kv_host_bytes(self):
+        return self.registry.gauge(
+            "serving/kv_host_bytes",
+            "host RAM held by demoted KV blocks (k+v slices)")
+
+    @property
+    def kv_spills(self):
+        return self.registry.counter(
+            "serving/kv_spills",
+            "cold blocks demoted D2H to the host pool instead of being "
+            "destroyed under allocation pressure")
+
+    @property
+    def kv_fetch_hits(self):
+        return self.registry.counter(
+            "serving/kv_fetch_hits",
+            "admission prefix probes served from the host tier: demoted "
+            "blocks re-materialized H2D instead of recomputed (counted "
+            "per block)")
+
+    @property
+    def kv_fetch_tokens(self):
+        return self.registry.counter(
+            "serving/kv_fetch_tokens",
+            "prompt tokens whose prefill was skipped via host-tier "
+            "fetches (subset of prefix_cache_hit_tokens)")
+
+    @property
+    def kv_host_errors(self):
+        return self.registry.counter(
+            "serving/kv_host_errors",
+            "D2H/H2D failures degraded to destroy-on-reclaim / recompute "
+            "(allocation errors, injected I/O faults)")
+
+    @property
+    def preemptions(self):
+        return self.registry.counter(
+            "serving/preemptions", "recompute-preempt eviction events")
+
+    @property
+    def recompute_tokens(self):
+        return self.registry.counter(
+            "serving/recompute_tokens",
+            "prefix tokens re-prefilled by evictions")
+
+    @property
+    def requests(self):
+        return self.registry.counter("serving/requests")
+
+    @property
+    def finished(self):
+        return self.registry.counter("serving/finished_requests")
+
+    @property
+    def generated_tokens(self):
+        return self.registry.counter("serving/generated_tokens")
+
+    @property
+    def spec_verify_steps(self):
+        return self.registry.counter(
+            "serving/spec_verify_steps",
+            "fused speculative verify steps (all rows at once)")
+
+    @property
+    def spec_proposed_tokens(self):
+        return self.registry.counter(
+            "serving/spec_proposed_tokens",
+            "candidate tokens proposed by the n-gram speculator")
+
+    @property
+    def spec_accepted_tokens(self):
+        return self.registry.counter(
+            "serving/spec_accepted_tokens",
+            "proposed candidates greedy verification accepted")
+
+    @property
+    def spec_rollbacks(self):
+        return self.registry.counter(
+            "serving/spec_rollbacks",
+            "verify steps that rejected candidates (pos rewound, "
+            "uncommitted prefix-cache registrations withdrawn)")
+
+    @property
+    def spec_acceptance_rate(self):
+        return self.registry.gauge(
+            "serving/spec_acceptance_rate",
+            "accepted / proposed candidate tokens (cumulative)")
+
+    # ---- serving-plane fault tolerance (inference/serve.py) ---- #
+
+    @property
+    def step_faults(self):
+        return self.registry.counter(
+            "serving/step_faults",
+            "engine-step exceptions contained by the serving loop, by "
+            "dispatch site (per-request retry/quarantine or engine "
+            "restart — the loop survived either way)", labelnames=("kind",))
+
+    @property
+    def engine_restarts(self):
+        return self.registry.counter(
+            "serving/engine_restarts",
+            "crash-safe engine recoveries: pool workspace + fused jits "
+            "rebuilt, in-flight requests re-admitted from prompt+generated")
+
+    @property
+    def request_retries(self):
+        return self.registry.counter(
+            "serving/request_retries",
+            "per-request fault retries: the faulting action's requests "
+            "re-queued through recompute-preemption with logical-step "
+            "backoff")
+
+    @property
+    def timeouts(self):
+        return self.registry.counter(
+            "serving/timeouts",
+            "requests retired for exceeding their deadline (deadline_ms "
+            "wall clock / deadline_steps scheduler clock)")
+
+    @property
+    def shed_requests(self):
+        return self.registry.counter(
+            "serving/shed_requests",
+            "queued requests dropped by load shedding under queue "
+            "pressure (policy select_shed_victim, lowest priority first)")
+
+    # ---- request latency anatomy (phase ledger) ---- #
+
+    @property
+    def phase_ms(self):
+        return self.registry.histogram(
+            "serving/phase_ms",
+            "per-request latency anatomy, one histogram per phase and "
+            "replica: TTFT = intake + queue + prefill (+ fetch) + "
+            "first decode; TPOT = scheduler wait + decode step. Phases "
+            "with device work observe at the recorder's sync points, so "
+            "they populate when telemetry.events is on",
+            labelnames=("phase", "replica"))
+
+    @property
+    def wasted_tokens(self):
+        return self.registry.counter(
+            "serving/wasted_tokens",
+            "tokens whose compute produced no delivered output, by cause: "
+            "recompute (preemption re-prefill), spec_reject (verify "
+            "rollback), timeout / shed (retired unfinished), failover "
+            "(sibling re-derived a failed replica's progress) — the "
+            "goodput-vs-throughput gap", labelnames=("cause", "replica"))
+
+    def phase(self, phase: str, ms: float, rid=None) -> None:
+        """Observe one phase-ledger sample (exemplar = the request id, so
+        a p99 bucket links back to the merged trace's request track)."""
+        self.phase_ms.labels(phase=phase, replica=self.replica).observe(
+            ms, exemplar={"rid": str(rid)} if rid is not None else None)
+
+    def waste(self, cause: str, n) -> None:
+        """Count wasted tokens (``n == 0`` still materializes the series,
+        so a fleet scrape shows every cause it is tracking)."""
+        self.wasted_tokens.labels(cause=cause,
+                                  replica=self.replica).inc(int(n))
 
 
 @dataclasses.dataclass
@@ -123,10 +459,6 @@ class ContinuousBatchingScheduler:
                  prefix_caching: bool = False, chunk_tokens: int = 0,
                  events=None, rid_base: int = 0,
                  spec_k: int = 0, spec_proposer=None, policy=None):
-        if telemetry is not None or events is not None:
-            raise NotImplementedError(
-                "serving telemetry and the flight recorder are not ported yet: "
-                "ROADMAP.md queue 1, telemetry and control plane")
         if max_running < 1:
             raise ValueError("max_running must be >= 1")
         if chunk_tokens < 0:
@@ -145,8 +477,12 @@ class ContinuousBatchingScheduler:
                       "emitted_tokens": 0, "spec_proposed": 0,
                       "spec_accepted": 0, "spec_rollbacks": 0,
                       "preemptions": 0}
-        self.telemetry = None
-        self.events = None
+        self.telemetry = telemetry
+        # flight recorder: None when disabled, so every emit site below
+        # gates at one None check
+        self.events = events
+        if telemetry is not None:
+            telemetry.ensure()
         self.policy = FifoPolicy() if policy is None else policy
         # logical clock: one tick per compute action handed to the engine
         self.step_seq = 0
@@ -159,6 +495,49 @@ class ContinuousBatchingScheduler:
         self._decode_turn = False
         # live deadline-carrying requests (the expiry sweep runs only then)
         self._deadline_live = 0
+
+    def _tel_gauges(self) -> None:
+        """Refresh the occupancy gauges (queue depth, running rows, KV
+        pool utilization) from current scheduler/allocator state, and
+        emit the flight-recorder occupancy sample (the serving trace's
+        counter-track source) at the same transitions."""
+        ev = self.events
+        if ev is not None:
+            a = self.allocator
+            ev.emit("sched.gauge", queued=len(self.waiting),
+                    running=len(self.running), kv_used=a.num_used,
+                    kv_free=a.num_free)
+        t = self.telemetry
+        if t is None:
+            return
+        a = self.allocator
+        t.queue_depth.set(len(self.waiting))
+        t.running.set(len(self.running))
+        used = a.num_used
+        t.kv_blocks_used.set(used)
+        t.kv_blocks_free.set(a.num_free)
+        t.cold_blocks.set(a.num_cold)
+        hp = a.host_pool
+        if hp is not None:
+            t.kv_host_blocks.set(hp.num_blocks)
+            t.kv_host_bytes.set(hp.nbytes)
+        t.kv_block_utilization.set(used / max(1, a.capacity))
+        # internal fragmentation: slots allocated to requests but not yet
+        # holding cached k/v (last-block waste + blocks grown ahead of
+        # pos). Shared blocks count ONCE (dedup by block id); a mid-prefill
+        # request counts its whole target as cached — its blocks are spoken
+        # for, not wasted, and the gauge would otherwise spike at admission
+        fills = {}
+        bs = a.block_size
+        for r in self.running:
+            c = r.prefill_target if r.prefilling else r.pos
+            for j, b in enumerate(r.blocks):
+                f = min(bs, max(0, c - j * bs))
+                if f > fills.get(b, 0):
+                    fills[b] = f
+        cap = used * bs
+        cached = sum(fills.values())
+        t.kv_fragmentation.set(1.0 - cached / cap if cap > 0 else 0.0)
 
     # ------------------------------------------------------------------ #
 
@@ -205,6 +584,20 @@ class ContinuousBatchingScheduler:
         if req.deadline_ms is not None or req.deadline_steps is not None:
             self._deadline_live += 1
         self.waiting.append(req)
+        if self.events is not None:
+            # the trace context rides the enqueue (the fleet renderer's
+            # flow-arrow source)
+            ctx = {}
+            if req.trace is not None:
+                ctx["trace"] = req.trace
+            if req.parent is not None:
+                ctx["parent"] = req.parent
+            self.events.emit("req.enqueue", rid=req.rid,
+                             prompt_tokens=int(prompt.size),
+                             max_new=max_new, **ctx)
+        if self.telemetry is not None:
+            self.telemetry.requests.inc()
+        self._tel_gauges()
         return req
 
     def all_done(self) -> bool:
@@ -256,13 +649,33 @@ class ContinuousBatchingScheduler:
         self.finished.append(req)
         if error is None:
             req.cancelled = True
+            if self.events is not None:
+                self.events.emit("req.cancel", rid=req.rid,
+                                 generated=len(req.generated))
         else:
             req.error = error
             logger.warning(f"request {req.rid} retired: {error}")
             if flavor == "timeout":
                 req.timed_out = True
+                if self.telemetry is not None:
+                    self.telemetry.timeouts.inc()
+                    self.telemetry.waste("timeout", len(req.generated))
+                if self.events is not None:
+                    self.events.emit("req.timeout", rid=req.rid,
+                                     generated=len(req.generated), error=error)
             elif flavor == "shed":
                 req.shed = True
+                if self.telemetry is not None:
+                    self.telemetry.shed_requests.inc()
+                    self.telemetry.waste("shed", len(req.generated))
+                if self.events is not None:
+                    self.events.emit("req.shed", rid=req.rid, priority=req.priority)
+            elif self.events is not None:
+                self.events.emit("req.retire", rid=req.rid,
+                                 generated=len(req.generated), error=error)
+        if self.telemetry is not None:
+            self.telemetry.finished.inc()
+        self._tel_gauges()
         return True
 
     def requeue_for_retry(self, req: Request, backoff_steps: int, error: str = "") -> None:
@@ -273,8 +686,14 @@ class ContinuousBatchingScheduler:
             raise ValueError(
                 f"request {req.rid} is {req.state}; only RUNNING requests "
                 "retry through re-queue")
+        if self.events is not None:
+            self.events.emit("req.requeue", rid=req.rid, retry=req.retry_count,
+                             backoff_steps=int(backoff_steps), error=error)
+        if self.telemetry is not None:
+            self.telemetry.request_retries.inc()
         self._demote_to_queue(req)
         req.retry_at_step = self.step_seq + max(int(backoff_steps), 0)
+        self._tel_gauges()
 
     def reset_pool(self, allocator: BlockAllocator) -> None:
         """Swap in a fresh allocator and re-queue ALL running requests from
@@ -283,6 +702,7 @@ class ContinuousBatchingScheduler:
             self._demote_to_queue(req)
         self.allocator = allocator
         self._decode_turn = False
+        self._tel_gauges()
 
     def _demote_to_queue(self, req: Request) -> None:
         """The ONE RUNNING -> QUEUED demotion (preemption, retry, restart)."""
@@ -334,6 +754,12 @@ class ContinuousBatchingScheduler:
                 f"{self.allocator.capacity}; raise serving.max_num_blocks")
             logger.warning(f"request {req.rid} retired: {req.error}")
             self.finished.append(req)
+            if self.events is not None:
+                self.events.emit("req.retire", rid=req.rid,
+                                 generated=len(req.generated), error=req.error)
+            if self.telemetry is not None:
+                self.telemetry.finished.inc()
+            self._tel_gauges()
             return self._try_admit()
 
         entries: List[Tuple] = []       # ("dev", b) | ("host", key, k_np, v_np)
@@ -341,6 +767,7 @@ class ContinuousBatchingScheduler:
         cow_src: Optional[int] = None
         cow_fetch = None                # (k_np, v_np): host-resident COW src
         cached = 0
+        had_hit = False
         if self.prefix_caching:
             hits, hit_keys = self.allocator.match_prefix_tiered(prefix)
             resolved: List[Tuple] = []
@@ -352,6 +779,11 @@ class ContinuousBatchingScheduler:
                 if data is None:
                     break
                 resolved.append((("host", ent[1], data[0], data[1]), key))
+            had_hit = bool(resolved)
+            if self.telemetry is not None:
+                self.telemetry.prefix_cache_lookups.inc()
+                if resolved:
+                    self.telemetry.prefix_cache_hits.inc()
             cached = len(resolved) * bs
             if cached >= target:
                 # full prefix cached: cap the hit at target-1 and copy-on-write
@@ -412,6 +844,16 @@ class ContinuousBatchingScheduler:
                             cached - bs * len(entries)))
 
         del self.waiting[idx]
+        first_admit = req.admit_seq == -1
+        if self.telemetry is not None and first_admit:
+            # first admission only: the submit->admit wait (a preemption
+            # re-admission is recompute latency, not queueing delay)
+            now = time.perf_counter()
+            self.telemetry.queue_wait.observe((now - req.t_submit) * 1e3,
+                                              exemplar={"rid": str(req.rid)})
+            self.telemetry.phase("intake", max(req.t_arrival - req.t_submit, 0.0) * 1e3,
+                                 rid=req.rid)
+            self.telemetry.phase("queue", max(now - req.t_arrival, 0.0) * 1e3, rid=req.rid)
         req.blocks = blocks
         req.keys = list(keys)
         req.pos = cached
@@ -423,7 +865,33 @@ class ContinuousBatchingScheduler:
         req.admit_seq = self._admit_counter
         self._admit_counter += 1
         self.running.append(req)
+        if self.events is not None:
+            # probe outcome emitted only on the admission that sticks
+            if self.prefix_caching:
+                if had_hit:
+                    self.events.emit("req.cache_hit", rid=req.rid, tokens=cached,
+                                     host_blocks=len(fetches))
+                else:
+                    self.events.emit("req.cache_miss", rid=req.rid)
+            self.events.emit("req.admit", rid=req.rid, cached_tokens=cached,
+                             blocks=len(req.blocks), prefill_target=target)
+            if first_admit:
+                # the pre-admission phases: already-elapsed intervals ending here
+                now_ns = time.monotonic_ns()
+                self.events.emit(
+                    "req.phase", rid=req.rid, t_ns=now_ns, phase="intake",
+                    dur_ns=int(max(req.t_arrival - req.t_submit, 0.0) * 1e9))
+                self.events.emit(
+                    "req.phase", rid=req.rid, t_ns=now_ns, phase="queue",
+                    dur_ns=int(max(time.perf_counter() - req.t_arrival, 0.0) * 1e9))
+        if self.telemetry is not None:
+            self.telemetry.prefill_steps.inc()
+            if cached:
+                self.telemetry.prefix_cache_hit_tokens.inc(cached)
+        self._tel_gauges()
         if req.pos > 0 or self.chunk_tokens > 0:
+            if self.telemetry is not None:
+                self.telemetry.prefill_chunks.inc()
             self._decode_turn = True
             return ("prefill_chunk", req)
         return ("prefill", req)
@@ -466,6 +934,8 @@ class ContinuousBatchingScheduler:
         prefilling = [r for r in self.running if r.prefilling]
         decodable = [r for r in self.running if not r.prefilling]
         if prefilling and (not decodable or not self._decode_turn):
+            if self.telemetry is not None:
+                self.telemetry.prefill_chunks.inc()
             self._decode_turn = True
             return ("prefill_chunk", prefilling[0])
         if decodable:
@@ -478,8 +948,12 @@ class ContinuousBatchingScheduler:
             if self.spec_k > 0:
                 action = self._prepare_verify(decodable)
                 if action is not None:
+                    self._tel_gauges()   # window growth moved blocks
                     return action
             self.stats["decode_steps"] += 1
+            if self.telemetry is not None:
+                self.telemetry.decode_steps.inc()
+            self._tel_gauges()           # capacity growth/evictions moved blocks
             return ("decode", decodable)
         if self.waiting:
             if all(r.retry_at_step > self.step_seq for r in self.waiting):
@@ -518,6 +992,7 @@ class ContinuousBatchingScheduler:
         KV slots their verify windows write, from the plain free list only
         (speculation never preempts nor reclaims cached blocks). None when
         no request found a match."""
+        ev = self.events
         bs = self.allocator.block_size
         any_cands = False
         for r in decodable:
@@ -525,7 +1000,9 @@ class ContinuousBatchingScheduler:
             if headroom <= 0:
                 r.spec_tokens = ()
                 continue
+            t0 = time.monotonic_ns() if ev is not None else 0
             cands = self.spec_proposer.propose(r.output, min(self.spec_k, headroom))
+            found = len(cands)
             if len(cands):
                 need = self.allocator.blocks_for_tokens(
                     r.pos + 1 + len(cands)) - len(r.blocks)
@@ -535,12 +1012,22 @@ class ContinuousBatchingScheduler:
                         r.blocks.extend(got)
                     cands = cands[:len(r.blocks) * bs - 1 - r.pos]
             r.spec_tokens = tuple(int(c) for c in cands)
+            # emitted only when the proposer matched (a zero-found probe per
+            # request per decode turn would flood the bounded ring)
+            if ev is not None and found:
+                ev.emit("req.spec_propose", rid=r.rid, t_ns=t0,
+                        dur_ns=time.monotonic_ns() - t0,
+                        tokens=len(r.spec_tokens), found=found)
             if r.spec_tokens:
                 any_cands = True
                 self.stats["spec_proposed"] += len(r.spec_tokens)
+                if self.telemetry is not None:
+                    self.telemetry.spec_proposed_tokens.inc(len(r.spec_tokens))
         if not any_cands:
             return None
         self.stats["verify_steps"] += 1
+        if self.telemetry is not None:
+            self.telemetry.spec_verify_steps.inc()
         return ("verify", decodable)
 
     def _preempt(self, victim: Request) -> None:
@@ -550,7 +1037,15 @@ class ContinuousBatchingScheduler:
             f"{len(victim.prefix())} tokens on re-admission"
             + (" minus any prefix-cache hit" if self.prefix_caching else "")
             + ")")
+        if self.events is not None:
+            self.events.emit("req.preempt", rid=victim.rid, blocks=len(victim.blocks),
+                             recompute_tokens=len(victim.prefix()))
         self.stats["preemptions"] += 1
+        if self.telemetry is not None:
+            self.telemetry.preemptions.inc()
+            self.telemetry.recompute_tokens.inc(len(victim.prefix()))
+            # the evicted prefix is compute the pool pressure threw away
+            self.telemetry.waste("recompute", len(victim.prefix()))
         self._demote_to_queue(victim)
         victim.preemptions += 1
 
@@ -649,18 +1144,35 @@ class ContinuousBatchingScheduler:
             req.pos -= drop
             del req.generated[-drop:]
             bs = self.allocator.block_size
+            unregistered = 0
             while len(req.keys) > req.pos // bs:
                 key = req.keys.pop()
-                self.allocator.unregister_if_owner(req.blocks[len(req.keys)], key)
+                if self.allocator.unregister_if_owner(req.blocks[len(req.keys)], key):
+                    unregistered += 1
             keep = max(self.allocator.blocks_for_tokens(req.pos + 1), len(req.keys))
             if len(req.blocks) > keep:
                 tail = req.blocks[keep:]
                 del req.blocks[keep:]
                 self.allocator.free(list(reversed(tail)))
             self.stats["spec_rollbacks"] += 1
+            if self.telemetry is not None:
+                self.telemetry.spec_rollbacks.inc()
+                # rejected candidates were verified on the device, then dropped
+                self.telemetry.waste("spec_reject", drop)
+            if self.events is not None:
+                self.events.emit("req.spec_rollback", rid=req.rid, rejected=drop,
+                                 unregistered=unregistered)
         req.generated.append(tokens[-1])
         self.stats["spec_accepted"] += a
         self.stats["emitted_tokens"] += len(tokens)
+        if self.telemetry is not None:
+            t = self.telemetry
+            t.spec_accepted_tokens.inc(a)
+            # from the CUMULATIVE registry counters, so the gauge always
+            # equals accepted/proposed as the snapshot reports them
+            proposed = t.spec_proposed_tokens.value
+            if proposed:
+                t.spec_acceptance_rate.set(t.spec_accepted_tokens.value / proposed)
         for _ in tokens:
             self._record_token_time(req)
         self._maybe_finish(req)
@@ -670,6 +1182,16 @@ class ContinuousBatchingScheduler:
         emitted token is progress, so step-fault retries reset."""
         req.retry_count = 0
         now = time.perf_counter()
+        t = self.telemetry
+        if t is not None:
+            # TTFT once per request (the first token after the ORIGINAL
+            # arrival), TPOT for every token after it; the exemplar links a
+            # histogram bucket back to the request's trace track
+            if req.t_first_token is None:
+                t.ttft.observe((now - req.t_arrival) * 1e3, exemplar={"rid": str(req.rid)})
+            else:
+                t.tpot.observe((now - req.t_last_token) * 1e3, exemplar={"rid": str(req.rid)})
+            t.generated_tokens.inc()
         if req.t_first_token is None:
             req.t_first_token = now
         req.t_last_token = now
@@ -684,3 +1206,9 @@ class ContinuousBatchingScheduler:
             self.running.remove(req)
             self._free_blocks(req)
             self.finished.append(req)
+            if self.events is not None:
+                self.events.emit("req.retire", rid=req.rid, generated=len(req.generated),
+                                 preemptions=req.preemptions)
+            if self.telemetry is not None:
+                self.telemetry.finished.inc()
+            self._tel_gauges()

@@ -26,6 +26,8 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
+from deepspeed_tpu_torch.monitor.trace import get_compile_watchdog
+
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = CSRC / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -104,6 +106,8 @@ def build(names: Optional[Iterable[str]] = None, ptxas_verbose: bool = False):
             failed.append(f"{SOURCES[n]} (rc {p.returncode}):\n{text}")
             continue
         os.replace(tmp, out)       # atomic: a concurrent builder never sees half a file
+        # the telemetry's counterpart of a compile: name and wall seconds
+        get_compile_watchdog().record_build(n, time.perf_counter() - t0)
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     return time.perf_counter() - t0, log

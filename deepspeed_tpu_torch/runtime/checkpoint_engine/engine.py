@@ -213,7 +213,8 @@ def _checkpoint_cfg(engine):
 
 def _notify_ckpt_result(engine, ok: bool, steps: Optional[int]) -> None:
     """The health observatory's checkpoint hook: no engine carries one until
-    the health monitor is ported (ROADMAP.md queue 1 item 4)."""
+    the health monitor is ported (ROADMAP.md queue 1, telemetry and control
+    plane)."""
     health = getattr(engine, "_health", None)
     if health is not None and hasattr(health, "observe_checkpoint"):
         try:
@@ -286,6 +287,10 @@ def save_engine_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
                                 update_latest=save_latest)
     mets = safe_engine._ckpt_metrics()
     mets["snapshot_ms"].observe((time.perf_counter() - t0) * 1e3)
+    dur = int((time.perf_counter() - t0) * 1e9)
+    safe_engine._emit_ckpt_event("ckpt.snapshot", t_ns=time.monotonic_ns() - dur,
+                                 dur_ns=dur, step=steps, tag=tag,
+                                 asynchronous=bool(asynchronous))
 
     if asynchronous:
         writer = engine._checkpoint_writer()

@@ -69,8 +69,14 @@ _HASH_CHUNK = 1 << 20
 
 
 def _emit_ckpt_event(kind: str, **data) -> None:
-    """Flight-recorder hook for the checkpoint phases: a no-op until the
-    flight recorder is ported (ROADMAP.md queue 1 item 4, telemetry)."""
+    """Flight-recorder hook for the checkpoint phases (snapshot is emitted
+    by the engine-side save path; serialize/commit/retry here). Disabled
+    recorder = one flag check; diagnostics never fail a save."""
+    try:
+        from deepspeed_tpu_torch.monitor.events import get_flight_recorder
+        get_flight_recorder().emit(kind, **data)
+    except Exception:
+        pass
 
 
 class CheckpointWriteError(RuntimeError):
@@ -681,19 +687,27 @@ def gc_tags(save_dir: str, keep_last: int,
 # --------------------------------------------------------------------- #
 # metrics
 
-class _NoMetric:
-    def observe(self, *_):
-        pass
-
-    inc = set = observe
-
-
 def _ckpt_metrics():
-    """The checkpoint metrics (save_ms, snapshot_ms, bytes, queue_depth,
-    saves, failures): no-ops until the metrics registry is ported
-    (ROADMAP.md queue 1 item 4, telemetry)."""
-    return dict.fromkeys(("save_ms", "snapshot_ms", "bytes", "queue_depth", "saves",
-                          "failures"), _NoMetric())
+    """The checkpoint series of the process-global metrics registry."""
+    from deepspeed_tpu_torch.monitor.metrics import get_registry
+    reg = get_registry()
+    return {
+        "save_ms": reg.histogram(
+            "checkpoint/save_ms",
+            "persist phase wall time per tag (serialize+fsync+commit)"),
+        "snapshot_ms": reg.histogram(
+            "checkpoint/snapshot_ms",
+            "device->host snapshot wall time on the training thread"),
+        "bytes": reg.histogram(
+            "checkpoint/bytes", "committed bytes per checkpoint tag"),
+        "queue_depth": reg.gauge(
+            "checkpoint/queue_depth",
+            "async writer jobs queued or in flight"),
+        "saves": reg.counter("checkpoint/saves", "committed checkpoint tags"),
+        "failures": reg.counter(
+            "checkpoint/failures",
+            "saves failed after exhausting the retry budget"),
+    }
 
 
 # --------------------------------------------------------------------- #

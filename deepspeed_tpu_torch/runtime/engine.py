@@ -32,6 +32,16 @@ live in ``param.grad`` only until they are accumulated, and the update runs
 leaf by leaf, so one unscaled fp32 gradient is alive at a time. The state is the JAX
 ``TrainState``'s fields as attributes of :class:`TrainState`.
 
+With ``telemetry`` on, ``train_batch`` records the JAX engine's series in
+the metrics registry (``train/step_time_ms``, ``tokens_per_sec``,
+``achieved_tflops_per_chip``, ``mfu``, ``loss``, ``grad_norm``,
+``data_wait_ms``, ...) and, with ``telemetry.events``, a ``train.step``
+event in the flight recorder. It pays one host sync a step for that: one
+read of the loss and the pre-clip gradient norm through the accelerator.
+With telemetry off, every hook is one None check and a bf16 step makes no
+sync. ``wall_clock_breakdown`` times the forward / backward / step trio
+between accelerator syncs.
+
 Settings outside this slice (a client optimizer, offload, the 1-bit
 optimizers, pipeline and multi-device runs, ...) raise
 ``NotImplementedError`` naming their ROADMAP.md item.
@@ -39,17 +49,21 @@ optimizers, pipeline and multi-device runs, ...) raise
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import inspect
 import os
+import time
 from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
 
-from deepspeed_tpu_torch.accelerator.real_accelerator import resolve_device
+from deepspeed_tpu_torch.accelerator.real_accelerator import get_accelerator, resolve_device
 from deepspeed_tpu_torch.config.core import DeepSpeedConfig
 from deepspeed_tpu_torch.models.transformer import ParamTree, map_tree
+from deepspeed_tpu_torch.monitor.config import refuse_unported
+from deepspeed_tpu_torch.monitor.monitor import MonitorMaster
 from deepspeed_tpu_torch.runtime import lr_schedules
 from deepspeed_tpu_torch.runtime.loss_scaler import (LossScaleState, has_overflow,
                                                      make_loss_scale_state)
@@ -59,6 +73,8 @@ from deepspeed_tpu_torch.runtime.quantize import quantizer_from_config
 from deepspeed_tpu_torch.runtime.utils import clip_grad_norm_, global_norm, jax_leaves
 from deepspeed_tpu_torch.utils.logging import log_dist, logger
 from deepspeed_tpu_torch.utils.not_ported import not_ported
+from deepspeed_tpu_torch.utils.timer import (NoopTimer, SynchronizedWallClockTimer,
+                                             ThroughputTimer)
 
 _DTYPES = {None: torch.float32, "fp32": torch.float32, "fp16": torch.float16,
            "bf16": torch.bfloat16}
@@ -103,6 +119,7 @@ class DeepSpeedEngine:
         self.client_model = model
         self.loss_fn = _loss_fn_of(model)
         self._config = DeepSpeedConfig(config if config is not None else {})
+        refuse_unported(self._config.telemetry_config)
         # a JSON-level "fused_cross_entropy" beats the model config's default
         fce = self._config.fused_cross_entropy
         mcfg = getattr(model, "config", None)
@@ -110,6 +127,7 @@ class DeepSpeedEngine:
             model.config = dataclasses.replace(mcfg, fused_cross_entropy=fce)
             mcfg = model.config
         self.device = resolve_device(device)
+        self._acc = get_accelerator(self.device.type)
 
         # ---- precision ----
         if self.bfloat16_enabled():
@@ -191,7 +209,9 @@ class DeepSpeedEngine:
         self._cached_loss = None
         self._losses = None
         self._global_grad_norm = None
+        self._last_lr = None             # the lr of the last update
         self._skipped_before_step = None
+        self._init_telemetry()
         ccfg = self._config.checkpoint_config
         if ccfg.preemption_save:
             self.enable_preemption_handler(ccfg.save_dir)
@@ -199,6 +219,72 @@ class DeepSpeedEngine:
                  f"dtype={self.compute_dtype}, device={self.device}, "
                  f"micro_bs={self.train_micro_batch_size_per_gpu()} x "
                  f"gas={self.gradient_accumulation_steps()}", ranks=[0])
+
+    def _init_telemetry(self) -> None:
+        """Timers, the monitor sinks and the telemetry series (the JAX
+        engine's set). Off, ``_telemetry`` is None and every hot-path hook
+        is one attribute check: no timers, no syncs, no registry traffic."""
+        self.wall_clock_breakdown_enabled = bool(self._config.wall_clock_breakdown)
+        self.timers = (SynchronizedWallClockTimer(accelerator=self._acc)
+                       if self.wall_clock_breakdown_enabled else NoopTimer())
+        self.tput_timer = ThroughputTimer(batch_size=self.train_batch_size(),
+                                          steps_per_output=self.steps_per_print(),
+                                          accelerator=self._acc)
+        self.monitor = MonitorMaster(self._config.monitor_config)
+        tcfg = self._config.telemetry_config
+        self._telemetry = tcfg if tcfg.enabled else None
+        self._tel_flops_per_token_v = None
+        self._host_global_steps = 0
+        self._t_prev_step_end = None     # data-wait base
+        self._trio_busy_s = 0.0          # per-cycle fwd+bwd+step phase time
+        self._tel_wait_total = 0.0
+        self._tel_busy_total = 0.0
+        self._tel_events = None
+        self._ev_skip_prev = None
+        self._profiler = None
+        pcfg = tcfg.profile
+        if pcfg.num_steps > 0:
+            from deepspeed_tpu_torch.monitor.trace import ProfileWindow
+            self._profiler = ProfileWindow(pcfg.dir, pcfg.start_step, pcfg.num_steps)
+        if self._telemetry is None:
+            return
+        from deepspeed_tpu_torch.monitor.health import sample_memory_gauges
+        from deepspeed_tpu_torch.monitor.metrics import get_registry
+        from deepspeed_tpu_torch.monitor.trace import get_compile_watchdog, get_tracer
+        reg = get_registry()
+        reg.set_enabled(True)
+        self._tel_reg = reg
+        self._tel_watchdog = get_compile_watchdog()
+        self._tel_tracer = get_tracer()
+        self._tel_sample_memory = sample_memory_gauges
+        self._tel_step_hist = reg.histogram("train/step_time_ms", "whole train_batch wall time")
+        self._tel_phase_hist = reg.histogram(
+            "train/phase_time_ms",
+            "fwd/bwd/step breakdown (forward()/backward()/step() trio)",
+            labelnames=("phase",))
+        self._tel_tokens_gauge = reg.gauge("train/tokens_per_sec",
+                                           "tokens through the last step")
+        self._tel_tflops_gauge = reg.gauge("train/achieved_tflops_per_chip",
+                                           "model flops per token x token rate / chips")
+        self._tel_mfu_gauge = reg.gauge("train/mfu",
+                                        "achieved / peak flops per chip (PaLM-style)")
+        self._tel_steps_counter = reg.counter("train/steps")
+        self._tel_tokens_counter = reg.counter("train/tokens")
+        self._tel_loss_gauge = reg.gauge("train/loss", "last recorded training loss")
+        self._tel_grad_norm_hist = reg.histogram(
+            "train/grad_norm",
+            "pre-clip global gradient norm (computed for telemetry even with clipping off)")
+        self._tel_wait_hist = reg.histogram(
+            "train/data_wait_ms", "host time between steps (data loading + host prep)")
+        self._tel_stall_gauge = reg.gauge("train/data_stall_fraction",
+                                          "cumulative wait / (wait + device step) time")
+        if self.fp16_enabled():
+            self._tel_skipped_gauge = reg.gauge("train/skipped_steps",
+                                                "fp16 overflow skip-update steps so far")
+            self._tel_scale_gauge = reg.gauge("train/loss_scale", "current dynamic loss scale")
+        if tcfg.events.enabled:
+            from deepspeed_tpu_torch.monitor.events import get_flight_recorder
+            self._tel_events = get_flight_recorder().enable(capacity=tcfg.events.capacity)
 
     # ------------------------------------------------------------------ #
     # state
@@ -334,9 +420,13 @@ class DeepSpeedEngine:
         overflow = bool(has_overflow(unscaled(n) for n in names)) if self.fp16_enabled() \
             else False
         clip = float(self.gradient_clipping() or 0.0)
-        norm = global_norm(unscaled(n) for n in names) if clip > 0.0 else None
+        # the pre-clip norm: for clipping, and for the grad-norm series
+        # (telemetry records it with clipping off too)
+        norm = global_norm(unscaled(n) for n in names) \
+            if clip > 0.0 or self._telemetry is not None else None
         self._global_grad_norm = norm
         lr = float(self._lr_fn(st.global_steps))
+        self._last_lr = lr
         if not overflow:
             st.opt_state.count += 1
             params = self._param_dict(st.params)
@@ -399,6 +489,29 @@ class DeepSpeedEngine:
             micros = [self._batch_to_device(m) for m in micros]
             batch = {k: torch.stack([m[k] for m in micros]) for k in micros[0]}
         self._skipped_before_step = self.state.skipped_steps
+        self.tput_timer.start()
+        prof = self._profiler
+        if prof is not None:
+            # profile-window boundary: starts/stops the capture
+            prof.tick()
+        t0 = time.perf_counter() if self._telemetry is not None else 0.0
+        with (prof.annotate("train_batch") if prof is not None and prof.active
+              else contextlib.nullcontext()):
+            loss = self._train_batch_body(batch, gas)
+        self.tput_timer.stop(global_step=True)
+        self._data_progress["iterations"] += 1
+        self._data_progress["consumed_samples"] += self.train_batch_size()
+        self._losses = loss
+        if self._telemetry is not None:
+            self._tel_after_train_batch(batch, loss, t0)
+        if self.quantizer is not None:
+            self._quantize_step()
+        self._write_monitor_events(loss)
+        self._report_progress(loss)
+        return loss
+
+    def _train_batch_body(self, batch, gas: int) -> torch.Tensor:
+        """gas micro-steps and the update; returns the mean loss."""
         if gas == 1:
             loss = self._micro_grads({k: x[0] for k, x in batch.items()})
             self.state.micro_steps += 1
@@ -418,12 +531,6 @@ class DeepSpeedEngine:
             self.state.micro_steps += gas
             self._apply_update(gas)
             loss = torch.stack(losses).mean()
-        if self.quantizer is not None:
-            self._quantize_step()
-        self._data_progress["iterations"] += 1
-        self._data_progress["consumed_samples"] += self.train_batch_size()
-        self._losses = loss
-        self._report_progress(loss)
         return loss
 
     def _standing_iterator(self, data_iter=None):
@@ -456,8 +563,12 @@ class DeepSpeedEngine:
 
     def forward(self, batch):
         """Loss of one micro-batch, with its graph kept for ``backward``."""
+        self.timers(SynchronizedWallClockTimer.FORWARD_GLOBAL_TIMER).start()
+        t0 = time.perf_counter()
         out = self.loss_fn(self.state.params, self._batch_to_device(batch), self._rng)
         loss = out[0] if isinstance(out, tuple) else out
+        self._tel_phase("fwd", t0)
+        self.timers(SynchronizedWallClockTimer.FORWARD_GLOBAL_TIMER).stop()
         self._cached_loss = loss
         self._losses = loss.detach()
         return loss
@@ -471,11 +582,15 @@ class DeepSpeedEngine:
             self.forward(batch)
         if self._cached_loss is None:
             raise RuntimeError("backward() called before forward(); pass batch= explicitly if needed")
+        self.timers(SynchronizedWallClockTimer.BACKWARD_GLOBAL_TIMER).start()
+        t0 = time.perf_counter()
         (self._cached_loss.float() * self.state.scaler.loss_scale).backward()
         self._cached_loss = None
         self._ensure_acc_grads()
         self._accumulate()
         self.state.micro_steps += 1
+        self._tel_phase("bwd", t0)
+        self.timers(SynchronizedWallClockTimer.BACKWARD_GLOBAL_TIMER).stop()
         return self._losses
 
     def is_gradient_accumulation_boundary(self) -> bool:
@@ -487,9 +602,19 @@ class DeepSpeedEngine:
         if not self.is_gradient_accumulation_boundary():
             return
         self._skipped_before_step = self.state.skipped_steps
+        self.timers(SynchronizedWallClockTimer.STEP_GLOBAL_TIMER).start()
+        t0 = time.perf_counter()
         self._apply_update(self.gradient_accumulation_steps())
+        self._tel_phase("step", t0)
+        self.timers(SynchronizedWallClockTimer.STEP_GLOBAL_TIMER).stop()
         if self.lr_scheduler is not None:
             self.lr_scheduler.step()
+        if self._telemetry is not None:
+            self._host_global_steps += 1
+            self._tel_record_update(self._acc.to_host(self._losses).item())
+            self._tel_trio_wait()
+            self._tel_maybe_flush()
+        self._write_monitor_events(self._losses)
         self._report_progress(self._losses)
 
     def eval_batch(self, batch):
@@ -503,6 +628,189 @@ class DeepSpeedEngine:
         if spp and self.state.global_steps % spp == 0:
             log_dist(f"step={self.state.global_steps}, skipped={self.state.skipped_steps}, "
                      f"lr={self.get_lr()}, loss={float(loss)}", ranks=[0])
+            if self.wall_clock_breakdown_enabled:
+                t = SynchronizedWallClockTimer
+                self.timers.log([t.FORWARD_GLOBAL_TIMER, t.BACKWARD_GLOBAL_TIMER,
+                                 t.STEP_GLOBAL_TIMER])
+
+    # ------------------------------------------------------------------ #
+    # monitoring and telemetry
+
+    def _write_monitor_events(self, loss) -> None:
+        """The monitor sinks' per-step scalars (JAX engine names). Reads the
+        loss from the device, so only when a sink is on."""
+        if not self.monitor.enabled:
+            return
+        step = self.global_steps
+        events = [("Train/Samples/train_loss", float(self._acc.to_host(loss)), step),
+                  ("Train/Samples/lr", self._last_lr, step)]
+        if self.fp16_enabled():
+            events.append(("Train/Samples/loss_scale", float(self.loss_scale), step))
+        self.monitor.write_events(events)
+
+    def _tel_after_train_batch(self, batch, loss, t0: float) -> None:
+        """The one host sync of a telemetry-on step: the loss and the
+        pre-clip grad norm in one read, so the wall clock brackets the
+        device work; then the step's series."""
+        norm = self._global_grad_norm
+        vals = torch.stack([loss.detach().float().reshape(()),
+                            (norm if norm is not None else loss).detach().float().reshape(())])
+        host = self._acc.to_host(vals).tolist()
+        dt_s = time.perf_counter() - t0
+        wait_s = t0 - self._t_prev_step_end if self._t_prev_step_end is not None else 0.0
+        self._host_global_steps += 1
+        self._tel_record_step(batch, dt_s, host[0], host[1] if norm is not None else None,
+                              wait_s)
+        self._tel_maybe_flush()
+        self._t_prev_step_end = time.perf_counter()
+
+    def _tel_phase(self, phase: str, t0: float) -> None:
+        """Record one trio-phase duration (a sync, so the wall clock
+        brackets the device work); telemetry off: nothing."""
+        if self._telemetry is None:
+            return
+        self._acc.synchronize()
+        dur = time.perf_counter() - t0
+        self._tel_phase_hist.labels(phase=phase).observe(dur * 1e3)
+        if self._tel_events is not None:
+            dur_ns = int(dur * 1e9)
+            self._tel_events.emit("train.phase", step=self._host_global_steps,
+                                  t_ns=time.monotonic_ns() - dur_ns, dur_ns=dur_ns,
+                                  phase=phase)
+        self._trio_busy_s += dur
+
+    def _tel_trio_wait(self) -> None:
+        """Trio boundary: the wait is the boundary-to-boundary wall time
+        the timed phases did not cover (data loading, host prep)."""
+        now = time.perf_counter()
+        busy = self._trio_busy_s
+        wall = now - self._t_prev_step_end if self._t_prev_step_end is not None else busy
+        self._t_prev_step_end = now
+        self._trio_busy_s = 0.0
+        self._tel_account_wait(max(wall - busy, 0.0), busy)
+
+    def _tel_account_wait(self, wait_s: float, busy_s: float) -> None:
+        """The data-wait histogram plus the cumulative wait/(wait+busy)
+        stall gauge."""
+        wait_s = max(wait_s, 0.0)
+        self._tel_wait_hist.observe(wait_s * 1e3)
+        self._tel_wait_total += wait_s
+        self._tel_busy_total += max(busy_s, 0.0)
+        tot = self._tel_wait_total + self._tel_busy_total
+        if tot > 0:
+            self._tel_stall_gauge.set(self._tel_wait_total / tot)
+
+    def _tel_record_step(self, batch, dt_s: float, loss: float, grad_norm: Optional[float],
+                         wait_s: float) -> None:
+        """Per-step series: step time, tokens/s, achieved TFLOP/s and MFU
+        (PaLM-style: model flops a token x token rate / peak), data wait,
+        and the update's loss / grad-norm / fp16 gauges."""
+        self._tel_step_hist.observe(dt_s * 1e3)
+        self._tel_steps_counter.inc()
+        self._tel_tracer.add_event("train_batch", time.perf_counter() - dt_s, dt_s)
+        if self._tel_events is not None:
+            dur = int(dt_s * 1e9)
+            self._tel_events.emit("train.step", step=self._host_global_steps,
+                                  t_ns=time.monotonic_ns() - dur, dur_ns=dur)
+        lead = next(iter(batch.values()))
+        tokens = 1
+        for d in lead.shape[:3] if lead.ndim >= 3 else lead.shape[:2]:
+            tokens *= int(d)
+        tps = tokens / max(dt_s, 1e-9)
+        self._tel_tokens_gauge.set(tps)
+        self._tel_tokens_counter.inc(tokens)
+        achieved = tps * self._tel_flops_per_token(int(lead.shape[-1])) / 1e12
+        self._tel_tflops_gauge.set(achieved)
+        peak = self._tel_peak_tflops()
+        self._tel_mfu_gauge.set(achieved / peak if peak > 0 else 0.0)
+        self._tel_account_wait(wait_s, dt_s)
+        self._tel_record_update(loss, grad_norm)
+
+    def _tel_record_update(self, loss: float, grad_norm: Optional[float] = None) -> None:
+        """The update's series: loss gauge, the pre-clip grad-norm
+        histogram, and under fp16 the skipped-steps / loss-scale gauges
+        and a ``train.fp16_skip`` event when the update was skipped (host
+        counters in the port: no device read)."""
+        import math
+        self._tel_loss_gauge.set(float(loss))
+        if grad_norm is not None and math.isfinite(grad_norm):
+            self._tel_grad_norm_hist.observe(grad_norm)
+        if self.fp16_enabled():
+            skipped = int(self.state.skipped_steps)
+            self._tel_skipped_gauge.set(skipped)
+            self._tel_scale_gauge.set(self.loss_scale)
+            if self._tel_events is not None:
+                if self._ev_skip_prev is not None and skipped > self._ev_skip_prev:
+                    self._tel_events.emit("train.fp16_skip", step=self._host_global_steps,
+                                          skipped_total=skipped, loss_scale=self.loss_scale)
+                self._ev_skip_prev = skipped
+
+    def _tel_maybe_flush(self) -> None:
+        """JSONL / MonitorMaster flush on the ``steps_per_snapshot``
+        cadence, memory gauges sampled just before."""
+        tcfg = self._telemetry
+        n = tcfg.steps_per_snapshot
+        if not (n and self._host_global_steps % n == 0):
+            return
+        self._tel_sample_memory(self._tel_reg, self._acc)
+        if tcfg.jsonl_path:
+            self._tel_reg.write_jsonl(tcfg.jsonl_path, step=self._host_global_steps)
+        if tcfg.publish_to_monitor:
+            self._tel_reg.publish(self.monitor, self._host_global_steps)
+
+    def _tel_flops_per_token(self, seq_len: int) -> float:
+        """Training flops per token at the batch's sequence length, the
+        model's analytic ``flops_per_token`` (6 N plus the attention term);
+        0 when the model has none. The JAX engine measures the forward
+        through its flops profiler first and falls back to the same count."""
+        cached = self._tel_flops_per_token_v
+        if cached is None or cached[0] != seq_len:
+            fpt = 0.0
+            fn = getattr(self.module, "flops_per_token", None)
+            if fn is not None:
+                try:
+                    fpt = float(fn(seq_len))
+                except TypeError:
+                    fpt = float(fn())
+            cached = self._tel_flops_per_token_v = (seq_len, fpt)
+        return cached[1]
+
+    def _tel_peak_tflops(self) -> float:
+        """MFU denominator: config > DS_PEAK_TFLOPS / the accelerator's
+        device table > 0 (the gauge reads 0 rather than a made-up peak)."""
+        p = float(self._telemetry.peak_tflops_per_chip or 0.0)
+        return p if p > 0 else float(self._acc.peak_tflops())
+
+    def telemetry_snapshot(self) -> Dict:
+        """Whole-process registry snapshot plus the build watchdog's summary
+        under ``"compile"``. Empty dict when telemetry is off."""
+        if self._telemetry is None:
+            return {}
+        self._tel_sample_memory(self._tel_reg, self._acc)
+        snap = self._tel_reg.snapshot()
+        snap["compile"] = self._tel_watchdog.summary()
+        return snap
+
+    def export_trace(self, path: Optional[str] = None) -> Optional[str]:
+        """Write the recorded host spans as chrome-trace JSON; returns the
+        path, or None when telemetry is off."""
+        if self._telemetry is None:
+            return None
+        path = path or self._telemetry.chrome_trace_path
+        if not path:
+            raise ValueError("no trace path: pass one or set telemetry.chrome_trace_path")
+        return self._tel_tracer.export_chrome_trace(path)
+
+    def profile(self, steps: int, log_dir: Optional[str] = None):
+        """Arm an on-demand ``torch.profiler`` capture of the next ``steps``
+        ``train_batch`` calls into ``log_dir`` (default
+        ``telemetry.profile.dir``). Works with telemetry off; raises if a
+        capture is running. Returns the armed window."""
+        if self._profiler is None:
+            from deepspeed_tpu_torch.monitor.trace import ProfileWindow
+            self._profiler = ProfileWindow(log_dir or self._config.telemetry_config.profile.dir)
+        self._profiler.arm(steps, log_dir=log_dir)
+        return self._profiler
 
     # ------------------------------------------------------------------ #
     # the data pipeline
@@ -606,9 +914,12 @@ class DeepSpeedEngine:
             except Exception as e:
                 logger.warning(f"emergency save: drain failed ({e}); "
                                f"taking the synchronous save anyway")
-        # the flight recorder's event dump beside the tag comes with
-        # telemetry (ROADMAP.md queue 1 item 4)
-        return self.save_checkpoint(save_dir, asynchronous=False)
+        result = self.save_checkpoint(save_dir, asynchronous=False)
+        # the flight recorder's tail beside the tag: the post-mortem gets
+        # the timeline leading into the signal (no-op when recording is off)
+        from deepspeed_tpu_torch.monitor.events import dump_events_jsonl
+        dump_events_jsonl(save_dir)
+        return result
 
     def enable_preemption_handler(self, save_dir, signals=None, exit_on_signal=True):
         """Install the SIGTERM/SIGINT grace handler: on signal, drain the
@@ -751,6 +1062,8 @@ class DeepSpeedEngine:
         """Stop the checkpoint writer and the preemption handler and drop
         the state: the engine is unusable afterwards."""
         self.disable_preemption_handler()
+        if self._profiler is not None:
+            self._profiler.stop()       # a dangling capture wedges the profiler
         if self._ckpt_writer is not None:
             self._ckpt_writer.stop()
             self._ckpt_writer = None

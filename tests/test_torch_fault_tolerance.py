@@ -3,8 +3,9 @@
 engine on the CPU — crash-safe two-phase checkpointing, verified
 auto-resume with walk-back, injected I/O faults, the async writer,
 retention, preemption, resume identity and the dataloader's resume. The
-metrics and health-detector cases wait for telemetry (ROADMAP.md queue 1
-item 4); ``dscli ckpt verify`` waits for the CLI."""
+metrics cases are in ``test_torch_train_telemetry.py``; the health-detector
+cases wait for the health observatory (ROADMAP.md queue 1, telemetry and
+control plane); ``dscli ckpt verify`` waits for the CLI."""
 
 import errno
 import json

@@ -106,6 +106,15 @@ INGEST_MODULES = (
 )
 
 
+# the telemetry slice's modules (monitor/, the timers)
+MONITOR_MODULES = (
+    "deepspeed_tpu_torch.monitor.config", "deepspeed_tpu_torch.monitor.metrics",
+    "deepspeed_tpu_torch.monitor.events", "deepspeed_tpu_torch.monitor.trace",
+    "deepspeed_tpu_torch.monitor.monitor", "deepspeed_tpu_torch.monitor.health",
+    "deepspeed_tpu_torch.utils.timer",
+)
+
+
 def test_import_leaves_jax_and_pydantic_out():
     mods = ["deepspeed_tpu_torch"] + sorted(
         "deepspeed_tpu_torch." + ".".join(p.relative_to(ROOT / "deepspeed_tpu_torch")
@@ -118,6 +127,7 @@ def test_import_leaves_jax_and_pydantic_out():
     assert set(SPEC_MODULES) <= set(mods)
     assert set(RESUME_MODULES) <= set(mods)
     assert set(INGEST_MODULES) <= set(mods)
+    assert set(MONITOR_MODULES) <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -142,6 +152,24 @@ def test_ingestion_imports_no_checkpoint_package_and_resolves_lazily():
             "import deepspeed_tpu_torch.checkpoint, deepspeed_tpu_torch.module_inject.megatron\n"
             "assert callable(mi.load_hf_checkpoint) and 'llama' in mi.POLICIES\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{absent!r}))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+
+
+def test_monitor_imports_no_jax_nor_the_jax_package():
+    """``deepspeed_tpu_torch.monitor`` keeps its own copies of the JAX
+    package's standard-library monitor modules: importing all of them (and
+    the package) loads neither jax, the JAX package nor pydantic, nor any
+    TensorBoard / W&B package."""
+    absent = FORBIDDEN + ("tensorboard", "wandb")
+    code = ("import importlib, sys\n"
+            "import deepspeed_tpu_torch.monitor as m\n"
+            f"for name in {MONITOR_MODULES!r}: importlib.import_module(name)\n"
+            "assert 'deepspeed_tpu_torch.monitor' in sys.modules and m.get_registry()\n"
+            "print(sorted(x for x in sys.modules if x.split('.')[0] in "
             f"{absent!r}))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)

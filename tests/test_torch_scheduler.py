@@ -11,8 +11,10 @@ import pytest
 
 from deepspeed_tpu.inference import block_allocator as jax_alloc
 from deepspeed_tpu.inference import scheduler as jax_sched
+import deepspeed_tpu_torch
 from deepspeed_tpu_torch.inference import block_allocator as port_alloc
 from deepspeed_tpu_torch.inference import scheduler as port_sched
+from deepspeed_tpu_torch.models import CausalLM, TransformerConfig
 
 VOCAB = 11
 
@@ -128,6 +130,21 @@ def test_action_traces_match(name):
 
 
 def test_scheduler_refuses_telemetry_hooks():
-    alloc = port_alloc.BlockAllocator(4, 4)
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        port_sched.ContinuousBatchingScheduler(alloc, 1, 2, telemetry=object())
+    """The scheduler takes the serving telemetry and the flight recorder
+    (every series pre-created at zero); what stays refused is the control
+    plane above them, which the serving engine raises for by name."""
+    from deepspeed_tpu_torch.monitor.events import FlightRecorder
+    from deepspeed_tpu_torch.monitor.metrics import MetricsRegistry
+    reg = MetricsRegistry()
+    port_sched.ContinuousBatchingScheduler(
+        port_alloc.BlockAllocator(4, 4), 1, 2,
+        telemetry=port_sched.ServingTelemetry(reg), events=FlightRecorder(enabled=True))
+    snap = reg.snapshot()
+    assert snap["counters"]["serving/preemptions"] == 0
+    assert snap["histograms"]["serving/ttft_ms"]["count"] == 0
+    model = CausalLM(TransformerConfig(vocab_size=64, n_layer=1, n_head=2, d_model=32,
+                                       d_ff=64, max_seq=64))
+    for sub in ("health", "sampler", "slo", "ctl"):
+        with pytest.raises(NotImplementedError, match="telemetry and control plane"):
+            deepspeed_tpu_torch.init_inference(model, dtype="fp32", device="cpu",
+                                               telemetry={sub: True})

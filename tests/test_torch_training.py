@@ -396,7 +396,9 @@ def test_config_fields_match_jax():
     ({"pipeline": {"stages": 2}}, "runtime/pipe"),
     ({"mesh": {"dp": 1, "sp": 2}}, "multi-device"),
     ({"compression_training": {"weight_quantization": {}}}, "compression"),
-    ({"telemetry": {"enabled": True}}, "telemetry"),
+    ({"telemetry": {"health": {"enabled": True}}}, "telemetry and control plane"),
+    ({"telemetry": {"enabled": True, "metrics_port": 9100}}, "telemetry and control plane"),
+    ({"comms_logger": {"enabled": True}}, "comm/"),
     ({"checkpoint": {"engine": "orbax"}}, "checkpoint"),
     ({"elasticity": {"enabled": True}}, "elasticity"),
     ({"autotuning": {"enabled": True}}, "autotuning"),
