@@ -155,9 +155,30 @@ Phases, each printing one JSON line:
                 launches per step the train rule, one host sync a step on and
                 none off (counted through the accelerator), train/mfu within
                 3 % of flops_per_token x tokens/s / peak on the phase's clock
+  client_opt    the train phase's configuration with a client optimizer,
+                foreach torch.optim.AdamW over the masters, and the engine-built
+                FusedAdam from the same seeded state: the grads the client
+                optimizer receives at step 1 equal E's (per-leaf fingerprints,
+                limit 0), the masters after step 1 equal AdamW applied by hand
+                (limit 0) and two planted faults (the WarmupLR factor on top,
+                the clip twice) read above 0, launches per step the train
+                rule with no E, losses finite and falling; step ms, tokens/s,
+                MFU, peak memory and the optimizer's time by CUDA events
+                beside the engine-built step ms and E's time
+  health        the train phase's configuration with telemetry.health
+                (sentinels), metrics_port 0 and the sampler, 5 steps on and 5
+                off: losses bit-equal, host syncs 1 / 0 a step, 3 steps'
+                sentinels against a plain fp64 recomputation on the card,
+                /metrics scraped between steps, the CLI's health and top over
+                the sampler's JSONL; an inf planted in a master with sentinels
+                off (unseen) and on (nonfinite 1, a valid debug bundle); the
+                port refused after teardown; then full Llama-2-7B serving the
+                serve phase's prompts with events on: cli trace <rid> phases
+                summing to each request's time, TTFT p99 and a TTFT
+                objective's burn rate
   kernels       every ported kernel with its launches in the serve, spec_serve
                 (its oracle run), generate, train, train_lamb, train_sparse,
-                resume, ingest and telemetry phases (A, C and D with a layout in rows of
+                resume, ingest, telemetry, client_opt and health phases (A, C and D with a layout in rows of
                 their own; C's and D's rows also carry their readings with an lse
                 cotangent)
   profile       (only with --phases profile) the serve phase's prompts through
@@ -174,6 +195,8 @@ Phases, each printing one JSON line:
                 torch.profiler: device time by class and the idle share
   train_sparse_profile (only with --phases train_sparse_profile) the
                 train_profile breakdown for the train_sparse configuration
+  health_profile (only with --phases health_profile) the train_profile
+                breakdown with telemetry.health on (the sentinels' passes)
 
 The last line is {"ok": true, "device": {...}}. Any failure raises, so the
 script exits non-zero and prints no result line; it also exits non-zero
@@ -195,9 +218,11 @@ import time
 PHASES = ("env", "build", "kernel", "slice_parity", "serve", "spec_parity", "spec_serve",
           "generate_parity", "generate",
           "train_parity", "train", "train_lamb_parity", "train_lamb", "sparse_parity",
-          "train_sparse", "resume", "ingest", "telemetry", "kernels", "profile",
-          "train_profile", "train_lamb_profile", "generate_profile", "train_sparse_profile")
-DEFAULT_PHASES = PHASES[:-5]      # the five profiles run only when asked for
+          "train_sparse", "resume", "ingest", "telemetry", "client_opt", "health", "kernels",
+          "profile",
+          "train_profile", "train_lamb_profile", "generate_profile", "train_sparse_profile",
+          "health_profile")
+DEFAULT_PHASES = PHASES[:-6]      # the six profiles run only when asked for
 # Kernel vs plain version, bf16 outputs: the largest difference in each output
 # row (over head_dim), in bf16 ulps of that row's largest |plain| value, so
 # one limit holds at every output scale (a row over 500 keys is ~20x smaller
@@ -2586,10 +2611,10 @@ def phase_generate_profile(state, seed):
     torch.cuda.empty_cache()
 
 
-def _train_engine(model, params, config, device=None):
+def _train_engine(model, params, config, device=None, optimizer=None):
     import deepspeed_tpu_torch
     return deepspeed_tpu_torch.initialize(model=model, model_parameters=params, config=config,
-                                          device=device)[0]
+                                          device=device, optimizer=optimizer)[0]
 
 
 def _grads(engine, batch):
@@ -2767,11 +2792,12 @@ def _train_parity(phase, seed, model, B, S, faults):
     check(not failures, f"{phase} failed: " + "; ".join(failures))
 
 
-def _train_setup(seed, config=None, sparse=False, seq=TRAIN_SEQ):
+def _train_setup(seed, config=None, sparse=False, seq=TRAIN_SEQ, optimizer=None):
     """The train phase's engine (Llama-2-7B width, TRAIN_LAYERS layers,
-    random bf16 weights drawn on the card; ``config`` default TRAIN_CONFIG)
-    and its one token batch of ``seq`` tokens a row; with ``sparse`` the
-    model takes the train_sparse path's sparsity config."""
+    random bf16 weights drawn on the card; ``config`` default TRAIN_CONFIG;
+    ``optimizer`` a client optimizer) and its one token batch of ``seq``
+    tokens a row; with ``sparse`` the model takes the train_sparse path's
+    sparsity config."""
     import numpy as np
     import torch
     from deepspeed_tpu_torch.models import llama
@@ -2783,7 +2809,7 @@ def _train_setup(seed, config=None, sparse=False, seq=TRAIN_SEQ):
         model = replace_self_attention(model, sparse_config(model.config.n_head), max_seq=seq)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     params = model.init_params(gen, device="cuda", dtype=torch.bfloat16)
-    engine = _train_engine(model, params, config)
+    engine = _train_engine(model, params, config, optimizer=optimizer)
     del params
     torch.cuda.empty_cache()
     rng = np.random.default_rng(seed + 2)
@@ -3898,6 +3924,14 @@ def phase_train_sparse_profile(state, seed):
                         sparse=True, seq=SPARSE_SEQ)
 
 
+def phase_health_profile(state, seed):
+    """:func:`phase_train_profile` with ``telemetry.health`` on (its
+    sentinels gathered in the update), to set beside train_profile's
+    breakdown (not in the default run)."""
+    _profile_train_step(state, seed, "health_profile",
+                        {**TRAIN_CONFIG, "telemetry": {"health": {"enabled": True}}})
+
+
 def _profile_train_step(state, seed, phase, config, sparse=False, seq=TRAIN_SEQ):
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -4341,6 +4375,555 @@ def phase_telemetry(state, seed):
     check(not failures, "telemetry failed: " + "; ".join(failures))
 
 
+# --------------------------------------------------------------------- #
+# client optimizers and the health observatory (the control plane slice)
+
+CLIENT_LR = 1e-4
+CLIENT_ADAMW = {"lr": CLIENT_LR, "betas": (0.9, 0.95), "eps": 1e-8, "weight_decay": 0.1,
+                "foreach": True}
+CHECK_DEVICE = "cuda"     # the phases' engines (the CPU tests run them on "cpu")
+CHECK_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), ".chip_check", "health")
+HEALTH_STEPS = 5          # 3 checked against the plain recomputation, 2 timed
+HEALTH_CHECKED = 3
+NORM_TOL = 1e-5           # param and bucket norms against the plain recomputation, relative
+UPDATE_TOL = 1e-3         # the update norm (new - old of each master), relative
+SLO_TTFT = {"name": "ttft", "metric": "serving/ttft_ms", "kind": "latency",
+            "threshold_ms": 250.0, "objective": 0.9, "windows": [1]}
+
+
+def client_adamw(params):
+    """The client_opt phase's optimizer: foreach AdamW over the engine's masters."""
+    import torch
+    return torch.optim.AdamW(params, **CLIENT_ADAMW)
+
+
+def grad_fingerprint(g):
+    """A leaf's gradient fingerprint: its fp64 sum and sum of squares and the
+    int64 sum of its fp32 bit patterns (equal for bit-equal tensors)."""
+    import torch
+    g = g.detach().reshape(-1)
+    d = g.double()
+    return (float(d.sum()), float((d * d).sum()),
+            int(g.float().view(torch.int32).to(torch.int64).sum()))
+
+
+def client_launch_rule(engine):
+    """The train rule for a client optimizer: the same attention and fused CE
+    launches, E not at all."""
+    return {**train_launch_rule(engine), "fused_adam": 0}
+
+
+def _sync():
+    import torch
+    if CHECK_DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def _free():
+    import torch
+    if CHECK_DEVICE == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _builtin_run(seed, steps):
+    """The train phase's engine-built FusedAdam from the seeded state: the
+    grads kernel E receives at step 1 (fingerprints in leaf order), each
+    step's losses, host-clock seconds and E's summed CUDA-event ms."""
+    from deepspeed_tpu_torch.ops.adam import fused_adam_kernel as fad
+    model, engine, batch = _train_setup(seed)
+    real = fad.fused_adam_step
+    seen, e_pairs = [], []
+
+    def timed(param, grad, *args, **kw):
+        if engine.global_steps == 0:
+            seen.append(grad_fingerprint(grad))
+        e0 = _cuda_event()
+        out = real(param, grad, *args, **kw)
+        e_pairs[-1].append((e0, _cuda_event()))
+        return out
+
+    fad.fused_adam_step = timed
+    losses, step_s = [], []
+    try:
+        for _ in range(steps):
+            e_pairs.append([])
+            t = time.perf_counter()
+            losses.append(float(engine.train_batch(batch)))
+            _sync()
+            step_s.append(time.perf_counter() - t)
+    finally:
+        fad.fused_adam_step = real
+    names = list(engine._names)
+    e_ms = [sum(a.elapsed_time(b) for a, b in pairs) for pairs in e_pairs]
+    engine.destroy()
+    del engine, batch
+    _free()
+    return model, dict(zip(names, seen)), losses, step_s, e_ms
+
+
+def _hand_adamw(pre, grad, scale=1.0):
+    """One torch.optim.AdamW step applied by hand to a copy of ``pre`` with
+    ``grad * scale`` (on the phase's device)."""
+    p = pre.to(CHECK_DEVICE).clone()
+    p.grad = grad.to(CHECK_DEVICE) * scale if scale != 1.0 else grad.to(CHECK_DEVICE)
+    client_adamw([p]).step()
+    return p.detach()
+
+
+def phase_client_opt(state, seed):
+    """The train phase's configuration with a client optimizer
+    (``CLIENT_ADAMW``, foreach AdamW over the fp32 masters) against the
+    engine-built FusedAdam from the same seeded state: the grads the client
+    optimizer receives at step 1 equal those kernel E receives (limit 0,
+    per-leaf fingerprints: fp64 sum, fp64 sum of squares, int64 sum of the
+    fp32 bits); the masters after step 1 equal torch.optim.AdamW applied by
+    hand to a copy of the pre-step masters with those grads (limit 0), while
+    two planted faults (the engine's WarmupLR factor applied on top of the
+    client update, the clip applied twice) read above 0; per step A 2 L gas,
+    C and D L gas, each fused CE kernel gas and E no launch; finite losses,
+    step 6 below step 1. Step ms, tokens/s, MFU, peak memory and the
+    optimizer's own time by CUDA events, beside the engine-built run's step
+    ms and E's time."""
+    import numpy as np
+    from deepspeed_tpu_torch.accelerator import get_accelerator
+
+    acc = get_accelerator(CHECK_DEVICE)
+    failures = []
+    t_phase = time.perf_counter()
+    _, e_grads, b_losses, b_step_s, e_ms = _builtin_run(seed, TRAIN_STEPS)
+
+    acc.reset_peak_memory_stats()
+    config = {k: v for k, v in TRAIN_CONFIG.items() if k != "optimizer"}
+    model, engine, batch = _train_setup(seed, config, optimizer=client_adamw)
+    opt = engine.client_optimizer
+    names = engine._client_names
+    want = client_launch_rule(engine)
+    real_step = opt.step
+    step_pairs, captured = [], {}
+
+    def step(*args, **kw):
+        if not captured:            # step 1: the grads handed over, the pre-step masters
+            held = [p for g in opt.param_groups for p in g["params"]]
+            captured["grads"] = {n: grad_fingerprint(p.grad) for n, p in zip(names, held)}
+            captured["pre"] = {n: (p.detach().to("cpu", copy=True),
+                                   p.grad.detach().to("cpu", copy=True))
+                               for n, p in zip(names, held)}
+        e0 = _cuda_event()
+        out = real_step(*args, **kw)
+        step_pairs.append((e0, _cuda_event()))
+        return out
+
+    opt.step = step
+    _reset_train_counters()
+    losses, step_s, per_step = [], [], []
+    hand = {}
+    for i in range(TRAIN_STEPS):
+        before = _train_counters()
+        t = time.perf_counter()
+        losses.append(float(engine.train_batch(batch)))
+        _sync()
+        step_s.append(time.perf_counter() - t)
+        after = _train_counters()
+        per_step.append({k: after[k] - before[k] for k in after})
+        if i == 0:
+            hand = _client_hand_check(engine, captured.pop("pre"))
+    launches = _train_counters()
+    peak_gb = acc.max_memory_allocated() / 1e9
+    opt_ms = [a.elapsed_time(b) for a, b in step_pairs]
+
+    mism = [n for n in names if captured["grads"][n] != e_grads.get(n)]
+    if len(e_grads) != len(names) or mism:
+        failures.append(f"step-1 grads differ from E's at {len(mism)} leaves: {mism[:3]}")
+    if hand["sound"] != 0.0:
+        failures.append(f"masters after step 1 differ from AdamW by hand: {hand['sound']}")
+    if not hand["coef"] < 1.0:
+        failures.append(f"the clip did not bite at step 1 (coefficient {hand['coef']}): "
+                        "the clip-twice fault cannot be planted")
+    for fault in ("lr_factor", "clip_twice"):
+        if not hand[fault] > 0.0:
+            failures.append(f"the planted fault {fault} read {hand[fault]}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        failures.append(f"losses {losses}")
+    for k, n in want.items():
+        if any(s[k] != n for s in per_step):
+            failures.append(f"{k} launches a step {[s[k] for s in per_step]} != {n}")
+    state["client_opt_launches"] = launches
+    tokens = TRAIN_CONFIG["train_batch_size"] * TRAIN_SEQ
+    step = statistics.median(step_s[1:])
+    b_step = statistics.median(b_step_s[1:])
+    flops_tok = model.flops_per_token(TRAIN_SEQ)
+    peak = acc.peak_tflops()
+    n_params = sum(p.numel() for p in engine.state.params.parameters())
+    engine.destroy()
+    del engine, batch, opt
+    _free()
+    emit("client_opt", model="llama-2-7b width", layers=model.config.n_layer, seq=TRAIN_SEQ,
+         optimizer="torch.optim.AdamW", optimizer_args={**CLIENT_ADAMW, "betas": [0.9, 0.95]},
+         params=n_params, losses=losses, step_s=step_s, step_ms_median_timed=step * 1e3,
+         tokens_per_s=tokens / step,
+         mfu=flops_tok * tokens / step / (peak * 1e12) if peak else None,
+         peak_mem_gb=peak_gb, opt_step_ms=opt_ms,
+         opt_step_ms_median_timed=statistics.median(opt_ms[1:]),
+         builtin_losses=b_losses, builtin_step_s=b_step_s,
+         builtin_step_ms_median_timed=b_step * 1e3, e_ms_a_step=e_ms,
+         e_ms_median_timed=statistics.median(e_ms[1:]),
+         grads_equal_leaves=len(names) - len(mism), leaves=len(names),
+         grad_fingerprint="fp64 sum, fp64 sum of squares, int64 sum of the fp32 bits",
+         hand_adamw_max_abs_diff=hand["sound"], fault_lr_factor=hand["lr_factor"],
+         fault_clip_twice=hand["clip_twice"], clip_coef=hand["coef"],
+         launches_per_step=want, launches=launches, phase_s=time.perf_counter() - t_phase,
+         card=state.get("card"))
+    check(not failures, "client_opt failed: " + "; ".join(failures))
+
+
+def _client_hand_check(engine, pre):
+    """After step 1: each master against torch.optim.AdamW applied by hand to
+    its pre-step copy with the grad the client optimizer received (largest
+    |difference|, limit 0), and the two planted faults' largest differences:
+    the engine's WarmupLR factor at step 0 applied on top of that update, and
+    the grad clipped a second time by the step's clip coefficient."""
+    norm = float(engine._global_grad_norm)
+    clip = float(engine.gradient_clipping())
+    coef = min(1.0, clip / (norm + 1e-6))
+    factor = float(engine._lr_fn(0)) / TRAIN_CONFIG["scheduler"]["params"]["warmup_max_lr"]
+    out = {"sound": 0.0, "lr_factor": 0.0, "clip_twice": 0.0, "coef": coef}
+    targets = engine.state.master or engine._param_dict(engine.state.params)
+    for n, (p0, g) in pre.items():
+        got = targets[n]
+        sound = _hand_adamw(p0, g)
+        pd = p0.to(CHECK_DEVICE)
+        warm = pd + factor * (sound - pd)
+        twice = _hand_adamw(p0, g, scale=coef)
+        for key, t in (("sound", sound), ("lr_factor", warm), ("clip_twice", twice)):
+            out[key] = max(out[key], float((t - got).abs().max()))
+        del sound, warm, twice, pd
+    return out
+
+
+def _plain_sentinels(engine, rec):
+    """Wrap the engine's update so each step appends a plain recomputation of
+    its sentinel parts on the device, in fp64, from the same step's grads and
+    masters (no host read): non-finite counts, the grad norm, the bucket norms
+    (grouped by each leaf name's first key), the param norm and the update
+    norm ``||new - old||`` against a copy of the pre-update masters. Returns
+    the restore callable."""
+    import torch
+    real = engine._apply_update
+
+    def wrapped(gas, grads=None):
+        st = engine.state
+        src = grads if grads is not None else st.acc_grads
+        denom = st.scaler.loss_scale * gas
+        z = lambda: torch.zeros((), dtype=torch.float64, device=engine.device)
+        plain = {"nf_g": z(), "gsq": z(), "buckets": {}, "nf_p": z(), "psq": z(), "usq": z()}
+        for n in engine._names:
+            x = src[n].double() / denom
+            sq = (x * x).sum()
+            plain["nf_g"] += (~torch.isfinite(x)).sum()
+            plain["gsq"] += sq
+            b = n.split(".", 1)[0]
+            plain["buckets"][b] = plain["buckets"].get(b, z()) + sq
+            del x
+        targets = st.master if st.master is not None else engine._param_dict(st.params)
+        old = {n: m.detach().clone() for n, m in targets.items()}
+        real(gas, grads)
+        for n, m in targets.items():
+            plain["nf_p"] += (~torch.isfinite(m)).sum()
+            plain["psq"] += (m.double() ** 2).sum()
+            plain["usq"] += ((m.double() - old.pop(n).double()) ** 2).sum()
+        plain["norm"] = engine._global_grad_norm
+        plain["sentinels"] = engine._sentinels
+        rec.append(plain)
+
+    engine._apply_update = wrapped
+    return lambda: engine.__dict__.pop("_apply_update", None)
+
+
+def _held_sentinels(plain, names, failures, step):
+    """One step's sentinel vector against its plain recomputation."""
+    import math
+    from deepspeed_tpu_torch.monitor.health import sentinel_to_dict
+    d = sentinel_to_dict(plain["sentinels"].cpu().tolist(), names)
+    rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30)
+    got_gn = float(plain["norm"].cpu())
+    if d["grad_norm"] != got_gn:
+        failures.append(f"step {step}: sentinel grad norm {d['grad_norm']} is not the "
+                        f"clip's {got_gn}")
+    if rel(d["grad_norm"], math.sqrt(float(plain["gsq"]))) > NORM_TOL:
+        failures.append(f"step {step}: grad norm {d['grad_norm']} vs plain "
+                        f"{math.sqrt(float(plain['gsq']))}")
+    if (d["nonfinite_grads"], d["nonfinite_params"]) != (float(plain["nf_g"]),
+                                                          float(plain["nf_p"])):
+        failures.append(f"step {step}: non-finite counts {d['nonfinite_grads']}, "
+                        f"{d['nonfinite_params']} vs plain {float(plain['nf_g'])}, "
+                        f"{float(plain['nf_p'])}")
+    pn, un = math.sqrt(float(plain["psq"])), math.sqrt(float(plain["usq"]))
+    if rel(d["param_norm"], pn) > NORM_TOL:
+        failures.append(f"step {step}: param norm {d['param_norm']} vs plain {pn}")
+    if rel(d["update_norm"], un) > UPDATE_TOL:
+        failures.append(f"step {step}: update norm {d['update_norm']} vs plain {un}")
+    worst = 0.0
+    for b, v in d["bucket_norms"].items():
+        worst = max(worst, rel(v, math.sqrt(float(plain["buckets"][b]))))
+    if worst > NORM_TOL:
+        failures.append(f"step {step}: bucket norms off by {worst} relative")
+    return {"grad_norm": d["grad_norm"], "param_norm": d["param_norm"],
+            "param_norm_plain": pn, "update_norm": d["update_norm"], "update_norm_plain": un,
+            "bucket_norm_worst_rel": worst, "update_ratio": d["update_ratio"]}
+
+
+def _health_train(seed, telemetry, on_engine=None, on_step=None):
+    """The train phase's configuration for HEALTH_STEPS steps from its seeded
+    state (``telemetry`` its section, or None): losses, per-step host syncs
+    through the accelerator, launches and host-clock seconds.
+    ``on_engine(engine)`` runs once the engine is built, ``on_step(i,
+    engine)`` after each step, outside the counted window. Returns the
+    engine (not destroyed) with them."""
+    import deepspeed_tpu_torch.accelerator.abstract_accelerator as accel
+    config = dict(TRAIN_CONFIG)
+    if telemetry is not None:
+        config["telemetry"] = telemetry
+    model, engine, batch = _train_setup(seed, config)
+    if on_engine is not None:
+        on_engine(engine)
+    losses, syncs, launches, step_s = [], [], [], []
+    for i in range(HEALTH_STEPS):
+        before = _train_counters()
+        s0 = accel.syncs
+        t = time.perf_counter()
+        losses.append(engine.train_batch(batch))
+        _sync()
+        step_s.append(time.perf_counter() - t)
+        syncs.append(accel.syncs - s0)
+        after = _train_counters()
+        launches.append({k: after[k] - before[k] for k in after})
+        if on_step is not None:
+            on_step(i, engine)
+    return model, engine, batch, [float(x) for x in losses], syncs, launches, step_s
+
+
+def _scrape(url):
+    import urllib.request
+    with urllib.request.urlopen(url, timeout=30) as resp:
+        return resp.status, resp.read().decode()
+
+
+def _cli(argv):
+    """``python -m deepspeed_tpu_torch.cli`` in this process: (rc, stdout)."""
+    import io
+    from deepspeed_tpu_torch import cli
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    return rc, buf.getvalue()
+
+
+def phase_health(state, seed):
+    """The train phase's configuration with ``telemetry.health`` (sentinels,
+    action dump), ``metrics_port`` 0 and the sampler (its JSONL under
+    .chip_check/), HEALTH_STEPS steps on and as many off from one seeded
+    state: losses bit-equal, one host sync a step on and none off, each of
+    the first HEALTH_CHECKED steps' sentinels against a plain fp64
+    recomputation on the card (non-finite counts equal, the grad norm the
+    clip's bits, param and bucket norms within NORM_TOL, the update norm
+    within UPDATE_TOL); /metrics scraped between steps parses back to the
+    registry's train/ values, /healthz 200; ``cli health --once --json`` and
+    ``cli top --once`` over the sampler's JSONL print the registry's loss and
+    MFU. Planted: an inf in one master with sentinels forced off (the params
+    read finite to the detectors), then with them on (nonfinite reads 1 and
+    the debug bundle holds a snapshot that loads and a chrome trace that
+    validates). After teardown the port refuses connections. Then full
+    Llama-2-7B serves the serve phase's prompts with events on: ``cli trace
+    <rid>`` phases sum to each request's end-to-end time in ns, prefill and
+    decode non-zero, TTFT p99 and a TTFT objective's burn rate ticked once
+    after the serve."""
+    import json as _json
+
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.monitor import get_flight_recorder, get_registry, validate_snapshot
+    from deepspeed_tpu_torch.monitor.slo import SloEngine, parse_objectives
+    from deepspeed_tpu_torch.monitor.top import snapshot_from_prometheus
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    from deepspeed_tpu_torch.ops.kernels import paged_decode_attention as pda
+
+    failures = []
+    t_phase = time.perf_counter()
+    shutil.rmtree(CHECK_DIR, ignore_errors=True)
+    os.makedirs(CHECK_DIR)
+    samples = os.path.join(CHECK_DIR, "samples.jsonl")
+    dumps = os.path.join(CHECK_DIR, "dumps")
+    telemetry = {"health": {"enabled": True, "sentinels": True, "action": "dump",
+                            "dump_dir": dumps},
+                 "metrics_port": 0,
+                 "sampler": {"enabled": True, "path": samples, "interval_s": 3600.0}}
+    _reset_telemetry()
+    plain, held, scrapes = [], [], []
+    restore = []
+
+    def on_step(i, engine):
+        if i < HEALTH_CHECKED:
+            held.append(_held_sentinels(plain[i], engine._health.bucket_names, failures, i + 1))
+        engine._tel_sampler.tick()
+        status, text = _scrape(engine._tel_exporter.url)
+        snap = get_registry().snapshot()
+        scraped = snapshot_from_prometheus(text)
+        bad = [k for k, v in snap["gauges"].items() if k.startswith("train/")
+               and scraped["gauges"].get(k) != v]
+        scrapes.append({"status": status, "train_gauges": sum(k.startswith("train/")
+                                                               for k in snap["gauges"]),
+                        "mismatched": bad})
+        if i + 1 == HEALTH_CHECKED:
+            restore.pop()()
+
+    # the health-on engine: the plain recomputation wraps its update for the
+    # checked steps
+    model, eng, batch, l_on, sy_on, la_on, st_on = _health_train(
+        seed, telemetry, on_engine=lambda e: restore.append(_plain_sentinels(e, plain)),
+        on_step=on_step)
+    rule = train_launch_rule(eng)
+    health_launches = {k: sum(s[k] for s in la_on) for k in la_on[0]}
+    status, _ = _scrape(eng._tel_exporter.url.replace("/metrics", "/healthz"))
+    if status != 200:
+        failures.append(f"/healthz {status}")
+    if any(s["mismatched"] or s["status"] != 200 or not s["train_gauges"] for s in scrapes):
+        failures.append(f"scrapes {scrapes}")
+    snap = get_registry().snapshot()
+    rc_h, out_h = _cli(["health", samples, "--once", "--json"])
+    rc_t, out_t = _cli(["top", samples, "--once"])
+    summ = _json.loads(out_h) if rc_h == 0 else {}
+    loss_g, mfu_g = snap["gauges"]["train/loss"], snap["gauges"]["train/mfu"]
+    if rc_h or rc_t or summ.get("loss", {}).get("loss") != loss_g or \
+            summ.get("train", {}).get("mfu") != mfu_g:
+        failures.append(f"cli health rc {rc_h} ({summ.get('loss')}, {summ.get('train')}) / "
+                        f"top rc {rc_t} against the registry's loss {loss_g}, MFU {mfu_g}")
+    if f"MFU {mfu_g:.3f}" not in out_t or f"loss {loss_g:.4g}" not in out_t:
+        failures.append(f"cli top shows no MFU {mfu_g:.3f} / loss {loss_g:.4g}")
+
+    # planted: an inf in one master, sentinels forced off, then on
+    leaf = "ln_f.scale"
+    param = dict(eng.state.params.named_parameters())[leaf]
+    anomalies = lambda: get_registry().snapshot()["counters"].get(
+        'health/anomalies{type="nonfinite"}')
+    targets = eng.state.master or dict(eng.state.params.named_parameters())
+    master = targets[leaf]
+    keep = master.detach().clone()
+    eng._sentinels_on = False
+    with torch.no_grad():
+        master.view(-1)[0] = float("inf")
+    eng.train_batch(batch)
+    off_rec = eng._health.ring[-1]
+    off_reads = (off_rec.nonfinite_params, anomalies())
+    if off_reads != (0.0, 0.0):
+        failures.append(f"sentinels off saw the planted inf: {off_reads}")
+    with torch.no_grad():
+        master.copy_(keep)
+        param.copy_(keep)
+    eng._sentinels_on = True
+    with torch.no_grad():
+        master.view(-1)[0] = float("inf")
+    eng.train_batch(batch)
+    on_rec, on_anom = eng._health.ring[-1], anomalies()
+    if on_anom != 1.0 or not on_rec.nonfinite_params >= 1:
+        failures.append(f"the planted inf read anomalies {on_anom}, nonfinite_params "
+                        f"{on_rec.nonfinite_params}")
+    bundles = sorted(os.listdir(dumps)) if os.path.isdir(dumps) else []
+    bundle_ok = False
+    if len(bundles) == 1 and "nonfinite" in bundles[0]:
+        b = os.path.join(dumps, bundles[0])
+        try:
+            with open(os.path.join(b, "telemetry.json")) as f:
+                validate_snapshot(_json.load(f))
+            errors = _validate_trace_tool().validate_path(os.path.join(b, "trace.json"),
+                                                          kind="chrome")
+            bundle_ok = not errors
+            if errors:
+                failures.append(f"bundle trace invalid: {errors[:3]}")
+        except (OSError, ValueError) as e:
+            failures.append(f"bundle snapshot: {e}")
+    else:
+        failures.append(f"debug bundles {bundles}")
+    url = eng._tel_exporter.url
+    eng.destroy()
+    try:
+        _scrape(url)
+        failures.append("the /metrics port still answers after teardown")
+        refused = False
+    except OSError:
+        refused = True
+    del eng, batch
+    _free()
+
+    get_registry().reset()
+    _, _, _, l_off, sy_off, la_off, st_off = _health_train(seed, None)
+    _free()
+    if l_on != l_off:
+        failures.append(f"losses on {l_on} off {l_off}")
+    if sy_on != [1] * HEALTH_STEPS or sy_off != [0] * HEALTH_STEPS:
+        failures.append(f"host syncs a step: on {sy_on}, off {sy_off}")
+    for k, n in rule.items():
+        if any(s[k] != n for s in la_on + la_off):
+            failures.append(f"{k} launches a step on {[s[k] for s in la_on]}, "
+                            f"off {[s[k] for s in la_off]} != {n}")
+
+    # the serve cell with events on: request anatomy through the CLI
+    _reset_telemetry()
+    smodel, params = _llama7b(seed)
+    prompts = _serve_prompts(smodel.config, seed)
+    engine = deepspeed_tpu_torch.init_inference(smodel, params=params, dtype=TEL_DTYPE,
+                                                device=TEL_DEVICE, telemetry={"events": True})
+    slo = SloEngine(parse_objectives([SLO_TTFT]), registry=get_registry())
+    slo.sample()
+    fa.launches = pda.launches = 0
+    engine.generate_batch(prompts, max_new_tokens=SERVE_MAX_NEW)
+    _sync()
+    serve_launches = {"flash_attention_fwd": fa.launches, "paged_decode_attention": pda.launches}
+    breaches = slo.sample()
+    sgauges = get_registry().snapshot()
+    burn = sgauges["gauges"]['slo/burn_rate{objective="ttft",window="1"}']
+    ttft = sgauges["histograms"]["serving/ttft_ms"]
+    events = get_flight_recorder().write_jsonl(os.path.join(CHECK_DIR, "events.jsonl"))
+    rids = sorted({e.rid for e in get_flight_recorder().snapshot() if e.kind == "req.enqueue"})
+    anatomy = []
+    for rid in rids:
+        rc, out = _cli(["trace", str(rid), "--events", events, "--json"])
+        a = _json.loads(out) if rc == 0 else None
+        if a is None:
+            failures.append(f"cli trace {rid} rc {rc}")
+            continue
+        ns = lambda ms: round(ms * 1e6)
+        exact = sum(ns(v) for v in a["phases_ms"].values()) == ns(a["total_ms"])
+        if not exact or not (a["phases_ms"]["prefill"] > 0 and a["phases_ms"]["decode"] > 0):
+            failures.append(f"rid {rid}: phases {a['phases_ms']} total {a['total_ms']}")
+        anatomy.append({"rid": rid, "total_ms": a["total_ms"], "ttft_ms": a["ttft_ms"],
+                        "phases_ms": a["phases_ms"]})
+    if len(anatomy) != len(prompts):
+        failures.append(f"{len(anatomy)} anatomies for {len(prompts)} requests")
+    get_flight_recorder().disable()
+    _reset_telemetry()
+    del engine, params, smodel
+    _free()
+    for k, n in serve_launches.items():
+        health_launches[k] = health_launches.get(k, 0) + n
+    state["health_launches"] = health_launches
+    shutil.rmtree(CHECK_DIR, ignore_errors=True)
+
+    emit("health", model="llama-2-7b width", layers=model.config.n_layer, seq=TRAIN_SEQ,
+         losses_on=l_on, losses_off=l_off, losses_equal=l_on == l_off,
+         syncs_on=sy_on, syncs_off=sy_off, step_s_on=st_on, step_s_off=st_off,
+         step_ms_on_median_timed=statistics.median(st_on[HEALTH_CHECKED:]) * 1e3,
+         step_ms_off_median_timed=statistics.median(st_off[HEALTH_CHECKED:]) * 1e3,
+         sentinels=held, scrapes=scrapes, cli_loss=loss_g, cli_mfu=mfu_g,
+         planted_off=list(off_reads), planted_on_anomalies=on_anom,
+         planted_on_nonfinite_params=on_rec.nonfinite_params,
+         bundle_valid=bundle_ok, refused_after_teardown=refused,
+         serve_requests=len(prompts), anatomy=anatomy, ttft_ms_p99=ttft["p99"],
+         ttft_ms_p50=ttft["p50"], slo_ttft=SLO_TTFT, slo_burn_rate=burn,
+         slo_breaches=len(breaches), launches=health_launches, launches_per_step=rule,
+         phase_s=time.perf_counter() - t_phase, card=state.get("card"))
+    check(not failures, "health failed: " + "; ".join(failures))
+
+
 def phase_kernels(state):
     res = state.get("kernel_results", {})
     serve = state.get("launches", {})
@@ -4352,6 +4935,8 @@ def phase_kernels(state):
     resume = state.get("resume_launches", {})
     ingest = state.get("ingest_launches", {})
     telemetry = state.get("telemetry_launches", {})
+    client_opt = state.get("client_opt_launches", {})
+    health = state.get("health_launches", {})
     rows = []
     meta = {
         "flash_attention_fwd": (
@@ -4421,7 +5006,8 @@ def phase_kernels(state):
                                            ("train_lamb", train_lamb),
                                            ("train_sparse", train_sparse),
                                            ("resume", resume), ("ingest", ingest),
-                                           ("telemetry", telemetry))
+                                           ("telemetry", telemetry),
+                                           ("client_opt", client_opt), ("health", health))
                    if name in n}
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                      "launches": sum(by_path.values()) if by_path else None,

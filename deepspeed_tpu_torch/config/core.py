@@ -141,7 +141,7 @@ def _enabled(section) -> bool:
     return bool(section)
 
 
-def _refuse_outside_slice(param_dict: Dict) -> None:
+def _refuse_outside_slice(param_dict: Dict, client_optimizer: bool = False) -> None:
     for key, value in param_dict.items():
         if key in _NOT_PORTED:
             if _enabled(value):
@@ -151,6 +151,11 @@ def _refuse_outside_slice(param_dict: Dict) -> None:
             raise DeepSpeedConfigError(f"unknown config key {key!r}")
     zero = param_dict.get(C.ZERO_OPTIMIZATION, {})
     if isinstance(zero, dict):
+        dev = (zero.get("offload_optimizer") or {}).get("device", "none")
+        if client_optimizer and str(dev).lower() not in ("none", "null"):
+            # the JAX engine's check, ahead of the offload refusal
+            raise ValueError("offload_optimizer is incompatible with a client optax optimizer; "
+                             "configure the optimizer via the config instead")
         for off in ("offload_optimizer", "offload_param"):
             dev = (zero.get(off) or {}).get("device", "none")
             if str(dev).lower() not in ("none", "null"):
@@ -174,7 +179,8 @@ def _refuse_outside_slice(param_dict: Dict) -> None:
 class DeepSpeedConfig:
     """Parses + validates the training config (a dict or a path to JSON)."""
 
-    def __init__(self, config: Union[str, Dict], world_size: int = 1):
+    def __init__(self, config: Union[str, Dict], world_size: int = 1,
+                 client_optimizer: bool = False):
         if isinstance(config, dict):
             self._param_dict = copy.deepcopy(config)
         elif isinstance(config, str) and os.path.exists(config):
@@ -186,7 +192,7 @@ class DeepSpeedConfig:
         if world_size != 1:
             not_ported(f"data parallelism over {world_size} devices", "queue 1: runtime/zero/ multi-rank")
         self.world_size = 1
-        _refuse_outside_slice(self._param_dict)
+        _refuse_outside_slice(self._param_dict, client_optimizer)
         self._initialize_params(self._param_dict)
         self._configure_train_batch_size()
         self._do_sanity_check()

@@ -132,7 +132,7 @@ class InferenceEngine:
         off = dict(c.zero or {}).get("offload_param", {})
         if str(off.get("device", "none")).lower() in ("cpu", "nvme"):
             not_ported("ZeRO-Inference weight streaming", "queue 1: ZeRO-Inference")
-        refuse_unported(c.telemetry)
+        refuse_unported(c.telemetry, engine="serve")
         if srv.kv_host.enabled:
             not_ported("the tiered KV cache (serving.kv_host)", "queue 1: tiered KV cache")
 

@@ -2,10 +2,12 @@
 ``deepspeed_tpu/monitor/config.py``): the same sections, fields, defaults
 and shorthands, on the port's dataclass configs instead of pydantic.
 
-Every field parses. The engines refuse the sub-blocks whose modules are
-not ported (``health``, ``sampler``, ``slo``, ``ctl`` and
-``metrics_port``): :func:`refuse_unported` raises naming the ROADMAP.md
-item "telemetry and control plane".
+Every field parses. Each engine acts on what the JAX engine of its kind
+acts on: the training engine on ``health``, ``sampler``, ``slo`` and
+``metrics_port``. What the JAX package acts on only through its async
+serving front-end (``inference/serve.py``: ``ctl``, and ``sampler`` /
+``slo`` / ``metrics_port`` beside a server) is refused by
+:func:`refuse_unported`, naming the ROADMAP.md item "async serving".
 """
 
 from __future__ import annotations
@@ -26,8 +28,9 @@ def get_monitor_config(param_dict: dict) -> "DeepSpeedMonitorConfig":
 
 @config
 class HealthConfig(ConfigModel):
-    """"telemetry.health": the training health observatory (parsed; its
-    engine raises, the module is not ported)."""
+    """"telemetry.health": the training health observatory
+    (``monitor/health.py``): numerics sentinels in the update, the anomaly
+    detectors and their debug bundles."""
     enabled: bool = False
     sentinels: bool = True
     action: str = "warn"
@@ -72,8 +75,8 @@ class ProfileConfig(ConfigModel):
 
 @config
 class SamplerConfig(ConfigModel):
-    """"telemetry.sampler": the background snapshot daemon (parsed; not
-    ported)."""
+    """"telemetry.sampler": the background snapshot daemon
+    (``monitor/sampler.py``), started beside a training engine."""
     enabled: bool = False
     interval_s: float = 1.0
     path: Optional[str] = None
@@ -84,8 +87,9 @@ class SamplerConfig(ConfigModel):
 
 @config
 class SloConfig(ConfigModel):
-    """"telemetry.slo": burn-rate service-level objectives (parsed; not
-    ported). Enabling SLOs implies the sampler."""
+    """"telemetry.slo": burn-rate service-level objectives
+    (``monitor/slo.py``), evaluated once a sampler tick. Enabling SLOs
+    implies the sampler."""
     enabled: bool = False
     objectives: List[Dict] = dataclasses.field(default_factory=list)
     windows: List[int] = dataclasses.field(default_factory=lambda: [60, 5])
@@ -94,8 +98,10 @@ class SloConfig(ConfigModel):
 
 @config
 class CtlConfig(ConfigModel):
-    """"telemetry.ctl": the SLO-burn-rate serving autopilot (parsed; not
-    ported). Enabling ctl implies the sampler."""
+    """"telemetry.ctl": the SLO-burn-rate serving autopilot
+    (``monitor/controller.py``; its wiring into a live server waits for
+    async serving, so the engines refuse it). Enabling ctl implies the
+    sampler."""
     enabled: bool = False
     tighten_threshold: float = 1.0
     relax_threshold: float = 0.25
@@ -198,17 +204,26 @@ def get_telemetry_config(param_dict: dict) -> TelemetryConfig:
     return TelemetryConfig(**t)
 
 
-def refuse_unported(tcfg: TelemetryConfig) -> None:
-    """Raise for a telemetry setting whose module the port does not have
-    (only when telemetry is on: off, the JAX engines act on none of them)."""
+def refuse_unported(tcfg: TelemetryConfig, engine: str = "train") -> None:
+    """Raise for a telemetry setting that the JAX package acts on only
+    through its async serving front-end, for the port's ``engine``
+    ("train" or "serve"; only when telemetry is on: off, the JAX engines act
+    on none of them). The training engine acts on ``health``, ``sampler``,
+    ``slo`` and ``metrics_port``; the serving engine, as the JAX one,
+    ignores ``health``."""
+    if engine not in ("train", "serve"):
+        raise ValueError(f"engine={engine!r} (expected 'train' or 'serve')")
     if not tcfg.enabled:
         return
-    for name in ("health", "sampler", "slo", "ctl"):
-        if getattr(tcfg, name).enabled:
-            not_ported(f"telemetry.{name}", "queue 1: telemetry and control plane")
-    if tcfg.metrics_port is not None:
-        not_ported("telemetry.metrics_port (the /metrics exporter)",
-                   "queue 1: telemetry and control plane")
+    item = "queue 1: async serving"
+    if tcfg.ctl.enabled:
+        not_ported("telemetry.ctl (the adaptive controller wired into a server)", item)
+    if engine == "serve":
+        for name in ("sampler", "slo"):
+            if getattr(tcfg, name).enabled:
+                not_ported(f"telemetry.{name} beside a serving engine", item)
+        if tcfg.metrics_port is not None:
+            not_ported("telemetry.metrics_port (/metrics) on a serving engine", item)
 
 
 @config

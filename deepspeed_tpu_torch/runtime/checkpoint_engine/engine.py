@@ -22,6 +22,17 @@ then the decoded arrays are copied into the engine's tensors slice by slice
 (no second device copy). An auto-resolved tag that fails walks back to the
 newest intact one.
 
+A client optimizer's ``state_dict()`` tensors flatten into
+``opt_state_flat.leaf_<i>`` in its param order, state keys sorted within a
+param; ``meta.json`` records ``optimizer: "client"``, one
+``opt_state_labels`` entry a leaf (``path`` ``client.state[<param>].<key>``,
+``param`` the port leaf) and the groups' JSON-able hyperparameters, and a
+load hands the tensors back through the optimizer's ``load_state_dict``. A
+tag whose optimizer state does not match the engine's (an engine-built tag
+into a client engine, a client tag into an engine-built one, another
+client optimizer's) raises as a missing state leaf, the JAX loader's
+structure mismatch; with ``load_optimizer_states=False`` the rest loads.
+
 The dropout stream is a torch generator, not a threefry key: a tag carries
 its state as ``__torch_rng_state__`` beside the ``__rng_key_data__`` the JAX
 loader reads (``key(DS_SEED)``'s data, which the JAX engine starts from). A
@@ -34,6 +45,7 @@ from __future__ import annotations
 import copy
 import json
 import os
+import re
 import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Callable, Dict, List, Optional
@@ -118,8 +130,88 @@ def _nest(groups, named) -> Dict[str, Any]:
     return out
 
 
+_CLIENT_PATH = re.compile(r"^client\.state\[(\d+)\]\.(.+)$")
+
+
+def _client_fields(engine):
+    """A client optimizer's state tensors in its param order, keys sorted
+    within a param: ``(label, leaf)``."""
+    opt = engine.client_optimizer
+    held = [p for g in opt.param_groups for p in g["params"]]
+    out = []
+    for i, (p, name) in enumerate(zip(held, engine._client_names)):
+        st = opt.state.get(p, {})
+        for key in sorted(st):
+            if isinstance(st[key], torch.Tensor):
+                out.append(({"moment": None, "param": name, "path": f"client.state[{i}].{key}"},
+                            _Leaf([st[key]], False)))
+    return out
+
+
+def _client_groups(opt) -> List[Dict[str, Any]]:
+    """The optimizer's param groups' JSON-able hyperparameters."""
+    ok = lambda v: isinstance(v, (int, float, str, bool, type(None))) or (
+        isinstance(v, (list, tuple)) and all(isinstance(x, (int, float)) for x in v))
+    return [{k: (list(v) if isinstance(v, tuple) else v) for k, v in g.items()
+             if k != "params" and ok(v)} for g in opt.param_groups]
+
+
+def _check_opt_state(engine, meta) -> None:
+    """Raise, as the JAX loader does on a state-structure mismatch, when
+    the tag's optimizer state is not the engine's kind: client against
+    engine-built, or another client optimizer (its type, or a label that
+    names another leaf or, once the engine's optimizer holds state,
+    differs from the engine's)."""
+    labels = meta.get("opt_state_labels") or []
+    tag_client = meta.get("optimizer") == "client"
+    opt = engine.client_optimizer
+    if opt is None:
+        ok = not tag_client
+    else:
+        names = engine._client_names
+        ok = tag_client and (meta.get("client_optimizer") or {}).get("type") == type(opt).__name__
+        for lab in labels if ok else ():
+            m = _CLIENT_PATH.match(str(lab.get("path", "")))
+            if m is None or int(m.group(1)) >= len(names) or \
+                    lab.get("param") != names[int(m.group(1))]:
+                ok = False
+                break
+        mine = _opt_state_labels(engine)
+        if ok and mine and labels != mine:
+            ok = False
+    if not ok:
+        raise KeyError(
+            f"checkpoint is missing state leaf 'opt_state_flat' of the engine's "
+            f"{engine._optimizer_name} optimizer (the tag holds "
+            f"{meta.get('optimizer', 'an engine-built')} optimizer state, "
+            f"{len(labels)} leaves)")
+
+
+def _client_state(engine, meta, flat) -> Dict[int, Dict[str, torch.Tensor]]:
+    """The tag's client optimizer state as ``{param index: {key: tensor}}``
+    (host tensors), each param-shaped entry checked against its leaf."""
+    held = [p for g in engine.client_optimizer.param_groups for p in g["params"]]
+    out: Dict[int, Dict[str, torch.Tensor]] = {}
+    for i, lab in enumerate(meta.get("opt_state_labels") or []):
+        key = f"opt_state_flat.leaf_{i}"
+        if key not in flat:
+            raise KeyError(f"checkpoint is missing state leaf {key!r}")
+        m = _CLIENT_PATH.match(lab["path"])
+        idx, name = int(m.group(1)), m.group(2)
+        a = flat[key]
+        t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.array(a))
+        if t.dim() and tuple(t.shape) != tuple(held[idx].shape):
+            raise ValueError(f"checkpoint leaf {key!r} ({lab['path']}) has shape "
+                             f"{tuple(t.shape)}, the engine's is {tuple(held[idx].shape)}")
+        out.setdefault(idx, {})[name] = t
+    return out
+
+
 def _opt_fields(engine):
-    """The optimizer state's JAX leaves in flatten order: ``(label, leaf)``."""
+    """The optimizer state's JAX leaves in flatten order: ``(label, leaf)``
+    (a client optimizer's: :func:`_client_fields`)."""
+    if engine.client_optimizer is not None:
+        return _client_fields(engine)
     cfg = engine._config
     prefix, fields = jax_state_layout(cfg.optimizer_name, cfg.optimizer_params)
     opt = engine.state.opt_state
@@ -148,7 +240,7 @@ def _opt_state_labels(engine):
     return [label for label, _ in _opt_fields(engine)]
 
 
-def _state_tree(engine) -> Dict[str, Any]:
+def _state_tree(engine, with_opt: bool = True) -> Dict[str, Any]:
     state = engine.state
     groups = jax_leaves(engine._names)
 
@@ -174,8 +266,9 @@ def _state_tree(engine) -> Dict[str, Any]:
     }
     if state.master is not None:
         tree["master"] = _nest(groups, state.master)
-    tree["opt_state_flat"] = {f"leaf_{i}": leaf
-                              for i, (_, leaf) in enumerate(_opt_fields(engine))}
+    if with_opt:
+        tree["opt_state_flat"] = {f"leaf_{i}": leaf
+                                  for i, (_, leaf) in enumerate(_opt_fields(engine))}
     return tree
 
 
@@ -212,9 +305,8 @@ def _checkpoint_cfg(engine):
 
 
 def _notify_ckpt_result(engine, ok: bool, steps: Optional[int]) -> None:
-    """The health observatory's checkpoint hook: no engine carries one until
-    the health monitor is ported (ROADMAP.md queue 1, telemetry and control
-    plane)."""
+    """The health observatory's checkpoint hook (its ``ckpt_failure``
+    detector), for an engine with ``telemetry.health`` on."""
     health = getattr(engine, "_health", None)
     if health is not None and hasattr(health, "observe_checkpoint"):
         try:
@@ -242,6 +334,11 @@ def _build_meta(engine, tag: str, client_state) -> Dict[str, Any]:
     if getattr(engine, "quantizer", None) is not None:
         # MoQ host schedule: a resumed run must continue mid-schedule
         meta["moq_state"] = engine.quantizer.state_dict()
+    if engine.client_optimizer is not None:
+        # an engine-built tag's meta stays the JAX engine's, key for key
+        meta["optimizer"] = "client"
+        meta["client_optimizer"] = {"type": type(engine.client_optimizer).__name__,
+                                    "param_groups": _client_groups(engine.client_optimizer)}
     meta["opt_state_labels"] = _opt_state_labels(engine)
     return meta
 
@@ -348,30 +445,38 @@ def _read_verified(path: str, verify: bool) -> Dict[str, Any]:
     return flat
 
 
-def _prepare_tag_load(engine, path: str, verify: bool):
+def _prepare_tag_load(engine, path: str, verify: bool, load_optimizer_states: bool = True):
     """Stage everything a load needs in host memory — verified manifest,
     decoded state arrays rebuilt against the engine's template with each
-    leaf's shape checked, parsed meta — without touching the engine. Raises
-    on any missing/corrupt piece; the caller decides walk-back vs abort."""
+    leaf's shape checked, parsed meta, a client optimizer's state — without
+    touching the engine. Raises on any missing/corrupt piece; the caller
+    decides walk-back vs abort. Without ``load_optimizer_states`` the tag's
+    optimizer state is neither checked nor read."""
     if not os.path.isdir(path):
         raise FileNotFoundError(f"checkpoint {path} does not exist")
     if (not os.path.isfile(os.path.join(path, MANIFEST))
             and os.path.isdir(os.path.join(path, "state"))):
         not_ported("legacy orbax checkpoint tags", "queue 1: checkpoint ingestion (orbax)")
-    template = _state_tree(engine)
+    client = engine.client_optimizer is not None
+    template = _state_tree(engine, with_opt=load_optimizer_states and not client)
     flat = _read_verified(path, verify)
     rng_data = flat.pop(RNG_KEY, None)
     torch_rng = flat.pop(TORCH_RNG_KEY, None)
+    with open(os.path.join(path, META_FILE)) as f:
+        meta = json.load(f)
+    client_state = None
+    if load_optimizer_states:
+        _check_opt_state(engine, meta)
+        if client:
+            client_state = _client_state(engine, meta, flat)
     restored = _rebuild_from_flat(template, flat)
     leaves = _flatten_tree(template)
     for k, a in _flatten_tree(restored).items():
         if tuple(a.shape) != leaves[k].shape:
             raise ValueError(f"checkpoint leaf {k!r} has shape {tuple(a.shape)}, "
                              f"the engine's is {leaves[k].shape}")
-    with open(os.path.join(path, META_FILE)) as f:
-        meta = json.load(f)
     return {"path": path, "template": template, "restored": restored, "meta": meta,
-            "rng_data": rng_data, "torch_rng": torch_rng}
+            "rng_data": rng_data, "torch_rng": torch_rng, "client_state": client_state}
 
 
 def _apply_prepared(engine, prepared, load_optimizer_states: bool,
@@ -388,6 +493,9 @@ def _apply_prepared(engine, prepared, load_optimizer_states: bool,
         leaf.restore(restored[k])
 
     meta = prepared["meta"]
+    if prepared["client_state"] is not None and not load_module_only:
+        _load_client_state(engine.client_optimizer, prepared["client_state"],
+                           (meta.get("client_optimizer") or {}).get("param_groups") or [])
     if engine.lr_scheduler is not None and meta.get("lr_scheduler"):
         engine.lr_scheduler.load_state_dict(meta["lr_scheduler"])
     if getattr(engine, "quantizer", None) is not None and meta.get("moq_state"):
@@ -408,6 +516,19 @@ def _apply_prepared(engine, prepared, load_optimizer_states: bool,
     }
     if load_data_progress and progress.get("iterations"):
         engine._fast_forward_data(int(progress["iterations"]))
+
+
+def _load_client_state(opt, state, groups) -> None:
+    """The tag's state and group hyperparameters into the client optimizer
+    through its own ``load_state_dict`` (which places each tensor as the
+    optimizer keeps it)."""
+    sd = opt.state_dict()
+    for g, saved in zip(sd["param_groups"], groups):
+        for k, v in saved.items():
+            if k in g and k != "params":
+                g[k] = tuple(v) if isinstance(g[k], tuple) else v
+    sd["state"] = state
+    opt.load_state_dict(sd)
 
 
 def load_engine_checkpoint(engine, load_dir: str, tag: Optional[str] = None,
@@ -453,7 +574,8 @@ def load_engine_checkpoint(engine, load_dir: str, tag: Optional[str] = None,
     for cand in candidates:
         path = _tag_dir(load_dir, cand)
         try:
-            prepared = _prepare_tag_load(engine, path, verify=verify)
+            prepared = _prepare_tag_load(engine, path, verify=verify,
+                                         load_optimizer_states=load_optimizer_states)
         except FileNotFoundError as e:
             errors.append(f"{cand}: {e}")
             if explicit:

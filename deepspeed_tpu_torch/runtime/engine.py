@@ -32,19 +32,41 @@ live in ``param.grad`` only until they are accumulated, and the update runs
 leaf by leaf, so one unscaled fp32 gradient is alive at a time. The state is the JAX
 ``TrainState``'s fields as attributes of :class:`TrainState`.
 
+A client optimizer (``initialize(..., optimizer=...)``) is a
+``torch.optim.Optimizer``: a callable ``f(params) -> Optimizer`` that the
+engine calls once over its fp32 masters (the fp32 params without mixed
+precision) in the JAX flatten order (``runtime/utils.jax_leaves``: layers
+in order within each stacked leaf), or an optimizer already built over the
+tensors of ``model_parameters`` in that tree's flatten order, whose groups
+the engine rebinds onto its masters by position (hyperparameters kept). Its
+update is final, as a client optax chain's is in the JAX engine: the engine
+unscales, skips on overflow and clips as for its own optimizers, sets every
+master's ``.grad`` to its clipped fp32 gradient (so all of them are alive at
+once), calls ``step()`` and never applies its own lr. It sees the port's
+per-layer leaves, so an optimizer with per-tensor statistics (a LAMB-like
+trust ratio) computes them per layer where the JAX engine's spans the
+stacked leaf; elementwise optimizers and global norms match.
+
 With ``telemetry`` on, ``train_batch`` records the JAX engine's series in
 the metrics registry (``train/step_time_ms``, ``tokens_per_sec``,
 ``achieved_tflops_per_chip``, ``mfu``, ``loss``, ``grad_norm``,
 ``data_wait_ms``, ...) and, with ``telemetry.events``, a ``train.step``
 event in the flight recorder. It pays one host sync a step for that: one
 read of the loss and the pre-clip gradient norm through the accelerator.
-With telemetry off, every hook is one None check and a bf16 step makes no
-sync. ``wall_clock_breakdown`` times the forward / backward / step trio
-between accelerator syncs.
+``telemetry.health`` adds the health observatory (``monitor/health.py``):
+its sentinel vector is gathered in the update (the bucket norms from the
+grad norm's per-leaf norms, the update norm from ``new - old`` of each leaf
+against a scratch copy the size of the largest leaf or LAMB group, or a
+copy of every master for a client optimizer) and rides that same read.
+``telemetry.metrics_port`` starts a ``/metrics`` exporter and
+``telemetry.sampler`` / ``.slo`` the snapshot sampler with its SLO engine,
+both stopped by ``destroy()``. With telemetry off, every hook is one None
+check and a bf16 step makes no sync. ``wall_clock_breakdown`` times the
+forward / backward / step trio between accelerator syncs.
 
-Settings outside this slice (a client optimizer, offload, the 1-bit
-optimizers, pipeline and multi-device runs, ...) raise
-``NotImplementedError`` naming their ROADMAP.md item.
+Settings outside the port's slices (offload, the 1-bit optimizers,
+pipeline and multi-device runs, ...) raise ``NotImplementedError`` naming
+their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -70,9 +92,9 @@ from deepspeed_tpu_torch.runtime.loss_scaler import (LossScaleState, has_overflo
 from deepspeed_tpu_torch.runtime.loss_scaler import update as scaler_update
 from deepspeed_tpu_torch.runtime.optimizers import build_optimizer, optimizer_momenta
 from deepspeed_tpu_torch.runtime.quantize import quantizer_from_config
-from deepspeed_tpu_torch.runtime.utils import clip_grad_norm_, global_norm, jax_leaves
+from deepspeed_tpu_torch.runtime.utils import (clip_grad_norm_, global_norm, jax_leaves,
+                                               norm_of_norms)
 from deepspeed_tpu_torch.utils.logging import log_dist, logger
-from deepspeed_tpu_torch.utils.not_ported import not_ported
 from deepspeed_tpu_torch.utils.timer import (NoopTimer, SynchronizedWallClockTimer,
                                              ThroughputTimer)
 
@@ -109,16 +131,68 @@ def _loss_fn_of(model) -> Callable:
     return lambda params, batch, rng: fn(params, batch)
 
 
+class _Sentinels:
+    """One update's sentinel parts, gathered on the device as the update
+    runs (no host sync): per-leaf norms and non-finite counts of the
+    unscaled pre-clip grads, the updated targets' norms and non-finite
+    counts, and ``||new - old||`` per leaf. :meth:`keep` copies the leaves
+    about to be updated into the engine's one scratch buffer (the size of
+    the largest leaf, or LAMB group); :meth:`vector` is the health
+    module's sentinel layout."""
+
+    def __init__(self, assignment, names, scratch):
+        self.assignment, self.names, self.scratch = assignment, names, scratch
+        self.grad_norms, self.nf_grads = [], []
+        self.param_norms, self.nf_params, self.update_norms = [], [], []
+
+    def grad_leaf(self, g: torch.Tensor) -> torch.Tensor:
+        nrm = torch.linalg.vector_norm(g, dtype=torch.float32)
+        self.grad_norms.append(nrm)
+        self.nf_grads.append(g.numel() - torch.isfinite(g).sum())
+        return nrm
+
+    def keep(self, leaves):
+        """Views of the scratch buffer holding copies of ``leaves``."""
+        out, off = [], 0
+        for t in leaves:
+            view = self.scratch[off:off + t.numel()].view_as(t)
+            view.copy_(t)
+            out.append(view)
+            off += t.numel()
+        return out
+
+    def updated(self, old: Optional[torch.Tensor], new: torch.Tensor) -> None:
+        """Account one leaf after the update (``old`` None: not updated);
+        ``old`` is spent (``old - new`` is taken in place)."""
+        self.param_norms.append(torch.linalg.vector_norm(new, dtype=torch.float32))
+        self.nf_params.append(new.numel() - torch.isfinite(new).sum())
+        if old is not None:
+            self.update_norms.append(torch.linalg.vector_norm(old.sub_(new), dtype=torch.float32))
+
+    def vector(self, grad_norm) -> torch.Tensor:
+        from deepspeed_tpu_torch.monitor.health import bucket_norms, compute_sentinels
+        count = lambda xs: torch.stack(xs).sum().float()
+        update = (norm_of_norms(self.update_norms) if self.update_norms
+                  else torch.zeros_like(grad_norm))
+        return compute_sentinels(
+            count(self.nf_grads), count(self.nf_params), grad_norm,
+            norm_of_norms(self.param_norms), update,
+            bucket_norms(self.grad_norms, self.assignment, len(self.names)))
+
+
 class DeepSpeedEngine:
 
     def __init__(self, model, config: Optional[Any] = None, model_parameters=None,
                  optimizer=None, lr_scheduler=None, training_data=None, collate_fn=None,
                  device=None):
-        if optimizer is not None:
-            not_ported("a client optimizer", "queue 1: training step (client optimizers)")
+        if optimizer is not None and not (isinstance(optimizer, torch.optim.Optimizer)
+                                          or callable(optimizer)):
+            raise TypeError("optimizer must be a torch.optim.Optimizer over model_parameters "
+                            "or a callable params -> torch.optim.Optimizer")
         self.client_model = model
         self.loss_fn = _loss_fn_of(model)
-        self._config = DeepSpeedConfig(config if config is not None else {})
+        self._config = DeepSpeedConfig(config if config is not None else {},
+                                       client_optimizer=optimizer is not None)
         refuse_unported(self._config.telemetry_config)
         # a JSON-level "fused_cross_entropy" beats the model config's default
         fce = self._config.fused_cross_entropy
@@ -150,8 +224,20 @@ class DeepSpeedEngine:
             self.grad_acc_dtype = _DTYPES[acc_name]
 
         # ---- optimizer ----
-        self.tx = build_optimizer(self._config.optimizer_name, self._config.optimizer_params)
-        self._optimizer_name = self._config.optimizer_name or "adamw"
+        self.client_optimizer = optimizer
+        if optimizer is not None:
+            # its updates are final: the engine's lr schedule never scales them
+            self.tx = None
+            self._optimizer_name = "client"
+            if self._config.scheduler_name is not None:
+                logger.warning("A client optimizer was passed together with a scheduler config; "
+                               "the engine cannot inject the schedule into a finalized client "
+                               "optimizer. Use optimizer config {'type': ...} or bake the "
+                               "schedule into the client optimizer.")
+        else:
+            self.tx = build_optimizer(self._config.optimizer_name,
+                                      self._config.optimizer_params)
+            self._optimizer_name = self._config.optimizer_name or "adamw"
 
         # ---- MoQ (quantize_training) ----
         self.quantizer = (quantizer_from_config(self._config.quantize_training)
@@ -242,6 +328,14 @@ class DeepSpeedEngine:
         self._tel_events = None
         self._ev_skip_prev = None
         self._profiler = None
+        # health observatory, /metrics exporter and sampler: None when off
+        self._health = None
+        self._sentinels_on = False
+        self._sentinel_layout = None     # (leaf -> bucket, bucket names, scratch)
+        self._sentinels = None           # the last update's sentinel vector
+        self._tel_skipped_prev = None
+        self._tel_exporter = None
+        self._tel_sampler = None
         pcfg = tcfg.profile
         if pcfg.num_steps > 0:
             from deepspeed_tpu_torch.monitor.trace import ProfileWindow
@@ -285,6 +379,38 @@ class DeepSpeedEngine:
         if tcfg.events.enabled:
             from deepspeed_tpu_torch.monitor.events import get_flight_recorder
             self._tel_events = get_flight_recorder().enable(capacity=tcfg.events.capacity)
+        hcfg = tcfg.health
+        if hcfg.enabled:
+            from deepspeed_tpu_torch.monitor.health import HealthMonitor, make_bucket_assignment
+            self._health = HealthMonitor(hcfg, registry=reg, snapshot_fn=self.telemetry_snapshot,
+                                         trace_export_fn=self._tel_tracer.export_chrome_trace)
+            self._sentinels_on = bool(hcfg.sentinels)
+            if self._sentinels_on:
+                assignment, names = make_bucket_assignment(self._names, hcfg.max_norm_buckets)
+                self._health.set_bucket_names(names)
+                self._sentinel_layout = (assignment, names, self._sentinel_scratch())
+        if tcfg.metrics_port is not None:
+            from deepspeed_tpu_torch.monitor.exporter import MetricsExporter
+            self._tel_exporter = MetricsExporter(reg, port=tcfg.metrics_port)
+            ehost, eport = self._tel_exporter.start()
+            logger.info(f"telemetry: /metrics exposition on http://{ehost}:{eport}/metrics")
+        from deepspeed_tpu_torch.monitor.sampler import sampler_from_config
+        sampler = sampler_from_config(tcfg, reg, self._tel_events)
+        if sampler is not None:
+            self._tel_sampler = sampler.start()
+
+    def _sentinel_scratch(self) -> Optional[torch.Tensor]:
+        """The update-norm scratch: fp32 elements for the largest leaf (or
+        LAMB group of leaves) updated at once; None for a client optimizer,
+        whose one ``step()`` needs a copy of every target instead."""
+        if self.client_optimizer is not None:
+            return None
+        named = self._param_dict(self.state.params)
+        if self.tx.group_update is not None:
+            n = max(sum(named[x].numel() for x in g) for g in self._groups)
+        else:
+            n = max(p.numel() for p in named.values())
+        return torch.empty(n, dtype=torch.float32, device=self.device)
 
     # ------------------------------------------------------------------ #
     # state
@@ -304,7 +430,11 @@ class DeepSpeedEngine:
                 lambda a: torch.as_tensor(a).detach().to(dev, torch.float32, copy=True), tree))
             master = {n: p.data for n, p in fp32.named_parameters()}
         target = master if master is not None else self._param_dict(params)
-        opt_state = self.tx.init(target)
+        opt_state = None
+        if self.client_optimizer is not None:
+            self.client_optimizer = self._bind_client_optimizer(self.client_optimizer, target)
+        else:
+            opt_state = self.tx.init(target)
         if self.fp16_enabled() and self._config.fp16_config.dynamic_loss_scale:
             args = self._config.dynamic_loss_scale_args
             scaler = make_loss_scale_state(init_scale=args["init_scale"],
@@ -325,6 +455,45 @@ class DeepSpeedEngine:
     @staticmethod
     def _param_dict(params: ParamTree) -> Dict[str, torch.Tensor]:
         return dict(params.named_parameters())
+
+    def _bind_client_optimizer(self, optimizer, targets: Dict[str, torch.Tensor]):
+        """The client optimizer over the engine's update targets (masters,
+        or the fp32 params): a callable is called once over them in the JAX
+        flatten order; an optimizer built over ``model_parameters`` (its
+        tensors in that tree's flatten order) has every group's params
+        rebound onto them by position, state and hyperparameters kept.
+        Records the leaf names in the optimizer's param order."""
+        if isinstance(optimizer, torch.optim.Optimizer):
+            order = list(self._names)
+            held = [p for g in optimizer.param_groups for p in g["params"]]
+            if len(held) != len(order):
+                raise ValueError(f"the client optimizer holds {len(held)} tensors, "
+                                 f"model_parameters has {len(order)} leaves")
+            for p, n in zip(held, order):
+                if tuple(p.shape) != tuple(targets[n].shape):
+                    raise ValueError(f"client optimizer tensor {order.index(n)} has shape "
+                                     f"{tuple(p.shape)}, leaf {n} {tuple(targets[n].shape)}")
+            k = 0
+            for g in optimizer.param_groups:
+                new = [targets[n] for n in order[k:k + len(g["params"])]]
+                for old, t in zip(g["params"], new):
+                    if old in optimizer.state:
+                        optimizer.state[t] = optimizer.state.pop(old)
+                g["params"] = new
+                k += len(new)
+        else:
+            given = [n for names in self._groups for n in names]
+            optimizer = optimizer([targets[n] for n in given])
+            if not isinstance(optimizer, torch.optim.Optimizer):
+                raise TypeError(f"the optimizer callable returned {type(optimizer).__name__}, "
+                                "not a torch.optim.Optimizer")
+            by_id = {id(targets[n]): n for n in given}
+            held = [p for g in optimizer.param_groups for p in g["params"]]
+            if any(id(p) not in by_id for p in held):
+                raise ValueError("the client optimizer holds tensors the engine did not give it")
+            order = [by_id[id(p)] for p in held]
+        self._client_names = order
+        return optimizer
 
     def _uses_acc_grad_buffers(self) -> bool:
         """Whether train_batch reads the accumulation buffers (gas > 1)."""
@@ -360,6 +529,9 @@ class DeepSpeedEngine:
                     m.copy_(master[n])
                     named[n].copy_(m)
             if opt_state is not None:
+                if self.client_optimizer is not None:
+                    raise TypeError("a client optimizer's state loads through its own "
+                                    "load_state_dict")
                 mine = self.state.opt_state
                 if type(opt_state) is not type(mine):
                     raise TypeError(f"{type(opt_state).__name__} given, the engine's "
@@ -403,9 +575,11 @@ class DeepSpeedEngine:
 
     def _apply_update(self, gas: int, grads: Optional[Dict[str, torch.Tensor]] = None) -> None:
         """Unscale, (fp16) skip on overflow, clip on the pre-clip global norm,
-        update leaf by leaf, refresh the compute params from the masters in
-        place. ``grads``: the gas == 1 micro-step grads; default the
-        accumulation buffers, which are zeroed afterwards."""
+        update leaf by leaf (or, for a client optimizer, in one ``step()``),
+        refresh the compute params from the masters in place. ``grads``:
+        the gas == 1 micro-step grads; default the accumulation buffers,
+        which are zeroed afterwards. With health sentinels on, the sentinel
+        vector is gathered on the way (:class:`_Sentinels`)."""
         st = self.state
         from_buffers = grads is None
         denom = st.scaler.loss_scale * gas
@@ -420,18 +594,21 @@ class DeepSpeedEngine:
         overflow = bool(has_overflow(unscaled(n) for n in names)) if self.fp16_enabled() \
             else False
         clip = float(self.gradient_clipping() or 0.0)
+        sen = _Sentinels(*self._sentinel_layout) if self._sentinels_on else None
         # the pre-clip norm: for clipping, and for the grad-norm series
-        # (telemetry records it with clipping off too)
-        norm = global_norm(unscaled(n) for n in names) \
-            if clip > 0.0 or self._telemetry is not None else None
+        # (telemetry records it with clipping off too); the sentinels keep
+        # its per-leaf norms for their buckets
+        norm = None
+        if sen is not None:
+            norm = norm_of_norms([sen.grad_leaf(unscaled(n)) for n in names])
+        elif clip > 0.0 or self._telemetry is not None:
+            norm = global_norm(unscaled(n) for n in names)
         self._global_grad_norm = norm
         lr = float(self._lr_fn(st.global_steps))
         self._last_lr = lr
+        params = self._param_dict(st.params)
+        targets = st.master if st.master is not None else params
         if not overflow:
-            st.opt_state.count += 1
-            params = self._param_dict(st.params)
-            targets = st.master if st.master is not None else params
-
             def clipped(n):
                 g = unscaled(n)
                 if clip > 0.0:
@@ -439,25 +616,59 @@ class DeepSpeedEngine:
                 return g
 
             with torch.no_grad():
-                if self.tx.group_update is not None:
+                if self.client_optimizer is not None:
+                    self._client_step(clipped, targets, params, sen)
+                elif self.tx.group_update is not None:
+                    st.opt_state.count += 1
                     # one trust ratio per JAX leaf; the compute params are
                     # refreshed after the group's apply pass
                     for group in self._groups:
+                        old = sen.keep([targets[n] for n in group]) if sen else None
                         self.tx.group_update(st.opt_state, group, clipped, targets, lr)
-                        if st.master is not None:
-                            for n in group:
+                        for i, n in enumerate(group):
+                            if sen is not None:
+                                sen.updated(old[i], targets[n])
+                            if st.master is not None:
                                 params[n].copy_(targets[n])
                 else:
+                    st.opt_state.count += 1
                     for n in names:
+                        old = sen.keep([targets[n]]) if sen else None
                         self.tx.leaf_update(st.opt_state, n, clipped(n), targets[n], lr)
+                        if sen is not None:
+                            sen.updated(old[0], targets[n])
                         if st.master is not None:
                             params[n].copy_(targets[n])
+        elif sen is not None:
+            for n in names:     # an fp16 skip: params read as they stand, update norm 0
+                sen.updated(None, targets[n])
+        if sen is not None:
+            self._sentinels = sen.vector(norm)
         st.scaler = scaler_update(st.scaler, overflow)
         if from_buffers:
             for g in st.acc_grads.values():
                 g.zero_()
         st.global_steps += 1
         st.skipped_steps += int(overflow)
+
+    def _client_step(self, clipped, targets, params, sen) -> None:
+        """The client optimizer's update: every target's ``.grad`` set to its
+        clipped fp32 gradient (all alive together), one ``step()``, the
+        grads cleared, the compute params refreshed. With sentinels on, a
+        full copy of the targets is kept across the step for the update
+        norm."""
+        order = self._client_names
+        for n in order:
+            targets[n].grad = clipped(n)
+        old = [targets[n].clone() for n in order] if sen is not None else None
+        self.client_optimizer.step()
+        for i, n in enumerate(order):
+            targets[n].grad = None
+            if sen is not None:
+                sen.updated(old[i], targets[n])
+                old[i] = None
+            if self.state.master is not None:
+                params[n].copy_(targets[n])
 
     # ------------------------------------------------------------------ #
     # public API
@@ -611,8 +822,11 @@ class DeepSpeedEngine:
             self.lr_scheduler.step()
         if self._telemetry is not None:
             self._host_global_steps += 1
-            self._tel_record_update(self._acc.to_host(self._losses).item())
-            self._tel_trio_wait()
+            loss_v, norm_v, sen_v = self._tel_read(self._losses)
+            self._tel_record_update(loss_v, norm_v)
+            busy, wait = self._tel_trio_wait()
+            if self._health is not None:
+                self._observe_health(loss_v, norm_v, sen_v, busy, wait)
             self._tel_maybe_flush()
         self._write_monitor_events(self._losses)
         self._report_progress(self._losses)
@@ -648,21 +862,70 @@ class DeepSpeedEngine:
             events.append(("Train/Samples/loss_scale", float(self.loss_scale), step))
         self.monitor.write_events(events)
 
-    def _tel_after_train_batch(self, batch, loss, t0: float) -> None:
-        """The one host sync of a telemetry-on step: the loss and the
-        pre-clip grad norm in one read, so the wall clock brackets the
-        device work; then the step's series."""
+    def _tel_read(self, loss):
+        """The one host read of a telemetry-on update: the loss, the
+        pre-clip grad norm and (health sentinels on) the sentinel vector in
+        one tensor. Returns ``(loss, grad_norm or None, sentinels or None)``."""
         norm = self._global_grad_norm
-        vals = torch.stack([loss.detach().float().reshape(()),
-                            (norm if norm is not None else loss).detach().float().reshape(())])
+        loss = loss.detach().float().reshape(())
+        vals = torch.stack([loss, (norm if norm is not None else loss).detach().float()
+                            .reshape(())])
+        sen = self._sentinels if self._sentinels_on else None
+        if sen is not None:
+            vals = torch.cat([vals, sen.to(vals.device)])
         host = self._acc.to_host(vals).tolist()
+        return host[0], (host[1] if norm is not None else None), \
+            (host[2:] if sen is not None else None)
+
+    def _tel_after_train_batch(self, batch, loss, t0: float) -> None:
+        """The one host sync of a telemetry-on step (:meth:`_tel_read`), so
+        the wall clock brackets the device work; then the step's series and
+        the health detectors, before the flush, so a flush-step anomaly is in
+        the snapshot it fired on."""
+        loss_v, norm_v, sen_v = self._tel_read(loss)
         dt_s = time.perf_counter() - t0
         wait_s = t0 - self._t_prev_step_end if self._t_prev_step_end is not None else 0.0
         self._host_global_steps += 1
-        self._tel_record_step(batch, dt_s, host[0], host[1] if norm is not None else None,
-                              wait_s)
+        self._tel_record_step(batch, dt_s, loss_v, norm_v, wait_s)
+        if self._health is not None:
+            self._observe_health(loss_v, norm_v, sen_v, dt_s, wait_s)
         self._tel_maybe_flush()
         self._t_prev_step_end = time.perf_counter()
+
+    def _observe_health(self, loss: float, grad_norm: Optional[float],
+                        sentinels: Optional[list], dt_s: float, wait_s: float) -> None:
+        """Feed one update's record through the health detectors (host side:
+        the sentinel values arrived with the step's one read)."""
+        from deepspeed_tpu_torch.monitor.health import StepHealth, sentinel_to_dict
+        rec = StepHealth(step=int(self.state.global_steps), loss=float(loss),
+                         loss_scale=float(self.loss_scale), step_time_s=dt_s,
+                         wait_time_s=wait_s)
+        if grad_norm is not None:
+            rec.grad_norm = float(grad_norm)
+        if sentinels is not None:
+            d = sentinel_to_dict(sentinels, self._health.bucket_names)
+            rec.grad_norm = d["grad_norm"]
+            rec.nonfinite_grads = d["nonfinite_grads"]
+            rec.nonfinite_params = d["nonfinite_params"]
+            rec.update_ratio = d["update_ratio"]
+            rec.bucket_norms = tuple(d["bucket_norms"].values())
+        if self.fp16_enabled():
+            after = int(self.state.skipped_steps)
+            prev = self._tel_skipped_prev
+            if prev is None:
+                before = self._skipped_before_step
+                prev = int(before) if before is not None else after
+            rec.skipped = after > prev
+            self._tel_skipped_prev = after
+        self._health.observe_step(rec)
+
+    def health_report(self) -> Dict:
+        """The health observatory's one-call summary (anomaly counts, EWMAs,
+        skip and stall state, the last record, a memory sample);
+        ``{"enabled": False}`` when ``telemetry.health`` is off."""
+        if self._health is None:
+            return {"enabled": False}
+        return self._health.report()
 
     def _tel_phase(self, phase: str, t0: float) -> None:
         """Record one trio-phase duration (a sync, so the wall clock
@@ -679,15 +942,18 @@ class DeepSpeedEngine:
                                   phase=phase)
         self._trio_busy_s += dur
 
-    def _tel_trio_wait(self) -> None:
+    def _tel_trio_wait(self):
         """Trio boundary: the wait is the boundary-to-boundary wall time
-        the timed phases did not cover (data loading, host prep)."""
+        the timed phases did not cover (data loading, host prep). Returns
+        ``(busy_s, wait_s)``."""
         now = time.perf_counter()
         busy = self._trio_busy_s
         wall = now - self._t_prev_step_end if self._t_prev_step_end is not None else busy
         self._t_prev_step_end = now
         self._trio_busy_s = 0.0
-        self._tel_account_wait(max(wall - busy, 0.0), busy)
+        wait = max(wall - busy, 0.0)
+        self._tel_account_wait(wait, busy)
+        return busy, wait
 
     def _tel_account_wait(self, wait_s: float, busy_s: float) -> None:
         """The data-wait histogram plus the cumulative wait/(wait+busy)
@@ -747,12 +1013,15 @@ class DeepSpeedEngine:
 
     def _tel_maybe_flush(self) -> None:
         """JSONL / MonitorMaster flush on the ``steps_per_snapshot``
-        cadence, memory gauges sampled just before."""
+        cadence, memory gauges sampled just before (every step under
+        health: host-side allocator reads)."""
         tcfg = self._telemetry
         n = tcfg.steps_per_snapshot
-        if not (n and self._host_global_steps % n == 0):
+        flush = bool(n) and self._host_global_steps % n == 0
+        if flush or self._health is not None:
+            self._tel_sample_memory(self._tel_reg, self._acc)
+        if not flush:
             return
-        self._tel_sample_memory(self._tel_reg, self._acc)
         if tcfg.jsonl_path:
             self._tel_reg.write_jsonl(tcfg.jsonl_path, step=self._host_global_steps)
         if tcfg.publish_to_monitor:
@@ -1059,11 +1328,18 @@ class DeepSpeedEngine:
                         self.state.master[n].copy_(p)
 
     def destroy(self) -> None:
-        """Stop the checkpoint writer and the preemption handler and drop
-        the state: the engine is unusable afterwards."""
+        """Stop the sampler, the /metrics exporter, the checkpoint writer and
+        the preemption handler and drop the state: the engine is unusable
+        afterwards."""
         self.disable_preemption_handler()
         if self._profiler is not None:
             self._profiler.stop()       # a dangling capture wedges the profiler
+        if self._tel_sampler is not None:
+            self._tel_sampler.stop()
+            self._tel_sampler = None
+        if self._tel_exporter is not None:
+            self._tel_exporter.stop()
+            self._tel_exporter = None
         if self._ckpt_writer is not None:
             self._ckpt_writer.stop()
             self._ckpt_writer = None
@@ -1117,9 +1393,15 @@ class DeepSpeedEngine:
         # static fp16 (loss_scale != 0) reports False, like the reference
         return self.fp16_enabled() and self._config.fp16_config.dynamic_loss_scale
 
+    def get_type(self):
+        """Optimizer type per param group (``"client"`` for a client
+        optimizer)."""
+        return [self._optimizer_name]
+
     def get_mom(self):
         """Momentum per param group: SGD's ``momentum``, the Adam family's
-        and Lion's ``betas``."""
+        and Lion's ``betas``; None for a client optimizer, as the JAX engine
+        reports for a client optax chain."""
         return [optimizer_momenta(self._optimizer_name, self._config.optimizer_params)]
 
     def was_step_applied(self) -> bool:
@@ -1159,4 +1441,5 @@ class DeepSpeedEngine:
 
     @property
     def optimizer(self):
-        return self.tx
+        """The client optimizer when one was given, else the engine-built one."""
+        return self.client_optimizer if self.client_optimizer is not None else self.tx

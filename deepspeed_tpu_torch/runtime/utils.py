@@ -15,7 +15,13 @@ def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
     """sqrt of the sum of squares of every element, in fp32, as a 0-dim
     tensor on the tensors' device (no host sync). ``tensors`` may be a
     generator: each is reduced before the next is drawn."""
-    norms = [torch.linalg.vector_norm(t, dtype=torch.float32) for t in tensors]
+    return norm_of_norms([torch.linalg.vector_norm(t, dtype=torch.float32) for t in tensors])
+
+
+def norm_of_norms(norms: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The global norm from per-tensor fp32 norms (what :func:`global_norm`
+    computes after its per-tensor pass, so a caller that keeps the
+    per-tensor norms gets the same bits)."""
     if not norms:
         return torch.tensor(0.0)
     return torch.sqrt(torch.sum(torch.square(torch.stack(norms))))

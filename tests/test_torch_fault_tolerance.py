@@ -2,10 +2,10 @@
 ``tests/unit/test_fault_tolerance.py`` against ``deepspeed_tpu_torch``'s
 engine on the CPU — crash-safe two-phase checkpointing, verified
 auto-resume with walk-back, injected I/O faults, the async writer,
-retention, preemption, resume identity and the dataloader's resume. The
-metrics cases are in ``test_torch_train_telemetry.py``; the health-detector
-cases wait for the health observatory (ROADMAP.md queue 1, telemetry and
-control plane); ``dscli ckpt verify`` waits for the CLI."""
+retention, preemption, resume identity, the dataloader's resume, and the
+surfaces: ``ckpt verify`` of ``python -m deepspeed_tpu_torch.cli`` and the
+health monitor's ``ckpt_failure`` detector. The metrics cases are in
+``test_torch_train_telemetry.py``."""
 
 import errno
 import json
@@ -499,3 +499,60 @@ class TestDataloaderResume:
         it = resume_loader_iterator(one_shot, consumed_batches=5)
         with pytest.raises(RuntimeError, match="no batches"):
             next(it)
+
+
+class TestSurfaces:
+
+    def test_cli_ckpt_verify(self, engine, tmp_path, capsys):
+        from deepspeed_tpu_torch.cli import main
+        d = str(tmp_path)
+        engine.save_checkpoint(d, tag="good")
+        engine.save_checkpoint(d, tag="rotten", save_latest=False)
+        assert main(["ckpt", "verify", d]) == 0
+        fi.bit_flip(os.path.join(d, "rotten", STATE_FILE))
+        rc = main(["ckpt", "verify", d])
+        out = capsys.readouterr().out
+        assert rc == 1
+        assert "INTACT" in out and "CORRUPT" in out
+        assert "rotten" in out and "blake2b mismatch" in out
+        assert "<- latest" in out
+        assert main(["ckpt", "verify", d, "--tag", "good"]) == 0
+        assert main(["ckpt", "verify", str(tmp_path / "empty")]) == 1
+
+    def test_health_ckpt_failure_detector(self):
+        from deepspeed_tpu_torch.monitor.config import HealthConfig
+        from deepspeed_tpu_torch.monitor.health import HealthMonitor
+        from deepspeed_tpu_torch.monitor.metrics import MetricsRegistry
+
+        reg = MetricsRegistry(enabled=True)
+        hm = HealthMonitor(HealthConfig(enabled=True, action="record",
+                                        ckpt_failure_consecutive=2),
+                           registry=reg)
+        assert hm.observe_checkpoint(False) == []
+        assert hm.observe_checkpoint(False) == ["ckpt_failure"]
+        assert hm.report()["anomalies"]["ckpt_failure"] == 1
+        # success resets the run; a single later failure does not fire
+        assert hm.observe_checkpoint(True) == []
+        assert hm.observe_checkpoint(False) == []
+        # and the anomaly counter series exists with an explicit value
+        snap = reg.snapshot()
+        assert snap["counters"]['health/anomalies{type="ckpt_failure"}'] == 1
+
+    def test_async_writer_failures_reach_the_detector(self, tmp_path):
+        """The async writer's completion callback feeds the engine's health
+        monitor (``_notify_ckpt_result``): two persisting failures fire."""
+        from deepspeed_tpu_torch.monitor.metrics import get_registry
+        e = _make_engine({"telemetry": {"health": {"enabled": True, "action": "record",
+                                                   "ckpt_failure_consecutive": 2}},
+                          "checkpoint": {"retries": 0, "retry_backoff_s": 0.0}})
+        try:
+            e.train_batch(_batch(0))
+            with fi.inject(fi.FaultInjector().fail_writes(errno.ENOSPC, count=-1)):
+                for tag in ("a", "b"):
+                    e.save_checkpoint(str(tmp_path), tag=tag, asynchronous=True)
+                    with pytest.raises(CheckpointWriteError):
+                        e.flush_checkpoints(timeout=30)
+            assert e.health_report()["anomalies"]["ckpt_failure"] == 1
+        finally:
+            e.destroy()
+            get_registry().reset()

@@ -115,6 +115,16 @@ MONITOR_MODULES = (
 )
 
 
+# the client-optimizer and control-plane slice's modules; all but health do
+# host-side dict work only and touch no torch.cuda API
+CONTROL_PLANE_MODULES = (
+    "deepspeed_tpu_torch.monitor.exporter", "deepspeed_tpu_torch.monitor.sampler",
+    "deepspeed_tpu_torch.monitor.slo", "deepspeed_tpu_torch.monitor.controller",
+    "deepspeed_tpu_torch.monitor.anatomy", "deepspeed_tpu_torch.monitor.top",
+    "deepspeed_tpu_torch.cli",
+)
+
+
 def test_import_leaves_jax_and_pydantic_out():
     mods = ["deepspeed_tpu_torch"] + sorted(
         "deepspeed_tpu_torch." + ".".join(p.relative_to(ROOT / "deepspeed_tpu_torch")
@@ -128,6 +138,7 @@ def test_import_leaves_jax_and_pydantic_out():
     assert set(RESUME_MODULES) <= set(mods)
     assert set(INGEST_MODULES) <= set(mods)
     assert set(MONITOR_MODULES) <= set(mods)
+    assert set(CONTROL_PLANE_MODULES) <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -171,6 +182,26 @@ def test_monitor_imports_no_jax_nor_the_jax_package():
             "assert 'deepspeed_tpu_torch.monitor' in sys.modules and m.get_registry()\n"
             "print(sorted(x for x in sys.modules if x.split('.')[0] in "
             f"{absent!r}))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+
+
+def test_control_plane_imports_no_jax_nor_cuda():
+    """The health module, the exposition plane and the CLI load neither jax,
+    the JAX package nor pydantic; the plane's modules and the CLI name no
+    ``torch.cuda`` API (health's sentinels are its only tensor code)."""
+    for name in CONTROL_PLANE_MODULES:
+        path = ROOT / (name.replace(".", "/") + ".py")
+        assert "torch.cuda" not in path.read_text(), name
+        assert not any(m.split(".")[0] in FORBIDDEN + ("torch",)
+                       for m in _imported_modules(path)), name
+    mods = ("deepspeed_tpu_torch.monitor.health",) + CONTROL_PLANE_MODULES
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r}))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr

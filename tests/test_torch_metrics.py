@@ -341,8 +341,20 @@ def test_telemetry_section_rejects_bad_shorthands_and_refuses_the_control_plane(
     with pytest.raises(ValueError, match="telemetry.events"):
         get_telemetry_config({"telemetry": {"events": "maybe"}})
     refuse_unported(get_telemetry_config({"telemetry": {"events": True}}))
-    refuse_unported(get_telemetry_config({"telemetry": {"enabled": False, "health": True}}))
+    refuse_unported(get_telemetry_config({"telemetry": {"enabled": False, "ctl": True}}),
+                    engine="serve")
+    # the training engine acts on health, the sampler, the SLOs and the
+    # exporter, as the JAX one does; the serving engine on health (which the
+    # JAX one ignores too); the rest lives in the async serving front-end
     for section in ({"health": True}, {"sampler": True}, {"slo": {"enabled": True}},
-                    {"ctl": True}, {"metrics_port": 9100}):
-        with pytest.raises(NotImplementedError, match="telemetry and control plane"):
-            refuse_unported(get_telemetry_config({"telemetry": section}))
+                    {"metrics_port": 9100}):
+        refuse_unported(get_telemetry_config({"telemetry": section}), engine="train")
+    refuse_unported(get_telemetry_config({"telemetry": {"health": True}}), engine="serve")
+    for section in ({"sampler": True}, {"slo": {"enabled": True}}, {"ctl": True},
+                    {"metrics_port": 9100}):
+        with pytest.raises(NotImplementedError, match="queue 1: async serving"):
+            refuse_unported(get_telemetry_config({"telemetry": section}), engine="serve")
+    with pytest.raises(NotImplementedError, match="queue 1: async serving"):
+        refuse_unported(get_telemetry_config({"telemetry": {"ctl": True}}), engine="train")
+    with pytest.raises(ValueError, match="engine"):
+        refuse_unported(get_telemetry_config({"telemetry": {"events": True}}), engine="x")

@@ -131,8 +131,10 @@ def test_action_traces_match(name):
 
 def test_scheduler_refuses_telemetry_hooks():
     """The scheduler takes the serving telemetry and the flight recorder
-    (every series pre-created at zero); what stays refused is the control
-    plane above them, which the serving engine raises for by name."""
+    (every series pre-created at zero); what stays refused is what the JAX
+    package runs only in its async serving front-end (the sampler, SLOs,
+    the controller and /metrics beside a server), which the serving engine
+    raises for by name."""
     from deepspeed_tpu_torch.monitor.events import FlightRecorder
     from deepspeed_tpu_torch.monitor.metrics import MetricsRegistry
     reg = MetricsRegistry()
@@ -144,7 +146,12 @@ def test_scheduler_refuses_telemetry_hooks():
     assert snap["histograms"]["serving/ttft_ms"]["count"] == 0
     model = CausalLM(TransformerConfig(vocab_size=64, n_layer=1, n_head=2, d_model=32,
                                        d_ff=64, max_seq=64))
-    for sub in ("health", "sampler", "slo", "ctl"):
-        with pytest.raises(NotImplementedError, match="telemetry and control plane"):
-            deepspeed_tpu_torch.init_inference(model, dtype="fp32", device="cpu",
-                                               telemetry={sub: True})
+    for sub in ("sampler", "slo", "ctl", "metrics_port"):
+        with pytest.raises(NotImplementedError, match="async serving"):
+            deepspeed_tpu_torch.init_inference(
+                model, dtype="fp32", device="cpu",
+                telemetry={sub: 0 if sub == "metrics_port" else True})
+    # telemetry.health: the JAX serving engine acts on none of it, nor does the port's
+    eng = deepspeed_tpu_torch.init_inference(model, dtype="fp32", device="cpu",
+                                             telemetry={"health": True})
+    assert eng._telemetry is not None

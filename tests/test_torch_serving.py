@@ -141,11 +141,11 @@ def test_eviction_pressure(pair):
     ({"dtype": "int8"}, "int8 inference"),
     ({"moe": {"ep_size": 2}}, "MoE"),
     ({"zero": {"offload_param": {"device": "cpu"}}}, "ZeRO-Inference"),
-    ({"telemetry": {"health": True}}, "telemetry and control plane"),
-    ({"telemetry": {"sampler": True}}, "telemetry and control plane"),
-    ({"telemetry": {"slo": {"enabled": True}}}, "telemetry and control plane"),
-    ({"telemetry": {"ctl": True}}, "telemetry and control plane"),
-    ({"telemetry": {"metrics_port": 0}}, "telemetry and control plane"),
+    ({"telemetry": {"ctl": {"enabled": True, "cooldown_ticks": 2}}}, "async serving"),
+    ({"telemetry": {"sampler": True}}, "async serving"),
+    ({"telemetry": {"slo": {"enabled": True}}}, "async serving"),
+    ({"telemetry": {"ctl": True}}, "async serving"),
+    ({"telemetry": {"metrics_port": 0}}, "async serving"),
 ])
 def test_out_of_slice_settings_raise(setting, item):
     model = CausalLM(TransformerConfig(**SHAPES["gpt2"]))

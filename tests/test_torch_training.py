@@ -396,8 +396,9 @@ def test_config_fields_match_jax():
     ({"pipeline": {"stages": 2}}, "runtime/pipe"),
     ({"mesh": {"dp": 1, "sp": 2}}, "multi-device"),
     ({"compression_training": {"weight_quantization": {}}}, "compression"),
-    ({"telemetry": {"health": {"enabled": True}}}, "telemetry and control plane"),
-    ({"telemetry": {"enabled": True, "metrics_port": 9100}}, "telemetry and control plane"),
+    ({"telemetry": {"ctl": {"enabled": True}}}, "async serving"),
+    ({"telemetry": {"enabled": True, "ctl": {"enabled": True, "cooldown_ticks": 1}}},
+     "async serving"),
     ({"comms_logger": {"enabled": True}}, "comm/"),
     ({"checkpoint": {"engine": "orbax"}}, "checkpoint"),
     ({"elasticity": {"enabled": True}}, "elasticity"),
@@ -411,7 +412,7 @@ def test_outside_the_slice_raises_naming_its_item(over, match):
 
 def test_engine_refusals():
     model = CausalLM(TransformerConfig(**LLAMA))
-    with pytest.raises(NotImplementedError, match="client optimizer"):
+    with pytest.raises(TypeError, match="torch.optim.Optimizer"):
         deepspeed_tpu_torch.initialize(model=model, optimizer=object(), config=_config(),
                                        device="cpu")
     with pytest.raises(NotImplementedError, match="checkpoint ingestion"):
