@@ -18,6 +18,8 @@ Phases, each printing one JSON line:
                 call's (SDPA for attention, fused AdamW, F.linear +
                 F.cross_entropy for the fused CE, vector_norm(inf) for the
                 absmax) and the bound; B, K5 and K8 also by device time;
+                E's per-block sums of u^2 and K7's ratio * ||u|| against
+                their plain sums, E also timed with them;
                 each of A, B, C, D and K5 also at head_dim 96; A, C and D
                 with block-sparse layouts (the train_sparse shape, blocks of
                 64 that straddle the tiles, GQA, an all-zero row block),
@@ -39,6 +41,22 @@ Phases, each printing one JSON line:
                 through init_inference + generate_batch with the default
                 serving config; the kernels' launch counters must match the
                 scheduler's prefill and decode actions
+  serve_async   full Llama-2-7B on the default serving config through the
+                async serving front-end (AsyncServingEngine): two replays of
+                a seeded arrival trace identical (actions and tokens); planted
+                step faults under replay (a per-request prefill fault retries,
+                a fault past max_request_retries quarantines, rows unchanged;
+                an engine-fatal decode fault restarts once, rows unchanged
+                but where one first parts at a near-tie); generate_batch and
+                the loop on its thread with every prompt at once, alternated;
+                the loop with the prompts at seeded offsets, two over HTTP
+                with SSE and one more request cancelled mid-decode (rows
+                against generate_batch's by the near-tie rule, SSE tokens
+                the handle's, free blocks back to their start, A = L x
+                prefills and B = L x decode steps, /healthz 200 then 503,
+                /metrics against the registry, TTFT / TPOT); one controller
+                action moving prefill_chunk a rung and the next prefill's
+                chunks following it
   spec_parity   Llama-7B width cut to 2 layers: the CPU's greedy tokens fed
                 in windows of 1-8 tokens through forward_paged_verify on the
                 card (bf16, kernel B once per window position) and on the CPU
@@ -167,8 +185,10 @@ Phases, each printing one JSON line:
                 beside the engine-built step ms and E's time
   health        the train phase's configuration with telemetry.health
                 (sentinels), metrics_port 0 and the sampler, 5 steps on and 5
-                off: losses bit-equal, host syncs 1 / 0 a step, 3 steps'
-                sentinels against a plain fp64 recomputation on the card,
+                off: losses bit-equal, host syncs 1 / 0 a step, the timed
+                steps' ms and peak memory on and off, 3 steps' sentinels
+                against a plain fp64 recomputation on the card (the update
+                norm lr ||u|| from the step's moments),
                 /metrics scraped between steps, the CLI's health and top over
                 the sampler's JSONL; an inf planted in a master with sentinels
                 off (unseen) and on (nonfinite 1, a valid debug bundle); the
@@ -178,7 +198,8 @@ Phases, each printing one JSON line:
                 objective's burn rate
   kernels       every ported kernel with its launches in the serve, spec_serve
                 (its oracle run), generate, train, train_lamb, train_sparse,
-                resume, ingest, telemetry, client_opt and health phases (A, C and D with a layout in rows of
+                resume, ingest, telemetry, client_opt, health and serve_async
+                phases (A, C and D with a layout in rows of
                 their own; C's and D's rows also carry their readings with an lse
                 cotangent)
   profile       (only with --phases profile) the serve phase's prompts through
@@ -215,7 +236,8 @@ import subprocess
 import sys
 import time
 
-PHASES = ("env", "build", "kernel", "slice_parity", "serve", "spec_parity", "spec_serve",
+PHASES = ("env", "build", "kernel", "slice_parity", "serve", "serve_async", "spec_parity",
+          "spec_serve",
           "generate_parity", "generate",
           "train_parity", "train", "train_lamb_parity", "train_lamb", "sparse_parity",
           "train_sparse", "resume", "ingest", "telemetry", "client_opt", "health", "kernels",
@@ -241,6 +263,7 @@ LOGIT_ULP_TOL = 8.0
 # correct summation orders.
 GRAD_FLOOR = 2.0**-10
 ADAM_TOL = 1e-6                 # kernel E: u, m, v error relative to the largest plain value
+SQ_TOL = 1e-5                   # kernel E: the blocks' sum of u^2 against the plain sum
 CE_TOL = 1e-4                   # kernel F: nll and log2-domain lse, absolute fp32 (PERF.md §6)
 DB_TOL = 1e-4                   # kernel G: db relative to its largest plain value
 FP32_PEAK_TFLOPS = 67.0         # H100 SXM fp32 outside the tensor cores (data sheet)
@@ -1526,12 +1549,17 @@ def _check_fused_adam(gen, fad, results, failures):
         }
         m0, v0 = m.clone(), v.clone()
         dest = p if emit_ == "param" else None
-        out = fad.fused_adam_step(p, g, m, v, step=3, lr=lr, emit=emit_, out=dest, **kw)
+        sq = torch.full((fad.adam_blocks(n),), float("nan"), device="cuda")
+        out = fad.fused_adam_step(p, g, m, v, step=3, lr=lr, emit=emit_, out=dest, sq=sq, **kw)
         torch.cuda.synchronize()
         rel = lambda outs, refs: max(float((a.float() - b.float()).abs().max()
                                            / b.float().abs().max()) for a, b in zip(outs, refs))
         err = rel((out, m, v), ref)
         fault_err = {f: rel((out, m, v), r) for f, r in faults.items()}
+        # the blocks' partial sums of u^2 (the health sentinel's update norm)
+        sq_err = abs(float(sq.double().sum()) - float(ref[3])) / float(ref[3])
+        if not sq_err <= SQ_TOL:
+            failures.append(f"fused_adam {name}: sum of u^2 relative error {sq_err} > {SQ_TOL}")
         if not err <= ADAM_TOL:
             failures.append(f"fused_adam {name}: relative error {err} > {ADAM_TOL}")
         for f, e in fault_err.items():
@@ -1540,12 +1568,16 @@ def _check_fused_adam(gen, fad, results, failures):
         rec = {"kernel": "fused_adam", "case": name, "n": n, "p_dtype": str(p_dtype),
                "emit": emit_, "max_abs_err": max(float((a.float() - b.float()).abs().max())
                                                  for a, b in zip((out, m, v), ref)),
-               "rel_err": err, "rel_tol": ADAM_TOL, "fault_rel_err": fault_err}
+               "rel_err": err, "rel_tol": ADAM_TOL, "fault_rel_err": fault_err,
+               "sq_rel_err": sq_err, "sq_rel_tol": SQ_TOL}
         if name == "embedding_leaf":
             m.copy_(m0)
             v.copy_(v0)
             rec["ms"] = cuda_ms(lambda: fad.fused_adam_step(p, g, m, v, step=3, lr=lr,
                                                             emit=emit_, out=dest, **kw))
+            # with the sentinels' partial sums of u^2 (health on)
+            rec["ms_with_sq"] = cuda_ms(lambda: fad.fused_adam_step(
+                p, g, m, v, step=3, lr=lr, emit=emit_, out=dest, sq=sq, **kw))
             rec["plain_ms"] = cuda_ms(lambda: fad.fused_adam_plain(p, g, m, v, lr, *bc,
                                                                    emit=emit_, **kw), reps=10)
             param = torch.nn.Parameter(p.clone())
@@ -1672,16 +1704,23 @@ def _check_fused_lamb(gen, results, failures):
             akw = dict(bc1=bc1, bc2=bc2, eps=kw["eps"], weight_decay=kw["weight_decay"])
             mom = lambda: fl.lamb_moments(p, g, m, v, part, b1=kw["b1"], b2=kw["b2"], **akw)
             mom()
-            r = fl.lamb_ratio(part)
+            # ratio * ||u|| (the health sentinel's update norm over lr)
+            unorm, unorm_plain = torch.zeros(1, device="cuda"), torch.zeros(1)
+            r = fl.lamb_ratio(part, unorm)
+            fl.lamb_ratio(part.cpu(), unorm_plain)
+            rec["unorm_rel_err"] = abs(float(unorm) - float(unorm_plain)) / float(unorm_plain)
+            if not rec["unorm_rel_err"] <= LAMB_RATIO_TOL:
+                failures.append(f"fused_lamb {name}: ratio * ||u|| relative error "
+                                f"{rec['unorm_rel_err']} > {LAMB_RATIO_TOL}")
             parts = {
                 "fused_lamb_moments": (
                     mom, lambda: fl._moments_plain(p, g, m, v, bc1, bc2, kw["b1"], kw["b2"],
                                                    kw["eps"], kw["weight_decay"]),
                     bound(n * (4 * 4 + 2 * 4) + 16 * blocks, 20 * n, FP32_PEAK_TFLOPS)),
                 "fused_lamb_ratio": (
-                    lambda: fl.lamb_ratio(part),
+                    lambda: fl.lamb_ratio(part, unorm),
                     lambda: fl.ratio_plain(*part.sum(0)),
-                    bound(16 * blocks + 4, 2 * blocks, FP32_PEAK_TFLOPS)),
+                    bound(16 * blocks + 8, 2 * blocks, FP32_PEAK_TFLOPS)),
                 "fused_lamb_apply": (
                     lambda: fl.lamb_apply(p, m, v, r, lr=lr, **akw),
                     lambda: p.float() - lr * (r * fl.lamb_u_plain(p, m, v, bc1, bc2, kw["eps"],
@@ -4386,7 +4425,7 @@ CHECK_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), ".chip_chec
 HEALTH_STEPS = 5          # 3 checked against the plain recomputation, 2 timed
 HEALTH_CHECKED = 3
 NORM_TOL = 1e-5           # param and bucket norms against the plain recomputation, relative
-UPDATE_TOL = 1e-3         # the update norm (new - old of each master), relative
+UPDATE_TOL = 1e-5         # the update norm (lr ||u|| from the update vector), relative
 SLO_TTFT = {"name": "ttft", "metric": "serving/ttft_ms", "kind": "latency",
             "threshold_ms": 250.0, "objective": 0.9, "windows": [1]}
 
@@ -4420,7 +4459,9 @@ def _sync():
 
 
 def _free():
+    import gc
     import torch
+    gc.collect()          # an engine's reference cycles hold its tensors until collected
     if CHECK_DEVICE == "cuda":
         torch.cuda.empty_cache()
 
@@ -4605,8 +4646,9 @@ def _plain_sentinels(engine, rec):
     its sentinel parts on the device, in fp64, from the same step's grads and
     masters (no host read): non-finite counts, the grad norm, the bucket norms
     (grouped by each leaf name's first key), the param norm and the update
-    norm ``||new - old||`` against a copy of the pre-update masters. Returns
-    the restore callable."""
+    norm ``lr ||u||``, u the Adam direction recomputed in fp64 from the step's
+    new moments and a copy of the pre-update masters (weight decay
+    included). Returns the restore callable."""
     import torch
     real = engine._apply_update
 
@@ -4626,11 +4668,19 @@ def _plain_sentinels(engine, rec):
             del x
         targets = st.master if st.master is not None else engine._param_dict(st.params)
         old = {n: m.detach().clone() for n, m in targets.items()}
+        tx, lr, step = engine.tx, float(engine._lr_fn(st.global_steps)), st.opt_state.count + 1
+        bc1, bc2 = 1.0 - tx.b1 ** step, 1.0 - tx.b2 ** step
         real(gas, grads)
         for n, m in targets.items():
             plain["nf_p"] += (~torch.isfinite(m)).sum()
             plain["psq"] += (m.double() ** 2).sum()
-            plain["usq"] += ((m.double() - old.pop(n).double()) ** 2).sum()
+            u = (st.opt_state.mu[n].double() / bc1) / (
+                torch.sqrt(st.opt_state.nu[n].double() / bc2) + tx.eps)
+            if tx.adam_w_mode and tx.weight_decay:
+                u += tx.weight_decay * old[n].double()
+            del old[n]
+            plain["usq"] += (u * u).sum() * (lr * lr)
+            del u
         plain["norm"] = engine._global_grad_norm
         plain["sentinels"] = engine._sentinels
         rec.append(plain)
@@ -4702,6 +4752,16 @@ def _health_train(seed, telemetry, on_engine=None, on_step=None):
     return model, engine, batch, [float(x) for x in losses], syncs, launches, step_s
 
 
+def _reset_peak():
+    from deepspeed_tpu_torch.accelerator import get_accelerator
+    get_accelerator(CHECK_DEVICE).reset_peak_memory_stats()
+
+
+def _peak_gb():
+    from deepspeed_tpu_torch.accelerator import get_accelerator
+    return get_accelerator(CHECK_DEVICE).max_memory_allocated() / 1e9
+
+
 def _scrape(url):
     import urllib.request
     with urllib.request.urlopen(url, timeout=30) as resp:
@@ -4749,6 +4809,7 @@ def phase_health(state, seed):
 
     failures = []
     t_phase = time.perf_counter()
+    _free()                  # an earlier phase's engines, before this one's peaks
     shutil.rmtree(CHECK_DIR, ignore_errors=True)
     os.makedirs(CHECK_DIR)
     samples = os.path.join(CHECK_DIR, "samples.jsonl")
@@ -4775,12 +4836,14 @@ def phase_health(state, seed):
                         "mismatched": bad})
         if i + 1 == HEALTH_CHECKED:
             restore.pop()()
+            _reset_peak()         # the timed steps' peak, without the plain copies
 
     # the health-on engine: the plain recomputation wraps its update for the
     # checked steps
     model, eng, batch, l_on, sy_on, la_on, st_on = _health_train(
         seed, telemetry, on_engine=lambda e: restore.append(_plain_sentinels(e, plain)),
         on_step=on_step)
+    peak_on = _peak_gb()
     rule = train_launch_rule(eng)
     health_launches = {k: sum(s[k] for s in la_on) for k in la_on[0]}
     status, _ = _scrape(eng._tel_exporter.url.replace("/metrics", "/healthz"))
@@ -4851,11 +4914,13 @@ def phase_health(state, seed):
         refused = False
     except OSError:
         refused = True
-    del eng, batch
+    del eng, batch, targets, master, keep, param     # the masters, before the off run's peak
     _free()
 
     get_registry().reset()
-    _, _, _, l_off, sy_off, la_off, st_off = _health_train(seed, None)
+    _, _, _, l_off, sy_off, la_off, st_off = _health_train(
+        seed, None, on_step=lambda i, e: _reset_peak() if i + 1 == HEALTH_CHECKED else None)
+    peak_off = _peak_gb()
     _free()
     if l_on != l_off:
         failures.append(f"losses on {l_on} off {l_off}")
@@ -4913,6 +4978,7 @@ def phase_health(state, seed):
          syncs_on=sy_on, syncs_off=sy_off, step_s_on=st_on, step_s_off=st_off,
          step_ms_on_median_timed=statistics.median(st_on[HEALTH_CHECKED:]) * 1e3,
          step_ms_off_median_timed=statistics.median(st_off[HEALTH_CHECKED:]) * 1e3,
+         peak_gb_timed_on=peak_on, peak_gb_timed_off=peak_off,
          sentinels=held, scrapes=scrapes, cli_loss=loss_g, cli_mfu=mfu_g,
          planted_off=list(off_reads), planted_on_anomalies=on_anom,
          planted_on_nonfinite_params=on_rec.nonfinite_params,
@@ -4922,6 +4988,421 @@ def phase_health(state, seed):
          slo_breaches=len(breaches), launches=health_launches, launches_per_step=rule,
          phase_s=time.perf_counter() - t_phase, card=state.get("card"))
     check(not failures, "health failed: " + "; ".join(failures))
+
+
+# --------------------------------------------------------------------- #
+# async serving: the always-on loop over the paged engine
+
+ASYNC_DEVICE = None       # the engines' device (None: cuda:0; the CPU test passes "cpu")
+ASYNC_DTYPE = "bf16"
+ASYNC_RESULT_S = 600      # the longest a handle's result is waited for
+ASYNC_HTTP_ROWS = (3, 9)  # the prompts the threaded run sends through POST /v1/completions
+ASYNC_CHUNK = 512         # the controller check's baseline prefill_chunk_tokens
+
+
+def async_trace(n, seed):
+    """The replay's seeded arrival schedule: the prompts' order and how
+    many arrive before each step (0 to 2), every prompt in."""
+    import numpy as np
+    rng = np.random.default_rng(seed + 7)
+    order = [int(i) for i in rng.permutation(n)]
+    trace, i = [], 0
+    while i < n:
+        k = int(rng.integers(0, 3)) if i else 2
+        trace.append(order[i:i + k])
+        i += k
+    return trace
+
+
+def _cold(engine):
+    """The engine's serving state as built (the pools kept): no cached
+    prefix blocks, rids from 0, so that runs compared with each other start
+    alike."""
+    engine._paged_alloc = None
+    engine._serve_rid_base = 0
+
+
+def _async_replay(engine, prompts, seed, faults=(), alone=None):
+    """One ``AsyncServingEngine(start=False)`` run of the seeded trace,
+    driven by ``step()``: the scheduler's actions as (kind, rids), each
+    prompt's generated tokens and status, restarts, and the loop's own host
+    time a step (``step()`` less the session's executor). ``faults``:
+    ``fail_step`` keyword dicts injected for the run; ``alone``: a prompt
+    index served to its end before the trace starts."""
+    import time as _time
+    from deepspeed_tpu_torch.inference import AsyncServingEngine
+    from deepspeed_tpu_torch.utils import fault_injection as fi
+    _cold(engine)
+    serving = AsyncServingEngine(engine, max_new_tokens=SERVE_MAX_NEW, start=False)
+    sess, actions, exec_s = serving._session, [], [0.0]
+    real_next, real_exec = sess.sched.next_action, sess._exec
+
+    def next_action():
+        a = real_next()
+        if a is not None:
+            items = a[1] if isinstance(a[1], list) else [a[1]]
+            actions.append((a[0], [r.rid for r in items if hasattr(r, "rid")]))
+        return a
+
+    def timed_exec(action):
+        t = _time.perf_counter()
+        try:
+            real_exec(action)
+        finally:
+            exec_s[0] += _time.perf_counter() - t
+
+    sess.sched.next_action, sess._exec = next_action, timed_exec
+    inj = fi.FaultInjector()
+    for f in faults:
+        inj.fail_step(**f)
+    handles, steps, step_s = {}, 0, 0.0
+
+    def step():
+        nonlocal steps, step_s
+        t = _time.perf_counter()
+        alive = serving.step()
+        step_s += _time.perf_counter() - t
+        steps += 1
+        return alive
+
+    with fi.inject(inj):
+        if alone is not None:
+            handles[alone] = serving.add_request(prompts[alone])
+            while step():
+                pass
+        for arrivals in async_trace(len(prompts), seed):
+            for i in arrivals:
+                if i not in handles:
+                    handles[i] = serving.add_request(prompts[i])
+            step()
+        while step():
+            pass
+    serving.shutdown(drain=True)
+    order = sorted(handles)
+    return {"actions": actions, "tokens": [handles[i].generated for i in order],
+            "status": [handles[i].status for i in order], "restarts": serving.restarts,
+            "steps": steps, "loop_host_ms_a_step": (step_s - exec_s[0]) * 1e3 / steps}
+
+
+def _async_threaded(engine, prompts, seed, failures):
+    """The loop on its serving thread: a client thread submits the prompts
+    at seeded offsets (two of them through ``POST /v1/completions`` with
+    SSE), one more request is cancelled mid-decode; /healthz and /metrics
+    are read over HTTP. Returns the record, the rows and the SSE tokens."""
+    import http.client
+    import threading
+    import numpy as np
+    from deepspeed_tpu_torch.inference import AsyncServingEngine, serve
+    from deepspeed_tpu_torch.monitor.metrics import get_registry
+    from deepspeed_tpu_torch.monitor.top import snapshot_from_prometheus
+    _cold(engine)
+    _reset_telemetry()          # TTFT / TPOT of this run only
+    serving = AsyncServingEngine(engine, max_new_tokens=SERVE_MAX_NEW)
+    server = serve.build_http_server(serving, port=0)
+    port = server.server_address[1]
+    http_thread = threading.Thread(target=server.serve_forever, daemon=True)
+    http_thread.start()
+    created = []
+    real_add = serving.add_request
+
+    def add(prompt, **kw):                 # the handles the HTTP handler makes too
+        h = real_add(prompt, **kw)
+        created.append((np.asarray(prompt), h))
+        return h
+
+    serving.add_request = add
+
+    def get(path):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        conn.request("GET", path)
+        r = conn.getresponse()
+        return r.status, r.read().decode()
+
+    free0 = serving._session.sched.allocator.num_free
+    health_before = get("/healthz")[0]
+    rng = np.random.default_rng(seed + 11)
+    offsets = rng.uniform(0.0, 0.25, size=len(prompts))
+    handles, sse = {}, {}
+
+    def post_stream(i):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=ASYNC_RESULT_S)
+        conn.request("POST", "/v1/completions", json.dumps(
+            {"prompt": [int(t) for t in prompts[i]], "max_tokens": SERVE_MAX_NEW,
+             "stream": True}), {"Content-Type": "application/json"})
+        lines = conn.getresponse().read().decode().splitlines()
+        chunks = [json.loads(x[6:]) for x in lines if x.startswith("data: {")]
+        sse[i] = ([t for c in chunks for t in c["choices"][0]["token_ids"]],
+                  chunks[-1]["choices"][0]["finish_reason"], "data: [DONE]" in lines)
+
+    posters = []
+
+    def client():
+        prev = 0.0
+        for i in np.argsort(offsets):
+            time.sleep(float(offsets[i]) - prev)
+            prev = float(offsets[i])
+            if int(i) in ASYNC_HTTP_ROWS:
+                t = threading.Thread(target=post_stream, args=(int(i),), daemon=True)
+                t.start()
+                posters.append(t)
+            else:
+                handles[int(i)] = serving.add_request(prompts[int(i)])
+
+    _sync()
+    t0 = time.perf_counter()
+    c = threading.Thread(target=client, daemon=True)
+    c.start()
+    c.join()
+    victim = serving.add_request(prompts[0])           # cancelled mid-decode
+    next(victim.stream(timeout=ASYNC_RESULT_S))
+    victim.cancel()
+    rows = {i: h.result(timeout=ASYNC_RESULT_S) for i, h in handles.items()}
+    for t in posters:
+        t.join(ASYNC_RESULT_S)
+    _sync()
+    wall = time.perf_counter() - t0
+    victim.result(timeout=ASYNC_RESULT_S)
+    m_status, m_text = get("/metrics")
+    scraped = snapshot_from_prometheus(m_text)["counters"]
+    registry = get_registry().snapshot()
+    serving.shutdown(drain=True, timeout=ASYNC_RESULT_S)
+    health_after = get("/healthz")[0]
+    server.shutdown()
+    http_thread.join(60)
+    free1 = serving._session.sched.allocator.num_free
+    for i in ASYNC_HTTP_ROWS:
+        h = next(h for p, h in created if p.size == prompts[i].size
+                 and np.array_equal(p, prompts[i]) and h is not victim)
+        rows[i] = h.result(timeout=1)
+        if i not in sse or sse[i][0] != h.generated or sse[i][1] != "stop" or not sse[i][2]:
+            failures.append(f"row {i}: the SSE stream {sse.get(i)} is not the handle's "
+                            f"{h.generated}")
+    serving_counters = {k: v for k, v in registry["counters"].items()
+                        if k.startswith("serving/")}
+    bad_scrape = {k: (scraped.get(k), v) for k, v in serving_counters.items()
+                  if scraped.get(k) != v}
+    if victim.status != "cancelled" or not 0 < len(victim.generated) < SERVE_MAX_NEW:
+        failures.append(f"the cancelled request ended {victim.status} after "
+                        f"{len(victim.generated)} tokens")
+    if free1 != free0:
+        failures.append(f"free blocks {free1} after the drain, {free0} at the start")
+    if (health_before, health_after) != (200, 503):
+        failures.append(f"/healthz read {health_before} then {health_after}, not 200 then 503")
+    if m_status != 200 or bad_scrape:
+        failures.append(f"/metrics {m_status}: scraped counters off the registry {bad_scrape}")
+    hist = registry["histograms"]
+    rec = {"wall_s": wall, "http_rows": list(ASYNC_HTTP_ROWS), "sse_rows_equal_handle":
+           sum(sse.get(i, ([],))[0] == rows[i][prompts[i].size:].tolist()
+               for i in ASYNC_HTTP_ROWS),
+           "cancelled_generated": len(victim.generated), "free_blocks_start": free0,
+           "free_blocks_after_drain": free1, "healthz": [health_before, health_after],
+           "metrics_counters_checked": len(serving_counters),
+           "ttft_ms": {q: hist["serving/ttft_ms"][q] for q in ("p50", "p99", "count")},
+           "tpot_ms": {q: hist["serving/tpot_ms"][q] for q in ("p50", "p99", "count")},
+           "actions": dict(engine._last_serve_actions)}
+    return rec, [rows[i] for i in range(len(prompts))]
+
+
+def _async_burst(engine, prompts):
+    """The loop on its serving thread with every prompt submitted at once
+    from this thread (no HTTP, no arrival spread): the same work as one
+    ``generate_batch``. Returns (wall seconds, rows)."""
+    from deepspeed_tpu_torch.inference import AsyncServingEngine
+    _cold(engine)
+    _sync()
+    t0 = time.perf_counter()
+    with AsyncServingEngine(engine, max_new_tokens=SERVE_MAX_NEW) as serving:
+        handles = [serving.add_request(p) for p in prompts]
+        rows = [h.result(timeout=ASYNC_RESULT_S) for h in handles]
+    _sync()
+    return time.perf_counter() - t0, rows
+
+
+def _async_knob(model, params, prompt, failures):
+    """One AdaptiveController action through the loop's apply_knobs: with
+    ``prefill_chunk_tokens`` ASYNC_CHUNK and a TTFT burn planted, one tick
+    moves prefill_chunk one rung down its ladder, and the next prefill runs
+    in chunks of that size (the req.prefill_chunk events)."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.inference import AsyncServingEngine
+    from deepspeed_tpu_torch.monitor import get_flight_recorder, get_registry
+    from deepspeed_tpu_torch.monitor.controller import AdaptiveController, knobs_from_serving
+    _reset_telemetry()
+    engine = deepspeed_tpu_torch.init_inference(
+        model, params=params, dtype=ASYNC_DTYPE, device=ASYNC_DEVICE,
+        serving={"prefill_chunk_tokens": ASYNC_CHUNK}, telemetry={"events": True})
+    serving = AsyncServingEngine(engine, max_new_tokens=2, start=False)
+    knobs = knobs_from_serving(engine.config.serving, policy=serving.policy)
+    ladder = next(k.ladder for k in knobs if k.name == "prefill_chunk")
+    ctl = AdaptiveController(knobs, events=engine._events, apply_fn=serving.apply_knobs,
+                             cooldown_ticks=1, relax_after=2)
+    g = get_registry().gauge("slo/burn_rate", "error-budget burn",
+                             labelnames=("objective", "window"))
+    for w in ("8", "2"):
+        g.labels(objective="ttft_p99", window=w).set(2.0)
+    moved = [a.to_payload() for a in ctl.tick() if a.knob == "prefill_chunk"]
+    h = serving.add_request(prompt)
+    while serving.step():
+        pass
+    serving.shutdown(drain=True)
+    chunks = [e.data["tokens"] for e in get_flight_recorder().snapshot()
+              if e.kind == "req.prefill_chunk"]
+    want = [ladder[1]] * (prompt.size // ladder[1]) + ([prompt.size % ladder[1]]
+                                                       if prompt.size % ladder[1] else [])
+    if [m["value"] for m in moved] != [ladder[1]] or chunks != want or h.status != "finished":
+        failures.append(f"prefill_chunk moved {moved} on ladder {ladder}; the next prefill ran "
+                        f"chunks {chunks}, expected {want}; status {h.status}")
+    get_flight_recorder().disable()
+    _reset_telemetry()
+    del engine, serving
+    return {"ladder": list(ladder), "moved_to": [m["value"] for m in moved],
+            "prompt_tokens": int(prompt.size), "chunks": chunks}
+
+
+def phase_serve_async(state, seed):
+    """Full Llama-2-7B on the serve cell's default serving config through the
+    async serving front-end. ``generate_batch`` on the serve phase's 12
+    prompts (32 new tokens, greedy) gives the reference rows; the seeded
+    trace replayed twice through ``AsyncServingEngine(start=False)`` gives
+    identical actions and tokens (limit 0); under replay, a per-request
+    prefill fault retries (tokens unchanged, limit 0), a fault past
+    max_request_retries quarantines its request while the other rows stay
+    unchanged (limit 0), an engine-fatal decode fault restarts once and
+    every row equals the unfaulted replay's but where it first parts at a
+    near-tie (the restart recomputes the decoded tokens by prefill); the
+    serving thread with every prompt at once (generate_batch's work) and,
+    the main path's run, with the prompts at seeded offsets (two over HTTP
+    with SSE, one more request cancelled mid-decode): every row equals
+    generate_batch's but where it first parts at a near-tie, the SSE tokens
+    are the handle's, the free
+    blocks return to their start, A = L x prefills and B = L x decode steps,
+    /healthz reads 200 then 503, /metrics parses back to the registry; one
+    controller action moves prefill_chunk one rung and the next prefill's
+    chunks follow it."""
+    import numpy as np
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.accelerator import get_accelerator
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    from deepspeed_tpu_torch.ops.kernels import paged_decode_attention as pda
+
+    t_phase = time.perf_counter()
+    failures = []
+    acc = get_accelerator("cuda" if ASYNC_DEVICE is None else ASYNC_DEVICE)
+    acc.reset_peak_memory_stats()
+    model, params = _llama7b(seed)
+    cfg = model.config
+    prompts = _serve_prompts(cfg, seed)
+    _reset_telemetry()
+    engine = deepspeed_tpu_torch.init_inference(model, params=params, dtype=ASYNC_DTYPE,
+                                                device=ASYNC_DEVICE, telemetry=True)
+    engine.generate_batch([p[:64] for p in prompts[:2]], max_new_tokens=2)   # warm-up
+    _cold(engine)
+    generated = len(prompts) * SERVE_MAX_NEW
+
+    def timed_generate_batch():
+        _cold(engine)
+        _sync()
+        t0 = time.perf_counter()
+        rows = engine.generate_batch(prompts, max_new_tokens=SERVE_MAX_NEW)
+        _sync()
+        return time.perf_counter() - t0, rows
+
+    # deterministic replay, twice, then the planted faults against it
+    runs = [_async_replay(engine, prompts, seed) for _ in range(2)]
+    if runs[0]["actions"] != runs[1]["actions"] or runs[0]["tokens"] != runs[1]["tokens"]:
+        failures.append("two replays of the seeded trace differ in actions or tokens")
+    base = runs[0]
+    retries = int(engine.config.serving.fault.max_request_retries)
+    faulted = {
+        "request_prefill_pre": _async_replay(engine, prompts, seed, faults=[
+            {"kind": "prefill", "count": 1, "phase": "pre"}]),
+        "engine_decode_post": _async_replay(engine, prompts, seed, faults=[
+            {"kind": "decode", "at_step": len(base["actions"]) * 2 // 3, "count": 1,
+             "phase": "post"}]),
+        "past_max_request_retries": _async_replay(engine, prompts, seed, alone=5, faults=[
+            {"kind": "prefill", "count": retries + 1, "phase": "pre"}]),
+    }
+    f_rec = {}
+    full = lambda toks: [np.concatenate([p, np.asarray(t, p.dtype)]) for p, t in zip(prompts, toks)]
+    for name, r in faulted.items():
+        rows_equal = sum(a == b for a, b in zip(r["tokens"], base["tokens"]))
+        f_rec[name] = {"rows_equal_unfaulted": rows_equal, "restarts": r["restarts"],
+                       "status": r["status"], "steps": r["steps"]}
+        if name == "past_max_request_retries":
+            ok = (r["status"][5] == "error" and r["status"].count("finished") == len(prompts) - 1
+                  and rows_equal == len(prompts) - 1)
+        elif name == "request_prefill_pre":
+            ok = rows_equal == len(prompts) and r["status"] == ["finished"] * len(prompts)
+        else:
+            # the restart re-admits every request through a prefill over its
+            # prompt and generated tokens (A over the whole sequence), where
+            # the unfaulted run had decoded them one at a time (B): in bf16 a
+            # row may part at a near-tie, and only there
+            div = _divergences(engine, prompts, full(r["tokens"]), full(base["tokens"]))
+            f_rec[name]["rows_parting_at_near_ties"] = sum(d["near_tie"] for d in div)
+            f_rec[name]["divergences"] = div
+            ok = (r["restarts"] == 1 and r["status"] == ["finished"] * len(prompts)
+                  and all(d["near_tie"] for d in div))
+        if not ok:
+            failures.append(f"{name}: {f_rec[name]}")
+
+    # generate_batch and the serving thread with every prompt at once (the
+    # same work), alternated: gb, loop, loop, gb
+    gb_walls, burst_walls = [], []
+    for first in (True, False):
+        if first:
+            wall, want = timed_generate_batch()
+            gb_walls.append(wall)
+        wall, burst_rows = _async_burst(engine, prompts)
+        burst_walls.append(wall)
+        if not first:
+            gb_walls.append(timed_generate_batch()[0])
+    gb_actions = dict(engine._last_serve_actions)
+    gb_wall, burst_wall = statistics.median(gb_walls), statistics.median(burst_walls)
+    burst_div = _divergences(engine, prompts, burst_rows, want)
+    failures += [f"burst row {d['row']} parts from generate_batch at generated token "
+                 f"{d['index']}, not a near-tie" for d in burst_div if not d["near_tie"]]
+    # the serving thread: the main path's run, launches counted around it
+    fa.launches = pda.launches = 0
+    threaded, rows = _async_threaded(engine, prompts, seed, failures)
+    launches = {"flash_attention_fwd": fa.launches, "paged_decode_attention": pda.launches}
+    rule = serve_launch_rule(cfg, threaded["actions"])
+    if launches != rule or (ASYNC_DEVICE is None and not all(launches.values())):
+        failures.append(f"launches {launches} != {cfg.n_layer} x prefills, x decode steps "
+                        f"{threaded['actions']}")
+    state["serve_async_launches"] = launches
+    div = _divergences(engine, prompts, rows, want)
+    failures += [f"threaded row {d['row']} parts from generate_batch at generated token "
+                 f"{d['index']}, not a near-tie" for d in div if not d["near_tie"]]
+    for p, o in zip(prompts, rows):
+        o = np.asarray(o)
+        check(o.shape == (p.size + SERVE_MAX_NEW,) and np.array_equal(o[:p.size], p)
+              and ((o >= 0) & (o < cfg.vocab_size)).all(), f"threaded row of shape {o.shape}")
+    del engine
+    _free()
+    knob = _async_knob(model, params, prompts[8], failures)
+    del params, model
+    _free()
+    emit("serve_async", model="llama-2-7b", layers=cfg.n_layer, dtype=ASYNC_DTYPE,
+         requests=len(prompts), max_new_tokens=SERVE_MAX_NEW,
+         generate_batch={"wall_s": gb_wall, "wall_s_runs": gb_walls,
+                         "tokens_per_s": generated / gb_wall, "actions": gb_actions},
+         threaded={**threaded, "tokens_per_s": generated / threaded["wall_s"],
+                   "rows_parting_at_near_ties": len(div), "divergences": div},
+         burst={"wall_s": burst_wall, "wall_s_runs": burst_walls,
+                "tokens_per_s": generated / burst_wall,
+                "tokens_per_s_ratio": gb_wall / burst_wall,
+                "rows_parting_at_near_ties": len(burst_div), "divergences": burst_div},
+         tokens_per_s_ratio=gb_wall / threaded["wall_s"],
+         replay={"steps": base["steps"], "actions": len(base["actions"]),
+                 "identical": runs[0]["actions"] == runs[1]["actions"]
+                 and runs[0]["tokens"] == runs[1]["tokens"],
+                 "loop_host_ms_a_step": [r["loop_host_ms_a_step"] for r in runs]},
+         faults=f_rec, knob=knob, launches=launches, launch_rule=rule,
+         peak_mem_gb=acc.max_memory_allocated() / 1e9,
+         phase_s=time.perf_counter() - t_phase, card=state.get("card"))
+    check(not failures, "serve_async failed: " + "; ".join(failures))
 
 
 def phase_kernels(state):
@@ -4937,6 +5418,7 @@ def phase_kernels(state):
     telemetry = state.get("telemetry_launches", {})
     client_opt = state.get("client_opt_launches", {})
     health = state.get("health_launches", {})
+    serve_async = state.get("serve_async_launches", {})
     rows = []
     meta = {
         "flash_attention_fwd": (
@@ -5007,7 +5489,8 @@ def phase_kernels(state):
                                            ("train_sparse", train_sparse),
                                            ("resume", resume), ("ingest", ingest),
                                            ("telemetry", telemetry),
-                                           ("client_opt", client_opt), ("health", health))
+                                           ("client_opt", client_opt), ("health", health),
+                                           ("serve_async", serve_async))
                    if name in n}
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                      "launches": sum(by_path.values()) if by_path else None,

@@ -11,11 +11,15 @@ JAX package's ``dscli``), run as ``python -m deepspeed_tpu_torch.cli
   ``trace <request-id> --events <jsonl>`` — one request's latency anatomy
 - ``ctl replay|explain <events.jsonl>`` — adaptive-controller decision-ledger
   audit (rc 1 when the replay diverges from the recorded decisions)
+- ``serve [--model m] [--port p] [--device d]`` — the OpenAI-style
+  completions endpoint over the always-on async serving loop
+  (``inference/serve.py``; ``--slo-*``, ``--adaptive`` and the sampler flags
+  stand the control plane up beside it)
 
-``run``, ``serve``, ``report``, ``bench``, ``lint``, ``profile``,
+``run``, ``report``, ``bench``, ``lint``, ``profile``,
 ``elastic``, ``autotune`` and ``ssh`` are not ported: each prints the
 refusal naming its ROADMAP.md item and returns 2. Nothing here imports
-torch.
+torch until ``serve`` runs.
 """
 
 from __future__ import annotations
@@ -30,7 +34,6 @@ from deepspeed_tpu_torch.monitor.top import top_cli
 #: ROADMAP.md item that brings each
 NOT_PORTED = {
     "run": ("the launcher (dscli run)", "queue 1: launcher/"),
-    "serve": ("the async serving front-end (dscli serve)", "queue 1: async serving"),
     "report": ("the environment report (dscli report)", "queue 1: env_report.py"),
     "bench": ("the collective micro-benchmarks (dscli bench)", "queue 1: comm/"),
     "lint": ("the trace-safety analyzer (dscli lint)", "queue 1: tools/dslint for the port"),
@@ -210,6 +213,18 @@ def _ctl(argv):
     return 1
 
 
+def _serve(argv):
+    """``serve``: the always-on async serving loop behind ``POST
+    /v1/completions`` (with ``"stream": true`` server-sent events),
+    ``/healthz`` and ``/metrics``."""
+    from deepspeed_tpu_torch.inference.serve import serve_main
+    try:
+        return serve_main(argv)
+    except NotImplementedError as e:     # a setting outside the port: its ROADMAP item
+        print(e, file=sys.stderr)
+        return 2
+
+
 def _not_ported(cmd):
     def run(argv):
         what, item = NOT_PORTED[cmd]
@@ -223,6 +238,7 @@ def _not_ported(cmd):
 
 
 COMMANDS = {"health": health_cli, "top": top_cli, "ckpt": _ckpt, "trace": _trace, "ctl": _ctl,
+            "serve": _serve,
             **{cmd: _not_ported(cmd) for cmd in NOT_PORTED}}
 
 

@@ -100,11 +100,12 @@ _NO_EFFECT_ON_ONE_DEVICE = {
     "gradient_predivide_factor", "sparse_gradients", "memory_breakdown",
     "zero_allow_untested_optimizer",
 }
+# DeepSpeed sections the JAX config accepts and ignores: it has no comet sink
+_IGNORED = {"comet"}
 # sections that are not ported: key -> (what, ROADMAP.md item)
 _NOT_PORTED = {
     "pipeline": ("pipeline parallelism", "runtime/pipe/"),
     "compression_training": ("compression", "compression"),
-    "comet": ("the comet monitor", "telemetry and control plane"),
     "comms_logger": ("the comms logger", "comm/"),
     "flops_profiler": ("the flops profiler", "profiling/"),
     "nebula": ("nebula checkpointing", "checkpoint ingestion (orbax)"),
@@ -147,7 +148,7 @@ def _refuse_outside_slice(param_dict: Dict, client_optimizer: bool = False) -> N
             if _enabled(value):
                 what, item = _NOT_PORTED[key]
                 not_ported(what, f"queue 1: {item}")
-        elif key not in _READ and key not in _NO_EFFECT_ON_ONE_DEVICE:
+        elif key not in _READ and key not in _NO_EFFECT_ON_ONE_DEVICE and key not in _IGNORED:
             raise DeepSpeedConfigError(f"unknown config key {key!r}")
     zero = param_dict.get(C.ZERO_OPTIMIZATION, {})
     if isinstance(zero, dict):

@@ -16,6 +16,12 @@
 // kernel equals the plain PyTorch version (one framework op per step) to
 // the bit.
 //
+// With a caller-given ``sq`` buffer each block also writes its partial sum
+// of u^2 (fp32; u the full direction applied as p - lr * u, weight decay
+// included) to sq[blockIdx.x]: a warp-shuffle tree and the warps in order,
+// no atomics, so the slots (and the sentinel's update norm the caller
+// reduces from them in a fixed order) repeat to the bit from run to run.
+//
 // Bound on the H100: memory. Per element it moves p and g in their dtypes,
 // m and v in fp32 both ways and the output once, about 28 bytes for fp32
 // p and g; at 3.35 TB/s that is the whole story, the FLOPs are negligible.
@@ -64,26 +70,44 @@ template <> __device__ __forceinline__ float load1<float>(const float* p) { retu
 template <typename T> __device__ __forceinline__ void store1(T* p, float x) { *p = ds::from_float<T>(x); }
 template <> __device__ __forceinline__ void store1<float>(float* p, float x) { *p = x; }
 
-// One element of _adam_kernel: m, v updated in place, returns the output.
+// One element of _adam_kernel: m, v updated in place, u set to the
+// direction, returns the output.
 template <bool EMIT_PARAM, bool ADAM_W>
-__device__ __forceinline__ float adam(float p, float g, float& m, float& v, const AdamArgs& a) {
+__device__ __forceinline__ float adam(float p, float g, float& m, float& v, float& u,
+                                      const AdamArgs& a) {
   if (!ADAM_W && a.wd != 0.f) g = __fadd_rn(g, __fmul_rn(a.wd, p));   // L2 into the gradient
   m = __fadd_rn(__fmul_rn(a.b1, m), __fmul_rn(a.one_minus_b1, g));
   v = __fadd_rn(__fmul_rn(a.b2, v), __fmul_rn(a.one_minus_b2, __fmul_rn(g, g)));
   float upd = __fdiv_rn(__fdiv_rn(m, a.bc1), __fadd_rn(__fsqrt_rn(__fdiv_rn(v, a.bc2)), a.eps));
   if (ADAM_W && a.wd != 0.f) upd = __fadd_rn(upd, __fmul_rn(a.wd, p));  // decoupled decay
+  u = upd;
   return EMIT_PARAM ? __fsub_rn(p, __fmul_rn(a.lr, upd)) : upd;
+}
+
+// The block's sum of x (every thread's) on thread 0, in a fixed order.
+__device__ __forceinline__ float block_sum(float x) {
+  __shared__ float sx[kThreads / 32];
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) x = __fadd_rn(x, __shfl_down_sync(0xffffffffu, x, off));
+  if (threadIdx.x % 32 == 0) sx[threadIdx.x / 32] = x;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    x = 0.f;
+    for (int w = 0; w < kThreads / 32; ++w) x = __fadd_rn(x, sx[w]);
+  }
+  return x;
 }
 
 template <typename P, typename G, bool EMIT_PARAM, bool ADAM_W>
 __global__ void __launch_bounds__(kThreads)
 fused_adam_kernel(const P* p, const G* __restrict__ g, float* m, float* v, void* out, long n,
-                  AdamArgs a) {
+                  AdamArgs a, float* __restrict__ sq) {
   using O = typename std::conditional<EMIT_PARAM, P, float>::type;
   O* o = static_cast<O*>(out);
   const long stride = (long)gridDim.x * kThreads;
   const long first = (long)blockIdx.x * kThreads + threadIdx.x;
   const long nvec = n / kVec;
+  float s = 0.f;                       // this thread's sum of u^2
   for (long i = first; i < nvec; i += stride) {
     const long base = i * kVec;
     float pf[8], gf[8], mf[8], vf[8], of[8];
@@ -92,45 +116,55 @@ fused_adam_kernel(const P* p, const G* __restrict__ g, float* m, float* v, void*
     load8<float>(m + base, mf);
     load8<float>(v + base, vf);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) of[j] = adam<EMIT_PARAM, ADAM_W>(pf[j], gf[j], mf[j], vf[j], a);
+    for (int j = 0; j < 8; ++j) {
+      float u;
+      of[j] = adam<EMIT_PARAM, ADAM_W>(pf[j], gf[j], mf[j], vf[j], u, a);
+      s = __fadd_rn(s, __fmul_rn(u, u));
+    }
     store8<float>(m + base, mf);
     store8<float>(v + base, vf);
     store8<O>(o + base, of);
   }
   for (long i = nvec * kVec + first; i < n; i += stride) {   // scalar tail
-    float mi = m[i], vi = v[i];
-    const float oi = adam<EMIT_PARAM, ADAM_W>(load1<P>(p + i), load1<G>(g + i), mi, vi, a);
+    float mi = m[i], vi = v[i], u;
+    const float oi = adam<EMIT_PARAM, ADAM_W>(load1<P>(p + i), load1<G>(g + i), mi, vi, u, a);
     m[i] = mi;
     v[i] = vi;
     store1<O>(o + i, oi);
+    s = __fadd_rn(s, __fmul_rn(u, u));
+  }
+  if (sq != nullptr) {                 // uniform across the block
+    s = block_sum(s);
+    if (threadIdx.x == 0) sq[blockIdx.x] = s;
   }
 }
 
 template <typename P, typename G>
 int launch(const void* p, const void* g, float* m, float* v, void* out, long n, int emit_param,
-           int adam_w, const AdamArgs& a, cudaStream_t stream) {
+           int adam_w, const AdamArgs& a, float* sq, cudaStream_t stream) {
   const long work = n / kVec + (n % kVec);
   const int blocks = (int)std::min<long>(std::max<long>((work + kThreads - 1) / kThreads, 1),
                                          kMaxBlocks);
   const P* pp = static_cast<const P*>(p);
   const G* gp = static_cast<const G*>(g);
   if (emit_param && adam_w)
-    fused_adam_kernel<P, G, true, true><<<blocks, kThreads, 0, stream>>>(pp, gp, m, v, out, n, a);
+    fused_adam_kernel<P, G, true, true><<<blocks, kThreads, 0, stream>>>(pp, gp, m, v, out, n, a, sq);
   else if (emit_param)
-    fused_adam_kernel<P, G, true, false><<<blocks, kThreads, 0, stream>>>(pp, gp, m, v, out, n, a);
+    fused_adam_kernel<P, G, true, false><<<blocks, kThreads, 0, stream>>>(pp, gp, m, v, out, n, a, sq);
   else if (adam_w)
-    fused_adam_kernel<P, G, false, true><<<blocks, kThreads, 0, stream>>>(pp, gp, m, v, out, n, a);
+    fused_adam_kernel<P, G, false, true><<<blocks, kThreads, 0, stream>>>(pp, gp, m, v, out, n, a, sq);
   else
-    fused_adam_kernel<P, G, false, false><<<blocks, kThreads, 0, stream>>>(pp, gp, m, v, out, n, a);
+    fused_adam_kernel<P, G, false, false><<<blocks, kThreads, 0, stream>>>(pp, gp, m, v, out, n, a, sq);
   return (int)cudaGetLastError();
 }
 
 template <typename P>
 int dispatch_g(const void* p, const void* g, int g_dtype, float* m, float* v, void* out, long n,
-               int emit_param, int adam_w, const AdamArgs& a, cudaStream_t st) {
-  if (g_dtype == 0) return launch<P, __half>(p, g, m, v, out, n, emit_param, adam_w, a, st);
-  if (g_dtype == 1) return launch<P, __nv_bfloat16>(p, g, m, v, out, n, emit_param, adam_w, a, st);
-  if (g_dtype == 2) return launch<P, float>(p, g, m, v, out, n, emit_param, adam_w, a, st);
+               int emit_param, int adam_w, const AdamArgs& a, float* sq, cudaStream_t st) {
+  if (g_dtype == 0) return launch<P, __half>(p, g, m, v, out, n, emit_param, adam_w, a, sq, st);
+  if (g_dtype == 1)
+    return launch<P, __nv_bfloat16>(p, g, m, v, out, n, emit_param, adam_w, a, sq, st);
+  if (g_dtype == 2) return launch<P, float>(p, g, m, v, out, n, emit_param, adam_w, a, sq, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -141,16 +175,20 @@ int dispatch_g(const void* p, const void* g, int g_dtype, float* m, float* v, vo
 // 16-byte aligned. emit_param = 1 writes p - lr * u in p's dtype to out (out
 // may be p); emit_param = 0 writes u in fp32. bc1/bc2 are the bias
 // corrections 1 - b^step (1 when off); one_minus_b* are 1 - b rounded to fp32
-// as the TPU kernel's constants. Returns cudaGetLastError() after the launch.
+// as the TPU kernel's constants. sq: null, or fp32 slots, one a block
+// (ds_fused_adam_blocks(n) of them), each written with its block's sum of
+// u^2. Returns cudaGetLastError() after the launch.
 extern "C" int ds_fused_adam(const void* p, int p_dtype, const void* g, int g_dtype, float* m,
                              float* v, void* out, long n, int emit_param, int adam_w, float lr,
                              float bc1, float bc2, float b1, float b2, float one_minus_b1,
-                             float one_minus_b2, float eps, float wd, void* stream) {
+                             float one_minus_b2, float eps, float wd, float* sq, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const AdamArgs a{lr, bc1, bc2, b1, b2, one_minus_b1, one_minus_b2, eps, wd};
-  if (p_dtype == 0) return dispatch_g<__half>(p, g, g_dtype, m, v, out, n, emit_param, adam_w, a, st);
+  if (p_dtype == 0)
+    return dispatch_g<__half>(p, g, g_dtype, m, v, out, n, emit_param, adam_w, a, sq, st);
   if (p_dtype == 1)
-    return dispatch_g<__nv_bfloat16>(p, g, g_dtype, m, v, out, n, emit_param, adam_w, a, st);
-  if (p_dtype == 2) return dispatch_g<float>(p, g, g_dtype, m, v, out, n, emit_param, adam_w, a, st);
+    return dispatch_g<__nv_bfloat16>(p, g, g_dtype, m, v, out, n, emit_param, adam_w, a, sq, st);
+  if (p_dtype == 2)
+    return dispatch_g<float>(p, g, g_dtype, m, v, out, n, emit_param, adam_w, a, sq, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -15,7 +15,9 @@
 //                        leaf its slice);
 //   lamb_ratio_kernel    one block: the group's partials summed in a fixed
 //                        order, the ratio written to a device scalar (1 where
-//                        either norm is 0, as optax and the TPU wrapper do);
+//                        either norm is 0, as optax and the TPU wrapper do)
+//                        and, when asked, ratio * ||u|| to a second one (the
+//                        health sentinel's update norm is lr times it);
 //   lamb_apply_kernel    one launch per leaf: u recomputed from the updated m,
 //                        v and the unchanged p with the same expression, so it
 //                        is bit-identical to the first pass's, and
@@ -122,7 +124,7 @@ lamb_moments_kernel(const P* __restrict__ p, const G* __restrict__ g, float* m, 
 }
 
 __global__ void __launch_bounds__(kThreads)
-lamb_ratio_kernel(const double* partials, int count, float* ratio) {
+lamb_ratio_kernel(const double* partials, int count, float* ratio, float* unorm) {
   double sp = 0.0, su = 0.0;
   for (int i = threadIdx.x; i < count; i += kThreads) {
     sp += partials[2 * i];
@@ -131,7 +133,9 @@ lamb_ratio_kernel(const double* partials, int count, float* ratio) {
   block_sum2(sp, su);
   if (threadIdx.x == 0) {
     const float pn = (float)sqrt(sp), un = (float)sqrt(su);
-    *ratio = (pn > 0.f && un > 0.f) ? __fdiv_rn(pn, un) : 1.f;
+    const float r = (pn > 0.f && un > 0.f) ? __fdiv_rn(pn, un) : 1.f;
+    *ratio = r;
+    if (unorm != nullptr) *unorm = __fmul_rn(r, un);   // ||ratio * u||: the update norm / lr
   }
 }
 
@@ -200,10 +204,12 @@ extern "C" int ds_lamb_moments(const void* p, int p_dtype, const void* g, int g_
 }
 
 // The trust ratio of a group from its ``count`` partial pairs, written to
-// ``ratio`` (one fp32 on the device).
-extern "C" int ds_lamb_ratio(const double* partials, int count, float* ratio, void* stream) {
+// ``ratio`` (one fp32 on the device), and, when ``unorm`` is not null,
+// ratio * ||u|| there (the norm of the group's applied direction).
+extern "C" int ds_lamb_ratio(const double* partials, int count, float* ratio, float* unorm,
+                             void* stream) {
   lamb_ratio_kernel<<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(partials, count,
-                                                                            ratio);
+                                                                            ratio, unorm);
   return (int)cudaGetLastError();
 }
 

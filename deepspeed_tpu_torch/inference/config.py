@@ -143,7 +143,9 @@ class ReplicaConfig(ConfigModel):
 @config
 class ServingFaultConfig(ConfigModel):
     """Serving-plane fault tolerance ("serving.fault") for the always-on
-    loop; accepted, used by no path of this slice."""
+    loop (``inference/serve.py``): per-request retries with logical-step
+    backoff, engine restarts before the crash-loop breaker opens, and the
+    queue depth above which queued work is shed (0 = off)."""
     max_request_retries: int = 3
     retry_backoff_steps: int = 2
     max_engine_restarts: int = 2

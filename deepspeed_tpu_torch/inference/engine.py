@@ -37,6 +37,17 @@ no token read (a copy-on-write copy, a non-final prefill chunk) is timed
 on the card by a pair of CUDA events and emitted at the session's next
 token read, which the loop makes anyway: telemetry adds no sync.
 
+``open_serve_session`` is the step API both front-ends share:
+``generate_batch`` adds its batch and drains, the always-on
+``AsyncServingEngine`` (``inference/serve.py``) feeds arrivals in as they
+come. The session streams each burst to ``on_tokens`` and each retired
+request to ``on_finish``, and contains step faults for the loop: a fault
+before a forward re-queues the action's requests through recompute
+(quarantine after ``serving.fault.max_request_retries``), a fault between a
+forward's start and the adoption of the pools it wrote is engine-fatal and
+``restart_engine`` rebuilds the pools and re-admits every request
+(``utils/fault_injection.step_fault`` plants either).
+
 Settings outside the port's slices raise ``NotImplementedError`` naming
 the ROADMAP item that will bring them.
 """
@@ -56,8 +67,8 @@ from deepspeed_tpu_torch.inference.config import DeepSpeedInferenceConfig, Dtype
 from deepspeed_tpu_torch.inference.scheduler import ContinuousBatchingScheduler, ServingTelemetry
 from deepspeed_tpu_torch.inference.spec import NgramProposer
 from deepspeed_tpu_torch.models.transformer import copy_paged_block
-from deepspeed_tpu_torch.monitor.config import refuse_unported
-from deepspeed_tpu_torch.utils.logging import log_dist, warn_once
+from deepspeed_tpu_torch.utils.fault_injection import step_fault
+from deepspeed_tpu_torch.utils.logging import log_dist, logger, warn_once
 from deepspeed_tpu_torch.utils.not_ported import not_ported
 
 
@@ -132,7 +143,6 @@ class InferenceEngine:
         off = dict(c.zero or {}).get("offload_param", {})
         if str(off.get("device", "none")).lower() in ("cpu", "nvme"):
             not_ported("ZeRO-Inference weight streaming", "queue 1: ZeRO-Inference")
-        refuse_unported(c.telemetry, engine="serve")
         if srv.kv_host.enabled:
             not_ported("the tiered KV cache (serving.kv_host)", "queue 1: tiered KV cache")
 
@@ -168,6 +178,10 @@ class InferenceEngine:
 
     # ------------------------------------------------------------------ #
     # telemetry
+
+    @property
+    def config(self) -> DeepSpeedInferenceConfig:
+        return self._config
 
     def telemetry_snapshot(self) -> Dict:
         """Whole-process registry snapshot plus the build watchdog's
@@ -456,13 +470,27 @@ class InferenceEngine:
 
     def open_serve_session(self, *, max_new: int, temperature: float = 0.0,
                            top_k: int = 0, seed: int = 0,
-                           eos_token_id: Optional[int] = None):
+                           eos_token_id: Optional[int] = None, policy=None,
+                           on_tokens=None, on_finish=None,
+                           retain_finished: bool = True):
         """Open one paged serving session: the scheduler, the persistent
-        pool workspace and the step API (:class:`_ServeSession`). At most one
-        session may be active per engine (the pools are shared state)."""
+        pool workspace and the step API (:class:`_ServeSession`; JAX
+        ``inference/engine.py:1289``). Both entry points run through it:
+        ``generate_batch`` adds its whole batch and drains, the always-on
+        ``AsyncServingEngine`` (``inference/serve.py``) feeds arrivals in as
+        they come. At most one session may be active per engine (the pools
+        are shared state).
+
+        ``policy`` plugs a scheduling policy (``inference/policy.py``) into
+        the scheduler; ``on_tokens(req, tokens)`` streams each emitted burst
+        and ``on_finish(req)`` fires once per retired request, both on the
+        serving thread. ``retain_finished=False`` drops retired requests
+        from ``sched.finished`` once ``on_finish`` has seen them."""
         if self._active_session is not None:
-            raise RuntimeError("another serving session is active on this engine; "
-                               "close it before opening a new one")
+            raise RuntimeError(
+                "another serving session is active on this engine (an "
+                "AsyncServingEngine loop, or a generate_batch in flight); "
+                "drain/shutdown it before opening a new one")
         srv = self._config.serving
         if str(srv.paged) == "off" or not self._paged_supported():
             raise ValueError("a serving session needs the paged engine")
@@ -521,27 +549,44 @@ class InferenceEngine:
                                             events=self._events,
                                             rid_base=self._serve_rid_base,
                                             spec_k=spec_k if spec_on else 0,
-                                            spec_proposer=proposer)
+                                            spec_proposer=proposer, policy=policy)
         session = _ServeSession(
             self, sched, pools, max_new=max_new, temperature=temperature, top_k=top_k,
             generator=torch.Generator(device=self.device).manual_seed(int(seed)),
             eos_token_id=eos_token_id, W=W, n_max=n_max, bs=bs, num_blocks=num_blocks,
-            chunk_tokens=chunk_tokens, spec_wb=spec_wb)
+            chunk_tokens=chunk_tokens, spec_wb=spec_wb, on_tokens=on_tokens,
+            on_finish=on_finish, retain_finished=retain_finished)
         self._active_session = session
         return session
 
 
 class _ServeSession:
-    """One paged serving session: scheduler + pools behind a step API.
-    Single-threaded: every method runs on the thread that owns the engine."""
+    """One paged serving session: scheduler + pools behind a step API (JAX
+    ``inference/engine.py:1438``). ``generate_batch`` (closed loop) and
+    ``AsyncServingEngine`` (open loop) both execute scheduler actions
+    through it. Single-threaded: every method runs on the thread that owns
+    the engine."""
 
     _UNSET = object()
 
     def __init__(self, engine, sched, pools, *, max_new, temperature, top_k, generator,
-                 eos_token_id, W, n_max, bs, num_blocks, chunk_tokens, spec_wb):
+                 eos_token_id, W, n_max, bs, num_blocks, chunk_tokens, spec_wb,
+                 on_tokens=None, on_finish=None, retain_finished=True):
         self.engine = engine
         self.sched = sched
         self.pools = pools
+        # fault containment (serving.fault): the action a fault is
+        # attributed to, the finer dispatch site for step_faults{kind=}
+        # (a prefill chunk may run a cow copy first), and the retry bounds
+        self.last_action = None
+        self.fault_site = None
+        fault = engine._config.serving.fault
+        self.fault_max_retries = int(fault.max_request_retries)
+        self.fault_backoff_steps = int(fault.retry_backoff_steps)
+        # False from the start of a pool-writing forward until the session
+        # adopts its pools: a fault in between leaves them half-written,
+        # which is engine-fatal (the JAX session's donated-buffer test)
+        self._pools_valid = True
         self.max_new = int(max_new)
         self.temperature = temperature
         self.top_k = top_k
@@ -553,6 +598,12 @@ class _ServeSession:
         self.num_blocks = num_blocks
         self.chunk_tokens = chunk_tokens
         self.spec_wb = spec_wb          # verify window width (0: speculation off)
+        self.on_tokens = on_tokens
+        self.on_finish = on_finish
+        # the always-on loop consumes results through on_finish and must
+        # not keep every retired Request forever
+        self.retain_finished = retain_finished
+        self._finished_seen = 0
         #: scheduler actions executed, by kind (plain host counters)
         self.actions = collections.Counter()
         self._closed = False
@@ -563,8 +614,11 @@ class _ServeSession:
 
     # ---- request front-end ---- #
 
-    def add(self, prompt, max_new=None, eos=_UNSET):
-        """Enqueue one request; ``max_new``/``eos`` default to the session's."""
+    def add(self, prompt, max_new=None, eos=_UNSET, priority: int = 0,
+            ttft_budget=None, t_submit=None, deadline_ms=None,
+            deadline_steps=None, trace=None, parent=None):
+        """Enqueue one request, at any time (JAX ``engine.py:1502``);
+        ``max_new``/``eos`` default to the session's."""
         if self._closed:
             raise RuntimeError("serving session is closed")
         prompt = np.asarray(prompt, np.int32).reshape(-1)
@@ -575,8 +629,18 @@ class _ServeSession:
         if prompt.size + mn > cfg.max_seq:
             raise ValueError(f"prompt ({prompt.size}) + max_new_tokens ({mn}) exceeds "
                              f"model max_seq {cfg.max_seq}")
-        return self.sched.add_request(prompt, mn,
-                                      self.eos_token_id if eos is self._UNSET else eos)
+        return self.sched.add_request(
+            prompt, mn, self.eos_token_id if eos is self._UNSET else eos,
+            priority=priority, ttft_budget=ttft_budget, t_submit=t_submit,
+            deadline_ms=deadline_ms, deadline_steps=deadline_steps,
+            trace=trace, parent=parent)
+
+    def cancel(self, req) -> bool:
+        """Cancel between steps; fires ``on_finish`` for the retired request
+        (JAX ``engine.py:1526``)."""
+        ok = self.sched.cancel_request(req)
+        self._flush_finished()
+        return ok
 
     # ---- stepping ---- #
 
@@ -585,11 +649,126 @@ class _ServeSession:
         runnable (queue and running batch both empty)."""
         if self._closed:
             raise RuntimeError("serving session is closed")
+        # a fault in next_action itself must not be attributed to the
+        # previous step's action or site
+        self.last_action = None
+        self.fault_site = None
         action = self.sched.next_action()
         if action is None:
+            self._flush_finished()      # admission-time error retirements
             return False
+        self.last_action = action
         self._exec(action)
+        self._flush_finished()
         return True
+
+    def _emit_tokens(self, req, tokens) -> None:
+        """JAX ``engine.py:1553``."""
+        if self.on_tokens is not None:
+            self.on_tokens(req, [int(t) for t in tokens])
+
+    def _flush_finished(self) -> None:
+        """Hand each newly retired request to ``on_finish`` once (JAX
+        ``engine.py:1557``)."""
+        fin = self.sched.finished
+        while self._finished_seen < len(fin):
+            r = fin[self._finished_seen]
+            self._finished_seen += 1
+            if self.on_finish is not None:
+                self.on_finish(r)
+        if not self.retain_finished and self._finished_seen:
+            del fin[:self._finished_seen]
+            self._finished_seen = 0
+
+    # ---- serving fault containment (serving.fault) ---- #
+
+    def pools_alive(self) -> bool:
+        """Whether the pools hold only whole steps (JAX ``engine.py:1570``).
+        The port writes the pools in place instead of donating them, so the
+        test is the session's own flag: an exception that escaped between
+        the start of a pool-writing forward and the adoption of its pools
+        leaves them half-written, the engine-fatal signature; a fault
+        before the forward leaves them intact (per request)."""
+        return self._pools_valid
+
+    def contain_fault(self, exc: BaseException) -> str:
+        """Classify and, where possible, contain an exception that escaped
+        :meth:`step` (JAX ``engine.py:1579``). Returns ``"request"`` when
+        the faulting action's request(s) were re-queued with logical-step
+        backoff (or quarantined with ``req.error`` after
+        ``serving.fault.max_request_retries``), ``"fatal"`` when the pools
+        are half-written and the caller must :meth:`restart_engine` (or
+        give up), or ``"unattributed"`` when nothing could be re-queued
+        (the fault fired before an action was chosen). Either way the
+        fault is recorded (``serve.fault`` event,
+        ``serving/step_faults{kind=}``). ``generate_batch`` never calls
+        this: it propagates."""
+        kind, payload = self.last_action if self.last_action is not None \
+            else ("unknown", None)
+        site = self.fault_site if self.fault_site is not None else kind
+        msg = f"{type(exc).__name__}: {exc}"
+        if self.ev is not None:
+            self.ev.emit("serve.fault", action=site, error=msg)
+        if self.sched.telemetry is not None:
+            self.sched.telemetry.step_faults.labels(kind=site).inc()
+        logger.warning(f"serving step fault ({site}): {msg}")
+        if not self.pools_alive():
+            return "fatal"
+        if kind in ("prefill", "prefill_chunk"):
+            reqs = [payload]
+        elif kind in ("decode", "verify"):
+            # a fused step has no single culprit: every running row
+            # re-queues and recomputes greedy-identically
+            reqs = [r for r in payload if r.state == "running"]
+        else:
+            reqs = []
+        if not reqs:
+            return "unattributed"
+        # reversed: each re-queue goes to the front, so the earliest
+        # admitted request ends at the head of the queue
+        for r in reversed(reqs):
+            self._retry_or_quarantine(r, msg)
+        self._flush_finished()
+        return "request"
+
+    def _retry_or_quarantine(self, req, msg: str) -> None:
+        """JAX ``engine.py:1632``."""
+        req.retry_count += 1
+        if req.retry_count > self.fault_max_retries:
+            self.sched.fail_request(
+                req, f"quarantined after {self.fault_max_retries} "
+                     f"step-fault retries: {msg}")
+            return
+        backoff = self.fault_backoff_steps * (1 << (req.retry_count - 1))
+        self.sched.requeue_for_retry(req, backoff, error=msg)
+
+    def restart_engine(self) -> None:
+        """Engine recovery after an engine-fatal step fault (JAX
+        ``engine.py:1642``): drop the half-written pools, build new pools
+        and a new block allocator, and re-admit every in-flight request
+        from prompt + generated tokens through
+        :meth:`ContinuousBatchingScheduler.reset_pool`, the recovery that
+        recompute-preemption already proves greedy-identical. The prefix
+        cache starts cold."""
+        engine, sched = self.engine, self.sched
+        self._pending_spans.clear()         # their events timed dead work
+        self.pools = None
+        engine._paged_workspace = None      # frees the old pools first
+        engine._paged_alloc = None
+        pools, _ = engine._paged_pools(self.num_blocks, self.bs)
+        alloc = engine._paged_allocator(self.num_blocks, self.bs, sched.prefix_caching, False)
+        sched.reset_pool(alloc)
+        self.pools = pools
+        self._pools_valid = True
+
+    def demote_prompt(self, tokens) -> int:
+        """Force-demote a prompt's full blocks into the host KV tier (JAX
+        ``engine.py:1717``). The port has no host tier yet (ROADMAP.md
+        queue 1, tiered KV cache), so, as the JAX session without a spill
+        hook, it demotes nothing and returns 0."""
+        if self._closed:
+            raise RuntimeError("serving session is closed")
+        return 0
 
     def _tensor(self, a, dtype):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.engine.device)
@@ -628,11 +807,13 @@ class _ServeSession:
         e0.record()
         return t0, e0
 
-    def _unread_span_end(self, start, kind, rid, phase, **data):
+    def _unread_span_end(self, begun, kind, rid, phase, **data):
         """On the CPU the work is done: emit now. On the card, close the
         span with a second CUDA event and emit it after the next token
-        read, its duration the device time between the two events."""
-        t0, e0 = start
+        read, its duration the device time between the two events.
+        ``begun`` is :meth:`_unread_span_start`'s pair (``data`` may carry
+        a ``start`` position)."""
+        t0, e0 = begun
         if e0 is None:
             self._span(kind, rid, phase, t0, **data)
             return
@@ -651,6 +832,22 @@ class _ServeSession:
                 tel.phase(phase, dur / 1e6, rid=rid)
         self._pending_spans.clear()
 
+    def _forward(self, site, fn, *args):
+        """One pool-writing forward: the pools are marked half-written for
+        its duration and adopted after the post-dispatch fault consult (a
+        fault there leaves the session as a fault inside the forward
+        would: engine-fatal). Returns what ``fn`` returns besides the
+        pools."""
+        self._pools_valid = False
+        out = fn(*args)
+        step_fault(site, "post")
+        if isinstance(out, tuple):
+            out, self.pools = out
+        else:
+            out, self.pools = None, out
+        self._pools_valid = True
+        return out
+
     @torch.no_grad()
     def _exec(self, action) -> None:
         engine, sched, model = self.engine, self.sched, self.engine.module
@@ -659,6 +856,13 @@ class _ServeSession:
         ev = self.ev
         kind, payload = action
         self.actions[kind] += 1
+        # serving fault injection (utils/fault_injection.fail_step, JAX
+        # engine.py:1803): one None check a consult; "pre" fires before any
+        # device work (per request), "post" after a forward, before its
+        # pools are adopted (engine-fatal). The top consult ticks the
+        # injector's step counter.
+        self.fault_site = kind
+        step_fault(kind, "pre", tick=True)
         if kind == "wait":
             return                      # retry-backoff idle tick: no device work
         if kind == "prefill":
@@ -670,21 +874,25 @@ class _ServeSession:
             toks[0, :L] = prefix
             slots = engine._flat_slots(np.asarray(req.blocks, np.int32), 0, L, Tb, bs)
             t0 = time.monotonic_ns() if ev is not None else 0
-            logits, self.pools = model.forward_paged_prefill(
-                engine.params, self._tensor(toks, torch.long), self.pools,
-                self._tensor(slots, torch.long), L - 1)
+            logits = self._forward("prefill", model.forward_paged_prefill,
+                                   engine.params, self._tensor(toks, torch.long), self.pools,
+                                   self._tensor(slots, torch.long), L - 1)
             tok = int(self._sample(logits)[0])
             if ev is not None:
                 self._span("req.prefill", req.rid, "prefill", t0, tokens=L)
             sched.record_prefill(req, tok)
+            self._emit_tokens(req, [tok])
         elif kind == "prefill_chunk":
             req = payload
             if req.cow_pending is not None:
                 # copy-on-write split: the request restarts mid-block inside a
                 # SHARED cached block — give it a private copy before it writes
                 src, dst = req.cow_pending
+                self.fault_site = "cow"
+                step_fault("cow", "pre")
                 span = self._unread_span_start() if ev is not None else None
-                self.pools = copy_paged_block(self.pools, src, dst)
+                self._forward("cow", copy_paged_block, self.pools, src, dst)
+                self.fault_site = kind
                 if ev is not None:
                     self._unread_span_end(span, "req.cow_copy", req.rid, "cow", src=src, dst=dst)
                 req.cow_pending = None
@@ -705,16 +913,17 @@ class _ServeSession:
             span = None
             if ev is not None:
                 span = (time.monotonic_ns(), None) if final else self._unread_span_start()
-            logits, self.pools = model.forward_paged_prefill_chunk(
-                engine.params, self._tensor(toks, torch.long), self.pools,
-                self._tensor(bt, torch.int32), self._tensor(slots, torch.long), start,
-                step - 1)
+            logits = self._forward("prefill_chunk", model.forward_paged_prefill_chunk,
+                                   engine.params, self._tensor(toks, torch.long), self.pools,
+                                   self._tensor(bt, torch.int32),
+                                   self._tensor(slots, torch.long), start, step - 1)
             if final:
                 tok = int(self._sample(logits)[0])
                 if ev is not None:
                     self._span("req.prefill_chunk", req.rid, "prefill_chunk", span[0],
                                start=start, tokens=step)
                 sched.record_prefill_chunk(req, step, tok)
+                self._emit_tokens(req, [tok])
             else:
                 if ev is not None:
                     self._unread_span_end(span, "req.prefill_chunk", req.rid, "prefill_chunk",
@@ -742,9 +951,9 @@ class _ServeSession:
             pos[i] = r.pos
             toks[i, 0] = r.last_token
         t0 = time.monotonic_ns() if ev is not None else 0
-        logits, self.pools = model.forward_paged_decode(
-            engine.params, self._tensor(toks, torch.long), self.pools,
-            self._tensor(bt, torch.int32), self._tensor(pos, torch.int32))
+        logits = self._forward("decode", model.forward_paged_decode,
+                               engine.params, self._tensor(toks, torch.long), self.pools,
+                               self._tensor(bt, torch.int32), self._tensor(pos, torch.int32))
         tok = self._sample(logits)
         if ev is not None:
             # emitted BEFORE record_decode so a retirement this tick
@@ -756,6 +965,7 @@ class _ServeSession:
                 sched.telemetry.phase("decode", dur / 1e6)
         for i, r in enumerate(reqs):
             sched.record_decode(r, int(tok[i]))
+            self._emit_tokens(r, [int(tok[i])])
 
     def _verify(self, reqs) -> None:
         """One speculative step: each request's window (its pending token
@@ -785,10 +995,10 @@ class _ServeSession:
             pos[i] = r.pos
             slots[i] = engine._flat_slots(table, r.pos, nv, wb, bs)
         t0 = time.monotonic_ns() if ev is not None else 0
-        logits, self.pools = engine.module.forward_paged_verify(
-            engine.params, self._tensor(toks, torch.long), self.pools,
-            self._tensor(bt, torch.int32), self._tensor(slots, torch.long),
-            self._tensor(pos, torch.int32))
+        logits = self._forward("verify", engine.module.forward_paged_verify,
+                               engine.params, self._tensor(toks, torch.long), self.pools,
+                               self._tensor(bt, torch.int32), self._tensor(slots, torch.long),
+                               self._tensor(pos, torch.int32))
         # the decode step's own argmax (_sample at temperature 0), so ties break alike
         greedy = engine._sample(logits.reshape(W * wb, -1), 0.0, 0, None)
         greedy = self._to_host(greedy).reshape(W, wb)
@@ -810,6 +1020,7 @@ class _ServeSession:
                 ev.emit("req.spec_verify", rid=r.rid, t_ns=t0, dur_ns=dur,
                         window=1 + len(cands), accepted=len(emitted) - 1)
             sched.record_verify(r, emitted)
+            self._emit_tokens(r, emitted)
 
     # ---- lifecycle ---- #
 

@@ -3,9 +3,9 @@ the metrics registry, the flight recorder, the step tracer with the profile
 window and the build watchdog, the monitor sinks, the health observatory
 (sentinels, detectors, memory gauges, the health screen), the ``/metrics``
 exporter, the snapshot sampler, the SLO engine, the adaptive controller's
-core, the request anatomy and the ``top`` dashboard. The controller's
-wiring into a live server, ``/metrics`` on the serving front-end and the
-SLO engine inside a server wait for async serving (ROADMAP.md queue 1)."""
+core, the request anatomy and the ``top`` dashboard. The async serving
+front-end (``inference/serve.py``) serves ``/metrics`` and runs the
+sampler, the SLO engine and the controller beside its loop."""
 
 from deepspeed_tpu_torch.monitor.anatomy import request_anatomy, trace_anatomy
 from deepspeed_tpu_torch.monitor.config import (CtlConfig, DeepSpeedMonitorConfig, EventsConfig,

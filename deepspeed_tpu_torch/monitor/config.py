@@ -4,10 +4,10 @@ and shorthands, on the port's dataclass configs instead of pydantic.
 
 Every field parses. Each engine acts on what the JAX engine of its kind
 acts on: the training engine on ``health``, ``sampler``, ``slo`` and
-``metrics_port``. What the JAX package acts on only through its async
-serving front-end (``inference/serve.py``: ``ctl``, and ``sampler`` /
-``slo`` / ``metrics_port`` beside a server) is refused by
-:func:`refuse_unported`, naming the ROADMAP.md item "async serving".
+``metrics_port``; the serving engine, as the JAX one, on none of those
+nor on ``ctl``, which the JAX package acts on only through its async
+serving front-end (``inference/serve.py``: the sampler, the SLO engine
+and the controller come from ``serve``'s flags).
 """
 
 from __future__ import annotations
@@ -16,7 +16,6 @@ import dataclasses
 from typing import Dict, List, Optional
 
 from deepspeed_tpu_torch.config.config_utils import ConfigModel, sub
-from deepspeed_tpu_torch.utils.not_ported import not_ported
 
 config = dataclasses.dataclass(init=False)
 
@@ -99,9 +98,8 @@ class SloConfig(ConfigModel):
 @config
 class CtlConfig(ConfigModel):
     """"telemetry.ctl": the SLO-burn-rate serving autopilot
-    (``monitor/controller.py``; its wiring into a live server waits for
-    async serving, so the engines refuse it). Enabling ctl implies the
-    sampler."""
+    (``monitor/controller.py``, wired into a server by ``serve
+    --adaptive``). Enabling ctl implies the sampler."""
     enabled: bool = False
     tighten_threshold: float = 1.0
     relax_threshold: float = 0.25
@@ -202,28 +200,6 @@ def get_telemetry_config(param_dict: dict) -> TelemetryConfig:
             or (isinstance(ctl, dict) and ctl.get("enabled"))):
         sampler["enabled"] = True
     return TelemetryConfig(**t)
-
-
-def refuse_unported(tcfg: TelemetryConfig, engine: str = "train") -> None:
-    """Raise for a telemetry setting that the JAX package acts on only
-    through its async serving front-end, for the port's ``engine``
-    ("train" or "serve"; only when telemetry is on: off, the JAX engines act
-    on none of them). The training engine acts on ``health``, ``sampler``,
-    ``slo`` and ``metrics_port``; the serving engine, as the JAX one,
-    ignores ``health``."""
-    if engine not in ("train", "serve"):
-        raise ValueError(f"engine={engine!r} (expected 'train' or 'serve')")
-    if not tcfg.enabled:
-        return
-    item = "queue 1: async serving"
-    if tcfg.ctl.enabled:
-        not_ported("telemetry.ctl (the adaptive controller wired into a server)", item)
-    if engine == "serve":
-        for name in ("sampler", "slo"):
-            if getattr(tcfg, name).enabled:
-                not_ported(f"telemetry.{name} beside a serving engine", item)
-        if tcfg.metrics_port is not None:
-            not_ported("telemetry.metrics_port (/metrics) on a serving engine", item)
 
 
 @config

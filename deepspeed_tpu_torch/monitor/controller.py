@@ -1,8 +1,8 @@
 """Deterministic SLO-burn-rate autopilot with an auditable decision ledger
 (the port of ``deepspeed_tpu/monitor/controller.py``: the decision core,
 the live wrapper with a caller-supplied ``apply_fn``, replay and explain;
-its wiring into a live server waits for async serving, ROADMAP.md queue 1
-item 5.1).
+``serve --adaptive`` wires it into the async serving loop, whose
+``apply_knobs`` is the ``apply_fn``).
 
 The observability plane ends at "exposes metrics"; this module closes the
 loop. An :class:`AdaptiveController`, ticked by the existing

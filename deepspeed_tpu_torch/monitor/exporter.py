@@ -41,8 +41,8 @@ def wants_openmetrics(accept_header: Optional[str]) -> bool:
 def render_exposition(registry=None,
                       openmetrics: bool = False) -> Tuple[str, str]:
     """One exposition body as ``(text, content_type)`` — THE rendering
-    path of the standalone exporter (and of the serving front-end's
-    ``/metrics`` route once async serving is ported): recorder-loss gauges refreshed, then the
+    path of the standalone exporter and of the serving front-end's
+    ``/metrics`` route: recorder-loss gauges refreshed, then the
     registry's text format. Exemplars are emitted only under
     ``openmetrics`` (they are illegal in the 0.0.4 format — a strict
     scraper would reject the entire body), which also appends the

@@ -158,9 +158,11 @@ def lamb_moments(p, g, m, v, partials, *, bc1: float, bc2: float, b1: float, b2:
     moments_launches += 1
 
 
-def lamb_ratio(partials) -> torch.Tensor:
+def lamb_ratio(partials, unorm=None) -> torch.Tensor:
     """The trust ratio of a group from its partial buffer ``[k, 2]``
-    (fp64): a 0-dim fp32 tensor on the buffer's device."""
+    (fp64): a 0-dim fp32 tensor on the buffer's device. ``unorm``: None, or
+    a one-element fp32 tensor that receives ``ratio * ||u||``, the norm of
+    the group's applied direction (the update norm over lr)."""
     global ratio_launches
     if partials.dim() != 2 or partials.shape[1] != 2 or partials.dtype != torch.float64:
         raise ValueError(f"partials must be fp64 [k, 2], got {partials.dtype} "
@@ -169,14 +171,21 @@ def lamb_ratio(partials) -> torch.Tensor:
         if partials.device.type != "cpu":
             raise ValueError(f"fused LAMB: no kernel for device {partials.device}")
         s = partials.sum(0)
-        return ratio_plain(s[0], s[1])
+        ratio = ratio_plain(s[0], s[1])
+        if unorm is not None:
+            unorm.view(()).copy_(ratio * torch.sqrt(s[1]).float())
+        return ratio
     if not partials.is_contiguous():
         raise ValueError("partials must be contiguous")
+    if unorm is not None and (unorm.numel() != 1 or unorm.dtype != torch.float32
+                              or unorm.device != partials.device):
+        raise ValueError("unorm must be one fp32 value on the partials' device")
     ratio = torch.empty((), dtype=torch.float32, device=partials.device)
     P = ctypes.c_void_p
-    fn = _fn("ds_lamb_ratio", [P, ctypes.c_int, P, P])
+    fn = _fn("ds_lamb_ratio", [P, ctypes.c_int, P, P, P])
     with torch.cuda.device(partials.device):
-        rc = fn(partials.data_ptr(), partials.shape[0], ratio.data_ptr(), _stream(partials))
+        rc = fn(partials.data_ptr(), partials.shape[0], ratio.data_ptr(),
+                None if unorm is None else unorm.data_ptr(), _stream(partials))
     _raise_on(rc, "lamb_ratio")
     ratio_launches += 1
     return ratio
@@ -217,11 +226,12 @@ GradSource = Union[Sequence[torch.Tensor], Callable[[int], torch.Tensor]]
 def lamb_group_step(ps: List[torch.Tensor], grads: GradSource, ms: List[torch.Tensor],
                     vs: List[torch.Tensor], *, step, lr: float, b1: float = 0.9,
                     b2: float = 0.999, eps: float = 1e-6, weight_decay: float = 0.0,
-                    bias_correction: bool = True) -> torch.Tensor:
+                    bias_correction: bool = True, unorm=None) -> torch.Tensor:
     """One LAMB step over the flat leaves ``ps`` of one JAX leaf, all in
     place (p, m, v); one trust ratio over the group, returned as a device
     scalar. ``grads``: the flat gradients, or a function of the leaf's
-    index that returns it (so that only one is alive at a time)."""
+    index that returns it (so that only one is alive at a time).
+    ``unorm``: see :func:`lamb_ratio`."""
     bc1, bc2 = bias_corrections(step, b1, b2, bias_correction)
     kw = dict(bc1=bc1, bc2=bc2, eps=float(eps), weight_decay=float(weight_decay))
     grad = grads if callable(grads) else grads.__getitem__
@@ -232,7 +242,7 @@ def lamb_group_step(ps: List[torch.Tensor], grads: GradSource, ms: List[torch.Te
         lamb_moments(p, grad(i), m, v, partials[start:start + blocks[i]], b1=float(b1),
                      b2=float(b2), **kw)
         start += blocks[i]
-    ratio = lamb_ratio(partials)
+    ratio = lamb_ratio(partials, unorm)
     for p, m, v in zip(ps, ms, vs):
         lamb_apply(p, m, v, ratio, lr=float(lr), **kw)
     return ratio

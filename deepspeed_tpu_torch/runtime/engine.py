@@ -55,9 +55,14 @@ event in the flight recorder. It pays one host sync a step for that: one
 read of the loss and the pre-clip gradient norm through the accelerator.
 ``telemetry.health`` adds the health observatory (``monitor/health.py``):
 its sentinel vector is gathered in the update (the bucket norms from the
-grad norm's per-leaf norms, the update norm from ``new - old`` of each leaf
-against a scratch copy the size of the largest leaf or LAMB group, or a
-copy of every master for a client optimizer) and rides that same read.
+grad norm's per-leaf norms; the update norm ``lr * ||u||`` from the update
+vector, as the JAX engine takes it: kernel E writes each block's partial
+``Σu²``, SGD / Lion / Adagrad the ``Σu²`` of the u they form, K7's ratio
+kernel each LAMB group's ``ratio * ||u||``) and rides that same read. A
+``torch.optim`` client exposes no update vector (a JAX client chain's
+updates are final and readable; a torch optimizer's ``step()`` only writes
+the params), so for a client the norm is ``||new - old||`` against a copy
+of every master kept across its ``step()``.
 ``telemetry.metrics_port`` starts a ``/metrics`` exporter and
 ``telemetry.sampler`` / ``.slo`` the snapshot sampler with its SLO engine,
 both stopped by ``destroy()``. With telemetry off, every hook is one None
@@ -84,7 +89,6 @@ import torch
 from deepspeed_tpu_torch.accelerator.real_accelerator import get_accelerator, resolve_device
 from deepspeed_tpu_torch.config.core import DeepSpeedConfig
 from deepspeed_tpu_torch.models.transformer import ParamTree, map_tree
-from deepspeed_tpu_torch.monitor.config import refuse_unported
 from deepspeed_tpu_torch.monitor.monitor import MonitorMaster
 from deepspeed_tpu_torch.runtime import lr_schedules
 from deepspeed_tpu_torch.runtime.loss_scaler import (LossScaleState, has_overflow,
@@ -135,13 +139,21 @@ class _Sentinels:
     """One update's sentinel parts, gathered on the device as the update
     runs (no host sync): per-leaf norms and non-finite counts of the
     unscaled pre-clip grads, the updated targets' norms and non-finite
-    counts, and ``||new - old||`` per leaf. :meth:`keep` copies the leaves
-    about to be updated into the engine's one scratch buffer (the size of
-    the largest leaf, or LAMB group); :meth:`vector` is the health
-    module's sentinel layout."""
+    counts, and the update norm. An engine-built optimizer writes its
+    update vector's squares into ``upd`` (the engine's one buffer, zeroed
+    here): a row of partial ``Σu²`` a leaf, or, for LAMB (``upd_is_norm``),
+    each group's ``ratio * ||u||`` in column 0; the norm is ``lr`` times
+    their total, the JAX engine's ``lr * ||u||``
+    (``deepspeed_tpu/runtime/engine.py:621-630``). A client optimizer
+    (``upd`` None) passes ``new - old`` per leaf to :meth:`updated`.
+    :meth:`vector` is the health module's sentinel layout."""
 
-    def __init__(self, assignment, names, scratch):
-        self.assignment, self.names, self.scratch = assignment, names, scratch
+    def __init__(self, assignment, names, upd, upd_is_norm):
+        self.assignment, self.names = assignment, names
+        self.upd, self.upd_is_norm = upd, upd_is_norm
+        if upd is not None:
+            upd.zero_()
+        self.lr = 0.0
         self.grad_norms, self.nf_grads = [], []
         self.param_norms, self.nf_params, self.update_norms = [], [], []
 
@@ -151,29 +163,25 @@ class _Sentinels:
         self.nf_grads.append(g.numel() - torch.isfinite(g).sum())
         return nrm
 
-    def keep(self, leaves):
-        """Views of the scratch buffer holding copies of ``leaves``."""
-        out, off = [], 0
-        for t in leaves:
-            view = self.scratch[off:off + t.numel()].view_as(t)
-            view.copy_(t)
-            out.append(view)
-            off += t.numel()
-        return out
-
-    def updated(self, old: Optional[torch.Tensor], new: torch.Tensor) -> None:
-        """Account one leaf after the update (``old`` None: not updated);
-        ``old`` is spent (``old - new`` is taken in place)."""
+    def updated(self, new: torch.Tensor, delta: Optional[torch.Tensor] = None) -> None:
+        """Account one leaf after the update; ``delta`` is a client
+        optimizer's ``new - old``."""
         self.param_norms.append(torch.linalg.vector_norm(new, dtype=torch.float32))
         self.nf_params.append(new.numel() - torch.isfinite(new).sum())
-        if old is not None:
-            self.update_norms.append(torch.linalg.vector_norm(old.sub_(new), dtype=torch.float32))
+        if delta is not None:
+            self.update_norms.append(torch.linalg.vector_norm(delta, dtype=torch.float32))
 
     def vector(self, grad_norm) -> torch.Tensor:
         from deepspeed_tpu_torch.monitor.health import bucket_norms, compute_sentinels
         count = lambda xs: torch.stack(xs).sum().float()
-        update = (norm_of_norms(self.update_norms) if self.update_norms
-                  else torch.zeros_like(grad_norm))
+        if self.upd is not None:
+            total = (torch.linalg.vector_norm(self.upd) if self.upd_is_norm
+                     else torch.sqrt(self.upd.sum()))
+            update = total * self.lr
+        elif self.update_norms:
+            update = norm_of_norms(self.update_norms)
+        else:
+            update = torch.zeros_like(grad_norm)
         return compute_sentinels(
             count(self.nf_grads), count(self.nf_params), grad_norm,
             norm_of_norms(self.param_norms), update,
@@ -193,7 +201,6 @@ class DeepSpeedEngine:
         self.loss_fn = _loss_fn_of(model)
         self._config = DeepSpeedConfig(config if config is not None else {},
                                        client_optimizer=optimizer is not None)
-        refuse_unported(self._config.telemetry_config)
         # a JSON-level "fused_cross_entropy" beats the model config's default
         fce = self._config.fused_cross_entropy
         mcfg = getattr(model, "config", None)
@@ -331,7 +338,7 @@ class DeepSpeedEngine:
         # health observatory, /metrics exporter and sampler: None when off
         self._health = None
         self._sentinels_on = False
-        self._sentinel_layout = None     # (leaf -> bucket, bucket names, scratch)
+        self._sentinel_layout = None     # (leaf -> bucket, names, update buffer, is norm)
         self._sentinels = None           # the last update's sentinel vector
         self._tel_skipped_prev = None
         self._tel_exporter = None
@@ -388,7 +395,7 @@ class DeepSpeedEngine:
             if self._sentinels_on:
                 assignment, names = make_bucket_assignment(self._names, hcfg.max_norm_buckets)
                 self._health.set_bucket_names(names)
-                self._sentinel_layout = (assignment, names, self._sentinel_scratch())
+                self._sentinel_layout = (assignment, names, *self._update_buffer())
         if tcfg.metrics_port is not None:
             from deepspeed_tpu_torch.monitor.exporter import MetricsExporter
             self._tel_exporter = MetricsExporter(reg, port=tcfg.metrics_port)
@@ -399,18 +406,19 @@ class DeepSpeedEngine:
         if sampler is not None:
             self._tel_sampler = sampler.start()
 
-    def _sentinel_scratch(self) -> Optional[torch.Tensor]:
-        """The update-norm scratch: fp32 elements for the largest leaf (or
-        LAMB group of leaves) updated at once; None for a client optimizer,
-        whose one ``step()`` needs a copy of every target instead."""
+    def _update_buffer(self):
+        """The sentinels' update-norm buffer and whether it holds norms:
+        fp32 ``[groups, 1]`` of ``ratio * ||u||`` for LAMB, ``[leaves,
+        slots]`` of partial ``Σu²`` for a leaf-wise optimizer (kernel E's
+        blocks; one slot for SGD / Lion / Adagrad), None for a client
+        optimizer."""
         if self.client_optimizer is not None:
-            return None
-        named = self._param_dict(self.state.params)
+            return None, False
         if self.tx.group_update is not None:
-            n = max(sum(named[x].numel() for x in g) for g in self._groups)
-        else:
-            n = max(p.numel() for p in named.values())
-        return torch.empty(n, dtype=torch.float32, device=self.device)
+            return torch.zeros(len(self._groups), 1, device=self.device), True
+        named = self._param_dict(self.state.params)
+        slots = max(self.tx.sq_slots(p.numel()) for p in named.values())
+        return torch.zeros(len(self._names), slots, device=self.device), False
 
     # ------------------------------------------------------------------ #
     # state
@@ -622,26 +630,30 @@ class DeepSpeedEngine:
                     st.opt_state.count += 1
                     # one trust ratio per JAX leaf; the compute params are
                     # refreshed after the group's apply pass
-                    for group in self._groups:
-                        old = sen.keep([targets[n] for n in group]) if sen else None
-                        self.tx.group_update(st.opt_state, group, clipped, targets, lr)
-                        for i, n in enumerate(group):
+                    for gi, group in enumerate(self._groups):
+                        unorm = sen.upd[gi] if sen is not None else None
+                        self.tx.group_update(st.opt_state, group, clipped, targets, lr,
+                                             unorm=unorm)
+                        for n in group:
                             if sen is not None:
-                                sen.updated(old[i], targets[n])
+                                sen.updated(targets[n])
                             if st.master is not None:
                                 params[n].copy_(targets[n])
                 else:
                     st.opt_state.count += 1
-                    for n in names:
-                        old = sen.keep([targets[n]]) if sen else None
-                        self.tx.leaf_update(st.opt_state, n, clipped(n), targets[n], lr)
+                    for i, n in enumerate(names):
+                        sq = (sen.upd[i, :self.tx.sq_slots(targets[n].numel())]
+                              if sen is not None else None)
+                        self.tx.leaf_update(st.opt_state, n, clipped(n), targets[n], lr, sq=sq)
                         if sen is not None:
-                            sen.updated(old[0], targets[n])
+                            sen.updated(targets[n])
                         if st.master is not None:
                             params[n].copy_(targets[n])
+                if sen is not None:
+                    sen.lr = lr
         elif sen is not None:
             for n in names:     # an fp16 skip: params read as they stand, update norm 0
-                sen.updated(None, targets[n])
+                sen.updated(targets[n])
         if sen is not None:
             self._sentinels = sen.vector(norm)
         st.scaler = scaler_update(st.scaler, overflow)
@@ -656,7 +668,7 @@ class DeepSpeedEngine:
         clipped fp32 gradient (all alive together), one ``step()``, the
         grads cleared, the compute params refreshed. With sentinels on, a
         full copy of the targets is kept across the step for the update
-        norm."""
+        norm: a torch optimizer exposes no update vector."""
         order = self._client_names
         for n in order:
             targets[n].grad = clipped(n)
@@ -665,7 +677,7 @@ class DeepSpeedEngine:
         for i, n in enumerate(order):
             targets[n].grad = None
             if sen is not None:
-                sen.updated(old[i], targets[n])
+                sen.updated(targets[n], old[i].sub_(targets[n]))
                 old[i] = None
             if self.state.master is not None:
                 params[n].copy_(targets[n])

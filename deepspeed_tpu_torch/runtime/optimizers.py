@@ -19,6 +19,12 @@ scheduled lr (``runtime/engine.py _apply_update``).
   (``scale_by_rss``), each followed by ``add_decayed_weights``, are plain
   elementwise PyTorch on the card, as the JAX package leaves them to XLA.
 
+Each also reports its update vector's size to the engine's health
+sentinels, the JAX engine's ``lr * ||u||``: a leaf-wise optimizer writes
+``Σu²`` into the ``sq`` slots it is given (:meth:`sq_slots` of them; kernel
+E writes one partial a block), LAMB each group's ``ratio * ||u||`` (K7's
+ratio kernel).
+
 The 1-bit optimizers raise ``NotImplementedError`` naming their ROADMAP.md
 item.
 """
@@ -81,6 +87,19 @@ def _full(named_params, value: float = 0.0):
             for n, p in named_params.items()}
 
 
+def _sum_sq_into(sq: Optional[torch.Tensor], u: torch.Tensor) -> None:
+    """Write ``Σu²`` (fp32) into the one slot ``sq`` when asked."""
+    if sq is not None:
+        sq.copy_(torch.sum(torch.square(u)).reshape(1))
+
+
+class _OneSlot:
+    @staticmethod
+    def sq_slots(n: int) -> int:
+        """Slots of the ``sq`` buffer a leaf of ``n`` elements takes."""
+        return 1
+
+
 class Adam:
     """Adam / AdamW applied leaf by leaf through ``fused_adam_step`` (kernel
     E on CUDA tensors, its plain version on the CPU). ``adam_w_mode``
@@ -94,21 +113,23 @@ class Adam:
         self.adam_w_mode = bool(adam_w_mode)
 
     group_update = None           # one leaf at a time
+    sq_slots = staticmethod(fused.adam_blocks)
 
     def init(self, named_params: Dict[str, torch.Tensor]) -> AdamState:
         return AdamState(count=0, mu=_full(named_params), nu=_full(named_params))
 
     def leaf_update(self, state: AdamState, name: str, grad: torch.Tensor,
-                    param: torch.Tensor, lr: float) -> None:
+                    param: torch.Tensor, lr: float, sq: Optional[torch.Tensor] = None) -> None:
         """``param <- param - lr * u`` in place (``param`` contiguous; the
         master, or the fp32 param) for one leaf at update count
         ``state.count`` (1-based, already advanced by the caller); the
-        leaf's moments are updated in place too."""
+        leaf's moments are updated in place too, and ``sq`` (when given)
+        gets the partial sums of ``u²``."""
         flat = param.view(-1)
         fused.fused_adam_step(flat, grad.reshape(-1), state.mu[name].view(-1),
                               state.nu[name].view(-1), step=state.count, lr=lr, b1=self.b1,
                               b2=self.b2, eps=self.eps, weight_decay=self.weight_decay,
-                              adam_w_mode=self.adam_w_mode, emit="param", out=flat)
+                              adam_w_mode=self.adam_w_mode, emit="param", out=flat, sq=sq)
 
 
 class Lamb:
@@ -128,20 +149,21 @@ class Lamb:
 
     def group_update(self, state: AdamState, names: List[str],
                      grad: Callable[[str], torch.Tensor], params: Dict[str, torch.Tensor],
-                     lr: float) -> torch.Tensor:
+                     lr: float, unorm: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``param <- param - lr * ratio * u`` in place for the leaves
         ``names`` of one JAX leaf at update count ``state.count``; ``grad(n)``
         returns leaf n's unscaled, clipped gradient (called once each, in
         order, so only one is alive at a time). The ratio stays on the
-        device and is returned."""
+        device and is returned; ``unorm`` (one fp32 value, when given) gets
+        ``ratio * ||u||``."""
         flat = lambda d: [d[n].view(-1) for n in names]
         return lamb.lamb_group_step(
             flat(params), lambda i: grad(names[i]).reshape(-1), flat(state.mu), flat(state.nu),
             step=state.count, lr=lr, b1=self.b1, b2=self.b2, eps=self.eps,
-            weight_decay=self.weight_decay, bias_correction=self.bias_correction)
+            weight_decay=self.weight_decay, bias_correction=self.bias_correction, unorm=unorm)
 
 
-class SGD:
+class SGD(_OneSlot):
     """optax ``trace(decay=momentum, nesterov)`` then ``+ wd * p``."""
     group_update = None
 
@@ -154,17 +176,18 @@ class SGD:
         return SGDState(count=0, trace=_full(named_params))
 
     def leaf_update(self, state: SGDState, name: str, grad: torch.Tensor,
-                    param: torch.Tensor, lr: float) -> None:
+                    param: torch.Tensor, lr: float, sq: Optional[torch.Tensor] = None) -> None:
         g = grad.float()
         t = state.trace[name]
         t.copy_(g + self.momentum * t)
         u = g + self.momentum * t if self.nesterov else t
         if self.weight_decay:
             u = u + self.weight_decay * param
+        _sum_sq_into(sq, u)
         param.sub_(lr * u)
 
 
-class Lion:
+class Lion(_OneSlot):
     """optax ``scale_by_lion(b1, b2)`` then ``+ wd * p``:
     ``u = sign((1 - b1) g + b1 m)``, then ``m <- (1 - b2) g + b2 m``."""
     group_update = None
@@ -177,17 +200,18 @@ class Lion:
         return LionState(count=0, mu=_full(named_params))
 
     def leaf_update(self, state: LionState, name: str, grad: torch.Tensor,
-                    param: torch.Tensor, lr: float) -> None:
+                    param: torch.Tensor, lr: float, sq: Optional[torch.Tensor] = None) -> None:
         g = grad.float()
         m = state.mu[name]
         u = torch.sign((1.0 - self.b1) * g + self.b1 * m)
         m.copy_((1.0 - self.b2) * g + self.b2 * m)
         if self.weight_decay:
             u = u + self.weight_decay * param
+        _sum_sq_into(sq, u)
         param.sub_(lr * u)
 
 
-class Adagrad:
+class Adagrad(_OneSlot):
     """optax ``scale_by_rss(initial_accumulator_value, eps)`` then
     ``+ wd * p``: ``s <- s + g^2``, ``u = where(s > 0, rsqrt(s + eps), 0) * g``."""
     group_update = None
@@ -203,13 +227,14 @@ class Adagrad:
                                                           self.initial_accumulator_value))
 
     def leaf_update(self, state: AdagradState, name: str, grad: torch.Tensor,
-                    param: torch.Tensor, lr: float) -> None:
+                    param: torch.Tensor, lr: float, sq: Optional[torch.Tensor] = None) -> None:
         g = grad.float()
         s = state.sum_of_squares[name]
         s.add_(g * g)
         u = torch.where(s > 0, torch.rsqrt(s + self.eps), torch.zeros_like(s)) * g
         if self.weight_decay:
             u = u + self.weight_decay * param
+        _sum_sq_into(sq, u)
         param.sub_(lr * u)
 
 

@@ -9,6 +9,7 @@ import json
 
 import numpy as np
 import pytest
+import torch
 
 import deepspeed_tpu_torch
 from deepspeed_tpu.monitor import anatomy as ja
@@ -16,6 +17,8 @@ from deepspeed_tpu_torch.models import CausalLM, TransformerConfig
 from deepspeed_tpu_torch.monitor import anatomy as pa
 from deepspeed_tpu_torch.monitor.events import get_flight_recorder
 from deepspeed_tpu_torch.monitor.metrics import get_registry
+
+torch.set_num_threads(1)   # the test runner's workers share the host's cores: one thread each
 
 MODEL = dict(vocab_size=64, n_layer=2, n_head=2, d_model=32, d_ff=64, max_seq=256)
 

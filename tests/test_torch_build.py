@@ -4,7 +4,11 @@ header can never leave a stale library loaded. Nothing is compiled here."""
 
 import shutil
 
+import torch
+
 from deepspeed_tpu_torch.ops.kernels import build
+
+torch.set_num_threads(1)   # the test runner's workers share the host's cores: one thread each
 
 
 def test_library_name_hashes_every_header(tmp_path, monkeypatch):

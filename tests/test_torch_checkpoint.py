@@ -39,6 +39,8 @@ from tests.test_torch_training import (LEAF_TOL, LLAMA, LOSS_TOL, _batches, _con
                                        one_device_mesh)  # noqa: F401
 from tests.test_torch_training_optimizers import MOQ, OPTIMIZERS, _assert_moq_close
 
+torch.set_num_threads(1)   # the test runner's workers share the host's cores: one thread each
+
 CASES = {
     "fusedadam_gas1": _config(gas=1),
     "fusedadam_gas2": _config(gas=2),

@@ -32,6 +32,8 @@ from deepspeed_tpu_torch.runtime.checkpoint_engine.safe_engine import read_state
 from tests.test_torch_training import (LLAMA, _batches, _config, _jax_params, _port,
                                        one_device_mesh)  # noqa: F401
 
+torch.set_num_threads(1)   # the test runner's workers share the host's cores: one thread each
+
 ADAMW = {"type": "AdamW", "params": {"lr": 3e-4, "weight_decay": 0.01}}
 
 

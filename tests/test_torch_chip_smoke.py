@@ -10,10 +10,6 @@ classes, and phase resume's helpers (its dataset, launch rule, tag size,
 state fingerprint) and the phase itself at a tiny size, and phase telemetry
 at a tiny size."""
 
-import json
-import os
-import time
-
 import numpy as np
 import pytest
 import torch
@@ -25,6 +21,8 @@ from deepspeed_tpu_torch.ops.kernels import decode_attention as dda
 from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
 from deepspeed_tpu_torch.ops.kernels import fused_cross_entropy as fce
 from deepspeed_tpu_torch.ops.kernels import paged_decode_attention as pda
+
+torch.set_num_threads(1)   # the test runner's workers share the host's cores: one thread each
 
 LLAMA = dict(vocab_size=64, max_seq=384, n_layer=2, n_head=4, n_kv_head=2, d_model=256,
              d_ff=512, pos_embedding="rope", norm="rmsnorm", activation="swiglu",
@@ -220,7 +218,6 @@ ptxas info    : Function properties for {name}
 ptxas info    : Used 168 registers, used 1 barriers, 1024 bytes cmem[0]
 """
 
-
 def test_ptxas_records_of_c_and_f_and_the_spill_gate():
     """The build phase's rows for C and F (one per dtype and head dim) and
     its gate: a spill in a TMA + wgmma kernel fails the phase."""
@@ -356,98 +353,6 @@ def test_ptxas_rows_of_the_decode_kernels_at_head_dim_96():
     assert set(rows) == {"paged_decode_kernel bf16 hd96"}
 
 
-def test_verify_logits_are_the_decode_logits_and_see_the_planted_fault(engine):
-    """verify_logits (windows of 1 .. 8 tokens padded to the engine's
-    window of 8, three rows, one idle at the end) gives, position by
-    position, paged_logits' rows after the prompt (fp32: the same numbers
-    up to summation order); kernel B handed pos instead of pos + t moves
-    them above the limit."""
-    r = np.random.default_rng(6)
-    rows = [(r.integers(0, LLAMA["vocab_size"], size=n + 17), n) for n in (40, 130, 126)]
-    rows[2] = (rows[2][0][:126 + 6], 126)          # done early: idle in later steps
-    got = chip_smoke.verify_logits(engine, rows)
-    want = [chip_smoke.paged_logits(engine, t, n)[1:] for t, n in rows]
-    assert [g.shape[0] for g in got] == [17, 17, 6]
-    got, want = torch.cat(got), torch.cat(want)
-    torch.testing.assert_close(got, want, atol=2e-5, rtol=0)
-    with chip_smoke.planted_verify_fault():
-        bad = torch.cat(chip_smoke.verify_logits(engine, rows))
-    rec, failures = chip_smoke.logit_parity(got, want, {"verify_pos_not_advanced": bad})
-    assert rec["ulp_err"] <= chip_smoke.LOGIT_ULP_TOL and not failures
-    assert rec["fault_ulp_err"]["verify_pos_not_advanced"] > chip_smoke.LOGIT_ULP_TOL
-
-
-def test_near_tie_rule():
-    """Two largest logits within LOGIT_ULP_TOL bf16 ulps of the position's
-    largest |logit| (logit_parity's scale) are a near-tie: the ulp of 20 is
-    2^-3, so 8 ulps are 1.0; with a logit of -40 in the row they are 2.0."""
-    assert chip_smoke.near_tie(torch.tensor([20.0, 19.0, -10.0, 1.0]))
-    assert not chip_smoke.near_tie(torch.tensor([20.0, 18.9, -10.0, 1.0]))
-    assert chip_smoke.near_tie(torch.tensor([20.0, 18.1, -40.0, 1.0]))
-    assert not chip_smoke.near_tie(torch.tensor([20.0, 3.0, -10.0, 1.0]))
-    assert chip_smoke.near_tie(torch.tensor([1.0, 0.95]))     # ulp of 1: 2^-7; 8 ulps 1/16
-
-
-@pytest.fixture(scope="module")
-def spec_engine():
-    model = CausalLM(TransformerConfig(**LLAMA))
-    params = model.init_params(torch.Generator().manual_seed(0), device="cpu")
-    return deepspeed_tpu_torch.init_inference(
-        model, params=params, dtype="fp32", device="cpu",
-        serving={"block_size": 128, "max_running": 4,
-                 "speculative": {"mode": "ngram", "k": chip_smoke.SPEC_K}})
-
-
-def test_spec_launch_formula_counts_the_wrappers(spec_engine, monkeypatch):
-    """A serve with speculation calls A's wrapper once a layer a prefill and
-    B's once a layer a decode and SPEC_WB times a layer a verify (counted
-    here at the model's calls: the CUDA counters count on the card only)."""
-    from deepspeed_tpu_torch.models import transformer as T
-    calls = {"flash_attention_fwd": 0, "paged_decode_attention": 0}
-    for name, key in (("flash_attention", "flash_attention_fwd"),
-                      ("paged_decode_attention", "paged_decode_attention")):
-        real = getattr(T, name)
-
-        def counted(*a, _real=real, _key=key, **kw):
-            calls[_key] += 1
-            return _real(*a, **kw)
-        monkeypatch.setattr(T, name, counted)
-    cfg = spec_engine.module.config
-    prompts = chip_smoke.spec_prompts(cfg, 0, n=3)
-    prompts = [p[:int(n)] for p, n in zip(prompts, (130, 60, 90))]
-    spec_engine.generate_batch(prompts, max_new_tokens=12)
-    actions = spec_engine._last_serve_actions
-    assert actions.get("verify", 0) > 0
-    assert calls == chip_smoke.spec_launches(cfg.n_layer, actions)
-
-
-def test_oracle_serve_is_spec_off_and_divergences_read_near_ties(spec_engine, engine):
-    """With the oracle proposer every row equals the spec-off serve and
-    most candidates are accepted, and so with a wrong third candidate,
-    which is rolled back; a row changed after its prompt is found
-    at its first differing token, and judged by the spec-off logits there."""
-    cfg = spec_engine.module.config
-    prompts = [p[:int(n)] for p, n in zip(chip_smoke.spec_prompts(cfg, 1, n=2), (70, 140))]
-    off = engine.generate_batch(prompts, max_new_tokens=10)
-    got = chip_smoke._serve_with_proposer(spec_engine, prompts, 10,
-                                          chip_smoke.OracleProposer(off, cfg.vocab_size))
-    st = spec_engine._last_serve_stats
-    assert all(np.array_equal(g, w) for g, w in zip(got, off))
-    assert st["verify_steps"] > 0 and st["spec_accepted"] >= 0.75 * st["spec_proposed"]
-    assert chip_smoke._divergences(engine, prompts, got, off) == []
-    half = chip_smoke._serve_with_proposer(spec_engine, prompts, 10,
-                                           chip_smoke.OracleProposer(off, cfg.vocab_size, 2))
-    st = spec_engine._last_serve_stats
-    assert all(np.array_equal(g, w) for g, w in zip(half, off))
-    assert st["spec_rollbacks"] > 0 and st["spec_accepted"] < st["spec_proposed"]
-    moved = [g.copy() for g in got]
-    moved[1][prompts[1].size + 4] = (moved[1][prompts[1].size + 4] + 1) % cfg.vocab_size
-    (d,) = chip_smoke._divergences(engine, prompts, moved, off)
-    assert d["row"] == 1 and d["index"] == 4
-    logits = chip_smoke.paged_logits(engine, off[1][:prompts[1].size + 4], prompts[1].size)[-1]
-    assert d["near_tie"] == chip_smoke.near_tie(logits)
-
-
 def test_lse_cotangent_fault_reads_above_the_limit():
     """The lse backward's planted fault (the cotangent left out of delta)
     reads above ULP_TOL against the sound plain gradients in the kernel
@@ -467,371 +372,3 @@ def test_lse_cotangent_fault_reads_above_the_limit():
         good, bad = run(sound), run(dropped)
         err = max(chip_smoke.ulp_err(b, g, chip_smoke.GRAD_FLOOR) for b, g in zip(bad, good))
         assert err > chip_smoke.ULP_TOL
-
-
-# ----------------------------------------------------------------------- #
-# phase resume's helpers
-
-RESUME_TINY = dict(n_layer=2, n_head=4, d_model=128, d_ff=256, vocab_size=256, max_seq=64)
-
-
-def test_resume_dataset_is_seeded_motifs():
-    data = chip_smoke.resume_dataset(32000, 0)
-    assert len(data) == chip_smoke.RESUME_SAMPLES == 64
-    periods = []
-    for s in data:
-        x = s["input_ids"]
-        assert x.shape == (chip_smoke.TRAIN_SEQ,) and x.dtype == np.int32
-        period = next(p for p in range(8, 33) if np.array_equal(x[p:], x[:-p]))
-        periods.append(period)
-    assert min(periods) >= 8 and max(periods) <= 32 and len(set(periods)) > 5
-    again, other = chip_smoke.resume_dataset(32000, 0), chip_smoke.resume_dataset(32000, 1)
-    assert all(np.array_equal(a["input_ids"], b["input_ids"]) for a, b in zip(data, again))
-    assert not np.array_equal(data[0]["input_ids"], other[0]["input_ids"])
-
-
-def _tiny_resume_engine(seed=0, init_seed=1, config=None):
-    from deepspeed_tpu_torch.models import llama
-    data = chip_smoke.resume_dataset(256, seed, n=16, seq=64)
-    return chip_smoke.resume_engine(data, seed, init_seed, config=config, device="cpu",
-                                    model=llama("7b", **RESUME_TINY))
-
-
-def test_train_launch_rule_counts_the_train_cell_rule():
-    engine = _tiny_resume_engine()
-    want = chip_smoke.train_launch_rule(engine)
-    assert want == {"flash_attention_fwd": 8, "flash_attention_bwd_dq": 4,
-                    "flash_attention_bwd_dkv": 4, "fused_adam": 21, "fused_ce_fwd": 2,
-                    "fused_ce_ds": 2, "fused_ce_dh_gemm": 2, "fused_ce_dw_gemm": 2}
-
-
-def test_state_bytes_reckons_a_tag(tmp_path):
-    """18 B a parameter at bf16 with gas 2 (params 2, masters, mu, nu and
-    acc_grads 4 each), plus the scalars; the tag adds only its headers."""
-    engine = _tiny_resume_engine()
-    n = sum(p.numel() for p in engine.state.params.parameters())
-    need = chip_smoke.state_bytes(engine)
-    assert 18 * n <= need <= 18 * n + 64
-    engine.save_checkpoint(str(tmp_path), tag="t")
-    got = chip_smoke.tag_bytes(str(tmp_path / "t"))
-    assert need < got < need + 64 * 1024
-
-
-def test_state_fingerprint_sees_a_step_and_a_failed_load_leaves_it(tmp_path):
-    from deepspeed_tpu_torch.runtime.checkpoint_engine.safe_engine import (
-        STATE_FILE, CheckpointCorruptError)
-    from deepspeed_tpu_torch.utils import fault_injection as fi
-    engine = _tiny_resume_engine()
-    before = chip_smoke.state_fingerprint(engine)
-    assert chip_smoke.state_fingerprint(engine) == before
-    engine.save_checkpoint(str(tmp_path), tag="t")
-    engine.train_batch()             # WarmupLR: lr 0 at step 0, the params move at step 1
-    engine.train_batch()
-    engine._rng.manual_seed(5)       # no dropout here: the stream moves only if set
-    after = chip_smoke.state_fingerprint(engine)
-    changed = {k for k in before if before[k] != after[k]}
-    assert {"counters.global_steps", "params.embed.tokens", "master.layers.attn.wq",
-            "opt_state_flat.leaf_0", "rng"} <= changed
-    fi.bit_flip(str(tmp_path / "t" / STATE_FILE))
-    with pytest.raises(CheckpointCorruptError):
-        engine.load_checkpoint(str(tmp_path), tag="t")
-    assert chip_smoke.state_fingerprint(engine) == after
-
-
-def test_loss_gap():
-    assert chip_smoke.loss_gap([1.0, 2.0], [1.0, 2.0]) == 0.0
-    assert chip_smoke.loss_gap([1.1, 2.0], [1.0, 2.5]) == pytest.approx(0.2)
-
-
-def test_resume_phase_runs_its_checks_on_the_cpu(monkeypatch, tmp_path, capsys):
-    """phase_resume at the tiny shape on the CPU (no kernels, so no launch
-    rule): bit-equal resumed losses and masters, both faults above 0, the
-    corrupt load raising with the state untouched, the tag deleted."""
-    import json
-
-    from deepspeed_tpu_torch.models import llama
-
-    class Accelerator:
-        def reset_peak_memory_stats(self):
-            pass
-
-        def max_memory_allocated(self):
-            return 0
-
-    real, real_dataset = chip_smoke.resume_engine, chip_smoke.resume_dataset
-    monkeypatch.setattr(chip_smoke, "resume_engine",
-                        lambda data, seed, init_seed, config=None: real(
-                            data, seed, init_seed, config=config, device="cpu",
-                            model=llama("7b", **RESUME_TINY)))
-    monkeypatch.setattr(chip_smoke, "resume_dataset",
-                        lambda vocab, seed: real_dataset(RESUME_TINY["vocab_size"], seed, seq=64))
-    monkeypatch.setattr(chip_smoke, "train_launch_rule", lambda engine: {})
-    monkeypatch.setattr(chip_smoke, "RESUME_DIR", str(tmp_path / "ckpt"))
-    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
-    monkeypatch.setattr(torch.cuda, "empty_cache", lambda *a: None)
-    import deepspeed_tpu_torch.accelerator as accel
-    monkeypatch.setattr(accel, "get_accelerator", lambda *a: Accelerator())
-    chip_smoke.phase_resume({}, 0)
-    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    assert line["phase"] == "resume" and line["resumed_equal"]
-    assert line["losses_resumed"] == line["losses_uninterrupted"]
-    assert min(line["fault_loss_gap"].values()) > 0.0
-    assert not (tmp_path / "ckpt").exists()
-
-
-# ---- phase ingest: the HF and Megatron writers, its faults, the phase ----
-
-INGEST_TINY = {
-    "llama": {"model_type": "llama", "vocab_size": 256, "hidden_size": 128,
-              "intermediate_size": 256, "num_hidden_layers": 2, "num_attention_heads": 2,
-              "num_key_value_heads": 2, "max_position_embeddings": 1024, "rms_norm_eps": 1e-05,
-              "tie_word_embeddings": False},
-    "gpt2": {"model_type": "gpt2", "vocab_size": 256, "n_positions": 256, "n_embd": 128,
-             "n_layer": 12, "n_head": 2},
-    "bloom": {"model_type": "bloom", "vocab_size": 256, "hidden_size": 128, "n_layer": 24,
-              "n_head": 2},
-    "gpt_neox": {"model_type": "gpt_neox", "vocab_size": 256, "hidden_size": 192,
-                 "num_hidden_layers": 44, "num_attention_heads": 2, "intermediate_size": 256,
-                 "max_position_embeddings": 256, "rotary_pct": 0.25,
-                 "use_parallel_residual": True, "tie_word_embeddings": False},
-}
-
-
-def _tiny_checkpoint(d, model_type, layers=2, seed=0, shard_bytes=None):
-    """A tiny model of ``model_type`` written by the phase's HF writer in
-    bf16; returns (config, the params written)."""
-    from deepspeed_tpu_torch.module_inject import policy_for
-    hf = {**INGEST_TINY[model_type], chip_smoke._LAYER_KEY[model_type]: layers}
-    cfg = policy_for(model_type).zoo_config(hf)
-    params = CausalLM(cfg).init_params(torch.Generator().manual_seed(seed),
-                                       dtype=torch.bfloat16)
-    chip_smoke.write_hf_checkpoint(str(d), hf, chip_smoke.hf_entries(
-        model_type, cfg, params, torch.bfloat16), shard_bytes=shard_bytes)
-    return cfg, params
-
-
-@pytest.mark.parametrize("model_type", sorted(INGEST_TINY))
-def test_hf_writer_is_read_back_by_the_jax_loader(model_type, tmp_path):
-    """The writer is the inverse of each policy's map_params: the JAX
-    package's loader (the safetensors library's reader) reads its shards
-    and index to the tree written, and so does the port's loader, bit for
-    bit."""
-    import jax
-    from deepspeed_tpu.module_inject import load_hf_checkpoint as jax_load
-    from deepspeed_tpu_torch.checkpoint.from_jax import params_to_jax
-    from deepspeed_tpu_torch.module_inject import load_hf_checkpoint
-    cfg, params = _tiny_checkpoint(tmp_path, model_type, shard_bytes=200_000)
-    with open(tmp_path / "model.safetensors.index.json") as f:
-        assert len(set(json.load(f)["weight_map"].values())) > 1     # sharded
-    _, jtree = jax_load(str(tmp_path))
-    want = params_to_jax(cfg, params.map(lambda t: t.float()))
-    jax.tree.map(lambda a, b: np.testing.assert_array_equal(np.asarray(a), b), jtree, want)
-    _, tree = load_hf_checkpoint(str(tmp_path), dtype=torch.bfloat16)
-    assert not chip_smoke._equal_leaves(tree, params)
-
-
-def test_safetensors_writer_matches_the_library(tmp_path):
-    from safetensors.numpy import load_file
-    t = {"a": torch.arange(6, dtype=torch.bfloat16).reshape(2, 3),
-         "b": torch.ones(3, dtype=torch.float32)}
-    entries = [(k, tuple(v.shape), v.dtype, lambda v=v: v) for k, v in t.items()]
-    n = chip_smoke.write_safetensors(str(tmp_path / "x.safetensors"), entries)
-    assert n == (tmp_path / "x.safetensors").stat().st_size
-    got = load_file(str(tmp_path / "x.safetensors"))
-    np.testing.assert_array_equal(got["b"], t["b"].numpy())
-    np.testing.assert_array_equal(got["a"].view(np.int16), t["a"].view(torch.int16).numpy())
-
-
-def test_untransposed_qk_is_planted_through_the_loader(tmp_path):
-    from deepspeed_tpu_torch.module_inject import POLICIES, load_hf_checkpoint
-    _, params = _tiny_checkpoint(tmp_path, "llama")
-    real = POLICIES["llama"]
-    with chip_smoke.untransposed_qk():
-        _, faulted = load_hf_checkpoint(str(tmp_path), dtype=torch.bfloat16)
-    assert POLICIES["llama"] is real
-    bad = chip_smoke._equal_leaves(faulted, params)
-    assert sorted(bad) == ["layers.0.attn.wk", "layers.0.attn.wq", "layers.1.attn.wk",
-                           "layers.1.attn.wq"]
-    assert torch.equal(faulted["layers"][0]["attn"]["wq"], params["layers"][0]["attn"]["wq"].t())
-
-
-def test_missing_shard_faults_raise_and_leave_the_checkpoint(tmp_path):
-    from deepspeed_tpu_torch.module_inject import load_hf_checkpoint
-    _, params = _tiny_checkpoint(tmp_path, "llama", shard_bytes=200_000)
-    before = sorted(os.listdir(tmp_path))
-    raised = chip_smoke.missing_shard_faults(str(tmp_path), load_hf_checkpoint)
-    assert raised["shard_dropped_from_index"].startswith("KeyError")
-    assert raised["shard_missing_on_disk"].startswith("FileNotFoundError")
-    assert sorted(os.listdir(tmp_path)) == before
-    _, tree = load_hf_checkpoint(str(tmp_path), dtype=torch.bfloat16)
-    assert not chip_smoke._equal_leaves(tree, params)
-
-
-def test_megatron_writer_is_read_back_by_the_jax_loader(tmp_path):
-    import dataclasses
-    import jax
-    from deepspeed_tpu.models.transformer import TransformerConfig as JaxConfig
-    from deepspeed_tpu.module_inject.megatron import load_megatron_checkpoint
-    from deepspeed_tpu_torch.checkpoint.from_jax import params_to_jax
-    cfg = TransformerConfig(vocab_size=64, max_seq=32, n_layer=2, n_head=4, d_model=32,
-                            d_ff=64, pos_embedding="learned", attn_bias=True)
-    params = CausalLM(cfg).init_params(torch.Generator().manual_seed(0))
-    meta = chip_smoke.write_megatron_checkpoint(str(tmp_path), params, tp=2)
-    jtree = load_megatron_checkpoint(meta, JaxConfig(**dataclasses.asdict(cfg)))
-    jax.tree.map(lambda a, b: np.testing.assert_array_equal(np.asarray(a), b), jtree,
-                 params_to_jax(cfg, params))
-
-
-def test_ingest_phase_runs_its_checks_on_the_cpu(monkeypatch, tmp_path, capsys):
-    """phase_ingest at tiny widths on the CPU (bf16 plain versions against
-    fp32 ones; no kernels, so no launch rule): the leaves bit-equal, every
-    served row equal to the in-memory engine's, the planted faults shown,
-    the three families and the Megatron json through, the checkpoints
-    deleted."""
-    class Accelerator:
-        def reset_peak_memory_stats(self):
-            pass
-
-        def max_memory_allocated(self):
-            return 0
-
-    import deepspeed_tpu_torch.accelerator as accel
-    monkeypatch.setattr(chip_smoke, "INGEST_DEVICE", "cpu")
-    monkeypatch.setattr(chip_smoke, "INGEST_DIR", str(tmp_path / "ckpt"))
-    monkeypatch.setattr(chip_smoke, "SHARD_BYTES", 400_000)
-    monkeypatch.setattr(chip_smoke, "LLAMA2_7B_HF", INGEST_TINY["llama"])
-    monkeypatch.setattr(chip_smoke, "INGEST_FAMILIES", {
-        "gpt2-tiny": INGEST_TINY["gpt2"], "bloom-tiny": INGEST_TINY["bloom"],
-        "gpt-neox-tiny": INGEST_TINY["gpt_neox"]})
-    monkeypatch.setattr(chip_smoke, "serve_launch_rule", lambda cfg, actions: {
-        "flash_attention_fwd": 0, "paged_decode_attention": 0})
-    monkeypatch.setattr(chip_smoke, "prefill_launch_rule", lambda cfg, n: 0)
-    real_megatron = chip_smoke._megatron_serve
-    monkeypatch.setattr(chip_smoke, "_megatron_serve", lambda seed: real_megatron(
-        seed, model=CausalLM(TransformerConfig(vocab_size=256, max_seq=256, n_layer=2,
-                                               n_head=2, d_model=128, attn_bias=True))))
-    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
-    monkeypatch.setattr(torch.cuda, "empty_cache", lambda *a: None)
-    monkeypatch.setattr(accel, "get_accelerator", lambda *a: Accelerator())
-    chip_smoke.phase_ingest({}, 0)
-    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    assert line["phase"] == "ingest" and line["leaves_equal"] and line["shards"] > 1
-    assert line["rows_equal_in_memory"] == line["requests"] == 12
-    fault = line["fault_untransposed_qk"]
-    assert fault["rows_differ"] > 0 or fault["ulp_err"] > chip_smoke.LOGIT_ULP_TOL
-    assert all(line["fault_missing_shard"].values())
-    assert sorted(line["families"]) == ["bloom-tiny", "gpt-neox-tiny", "gpt2-tiny"]
-    assert line["families"]["gpt-neox-tiny"]["head_dim"] == 96
-    assert all(f["ulp_err"] <= chip_smoke.LOGIT_ULP_TOL for f in line["families"].values())
-    assert line["megatron"]["rows_equal"] == 2
-    assert not (tmp_path / "ckpt").exists()
-
-
-# ---- phase telemetry at a tiny size ----
-
-class _VirtualClock:
-    """The serving code's event clock in the telemetry phase's CPU test:
-    ``monotonic_ns`` moves only when planted device time is paid at a token
-    read, so the clock check reads the same on a loaded machine as on an
-    idle one (``perf_counter`` stays the host's)."""
-
-    def __init__(self):
-        self.ns = time.monotonic_ns()
-        self.pending_ms = []
-
-    def monotonic_ns(self):
-        return self.ns
-
-    def perf_counter(self):
-        return time.perf_counter()
-
-    def pay(self):
-        while self.pending_ms:
-            self.ns += int(self.pending_ms.pop() * 1e6)
-
-
-def test_telemetry_phase_runs_its_checks_on_the_cpu(monkeypatch, capsys):
-    """phase_telemetry at tiny widths on the CPU (fp32, no kernels, so no
-    launch rule): tokens and train losses equal with telemetry on and off,
-    the registry's counters, the snapshot and the trace valid, the
-    host-sync budget, the decode clock sound and its early-clock copy
-    caught (the planted device time is paid at the next token read, as on
-    the card, on a virtual clock), and train/mfu against the phase's own
-    figure under DS_PEAK_TFLOPS."""
-    import types
-
-    from deepspeed_tpu_torch.accelerator.cuda_accelerator import CPU_Accelerator
-    from deepspeed_tpu_torch.inference import engine as ie
-    from deepspeed_tpu_torch.inference import scheduler as sched
-    from deepspeed_tpu_torch.models import llama
-    from deepspeed_tpu_torch.monitor import events
-
-    tiny = dict(n_layer=2, d_model=64, n_head=2, d_ff=128, vocab_size=128, max_seq=256)
-    clock = _VirtualClock()
-    read = CPU_Accelerator.to_host
-
-    def to_host(self, t):
-        clock.pay()                          # queued device time lands before the read
-        return read(self, t)
-
-    class Event:
-        def __init__(self):
-            self.ns = clock.ns
-
-        def synchronize(self):
-            pass
-
-        def elapsed_time(self, other):
-            return (other.ns - self.ns) / 1e6
-
-    def tiny_llama(seed):
-        model = llama("7b", **tiny)
-        return model, model.init_params(torch.Generator().manual_seed(seed))
-
-    def tiny_train_setup(seed, config=None):
-        model = llama("7b", **{**tiny, "max_seq": 128})
-        params = model.init_params(torch.Generator().manual_seed(seed))
-        engine = chip_smoke._train_engine(model, params, config, device="cpu")
-        rng = np.random.default_rng(seed + 2)
-        ids = rng.integers(0, tiny["vocab_size"], size=(config["train_batch_size"], 128))
-        return model, engine, {"input_ids": torch.from_numpy(ids)}
-
-    vtime = types.SimpleNamespace(monotonic_ns=clock.monotonic_ns,
-                                  perf_counter=clock.perf_counter)
-    for module in (ie, sched, events, chip_smoke):
-        monkeypatch.setattr(module, "time", vtime)
-    monkeypatch.setattr(CPU_Accelerator, "to_host", to_host)
-    monkeypatch.setattr(chip_smoke, "TEL_DEVICE", "cpu")
-    monkeypatch.setattr(chip_smoke, "TEL_DTYPE", "fp32")
-    monkeypatch.setitem(chip_smoke.TRAIN_CONFIG, "bf16", {"enabled": False})
-    monkeypatch.setattr(chip_smoke, "_llama7b", tiny_llama)
-    monkeypatch.setattr(chip_smoke, "_train_setup", tiny_train_setup)
-    monkeypatch.setattr(chip_smoke, "train_launch_rule", lambda engine: {})
-    no_kernels = {"flash_attention_fwd": 0, "paged_decode_attention": 0}
-    monkeypatch.setattr(chip_smoke, "serve_launch_rule", lambda cfg, actions: no_kernels)
-    monkeypatch.setattr(chip_smoke, "registry_launch_rule", lambda cfg, counters: no_kernels)
-    monkeypatch.setattr(chip_smoke, "TRAIN_SEQ", 128)
-    monkeypatch.setattr(chip_smoke, "SERVE_MAX_NEW", 4)
-    monkeypatch.setattr(chip_smoke, "CLOCK_MAX_NEW", 4)
-    monkeypatch.setattr(chip_smoke, "_serve_prompts", lambda cfg, seed: [
-        np.random.default_rng(seed).integers(0, cfg.vocab_size, size=n) for n in (40, 7)])
-    monkeypatch.setattr(chip_smoke, "_cuda_event", Event)
-    monkeypatch.setattr(chip_smoke, "_device_sleep_fn",
-                        lambda ms: (lambda: clock.pending_ms.append(ms)))
-    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
-    monkeypatch.setattr(torch.cuda, "empty_cache", lambda *a: None)
-    monkeypatch.setenv("DS_PEAK_TFLOPS", "1e-3")
-    chip_smoke._reset_telemetry()
-    try:
-        chip_smoke.phase_telemetry({}, 0)
-    finally:
-        from deepspeed_tpu_torch.monitor import get_flight_recorder
-        get_flight_recorder().disable()
-        chip_smoke._reset_telemetry()
-    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    assert line["phase"] == "telemetry" and line["rows_equal"] == line["requests"] == 2
-    assert line["trace_valid"] and line["ttft_ms"]["count"] == 2
-    assert line["train_losses_equal"] and line["train_syncs_on"] == [1, 1, 1]
-    assert line["train_syncs_off"] == [0, 0, 0]
-    assert line["decode_clock_ratio"] == 1.0 and line["fault_early_clock_ratio"] == 0.0
-    assert line["train_mfu_gauge"] == pytest.approx(line["train_mfu_own"], rel=0.03)

@@ -15,6 +15,8 @@ import torch
 
 import chip_smoke
 
+torch.set_num_threads(1)   # the test runner's workers share the host's cores: one thread each
+
 def _tiny_check_phases(monkeypatch):
     """The client_opt and health phases at tiny widths on the CPU: bf16
     compute params over fp32 masters, the kernels' plain versions (so no

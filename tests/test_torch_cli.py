@@ -13,6 +13,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 import deepspeed_tpu_torch
 from deepspeed_tpu import cli as jax_cli
@@ -20,6 +21,8 @@ from deepspeed_tpu_torch import cli
 from deepspeed_tpu_torch.models import CausalLM, TransformerConfig
 from deepspeed_tpu_torch.monitor.events import get_flight_recorder
 from deepspeed_tpu_torch.monitor.metrics import get_registry
+
+torch.set_num_threads(1)   # the test runner's workers share the host's cores: one thread each
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODEL = dict(vocab_size=64, n_layer=2, n_head=2, d_model=32, d_ff=64, max_seq=128)
@@ -116,7 +119,57 @@ def test_module_entry_point_and_usage(capsys):
     assert "usage: python -m deepspeed_tpu_torch.cli" in capsys.readouterr().out
     assert cli.main(["frobnicate"]) == 2
     assert set(cli.COMMANDS) == set(jax_cli._COMMANDS)
-    out = subprocess.run([sys.executable, "-m", "deepspeed_tpu_torch.cli", "serve"], cwd=ROOT,
+    # serve runs; a setting outside the port is refused naming its item
+    out = subprocess.run([sys.executable, "-m", "deepspeed_tpu_torch.cli", "serve",
+                          "--replicas", "2"], cwd=ROOT,
                          capture_output=True, text=True, timeout=120,
                          env={**os.environ, "PYTHONPATH": ROOT})
-    assert out.returncode == 2 and "queue 1: async serving" in out.stderr
+    assert out.returncode == 2 and "queue 1: sharded serving" in out.stderr
+
+
+def test_serve_streams_a_completion_and_drains_on_sigterm():
+    """``serve`` on the CPU with the tiny Llama preset on port 0: one
+    streamed completion over HTTP equals the engine's own greedy decode,
+    then ``ServeSignalHandler.trigger(SIGTERM)`` stops intake, drains the
+    loop and ``serve`` returns 128 + SIGTERM, as the JAX ``serve_main``
+    does."""
+    import http.client
+    import signal
+    import threading
+
+    from deepspeed_tpu_torch.models import llama
+    model = llama("tiny")
+    params = model.init_params(torch.Generator().manual_seed(0))
+    holder, ready, rc = {}, threading.Event(), {}
+
+    def cb(server, serving):
+        holder.update(server=server, serving=serving)
+        ready.set()
+
+    argv = ["serve", "--model", "llama:tiny", "--device", "cpu", "--dtype", "fp32",
+            "--port", "0", "--max-new", "4", "--grace", "60"]
+    from deepspeed_tpu_torch.inference import serve
+    t = threading.Thread(target=lambda: rc.update(rc=serve.serve_main(
+        argv[1:], model=model, params=params, ready_cb=cb)), daemon=True)
+    t.start()
+    assert ready.wait(120), "serve never bound its socket"
+    serving = holder["serving"]
+    prompt = [3, 14, 15, 92, 65]
+    conn = http.client.HTTPConnection("127.0.0.1", holder["server"].server_address[1],
+                                      timeout=120)
+    conn.request("POST", "/v1/completions",
+                 json.dumps({"prompt": prompt, "max_tokens": 4, "stream": True}),
+                 {"Content-Type": "application/json"})
+    r = conn.getresponse()
+    assert r.status == 200 and r.getheader("Content-Type") == "text/event-stream"
+    lines = r.read().decode().splitlines()
+    chunks = [json.loads(x[6:]) for x in lines if x.startswith("data: ") and x != "data: [DONE]"]
+    toks = [t for c in chunks for t in c["choices"][0]["token_ids"]]
+    assert chunks[-1]["choices"][0]["finish_reason"] == "stop" and "data: [DONE]" in lines
+    serving._signal_handler.trigger(signal.SIGTERM)
+    t.join(120)
+    assert not t.is_alive() and rc["rc"] == 128 + signal.SIGTERM
+    with pytest.raises(RuntimeError, match="draining|stopped"):
+        serving.add_request(prompt)
+    ref = serving.engine.generate(np.asarray(prompt)[None, :], max_new_tokens=4)[0]
+    assert toks == [int(x) for x in np.asarray(ref)[len(prompt):]]

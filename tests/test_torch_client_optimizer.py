@@ -27,6 +27,8 @@ from deepspeed_tpu_torch.runtime import engine as port_engine
 from deepspeed_tpu_torch.runtime.checkpoint_engine.engine import CheckpointCorruptError
 from tests.test_torch_training import _batches, _jax_params, one_device_mesh  # noqa: F401
 
+torch.set_num_threads(1)   # the test runner's workers share the host's cores: one thread each
+
 LOSS_TOL = 1e-5     # relative, per step
 LEAF_TOL = 1e-5     # max |port - jax| over a leaf / max |jax| of the leaf
 # Adam normalises each element's step: where an element's gradient sits at

@@ -10,6 +10,7 @@ import json
 
 import numpy as np
 import pytest
+import torch
 
 from deepspeed_tpu.inference.config import ServingConfig as JaxServingConfig
 from deepspeed_tpu.inference.policy import FifoPolicy as JaxFifo
@@ -23,6 +24,8 @@ from deepspeed_tpu_torch.monitor import controller as pc
 from deepspeed_tpu_torch.monitor.config import CtlConfig
 from deepspeed_tpu_torch.monitor.events import FlightRecorder
 from deepspeed_tpu_torch.monitor.metrics import MetricsRegistry
+
+torch.set_num_threads(1)   # the test runner's workers share the host's cores: one thread each
 
 
 def test_ladders_match_the_jax_package():

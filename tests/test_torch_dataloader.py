@@ -6,9 +6,12 @@ at mid-epoch and past an epoch end; an empty loader raises."""
 
 import numpy as np
 import pytest
+import torch
 
 from deepspeed_tpu.runtime import dataloader as jdl
 from deepspeed_tpu_torch.runtime import dataloader as pdl
+
+torch.set_num_threads(1)   # the test runner's workers share the host's cores: one thread each
 
 N, BS = 10, 4          # 3 batches an epoch (2 with drop_last)
 

@@ -17,6 +17,8 @@ from deepspeed_tpu.ops.pallas.decode_attention import decode_attention as jax_de
 from deepspeed_tpu_torch.ops.kernels import decode_attention as dda
 from deepspeed_tpu_torch.ops.transformer import inference_kernels as ik
 
+torch.set_num_threads(1)   # the test runner's workers share the host's cores: one thread each
+
 TOL = 2e-5
 
 

@@ -14,6 +14,8 @@ import deepspeed_tpu_torch
 from deepspeed_tpu_torch.models import CausalLM, TransformerConfig
 from deepspeed_tpu_torch.models import transformer as PT
 
+torch.set_num_threads(1)   # the test runner's workers share the host's cores: one thread each
+
 TINY = dict(vocab_size=128, max_seq=32, n_layer=2, n_head=4, n_kv_head=2, d_model=64, d_ff=128,
             pos_embedding="rope", norm="rmsnorm", activation="swiglu", tie_embeddings=False,
             attention_backend="flash")

@@ -24,6 +24,8 @@ from tests.test_torch_training import (LEAF_TOL, LLAMA, LOSS_TOL, _batches, _con
                                        _jax_params, _leaf_errs, _port,
                                        one_device_mesh)  # noqa: F401
 
+torch.set_num_threads(1)   # the test runner's workers share the host's cores: one thread each
+
 ACCESSORS = ("get_mom", "optimizer_name", "scheduler_name", "scheduler_params",
              "zero_optimization", "zero_optimization_stage", "zero_enabled",
              "dynamic_loss_scale", "get_batch_info", "fp16_enabled", "bfloat16_enabled",

@@ -22,6 +22,8 @@ from deepspeed_tpu_torch.monitor.events import EVENT_KINDS, FlightRecorder
 from deepspeed_tpu_torch.monitor.trace import (CompileWatchdog, ProfileWindow, StepTracer,
                                                get_compile_watchdog)
 
+torch.set_num_threads(1)   # the test runner's workers share the host's cores: one thread each
+
 _VT_PATH = Path(__file__).resolve().parents[1] / "tools" / "validate_trace.py"
 _spec = importlib.util.spec_from_file_location("validate_trace", _VT_PATH)
 validate_trace = importlib.util.module_from_spec(_spec)

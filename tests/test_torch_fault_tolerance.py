@@ -27,6 +27,8 @@ from deepspeed_tpu_torch.runtime.dataloader import (DeepSpeedDataLoader, Repeati
                                                     resume_loader_iterator)
 from deepspeed_tpu_torch.utils import fault_injection as fi
 
+torch.set_num_threads(1)   # the test runner's workers share the host's cores: one thread each
+
 pytestmark = pytest.mark.chaos
 
 VOCAB, SEQ = 64, 16

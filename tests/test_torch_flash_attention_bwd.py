@@ -21,6 +21,8 @@ import torch
 from deepspeed_tpu.ops.pallas.flash_attention import flash_attention as jax_flash
 from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
 
+torch.set_num_threads(1)   # the test runner's workers share the host's cores: one thread each
+
 TOL = 1e-5      # relative to the largest |value| of each gradient
 
 # (B, S, H, KV, Hd, causal, alibi, mask)

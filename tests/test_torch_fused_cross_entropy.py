@@ -24,6 +24,8 @@ from deepspeed_tpu.ops.pallas.fused_cross_entropy import fused_cross_entropy as 
 from deepspeed_tpu_torch.models import transformer as PT
 from deepspeed_tpu_torch.ops.kernels import fused_cross_entropy as fce
 
+torch.set_num_threads(1)   # the test runner's workers share the host's cores: one thread each
+
 LOSS_TOL = 1e-5
 GRAD_TOL = {"fp32": 1e-5, "bf16": 2.0**-7}
 

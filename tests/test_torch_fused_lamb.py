@@ -21,6 +21,8 @@ from deepspeed_tpu.ops.lamb.fused_lamb_kernel import _run_lamb
 from deepspeed_tpu.ops.lamb.fused_lamb_kernel import fused_lamb_step as jax_fused_lamb_step
 from deepspeed_tpu_torch.ops.lamb import fused_lamb_kernel as fl
 
+torch.set_num_threads(1)   # the test runner's workers share the host's cores: one thread each
+
 TOL = 1e-6
 RATIO_TOL = 1e-6
 GRID = list(itertools.product((1000, 32768, 100000), (0.0, 0.01), (True, False)))
@@ -144,3 +146,24 @@ def test_wrappers_refuse_other_devices_and_bad_partials():
                         bc2=1.0, b1=0.9, b2=0.999, eps=1e-6, weight_decay=0.0)
     with pytest.raises(ValueError, match="partials"):
         fl.lamb_ratio(torch.zeros((3, 2)))
+
+
+@pytest.mark.parametrize("L,n", [(1, 4099), (3, 1000)])
+def test_group_unorm_is_the_applied_directions_norm(L, n):
+    """``lamb_group_step(..., unorm=)`` writes ``ratio * ||u||``, the norm
+    of the group's applied direction (the update norm over lr), equal to an
+    fp64 recomputation from the same moments within 1e-6 relative."""
+    p, g, m, v = _inputs(L * n, 5 + L)
+    kw = dict(step=3, lr=1e-3, b1=0.9, b2=0.999, eps=1e-6, weight_decay=0.01)
+    split = lambda a: [torch.from_numpy(a[i * n:(i + 1) * n].copy()) for i in range(L)]
+    ps, gs, ms, vs = split(p), split(g), split(m), split(v)
+    unorm = torch.full((1,), -1.0)
+    ratio = fl.lamb_group_step(ps, gs, ms, vs, unorm=unorm, **kw)
+    bc1, bc2 = fl.bias_corrections(3, 0.9, 0.999)
+    md, vd = torch.cat(ms).double(), torch.cat(vs).double()      # the new moments
+    pd = torch.from_numpy(p).double()
+    ud = (md / bc1) / (torch.sqrt(vd / bc2) + 1e-6) + 0.01 * pd
+    want = float(torch.linalg.vector_norm(pd) / torch.linalg.vector_norm(ud)
+                 * torch.linalg.vector_norm(ud))
+    assert abs(float(unorm) - want) <= 1e-6 * want
+    assert abs(float(unorm) - float(ratio) * float(torch.linalg.vector_norm(ud))) <= 1e-6 * want

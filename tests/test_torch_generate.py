@@ -27,6 +27,8 @@ from deepspeed_tpu_torch.checkpoint.from_jax import params_from_jax
 from deepspeed_tpu_torch.models import CausalLM, TransformerConfig
 from deepspeed_tpu_torch.models import transformer as PT
 
+torch.set_num_threads(1)   # the test runner's workers share the host's cores: one thread each
+
 MARGIN = 1e-3
 TOL = 1e-4
 SHAPES = {

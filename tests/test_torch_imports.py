@@ -10,6 +10,8 @@ import sys
 import pytest
 import torch
 
+torch.set_num_threads(1)   # the test runner's workers share the host's cores: one thread each
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "deepspeed_tpu", "pydantic")
 
@@ -125,6 +127,32 @@ CONTROL_PLANE_MODULES = (
 )
 
 
+# the async serving slice's modules: the front-end and the step faults; both
+# are host code and name no torch.cuda API
+ASYNC_SERVING_MODULES = (
+    "deepspeed_tpu_torch.inference.serve", "deepspeed_tpu_torch.utils.fault_injection",
+)
+
+
+def test_async_serving_imports_no_jax_nor_cuda():
+    """``inference/serve.py`` and ``utils/fault_injection.py`` keep their own
+    copies of the JAX host code: importing them loads neither jax, the JAX
+    package nor pydantic, and neither names a ``torch.cuda`` API."""
+    for name in ASYNC_SERVING_MODULES:
+        path = ROOT / (name.replace(".", "/") + ".py")
+        assert "torch.cuda" not in path.read_text(), name
+        assert not any(m.split(".")[0] in FORBIDDEN for m in _imported_modules(path)), name
+    code = ("import importlib, sys\n"
+            f"for m in {ASYNC_SERVING_MODULES!r}: importlib.import_module(m)\n"
+            "from deepspeed_tpu_torch.inference import AsyncServingEngine, RequestHandle\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r}))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+
+
 def test_import_leaves_jax_and_pydantic_out():
     mods = ["deepspeed_tpu_torch"] + sorted(
         "deepspeed_tpu_torch." + ".".join(p.relative_to(ROOT / "deepspeed_tpu_torch")
@@ -139,6 +167,7 @@ def test_import_leaves_jax_and_pydantic_out():
     assert set(INGEST_MODULES) <= set(mods)
     assert set(MONITOR_MODULES) <= set(mods)
     assert set(CONTROL_PLANE_MODULES) <= set(mods)
+    assert set(ASYNC_SERVING_MODULES) <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "

@@ -19,12 +19,15 @@ from deepspeed_tpu_torch.ops.kernels import paged_decode_attention as pda
 from deepspeed_tpu_torch.ops.lamb import fused_lamb_kernel as fl
 from deepspeed_tpu_torch.ops.quantizer import kernels as qk
 
+torch.set_num_threads(1)   # the test runner's workers share the host's cores: one thread each
+
 ULP_TOL = 3.0     # bf16 ulps of each output row's largest value (as chip_smoke.py)
 LSE_TOL = 1e-4    # log2-domain lse, fp32 in both from the same bf16 inputs
 ADAM_TOL = 1e-6   # fused Adam u / m / v, fp32 error relative to the largest plain value
 CE_TOL = 1e-4     # fused CE nll and log2-domain lse: absolute fp32, the same bf16 inputs
 DB_TOL = 1e-4     # fused CE db: fp32 sums in another order, relative to the largest value
 RATIO_TOL = 1e-6  # fused LAMB trust ratio, relative: fp64 sums of fp32 squares in another order
+SQ_TOL = 1e-5     # E's sum of u^2, relative: fp32 partial sums in another order than the plain sum
 
 
 GRAD_FLOOR = 2.0**-10   # backward rows: reference magnitude floored at this share of the max
@@ -399,16 +402,35 @@ def test_fused_adam_kernel_matches_plain(cuda, n, p_dtype, g_dtype, emit, adam_w
     v = _randn(r, (n,), cuda, torch.float32).square() * 0.01
     kw = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=wd, adam_w_mode=adam_w)
     bc1, bc2 = fad.bias_corrections(3, 0.9, 0.95, bc)
-    ref, rm, rv = fad.fused_adam_plain(p, g, m, v, 3e-4, bc1, bc2, emit=emit, **kw)
+    ref, rm, rv, rsq = fad.fused_adam_plain(p, g, m, v, 3e-4, bc1, bc2, emit=emit, **kw)
     n0 = fad.launches
-    # emit param writes p in place, as the engine updates its masters
+    # emit param writes p in place, as the engine updates its masters; the
+    # sq slots get the blocks' partial sums of u^2 (the sentinel's input)
+    sq = torch.full((fad.adam_blocks(n),), float("nan"), device=cuda)
     out = fad.fused_adam_step(p, g, m, v, step=3, lr=3e-4, bias_correction=bc, emit=emit,
-                              out=p if emit == "param" else None, **kw)
+                              out=p if emit == "param" else None, sq=sq, **kw)
     torch.cuda.synchronize()
     assert fad.launches == n0 + 1
     for a, b in ((out, ref), (m, rm), (v, rv)):
         err = float((a.float() - b.float()).abs().max() / b.float().abs().max())
         assert err <= ADAM_TOL, err
+    assert abs(float(sq.sum()) - float(rsq)) <= SQ_TOL * float(rsq)
+
+
+def test_fused_adam_sum_of_squares_repeats_bit_for_bit(cuda):
+    """E's partial sums of u^2 come from a fixed-order block reduction (no
+    atomics): two launches on the same inputs write the same slots."""
+    r = np.random.default_rng(5)
+    base = [_randn(r, (3_000_001,), cuda, torch.float32) for _ in range(4)]
+    runs = []
+    for _ in range(2):
+        p, g, m, v = (x.clone() for x in base)
+        v.square_()
+        sq = torch.empty(fad.adam_blocks(p.numel()), device=cuda)
+        fad.fused_adam_step(p, g, m, v, step=2, lr=1e-3, weight_decay=0.1, out=p, sq=sq)
+        runs.append(sq)
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1])
 
 
 @pytest.mark.parametrize("B,H,KV,Hd,Smax,pos,bias,alibi", [
@@ -602,13 +624,16 @@ def test_fused_lamb_kernels_match_plain(cuda, L, n, p_dtype, g_dtype, wd, bc):
     kw = dict(step=3, lr=1e-3, b1=0.9, b2=0.999, eps=1e-6, weight_decay=wd, bias_correction=bc)
     cpu = lambda xs: [x.cpu().clone() for x in xs]
     rp, rm, rv = cpu(ps), cpu(ms), cpu(vs)
-    want = fl.lamb_group_step(rp, cpu(gs), rm, rv, **kw)
+    want_unorm, unorm = torch.zeros(1), torch.zeros(1, device=cuda)
+    want = fl.lamb_group_step(rp, cpu(gs), rm, rv, unorm=want_unorm, **kw)
     n0 = (fl.moments_launches, fl.ratio_launches, fl.apply_launches)
-    ratio = fl.lamb_group_step(ps, gs, ms, vs, **kw)
+    ratio = fl.lamb_group_step(ps, gs, ms, vs, unorm=unorm, **kw)
     torch.cuda.synchronize()
     assert (fl.moments_launches, fl.ratio_launches, fl.apply_launches) == (
         n0[0] + L, n0[1] + 1, n0[2] + L)
     assert abs(float(ratio) - float(want)) <= RATIO_TOL * float(want)
+    # ratio * ||u||, the group's applied direction's norm (update norm / lr)
+    assert abs(float(unorm) - float(want_unorm)) <= RATIO_TOL * float(want_unorm)
     for got, ref in ((ps, rp), (ms, rm), (vs, rv)):
         a, b = torch.cat([x.float().cpu() for x in got]), torch.cat([x.float() for x in ref])
         err = float((a - b).abs().max() / b.abs().max())

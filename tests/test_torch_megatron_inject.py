@@ -20,6 +20,8 @@ import numpy as np
 import pytest
 import torch
 
+torch.set_num_threads(1)   # the test runner's workers share the host's cores: one thread each
+
 pytest.importorskip("safetensors")
 
 import deepspeed_tpu  # noqa: E402

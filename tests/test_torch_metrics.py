@@ -14,6 +14,7 @@ import time
 
 import numpy as np
 import pytest
+import torch
 
 from deepspeed_tpu.monitor import events as jax_events
 from deepspeed_tpu.monitor import metrics as jax_metrics
@@ -21,6 +22,8 @@ from deepspeed_tpu_torch.monitor import events as port_events
 from deepspeed_tpu_torch.monitor import metrics as port_metrics
 from deepspeed_tpu_torch.monitor.metrics import (MetricsRegistry, parse_prometheus_text,
                                                  validate_snapshot)
+
+torch.set_num_threads(1)   # the test runner's workers share the host's cores: one thread each
 
 
 def _ops_counters(reg):
@@ -335,26 +338,22 @@ def test_telemetry_section_parses_as_in_the_jax_package(section):
 
 
 def test_telemetry_section_rejects_bad_shorthands_and_refuses_the_control_plane():
-    from deepspeed_tpu_torch.monitor.config import get_telemetry_config, refuse_unported
+    """Bad shorthands raise; the control-plane sections parse on both
+    engines. None is refused any more: the training engine acts on health,
+    the sampler, the SLOs and the exporter, as the JAX one does, and
+    neither engine acts on ctl (the controller runs beside the async
+    serving loop, from ``serve --adaptive``)."""
+    from deepspeed_tpu_torch.monitor.config import get_telemetry_config
     with pytest.raises(ValueError, match="telemetry"):
         get_telemetry_config({"telemetry": "sometimes"})
     with pytest.raises(ValueError, match="telemetry.events"):
         get_telemetry_config({"telemetry": {"events": "maybe"}})
-    refuse_unported(get_telemetry_config({"telemetry": {"events": True}}))
-    refuse_unported(get_telemetry_config({"telemetry": {"enabled": False, "ctl": True}}),
-                    engine="serve")
-    # the training engine acts on health, the sampler, the SLOs and the
-    # exporter, as the JAX one does; the serving engine on health (which the
-    # JAX one ignores too); the rest lives in the async serving front-end
-    for section in ({"health": True}, {"sampler": True}, {"slo": {"enabled": True}},
-                    {"metrics_port": 9100}):
-        refuse_unported(get_telemetry_config({"telemetry": section}), engine="train")
-    refuse_unported(get_telemetry_config({"telemetry": {"health": True}}), engine="serve")
-    for section in ({"sampler": True}, {"slo": {"enabled": True}}, {"ctl": True},
-                    {"metrics_port": 9100}):
-        with pytest.raises(NotImplementedError, match="queue 1: async serving"):
-            refuse_unported(get_telemetry_config({"telemetry": section}), engine="serve")
-    with pytest.raises(NotImplementedError, match="queue 1: async serving"):
-        refuse_unported(get_telemetry_config({"telemetry": {"ctl": True}}), engine="train")
-    with pytest.raises(ValueError, match="engine"):
-        refuse_unported(get_telemetry_config({"telemetry": {"events": True}}), engine="x")
+    for section, field in (({"sampler": True}, "sampler"), ({"slo": {"enabled": True}}, "slo"),
+                           ({"ctl": True}, "ctl"), ({"health": True}, "health")):
+        tcfg = get_telemetry_config({"telemetry": section})
+        assert tcfg.enabled and getattr(tcfg, field).enabled
+    tcfg = get_telemetry_config({"telemetry": {"metrics_port": 9100}})
+    assert tcfg.enabled and tcfg.metrics_port == 9100
+    assert not get_telemetry_config({"telemetry": {"enabled": False, "ctl": True}}).enabled
+    # ctl implies the sampler, as in the JAX config
+    assert get_telemetry_config({"telemetry": {"ctl": {"enabled": True}}}).sampler.enabled

@@ -15,6 +15,8 @@ from deepspeed_tpu.models import transformer as JT
 from deepspeed_tpu_torch.checkpoint.from_jax import params_from_jax
 from deepspeed_tpu_torch.models import transformer as PT
 
+torch.set_num_threads(1)   # the test runner's workers share the host's cores: one thread each
+
 TOL = 1e-4
 SHAPES = {
     "llama": dict(vocab_size=128, max_seq=256, n_layer=2, n_head=4, n_kv_head=2,

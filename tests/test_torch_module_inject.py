@@ -25,6 +25,8 @@ import numpy as np
 import pytest
 import torch
 
+torch.set_num_threads(1)   # the test runner's workers share the host's cores: one thread each
+
 transformers = pytest.importorskip("transformers")
 safetensors = pytest.importorskip("safetensors")
 

@@ -15,6 +15,7 @@ import urllib.request
 
 import numpy as np
 import pytest
+import torch
 
 import deepspeed_tpu_torch
 from deepspeed_tpu.monitor import events as jax_events
@@ -34,6 +35,8 @@ from deepspeed_tpu_torch.monitor.health import multilabel_series
 from deepspeed_tpu_torch.monitor.metrics import (MetricsRegistry, get_registry,
                                                  parse_prometheus_text, validate_snapshot)
 from deepspeed_tpu_torch.monitor.sampler import MetricsSampler, sampler_from_config
+
+torch.set_num_threads(1)   # the test runner's workers share the host's cores: one thread each
 
 TIMEOUT = 10
 

@@ -15,6 +15,8 @@ from deepspeed_tpu.ops.pallas.paged_decode_attention import \
     paged_decode_attention as jax_paged
 from deepspeed_tpu_torch.ops.kernels import paged_decode_attention as pda
 
+torch.set_num_threads(1)   # the test runner's workers share the host's cores: one thread each
+
 TOL = 1e-5
 
 

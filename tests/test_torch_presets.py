@@ -20,6 +20,8 @@ from deepspeed_tpu_torch.checkpoint.from_jax import params_from_jax
 from deepspeed_tpu_torch.models import CausalLM, presets as pp
 from tests.test_torch_model import TOL, _jax_params
 
+torch.set_num_threads(1)   # the test runner's workers share the host's cores: one thread each
+
 SIZES = {
     "gpt2": ["125m", "350m", "774m", "1.5b"],
     "llama": ["tiny", "7b", "13b", "70b"],

@@ -25,6 +25,8 @@ from deepspeed_tpu_torch.ops.transformer import training_kernels as PTK
 from deepspeed_tpu_torch.runtime import quantize as PQ
 from deepspeed_tpu_torch.runtime.utils import jax_leaves, keystr
 
+torch.set_num_threads(1)   # the test runner's workers share the host's cores: one thread each
+
 LEAF_TOL = 3e-5
 
 

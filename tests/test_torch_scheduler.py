@@ -8,6 +8,7 @@ prefill."""
 
 import numpy as np
 import pytest
+import torch
 
 from deepspeed_tpu.inference import block_allocator as jax_alloc
 from deepspeed_tpu.inference import scheduler as jax_sched
@@ -15,6 +16,8 @@ import deepspeed_tpu_torch
 from deepspeed_tpu_torch.inference import block_allocator as port_alloc
 from deepspeed_tpu_torch.inference import scheduler as port_sched
 from deepspeed_tpu_torch.models import CausalLM, TransformerConfig
+
+torch.set_num_threads(1)   # the test runner's workers share the host's cores: one thread each
 
 VOCAB = 11
 
@@ -131,10 +134,10 @@ def test_action_traces_match(name):
 
 def test_scheduler_refuses_telemetry_hooks():
     """The scheduler takes the serving telemetry and the flight recorder
-    (every series pre-created at zero); what stays refused is what the JAX
-    package runs only in its async serving front-end (the sampler, SLOs,
-    the controller and /metrics beside a server), which the serving engine
-    raises for by name."""
+    (every series pre-created at zero). Nothing of the control plane is
+    refused any more: the serving engine, as the JAX one, acts on none of
+    the sampler, SLOs, controller or /metrics settings (the async serving
+    front-end takes them from ``serve``'s flags), so it builds with each."""
     from deepspeed_tpu_torch.monitor.events import FlightRecorder
     from deepspeed_tpu_torch.monitor.metrics import MetricsRegistry
     reg = MetricsRegistry()
@@ -147,10 +150,10 @@ def test_scheduler_refuses_telemetry_hooks():
     model = CausalLM(TransformerConfig(vocab_size=64, n_layer=1, n_head=2, d_model=32,
                                        d_ff=64, max_seq=64))
     for sub in ("sampler", "slo", "ctl", "metrics_port"):
-        with pytest.raises(NotImplementedError, match="async serving"):
-            deepspeed_tpu_torch.init_inference(
-                model, dtype="fp32", device="cpu",
-                telemetry={sub: 0 if sub == "metrics_port" else True})
+        eng = deepspeed_tpu_torch.init_inference(
+            model, dtype="fp32", device="cpu",
+            telemetry={sub: 0 if sub == "metrics_port" else True})
+        assert eng._telemetry is not None
     # telemetry.health: the JAX serving engine acts on none of it, nor does the port's
     eng = deepspeed_tpu_torch.init_inference(model, dtype="fp32", device="cpu",
                                              telemetry={"health": True})

@@ -23,6 +23,8 @@ from deepspeed_tpu_torch.checkpoint.from_jax import params_from_jax
 from deepspeed_tpu_torch.inference.config import DeepSpeedInferenceConfig
 from deepspeed_tpu_torch.models import CausalLM, TransformerConfig
 
+torch.set_num_threads(1)   # the test runner's workers share the host's cores: one thread each
+
 MARGIN = 1e-3
 SHAPES = {
     "llama": dict(vocab_size=64, max_seq=256, n_layer=2, n_head=2, n_kv_head=1,
@@ -141,16 +143,32 @@ def test_eviction_pressure(pair):
     ({"dtype": "int8"}, "int8 inference"),
     ({"moe": {"ep_size": 2}}, "MoE"),
     ({"zero": {"offload_param": {"device": "cpu"}}}, "ZeRO-Inference"),
-    ({"telemetry": {"ctl": {"enabled": True, "cooldown_ticks": 2}}}, "async serving"),
-    ({"telemetry": {"sampler": True}}, "async serving"),
-    ({"telemetry": {"slo": {"enabled": True}}}, "async serving"),
-    ({"telemetry": {"ctl": True}}, "async serving"),
-    ({"telemetry": {"metrics_port": 0}}, "async serving"),
 ])
 def test_out_of_slice_settings_raise(setting, item):
     model = CausalLM(TransformerConfig(**SHAPES["gpt2"]))
     with pytest.raises(NotImplementedError, match=item):
         deepspeed_tpu_torch.init_inference(model, device="cpu", **setting)
+
+
+@pytest.mark.parametrize("setting", [
+    {"telemetry": {"ctl": {"enabled": True, "cooldown_ticks": 2}}},
+    {"telemetry": {"sampler": True}},
+    {"telemetry": {"slo": {"enabled": True}}},
+    {"telemetry": {"ctl": True}},
+    {"telemetry": {"metrics_port": 0}},
+])
+def test_control_plane_settings_are_accepted_by_the_serving_engine(setting):
+    """The JAX serving engine acts on none of ctl, the sampler, the SLOs or
+    metrics_port (its async front-end takes them from ``serve``'s flags),
+    and neither does the port's: the engine builds and serves the tokens of
+    one built without them."""
+    model = CausalLM(TransformerConfig(**{**SHAPES["gpt2"], "n_layer": 1}))
+    prompts = _prompts(2, (9, 5))
+    outs = []
+    for over in ({}, setting):
+        eng = deepspeed_tpu_torch.init_inference(model, dtype="fp32", device="cpu", **over)
+        outs.append(eng.generate_batch(prompts, max_new_tokens=3))
+    assert all(np.array_equal(a, b) for a, b in zip(*outs))
 
 
 def test_speculative_decoding_setting_serves(pair):

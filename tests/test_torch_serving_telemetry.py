@@ -16,6 +16,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 import deepspeed_tpu
 import deepspeed_tpu_torch
@@ -26,6 +27,8 @@ from deepspeed_tpu_torch.inference import scheduler as port_sched
 from deepspeed_tpu_torch.monitor import events as port_events
 from deepspeed_tpu_torch.monitor import metrics as port_metrics
 from tests.test_torch_serving import _Pair, _prompts, one_device_mesh  # noqa: F401 (fixture)
+
+torch.set_num_threads(1)   # the test runner's workers share the host's cores: one thread each
 
 _VT_PATH = Path(__file__).resolve().parents[1] / "tools" / "validate_trace.py"
 _spec = importlib.util.spec_from_file_location("validate_trace", _VT_PATH)

@@ -26,6 +26,8 @@ from deepspeed_tpu_torch.models import CausalLM, TransformerConfig
 from deepspeed_tpu_torch.ops import sparse_attention as psa
 from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
 
+torch.set_num_threads(1)   # the test runner's workers share the host's cores: one thread each
+
 FWD_TOL = 2e-5
 GRAD_TOL = 1e-4
 

@@ -28,6 +28,8 @@ from deepspeed_tpu_torch.models import CausalLM, TransformerConfig
 from deepspeed_tpu_torch.models import transformer as PT
 from deepspeed_tpu_torch.ops import sparse_attention as psa
 
+torch.set_num_threads(1)   # the test runner's workers share the host's cores: one thread each
+
 LOGIT_TOL = 1e-4
 LOSS_TOL = 1e-5     # relative, per step
 S = 256

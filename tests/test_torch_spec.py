@@ -39,6 +39,8 @@ from deepspeed_tpu_torch.inference.spec import NgramProposer
 from deepspeed_tpu_torch.models import CausalLM, TransformerConfig
 from deepspeed_tpu_torch.models import transformer as PT
 
+torch.set_num_threads(1)   # the test runner's workers share the host's cores: one thread each
+
 PACKAGES = {"jax": (jax_sched, jax_alloc), "port": (port_sched, port_alloc)}
 LOGIT_TOL = 1e-4     # fp32 logits and pools, absolute (the sums run in other orders)
 

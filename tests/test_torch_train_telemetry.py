@@ -33,6 +33,8 @@ from deepspeed_tpu_torch.utils.timer import SynchronizedWallClockTimer
 from tests.test_torch_training import (LLAMA, _batches, _config, _jax_params, _port,
                                        one_device_mesh)  # noqa: F401 (fixture)
 
+torch.set_num_threads(1)   # the test runner's workers share the host's cores: one thread each
+
 _VT_PATH = Path(__file__).resolve().parents[1] / "tools" / "validate_trace.py"
 _spec = importlib.util.spec_from_file_location("validate_trace", _VT_PATH)
 validate_trace = importlib.util.module_from_spec(_spec)

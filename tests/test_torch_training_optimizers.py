@@ -12,6 +12,7 @@ stacked JAX leaf (one per port leaf misses at 2 layers)."""
 import jax
 import numpy as np
 import pytest
+import torch
 
 import deepspeed_tpu
 from deepspeed_tpu_torch.checkpoint.from_jax import opt_state_from_jax, params_from_jax
@@ -19,6 +20,8 @@ from deepspeed_tpu_torch.models import TransformerConfig
 from deepspeed_tpu_torch.runtime import optimizers as popt
 from tests.test_torch_training import (GPT2, LEAF_TOL, LLAMA, LOSS_TOL, _batches, _config,
                                        _jax_params, _leaf_errs, _port, one_device_mesh)  # noqa: F401
+
+torch.set_num_threads(1)   # the test runner's workers share the host's cores: one thread each
 
 OPTIMIZERS = {
     "lamb": {"type": "Lamb", "params": {"lr": 3e-4, "weight_decay": 0.01}},
