@@ -57,6 +57,26 @@ Phases, each printing one JSON line:
                 /metrics against the registry, TTFT / TPOT); one controller
                 action moving prefill_chunk a rung and the next prefill's
                 chunks following it
+  serve_tier    full Llama-2-7B with the tiered KV cache (serving.kv_host,
+                128 host blocks) on a 48-block device pool: turn 1 (the serve
+                prompts), a filler wave that reclaims every block of turn 1
+                into host RAM, turn 2 (each turn-1 row and 64 new tokens):
+                fetched blocks bit-equal to their spill (limit 0), turn 2
+                prefilling only its tails, A = L x prefills and B = L x
+                decode steps, turn 2's rows against the tier off and against
+                a device pool that hits on the device (near-tie rule), turn 2
+                again under a persistent fetch fault (recompute), the pool
+                drained with no live block; spill and fetch GB/s and ms a
+                block, turn 2's TTFT against recompute, host RSS, device peak
+  serve_fleet   two replicas of full Llama-2-7B on the card behind the replica
+                router, one weight tree (equal data_ptrs) and one host KV
+                tier: a session trace replayed twice with equal decisions,
+                rows against generate_batch (near-tie rule); roles
+                prefill,decode handing every prompt of a block or more over
+                through the host tier; a persistent decode fault on r0 until
+                its breaker opens, every request completing on r1 (/healthz
+                503 for r0, 200 for the router); the fleet against one loop,
+                threaded, tokens/s and the device peak
   spec_parity   Llama-7B width cut to 2 layers: the CPU's greedy tokens fed
                 in windows of 1-8 tokens through forward_paged_verify on the
                 card (bf16, kernel B once per window position) and on the CPU
@@ -198,8 +218,8 @@ Phases, each printing one JSON line:
                 objective's burn rate
   kernels       every ported kernel with its launches in the serve, spec_serve
                 (its oracle run), generate, train, train_lamb, train_sparse,
-                resume, ingest, telemetry, client_opt, health and serve_async
-                phases (A, C and D with a layout in rows of
+                resume, ingest, telemetry, client_opt, health, serve_async,
+                serve_tier and serve_fleet phases (A, C and D with a layout in rows of
                 their own; C's and D's rows also carry their readings with an lse
                 cotangent)
   profile       (only with --phases profile) the serve phase's prompts through
@@ -236,7 +256,8 @@ import subprocess
 import sys
 import time
 
-PHASES = ("env", "build", "kernel", "slice_parity", "serve", "serve_async", "spec_parity",
+PHASES = ("env", "build", "kernel", "slice_parity", "serve", "serve_async", "serve_tier",
+          "serve_fleet", "spec_parity",
           "spec_serve",
           "generate_parity", "generate",
           "train_parity", "train", "train_lamb_parity", "train_lamb", "sparse_parity",
@@ -2156,11 +2177,14 @@ def _llama7b(seed):
     return model, model.init_params(gen, device="cuda", dtype=torch.bfloat16)
 
 
+SHARED_PREFIX_TOKENS = 256      # the prefix two of the serve prompts share
+
+
 def _serve_prompts(cfg, seed):
     """12 prompts of 32-512 tokens; two share a 256-token prefix."""
     import numpy as np
     rng = np.random.default_rng(seed + 1)
-    shared = rng.integers(0, cfg.vocab_size, size=256)
+    shared = rng.integers(0, cfg.vocab_size, size=SHARED_PREFIX_TOKENS)
     lengths = (32, 77, 128, 200, 256, 300, 384, 450, 512, 64)
     prompts = [rng.integers(0, cfg.vocab_size, size=n) for n in lengths]
     prompts.insert(2, np.concatenate([shared, rng.integers(0, cfg.vocab_size, size=60)]))
@@ -5405,6 +5429,591 @@ def phase_serve_async(state, seed):
     check(not failures, "serve_async failed: " + "; ".join(failures))
 
 
+# serve_tier / serve_fleet: the tiered KV cache and the replica router
+TIER_BLOCKS = 48          # serve_tier's device pool: the filler wave reclaims all of turn 1
+TIER_HOST_BLOCKS = 128    # serving.kv_host.max_host_blocks of both phases (8.6 GB at 7B)
+TIER_FILLER = (16, 512)   # the filler wave: 16 distinct prompts of 512 tokens
+TIER_FILLER_NEW = 2
+TIER_SUFFIX = 64          # turn 2: turn 1's rows and 64 new tokens
+TIER_XFER_BLOCKS = 8      # blocks timed through the pool's spill and fetch
+TIER_DEVICE_HIT_BLOCKS = 256   # the device-hit reference's pool: both turns and the filler fit
+
+
+def _chain_keys(alloc, tokens):
+    """The content addresses of ``tokens``' full blocks."""
+    keys, parent, bs = [], b"", alloc.block_size
+    for j in range(len(tokens) // bs):
+        parent = alloc.chain_key(parent, tokens[j * bs:(j + 1) * bs])
+        keys.append(parent)
+    return keys
+
+
+def _bits_equal(a, b):
+    import torch
+    return bool(torch.equal(a.contiguous().view(torch.int16), b.contiguous().view(torch.int16)))
+
+
+def _tier_turns(engine, prompts, filler, seed, record=None):
+    """turn 1 (the serve prompts), the filler wave, turn 2 (turn 1's rows and
+    TIER_SUFFIX new tokens, each row's own) through ``generate_batch``.
+    ``record(name, fn)`` wraps each call (the tiered run times and counts
+    them). Returns (turn-1 rows, turn-2 prompts, turn-2 rows, actions)."""
+    import numpy as np
+    rng = np.random.default_rng(seed + 21)
+    record = record or (lambda name, fn: fn())
+    actions = {}
+
+    def serve(name, batch, max_new):
+        rows = record(name, lambda: engine.generate_batch(batch, max_new_tokens=max_new))
+        for k, v in engine._last_serve_actions.items():
+            actions[k] = actions.get(k, 0) + v
+        return rows
+
+    rows1 = serve("turn1", prompts, SERVE_MAX_NEW)
+    serve("filler", filler, TIER_FILLER_NEW)
+    vocab = engine.module.config.vocab_size
+    turn2 = [np.concatenate([r, rng.integers(0, vocab, size=TIER_SUFFIX)]).astype(np.int32)
+             for r in rows1]
+    rows2 = serve("turn2", turn2, SERVE_MAX_NEW)
+    return rows1, turn2, rows2, actions
+
+
+def _ttft(reg):
+    h = reg.snapshot()["histograms"]["serving/ttft_ms"]
+    return {q: h[q] for q in ("p50", "p99", "count")}
+
+
+def _phase_ms(reg):
+    """The registry's ``serving/phase_ms`` by phase: count, sum and p50."""
+    import re
+    out = {}
+    for name, h in reg.snapshot()["histograms"].items():
+        m = re.match(r'serving/phase_ms\{phase="([a-z_]+)"', name)
+        if m:
+            out[m.group(1)] = {q: h[q] for q in ("count", "sum", "p50")}
+    return out
+
+
+def _tier_engine(model, params, blocks, tier=True):
+    import deepspeed_tpu_torch
+    serving = {"max_num_blocks": blocks}
+    if tier:
+        serving["kv_host"] = {"enabled": True, "max_host_blocks": TIER_HOST_BLOCKS}
+    return deepspeed_tpu_torch.init_inference(model, params=params, dtype=ASYNC_DTYPE,
+                                              device=ASYNC_DEVICE, serving=serving,
+                                              telemetry={"events": True})
+
+
+def _xfer_rates(engine, n):
+    """Spill and fetch of ``n`` of the engine's pool blocks through a pool of
+    their own (the engine's tier untouched): gather and put, drained to host
+    RAM; then get, the H2D copy and the scatter into the dummy block (which
+    nothing reads). Wall time, device synced around each. Returns ms a block
+    and GB/s each way, and whether every fetched block is bit-equal."""
+    from deepspeed_tpu_torch.inference.engine import host_to_device
+    from deepspeed_tpu_torch.inference.kv_host_pool import KvHostPool
+    sess_pools = engine._paged_workspace[2]
+    cfg = engine.module.config
+    bs = int(engine.config.serving.block_size)
+    hp = KvHostPool(n, (cfg.n_layer, bs, cfg.kv_heads, cfg.head_dim), engine.dtype)
+    blocks = list(range(1, n + 1))
+    nbytes = 2 * sess_pools["k"][:, 1].numel() * sess_pools["k"].element_size()
+    _sync()
+    t0 = time.perf_counter()
+    for b in blocks:
+        hp.put(bytes([b]), sess_pools["k"][:, b].clone(), sess_pools["v"][:, b].clone())
+    hp.drain()
+    _sync()
+    spill_s = time.perf_counter() - t0
+    equal = True
+    t0 = time.perf_counter()
+    for b in blocks:
+        k, v = hp.get(bytes([b]))
+        for pool, t in ((sess_pools["k"], k), (sess_pools["v"], v)):
+            pool[:, 0].copy_(host_to_device(t, engine.device))
+        equal = equal and _bits_equal(sess_pools["k"][:, 0], sess_pools["k"][:, b]) \
+            and _bits_equal(sess_pools["v"][:, 0], sess_pools["v"][:, b])
+    _sync()
+    fetch_s = time.perf_counter() - t0
+    return {"blocks": n, "block_mb": nbytes / 1e6,
+            "spill_ms_a_block": spill_s * 1e3 / n, "spill_gb_s": nbytes * n / spill_s / 1e9,
+            "fetch_ms_a_block": fetch_s * 1e3 / n, "fetch_gb_s": nbytes * n / fetch_s / 1e9,
+            "fetched_bit_equal": equal}
+
+
+def phase_serve_tier(state, seed):
+    """Full Llama-2-7B with the tiered KV cache (``serving.kv_host``,
+    max_host_blocks TIER_HOST_BLOCKS) on a device pool of TIER_BLOCKS
+    blocks: turn 1 (the serve prompts, 32 new tokens), a filler wave of
+    distinct prompts that reclaims every block of turn 1 (demoted to host
+    RAM), then turn 2 (each turn-1 row and 64 new tokens): every fetched
+    block's k and v bit-equal to what was spilled (limit 0), turn 2's
+    prefill tokens its prompt tokens less kv_fetch_tokens (every cached
+    token fetched, no device hit), A = L x prefills and B = L x decode
+    steps over the run, turn 2's rows against the same trace with the tier
+    off (recompute) and with a device pool large enough to hit on the
+    device, each by the near-tie rule; then the filler again and turn 2
+    under a persistent kv_host_pool/fetch fault (recompute, the loop
+    finishes, kv_host_errors counted); the pool drained with no live block
+    and no tier inconsistency. Reports spill and fetch GB/s and ms a block,
+    turn 2's TTFT with the tier and recomputing, host RSS and device
+    peak."""
+    import errno
+    import numpy as np
+    from deepspeed_tpu_torch.accelerator import get_accelerator
+    from deepspeed_tpu_torch.monitor.metrics import get_registry
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    from deepspeed_tpu_torch.ops.kernels import paged_decode_attention as pda
+    from deepspeed_tpu_torch.utils import fault_injection as fi
+
+    t_phase = time.perf_counter()
+    failures = []
+    acc = get_accelerator("cuda" if ASYNC_DEVICE is None else ASYNC_DEVICE)
+    acc.reset_peak_memory_stats()
+    model, params = _llama7b(seed)
+    cfg = model.config
+    prompts = _serve_prompts(cfg, seed)
+    rng = np.random.default_rng(seed + 20)
+    filler = [rng.integers(0, cfg.vocab_size, size=TIER_FILLER[1]).astype(np.int32)
+              for _ in range(TIER_FILLER[0])]
+    rss0 = host_rss_gb()
+
+    # the tiered run: the main path, launches counted around it
+    _reset_telemetry()
+    engine = _tier_engine(model, params, TIER_BLOCKS)
+    engine.generate_batch([p[:64] for p in prompts[:2]], max_new_tokens=2)    # warm-up
+    _cold(engine)
+    hp = engine.ensure_host_kv_pool()
+    hp.clear()
+    spilled, watched, marks = {}, set(), {}
+    real_put = hp.put
+
+    def put(key, k, v):
+        ok = real_put(key, k, v)
+        if ok and key in watched:
+            spilled[key] = (k.clone(), v.clone())
+        return ok
+
+    hp.put = put
+    reg = get_registry()
+
+    def record(name, fn):
+        if name == "turn2":
+            # the filler wave must have reclaimed every block of turn 1
+            marks["turn1_on_device"] = sum(k in engine._paged_alloc._table for k in watched)
+            marks["c0"] = dict(reg.snapshot()["counters"])
+            _reset_telemetry()                 # turn 2's TTFT and events alone
+        _sync()
+        t = time.perf_counter()
+        out = fn()
+        _sync()
+        marks[name + "_s"] = time.perf_counter() - t
+        if name == "turn1":
+            for r in out:                      # turn 1's full blocks: the keys to watch
+                watched.update(_chain_keys(engine._paged_alloc, np.asarray(r)[:-1]))
+        return out
+
+    fa.launches = pda.launches = 0
+    with sampled_host_peak() as host_peak:
+        rows1, turn2, rows2, actions = _tier_turns(engine, prompts, filler, seed, record)
+    launches = {"flash_attention_fwd": fa.launches, "paged_decode_attention": pda.launches}
+    rule = serve_launch_rule(cfg, actions)
+    if launches != rule or (ASYNC_DEVICE is None and not all(launches.values())):
+        failures.append(f"launches {launches} != {cfg.n_layer} x prefills, x decode steps "
+                        f"{actions}")
+    state["serve_tier_launches"] = launches
+    c2 = reg.snapshot()["counters"]
+    ttft_tier, phases_tier = _ttft(reg), _phase_ms(reg)
+    from deepspeed_tpu_torch.monitor import get_flight_recorder
+    ev2 = get_flight_recorder().snapshot()
+    prefill_tokens = sum(e.data.get("tokens", 0) for e in ev2
+                         if e.kind in ("req.prefill", "req.prefill_chunk"))
+    turn2_tokens = sum(int(p.size) for p in turn2)
+    fetch_tokens = int(c2.get("serving/kv_fetch_tokens", 0))
+    hit_tokens = int(c2.get("serving/prefix_cache_hit_tokens", 0))
+    # every cached token came through the tier: fetched, or (the two prompts
+    # that share a prefix) a device hit on a block the other one fetched
+    # earlier in this turn
+    if (marks["turn1_on_device"] or prefill_tokens != turn2_tokens - hit_tokens
+            or fetch_tokens == 0 or not 0 <= hit_tokens - fetch_tokens <= SHARED_PREFIX_TOKENS
+            or c2.get("serving/preemptions", 0)):
+        failures.append(f"turn 2 prefilled {prefill_tokens} of {turn2_tokens} prompt tokens "
+                        f"with {fetch_tokens} fetched, {hit_tokens} cached, "
+                        f"{marks['turn1_on_device']} turn-1 blocks left on the device, "
+                        f"{c2.get('serving/preemptions', 0)} preemptions")
+    # every watched block now on the device or back in host RAM holds the
+    # bits it was spilled with
+    alloc = engine._paged_alloc
+    pools = engine._paged_workspace[2]
+    checked = unequal = 0
+    for key, (k, v) in spilled.items():
+        b = alloc._table.get(key)
+        if b is not None:
+            got = (pools["k"][:, b], pools["v"][:, b])
+        elif hp.contains(key):
+            hp.drain()
+            ent = hp._entries[key]
+            got = (ent.k, ent.v)
+        else:
+            continue
+        checked += 1
+        unequal += not (_bits_equal(got[0].to(k.device), k) and _bits_equal(got[1].to(v.device), v))
+    fetched_blocks = int(c2.get("serving/kv_fetch_hits", 0))
+    if unequal or checked == 0 or len(spilled) != len(watched):
+        failures.append(f"{unequal} of {checked} fetched or re-spilled blocks differ from "
+                        f"their spill ({len(spilled)} of {len(watched)} turn-1 blocks spilled)")
+    spills = int(marks["c0"].get("serving/kv_spills", 0) + c2.get("serving/kv_spills", 0))
+
+    # turn 2 again under a persistent fetch fault: recompute, the loop finishes
+    engine.generate_batch(filler, max_new_tokens=TIER_FILLER_NEW)
+    reg.reset()
+    with fi.inject(fi.FaultInjector().fail_writes(errno.EIO, path_substr="kv_host_pool/fetch",
+                                                  count=-1)):
+        faulted = engine.generate_batch(turn2, max_new_tokens=SERVE_MAX_NEW)
+    cf = reg.snapshot()["counters"]
+    fault_div = _divergences(engine, turn2, faulted, rows2)
+    if (cf.get("serving/kv_host_errors", 0) == 0 or cf.get("serving/kv_fetch_hits", 0)
+            or not all(d["near_tie"] for d in fault_div)):
+        failures.append(f"fetch fault: {cf.get('serving/kv_host_errors', 0)} errors, "
+                        f"{cf.get('serving/kv_fetch_hits', 0)} fetches, rows {fault_div}")
+    leaks, problems = alloc.leak_report(), alloc.host_consistency()
+    if leaks or problems or alloc.num_free != alloc.capacity:
+        failures.append(f"after the drain: live blocks {leaks}, tier {problems}, "
+                        f"{alloc.num_free} of {alloc.capacity} blocks allocatable")
+    xfer = _xfer_rates(engine, TIER_XFER_BLOCKS)
+    if not xfer["fetched_bit_equal"]:
+        failures.append("a block timed through the pool came back with other bits")
+    host_blocks, host_gb = hp.num_blocks, hp.nbytes / 1e9
+    del hp.put                            # the wrapper's cycle (hp -> put -> hp) goes
+    del engine, hp, spilled, pools, alloc
+    _free()
+
+    # the references: the tier off (turn 2 recomputes), and a device pool that
+    # holds both turns (turn 2 hits on the device)
+    refs = {}
+    for name, blocks, tier in (("recompute", TIER_BLOCKS, False),
+                               ("device_hit", TIER_DEVICE_HIT_BLOCKS, False)):
+        _reset_telemetry()
+        ref = _tier_engine(model, params, blocks, tier=tier)
+        ref.generate_batch(prompts, max_new_tokens=SERVE_MAX_NEW)
+        ref.generate_batch(filler, max_new_tokens=TIER_FILLER_NEW)
+        get_registry().reset()
+        _sync()
+        t = time.perf_counter()
+        got = ref.generate_batch(turn2, max_new_tokens=SERVE_MAX_NEW)
+        _sync()
+        div = _divergences(ref, turn2, rows2, got)
+        cr = get_registry().snapshot()["counters"]
+        refs[name] = {"turn2_s": time.perf_counter() - t, "ttft_ms": _ttft(get_registry()),
+                      "phase_ms": _phase_ms(get_registry()),
+                      "prefix_cache_hit_tokens": cr.get("serving/prefix_cache_hit_tokens", 0),
+                      "rows_parting_at_near_ties": len(div), "divergences": div}
+        failures += [f"turn 2 row {d['row']} parts from the {name} run at generated token "
+                     f"{d['index']}, not a near-tie" for d in div if not d["near_tie"]]
+        del ref
+        _free()
+    if refs["device_hit"]["prefix_cache_hit_tokens"] == 0:
+        failures.append("the device-hit reference hit nothing on the device")
+    for p, o in zip(turn2, rows2):
+        o = np.asarray(o)
+        check(o.shape == (p.size + SERVE_MAX_NEW,) and np.array_equal(o[:p.size], p)
+              and ((o >= 0) & (o < cfg.vocab_size)).all(), f"turn-2 row of shape {o.shape}")
+    del params, model
+    _free()
+    emit("serve_tier", model="llama-2-7b", layers=cfg.n_layer, dtype=ASYNC_DTYPE,
+         device_blocks=TIER_BLOCKS, max_host_blocks=TIER_HOST_BLOCKS,
+         filler=list(TIER_FILLER), requests=len(prompts), max_new_tokens=SERVE_MAX_NEW,
+         turn_s={k[:-2]: v for k, v in marks.items() if k.endswith("_s")},
+         spills=spills, fetched_blocks=fetched_blocks, turn2_fetch_tokens=fetch_tokens,
+         turn2_cached_tokens=hit_tokens,
+         turn2_prompt_tokens=turn2_tokens, turn2_prefill_tokens=prefill_tokens,
+         blocks_checked_bit_equal=checked, blocks_unequal=unequal,
+         ttft_ms={"tier": ttft_tier, "recompute": refs["recompute"]["ttft_ms"],
+                  "device_hit": refs["device_hit"]["ttft_ms"]},
+         turn2_phase_ms=phases_tier, references=refs, fetch_fault={"kv_host_errors": cf.get("serving/kv_host_errors", 0),
+                                       "rows_parting_at_near_ties": len(fault_div)},
+         transfer=xfer, host_pool_blocks=host_blocks, host_pool_gb=host_gb,
+         host_rss_gb={"start": rss0, "peak": host_peak[0]}, launches=launches,
+         launch_rule=rule, peak_mem_gb=acc.max_memory_allocated() / 1e9,
+         phase_s=time.perf_counter() - t_phase, card=state.get("card"))
+    check(not failures, "serve_tier failed: " + "; ".join(failures))
+
+
+FLEET_SESSIONS = ("alice", None, "bob", "carol", None, "alice", "dave", None, "bob", "erin",
+                  None, "carol")
+
+
+def _fleet_engines(model, params, **serving):
+    """Two replicas of the serve cell's engine on the one card: one weight
+    tree, one host KV tier."""
+    import deepspeed_tpu_torch
+    cfg = {"kv_host": {"enabled": True, "max_host_blocks": TIER_HOST_BLOCKS}, **serving}
+    e0 = deepspeed_tpu_torch.init_inference(model, params=params, dtype=ASYNC_DTYPE,
+                                            device=ASYNC_DEVICE, serving=cfg,
+                                            telemetry={"events": True})
+    e1 = deepspeed_tpu_torch.init_inference(model, params=e0.params, dtype=ASYNC_DTYPE,
+                                            device=ASYNC_DEVICE, serving=cfg,
+                                            telemetry={"events": True})
+    e1.adopt_host_kv_pool(e0.ensure_host_kv_pool())
+    return [e0, e1]
+
+
+def _fleet_router(engines, start=False, **kw):
+    from deepspeed_tpu_torch.inference import AsyncServingEngine
+    from deepspeed_tpu_torch.inference.router import ReplicaRouter
+    for e in engines:
+        _cold(e)
+    engines[0].ensure_host_kv_pool().clear()       # no host hits from an earlier run
+    return ReplicaRouter([AsyncServingEngine(e, max_new_tokens=SERVE_MAX_NEW, start=start)
+                          for e in engines], **kw)
+
+
+def _fleet_drive(router):
+    n = 0
+    while router.step():
+        n += 1
+        check(n < 20000, "the router did not converge")
+
+
+def _fleet_replay(engines, prompts):
+    """The seeded trace with session keys through the router, driven by
+    ``step()``: decisions and rows."""
+    r = _fleet_router(engines)
+    hs = [r.add_request(p, session=s) for p, s in zip(prompts, FLEET_SESSIONS)]
+    _fleet_drive(r)
+    r.shutdown()
+    return list(r.decisions), [h.result(1) for h in hs]
+
+
+def _fleet_threaded(engines, prompts, mode):
+    """Every prompt submitted at once to the fleet (``"fleet"``: the router
+    over two threaded loops), to the fleet stepped from this one thread
+    (``"fleet_sync"``: ``router.step()``, the replicas' steps interleaved
+    without threads), or to one threaded loop on the first engine
+    (``"one"``). Returns (wall seconds, rows, actions summed over the
+    engines that served)."""
+    from deepspeed_tpu_torch.inference import AsyncServingEngine
+    for e in engines:
+        _cold(e)
+        e._last_serve_actions = {}
+    _sync()
+    t0 = time.perf_counter()
+    if mode != "one":
+        r = _fleet_router(engines, start=mode == "fleet")
+        hs = [r.add_request(p) for p in prompts]
+        if mode == "fleet_sync":
+            _fleet_drive(r)
+        rows = [h.result(timeout=ASYNC_RESULT_S) for h in hs]
+        r.shutdown(timeout=ASYNC_RESULT_S)
+    else:
+        with AsyncServingEngine(engines[0], max_new_tokens=SERVE_MAX_NEW) as one:
+            rows = [h.result(timeout=ASYNC_RESULT_S)
+                    for h in [one.add_request(p) for p in prompts]]
+    _sync()
+    wall = time.perf_counter() - t0
+    actions = {}
+    for e in engines:
+        for k, v in e._last_serve_actions.items():
+            actions[k] = actions.get(k, 0) + v
+    return wall, rows, actions
+
+
+def phase_serve_fleet(state, seed):
+    """Two replicas of full Llama-2-7B on the one card behind the replica
+    router: one weight tree (equal data_ptrs) and one host KV tier, the
+    device peak under the weights, two pools and 2 GB. The seeded trace with
+    session keys driven by ``step()`` twice gives equal decisions (limit 0)
+    and rows matching one engine's generate_batch by the near-tie rule.
+    Roles prefill,decode: a handoff through the pool for every prompt of at
+    least one block (router/handoffs), the decode replica launching A only
+    for the prompts under a block (its tails are chunk prefills, which run
+    no kernel), rows by the near-tie rule. A persistent engine-fatal decode
+    fault pinned to r0, stepped alone until its breaker opens: every request
+    completes on r1 matching a clean decode by the near-tie rule, r0's
+    /healthz reads 503 and the router's 200. Reports the fleet's tokens/s
+    against one loop on the same prompts, threaded, and against the fleet
+    stepped from one thread (the threaded fleet is the main path's run,
+    launches counted around it), and peak memory."""
+    import http.client
+    import threading
+    import numpy as np
+    from deepspeed_tpu_torch.accelerator import get_accelerator
+    from deepspeed_tpu_torch.inference import serve
+    from deepspeed_tpu_torch.monitor.metrics import get_registry
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    from deepspeed_tpu_torch.ops.kernels import paged_decode_attention as pda
+    from deepspeed_tpu_torch.utils import fault_injection as fi
+
+    t_phase = time.perf_counter()
+    failures = []
+    acc = get_accelerator("cuda" if ASYNC_DEVICE is None else ASYNC_DEVICE)
+    acc.reset_peak_memory_stats()
+    model, params = _llama7b(seed)
+    cfg = model.config
+    prompts = _serve_prompts(cfg, seed)
+    weights_gb = sum(p.numel() * p.element_size() for p in params.parameters()) / 1e9
+    _reset_telemetry()
+    engines = _fleet_engines(model, params)
+    e0, e1 = engines
+    shared = all(a.data_ptr() == b.data_ptr()
+                 for a, b in zip(e0.params.parameters(), e1.params.parameters()))
+    want = e0.generate_batch(prompts, max_new_tokens=SERVE_MAX_NEW)       # the reference
+    pool_gb = sum(t.numel() * t.element_size() for t in e0._paged_workspace[2].values()) / 1e9
+    e1.generate_batch([p[:64] for p in prompts[:2]], max_new_tokens=2)     # both pools built
+    judged = {}
+    peaks = {"setup": acc.max_memory_allocated() / 1e9}   # the running peak after each part
+
+    def near_ties(name, rows):
+        div = _divergences(e0, prompts, rows, want, judged)
+        failures.extend(f"{name} row {d['row']} parts from generate_batch at generated token "
+                        f"{d['index']}, not a near-tie" for d in div if not d["near_tie"])
+        return div
+
+    # replay determinism
+    runs = [_fleet_replay(engines, prompts) for _ in range(2)]
+    if runs[0][0] != runs[1][0]:
+        failures.append("two replays of the session trace routed differently")
+    replay_div = near_ties("replay", runs[0][1])
+    reasons = sorted({d["reason"] for d in runs[0][0]})
+    peaks["replay"] = acc.max_memory_allocated() / 1e9
+
+    # prefill -> decode handoff through the shared pool
+    get_registry().reset()
+    r = _fleet_router(engines, roles=["prefill", "decode"])
+    per_rep = [{"flash_attention_fwd": 0, "paged_decode_attention": 0} for _ in engines]
+    for i, loop in enumerate(r.replicas):
+        real_step = loop.step
+
+        def step(real_step=real_step, i=i):
+            a0, b0 = fa.launches, pda.launches
+            try:
+                return real_step()
+            finally:
+                per_rep[i]["flash_attention_fwd"] += fa.launches - a0
+                per_rep[i]["paged_decode_attention"] += pda.launches - b0
+        loop.step = step
+    hs = [r.add_request(p) for p in prompts]
+    _fleet_drive(r)
+    r.shutdown()
+    for loop in r.replicas:
+        del loop.step                      # the wrapper's cycle holds the engine
+    handoff_rows = [h.result(1) for h in hs]
+    bs = int(e0.config.serving.block_size)
+    n_long = sum(p.size >= bs for p in prompts)
+    handoffs = get_registry().snapshot()["counters"].get("router/handoffs", 0)
+    decode_a = per_rep[1]["flash_attention_fwd"]
+    want_a = cfg.n_layer * (len(prompts) - n_long)
+    if handoffs != n_long or (ASYNC_DEVICE is None and decode_a != want_a):
+        failures.append(f"{handoffs} handoffs for {n_long} prompts of a block or more; the "
+                        f"decode replica launched A {decode_a} times, want {want_a}")
+    handoff_div = near_ties("handoff", handoff_rows)
+    peaks["handoff"] = acc.max_memory_allocated() / 1e9
+
+    # a persistent decode fault pinned to r0: the breaker drain
+    fault_cfg = e0.config.serving.fault
+    for e in engines:
+        e._config.serving.fault = type(fault_cfg)(max_engine_restarts=1, restart_backoff_s=0.0)
+    r = _fleet_router(engines)
+    servers = [serve.build_http_server(x, port=0) for x in (r, r.replicas[0])]
+    threads = [threading.Thread(target=s.serve_forever, daemon=True) for s in servers]
+    for t in threads:
+        t.start()
+    try:
+        hs = [r.add_request(p) for p in prompts]
+        with fi.inject(fi.FaultInjector().fail_step("decode", count=-1, phase="post")):
+            n = 0
+            while not r.replicas[0]._crash_loop and n < 300:
+                r.replicas[0].step()
+                n += 1
+        _fleet_drive(r)
+
+        def healthz(s):
+            conn = http.client.HTTPConnection("127.0.0.1", s.server_address[1], timeout=60)
+            try:
+                conn.request("GET", "/healthz")
+                resp = conn.getresponse()
+                resp.read()
+                return resp.status
+            finally:
+                conn.close()
+        codes = [healthz(s) for s in servers]
+    finally:
+        for s in servers:
+            s.shutdown()
+        for t in threads:
+            t.join(60)
+    drain_rows = [h.result(1) if h.status == "finished" else np.asarray([], np.int32)
+                  for h in hs]
+    status = [h.status for h in hs]
+    failovers = sum(d["reason"] == "failover" for d in r.decisions)
+    r.shutdown()
+    if not r.replicas[0]._crash_loop or codes != [200, 503] or status != ["finished"] * 12 \
+            or not failovers:
+        failures.append(f"drain: breaker {r.replicas[0]._crash_loop}, /healthz router and r0 "
+                        f"{codes}, statuses {status}, {failovers} failovers")
+    drain_div = near_ties("drain", drain_rows)
+    peaks["drain"] = acc.max_memory_allocated() / 1e9
+    for e in engines:
+        e._config.serving.fault = fault_cfg
+
+    # throughput: one loop, the fleet, the fleet from one thread, and back;
+    # launches counted around the threaded fleet's runs (the main path)
+    walls = {"one": [], "fleet": [], "fleet_sync": []}
+    fa.launches = pda.launches = 0
+    fleet_actions = {}
+    for name in ("one", "fleet", "fleet_sync", "fleet_sync", "fleet", "one"):
+        a0, b0 = fa.launches, pda.launches
+        wall, rows, actions = _fleet_threaded(engines, prompts, name)
+        walls[name].append(wall)
+        if name == "fleet":
+            for k, v in actions.items():
+                fleet_actions[k] = fleet_actions.get(k, 0) + v
+            fleet_rows = rows
+        else:
+            fa.launches, pda.launches = a0, b0      # the other runs are not the main path
+    launches = {"flash_attention_fwd": fa.launches, "paged_decode_attention": pda.launches}
+    rule = serve_launch_rule(cfg, fleet_actions)
+    if launches != rule or (ASYNC_DEVICE is None and not all(launches.values())):
+        failures.append(f"launches {launches} != {cfg.n_layer} x prefills, x decode steps "
+                        f"{fleet_actions}")
+    state["serve_fleet_launches"] = launches
+    fleet_div = near_ties("threaded fleet", fleet_rows)
+    peak = acc.max_memory_allocated() / 1e9
+    if not shared or peak > weights_gb + 2 * pool_gb + 2.0:
+        failures.append(f"weights shared {shared}; device peak {peak:.2f} GB over weights "
+                        f"{weights_gb:.2f} + 2 x pool {pool_gb:.2f} + 2 GB")
+    for p, o in zip(prompts, fleet_rows):
+        o = np.asarray(o)
+        check(o.shape == (p.size + SERVE_MAX_NEW,) and np.array_equal(o[:p.size], p)
+              and ((o >= 0) & (o < cfg.vocab_size)).all(), f"fleet row of shape {o.shape}")
+    generated = len(prompts) * SERVE_MAX_NEW
+    one_s, fleet_s = statistics.median(walls["one"]), statistics.median(walls["fleet"])
+    sync_s = statistics.median(walls["fleet_sync"])
+    del engines, e0, e1, r
+    _free()
+    del params, model
+    _free()
+    emit("serve_fleet", model="llama-2-7b", layers=cfg.n_layer, dtype=ASYNC_DTYPE, replicas=2,
+         requests=len(prompts), max_new_tokens=SERVE_MAX_NEW, weights_shared=shared,
+         weights_gb=weights_gb, pool_gb=pool_gb,
+         replay={"identical": runs[0][0] == runs[1][0], "decisions": len(runs[0][0]),
+                 "reasons": reasons, "rows_parting_at_near_ties": len(replay_div)},
+         handoff={"handoffs": handoffs, "prompts_of_a_block": int(n_long),
+                  "launches_by_replica": per_rep, "rows_parting_at_near_ties": len(handoff_div)},
+         drain={"healthz_router_r0": codes, "failovers": failovers,
+                "rows_parting_at_near_ties": len(drain_div)},
+         throughput={"one_loop_s": walls["one"], "fleet_s": walls["fleet"],
+                     "fleet_one_thread_s": walls["fleet_sync"],
+                     "one_loop_tokens_per_s": generated / one_s,
+                     "fleet_tokens_per_s": generated / fleet_s,
+                     "fleet_one_thread_tokens_per_s": generated / sync_s,
+                     "fleet_over_one": one_s / fleet_s,
+                     "rows_parting_at_near_ties": len(fleet_div)},
+         launches=launches, launch_rule=rule, peak_mem_gb=peak, peak_mem_gb_after=peaks,
+         phase_s=time.perf_counter() - t_phase, card=state.get("card"))
+    check(not failures, "serve_fleet failed: " + "; ".join(failures))
+
+
 def phase_kernels(state):
     res = state.get("kernel_results", {})
     serve = state.get("launches", {})
@@ -5419,6 +6028,8 @@ def phase_kernels(state):
     client_opt = state.get("client_opt_launches", {})
     health = state.get("health_launches", {})
     serve_async = state.get("serve_async_launches", {})
+    serve_tier = state.get("serve_tier_launches", {})
+    serve_fleet = state.get("serve_fleet_launches", {})
     rows = []
     meta = {
         "flash_attention_fwd": (
@@ -5490,7 +6101,9 @@ def phase_kernels(state):
                                            ("resume", resume), ("ingest", ingest),
                                            ("telemetry", telemetry),
                                            ("client_opt", client_opt), ("health", health),
-                                           ("serve_async", serve_async))
+                                           ("serve_async", serve_async),
+                                           ("serve_tier", serve_tier),
+                                           ("serve_fleet", serve_fleet))
                    if name in n}
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                      "launches": sum(by_path.values()) if by_path else None,
@@ -5540,6 +6153,9 @@ def main(argv=None):
             fn(state, args.seed)
         else:
             fn(state)
+        # what a phase left in reference cycles (an HTTP server's handler
+        # class holds its serving loop) goes before the next one allocates
+        _free()
         seconds[p] = time.perf_counter() - t
     emit("done", seconds=time.perf_counter() - t0, phase_seconds=seconds)
     print(json.dumps({"ok": True,

@@ -14,9 +14,13 @@ JAX package's ``dscli``), run as ``python -m deepspeed_tpu_torch.cli
 - ``serve [--model m] [--port p] [--device d]`` — the OpenAI-style
   completions endpoint over the always-on async serving loop
   (``inference/serve.py``; ``--slo-*``, ``--adaptive`` and the sampler flags
-  stand the control plane up beside it)
+  stand the control plane up beside it; ``--replicas N`` and
+  ``--replica-roles`` put N engines behind the replica router)
+- ``profile <trace.json | dir> [--top N]`` — per-span statistics of a
+  chrome trace, or of each ``trace_<n>.json`` a ``ProfileWindow``
+  (``engine.profile(steps=N)``, ``telemetry.profile``) wrote into a directory
 
-``run``, ``report``, ``bench``, ``lint``, ``profile``,
+``run``, ``report``, ``bench``, ``lint``,
 ``elastic``, ``autotune`` and ``ssh`` are not ported: each prints the
 refusal naming its ROADMAP.md item and returns 2. Nothing here imports
 torch until ``serve`` runs.
@@ -37,7 +41,6 @@ NOT_PORTED = {
     "report": ("the environment report (dscli report)", "queue 1: env_report.py"),
     "bench": ("the collective micro-benchmarks (dscli bench)", "queue 1: comm/"),
     "lint": ("the trace-safety analyzer (dscli lint)", "queue 1: tools/dslint for the port"),
-    "profile": ("the profile summarizer (dscli profile)", "queue 1: profiling/"),
     "elastic": ("the elastic-config inspector (dscli elastic)", "queue 1: elasticity/"),
     "autotune": ("the config autotuner (dscli autotune)", "queue 1: autotuning/"),
     "ssh": ("the host broadcaster (dscli ssh)", "queue 1: launcher/"),
@@ -213,6 +216,77 @@ def _ctl(argv):
     return 1
 
 
+def _span_table(path, top):
+    """The chrome-trace branch of the JAX ``_profile`` (``cli.py:310``):
+    per-name statistics of the complete (``ph == "X"``) spans, ranked by
+    total time. Returns the exit code."""
+    import json
+
+    try:
+        with open(path) as f:
+            doc = json.load(f)
+        events = doc.get("traceEvents", [])
+    except ValueError:
+        print(f"{path}: not JSON (pass a chrome-trace .json or a ProfileWindow "
+              "directory)")
+        return 1
+    spans = {}
+    for ev in events:
+        if ev.get("ph") == "X" and isinstance(ev.get("dur"), (int, float)):
+            s = spans.setdefault(ev.get("name", "?"), {"n": 0, "total_us": 0.0, "max_us": 0.0})
+            s["n"] += 1
+            s["total_us"] += ev["dur"]
+            s["max_us"] = max(s["max_us"], ev["dur"])
+    if not spans:
+        print(f"{path}: no complete (ph=X) spans")
+        return 1
+    print(f"{path}: {sum(s['n'] for s in spans.values())} spans, {len(spans)} names")
+    print(f"{'name':<32} {'count':>7} {'total ms':>10} {'mean ms':>9} {'max ms':>9}")
+    ranked = sorted(spans.items(), key=lambda kv: -kv[1]["total_us"])
+    for name, s in ranked[:top]:
+        print(f"{name[:32]:<32} {s['n']:>7} {s['total_us'] / 1e3:>10.2f} "
+              f"{s['total_us'] / s['n'] / 1e3:>9.3f} {s['max_us'] / 1e3:>9.3f}")
+    if len(ranked) > top:
+        print(f"... {len(ranked) - top} more (raise --top)")
+    return 0
+
+
+def _profile(argv):
+    """``profile <path>``: a chrome-trace JSON (``export_serving_trace``,
+    ``export_fleet_trace``, a step tracer's export) gets the JAX
+    ``_profile``'s span table; a directory gets one table per
+    ``trace_<n>.json`` that ``ProfileWindow`` wrote there (the port's
+    ``torch.profiler`` captures, in place of a ``jax.profiler`` logdir).
+    rc 1 when there is nothing to summarize."""
+    import argparse
+    import re
+
+    parser = argparse.ArgumentParser(
+        prog="python -m deepspeed_tpu_torch.cli profile",
+        description="summarize a ProfileWindow directory or a chrome-trace JSON")
+    parser.add_argument("path", help="ProfileWindow directory or trace .json")
+    parser.add_argument("--top", type=int, default=20,
+                        help="spans to show for a chrome trace (default 20)")
+    args = parser.parse_args(argv)
+    path = os.path.abspath(args.path)
+    if os.path.isfile(path):
+        return _span_table(path, args.top)
+    if not os.path.isdir(path):
+        print(f"{path}: no such file or directory")
+        return 1
+    found = [(int(m.group(1)), name) for name in os.listdir(path)
+             for m in [re.fullmatch(r"trace_(\d+)\.json", name)] if m]
+    if not found:
+        print(f"{path}: no trace_<n>.json captures: take one with "
+              "engine.profile(steps=N) or telemetry.profile")
+        return 1
+    print(f"{path}: {len(found)} capture(s)")
+    rc = 0
+    for _, name in sorted(found):
+        rc = max(rc, _span_table(os.path.join(path, name), args.top))
+    return rc
+
+
 def _serve(argv):
     """``serve``: the always-on async serving loop behind ``POST
     /v1/completions`` (with ``"stream": true`` server-sent events),
@@ -238,7 +312,7 @@ def _not_ported(cmd):
 
 
 COMMANDS = {"health": health_cli, "top": top_cli, "ckpt": _ckpt, "trace": _trace, "ctl": _ctl,
-            "serve": _serve,
+            "serve": _serve, "profile": _profile,
             **{cmd: _not_ported(cmd) for cmd in NOT_PORTED}}
 
 

@@ -124,7 +124,17 @@ class SpeculativeConfig(ConfigModel):
 @config
 class KvHostConfig(ConfigModel):
     """Tiered KV cache ("serving.kv_host"): a host-RAM tier behind the block
-    allocator. Not in this slice; the engine refuses ``enabled=True``."""
+    allocator (``inference/kv_host_pool.py``). With ``enabled`` a cold
+    prefix-cache block that allocation pressure reclaims is demoted (its
+    ``[L, bs, KV, Hd]`` k and v copied to host RAM under its hash-chain
+    key) instead of destroyed, and a later admission whose prefix walks onto
+    a demoted chain copies it back into a fresh device block instead of
+    recomputing its prefill. Needs prefix caching on the paged path; a
+    fetched block is bit-equal to the spilled one, so greedy tokens do not
+    change. ``max_host_blocks`` bounds the tier with its own LRU (0: four
+    times the device pool's allocatable blocks); ``spill="off"`` keeps the
+    tier fetch-only. Spill and fetch faults degrade to destroy-on-reclaim
+    and recompute, counted in ``serving/kv_host_errors``."""
     enabled: bool = False
     max_host_blocks: int = 0
     spill: str = "auto"
@@ -132,8 +142,15 @@ class KvHostConfig(ConfigModel):
 
 @config
 class ReplicaConfig(ConfigModel):
-    """Replica scale-out ("serving.replicas"): the ``dp`` serving axis. Not
-    in this slice; the engine refuses ``dp > 1``."""
+    """Replica scale-out ("serving.replicas"): the ``dp`` serving axis.
+    N engines on one weight tree and one host KV tier stand behind the
+    :class:`~deepspeed_tpu_torch.inference.router.ReplicaRouter`
+    (``serve --replicas N``). ``roles`` tags each replica ``any`` |
+    ``prefill`` | ``decode`` (a ``prefill`` entry turns on the
+    prefill-to-decode handoff through the host tier); ``affinity="off"``
+    drops session hashing; ``handoff="off"`` keeps the roles for routing
+    but never warms a prompt on a prefill replica. The router reads
+    ``roles``, ``affinity`` and ``handoff`` from its first engine."""
     dp: int = 1
     roles: list = field(default_factory=list)
     affinity: str = "session"

@@ -37,6 +37,15 @@ no token read (a copy-on-write copy, a non-final prefill chunk) is timed
 on the card by a pair of CUDA events and emitted at the session's next
 token read, which the loop makes anyway: telemetry adds no sync.
 
+With ``serving.kv_host`` the session runs the tiered KV cache: the block
+allocator's demotion hook (:meth:`_ServeSession._spill_block`) gathers a
+cold block that allocation reclaims and hands it to the host pool
+(``inference/kv_host_pool.py``), and an admission whose prefix walks onto a
+demoted chain copies those blocks back (:meth:`_ServeSession._run_fetches`)
+before its tail prefills (``kv.spill`` / ``kv.fetch`` spans). Engines that
+share one host pool (``adopt_host_kv_pool``) are the replica router's KV
+transport (``inference/router.py``).
+
 ``open_serve_session`` is the step API both front-ends share:
 ``generate_batch`` adds its batch and drains, the always-on
 ``AsyncServingEngine`` (``inference/serve.py``) feeds arrivals in as they
@@ -55,6 +64,7 @@ the ROADMAP item that will bring them.
 from __future__ import annotations
 
 import collections
+import gc
 import time
 from typing import Dict, Optional
 
@@ -64,12 +74,23 @@ import torch
 from deepspeed_tpu_torch.accelerator.real_accelerator import get_accelerator, resolve_device
 from deepspeed_tpu_torch.inference.block_allocator import DUMMY_BLOCK, BlockAllocator
 from deepspeed_tpu_torch.inference.config import DeepSpeedInferenceConfig, DtypeEnum
+from deepspeed_tpu_torch.inference.kv_host_pool import KvHostPool, dtype_name
 from deepspeed_tpu_torch.inference.scheduler import ContinuousBatchingScheduler, ServingTelemetry
 from deepspeed_tpu_torch.inference.spec import NgramProposer
 from deepspeed_tpu_torch.models.transformer import copy_paged_block
 from deepspeed_tpu_torch.utils.fault_injection import step_fault
 from deepspeed_tpu_torch.utils.logging import log_dist, logger, warn_once
 from deepspeed_tpu_torch.utils.not_ported import not_ported
+
+
+def host_to_device(t, device):
+    """A host KV slice onto ``device`` for a fetch: on the card through a
+    pinned staging buffer, so the H2D copy is asynchronous (the caching host
+    allocator keeps the buffer until the copy has run); as is on the CPU."""
+    if device.type != "cuda":
+        return t
+    staged = torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t)
+    return staged.to(device, non_blocking=True)
 
 
 class InferenceEngine:
@@ -101,6 +122,9 @@ class InferenceEngine:
         self._workspace = None       # (B, Smax, cache): static generate's KV workspace
         self._paged_workspace = None
         self._paged_alloc = None     # persistent prefix-cache allocator
+        # the host-RAM KV tier: content-addressed, so it outlives pool
+        # workspaces and serves; only a geometry or dtype change rebuilds it
+        self._kv_host_pool = None
         self._serve_rid_base = 0     # rids unique across generate_batch calls
         self._active_session = None  # at most ONE serving session owns the pools
         self._last_serve_stats = {}
@@ -136,15 +160,11 @@ class InferenceEngine:
             not_ported("int8 weight-only quantization (dtype='int8')", "queue 1: int8 inference")
         if int(c.tensor_parallel.tp_size) > 1 or int(srv.tp) > 1 or int(c.mp_size) > 1:
             not_ported("tensor-parallel serving", "queue 1: sharded serving")
-        if int(srv.replicas.dp) > 1:
-            not_ported("serving replicas (serving.replicas.dp > 1)", "queue 1: sharded serving")
         if int(c.moe.ep_size) > 1 or int(c.ep_size) > 1 or hasattr(model, "moe"):
             not_ported("MoE inference", "queue 1: MoE")
         off = dict(c.zero or {}).get("offload_param", {})
         if str(off.get("device", "none")).lower() in ("cpu", "nvme"):
             not_ported("ZeRO-Inference weight streaming", "queue 1: ZeRO-Inference")
-        if srv.kv_host.enabled:
-            not_ported("the tiered KV cache (serving.kv_host)", "queue 1: tiered KV cache")
 
     def _load_checkpoint(self, model):
         """The JAX engine's checkpoint branch: an HF checkpoint (a directory
@@ -292,6 +312,68 @@ class InferenceEngine:
         alloc = BlockAllocator(num_blocks, block_size, prefix_cache=True)
         self._paged_alloc = alloc
         return alloc
+
+    def _kv_host_pool_for(self, num_blocks: int, block_size: int, caching: bool):
+        """The persistent host-RAM KV tier for the serving geometry, or None
+        when ``serving.kv_host`` is off or prefix caching is (the tier is
+        keyed by the cache's hash chains; JAX ``engine.py:826``)."""
+        kh = self._config.serving.kv_host
+        if not kh.enabled or not caching:
+            return None
+        if str(kh.spill) not in ("auto", "off"):
+            raise ValueError(f"serving.kv_host.spill={kh.spill!r} (expected auto|off)")
+        cfg = self.module.config
+        shape = (cfg.n_layer, block_size, cfg.kv_heads, cfg.head_dim)
+        cap = int(kh.max_host_blocks) or 4 * max(num_blocks - 1, 1)
+        pool = self._kv_host_pool
+        if pool is not None and pool.matches_geometry(shape, self.dtype) \
+                and pool.max_blocks == cap:
+            return pool
+        pool = KvHostPool(cap, shape, self.dtype, telemetry=self._serving_tel)
+        self._kv_host_pool = pool
+        log_dist(f"tiered KV cache: host pool of {cap} blocks ({shape}, "
+                 f"{pool.dtype}) attached behind the block allocator", ranks=[0])
+        return pool
+
+    def _serving_geometry(self):
+        """``(num_blocks, block_size, n_max, caching)`` of a session opened
+        now, from ``serving``."""
+        srv = self._config.serving
+        bs = int(srv.block_size)
+        n_max = -(-self.module.config.max_seq // bs)     # block-table width
+        num_blocks = int(srv.max_num_blocks) or (int(srv.max_running) * n_max + 1)
+        caching = (hasattr(self.module, "forward_paged_prefill_chunk")
+                   and str(srv.prefix_caching) != "off")
+        return num_blocks, bs, n_max, caching
+
+    def ensure_host_kv_pool(self):
+        """The host KV tier for the current serving geometry, built without
+        opening a session (``serve_main`` stands the replicas' shared pool up
+        on the first engine this way; JAX ``engine.py:857``). None when
+        ``serving.kv_host`` is off or the model cannot prefix-cache."""
+        num_blocks, bs, _, caching = self._serving_geometry()
+        return self._kv_host_pool_for(num_blocks, bs, caching)
+
+    def adopt_host_kv_pool(self, pool) -> None:
+        """Share another engine's host KV tier, the replicas' KV transport
+        (``inference/router.py``): a prefill replica demotes a prompt's
+        blocks into the shared pool and a decode replica's admission fetches
+        them. The pool must match this engine's block slice shape and dtype
+        (content addresses only carry between identical layouts); later
+        sessions then use it instead of building their own (JAX
+        ``engine.py:872``). None detaches."""
+        if pool is None:
+            self._kv_host_pool = None
+            return
+        cfg = self.module.config
+        shape = (cfg.n_layer, int(self._config.serving.block_size), cfg.kv_heads,
+                 cfg.head_dim)
+        if not pool.matches_geometry(shape, self.dtype):
+            raise ValueError(
+                f"host KV pool geometry {pool.block_shape}/{pool.dtype} does not match "
+                f"this engine's {shape}/{dtype_name(self.dtype)}: replicas can only share "
+                "a tier when their serving geometry is identical")
+        self._kv_host_pool = pool
 
     # ------------------------------------------------------------------ #
     # full-sequence forward and static generation
@@ -497,11 +579,8 @@ class InferenceEngine:
         if max_new <= 0:
             raise ValueError("a serving session needs max_new >= 1")
 
-        cfg = self.module.config
-        bs = int(srv.block_size)
         W = int(srv.max_running)
-        n_max = -(-cfg.max_seq // bs)          # block-table width
-        num_blocks = int(srv.max_num_blocks) or (W * n_max + 1)
+        num_blocks, bs, n_max, _ = self._serving_geometry()
 
         pc_mode = str(srv.prefix_caching)
         if pc_mode not in ("auto", "on", "off"):
@@ -540,6 +619,11 @@ class InferenceEngine:
 
         pools, pools_reused = self._paged_pools(num_blocks, bs)
         alloc = self._paged_allocator(num_blocks, bs, caching, pools_reused)
+        # the tiered KV cache: attach the persistent host tier and decide
+        # whether this session demotes (spill) or only serves host hits
+        host_pool = self._kv_host_pool_for(num_blocks, bs, caching)
+        alloc.attach_host_pool(host_pool)
+        kv_spill = host_pool is not None and str(srv.kv_host.spill) != "off"
         if self._serving_tel is not None:
             self._serving_tel.tp.set(1.0)      # one device: no head-sharded pools
         sched = ContinuousBatchingScheduler(alloc, W, n_max,
@@ -555,7 +639,7 @@ class InferenceEngine:
             generator=torch.Generator(device=self.device).manual_seed(int(seed)),
             eos_token_id=eos_token_id, W=W, n_max=n_max, bs=bs, num_blocks=num_blocks,
             chunk_tokens=chunk_tokens, spec_wb=spec_wb, on_tokens=on_tokens,
-            on_finish=on_finish, retain_finished=retain_finished)
+            on_finish=on_finish, retain_finished=retain_finished, kv_spill=kv_spill)
         self._active_session = session
         return session
 
@@ -571,10 +655,14 @@ class _ServeSession:
 
     def __init__(self, engine, sched, pools, *, max_new, temperature, top_k, generator,
                  eos_token_id, W, n_max, bs, num_blocks, chunk_tokens, spec_wb,
-                 on_tokens=None, on_finish=None, retain_finished=True):
+                 on_tokens=None, on_finish=None, retain_finished=True, kv_spill=False):
         self.engine = engine
         self.sched = sched
         self.pools = pools
+        # the tiered KV cache's demotion hook is session-scoped: it reads
+        # this session's pools, so close() clears it
+        self._kv_spill = kv_spill
+        sched.allocator.set_spill(self._spill_block if kv_spill else None)
         # fault containment (serving.fault): the action a fault is
         # attributed to, the finer dispatch site for step_faults{kind=}
         # (a prefill chunk may run a cow copy first), and the retry bounds
@@ -752,23 +840,120 @@ class _ServeSession:
         cache starts cold."""
         engine, sched = self.engine, self.sched
         self._pending_spans.clear()         # their events timed dead work
+        sched.allocator.set_spill(None)     # the hook read the dead pools
+        host_pool = sched.allocator.host_pool
         self.pools = None
         engine._paged_workspace = None      # frees the old pools first
         engine._paged_alloc = None
+        # on the card a reference cycle out of the faulted forward can still
+        # hold them (the card then held both pools through the rebuild)
+        gc.collect()
         pools, _ = engine._paged_pools(self.num_blocks, self.bs)
         alloc = engine._paged_allocator(self.num_blocks, self.bs, sched.prefix_caching, False)
+        # the content-addressed host tier lives in host RAM: it survives
+        alloc.attach_host_pool(host_pool)
         sched.reset_pool(alloc)
         self.pools = pools
         self._pools_valid = True
+        if self._kv_spill:
+            alloc.set_spill(self._spill_block)
+
+    # ---- tiered KV cache: demote (D2H) / fetch (H2D) ---- #
+
+    def _spill_block(self, block: int, key: bytes) -> bool:
+        """The allocator's demotion hook (JAX ``engine.py:1672``): gather
+        ``block``'s per-layer k and v slices and hand them to the host pool,
+        which starts their D2H copy. The gather is a clone queued on the
+        serving stream at reclaim, before the new owner's forward writes
+        into the block, so stream order reads the old content. Never
+        raises an ``Exception``: a failure degrades to destroy-on-reclaim
+        (the pool counts and warns)."""
+        sched, ev = self.sched, self.ev
+        hp = sched.allocator.host_pool
+        if hp is None:
+            return False
+        prev_site = self.fault_site
+        self.fault_site = "spill"    # a SimulatedCrash escaping reads "spill"
+        try:
+            step_fault("spill", "pre")
+            t0 = time.monotonic_ns() if ev is not None else 0
+            k = self.pools["k"][:, block].clone()
+            v = self.pools["v"][:, block].clone()
+            ok = hp.put(key, k, v)
+        except Exception as e:  # noqa: BLE001 — a spill is best-effort cache
+            # retention: it degrades, counted in serving/kv_host_errors
+            hp._count_error("spill (gather)", e)
+            self.fault_site = prev_site
+            return False
+        self.fault_site = prev_site
+        if ok:
+            if ev is not None:
+                # the span covers the gather's dispatch and the copy's start:
+                # the D2H itself overlaps the next steps, which is the point
+                dur = time.monotonic_ns() - t0
+                ev.emit("kv.spill", t_ns=t0, dur_ns=dur, blocks=1,
+                        bytes=k.numel() * k.element_size() * 2, block=block)
+                if sched.telemetry is not None:
+                    sched.telemetry.phase("spill", dur / 1e6)
+            if sched.telemetry is not None:
+                sched.telemetry.kv_spills.inc()
+        return ok
 
     def demote_prompt(self, tokens) -> int:
-        """Force-demote a prompt's full blocks into the host KV tier (JAX
-        ``engine.py:1717``). The port has no host tier yet (ROADMAP.md
-        queue 1, tiered KV cache), so, as the JAX session without a spill
-        hook, it demotes nothing and returns 0."""
+        """Force-demote ``tokens``'s committed full blocks into the host
+        tier (:meth:`BlockAllocator.demote_chain`; JAX ``engine.py:1717``):
+        the push half of the prefill-to-decode handoff. Returns the number
+        of blocks demoted (0 without a spill hook)."""
         if self._closed:
             raise RuntimeError("serving session is closed")
-        return 0
+        if not self._kv_spill:
+            return 0
+        return self.sched.allocator.demote_chain(tokens)
+
+    def _run_fetches(self, req) -> None:
+        """Land the admission's host-tier hits (JAX ``engine.py:1732``): copy
+        each demoted ``[L, bs, KV, Hd]`` slice into the request's freshly
+        allocated block, queued before any of the request's prefill reads
+        it. Each promoted block registers under its chain key only now,
+        with its content on the device, and its host entry is dropped (a
+        key lives in one tier); the copy-on-write split's private copy (key
+        None) stays unregistered and keeps its host entry. The ``kv.fetch``
+        span is timed like the other spans with no token read of their own
+        (CUDA events on the card), so it adds no host sync."""
+        fetches = req.fetch_pending
+        req.fetch_pending = []
+        if not fetches:
+            return
+        prev_site = self.fault_site
+        self.fault_site = "fetch"    # restored only on success: containment
+        step_fault("fetch", "pre")   # labels a fault here "fetch"
+        engine, sched, ev = self.engine, self.sched, self.ev
+        alloc = sched.allocator
+        span = self._unread_span_start() if ev is not None else None
+        nbytes = ntokens = 0
+        for dst, key, k_host, v_host, tokens in fetches:
+            k, v = host_to_device(k_host, engine.device), host_to_device(v_host, engine.device)
+            self._pools_valid = False
+            self.pools["k"][:, dst].copy_(k)
+            self.pools["v"][:, dst].copy_(v)
+            step_fault("fetch", "post")
+            self._pools_valid = True
+            nbytes += 2 * k_host.numel() * k_host.element_size()
+            ntokens += int(tokens)
+            if key is not None:
+                alloc.register(dst, key)
+                if alloc.host_pool is not None:
+                    alloc.host_pool.remove(key)
+        if sched.telemetry is not None:
+            # counted at landing, not admission: a preempt-before-fetch
+            # re-admission must not count an H2D that never ran
+            sched.telemetry.kv_fetch_hits.inc(len(fetches))
+            if ntokens:
+                sched.telemetry.kv_fetch_tokens.inc(ntokens)
+        if ev is not None:
+            self._unread_span_end(span, "kv.fetch", req.rid, "fetch",
+                                  blocks=len(fetches), bytes=nbytes)
+        self.fault_site = prev_site
 
     def _tensor(self, a, dtype):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.engine.device)
@@ -867,6 +1052,7 @@ class _ServeSession:
             return                      # retry-backoff idle tick: no device work
         if kind == "prefill":
             req = payload
+            self._run_fetches(req)
             prefix = req.prefix()
             L = prefix.size
             Tb = engine._bucket(L, cfg.max_seq)
@@ -884,6 +1070,7 @@ class _ServeSession:
             self._emit_tokens(req, [tok])
         elif kind == "prefill_chunk":
             req = payload
+            self._run_fetches(req)
             if req.cow_pending is not None:
                 # copy-on-write split: the request restarts mid-block inside a
                 # SHARED cached block — give it a private copy before it writes
@@ -1033,6 +1220,9 @@ class _ServeSession:
         if self._pending_spans:
             # only when a serve stopped after a step with no token read
             self._flush_spans(wait=True)
+        # the demotion hook reads this session's pools: a stale hook on the
+        # persistent allocator would gather freed buffers
+        self.sched.allocator.set_spill(None)
         engine = self.engine
         engine._serve_rid_base = self.sched._next_rid
         engine._last_serve_stats = dict(self.sched.stats)

@@ -24,11 +24,12 @@ Requests may carry deadlines (wall-clock ``deadline_ms`` / logical
 above ``shed_queue_depth``. All of it is deterministic given a request
 trace and an injection schedule (``utils/fault_injection.fail_step``).
 
-Threading: the serving thread owns the engine. Submissions, cancellations
-and knob movements are commands on a lock-guarded intake deque that the
-loop drains between engine steps, so the scheduler and the pools are only
-touched by one thread. The loop waits on a condition variable when nothing
-is queued or running.
+Threading: the serving thread owns the engine. Submissions, cancellations,
+host-tier demotions (:meth:`AsyncServingEngine.request_demote`, the replica
+router's handoff) and knob movements are commands on a lock-guarded intake
+deque that the loop drains between engine steps, so the scheduler and the
+pools are only touched by one thread. The loop waits on a condition
+variable when nothing is queued or running.
 
 Determinism: the scheduler and its policies (``inference/policy.py``)
 decide from trace state (arrival order, priorities, the logical step
@@ -206,7 +207,7 @@ class AsyncServingEngine:
             retain_finished=False)
         self._handles: Dict[int, RequestHandle] = {}     # rid -> handle
         self._cv = threading.Condition()
-        self._intake: deque = deque()      # ("submit"|"cancel", handle)
+        self._intake: deque = deque()      # (command kind, payload)
         self._draining = False
         self._stop_now = False
         self._stopped = False
@@ -302,6 +303,26 @@ class AsyncServingEngine:
                 return               # finalize already terminated every handle
             self._intake.append(("cancel", h))
             self._cv.notify_all()
+
+    def request_demote(self, prompt) -> threading.Event:
+        """Ask the serving thread to force-demote ``prompt``'s committed full
+        blocks into the host KV tier, the push half of the prefill-to-decode
+        handoff (``inference/router.py``; JAX ``serve.py:308``). Returns an
+        event set once the demotion ran: the router submits the decode-side
+        request only after it, so the blocks are host-resident before the
+        decode replica's admission walks the tiers. Routed through the
+        command intake because demotion touches the allocator and the pools
+        (serving-thread only). On a stopped or crash-looping loop the event
+        is set at once (nothing demotes; the decode side recomputes)."""
+        arr = np.asarray(prompt, np.int32).reshape(-1)
+        done = threading.Event()
+        with self._cv:
+            if self._stopped or self._crash_loop:
+                done.set()
+                return done
+            self._intake.append(("demote", (arr, done)))
+            self._cv.notify_all()
+        return done
 
     def apply_knobs(self, actions) -> None:
         """Queue adaptive-controller knob movements for application on
@@ -451,6 +472,8 @@ class AsyncServingEngine:
         for kind, h in cmds:
             if kind == "submit":
                 self._process_submit(h)
+            elif kind == "demote":
+                self._process_demote(h)
             elif kind == "knobs":
                 self._process_knobs(h)
             else:
@@ -483,7 +506,11 @@ class AsyncServingEngine:
             self._session._flush_finished()
         except Exception as e:  # noqa: BLE001 — the containment boundary:
             # SimulatedCrash (BaseException) and everything non-Exception
-            # still kill the loop, exactly like the checkpoint writer
+            # still kill the loop, exactly like the checkpoint writer.
+            # The traceback's frames hold the faulted forward's pools: drop
+            # them, so that a restart frees the old pools before it builds
+            # new ones (else the card holds both for the rebuild)
+            e.__traceback__ = None
             self._contain(e)
         return True
 
@@ -546,9 +573,11 @@ class AsyncServingEngine:
         if name == "shed_depth":
             self._shed_override = value
             return True
-        # kv_spill moves the tiered KV cache's spill hook, which the port
-        # does not have yet (ROADMAP.md queue 1): no effect, as in the JAX
-        # loop on an engine without a host tier
+        if name == "kv_spill":
+            # the allocator keeps no hook without a host tier
+            sess._kv_spill = bool(value)
+            sched.allocator.set_spill(sess._spill_block if value else None)
+            return True
         return False
 
     def _shed_overload(self) -> None:
@@ -710,6 +739,18 @@ class AsyncServingEngine:
             ev.emit("req.submit", rid=req.rid, t_ns=h._submit_ns,
                     prompt_tokens=int(h.prompt.size), priority=h.priority)
 
+    def _process_demote(self, cmd) -> None:
+        """The ``request_demote`` command (JAX ``serve.py:750``): force-demote
+        the prompt's committed full blocks into the host tier. The event is
+        set in ``finally``, so a failure cannot strand the router's handoff
+        wait; it still propagates to the loop."""
+        arr, done = cmd
+        try:
+            if not self._crash_loop:
+                self._session.demote_prompt(arr)
+        finally:
+            done.set()
+
     def _process_cancel(self, h: RequestHandle) -> None:
         if h.done():
             return
@@ -786,6 +827,8 @@ class AsyncServingEngine:
         for kind, h in leftovers:
             if kind == "submit":
                 h._finish(REJECTED, msg or "serving loop stopped")
+            elif kind == "demote":
+                h[1].set()       # never strand a handoff wait
         if self.error is None and not self._session._closed:
             # aborting shutdown: retire everything still scheduled THROUGH
             # the scheduler so its KV blocks free and the persistent
@@ -1125,10 +1168,15 @@ def serve_main(argv=None, model=None, params=None,
     parser.add_argument("--max-running", type=int, default=8)
     parser.add_argument("--max-blocks", type=int, default=0)
     parser.add_argument("--replicas", type=int, default=1,
-                        help="engine replicas behind the affinity router "
-                             "(not ported: more than 1 raises)")
+                        help="the dp serving axis: N engine replicas on the one "
+                             "device behind the deterministic affinity router "
+                             "(one weight tree, one host KV tier)")
     parser.add_argument("--replica-roles", default="",
-                        help="per-replica roles (not ported: raises)")
+                        help="comma list of per-replica roles (any | prefill | "
+                             "decode); 'prefill,decode' hands prompts from the "
+                             "prefill replica to the decode one through the host "
+                             "KV tier, which a prefill role turns on (default: "
+                             "all 'any')")
     parser.add_argument("--spec", default="off",
                         help="speculative decoding: off | ngram")
     parser.add_argument("--telemetry", action="store_true",
@@ -1155,10 +1203,6 @@ def serve_main(argv=None, model=None, params=None,
                              "this long to finish, then the exit code is 128+signum")
     args = parser.parse_args(argv)
 
-    if int(args.replicas) > 1 or args.replica_roles:
-        from deepspeed_tpu_torch.utils.not_ported import not_ported
-        not_ported("serving replicas behind the router (--replicas, --replica-roles)",
-                   "queue 1: sharded serving")
     import deepspeed_tpu_torch
 
     if model is None:
@@ -1171,6 +1215,11 @@ def serve_main(argv=None, model=None, params=None,
                    "speculative": {"mode": args.spec}}
     if args.policy is not None:
         serving_cfg["policy"] = args.policy
+    roles = [r.strip() for r in args.replica_roles.split(",") if r.strip()]
+    if "prefill" in roles:
+        # the handoff's transport is the host tier: without it the decode
+        # replica would recompute every prompt the prefill replica warmed
+        serving_cfg["kv_host"] = {"enabled": True}
     slo_on = bool(args.slo_ttft_ms or args.slo_tpot_ms)
     want_plane = bool(args.sample_jsonl or slo_on or args.adaptive)
     kwargs: Dict[str, Any] = {"dtype": args.dtype, "serving": serving_cfg}
@@ -1180,7 +1229,28 @@ def serve_main(argv=None, model=None, params=None,
         kwargs["checkpoint"] = args.checkpoint
     engine = deepspeed_tpu_torch.init_inference(model, params=params, device=args.device,
                                                 **kwargs)
-    serving = AsyncServingEngine(engine, max_new_tokens=args.max_new)
+    n_rep = max(int(args.replicas), 1)
+    if args.adaptive and n_rep > 1:
+        # the controller folds one engine's pressure signals and moves one
+        # loop's knobs: a fleet would need one per replica
+        print("dscli serve: --adaptive supports a single replica; running "
+              "the fleet with static config", flush=True)
+    if n_rep > 1:
+        # the dp serving axis (JAX serve.py:1243): N engines on one weight
+        # tree and one host KV tier, each behind its own loop, one router
+        from deepspeed_tpu_torch.inference.router import ReplicaRouter
+        pool = engine.ensure_host_kv_pool()
+        engines = [engine]
+        for _ in range(n_rep - 1):
+            e = deepspeed_tpu_torch.init_inference(model, params=engine.params,
+                                                   device=args.device, **kwargs)
+            if pool is not None:
+                e.adopt_host_kv_pool(pool)
+            engines.append(e)
+        serving = ReplicaRouter([AsyncServingEngine(e, max_new_tokens=args.max_new)
+                                 for e in engines], roles=roles or None)
+    else:
+        serving = AsyncServingEngine(engine, max_new_tokens=args.max_new)
     sampler = None
     if want_plane:
         # the SLO engine evaluates on the sampler's ticks, and the adaptive
@@ -1196,7 +1266,7 @@ def serve_main(argv=None, model=None, params=None,
                     tpot_p99_ms=args.slo_tpot_ms or None)),
                 events=engine._events)
         ctl = None
-        if args.adaptive:
+        if args.adaptive and n_rep == 1:
             from deepspeed_tpu_torch.monitor.controller import (AdaptiveController,
                                                                 knobs_from_serving)
             knobs = knobs_from_serving(engine.config.serving, policy=serving.policy)
@@ -1214,7 +1284,7 @@ def serve_main(argv=None, model=None, params=None,
     host, port = server.server_address[:2]
     print(f"dscli serve: {args.model} listening on "
           f"http://{host}:{port}/v1/completions "
-          f"(policy={serving.policy.name}, device={engine.device}, "
+          f"(policy={serving.policy.name}, device={engine.device}, replicas={n_rep}, "
           f"max_running={args.max_running}; metrics at /metrics)",
           flush=True)
     if ready_cb is not None:

@@ -20,9 +20,14 @@ installed that is one ``None`` check; under an installed
   request) or after it with the pools left unadopted (``phase="post"``,
   engine-fatal), and ``delay_per_step_s`` slows every action.
 
+- **host KV tier transfers**: the tiered KV cache's spill (D2H) and fetch
+  (H2D) copies consult :func:`guarded_io` under the virtual paths
+  ``kv_host_pool/spill`` and ``kv_host_pool/fetch``, so ``fail_writes``
+  faults fire there too (the pool degrades) and the kill-at-byte plan
+  counts their bytes.
+
 ``SimulatedCrash`` subclasses ``BaseException`` so that retry loops catching
-``Exception`` / ``OSError`` never "survive" a crash. The KV cache's
-``guarded_io`` comes with the tiered KV cache (ROADMAP.md queue 1).
+``Exception`` / ``OSError`` never "survive" a crash.
 
     from deepspeed_tpu_torch.utils import fault_injection as fi
 
@@ -43,7 +48,7 @@ from typing import List, Optional
 
 __all__ = [
     "SimulatedCrash", "FaultInjector", "install", "clear", "active",
-    "inject", "guarded_write", "step_fault", "bit_flip",
+    "inject", "guarded_write", "guarded_io", "step_fault", "bit_flip",
 ]
 
 
@@ -227,6 +232,23 @@ def guarded_write(fileobj, data, path: str) -> None:
         raise SimulatedCrash(
             f"simulated crash after {inj.kill_at_byte} bytes (in {path})")
     fileobj.write(view)
+
+
+def guarded_io(path: str, nbytes: int) -> None:
+    """Fault gate for byte movement that is not a file write (JAX
+    ``utils/fault_injection.py:256``): the host KV tier's copies, under
+    virtual paths like ``kv_host_pool/spill``. No injector: one ``None``
+    check. Installed: :meth:`FaultInjector.fail_writes` faults fire by path
+    match (``OSError``, which the caller degrades), and the kill-at-byte
+    plan advances; a kill point inside this transfer raises
+    :class:`SimulatedCrash`, which callers must not catch."""
+    inj = _active
+    if inj is None:
+        return
+    allowed = inj.on_write(path, int(nbytes))
+    if allowed < int(nbytes):
+        raise SimulatedCrash(
+            f"simulated crash after {inj.kill_at_byte} bytes (in {path})")
 
 
 def step_fault(kind: str, phase: str = "pre", tick: bool = False) -> None:

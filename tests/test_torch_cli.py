@@ -121,10 +121,10 @@ def test_module_entry_point_and_usage(capsys):
     assert set(cli.COMMANDS) == set(jax_cli._COMMANDS)
     # serve runs; a setting outside the port is refused naming its item
     out = subprocess.run([sys.executable, "-m", "deepspeed_tpu_torch.cli", "serve",
-                          "--replicas", "2"], cwd=ROOT,
+                          "--dtype", "int8"], cwd=ROOT,
                          capture_output=True, text=True, timeout=120,
                          env={**os.environ, "PYTHONPATH": ROOT})
-    assert out.returncode == 2 and "queue 1: sharded serving" in out.stderr
+    assert out.returncode == 2 and "queue 1: int8 inference" in out.stderr
 
 
 def test_serve_streams_a_completion_and_drains_on_sigterm():
@@ -172,4 +172,106 @@ def test_serve_streams_a_completion_and_drains_on_sigterm():
     with pytest.raises(RuntimeError, match="draining|stopped"):
         serving.add_request(prompt)
     ref = serving.engine.generate(np.asarray(prompt)[None, :], max_new_tokens=4)[0]
+    assert toks == [int(x) for x in np.asarray(ref)[len(prompt):]]
+
+
+def _jax_profile_out(argv, capsys):
+    rc = jax_cli._profile(argv)
+    return rc, capsys.readouterr().out
+
+
+@pytest.mark.parametrize("top", [20, 1])
+def test_profile_chrome_trace_prints_the_jax_table(exports, capsys, top):
+    """``profile <trace.json>`` prints what the JAX ``_profile`` prints for
+    the same file, ``--top`` included; a file with no complete spans and a
+    missing path return 1 in both."""
+    argv = [exports["trace"], "--top", str(top)]
+    want_rc, want = _jax_profile_out(argv, capsys)
+    assert cli.main(["profile"] + argv) == want_rc == 0
+    got = capsys.readouterr().out
+    assert got == want and "total ms" in got
+    if top == 1:
+        assert "more (raise --top)" in got
+    empty = exports["dir"] / "empty_trace.json"
+    empty.write_text(json.dumps({"traceEvents": [{"ph": "i", "name": "x", "ts": 0}]}))
+    for path in (str(empty), str(exports["dir"] / "missing.json")):
+        want_rc, want = _jax_profile_out([path], capsys)
+        assert cli.main(["profile", path]) == want_rc == 1
+        assert capsys.readouterr().out == want
+
+
+def test_profile_summarizes_a_profile_window_directory(tmp_path, capsys):
+    """``profile <dir>`` reads the ``trace_<n>.json`` captures a
+    ``ProfileWindow`` wrote (the port's torch.profiler traces) one by one,
+    in capture order; a directory without captures returns 1."""
+    from deepspeed_tpu_torch.monitor.trace import ProfileWindow
+    win = ProfileWindow(log_dir=str(tmp_path / "prof"))
+    x = torch.randn(64, 64)
+    for _ in range(2):
+        win.arm(1)
+        win.tick()
+        (x @ x).sum()
+        win.tick()
+    assert win.captures == 2
+    assert cli.main(["profile", str(tmp_path / "prof")]) == 0
+    out = capsys.readouterr().out
+    assert "2 capture(s)" in out
+    first, second = out.index("trace_0.json: "), out.index("trace_1.json: ")
+    assert first < second and out.count("total ms") == 2
+    (tmp_path / "none").mkdir()
+    assert cli.main(["profile", str(tmp_path / "none")]) == 1
+    assert "no trace_<n>.json captures" in capsys.readouterr().out
+
+
+def test_serve_with_two_replicas_routes_and_hands_off():
+    """``serve --replicas 2 --replica-roles prefill,decode`` on the CPU: the
+    two engines share one weight tree and one host KV tier, a completion of
+    a prompt of more than a block goes through the prefill replica's
+    handoff and equals the engine's greedy decode, and ``/healthz`` reads
+    the fleet."""
+    import http.client
+    import signal
+    import threading
+
+    from deepspeed_tpu_torch.inference import serve
+    from deepspeed_tpu_torch.inference.router import ReplicaRouter
+    from deepspeed_tpu_torch.models import llama
+    model = llama("tiny")
+    params = model.init_params(torch.Generator().manual_seed(0))
+    holder, ready, rc = {}, threading.Event(), {}
+
+    def cb(server, serving):
+        holder.update(server=server, serving=serving)
+        ready.set()
+
+    argv = ["--model", "llama:tiny", "--device", "cpu", "--dtype", "fp32", "--port", "0",
+            "--max-new", "4", "--grace", "60", "--block-size", "16", "--replicas", "2",
+            "--replica-roles", "prefill,decode"]
+    t = threading.Thread(target=lambda: rc.update(rc=serve.serve_main(
+        argv, model=model, params=params, ready_cb=cb)), daemon=True)
+    t.start()
+    assert ready.wait(120), "serve never bound its socket"
+    router = holder["serving"]
+    assert isinstance(router, ReplicaRouter) and router.roles == ["prefill", "decode"]
+    e0, e1 = (r.engine for r in router.replicas)
+    assert e1._kv_host_pool is e0._kv_host_pool is not None
+    assert all(a.data_ptr() == b.data_ptr()
+               for a, b in zip(e0.params.parameters(), e1.params.parameters()))
+    port = holder["server"].server_address[1]
+    prompt = [int(x) for x in np.random.default_rng(2).integers(0, 256, size=37)]
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    conn.request("POST", "/v1/completions", json.dumps({"prompt": prompt, "max_tokens": 4}),
+                 {"Content-Type": "application/json"})
+    r = conn.getresponse()
+    assert r.status == 200
+    toks = json.loads(r.read())["choices"][0]["token_ids"]
+    conn.request("GET", "/healthz")
+    h = conn.getresponse()
+    body = json.loads(h.read())
+    assert h.status == 200 and body["total_replicas"] == 2 and body["healthy_replicas"] == 2
+    assert [d["reason"] for d in router.decisions] == ["handoff", "prefill"]
+    router._signal_handler.trigger(signal.SIGTERM)
+    t.join(120)
+    assert not t.is_alive() and rc["rc"] == 128 + signal.SIGTERM
+    ref = e0.generate(np.asarray(prompt)[None, :], max_new_tokens=4)[0]
     assert toks == [int(x) for x in np.asarray(ref)[len(prompt):]]

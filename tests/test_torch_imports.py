@@ -153,6 +153,34 @@ def test_async_serving_imports_no_jax_nor_cuda():
     assert out.stdout.strip() == "[]", out.stdout
 
 
+# the tiered KV cache and replica slice's modules: the host pool (its copy
+# stream is the one CUDA API it names, created inside put on the card) and the
+# router, host code only
+TIER_AND_ROUTER_MODULES = (
+    "deepspeed_tpu_torch.inference.kv_host_pool", "deepspeed_tpu_torch.inference.router",
+)
+
+
+def test_tier_and_router_import_no_jax_nor_the_jax_package():
+    """``inference/kv_host_pool.py`` and ``inference/router.py`` import
+    neither jax, the JAX package nor pydantic; the router names no
+    ``torch.cuda`` API and importing the pool touches no device."""
+    for name in TIER_AND_ROUTER_MODULES:
+        path = ROOT / (name.replace(".", "/") + ".py")
+        assert not any(m.split(".")[0] in FORBIDDEN for m in _imported_modules(path)), name
+    assert "torch.cuda" not in (ROOT / "deepspeed_tpu_torch/inference/router.py").read_text()
+    code = ("import importlib, sys, torch\n"
+            f"for m in {TIER_AND_ROUTER_MODULES!r}: importlib.import_module(m)\n"
+            "from deepspeed_tpu_torch.inference import KvHostPool\n"
+            "assert not torch.cuda.is_initialized()\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r}))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+
+
 def test_import_leaves_jax_and_pydantic_out():
     mods = ["deepspeed_tpu_torch"] + sorted(
         "deepspeed_tpu_torch." + ".".join(p.relative_to(ROOT / "deepspeed_tpu_torch")
@@ -168,6 +196,7 @@ def test_import_leaves_jax_and_pydantic_out():
     assert set(MONITOR_MODULES) <= set(mods)
     assert set(CONTROL_PLANE_MODULES) <= set(mods)
     assert set(ASYNC_SERVING_MODULES) <= set(mods)
+    assert set(TIER_AND_ROUTER_MODULES) <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "

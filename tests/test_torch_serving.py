@@ -136,10 +136,8 @@ def test_eviction_pressure(pair):
 
 @pytest.mark.parametrize("setting,item", [
     ({"mp_size": 2}, "sharded serving"),
-    ({"serving": {"kv_host": {"enabled": True}}}, "tiered KV cache"),
     ({"serving": {"tp": 2}}, "sharded serving"),
     ({"tensor_parallel": {"tp_size": 2}}, "sharded serving"),
-    ({"serving": {"replicas": {"dp": 2}}}, "sharded serving"),
     ({"dtype": "int8"}, "int8 inference"),
     ({"moe": {"ep_size": 2}}, "MoE"),
     ({"zero": {"offload_param": {"device": "cpu"}}}, "ZeRO-Inference"),
@@ -148,6 +146,29 @@ def test_out_of_slice_settings_raise(setting, item):
     model = CausalLM(TransformerConfig(**SHAPES["gpt2"]))
     with pytest.raises(NotImplementedError, match=item):
         deepspeed_tpu_torch.init_inference(model, device="cpu", **setting)
+
+
+@pytest.mark.parametrize("setting", [
+    {"serving": {"kv_host": {"enabled": True}}},
+    {"serving": {"replicas": {"dp": 2, "roles": ["prefill", "decode"]}}},
+])
+def test_tier_and_replica_settings_build_an_engine(setting):
+    """The tiered KV cache and the replica settings are in the port since
+    the router slice: the engine builds, and with the tier its host pool
+    has the JAX engine's geometry (``[L, bs, KV, Hd]``, the dtype's name)
+    and default cap (four times the pool's allocatable blocks)."""
+    model = CausalLM(TransformerConfig(**{**SHAPES["gpt2"], "n_layer": 1}))
+    eng = deepspeed_tpu_torch.init_inference(model, device="cpu", dtype="fp32", **setting)
+    pool = eng.ensure_host_kv_pool()
+    if "kv_host" not in setting["serving"]:
+        assert pool is None
+        return
+    cfg, srv = model.config, eng.config.serving
+    n_max = -(-cfg.max_seq // srv.block_size)
+    assert pool.block_shape == (cfg.n_layer, srv.block_size, cfg.kv_heads, cfg.head_dim)
+    assert pool.dtype == "float32"
+    assert pool.max_blocks == 4 * srv.max_running * n_max
+    assert eng.ensure_host_kv_pool() is pool
 
 
 @pytest.mark.parametrize("setting", [

@@ -95,13 +95,14 @@ def pair():
 
 def fresh(pair, **serving):
     """Both engines as newly built with ``serving`` over the base config:
-    the serving section set, the pools, the prefix cache and the rid counter
-    dropped, the recorders and registries cleared."""
+    the serving section set, the pools, the prefix cache, the host KV tier
+    and the rid counter dropped, the recorders and registries cleared."""
     for name, (eng, *_, rec, reg) in pair.side.items():
         cfg = {**BASE, **serving}
         eng._config.serving = type(eng._config.serving)(**cfg)
         eng._paged_workspace = None
         eng._paged_alloc = None
+        eng._kv_host_pool = None
         eng._serve_rid_base = 0
         rec().clear()
         reg().reset()

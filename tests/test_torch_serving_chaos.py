@@ -10,9 +10,9 @@ Each trace and injection schedule runs through the JAX
 ``test_torch_serving_async.py``: one JAX and one port engine for the
 module, tiny Llama, fp32, greedy): tokens through every fault class,
 statuses, scheduler actions, event order and serving counters agree (limit
-0). The tiered KV cache's spill and fetch faults wait for that module
-(ROADMAP.md queue 1); the HTTP and signal cases run the port's server and
-hold it to the JAX engine's closed-loop tokens."""
+0), the tiered KV cache's spill and fetch faults included; the HTTP and
+signal cases run the port's server and hold it to the JAX engine's
+closed-loop tokens."""
 
 import http.client
 import json
@@ -141,6 +141,57 @@ def test_cow_fault_token_identity_on_cache_rehit(pair):
     np.testing.assert_array_equal(hs[1].result(1), pair.ref(prompt, 6))
     assert got["counters"]['serving/step_faults{kind="cow"}'] == 1
     assert ("prefill_chunk", (1,)) in got["actions"]
+
+
+TIER = {"max_num_blocks": 4, "kv_host": {"enabled": True}}
+TIER_PROMPT = np.arange(16, dtype=np.int32)
+TIER_SCRATCH = np.arange(30, 47, dtype=np.int32)
+
+
+def test_spill_step_faults_degrade_on_tiered_engine(pair):
+    """An injected spill step fault degrades to destroy-on-reclaim (counted
+    in kv_host_errors, never a containment retry): the loop drains clean
+    and the tokens do not change."""
+    trace = [("add", TIER_PROMPT), ("drive",), ("add", TIER_SCRATCH, {"max_new_tokens": 4}),
+             ("drive",)]
+    serving, hs, got, _ = both(pair, trace, TIER, max_new=5,
+                               faults=[{"kind": "spill", "count": -1}])
+    np.testing.assert_array_equal(hs[0].result(1), pair.ref(TIER_PROMPT, 5))
+    assert got["status"] == ["finished", "finished"]
+    assert got["counters"]["serving/kv_host_errors"] > 0
+    assert got["counters"].get("serving/request_retries", 0) == 0
+    assert serving.engine._kv_host_pool.num_blocks == 0          # nothing demoted
+
+
+def test_fetch_fault_contains_per_request_with_site_label(pair):
+    """A fetch (H2D) step fault contains per request, labelled by its own
+    dispatch site and not the enclosing prefill action, and the retry
+    re-hits the surviving host entries for an identical completion."""
+    trace = [("add", TIER_PROMPT), ("drive",), ("add", TIER_SCRATCH, {"max_new_tokens": 4}),
+             ("drive",), ("add", TIER_PROMPT), ("drive",)]
+    _, hs, got, _ = both(pair, trace, TIER, max_new=5,
+                         faults=[{"kind": "fetch", "count": 1}])
+    np.testing.assert_array_equal(hs[2].result(1), hs[0].result(1))
+    c = got["counters"]
+    assert c['serving/step_faults{kind="fetch"}'] == 1 and c["serving/request_retries"] == 1
+    assert c["serving/kv_fetch_hits"] > 0                       # the retry fetched
+
+
+def test_restart_with_prefix_cache_and_host_tier(pair):
+    """Recovery under the whole cache stack: an engine-fatal decode fault
+    after a warm half; the device prefix cache restarts cold, the host tier
+    survives the rebuild (the rebuilt allocator holds the same pool), and
+    the tokens hold."""
+    ps = prompts((10, 9))
+    warm = [("add", p) for p in ps] + [("drive",)]
+    _, _, first, _ = both(pair, warm, TIER, max_new=6)
+    n = len(first["actions"])
+    serving, hs, got, _ = both(pair, warm + warm[:-1] + [("drive",)], TIER, max_new=6,
+                               faults=_faults(("decode", n + 1, 1, "post")))
+    assert got["restarts"] == 1
+    assert serving._session.sched.allocator.host_pool is serving.engine._kv_host_pool
+    for h, p in zip(hs[2:], ps):
+        np.testing.assert_array_equal(h.result(1), pair.ref(p, 6))
 
 
 def test_requeue_backoff_is_exponential_in_logical_steps(pair):
@@ -674,3 +725,33 @@ def test_prefill_chunk_knob_sizes_the_next_prefill(pair):
     chunks = [e for e in pair.port._events.snapshot() if e.kind == "req.prefill_chunk"]
     assert [e.data["tokens"] for e in chunks] == [4, 4, 3]
     np.testing.assert_array_equal(hs[0].result(1), pair.ref(p, 8))
+
+
+def test_restart_frees_the_faulted_pools_before_building_new_ones(pair):
+    """An engine-fatal fault's traceback would keep the half-written pools
+    alive through the restart, so that the card held two pools while it
+    rebuilt; the loop drops it, and the old pools are gone by the time the
+    new ones are allocated."""
+    import weakref
+
+    fresh(pair)
+    eng = pair.port
+    serving = serve.AsyncServingEngine(eng, max_new_tokens=4, start=False)
+    old = weakref.ref(serving._session.pools["k"])
+    alive_at_rebuild = []
+    real = eng._paged_pools
+
+    def paged_pools(*a, **k):
+        alive_at_rebuild.append(old() is not None)
+        return real(*a, **k)
+
+    eng._paged_pools = paged_pools
+    try:
+        with fi.inject(fi.FaultInjector().fail_step("decode", count=1, phase="post")):
+            h = serving.add_request(prompts((6,))[0])
+            drive(serving)
+    finally:
+        del eng._paged_pools
+    serving.shutdown(drain=True)
+    assert serving.restarts == 1 and alive_at_rebuild == [False]
+    np.testing.assert_array_equal(h.result(1), pair.ref(prompts((6,))[0], 4))
