@@ -31,7 +31,14 @@ Phases, each printing one JSON line:
                 flash_attention(..., return_lse=True) with an lse cotangent
                 (dense, GQA with ALiBi, a layout with an empty row block)
                 against their plain versions fed delta - log2(e) dlse, the
-                cotangent left out planted as the fault
+                cotangent left out planted as the fault; A, B and K5 at
+                head_dim 256 (GPT-J's heads: A at a 2048-token prefill with
+                and without a pad mask, B and K5 at 8 rows of 16 heads and
+                at G 8), timed against SDPA at Hd 256 (A, K5); the int8
+                dequant kernel at Llama-2-7B's MLP shape, q_groups 1 and
+                64, bit-equal to its plain twin (limit 0), each row read
+                with its neighbour's scales and truncation instead of
+                rounding planted above it
   slice_parity  Llama-7B width cut to 2 layers: the same seeded weights served
                 on the card (kernels) and on the CPU (plain versions, fp32);
                 the CPU's greedy tokens fed to both sides' paged prefill and
@@ -77,6 +84,26 @@ Phases, each printing one JSON line:
                 its breaker opens, every request completing on r1 (/healthz
                 503 for r0, 200 for the router); the fleet against one loop,
                 threaded, tokens/s and the device peak
+  serve_gptj    GPT-J-6B at full width and depth (EleutherAI/gpt-j-6b's
+                config.json as a dict through GPTJPolicy; 28 layers, 16
+                heads x 256, rotary 64 interleaved, untied head with its
+                bias; seeded bf16 weights) serving the serve phase's prompts
+                through generate_batch (A, then B, at Hd 256) and static
+                generate over their first 32 tokens (then K5): rows
+                against the same weights with attention_backend "xla" by
+                the near-tie rule, teacher-forced logits of three prompts
+                within LOGIT_ULP_TOL with A reading the next kv head planted
+                above it, A = L x prefills, B = L x decodes, K5 = L x
+                (generated - 1); TTFT / TPOT p50, tokens/s, peak memory
+  serve_int8    full Llama-2-7B with dtype "int8" (q_groups 1): bytes at rest
+                against the bf16 engine's, the serve phase's prompts on A, B
+                and the dequant kernel (7 L + 1 launches a forward), TTFT /
+                TPOT, tokens/s and peak memory beside the bf16 engine's; the
+                same int8 params with the dequant's plain twin: rows equal,
+                teacher-forced logits within LOGIT_ULP_TOL (0 read), a
+                kernel-A fault above it; a fused decode step's device ms by
+                class, int8 against bf16; the bf16 engine's top-1 agreement
+                (printed, not gated)
   spec_parity   Llama-7B width cut to 2 layers: the CPU's greedy tokens fed
                 in windows of 1-8 tokens through forward_paged_verify on the
                 card (bf16, kernel B once per window position) and on the CPU
@@ -144,7 +171,7 @@ Phases, each printing one JSON line:
                 step A = 2 L gas and C = D = L gas launches, the tiles they
                 walked equal to the layout's live blocks; then the same
                 step with sparse attention off
-  resume        Llama-7B width cut to 2 layers (S 2048, micro 2 x gas 2, the
+  resume        Llama-7B width cut to 1 layer (S 2048, micro 2 x gas 2, the
                 train phase's config) trained from the engine's own dataloader
                 (64 seeded motif samples, shuffled): run U takes 6 steps; run R
                 takes 3, saves a crash-safe tag (async: the snapshot, then the
@@ -219,9 +246,10 @@ Phases, each printing one JSON line:
   kernels       every ported kernel with its launches in the serve, spec_serve
                 (its oracle run), generate, train, train_lamb, train_sparse,
                 resume, ingest, telemetry, client_opt, health, serve_async,
-                serve_tier and serve_fleet phases (A, C and D with a layout in rows of
-                their own; C's and D's rows also carry their readings with an lse
-                cotangent)
+                serve_tier, serve_fleet, serve_gptj and serve_int8 phases (A,
+                C and D with a layout in rows of their own, as A, B and K5 at
+                head_dim 256; C's and D's rows also carry their readings with
+                an lse cotangent)
   profile       (only with --phases profile) the serve phase's prompts through
                 fresh engines after a warm-up: warm tokens/s, device kernel
                 time by class under torch.profiler, the device's idle share
@@ -257,7 +285,7 @@ import sys
 import time
 
 PHASES = ("env", "build", "kernel", "slice_parity", "serve", "serve_async", "serve_tier",
-          "serve_fleet", "spec_parity",
+          "serve_fleet", "serve_gptj", "serve_int8", "spec_parity",
           "spec_serve",
           "generate_parity", "generate",
           "train_parity", "train", "train_lamb_parity", "train_lamb", "sparse_parity",
@@ -322,7 +350,7 @@ TRAIN_SEQ = 2048
 TRAIN_STEPS = 6                 # 1 warm-up + 5 timed
 SPARSE_SEQ = 4096               # train_sparse: Llama-2's published context
 SPARSE_PARITY_SEQ = 1024        # sparse_parity: two local windows of the Fixed layout
-RESUME_LAYERS = 2               # resume: Llama-2-7B width, depth cut 32 -> 2 (PERF.md section 4)
+RESUME_LAYERS = 1               # resume: Llama-2-7B width, depth cut 32 -> 1 (PERF.md section 4)
 RESUME_SAMPLES = 64             # resume's dataset: seeded motifs repeated to TRAIN_SEQ
 RESUME_STEPS = 6                # run U; run R takes half, saves, resumes, takes the rest
 RESUME_CONFIG = {**TRAIN_CONFIG, "train_batch_size": 4, "train_micro_batch_size_per_gpu": 2,
@@ -442,7 +470,8 @@ _KERNEL_NAMES = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kerne
                  "fused_ce_fwd_kernel", "fused_ce_combine_kernel", "fused_ce_ds_kernel",
                  "fused_ce_db_kernel", "ce_dh_gemm_kernel", "ce_dw_gemm_kernel",
                  "lamb_moments_kernel", "lamb_ratio_kernel", "lamb_apply_kernel",
-                 "sr_quantize_kernel", "sr_absmax_kernel", "sr_scale_kernel")
+                 "sr_quantize_kernel", "sr_absmax_kernel", "sr_scale_kernel",
+                 "dequant_int8_vec_kernel", "dequant_int8_scalar_kernel")
 
 
 def ptxas_summary(log):
@@ -463,7 +492,7 @@ def ptxas_summary(log):
                 name = m.group(1)
                 kern = next((k for k in _KERNEL_NAMES if k in name), name[:40])
                 dt = "bf16" if "bfloat16" in name else "fp16" if "__half" in name else ""
-                hd = re.search(r"Li(64|96|128)E", name)
+                hd = re.search(r"Li(64|96|128|256)E", name)
                 key = f"{kern} {dt} hd{hd.group(1)}" if hd else f"{kern} {dt}".strip()
                 rows.setdefault(key, {"registers": 0, "smem_bytes": 0, "spill_bytes": 0})
             if key is None:
@@ -488,7 +517,8 @@ _NO_SPILL_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_k
                      "fused_ce_fwd_kernel", "fused_ce_ds_kernel", "ce_dh_gemm_kernel",
                      "ce_dw_gemm_kernel", "paged_decode_kernel", "paged_decode_combine_kernel",
                      "dense_decode_kernel", "dense_decode_combine_kernel", "sr_quantize_kernel",
-                     "sr_absmax_kernel", "sr_scale_kernel")
+                     "sr_absmax_kernel", "sr_scale_kernel", "dequant_int8_vec_kernel",
+                     "dequant_int8_scalar_kernel")
 
 
 def spilling_kernels(rows):
@@ -510,10 +540,11 @@ def phase_build(state):
     rows, warnings = ptxas_summary(log)
     gemm_smem = build.load("fused_cross_entropy").ds_ce_gemm_smem_bytes()
     fwd, bwd = build.load("flash_attention"), build.load("flash_attention_bwd")
-    attn_smem = {f"{k} hd{hd}": fn(hd) for hd in (64, 128)
+    attn_smem = {f"{k} hd{hd}": fn(hd) for hd in (64, 128, 256)
                  for k, fn in (("flash_fwd_kernel", fwd.ds_flash_fwd_smem_bytes),
                                ("flash_bwd_dq_kernel", bwd.ds_flash_dq_smem_bytes),
-                               ("flash_bwd_dkv_kernel", bwd.ds_flash_dkv_smem_bytes))}
+                               ("flash_bwd_dkv_kernel", bwd.ds_flash_dkv_smem_bytes))
+                 if hd <= 128 or k == "flash_fwd_kernel"}
     emit("build", seconds=seconds, built=sorted(log), ptxas=rows, ptxas_warnings=warnings,
          ce_dynamic_smem_bytes=gemm_smem, attention_dynamic_smem_bytes=attn_smem)
     spills = spilling_kernels(rows)
@@ -761,7 +792,172 @@ def phase_kernel(state, seed):
     _check_fused_ce(gen, results, failures)
     _check_fused_lamb(gen, results, failures)
     _check_sr_quantize(gen, results, failures)
+    _check_hd256(torch.Generator(device="cuda").manual_seed(seed + 256), results, failures)
+    _check_dequant_int8(torch.Generator(device="cuda").manual_seed(seed + 8), results, failures)
     check(not failures, "kernel checks failed: " + "; ".join(failures))
+
+
+# GPT-J-6B's attention (16 heads x 256, MHA): A at its 2048-token prefill,
+# B at a serve step of 8 rows, K5 at static generate's 8 rows
+HD256_FLASH = {"gptj_prefill": (1, 2048, 16, 16, 256, True, False, False),
+               "gptj_prefill_mask": (1, 2048, 16, 16, 256, True, False, True),
+               "hd256_gqa4_alibi_mask": (2, 300, 8, 2, 256, True, True, True)}
+HD256_PAGED = {"gptj_slice": (8, 16, 16, 256, 128, 16, [543, 31, 127, 128, 300, 0, 511, 255],
+                              False, False),
+               "hd256_g8_bias_alibi": (2, 16, 2, 256, 128, 4, [5, 400], True, True)}
+HD256_DENSE = {"gptj_slice": (8, 16, 16, 256, 1024, 575, False, False),
+               "hd256_g8_bias_alibi": (2, 16, 2, 256, 384, 383, True, True)}
+
+
+def _check_hd256(gen, results, failures):
+    """A, B and K5 at head dim 256 (GPT-J's heads) against their plain
+    versions under the phase's per-row measure, with the phase's planted
+    faults (and the decode kernels' split faults); two launches bit-equal;
+    at GPT-J's shapes the time, the plain version's, the bound and SDPA at
+    Hd 256 for A and K5 (no PyTorch call computes B)."""
+    import torch
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops.kernels import decode_attention as dda
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    from deepspeed_tpu_torch.ops.kernels import paged_decode_attention as pda
+    for name, (B, S, H, KV, Hd, causal, alibi, mask) in HD256_FLASH.items():
+        args = _flash_case(gen, B, S, H, KV, Hd, causal, alibi, mask)
+        run = lambda: fa.flash_attention(*args, return_lse=True)
+        (o, lse), (ro, rlse) = run(), fa.flash_attention_plain(*args)
+        faults = _flash_faults(fa, *args)
+        torch.cuda.synchronize()
+        rec = {"kernel": "flash_attention_fwd", "case": name, "shape": [B, S, H, KV, Hd],
+               "causal": causal, "alibi": alibi, "mask": mask,
+               **_hold("flash_attention_fwd", name, [o], [ro],
+                       {f: [r[0]] for f, r in faults.items()}, failures)}
+        rec["lse_err"] = float((lse - rlse).abs().max())
+        if not rec["lse_err"] <= LSE_TOL:
+            failures.append(f"flash {name}: lse err {rec['lse_err']} > {LSE_TOL}")
+        o2, lse2 = run()
+        rec["repeat_bit_equal"] = bool(torch.equal(o, o2) and torch.equal(lse, lse2))
+        if not rec["repeat_bit_equal"]:
+            failures.append(f"flash {name}: two launches differ")
+        if name == "gptj_prefill":
+            q, k, v = args[:3]
+            rec["ms"] = cuda_ms(lambda: fa.flash_attention(*args))
+            rec["plain_ms"] = cuda_ms(lambda: fa.flash_attention_plain(*args), reps=5, warmup=1)
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            rec["library_ms"] = cuda_ms(
+                lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
+            nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel()) + 4 * B * H * S
+            rec["bound_ms"], rec["bound_by"] = bound(nbytes, 4 * B * H * Hd * (S * (S + 1) // 2))
+            results["flash_attention_fwd_hd256"] = rec
+        del o, lse, ro, rlse, faults, o2, lse2
+        emit("kernel", **rec)
+    for name, (B, H, KV, Hd, bs, n_max, pos, bias, alibi) in HD256_PAGED.items():
+        q, kp, vp, bt, pos_t, pad, slopes = _paged_case(gen, B, H, KV, Hd, bs, n_max, pos, bias,
+                                                       alibi)
+        run = lambda: pda.paged_decode_attention_cuda(q, kp, vp, bt, pos_t, pad, slopes)
+        plain = lambda: pda.paged_decode_attention_plain(q, kp, vp, bt, pos_t, pad, slopes)
+        o, ro = run(), plain()
+        faults = _paged_faults(pda, q, kp, vp, bt, pos_t, pad, slopes)
+        faults.update(_split_faults(pda.paged_decode_partials_plain(q, kp, vp, bt, pos_t, pad,
+                                                                    slopes),
+                                    q.dtype, pda.merge_partials_plain, mid=not alibi))
+        torch.cuda.synchronize()
+        rec = {"kernel": "paged_decode_attention", "case": name,
+               "shape": [B, H, KV, Hd, bs, n_max], "pos": pos, "bias": bias, "alibi": alibi,
+               **_hold("paged_decode_attention", name, [o], [ro],
+                       {f: [r] for f, r in faults.items()}, failures)}
+        _repeat("paged_decode_attention", name, run, o, rec, failures)
+        if name == "gptj_slice":
+            rec["ms"] = cuda_ms(run)
+            rec["device_ms"] = device_ms(run)
+            rec["plain_ms"] = cuda_ms(plain, reps=20)
+            rec["library_ms"] = None
+            live = sum(p + 1 for p in pos)
+            nbytes = (q.element_size() * (2 * q.numel() + 2 * live * KV * Hd)
+                      + 4 * bt.numel() + 4 * B)
+            rec["bound_ms"], rec["bound_by"] = bound(nbytes, 4 * live * H * Hd)
+            results["paged_decode_attention_hd256"] = rec
+        emit("kernel", **rec)
+    for name, (B, H, KV, Hd, Smax, pos, bias, alibi) in HD256_DENSE.items():
+        q = torch.randn((B, H, Hd), generator=gen, device="cuda").to(torch.bfloat16)
+        ck = torch.randn((B, Smax, KV, Hd), generator=gen, device="cuda").to(torch.bfloat16)
+        cv = torch.randn((B, Smax, KV, Hd), generator=gen, device="cuda").to(torch.bfloat16)
+        pad = (torch.randn((B, Smax), generator=gen, device="cuda") * 0.2) if bias else None
+        slopes = ((torch.rand((H,), generator=gen, device="cuda") * 0.3 + 0.05) if alibi
+                  else None)
+        run = lambda: dda.decode_attention_cuda(q, ck, cv, pos, pad, slopes)
+        plain = lambda: dda.decode_attention_plain(q, ck, cv, pos, pad, slopes)
+        o, ro = run(), plain()
+        faults = _dense_faults(dda, q, ck, cv, pos, pad, slopes)
+        faults.update(_split_faults(dda.decode_partials_plain(q, ck, cv, pos, pad, slopes),
+                                    q.dtype, dda.merge_partials_plain, mid=not alibi))
+        torch.cuda.synchronize()
+        rec = {"kernel": "dense_decode_attention", "case": name,
+               "shape": [B, H, KV, Hd, Smax], "pos": pos, "bias": bias, "alibi": alibi,
+               **_hold("dense_decode_attention", name, [o], [ro],
+                       {f: [r] for f, r in faults.items()}, failures)}
+        _repeat("dense_decode_attention", name, run, o, rec, failures)
+        if name == "gptj_slice":
+            rec["ms"] = cuda_ms(run)
+            rec["device_ms"] = device_ms(run)
+            rec["plain_ms"] = cuda_ms(plain, reps=20)
+            qt = (q * Hd**-0.5).reshape(B, H, 1, Hd)
+            kt = ck[:, :pos + 1].transpose(1, 2).contiguous()
+            vt = cv[:, :pos + 1].transpose(1, 2).contiguous()
+            sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=1.0)
+            rec["library_ms"] = cuda_ms(sdpa)
+            rec["library"] = "SDPA of one query over the live prefix"
+            nbytes = q.element_size() * (2 * q.numel() + 2 * B * (pos + 1) * KV * Hd)
+            rec["bound_ms"], rec["bound_by"] = bound(nbytes, 4 * B * (pos + 1) * H * Hd)
+            results["dense_decode_attention_hd256"] = rec
+        emit("kernel", **rec)
+
+
+# Llama-2-7B's MLP matrix w_gate / w_up [d_model, d_ff], at q_groups 1 (the
+# engine's default) and 64
+DEQUANT_CASES = {"llama7b_w_up_g1": (4096, 11008, 1), "llama7b_w_up_g64": (4096, 11008, 64)}
+
+
+def _check_dequant_int8(gen, results, failures):
+    """The int8 dequant kernel against its plain twin: one fp32 product and
+    one rounding an element on both sides, so bit-equal (limit 0), with two
+    planted faults above it (each row read with its neighbour's scales; the
+    product rounded toward zero instead of to nearest); time, the plain
+    version's and the bound (bytes); no single PyTorch call computes it."""
+    import torch
+    from deepspeed_tpu_torch.ops.kernels import dequant_int8 as dq
+    for name, (R, C, groups) in DEQUANT_CASES.items():
+        q = torch.randint(-127, 128, (R, C), generator=gen, device="cuda", dtype=torch.int8)
+        scale = torch.rand((R, groups), generator=gen, device="cuda") * 1e-3 + 1e-5
+        run = lambda: dq.dequant_int8(q, scale, torch.bfloat16)
+        plain = lambda: dq.dequant_int8_plain(q, scale, torch.bfloat16)
+        got, want = run(), plain()
+        wide = dq.dequant_int8_plain(q, scale, torch.float32)
+        toward_zero = (wide.view(torch.int32) & ~0xFFFF).view(torch.float32).to(torch.bfloat16)
+        faults = {"neighbour_row_scales": dq.dequant_int8_plain(q, scale.roll(1, 0)),
+                  "rounded_toward_zero": toward_zero}
+        torch.cuda.synchronize()
+        bits = lambda x: x.view(torch.int16)
+        differ = lambda x: int((bits(x) != bits(want)).sum())
+        rec = {"kernel": "dequant_int8", "case": name, "shape": [R, C], "groups": groups,
+               "elements_differing": differ(got), "limit": 0,
+               "fault_elements_differing": {f: differ(x) for f, x in faults.items()},
+               "max_abs_err": float((got.float() - want.float()).abs().max())}
+        rec["repeat_bit_equal"] = bool(torch.equal(bits(got), bits(run())))
+        if rec["elements_differing"] != 0 or not rec["repeat_bit_equal"]:
+            failures.append(f"dequant_int8 {name}: {rec['elements_differing']} elements differ "
+                            f"from the plain twin (repeat equal {rec['repeat_bit_equal']})")
+        for f, n in rec["fault_elements_differing"].items():
+            if not n > 0:
+                failures.append(f"dequant_int8 {name}: planted fault {f} reads 0")
+        rec["ms"] = cuda_ms(run)
+        rec["device_ms"] = device_ms(run)
+        rec["plain_ms"] = cuda_ms(plain, reps=10)
+        rec["library_ms"] = None
+        rec["bound_ms"], rec["bound_by"] = bound(R * C + 4 * R * groups + 2 * R * C, R * C,
+                                                 FP32_PEAK_TFLOPS)
+        if name == "llama7b_w_up_g1":
+            results["dequant_int8"] = rec
+        del got, want, wide, toward_zero, faults
+        emit("kernel", **rec)
 
 
 def _dense_faults(dda, q, ck, cv, pos, pad, slopes):
@@ -4039,7 +4235,8 @@ def _kernel_class(name):
                         ("lamb_apply_kernel", "fused_lamb_apply"),
                         ("sr_quantize_kernel", "sr_quantize"),
                         ("sr_absmax_kernel", "sr_absmax"),
-                        ("sr_scale_kernel", "sr_absmax")):
+                        ("sr_scale_kernel", "sr_absmax"),
+                        ("dequant_int8", "dequant_int8")):
         if kernel in n:
             return cls
     if any(t in n for t in ("gemm", "gemv", "cutlass", "xmma", "nvjet", "cublas")):
@@ -6014,6 +6211,326 @@ def phase_serve_fleet(state, seed):
     check(not failures, "serve_fleet failed: " + "; ".join(failures))
 
 
+# EleutherAI/gpt-j-6b's published config.json: the fields GPTJPolicy reads
+GPTJ_6B_CONFIG = {"architectures": ["GPTJForCausalLM"], "model_type": "gptj",
+                  "vocab_size": 50400, "n_positions": 2048, "n_embd": 4096, "n_layer": 28,
+                  "n_head": 16, "rotary_dim": 64, "n_inner": None,
+                  "activation_function": "gelu_new", "layer_norm_epsilon": 1e-5,
+                  "tie_word_embeddings": False, "bos_token_id": 50256, "eos_token_id": 50256}
+GPTJ_STATIC_PROMPT = 32      # static generate: every serve prompt's first 32 tokens, one batch
+GPTJ_LOGIT_ROWS = (0, 5, 10)  # serve prompts held teacher-forced (32, 256 and 512 tokens)
+
+
+def _gptj6b(seed):
+    """GPT-J-6B at full width and depth (GPTJPolicy over the published
+    config.json; no file is read) with seeded bf16 weights drawn on the card,
+    the head's bias too (so it is seen)."""
+    import torch
+    from deepspeed_tpu_torch.models import CausalLM
+    from deepspeed_tpu_torch.module_inject.policies import GPTJPolicy
+    model = CausalLM(GPTJPolicy().zoo_config(GPTJ_6B_CONFIG))
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = model.init_params(gen, device="cuda", dtype=torch.bfloat16)
+    bias = params["lm_head_bias"]
+    bias.data.copy_(torch.randn(bias.shape, generator=gen, device="cuda") * 0.1)
+    return model, params
+
+
+def _serve_timed(engine, prompts, max_new):
+    """generate_batch from an emptied registry: rows, wall seconds (ends in a
+    sync), generated tokens, the actions and TTFT / TPOT p50 and p99."""
+    import numpy as np
+    from deepspeed_tpu_torch.monitor import get_registry
+    _reset_telemetry()
+    t0 = time.perf_counter()
+    rows = engine.generate_batch(prompts, max_new_tokens=max_new)
+    _sync()
+    wall = time.perf_counter() - t0
+    h = get_registry().snapshot()["histograms"]
+    gen = sum(np.asarray(o).size - p.size for p, o in zip(prompts, rows))
+    return rows, {"wall_s": wall, "generated_tokens": int(gen), "tokens_per_s": gen / wall,
+                  "actions": dict(engine._last_serve_actions),
+                  "ttft_ms": {q: h["serving/ttft_ms"][q] for q in ("p50", "p99", "count")},
+                  "tpot_ms": {q: h["serving/tpot_ms"][q] for q in ("p50", "p99", "count")}}
+
+
+def _allocated_gb():
+    """The card's allocated bytes now, GB (None on the CPU)."""
+    import torch
+    return torch.cuda.memory_allocated() / 1e9 if CHECK_DEVICE == "cuda" else None
+
+
+def phase_serve_gptj(state, seed):
+    """GPT-J-6B at full width and depth (28 layers, 16 heads x 256, rotary
+    64 interleaved, untied head with its bias) serving the serve phase's
+    prompts through generate_batch (A, then B, at Hd 256) and static
+    generate over their first GPTJ_STATIC_PROMPT tokens (the cached path's
+    grouped einsum over the prompt, as in the JAX package, then K5), against
+    the same weights with attention_backend "xla": rows by the near-tie rule,
+    teacher-forced paged logits of three prompts within LOGIT_ULP_TOL of the
+    reference with kernel A reading the next kv head planted above it;
+    launches A = L x prefills, B = L x decodes and K5 = L x (generated - 1);
+    TTFT / TPOT p50, tokens/s, peak memory."""
+    import dataclasses
+    import numpy as np
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import CausalLM
+    from deepspeed_tpu_torch.ops.kernels import decode_attention as dda
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    from deepspeed_tpu_torch.ops.kernels import paged_decode_attention as pda
+
+    _reset_peak()
+    t0 = time.perf_counter()
+    model, params = _gptj6b(seed)
+    cfg = model.config
+    engine = deepspeed_tpu_torch.init_inference(model, params=params, dtype=ASYNC_DTYPE,
+                                                device=ASYNC_DEVICE, telemetry=True)
+    xla = deepspeed_tpu_torch.init_inference(
+        CausalLM(dataclasses.replace(cfg, attention_backend="xla")), params=engine.params,
+        dtype=ASYNC_DTYPE, device=ASYNC_DEVICE)
+    del params
+    _sync()
+    init_s = time.perf_counter() - t0
+    prompts = _serve_prompts(cfg, seed)
+    failures = []
+
+    fa.launches = pda.launches = dda.launches = 0
+    rows, serve = _serve_timed(engine, prompts, SERVE_MAX_NEW)
+    launches = {"flash_attention_fwd_hd256": fa.launches,
+                "paged_decode_attention_hd256": pda.launches}
+    on_card = int(ASYNC_DEVICE is None)      # the CPU takes the plain versions: no launch
+    rule = serve_launch_rule(cfg, serve["actions"])
+    if [launches["flash_attention_fwd_hd256"], launches["paged_decode_attention_hd256"]] != \
+            [on_card * rule["flash_attention_fwd"], on_card * rule["paged_decode_attention"]]:
+        failures.append(f"launches {launches} off the rule {rule}")
+    want = xla.generate_batch(prompts, max_new_tokens=SERVE_MAX_NEW)
+    for p, o in zip(prompts, rows):
+        o = np.asarray(o)
+        check(o.shape == (p.size + SERVE_MAX_NEW,) and np.array_equal(o[:p.size], p),
+              f"output shape {o.shape} for prompt {p.size}")
+    parted = _divergences(xla, prompts, rows, want)
+    if any(not d["near_tie"] for d in parted):
+        failures.append(f"rows part from the xla engine off a near-tie: {parted}")
+
+    got_l, want_l, fault_l = [], [], []
+    for i in GPTJ_LOGIT_ROWS:
+        w = np.asarray(want[i])[:-1]
+        want_l.append(paged_logits(xla, w, prompts[i].size))
+        got_l.append(paged_logits(engine, w, prompts[i].size))
+        with planted_attention_fault("flash_kv_head_shifted"):
+            fault_l.append(paged_logits(engine, w, prompts[i].size))
+    logits, bad = logit_parity(torch.cat(got_l), torch.cat(want_l),
+                               {"flash_kv_head_shifted": torch.cat(fault_l)})
+    failures += bad
+
+    ids = np.stack([p[:GPTJ_STATIC_PROMPT] for p in prompts])
+    dda.launches = fa.launches = 0
+    t = time.perf_counter()
+    static = engine.generate(ids, max_new_tokens=SERVE_MAX_NEW)
+    _sync()
+    static_s = time.perf_counter() - t
+    launches["dense_decode_attention_hd256"] = dda.launches
+    # the prefill of static generate attends through forward_cached's
+    # grouped einsum (as the JAX package's cached path does), not A
+    if (dda.launches, fa.launches) != (on_card * cfg.n_layer * (SERVE_MAX_NEW - 1), 0):
+        failures.append(f"static generate launched K5 {dda.launches}, A {fa.launches}: "
+                        f"not {cfg.n_layer} x {SERVE_MAX_NEW - 1} and 0")
+    static_want = xla.generate(ids, max_new_tokens=SERVE_MAX_NEW)
+    static_parted = []
+    for i, (g, w) in enumerate(zip(static, static_want)):
+        diff = np.nonzero(g != w)[0]
+        if diff.size:
+            j = int(diff[0])
+            tie = near_tie(cached_logits(xla, w[None, :j], GPTJ_STATIC_PROMPT)[0, -1])
+            static_parted.append({"row": i, "index": j - GPTJ_STATIC_PROMPT, "near_tie": tie})
+    if any(not d["near_tie"] for d in static_parted):
+        failures.append(f"static rows part from the xla engine off a near-tie: {static_parted}")
+    if on_card and not all(launches.values()):
+        failures.append(f"a kernel of the path never launched: {launches}")
+    state["serve_gptj_launches"] = launches
+    emit("serve_gptj", model="gpt-j-6b", layers=cfg.n_layer, heads=cfg.n_head,
+         head_dim=cfg.head_dim, rotary_dim=cfg.rope_dim, d_model=cfg.d_model,
+         vocab=cfg.vocab_size, dtype=ASYNC_DTYPE, init_s=init_s, requests=len(prompts),
+         prompt_tokens=[int(p.size) for p in prompts], max_new_tokens=SERVE_MAX_NEW,
+         serve=serve, rows_parting=parted, logits=logits,
+         static={"batch": list(ids.shape), "wall_s": static_s,
+                 "tokens_per_s": ids.shape[0] * SERVE_MAX_NEW / static_s,
+                 "rows_parting": static_parted},
+         launches=launches, peak_mem_gb=_peak_gb(), card=state.get("card"))
+    del engine, xla
+    _free()
+    check(not failures, "serve_gptj failed: " + "; ".join(failures))
+
+
+INT8_TWIN_ROWS = (0, 10)        # serve prompts held teacher-forced against the twin (32, 512)
+INT8_TOP1_ROWS = (0, 3, 5, 10)  # and for the bf16 engine's top-1 agreement
+
+
+@contextlib.contextmanager
+def plain_dequant():
+    """Inside the ``with`` body every int8 weight dequantizes through the
+    kernel's plain twin (the torch expression) on the card: the reference
+    run of phase serve_int8, and nowhere else."""
+    from deepspeed_tpu_torch.ops import quant
+    from deepspeed_tpu_torch.ops.kernels import dequant_int8 as dq
+    real = quant.dequant_int8
+    quant.dequant_int8 = dq.dequant_int8_plain
+    try:
+        yield
+    finally:
+        quant.dequant_int8 = real
+
+
+def _decode_step_ms(engine, prompts):
+    """Device ms by kernel class of one fused paged decode step over the
+    rows of ``prompts`` (each at its prompt's depth), on a scratch pool."""
+    import torch
+    from deepspeed_tpu_torch.models import transformer as T
+    cfg, dev = engine.module.config, engine.device
+    B = len(prompts)
+    n_max = max(-(-(p.size + 1) // 128) for p in prompts)
+    pools = engine.module.init_paged_cache(B * n_max + 1, 128, dtype=engine.dtype, device=dev)
+    table = (torch.arange(B * n_max, dtype=torch.int32, device=dev) + 1).reshape(B, n_max)
+    pos = torch.tensor([p.size for p in prompts], dtype=torch.int32, device=dev)
+    tok = torch.zeros((B, 1), dtype=torch.long, device=dev)
+
+    def step():
+        with torch.no_grad():
+            T.forward_paged_decode(cfg, engine.params, tok, pools, table, pos)
+
+    by_class = device_ms_by_class(step, reps=5)
+    del pools
+    return {"total": sum(by_class.values()), **by_class}
+
+
+def _fresh_serve(engine, prompts):
+    """:func:`_serve_timed` from an empty prefix cache (the pools kept), so
+    that every serve of the phase takes the same actions."""
+    engine._paged_alloc = None
+    return _serve_timed(engine, prompts, SERVE_MAX_NEW)
+
+
+def phase_serve_int8(state, seed):
+    """Llama-2-7B at full width and depth with dtype "int8" (weight-only,
+    q_groups 1): bytes at rest (memory_allocated after init) against the
+    bf16 engine's; the serve phase's prompts through generate_batch on A, B
+    and the dequant kernel (7 x L + 1 launches a forward), then the same
+    int8 params with the dequant's plain twin on the card: rows equal
+    (limit 0) and teacher-forced logits within LOGIT_ULP_TOL (0 expected:
+    the kernel is bit-equal), kernel A reading the next kv head planted
+    above it; a fused decode step's device ms by class, int8 against bf16;
+    serves alternated int8, bf16, bf16, int8, each from an empty prefix
+    cache: tokens/s, TTFT / TPOT p50 and peak memory; the bf16 engine's
+    top-1 agreement with the int8 engine, teacher-forced over the bf16
+    engine's tokens (printed, not gated)."""
+    import numpy as np
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.ops import quant
+    from deepspeed_tpu_torch.ops.kernels import dequant_int8 as dq
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    from deepspeed_tpu_torch.ops.kernels import paged_decode_attention as pda
+
+    failures = []
+    _free()
+    base = _allocated_gb()
+    t0 = time.perf_counter()
+    model, params = _llama7b(seed)
+    cfg = model.config
+    engine = deepspeed_tpu_torch.init_inference(model, params=params, dtype="int8",
+                                                device=ASYNC_DEVICE, telemetry=True)
+    del params
+    _free()
+    init_s = time.perf_counter() - t0
+    at_rest = {"int8_allocated_gb": None if base is None else _allocated_gb() - base,
+               "int8_tree_gb": quant.tree_nbytes(engine.params) / 1e9}
+    wq = engine.params["layers"][0]["attn"]["wq"]
+    check(isinstance(wq, quant.Quantized8) and wq.q.dtype == torch.int8
+          and wq.scale.dtype == torch.float32, "the int8 engine's weights are not int8")
+    prompts = _serve_prompts(cfg, seed)
+
+    _reset_peak()
+    fa.launches = pda.launches = dq.launches = 0
+    rows, serve = _fresh_serve(engine, prompts)
+    launches = {"flash_attention_fwd": fa.launches, "paged_decode_attention": pda.launches,
+                "dequant_int8": dq.launches}
+    serve["peak_mem_gb"] = _peak_gb()
+    acts = serve["actions"]
+    rule = {**serve_launch_rule(cfg, acts), "dequant_int8": (7 * cfg.n_layer + 1) * sum(
+        acts.get(a, 0) for a in ("prefill", "prefill_chunk", "decode"))}
+    if ASYNC_DEVICE is not None:      # the CPU takes the plain versions: nothing launches
+        rule = {k: 0 for k in rule}
+    if launches != rule:
+        failures.append(f"launches {launches} off the rule {rule}")
+    for p, o in zip(prompts, rows):
+        o = np.asarray(o)
+        check(o.shape == (p.size + SERVE_MAX_NEW,) and np.array_equal(o[:p.size], p),
+              f"output shape {o.shape} for prompt {p.size}")
+
+    with plain_dequant():
+        dq.launches = 0
+        twin_rows, twin_serve = _fresh_serve(engine, prompts)
+        twin_launches = dq.launches
+        twin_l = [paged_logits(engine, np.asarray(rows[i])[:-1], prompts[i].size)
+                  for i in INT8_TWIN_ROWS]
+    if twin_launches:
+        failures.append(f"the twin run launched the dequant kernel {twin_launches} times")
+    if twin_serve["actions"] != acts:
+        failures.append(f"the twin run took other actions: {twin_serve['actions']}")
+    rows_equal = sum(np.array_equal(np.asarray(a), np.asarray(b))
+                     for a, b in zip(rows, twin_rows))
+    if rows_equal != len(prompts):
+        failures.append(f"{len(prompts) - rows_equal} rows differ from the twin's")
+    got_l, fault_l = [], []
+    for i in INT8_TWIN_ROWS:
+        w = np.asarray(rows[i])[:-1]
+        got_l.append(paged_logits(engine, w, prompts[i].size))
+        with planted_attention_fault("flash_kv_head_shifted"):
+            fault_l.append(paged_logits(engine, w, prompts[i].size))
+    logits, bad = logit_parity(torch.cat(got_l), torch.cat(twin_l),
+                               {"flash_kv_head_shifted": torch.cat(fault_l)})
+    failures += bad
+    step_int8 = _decode_step_ms(engine, prompts[:8]) if ASYNC_DEVICE is None else None
+    _free()
+
+    mid = _allocated_gb()
+    model_bf, params = _llama7b(seed)
+    bf16 = deepspeed_tpu_torch.init_inference(model_bf, params=params, dtype=ASYNC_DTYPE,
+                                              device=ASYNC_DEVICE, telemetry=True)
+    del params
+    _free()
+    at_rest["bf16_allocated_gb"] = None if mid is None else _allocated_gb() - mid
+    at_rest["bf16_tree_gb"] = quant.tree_nbytes(bf16.params) / 1e9
+    if at_rest["int8_tree_gb"] >= at_rest["bf16_tree_gb"]:
+        failures.append(f"int8 weights at rest {at_rest} not below bf16's")
+    step_bf16 = _decode_step_ms(bf16, prompts[:8]) if ASYNC_DEVICE is None else None
+    # the speed comparison, alternated on one card: int8 (above), bf16, bf16, int8
+    bf_rows, bf_serve = _fresh_serve(bf16, prompts)
+    bf_serve_2 = _fresh_serve(bf16, prompts)[1]
+    int8_serve_2 = _fresh_serve(engine, prompts)[1]
+    agree = total = 0
+    for i in INT8_TOP1_ROWS:
+        w = np.asarray(bf_rows[i])
+        lg = paged_logits(engine, w[:-1], prompts[i].size)
+        agree += int((lg.argmax(-1).numpy() == w[prompts[i].size:]).sum())
+        total += lg.shape[0]
+    state["serve_int8_launches"] = launches
+    emit("serve_int8", model="llama-2-7b", layers=cfg.n_layer, dtype="int8",
+         q_groups=int(engine.config.quant.weight.q_groups), init_s=init_s,
+         requests=len(prompts), max_new_tokens=SERVE_MAX_NEW, at_rest=at_rest,
+         serve=serve, serve_again=int8_serve_2, bf16_serve=bf_serve, bf16_serve_again=bf_serve_2,
+         launches=launches, launch_rule=rule,
+         twin={"rows_equal": int(rows_equal), "launches": twin_launches, "logits": logits},
+         decode_step_device_ms={"int8": step_int8, "bf16": step_bf16},
+         bf16_top1_agreement={"positions": total, "agree": agree,
+                              "share": agree / max(total, 1)},
+         card=state.get("card"))
+    del engine, bf16
+    _free()
+    check(not failures, "serve_int8 failed: " + "; ".join(failures))
+
+
 def phase_kernels(state):
     res = state.get("kernel_results", {})
     serve = state.get("launches", {})
@@ -6030,6 +6547,8 @@ def phase_kernels(state):
     serve_async = state.get("serve_async_launches", {})
     serve_tier = state.get("serve_tier_launches", {})
     serve_fleet = state.get("serve_fleet_launches", {})
+    serve_gptj = state.get("serve_gptj_launches", {})
+    serve_int8 = state.get("serve_int8_launches", {})
     rows = []
     meta = {
         "flash_attention_fwd": (
@@ -6085,6 +6604,19 @@ def phase_kernels(state):
             "deepspeed_tpu_torch/csrc/sr_quantize.cu",
             "deepspeed_tpu/ops/quantizer/kernels.py:48 (_sym_scale: the group max |x| / qmax "
             "that XLA fuses before the pallas_call :102; not a pallas_call site)"),
+        "flash_attention_fwd_hd256": (
+            "deepspeed_tpu_torch/csrc/flash_attention_fwd.cu",
+            "deepspeed_tpu/ops/pallas/flash_attention.py:127 (_fwd_kernel at head_dim 256)"),
+        "paged_decode_attention_hd256": (
+            "deepspeed_tpu_torch/csrc/paged_decode_attention.cu",
+            "deepspeed_tpu/ops/pallas/paged_decode_attention.py:46 (_kernel at head_dim 256)"),
+        "dense_decode_attention_hd256": (
+            "deepspeed_tpu_torch/csrc/dense_decode_attention.cu",
+            "deepspeed_tpu/ops/pallas/decode_attention.py:45 (_kernel at head_dim 256)"),
+        "dequant_int8": (
+            "deepspeed_tpu_torch/csrc/dequant_int8.cu",
+            "deepspeed_tpu/ops/quant.py:35 (Quantized8.dequant, which XLA fuses into the "
+            "matmul's operand read; not a pallas_call site)"),
     }
     for kern, (line, what) in {"flash_attention_fwd": (127, "_fwd_kernel"),
                                "flash_attention_bwd_dq": (182, "_dq_kernel"),
@@ -6103,7 +6635,9 @@ def phase_kernels(state):
                                            ("client_opt", client_opt), ("health", health),
                                            ("serve_async", serve_async),
                                            ("serve_tier", serve_tier),
-                                           ("serve_fleet", serve_fleet))
+                                           ("serve_fleet", serve_fleet),
+                                           ("serve_gptj", serve_gptj),
+                                           ("serve_int8", serve_int8))
                    if name in n}
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                      "launches": sum(by_path.values()) if by_path else None,

@@ -15,10 +15,20 @@ LAMB moments, SGD's trace, Lion's momentum, Adagrad's sum of squares), so a
 run started in one package resumes in the other. :func:`opt_state_to_jax`
 goes back: the JAX engine's flattened optimizer state, keyed by
 ``keystr`` path in its flatten order (``jax.tree.unflatten`` of the JAX
-engine's treedef over ``list(values())`` rebuilds its state)."""
+engine's treedef over ``list(values())`` rebuilds its state).
+
+An int8 weight (the JAX package's ``Quantized8`` node: an int8 payload and
+fp32 scales grouped over the last axis) crosses as one: its stacked
+``[L, in, out]`` payload and ``[L, in, groups]`` scales split into the
+port's per-layer :class:`~deepspeed_tpu_torch.ops.quant.Quantized8` leaves
+(grouping is per row, so a layer's slice is what quantizing that layer
+alone gives, bit for bit), and :func:`params_to_jax` stacks them back into
+:class:`QuantizedArrays` (``Quantized8(q=..., scale=...)`` on the JAX
+side)."""
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict
 
 import numpy as np
@@ -26,12 +36,34 @@ import torch
 
 from deepspeed_tpu_torch.models.transformer import ParamTree, TransformerConfig, map_tree
 from deepspeed_tpu_torch.config import core as config_core
+from deepspeed_tpu_torch.ops.quant import Quantized8
 from deepspeed_tpu_torch.runtime.optimizers import (AdagradState, AdamState, LionState,
                                                     SGDState, jax_state_layout)
 from deepspeed_tpu_torch.runtime.utils import jax_leaves, keystr
 
 
+@dataclasses.dataclass
+class QuantizedArrays:
+    """An int8 weight in the JAX package's layout, as numpy: ``q`` int8
+    and ``scale`` fp32 (the fields of its ``Quantized8`` node)."""
+    q: np.ndarray
+    scale: np.ndarray
+
+
+def _is_quantized(x) -> bool:
+    """A JAX ``Quantized8`` node (or :class:`QuantizedArrays`): the port
+    never imports the JAX package, so it goes by the node's two fields."""
+    return not isinstance(x, (dict, np.ndarray)) and hasattr(x, "q") and hasattr(x, "scale")
+
+
+def _quantized(q, scale) -> Quantized8:
+    return Quantized8(torch.as_tensor(np.array(q, dtype=np.int8)),
+                      torch.as_tensor(np.array(scale, dtype=np.float32)))
+
+
 def _tensor(a, dtype):
+    if _is_quantized(a):
+        return _quantized(a.q, a.scale)
     return torch.as_tensor(np.array(a, dtype=np.float32)).to(dtype)
 
 
@@ -45,6 +77,11 @@ def params_from_jax(cfg: TransformerConfig, tree: Dict[str, Any],
         def take(x):
             if isinstance(x, dict):
                 return {k: take(v) for k, v in x.items()}
+            if _is_quantized(x):
+                if np.shape(x.q)[0] != L:
+                    raise ValueError(f"stacked int8 leaf has leading dim {np.shape(x.q)[0]}, "
+                                     f"expected n_layer={L}")
+                return _quantized(np.asarray(x.q)[i], np.asarray(x.scale)[i])
             a = np.asarray(x)
             if a.shape[0] != L:
                 raise ValueError(f"stacked layer leaf has leading dim {a.shape[0]}, "
@@ -59,13 +96,16 @@ def params_from_jax(cfg: TransformerConfig, tree: Dict[str, Any],
 
 def params_to_jax(cfg: TransformerConfig, tree) -> Dict[str, Any]:
     """The JAX package's layout (stacked ``[n_layer, ...]`` layer leaves,
-    numpy fp32) from the port's tree (a ParamTree or its nested dict)."""
+    numpy fp32; an int8 weight as :class:`QuantizedArrays`) from the port's
+    tree (a ParamTree or its nested dict)."""
     if isinstance(tree, ParamTree):
         tree = tree.to_dict()
 
     def host(x):
         if isinstance(x, dict):
             return {k: host(v) for k, v in x.items()}
+        if isinstance(x, Quantized8):
+            return QuantizedArrays(x.q.detach().cpu().numpy(), x.scale.detach().cpu().numpy())
         return torch.as_tensor(x).detach().to("cpu", torch.float32).numpy()
 
     layers = [host(lp) for lp in tree["layers"]]
@@ -75,6 +115,9 @@ def params_to_jax(cfg: TransformerConfig, tree) -> Dict[str, Any]:
     def stack(*leaves):
         if isinstance(leaves[0], dict):
             return {k: stack(*(lf[k] for lf in leaves)) for k in leaves[0]}
+        if isinstance(leaves[0], QuantizedArrays):
+            return QuantizedArrays(np.stack([lf.q for lf in leaves]),
+                                   np.stack([lf.scale for lf in leaves]))
         return np.stack(leaves)
 
     out = {k: host(v) for k, v in tree.items() if k != "layers"}

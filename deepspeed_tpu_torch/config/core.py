@@ -100,8 +100,10 @@ _NO_EFFECT_ON_ONE_DEVICE = {
     "gradient_predivide_factor", "sparse_gradients", "memory_breakdown",
     "zero_allow_untested_optimizer",
 }
-# DeepSpeed sections the JAX config accepts and ignores: it has no comet sink
-_IGNORED = {"comet"}
+# DeepSpeed sections the JAX config accepts without effect on training: it
+# has no comet sink, and it parses and stores weight_quantization (the
+# inference-side int8 settings, which no training path reads)
+_IGNORED = {"comet", "weight_quantization"}
 # sections that are not ported: key -> (what, ROADMAP.md item)
 _NOT_PORTED = {
     "pipeline": ("pipeline parallelism", "runtime/pipe/"),
@@ -116,7 +118,6 @@ _NOT_PORTED = {
     "curriculum_learning": ("curriculum learning", "data_pipeline/"),
     "data_efficiency": ("data efficiency", "data_pipeline/"),
     "progressive_layer_drop": ("progressive layer drop", "data_pipeline/"),
-    "weight_quantization": ("weight quantization", "int8 inference"),
 }
 _ONEBIT = (ONEBIT_ADAM_OPTIMIZER, ZERO_ONE_ADAM_OPTIMIZER, ONEBIT_LAMB_OPTIMIZER)
 
@@ -251,6 +252,12 @@ class DeepSpeedConfig:
             raise DeepSpeedConfigError(
                 f"data_types.grad_accum_dtype={self.gradient_accumulation_dtype!r} "
                 "(expected 'fp32', 'fp16' or 'bf16')")
+
+        # stored as the JAX config stores it (config/core.py:284-285); read by nothing
+        from deepspeed_tpu_torch.inference.config import WeightQuantConfig
+        self.weight_quantization_config = (
+            WeightQuantConfig(**param_dict["weight_quantization"])
+            if "weight_quantization" in param_dict else None)
 
         # MoQ: progressive quantization-aware training (runtime/quantize.py)
         qt = param_dict.get("quantize_training", {})

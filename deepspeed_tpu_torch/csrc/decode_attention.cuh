@@ -26,7 +26,7 @@
 //   launches give the same bits whatever Z is. (Merging in the CTA that
 //   finishes a row's last split, found through an integer counter, saved
 //   that launch but cost each CTA a fence: 4-7 us more at the slices.)
-// * Ring. The CTA's tiles (decode_tile_keys<G>() keys of K and of V) stream
+// * Ring. The CTA's tiles (decode_tile_keys<G, HD>() keys of K and of V) stream
 //   through a kDecodeStages-deep shared-memory ring filled by cp.async.cg
 //   16-byte copies, neighbouring threads on neighbouring chunks of a row; the
 //   copies run kDecodeStages - 1 tiles ahead of the math, across split
@@ -35,9 +35,10 @@
 //   the host for every pool pointer (32 layers a step on a host-bound path)
 //   and passed as a __grid_constant__; cp.async needs no descriptor.
 // * Math from shared memory. Each warp owns a quarter of a tile's keys. Hd / 8
-//   lanes split a key row (16 at Hd 128, 12 at Hd 96, 8 at Hd 64), each on a
-//   16-byte slice; a row takes a power-of-two group of lanes (16 at Hd 96,
-//   whose last four hold zeros and load nothing), so the shuffle reductions
+//   lanes split a key row (32 at Hd 256, 16 at Hd 128, 12 at Hd 96, 8 at Hd
+//   64), each on a 16-byte slice; a row takes a power-of-two group of lanes
+//   (a whole warp at Hd 256; 16 at Hd 96, whose last four hold zeros and
+//   load nothing), so the shuffle reductions
 //   stay butterflies, with q (pre-scaled in T, then fp32) held in registers for that
 //   slice: the score is a shuffle reduction over the row's lanes, and P V
 //   reuses the same lane-to-slice map, so a lane multiplies its own V slice
@@ -63,15 +64,19 @@ constexpr int kDecodeStages = 3;
 // Llama-7B's 32 kv heads and 8 rows); CTAs past a row's pos exit at once
 constexpr int kDecodeTargetCtas = 32 * 132;
 
-// Keys of one ring tile: 8 a warp, 4 at G 8 (q and acc take 128 registers there).
-template <int G>
-__host__ __device__ constexpr int decode_tile_keys() { return G >= 8 ? 16 : 32; }
+// Keys of one ring tile: 8 a warp, 4 at G 8 (q and acc take 128 registers
+// there); half that at Hd 256, so a tile holds the bytes it holds at Hd 128
+// and the ring stays at 48 KB.
+template <int G, int HD>
+__host__ __device__ constexpr int decode_tile_keys() {
+  return (G >= 8 ? 16 : 32) / (HD > 128 ? 2 : 1);
+}
 
 // Dynamic shared memory of one split CTA, in bytes: the ring (K and V tiles
 // of 2-byte elements) and the warps' merge area.
 template <int HD, int G>
 constexpr size_t decode_smem_bytes() {
-  return (size_t)kDecodeStages * 2 * decode_tile_keys<G>() * HD * 2 +
+  return (size_t)kDecodeStages * 2 * decode_tile_keys<G, HD>() * HD * 2 +
          (size_t)kDecodeWarps * G * (HD + 2) * sizeof(float);
 }
 
@@ -139,9 +144,10 @@ __device__ __forceinline__ void decode_split(const T* __restrict__ q_row, float 
                                              const float* __restrict__ slopes, int kvh,
                                              float* __restrict__ part_acc,
                                              float* __restrict__ part_ml, char* smem) {
-  constexpr int TK = decode_tile_keys<G>();
+  constexpr int TK = decode_tile_keys<G, HD>();
   constexpr int VPR = HD / 8;                  // 16-byte slices of one key row
-  constexpr int LPR = VPR <= 8 ? 8 : 16;       // lanes on one key row (a power of two)
+  // lanes on one key row (a power of two; a whole warp at Hd 256)
+  constexpr int LPR = VPR <= 8 ? 8 : VPR <= 16 ? 16 : 32;
   constexpr int RPW = 32 / LPR;                // rows a warp reads at once
   constexpr int KPW = TK / kDecodeWarps;       // keys of a tile per warp
   constexpr int NP = KPW / RPW;                // passes of a warp over its keys

@@ -104,8 +104,8 @@ int dispatch_group(int G, const void* q, const void* ck, const void* cv, const f
 // kernel's caller does); ck/cv [B,Smax,KV,Hd] with the new k/v written at
 // pos; bias [B,Smax] f32 or null; slopes [H] f32 or null; out [B,H,Hd];
 // part: fp32 scratch of B * H * (pos / 128 + 1) * (Hd + 2) floats;
-// 0 <= pos < Smax, Smax % 128 == 0. dtype 0 = fp16, 1 = bf16; head_dim 64, 96 or
-// 128; H / KV in {1, 2, 4, 8}. Launches the split kernel and the combine
+// 0 <= pos < Smax, Smax % 128 == 0. dtype 0 = fp16, 1 = bf16; head_dim 64, 96,
+// 128 or 256; H / KV in {1, 2, 4, 8}. Launches the split kernel and the combine
 // kernel on ``stream``; returns cudaGetLastError().
 extern "C" int ds_dense_decode_attention(const void* q, const void* ck, const void* cv,
                                          const float* bias, const float* slopes, void* out,
@@ -121,11 +121,15 @@ extern "C" int ds_dense_decode_attention(const void* q, const void* ck, const vo
     return dispatch_group<__nv_bfloat16, 128>(G, q, ck, cv, bias, slopes, out, part, scale, B, H, KV, smax, pos, st);
   if (dtype == 1 && head_dim == 96)
     return dispatch_group<__nv_bfloat16, 96>(G, q, ck, cv, bias, slopes, out, part, scale, B, H, KV, smax, pos, st);
+  if (dtype == 1 && head_dim == 256)
+    return dispatch_group<__nv_bfloat16, 256>(G, q, ck, cv, bias, slopes, out, part, scale, B, H, KV, smax, pos, st);
   if (dtype == 0 && head_dim == 64)
     return dispatch_group<__half, 64>(G, q, ck, cv, bias, slopes, out, part, scale, B, H, KV, smax, pos, st);
   if (dtype == 0 && head_dim == 128)
     return dispatch_group<__half, 128>(G, q, ck, cv, bias, slopes, out, part, scale, B, H, KV, smax, pos, st);
   if (dtype == 0 && head_dim == 96)
     return dispatch_group<__half, 96>(G, q, ck, cv, bias, slopes, out, part, scale, B, H, KV, smax, pos, st);
+  if (dtype == 0 && head_dim == 256)
+    return dispatch_group<__half, 256>(G, q, ck, cv, bias, slopes, out, part, scale, B, H, KV, smax, pos, st);
   return (int)cudaErrorInvalidValue;
 }

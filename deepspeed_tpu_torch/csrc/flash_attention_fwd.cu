@@ -47,6 +47,15 @@
 // dtype before p v, o = acc / l (l = 1 where a row has no mass), lse = m +
 // log2(l) or +1e30 for a row with no mass, so the backward can recompute p.
 //
+// Head dim 256 (GPT-J): the plan above needs 1 KB + 64 KB of q + two
+// stages of 128-key k and v (2 x 128 KB), past the 227 KB a block can
+// have. At Hd 256 the k/v tiles take 64 keys (FwdShape::kBK): q 64 KB +
+// two stages of 64 KB = 193 KB, and the score tile shrinks to 64 x 64
+// (m64n64k16), so a consumer thread holds o (128 fp32) beside 32 scores
+// and 16 packed p registers under setmaxnreg's 232. p v is one m64n256k16
+// (register A, v MN-major over four 64-column boxes). A block layout's
+// lists keep their 128-key tiles: each entry is walked as its two halves.
+//
 // Bound on the H100: at the training shape (S 2048, Hd 128) the causal
 // triangle's 4 S^2/2 Hd FLOPs a head bound it (0.139 ms at B 4, H 32 on
 // 989 TFLOP/s); short prompts (S 512 at B 1) are bound by the q/k/v/o
@@ -59,18 +68,22 @@
 namespace {
 
 constexpr int kBQ = 128;          // q rows of a tile: two consumer warpgroups of 64
-constexpr int kBK = 128;          // keys per k/v tile
+constexpr int kListTile = 128;    // keys of a tile in a block layout's lists
 constexpr int kStages = 2;        // k/v ring depth
 constexpr int kThreads = 384;     // warpgroups 0, 1 consume; 2 produces
 constexpr int kConsumers = 256;
-constexpr int kBox = 128 * 128;   // one 128-row x 64-column box of q, k or v, bytes
+constexpr int kQBox = kBQ * 128;  // one 128-row x 64-column box of q, bytes
 
 template <int HD>
 struct FwdShape {
-  static constexpr int kTileBytes = kBox * (HD / 64);   // one of q, k, v
-  static constexpr int kStageBytes = 2 * kTileBytes;    // k and v
+  static constexpr int kBK = HD > 128 ? 64 : 128;      // keys per k/v tile
+  static constexpr int kSub = kListTile / kBK;         // k/v tiles of a list tile
+  static constexpr int kKBox = kBK * 128;              // one kBK-row x 64-column box
+  static constexpr int kQBytes = kQBox * (HD / 64);
+  static constexpr int kTileBytes = kKBox * (HD / 64);   // one of k, v
+  static constexpr int kStageBytes = 2 * kTileBytes;     // k and v
   static constexpr size_t kSmem =
-      1024 + kTileBytes + kStages * kStageBytes + (2 * kStages + 1) * 8;
+      1024 + kQBytes + kStages * kStageBytes + (2 * kStages + 1) * 8;
 };
 
 template <typename T, int HD>
@@ -81,10 +94,11 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant
                  const float* __restrict__ slopes, int S, int H, int KV, int causal,
                  float scale_log2, const ds::TileList tl) {
   using Sh = FwdShape<HD>;
+  constexpr int kBK = Sh::kBK;
   extern __shared__ unsigned char fwd_smem_raw[];
   unsigned char* smem = ds::align_1024(fwd_smem_raw);
   unsigned char* qs = smem;
-  unsigned char* ring = smem + Sh::kTileBytes;
+  unsigned char* ring = smem + Sh::kQBytes;
   uint64_t* full = reinterpret_cast<uint64_t*>(ring + kStages * Sh::kStageBytes);
   uint64_t* empty = full + kStages;
   uint64_t* qbar = empty + kStages;
@@ -102,8 +116,11 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant
   if (causal) n_kt = min(n_kt, (q0 + kBQ - 1) / kBK + 1);   // tiles up to the diagonal
   // with a layout: this (head, q tile)'s live k tiles; producer and consumers
   // walk the same list, so their ring phases agree whatever its length
+  // (kSub k/v tiles to each of its 128-key entries)
   int n_it;
   const int* walk = ds::tile_walk(tl, h * nqt + qt, n_kt, n_it);
+  const int n_walked = n_it;
+  if (walk) n_it *= Sh::kSub;
   const int tid = threadIdx.x;
 
   if (tid == 0) {
@@ -120,24 +137,24 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant
   if (tid >= kConsumers) {   // producer warpgroup: one thread starts every load
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     if (tid == kConsumers) {
-      ds::mbar_expect_tx(qbar, Sh::kTileBytes);
+      ds::mbar_expect_tx(qbar, Sh::kQBytes);
 #pragma unroll
       for (int j = 0; j < HD / 64; ++j)
-        ds::tma_load_3d(qs + j * kBox, &qmap, qbar, h * HD + 64 * j, q0, b);
+        ds::tma_load_3d(qs + j * kQBox, &qmap, qbar, h * HD + 64 * j, q0, b);
       for (int it = 0; it < n_it; ++it) {
-        const int kt = walk ? walk[it] >> 1 : it;
+        const int kt = walk ? (walk[it / Sh::kSub] >> 1) * Sh::kSub + it % Sh::kSub : it;
         const int s = it % kStages;
         ds::mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);   // first pass: free
         unsigned char* ks = ring + s * Sh::kStageBytes;
         ds::mbar_expect_tx(&full[s], Sh::kStageBytes);
 #pragma unroll
         for (int j = 0; j < HD / 64; ++j) {
-          ds::tma_load_3d(ks + j * kBox, &kmap, &full[s], kvh * HD + 64 * j, kt * kBK, b);
-          ds::tma_load_3d(ks + Sh::kTileBytes + j * kBox, &vmap, &full[s], kvh * HD + 64 * j,
-                          kt * kBK, b);
+          ds::tma_load_3d(ks + j * Sh::kKBox, &kmap, &full[s], kvh * HD + 64 * j, kt * kBK, b);
+          ds::tma_load_3d(ks + Sh::kTileBytes + j * Sh::kKBox, &vmap, &full[s],
+                          kvh * HD + 64 * j, kt * kBK, b);
         }
       }
-      if (tl.walked != nullptr) atomicAdd(tl.walked, (unsigned long long)n_it);
+      if (tl.walked != nullptr) atomicAdd(tl.walked, (unsigned long long)n_walked);
     }
   } else {   // consumer warpgroups: 64 q rows each
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
@@ -156,20 +173,21 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant
 
     ds::mbar_wait(qbar, 0);
     for (int it = 0; it < n_it; ++it) {
-      const int e = walk ? walk[it] : 2 * it;
+      const int e = walk ? walk[it / Sh::kSub] : 0;
       const bool partial = e & 1;
-      const int s = it % kStages, k0 = (e >> 1) * kBK;
+      const int kt = walk ? (e >> 1) * Sh::kSub + it % Sh::kSub : it;
+      const int s = it % kStages, k0 = kt * kBK;
       const uint32_t k_base = ds::smem_u32(ring + s * Sh::kStageBytes);
       const uint32_t v_base = k_base + Sh::kTileBytes;
       ds::mbar_wait(&full[s], (it / kStages) & 1);
 
-      // s = q k^T: 64 rows x 128 keys, 16-deep steps along Hd
+      // s = q k^T: 64 rows x kBK keys, 16-deep steps along Hd
       float sc[kBK / 2];
       ds::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < HD / 16; ++kk) {
-        const uint64_t da = ds::gmma_desc(q_base + kk / 4 * kBox + kk % 4 * 32, 16, 1024);
-        const uint64_t db = ds::gmma_desc(k_base + kk / 4 * kBox + kk % 4 * 32, 16, 1024);
+        const uint64_t da = ds::gmma_desc(q_base + kk / 4 * kQBox + kk % 4 * 32, 16, 1024);
+        const uint64_t db = ds::gmma_desc(k_base + kk / 4 * Sh::kKBox + kk % 4 * 32, 16, 1024);
         ds::wgmma_ss<T, kBK, 0, 0>(sc, da, db, kk > 0);
       }
       ds::wgmma_commit();
@@ -227,13 +245,14 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant
       for (int i = 0; i < HD / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
 
       // o += p v: p (rounded to T, as the TPU kernel casts p to v's dtype)
-      // from the accumulators; v [keys, Hd] MN-major, 128-row boxes 16 KB apart
+      // from the accumulators; v [keys, Hd] MN-major, kBK-row boxes kKBox apart
       uint32_t pa[kBK / 16][4];
       ds::acc_to_a<T, kBK>(sc, pa);
       ds::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kBK / 16; ++kk)
-        ds::wgmma_rs<T, HD, 1>(acc, pa[kk], ds::gmma_desc(v_base + kk * 16 * 128, kBox, 1024));
+        ds::wgmma_rs<T, HD, 1>(acc, pa[kk],
+                               ds::gmma_desc(v_base + kk * 16 * 128, Sh::kKBox, 1024));
       ds::wgmma_commit();
       ds::wgmma_wait<0>();
       ds::fence_regs(acc);
@@ -264,8 +283,8 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, con
   using Sh = FwdShape<HD>;
   CUtensorMap qmap, kmap, vmap;
   if (!ds::make_tma_map_bsc<T>(&qmap, q, B, S, (long)H * HD, kBQ) ||
-      !ds::make_tma_map_bsc<T>(&kmap, k, B, S, (long)KV * HD, kBK) ||
-      !ds::make_tma_map_bsc<T>(&vmap, v, B, S, (long)KV * HD, kBK))
+      !ds::make_tma_map_bsc<T>(&kmap, k, B, S, (long)KV * HD, Sh::kBK) ||
+      !ds::make_tma_map_bsc<T>(&vmap, v, B, S, (long)KV * HD, Sh::kBK))
     return (int)cudaErrorNotSupported;
   auto kern = flash_fwd_kernel<T, HD>;
   const cudaError_t err =
@@ -281,12 +300,14 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, con
 
 // Dynamic shared memory of one block at head_dim.
 extern "C" int ds_flash_fwd_smem_bytes(int head_dim) {
-  return (int)(head_dim == 128 ? FwdShape<128>::kSmem : FwdShape<64>::kSmem);
+  return (int)(head_dim == 256   ? FwdShape<256>::kSmem
+               : head_dim == 128 ? FwdShape<128>::kSmem
+                                 : FwdShape<64>::kSmem);
 }
 
 // q/o [B,S,H,Hd], k/v [B,S,KV,Hd] contiguous and 16-byte aligned; lse
 // [B,H,S] f32; mask [B,S] f32 additive key bias or null; slopes [H] f32 or
-// null. dtype 0 = fp16, 1 = bf16; head_dim 64 or 128. tile_offsets /
+// null. dtype 0 = fp16, 1 = bf16; head_dim 64, 128 or 256. tile_offsets /
 // tile_entries: the live-tile lists of a block layout, one per (head, q
 // tile) (ds::TileList), blocks its kept blocks [H, nb, nb] uint8, walked a
 // counter of the tiles walked; all null (nb 0) without a layout. Returns
@@ -302,8 +323,10 @@ extern "C" int ds_flash_attention_fwd(const void* q, const void* k, const void* 
   const ds::TileList tl{tile_offsets, tile_entries, blocks, nb, walked};
 #define DS_FWD(T, HD) launch<T, HD>(q, k, v, o, lse, mask, slopes, B, S, H, KV, causal, \
                                     scale_log2, tl, st)
+  if (dtype == 1 && head_dim == 256) return DS_FWD(__nv_bfloat16, 256);
   if (dtype == 1 && head_dim == 128) return DS_FWD(__nv_bfloat16, 128);
   if (dtype == 1 && head_dim == 64) return DS_FWD(__nv_bfloat16, 64);
+  if (dtype == 0 && head_dim == 256) return DS_FWD(__half, 256);
   if (dtype == 0 && head_dim == 128) return DS_FWD(__half, 128);
   if (dtype == 0 && head_dim == 64) return DS_FWD(__half, 64);
 #undef DS_FWD

@@ -106,7 +106,7 @@ int dispatch_group(int G, const void* q, const void* kp, const void* vp, const i
 // kernel's caller does); pools [Nb,bs,KV,Hd]; block_tables [B,nmax] int32;
 // pos [B] int32; bias [B,nmax*bs] f32 or null; slopes [H] f32 or null; out
 // [B,H,Hd]; part: fp32 scratch of B * H * splits * (Hd + 2) floats with
-// splits = nmax * bs / 128. dtype 0 = fp16, 1 = bf16; head_dim 64, 96 or 128;
+// splits = nmax * bs / 128. dtype 0 = fp16, 1 = bf16; head_dim 64, 96, 128 or 256;
 // H / KV in {1, 2, 4, 8}; bs % 128 == 0. Launches the split kernel and the
 // combine kernel on ``stream``; returns cudaGetLastError().
 extern "C" int ds_paged_decode_attention(const void* q, const void* kp, const void* vp,
@@ -124,11 +124,15 @@ extern "C" int ds_paged_decode_attention(const void* q, const void* kp, const vo
     return dispatch_group<__nv_bfloat16, 128>(G, q, kp, vp, block_tables, pos, bias, slopes, out, part, scale, B, H, KV, bs, nmax, st);
   if (dtype == 1 && head_dim == 96)
     return dispatch_group<__nv_bfloat16, 96>(G, q, kp, vp, block_tables, pos, bias, slopes, out, part, scale, B, H, KV, bs, nmax, st);
+  if (dtype == 1 && head_dim == 256)
+    return dispatch_group<__nv_bfloat16, 256>(G, q, kp, vp, block_tables, pos, bias, slopes, out, part, scale, B, H, KV, bs, nmax, st);
   if (dtype == 0 && head_dim == 64)
     return dispatch_group<__half, 64>(G, q, kp, vp, block_tables, pos, bias, slopes, out, part, scale, B, H, KV, bs, nmax, st);
   if (dtype == 0 && head_dim == 128)
     return dispatch_group<__half, 128>(G, q, kp, vp, block_tables, pos, bias, slopes, out, part, scale, B, H, KV, bs, nmax, st);
   if (dtype == 0 && head_dim == 96)
     return dispatch_group<__half, 96>(G, q, kp, vp, block_tables, pos, bias, slopes, out, part, scale, B, H, KV, bs, nmax, st);
+  if (dtype == 0 && head_dim == 256)
+    return dispatch_group<__half, 256>(G, q, kp, vp, block_tables, pos, bias, slopes, out, part, scale, B, H, KV, bs, nmax, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -3,7 +3,7 @@
 // setmaxnreg helpers:
 //
 //   - wgmma at N = 64 and N = 128 (m64n64k16, m64n128k16), with A from
-//     shared memory (SS) or from registers (RS);
+//     shared memory (SS) or from registers (RS), and N = 256 (RS);
 //   - a 3-D TMA map (head_cols, S, B) over a [B, S, heads, Hd] tensor, so
 //     that a box of rows past S arrives as zeros instead of the next batch
 //     row's tokens;
@@ -52,11 +52,24 @@ __device__ __forceinline__ void acc_to_a(const float (&d)[N / 2], uint32_t (&a)[
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "        \
   "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "         \
   "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+#define DS_ATT_D128                                                                         \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                 \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "        \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "         \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "        \
+  "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "        \
+  "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "        \
+  "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, "  \
+  "%111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, "    \
+  "%125, %126, %127}"
 #define DS_ATT_F8(i)                                                                        \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
       "+f"(d[i + 6]), "+f"(d[i + 7])
 #define DS_ATT_ACC32 DS_ATT_F8(0), DS_ATT_F8(8), DS_ATT_F8(16), DS_ATT_F8(24)
 #define DS_ATT_ACC64 DS_ATT_ACC32, DS_ATT_F8(32), DS_ATT_F8(40), DS_ATT_F8(48), DS_ATT_F8(56)
+#define DS_ATT_ACC128                                                                       \
+  DS_ATT_ACC64, DS_ATT_F8(64), DS_ATT_F8(72), DS_ATT_F8(80), DS_ATT_F8(88), DS_ATT_F8(96),   \
+      DS_ATT_F8(104), DS_ATT_F8(112), DS_ATT_F8(120)
 // One wgmma whose scale-d predicate comes from operand SC (0: d = A B,
 // else d += A B); REST lists the A and B operands and the immediates.
 #define DS_ATT_WGMMA(SHAPE_TY, DREGS, SC, REST, ACC, ...)                                 \
@@ -86,12 +99,21 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_
 }
 
 // d += A (64 x 16, register fragment a) B (16 x N, shared memory); TB = 1
-// for an MN-major B (the only transpose the register-A form has).
+// for an MN-major B (the only transpose the register-A form has). N 256 is
+// kernel A's p v at head dim 256.
 template <typename T, int N, int TB>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db) {
-  static_assert(N == 64 || N == 128, "N is 64 or 128");
+  static_assert(N == 64 || N == 128 || N == 256, "N is 64, 128 or 256");
   constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
-  if constexpr (N == 64 && kBf16) {
+  if constexpr (N == 256 && kBf16) {
+    DS_ATT_WGMMA("m64n256k16.f32.bf16.bf16", DS_ATT_D128, "%133",
+                 "{%128, %129, %130, %131}, %132, p, 1, 1, %134", DS_ATT_ACC128, "r"(a[0]),
+                 "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(TB));
+  } else if constexpr (N == 256) {
+    DS_ATT_WGMMA("m64n256k16.f32.f16.f16", DS_ATT_D128, "%133",
+                 "{%128, %129, %130, %131}, %132, p, 1, 1, %134", DS_ATT_ACC128, "r"(a[0]),
+                 "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(TB));
+  } else if constexpr (N == 64 && kBf16) {
     DS_ATT_WGMMA("m64n64k16.f32.bf16.bf16", DS_ATT_D32, "%37",
                  "{%32, %33, %34, %35}, %36, p, 1, 1, %38", DS_ATT_ACC32, "r"(a[0]), "r"(a[1]),
                  "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(TB));
@@ -110,9 +132,11 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
   }
 }
 #undef DS_ATT_WGMMA
+#undef DS_ATT_ACC128
 #undef DS_ATT_ACC64
 #undef DS_ATT_ACC32
 #undef DS_ATT_F8
+#undef DS_ATT_D128
 #undef DS_ATT_D64
 #undef DS_ATT_D32
 

@@ -57,6 +57,14 @@ forward's start and the adoption of the pools it wrote is engine-fatal and
 ``restart_engine`` rebuilds the pools and re-admits every request
 (``utils/fault_injection.step_fault`` plants either).
 
+``dtype="int8"`` is weight-only quantization (the JAX engine's int8
+branch): the weight matrices are quantized once at init
+(``quant.weight.q_groups`` groups over each row's last axis, the untied
+``lm_head`` too) and rest as ``ops/quant.Quantized8`` leaves, int8 payloads
+with fp32 scales; activations, caches and every other leaf run bf16, and
+each matmul dequantizes its weight at use (the ``dequant_int8`` kernel on
+the card).
+
 Settings outside the port's slices raise ``NotImplementedError`` naming
 the ROADMAP item that will bring them.
 """
@@ -78,6 +86,7 @@ from deepspeed_tpu_torch.inference.kv_host_pool import KvHostPool, dtype_name
 from deepspeed_tpu_torch.inference.scheduler import ContinuousBatchingScheduler, ServingTelemetry
 from deepspeed_tpu_torch.inference.spec import NgramProposer
 from deepspeed_tpu_torch.models.transformer import copy_paged_block
+from deepspeed_tpu_torch.ops.quant import Quantized8, quantize_params, tree_nbytes
 from deepspeed_tpu_torch.utils.fault_injection import step_fault
 from deepspeed_tpu_torch.utils.logging import log_dist, logger, warn_once
 from deepspeed_tpu_torch.utils.not_ported import not_ported
@@ -101,7 +110,12 @@ class InferenceEngine:
         self._refuse_outside_slice(model)
         self.device = resolve_device(device)
         self._acc = get_accelerator(self.device.type)
-        self.dtype = DtypeEnum.from_any(self._config.dtype).torch
+        # int8 = weight-only quantization (JAX engine.py:42-50): activations
+        # and caches run bf16, the weight matrices rest as int8 payloads with
+        # fp32 group scales (ops/quant.py)
+        self._weight_quant = DtypeEnum.from_any(self._config.dtype) == DtypeEnum.int8
+        self.dtype = (torch.bfloat16 if self._weight_quant
+                      else DtypeEnum.from_any(self._config.dtype).torch)
         cfg = getattr(model, "config", None)
         if (self.device.type == "cuda" and self.dtype == torch.float32
                 and getattr(cfg, "attention_backend", "auto") != "xla"):
@@ -116,9 +130,12 @@ class InferenceEngine:
             # seeded random init on the device (the JAX engine's key(0))
             gen = torch.Generator(device=self.device).manual_seed(0)
             params = model.init_params(gen, device=self.device, dtype=self.dtype)
+        if self._weight_quant:
+            params = self._quantize(model, params)
+        # the int8 payloads stay int8 and their scales fp32 (JAX _is_qscale)
         self.params = params.map(
-            lambda t: t.to(device=self.device,
-                           dtype=self.dtype if t.is_floating_point() else t.dtype))
+            lambda t: t.to_device(self.device) if isinstance(t, Quantized8) else
+            t.to(device=self.device, dtype=self.dtype if t.is_floating_point() else t.dtype))
         self._workspace = None       # (B, Smax, cache): static generate's KV workspace
         self._paged_workspace = None
         self._paged_alloc = None     # persistent prefix-cache allocator
@@ -153,11 +170,24 @@ class InferenceEngine:
         log_dist(f"InferenceEngine ready: dtype={self.dtype}, device={self.device}",
                  ranks=[0])
 
+    def _quantize(self, model, params):
+        """The JAX engine's int8 branch (``engine.py:192-200``): the weight
+        matrices quantized with ``quant.weight.q_groups`` groups (the untied
+        ``lm_head`` too), in the weights' own precision before the cast, and
+        the bytes at rest logged against bf16."""
+        groups = max(1, int(self._config.quant.weight.q_groups))
+        dense_bytes = sum(p.numel() * 2 for p in params.parameters())
+        params = quantize_params(params, groups=groups,
+                                 include_embed=not getattr(getattr(model, "config", None),
+                                                           "tie_embeddings", True))
+        log_dist(f"int8 weight-only quantisation: q_groups={groups}, "
+                 f"{dense_bytes / 2**20:.0f} MiB (bf16) -> "
+                 f"{tree_nbytes(params) / 2**20:.0f} MiB at rest", ranks=[0])
+        return params
+
     def _refuse_outside_slice(self, model) -> None:
         c = self._config
         srv = c.serving
-        if DtypeEnum.from_any(c.dtype) == DtypeEnum.int8:
-            not_ported("int8 weight-only quantization (dtype='int8')", "queue 1: int8 inference")
         if int(c.tensor_parallel.tp_size) > 1 or int(srv.tp) > 1 or int(c.mp_size) > 1:
             not_ported("tensor-parallel serving", "queue 1: sharded serving")
         if int(c.moe.ep_size) > 1 or int(c.ep_size) > 1 or hasattr(model, "moe"):

@@ -52,6 +52,7 @@ from deepspeed_tpu_torch.ops.kernels.flash_attention import flash_attention
 from deepspeed_tpu_torch.ops.kernels.fused_cross_entropy import fused_cross_entropy
 from deepspeed_tpu_torch.ops.kernels.paged_decode_attention import (paged_decode_attention,
                                                                     paged_envelope_ok)
+from deepspeed_tpu_torch.ops.quant import Quantized8, maybe_dequant
 from deepspeed_tpu_torch.sequence._streaming import chunked_attention
 from deepspeed_tpu_torch.utils.not_ported import not_ported
 
@@ -127,13 +128,17 @@ class ParamTree(nn.Module):
     ``nn.ModuleList``, and ``.parameters()`` / ``named_parameters()`` /
     ``state_dict()`` work as usual (names like ``layers.0.attn.wq``).
     Tensors are frozen parameters (serving) unless ``requires_grad`` is set
-    (the training engine's trees)."""
+    (the training engine's trees). An int8 weight
+    (:class:`~deepspeed_tpu_torch.ops.quant.Quantized8`) is a leaf held as
+    a sub-module (``layers.0.attn.wq.q`` and ``.scale``)."""
 
     def __init__(self, tree: Dict[str, Any], requires_grad: bool = False):
         super().__init__()
         self._keys = tuple(tree)
         for key, value in tree.items():
-            if isinstance(value, dict):
+            if isinstance(value, Quantized8):
+                self.add_module(key, value)
+            elif isinstance(value, dict):
                 self.add_module(key, ParamTree(value, requires_grad))
             elif isinstance(value, (list, tuple)):
                 self.add_module(key, nn.ModuleList(ParamTree(v, requires_grad) for v in value))
@@ -157,6 +162,8 @@ class ParamTree(nn.Module):
                 out[key] = v.to_dict()
             elif isinstance(v, nn.ModuleList):
                 out[key] = [t.to_dict() for t in v]
+            elif isinstance(v, Quantized8):
+                out[key] = v
             else:
                 out[key] = v.data
         return out
@@ -168,7 +175,8 @@ class ParamTree(nn.Module):
 
 
 def map_tree(fn, tree):
-    """``fn`` over every leaf of a nested dict / list tree."""
+    """``fn`` over every leaf of a nested dict / list tree (a Quantized8
+    is one leaf)."""
     if isinstance(tree, dict):
         return {k: map_tree(fn, v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -284,12 +292,19 @@ def _alibi_slopes(n_head: int, device="cpu"):
                         device=device)
 
 
+def _w(entry, like):
+    """Weight access for every matmul site: an int8 ``Quantized8`` leaf
+    (weight-only inference quantization) is dequantized to ``like``'s dtype
+    here, one matrix at a time; a dense weight passes through."""
+    return maybe_dequant(entry, like.dtype)
+
+
 def _qkv_project(cfg: TransformerConfig, x, lp, positions):
     """q ``[B,T,H,Hd]``, k/v ``[B,T,KV,Hd]`` from ``x [B,T,D]``: projections,
     optional biases, head reshape, rope."""
     B, T, _ = x.shape
     H, KV, Hd = cfg.n_head, cfg.kv_heads, cfg.head_dim
-    q, k, v = x @ lp["wq"], x @ lp["wk"], x @ lp["wv"]
+    q, k, v = x @ _w(lp["wq"], x), x @ _w(lp["wk"], x), x @ _w(lp["wv"], x)
     if cfg.attn_bias:
         q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
     q, k, v = q.reshape(B, T, H, Hd), k.reshape(B, T, KV, Hd), v.reshape(B, T, KV, Hd)
@@ -300,14 +315,14 @@ def _qkv_project(cfg: TransformerConfig, x, lp, positions):
 
 
 def _out_project(cfg: TransformerConfig, out, lp):
-    out = out @ lp["wo"]
+    out = out @ _w(lp["wo"], out)
     return out + lp["bo"] if cfg.attn_bias else out
 
 
 def mlp(cfg: TransformerConfig, x, lp):
     if cfg.activation == "swiglu":
-        return (F.silu(x @ lp["w_gate"]) * (x @ lp["w_up"])) @ lp["w_down"]
-    h = x @ lp["w_up"] + lp["b_up"]
+        return (F.silu(x @ _w(lp["w_gate"], x)) * (x @ _w(lp["w_up"], x))) @ _w(lp["w_down"], x)
+    h = x @ _w(lp["w_up"], x) + lp["b_up"]
     if cfg.activation == "gelu":
         h = F.gelu(h, approximate="tanh")
     elif cfg.activation == "gelu_exact":
@@ -316,7 +331,7 @@ def mlp(cfg: TransformerConfig, x, lp):
         h = h * torch.sigmoid(1.702 * h)
     else:
         h = F.relu(h)
-    return h @ lp["w_down"] + lp["b_down"]
+    return h @ _w(lp["w_down"], h) + lp["b_down"]
 
 
 def cached_embed(cfg: TransformerConfig, params, tokens, pos, dtype):
@@ -348,8 +363,10 @@ def _decode_block(cfg: TransformerConfig, h, lp, attn_fn):
 
 
 def _head_weight(cfg: TransformerConfig, params):
-    """``[D, vocab]`` projection (tied embedding transpose or lm_head)."""
-    return params["embed"]["tokens"].T if cfg.tie_embeddings else params["lm_head"]
+    """``[D, vocab]`` projection (tied embedding transpose or lm_head, an
+    untied head dequantized to the embedding's dtype when it is int8)."""
+    embed = params["embed"]["tokens"]
+    return embed.T if cfg.tie_embeddings else _w(params["lm_head"], embed)
 
 
 def cached_head(cfg: TransformerConfig, params, x):

@@ -139,17 +139,25 @@ def load_megatron_checkpoint(ckpt_json, cfg, quantize: bool = False,
                              device="cpu"):
     """ds_inference meta json (``{"type": "Megatron", "checkpoints": [...],
     "version": V}``, a path or a dict) -> the port's ParamTree for the model
-    config ``cfg``, floating-point tensors in ``dtype`` on ``device``."""
+    config ``cfg``, floating-point tensors in ``dtype`` on ``device``.
+
+    ``quantize`` flags mirror the reference SD loader's quantize-on-load
+    surface; quantization runs AFTER name-mapping, so the per-group scales
+    fall on the last axis of the port's ``[in, out]`` layout, as the JAX
+    package's do (``runtime/weight_quantizer.py``)."""
     from deepspeed_tpu_torch.checkpoint.state_dict_factory import SDLoaderFactory
     from deepspeed_tpu_torch.models import ParamTree
 
-    if quantize:
-        not_ported("quantize-on-load of Megatron checkpoints (quantize=True)",
-                   "queue 1: int8 inference")
     sd_type, paths, version = SDLoaderFactory.get_sd_loader_json(ckpt_json)
     if str(sd_type).lower() not in ("megatron", "ds_model"):
         raise ValueError(f"unsupported ds_inference checkpoint type {sd_type!r}")
     loader = SDLoaderFactory.get_sd_loader(paths, sd_type, version)
     merged = loader.load(mp_world_size=1, merge_strategies=megatron_merge_strategies(version))
-    return ParamTree(map_megatron_params(merged, cfg, version=version, dtype=dtype,
-                                         device=torch.device(device)))
+    params = ParamTree(map_megatron_params(merged, cfg, version=version, dtype=dtype,
+                                           device=torch.device(device)))
+    if quantize:
+        from deepspeed_tpu_torch.runtime.weight_quantizer import WeightQuantization
+        wq = WeightQuantization(mlp_extra_grouping=mlp_extra_grouping)
+        params = wq.quantize_params(params, quantize_bits, quantize_groups,
+                                    include_head=not cfg.tie_embeddings)
+    return params

@@ -42,6 +42,7 @@ SOURCES: Dict[str, str] = {
     "fused_cross_entropy": "fused_cross_entropy.cu",
     "fused_lamb": "fused_lamb.cu",
     "sr_quantize": "sr_quantize.cu",
+    "dequant_int8": "dequant_int8.cu",
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -118,15 +118,16 @@ def _lib():
 
 def decode_attention_cuda(q, ck, cv, pos: int, pad_bias=None, alibi_slopes=None,
                           scale: Optional[float] = None):
-    """Launch the kernels on CUDA tensors: head_dim 64, 96 or 128, H / KV in
-    1, 2, 4 or 8 (the model paths keep to the envelope, Hd a multiple of 64)."""
+    """Launch the kernels on CUDA tensors: head_dim 64, 96, 128 or 256, H / KV
+    in 1, 2, 4 or 8 (the model paths keep to the envelope, Hd a multiple of
+    64)."""
     global launches
     B, H, Hd = q.shape
     Smax, KV = ck.shape[1], ck.shape[2]
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"decode_attention kernel takes fp16/bf16, got {q.dtype}")
     if Hd not in _KERNEL_HEAD_DIMS or H // KV not in _KERNEL_GROUPS:
-        raise ValueError(f"decode_attention kernel takes head_dim 64/96/128 and "
+        raise ValueError(f"decode_attention kernel takes head_dim 64/96/128/256 and "
                          f"H/KV in {_KERNEL_GROUPS}, got Hd={Hd}, H/KV={H // KV}")
     if not 0 <= pos < Smax:
         raise ValueError(f"pos {pos} outside the cache [0, {Smax})")

@@ -46,7 +46,7 @@ launches = 0
 
 _DTYPE_CODE = {torch.float16: 0, torch.bfloat16: 1}
 _KERNEL_GROUPS = (1, 2, 4, 8)       # H // KV values the kernel is built for
-_KERNEL_HEAD_DIMS = (64, 96, 128)   # and head dims
+_KERNEL_HEAD_DIMS = (64, 96, 128, 256)   # and head dims
 
 
 def paged_envelope_ok(H: int, KV: int, Hd: int, bs: int) -> bool:
@@ -197,8 +197,9 @@ def _launch(fn, q, *args):
 
 def paged_decode_attention_cuda(q, kp, vp, block_tables, pos, pad_bias=None,
                                 alibi_slopes=None, scale: Optional[float] = None):
-    """Launch the kernels on CUDA tensors: head_dim 64, 96 or 128, H / KV in
-    1, 2, 4 or 8 (the model paths keep to the envelope, Hd a multiple of 64)."""
+    """Launch the kernels on CUDA tensors: head_dim 64, 96, 128 or 256, H / KV
+    in 1, 2, 4 or 8 (the model paths keep to the envelope, Hd a multiple of
+    64)."""
     global launches
     B, H, Hd = q.shape
     Nb, bs, KV = kp.shape[0], kp.shape[1], kp.shape[2]
@@ -206,7 +207,7 @@ def paged_decode_attention_cuda(q, kp, vp, block_tables, pos, pad_bias=None,
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"paged_decode_attention kernel takes fp16/bf16, got {q.dtype}")
     if Hd not in _KERNEL_HEAD_DIMS or H // KV not in _KERNEL_GROUPS:
-        raise ValueError(f"paged_decode_attention kernel takes head_dim 64/96/128 and "
+        raise ValueError(f"paged_decode_attention kernel takes head_dim 64/96/128/256 and "
                          f"H/KV in {_KERNEL_GROUPS}, got Hd={Hd}, H/KV={H // KV}")
     scale = Hd**-0.5 if scale is None else scale
     q = q.contiguous()                     # the kernel pre-scales it in q's dtype

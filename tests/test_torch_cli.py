@@ -114,17 +114,19 @@ def test_not_ported_commands_name_their_item(cmd, capsys):
     assert f"ROADMAP.md {cli.NOT_PORTED[cmd][1]}" in err
 
 
-def test_module_entry_point_and_usage(capsys):
+def test_module_entry_point_and_usage(capsys, tmp_path):
     assert cli.main([]) == 0
     assert "usage: python -m deepspeed_tpu_torch.cli" in capsys.readouterr().out
     assert cli.main(["frobnicate"]) == 2
     assert set(cli.COMMANDS) == set(jax_cli._COMMANDS)
-    # serve runs; a setting outside the port is refused naming its item
+    # serve runs; a setting outside the port (an HF bert checkpoint) is
+    # refused naming its item
+    (tmp_path / "config.json").write_text(json.dumps({"model_type": "bert"}))
     out = subprocess.run([sys.executable, "-m", "deepspeed_tpu_torch.cli", "serve",
-                          "--dtype", "int8"], cwd=ROOT,
+                          "--device", "cpu", "--checkpoint", str(tmp_path)], cwd=ROOT,
                          capture_output=True, text=True, timeout=120,
                          env={**os.environ, "PYTHONPATH": ROOT})
-    assert out.returncode == 2 and "queue 1: int8 inference" in out.stderr
+    assert out.returncode == 2 and "queue 1: models/bert.py" in out.stderr
 
 
 def test_serve_streams_a_completion_and_drains_on_sigterm():

@@ -131,6 +131,8 @@ def test_head_dim_padding_matches_plain_at_hd96():
     for got, want in zip(fa.flash_attention_dkv_plain(*pargs, scale=96**-0.5, **kw),
                          fa.flash_attention_dkv_plain(*args, **kw)):
         torch.testing.assert_close(got[..., :96], want, atol=TOL, rtol=0)
-    for bad in (100, 136):
-        with pytest.raises(ValueError, match="multiple of 8 up to 128"):
+    for bad in (100, 264):      # not a multiple of 8, and past A's 256
+        with pytest.raises(ValueError, match="multiple of 8 up to 256"):
             fa.kernel_head_dim(bad)
+    with pytest.raises(ValueError, match="multiple of 8 up to 128"):     # C and D stop at 128
+        fa.kernel_head_dim(136, fa.BWD_MAX_HEAD_DIM)

@@ -13,6 +13,7 @@ import torch
 
 from deepspeed_tpu_torch.ops.adam import fused_adam_kernel as fad
 from deepspeed_tpu_torch.ops.kernels import decode_attention as dda
+from deepspeed_tpu_torch.ops.kernels import dequant_int8 as dq
 from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
 from deepspeed_tpu_torch.ops.kernels import fused_cross_entropy as fce
 from deepspeed_tpu_torch.ops.kernels import paged_decode_attention as pda
@@ -64,6 +65,11 @@ def _randn(r, shape, dev, dtype=torch.bfloat16):
     (2, 200, 12, 12, 64, True, False, False),      # GPT-2 heads (the TPU's packed path)
     (1, 130, 4, 1, 64, False, True, True),         # full attention
     (2, 200, 8, 2, 96, True, False, True),         # Hd 96, zero-padded to 128
+    (1, 2048, 16, 16, 256, True, False, False),    # GPT-J prefill (64-key k/v tiles)
+    (1, 2048, 16, 16, 256, True, False, True),     # the same with a pad mask
+    (2, 300, 8, 2, 256, True, True, True),         # Hd 256: GQA, unaligned, ALiBi + mask
+    (1, 130, 4, 1, 256, False, False, True),       # Hd 256, full attention
+    (2, 200, 4, 4, 200, True, False, False),       # Hd 200, zero-padded to 256
 ])
 def test_flash_kernel_matches_plain(cuda, B, S, H, KV, Hd, causal, alibi, mask):
     r = np.random.default_rng(S + H)
@@ -150,10 +156,14 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
     x = torch.zeros((1, 16, 2, 64), device=cuda)
     with pytest.raises(TypeError, match="fp16/bf16"):
         fa.flash_attention(x, x, x)
-    for hd in (100, 136):      # not a multiple of 8, and past 128
+    for hd in (100, 264):      # not a multiple of 8, and past 256
         y = torch.zeros((1, 16, 2, hd), device=cuda, dtype=torch.bfloat16)
         with pytest.raises(ValueError, match="head_dim"):
             fa.flash_attention(y, y, y)
+    y = torch.zeros((1, 16, 2, 256), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="Hd-256 backward"):    # C and D stop at 128
+        fa.flash_attention_dq(y, y, y, y, torch.zeros((1, 2, 16), device=cuda),
+                              torch.zeros((1, 2, 16), device=cuda))
     z = torch.zeros((1, 2, 16, 64), device=cuda, dtype=torch.bfloat16).transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
         fa.flash_attention(z, z, z)
@@ -306,6 +316,27 @@ def test_flash_layout_kernels_match_plain(cuda, B, S, H, KV, Hd, kind, causal, m
         rows = slice(64, 96)
         assert float(o[:, rows, 0].abs().max()) == 0.0 and float(dq[:, rows, 0].abs().max()) == 0.0
         assert bool((lse[:, 0, rows] == 1e30).all())
+
+
+@pytest.mark.parametrize("kind,causal", [("fixed128", True), ("fixed64", True),
+                                         ("random32", False)])
+def test_flash_layout_forward_takes_head_dim_256(cuda, kind, causal):
+    """A at Hd 256 walks each 128-key entry of its lists as two 64-key
+    tiles: against the layout-aware plain version, and the tiles walked
+    counted in list entries, as at Hd 128."""
+    B, S, H, KV, Hd = 1, 512, 4, 2, 256
+    r = np.random.default_rng(256)
+    q, k, v, kw = _attn_inputs(r, B, S, H, KV, Hd, cuda, False, kind == "random32")
+    lay = _layout(kind, H, S)
+    kw.update(causal=causal, block_layout=lay)
+    keep = fa._layout_keep(lay, S, H, causal)
+    fa.reset_tile_counts()
+    o, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+    ro, rlse = fa.flash_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert _ulp_err(o, ro) <= ULP_TOL
+    assert float((lse - rlse).abs().max()) <= LSE_TOL
+    assert fa.tile_counts()["fwd"] == B * len(fa.live_tiles(keep, S, causal, "fwd", KV)[1])
 
 
 @pytest.mark.parametrize("kind,causal", [("fixed128", True), ("fixed64", True),
@@ -498,6 +529,77 @@ def test_decode_kernels_take_head_dim_96(cuda, G, bias, alibi, dtype):
     torch.cuda.synchronize()
     assert torch.equal(a, b) and torch.equal(c, d)
     assert _ulp_err(a, ra) <= ULP_TOL and _ulp_err(c, rc) <= ULP_TOL
+
+
+@pytest.mark.parametrize("G", [1, 2, 4, 8])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_decode_kernels_take_head_dim_256(cuda, G, dtype):
+    """B and the dense decode kernel at Hd 256 (a whole warp on a key row,
+    32 16-byte slices) for every group they build, against their plain
+    versions, and two launches bit-equal; pad bias and ALiBi on the GQA
+    groups."""
+    r = np.random.default_rng(256 + G)
+    B, KV, Hd, bs, n_max = 3, 16 // G if G < 8 else 2, 256, 128, 6
+    H = KV * G
+    nb = B * n_max + 1
+    kp, vp = _randn(r, (nb, bs, KV, Hd), cuda, dtype), _randn(r, (nb, bs, KV, Hd), cuda, dtype)
+    q = _randn(r, (B, H, Hd), cuda, dtype)
+    bt = torch.from_numpy((r.permutation(nb - 1)[:B * n_max] + 1)
+                          .reshape(B, n_max).astype(np.int32)).to(cuda)
+    pos = torch.tensor([0, 300, 767], dtype=torch.int32, device=cuda)
+    ck, cv = _randn(r, (B, 512, KV, Hd), cuda, dtype), _randn(r, (B, 512, KV, Hd), cuda, dtype)
+    pkw, dkw = {}, {}
+    if G > 1:
+        pkw["pad_bias"] = torch.from_numpy(
+            (r.normal(size=(B, n_max * bs)) * 0.2).astype(np.float32)).to(cuda)
+        dkw["pad_bias"] = pkw["pad_bias"][:, :512].contiguous()
+        pkw["alibi_slopes"] = dkw["alibi_slopes"] = torch.from_numpy(
+            r.uniform(0.05, 0.4, H).astype(np.float32)).to(cuda)
+    paged = lambda: pda.paged_decode_attention(q, kp, vp, bt, pos, **pkw)
+    dense = lambda: dda.decode_attention(q, ck, cv, 400, **dkw)
+    n0, m0 = pda.launches, dda.launches
+    a, b, c, d = paged(), paged(), dense(), dense()
+    ra = pda.paged_decode_attention_plain(q, kp, vp, bt, pos, pkw.get("pad_bias"),
+                                          pkw.get("alibi_slopes"))
+    rc = dda.decode_attention_plain(q, ck, cv, 400, dkw.get("pad_bias"), dkw.get("alibi_slopes"))
+    torch.cuda.synchronize()
+    assert pda.launches == n0 + 2 and dda.launches == m0 + 2
+    assert torch.equal(a, b) and torch.equal(c, d)
+    assert _ulp_err(a, ra) <= ULP_TOL and _ulp_err(c, rc) <= ULP_TOL
+
+
+@pytest.mark.parametrize("R,C,groups", [
+    (4096, 11008, 1),     # Llama-2-7B's w_gate / w_up, one scale a row
+    (4096, 11008, 64),    # 64 groups of 172 columns: vectors straddle groups
+    (11008, 4096, 1),     # w_down
+    (33, 40, 5),          # rows not a multiple of 16 columns: the scalar kernel
+])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_dequant_kernel_is_bit_equal_to_plain(cuda, R, C, groups, dtype):
+    """One fp32 product and one rounding an element on both sides: the
+    kernel's matrix is its plain twin's, bit for bit."""
+    r = np.random.default_rng(R + C + groups)
+    q = torch.from_numpy(r.integers(-127, 128, size=(R, C)).astype(np.int8)).to(cuda)
+    scale = torch.from_numpy((r.uniform(1e-4, 1e-1, size=(R, groups))).astype(np.float32)).to(cuda)
+    n0 = dq.launches
+    got = dq.dequant_int8(q, scale, dtype)
+    want = dq.dequant_int8_plain(q, scale, dtype)
+    torch.cuda.synchronize()
+    assert dq.launches == n0 + 1 and got.dtype == dtype
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+def test_dequant_wrapper_raises_instead_of_falling_back(cuda):
+    q = torch.zeros((4, 32), device=cuda, dtype=torch.int8)
+    s = torch.ones((4, 2), device=cuda)
+    with pytest.raises(TypeError, match="fp16/bf16"):
+        dq.dequant_int8(q, s, torch.float32)
+    with pytest.raises(TypeError, match="int8 q"):
+        dq.dequant_int8(q.float(), s)
+    with pytest.raises(ValueError, match="contiguous"):
+        dq.dequant_int8(q.t(), torch.ones((32, 2), device=cuda))
+    with pytest.raises(ValueError, match="group"):
+        dq.dequant_int8(q, torch.ones((4, 3), device=cuda))
 
 
 def _ce_inputs(r, N, D, V, cuda, bias, tied, dtype=torch.bfloat16):

@@ -8,9 +8,10 @@ v2.0 at tp 1 and 2, the port's tree is bit-equal to ``params_from_jax`` of
 the JAX loader's (and of the original params); the same over torch ``.pt``
 rank files. The meta json (a path or a dict) serves through
 ``init_inference``: forward logits equal to the same params given directly
-(bit for bit) and within ``TOL`` of the JAX engine's. ``quantize=True`` and
-MoE expert keys raise naming their ROADMAP items; a meta json without a
-model raises the JAX engine's ``ValueError``."""
+(bit for bit) and within ``TOL`` of the JAX engine's. MoE expert keys
+raise naming their ROADMAP item; a meta json without a model raises the
+JAX engine's ``ValueError``. Quantize-on-load (``quantize=True``) is held
+to the JAX loader's in ``tests/test_torch_int8_inference.py``."""
 
 import json
 
@@ -127,13 +128,6 @@ def test_meta_json_without_a_model_raises_like_jax(tmp_path):
         deepspeed_tpu.init_inference(None, dtype="fp32", checkpoint=meta)
     with pytest.raises(ValueError, match="need the model"):
         deepspeed_tpu_torch.init_inference(None, dtype="fp32", device="cpu", checkpoint=meta)
-
-
-def test_quantize_on_load_raises_naming_int8_inference(tmp_path):
-    jcfg, params = _params(2)
-    meta = _write_ckpt(tmp_path, _shard_megatron_sd(_to_megatron_sd(params, jcfg, 0), 2, 0), 0)
-    with pytest.raises(NotImplementedError, match="int8 inference"):
-        load_megatron_checkpoint(meta, _pcfg(jcfg), quantize=True, quantize_groups=4)
 
 
 def test_moe_expert_keys_raise_naming_moe(tmp_path):

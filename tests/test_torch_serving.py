@@ -138,7 +138,6 @@ def test_eviction_pressure(pair):
     ({"mp_size": 2}, "sharded serving"),
     ({"serving": {"tp": 2}}, "sharded serving"),
     ({"tensor_parallel": {"tp_size": 2}}, "sharded serving"),
-    ({"dtype": "int8"}, "int8 inference"),
     ({"moe": {"ep_size": 2}}, "MoE"),
     ({"zero": {"offload_param": {"device": "cpu"}}}, "ZeRO-Inference"),
 ])

@@ -411,14 +411,17 @@ def test_outside_the_slice_raises_naming_its_item(over, match):
 
 @pytest.mark.parametrize("section", [
     {"comet": {"enabled": True, "project": "p", "experiment_name": "e"}},
+    {"weight_quantization": {"enabled": True, "num_bits": 8, "q_groups": 4}},
     {"telemetry": {"ctl": {"enabled": True}}},
     {"telemetry": {"enabled": True, "ctl": {"enabled": True, "cooldown_ticks": 1}}},
 ])
 def test_sections_without_effect_on_training_are_accepted(section):
     """``comet`` (the JAX package has no comet sink and its config ignores
-    the key) and ``telemetry.ctl`` (the JAX training engine does not act on
-    it; the controller lives beside the async serving loop): an engine
-    built with the section trains bit-equal to one built without."""
+    the key), ``weight_quantization`` (the JAX config parses and stores it,
+    and no training path reads it) and ``telemetry.ctl`` (the JAX training
+    engine does not act on it; the controller lives beside the async
+    serving loop): an engine built with the section trains bit-equal to one
+    built without."""
     _, jparams = _jax_params(LLAMA)
     batches = _batches(0, 2, 4)
     losses = []
