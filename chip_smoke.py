@@ -34,7 +34,14 @@ Phases, each printing one JSON line:
                 cotangent left out planted as the fault; A, B and K5 at
                 head_dim 256 (GPT-J's heads: A at a 2048-token prefill with
                 and without a pad mask, B and K5 at 8 rows of 16 heads and
-                at G 8), timed against SDPA at Hd 256 (A, K5); the int8
+                at G 8), timed against SDPA at Hd 256 (A, K5); C and D at
+                head_dim 256 (GPT-J's train micro-batch B 4, S 2048, H 16,
+                causal, also with a pad mask and a fully masked row; GQA with
+                ALiBi and a mask; full attention) with the backward faults
+                and a kv head shifted planted, two launches bit-equal, timed
+                against SDPA's backward at Hd 256, and at 256 also with a
+                block layout (Fixed at S 2048, BigBird blocks of 64 under
+                GQA) and with an lse cotangent; the int8
                 dequant kernel at Llama-2-7B's MLP shape, q_groups 1 and
                 64, bit-equal to its plain twin (limit 0), each row read
                 with its neighbour's scales and truncation instead of
@@ -104,6 +111,19 @@ Phases, each printing one JSON line:
                 kernel-A fault above it; a fused decode step's device ms by
                 class, int8 against bf16; the bf16 engine's top-1 agreement
                 (printed, not gated)
+  moe_generate  DeepSpeed-MoE 350M+MoE-128 (d 1024, 16 heads x 64, 128
+                experts of d_ff 4096, top-1, capacity 1.0) cut to its 12 MoE
+                layers (12.9 B expert parameters, seeded bf16 weights drawn
+                on the card) through init_inference + generate on an [8, 512]
+                batch, 64 new tokens: tokens/s, prefill ms, ms a decode step,
+                peak memory, each layer's expert counts and share of tokens
+                over capacity (at most 0.9, layer 0 0.25); K5 = L x
+                (generated - 1), A 0; against the same weights with attention_backend
+                "xla": the tokens rerouted and rows parted with each side's
+                own routing printed, then rows (near-tie rule) and three
+                rows' teacher-forced logits (within LOGIT_ULP_TOL, K5's kv
+                head shifted above it) with the card replaying the
+                reference's routing decisions
   spec_parity   Llama-7B width cut to 2 layers: the CPU's greedy tokens fed
                 in windows of 1-8 tokens through forward_paged_verify on the
                 card (bf16, kernel B once per window position) and on the CPU
@@ -144,6 +164,17 @@ Phases, each printing one JSON line:
                 finite and falling, the kernels' launch counters per step
                 equal to 2 L gas (A), L gas (C, D), one per leaf (E) and gas
                 (each fused CE kernel; 0 with --fused-ce off)
+  train_gptj    GPT-J-6B width (16 heads x 256): first train_parity's
+                gradient and loss check at 1 layer on [2, 512] (C's and D's
+                faults planted; no step compared), then
+                8 layers through the train phase's configuration (A, C, D at
+                Hd 256, E, K3): 1 warm-up + 5 timed steps, losses finite and
+                falling, launches per step the train rule; step ms, tokens/s,
+                MFU, peak memory
+  moe_train     DeepSpeed-MoE 350M+MoE-128 cut to 2 layers (2.2 B parameters)
+                through the train phase's configuration at micro 2 x gas 2:
+                1 warm-up + 5 timed steps, losses finite and falling, A = 2 L
+                gas, C = D = L gas, E once a leaf, no K3; the aux loss
   train_lamb_parity  Llama-7B width cut to 1 layer: FusedLamb + MoQ
                 (quantize_training, nearest rounding, 10 -> 8 bits within the
                 run) through initialize + train_batch on the card (bf16,
@@ -246,10 +277,10 @@ Phases, each printing one JSON line:
   kernels       every ported kernel with its launches in the serve, spec_serve
                 (its oracle run), generate, train, train_lamb, train_sparse,
                 resume, ingest, telemetry, client_opt, health, serve_async,
-                serve_tier, serve_fleet, serve_gptj and serve_int8 phases (A,
-                C and D with a layout in rows of their own, as A, B and K5 at
-                head_dim 256; C's and D's rows also carry their readings with
-                an lse cotangent)
+                serve_tier, serve_fleet, serve_gptj, serve_int8, train_gptj,
+                moe_generate and moe_train phases (A, C and D with a layout in
+                rows of their own, as A, B, C, D and K5 at head_dim 256; C's
+                and D's rows also carry their readings with an lse cotangent)
   profile       (only with --phases profile) the serve phase's prompts through
                 fresh engines after a warm-up: warm tokens/s, device kernel
                 time by class under torch.profiler, the device's idle share
@@ -285,10 +316,11 @@ import sys
 import time
 
 PHASES = ("env", "build", "kernel", "slice_parity", "serve", "serve_async", "serve_tier",
-          "serve_fleet", "serve_gptj", "serve_int8", "spec_parity",
+          "serve_fleet", "serve_gptj", "serve_int8", "moe_generate", "spec_parity",
           "spec_serve",
           "generate_parity", "generate",
-          "train_parity", "train", "train_lamb_parity", "train_lamb", "sparse_parity",
+          "train_parity", "train", "train_gptj", "moe_train", "train_lamb_parity",
+          "train_lamb", "sparse_parity",
           "train_sparse", "resume", "ingest", "telemetry", "client_opt", "health", "kernels",
           "profile",
           "train_profile", "train_lamb_profile", "generate_profile", "train_sparse_profile",
@@ -465,7 +497,7 @@ def phase_env(state):
 
 
 _KERNEL_NAMES = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
-                 "paged_decode_kernel", "paged_decode_combine_kernel", "dense_decode_kernel",
+                 "flash_bwd_dkv256_kernel", "paged_decode_kernel", "paged_decode_combine_kernel", "dense_decode_kernel",
                  "dense_decode_combine_kernel", "fused_adam_kernel",
                  "fused_ce_fwd_kernel", "fused_ce_combine_kernel", "fused_ce_ds_kernel",
                  "fused_ce_db_kernel", "ce_dh_gemm_kernel", "ce_dw_gemm_kernel",
@@ -514,7 +546,7 @@ def ptxas_summary(log):
 # (split + cp.async ring) with their combine kernels, and K8 with its scale
 # pass
 _NO_SPILL_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
-                     "fused_ce_fwd_kernel", "fused_ce_ds_kernel", "ce_dh_gemm_kernel",
+                     "flash_bwd_dkv256_kernel", "fused_ce_fwd_kernel", "fused_ce_ds_kernel", "ce_dh_gemm_kernel",
                      "ce_dw_gemm_kernel", "paged_decode_kernel", "paged_decode_combine_kernel",
                      "dense_decode_kernel", "dense_decode_combine_kernel", "sr_quantize_kernel",
                      "sr_absmax_kernel", "sr_scale_kernel", "dequant_int8_vec_kernel",
@@ -543,8 +575,7 @@ def phase_build(state):
     attn_smem = {f"{k} hd{hd}": fn(hd) for hd in (64, 128, 256)
                  for k, fn in (("flash_fwd_kernel", fwd.ds_flash_fwd_smem_bytes),
                                ("flash_bwd_dq_kernel", bwd.ds_flash_dq_smem_bytes),
-                               ("flash_bwd_dkv_kernel", bwd.ds_flash_dkv_smem_bytes))
-                 if hd <= 128 or k == "flash_fwd_kernel"}
+                               ("flash_bwd_dkv_kernel", bwd.ds_flash_dkv_smem_bytes))}
     emit("build", seconds=seconds, built=sorted(log), ptxas=rows, ptxas_warnings=warnings,
          ce_dynamic_smem_bytes=gemm_smem, attention_dynamic_smem_bytes=attn_smem)
     spills = spilling_kernels(rows)
@@ -793,6 +824,8 @@ def phase_kernel(state, seed):
     _check_fused_lamb(gen, results, failures)
     _check_sr_quantize(gen, results, failures)
     _check_hd256(torch.Generator(device="cuda").manual_seed(seed + 256), results, failures)
+    _check_bwd_hd256(torch.Generator(device="cuda").manual_seed(seed + 257), fa, results,
+                     failures)
     _check_dequant_int8(torch.Generator(device="cuda").manual_seed(seed + 8), results, failures)
     check(not failures, "kernel checks failed: " + "; ".join(failures))
 
@@ -909,6 +942,75 @@ def _check_hd256(gen, results, failures):
             rec["bound_ms"], rec["bound_by"] = bound(nbytes, 4 * B * (pos + 1) * H * Hd)
             results["dense_decode_attention_hd256"] = rec
         emit("kernel", **rec)
+
+
+# C and D at head dim 256 (GPT-J's heads): (B, S, H, KV, Hd, causal, alibi,
+# mask, masked_row); "gptj_train" = one micro-batch of the train_gptj phase
+HD256_BWD = {"gptj_train": (4, TRAIN_SEQ, 16, 16, 256, True, False, False, False),
+             "gptj_train_mask": (4, TRAIN_SEQ, 16, 16, 256, True, False, True, True),
+             "hd256_gqa4_alibi_mask": (2, 300, 8, 2, 256, True, True, True, False),
+             "hd256_full_gqa4": (2, 130, 4, 1, 256, False, False, True, True)}
+
+
+def _check_bwd_hd256(gen, fa, results, failures):
+    """C and D at head dim 256 (C on 32-key k/v stages, D as its own 64-key
+    kernel, flash_attention_bwd.cu) against their plain versions under the
+    phase's per-row measure, with :func:`_bwd_faults` planted and a kv head
+    shifted (k and v rolled one kv head) above the limit; two launches of
+    each bit-equal; at GPT-J's train shape the time, the plain version's,
+    SDPA's backward at Hd 256 and the bound."""
+    import torch
+    for name, (B, S, H, KV, Hd, causal, alibi, mask, masked_row) in HD256_BWD.items():
+        args, kw = _bwd_case(gen, fa, B, S, H, KV, Hd, causal, alibi, mask, masked_row)
+        dq = fa.flash_attention_dq(*args, **kw)
+        dk, dv = fa.flash_attention_dkv(*args, **kw)
+        again = (fa.flash_attention_dq(*args, **kw), *fa.flash_attention_dkv(*args, **kw))
+        rdq = fa.flash_attention_dq_plain(*args, **kw)
+        rdk, rdv = fa.flash_attention_dkv_plain(*args, **kw)
+        fdq, fdkv = _bwd_faults(fa, args, kw)
+        if KV > 1:
+            shifted = (args[0], args[1].roll(1, 2), args[2].roll(1, 2)) + args[3:]
+            fdq["kv_head_shifted"] = fa.flash_attention_dq_plain(*shifted, **kw)
+            fdkv["kv_head_shifted"] = fa.flash_attention_dkv_plain(*shifted, **kw)
+        torch.cuda.synchronize()
+        shape = {"shape": [B, S, H, KV, Hd], "causal": causal, "alibi": alibi, "mask": mask,
+                 "fully_masked_row": masked_row}
+        rec_c = {"kernel": "flash_attention_bwd_dq", "case": name, **shape,
+                 **_hold("flash_attention_bwd_dq", name, [dq], [rdq],
+                         {f: [r] for f, r in fdq.items()}, failures, GRAD_FLOOR),
+                 "repeat_bit_equal": bool(torch.equal(dq, again[0]))}
+        rec_d = {"kernel": "flash_attention_bwd_dkv", "case": name, **shape,
+                 **_hold("flash_attention_bwd_dkv", name, [dk, dv], [rdk, rdv],
+                         {f: list(r) for f, r in fdkv.items()}, failures, GRAD_FLOOR),
+                 "repeat_bit_equal": bool(torch.equal(dk, again[1]) and torch.equal(dv, again[2]))}
+        for rec in (rec_c, rec_d):
+            if not rec["repeat_bit_equal"]:
+                failures.append(f"{rec['kernel']} {name}: two launches differ")
+        del again, rdq, rdk, rdv, fdq, fdkv
+        if name == "gptj_train":
+            q, k, v, do = args[:4]
+            elem = q.element_size()
+            tri = B * H * (S * (S + 1) // 2) * Hd * 2        # one causal S x S x Hd product
+            rows_bytes = 2 * 4 * B * H * S
+            rec_c["ms"] = cuda_ms(lambda: fa.flash_attention_dq(*args, **kw))
+            rec_d["ms"] = cuda_ms(lambda: fa.flash_attention_dkv(*args, **kw))
+            rec_c["plain_ms"] = cuda_ms(lambda: fa.flash_attention_dq_plain(*args, **kw),
+                                        reps=3, warmup=1)
+            rec_d["plain_ms"] = cuda_ms(lambda: fa.flash_attention_dkv_plain(*args, **kw),
+                                        reps=3, warmup=1)
+            lib = _sdpa_backward_ms(q, k, v, do, True)
+            rec_c["library_ms"] = rec_d["library_ms"] = lib
+            rec_c["library"] = rec_d["library"] = "SDPA backward at Hd 256 (dq, dk, dv together)"
+            rec_c["bound_ms"], rec_c["bound_by"] = bound(
+                elem * (2 * q.numel() + k.numel() + v.numel() + do.numel()) + rows_bytes, 3 * tri)
+            rec_d["bound_ms"], rec_d["bound_by"] = bound(
+                elem * (q.numel() + 2 * k.numel() + 2 * v.numel() + do.numel()) + rows_bytes,
+                4 * tri)
+            results["flash_attention_bwd_dq_hd256"] = rec_c
+            results["flash_attention_bwd_dkv_hd256"] = rec_d
+        del args, dq, dk, dv
+        emit("kernel", **rec_c)
+        emit("kernel", **rec_d)
 
 
 # Llama-2-7B's MLP matrix w_gate / w_up [d_model, d_ff], at q_groups 1 (the
@@ -1416,6 +1518,10 @@ SPARSE_CASES = {
                 ("layout_ignored", "tile_dropped", "partial_mask_left_out")),
     "gqa4": (1, 2048, 32, 8, 128, "bigbird128", False, ("layout_ignored", "tile_dropped")),
     "zero_row_block": (2, 1024, 8, 8, 128, "zero_row", True, ("layout_ignored",)),
+    "hd256_fixed128": (1, TRAIN_SEQ, 16, 16, 256, "fixed128", True,
+                       ("layout_ignored", "tile_dropped")),
+    "hd256_block64_gqa2": (1, 1024, 8, 4, 256, "bigbird64", False,
+                           ("layout_ignored", "tile_dropped", "partial_mask_left_out")),
 }
 
 
@@ -1643,6 +1749,7 @@ LSE_CASES = {
     "dense": (2, 1024, 32, 32, 128, True, False, None),
     "gqa4_alibi": (2, 512, 32, 8, 128, True, True, None),
     "zero_row": (2, 1024, 8, 8, 128, True, False, "zero_row"),
+    "hd256_gptj": (2, 1024, 16, 16, 256, True, False, None),
 }
 
 
@@ -1710,7 +1817,7 @@ def _check_lse_backward(gen, fa, results, failures):
                 failures.append(f"lse backward {name}: a row with no live key has lse != 1e30 "
                                 "or dq != 0")
         del again, rdq, rdk, rdv, fdq, fdk, fdv
-        if name == "dense":
+        if name in ("dense", "hd256_gptj"):
             elem = q.element_size()
             tri = B * H * (S * (S + 1) // 2) * Hd * 2
             rows_bytes = 2 * 4 * B * H * S
@@ -1726,8 +1833,9 @@ def _check_lse_backward(gen, fa, results, failures):
             rec_d["bound_ms"], rec_d["bound_by"] = bound(
                 elem * (q.numel() + 2 * k.numel() + 2 * v.numel() + do.numel()) + rows_bytes,
                 4 * tri)
-            results["flash_attention_bwd_dq_lse"] = rec_c
-            results["flash_attention_bwd_dkv_lse"] = rec_d
+            tag = "" if name == "dense" else "_hd256"
+            results[f"flash_attention_bwd_dq{tag}_lse"] = rec_c
+            results[f"flash_attention_bwd_dkv{tag}_lse"] = rec_d
         emit("kernel", **rec_c)
         emit("kernel", **rec_d)
 
@@ -2249,11 +2357,17 @@ def cached_logits(engine, ids, n_prompt):
     dev = engine.device
     bucket = -(-n_prompt // 128) * 128
     ids = torch.as_tensor(ids, dtype=torch.long)
-    cache = engine.module.init_cache(B, max(bucket, n), dtype=engine.dtype, device=dev)
+    # a workspace of whole 128-slot tiles, as generate's: the dense decode
+    # kernel's envelope
+    cache = engine.module.init_cache(B, -(-max(bucket, n) // 128) * 128, dtype=engine.dtype,
+                                     device=dev)
     prompt = torch.zeros((B, bucket), dtype=torch.long, device=dev)
     prompt[:, :n_prompt] = ids[:, :n_prompt]
+    # an MoE engine's prefill keeps the bucket's padding out of expert capacity
+    kw = ({"valid": (torch.arange(bucket, device=dev) < n_prompt).float().expand(B, bucket)}
+          if getattr(engine, "_is_moe", False) else {})
     with torch.no_grad():
-        logits, cache = engine.module.forward_cached(engine.params, prompt, cache, 0)
+        logits, cache = engine.module.forward_cached(engine.params, prompt, cache, 0, **kw)
         out = [logits[:, :n_prompt].float().cpu()]
         for p in range(n_prompt, n):
             logits, cache = engine.module.forward_cached(engine.params, ids[:, p:p + 1].to(dev),
@@ -2879,19 +2993,21 @@ def _train_engine(model, params, config, device=None, optimizer=None):
 def _grads(engine, batch):
     """The parameter gradients of the engine's loss at its current params,
     summed over the micro-batches of ``batch`` (fp32, on the CPU), through
-    the engine's forward and autograd; nothing is applied."""
+    the engine's forward and autograd, and the micro-batches' mean loss;
+    nothing is applied."""
     import torch
     named = list(engine.state.params.named_parameters())
     gas = engine.gradient_accumulation_steps()
     micro = len(batch["input_ids"]) // gas
-    total = {}
+    total, loss_sum = {}, 0.0
     for i in range(gas):
         loss = engine({k: x[i * micro:(i + 1) * micro] for k, x in batch.items()})
         grads = torch.autograd.grad(loss.float(), [p for _, p in named])
+        loss_sum += float(loss.detach())
         for (n, _), g in zip(named, grads):
             g = g.float().cpu()
             total[n] = g if n not in total else total[n].add_(g)
-    return total
+    return total, loss_sum / gas
 
 
 @contextlib.contextmanager
@@ -2952,10 +3068,10 @@ def phase_sparse_parity(state, seed):
     """:func:`phase_train_parity` for the sparse train path: Llama-7B width at
     PARITY_LAYERS with the train_sparse phase's sparsity config
     (replace_self_attention) at S SPARSE_PARITY_SEQ (two 512-token local
-    windows, so the layout drops pairs): A, C and D walk the layout on the
-    card, their plain layout-aware versions run on the CPU. The planted
-    fault: the layout ignored on the card (dense causal attention), which
-    must read above the gradient limit."""
+    windows, so the layout drops pairs) on two rows (gas 2): A, C and D
+    walk the layout on the card, their plain layout-aware versions run on
+    the CPU. The planted fault: the layout ignored on the card
+    (dense causal attention), which must read above the gradient limit."""
     from deepspeed_tpu_torch.models import llama
     from deepspeed_tpu_torch.ops.sparse_attention import replace_self_attention
     model = replace_self_attention(llama("7b", n_layer=PARITY_LAYERS), sparse_config(32),
@@ -2981,39 +3097,42 @@ def _layout_ignored():
         fa.flash_attention = real
 
 
-def _train_parity(phase, seed, model, B, S, faults):
+def _train_parity(phase, seed, model, B, S, faults, steps=3):
     """The card (bf16, kernels) against the CPU (fp32, plain versions) for
     ``model`` on [B, S] batches, as :func:`phase_train_parity` says;
     ``faults``: name -> (context manager planting it, the leaf read: "worst"
-    or "head")."""
+    or "head"); ``steps`` train_batch steps compared after the gradients
+    (with 0 the gradient pass's loss is the one compared, and no update)."""
     import numpy as np
     import torch
 
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    init = model.init_params(gen, device="cuda", dtype=torch.float32)
+    gen = torch.Generator(device=CHECK_DEVICE).manual_seed(seed)
+    init = model.init_params(gen, device=CHECK_DEVICE, dtype=torch.float32)
     cpu_init = init.map(lambda t: t.to("cpu"))
     config = {**TRAIN_CONFIG, "train_batch_size": B, "train_micro_batch_size_per_gpu": 1,
-              "fused_cross_entropy": "on"}
+              "gradient_accumulation_steps": B, "fused_cross_entropy": "on"}
     cpu_config = {k: v for k, v in config.items() if k != "bf16"}
-    gpu = _train_engine(model, init, config)
+    gpu = _train_engine(model, init, config, device=CHECK_DEVICE)
     del init
     cpu = _train_engine(model, cpu_init, cpu_config, device="cpu")
     rng = np.random.default_rng(seed + 3)
     batches = [{"input_ids": rng.integers(0, model.config.vocab_size, size=(B, S))}
-               for _ in range(3)]
+               for _ in range(max(steps, 1))]
     failures = []
 
-    want_g = _grads(cpu, batches[0])
+    want_g, want_loss = _grads(cpu, batches[0])
     grad_rel = lambda got: {n: float((got[n] - w).norm() / w.norm().clamp(min=1e-30))
                             for n, w in want_g.items()}
-    grads = grad_rel(_grads(gpu, batches[0]))
+    got_g, got_loss = _grads(gpu, batches[0])
+    grads = grad_rel(got_g)
+    del got_g
     worst_g = max(grads, key=grads.get)
     if not grads[worst_g] <= PARITY_GRAD_TOL:
         failures.append(f"leaf {worst_g} gradient differs by {grads[worst_g]} of the CPU's")
     fault_grads = {}
     for fault, (planted, leaf) in faults.items():
         with planted():
-            rel = grad_rel(_grads(gpu, batches[0]))
+            rel = grad_rel(_grads(gpu, batches[0])[0])
         fault_grads[fault] = {"worst": max(rel.values()), "head": rel["lm_head"],
                               "median": float(np.median(list(rel.values())))}
         if not fault_grads[fault][leaf] > PARITY_GRAD_TOL:
@@ -3021,33 +3140,35 @@ def _train_parity(phase, seed, model, B, S, faults):
                             f"<= {PARITY_GRAD_TOL}")
     del want_g
 
+    pairs = [(got_loss, want_loss)] if not steps else \
+        [(float(gpu.train_batch(b)), float(cpu.train_batch(b))) for b in batches]
     losses = []
-    for batch in batches:
-        got, want = float(gpu.train_batch(batch)), float(cpu.train_batch(batch))
+    for got, want in pairs:
         losses.append({"card_bf16": got, "cpu_fp32": want, "diff": got - want})
         if not (np.isfinite(got) and abs(got - want) <= PARITY_LOSS_TOL):
             failures.append(f"loss {got} on the card vs {want} on the CPU")
     updates = {}
-    init_named = dict(cpu_init.named_parameters())
-    cpu_named = dict(cpu.state.params.named_parameters())
-    for name, master in gpu.state.master.items():
-        w0 = init_named[name].detach()
-        d_cpu = cpu_named[name].detach() - w0
-        d_gpu = master.to("cpu") - w0
-        updates[name] = float((d_gpu - d_cpu).norm() / d_cpu.norm().clamp(min=1e-30))
-    worst = max(updates, key=updates.get)
-    if not updates[worst] <= PARITY_UPDATE_TOL:
-        failures.append(f"leaf {worst} update differs by {updates[worst]} of the CPU's")
+    if steps:
+        init_named = dict(cpu_init.named_parameters())
+        cpu_named = dict(cpu.state.params.named_parameters())
+        for name, master in gpu.state.master.items():
+            w0 = init_named[name].detach()
+            d_cpu = cpu_named[name].detach() - w0
+            d_gpu = master.to("cpu") - w0
+            updates[name] = float((d_gpu - d_cpu).norm() / d_cpu.norm().clamp(min=1e-30))
+        worst = max(updates, key=updates.get)
+        if not updates[worst] <= PARITY_UPDATE_TOL:
+            failures.append(f"leaf {worst} update differs by {updates[worst]} of the CPU's")
     del gpu, cpu
-    torch.cuda.empty_cache()
+    _free()
     emit(phase, layers=model.config.n_layer, d_model=model.config.d_model,
-         batch=[B, S], steps=len(batches),
+         batch=[B, S], steps=steps,
          grad_rel_diff_worst={worst_g: grads[worst_g]},
          grad_rel_diff_median=float(np.median(list(grads.values()))), grad_tol=PARITY_GRAD_TOL,
          fault_grad_rel_diff=fault_grads, losses=losses, loss_tol=PARITY_LOSS_TOL,
-         update_rel_diff_worst={worst: updates[worst]},
-         update_rel_diff_median=float(np.median(list(updates.values()))),
-         update_tol=PARITY_UPDATE_TOL)
+         **({"update_rel_diff_worst": {worst: updates[worst]},
+             "update_rel_diff_median": float(np.median(list(updates.values()))),
+             "update_tol": PARITY_UPDATE_TOL} if steps else {}))
     check(not failures, f"{phase} failed: " + "; ".join(failures))
 
 
@@ -3093,7 +3214,7 @@ def _timed_steps(engine, batch, steps):
         fa.reset_tile_counts()
         t = time.perf_counter()
         loss = float(engine.train_batch(batch))
-        torch.cuda.synchronize()
+        _sync()
         step_s.append(time.perf_counter() - t)
         losses.append(loss)
         after = _train_counters()
@@ -3129,22 +3250,23 @@ def _reset_train_counters():
     qk.launches = qk.scale_launches = 0
 
 
-def train_launch_rule(engine):
+def train_launch_rule(engine, leaves_per_layer=9, other_leaves=3, fused_ce=True):
     """The kernels' launches in one train_batch of the train phase's path:
     A twice a layer a micro-step (forward and remat recompute), C and D once,
-    E once a parameter leaf, each fused CE kernel once a micro-step (the
-    head lies outside remat; 0 with the plain head)."""
+    E once a parameter leaf (Llama: 9 a layer and 3 others), each fused CE
+    kernel once a micro-step (the head lies outside remat; 0 with the plain
+    head, and for a model whose loss has no fused head)."""
     cfg = engine.module.config
     gas = engine.gradient_accumulation_steps()
     leaves = len(list(engine.state.params.parameters()))
-    check(leaves == 9 * cfg.n_layer + 3, f"{leaves} parameter leaves")
+    check(leaves == leaves_per_layer * cfg.n_layer + other_leaves, f"{leaves} parameter leaves")
+    ce = gas if fused_ce and engine._config.fused_cross_entropy != "off" else 0
     return {"flash_attention_fwd": 2 * cfg.n_layer * gas,
             "flash_attention_bwd_dq": cfg.n_layer * gas,
             "flash_attention_bwd_dkv": cfg.n_layer * gas,
             "fused_adam": leaves,
             **dict.fromkeys(("fused_ce_fwd", "fused_ce_ds", "fused_ce_dh_gemm",
-                             "fused_ce_dw_gemm"),
-                            0 if engine._config.fused_cross_entropy == "off" else gas)}
+                             "fused_ce_dw_gemm"), ce)}
 
 
 def phase_train(state, seed):
@@ -6363,6 +6485,374 @@ def phase_serve_gptj(state, seed):
     check(not failures, "serve_gptj failed: " + "; ".join(failures))
 
 
+GPTJ_TRAIN_LAYERS = 8          # GPT-J-6B width, depth cut 28 -> 8 (PERF.md section 4)
+GPTJ_PARITY_SEQ = 512          # train_gptj's card-vs-CPU check: 1 layer, [2, 512]
+# GPT-J-6B's published peak learning rate (mesh-transformer-jax's 6B config:
+# lr 1.2e-4, the Adam betas 0.9 / 0.95 and weight decay 0.1 of TRAIN_CONFIG);
+# at the train cell's 3e-4 its loss on the repeated batch spikes after step 4
+GPTJ_TRAIN_LR = 1.2e-4
+
+
+def _gptj_train_config():
+    """The train phase's configuration at GPT-J-6B's learning rate."""
+    opt = TRAIN_CONFIG["optimizer"]
+    sched = TRAIN_CONFIG["scheduler"]
+    return {**TRAIN_CONFIG,
+            "optimizer": {**opt, "params": {**opt["params"], "lr": GPTJ_TRAIN_LR}},
+            "scheduler": {**sched, "params": {**sched["params"],
+                                              "warmup_max_lr": GPTJ_TRAIN_LR}}}
+
+
+def _gptj_train_model(n_layer):
+    """GPT-J-6B's published widths (GPTJ_6B_CONFIG through GPTJPolicy) at
+    ``n_layer`` layers, with the zoo's training defaults (remat on)."""
+    from deepspeed_tpu_torch.models import CausalLM
+    from deepspeed_tpu_torch.module_inject.policies import GPTJPolicy
+    return CausalLM(GPTJPolicy().zoo_config({**GPTJ_6B_CONFIG, "n_layer": n_layer}))
+
+
+def _hd256_keys(launches):
+    """A / C / D launch counts under the kernel table's Hd-256 row names."""
+    return {(k + "_hd256" if k.startswith("flash_attention") else k): n
+            for k, n in launches.items()}
+
+
+def phase_train_gptj(state, seed):
+    """GPT-J-6B at its published widths (16 heads x 256, d 4096, d_ff 16384,
+    rotary 64 interleaved, parallel residual, vocab 50400, untied head with
+    its bias) on kernels A, C and D at Hd 256, E and K3. First the
+    train_parity check at 1 layer on one [2, GPTJ_PARITY_SEQ] batch (each
+    leaf's gradient within PARITY_GRAD_TOL of the CPU's, C's and D's
+    planted faults above it, the gradient pass's loss within
+    PARITY_LOSS_TOL; no step is taken: WarmupLR's first lr is 0); then
+    GPTJ_TRAIN_LAYERS layers through initialize + train_batch with the train
+    phase's configuration at GPT-J's learning rate (S 2048, micro 4 x gas
+    2, remat, bf16, FusedAdam, WarmupLR to GPTJ_TRAIN_LR, clip 1.0, fused
+    CE on the card, so the head's bias goes through G's db): 1 warm-up + 5
+    timed steps, losses finite and falling,
+    per step A = 2 L gas, C = D = L gas, E once a leaf, each K3 kernel gas
+    times; step ms, tokens/s, MFU, peak memory."""
+    import numpy as np
+    import torch
+    from deepspeed_tpu_torch.accelerator import get_accelerator
+
+    # no compared step: the CPU's fp32 side of a 50400-word head is most of
+    # the phase's time, and the first step's update would be 0
+    _train_parity("train_gptj_parity", seed, _gptj_train_model(1), 2, GPTJ_PARITY_SEQ,
+                  {f: (lambda f=f: _planted(f), "worst")
+                   for f in ("dq_delta_not_subtracted", "dkv_last_q_tile_skipped")}, steps=0)
+    acc = get_accelerator(CHECK_DEVICE)
+    t0 = time.perf_counter()
+    model = _gptj_train_model(GPTJ_TRAIN_LAYERS)
+    cfg = model.config
+    gen = torch.Generator(device=CHECK_DEVICE).manual_seed(seed)
+    params = model.init_params(gen, device=CHECK_DEVICE, dtype=torch.bfloat16)
+    config = _gptj_train_config()
+    engine = _train_engine(model, params, config, device=CHECK_DEVICE)
+    del params
+    _free()
+    rng = np.random.default_rng(seed + 2)
+    tokens = rng.integers(0, cfg.vocab_size, size=(config["train_batch_size"], TRAIN_SEQ))
+    batch = {"input_ids": torch.from_numpy(tokens).to(CHECK_DEVICE)}
+    _sync()
+    init_s = time.perf_counter() - t0
+    # per layer: ln_attn 2, wq wk wv wo, ln_mlp 2, the MLP's 4; embedding,
+    # ln_f 2, lm_head and its bias
+    want = train_launch_rule(engine, leaves_per_layer=12, other_leaves=5)
+    acc.reset_peak_memory_stats()
+    _reset_train_counters()
+    losses, step_s, per_step = _timed_steps(engine, batch, TRAIN_STEPS)
+    launches = _train_counters()
+    check(all(np.isfinite(losses)), f"non-finite train loss: {losses}")
+    check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+    for k, n in want.items():
+        check(all(s[k] == n for s in per_step), f"{k} launches per step {per_step} != {n}")
+        check(launches[k] == n * TRAIN_STEPS, f"{k} launches {launches[k]}")
+    state["train_gptj_launches"] = _hd256_keys(launches)
+    tokens_step = config["train_batch_size"] * TRAIN_SEQ
+    step = statistics.median(step_s[1:])
+    flops_tok = model.flops_per_token(TRAIN_SEQ)
+    peak = acc.peak_tflops()
+    emit("train_gptj", model="gpt-j-6b width", layers=cfg.n_layer, heads=cfg.n_head,
+         head_dim=cfg.head_dim, seq=TRAIN_SEQ, dtype="bf16", config=config,
+         params=model.num_parameters, losses=losses, step_s=step_s,
+         step_ms_median_timed=step * 1e3, tokens_per_step=tokens_step,
+         tokens_per_s=tokens_step / step, model_tflops_per_s=flops_tok * tokens_step / step / 1e12,
+         mfu=flops_tok * tokens_step / step / (peak * 1e12), peak_tflops=peak,
+         flops_per_token=flops_tok, init_s=init_s, peak_mem_gb=acc.max_memory_allocated() / 1e9,
+         launches=_hd256_keys(launches), launches_per_step=_hd256_keys(want),
+         card=state.get("card"))
+    del engine, batch
+    _free()
+
+
+# DeepSpeed-MoE's 350M+MoE-128 (Rajbhandari et al., arXiv:2201.05596, Table 1;
+# the reference deepspeed/moe/layer.py defaults): the Megatron GPT-350M
+# backbone (d 1024, 24 layers, 16 heads x 64, vocab 50257, learned positions,
+# LayerNorm, biases, tied embeddings, S 2048) with 128 GeLU experts of d_ff
+# 4096, top-1, capacity factor 1.0 in training and at eval, min capacity 4,
+# aux loss 0.01. The zoo puts an MoE MLP in every layer (the published model
+# in every other one): PERF.md section 4 gives each phase's cut.
+MOE_350M_128 = dict(vocab_size=50257, n_layer=24, n_head=16, d_model=1024, max_seq=2048,
+                    pos_embedding="learned", norm="layernorm", activation="gelu",
+                    tie_embeddings=True, attn_bias=True)
+MOE_128 = dict(num_experts=128, k=1, capacity_factor=1.0, eval_capacity_factor=1.0,
+               min_capacity=4, aux_loss_coef=0.01, expert_ff_mult=4)
+MOE_GENERATE_LAYERS = 12       # the published model's 12 MoE layers, its 12 dense ones dropped
+MOE_TRAIN_LAYERS = 2
+MOE_BATCH, MOE_PROMPT, MOE_MAX_NEW = 8, 512, 64
+MOE_LOGIT_ROWS = (0, 3, 6)     # rows held teacher-forced
+# The prefill's share of tokens past their expert's capacity, per layer.
+# Seeded random weights collapse the routing with depth: the hidden states
+# gain a component common to all tokens layer by layer, and top-1's argmax
+# does not change with the gate's scale, so no gate draw undoes it (PERF.md
+# section 4). Every layer must keep a tenth of its tokens (a gate sending
+# all to one expert reads 1 - C / T = 0.992); layer 0, whose inputs are
+# the embeddings, must route near balance (a random gate over isotropic
+# inputs drops about 7 % at capacity factor 1: Poisson(32) loads).
+MOE_MAX_OVER_CAPACITY = 0.9
+MOE_LAYER0_MAX_OVER = 0.25
+
+
+def _moe350m(n_layer, **over):
+    from deepspeed_tpu_torch.models.moe_lm import MoECausalLM, MoEConfig
+    from deepspeed_tpu_torch.models.transformer import TransformerConfig
+    return MoECausalLM(TransformerConfig(**{**MOE_350M_128, "n_layer": n_layer, **over}),
+                       MoEConfig(**MOE_128))
+
+
+@contextlib.contextmanager
+def routing_tape(tape, replay=False):
+    """Record each top-1 routing decision of the MoE model (the dispatch
+    mask ``[T, E, C]`` of every routed MLP call, in call order) into
+    ``tape``, or with ``replay`` route by the recorded masks, the combine
+    weights still each call's own gate probabilities. Routing is a
+    discontinuous function of the hidden state: replaying the reference's
+    decisions holds the kernels to the reference where an attention
+    difference of an ulp would flip a near-tie gate argmax."""
+    import torch
+    from deepspeed_tpu_torch.moe import sharded_moe
+    real = sharded_moe.top1gating
+    recorded = iter(tape)
+
+    def taped(logits, *args, **kw):
+        l_aux, combine, dispatch, counts = real(logits, *args, **kw)
+        if not replay:
+            tape.append(dispatch)
+            return l_aux, combine, dispatch, counts
+        d = next(recorded)
+        check(d.shape == dispatch.shape, f"replayed routing {tuple(d.shape)} for a call of "
+                                         f"{tuple(dispatch.shape)}")
+        gates = torch.softmax(logits.float(), dim=-1)
+        return l_aux, d.float() * gates[:, :, None], d, counts
+
+    sharded_moe.top1gating = taped
+    try:
+        yield
+    finally:
+        sharded_moe.top1gating = real
+
+
+def phase_moe_generate(state, seed):
+    """DeepSpeed-MoE 350M+MoE-128 at MOE_GENERATE_LAYERS layers (128
+    experts a layer, 12.9 B expert parameters, seeded bf16 weights drawn on
+    the card) through init_inference + generate on one [8, 512] batch, 64
+    new tokens, greedy: the prompt through forward_cached's grouped einsum
+    and the routed experts (capacity 32 a layer at 4096 tokens), each new
+    token through K5 (L x (generated - 1) launches, A none); tokens/s,
+    prefill ms, ms a decode step, peak memory, each layer's expert counts
+    in the prefill and its share of tokens over capacity (bounded by
+    MOE_MAX_OVER_CAPACITY, layer 0 by MOE_LAYER0_MAX_OVER). Against the same weights with attention_backend "xla":
+    the tokens each routed with its own decisions (the layers' tokens routed
+    differently and the rows that part, printed), then the card's generate
+    replaying the reference's routing (routing_tape): rows by the near-tie
+    rule, teacher-forced logits of MOE_LOGIT_ROWS within LOGIT_ULP_TOL with
+    K5 reading the next kv head planted above it."""
+    import dataclasses
+    import numpy as np
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.moe_lm import MoECausalLM
+    from deepspeed_tpu_torch.ops.kernels import decode_attention as dda
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+
+    _reset_peak()
+    t0 = time.perf_counter()
+    model = _moe350m(MOE_GENERATE_LAYERS)
+    cfg, L = model.config, model.config.n_layer
+    dev = "cuda" if ASYNC_DEVICE is None else ASYNC_DEVICE
+    dtype = {"bf16": torch.bfloat16, "fp32": torch.float32}[ASYNC_DTYPE]
+    params = model.init_params(torch.Generator(device=dev).manual_seed(seed), device=dev,
+                               dtype=dtype)
+    engine = deepspeed_tpu_torch.init_inference(model, params=params, dtype=ASYNC_DTYPE,
+                                                device=ASYNC_DEVICE)
+    xla = deepspeed_tpu_torch.init_inference(
+        MoECausalLM(dataclasses.replace(cfg, attention_backend="xla"), model.moe),
+        params=engine.params, dtype=ASYNC_DTYPE, device=ASYNC_DEVICE)
+    del params
+    _sync()
+    init_s = time.perf_counter() - t0
+    expert_params = sum(lp["mlp"][k].numel() for lp in engine.params["layers"]
+                        for k in ("w_up", "b_up", "w_down", "b_down"))
+    ids = np.random.default_rng(seed + 5).integers(0, cfg.vocab_size,
+                                                   size=(MOE_BATCH, MOE_PROMPT))
+    on_card = int(ASYNC_DEVICE is None)
+    failures = []
+
+    model.exp_counts_sink = []
+    t = time.perf_counter()
+    engine.generate(ids, max_new_tokens=1)
+    _sync()
+    prefill_s = time.perf_counter() - t
+    counts = torch.stack(model.exp_counts_sink[:L]).cpu()
+    model.exp_counts_sink = None
+    cap = max(-(-MOE_BATCH * MOE_PROMPT // model.moe.num_experts), model.moe.min_capacity)
+    experts = {"capacity": cap,
+               "max": counts.max(dim=1).values.tolist(),
+               "idle": (counts == 0).sum(dim=1).tolist(),
+               "tokens_over_capacity": (counts - cap).clamp(min=0).sum(dim=1).tolist(),
+               "layer0": counts[0].tolist()}
+    share = [n / (MOE_BATCH * MOE_PROMPT) for n in experts["tokens_over_capacity"]]
+    experts["share_over_capacity"] = share
+    if not (max(share) <= MOE_MAX_OVER_CAPACITY and share[0] <= MOE_LAYER0_MAX_OVER):
+        failures.append(f"tokens over capacity by layer {share}: past {MOE_MAX_OVER_CAPACITY} "
+                        f"(layer 0: {MOE_LAYER0_MAX_OVER})")
+    dda.launches = fa.launches = 0
+    t = time.perf_counter()
+    free = engine.generate(ids, max_new_tokens=MOE_MAX_NEW)
+    _sync()
+    full_s = time.perf_counter() - t
+    launches = {"dense_decode_attention": dda.launches, "flash_attention_fwd": fa.launches}
+    if (dda.launches, fa.launches) != (on_card * L * (MOE_MAX_NEW - 1), 0):
+        failures.append(f"generate launched K5 {dda.launches}, A {fa.launches}: not "
+                        f"{L} x {MOE_MAX_NEW - 1} and 0")
+    check(free.shape == (MOE_BATCH, MOE_PROMPT + MOE_MAX_NEW) and
+          np.array_equal(free[:, :MOE_PROMPT], ids), f"output shape {free.shape}")
+    peak = _peak_gb()
+
+    # the reference with its own routing recorded, the card's own routing
+    # against it, then the card replaying it
+    ref_tape, own_tape = [], []
+    with routing_tape(ref_tape):
+        want = xla.generate(ids, max_new_tokens=MOE_MAX_NEW)
+    with routing_tape(own_tape):
+        engine.generate(ids, max_new_tokens=MOE_MAX_NEW)
+    rerouted = [int((a != b).any(dim=(1, 2)).sum()) for a, b in zip(own_tape[:L], ref_tape[:L])]
+    del own_tape
+    with routing_tape(ref_tape, replay=True):
+        got = engine.generate(ids, max_new_tokens=MOE_MAX_NEW)
+    del ref_tape
+    firsts = {}
+    for name, rows in (("own_routing", free), ("replayed_routing", got)):
+        for i, (g, w) in enumerate(zip(rows, want)):
+            diff = np.nonzero(g != w)[0]
+            if diff.size:
+                firsts.setdefault(name, []).append((i, int(diff[0])))
+    parted = {}
+    if firsts:
+        jmax = max(j for rows in firsts.values() for _, j in rows)
+        ref_logits = cached_logits(xla, want[:, :jmax], MOE_PROMPT)
+        for name, rows in firsts.items():
+            parted[name] = [{"row": i, "index": j - MOE_PROMPT,
+                             "near_tie": near_tie(ref_logits[i, j - 1])} for i, j in rows]
+        del ref_logits
+    if any(not d["near_tie"] for d in parted.get("replayed_routing", [])):
+        failures.append(f"rows replaying the reference's routing part off a near-tie: "
+                        f"{parted['replayed_routing']}")
+
+    rows3 = want[list(MOE_LOGIT_ROWS), :-1]
+    tape = []
+    with routing_tape(tape):
+        want_l = cached_logits(xla, rows3, MOE_PROMPT)
+    with routing_tape(tape, replay=True):
+        got_l = cached_logits(engine, rows3, MOE_PROMPT)
+    with routing_tape(tape, replay=True), planted_attention_fault("decode_kv_head_shifted"):
+        fault_l = cached_logits(engine, rows3, MOE_PROMPT)
+    del tape
+    V = cfg.vocab_size
+    logits, bad = logit_parity(got_l.reshape(-1, V), want_l.reshape(-1, V),
+                               {"decode_kv_head_shifted": fault_l.reshape(-1, V)})
+    failures += bad
+    del got_l, want_l, fault_l
+    if on_card and not all(launches[k] for k in ("dense_decode_attention",)):
+        failures.append(f"a kernel of the path never launched: {launches}")
+    state["moe_generate_launches"] = launches
+    generated = MOE_BATCH * MOE_MAX_NEW
+    emit("moe_generate", model="deepspeed-moe 350m+moe-128", layers=L, d_model=cfg.d_model,
+         heads=cfg.n_head, experts=model.moe.num_experts, expert_params=expert_params,
+         params=model.num_parameters, dtype=ASYNC_DTYPE, init_s=init_s,
+         batch=[MOE_BATCH, MOE_PROMPT], max_new_tokens=MOE_MAX_NEW,
+         prefill_ms=prefill_s * 1e3, decode_ms_per_step=(full_s - prefill_s) / (MOE_MAX_NEW - 1)
+         * 1e3, wall_s=full_s, tokens_per_s=generated / full_s, expert_counts=experts,
+         tokens_rerouted_in_prefill=rerouted, rows_parting=parted, logits=logits,
+         launches=launches, peak_mem_gb=peak, card=state.get("card"))
+    del engine, xla
+    _free()
+    check(not failures, "moe_generate failed: " + "; ".join(failures))
+
+
+def phase_moe_train(state, seed):
+    """DeepSpeed-MoE 350M+MoE-128 at MOE_TRAIN_LAYERS layers (2.2 B
+    parameters) through initialize + train_batch with the train phase's
+    configuration at micro 2 x gas 2 (S 2048, remat, bf16, FusedAdam,
+    WarmupLR, clip 1.0; RTS on): 1 warm-up + 5 timed steps, losses finite
+    and falling, per step A = 2 L gas, C = D = L gas and E once a leaf (the
+    MoE loss runs over full logits: no K3); step ms, tokens/s, MFU (the
+    active parameters a token), peak memory and the aux loss."""
+    import numpy as np
+    import torch
+    from deepspeed_tpu_torch.accelerator import get_accelerator
+
+    acc = get_accelerator(CHECK_DEVICE)
+    t0 = time.perf_counter()
+    model = _moe350m(MOE_TRAIN_LAYERS)
+    cfg = model.config
+    config = {**TRAIN_CONFIG, "train_batch_size": 4, "train_micro_batch_size_per_gpu": 2,
+              "gradient_accumulation_steps": 2}
+    params = model.init_params(torch.Generator(device=CHECK_DEVICE).manual_seed(seed),
+                               device=CHECK_DEVICE, dtype=torch.bfloat16)
+    engine = _train_engine(model, params, config, device=CHECK_DEVICE)
+    del params
+    _free()
+    tokens = np.random.default_rng(seed + 2).integers(0, cfg.vocab_size,
+                                                      size=(config["train_batch_size"], TRAIN_SEQ))
+    batch = {"input_ids": torch.from_numpy(tokens).to(CHECK_DEVICE)}
+    _sync()
+    init_s = time.perf_counter() - t0
+    # per layer: ln_attn 2, wq wk wv wo and their biases, ln_mlp 2, gate_w and
+    # the experts' 4; the embedding, the positions, ln_f 2 (tied head)
+    want = train_launch_rule(engine, leaves_per_layer=17, other_leaves=4, fused_ce=False)
+    acc.reset_peak_memory_stats()
+    _reset_train_counters()
+    losses, step_s, per_step = _timed_steps(engine, batch, TRAIN_STEPS)
+    launches = _train_counters()
+    check(all(np.isfinite(losses)), f"non-finite train loss: {losses}")
+    check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+    for k, n in want.items():
+        check(all(s[k] == n for s in per_step), f"{k} launches per step {per_step} != {n}")
+        check(launches[k] == n * TRAIN_STEPS, f"{k} launches {launches[k]}")
+    peak_gb = acc.max_memory_allocated() / 1e9
+    with torch.no_grad():
+        micro = {"input_ids": batch["input_ids"][:config["train_micro_batch_size_per_gpu"]]}
+        _, aux = model.forward(engine.state.params, micro["input_ids"], train=True)
+    state["moe_train_launches"] = launches
+    tokens_step = config["train_batch_size"] * TRAIN_SEQ
+    step = statistics.median(step_s[1:])
+    flops_tok = model.flops_per_token(TRAIN_SEQ)
+    peak = acc.peak_tflops()
+    emit("moe_train", model="deepspeed-moe 350m+moe-128", layers=cfg.n_layer,
+         experts=model.moe.num_experts, seq=TRAIN_SEQ, dtype="bf16", config=config,
+         params=model.num_parameters, losses=losses, aux_loss_after=float(aux),
+         aux_loss_coef=model.moe.aux_loss_coef, step_s=step_s,
+         step_ms_median_timed=step * 1e3, tokens_per_step=tokens_step,
+         tokens_per_s=tokens_step / step, model_tflops_per_s=flops_tok * tokens_step / step / 1e12,
+         mfu=flops_tok * tokens_step / step / (peak * 1e12), peak_tflops=peak,
+         flops_per_token=flops_tok, init_s=init_s, peak_mem_gb=peak_gb, launches=launches,
+         launches_per_step=want, card=state.get("card"))
+    del engine, batch
+    _free()
+
+
 INT8_TWIN_ROWS = (0, 10)        # serve prompts held teacher-forced against the twin (32, 512)
 INT8_TOP1_ROWS = (0, 3, 5, 10)  # and for the bf16 engine's top-1 agreement
 
@@ -6549,6 +7039,9 @@ def phase_kernels(state):
     serve_fleet = state.get("serve_fleet_launches", {})
     serve_gptj = state.get("serve_gptj_launches", {})
     serve_int8 = state.get("serve_int8_launches", {})
+    train_gptj = state.get("train_gptj_launches", {})
+    moe_generate = state.get("moe_generate_launches", {})
+    moe_train = state.get("moe_train_launches", {})
     rows = []
     meta = {
         "flash_attention_fwd": (
@@ -6613,6 +7106,12 @@ def phase_kernels(state):
         "dense_decode_attention_hd256": (
             "deepspeed_tpu_torch/csrc/dense_decode_attention.cu",
             "deepspeed_tpu/ops/pallas/decode_attention.py:45 (_kernel at head_dim 256)"),
+        "flash_attention_bwd_dq_hd256": (
+            "deepspeed_tpu_torch/csrc/flash_attention_bwd.cu",
+            "deepspeed_tpu/ops/pallas/flash_attention.py:182 (_dq_kernel at head_dim 256)"),
+        "flash_attention_bwd_dkv_hd256": (
+            "deepspeed_tpu_torch/csrc/flash_attention_bwd.cu",
+            "deepspeed_tpu/ops/pallas/flash_attention.py:218 (_dkv_kernel at head_dim 256)"),
         "dequant_int8": (
             "deepspeed_tpu_torch/csrc/dequant_int8.cu",
             "deepspeed_tpu/ops/quant.py:35 (Quantized8.dequant, which XLA fuses into the "
@@ -6637,7 +7136,10 @@ def phase_kernels(state):
                                            ("serve_tier", serve_tier),
                                            ("serve_fleet", serve_fleet),
                                            ("serve_gptj", serve_gptj),
-                                           ("serve_int8", serve_int8))
+                                           ("serve_int8", serve_int8),
+                                           ("train_gptj", train_gptj),
+                                           ("moe_generate", moe_generate),
+                                           ("moe_train", moe_train))
                    if name in n}
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                      "launches": sum(by_path.values()) if by_path else None,

@@ -67,6 +67,11 @@
 // (_dkv_kernel :246-251). Every product accumulates in fp32; exp2 is one
 // ex2.approx.ftz (a p below 2^-126 flushes to 0).
 //
+// Head dim 256 (GPT-J) does not fit either plan: C keeps its 128-row q and
+// do tiles (128 KB) and streams 32-key k/v stages (DqShape), D runs its own
+// kernel, flash_bwd_dkv256_kernel, with 64 keys a CTA and one consumer
+// warpgroup per accumulator (see there). The rules above hold at 256 too.
+//
 // Bound on the H100: at training lengths (S = 2048, Hd = 128) the backward is
 // compute-bound (C does 3 and D 4 causal S x S x Hd products against 2 bytes
 // per element of q/k/v/do/dq/dk/dv): wgmma on TMA-fed tiles, with the
@@ -78,22 +83,27 @@
 namespace {
 
 // Kernel C's tiles: 128 q rows a CTA (64 per consumer warpgroup) and 64
-// keys a ring stage; every box is 64 columns (128 B) wide.
+// keys a ring stage; every box is 64 columns (128 B) wide. At head dim 256
+// the q and do tiles alone take 128 KB, so a stage holds 32 keys (32 KB of
+// k and v) and the ring three of them: 1 + 128 + 96 KB of the 227 KB a
+// block may have.
 constexpr int kDqBQ = 128;
-constexpr int kDqBK = 64;
-constexpr int kDqStages = 4;
 constexpr int kDqThreads = 384;        // warpgroups 0, 1 consume; 2 produces
 constexpr int kDqConsumers = 256;
 constexpr int kDqQBox = kDqBQ * 128;   // one 64-column box of q or do, 16 KB
-constexpr int kDqKvBox = kDqBK * 128;  // one 64-column box of k or v, 8 KB
+constexpr int kDqListTile = 64;        // keys of a tile in a block layout's lists
 
 template <int HD>
 struct DqShape {
+  static constexpr int kBK = HD <= 128 ? 64 : 32;         // keys a stage
+  static constexpr int kStages = HD <= 128 ? 4 : 3;
+  static constexpr int kSub = kDqListTile / kBK;          // stages of a list tile
+  static constexpr int kKvBox = kBK * 128;                // one 64-column box of k or v
   static constexpr int kQBytes = kDqQBox * (HD / 64);     // one of q, do
-  static constexpr int kKvBytes = kDqKvBox * (HD / 64);   // one of k, v
+  static constexpr int kKvBytes = kKvBox * (HD / 64);     // one of k, v
   static constexpr int kStageBytes = 2 * kKvBytes;        // k and v
   static constexpr size_t kSmem =
-      1024 + 2 * kQBytes + kDqStages * kStageBytes + (2 * kDqStages + 1) * 8;
+      1024 + 2 * kQBytes + kStages * kStageBytes + (2 * kStages + 1) * 8;
 };
 
 template <typename T, int HD>
@@ -106,14 +116,15 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
                     const float* __restrict__ slopes, T* __restrict__ dq, int S, int H, int KV,
                     int causal, float scale_log2, float scale, const ds::TileList tl) {
   using Sh = DqShape<HD>;
+  constexpr int kBK = Sh::kBK, kStages = Sh::kStages;
   extern __shared__ unsigned char dq_smem_raw[];
   unsigned char* smem = ds::align_1024(dq_smem_raw);
   unsigned char* qs = smem;                     // [128 q rows, Hd], fixed for the CTA
   unsigned char* dos = qs + Sh::kQBytes;
   unsigned char* ring = dos + Sh::kQBytes;      // k and v of one key tile a stage
-  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kDqStages * Sh::kStageBytes);
-  uint64_t* empty = full + kDqStages;
-  uint64_t* qbar = empty + kDqStages;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kStages * Sh::kStageBytes);
+  uint64_t* empty = full + kStages;
+  uint64_t* qbar = empty + kStages;
 
   // the q tiles of one (head, batch row) are neighbours, so the blocks that
   // run together share their k/v tiles in L2; each head's last (longest)
@@ -124,15 +135,19 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
   const int h = r % H, b = r / H;
   const int kvh = h / (H / KV);
   const int q0 = qt * kDqBQ;
-  int n_kt = (S + kDqBK - 1) / kDqBK;
-  if (causal) n_kt = min(n_kt, (q0 + kDqBQ - 1) / kDqBK + 1);   // tiles up to the diagonal
-  int n_it;   // with a layout: this (head, q tile)'s live 64-key tiles
+  int n_kt = (S + kBK - 1) / kBK;
+  if (causal) n_kt = min(n_kt, (q0 + kDqBQ - 1) / kBK + 1);   // tiles up to the diagonal
+  // with a layout: this (head, q tile)'s live 64-key tiles, each walked as
+  // its kSub ring tiles
+  int n_it;
   const int* walk = ds::tile_walk(tl, h * nqt + qt, n_kt, n_it);
+  const int n_walked = n_it;
+  if (walk) n_it *= Sh::kSub;
   const int tid = threadIdx.x;
 
   if (tid == 0) {
 #pragma unroll
-    for (int s = 0; s < kDqStages; ++s) {
+    for (int s = 0; s < kStages; ++s) {
       ds::mbar_init(&full[s], 1);
       ds::mbar_init(&empty[s], kDqConsumers / 32);
     }
@@ -151,19 +166,19 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
         ds::tma_load_3d(dos + j * kDqQBox, &domap, qbar, h * HD + 64 * j, q0, b);
       }
       for (int it = 0; it < n_it; ++it) {
-        const int kt = walk ? walk[it] >> 1 : it;
-        const int s = it % kDqStages;
-        ds::mbar_wait(&empty[s], ((it / kDqStages) & 1) ^ 1);   // first pass: free
+        const int kt = walk ? (walk[it / Sh::kSub] >> 1) * Sh::kSub + it % Sh::kSub : it;
+        const int s = it % kStages;
+        ds::mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);   // first pass: free
         unsigned char* st = ring + s * Sh::kStageBytes;
         ds::mbar_expect_tx(&full[s], Sh::kStageBytes);
 #pragma unroll
         for (int j = 0; j < HD / 64; ++j) {
-          ds::tma_load_3d(st + j * kDqKvBox, &kmap, &full[s], kvh * HD + 64 * j, kt * kDqBK, b);
-          ds::tma_load_3d(st + Sh::kKvBytes + j * kDqKvBox, &vmap, &full[s], kvh * HD + 64 * j,
-                          kt * kDqBK, b);
+          ds::tma_load_3d(st + j * Sh::kKvBox, &kmap, &full[s], kvh * HD + 64 * j, kt * kBK, b);
+          ds::tma_load_3d(st + Sh::kKvBytes + j * Sh::kKvBox, &vmap, &full[s], kvh * HD + 64 * j,
+                          kt * kBK, b);
         }
       }
-      if (tl.walked != nullptr) atomicAdd(tl.walked, (unsigned long long)n_it);
+      if (tl.walked != nullptr) atomicAdd(tl.walked, (unsigned long long)n_walked);
     }
   } else {   // consumer warpgroups: 64 q rows each
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
@@ -190,10 +205,11 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
 
     ds::mbar_wait(qbar, 0);
     for (int it = 0; it < n_it; ++it) {
-      const int ent = walk ? walk[it] : 2 * it;
+      const int ent = walk ? walk[it / Sh::kSub] : 0;
       const bool partial = ent & 1;
-      const int s = it % kDqStages, k0 = (ent >> 1) * kDqBK;
-      ds::mbar_wait(&full[s], (it / kDqStages) & 1);
+      const int kt = walk ? (ent >> 1) * Sh::kSub + it % Sh::kSub : it;
+      const int s = it % kStages, k0 = kt * kBK;
+      ds::mbar_wait(&full[s], (it / kStages) & 1);
       // a key tile wholly above this warpgroup's rows adds nothing
       if (causal && k0 > row0 + 63) {
         if (lane == 0) ds::mbar_arrive(&empty[s]);
@@ -202,16 +218,16 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
       const uint32_t k_base = ds::smem_u32(ring + s * Sh::kStageBytes);
       const uint32_t v_base = k_base + Sh::kKvBytes;
 
-      // s = q k^T and dp = do v^T: 64 q rows x 64 keys, 16-deep steps along Hd
-      float sc[kDqBK / 2], dp[kDqBK / 2];
+      // s = q k^T and dp = do v^T: 64 q rows x kBK keys, 16-deep steps along Hd
+      float sc[kBK / 2], dp[kBK / 2];
       ds::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < HD / 16; ++kk) {
-        const uint32_t qa = kk / 4 * kDqQBox + kk % 4 * 32, ka = kk / 4 * kDqKvBox + kk % 4 * 32;
-        ds::wgmma_ss<T, kDqBK, 0, 0>(sc, ds::gmma_desc(q_base + qa, 16, 1024),
-                                     ds::gmma_desc(k_base + ka, 16, 1024), kk > 0);
-        ds::wgmma_ss<T, kDqBK, 0, 0>(dp, ds::gmma_desc(do_base + qa, 16, 1024),
-                                     ds::gmma_desc(v_base + ka, 16, 1024), kk > 0);
+        const uint32_t qa = kk / 4 * kDqQBox + kk % 4 * 32, ka = kk / 4 * Sh::kKvBox + kk % 4 * 32;
+        ds::wgmma_ss<T, kBK, 0, 0>(sc, ds::gmma_desc(q_base + qa, 16, 1024),
+                                   ds::gmma_desc(k_base + ka, 16, 1024), kk > 0);
+        ds::wgmma_ss<T, kBK, 0, 0>(dp, ds::gmma_desc(do_base + qa, 16, 1024),
+                                   ds::gmma_desc(v_base + ka, 16, 1024), kk > 0);
       }
       ds::wgmma_commit();
       ds::wgmma_wait<0>();
@@ -220,12 +236,12 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
 
       // log2-domain logits + bias (only where a tile has any: alibi, a key
       // mask, keys past S, the causal diagonal or a partial layout tile)
-      const bool biased = slopes != nullptr || mask != nullptr || k0 + kDqBK > S ||
-                          (causal && k0 + kDqBK - 1 > row0) || partial;
+      const bool biased = slopes != nullptr || mask != nullptr || k0 + kBK > S ||
+                          (causal && k0 + kBK - 1 > row0) || partial;
       if (biased) {
-        const uint32_t keep = partial ? ds::keep_bits<kDqBK / 8>(tl, h, qpos, true, k0, S) : ~0u;
+        const uint32_t keep = partial ? ds::keep_bits<kBK / 8>(tl, h, qpos, true, k0, S) : ~0u;
 #pragma unroll
-        for (int i = 0; i < kDqBK / 8; ++i) {
+        for (int i = 0; i < kBK / 8; ++i) {
 #pragma unroll
           for (int e = 0; e < 4; ++e)
             sc[4 * i + e] = sc[4 * i + e] * scale_log2 +
@@ -236,23 +252,23 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
         }
       } else {
 #pragma unroll
-        for (int i = 0; i < kDqBK / 2; ++i) sc[i] *= scale_log2;
+        for (int i = 0; i < kBK / 2; ++i) sc[i] *= scale_log2;
       }
       // ds = p (dp - delta) scale with p = exp2(s - lse) in fp32
 #pragma unroll
-      for (int i = 0; i < kDqBK / 2; ++i) {
+      for (int i = 0; i < kBK / 2; ++i) {
         const int row = (i >> 1) & 1;
         const float p = ds::exp2_ftz(sc[i] - lse_r[row]);
         sc[i] = p * (dp[i] - delta_r[row]) * scale;
       }
-      uint32_t da[kDqBK / 16][4];
-      ds::acc_to_a<T, kDqBK>(sc, da);   // ds rounded to k's dtype
+      uint32_t da[kBK / 16][4];
+      ds::acc_to_a<T, kBK>(sc, da);   // ds rounded to k's dtype
 
-      // dq += ds k: k [keys, Hd] MN-major, 64-row boxes 8 KB apart
+      // dq += ds k: k [keys, Hd] MN-major, kBK-row boxes kKvBox apart
       ds::wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < kDqBK / 16; ++kk)
-        ds::wgmma_rs<T, HD, 1>(acc, da[kk], ds::gmma_desc(k_base + kk * 16 * 128, kDqKvBox, 1024));
+      for (int kk = 0; kk < kBK / 16; ++kk)
+        ds::wgmma_rs<T, HD, 1>(acc, da[kk], ds::gmma_desc(k_base + kk * 16 * 128, Sh::kKvBox, 1024));
       ds::wgmma_commit();
       ds::wgmma_wait<0>();
       ds::fence_regs(acc);
@@ -507,6 +523,271 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
+// Kernel D at head dim 256 (GPT-J): the Hd <= 128 plan holds 128 keys of k
+// and v (128 KB) and, per consumer thread, dk and dv of 64 keys x 256
+// columns in fp32, 256 registers, more than a thread has. Here a CTA takes
+// 64 keys (k and v 64 KB) and its two consumer warpgroups split the work by
+// accumulator: warpgroup 0 owns dv, warpgroup 1 dk, 128 fp32 registers each.
+// Per ring stage (a 64-row q tile: q, do, lse and delta, 65 KB):
+//   wg 0: s^T = k q^T, p^T = exp2(s^T - lse) rounded to do's dtype (bias as
+//         D above), p^T into the stage's exchange slot as register-A words,
+//         then dv += p^T do
+//   wg 1: dp^T = v do^T, waits for p^T (a named barrier, one per stage),
+//         ds^T = p^T (dp^T - delta) scale rounded to q's dtype, dk += ds^T q
+// so each warpgroup runs two of the four products. The exchange slot of a
+// stage is rewritten only after the producer refilled the stage, which waits
+// for warpgroup 1's release of it. A block layout's
+// lists stay those of the 128-key tiles: the two 64-key CTAs of a list tile
+// walk the same list, the causal skip dropping the q tiles above a half, and
+// only the first counts it as walked. 1 + 64 + 2 x 73 KB of shared memory.
+constexpr int kD2BK = 64;              // keys a CTA
+constexpr int kD2BQ = 64;              // q rows a ring stage
+constexpr int kD2Stages = 2;
+constexpr int kD2Box = 64 * 128;       // one 64-row x 64-column box, 8 KB
+
+struct Dkv256Shape {
+  static constexpr int kKvBytes = 4 * kD2Box;      // one of k, v
+  static constexpr int kQBytes = 4 * kD2Box;       // one of q, do
+  static constexpr int kMetaBytes = 1024;          // lse, delta (64 floats each), the walk step
+  static constexpr int kPBytes = 128 * 16 * 4;     // p^T: 16 register-A words a thread
+  static constexpr int kStageBytes = 2 * kQBytes + kMetaBytes + kPBytes;
+  static constexpr size_t kSmem =
+      1024 + 2 * kKvBytes + kD2Stages * kStageBytes + (2 * kD2Stages + 1) * 8;
+};
+
+// p^T of one 64-key x 64-q-row tile in place: log2-domain logits plus the
+// bias where the tile has any, exp2 against the rows' lse, rounded to T.
+template <typename T>
+__device__ __forceinline__ void dkv256_p(float (&st)[kD2BQ / 2], const float* lse_s, bool biased,
+                                         uint32_t keep, const int (&kpos)[2], int q0, int t,
+                                         int S, int causal, float slope, const float* maskb,
+                                         float scale_log2) {
+#pragma unroll
+  for (int i = 0; i < kD2BQ / 8; ++i) {
+    const float2 lse2 = *reinterpret_cast<const float2*>(lse_s + 8 * i + 2 * t);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = st[4 * i + e] * scale_log2;
+      if (biased)
+        x += (keep >> (2 * i + (e >> 1))) & 1
+                 ? ds::attn_bias(q0 + 8 * i + 2 * t + (e & 1), kpos[e >> 1], S, causal, slope,
+                                 maskb)
+                 : ds::neg_inf();
+      st[4 * i + e] = round_to<T>(ds::exp2_ftz(x - ((e & 1) ? lse2.y : lse2.x)));
+    }
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ float2 unpack_f32(uint32_t w) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w));
+  } else {
+    return __half22float2(*reinterpret_cast<const __half2*>(&w));
+  }
+}
+
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kDkvThreads, 1)
+flash_bwd_dkv256_kernel(const __grid_constant__ CUtensorMap qmap,
+                        const __grid_constant__ CUtensorMap kmap,
+                        const __grid_constant__ CUtensorMap vmap,
+                        const __grid_constant__ CUtensorMap domap, const float* __restrict__ lse,
+                        const float* __restrict__ delta, const float* __restrict__ mask,
+                        const float* __restrict__ slopes, T* __restrict__ dk, T* __restrict__ dv,
+                        int S, int H, int KV, int causal, float scale_log2, float scale,
+                        const ds::TileList tl) {
+  using Sh = Dkv256Shape;
+  extern __shared__ unsigned char dkv2_smem_raw[];
+  unsigned char* smem = ds::align_1024(dkv2_smem_raw);
+  unsigned char* ks = smem;                     // [64 keys, 256], fixed for the CTA
+  unsigned char* vs = ks + Sh::kKvBytes;
+  unsigned char* ring = vs + Sh::kKvBytes;      // q, do, lse, delta, step, p^T a stage
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kD2Stages * Sh::kStageBytes);
+  uint64_t* empty = full + kD2Stages;
+  uint64_t* kvbar = empty + kD2Stages;
+
+  const int nkt = (S + kD2BK - 1) / kD2BK;
+  const int kt = (int)blockIdx.x % nkt;
+  const int kvh = (int)blockIdx.x / nkt % KV, b = (int)blockIdx.x / nkt / KV;
+  const int G = H / KV;
+  const int k0 = kt * kD2BK;
+  const int nq = (S + kD2BQ - 1) / kD2BQ;
+  const int qt0 = causal ? k0 / kD2BQ : 0;     // q tiles from the diagonal down
+  int n_it;   // with a layout: the list of this CTA's 128-key tile
+  const int* walk = ds::tile_walk(tl, kvh * ((S + kDkvBK - 1) / kDkvBK) + kt / 2,
+                                  G * (nq - qt0), n_it);
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < kD2Stages; ++s) {
+      ds::mbar_init(&full[s], 32);                        // the producer warp's lanes
+      ds::mbar_init(&empty[s], kDkvConsumers / 32);       // one arrive per consumer warp
+    }
+    ds::mbar_init(kvbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= kDkvConsumers) {   // producer warpgroup: its first warp
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (tid < kDkvConsumers + 32) {
+      const int lane = tid & 31;
+      if (lane == 0) {
+        ds::mbar_expect_tx(kvbar, 2 * Sh::kKvBytes);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          ds::tma_load_3d(ks + j * kD2Box, &kmap, kvbar, kvh * 256 + 64 * j, k0, b);
+          ds::tma_load_3d(vs + j * kD2Box, &vmap, kvbar, kvh * 256 + 64 * j, k0, b);
+        }
+      }
+      for (int it = 0; it < n_it; ++it) {
+        const int e = walk ? walk[it] : 2 * ((it / (nq - qt0)) * nq + qt0 + it % (nq - qt0));
+        const int h = kvh * G + (e >> 1) / nq;
+        const long row_off = ((long)b * H + h) * S;
+        const int s = it % kD2Stages, q0 = (e >> 1) % nq * kD2BQ;
+        ds::mbar_wait(&empty[s], ((it / kD2Stages) & 1) ^ 1);   // first pass: free
+        unsigned char* st = ring + s * Sh::kStageBytes;
+        float* lse_s = reinterpret_cast<float*>(st + 2 * Sh::kQBytes);
+        for (int i = lane; i < kD2BQ; i += 32) {
+          const bool in = q0 + i < S;
+          lse_s[i] = in ? lse[row_off + q0 + i] : -ds::kMasked;   // rows past S: p = 0
+          lse_s[kD2BQ + i] = in ? delta[row_off + q0 + i] : 0.f;
+        }
+        if (lane == 0) {
+          int* step = reinterpret_cast<int*>(lse_s + 2 * kD2BQ);
+          step[0] = h;
+          step[1] = q0;
+          step[2] = e & 1;
+          ds::mbar_expect_tx(&full[s], 2 * Sh::kQBytes);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            ds::tma_load_3d(st + j * kD2Box, &qmap, &full[s], h * 256 + 64 * j, q0, b);
+            ds::tma_load_3d(st + Sh::kQBytes + j * kD2Box, &domap, &full[s], h * 256 + 64 * j,
+                            q0, b);
+          }
+        } else {
+          ds::mbar_arrive(&full[s]);
+        }
+      }
+      if (lane == 0 && tl.walked != nullptr && kt % 2 == 0)
+        atomicAdd(tl.walked, (unsigned long long)n_it);
+    }
+  } else {   // consumer warpgroups: wg 0 dv, wg 1 dk, both over the CTA's 64 keys
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int wg = tid / 128, w = tid % 128, lane = tid & 31;
+    const int t = lane & 3;
+    const int kpos[2] = {k0 + w / 32 * 16 + (lane >> 2), k0 + w / 32 * 16 + (lane >> 2) + 8};
+    const float* maskb = mask ? mask + (long)b * S : nullptr;
+    float acc[128];
+#pragma unroll
+    for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+    const uint32_t k_base = ds::smem_u32(ks), v_base = ds::smem_u32(vs);
+
+    ds::mbar_wait(kvbar, 0);
+    for (int it = 0; it < n_it; ++it) {
+      const int s = it % kD2Stages;
+      ds::mbar_wait(&full[s], (it / kD2Stages) & 1);
+      unsigned char* stage = ring + s * Sh::kStageBytes;
+      const float* lse_s = reinterpret_cast<const float*>(stage + 2 * Sh::kQBytes);
+      const float* delta_s = lse_s + kD2BQ;
+      const int* step = reinterpret_cast<const int*>(lse_s + 2 * kD2BQ);
+      const int h = step[0], q0 = step[1];
+      const bool partial = step[2] != 0;
+      // a q tile wholly above the CTA's keys adds nothing (both warpgroups skip it)
+      if (causal && q0 + kD2BQ - 1 < k0) {
+        if (lane == 0) ds::mbar_arrive(&empty[s]);
+        continue;
+      }
+      const uint32_t q_base = ds::smem_u32(stage);
+      const uint32_t do_base = q_base + Sh::kQBytes;
+      uint32_t* pbuf = reinterpret_cast<uint32_t*>(stage + 2 * Sh::kQBytes + Sh::kMetaBytes);
+      const bool biased = slopes != nullptr || mask != nullptr || k0 + kD2BK > S ||
+                          (causal && q0 < k0 + kD2BK - 1) || partial;
+      const uint32_t keep =
+          biased && partial ? ds::keep_bits<kD2BQ / 8>(tl, h, kpos, false, q0, S) : ~0u;
+      const float slope = slopes ? slopes[h] * ds::kLog2e : 0.f;
+
+      // wg 0: s^T = k q^T; wg 1: dp^T = v do^T: 64 keys x 64 q rows, 16-deep
+      // steps along the 256 columns
+      const uint32_t a_base = wg == 0 ? k_base : v_base;
+      const uint32_t r_base = wg == 0 ? q_base : do_base;
+      float x[kD2BQ / 2];
+      ds::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 16; ++kk) {
+        const uint32_t off = kk / 4 * kD2Box + kk % 4 * 32;
+        ds::wgmma_ss<T, kD2BQ, 0, 0>(x, ds::gmma_desc(a_base + off, 16, 1024),
+                                     ds::gmma_desc(r_base + off, 16, 1024), kk > 0);
+      }
+      ds::wgmma_commit();
+      ds::wgmma_wait<0>();
+      ds::fence_regs(x);
+
+      // wg 0: p^T, handed to wg 1 through the stage's exchange slot; wg 1:
+      // ds^T = p^T (dp^T - delta) scale, with p^T read back
+      uint32_t frag[kD2BQ / 16][4];
+      if (wg == 0) {
+        dkv256_p<T>(x, lse_s, biased, keep, kpos, q0, t, S, causal, slope, maskb, scale_log2);
+        ds::acc_to_a<T, kD2BQ>(x, frag);
+#pragma unroll
+        for (int kk = 0; kk < kD2BQ / 16; ++kk)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) pbuf[(kk * 4 + j) * 128 + w] = frag[kk][j];
+        named_arrive(1 + s);
+      } else {
+        named_sync(1 + s);
+        // accumulator entries 8 kk + 2 j, + 1 are the pair of register-A
+        // word (kk, j): q columns 8 (2 kk + j / 2) + 2 t, + 1
+#pragma unroll
+        for (int kk = 0; kk < kD2BQ / 16; ++kk)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int i0 = 8 * kk + 2 * j;
+            const float2 pv = unpack_f32<T>(pbuf[(kk * 4 + j) * 128 + w]);
+            const float2 d2 =
+                *reinterpret_cast<const float2*>(delta_s + 8 * (2 * kk + j / 2) + 2 * t);
+            x[i0] = pv.x * (x[i0] - d2.x) * scale;
+            x[i0 + 1] = pv.y * (x[i0 + 1] - d2.y) * scale;
+          }
+        ds::acc_to_a<T, kD2BQ>(x, frag);
+      }
+
+      // wg 0: dv += p^T do; wg 1: dk += ds^T q (do and q MN-major, 64-row boxes 8 KB apart)
+      const uint32_t b_base = wg == 0 ? do_base : q_base;
+      ds::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kD2BQ / 16; ++kk)
+        ds::wgmma_rs<T, 256, 1>(acc, frag[kk], ds::gmma_desc(b_base + kk * 16 * 128, kD2Box, 1024));
+      ds::wgmma_commit();
+      ds::wgmma_wait<0>();
+      ds::fence_regs(acc);
+      if (lane == 0) ds::mbar_arrive(&empty[s]);
+    }
+
+    // epilogue: dv (wg 0) or dk (wg 1) cast once to k's dtype; keys past S are not stored
+    T* out = wg == 0 ? dv : dk;
+    const long kv_stride = (long)KV * 256;
+#pragma unroll
+    for (int row = 0; row < 2; ++row) {
+      if (kpos[row] >= S) continue;
+      const long off = ((long)b * S + kpos[row]) * kv_stride + (long)kvh * 256 + 2 * t;
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        *reinterpret_cast<uint32_t*>(out + off + 8 * i) =
+            ds::pack_f32<T>(acc[4 * i + 2 * row], acc[4 * i + 2 * row + 1]);
+    }
+  }
+}
+
 template <typename T, int HD>
 int launch_dq(const void* q, const void* k, const void* v, const void* dO, const float* lse,
               const float* delta, const float* mask, const float* slopes, void* dq, int B,
@@ -516,8 +797,8 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dO, const
   CUtensorMap qmap, kmap, vmap, domap;
   if (!ds::make_tma_map_bsc<T>(&qmap, q, B, S, (long)H * HD, kDqBQ) ||
       !ds::make_tma_map_bsc<T>(&domap, dO, B, S, (long)H * HD, kDqBQ) ||
-      !ds::make_tma_map_bsc<T>(&kmap, k, B, S, (long)KV * HD, kDqBK) ||
-      !ds::make_tma_map_bsc<T>(&vmap, v, B, S, (long)KV * HD, kDqBK))
+      !ds::make_tma_map_bsc<T>(&kmap, k, B, S, (long)KV * HD, Sh::kBK) ||
+      !ds::make_tma_map_bsc<T>(&vmap, v, B, S, (long)KV * HD, Sh::kBK))
     return (int)cudaErrorNotSupported;
   auto kern = flash_bwd_dq_kernel<T, HD>;
   const cudaError_t err =
@@ -553,13 +834,36 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dO, cons
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+int launch_dkv256(const void* q, const void* k, const void* v, const void* dO, const float* lse,
+                  const float* delta, const float* mask, const float* slopes, void* dk, void* dv,
+                  int B, int S, int H, int KV, int causal, float scale_log2, float scale,
+                  const ds::TileList& tl, cudaStream_t stream) {
+  using Sh = Dkv256Shape;
+  CUtensorMap qmap, kmap, vmap, domap;
+  if (!ds::make_tma_map_bsc<T>(&qmap, q, B, S, (long)H * 256, kD2BQ) ||
+      !ds::make_tma_map_bsc<T>(&domap, dO, B, S, (long)H * 256, kD2BQ) ||
+      !ds::make_tma_map_bsc<T>(&kmap, k, B, S, (long)KV * 256, kD2BK) ||
+      !ds::make_tma_map_bsc<T>(&vmap, v, B, S, (long)KV * 256, kD2BK))
+    return (int)cudaErrorNotSupported;
+  auto kern = flash_bwd_dkv256_kernel<T>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Sh::kSmem);
+  if (err != cudaSuccess) return (int)err;
+  const int grid = (S + kD2BK - 1) / kD2BK * KV * B;
+  kern<<<grid, kDkvThreads, Sh::kSmem, stream>>>(
+      qmap, kmap, vmap, domap, lse, delta, mask, slopes, static_cast<T*>(dk),
+      static_cast<T*>(dv), S, H, KV, causal, scale_log2, scale, tl);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // q/do/dq [B,S,H,Hd], k/v [B,S,KV,Hd] contiguous; lse/delta [B,H,S] f32
 // (lse log2-domain, as the forward wrote it; delta = sum(do * o) over Hd);
 // mask [B,S] f32 additive key bias or null; slopes [H] f32 or null.
-// scale_log2 = scale * log2(e). dtype 0 = fp16, 1 = bf16; head_dim 64 or
-// 128. tile_offsets / tile_entries / blocks / nb / walked: a block layout's
+// scale_log2 = scale * log2(e). dtype 0 = fp16, 1 = bf16; head_dim 64,
+// 128 or 256. tile_offsets / tile_entries / blocks / nb / walked: a block layout's
 // live-tile lists (ds::TileList; C: one per (head, 128-row q tile) of
 // 64-key tiles, D: one per (kv head, 128-key tile) of (group head, 64-row q
 // tile) pairs), all null without a layout. Each returns cudaGetLastError()
@@ -576,8 +880,10 @@ extern "C" int ds_flash_attention_bwd_dq(const void* q, const void* k, const voi
   const ds::TileList tl{tile_offsets, tile_entries, blocks, nb, walked};
 #define DS_DQ(T, HD) launch_dq<T, HD>(q, k, v, dO, lse, delta, mask, slopes, dq, B, S, H, KV, \
                                       causal, scale_log2, scale, tl, st)
+  if (dtype == 1 && head_dim == 256) return DS_DQ(__nv_bfloat16, 256);
   if (dtype == 1 && head_dim == 128) return DS_DQ(__nv_bfloat16, 128);
   if (dtype == 1 && head_dim == 64) return DS_DQ(__nv_bfloat16, 64);
+  if (dtype == 0 && head_dim == 256) return DS_DQ(__half, 256);
   if (dtype == 0 && head_dim == 128) return DS_DQ(__half, 128);
   if (dtype == 0 && head_dim == 64) return DS_DQ(__half, 64);
 #undef DS_DQ
@@ -586,12 +892,16 @@ extern "C" int ds_flash_attention_bwd_dq(const void* q, const void* k, const voi
 
 // Dynamic shared memory of one kernel-C block at head_dim.
 extern "C" int ds_flash_dq_smem_bytes(int head_dim) {
-  return (int)(head_dim == 128 ? DqShape<128>::kSmem : DqShape<64>::kSmem);
+  return (int)(head_dim == 256   ? DqShape<256>::kSmem
+               : head_dim == 128 ? DqShape<128>::kSmem
+                                 : DqShape<64>::kSmem);
 }
 
 // Dynamic shared memory of one kernel-D block at head_dim.
 extern "C" int ds_flash_dkv_smem_bytes(int head_dim) {
-  return (int)(head_dim == 128 ? DkvShape<128>::kSmem : DkvShape<64>::kSmem);
+  return (int)(head_dim == 256   ? Dkv256Shape::kSmem
+               : head_dim == 128 ? DkvShape<128>::kSmem
+                                 : DkvShape<64>::kSmem);
 }
 
 extern "C" int ds_flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
@@ -607,8 +917,14 @@ extern "C" int ds_flash_attention_bwd_dkv(const void* q, const void* k, const vo
   const ds::TileList tl{tile_offsets, tile_entries, blocks, nb, walked};
 #define DS_DKV(T, HD) launch_dkv<T, HD>(q, k, v, dO, lse, delta, mask, slopes, dk, dv, B, S, \
                                         H, KV, causal, scale_log2, scale, tl, st)
+  if (dtype == 1 && head_dim == 256)
+    return launch_dkv256<__nv_bfloat16>(q, k, v, dO, lse, delta, mask, slopes, dk, dv, B, S, H,
+                                        KV, causal, scale_log2, scale, tl, st);
   if (dtype == 1 && head_dim == 128) return DS_DKV(__nv_bfloat16, 128);
   if (dtype == 1 && head_dim == 64) return DS_DKV(__nv_bfloat16, 64);
+  if (dtype == 0 && head_dim == 256)
+    return launch_dkv256<__half>(q, k, v, dO, lse, delta, mask, slopes, dk, dv, B, S, H, KV,
+                                 causal, scale_log2, scale, tl, st);
   if (dtype == 0 && head_dim == 128) return DS_DKV(__half, 128);
   if (dtype == 0 && head_dim == 64) return DS_DKV(__half, 64);
 #undef DS_DKV

@@ -3,7 +3,8 @@
 // setmaxnreg helpers:
 //
 //   - wgmma at N = 64 and N = 128 (m64n64k16, m64n128k16), with A from
-//     shared memory (SS) or from registers (RS), and N = 256 (RS);
+//     shared memory (SS) or from registers (RS), N = 32 (SS: kernel C's
+//     32-key score tiles at head dim 256) and N = 256 (RS);
 //   - a 3-D TMA map (head_cols, S, B) over a [B, S, heads, Hd] tensor, so
 //     that a box of rows past S arrives as zeros instead of the next batch
 //     row's tokens;
@@ -44,6 +45,7 @@ __device__ __forceinline__ void acc_to_a(const float (&d)[N / 2], uint32_t (&a)[
   }
 }
 
+#define DS_ATT_D16 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
 #define DS_ATT_D32                                                                          \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                 \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
@@ -65,7 +67,8 @@ __device__ __forceinline__ void acc_to_a(const float (&d)[N / 2], uint32_t (&a)[
 #define DS_ATT_F8(i)                                                                        \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
       "+f"(d[i + 6]), "+f"(d[i + 7])
-#define DS_ATT_ACC32 DS_ATT_F8(0), DS_ATT_F8(8), DS_ATT_F8(16), DS_ATT_F8(24)
+#define DS_ATT_ACC16 DS_ATT_F8(0), DS_ATT_F8(8)
+#define DS_ATT_ACC32 DS_ATT_ACC16, DS_ATT_F8(16), DS_ATT_F8(24)
 #define DS_ATT_ACC64 DS_ATT_ACC32, DS_ATT_F8(32), DS_ATT_F8(40), DS_ATT_F8(48), DS_ATT_F8(56)
 #define DS_ATT_ACC128                                                                       \
   DS_ATT_ACC64, DS_ATT_F8(64), DS_ATT_F8(72), DS_ATT_F8(80), DS_ATT_F8(88), DS_ATT_F8(96),   \
@@ -81,9 +84,15 @@ __device__ __forceinline__ void acc_to_a(const float (&d)[N / 2], uint32_t (&a)[
 // descriptors; TA / TB = 1 for an MN-major operand; ACC = 0 overwrites d.
 template <typename T, int N, int TA, int TB>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db, int acc) {
-  static_assert(N == 64 || N == 128, "N is 64 or 128");
+  static_assert(N == 32 || N == 64 || N == 128, "N is 32, 64 or 128");
   constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
-  if constexpr (N == 64 && kBf16) {
+  if constexpr (N == 32 && kBf16) {
+    DS_ATT_WGMMA("m64n32k16.f32.bf16.bf16", DS_ATT_D16, "%18", "%16, %17, p, 1, 1, %19, %20",
+                 DS_ATT_ACC16, "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
+  } else if constexpr (N == 32) {
+    DS_ATT_WGMMA("m64n32k16.f32.f16.f16", DS_ATT_D16, "%18", "%16, %17, p, 1, 1, %19, %20",
+                 DS_ATT_ACC16, "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
+  } else if constexpr (N == 64 && kBf16) {
     DS_ATT_WGMMA("m64n64k16.f32.bf16.bf16", DS_ATT_D32, "%34", "%32, %33, p, 1, 1, %35, %36",
                  DS_ATT_ACC32, "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
   } else if constexpr (N == 64) {
@@ -135,10 +144,12 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
 #undef DS_ATT_ACC128
 #undef DS_ATT_ACC64
 #undef DS_ATT_ACC32
+#undef DS_ATT_ACC16
 #undef DS_ATT_F8
 #undef DS_ATT_D128
 #undef DS_ATT_D64
 #undef DS_ATT_D32
+#undef DS_ATT_D16
 
 // One TMA box of a 3-D map at (c0 along the head columns, c1 along S, c2
 // along B) into dst; completion is counted on bar.

@@ -76,6 +76,20 @@ class DeepSpeedMoEConfig(ConfigModel):
     ep_mp_group: Optional[Any] = None
     ep_group: Optional[Any] = None
 
+    def __init__(self, **data):
+        super().__init__(**data)
+        self.type = _moe_type(self.type)
+
+
+def _moe_type(value) -> str:
+    """``moe.type`` as its enum value: "standard" or "residual" only (the
+    JAX config's MoETypeEnum rejects anything else when it is read)."""
+    value = getattr(value, "value", value)
+    if value not in {t.value for t in MoETypeEnum}:
+        raise ValueError(f"moe.type={value!r}: expected one of "
+                         f"{sorted(t.value for t in MoETypeEnum)}")
+    return value
+
 
 @config
 class BaseQuantConfig(ConfigModel):
@@ -261,6 +275,9 @@ class DeepSpeedInferenceConfig(ConfigModel):
             # get_telemetry_config understands
             data["telemetry"] = get_telemetry_config({"telemetry": data["telemetry"]})
         super().__init__(**data)
+        self.moe_type = _moe_type(self.moe_type)
+        if isinstance(self.moe, DeepSpeedMoEConfig):
+            self.moe.type = _moe_type(self.moe.type)    # the deprecated moe_type writes here
 
     def telemetry_enabled(self) -> bool:
         """Whether ``telemetry`` switches anything on (JAX semantics: a bool,

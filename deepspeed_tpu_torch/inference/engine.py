@@ -65,6 +65,14 @@ with fp32 scales; activations, caches and every other leaf run bf16, and
 each matmul dequantizes its weight at use (the ``dequant_int8`` kernel on
 the card).
 
+An MoE model (``models/moe_lm.MoECausalLM``) serves at expert parallelism
+1, as the JAX engine's MoE branch does: ``forward`` routes with eval
+capacity and drops the aux loss, ``generate`` prefills through
+``forward_cached`` with a ``valid`` mask (bucket padding takes no expert
+capacity) and decodes through K5, and ``generate_batch`` takes the static
+path (an MoE model does not page). ``moe.ep_size`` > 1 raises naming
+ROADMAP.md's "MoE with ep > 1".
+
 Settings outside the port's slices raise ``NotImplementedError`` naming
 the ROADMAP item that will bring them.
 """
@@ -124,6 +132,7 @@ class InferenceEngine:
         if params is None:
             model, params = self._load_checkpoint(model)
         self.module = model
+        self._is_moe = self._check_moe(model)
         if params is None:
             if not hasattr(model, "init_params"):
                 raise ValueError("InferenceEngine needs params (or a model with init_params)")
@@ -190,11 +199,46 @@ class InferenceEngine:
         srv = c.serving
         if int(c.tensor_parallel.tp_size) > 1 or int(srv.tp) > 1 or int(c.mp_size) > 1:
             not_ported("tensor-parallel serving", "queue 1: sharded serving")
-        if int(c.moe.ep_size) > 1 or int(c.ep_size) > 1 or hasattr(model, "moe"):
-            not_ported("MoE inference", "queue 1: MoE")
         off = dict(c.zero or {}).get("offload_param", {})
         if str(off.get("device", "none")).lower() in ("cpu", "nvme"):
+            if hasattr(model, "moe"):      # the JAX engine's refusal (engine.py:224)
+                raise NotImplementedError(
+                    "ZeRO-Inference weight streaming of MoE models is not implemented (the "
+                    "streamed block is the dense cached path)")
             not_ported("ZeRO-Inference weight streaming", "queue 1: ZeRO-Inference")
+
+    def _check_moe(self, model) -> bool:
+        """The JAX engine's MoE checks (``engine.py:66-82``, ``:148-171``):
+        ``ep_size`` > 1 needs an MoE model whose expert count it divides,
+        and the config's ``moe.type`` must match the model (a residual
+        PR-MoE or not). Expert parallelism itself is not ported: ``ep_size``
+        > 1 on an MoE model raises naming its ROADMAP item. Returns whether
+        the model is an MoE model (the zoo ``MoECausalLM`` shape: ``.moe``
+        and a routed MLP)."""
+        c = self._config
+        if isinstance(c.moe, bool):
+            enabled, ep, moe_type = c.moe, max(1, int(c.ep_size)), c.moe_type
+        else:
+            enabled, moe_type = c.moe.enabled, c.moe.type
+            ep = max(int(c.moe.ep_size), int(c.ep_size), 1)
+        ep = ep if enabled else 1
+        is_moe = hasattr(model, "moe") and hasattr(model, "_moe_mlp")
+        if ep > 1 and not is_moe:
+            raise ValueError(f"config.moe.ep_size={ep} but the model has no MoE layers; "
+                             "remove the moe section or serve an MoE model")
+        if not is_moe:
+            return False
+        n_experts = int(getattr(model.moe, "num_experts", 0))
+        if ep > 1 and n_experts % ep:
+            raise ValueError(f"moe.ep_size={ep} must divide the model's num_experts={n_experts}")
+        residual = bool(getattr(model.moe, "use_residual", False))
+        if residual != (moe_type == "residual"):
+            raise ValueError(f"config moe.type={moe_type!r} but the model "
+                             f"{'IS' if residual else 'is NOT'} a residual (PR-)MoE; set "
+                             "moe.type accordingly")
+        if ep > 1:
+            not_ported(f"MoE inference with moe.ep_size={ep}", "queue 1: MoE with ep > 1")
+        return True
 
     def _load_checkpoint(self, model):
         """The JAX engine's checkpoint branch: an HF checkpoint (a directory
@@ -310,7 +354,8 @@ class InferenceEngine:
                              "causal LM; use engine.forward for hidden states / MLM logits")
 
     def _paged_supported(self) -> bool:
-        return (hasattr(self.module, "forward_paged_decode")
+        # an MoE model serves on the static path, as in the JAX engine
+        return (not self._is_moe and hasattr(self.module, "forward_paged_decode")
                 and hasattr(self.module, "forward_paged_prefill")
                 and hasattr(self.module, "init_paged_cache")
                 and hasattr(self.module, "config"))
@@ -420,6 +465,10 @@ class InferenceEngine:
         if attention_mask is not None:
             mask = torch.as_tensor(np.asarray(attention_mask)).to(self.device)
             mask = mask[None, :] if mask.ndim == 1 else mask
+        if self._is_moe:
+            # eval routing (eval capacity, no jitter or RTS) and the aux loss
+            # dropped: serving returns logits only
+            return self.module.forward(self.params, self._ids(input_ids), mask, train=False)[0]
         return self.module.forward(self.params, self._ids(input_ids), mask)
 
     def generate(self, input_ids, max_new_tokens: Optional[int] = None,
@@ -493,7 +542,10 @@ class InferenceEngine:
         bucket = self._bucket(P, Smax)
         toks = torch.zeros((B, bucket), dtype=torch.long, device=self.device)
         toks[:, :P] = input_ids
-        logits, cache = self.module.forward_cached(self.params, toks, cache, 0)
+        kw = {}
+        if self._is_moe:      # bucket padding never competes for expert capacity
+            kw["valid"] = (torch.arange(bucket, device=self.device) < P).float().expand(B, bucket)
+        logits, cache = self.module.forward_cached(self.params, toks, cache, 0, **kw)
         first = self._sample(logits[:, P - 1, :], temperature, top_k, gen)
         out_cap = min(Smax, self._bucket(max_new, Smax))
         out = torch.zeros((B, out_cap), dtype=torch.long, device=self.device)

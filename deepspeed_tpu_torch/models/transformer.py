@@ -351,15 +351,17 @@ def cached_embed(cfg: TransformerConfig, params, tokens, pos, dtype):
     return x, positions
 
 
-def _decode_block(cfg: TransformerConfig, h, lp, attn_fn):
+def _decode_block(cfg: TransformerConfig, h, lp, attn_fn, mlp_fn=None):
     """The pre-LN residual wiring of every cache-decode block:
     ``attn_fn(x_normed)`` returns the attention output (and updates the
-    layer's pools in place)."""
+    layer's pools in place); ``mlp_fn(cfg, x_normed, lp)`` replaces the
+    dense MLP (the MoE model's routed experts)."""
+    mfn = mlp_fn if mlp_fn is not None else (lambda c, xn, lpp: mlp(c, xn, lpp["mlp"]))
     a = attn_fn(_norm(cfg, h, lp["ln_attn"]))
     if cfg.parallel_residual:
-        return h + a + mlp(cfg, _norm(cfg, h, lp["ln_mlp"]), lp["mlp"])
+        return h + a + mfn(cfg, _norm(cfg, h, lp["ln_mlp"]), lp)
     h = h + a
-    return h + mlp(cfg, _norm(cfg, h, lp["ln_mlp"]), lp["mlp"])
+    return h + mfn(cfg, _norm(cfg, h, lp["ln_mlp"]), lp)
 
 
 def _head_weight(cfg: TransformerConfig, params):
@@ -418,18 +420,22 @@ def _cached_attention(cfg: TransformerConfig, x, lp, positions, pos: int, ck, cv
     return _out_project(cfg, _grouped_cache_einsum(cfg, q, ck, cv, positions, pad_bias), lp)
 
 
-def cached_block(cfg: TransformerConfig, h, lp, ck, cv, positions, pos: int, pad_bias=None):
+def cached_block(cfg: TransformerConfig, h, lp, ck, cv, positions, pos: int, pad_bias=None,
+                 mlp_fn=None):
     """ONE layer of the KV-cache path: pre-LN attention against, and append
-    to, the layer's cache ck/cv ``[B, Smax, KV, Hd]``."""
+    to, the layer's cache ck/cv ``[B, Smax, KV, Hd]``; ``mlp_fn`` as in
+    :func:`_decode_block`."""
     return _decode_block(cfg, h, lp, lambda xn: _cached_attention(
-        cfg, xn, lp["attn"], positions, pos, ck, cv, pad_bias))
+        cfg, xn, lp["attn"], positions, pos, ck, cv, pad_bias), mlp_fn)
 
 
-def forward_cached(cfg: TransformerConfig, params, tokens, cache, pos: int, pad_bias=None):
+def forward_cached(cfg: TransformerConfig, params, tokens, cache, pos: int, pad_bias=None,
+                   mlp_fn=None):
     """tokens ``[B, T]`` (a prompt bucket or one token) attended against,
     and appended to, ``cache`` at offset ``pos`` (a host int). Returns
     (logits ``[B, T, vocab]``, cache) with the cache updated in place.
-    ``pad_bias`` ``[B, Smax]`` additive f32 masks cache slots."""
+    ``pad_bias`` ``[B, Smax]`` additive f32 masks cache slots; ``mlp_fn``
+    as in :func:`_decode_block`."""
     if cfg.norm_position == "post":
         raise ValueError("norm_position='post' is not supported by the "
                          "KV-cache decode path (pre-LN only)")
@@ -442,7 +448,8 @@ def forward_cached(cfg: TransformerConfig, params, tokens, cache, pos: int, pad_
     pos = int(pos)
     x, positions = cached_embed(cfg, params, tokens, pos, cache["k"].dtype)
     for i, lp in enumerate(params["layers"]):
-        x = cached_block(cfg, x, lp, cache["k"][i], cache["v"][i], positions, pos, pad_bias)
+        x = cached_block(cfg, x, lp, cache["k"][i], cache["v"][i], positions, pos, pad_bias,
+                         mlp_fn)
     return cached_head(cfg, params, x), cache
 
 

@@ -12,16 +12,17 @@ version:
 - v1.0: ``[np·hn·3, h]``: per head, per head-dim, (q,k,v) interleaved;
 - v2.0: ``[np·3·hn, h]``: per head ``[q_h | k_h | v_h]`` (NeoX-style).
 
-Megatron-DeepSpeed MoE checkpoints and quantize-on-load raise, naming their
-ROADMAP items."""
+Megatron-DeepSpeed MoE layers (the reference policy
+``module_inject/containers/megatron_gpt_moe.py``) map to the zoo
+``MoECausalLM``'s layer trees: standard MoE under ``mlp.deepspeed_moe``,
+residual (PR-)MoE under ``mlp.moe.deepspeed_moe`` with its dense branch
+``mlp.mlp`` and ``mlp.coefficient``; every layer must be MoE."""
 
 from __future__ import annotations
 
 from typing import Any, Dict
 
 import torch
-
-from deepspeed_tpu_torch.utils.not_ported import not_ported
 
 
 def megatron_merge_strategies(version=0) -> Dict[str, Any]:
@@ -92,9 +93,32 @@ def map_megatron_params(sd: Dict[str, torch.Tensor], cfg, version=0, dtype=None,
             break
     if lp is None:
         raise KeyError("no Megatron transformer layers found in state dict")
-    if any(".mlp.deepspeed_moe." in k or ".mlp.moe.deepspeed_moe." in k for k in sd):
-        not_ported("Megatron-DeepSpeed MoE checkpoints (mlp.deepspeed_moe experts)",
-                   "queue 1: MoE")
+    L = cfg.n_layer
+    # standard MoE nests under mlp.deepspeed_moe; residual (PR-)MoE under
+    # mlp.moe.deepspeed_moe with a dense mlp.mlp branch and mlp.coefficient
+    is_residual = any(".mlp.moe.deepspeed_moe." in k for k in sd)
+    is_moe = is_residual or any(".mlp.deepspeed_moe." in k for k in sd)
+    if is_moe:
+        moe_root = "mlp.moe.deepspeed_moe" if is_residual else "mlp.deepspeed_moe"
+        ex = f"{lp}.{{}}.{moe_root}.experts.deepspeed_experts.{{}}"
+
+        def has(name):
+            try:
+                g(name)
+                return True
+            except KeyError:
+                return False
+
+        dense_layers = [i for i in range(L) if not has(ex.format(i, 0) + ".dense_h_to_4h.weight")]
+        if dense_layers:
+            # e.g. Megatron-DeepSpeed --moe-layer-freq 2 alternating stacking
+            raise NotImplementedError(
+                f"mixed dense/MoE layer stacking is not supported (layers {dense_layers} of {L} "
+                "have no deepspeed_moe experts, e.g. a --moe-layer-freq > 1 checkpoint); the "
+                "zoo MoECausalLM stacks an MoE MLP in every layer")
+        E = 0
+        while has(ex.format(0, E) + ".dense_h_to_4h.weight"):
+            E += 1
 
     fl = "final_layernorm"
     cand = f"{lp.rsplit('.layers', 1)[0]}.final_layernorm"
@@ -119,16 +143,39 @@ def map_megatron_params(sd: Dict[str, torch.Tensor], cfg, version=0, dtype=None,
                      "bo": g(p + "attention.dense.bias")},
             "ln_mlp": {"scale": g(p + "post_attention_layernorm.weight"),
                        "bias": g(p + "post_attention_layernorm.bias")},
-            "mlp": {"w_up": t(g(p + "mlp.dense_h_to_4h.weight")),
-                    "b_up": g(p + "mlp.dense_h_to_4h.bias"),
-                    "w_down": t(g(p + "mlp.dense_4h_to_h.weight")),
-                    "b_down": g(p + "mlp.dense_4h_to_h.bias")},
+            "mlp": moe_mlp(i) if is_moe else {
+                "w_up": t(g(p + "mlp.dense_h_to_4h.weight")),
+                "b_up": g(p + "mlp.dense_h_to_4h.bias"),
+                "w_down": t(g(p + "mlp.dense_4h_to_h.weight")),
+                "b_down": g(p + "mlp.dense_4h_to_h.bias")},
         }
+
+    def moe_mlp(i):
+        """Layer i's gate (torch ``wg [E, D]`` -> ``gate_w [D, E]``) and its
+        experts stacked ``[E, ...]`` (a missing expert key raises)."""
+        def experts(suffix, tr=False):
+            return torch.stack([t(g(ex.format(i, e) + suffix)) if tr
+                                else g(ex.format(i, e) + suffix) for e in range(E)])
+
+        p = f"{lp}.{i}.mlp."
+        out = {"gate_w": t(g(f"{lp}.{i}.{moe_root}.gate.wg.weight")),
+               "w_up": experts(".dense_h_to_4h.weight", tr=True),
+               "b_up": experts(".dense_h_to_4h.bias"),
+               "w_down": experts(".dense_4h_to_h.weight", tr=True),
+               "b_down": experts(".dense_4h_to_h.bias")}
+        if is_residual:
+            out.update(res_w_up=t(g(p + "mlp.dense_h_to_4h.weight")),
+                       res_b_up=g(p + "mlp.dense_h_to_4h.bias"),
+                       res_w_down=t(g(p + "mlp.dense_4h_to_h.weight")),
+                       res_b_down=g(p + "mlp.dense_4h_to_h.bias"),
+                       coef_w=t(g(p + "coefficient.weight")),
+                       coef_b=g(p + "coefficient.bias"))
+        return out
 
     return {
         "embed": {"tokens": g("word_embeddings.weight"),
                   "positions": g("position_embeddings.weight")},
-        "layers": [layer(i) for i in range(cfg.n_layer)],
+        "layers": [layer(i) for i in range(L)],
         "ln_f": {"scale": g(fl + ".weight"), "bias": g(fl + ".bias")},
     }
 

@@ -19,13 +19,12 @@ kernels writes an S x S tile: the forward keeps its running softmax in fp32
 registers and writes the log2-domain lse, from which the backward
 recomputes p. See the sources' headers for the layouts.
 
-Head dims: the kernels are built for Hd 64 and 128 (64-column TMA boxes),
-and A also for 256 (GPT-J's heads, on 64-key k/v tiles); any other
-multiple of 8 up to 256 is zero-padded here to the next of them (q k^T
-and p v do not change with zero columns; the scale stays the one of the
-true Hd) and the outputs are sliced back. C and D stop at 128: a gradient
-through a head past 128 is refused before the forward runs (ROADMAP.md
-queue 2, Hd-256 backward).
+Head dims: the kernels are built for Hd 64, 128 and 256 (64-column TMA
+boxes; GPT-J's 256-wide heads run A on 64-key k/v tiles, C on 32-key k/v
+stages and D as its own 64-key kernel with one consumer warpgroup per
+accumulator); any other multiple of 8 up to 256 is zero-padded here to the
+next of them (q k^T and p v do not change with zero columns; the scale
+stays the one of the true Hd) and the outputs are sliced back.
 
 Block-sparse attention (``block_layout``, the TPU kernels' ``has_layout``
 mode): an ``[H, nb, nb]`` (or ``[nb, nb]``) layout whose entries > 0 keep a
@@ -63,7 +62,6 @@ from typing import Optional
 import torch
 
 from deepspeed_tpu_torch.ops.kernels import build
-from deepspeed_tpu_torch.utils.not_ported import not_ported
 
 _MASKED = -1e30
 _LOG2E = 1.4426950408889634
@@ -367,7 +365,7 @@ def _check(name, x, ref, shape, dtype=None):
 
 #: the largest head dim of the forward kernel A, and of the backward kernels C and D
 FWD_MAX_HEAD_DIM = 256
-BWD_MAX_HEAD_DIM = 128
+BWD_MAX_HEAD_DIM = 256
 
 
 def kernel_head_dim(Hd: int, most: int = FWD_MAX_HEAD_DIM) -> int:
@@ -377,14 +375,6 @@ def kernel_head_dim(Hd: int, most: int = FWD_MAX_HEAD_DIM) -> int:
         raise ValueError(f"flash_attention kernels take a head_dim that is a multiple of 8 "
                          f"up to {most}, got {Hd}")
     return 64 if Hd <= 64 else 128 if Hd <= 128 else 256
-
-
-def refuse_backward_head_dim(Hd: int):
-    """Raise, naming its ROADMAP.md item, for a gradient through a head
-    wider than C and D take."""
-    if Hd > BWD_MAX_HEAD_DIM:
-        not_ported(f"the flash-attention backward (kernels C and D) at head_dim {Hd}",
-                   "queue 2: Hd-256 backward (C, D)")
 
 
 def pad_head_dim(x, hd: int):
@@ -480,7 +470,6 @@ def flash_attention_dq_cuda(q, k, v, do, lse, delta, mask_bias=None, causal: boo
     global dq_launches
     B, S, H, Hd = q.shape
     sc = _scale(q, scale)
-    refuse_backward_head_dim(Hd)
     hd = kernel_head_dim(Hd, BWD_MAX_HEAD_DIM)
     q, k, v, do = (pad_head_dim(x, hd) for x in (q, k, v, do))
     mask, slopes = _bwd_inputs(q, k, v, do, lse, delta, mask_bias, alibi_slopes)
@@ -503,7 +492,6 @@ def flash_attention_dkv_cuda(q, k, v, do, lse, delta, mask_bias=None, causal: bo
     global dkv_launches
     B, S, H, Hd = q.shape
     sc = _scale(q, scale)
-    refuse_backward_head_dim(Hd)
     hd = kernel_head_dim(Hd, BWD_MAX_HEAD_DIM)
     q, k, v, do = (pad_head_dim(x, hd) for x in (q, k, v, do))
     mask, slopes = _bwd_inputs(q, k, v, do, lse, delta, mask_bias, alibi_slopes)
@@ -610,15 +598,11 @@ def flash_attention(q, k, v, mask_bias=None, causal: bool = True, alibi_slopes=N
 
     ``return_lse=True`` returns ``(out, lse)`` with lse the log2-domain
     logsumexp ``[B, H, S]`` (+1e30 for a row with no mass); both are
-    differentiable, the lse's cotangent running through C and D.
-
-    A gradient through a head dim past 128 raises ``NotImplementedError``
-    before the forward runs (C and D are built up to 128)."""
+    differentiable, the lse's cotangent running through C and D."""
     H = q.shape[2]
     if H % k.shape[2]:
         raise ValueError(f"q heads {H} not a multiple of kv heads {k.shape[2]}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        refuse_backward_head_dim(q.shape[-1])
         o, lse = _FlashAttention.apply(q, k, v, mask_bias, alibi_slopes, causal, scale,
                                        block_layout)
     else:

@@ -134,5 +134,6 @@ def test_head_dim_padding_matches_plain_at_hd96():
     for bad in (100, 264):      # not a multiple of 8, and past A's 256
         with pytest.raises(ValueError, match="multiple of 8 up to 256"):
             fa.kernel_head_dim(bad)
-    with pytest.raises(ValueError, match="multiple of 8 up to 128"):     # C and D stop at 128
-        fa.kernel_head_dim(136, fa.BWD_MAX_HEAD_DIM)
+    assert fa.kernel_head_dim(136, fa.BWD_MAX_HEAD_DIM) == 256       # C and D take 256 too
+    with pytest.raises(ValueError, match="multiple of 8 up to 256"):
+        fa.kernel_head_dim(264, fa.BWD_MAX_HEAD_DIM)

@@ -181,6 +181,14 @@ def test_tier_and_router_import_no_jax_nor_the_jax_package():
     assert out.stdout.strip() == "[]", out.stdout
 
 
+# the MoE slice's modules (moe/, the MoE causal LM)
+MOE_MODULES = (
+    "deepspeed_tpu_torch.moe.utils", "deepspeed_tpu_torch.moe.sharded_moe",
+    "deepspeed_tpu_torch.moe.experts", "deepspeed_tpu_torch.moe.layer",
+    "deepspeed_tpu_torch.models.moe_lm",
+)
+
+
 def test_import_leaves_jax_and_pydantic_out():
     mods = ["deepspeed_tpu_torch"] + sorted(
         "deepspeed_tpu_torch." + ".".join(p.relative_to(ROOT / "deepspeed_tpu_torch")
@@ -197,6 +205,7 @@ def test_import_leaves_jax_and_pydantic_out():
     assert set(CONTROL_PLANE_MODULES) <= set(mods)
     assert set(ASYNC_SERVING_MODULES) <= set(mods)
     assert set(TIER_AND_ROUTER_MODULES) <= set(mods)
+    assert set(MOE_MODULES) <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "

@@ -160,10 +160,16 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
         y = torch.zeros((1, 16, 2, hd), device=cuda, dtype=torch.bfloat16)
         with pytest.raises(ValueError, match="head_dim"):
             fa.flash_attention(y, y, y)
-    y = torch.zeros((1, 16, 2, 256), device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="Hd-256 backward"):    # C and D stop at 128
-        fa.flash_attention_dq(y, y, y, y, torch.zeros((1, 2, 16), device=cuda),
-                              torch.zeros((1, 2, 16), device=cuda))
+    for hd, ok in ((256, True), (264, False)):      # C and D take 256, not past it
+        y = torch.zeros((1, 16, 2, hd), device=cuda, dtype=torch.bfloat16)
+        rows = (torch.zeros((1, 2, 16), device=cuda), torch.zeros((1, 2, 16), device=cuda))
+        if ok:
+            n0 = fa.dq_launches
+            assert fa.flash_attention_dq(y, y, y, y, *rows).shape == y.shape
+            assert fa.dq_launches == n0 + 1
+        else:
+            with pytest.raises(ValueError, match="head_dim"):
+                fa.flash_attention_dq(y, y, y, y, *rows)
     z = torch.zeros((1, 2, 16, 64), device=cuda, dtype=torch.bfloat16).transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
         fa.flash_attention(z, z, z)
@@ -200,6 +206,10 @@ def _attn_inputs(r, B, S, H, KV, Hd, cuda, alibi, mask, masked_row=False):
     (2, 130, 4, 1, 64, False, True, True),         # full attention, ALiBi + key mask
     (2, 192, 8, 8, 128, True, False, True),        # a fully masked batch row
     (2, 256, 8, 4, 96, True, True, False),         # Hd 96, zero-padded to 128
+    (1, 1024, 16, 16, 256, True, False, False),    # GPT-J heads: C on 32-key stages, D 64 keys
+    (2, 300, 8, 2, 256, True, True, True),         # Hd 256: GQA 4, ALiBi + key mask, ragged
+    (2, 130, 4, 1, 256, False, False, True),       # Hd 256, full attention, a masked row
+    (2, 200, 4, 4, 200, True, False, False),       # Hd 200, zero-padded to 256
 ])
 def test_flash_backward_kernels_match_plain(cuda, B, S, H, KV, Hd, causal, alibi, mask):
     """Kernels C (dq) and D (dk, dv) against their plain versions, from
@@ -225,6 +235,7 @@ def test_flash_backward_kernels_match_plain(cuda, B, S, H, KV, Hd, causal, alibi
 @pytest.mark.parametrize("B,S,H,KV,Hd,causal,dtype", [
     (1, 100, 8, 8, 64, True, torch.float16),       # S below one 128-row tile
     (2, 300, 16, 4, 128, False, torch.float16),    # GQA 4, full attention, ragged S
+    (2, 300, 8, 2, 256, True, torch.float16),      # Hd 256, GQA 4, ragged S
 ])
 def test_flash_kernels_fp16(cuda, B, S, H, KV, Hd, causal, dtype):
     """Kernels A, C and D in fp16 against their plain versions."""
@@ -290,6 +301,9 @@ def _layout(kind, H, S):
     (2, 384, 8, 2, 128, "bigbird128", False, False), # GQA 4, bidirectional
     (1, 320, 4, 2, 96, "random32", False, True),     # ragged S, Hd 96, a key mask, a dead row
     (2, 256, 4, 4, 64, "random32", True, False),
+    (1, 512, 4, 2, 256, "fixed128", True, False),    # Hd 256: C's 64-key entries as two halves
+    (1, 512, 4, 4, 256, "fixed64", True, False),     # D's 128-key lists over 64-key CTAs
+    (1, 320, 4, 2, 256, "random32", False, True),    # Hd 256, a key mask, a dead row block
 ])
 def test_flash_layout_kernels_match_plain(cuda, B, S, H, KV, Hd, kind, causal, mask):
     """A, C and D with a block layout against their layout-aware plain
@@ -371,6 +385,32 @@ def test_flash_layout_walks_the_live_tiles(cuda, kind, causal):
     assert all(torch.equal(x, y) for x, y in zip(dense, plain))
 
 
+@pytest.mark.parametrize("kind,causal", [("fixed128", True), ("bigbird128", False)])
+def test_flash_backward_at_head_dim_256_walks_and_repeats(cuda, kind, causal):
+    """C and D at Hd 256 walk exactly their live-tile lists (C each 64-key
+    entry as two 32-key stages, D's two 64-key CTAs of a 128-key list
+    counting it once), and two launches of each give the same bits."""
+    B, S, H, KV, Hd = 2, 512, 4, 2, 256
+    r = np.random.default_rng(12)
+    q, k, v, _ = _attn_inputs(r, B, S, H, KV, Hd, cuda, False, False)
+    do = _randn(r, (B, S, H, Hd), cuda)
+    lay = _layout(kind, H, S)
+    keep = fa._layout_keep(lay, S, H, causal)
+    want = {kern: B * len(fa.live_tiles(keep, S, causal, kern, KV)[1])
+            for kern in ("fwd", "dq", "dkv")}
+    runs = []
+    for _ in range(2):
+        fa.reset_tile_counts()
+        o, lse = fa.flash_attention(q, k, v, causal=causal, block_layout=lay, return_lse=True)
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+        args = (q, k, v, do, lse, delta)
+        runs.append((fa.flash_attention_dq(*args, causal=causal, block_layout=lay),
+                     *fa.flash_attention_dkv(*args, causal=causal, block_layout=lay)))
+        assert fa.tile_counts() == want
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(*runs))
+
+
 def test_flash_attention_autograd_runs_the_kernels(cuda):
     """loss.backward() through flash_attention launches A once, C and D once."""
     r = np.random.default_rng(5)
@@ -388,6 +428,8 @@ def test_flash_attention_autograd_runs_the_kernels(cuda):
     (1, 300, 16, 4, 128, True, True, None),        # GQA 4, ALiBi, ragged S
     (2, 256, 8, 2, 64, False, False, None),        # full attention, Hd 64
     (1, 320, 4, 2, 96, False, False, "random32"),  # a layout with a dead row block, Hd 96
+    (2, 512, 16, 16, 256, True, False, None),      # GPT-J heads
+    (1, 320, 4, 2, 256, False, False, "random32"), # Hd 256 with a layout's dead row block
 ])
 def test_flash_lse_backward_runs_the_kernels(cuda, B, S, H, KV, Hd, causal, alibi, kind):
     """return_lse=True with a gradient: one launch each of A, C and D, and

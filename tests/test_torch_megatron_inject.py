@@ -8,9 +8,9 @@ v2.0 at tp 1 and 2, the port's tree is bit-equal to ``params_from_jax`` of
 the JAX loader's (and of the original params); the same over torch ``.pt``
 rank files. The meta json (a path or a dict) serves through
 ``init_inference``: forward logits equal to the same params given directly
-(bit for bit) and within ``TOL`` of the JAX engine's. MoE expert keys
-raise naming their ROADMAP item; a meta json without a model raises the
-JAX engine's ``ValueError``. Quantize-on-load (``quantize=True``) is held
+(bit for bit) and within ``TOL`` of the JAX engine's. MoE experts in some
+layers only raise the JAX loader's mixed-stacking error; a meta json
+without a model raises the JAX engine's ``ValueError``. Quantize-on-load (``quantize=True``) is held
 to the JAX loader's in ``tests/test_torch_int8_inference.py``."""
 
 import json
@@ -131,12 +131,18 @@ def test_meta_json_without_a_model_raises_like_jax(tmp_path):
 
 
 def test_moe_expert_keys_raise_naming_moe(tmp_path):
+    """MoE expert keys map since the MoE slice (the standard and residual
+    round trips are in tests/test_torch_moe_inference.py); experts in some
+    layers only raise the JAX loader's mixed dense/MoE stacking error in
+    both packages."""
     jcfg, params = _params(2)
     sd = _to_megatron_sd(params, jcfg, 0)
     ex = "transformer.layers.0.mlp.deepspeed_moe.experts.deepspeed_experts.0"
     sd[ex + ".dense_h_to_4h.weight"] = np.zeros((64, 32), np.float32)
     meta = _write_ckpt(tmp_path, [sd], 0)
-    with pytest.raises(NotImplementedError, match="MoE"):
+    with pytest.raises(NotImplementedError, match="mixed dense/MoE"):
+        jax_load(meta, jcfg)
+    with pytest.raises(NotImplementedError, match="mixed dense/MoE"):
         load_megatron_checkpoint(meta, _pcfg(jcfg))
 
 

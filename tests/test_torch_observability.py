@@ -248,7 +248,11 @@ def test_training_engine_acts_on_the_exposition_plane(tmp_path):
     """telemetry.metrics_port 0, a sampler path and an SLO over the train
     step time: /metrics between steps parses back to the registry's train/
     values, the sampler's ticks land in its JSONL with the SLO gauges,
-    destroy() stops both (refused connections, one last snapshot)."""
+    destroy() stops both (refused connections, one last snapshot). The
+    registry is process-global: a file that ran a training engine with
+    telemetry on the same worker before this one left its train/ series
+    there, so the case starts from an emptied registry."""
+    get_registry().reset()
     path = str(tmp_path / "samples.jsonl")
     config = {"train_batch_size": 4, "train_micro_batch_size_per_gpu": 4,
               "telemetry": {"metrics_port": 0,

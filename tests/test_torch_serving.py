@@ -138,11 +138,18 @@ def test_eviction_pressure(pair):
     ({"mp_size": 2}, "sharded serving"),
     ({"serving": {"tp": 2}}, "sharded serving"),
     ({"tensor_parallel": {"tp_size": 2}}, "sharded serving"),
-    ({"moe": {"ep_size": 2}}, "MoE"),
+    ({"moe": {"ep_size": 2}}, "MoE with ep > 1"),
     ({"zero": {"offload_param": {"device": "cpu"}}}, "ZeRO-Inference"),
 ])
 def test_out_of_slice_settings_raise(setting, item):
+    """Settings outside the port's slices raise naming their ROADMAP item;
+    MoE serves at ep 1 since the MoE slice, so ``moe.ep_size`` is refused
+    on an MoE model (on a dense one it is the JAX engine's ValueError,
+    tests/test_torch_moe_inference.py)."""
     model = CausalLM(TransformerConfig(**SHAPES["gpt2"]))
+    if "moe" in setting:
+        from deepspeed_tpu_torch.models.moe_lm import MoECausalLM, MoEConfig
+        model = MoECausalLM(model.config, MoEConfig(num_experts=2))
     with pytest.raises(NotImplementedError, match=item):
         deepspeed_tpu_torch.init_inference(model, device="cpu", **setting)
 
