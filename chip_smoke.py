@@ -274,11 +274,40 @@ Phases, each printing one JSON line:
                 serve phase's prompts with events on: cli trace <rid> phases
                 summing to each request's time, TTFT p99 and a TTFT
                 objective's burn rate
+  serve_stream  ZeRO-Inference from host RAM: full Llama-2-7B with
+                zero.offload_param.device "cpu" (32 layers in one pinned host
+                slab, two layer buffers on the card, copies on a copy stream)
+                on generate's [8, 512] prompts, 16 new tokens (cut from 64 for
+                time): rows equal (limit 0) to a resident engine's generate on
+                the same weights, K5 = L x 15, A 0, device peak under
+                embedding + head + 2 layers + the KV workspace + 1.5 GB,
+                teacher-forced logits equal to the resident's and two layers'
+                buffers swapped planted above LOGIT_ULP_TOL; prefill ms, ms a
+                decode step, tokens/s and peak beside the resident engine's,
+                the stream's GB/s against one plain pinned copy's, the copy
+                stream's busy share of a decode step, host RSS
+  serve_stream_nvme  the same model cut to 8 layers with device "nvme" under
+                .zero_inference/ (free disk checked first): rows equal to the
+                cpu-mode streamed engine (limit 0), K5 = L x 15, the swap dir
+                gone once the engine is released; the layer files' read GB/s
+                (warm) and whether O_DIRECT was taken
+  train_offload ZeRO-Offload: the train cell's configuration with AdamW and
+                offload_optimizer.device "cpu" (OFFLOAD_LAYERS layers, the host
+                state within 60 % of MemTotal), 1 + 5 steps: losses finite and
+                falling, A = 2 L gas, C = D = L gas, each K3 kernel gas, E 0 a
+                step; at 8 layers against the device optimizer (E) from the
+                same seeded state: grads at steps 1-2 equal (limit 0), masters
+                after step 2 within 1e-6 of each leaf's largest; the masters
+                following load_module_state_dict, and not refreshed planted
+                above 1e-6; 2 layers on NVMe bit-equal to cpu mode after 3
+                steps; step ms split into device accumulation, D2H, host
+                optimizer and H2D, tokens/s, MFU, peaks, host RSS
   kernels       every ported kernel with its launches in the serve, spec_serve
                 (its oracle run), generate, train, train_lamb, train_sparse,
                 resume, ingest, telemetry, client_opt, health, serve_async,
                 serve_tier, serve_fleet, serve_gptj, serve_int8, train_gptj,
-                moe_generate and moe_train phases (A, C and D with a layout in
+                moe_generate, moe_train, serve_stream, serve_stream_nvme and
+                train_offload phases (A, C and D with a layout in
                 rows of their own, as A, B, C, D and K5 at head_dim 256; C's
                 and D's rows also carry their readings with an lse cotangent)
   profile       (only with --phases profile) the serve phase's prompts through
@@ -321,7 +350,8 @@ PHASES = ("env", "build", "kernel", "slice_parity", "serve", "serve_async", "ser
           "generate_parity", "generate",
           "train_parity", "train", "train_gptj", "moe_train", "train_lamb_parity",
           "train_lamb", "sparse_parity",
-          "train_sparse", "resume", "ingest", "telemetry", "client_opt", "health", "kernels",
+          "train_sparse", "resume", "ingest", "telemetry", "client_opt", "health",
+          "serve_stream", "serve_stream_nvme", "train_offload", "kernels",
           "profile",
           "train_profile", "train_lamb_profile", "generate_profile", "train_sparse_profile",
           "health_profile")
@@ -490,10 +520,13 @@ def phase_env(state):
     card = smi.stdout.strip().splitlines()[0]
     print(card, flush=True)
     state["card"] = card
+    mem = meminfo()
     emit("env", torch=torch.__version__, cuda=torch.version.cuda,
          python=sys.version.split()[0], device=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), nvidia_smi=card,
-         checkout_disk_free_gb=shutil.disk_usage(os.path.dirname(RESUME_DIR)).free / 1e9)
+         checkout_disk_free_gb=shutil.disk_usage(os.path.dirname(RESUME_DIR)).free / 1e9,
+         mem_total_gb=mem["MemTotal"] / 1e9, mem_available_gb=mem["MemAvailable"] / 1e9,
+         cpu_cores=os.cpu_count(), cpu_model=cpu_model())
 
 
 _KERNEL_NAMES = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
@@ -7021,6 +7054,608 @@ def phase_serve_int8(state, seed):
     check(not failures, "serve_int8 failed: " + "; ".join(failures))
 
 
+# ----------------------------------------------------------------------- #
+# host offload: ZeRO-Inference weight streaming, ZeRO-Offload of the optimizer
+
+STREAM_DTYPE = "bf16"
+STREAM_MAX_NEW = 16             # serve_stream: generate's [8, 512] batch, cut 64 -> 16 new (time)
+STREAM_NVME_LAYERS = 8          # serve_stream_nvme: Llama-2-7B cut 32 -> 8 layers (disk, time)
+STREAM_TF_ROWS = 2              # rows of the output held teacher-forced
+STREAM_PEAK_MARGIN = 1.5e9      # device peak over embedding + head + 2 layers + KV workspace
+STREAM_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), ".zero_inference")
+OFFLOAD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), ".offload_nvme")
+# train_offload's depth: 18 B a parameter of host state within 60 % of the
+# card machine's MemTotal (108.4 GB): 16 layers (3.50 B parameters, 63.0
+# GB) fit, 24 do not (PERF.md section 4)
+OFFLOAD_LAYERS = 16
+OFFLOAD_CHECK_LAYERS = 8        # the depth held against the E engine
+OFFLOAD_NVME_LAYERS = 2         # the NVMe run held bit-equal to cpu mode
+OFFLOAD_NVME_STEPS = 3
+# host bytes a parameter under ZeRO-Offload: fp32 master and two moments, the
+# pinned fp32 grad and bf16 param staging; the depth must fit this share of
+# the machine's MemTotal
+OFFLOAD_HOST_BYTES = 18
+OFFLOAD_HOST_SHARE = 0.6
+MASTER_TOL = 1e-6               # E's own limit: master difference / the leaf's largest master
+
+
+def cpu_model():
+    """The host CPU's model name (/proc/cpuinfo)."""
+    with open("/proc/cpuinfo") as f:
+        for line in f:
+            if line.startswith("model name"):
+                return line.split(":", 1)[1].strip()
+    return None
+
+
+def meminfo():
+    """MemTotal and MemAvailable of /proc/meminfo, bytes."""
+    out = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            k, v = line.split(":", 1)
+            if k in ("MemTotal", "MemAvailable"):
+                out[k] = int(v.split()[0]) * 1024
+    return out
+
+
+def _stream_model(seed, n_layer=None):
+    """Llama-2-7B (``n_layer`` None: its 32 layers) with seeded bf16 weights
+    drawn on the phase's device."""
+    import torch
+    from deepspeed_tpu_torch.models import llama
+    model = llama("7b") if n_layer is None else llama("7b", n_layer=n_layer)
+    gen = torch.Generator(device=CHECK_DEVICE).manual_seed(seed)
+    return model, model.init_params(gen, device=CHECK_DEVICE, dtype=torch.bfloat16)
+
+
+def stream_zero(device, nvme_path=None):
+    off = {"device": device}
+    if nvme_path:
+        off["nvme_path"] = nvme_path
+    return {"stage": 3, "offload_param": off}
+
+
+@contextlib.contextmanager
+def swapped_layers(engine, a=0, b=1):
+    """A planted fault in a host-RAM streamed engine: layers ``a`` and ``b``
+    fetched into each other's place."""
+    real = engine._fetch_submit
+    engine._fetch_submit = lambda i: real({a: b, b: a}.get(i, i))
+    try:
+        yield
+    finally:
+        del engine._fetch_submit
+
+
+def stream_tf_logits(engine, rows):
+    """Teacher-forced logits of ``rows`` [B, T] through the cached path at
+    pos 0 on a fresh cache, fp32 on the host: a streamed engine's
+    ``forward``, a resident engine's ``forward_cached`` (the same blocks)."""
+    import torch
+    with torch.no_grad():
+        if engine._stream_weights:
+            out = engine.forward(rows)
+        else:
+            ids = engine._ids(rows)
+            cache = engine.module.init_cache(ids.shape[0], ids.shape[1], dtype=engine.dtype,
+                                             device=engine.device)
+            out = engine.module.forward_cached(engine.params, ids, cache, 0)[0]
+    return out.float().cpu().reshape(-1, out.shape[-1])
+
+
+def _timed_generate(engine, ids, max_new):
+    """A warm-up call with one new token (the workspace), a timed one (the
+    prefill and the first token), then the timed full call with the
+    decode kernels' counters set to 0 just before and read just after."""
+    from deepspeed_tpu_torch.ops.kernels import decode_attention as dda
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    engine.generate(ids, max_new_tokens=1)
+    _sync()
+    t = time.perf_counter()
+    engine.generate(ids, max_new_tokens=1)
+    _sync()
+    prefill_s = time.perf_counter() - t
+    dda.launches = fa.launches = 0
+    t = time.perf_counter()
+    out = engine.generate(ids, max_new_tokens=max_new)
+    _sync()
+    wall = time.perf_counter() - t
+    launches = {"dense_decode_attention": dda.launches, "flash_attention_fwd": fa.launches}
+    gen = out.shape[1] - ids.shape[1]
+    return out, {"wall_s": wall, "prefill_ms": prefill_s * 1e3,
+                 "decode_ms_per_step": (wall - prefill_s) / max(gen - 1, 1) * 1e3,
+                 "tokens_per_s": out.shape[0] * gen / wall, "launches": launches}
+
+
+def stream_launch_rule(n_layer, generated):
+    """K5 once a layer a decode step (the prompt takes the cached path's
+    einsum, not A); 0 on the CPU, where the plain versions run."""
+    on = CHECK_DEVICE == "cuda"
+    return {"dense_decode_attention": n_layer * (generated - 1) if on else 0,
+            "flash_attention_fwd": 0}
+
+
+def pinned_copy_gbps(nbytes):
+    """One plain host-to-card copy of ``nbytes`` from pinned memory (CUDA
+    events, median of 5), GB/s; None on the CPU."""
+    if CHECK_DEVICE != "cuda":
+        return None
+    import torch
+    from deepspeed_tpu_torch.ops.aio import HostSlab
+    src = HostSlab(nbytes, pin=True)
+    dst = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    ms = cuda_ms(lambda: dst.copy_(src.bytes, non_blocking=True), reps=5, warmup=2)
+    del dst
+    return nbytes / ms / 1e6
+
+
+def phase_serve_stream(state, seed):
+    """ZeRO-Inference from host RAM: full Llama-2-7B (seeded bf16 weights)
+    with ``zero.offload_param.device="cpu"``, its 32 layers in one pinned
+    host slab and two layer buffers on the card, on generate's [8, 512]
+    prompts with STREAM_MAX_NEW new tokens. Rows equal (limit 0) to a
+    resident engine's generate on the same weights (both run cached_block
+    and K5 a layer); K5 = L x (new - 1), A 0; device peak under embedding +
+    head + 2 layers + the KV workspace + STREAM_PEAK_MARGIN (counted from
+    what the card held before the phase); teacher-forced
+    logits equal to the resident's (limit 0) and two layers' buffers
+    swapped planted above LOGIT_ULP_TOL. Prefill ms, ms a decode step,
+    tokens/s beside the resident engine's, its peak, the stream's GB/s and
+    its bound (L layers over one plain pinned copy's rate), the copy
+    stream's busy share of a decode step, host RSS."""
+    import numpy as np
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.accelerator import get_accelerator
+
+    acc = get_accelerator(CHECK_DEVICE)
+    failures = []
+    t_phase = time.perf_counter()
+    # what earlier phases still hold on the card (caches, workspaces) is not
+    # the streamed engine's: the peak gate counts from it
+    held = _allocated_gb() or 0.0
+    model, params = _stream_model(seed)
+    cfg = model.config
+    L = cfg.n_layer
+    ids = np.random.default_rng(seed + 5).integers(0, cfg.vocab_size,
+                                                   size=(GEN_BATCH, GEN_PROMPT))
+    resident = deepspeed_tpu_torch.init_inference(model, params=params, dtype=STREAM_DTYPE,
+                                                  device=CHECK_DEVICE)
+    del params
+    acc.reset_peak_memory_stats()
+    want, res = _timed_generate(resident, ids, STREAM_MAX_NEW)
+    res["peak_mem_gb"] = acc.max_memory_allocated() / 1e9
+    want_logits = stream_tf_logits(resident, want[:STREAM_TF_ROWS])
+
+    t0 = time.perf_counter()
+    streamed = deepspeed_tpu_torch.init_inference(model, params=resident.params,
+                                                  dtype=STREAM_DTYPE, device=CHECK_DEVICE,
+                                                  zero=stream_zero("cpu"))
+    _sync()
+    init_s = time.perf_counter() - t0
+    del resident
+    _free()
+    layer_bytes = streamed._stream_layout.nbytes
+    resident_bytes = sum(p.numel() * p.element_size() for p in streamed.params.parameters())
+    acc.reset_peak_memory_stats()
+    streamed._copy_timing = [] if CHECK_DEVICE == "cuda" else None
+    got, run = _timed_generate(streamed, ids, STREAM_MAX_NEW)
+    copies, streamed._copy_timing = streamed._copy_timing, None
+    peak = acc.max_memory_allocated()
+    ws = sum(t.numel() * t.element_size() for t in streamed._workspace[2].values())
+    peak_bound = resident_bytes + 2 * layer_bytes + ws + STREAM_PEAK_MARGIN
+    rule = stream_launch_rule(L, got.shape[1] - GEN_PROMPT)
+    if not np.array_equal(got, want):
+        failures.append(f"streamed rows differ from the resident engine's at "
+                        f"{int((got != want).any(axis=1).sum())} rows")
+    if run["launches"] != rule:
+        failures.append(f"launches {run['launches']} != {rule}")
+    if CHECK_DEVICE == "cuda" and not peak - held * 1e9 <= peak_bound:
+        failures.append(f"device peak {peak / 1e9:.3f} GB less {held:.3f} held before the phase "
+                        f"over its bound {peak_bound / 1e9:.3f}")
+    got_logits = stream_tf_logits(streamed, want[:STREAM_TF_ROWS])
+    with swapped_layers(streamed):
+        fault_logits = stream_tf_logits(streamed, want[:STREAM_TF_ROWS])
+    tf = {"positions": int(got_logits.shape[0]),
+          "ulp_err": float(row_ulp_errs(got_logits, want_logits).max()),
+          "fault_ulp_err": {"layers_0_1_swapped":
+                            float(row_ulp_errs(fault_logits, want_logits).max())}}
+    if tf["ulp_err"] != 0.0:
+        failures.append(f"teacher-forced logits differ from the resident's: {tf['ulp_err']} ulps")
+    if not tf["fault_ulp_err"]["layers_0_1_swapped"] > LOGIT_ULP_TOL:
+        failures.append(f"the swapped-layers fault reads {tf['fault_ulp_err']}")
+    step_s = run["decode_ms_per_step"] / 1e3
+    stream = {"layer_bytes": layer_bytes, "bytes_a_step": L * layer_bytes,
+              "gb_per_s": L * layer_bytes / step_s / 1e9}
+    copy_gbps = pinned_copy_gbps(layer_bytes)
+    if copy_gbps is not None:
+        decode = copies[L:]          # the prefill's copies come first
+        busy_ms = sum(a.elapsed_time(b) for a, b in decode)
+        stream.update(plain_pinned_copy_gb_per_s=copy_gbps,
+                      bound_ms_a_step=L * layer_bytes / copy_gbps / 1e6,
+                      copy_ms_a_layer=busy_ms / max(len(decode), 1),
+                      copy_busy_share=busy_ms / (len(decode) // L) / run["decode_ms_per_step"])
+    state["serve_stream_launches"] = {"dense_decode_attention":
+                                      run["launches"]["dense_decode_attention"]}
+    emit("serve_stream", model="llama-2-7b", layers=L, dtype=STREAM_DTYPE, offload="cpu",
+         batch=[GEN_BATCH, GEN_PROMPT], max_new_tokens=STREAM_MAX_NEW,
+         cut="max_new_tokens 64 -> 16 (time)", rows_equal=int((got == want).all(axis=1).sum()),
+         rows=GEN_BATCH, streamed=run, resident=res, init_s=init_s,
+         peak_mem_gb=peak / 1e9, held_before_gb=held, peak_bound_gb=peak_bound / 1e9,
+         resident_params_gb=resident_bytes / 1e9, kv_workspace_gb=ws / 1e9,
+         host_slab_gb=L * streamed._stream_layout.stride / 1e9, stream=stream,
+         teacher_forced=tf, host_rss_gb=host_rss_gb(), launch_rule=rule,
+         phase_s=time.perf_counter() - t_phase, card=state.get("card"))
+    del streamed
+    _free()
+    check(not failures, "serve_stream failed: " + "; ".join(failures))
+
+
+def o_direct_ok(path):
+    """Whether ``path``'s file system takes O_DIRECT (the engine's aligned
+    reads then bypass the page cache)."""
+    try:
+        fd = os.open(path, os.O_RDONLY | getattr(os, "O_DIRECT", 0))
+    except OSError:
+        return False
+    os.close(fd)
+    return hasattr(os, "O_DIRECT")
+
+
+def phase_serve_stream_nvme(state, seed):
+    """ZeRO-Inference from NVMe: Llama-2-7B cut to STREAM_NVME_LAYERS layers
+    with ``device="nvme"`` under STREAM_DIR (free disk checked first): rows
+    equal (limit 0) to the cpu-mode streamed engine at the same depth, K5 =
+    L x (new - 1), the engine's swap dir gone once it is released. The read
+    GB/s of every layer file into pinned staging (warm: the files were
+    written at init) and whether O_DIRECT was taken."""
+    import numpy as np
+    import deepspeed_tpu_torch
+
+    failures = []
+    t_phase = time.perf_counter()
+    model, params = _stream_model(seed, STREAM_NVME_LAYERS)
+    cfg = model.config
+    L = cfg.n_layer
+    need = sum(p.numel() * p.element_size() for p in params.parameters()) + 2e9
+    os.makedirs(STREAM_DIR, exist_ok=True)
+    free = shutil.disk_usage(STREAM_DIR).free
+    check(free > need, f"serve_stream_nvme needs {need / 1e9:.1f} GB of disk under "
+                       f"{STREAM_DIR}, {free / 1e9:.1f} GB free")
+    ids = np.random.default_rng(seed + 5).integers(0, cfg.vocab_size,
+                                                   size=(GEN_BATCH, GEN_PROMPT))
+    ram = deepspeed_tpu_torch.init_inference(model, params=params, dtype=STREAM_DTYPE,
+                                             device=CHECK_DEVICE, zero=stream_zero("cpu"))
+    want, ram_run = _timed_generate(ram, ids, STREAM_MAX_NEW)
+    del ram
+    _free()
+    t0 = time.perf_counter()
+    nvme = deepspeed_tpu_torch.init_inference(model, params=params, dtype=STREAM_DTYPE,
+                                              device=CHECK_DEVICE,
+                                              zero=stream_zero("nvme", STREAM_DIR))
+    _sync()
+    init_s = time.perf_counter() - t0
+    del params
+    _free()
+    swap_dir = nvme._swap_dir
+    files = sorted(f for f in os.listdir(swap_dir) if f.endswith(".swp"))
+    if len(files) != L:
+        failures.append(f"{len(files)} layer files in the swap dir, not {L}")
+    direct = o_direct_ok(os.path.join(swap_dir, files[0]))
+    t = time.perf_counter()
+    for i in range(L):
+        nvme._fetch_finish(nvme._fetch_submit(i))
+    read_s = time.perf_counter() - t
+    stride = nvme._stream_layout.stride
+    got, run = _timed_generate(nvme, ids, STREAM_MAX_NEW)
+    rule = stream_launch_rule(L, got.shape[1] - GEN_PROMPT)
+    if not np.array_equal(got, want):
+        failures.append(f"NVMe rows differ from cpu mode's at "
+                        f"{int((got != want).any(axis=1).sum())} rows")
+    if run["launches"] != rule:
+        failures.append(f"launches {run['launches']} != {rule}")
+    state["serve_stream_nvme_launches"] = {"dense_decode_attention":
+                                           run["launches"]["dense_decode_attention"]}
+    del nvme
+    _free()
+    released = not os.path.exists(swap_dir)
+    if not released:
+        failures.append(f"swap dir {swap_dir} left after the engine was released")
+    shutil.rmtree(STREAM_DIR, ignore_errors=True)
+    emit("serve_stream_nvme", model="llama-2-7b", layers=L, dtype=STREAM_DTYPE, offload="nvme",
+         cut=f"layers 32 -> {L} (disk, time); max_new_tokens 64 -> {STREAM_MAX_NEW}",
+         batch=[GEN_BATCH, GEN_PROMPT], rows_equal=int((got == want).all(axis=1).sum()),
+         rows=GEN_BATCH, nvme=run, cpu_mode=ram_run, init_s=init_s,
+         read={"bytes": L * stride, "s": read_s, "gb_per_s": L * stride / read_s / 1e9,
+               "o_direct": direct,
+               "note": "warm: the files were written at init, so reads may come from the "
+                       "page cache"},
+         swap_dir_removed=released, disk_free_gb=free / 1e9, launch_rule=rule,
+         phase_s=time.perf_counter() - t_phase, card=state.get("card"))
+    check(not failures, "serve_stream_nvme failed: " + "; ".join(failures))
+
+
+def _offload_model(n_layer):
+    """Llama-2-7B's widths at ``n_layer`` layers (the train cell's model)."""
+    from deepspeed_tpu_torch.models import llama
+    return llama("7b", n_layer=n_layer)
+
+
+def offload_config(device="cpu", nvme_path=None):
+    """The train cell's configuration with AdamW (the host optimizer takes
+    Adam, AdamW and Adagrad) and ``offload_optimizer`` on ``device``
+    ("none": the device optimizer, kernel E)."""
+    opt = TRAIN_CONFIG["optimizer"]
+    off = {"device": device, **({"nvme_path": nvme_path} if nvme_path else {})}
+    return {**TRAIN_CONFIG, "optimizer": {"type": "AdamW", "params": dict(opt["params"])},
+            "zero_optimization": {"stage": 2, "offload_optimizer": off}}
+
+
+def _offload_setup(seed, n_layer, config):
+    """The engine from seeded bf16 weights drawn on the phase's device, and
+    the train cell's one token batch."""
+    import numpy as np
+    import torch
+    model = _offload_model(n_layer)
+    gen = torch.Generator(device=CHECK_DEVICE).manual_seed(seed)
+    params = model.init_params(gen, device=CHECK_DEVICE, dtype=torch.bfloat16)
+    engine = _train_engine(model, params, config, device=CHECK_DEVICE)
+    del params
+    _free()
+    rng = np.random.default_rng(seed + 2)
+    tokens = rng.integers(0, model.config.vocab_size,
+                          size=(config["train_batch_size"], TRAIN_SEQ))
+    return model, engine, {"input_ids": torch.from_numpy(tokens).to(CHECK_DEVICE)}
+
+
+def offload_launch_rule(engine):
+    """The train rule with the optimizer on the host: E never launches."""
+    return {**train_launch_rule(engine), "fused_adam": 0}
+
+
+def _watch_boundary(engine, name, grads, after=None):
+    """Wrap the engine's boundary method ``name`` so each call first appends
+    the fingerprints of the accumulated (still scaled) grads to ``grads``,
+    and calls ``after()`` once it returns."""
+    real = getattr(engine, name)
+
+    def boundary(*args, **kw):
+        grads.append({n: grad_fingerprint(g) for n, g in engine.state.acc_grads.items()})
+        out = real(*args, **kw)
+        if after is not None:
+            after()
+        return out
+
+    setattr(engine, name, boundary)
+
+
+def offload_master_errs(engine, want):
+    """Each port leaf's host master against ``want`` (name -> fp32 tensor):
+    the largest |difference| over the leaf's largest |want|."""
+    import torch
+    out = {}
+    for key, names in engine._offload_groups.items():
+        for n, v in zip(names, engine._offload.layer_views(key)):
+            w = want[n].to(v.device, torch.float32)
+            out[n] = float((v - w).abs().max() / w.abs().max().clamp(min=1e-30))
+    return out
+
+
+def offload_reload_err(engine):
+    """load_module_state_dict with every param negated, then the host
+    masters against the loaded values (largest relative difference): 0 when
+    the masters follow the load."""
+    import torch
+    neg = engine.state.params.map(lambda t: -t.detach())
+    engine.load_module_state_dict(neg)
+    want = engine._offload_flat(engine._param_dict(neg))
+    errs = [float((m - want[k]).abs().max() / want[k].abs().max().clamp(min=1e-30))
+            for k, m in engine._offload.masters().items()]
+    del neg
+    return max(errs)
+
+
+@contextlib.contextmanager
+def offload_split(engine):
+    """Time each boundary of the steps run inside, one dict a step: the D2H
+    and H2D copies by CUDA events recorded around them on the stream (no
+    added sync; host clock on the CPU), the host optimizer's pass on the
+    host clock (it runs after the D2H's own sync)."""
+    rec = []
+    real = {n: getattr(engine, n) for n in ("_offload_d2h", "_offload_update", "_offload_h2d")}
+    clock = _cuda_event if CHECK_DEVICE == "cuda" else time.perf_counter
+
+    def wrap(name, part, mark):
+        def run(*args, **kw):
+            if part == "d2h":
+                rec.append({})
+            a = mark()
+            out = real[name](*args, **kw)
+            rec[-1][part] = (a, mark())
+            return out
+        return run
+
+    for name, part, mark in (("_offload_d2h", "d2h", clock),
+                             ("_offload_update", "host", time.perf_counter),
+                             ("_offload_h2d", "h2d", clock)):
+        setattr(engine, name, wrap(name, part, mark))
+    try:
+        yield rec
+    finally:
+        for name in real:
+            delattr(engine, name)
+
+
+def split_ms(rec, step_s):
+    """Medians over the timed steps (all but the first) of D2H, host
+    optimizer and H2D ms, and of the device accumulation: the step's rest."""
+    ms = lambda a, b: (b - a) * 1e3 if isinstance(a, float) else a.elapsed_time(b)
+    rows = []
+    for parts, s in zip(rec, step_s):
+        row = {part: ms(*ab) for part, ab in parts.items()}
+        row["accumulation"] = s * 1e3 - row["d2h"] - row["host"] - row["h2d"]
+        rows.append(row)
+    timed = rows[1:] or rows
+    return {f"{k}_ms": statistics.median(r[k] for r in timed)
+            for k in ("accumulation", "d2h", "host", "h2d")}
+
+
+def _offload_nvme_run(seed, device, reload=None):
+    """OFFLOAD_NVME_LAYERS layers with the optimizer on ``device`` for
+    OFFLOAD_NVME_STEPS steps: the losses and the host masters after. With
+    ``reload`` (a dict), the engine then takes the load_module_state_dict
+    check, sound and with the masters' refresh planted out."""
+    nvme = OFFLOAD_DIR if device == "nvme" else None
+    _, engine, batch = _offload_setup(seed, OFFLOAD_NVME_LAYERS, offload_config(device, nvme))
+    losses = [float(engine.train_batch(batch)) for _ in range(OFFLOAD_NVME_STEPS)]
+    masters = {k: v.clone() for k, v in engine._offload.masters().items()}
+    if reload is not None:
+        reload["sound"] = offload_reload_err(engine)
+        engine._offload.load_masters = lambda masters: None
+        reload["fault"] = offload_reload_err(engine)
+    engine.destroy()
+    del engine, batch
+    _free()
+    return losses, masters
+
+
+def phase_train_offload(state, seed):
+    """ZeRO-Offload: the train cell's configuration (Llama-2-7B widths, S
+    2048, remat, micro 4 x gas 2, AdamW, WarmupLR, clip 1.0, bf16, fused CE)
+    with ``offload_optimizer.device="cpu"``. First, at OFFLOAD_CHECK_LAYERS
+    layers from the same seeded state as the device optimizer (kernel E),
+    2 steps each: the grads at steps 1 and 2 equal (per-leaf fingerprints,
+    limit 0; step 1's WarmupLR lr is 0, so step 2's is the first update),
+    each leaf's master after step 2 within MASTER_TOL of its largest value.
+    Then OFFLOAD_LAYERS layers (the host state,
+    OFFLOAD_HOST_BYTES a parameter, within OFFLOAD_HOST_SHARE of MemTotal),
+    1 + 5 steps: losses finite, step 6 below step 1, per step A 2 L gas, C =
+    D = L gas, each K3 kernel gas, E 0; each step split into D2H and H2D
+    (CUDA events, no added sync), the host optimizer (host clock) and the
+    device accumulation (the rest). Last,
+    OFFLOAD_NVME_LAYERS layers on NVMe bit-equal to cpu mode after
+    OFFLOAD_NVME_STEPS steps (losses and masters), and the cpu-mode engine's
+    masters following a load_module_state_dict (0) and, not refreshed,
+    planted above MASTER_TOL. Step ms, tokens/s, MFU,
+    device peaks beside the E engine's, host RSS peak."""
+    import numpy as np
+    import torch
+    from deepspeed_tpu_torch.accelerator import get_accelerator
+
+    acc = get_accelerator(CHECK_DEVICE)
+    failures = []
+    t_phase = time.perf_counter()
+    mem = meminfo()
+    n_params = _offload_model(OFFLOAD_LAYERS).num_parameters
+    host_need = OFFLOAD_HOST_BYTES * n_params
+    check(host_need <= OFFLOAD_HOST_SHARE * mem["MemTotal"],
+          f"train_offload at {OFFLOAD_LAYERS} layers needs {host_need / 1e9:.1f} GB of host "
+          f"state, over {OFFLOAD_HOST_SHARE} of MemTotal {mem['MemTotal'] / 1e9:.1f} GB")
+
+    # the device optimizer (kernel E) from the same seeded state: its grads
+    # at steps 1 and 2, its masters after step 2 and its peak
+    acc.reset_peak_memory_stats()
+    _, e_engine, batch = _offload_setup(seed, OFFLOAD_CHECK_LAYERS, offload_config("none"))
+    e_grads = []
+    _watch_boundary(e_engine, "_apply_update", e_grads)
+    e_losses = [float(e_engine.train_batch(batch)) for _ in range(2)]
+    _sync()
+    e_peak = acc.max_memory_allocated() / 1e9
+    e_masters = {n: m.to("cpu", copy=True) for n, m in e_engine.state.master.items()}
+    e_engine.destroy()
+    del e_engine, batch
+    _free()
+
+    acc.reset_peak_memory_stats()
+    _, engine, batch = _offload_setup(seed, OFFLOAD_CHECK_LAYERS, offload_config("cpu"))
+    grads, master_errs = [], {}
+    _watch_boundary(engine, "_host_step", grads,
+                    lambda: master_errs.update(offload_master_errs(engine, e_masters))
+                    if engine.global_steps == 2 else None)
+    check_losses = [float(engine.train_batch(batch)) for _ in range(2)]
+    _sync()
+    check_peak = acc.max_memory_allocated() / 1e9
+    del engine._host_step, e_masters
+    engine.destroy()
+    del engine, batch
+    _free()
+    grad_mism = [n for i in range(2) for n in e_grads[i] if grads[i][n] != e_grads[i][n]]
+    if grad_mism:
+        failures.append(f"grads at steps 1-2 differ from E's at {len(grad_mism)} leaves: "
+                        f"{grad_mism[:3]}")
+    worst = max(master_errs.values())
+    if not worst <= MASTER_TOL:
+        failures.append(f"masters after step 2 differ from E's by {worst} > {MASTER_TOL}")
+
+    parts_s = {"check": time.perf_counter() - t_phase}
+    acc.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, engine, batch = _offload_setup(seed, OFFLOAD_LAYERS, offload_config("cpu"))
+    _sync()
+    init_s = time.perf_counter() - t0
+    cfg = model.config
+    want = offload_launch_rule(engine)
+    _reset_train_counters()
+    with sampled_host_peak() as rss, offload_split(engine) as split:
+        losses, step_s, per_step = _timed_steps(engine, batch, TRAIN_STEPS)
+    launches = _train_counters()
+    peak = acc.max_memory_allocated() / 1e9
+    breakdown = split_ms(split, step_s)
+    engine.destroy()
+    del engine, batch
+    _free()
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        failures.append(f"losses {losses}")
+    for k, n in want.items():
+        if any(s[k] != n for s in per_step):
+            failures.append(f"{k} launches a step {[s[k] for s in per_step]} != {n}")
+
+    parts_s["main"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    reload = {}
+    cpu_losses, cpu_masters = _offload_nvme_run(seed, "cpu", reload)
+    if reload["sound"] != 0.0:
+        failures.append(f"masters after load_module_state_dict read {reload['sound']}")
+    if not reload["fault"] > MASTER_TOL:
+        failures.append(f"the masters-not-refreshed fault reads {reload['fault']}")
+    need = 12 * sum(v.numel() for v in cpu_masters.values())   # fp32 master and moments
+    os.makedirs(OFFLOAD_DIR, exist_ok=True)
+    free = shutil.disk_usage(OFFLOAD_DIR).free
+    check(free > need, f"train_offload's NVMe run needs {need / 1e9:.1f} GB of disk, "
+                       f"{free / 1e9:.1f} GB free")
+    try:
+        nvme_losses, nvme_masters = _offload_nvme_run(seed, "nvme")
+    finally:
+        shutil.rmtree(OFFLOAD_DIR, ignore_errors=True)
+    nvme_equal = nvme_losses == cpu_losses and all(
+        torch.equal(nvme_masters[k], m) for k, m in cpu_masters.items())
+    if not nvme_equal:
+        failures.append(f"NVMe run differs from cpu mode: losses {nvme_losses} vs {cpu_losses}")
+    parts_s["nvme"] = time.perf_counter() - t0
+
+    state["train_offload_launches"] = launches
+    tokens = TRAIN_CONFIG["train_batch_size"] * TRAIN_SEQ
+    step = statistics.median(step_s[1:])
+    flops_tok = model.flops_per_token(TRAIN_SEQ)
+    peak_tf = acc.peak_tflops()
+    emit("train_offload", model="llama-2-7b width", layers=cfg.n_layer, seq=TRAIN_SEQ,
+         dtype="bf16", offload="cpu", config=offload_config("cpu"), params=n_params,
+         host_state_gb=host_need / 1e9, mem_total_gb=mem["MemTotal"] / 1e9,
+         losses=losses, step_s=step_s, step_ms_median_timed=step * 1e3,
+         split=breakdown, tokens_per_s=tokens / step,
+         mfu=flops_tok * tokens / step / (peak_tf * 1e12) if peak_tf else None,
+         init_s=init_s, peak_mem_gb=peak, host_rss_peak_gb=rss[0],
+         launches=launches, launches_per_step=want,
+         check_layers=OFFLOAD_CHECK_LAYERS, check_peak_mem_gb=check_peak,
+         e_engine_peak_mem_gb=e_peak, e_losses=e_losses, check_losses=check_losses,
+         grads_equal_leaves=len(e_grads[0]) - len(set(grad_mism)),
+         master_err_worst=worst, master_tol=MASTER_TOL, reload_err=reload["sound"],
+         fault_masters_not_refreshed=reload["fault"], nvme_layers=OFFLOAD_NVME_LAYERS,
+         nvme_losses=nvme_losses, cpu_losses=cpu_losses, nvme_bit_equal=nvme_equal,
+         parts_s=parts_s, phase_s=time.perf_counter() - t_phase, card=state.get("card"))
+    check(not failures, "train_offload failed: " + "; ".join(failures))
+
+
 def phase_kernels(state):
     res = state.get("kernel_results", {})
     serve = state.get("launches", {})
@@ -7042,6 +7677,9 @@ def phase_kernels(state):
     train_gptj = state.get("train_gptj_launches", {})
     moe_generate = state.get("moe_generate_launches", {})
     moe_train = state.get("moe_train_launches", {})
+    serve_stream = state.get("serve_stream_launches", {})
+    serve_stream_nvme = state.get("serve_stream_nvme_launches", {})
+    train_offload = state.get("train_offload_launches", {})
     rows = []
     meta = {
         "flash_attention_fwd": (
@@ -7139,7 +7777,10 @@ def phase_kernels(state):
                                            ("serve_int8", serve_int8),
                                            ("train_gptj", train_gptj),
                                            ("moe_generate", moe_generate),
-                                           ("moe_train", moe_train))
+                                           ("moe_train", moe_train),
+                                           ("serve_stream", serve_stream),
+                                           ("serve_stream_nvme", serve_stream_nvme),
+                                           ("train_offload", train_offload))
                    if name in n}
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                      "launches": sum(by_path.values()) if by_path else None,

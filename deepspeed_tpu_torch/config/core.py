@@ -15,7 +15,10 @@ sub-blocks) and the ``tensorboard`` / ``wandb`` / ``csv_monitor`` sinks.
 
 The world size is 1. ``zero_optimization.stage`` 0-3 is accepted: on one
 device every ZeRO stage replicates everything, as the JAX sharding rules do
-over a mesh of one. Sections that change the result or the schedule and are
+over a mesh of one. ``zero_optimization.offload_optimizer`` ``cpu`` or
+``nvme`` (with ``nvme_path``) puts the optimizer on the host
+(``runtime/zero/offload.py``); ``offload_param`` is read and, as in the JAX
+training engine, has no effect on one device. Sections that change the result or the schedule and are
 not ported raise ``NotImplementedError`` naming their ROADMAP.md item; keys
 the JAX package reads that have no effect on one device are accepted; any
 other key raises, so a misspelt option is never silently dropped.
@@ -120,6 +123,7 @@ _NOT_PORTED = {
     "progressive_layer_drop": ("progressive layer drop", "data_pipeline/"),
 }
 _ONEBIT = (ONEBIT_ADAM_OPTIMIZER, ZERO_ONE_ADAM_OPTIMIZER, ONEBIT_LAMB_OPTIMIZER)
+_OFFLOAD_DEVICES = ("none", "null", "cpu", "nvme")
 
 
 def dict_raise_error_on_duplicate_keys(ordered_pairs):
@@ -155,13 +159,14 @@ def _refuse_outside_slice(param_dict: Dict, client_optimizer: bool = False) -> N
     if isinstance(zero, dict):
         dev = (zero.get("offload_optimizer") or {}).get("device", "none")
         if client_optimizer and str(dev).lower() not in ("none", "null"):
-            # the JAX engine's check, ahead of the offload refusal
+            # the JAX engine's check
             raise ValueError("offload_optimizer is incompatible with a client optax optimizer; "
                              "configure the optimizer via the config instead")
         for off in ("offload_optimizer", "offload_param"):
-            dev = (zero.get(off) or {}).get("device", "none")
-            if str(dev).lower() not in ("none", "null"):
-                not_ported(f"ZeRO {off} to {dev}", "queue 1: offload.py with swap_tensor/")
+            dev = str((zero.get(off) or {}).get("device", "none")).lower()
+            if dev not in _OFFLOAD_DEVICES:
+                raise DeepSpeedConfigError(
+                    f"zero_optimization.{off}.device={dev!r} (expected none|cpu|nvme)")
     mesh = param_dict.get("mesh") or {}
     if any(int(n) not in (1, -1) for n in mesh.values()):
         not_ported(f"a multi-device mesh {mesh}", "queue 1: runtime/zero/ multi-rank")
@@ -216,6 +221,18 @@ class DeepSpeedConfig:
             zero = {C.ZERO_STAGE: int(zero)}
         self.zero_optimization_stage = int(zero.get(C.ZERO_STAGE, C.ZERO_STAGE_DEFAULT))
         self.zero_enabled = self.zero_optimization_stage > 0
+        # ZeRO-Offload (the JAX runtime/zero/config.py sections): the
+        # optimizer's state on the host or NVMe; offload_param is read and
+        # has no effect on one device, as in the JAX training engine
+        off = zero.get("offload_optimizer") or (
+            {"device": "cpu"} if zero.get("cpu_offload") else {})
+        dev = str(off.get("device", "none")).lower()
+        self.offload_optimizer_device = "none" if dev == "null" else dev
+        self.offload_optimizer_nvme_path = off.get("nvme_path")
+        off = zero.get("offload_param") or (
+            {"device": "cpu"} if zero.get("cpu_offload_param") else {})
+        dev = str(off.get("device", "none")).lower()
+        self.offload_param_device = "none" if dev == "null" else dev
 
         self.fp16_config = FP16Config(**param_dict.get(C.FP16, {}))
         self.fp16_enabled = self.fp16_config.enabled

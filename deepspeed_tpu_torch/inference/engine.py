@@ -73,6 +73,18 @@ capacity) and decodes through K5, and ``generate_batch`` takes the static
 path (an MoE model does not page). ``moe.ep_size`` > 1 raises naming
 ROADMAP.md's "MoE with ep > 1".
 
+``zero.offload_param.device`` "cpu" or "nvme" is ZeRO-Inference (the JAX
+engine's weight streaming): the layer weights leave the card for one
+pinned host slab or one file a layer (``inference/zero_inference.py`` lays
+each layer out as one byte range), and ``_streamed_step`` runs the embedding,
+then each layer's ``cached_block`` on one of two device layer buffers, then
+the head. Layer i+1's copy runs on a copy stream while block i computes
+(and layer i+2's NVMe read on the aio threads); block i waits only on its
+copy's event, and a copy into a buffer waits on the event of the block that
+last read it, so the loop adds no host sync. ``generate`` takes the static
+loop with this step in place of ``forward_cached``; ``generate_batch``
+serves statically, and a serving session is refused.
+
 Settings outside the port's slices raise ``NotImplementedError`` naming
 the ROADMAP item that will bring them.
 """
@@ -81,6 +93,7 @@ from __future__ import annotations
 
 import collections
 import gc
+import os
 import time
 from typing import Dict, Optional
 
@@ -93,7 +106,8 @@ from deepspeed_tpu_torch.inference.config import DeepSpeedInferenceConfig, Dtype
 from deepspeed_tpu_torch.inference.kv_host_pool import KvHostPool, dtype_name
 from deepspeed_tpu_torch.inference.scheduler import ContinuousBatchingScheduler, ServingTelemetry
 from deepspeed_tpu_torch.inference.spec import NgramProposer
-from deepspeed_tpu_torch.models.transformer import copy_paged_block
+from deepspeed_tpu_torch.models.transformer import (ParamTree, copy_paged_block, key_mask_bias,
+                                                    map_tree)
 from deepspeed_tpu_torch.ops.quant import Quantized8, quantize_params, tree_nbytes
 from deepspeed_tpu_torch.utils.fault_injection import step_fault
 from deepspeed_tpu_torch.utils.logging import log_dist, logger, warn_once
@@ -141,6 +155,7 @@ class InferenceEngine:
             params = model.init_params(gen, device=self.device, dtype=self.dtype)
         if self._weight_quant:
             params = self._quantize(model, params)
+        params = self._init_streaming(model, params)
         # the int8 payloads stay int8 and their scales fp32 (JAX _is_qscale)
         self.params = params.map(
             lambda t: t.to_device(self.device) if isinstance(t, Quantized8) else
@@ -199,13 +214,226 @@ class InferenceEngine:
         srv = c.serving
         if int(c.tensor_parallel.tp_size) > 1 or int(srv.tp) > 1 or int(c.mp_size) > 1:
             not_ported("tensor-parallel serving", "queue 1: sharded serving")
-        off = dict(c.zero or {}).get("offload_param", {})
-        if str(off.get("device", "none")).lower() in ("cpu", "nvme"):
-            if hasattr(model, "moe"):      # the JAX engine's refusal (engine.py:224)
-                raise NotImplementedError(
-                    "ZeRO-Inference weight streaming of MoE models is not implemented (the "
-                    "streamed block is the dense cached path)")
-            not_ported("ZeRO-Inference weight streaming", "queue 1: ZeRO-Inference")
+
+    # ------------------------------------------------------------------ #
+    # ZeRO-Inference weight streaming: one layer on the card at a time
+
+    def _init_streaming(self, model, params):
+        """``zero.offload_param.device`` "cpu" or "nvme" (the JAX engine's
+        branch, ``engine.py:203-326``): the layer weights leave ``params``
+        for host RAM (one slab, pinned for the card at its exact size) or
+        for one file a layer under ``nvme_path`` (written through the aio
+        engine, read back into pinned staging), and two layer buffers on the
+        engine's device take each layer in turn. Returns the params that
+        stay resident (embedding, final norm, head)."""
+        off = dict(self._config.zero or {}).get("offload_param", {}) or {}
+        dev = str(off.get("device", "none")).lower()
+        self._stream_weights = dev in ("cpu", "nvme")
+        self._stream_nvme = dev == "nvme"
+        self._host_layers = None
+        self._swapper = None
+        if not self._stream_weights:
+            return params
+        if self._stream_nvme and not off.get("nvme_path"):
+            raise ValueError("offload_param device='nvme' requires nvme_path")
+        tree = params.to_dict()
+        if not (hasattr(model, "config") and "layers" in tree):
+            raise ValueError("weight streaming needs a zoo-layout model "
+                             "(.config + params['layers'] per layer)")
+        if getattr(model.config, "norm_position", "pre") == "post":
+            # the streamed path is the pre-LN cached_* blocks
+            raise ValueError("weight streaming supports pre-LN models only "
+                             "(norm_position='post' has no cached path)")
+        if self._is_moe:        # the JAX engine's refusal (engine.py:224)
+            raise NotImplementedError(
+                "ZeRO-Inference weight streaming of MoE models is not implemented (the "
+                "streamed block is the dense cached path)")
+        from deepspeed_tpu_torch.inference.zero_inference import LayerLayout
+        from deepspeed_tpu_torch.ops.aio import HostSlab
+        cast = lambda t: t if isinstance(t, Quantized8) or not t.is_floating_point() \
+            else t.to(self.dtype)
+        layers = [map_tree(cast, lp) for lp in tree.pop("layers")]
+        L = len(layers)
+        layout = LayerLayout(layers[0])
+        pin = self.device.type == "cuda"
+        self._stream_layout = layout
+        self._n_stream_layers = L
+        if self._stream_nvme:
+            swap_dir = self._make_swap_dir(str(off["nvme_path"]))
+            from deepspeed_tpu_torch.runtime.swap_tensor import AsyncTensorSwapper
+            self._swapper = AsyncTensorSwapper(swap_dir)
+            # the reads land in two pinned staging buffers, one a layer buffer
+            self._stream_staging = [HostSlab(layout.stride, pin).bytes for _ in range(2)]
+            for i, lp in enumerate(layers):
+                layout.pack(lp, self._stream_staging[0])
+                # one layer at a time: the staged copies never exceed a layer
+                self._swapper.swap_out(f"L{i}", self._stream_staging[0])
+                layers[i] = None
+        else:
+            self._host_layers = HostSlab(L * layout.stride, pin)
+            for i, lp in enumerate(layers):
+                layout.pack(lp, self._host_layers.bytes[i * layout.stride:(i + 1) * layout.stride])
+                layers[i] = None
+        # the card's two layer buffers, allocated once and viewed as layer trees
+        self._stream_slots = [torch.empty(layout.nbytes, dtype=torch.uint8, device=self.device)
+                              for _ in range(2)]
+        self._stream_trees = [layout.unpack(b) for b in self._stream_slots]
+        self._copy_stream = None
+        self._copy_timing = None     # a list: (start, end) CUDA events of each layer copy
+        if self.device.type == "cuda":
+            self._copy_stream = torch.cuda.Stream(device=self.device)
+            self._slot_ready = [torch.cuda.Event() for _ in range(2)]
+            self._slot_free = [torch.cuda.Event() for _ in range(2)]
+        where = (f"on NVMe at {off['nvme_path']}" if self._stream_nvme
+                 else "resident on host" + (" (pinned)" if pin else ""))
+        log_dist(f"ZeRO-Inference streaming: {L} layers ({L * layout.nbytes / 2**20:.0f} MiB) "
+                 f"{where}; the device holds two layers at a time (double-buffered)",
+                 ranks=[0])
+        return ParamTree(tree)
+
+    def _make_swap_dir(self, nvme_path: str) -> str:
+        """A unique per-engine swap dir under ``nvme_path`` (engines sharing
+        a path must not overwrite each other's files) with its owner
+        marker, removed when the engine is collected or the interpreter
+        exits (``_swap_cleanup``); stale dirs of dead owners swept first."""
+        import shutil
+        import tempfile
+        import weakref
+        os.makedirs(nvme_path, exist_ok=True)
+        self._sweep_stale_swap_dirs(nvme_path)
+        swap_dir = tempfile.mkdtemp(dir=nvme_path, prefix="zero_inference_")
+        with open(os.path.join(swap_dir, "owner.pid"), "w") as f:
+            f.write(self._owner_marker())
+        self._swap_dir = swap_dir
+        self._swap_cleanup = weakref.finalize(self, shutil.rmtree, swap_dir, True)
+        return swap_dir
+
+    @staticmethod
+    def _owner_marker() -> str:
+        """``hostname:boot_id:pid_ns:pid``: a pid means something only inside
+        its own host, boot and pid namespace, so the sweep below judges no
+        marker from another scope."""
+        try:
+            with open("/proc/sys/kernel/random/boot_id") as f:
+                boot = f.read().strip()
+        except OSError:
+            boot = "-"
+        try:
+            pidns = os.readlink("/proc/self/ns/pid")
+        except OSError:
+            pidns = "-"
+        import socket
+        return f"{socket.gethostname()}:{boot}:{pidns}:{os.getpid()}"
+
+    @classmethod
+    def _sweep_stale_swap_dirs(cls, nvme_path: str) -> None:
+        """Remove ``zero_inference_*`` dirs whose owner (in this scope) is
+        dead: a killed process leaks a model-sized footprint the finalizer
+        never removed. Unmarked dirs, live owners and other scopes stay."""
+        import shutil
+        me_scope, _ = cls._owner_marker().rsplit(":", 1)
+        for name in os.listdir(nvme_path):
+            d = os.path.join(nvme_path, name)
+            if not (name.startswith("zero_inference_") and os.path.isdir(d)):
+                continue
+            try:
+                with open(os.path.join(d, "owner.pid")) as f:
+                    scope, pid = f.read().strip().rsplit(":", 1)
+                pid = int(pid)
+            except (OSError, ValueError):
+                continue       # unmarked or mid-creation
+            if scope != me_scope or pid == os.getpid():
+                continue
+            try:
+                os.kill(pid, 0)    # an existence probe
+            except ProcessLookupError:
+                logger.warning(f"sweeping stale ZeRO-Inference swap dir {d} "
+                               f"(owner pid {pid} is dead)")
+                shutil.rmtree(d, ignore_errors=True)
+            except OSError:
+                pass           # alive but not ours
+
+    def _fetch_submit(self, i: int):
+        """Start layer ``i``'s NVMe read into its pinned staging buffer (after
+        that buffer's last copy to the card has run) and return a handle;
+        RAM mode has nothing to start, so the handle is the index."""
+        if self._swapper is None:
+            return i
+        s = i % 2
+        if self._copy_stream is not None:
+            self._slot_ready[s].synchronize()
+        buf = self._stream_staging[s]
+        self._swapper.swap_in(f"L{i}", out=buf, async_op=True)
+        return buf
+
+    def _fetch_finish(self, handle):
+        """Layer bytes on the host: the read submitted by
+        :meth:`_fetch_submit` waited for (one submit at a time: the wait is
+        the swapper's), or layer ``handle``'s range of the host slab."""
+        n = self._stream_layout.nbytes
+        if self._swapper is None:
+            off = handle * self._stream_layout.stride
+            return self._host_layers.bytes[off:off + n]
+        self._swapper.wait()
+        return handle[:n]
+
+    def _put_layer(self, i: int, host) -> int:
+        """Copy one layer's host bytes into layer buffer ``i % 2`` and return
+        the buffer's index. On the card the copy runs on the copy stream,
+        from pinned memory, after the block that last read the buffer, and
+        records the buffer's ready event."""
+        s = i % 2
+        if self._copy_stream is None:
+            self._stream_slots[s].copy_(host)
+            return s
+        cs = self._copy_stream
+        cs.wait_event(self._slot_free[s])
+        with torch.cuda.stream(cs):
+            if self._copy_timing is not None:
+                self._copy_timing.append((torch.cuda.Event(enable_timing=True),
+                                          torch.cuda.Event(enable_timing=True)))
+                self._copy_timing[-1][0].record(cs)
+            self._stream_slots[s].copy_(host, non_blocking=True)
+            self._slot_ready[s].record(cs)
+            if self._copy_timing is not None:
+                self._copy_timing[-1][1].record(cs)
+        return s
+
+    def _stream_caches(self, B: int, Smax: int):
+        return self.module.init_cache(B, Smax, dtype=self.dtype, device=self.device)
+
+    @torch.no_grad()
+    def _streamed_step(self, tokens, cache, pos: int, pad_bias=None):
+        """tokens ``[B, T]`` against ``cache`` at offset ``pos``: the embedding,
+        then each layer's ``cached_block`` on its layer buffer, then the
+        head. Double-buffered: before block i is dispatched, layer i+1's
+        copy is queued and layer i+2's NVMe read submitted, so the disk, the
+        copy engine and the card overlap; block i waits only on its copy's
+        event. Returns ``(logits, cache)``; no host sync."""
+        from deepspeed_tpu_torch.models.transformer import cached_block, cached_embed, cached_head
+        cfg = self.module.config
+        pos = int(pos)
+        x, positions = cached_embed(cfg, self.params, tokens, pos, self.dtype)
+        n = self._n_stream_layers
+        cur = torch.cuda.current_stream(self.device) if self._copy_stream is not None \
+            else None
+        pending = self._fetch_submit(0)
+        host = self._fetch_finish(pending)
+        pending = self._fetch_submit(1) if n > 1 else None
+        nxt = self._put_layer(0, host)
+        for i in range(n):
+            s, nxt = nxt, None
+            if i + 1 < n:
+                host = self._fetch_finish(pending)
+                pending = self._fetch_submit(i + 2) if i + 2 < n else None
+                nxt = self._put_layer(i + 1, host)
+            if cur is not None:
+                cur.wait_event(self._slot_ready[s])
+            x = cached_block(cfg, x, self._stream_trees[s], cache["k"][i], cache["v"][i],
+                             positions, pos, pad_bias)
+            if cur is not None:
+                self._slot_free[s].record(cur)
+        return cached_head(cfg, self.params, x), cache
 
     def _check_moe(self, model) -> bool:
         """The JAX engine's MoE checks (``engine.py:66-82``, ``:148-171``):
@@ -354,8 +582,10 @@ class InferenceEngine:
                              "causal LM; use engine.forward for hidden states / MLM logits")
 
     def _paged_supported(self) -> bool:
-        # an MoE model serves on the static path, as in the JAX engine
-        return (not self._is_moe and hasattr(self.module, "forward_paged_decode")
+        # an MoE model and a streamed one serve on the static path, as in
+        # the JAX engine
+        return (not self._is_moe and not self._stream_weights
+                and hasattr(self.module, "forward_paged_decode")
                 and hasattr(self.module, "forward_paged_prefill")
                 and hasattr(self.module, "init_paged_cache")
                 and hasattr(self.module, "config"))
@@ -465,6 +695,11 @@ class InferenceEngine:
         if attention_mask is not None:
             mask = torch.as_tensor(np.asarray(attention_mask)).to(self.device)
             mask = mask[None, :] if mask.ndim == 1 else mask
+        if self._stream_weights:
+            # the mask as the cached blocks' key-side pad bias over the slots
+            ids = self._ids(input_ids)
+            cache = self._stream_caches(ids.shape[0], ids.shape[1])
+            return self._streamed_step(ids, cache, 0, pad_bias=key_mask_bias(mask))[0]
         if self._is_moe:
             # eval routing (eval capacity, no jitter or RTS) and the aux loss
             # dropped: serving returns logits only
@@ -491,7 +726,10 @@ class InferenceEngine:
                              f"{cfg.max_seq}; reduce max_new_tokens (reference "
                              "max_out_tokens check)")
         gen = torch.Generator(device=self.device).manual_seed(int(seed))
-        if hasattr(self.module, "forward_cached") and hasattr(self.module, "init_cache"):
+        if self._stream_weights:
+            out = self._generate_cached(input_ids, max_new, temperature, top_k, gen,
+                                        eos_token_id, forward=self._streamed_step)
+        elif hasattr(self.module, "forward_cached") and hasattr(self.module, "init_cache"):
             out = self._generate_cached(input_ids, max_new, temperature, top_k, gen,
                                         eos_token_id)
         else:
@@ -527,15 +765,20 @@ class InferenceEngine:
         return cache, Smax
 
     @torch.no_grad()
-    def _generate_cached(self, input_ids, max_new, temperature, top_k, gen, eos_token_id):
+    def _generate_cached(self, input_ids, max_new, temperature, top_k, gen, eos_token_id,
+                         forward=None):
         """Prefill the right-padded 128-bucket at pos 0, take the first token
         from the logits at the last prompt position, then one
         ``forward_cached`` per token at pos = prompt length + step. With an
         eos the loop reads one flag from the device per token to stop early
         (the JAX engine tests ``all(done)`` inside its device loop); without
-        one it never syncs."""
+        one it never syncs. ``forward(tokens, cache, pos)`` replaces
+        ``forward_cached`` (weight streaming: :meth:`_streamed_step`, the
+        JAX engine's ``_generate_streamed``)."""
         if max_new <= 0:
             return input_ids
+        if forward is None:
+            forward = lambda t, c, p, **kw: self.module.forward_cached(self.params, t, c, p, **kw)
         B, P = input_ids.shape
         cfg = self.module.config
         cache, Smax = self._kv_workspace(B, min(cfg.max_seq, P + max_new))
@@ -545,7 +788,7 @@ class InferenceEngine:
         kw = {}
         if self._is_moe:      # bucket padding never competes for expert capacity
             kw["valid"] = (torch.arange(bucket, device=self.device) < P).float().expand(B, bucket)
-        logits, cache = self.module.forward_cached(self.params, toks, cache, 0, **kw)
+        logits, cache = forward(toks, cache, 0, **kw)
         first = self._sample(logits[:, P - 1, :], temperature, top_k, gen)
         out_cap = min(Smax, self._bucket(max_new, Smax))
         out = torch.zeros((B, out_cap), dtype=torch.long, device=self.device)
@@ -554,8 +797,7 @@ class InferenceEngine:
         done = first == eos if eos >= 0 else None
         tok, step = first, 1
         while step < max_new and not (done is not None and bool(done.all())):
-            logits, cache = self.module.forward_cached(self.params, tok[:, None], cache,
-                                                       P + step - 1)
+            logits, cache = forward(tok[:, None], cache, P + step - 1)
             nxt = self._sample(logits[:, -1, :], temperature, top_k, gen)
             if done is not None:
                 nxt = torch.where(done, eos, nxt)    # rows already done keep emitting eos
@@ -657,7 +899,9 @@ class InferenceEngine:
                 "drain/shutdown it before opening a new one")
         srv = self._config.serving
         if str(srv.paged) == "off" or not self._paged_supported():
-            raise ValueError("a serving session needs the paged engine")
+            raise ValueError("a serving session needs the paged engine (zoo causal LM, not "
+                             "weight-streaming / MoE, serving.paged != 'off'): the serving "
+                             "loop has no static fallback")
         if max_new <= 0:
             raise ValueError("a serving session needs max_new >= 1")
 

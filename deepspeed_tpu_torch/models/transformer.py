@@ -502,10 +502,14 @@ def _grouped_cache_einsum(cfg: TransformerConfig, q, ck, cv, positions, pad_bias
     if cfg.pos_embedding == "alibi":
         slopes5 = _alibi_slopes(H, q.device).reshape(KV, G)
         scores = scores + slopes5[None, :, :, None, None] * (kpos - qpos).float()
-    scores = torch.where(kpos <= qpos, scores, torch.full_like(scores, -1e30))
+    # the scores are a prefill's largest tensor: masked in place, and the
+    # pre-softmax copy dropped before the cast, so at most two are alive
+    scores.masked_fill_(kpos > qpos, -1e30)
     if pad_bias is not None:
-        scores = scores + pad_bias.float()[:, None, None, None, :]
-    probs = torch.softmax(scores, dim=-1).to(cv.dtype)
+        scores.add_(pad_bias.float()[:, None, None, None, :])
+    scores = torch.softmax(scores, dim=-1)
+    probs = scores.to(cv.dtype)
+    del scores
     return torch.einsum("bcgts,bscd->btcgd", probs, cv).reshape(B, T, H * Hd)
 
 

@@ -33,6 +33,12 @@ into a client engine, a client tag into an engine-built one, another
 client optimizer's) raises as a missing state leaf, the JAX loader's
 structure mismatch; with ``load_optimizer_states=False`` the rest loads.
 
+An engine under ZeRO-Offload writes its host optimizer's state beside
+``state.npz`` as ``offload_state_p0.npz`` (``masters|<JAX leaf key>``,
+``exp_avg|...``, ``exp_avg_sq|...``, ``step``, ``lr``: the JAX engine's
+file) and no ``opt_state_flat`` leaves, and reads it back when it loads the
+optimizer states.
+
 The dropout stream is a torch generator, not a threefry key: a tag carries
 its state as ``__torch_rng_state__`` beside the ``__rng_key_data__`` the JAX
 loader reads (``key(DS_SEED)``'s data, which the JAX engine starts from). A
@@ -212,6 +218,8 @@ def _opt_fields(engine):
     (a client optimizer's: :func:`_client_fields`)."""
     if engine.client_optimizer is not None:
         return _client_fields(engine)
+    if getattr(engine, "_offload", None) is not None:
+        return []           # the host optimizer's state: offload_state_p0.npz
     cfg = engine._config
     prefix, fields = jax_state_layout(cfg.optimizer_name, cfg.optimizer_params)
     opt = engine.state.opt_state
@@ -343,6 +351,38 @@ def _build_meta(engine, tag: str, client_state) -> Dict[str, Any]:
     return meta
 
 
+OFFLOAD_FILE = "offload_state_p0.npz"
+_OFFLOAD_GROUPS = ("masters", "exp_avg", "exp_avg_sq")
+
+
+def _offload_arrays(sd: Dict[str, Any], copy: bool = False) -> Dict[str, Any]:
+    """A host optimizer's state_dict as the JAX package's '|'-keyed npz
+    arrays (``masters|layers.attn.wq``, ...). ``copy`` for async saves: cpu
+    mode's masters are the live buffers the next step updates in place."""
+    out: Dict[str, Any] = {"step": np.asarray(sd.get("step", 0)),
+                           "lr": np.asarray(sd.get("lr", 0.0))}
+    for group in _OFFLOAD_GROUPS:
+        for k, v in sd.get(group, {}).items():
+            out[f"{group}|{k}"] = np.array(v, copy=True) if copy else v
+    return out
+
+
+def _read_offload(path: str) -> Optional[Dict[str, Any]]:
+    """A tag's ``offload_state_p0.npz`` as a host optimizer state_dict, or
+    None when the tag has none."""
+    f = os.path.join(path, OFFLOAD_FILE)
+    if not os.path.exists(f):
+        return None
+    with np.load(f) as z:
+        sd = {"step": int(z["step"]), "lr": float(z["lr"]),
+              **{g: {} for g in _OFFLOAD_GROUPS}}
+        for name in z.files:
+            if "|" in name:
+                group, key = name.split("|", 1)
+                sd[group][key] = z[name]
+    return sd
+
+
 def _snapshot_arrays(engine) -> Dict[str, Any]:
     """Phase 1 of a save: every leaf of the state tree copied to the host
     (bf16 leaves stay torch tensors, the rest become numpy), plus the RNG
@@ -380,8 +420,13 @@ def save_engine_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
         # the writer thread serializes this later; live references
         # (ds_config, schedules) must not tear under concurrent mutation
         meta = copy.deepcopy(meta)
-    payload = CheckpointPayload(tag=tag, arrays=arrays, meta=meta, global_steps=steps,
-                                update_latest=save_latest)
+    extra = {}
+    if getattr(engine, "_offload", None) is not None:
+        # the host optimizer's state beside the device state, as the JAX
+        # engine writes it
+        extra[OFFLOAD_FILE] = _offload_arrays(engine._offload.state_dict(), copy=asynchronous)
+    payload = CheckpointPayload(tag=tag, arrays=arrays, meta=meta, extra_npz=extra,
+                                global_steps=steps, update_latest=save_latest)
     mets = safe_engine._ckpt_metrics()
     mets["snapshot_ms"].observe((time.perf_counter() - t0) * 1e3)
     dur = int((time.perf_counter() - t0) * 1e9)
@@ -475,8 +520,12 @@ def _prepare_tag_load(engine, path: str, verify: bool, load_optimizer_states: bo
         if tuple(a.shape) != leaves[k].shape:
             raise ValueError(f"checkpoint leaf {k!r} has shape {tuple(a.shape)}, "
                              f"the engine's is {leaves[k].shape}")
+    offload_sd = None
+    if getattr(engine, "_offload", None) is not None and load_optimizer_states:
+        offload_sd = _read_offload(path)
     return {"path": path, "template": template, "restored": restored, "meta": meta,
-            "rng_data": rng_data, "torch_rng": torch_rng, "client_state": client_state}
+            "rng_data": rng_data, "torch_rng": torch_rng, "client_state": client_state,
+            "offload_sd": offload_sd}
 
 
 def _apply_prepared(engine, prepared, load_optimizer_states: bool,
@@ -493,6 +542,8 @@ def _apply_prepared(engine, prepared, load_optimizer_states: bool,
         leaf.restore(restored[k])
 
     meta = prepared["meta"]
+    if prepared["offload_sd"] is not None and not load_module_only:
+        engine._offload.load_state_dict(prepared["offload_sd"])
     if prepared["client_state"] is not None and not load_module_only:
         _load_client_state(engine.client_optimizer, prepared["client_state"],
                            (meta.get("client_optimizer") or {}).get("param_groups") or [])

@@ -69,9 +69,24 @@ both stopped by ``destroy()``. With telemetry off, every hook is one None
 check and a bf16 step makes no sync. ``wall_clock_breakdown`` times the
 forward / backward / step trio between accelerator syncs.
 
-Settings outside the port's slices (offload, the 1-bit optimizers,
-pipeline and multi-device runs, ...) raise ``NotImplementedError`` naming
-their ROADMAP.md item.
+With ``zero_optimization.offload_optimizer`` on ``cpu`` or ``nvme`` (the
+JAX engine's ZeRO-Offload), the fp32 masters and the moments live on the
+host or on NVMe in a :class:`~deepspeed_tpu_torch.runtime.zero.offload.HostOffloadOptimizer`
+keyed by the JAX leaves, and the card keeps the compute-dtype params and
+the accumulation buffers only (every step accumulates, gas 1 too). At the
+boundary (:meth:`_host_step`, the JAX ``_host_step``) the buffers are
+copied into one pinned host slab, unscaled by ``loss_scale * gas`` (the
+grad norm for telemetry and the non-finite count for health taken in that
+pass), the host library's ``cpu_adam`` / ``cpu_adagrad`` steps each JAX
+leaf (overflow check and clip inside, as the JAX optimizer does) and writes
+the bf16 params into a second pinned slab, which is copied back into the
+params in place without a sync; the scaler, the counters and the lr
+scheduler follow. A tag then carries ``offload_state_p0.npz`` in the JAX
+layout.
+
+Settings outside the port's slices (the 1-bit optimizers, pipeline and
+multi-device runs, ...) raise ``NotImplementedError`` naming their
+ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -289,6 +304,7 @@ class DeepSpeedEngine:
                 collate_fn=collate_fn, drop_last=self._config.dataloader_drop_last)
 
         # ---- state ----
+        self._offload = None             # the host optimizer under ZeRO-Offload
         if model_parameters is None:
             if not hasattr(model, "init_params"):
                 raise ValueError("model_parameters is required (or model must expose init_params)")
@@ -391,7 +407,9 @@ class DeepSpeedEngine:
             from deepspeed_tpu_torch.monitor.health import HealthMonitor, make_bucket_assignment
             self._health = HealthMonitor(hcfg, registry=reg, snapshot_fn=self.telemetry_snapshot,
                                          trace_export_fn=self._tel_tracer.export_chrome_trace)
-            self._sentinels_on = bool(hcfg.sentinels)
+            # the sentinels ride the device update; the host optimizer's
+            # pass counts the non-finite grads instead (the JAX offload path)
+            self._sentinels_on = bool(hcfg.sentinels) and self._offload is None
             if self._sentinels_on:
                 assignment, names = make_bucket_assignment(self._names, hcfg.max_norm_buckets)
                 self._health.set_bucket_names(names)
@@ -433,7 +451,10 @@ class DeepSpeedEngine:
         self._names = [n for n, _ in params.named_parameters()]
         self._groups = list(jax_leaves(self._names).values())
         master = None
-        if self.mixed_precision:
+        if self._config.offload_optimizer_device in ("cpu", "nvme"):
+            self._offload = self._build_offload(dict(ParamTree(tree).named_parameters()),
+                                                self._param_dict(params))
+        elif self.mixed_precision:
             fp32 = ParamTree(map_tree(
                 lambda a: torch.as_tensor(a).detach().to(dev, torch.float32, copy=True), tree))
             master = {n: p.data for n, p in fp32.named_parameters()}
@@ -441,7 +462,7 @@ class DeepSpeedEngine:
         opt_state = None
         if self.client_optimizer is not None:
             self.client_optimizer = self._bind_client_optimizer(self.client_optimizer, target)
-        else:
+        elif self._offload is None:
             opt_state = self.tx.init(target)
         if self.fp16_enabled() and self._config.fp16_config.dynamic_loss_scale:
             args = self._config.dynamic_loss_scale_args
@@ -463,6 +484,40 @@ class DeepSpeedEngine:
     @staticmethod
     def _param_dict(params: ParamTree) -> Dict[str, torch.Tensor]:
         return dict(params.named_parameters())
+
+    def _build_offload(self, given: Dict[str, torch.Tensor], params: Dict[str, torch.Tensor]):
+        """The host optimizer over the given values (its fp32 masters, by
+        JAX leaf), and the pinned staging slabs of one update: fp32 grads
+        and, for bf16 compute, the bf16 params (pinned on the card, at their
+        exact size)."""
+        from deepspeed_tpu_torch.ops.aio import HostSlab
+        from deepspeed_tpu_torch.runtime.zero.offload import HostOffloadOptimizer
+        cfg = self._config
+        groups = {".".join(path): names for path, names in jax_leaves(self._names).items()}
+        off = HostOffloadOptimizer(
+            {k: [given[n] for n in names] for k, names in groups.items()},
+            optimizer_name=self._optimizer_name, optimizer_params=cfg.optimizer_params,
+            device=cfg.offload_optimizer_device, nvme_path=cfg.offload_optimizer_nvme_path,
+            grad_clip=float(self.gradient_clipping() or 0.0))
+        pin = self.device.type == "cuda"
+        total = sum(p.numel() for p in params.values())
+        self._offload_groups = groups
+        self._grad_slab = HostSlab(total * 4, pin)
+        self._out_slab = HostSlab(total * 2, pin) if self.compute_dtype == torch.bfloat16 \
+            else None
+        self._offload_grads, self._offload_out = {}, {}
+        off_b = 0
+        for k, names in groups.items():
+            n = sum(params[m].numel() for m in names)
+            self._offload_grads[k] = self._grad_slab.bytes[4 * off_b:4 * (off_b + n)].view(
+                torch.float32)
+            if self._out_slab is not None:
+                self._offload_out[k] = self._out_slab.bytes[2 * off_b:2 * (off_b + n)].view(
+                    torch.bfloat16)
+            off_b += n
+        log_dist(f"ZeRO-Offload: optimizer on {off.device} ({len(off.order)} tensors, native "
+                 f"cpu_{self._optimizer_name})", ranks=[0])
+        return off
 
     def _bind_client_optimizer(self, optimizer, targets: Dict[str, torch.Tensor]):
         """The client optimizer over the engine's update targets (masters,
@@ -504,8 +559,9 @@ class DeepSpeedEngine:
         return optimizer
 
     def _uses_acc_grad_buffers(self) -> bool:
-        """Whether train_batch reads the accumulation buffers (gas > 1)."""
-        return self.gradient_accumulation_steps() != 1
+        """Whether train_batch reads the accumulation buffers (gas > 1, or
+        the host optimizer's boundary)."""
+        return self.gradient_accumulation_steps() != 1 or self._offload is not None
 
     def _ensure_acc_grads(self) -> None:
         """Allocate the accumulation buffers (gas > 1, or the trio)."""
@@ -521,8 +577,29 @@ class DeepSpeedEngine:
         layout, ``master`` and the optimizer state's tensors by leaf name
         (an ``AdamState``, ``SGDState``, ``LionState`` or ``AdagradState``
         of the engine's optimizer). Values are copied into the engine's own
-        tensors; what is not given stays."""
+        tensors; what is not given stays. Under ZeRO-Offload the host
+        masters take ``master`` (else ``params``); the host optimizer's
+        state loads through a checkpoint's ``offload_state_p0.npz``."""
         named = self._param_dict(self.state.params)
+        if self._offload is not None:
+            if opt_state is not None:
+                raise TypeError("the host optimizer's state loads through load_checkpoint "
+                                "(offload_state_p0.npz), not load_train_state")
+            with torch.no_grad():
+                if params is not None:
+                    tree = params.to_dict() if isinstance(params, ParamTree) else params
+                    src = dict(ParamTree(tree).named_parameters())
+                    for n, p in named.items():
+                        p.copy_(src[n])
+                if master is not None:
+                    for n, p in named.items():
+                        p.copy_(master[n])
+                if params is not None or master is not None:
+                    self._offload.load_masters(self._offload_flat(
+                        master if master is not None else src))
+            if global_steps is not None:
+                self.state.global_steps = int(global_steps)
+            return
         with torch.no_grad():
             if params is not None:
                 tree = params.to_dict() if isinstance(params, ParamTree) else params
@@ -682,6 +759,66 @@ class DeepSpeedEngine:
             if self.state.master is not None:
                 params[n].copy_(targets[n])
 
+    def _host_step(self, gas: int) -> None:
+        """The offload boundary (JAX ``_host_step``): the buffers to the
+        host (:meth:`_offload_d2h`), the host optimizer's step
+        (:meth:`_offload_update`), the updated params back in place
+        (:meth:`_offload_h2d`), then the scaler, the counters and the lr
+        scheduler. One sync a step: the host reads the grads."""
+        st = self.state
+        lr = float(self._lr_fn(st.global_steps))
+        self._last_lr = lr
+        self._offload_d2h()
+        staged, overflow = self._offload_update(st.scaler.loss_scale * gas, lr)
+        if not overflow:
+            self._offload_h2d(staged)
+        for g in st.acc_grads.values():
+            g.zero_()
+        st.scaler = scaler_update(st.scaler, overflow)
+        st.global_steps += 1
+        st.skipped_steps += int(overflow)
+        if self.lr_scheduler is not None:
+            self.lr_scheduler.step()
+
+    def _offload_d2h(self) -> None:
+        """Every accumulation buffer into its slice of the pinned fp32 grad
+        slab (copies queued on the stream), then the one sync."""
+        acc = self.state.acc_grads
+        with torch.no_grad():
+            for key, names in self._offload_groups.items():
+                for n, v in zip(names, self._offload.layer_views(key, self._offload_grads[key])):
+                    v.copy_(acc[n], non_blocking=True)
+        self._acc.synchronize()
+
+    def _offload_update(self, denom: float, lr: float):
+        """The host pass: unscale each key's grads in place, taking the grad
+        norm (telemetry) and the non-finite count (health) on the way, as
+        the JAX engine does; then the host optimizer's step, which writes
+        the bf16 params into the out slab. Returns ``(staged, overflow)``."""
+        from deepspeed_tpu_torch.runtime.zero.offload import nonfinite as nonfinite_grad
+        grads = self._offload_grads
+        sq, nonfinite = 0.0, 0.0
+        for g in grads.values():
+            g.div_(denom)
+            if self._telemetry is not None:
+                sq += float(torch.dot(g, g))
+            if self._health is not None and nonfinite_grad(g):
+                nonfinite += float(g.numel() - int(torch.isfinite(g).sum()))
+        if self._telemetry is not None:
+            self._global_grad_norm = torch.tensor(sq**0.5, device=self.device)
+        self._offload_nonfinite = nonfinite if self._health is not None else None
+        return self._offload.step(grads, lr, out=self._offload_out or None)
+
+    def _offload_h2d(self, staged) -> None:
+        """The staged params (bf16 from the out slab, else the fp32 masters)
+        into the compute params in place, queued without a sync (the next
+        boundary's sync orders them before the slab is rewritten)."""
+        params = self._param_dict(self.state.params)
+        with torch.no_grad():
+            for key, names in self._offload_groups.items():
+                for n, v in zip(names, self._offload.layer_views(key, staged[key])):
+                    params[n].copy_(v, non_blocking=True)
+
     # ------------------------------------------------------------------ #
     # public API
 
@@ -735,7 +872,7 @@ class DeepSpeedEngine:
 
     def _train_batch_body(self, batch, gas: int) -> torch.Tensor:
         """gas micro-steps and the update; returns the mean loss."""
-        if gas == 1:
+        if gas == 1 and self._offload is None:
             loss = self._micro_grads({k: x[0] for k, x in batch.items()})
             self.state.micro_steps += 1
             grads = {}
@@ -752,7 +889,10 @@ class DeepSpeedEngine:
                 losses.append(self._micro_grads({k: x[i] for k, x in batch.items()}))
                 self._accumulate()
             self.state.micro_steps += gas
-            self._apply_update(gas)
+            if self._offload is not None:
+                self._host_step(gas)
+            else:
+                self._apply_update(gas)
             loss = torch.stack(losses).mean()
         return loss
 
@@ -827,11 +967,14 @@ class DeepSpeedEngine:
         self._skipped_before_step = self.state.skipped_steps
         self.timers(SynchronizedWallClockTimer.STEP_GLOBAL_TIMER).start()
         t0 = time.perf_counter()
-        self._apply_update(self.gradient_accumulation_steps())
+        if self._offload is not None:      # steps the lr scheduler itself
+            self._host_step(self.gradient_accumulation_steps())
+        else:
+            self._apply_update(self.gradient_accumulation_steps())
+            if self.lr_scheduler is not None:
+                self.lr_scheduler.step()
         self._tel_phase("step", t0)
         self.timers(SynchronizedWallClockTimer.STEP_GLOBAL_TIMER).stop()
-        if self.lr_scheduler is not None:
-            self.lr_scheduler.step()
         if self._telemetry is not None:
             self._host_global_steps += 1
             loss_v, norm_v, sen_v = self._tel_read(self._losses)
@@ -921,6 +1064,8 @@ class DeepSpeedEngine:
             rec.nonfinite_params = d["nonfinite_params"]
             rec.update_ratio = d["update_ratio"]
             rec.bucket_norms = tuple(d["bucket_norms"].values())
+        elif self._offload is not None:   # the host pass's count (JAX offload path)
+            rec.nonfinite_grads = self._offload_nonfinite
         if self.fp16_enabled():
             after = int(self.state.skipped_steps)
             prev = self._tel_skipped_prev
@@ -1338,6 +1483,15 @@ class DeepSpeedEngine:
                     p.copy_(src[n])
                     if self.state.master is not None:
                         self.state.master[n].copy_(p)
+        if self._offload is not None:
+            # the host masters are the next step's weights: refresh them or
+            # the load is silently reverted
+            self._offload.load_masters(self._offload_flat(named))
+
+    def _offload_flat(self, named: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """``named`` tensors as flat fp32 host arrays by JAX leaf."""
+        return {k: torch.cat([named[n].detach().float().reshape(-1).cpu() for n in names])
+                for k, names in self._offload_groups.items()}
 
     def destroy(self) -> None:
         """Stop the sampler, the /metrics exporter, the checkpoint writer and

@@ -260,6 +260,8 @@ def test_scheduler_warning_surface_and_offload_refusal(monkeypatch):
     offload = {"stage": 2, "offload_optimizer": {"device": "cpu"}}
     with pytest.raises(ValueError, match="incompatible with a client"):
         _port(jparams, PAIRS["sgd"][1], config=_config(zero_optimization=offload))
-    with pytest.raises(NotImplementedError, match="offload"):
-        deepspeed_tpu_torch.initialize(model=CausalLM(TransformerConfig(**LLAMA)),
-                                       config=_config(zero_optimization=offload), device="cpu")
+    # without a client optimizer the offload engine builds (runtime/zero/offload.py)
+    off_eng = deepspeed_tpu_torch.initialize(model=CausalLM(TransformerConfig(**LLAMA)),
+                                             config=_config(zero_optimization=offload),
+                                             device="cpu")[0]
+    assert off_eng._offload is not None and off_eng.state.opt_state is None

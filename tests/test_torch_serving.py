@@ -145,9 +145,11 @@ def test_out_of_slice_settings_raise(setting, item):
     """Settings outside the port's slices raise naming their ROADMAP item;
     MoE serves at ep 1 since the MoE slice, so ``moe.ep_size`` is refused
     on an MoE model (on a dense one it is the JAX engine's ValueError,
-    tests/test_torch_moe_inference.py)."""
+    tests/test_torch_moe_inference.py). ZeRO-Inference streams a dense
+    model since the host-offload slice (tests/test_torch_zero_inference.py);
+    an MoE model's streaming is refused as the JAX engine refuses it."""
     model = CausalLM(TransformerConfig(**SHAPES["gpt2"]))
-    if "moe" in setting:
+    if "moe" in setting or "zero" in setting:
         from deepspeed_tpu_torch.models.moe_lm import MoECausalLM, MoEConfig
         model = MoECausalLM(model.config, MoEConfig(num_experts=2))
     with pytest.raises(NotImplementedError, match=item):

@@ -391,7 +391,7 @@ def test_config_fields_match_jax():
 
 
 @pytest.mark.parametrize("over,match", [
-    ({"zero_optimization": {"stage": 2, "offload_optimizer": {"device": "cpu"}}}, "offload"),
+    ({"flops_profiler": {"enabled": True}}, "profiling"),
     ({"optimizer": {"type": "OneBitAdam", "params": {}}}, "onebit"),
     ({"optimizer": {"type": "onebitlamb", "params": {}}}, "lamb"),
     ({"quantize_training": {"enabled": True, "eigenvalue": {"enabled": True}}}, "eigenvalue"),
@@ -407,6 +407,23 @@ def test_outside_the_slice_raises_naming_its_item(over, match):
     _, jparams = _jax_params(LLAMA)
     with pytest.raises(NotImplementedError, match=match):
         _port(LLAMA, jparams, _config(**over)).train_batch(_batches(0, 1, 4)[0])
+
+
+@pytest.mark.parametrize("device", ["cpu", "nvme"])
+def test_offload_optimizer_is_accepted(device, tmp_path):
+    """ZeRO-Offload (``runtime/zero/offload.py``): the optimizer's state on
+    the host or NVMe, as the JAX engine takes it; offload_param in a
+    training config is read with no effect on one device."""
+    _, jparams = _jax_params(LLAMA)
+    off = {"device": device, **({"nvme_path": str(tmp_path)} if device == "nvme" else {})}
+    cfg = _config(optimizer={"type": "AdamW", "params": {"lr": 1e-3}},
+                  zero_optimization={"stage": 2, "offload_optimizer": off,
+                                     "offload_param": {"device": "cpu"}})
+    engine = _port(LLAMA, jparams, cfg)
+    assert engine._offload is not None and engine._offload.device == device
+    assert engine.state.master is None and engine.state.opt_state is None
+    assert np.isfinite(float(engine.train_batch(_batches(0, 1, 4)[0])))
+    assert engine.global_steps == 1
 
 
 @pytest.mark.parametrize("section", [
