@@ -45,7 +45,17 @@ Phases, each printing one JSON line:
                 dequant kernel at Llama-2-7B's MLP shape, q_groups 1 and
                 64, bit-equal to its plain twin (limit 0), each row read
                 with its neighbour's scales and truncation instead of
-                rounding planted above it
+                rounding planted above it; A, C and D at BERT-large's
+                attention ([32, 512, 16 x 64], non-causal, a quarter of the
+                rows padded as mask_bias) and A at CLIP ViT-L/14's text
+                ([16, 77, 12 x 64], causal) and vision ([8, 257, 16 x 64])
+                towers, with the padding mask dropped and the causal flag
+                flipped planted too, timed against SDPA (the padding as an
+                additive mask); A, C and D with Hd-64 bidirectional layouts
+                (the sparse BERT's BigBird block 128 at S 1024, timed, and
+                blocks of 64); F, G, dh and dW at BERT's MLM head (N 4096
+                gathered rows, D 1024, V 30522, the decoder bias, the tied
+                embedding read in place), timed
   slice_parity  Llama-7B width cut to 2 layers: the same seeded weights served
                 on the card (kernels) and on the CPU (plain versions, fp32);
                 the CPU's greedy tokens fed to both sides' paged prefill and
@@ -302,12 +312,52 @@ Phases, each printing one JSON line:
                 above 1e-6; 2 layers on NVMe bit-equal to cpu mode after 3
                 steps; step ms split into device accumulation, D2H, host
                 optimizer and H2D, tokens/s, MFU, peaks, host RSS
+  encoder_parity  the encoders, card (bf16, kernels) against CPU (fp32,
+                plain), 1 layer of each published width: BERT-large's MLM
+                logits at every valid position and pooled output on [4, 512]
+                rows of seeded lengths under an attention mask
+                (LOGIT_ULP_TOL; the padding mask dropped, causal attention
+                and A's kv head shifted above it); its MLM-loss gradients
+                (gather budget 0.25) through the train path, no step, 3 of
+                the 4 rows full-length (train_parity's limit; delta left out
+                of C and of D, D's last q tile skipped and the mask dropped
+                in the backward above it); the same for a sparse
+                BERT (BigBird block 128, bidirectional) at S 1024, the
+                layout ignored above it; CLIP ViT-L/14's text [8, 77] and
+                vision [4, 224, 224, 3] hidden states and pooled outputs
+                (LOGIT_ULP_TOL; text non-causal and vision causal above it).
+                The seeded weights' q / k and v / o projections are scaled
+                (attention_weighted) so that attention moves the outputs
+  bert_serve    BERT-large (24 layers) from a BertForMaskedLM-layout HF
+                checkpoint of seeded fp32 weights written under
+                .encoder_ckpt/ and loaded through the bert policy (bf16):
+                64 fill-mask requests of lengths 32..512 (15 % [MASK]) in
+                padded batches of 16 with an attention mask; sequences/s,
+                valid tokens/s, ms a batch p50 / max, peak memory; leaves and
+                top-1 at every masked position equal to the in-memory
+                engine's (limit 0), A = 24 x batches, C, D, K3 0, generate
+                refused
+  bert_train    BERT-large MLM pre-training as the JAX bench builds it: micro
+                32 x 512, AdamW 1e-4, bf16, no remat, fused CE, gather
+                budget 0.25, a quarter of the rows padded: 1 warm-up + 5
+                timed steps, losses finite and falling, per step A, C, D 24,
+                F, G, dh, dW 1, E once a leaf (396); step ms, tokens/s, MFU,
+                peak memory
+  clip_encode   CLIP ViT-L/14 (text 12, vision 24 layers) from a CLIPModel
+                HF checkpoint of seeded fp32 weights through the clip policy
+                into a DSClipEncoder (bf16): 64 prompts padded with EOT to 77
+                (batches of 16) and 32 images (batches of 8); prompts/s,
+                images/s, ms a batch, peak memory; leaves and both towers'
+                outputs equal to the in-memory encoders' (limit 0), A = 12 a
+                text batch and 24 an image batch
   kernels       every ported kernel with its launches in the serve, spec_serve
                 (its oracle run), generate, train, train_lamb, train_sparse,
                 resume, ingest, telemetry, client_opt, health, serve_async,
                 serve_tier, serve_fleet, serve_gptj, serve_int8, train_gptj,
-                moe_generate, moe_train, serve_stream, serve_stream_nvme and
-                train_offload phases (A, C and D with a layout in
+                moe_generate, moe_train, serve_stream, serve_stream_nvme,
+                train_offload, bert_serve, bert_train and clip_encode phases
+                (the encoder shapes in rows of their own; A, C and D with a
+                layout in
                 rows of their own, as A, B, C, D and K5 at head_dim 256; C's
                 and D's rows also carry their readings with an lse cotangent)
   profile       (only with --phases profile) the serve phase's prompts through
@@ -351,7 +401,8 @@ PHASES = ("env", "build", "kernel", "slice_parity", "serve", "serve_async", "ser
           "train_parity", "train", "train_gptj", "moe_train", "train_lamb_parity",
           "train_lamb", "sparse_parity",
           "train_sparse", "resume", "ingest", "telemetry", "client_opt", "health",
-          "serve_stream", "serve_stream_nvme", "train_offload", "kernels",
+          "serve_stream", "serve_stream_nvme", "train_offload", "encoder_parity",
+          "bert_serve", "bert_train", "clip_encode", "kernels",
           "profile",
           "train_profile", "train_lamb_profile", "generate_profile", "train_sparse_profile",
           "health_profile")
@@ -426,6 +477,23 @@ PARITY_UPDATE_TOL = 0.5         # |card update - CPU update| / |CPU update|, per
 # weights (Adam does not normalise these); planted faults in kernels C and D
 # must read above it (PERF.md section 6)
 PARITY_GRAD_TOL = 0.1
+# the encoder phases (BERT-large, CLIP ViT-L/14; section "the encoder families")
+ENCODER_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), ".encoder_ckpt")
+BERT_CLS, BERT_SEP, BERT_MASK = 101, 102, 103     # bert-large-uncased's special ids
+CLIP_BOS, CLIP_EOT = 49406, 49407                 # CLIP's start and end of text
+MLM_RATE = 0.15                 # positions set to [MASK] (and labelled) in each sequence
+BERT_BUDGET = 0.25              # mlm_gather_budget: the JAX bench's
+BERT_MICRO = 32                 # bert_train: the JAX bench's micro-batch
+BERT_SEQ = 512
+BERT_PARITY_BATCH = 4           # encoder_parity's BERT rows ([4, 512], lengths 64..512)
+BERT_FULL_ROWS = 3              # of them full-length in the gradient check (D's tile fault)
+BERT_SPARSE_SEQ = 1024          # encoder_parity's sparse BERT (BigBird, block 128)
+BERT_SERVE_REQUESTS = 64        # bert_serve: fill-mask requests of lengths 32..512
+BERT_SERVE_BATCH = 16
+CLIP_PROMPTS, CLIP_TEXT_BATCH = 64, 16      # clip_encode: prompts padded with EOT to 77
+CLIP_IMAGES, CLIP_IMAGE_BATCH = 32, 8       # clip_encode: seeded 224 x 224 images
+CLIP_PARITY_TEXT, CLIP_PARITY_IMAGES = 8, 4
+ENCODER_DTYPE = "bf16"          # the engines' dtype on the card
 
 
 def emit(phase, **fields):
@@ -860,6 +928,8 @@ def phase_kernel(state, seed):
     _check_bwd_hd256(torch.Generator(device="cuda").manual_seed(seed + 257), fa, results,
                      failures)
     _check_dequant_int8(torch.Generator(device="cuda").manual_seed(seed + 8), results, failures)
+    _check_encoder_attention(torch.Generator(device="cuda").manual_seed(seed + 64), fa, results,
+                             failures)
     check(not failures, "kernel checks failed: " + "; ".join(failures))
 
 
@@ -1044,6 +1114,137 @@ def _check_bwd_hd256(gen, fa, results, failures):
         del args, dq, dk, dv
         emit("kernel", **rec_c)
         emit("kernel", **rec_d)
+
+
+# A, C and D at the encoders' shapes (Hd 64): BERT-large's attention in
+# bert_train ([32, 512, 16 heads], non-causal, a quarter of the rows padded,
+# the padding as mask_bias), and A at CLIP ViT-L/14's text tower (a batch of
+# 16 prompts, 77 tokens, 12 heads, causal) and vision tower (8 images, 257
+# tokens, 16 heads, non-causal)
+ENCODER_FLASH = {"bert": (BERT_MICRO, BERT_SEQ, 16, 64, False, True),
+                 "clip_text": (CLIP_TEXT_BATCH, 77, 12, 64, True, False),
+                 "clip_vision": (CLIP_IMAGE_BATCH, 257, 16, 64, False, False)}
+
+
+def padding_bias(gen, B, S, share=0.25):
+    """A key-padding mask_bias ``[B, S]`` (0 keep, -1e9 drop): ``share`` of
+    the rows padded past a length drawn in 64..S-1, and the lengths."""
+    import torch
+    lengths = torch.full((B,), S, dtype=torch.long)
+    rows = torch.randperm(B, generator=gen, device=gen.device)[:int(B * share)].cpu()
+    lengths[rows] = torch.randint(64, S, (len(rows),), generator=gen, device=gen.device).cpu()
+    keep = torch.arange(S)[None] < lengths[:, None]
+    return torch.where(keep, 0.0, -1e9).float().to(gen.device), lengths
+
+
+def _check_encoder_attention(gen, fa, results, failures):
+    """A, C and D at the encoder shapes (ENCODER_FLASH) against their plain
+    versions under the phase's per-row measures, with the phase's planted
+    faults, the padding mask dropped and the causal flag flipped above the
+    limit, two launches bit-equal; each timed with its plain version, SDPA
+    (the padding as an additive float mask; its backward for C and D) and
+    the bound of the pairs this run's lengths leave."""
+    import torch
+    import torch.nn.functional as F
+    for name, (B, S, H, Hd, causal, padded) in ENCODER_FLASH.items():
+        dev, dt = "cuda", torch.bfloat16
+        q, k, v = (torch.randn((B, S, H, Hd), generator=gen, device=dev).to(dt) for _ in range(3))
+        mb, lengths = padding_bias(gen, B, S) if padded else (None, torch.full((B,), S))
+        kw = {"mask_bias": mb, "causal": causal}
+        o, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+        ro, rlse = fa.flash_attention_plain(q, k, v, mb, causal)
+        faults = {f: r[0] for f, r in _flash_faults(fa, q, k, v, mb, causal, None).items()}
+        faults["causal_flipped"] = fa.flash_attention_plain(q, k, v, mb, not causal)[0]
+        if padded:
+            faults["padding_mask_dropped"] = fa.flash_attention_plain(q, k, v, None, causal)[0]
+        o2, lse2 = fa.flash_attention(q, k, v, return_lse=True, **kw)
+        torch.cuda.synchronize()
+        shape = {"shape": [B, S, H, H, Hd], "causal": causal, "padded_rows": int(
+            (lengths < S).sum()), "lengths_padded": sorted(int(x) for x in lengths if x < S)}
+        rec = {"kernel": "flash_attention_fwd", "case": name, **shape,
+               **_hold("flash_attention_fwd", name, [o], [ro],
+                       {f: [r] for f, r in faults.items()}, failures),
+               "lse_err": float((lse - rlse).abs().max()),
+               "repeat_bit_equal": bool(torch.equal(o, o2) and torch.equal(lse, lse2))}
+        if not rec["lse_err"] <= LSE_TOL:
+            failures.append(f"flash {name}: lse err {rec['lse_err']} > {LSE_TOL}")
+        if not rec["repeat_bit_equal"]:
+            failures.append(f"flash {name}: two launches differ")
+        del ro, rlse, faults, o2, lse2
+        # the (query, key) pairs the function needs: every query over its
+        # row's live keys (below the diagonal when causal)
+        live = lengths.double()
+        pairs = int((live * S).sum()) * H if not causal else B * H * S * (S + 1) // 2
+        elem = q.element_size()
+        mask_bytes = 4 * B * S if padded else 0
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        sdpa_mask = None if mb is None else mb[:, None, None, :].to(dt)
+        rec["ms"] = cuda_ms(lambda: fa.flash_attention(q, k, v, **kw))
+        rec["plain_ms"] = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, mb, causal),
+                                  reps=3, warmup=1)
+        rec["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=sdpa_mask, is_causal=causal))
+        rec["library"] = "SDPA" + (" with the padding as an additive mask" if padded else "")
+        rec["bound_ms"], rec["bound_by"] = bound(
+            elem * (2 * q.numel() + k.numel() + v.numel()) + 4 * B * H * S + mask_bytes,
+            4 * pairs * Hd)
+        results[f"flash_attention_fwd_{name}"] = rec
+        emit("kernel", **rec)
+        if name != "bert":
+            del q, k, v, o, lse
+            continue
+        do = torch.randn(q.shape, generator=gen, device=dev).to(dt)
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+        args = (q, k, v, do, lse, delta)
+        dq = fa.flash_attention_dq(*args, **kw)
+        dk, dv = fa.flash_attention_dkv(*args, **kw)
+        again = (fa.flash_attention_dq(*args, **kw), *fa.flash_attention_dkv(*args, **kw))
+        rdq = fa.flash_attention_dq_plain(*args, **kw)
+        rdk, rdv = fa.flash_attention_dkv_plain(*args, **kw)
+        fdq, fdkv = _bwd_faults(fa, args, kw)
+        unmasked = {**kw, "mask_bias": None}
+        fdq["padding_mask_dropped"] = fa.flash_attention_dq_plain(*args, **unmasked)
+        fdkv["padding_mask_dropped"] = fa.flash_attention_dkv_plain(*args, **unmasked)
+        torch.cuda.synchronize()
+        rec_c = {"kernel": "flash_attention_bwd_dq", "case": name, **shape,
+                 **_hold("flash_attention_bwd_dq", name, [dq], [rdq],
+                         {f: [r] for f, r in fdq.items()}, failures, GRAD_FLOOR),
+                 "repeat_bit_equal": bool(torch.equal(dq, again[0]))}
+        rec_d = {"kernel": "flash_attention_bwd_dkv", "case": name, **shape,
+                 **_hold("flash_attention_bwd_dkv", name, [dk, dv], [rdk, rdv],
+                         {f: list(r) for f, r in fdkv.items()}, failures, GRAD_FLOOR),
+                 "repeat_bit_equal": bool(torch.equal(dk, again[1]) and torch.equal(dv, again[2]))}
+        del again, rdq, rdk, rdv, fdq, fdkv
+        rows_bytes = 2 * 4 * B * H * S
+        rec_c["ms"] = cuda_ms(lambda: fa.flash_attention_dq(*args, **kw))
+        rec_d["ms"] = cuda_ms(lambda: fa.flash_attention_dkv(*args, **kw))
+        rec_c["plain_ms"] = cuda_ms(lambda: fa.flash_attention_dq_plain(*args, **kw), reps=3,
+                                    warmup=1)
+        rec_d["plain_ms"] = cuda_ms(lambda: fa.flash_attention_dkv_plain(*args, **kw), reps=3,
+                                    warmup=1)
+        qg, kg, vg = (x.detach().requires_grad_() for x in (qt, kt, vt))
+        fwd = lambda: F.scaled_dot_product_attention(qg, kg, vg, attn_mask=sdpa_mask)
+        both = lambda: torch.autograd.grad(fwd(), (qg, kg, vg), do.transpose(1, 2))
+        lib = cuda_ms(both, reps=10) - cuda_ms(fwd, reps=10)
+        for rec_x in (rec_c, rec_d):
+            rec_x["library_ms"] = lib
+            rec_x["library"] = ("SDPA backward with the padding as an additive mask (dq, dk, "
+                                "dv together)")
+            if not rec_x["repeat_bit_equal"]:
+                failures.append(f"{rec_x['kernel']} {name}: two launches differ")
+        one = 2 * pairs * Hd                     # one live S x S x Hd product, in FLOPs
+        rec_c["bound_ms"], rec_c["bound_by"] = bound(
+            elem * (2 * q.numel() + k.numel() + v.numel() + do.numel()) + rows_bytes + mask_bytes,
+            3 * one)
+        rec_d["bound_ms"], rec_d["bound_by"] = bound(
+            elem * (q.numel() + 2 * k.numel() + 2 * v.numel() + do.numel()) + rows_bytes
+            + mask_bytes, 4 * one)
+        results["flash_attention_bwd_dq_bert"] = rec_c
+        results["flash_attention_bwd_dkv_bert"] = rec_d
+        emit("kernel", **rec_c)
+        emit("kernel", **rec_d)
+        del q, k, v, o, lse, do, delta, args, dq, dk, dv, qg, kg, vg
+        torch.cuda.empty_cache()
 
 
 # Llama-2-7B's MLP matrix w_gate / w_up [d_model, d_ff], at q_groups 1 (the
@@ -1294,6 +1495,11 @@ def _check_fused_ce(gen, results, failures):
         # K % 64 != 0 in all three products (D 776, V 1000, N 1000), and M and
         # N end in partial 128- and 256-wide tiles in each
         "ragged_k": (1000, 776, 1000, False, False, True),
+        # BERT-large's MLM head in bert_train: the 4096 gathered positions
+        # (budget 0.25 of 32 x 512), the decoder bias, W the tied word
+        # embedding [30522, 1024] read in place (V x 2 bytes is no multiple
+        # of 16, but the embedding's rows are D long)
+        "bert_mlm": (int(BERT_MICRO * BERT_SEQ * BERT_BUDGET), 1024, 30522, True, True, True),
     }
     for name, (N, D, V, bias, tied, masked) in cases.items():
         h, w, b, labels, coef = _ce_case(gen, N, D, V, bias, tied, masked)
@@ -1317,7 +1523,7 @@ def _check_fused_ce(gen, results, failures):
         for k, e in rec_f["fault_err"].items():
             if not e > CE_TOL:
                 failures.append(f"fused_ce_fwd {name}: planted fault {k} reads {e} <= {CE_TOL}")
-        if name in ("slice", "gpt2_tied_bias"):   # no split-K, no atomics: same bits
+        if name in ("slice", "gpt2_tied_bias", "bert_mlm"):   # no split-K, no atomics: same bits
             nll2, lse2 = fce.fused_ce_fwd(h, w, b, labels)
             rec_f["repeat_bit_equal"] = bool(torch.equal(nll, nll2) and torch.equal(lse, lse2))
             if not rec_f["repeat_bit_equal"]:
@@ -1342,7 +1548,7 @@ def _check_fused_ce(gen, results, failures):
         rec_dw = {"kernel": "fused_ce_dw_gemm", "case": name, **shape,
                   **_hold("fused_ce_dw_gemm", name, [dw], [rdw],
                           {k: [r] for k, r in f_dw.items()}, failures, GRAD_FLOOR)}
-        if name == "slice":
+        if name in ("slice", "bert_mlm"):
             again = (fce.fused_ce_ds(h, w, b, labels, rlse, coef), fce.fused_ce_dh(rds, w),
                      fce.fused_ce_dw(h, rds, w))
             for rec, x, y in ((rec_g, ds, again[0][0]), (rec_dh, dh, again[1]),
@@ -1376,8 +1582,9 @@ def _check_fused_ce(gen, results, failures):
                                                            flops)
             rec_dw["bound_ms"], rec_dw["bound_by"] = bound(elem * (h.numel() + N * V + D * V),
                                                            flops)
-            results.update({"fused_ce_fwd": rec_f, "fused_ce_ds": rec_g,
-                            "fused_ce_dh_gemm": rec_dh, "fused_ce_dw_gemm": rec_dw})
+            sfx = "" if name == "slice" else "_bert"
+            results.update({"fused_ce_fwd" + sfx: rec_f, "fused_ce_ds" + sfx: rec_g,
+                            "fused_ce_dh_gemm" + sfx: rec_dh, "fused_ce_dw_gemm" + sfx: rec_dw})
         for rec in (rec_f, rec_g, rec_dh, rec_dw):
             emit("kernel", **rec)
         del h, w, nll, lse, rnll, rlse, ds, rds, dh, dw, rdh, rdw, f_f, f_g, f_dh, f_dw, gold
@@ -1555,6 +1762,12 @@ SPARSE_CASES = {
                        ("layout_ignored", "tile_dropped")),
     "hd256_block64_gqa2": (1, 1024, 8, 4, 256, "bigbird64", False,
                            ("layout_ignored", "tile_dropped", "partial_mask_left_out")),
+    # the sparse BERT of encoder_parity (BERT-large heads, BigBird block 128,
+    # bidirectional, S 1024), and blocks of 64 at Hd 64
+    "bert_sparse_hd64": (2, 1024, 16, 16, 64, "bigbird128", False,
+                         ("layout_ignored", "tile_dropped")),
+    "hd64_block64": (1, 1024, 16, 16, 64, "bigbird64", False,
+                     ("layout_ignored", "tile_dropped", "partial_mask_left_out")),
 }
 
 
@@ -1718,7 +1931,7 @@ def _check_sparse_kernels(gen, fa, results, failures):
                 failures.append(f"flash layout {name}: a row with no live key is not o = 0, "
                                 "lse = 1e30, dq = 0")
         del again, f_fwd, f_dq, f_dkv, ro, rdq, rdk, rdv
-        if name == "train_sparse":
+        if name in ("train_sparse", "bert_sparse_hd64"):
             pairs = live_pairs(keep, S, causal) * B
             elem = q.element_size()
             one = 2 * pairs * Hd                   # one live S x S x Hd product, in FLOPs
@@ -1769,7 +1982,8 @@ def _check_sparse_kernels(gen, fa, results, failures):
                 4 * one)
             for kern, rec in recs.items():
                 rec["live_pair_share_of_causal"] = pairs / (B * H * S * (S + 1) // 2)
-                results[rec["kernel"]] = rec
+                if name == "train_sparse":      # the kernels' row: the train_sparse path
+                    results[rec["kernel"]] = rec
         for rec in recs.values():
             emit("kernel", **rec)
 
@@ -3035,10 +3249,11 @@ def _grads(engine, batch):
     total, loss_sum = {}, 0.0
     for i in range(gas):
         loss = engine({k: x[i * micro:(i + 1) * micro] for k, x in batch.items()})
-        grads = torch.autograd.grad(loss.float(), [p for _, p in named])
+        # a leaf the loss does not reach (BERT's pooler under the MLM loss) reads zero
+        grads = torch.autograd.grad(loss.float(), [p for _, p in named], allow_unused=True)
         loss_sum += float(loss.detach())
-        for (n, _), g in zip(named, grads):
-            g = g.float().cpu()
+        for (n, p), g in zip(named, grads):
+            g = (torch.zeros_like(p) if g is None else g).float().cpu()
             total[n] = g if n not in total else total[n].add_(g)
     return total, loss_sum / gas
 
@@ -3047,9 +3262,10 @@ def _grads(engine, batch):
 def _planted(fault):
     """Kernel C, D or G fed a faulted input wherever the model's backward
     calls it, inside the ``with`` body: delta not subtracted in dq
-    ("dq_delta_not_subtracted"), the last q tile's rows left out of dk and
-    dv ("dkv_last_q_tile_skipped": lse = 1e30 there, so p = 0), or G's
-    onehot at the next vocab column ("ce_ds_labels_shifted")."""
+    ("dq_delta_not_subtracted") or in dk ("dkv_delta_not_subtracted"), the
+    last q tile's rows left out of dk and dv ("dkv_last_q_tile_skipped":
+    lse = 1e30 there, so p = 0), or G's onehot at the next vocab column
+    ("ce_ds_labels_shifted")."""
     import torch
     from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
     from deepspeed_tpu_torch.ops.kernels import fused_cross_entropy as fce
@@ -3065,7 +3281,7 @@ def _planted(fault):
         real = getattr(fa, name)
 
         def faulted(q, k, v, do, lse, delta, *args):
-            if fault == "dq_delta_not_subtracted":
+            if fault.endswith("_delta_not_subtracted"):
                 delta = torch.zeros_like(delta)
             else:
                 lse = lse.clone()
@@ -3130,17 +3346,25 @@ def _layout_ignored():
         fa.flash_attention = real
 
 
-def _train_parity(phase, seed, model, B, S, faults, steps=3):
+def _train_parity(phase, seed, model, B, S, faults, steps=3, batch_fn=None, grad_floor=0.0,
+                  prepare=None):
     """The card (bf16, kernels) against the CPU (fp32, plain versions) for
     ``model`` on [B, S] batches, as :func:`phase_train_parity` says;
     ``faults``: name -> (context manager planting it, the leaf read: "worst"
     or "head"); ``steps`` train_batch steps compared after the gradients
-    (with 0 the gradient pass's loss is the one compared, and no update)."""
+    (with 0 the gradient pass's loss is the one compared, and no update);
+    ``batch_fn(rng)`` makes a batch (default: seeded input_ids);
+    ``grad_floor`` > 0 floors each leaf's CPU gradient norm, the measure's
+    denominator, at that share of the largest leaf's (a leaf whose exact
+    gradient is zero, BERT's key bias under the softmax, holds only
+    rounding); ``prepare(params)`` adjusts the seeded initial weights."""
     import numpy as np
     import torch
 
     gen = torch.Generator(device=CHECK_DEVICE).manual_seed(seed)
     init = model.init_params(gen, device=CHECK_DEVICE, dtype=torch.float32)
+    if prepare is not None:
+        init = prepare(init)
     cpu_init = init.map(lambda t: t.to("cpu"))
     config = {**TRAIN_CONFIG, "train_batch_size": B, "train_micro_batch_size_per_gpu": 1,
               "gradient_accumulation_steps": B, "fused_cross_entropy": "on"}
@@ -3149,12 +3373,14 @@ def _train_parity(phase, seed, model, B, S, faults, steps=3):
     del init
     cpu = _train_engine(model, cpu_init, cpu_config, device="cpu")
     rng = np.random.default_rng(seed + 3)
-    batches = [{"input_ids": rng.integers(0, model.config.vocab_size, size=(B, S))}
-               for _ in range(max(steps, 1))]
+    batch_fn = batch_fn or (lambda r: {"input_ids": r.integers(0, model.config.vocab_size,
+                                                               size=(B, S))})
+    batches = [batch_fn(rng) for _ in range(max(steps, 1))]
     failures = []
 
     want_g, want_loss = _grads(cpu, batches[0])
-    grad_rel = lambda got: {n: float((got[n] - w).norm() / w.norm().clamp(min=1e-30))
+    floor = max(1e-30, grad_floor * max(float(w.norm()) for w in want_g.values()))
+    grad_rel = lambda got: {n: float((got[n] - w).norm() / w.norm().clamp(min=floor))
                             for n, w in want_g.items()}
     got_g, got_loss = _grads(gpu, batches[0])
     grads = grad_rel(got_g)
@@ -3166,7 +3392,7 @@ def _train_parity(phase, seed, model, B, S, faults, steps=3):
     for fault, (planted, leaf) in faults.items():
         with planted():
             rel = grad_rel(_grads(gpu, batches[0])[0])
-        fault_grads[fault] = {"worst": max(rel.values()), "head": rel["lm_head"],
+        fault_grads[fault] = {"worst": max(rel.values()), "head": rel.get("lm_head"),
                               "median": float(np.median(list(rel.values())))}
         if not fault_grads[fault][leaf] > PARITY_GRAD_TOL:
             failures.append(f"planted fault {fault} reads {fault_grads[fault]} "
@@ -3195,7 +3421,7 @@ def _train_parity(phase, seed, model, B, S, faults, steps=3):
     del gpu, cpu
     _free()
     emit(phase, layers=model.config.n_layer, d_model=model.config.d_model,
-         batch=[B, S], steps=steps,
+         batch=[B, S], steps=steps, grad_floor=grad_floor,
          grad_rel_diff_worst={worst_g: grads[worst_g]},
          grad_rel_diff_median=float(np.median(list(grads.values()))), grad_tol=PARITY_GRAD_TOL,
          fault_grad_rel_diff=fault_grads, losses=losses, loss_tol=PARITY_LOSS_TOL,
@@ -7066,8 +7292,9 @@ STREAM_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), ".zero_inf
 OFFLOAD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), ".offload_nvme")
 # train_offload's depth: 18 B a parameter of host state within 60 % of the
 # card machine's MemTotal (108.4 GB): 16 layers (3.50 B parameters, 63.0
-# GB) fit, 24 do not (PERF.md section 4)
-OFFLOAD_LAYERS = 16
+# GB) fit, 24 do not; cut to 12 (2.69 B, 48.4 GB) after a default run at
+# 16 took 1155.7 s of its 1200 (PERF.md section 4)
+OFFLOAD_LAYERS = 12
 OFFLOAD_CHECK_LAYERS = 8        # the depth held against the E engine
 OFFLOAD_NVME_LAYERS = 2         # the NVMe run held bit-equal to cpu mode
 OFFLOAD_NVME_STEPS = 3
@@ -7656,6 +7883,732 @@ def phase_train_offload(state, seed):
     check(not failures, "train_offload failed: " + "; ".join(failures))
 
 
+# ----------------------------------------------------------------------- #
+# the encoder families: BERT-large and CLIP ViT-L/14
+
+# HF bert-large-uncased's config.json, written out by its numbers (the MLM
+# head tied; BertForMaskedLM carries no pooler)
+BERT_LARGE_HF = {"architectures": ["BertForMaskedLM"], "model_type": "bert",
+                 "vocab_size": 30522, "hidden_size": 1024, "num_hidden_layers": 24,
+                 "num_attention_heads": 16, "intermediate_size": 4096, "hidden_act": "gelu",
+                 "max_position_embeddings": 512, "type_vocab_size": 2,
+                 "layer_norm_eps": 1e-12, "position_embedding_type": "absolute",
+                 "pad_token_id": 0, "torch_dtype": "float32"}
+# HF openai/clip-vit-large-patch14's config.json (text and vision towers)
+CLIP_L14_HF = {"architectures": ["CLIPModel"], "model_type": "clip", "projection_dim": 768,
+               "logit_scale_init_value": 2.6592, "torch_dtype": "float32",
+               "text_config": {"vocab_size": 49408, "hidden_size": 768,
+                               "intermediate_size": 3072, "num_hidden_layers": 12,
+                               "num_attention_heads": 12, "max_position_embeddings": 77,
+                               "hidden_act": "quick_gelu", "layer_norm_eps": 1e-05,
+                               "bos_token_id": 49406, "eos_token_id": 2, "pad_token_id": 1,
+                               "projection_dim": 768},
+               "vision_config": {"hidden_size": 1024, "intermediate_size": 4096,
+                                 "num_hidden_layers": 24, "num_attention_heads": 16,
+                                 "image_size": 224, "patch_size": 14,
+                                 "hidden_act": "quick_gelu", "layer_norm_eps": 1e-05,
+                                 "projection_dim": 768}}
+
+
+def bert_large(n_layer=None, **over):
+    """BERT-large with its MLM head from BERT_LARGE_HF (through BertPolicy's
+    config), ``n_layer`` layers (default all 24); ``over``: BertConfig
+    fields (remat, the gather budget)."""
+    import dataclasses
+    from deepspeed_tpu_torch.module_inject.policies import BertPolicy
+    hf = {**BERT_LARGE_HF, "num_hidden_layers": n_layer or BERT_LARGE_HF["num_hidden_layers"]}
+    model = BertPolicy().build_model(BertPolicy().zoo_config(hf), hf, {"mlm": {}})
+    return type(model)(dataclasses.replace(model.config, **over), with_mlm_head=True)
+
+
+def clip_l14(text_layers=None, vision_layers=None):
+    """CLIP ViT-L/14's two towers with their projections from CLIP_L14_HF
+    (through CLIPPolicy's configs), cut to the given depths."""
+    from deepspeed_tpu_torch.module_inject.policies import CLIPPolicy
+    tc = {**CLIP_L14_HF["text_config"],
+          "num_hidden_layers": text_layers or CLIP_L14_HF["text_config"]["num_hidden_layers"]}
+    vc = {**CLIP_L14_HF["vision_config"],
+          "num_hidden_layers": vision_layers or CLIP_L14_HF["vision_config"]["num_hidden_layers"]}
+    hf = {**CLIP_L14_HF, "text_config": tc, "vision_config": vc}
+    return CLIPPolicy().build_model(None, hf, {"text": {"embed": 0, "text_projection": 0},
+                                               "vision": {"patch_embed": 0,
+                                                          "visual_projection": 0}})
+
+
+def bert_hf_config(cfg):
+    """The config.json of a BertForMaskedLM of ``cfg`` (a BertConfig):
+    BERT_LARGE_HF itself at its published sizes."""
+    return {**BERT_LARGE_HF, "vocab_size": cfg.vocab_size, "hidden_size": cfg.d_model,
+            "num_hidden_layers": cfg.n_layer, "num_attention_heads": cfg.n_head,
+            "intermediate_size": cfg.d_ff, "max_position_embeddings": cfg.max_seq,
+            "type_vocab_size": cfg.type_vocab_size, "layer_norm_eps": cfg.norm_eps}
+
+
+def clip_hf_config(enc):
+    """The config.json of a CLIPModel of ``enc``'s towers (a DSClipEncoder):
+    CLIP_L14_HF itself at its published sizes."""
+    t, v = enc.text.config, enc.vision.config
+    sizes = lambda c: {"hidden_size": c.d_model, "intermediate_size": c.d_ff,
+                       "num_hidden_layers": c.n_layer, "num_attention_heads": c.n_head,
+                       "projection_dim": t.projection_dim}
+    return {**CLIP_L14_HF, "projection_dim": t.projection_dim,
+            "text_config": {**CLIP_L14_HF["text_config"], **sizes(t),
+                            "vocab_size": t.vocab_size, "max_position_embeddings": t.max_seq},
+            "vision_config": {**CLIP_L14_HF["vision_config"], **sizes(v),
+                              "image_size": v.image_size, "patch_size": v.patch_size}}
+
+
+def mlm_batch(vocab, B, S, seed, lengths=None, rate=MLM_RATE, full_rows=0):
+    """Fill-mask rows: [CLS] seeded ids [SEP], padded with 0 past each row's
+    length (seeded in 64..S unless given; the first ``full_rows`` rows of
+    length S), ``rate`` of each row's inner
+    positions set to [MASK] and labelled with the id they hid (-100
+    elsewhere). Returns numpy ``input_ids``, ``attention_mask``,
+    ``token_type_ids``, ``labels`` and the lengths."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    if lengths is None:
+        lengths = rng.integers(64, S + 1, size=B)
+        lengths[:full_rows] = S
+    lengths = np.asarray(lengths)
+    pos = np.arange(S)[None]
+    valid = pos < lengths[:, None]
+    ids = np.where(valid, rng.integers(1000, vocab, size=(B, S)), 0)
+    ids[:, 0] = BERT_CLS
+    ids[np.arange(B), lengths - 1] = BERT_SEP
+    inner = valid & (pos > 0) & (pos < lengths[:, None] - 1)
+    masked = inner & (rng.random((B, S)) < rate)
+    labels = np.where(masked, ids, -100)
+    return {"input_ids": np.where(masked, BERT_MASK, ids).astype(np.int64),
+            "attention_mask": valid.astype(np.int64),
+            "token_type_ids": np.zeros((B, S), np.int64),
+            "labels": labels.astype(np.int64)}, lengths
+
+
+def clip_prompts(n, seed, S=77):
+    """``n`` CLIP token rows: [BOS], seeded ids, [EOT], padded with EOT to
+    ``S`` as CLIP pads (lengths seeded in 8..S)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    ids = np.full((n, S), CLIP_EOT, np.int64)
+    for i, L in enumerate(rng.integers(8, S + 1, size=n)):
+        ids[i, 0] = CLIP_BOS
+        ids[i, 1:L - 1] = rng.integers(300, CLIP_BOS, size=L - 2)
+    return ids
+
+
+def clip_images(n, seed, size=224):
+    """``n`` seeded NHWC images [n, size, size, 3], normalised pixels."""
+    import numpy as np
+    return np.random.default_rng(seed).normal(size=(n, size, size, 3)).astype(np.float32)
+
+
+def bert_hf_entries(params, dtype):
+    """The HF ``BertForMaskedLM`` tensors of the port's BERT tree (the
+    inverse of ``BertPolicy.map_params``: nn.Linear weights back to [out,
+    in]; no pooler, the decoder tied to the word embeddings), as
+    write_safetensors entries."""
+    out = []
+
+    def put(name, t, tr=False):
+        shape = tuple(t.shape[::-1]) if tr else tuple(t.shape)
+        out.append((name, shape, dtype, (lambda t=t: t.t()) if tr else (lambda t=t: t)))
+
+    def ln(name, p):
+        put(name + ".weight", p["scale"])
+        put(name + ".bias", p["bias"])
+
+    e, pre = params["embed"], "bert.embeddings."
+    put(pre + "word_embeddings.weight", e["tokens"])
+    put(pre + "position_embeddings.weight", e["positions"])
+    put(pre + "token_type_embeddings.weight", e["token_type"])
+    ln(pre + "LayerNorm", e["ln"])
+    for i, lp in enumerate(params["layers"]):
+        p, a, m = f"bert.encoder.layer.{i}.", lp["attn"], lp["mlp"]
+        for hf, w, b in (("attention.self.query", "wq", "bq"), ("attention.self.key", "wk", "bk"),
+                         ("attention.self.value", "wv", "bv"),
+                         ("attention.output.dense", "wo", "bo")):
+            put(p + hf + ".weight", a[w], tr=True)
+            put(p + hf + ".bias", a[b])
+        ln(p + "attention.output.LayerNorm", lp["ln_attn"])
+        put(p + "intermediate.dense.weight", m["w_up"], tr=True)
+        put(p + "intermediate.dense.bias", m["b_up"])
+        put(p + "output.dense.weight", m["w_down"], tr=True)
+        put(p + "output.dense.bias", m["b_down"])
+        ln(p + "output.LayerNorm", lp["ln_mlp"])
+    h = params["mlm"]
+    put("cls.predictions.transform.dense.weight", h["w"], tr=True)
+    put("cls.predictions.transform.dense.bias", h["b"])
+    ln("cls.predictions.transform.LayerNorm", h["ln"])
+    put("cls.predictions.bias", h["decoder_bias"])
+    return out
+
+
+def clip_hf_entries(params, dtype, patch_size):
+    """The HF ``CLIPModel`` tensors of the port's two-tower tree (the
+    inverse of ``CLIPPolicy.map_params``: the patch embedding back to a
+    conv weight [D, 3, ps, ps]), as write_safetensors entries."""
+    out = []
+
+    def put(name, t, make=None, shape=None):
+        out.append((name, tuple(shape or t.shape), dtype, make or (lambda t=t: t)))
+
+    def linear(name, w, b=None):
+        put(name + ".weight", w, lambda w=w: w.t(), tuple(w.shape[::-1]))
+        if b is not None:
+            put(name + ".bias", b)
+
+    def ln(name, p):
+        put(name + ".weight", p["scale"])
+        put(name + ".bias", p["bias"])
+
+    def tower(pre, layers):
+        for i, lp in enumerate(layers):
+            p, a, m = f"{pre}encoder.layers.{i}.", lp["attn"], lp["mlp"]
+            for hf, w, b in (("q_proj", "wq", "bq"), ("k_proj", "wk", "bk"),
+                             ("v_proj", "wv", "bv"), ("out_proj", "wo", "bo")):
+                linear(p + "self_attn." + hf, a[w], a[b])
+            ln(p + "layer_norm1", lp["ln_attn"])
+            ln(p + "layer_norm2", lp["ln_mlp"])
+            linear(p + "mlp.fc1", m["w_up"], m["b_up"])
+            linear(p + "mlp.fc2", m["w_down"], m["b_down"])
+
+    t, v = params["text"], params["vision"]
+    put("text_model.embeddings.token_embedding.weight", t["embed"]["tokens"])
+    put("text_model.embeddings.position_embedding.weight", t["embed"]["positions"])
+    tower("text_model.", t["layers"])
+    ln("text_model.final_layer_norm", t["ln_f"])
+    linear("text_projection", t["text_projection"])
+    pe = v["patch_embed"]
+    D = pe.shape[1]
+    put("vision_model.embeddings.patch_embedding.weight", pe,
+        lambda: pe.reshape(patch_size, patch_size, 3, D).permute(3, 2, 0, 1),
+        (D, 3, patch_size, patch_size))
+    put("vision_model.embeddings.class_embedding", v["class_token"])
+    put("vision_model.embeddings.position_embedding.weight", v["positions"])
+    ln("vision_model.pre_layrnorm", v["ln_pre"])
+    tower("vision_model.", v["layers"])
+    ln("vision_model.post_layernorm", v["ln_f"])
+    linear("visual_projection", v["visual_projection"])
+    put("logit_scale", params["logit_scale"])
+    return out
+
+
+def _row_parity(pairs, faults):
+    """:func:`logit_parity` over several outputs at once: ``pairs`` maps a
+    name to (card, CPU) rows (one row a position or sequence), ``faults``
+    a name to {output: faulted card rows}; the worst row of each output and
+    of each fault (over the outputs it has) are reported."""
+    import torch
+    rec, failures = {}, []
+    for name, (got, want) in pairs.items():
+        sub = {f: rows[name] for f, rows in faults.items() if name in rows}
+        r, fl = logit_parity(got, want, sub)
+        rec[name] = r
+        failures += [f"{name}: {x}" for x in fl]
+        del sub
+    check(all(torch.isfinite(g).all() for g, _ in pairs.values()), "non-finite outputs")
+    return rec, failures
+
+
+@contextlib.contextmanager
+def _mask_dropped_in_backward():
+    """Inside the ``with`` body kernels C and D run without the padding
+    mask wherever the model's backward calls them (A keeps it)."""
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    real = {n: getattr(fa, n) for n in ("flash_attention_dq", "flash_attention_dkv")}
+
+    def faulted(fn):
+        def run(q, k, v, do, lse, delta, mask_bias=None, *args, **kw):
+            return fn(q, k, v, do, lse, delta, None, *args, **kw)
+        return run
+
+    for n, fn in real.items():
+        setattr(fa, n, faulted(fn))
+    try:
+        yield
+    finally:
+        for n, fn in real.items():
+            setattr(fa, n, fn)
+
+
+def attention_weighted(params, qk=3.0, vo=5.0):
+    """``params`` with every layer's q and k projections scaled by ``qk`` and
+    v and o by ``vo``, in place: at the init's std 0.02 attention is near
+    uniform and its output small beside the residual, so faults in A move
+    the encoders' outputs by less than LOGIT_ULP_TOL; scaled, each row
+    attends to a few keys and the attention output is of the residual's
+    size. Returns ``params``."""
+    import torch
+    with torch.no_grad():
+        for lp in params["layers"]:
+            for key, f in (("wq", qk), ("wk", qk), ("wv", vo), ("wo", vo)):
+                lp["attn"][key].mul_(f)
+    return params
+
+
+def _bert_parity_forward(seed):
+    """BERT-large width at 1 layer: MLM logits at every valid position and
+    the pooled output, card (bf16) against CPU (fp32)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    import deepspeed_tpu_torch
+    model = bert_large(1)
+    gen = torch.Generator(device=CHECK_DEVICE).manual_seed(seed)
+    params = attention_weighted(model.init_params(gen, device=CHECK_DEVICE, dtype=torch.float32))
+    gpu = deepspeed_tpu_torch.init_inference(model, params=params, dtype=ENCODER_DTYPE,
+                                             device=CHECK_DEVICE)
+    cpu = deepspeed_tpu_torch.init_inference(model, params=params.map(lambda t: t.to("cpu")),
+                                             dtype="fp32", device="cpu")
+    del params
+    batch, lengths = mlm_batch(model.config.vocab_size, BERT_PARITY_BATCH, BERT_SEQ, seed + 21)
+    ids, mask = batch["input_ids"], batch["attention_mask"]
+    valid = torch.as_tensor(mask > 0)
+    logits = lambda eng, m=mask: eng.forward(ids, attention_mask=m)[valid.to(eng.device)] \
+        .float().cpu()
+    pooled = lambda eng, mdl=model: mdl(eng.params, ids, None, torch.as_tensor(mask))[1] \
+        .float().cpu()
+    with torch.no_grad():
+        want = {"mlm_logits": logits(cpu), "pooled": pooled(cpu)}
+        del cpu
+        got = {"mlm_logits": logits(gpu), "pooled": pooled(gpu)}
+        causal = type(model)(model.config, with_mlm_head=True)
+        causal.zoo_cfg = dataclasses.replace(causal.zoo_cfg, causal=True)
+        faults = {"padding_mask_dropped": {"mlm_logits": logits(gpu, None)},
+                  "causal": {"mlm_logits": causal.forward(gpu.params, ids, torch.as_tensor(
+                      mask, device=gpu.device))[valid.to(gpu.device)].float().cpu()}}
+        with planted_attention_fault("flash_kv_head_shifted"):
+            faults["kv_head_shifted"] = {"mlm_logits": logits(gpu), "pooled": pooled(gpu)}
+    rec, failures = _row_parity({k: (got[k], want[k]) for k in got}, faults)
+    rec.update(batch=[BERT_PARITY_BATCH, BERT_SEQ], lengths=[int(x) for x in lengths],
+               positions=int(valid.sum()))
+    del gpu
+    _free()
+    return rec, failures
+
+
+def _clip_parity(seed):
+    """CLIP ViT-L/14 width at 1 layer a tower: text [8, 77] and vision [4,
+    224, 224, 3], hidden states (one row a token) and pooled (one row a
+    sequence), card (bf16) against CPU (fp32)."""
+    import dataclasses
+    import torch
+    enc = clip_l14(1, 1)
+    gen = torch.Generator(device=CHECK_DEVICE).manual_seed(seed + 31)
+    tp = attention_weighted(enc.text.init_params(gen, device=CHECK_DEVICE, dtype=torch.float32))
+    vp = attention_weighted(enc.vision.init_params(gen, device=CHECK_DEVICE,
+                                                   dtype=torch.float32))
+    dt = {"bf16": torch.bfloat16, "fp32": torch.float32}[ENCODER_DTYPE]
+    ids = clip_prompts(CLIP_PARITY_TEXT, seed + 32, enc.text.config.max_seq)
+    images = clip_images(CLIP_PARITY_IMAGES, seed + 33, enc.vision.config.image_size)
+    rows = lambda out: {"hidden": out[0].reshape(-1, out[0].shape[-1]).float().cpu(),
+                        "pooled": out[1].float().cpu()}
+
+    def run(tower, params, x, device, dtype, **zoo):
+        t = type(tower)(tower.config)
+        t.zoo_cfg = dataclasses.replace(t.zoo_cfg, **zoo)
+        p = params.map(lambda a: a.to(device, dtype))
+        with torch.no_grad():
+            return rows(t(p, torch.as_tensor(x).to(device)))
+
+    text_want = run(enc.text, tp, ids, "cpu", torch.float32)
+    vis_want = run(enc.vision, vp, images, "cpu", torch.float32)
+    text_got = run(enc.text, tp, ids, CHECK_DEVICE, dt)
+    vis_got = run(enc.vision, vp, images, CHECK_DEVICE, dt)
+    faults = {"text_non_causal": {f"text_{k}": v for k, v in
+                                  run(enc.text, tp, ids, CHECK_DEVICE, dt, causal=False).items()},
+              "vision_causal": {f"vision_{k}": v for k, v in
+                                run(enc.vision, vp, images, CHECK_DEVICE, dt,
+                                    causal=True).items()}}
+    pairs = {**{f"text_{k}": (text_got[k], text_want[k]) for k in text_got},
+             **{f"vision_{k}": (vis_got[k], vis_want[k]) for k in vis_got}}
+    rec, failures = _row_parity(pairs, faults)
+    rec.update(text_batch=list(ids.shape), image_batch=list(images.shape))
+    return rec, failures
+
+
+def phase_encoder_parity(state, seed):
+    """The encoder path, card (bf16, kernels) against CPU (fp32, plain
+    versions), each model at 1 layer of its published width: BERT-large's
+    MLM logits at every valid position and its pooled output on [4, 512]
+    rows of seeded lengths under an attention mask (LOGIT_ULP_TOL; the
+    padding mask dropped, causal attention and A's kv head shifted above
+    it); BERT-large's gradients of the MLM loss (gather budget 0.25) on the
+    same shape through the train path, no step, BERT_FULL_ROWS rows
+    full-length (each leaf within PARITY_GRAD_TOL of the CPU's, the norm
+    floored at GRAD_FLOOR of the largest leaf's; delta left out of C and
+    of D, D's last q tile skipped and the mask dropped in the backward
+    above it); the same for a sparse BERT
+    (replace_self_attention, BigBird block 128, bidirectional) at S 1024,
+    A, C and D walking the layout at Hd 64 (the layout ignored above the
+    limit); CLIP ViT-L/14's text [8, 77] and vision [4, 224, 224, 3]
+    hidden states and pooled outputs (LOGIT_ULP_TOL; text run non-causal
+    and vision run causal above it)."""
+    from deepspeed_tpu_torch.ops.sparse_attention import (BigBirdSparsityConfig,
+                                                          replace_self_attention)
+    failures = []
+    rec, f = _bert_parity_forward(seed)
+    emit("encoder_parity", check="bert_forward", **rec)
+    failures += f
+    # D's faults: delta left out of dk, and the last q tile left out of dk
+    # and dv, which reads only where a row's last tile holds masked labels:
+    # BERT_FULL_ROWS of the gradient batch are full-length
+    grad_faults = {f: (lambda f=f: _planted(f), "worst")
+                   for f in ("dq_delta_not_subtracted", "dkv_delta_not_subtracted",
+                             "dkv_last_q_tile_skipped")}
+    grad_faults["mask_dropped_in_backward"] = (_mask_dropped_in_backward, "worst")
+    for name, model, B, S, faults in (
+            ("bert_grads", bert_large(1, remat=False, mlm_gather_budget=BERT_BUDGET),
+             BERT_PARITY_BATCH, BERT_SEQ, grad_faults),
+            ("sparse_bert_grads",
+             replace_self_attention(bert_large(1, remat=False, mlm_gather_budget=BERT_BUDGET),
+                                    BigBirdSparsityConfig(num_heads=bert_large(1).config.n_head,
+                                                          block=128),
+                                    max_seq=BERT_SPARSE_SEQ),
+             2, BERT_SPARSE_SEQ, {"layout_ignored": (_layout_ignored, "worst")})):
+        try:
+            _train_parity(f"encoder_parity_{name}", seed, model, B, S, faults, steps=0,
+                          grad_floor=GRAD_FLOOR, prepare=attention_weighted,
+                          batch_fn=lambda rng, B=B, S=S, V=model.config.vocab_size: mlm_batch(
+                              V, B, S, int(rng.integers(1 << 30)), full_rows=BERT_FULL_ROWS)[0])
+        except RuntimeError as e:
+            failures.append(str(e))
+    rec, f = _clip_parity(seed)
+    emit("encoder_parity", check="clip_forward", **rec)
+    failures += f
+    check(not failures, "encoder_parity failed: " + "; ".join(failures))
+
+
+def bert_serve_launch_rule(n_layer, batches):
+    """bert_serve's launches: A once a layer a batch forward; no backward,
+    no fused CE, no decode kernel."""
+    return {"flash_attention_fwd": n_layer * batches, "flash_attention_bwd_dq": 0,
+            "flash_attention_bwd_dkv": 0, "fused_ce_fwd": 0, "fused_ce_ds": 0,
+            "fused_ce_dh_gemm": 0, "fused_ce_dw_gemm": 0}
+
+
+def clip_launch_rule(text_layers, vision_layers, text_batches, image_batches):
+    """clip_encode's launches of A in each tower: one a layer a batch."""
+    return {"text": text_layers * text_batches, "image": vision_layers * image_batches}
+
+
+def bert_train_launch_rule(engine):
+    """bert_train's launches a step (gas 1, no remat, fused CE on): A, C and
+    D once a layer, F, G, dh and dW once, E once a port leaf (16 a layer
+    and 12 others: the embeddings' 5, the pooler's 2, the MLM head's 5)."""
+    cfg = engine.module.config
+    leaves = len(list(engine.state.params.parameters()))
+    check(leaves == 16 * cfg.n_layer + 12, f"{leaves} parameter leaves")
+    return {"flash_attention_fwd": cfg.n_layer, "flash_attention_bwd_dq": cfg.n_layer,
+            "flash_attention_bwd_dkv": cfg.n_layer, "fused_adam": leaves,
+            **dict.fromkeys(("fused_ce_fwd", "fused_ce_ds", "fused_ce_dh_gemm",
+                             "fused_ce_dw_gemm"), 1)}
+
+
+def _serve_batches(requests, size):
+    """Fill-mask requests (id rows of their own lengths) in batches of
+    ``size``, each padded with 0 to its longest row: (input_ids,
+    attention_mask) numpy pairs."""
+    import numpy as np
+    out = []
+    for i in range(0, len(requests), size):
+        rows = requests[i:i + size]
+        S = max(len(r) for r in rows)
+        ids = np.zeros((len(rows), S), np.int64)
+        mask = np.zeros((len(rows), S), np.int64)
+        for j, r in enumerate(rows):
+            ids[j, :len(r)] = r
+            mask[j, :len(r)] = 1
+        out.append((ids, mask))
+    return out
+
+
+def _launch_counts():
+    return {k: v for k, v in _train_counters().items()
+            if k.startswith(("flash", "fused_ce"))}
+
+
+def _disk_check(need_bytes):
+    os.makedirs(ENCODER_DIR, exist_ok=True)
+    free = shutil.disk_usage(ENCODER_DIR).free
+    check(free > 2 * need_bytes, f"{free / 1e9:.1f} GB free under {ENCODER_DIR}, "
+          f"{2 * need_bytes / 1e9:.1f} GB needed")
+    return free
+
+
+def phase_bert_serve(state, seed):
+    """BERT-large at full depth (24 layers) served from an HF checkpoint: a
+    BertForMaskedLM-layout safetensors checkpoint of seeded fp32 weights
+    (1.34 GB, no pooler) written under ENCODER_DIR and loaded by
+    init_inference(<dir>, dtype="bf16") through BertPolicy; 64 fill-mask
+    requests of seeded lengths 32..512 (15 % of their inner positions
+    [MASK]) in padded batches of 16 with an attention mask: sequences/s,
+    valid tokens/s, ms a batch p50 / max, peak memory. Gates: the loaded
+    leaves bit-equal to the in-memory engine's on the same weights, the
+    top-1 id at every masked position equal to that engine's (limit 0), A
+    = 24 x batches with C, D and the fused CE at 0, generate refused with
+    the encoder ValueError."""
+    import numpy as np
+    import torch
+    import deepspeed_tpu_torch
+    model = bert_large()
+    gen = torch.Generator(device=CHECK_DEVICE).manual_seed(seed)
+    params = model.init_params(gen, device=CHECK_DEVICE, dtype=torch.float32)
+    for leaf in params["pooler"].parameters():      # a BertForMaskedLM has no pooler
+        leaf.data.zero_()
+    entries = bert_hf_entries(params, torch.float32)
+    need = sum(_nbytes(e[1], e[2]) for e in entries)
+    free = _disk_check(need)
+    d = os.path.join(ENCODER_DIR, "bert-large")
+    failures = []
+    try:
+        t0 = time.perf_counter()
+        written = write_hf_checkpoint(d, bert_hf_config(model.config), entries)
+        write_s = time.perf_counter() - t0
+        del entries
+        t0 = time.perf_counter()
+        engine = deepspeed_tpu_torch.init_inference(d, dtype=ENCODER_DTYPE, device=CHECK_DEVICE)
+        _sync()
+        load_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    ref = deepspeed_tpu_torch.init_inference(model, params=params, dtype=ENCODER_DTYPE,
+                                             device=CHECK_DEVICE)
+    del params
+    _free()
+    check(type(engine.module).__name__ == "BertModel", f"loaded {type(engine.module).__name__}")
+    unequal = _equal_leaves(engine.params, ref.params)
+    if unequal:
+        failures.append(f"loaded leaves differ from the in-memory engine's: {unequal[:5]}")
+    rng = np.random.default_rng(seed + 41)
+    lengths = rng.integers(32, BERT_SEQ + 1, size=BERT_SERVE_REQUESTS)
+    batch, _ = mlm_batch(model.config.vocab_size, BERT_SERVE_REQUESTS, BERT_SEQ, seed + 42,
+                         lengths=lengths)
+    requests = [batch["input_ids"][i, :n] for i, n in enumerate(lengths)]
+    batches = _serve_batches(requests, BERT_SERVE_BATCH)
+    with torch.no_grad():
+        engine.forward(batches[0][0], attention_mask=batches[0][1])      # warm-up
+        _sync()
+        _reset_peak()
+        _reset_train_counters()
+        ms, top1 = [], []
+        t_all = time.perf_counter()
+        for ids, mask in batches:
+            t = time.perf_counter()
+            logits = engine.forward(ids, attention_mask=mask)
+            top1.append(logits.argmax(-1))
+            _sync()
+            ms.append((time.perf_counter() - t) * 1e3)
+        wall = time.perf_counter() - t_all
+        launches = _launch_counts()
+        peak = _peak_gb()
+        ref_top1 = [ref.forward(ids, attention_mask=mask).argmax(-1) for ids, mask in batches]
+    rule = bert_serve_launch_rule(model.config.n_layer, len(batches))
+    if CHECK_DEVICE == "cuda" and {k: launches[k] for k in rule} != rule:
+        failures.append(f"launches {launches} != rule {rule}")
+    masked_pos = [torch.as_tensor(ids == BERT_MASK).to(t.device) for (ids, _), t in
+                  zip(batches, top1)]
+    differ = sum(int((a[m] != b[m]).sum()) for a, b, m in zip(top1, ref_top1, masked_pos))
+    n_masked = sum(int(m.sum()) for m in masked_pos)
+    if differ:
+        failures.append(f"{differ} of {n_masked} masked positions' top-1 differ from the "
+                        "in-memory engine's")
+    refusal = None
+    try:
+        engine.generate(batches[0][0][:1, :8], max_new_tokens=2)
+        failures.append("generate ran on a BertModel")
+    except ValueError as e:
+        refusal = str(e)
+        if "is an encoder" not in refusal:
+            failures.append(f"generate refused with {refusal!r}")
+    del engine, ref
+    _free()
+    state["bert_serve_launches"] = {"flash_attention_fwd_bert": launches["flash_attention_fwd"]}
+    valid_tokens = int(sum(lengths))
+    emit("bert_serve", layers=model.config.n_layer, requests=BERT_SERVE_REQUESTS,
+         batch=BERT_SERVE_BATCH, padded_lengths=[int(ids.shape[1]) for ids, _ in batches],
+         valid_tokens=valid_tokens, masked_positions=n_masked, top1_differ=differ,
+         sequences_per_s=BERT_SERVE_REQUESTS / wall, valid_tokens_per_s=valid_tokens / wall,
+         batch_ms=ms, batch_ms_p50=float(np.percentile(ms, 50)),
+         batch_ms_max=float(max(ms)), peak_mem_gb=peak,
+         checkpoint_bytes=written, write_s=write_s, load_s=load_s,
+         load_gbps=written / load_s / 1e9, disk_free_gb=free / 1e9, launches=launches,
+         launch_rule=rule, generate_refused=refusal)
+    check(not failures, "bert_serve failed: " + "; ".join(failures))
+
+
+def phase_bert_train(state, seed):
+    """BERT-large MLM pre-training at full depth as the JAX bench builds it
+    (bench.py build_bert_bench_engine): micro 32 x S 512, gas 1, AdamW (lr
+    1e-4, wd 0.01), bf16, no remat, fused CE "auto", mlm_gather_budget 0.25,
+    seeded bf16 weights drawn on the card; one seeded batch (a quarter of
+    its rows padded, 15 % of inner positions masked), 1 warm-up + 5 timed
+    steps: step ms, tokens/s, MFU from flops_per_token(512) against the
+    card's peak, peak memory. Gates: losses finite, the last below the
+    first; per step the launch rule (A, C, D 24, F, G, dh, dW once, E
+    once a port leaf)."""
+    import numpy as np
+    import torch
+    from deepspeed_tpu_torch.accelerator import get_accelerator
+    model = bert_large(remat=False, mlm_gather_budget=BERT_BUDGET)
+    config = {"train_batch_size": BERT_MICRO, "train_micro_batch_size_per_gpu": BERT_MICRO,
+              "gradient_accumulation_steps": 1,
+              "optimizer": {"type": "AdamW", "params": {"lr": 1e-4, "weight_decay": 0.01}},
+              "bf16": {"enabled": ENCODER_DTYPE == "bf16"}, "fused_cross_entropy": "auto"}
+    gen = torch.Generator(device=CHECK_DEVICE).manual_seed(seed)
+    params = model.init_params(gen, device=CHECK_DEVICE,
+                               dtype=torch.bfloat16 if ENCODER_DTYPE == "bf16" else torch.float32)
+    _reset_peak()
+    engine = _train_engine(model, params, config, device=CHECK_DEVICE)
+    del params
+    B = BERT_MICRO
+    lengths = np.full(B, BERT_SEQ)
+    rng = np.random.default_rng(seed + 51)
+    padded = rng.choice(B, B // 4, replace=False)
+    lengths[padded] = rng.integers(64, BERT_SEQ, size=B // 4)
+    batch, _ = mlm_batch(model.config.vocab_size, B, BERT_SEQ, seed + 52, lengths=lengths)
+    batch = {k: torch.as_tensor(v, device=CHECK_DEVICE) for k, v in batch.items()}
+    rule = bert_train_launch_rule(engine)
+    losses, step_s, per_step = _timed_steps(engine, batch, TRAIN_STEPS)
+    peak = _peak_gb()
+    failures = []
+    if not all(np.isfinite(losses)):
+        failures.append(f"non-finite losses {losses}")
+    if not losses[-1] < losses[0]:
+        failures.append(f"loss did not fall: {losses}")
+    if CHECK_DEVICE == "cuda":
+        for i, s in enumerate(per_step):
+            got = {k: s[k] for k in rule}
+            if got != rule:
+                failures.append(f"step {i + 1} launches {got} != rule {rule}")
+    timed = step_s[1:]
+    step_ms = float(np.median(timed)) * 1e3
+    tokens = B * BERT_SEQ
+    peak_tflops = get_accelerator(CHECK_DEVICE).peak_tflops()
+    fpt = model.flops_per_token(BERT_SEQ)
+    mfu = (tokens / (step_ms / 1e3)) * fpt / (peak_tflops * 1e12) if peak_tflops else None
+    state["bert_train_launches"] = {
+        f"{k}_bert": sum(s[k] for s in per_step)
+        for k in ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+                  "fused_ce_fwd", "fused_ce_ds", "fused_ce_dh_gemm", "fused_ce_dw_gemm")}
+    state["bert_train_launches"]["fused_adam"] = sum(s["fused_adam"] for s in per_step)
+    emit("bert_train", layers=model.config.n_layer, batch=[B, BERT_SEQ],
+         lengths_padded=sorted(int(x) for x in lengths[padded]),
+         masked_labels=int((batch["labels"] != -100).sum()),
+         gather_k=-(-round(BERT_BUDGET * B * BERT_SEQ) // 128) * 128,
+         params=sum(p.numel() for p in engine.state.params.parameters()), losses=losses,
+         step_ms=[s * 1e3 for s in step_s], step_ms_median=step_ms,
+         tokens_per_s=tokens / (step_ms / 1e3), flops_per_token=fpt, peak_tflops=peak_tflops,
+         mfu=mfu, peak_mem_gb=peak, launches_per_step=per_step, launch_rule=rule)
+    del engine
+    _free()
+    check(not failures, "bert_train failed: " + "; ".join(failures))
+
+
+def phase_clip_encode(state, seed):
+    """CLIP ViT-L/14 at full depth (text 12 layers, vision 24) through an HF
+    checkpoint: a CLIPModel-layout safetensors checkpoint of seeded fp32
+    weights (1.71 GB) written under ENCODER_DIR, loaded by
+    init_inference(<dir>, dtype="bf16") through CLIPPolicy into a
+    DSClipEncoder; 64 prompts padded with EOT to 77 (batches of 16) and 32
+    seeded images (batches of 8): prompts/s, images/s, ms a batch, peak
+    memory. Gates: the loaded leaves bit-equal to the in-memory tree's,
+    hidden states and pooled features of both towers equal to the
+    in-memory encoders' (limit 0), A = 12 a text batch and 24 an image
+    batch."""
+    import numpy as np
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.transformer import ParamTree
+    enc = clip_l14()
+    gen = torch.Generator(device=CHECK_DEVICE).manual_seed(seed)
+    tree = ParamTree({"text": enc.text.init_params(gen, device=CHECK_DEVICE).to_dict(),
+                      "vision": enc.vision.init_params(gen, device=CHECK_DEVICE).to_dict(),
+                      "logit_scale": torch.tensor(CLIP_L14_HF["logit_scale_init_value"],
+                                                  device=CHECK_DEVICE)})
+    entries = clip_hf_entries(tree, torch.float32, enc.vision.config.patch_size)
+    need = sum(_nbytes(e[1], e[2]) for e in entries)
+    free = _disk_check(need)
+    d = os.path.join(ENCODER_DIR, "clip-vit-large-patch14")
+    try:
+        t0 = time.perf_counter()
+        written = write_hf_checkpoint(d, clip_hf_config(enc), entries)
+        write_s = time.perf_counter() - t0
+        del entries
+        t0 = time.perf_counter()
+        engine = deepspeed_tpu_torch.init_inference(d, dtype=ENCODER_DTYPE, device=CHECK_DEVICE)
+        _sync()
+        load_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    failures = []
+    loaded = engine.module
+    check(type(loaded).__name__ == "DSClipEncoder", f"loaded {type(loaded).__name__}")
+    dt = {"bf16": torch.bfloat16, "fp32": torch.float32}[ENCODER_DTYPE]
+    ref_params = tree.map(lambda t: t.to(CHECK_DEVICE, dt))
+    del tree
+    unequal = _equal_leaves(engine.params, ref_params)
+    if unequal:
+        failures.append(f"loaded leaves differ from the in-memory tree's: {unequal[:5]}")
+    prompts = clip_prompts(CLIP_PROMPTS, seed + 61, enc.text.config.max_seq)
+    images = clip_images(CLIP_IMAGES, seed + 62, enc.vision.config.image_size)
+    text_b = [prompts[i:i + CLIP_TEXT_BATCH] for i in range(0, len(prompts), CLIP_TEXT_BATCH)]
+    image_b = [images[i:i + CLIP_IMAGE_BATCH] for i in range(0, len(images), CLIP_IMAGE_BATCH)]
+    p = engine.params
+    loaded.encode_text(p["text"], text_b[0])
+    loaded.encode_image(p["vision"], image_b[0])           # warm-up
+    _sync()
+    _reset_peak()
+    _reset_train_counters()
+
+    def timed(fn, batches, params):
+        outs, ms = [], []
+        for x in batches:
+            t = time.perf_counter()
+            outs.append(fn(params, x))
+            _sync()
+            ms.append((time.perf_counter() - t) * 1e3)
+        return outs, ms
+
+    text_out, text_ms = timed(loaded.encode_text, text_b, p["text"])
+    a_text = _launch_counts()["flash_attention_fwd"]
+    image_out, image_ms = timed(loaded.encode_image, image_b, p["vision"])
+    launches = _launch_counts()
+    a_image = launches["flash_attention_fwd"] - a_text
+    peak = _peak_gb()
+    ref = clip_l14()
+    differ = {}
+    for name, outs, fn, sub, batches in (
+            ("text", text_out, ref.encode_text, ref_params["text"], text_b),
+            ("image", image_out, ref.encode_image, ref_params["vision"], image_b)):
+        bad = 0
+        for got, x in zip(outs, batches):
+            want = fn(sub, x)
+            bad += sum(int((g != w).sum()) for g, w in zip(got, want))
+        differ[name] = bad
+        if bad:
+            failures.append(f"{name}: {bad} elements differ from the in-memory encoder's")
+    rule = clip_launch_rule(enc.text.config.n_layer, enc.vision.config.n_layer, len(text_b),
+                            len(image_b))
+    if CHECK_DEVICE == "cuda" and {"text": a_text, "image": a_image} != rule:
+        failures.append(f"A launched {a_text} times for text, {a_image} for images; "
+                        f"rule {rule}")
+    state["clip_encode_launches"] = {"flash_attention_fwd_clip_text": a_text,
+                                     "flash_attention_fwd_clip_vision": a_image}
+    del engine, ref_params, text_out, image_out
+    _free()
+    emit("clip_encode", text_layers=enc.text.config.n_layer,
+         vision_layers=enc.vision.config.n_layer, prompts=CLIP_PROMPTS,
+         text_batch=CLIP_TEXT_BATCH, images=CLIP_IMAGES, image_batch=CLIP_IMAGE_BATCH,
+         prompts_per_s=CLIP_PROMPTS / (sum(text_ms) / 1e3),
+         images_per_s=CLIP_IMAGES / (sum(image_ms) / 1e3), text_batch_ms=text_ms,
+         image_batch_ms=image_ms, peak_mem_gb=peak, elements_differ=differ,
+         checkpoint_bytes=written, write_s=write_s, load_s=load_s, disk_free_gb=free / 1e9,
+         launches=launches, launch_rule=rule)
+    check(not failures, "clip_encode failed: " + "; ".join(failures))
+
+
 def phase_kernels(state):
     res = state.get("kernel_results", {})
     serve = state.get("launches", {})
@@ -7680,6 +8633,9 @@ def phase_kernels(state):
     serve_stream = state.get("serve_stream_launches", {})
     serve_stream_nvme = state.get("serve_stream_nvme_launches", {})
     train_offload = state.get("train_offload_launches", {})
+    bert_serve = state.get("bert_serve_launches", {})
+    bert_train = state.get("bert_train_launches", {})
+    clip_encode = state.get("clip_encode_launches", {})
     rows = []
     meta = {
         "flash_attention_fwd": (
@@ -7761,6 +8717,18 @@ def phase_kernels(state):
         meta[kern + "_layout"] = (
             meta[kern][0], f"deepspeed_tpu/ops/pallas/flash_attention.py:{line} ({what} "
             "with has_layout: the block-sparse layout, _layout_spec :523)")
+        meta[kern + "_bert"] = (
+            meta[kern][0], f"deepspeed_tpu/ops/pallas/flash_attention.py:{line} ({what}; "
+            "BERT-large: head_dim 64, non-causal, a padding mask_bias)")
+    for tower in ("clip_text", "clip_vision"):
+        meta[f"flash_attention_fwd_{tower}"] = (
+            meta["flash_attention_fwd"][0],
+            "deepspeed_tpu/ops/pallas/flash_attention.py:127 (_fwd_kernel; CLIP ViT-L/14's "
+            + ("text tower: head_dim 64, S 77, causal)" if tower == "clip_text"
+               else "vision tower: head_dim 64, S 257, non-causal)"))
+    for kern in ("fused_ce_fwd", "fused_ce_ds", "fused_ce_dh_gemm", "fused_ce_dw_gemm"):
+        meta[kern + "_bert"] = (meta[kern][0], meta[kern][1] + "; BERT-large's tied MLM head "
+                                "with the decoder bias, V 30522")
     for name, (source, replaces) in meta.items():
         r = res.get(name, {})
         by_path = {p: n[name] for p, n in (("serve", serve), ("spec_serve", spec),
@@ -7780,7 +8748,10 @@ def phase_kernels(state):
                                            ("moe_train", moe_train),
                                            ("serve_stream", serve_stream),
                                            ("serve_stream_nvme", serve_stream_nvme),
-                                           ("train_offload", train_offload))
+                                           ("train_offload", train_offload),
+                                           ("bert_serve", bert_serve),
+                                           ("bert_train", bert_train),
+                                           ("clip_encode", clip_encode))
                    if name in n}
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                      "launches": sum(by_path.values()) if by_path else None,

@@ -125,6 +125,31 @@ def params_to_jax(cfg: TransformerConfig, tree) -> Dict[str, Any]:
     return out
 
 
+def clip_params_from_jax(model, tree: Dict[str, Any], dtype=torch.float32) -> ParamTree:
+    """A ``DSClipEncoder``'s tree from the JAX package's two-tower tree
+    (``{"text", "vision", ["logit_scale"]}``, numpy leaves): each tower by
+    :func:`params_from_jax` with its own config, ``logit_scale`` as is. A
+    ``BertModel``'s or a single tower's tree goes through
+    :func:`params_from_jax` with ``model.config``."""
+    out = {name: params_from_jax(getattr(model, name).config, tree[name], dtype).to_dict()
+           for name in ("text", "vision") if name in tree}
+    if "logit_scale" in tree:
+        out["logit_scale"] = _tensor(tree["logit_scale"], dtype)
+    return ParamTree(out)
+
+
+def clip_params_to_jax(model, tree) -> Dict[str, Any]:
+    """:func:`clip_params_from_jax` back: the JAX package's two-tower tree."""
+    if isinstance(tree, ParamTree):
+        tree = tree.to_dict()
+    out = {name: params_to_jax(getattr(model, name).config, tree[name])
+           for name in ("text", "vision") if name in tree}
+    if "logit_scale" in tree:
+        out["logit_scale"] = torch.as_tensor(tree["logit_scale"]).detach().to(
+            "cpu", torch.float32).numpy()
+    return out
+
+
 def _find(state, attrs=("mu", "nu", "count")):
     """The node of a JAX optimizer state that holds ``attrs`` (the state
     itself, or an element of an optax chain's tuple)."""

@@ -297,6 +297,9 @@ def _serve(argv):
     except NotImplementedError as e:     # a setting outside the port: its ROADMAP item
         print(e, file=sys.stderr)
         return 2
+    except ValueError as e:              # a model the loop cannot serve (an encoder)
+        print(e, file=sys.stderr)
+        return 2
 
 
 def _not_ported(cmd):

@@ -576,8 +576,18 @@ class InferenceEngine:
         return torch.multinomial(probs, 1, generator=generator)[:, 0]
 
     def _reject_encoders(self, what: str) -> None:
-        """Generation needs a causal LM."""
-        if getattr(getattr(self.module, "config", None), "causal", True) is False:
+        """Generation needs a causal LM: an encoder run autoregressively
+        (bidirectional attention, or hidden states for logits) is refused,
+        by its class or by a zoo config with ``causal=False`` (the JAX
+        engine's check; ``BertConfig`` has no ``causal`` field, its
+        ``zoo_cfg`` has)."""
+        from deepspeed_tpu_torch.models.bert import BertModel
+        from deepspeed_tpu_torch.models.clip import (CLIPTextEncoder, CLIPVisionEncoder,
+                                                     DSClipEncoder)
+        zoo_cfg = getattr(self.module, "zoo_cfg", getattr(self.module, "config", None))
+        if (isinstance(self.module, (BertModel, CLIPTextEncoder, CLIPVisionEncoder,
+                                     DSClipEncoder))
+                or getattr(zoo_cfg, "causal", True) is False):
             raise ValueError(f"{type(self.module).__name__} is an encoder; {what} requires a "
                              "causal LM; use engine.forward for hidden states / MLM logits")
 
@@ -892,6 +902,7 @@ class InferenceEngine:
         and ``on_finish(req)`` fires once per retired request, both on the
         serving thread. ``retain_finished=False`` drops retired requests
         from ``sched.finished`` once ``on_finish`` has seen them."""
+        self._reject_encoders("a serving session")
         if self._active_session is not None:
             raise RuntimeError(
                 "another serving session is active on this engine (an "

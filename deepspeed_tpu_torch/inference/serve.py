@@ -1147,8 +1147,9 @@ def serve_main(argv=None, model=None, params=None,
         prog="python -m deepspeed_tpu_torch.cli serve",
         description="OpenAI-style completions endpoint over the paged "
                     "continuous-batching engine (token-id prompts)")
-    parser.add_argument("--model", default="gpt2:125m",
-                        help="model zoo preset, e.g. gpt2:125m, llama:7b, llama:tiny")
+    parser.add_argument("--model", default=None,
+                        help="model zoo preset, e.g. gpt2:125m, llama:7b, llama:tiny "
+                             "(default: the --checkpoint's own model, else gpt2:125m)")
     parser.add_argument("--checkpoint", default=None,
                         help="HF checkpoint dir/file to load weights from "
                              "(default: seeded random weights)")
@@ -1205,9 +1206,10 @@ def serve_main(argv=None, model=None, params=None,
 
     import deepspeed_tpu_torch
 
-    if model is None:
+    if model is None and (args.model or not args.checkpoint):
+        # a checkpoint without --model serves the model its policy builds
         from deepspeed_tpu_torch.models.presets import get_model
-        name, _, size = args.model.partition(":")
+        name, _, size = (args.model or "gpt2:125m").partition(":")
         model = get_model(name, *([size] if size else []))
     serving_cfg = {"block_size": args.block_size,
                    "max_running": args.max_running,
@@ -1282,7 +1284,7 @@ def serve_main(argv=None, model=None, params=None,
                                  ctl=ctl).start()
     server = build_http_server(serving, host=args.host, port=args.port)
     host, port = server.server_address[:2]
-    print(f"dscli serve: {args.model} listening on "
+    print(f"dscli serve: {args.model or type(engine.module).__name__} listening on "
           f"http://{host}:{port}/v1/completions "
           f"(policy={serving.policy.name}, device={engine.device}, replicas={n_rep}, "
           f"max_running={args.max_running}; metrics at /metrics)",

@@ -91,8 +91,10 @@ class _TensorSource:
 def load_hf_checkpoint(path: str, model_type: Optional[str] = None, dtype=torch.float32,
                        config_overrides: Optional[Dict] = None, device="cpu"):
     """Load an HF checkpoint directory (or a single weights file with a
-    config.json beside it) into ``(CausalLM, ParamTree)``, the tree's
-    floating-point tensors in ``dtype`` on ``device``.
+    config.json beside it) into ``(model, ParamTree)``, the tree's
+    floating-point tensors in ``dtype`` on ``device``. The model is the
+    policy's (``HFPolicy.build_model``: ``BertModel``, a CLIP encoder or
+    ``DSClipEncoder`` for the encoder families), else ``CausalLM(cfg)``.
 
     ``model_type`` defaults to config.json's. Each tensor streams from its
     shard to the device on its own. ``config_overrides`` tweak the model
@@ -119,7 +121,8 @@ def load_hf_checkpoint(path: str, model_type: Optional[str] = None, dtype=torch.
                     copy=True)
 
     try:
-        params = ParamTree(policy.map_params(get, cfg))
+        tree = policy.map_params(get, cfg)
     finally:
         src.close()
-    return CausalLM(cfg), params
+    model = policy.build_model(cfg, hf_cfg, tree)
+    return (CausalLM(cfg) if model is None else model), ParamTree(tree)

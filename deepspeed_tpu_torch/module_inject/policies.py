@@ -16,8 +16,8 @@ fp32 and then cast. Conventions of the layout:
   head layout ([H, 3, Hd] for bloom / neox: a plain reshape would
   interleave q/k/v).
 
-Encoder families (distilbert, bert, clip) need models the port has not
-ported yet and raise naming their ROADMAP item."""
+Decoder families load into ``CausalLM``; the encoder families (distilbert,
+bert, clip) return their own model from :meth:`HFPolicy.build_model`."""
 
 from __future__ import annotations
 
@@ -26,7 +26,6 @@ from typing import Any, Callable, Dict
 import torch
 
 from deepspeed_tpu_torch.models.transformer import TransformerConfig
-from deepspeed_tpu_torch.utils.not_ported import not_ported
 
 Getter = Callable[[str], torch.Tensor]
 
@@ -72,7 +71,7 @@ def _norm(get: Getter, prefix: str, bias: bool = True) -> Dict[str, torch.Tensor
 
 class HFPolicy:
     """Base policy: subclasses define ``model_type``, ``zoo_config`` and
-    ``map_params``."""
+    ``map_params``; the encoder families also override ``build_model``."""
 
     model_type: str = ""
 
@@ -81,6 +80,11 @@ class HFPolicy:
 
     def map_params(self, get: Getter, cfg: TransformerConfig) -> Dict:
         raise NotImplementedError
+
+    def build_model(self, cfg: TransformerConfig, hf: Dict[str, Any], params: Dict):
+        """The model of the mapped params; None means ``CausalLM(cfg)`` (the
+        decoder families)."""
+        return None
 
 
 class GPT2Policy(HFPolicy):
@@ -428,25 +432,302 @@ class GPTNeoPolicy(HFPolicy):
                 "layers": _layers(cfg, layer), "ln_f": _norm(get, "ln_f")}
 
 
-class _NotPortedPolicy(HFPolicy):
-    """An HF family whose model the port has not ported yet: its config
-    raises naming the ROADMAP item that brings the model."""
+def _linear(get: Getter, name: str):
+    """An HF ``nn.Linear``'s weight, transposed to [in, out], and its bias."""
+    return _t(get(name + ".weight")), get(name + ".bias")
 
-    def __init__(self, model_type: str, item: str):
-        self.model_type = model_type
-        self._item = item
+
+def _has(get: Getter, name: str) -> bool:
+    try:
+        get(name)
+        return True
+    except KeyError:
+        return False
+
+
+def _zeros(like: torch.Tensor, *shape) -> torch.Tensor:
+    return torch.zeros(shape, dtype=like.dtype, device=like.device)
+
+
+def _encoder_layer(get: Getter, names: Dict[str, str]) -> Dict:
+    """One post-LN or pre-LN encoder layer from its HF tensor names (key ->
+    HF module name)."""
+    out = {"attn": {}, "mlp": {}}
+    for key, (group, w, b) in (("q", ("attn", "wq", "bq")), ("k", ("attn", "wk", "bk")),
+                               ("v", ("attn", "wv", "bv")), ("o", ("attn", "wo", "bo")),
+                               ("up", ("mlp", "w_up", "b_up")),
+                               ("down", ("mlp", "w_down", "b_down"))):
+        out[group][w], out[group][b] = _linear(get, names[key])
+    out["ln_attn"] = _norm(get, names["ln_attn"])
+    out["ln_mlp"] = _norm(get, names["ln_mlp"])
+    return out
+
+
+class DistilBertPolicy(HFPolicy):
+    """HF ``distilbert``: a BERT encoder without token-type embeddings or
+    pooler; the MLM head (vocab_transform, vocab_layer_norm and the tied
+    vocab_projector) maps onto ``BertModel``'s mlm block. Serves through
+    ``BertModel``'s fill-mask surface."""
+
+    model_type = "distilbert"
 
     def zoo_config(self, hf):
-        not_ported(f"HF {self.model_type} checkpoints", self._item)
+        act = {"gelu": "gelu_exact", "relu": "relu"}.get(hf.get("activation", "gelu"))
+        if act is None:
+            raise ValueError(f"unsupported distilbert activation {hf.get('activation')!r}")
+        return TransformerConfig(
+            vocab_size=hf["vocab_size"], n_layer=hf["n_layers"], n_head=hf["n_heads"],
+            d_model=hf["dim"], d_ff=hf["hidden_dim"],
+            max_seq=hf.get("max_position_embeddings", 512), pos_embedding="learned",
+            norm="layernorm", norm_position="post", activation=act, causal=False,
+            attn_bias=True, tie_embeddings=True, norm_eps=1e-12)
+
+    def build_model(self, cfg, hf, params):
+        from deepspeed_tpu_torch.models.bert import BertConfig, BertModel
+        bc = BertConfig(vocab_size=cfg.vocab_size, max_seq=cfg.max_seq, n_layer=cfg.n_layer,
+                        n_head=cfg.n_head, d_model=cfg.d_model, d_ff=cfg.d_ff,
+                        type_vocab_size=1, norm_eps=1e-12, activation=cfg.activation)
+        return BertModel(bc, with_mlm_head="mlm" in params)
+
+    def map_params(self, raw_get, cfg):
+        get = _prefixed(raw_get, "distilbert.")
+
+        def layer(i):
+            p = f"transformer.layer.{i}."
+            a = p + "attention."
+            return _encoder_layer(get, {
+                "q": a + "q_lin", "k": a + "k_lin", "v": a + "v_lin", "o": a + "out_lin",
+                "up": p + "ffn.lin1", "down": p + "ffn.lin2",
+                "ln_attn": p + "sa_layer_norm", "ln_mlp": p + "output_layer_norm"})
+
+        tokens = get("embeddings.word_embeddings.weight")
+        D = cfg.d_model
+        out = {
+            "embed": {"tokens": tokens,
+                      "positions": get("embeddings.position_embeddings.weight"),
+                      # no token types in distilbert: one all-zero row (index 0)
+                      "token_type": _zeros(tokens, 1, D),
+                      "ln": _norm(get, "embeddings.LayerNorm")},
+            "layers": _layers(cfg, layer),
+            # no pooler either: zero weights make pooled = tanh(0)
+            "pooler": {"w": _zeros(tokens, D, D), "b": _zeros(tokens, D)},
+        }
+        if _has(raw_get, "vocab_transform.weight"):     # DistilBertForMaskedLM
+            w, b = _linear(raw_get, "vocab_transform")
+            out["mlm"] = {"w": w, "b": b, "ln": _norm(raw_get, "vocab_layer_norm"),
+                          "decoder_bias": raw_get("vocab_projector.bias")}
+        return out
+
+
+class BertPolicy(HFPolicy):
+    """HF ``bert``: the post-LN encoder with token-type embeddings, an
+    optional pooler and an optional MLM head (``cls.predictions.*``, the
+    decoder tied to the word embeddings). Serves through ``BertModel``'s
+    fill-mask / feature surface."""
+
+    model_type = "bert"
+
+    _ACTS = {"gelu": "gelu_exact", "gelu_new": "gelu", "gelu_pytorch_tanh": "gelu",
+             "relu": "relu"}
+
+    def zoo_config(self, hf):
+        pet = hf.get("position_embedding_type", "absolute")
+        if pet != "absolute":
+            raise ValueError(f"unsupported BERT position_embedding_type {pet!r}")
+        act = self._ACTS.get(hf.get("hidden_act", "gelu"))
+        if act is None:
+            raise ValueError(f"unsupported BERT hidden_act {hf.get('hidden_act')!r}")
+        return TransformerConfig(
+            vocab_size=hf["vocab_size"], n_layer=hf["num_hidden_layers"],
+            n_head=hf["num_attention_heads"], d_model=hf["hidden_size"],
+            d_ff=hf["intermediate_size"], max_seq=hf.get("max_position_embeddings", 512),
+            pos_embedding="learned", norm="layernorm", norm_position="post",
+            activation=act, causal=False, attn_bias=True, tie_embeddings=True,
+            norm_eps=hf.get("layer_norm_eps", 1e-12))
+
+    def build_model(self, cfg, hf, params):
+        from deepspeed_tpu_torch.models.bert import BertConfig, BertModel
+        bc = BertConfig(vocab_size=cfg.vocab_size, max_seq=cfg.max_seq, n_layer=cfg.n_layer,
+                        n_head=cfg.n_head, d_model=cfg.d_model, d_ff=cfg.d_ff,
+                        type_vocab_size=hf.get("type_vocab_size", 2), norm_eps=cfg.norm_eps,
+                        activation=cfg.activation)
+        return BertModel(bc, with_mlm_head="mlm" in params)
+
+    def map_params(self, raw_get, cfg):
+        def get(name):   # task-head checkpoints carry a "bert." prefix
+            try:
+                return raw_get("bert." + name)
+            except KeyError:
+                return raw_get(name)
+
+        def layer(i):
+            p = f"encoder.layer.{i}."
+            a = p + "attention."
+            return _encoder_layer(get, {
+                "q": a + "self.query", "k": a + "self.key", "v": a + "self.value",
+                "o": a + "output.dense", "up": p + "intermediate.dense",
+                "down": p + "output.dense", "ln_attn": a + "output.LayerNorm",
+                "ln_mlp": p + "output.LayerNorm"})
+
+        tokens = get("embeddings.word_embeddings.weight")
+        out = {
+            "embed": {"tokens": tokens,
+                      "positions": get("embeddings.position_embeddings.weight"),
+                      "token_type": get("embeddings.token_type_embeddings.weight"),
+                      "ln": _norm(get, "embeddings.LayerNorm")},
+            "layers": _layers(cfg, layer),
+        }
+        if _has(get, "pooler.dense.weight"):
+            w, b = _linear(get, "pooler.dense")
+            out["pooler"] = {"w": w, "b": b}
+        else:       # headless / MLM-only checkpoints ship no pooler
+            from deepspeed_tpu_torch.utils.logging import warn_once
+            warn_once("BERT checkpoint has no pooler (add_pooling_layer="
+                      "False / MLM-only); pooled output will be tanh(0) "
+                      "zeros — use the hidden states or the MLM head")
+            D = cfg.d_model
+            out["pooler"] = {"w": _zeros(tokens, D, D), "b": _zeros(tokens, D)}
+        if _has(raw_get, "cls.predictions.transform.dense.weight"):     # BertForMaskedLM
+            w, b = _linear(raw_get, "cls.predictions.transform.dense")
+            out["mlm"] = {"w": w, "b": b, "ln": _norm(raw_get, "cls.predictions.transform.LayerNorm"),
+                          "decoder_bias": raw_get("cls.predictions.bias")}
+        return out
+
+
+class CLIPPolicy(HFPolicy):
+    """HF ``clip`` / ``clip_text_model`` / ``clip_vision_model``. Which towers
+    exist is probed from the checkpoint: a full ``CLIPModel`` maps to
+    ``DSClipEncoder`` with params ``{"text", "vision", ["logit_scale"]}``; a
+    standalone ``CLIPTextModel(WithProjection)`` or
+    ``CLIPVisionModel(WithProjection)`` maps to the bare encoder and its own
+    tree."""
+
+    model_type = "clip"
+
+    _ACTS = {"quick_gelu": "quick_gelu", "gelu": "gelu_exact", "gelu_new": "gelu",
+             "gelu_pytorch_tanh": "gelu"}
+
+    @classmethod
+    def _act(cls, sub):
+        act = cls._ACTS.get(sub.get("hidden_act", "quick_gelu"))
+        if act is None:
+            raise ValueError(f"unsupported CLIP hidden_act {sub.get('hidden_act')!r}")
+        return act
+
+    @classmethod
+    def _text_cfg(cls, tc, projection_dim=None):
+        from deepspeed_tpu_torch.models.clip import CLIPTextConfig
+        return CLIPTextConfig(
+            vocab_size=tc["vocab_size"], max_seq=tc.get("max_position_embeddings", 77),
+            n_layer=tc["num_hidden_layers"], n_head=tc["num_attention_heads"],
+            d_model=tc["hidden_size"], d_ff=tc["intermediate_size"],
+            norm_eps=tc.get("layer_norm_eps", 1e-5), activation=cls._act(tc),
+            projection_dim=projection_dim, eos_token_id=tc.get("eos_token_id", 2))
+
+    @classmethod
+    def _vision_cfg(cls, vc, projection_dim=None):
+        from deepspeed_tpu_torch.models.clip import CLIPVisionConfig
+        return CLIPVisionConfig(
+            image_size=vc.get("image_size", 224), patch_size=vc.get("patch_size", 32),
+            n_layer=vc["num_hidden_layers"], n_head=vc["num_attention_heads"],
+            d_model=vc["hidden_size"], d_ff=vc["intermediate_size"],
+            norm_eps=vc.get("layer_norm_eps", 1e-5), activation=cls._act(vc),
+            projection_dim=projection_dim)
+
+    def zoo_config(self, hf):
+        # the text tower governs the config handed to config_overrides (the
+        # vision dims go to build_model); a standalone tower carries its
+        # fields at the top level: text has vocab_size, vision patch_size
+        tc, vc = hf.get("text_config"), hf.get("vision_config")
+        if tc is None and vc is None:
+            tc = hf if "vocab_size" in hf else None
+            vc = hf if tc is None else None
+        if tc is not None:
+            return self._text_cfg(tc).zoo()
+        return self._vision_cfg(vc).zoo()
+
+    def build_model(self, cfg, hf, params):
+        from deepspeed_tpu_torch.models.clip import (CLIPTextEncoder, CLIPVisionEncoder,
+                                                     DSClipEncoder)
+        proj = hf.get("projection_dim")
+        text = vision = None
+        tparams = params.get("text", params if "layers" in params else None)
+        if tparams is not None and "embed" in tparams:
+            text = CLIPTextEncoder(self._text_cfg(
+                hf.get("text_config", hf), proj if "text_projection" in tparams else None))
+        vparams = params.get("vision", params if "patch_embed" in params else None)
+        if vparams is not None and "patch_embed" in vparams:
+            vision = CLIPVisionEncoder(self._vision_cfg(
+                hf.get("vision_config", hf), proj if "visual_projection" in vparams else None))
+        if text is not None and vision is not None:
+            return DSClipEncoder(text, vision)
+        return text if text is not None else vision
+
+    @staticmethod
+    def _n_layers(get, fmt):
+        n = 0
+        while _has(get, fmt.format(n)):
+            n += 1
+        return n
+
+    def _map_tower(self, get, pre):
+        """One tower's layers (the text and vision towers share the HF layer
+        schema)."""
+        lp = pre + "encoder.layers.{}."
+
+        def layer(i):
+            p = lp.format(i)
+            a = p + "self_attn."
+            return _encoder_layer(get, {
+                "q": a + "q_proj", "k": a + "k_proj", "v": a + "v_proj", "o": a + "out_proj",
+                "up": p + "mlp.fc1", "down": p + "mlp.fc2",
+                "ln_attn": p + "layer_norm1", "ln_mlp": p + "layer_norm2"})
+        return [layer(i) for i in range(self._n_layers(get, lp + "layer_norm1.weight"))]
+
+    def _map_text(self, get):
+        pre = "text_model."
+        return {"embed": {"tokens": get(pre + "embeddings.token_embedding.weight"),
+                          "positions": get(pre + "embeddings.position_embedding.weight")},
+                "layers": self._map_tower(get, pre),
+                "ln_f": _norm(get, pre + "final_layer_norm")}
+
+    def _map_vision(self, get):
+        pre = "vision_model."
+        # HF's conv patch embedding [D, C, ps, ps] -> [ps * ps * C, D], the
+        # patchify's (ps_h, ps_w, C) flattening order
+        w = get(pre + "embeddings.patch_embedding.weight")
+        return {"patch_embed": w.permute(2, 3, 1, 0).reshape(-1, w.shape[0]).contiguous(),
+                "class_token": get(pre + "embeddings.class_embedding"),
+                "positions": get(pre + "embeddings.position_embedding.weight"),
+                # sic: HF's attribute is spelled "pre_layrnorm"
+                "ln_pre": _norm(get, pre + "pre_layrnorm"),
+                "layers": self._map_tower(get, pre),
+                "ln_f": _norm(get, pre + "post_layernorm")}
+
+    def map_params(self, get, cfg):
+        has_text = _has(get, "text_model.embeddings.token_embedding.weight")
+        has_vision = _has(get, "vision_model.embeddings.class_embedding")
+        if not (has_text or has_vision):
+            raise KeyError("neither text_model.* nor vision_model.* weights found")
+        text = self._map_text(get) if has_text else None
+        vision = self._map_vision(get) if has_vision else None
+        if has_text and _has(get, "text_projection.weight"):
+            text["text_projection"] = _t(get("text_projection.weight"))
+        if has_vision and _has(get, "visual_projection.weight"):
+            vision["visual_projection"] = _t(get("visual_projection.weight"))
+        if has_text and has_vision:      # a full CLIPModel
+            out = {"text": text, "vision": vision}
+            if _has(get, "logit_scale"):
+                out["logit_scale"] = get("logit_scale")
+            return out
+        return text if has_text else vision
 
 
 POLICIES: Dict[str, HFPolicy] = {
     p.model_type: p() for p in (GPT2Policy, LlamaPolicy, BloomPolicy, OPTPolicy,
-                                GPTNeoXPolicy, GPTJPolicy, GPTNeoPolicy)
+                                GPTNeoXPolicy, GPTJPolicy, GPTNeoPolicy,
+                                DistilBertPolicy, BertPolicy, CLIPPolicy)
 }
-for _mt, _item in (("distilbert", "queue 1: models/bert.py"), ("bert", "queue 1: models/bert.py"),
-                   ("clip", "queue 1: models/clip.py")):
-    POLICIES[_mt] = _NotPortedPolicy(_mt, _item)
 # standalone HF tower checkpoints carry their own model_type strings
 POLICIES["clip_text_model"] = POLICIES["clip"]
 POLICIES["clip_vision_model"] = POLICIES["clip"]

@@ -20,7 +20,6 @@ from typing import Any, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from deepspeed_tpu_torch.utils.not_ported import not_ported
 
 
 def pad_to_block_size(block_size: int, input_ids, attention_mask=None, token_type_ids=None,
@@ -87,11 +86,17 @@ def replace_self_attention(model, sparsity_config, max_seq: Optional[int] = None
     """A new model whose every layer runs block-sparse attention over
     ``sparsity_config``'s layout (reference
     ``replace_model_self_attention_with_sparse_self_attention``). Takes the
-    port's ``CausalLM``; ``max_seq`` raises its sequence limit at the same
-    time (pair it with :func:`extend_position_embedding`)."""
+    port's ``CausalLM`` and ``BertModel``; ``max_seq`` raises its sequence
+    limit at the same time (pair it with :func:`extend_position_embedding`)."""
+    from deepspeed_tpu_torch.models.bert import BertModel
     from deepspeed_tpu_torch.models.causal_lm import CausalLM
-    if type(model).__name__ == "BertModel":
-        not_ported("sparse attention on BertModel", "queue 1: models/bert.py")
+    if isinstance(model, BertModel):
+        bc = model.config
+        if max_seq is not None:
+            bc = dataclasses.replace(bc, max_seq=max_seq)
+        out = BertModel(bc, with_mlm_head=model.with_mlm_head, param_dtype=model.param_dtype)
+        out.zoo_cfg = dataclasses.replace(out.zoo_cfg, sparse_attention=sparsity_config)
+        return out
     if isinstance(model, CausalLM):
         over = {"sparse_attention": sparsity_config}
         if max_seq is not None:

@@ -119,14 +119,12 @@ def test_module_entry_point_and_usage(capsys, tmp_path):
     assert "usage: python -m deepspeed_tpu_torch.cli" in capsys.readouterr().out
     assert cli.main(["frobnicate"]) == 2
     assert set(cli.COMMANDS) == set(jax_cli._COMMANDS)
-    # serve runs; a setting outside the port (an HF bert checkpoint) is
-    # refused naming its item
-    (tmp_path / "config.json").write_text(json.dumps({"model_type": "bert"}))
-    out = subprocess.run([sys.executable, "-m", "deepspeed_tpu_torch.cli", "serve",
-                          "--device", "cpu", "--checkpoint", str(tmp_path)], cwd=ROOT,
-                         capture_output=True, text=True, timeout=120,
+    # from the command line, a command outside the port (run, the
+    # launcher) is refused naming its item
+    out = subprocess.run([sys.executable, "-m", "deepspeed_tpu_torch.cli", "run",
+                          "train.py"], cwd=ROOT, capture_output=True, text=True, timeout=120,
                          env={**os.environ, "PYTHONPATH": ROOT})
-    assert out.returncode == 2 and "queue 1: models/bert.py" in out.stderr
+    assert out.returncode == 2 and "launcher/" in out.stderr
 
 
 def test_serve_streams_a_completion_and_drains_on_sigterm():

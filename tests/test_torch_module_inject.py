@@ -9,7 +9,9 @@ JAX loader's fp32 tree, its config equals the JAX policy's field for field,
 and its fp32 logits are within ``TOL`` absolute of the JAX model's (the
 JAX package's own tests hold its loader to ``transformers``). Also: the
 policies' rejections raise the JAX package's exception types; bert,
-distilbert and clip raise naming their ROADMAP item; sharded indexes over
+distilbert and clip build the JAX policy's configs and model classes
+(``tests/test_torch_encoder_inject.py`` holds their weights and outputs);
+sharded indexes over
 safetensors and torch ``.bin``; a shard missing from disk or from the index
 raises; the reader equals ``safetensors.numpy.load_file`` bit for bit for
 every dtype it takes and refuses the others by name; a bf16 load equals the
@@ -228,13 +230,49 @@ def test_unknown_architecture_raises_like_jax(tmp_path):
     assert "no ingestion policy" in str(err)
 
 
+_TEXT = {"vocab_size": 64, "max_position_embeddings": 16, "num_hidden_layers": 2,
+         "num_attention_heads": 2, "hidden_size": 32, "intermediate_size": 64,
+         "hidden_act": "quick_gelu", "eos_token_id": 2}
+_VISION = {"image_size": 32, "patch_size": 8, "num_hidden_layers": 2, "num_attention_heads": 2,
+           "hidden_size": 32, "intermediate_size": 64, "hidden_act": "quick_gelu"}
+_TOWER = {"embed": {}, "layers": [], "text_projection": 0}
+_VTOWER = {"patch_embed": 0, "layers": [], "visual_projection": 0}
+_ENCODERS = {
+    "bert": ({"vocab_size": 64, "num_hidden_layers": 2, "num_attention_heads": 2,
+              "hidden_size": 32, "intermediate_size": 64, "max_position_embeddings": 64,
+              "hidden_act": "gelu", "layer_norm_eps": 1e-12, "type_vocab_size": 2},
+             {"mlm": {}}),
+    "distilbert": ({"vocab_size": 64, "n_layers": 2, "n_heads": 2, "dim": 32,
+                    "hidden_dim": 64, "max_position_embeddings": 64, "activation": "relu"},
+                   {}),
+    "clip": ({"text_config": _TEXT, "vision_config": _VISION, "projection_dim": 16},
+             {"text": _TOWER, "vision": _VTOWER}),
+    "clip_text_model": (_TEXT, _TOWER),
+    "clip_vision_model": (_VISION, _VTOWER),
+}
+
+
 @pytest.mark.parametrize("model_type,item", [
-    ("bert", "models/bert.py"), ("distilbert", "models/bert.py"), ("clip", "models/clip.py"),
-    ("clip_text_model", "models/clip.py"), ("clip_vision_model", "models/clip.py")])
+    ("bert", "BertModel"), ("distilbert", "BertModel"), ("clip", "DSClipEncoder"),
+    ("clip_text_model", "CLIPTextEncoder"), ("clip_vision_model", "CLIPVisionEncoder")])
 def test_encoder_families_raise_naming_their_item(model_type, item):
+    """The encoder families the port once refused: the policy's config
+    equals the JAX policy's field for field, and its model is the JAX
+    policy's model class, built with the same configs."""
+    hf, tree = _ENCODERS[model_type]
     assert model_type in POLICIES
-    with pytest.raises(NotImplementedError, match=item):
-        policy_for(model_type).zoo_config({})
+    pol, jpol = policy_for(model_type), jax_policy_for(model_type)
+    cfg, jcfg = pol.zoo_config(hf), jpol.zoo_config(hf)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+    model, jmodel = pol.build_model(cfg, hf, tree), jpol.build_model(jcfg, hf, tree)
+    assert type(model).__name__ == type(jmodel).__name__ == item
+    towers = [(model.text, jmodel.text), (model.vision, jmodel.vision)] \
+        if item == "DSClipEncoder" else [(model, jmodel)]
+    for m, jm in towers:
+        assert dataclasses.asdict(m.config) == dataclasses.asdict(jm.config)
+        assert dataclasses.asdict(m.zoo_cfg) == dataclasses.asdict(jm.zoo_cfg)
+    if item == "BertModel":
+        assert model.with_mlm_head == jmodel.with_mlm_head == (model_type == "bert")
 
 
 def _shard(d_src, d_dst, fmt):

@@ -300,7 +300,7 @@ def test_extend_position_embedding_on_a_gpt2_tree():
 
 
 def test_replace_self_attention_and_its_rejections():
-    from deepspeed_tpu.models.bert import BertConfig, BertModel
+    from deepspeed_tpu_torch.models.bert import BertConfig, BertModel
     model = CausalLM(TransformerConfig(**GPT2))
     sc = psa.FixedSparsityConfig(num_heads=2, block=16)
     sparse = psa.replace_self_attention(model, sc, max_seq=64)
@@ -308,9 +308,15 @@ def test_replace_self_attention_and_its_rejections():
     assert sparse.config.sparse_attention is sc and sparse.config.max_seq == 64
     assert model.config.sparse_attention is None and model.config.max_seq == 32
     assert psa.replace_self_attention(model, sc).config.max_seq == 32
-    with pytest.raises(NotImplementedError, match="models/bert.py"):
-        psa.replace_self_attention(BertModel(BertConfig(vocab_size=32, n_layer=1, n_head=2,
-                                                        d_model=32, d_ff=64)), sc)
+    # the port's BertModel is sparsified through its backbone config, as
+    # the JAX package does it
+    bert = BertModel(BertConfig(vocab_size=32, n_layer=1, n_head=2, d_model=32, d_ff=64),
+                     with_mlm_head=True)
+    sparse_bert = psa.replace_self_attention(bert, sc, max_seq=1024)
+    assert type(sparse_bert) is BertModel and sparse_bert.with_mlm_head
+    assert sparse_bert.zoo_cfg.sparse_attention is sc and sparse_bert.config.max_seq == 1024
+    assert sparse_bert.zoo_cfg.max_seq == 1024 and not sparse_bert.zoo_cfg.causal
+    assert bert.zoo_cfg.sparse_attention is None and bert.config.max_seq == 512
     with pytest.raises(TypeError, match="cannot sparsify"):
         psa.replace_self_attention(torch.nn.Linear(2, 2), sc)
 
