@@ -296,7 +296,7 @@ Phases, each printing one JSON line:
                 decode step, tokens/s and peak beside the resident engine's,
                 the stream's GB/s against one plain pinned copy's, the copy
                 stream's busy share of a decode step, host RSS
-  serve_stream_nvme  the same model cut to 8 layers with device "nvme" under
+  serve_stream_nvme  the same model cut to 4 layers with device "nvme" under
                 .zero_inference/ (free disk checked first): rows equal to the
                 cpu-mode streamed engine (limit 0), K5 = L x 15, the swap dir
                 gone once the engine is released; the layer files' read GB/s
@@ -305,7 +305,7 @@ Phases, each printing one JSON line:
                 offload_optimizer.device "cpu" (OFFLOAD_LAYERS layers, the host
                 state within 60 % of MemTotal), 1 + 5 steps: losses finite and
                 falling, A = 2 L gas, C = D = L gas, each K3 kernel gas, E 0 a
-                step; at 8 layers against the device optimizer (E) from the
+                step; at 4 layers against the device optimizer (E) from the
                 same seeded state: grads at steps 1-2 equal (limit 0), masters
                 after step 2 within 1e-6 of each leaf's largest; the masters
                 following load_module_state_dict, and not refreshed planted
@@ -350,12 +350,47 @@ Phases, each printing one JSON line:
                 images/s, ms a batch, peak memory; leaves and both towers'
                 outputs equal to the in-memory encoders' (limit 0), A = 12 a
                 text batch and 24 an image batch
+  compress_parity  the compression path, card against CPU: 1 layer at
+                BERT-large's width, every technique's compress_params leaves
+                (fp32) and the compress_train path's (bf16), redundancy_clean
+                and student_initialization bit-equal (limit 0; the sparse
+                threshold at k + 1 above it, head pruning raising alike on
+                the stacked leaf), the compressed MLM logits on [4, 512]
+                within LOGIT_ULP_TOL (the sparse mask left out above it),
+                the compressed loss's gradients within train_parity's limit
+                (an STE with a zero gradient above it); 1 layer at
+                Llama-2-7B's width in fp32 with 4-bit activation fake-quant:
+                leaves bit-equal, logits within LOGIT_ULP_TOL (the MLP's
+                fake-quant left out above it), the act-quant transition
+                through the engine (A 2, C, D, each K3 kernel 1 a step);
+                Eigenvalue._power_iterate from one v0, 5 iterations within
+                1e-3 relative (the mask not applied to the HVP above it)
+  compress_train  a 12-layer student of the seeded BERT-large (teacher
+                layers 1, 3, ..., 23 through student_initialization),
+                init_compression with 8-bit grouped weight quant on attn and
+                mlp from step 0 and l1 sparse pruning (0.5) on mlp from step
+                4, trained as bert_train for 6 steps with the
+                CompressionScheduler: losses finite and falling, each
+                technique active from its offset, per step A, C, D 12, F, G,
+                dh, dW 1, E once a leaf; step ms (the transitions marked),
+                tokens/s, MFU, compress_params ms, peak; redundancy_clean of
+                the trained params served fill-mask, every masked top-1 the
+                CompressedModel's (limit 0), A 12 a batch
+  moq_eigenvalue  BERT-large (24 layers, fp32, plain attention, micro 2 x
+                512) with quantize_training 12 -> 8 bits, stochastic (K8),
+                and its eigenvalue schedule over 24 layer blocks: the
+                eigenvalues computed at both steps, each block's value and
+                iterations, the HVPs' ms; every period after a switch the
+                factor rule of the step's own mean (limit 0), per step E
+                once a leaf and K8 and its absmax once a quantized leaf, no
+                A, C, D or K3 inside the HVPs
   kernels       every ported kernel with its launches in the serve, spec_serve
                 (its oracle run), generate, train, train_lamb, train_sparse,
                 resume, ingest, telemetry, client_opt, health, serve_async,
                 serve_tier, serve_fleet, serve_gptj, serve_int8, train_gptj,
                 moe_generate, moe_train, serve_stream, serve_stream_nvme,
-                train_offload, bert_serve, bert_train and clip_encode phases
+                train_offload, bert_serve, bert_train, clip_encode,
+                compress_train and moq_eigenvalue phases
                 (the encoder shapes in rows of their own; A, C and D with a
                 layout in
                 rows of their own, as A, B, C, D and K5 at head_dim 256; C's
@@ -402,7 +437,8 @@ PHASES = ("env", "build", "kernel", "slice_parity", "serve", "serve_async", "ser
           "train_lamb", "sparse_parity",
           "train_sparse", "resume", "ingest", "telemetry", "client_opt", "health",
           "serve_stream", "serve_stream_nvme", "train_offload", "encoder_parity",
-          "bert_serve", "bert_train", "clip_encode", "kernels",
+          "bert_serve", "bert_train", "clip_encode", "compress_parity", "compress_train",
+          "moq_eigenvalue", "kernels",
           "profile",
           "train_profile", "train_lamb_profile", "generate_profile", "train_sparse_profile",
           "health_profile")
@@ -3361,6 +3397,7 @@ def _train_parity(phase, seed, model, B, S, faults, steps=3, batch_fn=None, grad
     import numpy as np
     import torch
 
+    mcfg = getattr(model, "config_model", model.config)     # a CompressedModel's model config
     gen = torch.Generator(device=CHECK_DEVICE).manual_seed(seed)
     init = model.init_params(gen, device=CHECK_DEVICE, dtype=torch.float32)
     if prepare is not None:
@@ -3373,7 +3410,7 @@ def _train_parity(phase, seed, model, B, S, faults, steps=3, batch_fn=None, grad
     del init
     cpu = _train_engine(model, cpu_init, cpu_config, device="cpu")
     rng = np.random.default_rng(seed + 3)
-    batch_fn = batch_fn or (lambda r: {"input_ids": r.integers(0, model.config.vocab_size,
+    batch_fn = batch_fn or (lambda r: {"input_ids": r.integers(0, mcfg.vocab_size,
                                                                size=(B, S))})
     batches = [batch_fn(rng) for _ in range(max(steps, 1))]
     failures = []
@@ -3420,7 +3457,7 @@ def _train_parity(phase, seed, model, B, S, faults, steps=3, batch_fn=None, grad
             failures.append(f"leaf {worst} update differs by {updates[worst]} of the CPU's")
     del gpu, cpu
     _free()
-    emit(phase, layers=model.config.n_layer, d_model=model.config.d_model,
+    emit(phase, layers=mcfg.n_layer, d_model=mcfg.d_model,
          batch=[B, S], steps=steps, grad_floor=grad_floor,
          grad_rel_diff_worst={worst_g: grads[worst_g]},
          grad_rel_diff_median=float(np.median(list(grads.values()))), grad_tol=PARITY_GRAD_TOL,
@@ -7285,7 +7322,7 @@ def phase_serve_int8(state, seed):
 
 STREAM_DTYPE = "bf16"
 STREAM_MAX_NEW = 16             # serve_stream: generate's [8, 512] batch, cut 64 -> 16 new (time)
-STREAM_NVME_LAYERS = 8          # serve_stream_nvme: Llama-2-7B cut 32 -> 8 layers (disk, time)
+STREAM_NVME_LAYERS = 4          # serve_stream_nvme: Llama-2-7B cut 32 -> 4 layers (disk, time)
 STREAM_TF_ROWS = 2              # rows of the output held teacher-forced
 STREAM_PEAK_MARGIN = 1.5e9      # device peak over embedding + head + 2 layers + KV workspace
 STREAM_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), ".zero_inference")
@@ -7293,9 +7330,10 @@ OFFLOAD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), ".offload
 # train_offload's depth: 18 B a parameter of host state within 60 % of the
 # card machine's MemTotal (108.4 GB): 16 layers (3.50 B parameters, 63.0
 # GB) fit, 24 do not; cut to 12 (2.69 B, 48.4 GB) after a default run at
-# 16 took 1155.7 s of its 1200 (PERF.md section 4)
-OFFLOAD_LAYERS = 12
-OFFLOAD_CHECK_LAYERS = 8        # the depth held against the E engine
+# 16 took 1155.7 s of its 1200, and to 8 (1.88 B, 33.8 GB) when the
+# compression phases added 62 s to a 1112.6 s run (PERF.md section 4)
+OFFLOAD_LAYERS = 8              # train_offload: Llama-2-7B cut 32 -> 8 layers (the run's clock)
+OFFLOAD_CHECK_LAYERS = 4        # the depth held against the E engine (8 before the compression phases)
 OFFLOAD_NVME_LAYERS = 2         # the NVMe run held bit-equal to cpu mode
 OFFLOAD_NVME_STEPS = 3
 # host bytes a parameter under ZeRO-Offload: fp32 master and two moments, the
@@ -8609,6 +8647,698 @@ def phase_clip_encode(state, seed):
     check(not failures, "clip_encode failed: " + "; ".join(failures))
 
 
+# ----------------------------------------------------------------------- #
+# compression: QAT fake-quant, pruning, layer reduction, the MoQ eigenvalue
+# schedule (compress_parity, compress_train, moq_eigenvalue)
+
+COMPRESS_STUDENT_LAYERS = 12            # BERT-large's 24 reduced to every second layer
+COMPRESS_STEPS = 6
+COMPRESS_SERVE_REQUESTS = 16            # one fill-mask batch of the served student
+COMPRESS_GROUPS = 64                    # weight quant groups over each flattened stacked leaf
+COMPRESS_CONFIG = {"compression_training": {
+    "layer_reduction": {"enabled": True, "keep_number_layer": COMPRESS_STUDENT_LAYERS,
+                        "teacher_layer": list(range(1, 24, 2))},
+    "weight_quantization": {
+        "shared_parameters": {"enabled": True, "quantize_groups": COMPRESS_GROUPS,
+                              "quantization_type": "symmetric", "schedule_offset": 0},
+        "different_groups": {"wq": {"params": {"start_bits": 8, "target_bits": 8},
+                                    "modules": ["attn", "mlp"]}}},
+    "sparse_pruning": {
+        "shared_parameters": {"enabled": True, "method": "l1", "schedule_offset": 4},
+        "different_groups": {"sp": {"params": {"dense_ratio": 0.5}, "modules": ["mlp"]}}}}}
+# activation fake-quant (a causal LM's: the JAX package's BertConfig has no
+# act_quant_bits, so init_compression refuses it on a BertModel in both
+# packages); 4 bits in the parity check, where the MLP's fake-quant left
+# out must move fp32 logits past LOGIT_ULP_TOL, 8 in the engine run
+COMPRESS_ACT = lambda bits, offset=0: {"activation_quantization": {
+    "shared_parameters": {"enabled": True, "quantization_type": "symmetric",
+                          "range_calibration": "dynamic", "schedule_offset": offset},
+    "different_groups": {"aq": {"params": {"bits": bits}}}}}
+COMPRESS_PARITY_ACT_BITS = 4
+# the forward check's MLP weights x this (1: at BERT-large's width the MLP's
+# output is of the residual's size, so the sparse mask left out shows)
+COMPRESS_MLP_SCALE = 1.0
+COMPRESS_LLAMA_PARITY = (2, 256)        # the act-quant forward's rows, fp32 on both sides
+COMPRESS_ACT_STEPS = 3                  # the act-quant engine run: offset 1 of 3 steps
+COMPRESS_ACT_SEQ = 512
+EV_PARITY_BATCH = (2, 128)              # _power_iterate card vs CPU: BERT-large width, 1 layer
+EV_PARITY_ITERS = 5
+EV_ITER_TOL = 1e-3                      # each iteration's eigenvalue, relative
+# moq_eigenvalue: BERT-large at 24 layers in fp32 (the JAX engine's HVP
+# refuses bf16 params), plain attention, micro-batch cut 32 -> 2 for the
+# double backward's time and memory
+MOQ_EV_MICRO = 2
+MOQ_EV_STEPS = 2
+MOQ_EV_MAX_ITER = 2
+MOQ_EV_CONFIG = {"enabled": True, "quantize_groups": 64,
+                 "quantize_bits": {"start_bits": 12, "target_bits": 8},
+                 "quantize_schedule": {"quantize_period": 1},
+                 "quantize_algo": {"q_type": "symmetric", "q_rounding": "stochastic"},
+                 "eigenvalue": {"enabled": True, "max_iter": MOQ_EV_MAX_ITER, "tol": 1e-2,
+                                "layer_name": "layers", "layer_num": 24}}
+
+
+def compress_llama(n_layer=1, **over):
+    """Llama-2-7B's configuration at ``n_layer`` layers (the compression
+    parity's causal LM; ``over``: TransformerConfig fields)."""
+    import dataclasses
+    from deepspeed_tpu_torch.models import CausalLM, llama
+    base = llama("7b", n_layer=n_layer)
+    return CausalLM(dataclasses.replace(base.config, **over)) if over else base
+
+
+def _tree_leaves(tree):
+    """A param tree's tensors by name (compress_params returns nested dicts)."""
+    from deepspeed_tpu_torch.models.transformer import ParamTree
+    tree = tree if isinstance(tree, ParamTree) else ParamTree(tree)
+    return dict(tree.named_parameters())
+
+
+def tree_mismatch(got, want):
+    """Elements of ``got``'s leaves that differ from ``want``'s (bit for bit,
+    on the CPU), and the leaves they lie in."""
+    import torch
+    g, w = _tree_leaves(got), _tree_leaves(want)
+    check(g.keys() == w.keys(), "the trees' leaves differ")
+    bad = {n: int((g[n].detach().cpu() != w[n].detach().cpu()).sum()) for n in g
+           if g[n].dtype == w[n].dtype and not torch.equal(g[n].detach().cpu(),
+                                                           w[n].detach().cpu())}
+    bad.update({n: g[n].numel() for n in g if g[n].dtype != w[n].dtype})
+    return sum(bad.values()), sorted(bad)[:4]
+
+
+@contextlib.contextmanager
+def planted_compress_fault(fault):
+    """A compression fault inside the ``with`` body: the sparse / row /
+    channel threshold taken at k + 1 ("threshold_k_plus_1"), the sparse
+    mask not applied ("sparse_mask_left_out"), the STE's gradient zero
+    ("ste_zero_gradient"), or the MLP's activation fake-quant left out
+    ("mlp_act_quant_left_out")."""
+    import dataclasses
+    import torch
+    from deepspeed_tpu_torch.compression import functional as cf
+    from deepspeed_tpu_torch.models import transformer as T
+    if fault == "threshold_k_plus_1":
+        mod, name = cf, "_kth_largest"
+        real = cf._kth_largest
+        faulted = lambda x, k: real(x, k + 1)
+    elif fault == "sparse_mask_left_out":
+        mod, name = cf, "sparse_mask"
+        real = cf.sparse_mask
+        faulted = lambda w, ratio: torch.ones_like(w)
+        cf._MASK_FNS["sparse"] = faulted
+    elif fault == "ste_zero_gradient":
+        mod, name = cf._FakeQuantize, "backward"
+        real = cf._FakeQuantize.__dict__["backward"]
+        faulted = staticmethod(lambda ctx, g: (torch.zeros_like(g), None, None, None))
+    else:
+        mod, name = T, "mlp"
+        real = T.mlp
+        faulted = lambda cfg, x, lp: real(dataclasses.replace(cfg, act_quant_bits=0), x, lp)
+    setattr(mod, name, faulted)
+    try:
+        yield
+    finally:
+        setattr(mod, name, real)
+        cf._MASK_FNS["sparse"] = cf.sparse_mask
+
+
+def _compress_leaves(model, params, cfg, fault=None):
+    """compress_params of ``params`` under ``cfg`` (no autograd), optionally
+    inside a planted fault."""
+    import torch
+    from deepspeed_tpu_torch.compression import init_compression
+    wrapped = init_compression(model, cfg)
+    with torch.no_grad(), (planted_compress_fault(fault) if fault
+                           else contextlib.nullcontext()):
+        return wrapped.compress_params(params)
+
+
+def _compress_technique_configs():
+    """Every technique alone (fp32) and the compress_train path's (bf16)."""
+    g = lambda tech, params, modules=None, **shared: {"compression_training": {tech: {
+        "shared_parameters": {"enabled": True, "schedule_offset": 0, **shared},
+        "different_groups": {"g": {"params": params,
+                                   **({"modules": modules} if modules else {})}}}}}
+    return {"wq_sym_grouped": g("weight_quantization", {"start_bits": 8},
+                                quantize_groups=COMPRESS_GROUPS),
+            "wq_asym_4bit_attn": g("weight_quantization", {"start_bits": 4}, ["attn"],
+                                   quantization_type="asymmetric"),
+            "sparse_mlp": g("sparse_pruning", {"dense_ratio": 0.5}, ["mlp"]),
+            "row_w_up": g("row_pruning", {"dense_ratio": 0.5}, ["w_up"]),
+            "channel_mlp": g("channel_pruning", {"dense_ratio": 0.5}, ["mlp"])}
+
+
+def _compress_leaf_parity(name, model, params, failures, techniques, path_dtype):
+    """Card against CPU, bit for bit: each technique's compress_params in
+    fp32, the compress_train path's (without layer reduction) in
+    ``path_dtype``, the sparse threshold taken at k + 1 above 0; head
+    pruning raising alike on the stacked leaf."""
+    import torch
+    path = {"compression_training": {k: v for k, v in COMPRESS_CONFIG[
+        "compression_training"].items() if k != "layer_reduction"}}
+    rec = {}
+    cpu = params.map(lambda t: t.to("cpu"))
+    for tech, cfg in {**techniques, "path_" + str(path_dtype).split(".")[-1]: path}.items():
+        dt = path_dtype if tech.startswith("path") else torch.float32
+        p_gpu, p_cpu = params.map(lambda t: t.to(dt)), cpu.map(lambda t: t.to(dt))
+        n_bad, where = tree_mismatch(_compress_leaves(model, p_gpu, cfg),
+                                     _compress_leaves(model, p_cpu, cfg))
+        rec[tech] = {"elements_differing": n_bad, "leaves": where}
+        if n_bad:
+            failures.append(f"{name} {tech}: {n_bad} elements differ from the CPU's in {where}")
+        if tech.startswith("sparse"):
+            # after the fake-quant (the path) the k-th and (k+1)-th largest
+            # magnitudes are often one grid level, so the fault is read here
+            n_fault, _ = tree_mismatch(_compress_leaves(model, p_gpu, cfg, "threshold_k_plus_1"),
+                                       _compress_leaves(model, p_cpu, cfg))
+            rec[tech]["fault_threshold_k_plus_1"] = n_fault
+            if not n_fault > 0:
+                failures.append(f"{name} {tech}: the k + 1 threshold reads 0 elements")
+        del p_gpu, p_cpu
+    raised = []
+    for p in (params, cpu):
+        try:
+            _compress_leaves(model, p, {"compression_training": {"head_pruning": {
+                "shared_parameters": {"enabled": True},
+                "different_groups": {"h": {"params": {"dense_ratio": 0.5, "num_heads": 16},
+                                           "modules": ["attn.wo"]}}}}})
+            raised.append(None)
+        except Exception as e:          # the JAX package's ZeroDivisionError on [L, H*Hd, D]
+            raised.append(type(e).__name__)
+    rec["head_pruning_stacked_raises"] = raised
+    if raised[0] is None or raised[0] != raised[1]:
+        failures.append(f"{name}: head pruning on the stacked leaf raised {raised} (card, CPU)")
+    return rec
+
+
+def _bert_compress_forward(seed, failures):
+    """The compressed BERT's MLM logits (the path's weight quant and
+    sparsity, 1 layer at BERT-large's width, the encoder_parity batch): the
+    card in bf16 against the CPU in fp32 on the same bf16-rounded weights,
+    every valid position within LOGIT_ULP_TOL; the sparse mask left out on
+    the card above it."""
+    import torch
+    from deepspeed_tpu_torch.compression import init_compression
+    path = {"compression_training": {k: v for k, v in COMPRESS_CONFIG[
+        "compression_training"].items() if k != "layer_reduction"}}
+    model = bert_large(1)
+    gen = torch.Generator(device=CHECK_DEVICE).manual_seed(seed + 61)
+    params = attention_weighted(model.init_params(gen, device=CHECK_DEVICE,
+                                                  dtype=torch.float32))
+    with torch.no_grad():
+        for lp in params["layers"]:
+            for key in ("w_up", "w_down"):
+                lp["mlp"][key].mul_(COMPRESS_MLP_SCALE)
+    params = params.map(lambda t: t.to(torch.bfloat16))
+    cpu = params.map(lambda t: t.to("cpu", torch.float32))
+    batch, _ = mlm_batch(model.config.vocab_size, BERT_PARITY_BATCH, BERT_SEQ, seed + 21)
+    ids, mask = (torch.as_tensor(batch[k]) for k in ("input_ids", "attention_mask"))
+    valid = mask > 0
+    wrapped = init_compression(model, path)
+    run = lambda p, dev: wrapped.forward(p, ids.to(dev), mask.to(dev))[valid.to(dev)] \
+        .float().cpu()
+    with torch.no_grad():
+        want = run(cpu, "cpu")
+        got = run(params, CHECK_DEVICE)
+        with planted_compress_fault("sparse_mask_left_out"):
+            fault = run(params, CHECK_DEVICE)
+    rec, f = logit_parity(got, want, {"sparse_mask_left_out": fault})
+    failures += [f"bert forward: {x}" for x in f]
+    return rec
+
+
+def _llama_act_quant_forward(seed, failures):
+    """1 layer at Llama-2-7B's width, fp32 with plain attention on both
+    sides, the path's weight quant and sparsity and
+    COMPRESS_PARITY_ACT_BITS-bit activation fake-quant: the card's
+    compress_params leaves bit-equal to the CPU's; the logits of the
+    compressed forward on them (the quantizers' inputs agree to fp32
+    rounding, so few round to another level) within LOGIT_ULP_TOL of the
+    CPU's; the MLP's fake-quant left out above it."""
+    import numpy as np
+    import torch
+    from deepspeed_tpu_torch.compression import init_compression
+    model = compress_llama(1, attention_backend="xla", remat=False)
+    cfg = {"compression_training": {
+        **{k: v for k, v in COMPRESS_CONFIG["compression_training"].items()
+           if k != "layer_reduction"}, **COMPRESS_ACT(COMPRESS_PARITY_ACT_BITS)}}
+    gen = torch.Generator(device=CHECK_DEVICE).manual_seed(seed + 62)
+    params = model.init_params(gen, device=CHECK_DEVICE, dtype=torch.float32)
+    wrapped = init_compression(model, cfg)
+    check(wrapped.model.config.act_quant_bits == COMPRESS_PARITY_ACT_BITS, "act quant not wired")
+    with torch.no_grad():
+        got_p = wrapped.compress_params(params)
+        want_p = wrapped.compress_params(params.map(lambda t: t.to("cpu")))
+    n_bad, where = tree_mismatch(got_p, want_p)
+    if n_bad:
+        failures.append(f"llama path fp32: {n_bad} elements differ from the CPU's in {where}")
+    B, S = COMPRESS_LLAMA_PARITY
+    ids = torch.as_tensor(np.random.default_rng(seed + 63).integers(
+        0, model.config.vocab_size, (B, S)))
+    run = lambda p, dev: wrapped.model.forward(p, ids.to(dev)).reshape(B * S, -1).float().cpu()
+    with torch.no_grad():
+        want = run(want_p, "cpu")
+        got = run(got_p, CHECK_DEVICE)
+        with planted_compress_fault("mlp_act_quant_left_out"):
+            fault = run(got_p, CHECK_DEVICE)
+    r, f = logit_parity(got, want, {"mlp_act_quant_left_out": fault})
+    failures += [f"llama act-quant forward: {x}" for x in f]
+    del params, got_p, want_p
+    _free()
+    return {"leaves_fp32_differing": n_bad, "forward": {**r, "batch": [B, S],
+                                                        "act_bits": COMPRESS_PARITY_ACT_BITS}}
+
+
+def _act_quant_engine_run(seed, failures):
+    """The activation-quant transition through the engine on the card: 1
+    layer at Llama-2-7B's width, bf16, kernels, act quant (8 bits) from
+    step 2 of 3: losses finite; per step A 2 (remat), C 1, D 1 and each
+    fused CE kernel once, before and after the transition."""
+    import numpy as np
+    import torch
+    from deepspeed_tpu_torch.compression import CompressionScheduler, init_compression
+    wrapped = init_compression(compress_llama(1), {"compression_training": COMPRESS_ACT(
+        8, offset=1)})
+    sched = CompressionScheduler(wrapped)
+    config = {**TRAIN_CONFIG, "train_batch_size": 2, "train_micro_batch_size_per_gpu": 2,
+              "gradient_accumulation_steps": 1}
+    gen = torch.Generator(device=CHECK_DEVICE).manual_seed(seed + 64)
+    engine = _train_engine(wrapped, wrapped.init_params(gen, device=CHECK_DEVICE,
+                                                        dtype=torch.bfloat16),
+                           config, device=CHECK_DEVICE)
+    batch = {"input_ids": torch.as_tensor(np.random.default_rng(seed + 65).integers(
+        0, wrapped.config_model.vocab_size, (2, COMPRESS_ACT_SEQ)), device=CHECK_DEVICE)}
+    bits, per_step, losses = [], [], []
+    for _ in range(COMPRESS_ACT_STEPS):
+        bits.append(wrapped.model.config.act_quant_bits)
+        l, _, s = _timed_steps(engine, batch, 1)
+        losses += l
+        per_step += s
+        sched.step()
+    rule = {"flash_attention_fwd": 2, "flash_attention_bwd_dq": 1, "flash_attention_bwd_dkv": 1,
+            **dict.fromkeys(("fused_ce_fwd", "fused_ce_ds", "fused_ce_dh_gemm",
+                             "fused_ce_dw_gemm"), 1)}
+    if bits != [0] + [8] * (COMPRESS_ACT_STEPS - 1):
+        failures.append(f"act quant bits by step {bits}")
+    if not all(np.isfinite(losses)):
+        failures.append(f"act-quant run losses {losses}")
+    if CHECK_DEVICE == "cuda":
+        for i, s in enumerate(per_step):
+            if {k: s[k] for k in rule} != rule:
+                failures.append(f"act-quant run step {i + 1} launches {s} != {rule}")
+    del engine
+    _free()
+    return {"act_bits_by_step": bits, "losses": losses, "launch_rule": rule,
+            "launches_per_step": [{k: s[k] for k in rule} for s in per_step]}
+
+
+def _eigen_parity(seed, failures):
+    """Eigenvalue._power_iterate from one seeded v0 over EV_PARITY_ITERS
+    iterations (tol 0), block layer 0 of BERT-large's width at 1 layer,
+    fp32, plain attention: each iteration's eigenvalue on the card within
+    EV_ITER_TOL of the CPU's; the mask not applied to the HVP (the whole
+    Hessian's iteration) above it."""
+    import numpy as np
+    import torch
+    from deepspeed_tpu_torch.runtime.eigenvalue import Eigenvalue, hvp_model
+    model = hvp_model(bert_large(1, remat=False))
+    gen = torch.Generator(device=CHECK_DEVICE).manual_seed(seed + 66)
+    params = model.init_params(gen, device=CHECK_DEVICE, dtype=torch.float32)
+    B, S = EV_PARITY_BATCH
+    batch, _ = mlm_batch(model.config.vocab_size, B, S, seed + 67, full_rows=B)
+    names = [n for n, _ in params.named_parameters()]
+    r = np.random.default_rng(seed + 68)
+    v0 = {n: torch.as_tensor(r.standard_normal(tuple(p.shape)).astype(np.float32))
+          for n, p in params.named_parameters()}
+
+    def iterate(p, dev, masked=True):
+        for t in p.parameters():
+            t.requires_grad_(True)
+        ev = Eigenvalue(max_iter=EV_PARITY_ITERS, tol=0.0)
+        mask = ev.layer_masks(p, "layers", 1)[0] if masked else dict.fromkeys(names, 1.0)
+        named = dict(p.named_parameters())
+        b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        hvp = ev._hvp_fn(lambda q: model.loss(q, b), [named[n] for n in names])
+        hist = []
+        ev._power_iterate(hvp, p, [v0[n].to(dev) for n in names], [mask[n] for n in names],
+                          1.0, history=hist)
+        return hist
+
+    want = iterate(params.map(lambda t: t.to("cpu")), "cpu")
+    got = iterate(params, CHECK_DEVICE)
+    fault = iterate(params, CHECK_DEVICE, masked=False)
+    rel = [abs(g - w) / abs(w) for g, w in zip(got, want)]
+    fault_rel = max(abs(g - w) / abs(w) for g, w in zip(fault, want))
+    if not (len(got) == EV_PARITY_ITERS and max(rel) <= EV_ITER_TOL):
+        failures.append(f"power iteration differs from the CPU's by {rel}")
+    if not fault_rel > EV_ITER_TOL:
+        failures.append(f"planted fault mask_not_applied reads {fault_rel}")
+    del params
+    _free()
+    return {"batch": [B, S], "iterations": EV_PARITY_ITERS, "card": got, "cpu": want,
+            "rel_diff": rel, "tol": EV_ITER_TOL, "fault_mask_not_applied_rel": fault_rel}
+
+
+def phase_compress_parity(state, seed):
+    """The compression path, card against CPU. 1 layer at BERT-large's
+    width: every technique's compress_params leaves in fp32 and the
+    compress_train path's in bf16 (weight quant and sparsity on the stacked
+    leaves), redundancy_clean, and student_initialization (2 layers -> 1),
+    bit-equal (limit 0; the threshold taken at k + 1 above it; head pruning
+    raising alike on the stacked leaf); the compressed MLM logits on [4,
+    512] within LOGIT_ULP_TOL; each leaf's gradient of the compressed MLM
+    loss within PARITY_GRAD_TOL by the encoder_parity rule (an STE with a
+    zero gradient above it). 1 layer at Llama-2-7B's width: the path's
+    leaves in bf16 bit-equal, the act-quant forward (fp32) within
+    LOGIT_ULP_TOL (the MLP's fake-quant left out above it), and the
+    activation-quant transition through the engine with its launches.
+    Eigenvalue._power_iterate: each of 5 iterations within EV_ITER_TOL (the
+    mask not applied to the HVP above it)."""
+    import torch
+    from deepspeed_tpu_torch.compression import (init_compression, redundancy_clean,
+                                                 student_initialization)
+    failures = []
+    model = bert_large(1)
+    gen = torch.Generator(device=CHECK_DEVICE).manual_seed(seed + 60)
+    params = model.init_params(gen, device=CHECK_DEVICE, dtype=torch.float32)
+    leaves = _compress_leaf_parity("bert", model, params, failures,
+                                   _compress_technique_configs(), torch.bfloat16)
+    path = {"compression_training": {k: v for k, v in COMPRESS_CONFIG[
+        "compression_training"].items() if k != "layer_reduction"}}
+    with torch.no_grad():
+        clean, _ = tree_mismatch(redundancy_clean(params, path),
+                                 redundancy_clean(params.map(lambda t: t.to("cpu")), path))
+        teacher = bert_large(2).init_params(gen, device=CHECK_DEVICE, dtype=torch.float32)
+        lr_cfg = {"compression_training": {"layer_reduction": {
+            "enabled": True, "keep_number_layer": 1, "teacher_layer": [1]}}}
+        student = init_compression(bert_large(2), lr_cfg).init_params(gen, device=CHECK_DEVICE)
+        s_gpu = student_initialization(student, teacher, lr_cfg)
+        s_cpu = student_initialization(student.map(lambda t: t.to("cpu")),
+                                       teacher.map(lambda t: t.to("cpu")), lr_cfg)
+        init_bad, _ = tree_mismatch(s_gpu, s_cpu)
+        copied = torch.equal(s_gpu["layers"][0]["attn"]["wq"], teacher["layers"][1]["attn"]["wq"])
+    if clean or init_bad or not copied:
+        failures.append(f"redundancy_clean {clean} / student_initialization {init_bad} elements "
+                        f"differ from the CPU's; teacher layer 1 copied: {copied}")
+    del params, teacher, student, s_gpu, s_cpu
+    _free()
+    emit("compress_parity", check="bert_leaves", layers=1, techniques=leaves,
+         redundancy_clean_differing=clean, student_init_differing=init_bad)
+    emit("compress_parity", check="bert_forward", **_bert_compress_forward(seed, failures))
+    wrapped = init_compression(bert_large(1, remat=False, mlm_gather_budget=BERT_BUDGET), path)
+    try:
+        # bf16-rounded fp32 weights on both sides: the card's bf16 cast is
+        # exact, so its fake-quant and masks see the CPU's values
+        _train_parity("compress_parity_bert_grads", seed, wrapped, BERT_PARITY_BATCH, BERT_SEQ,
+                      {"ste_zero_gradient": (lambda: planted_compress_fault("ste_zero_gradient"),
+                                             "worst")},
+                      steps=0, grad_floor=GRAD_FLOOR,
+                      prepare=lambda p: attention_weighted(p).map(
+                          lambda t: t.to(torch.bfloat16).float()),
+                      batch_fn=lambda rng, V=wrapped.config_model.vocab_size: mlm_batch(
+                          V, BERT_PARITY_BATCH, BERT_SEQ, int(rng.integers(1 << 30)),
+                          full_rows=BERT_FULL_ROWS)[0])
+    except RuntimeError as e:
+        failures.append(str(e))
+    emit("compress_parity", check="llama", **_llama_act_quant_forward(seed, failures))
+    emit("compress_parity", check="act_quant_engine", **_act_quant_engine_run(seed, failures))
+    emit("compress_parity", check="eigenvalue", **_eigen_parity(seed, failures))
+    check(not failures, "compress_parity failed: " + "; ".join(failures))
+
+
+def compress_train_launch_rule(engine):
+    """compress_train's launches a step (gas 1, no remat, fused CE on, the
+    student's 12 layers): A, C and D once a layer, F, G, dh and dW once, E
+    once a port leaf (16 a layer and 12 others)."""
+    n = engine.module.config_model.n_layer
+    leaves = len(list(engine.state.params.parameters()))
+    check(leaves == 16 * n + 12, f"{leaves} parameter leaves")
+    return {"flash_attention_fwd": n, "flash_attention_bwd_dq": n,
+            "flash_attention_bwd_dkv": n, "fused_adam": leaves,
+            **dict.fromkeys(("fused_ce_fwd", "fused_ce_ds", "fused_ce_dh_gemm",
+                             "fused_ce_dw_gemm"), 1)}
+
+
+def phase_compress_train(state, seed):
+    """The compression recipe on BERT-large: the seeded 24-layer teacher of
+    bert_train, a 12-layer student (layer_reduction, teacher_layer 1, 3,
+    ..., 23, student_initialization), init_compression with 8-bit grouped
+    weight quant on attn and mlp from step 0 and l1 sparse pruning (0.5) on
+    mlp from step 4; trained as bert_train trains (micro 32 x 512, AdamW
+    1e-4 wd 0.01, bf16, fused CE, gather budget 0.25), the
+    CompressionScheduler stepped after each of 6 steps: step ms (the
+    transitions marked), tokens/s, MFU on the student's flops_per_token(512),
+    compress_params ms (CUDA events), peak memory. Gates: losses finite,
+    the last below the first; each technique active from its offset; per
+    step the launch rule. Then redundancy_clean of the trained params
+    served through init_inference (fill-mask, one batch of 16 requests):
+    every masked top-1 equal to the CompressedModel's forward (limit 0), A
+    12 a batch."""
+    import numpy as np
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.accelerator import get_accelerator
+    from deepspeed_tpu_torch.compression import (CompressionScheduler, init_compression,
+                                                 redundancy_clean, student_initialization)
+    failures = []
+    dtype = torch.bfloat16 if ENCODER_DTYPE == "bf16" else torch.float32
+    teacher_model = bert_large(remat=False, mlm_gather_budget=BERT_BUDGET)
+    gen = torch.Generator(device=CHECK_DEVICE).manual_seed(seed)
+    teacher = teacher_model.init_params(gen, device=CHECK_DEVICE, dtype=dtype)
+    wrapped = init_compression(teacher_model, COMPRESS_CONFIG)
+    _sync()
+    t = time.perf_counter()
+    student = student_initialization(wrapped.init_params(gen, device=CHECK_DEVICE, dtype=dtype),
+                                     teacher, COMPRESS_CONFIG)
+    _sync()
+    init_s = time.perf_counter() - t
+    tl = COMPRESS_CONFIG["compression_training"]["layer_reduction"]["teacher_layer"]
+    if not all(torch.equal(student["layers"][i]["mlp"]["w_up"], teacher["layers"][j]["mlp"]["w_up"])
+               for i, j in enumerate(tl)):
+        failures.append("a student layer is not its teacher layer")
+    del teacher
+    _free()
+    config = {"train_batch_size": BERT_MICRO, "train_micro_batch_size_per_gpu": BERT_MICRO,
+              "gradient_accumulation_steps": 1,
+              "optimizer": {"type": "AdamW", "params": {"lr": 1e-4, "weight_decay": 0.01}},
+              "bf16": {"enabled": ENCODER_DTYPE == "bf16"}, "fused_cross_entropy": "auto"}
+    _reset_peak()
+    engine = _train_engine(wrapped, student, config, device=CHECK_DEVICE)
+    del student
+    sched = CompressionScheduler(wrapped)
+    B = BERT_MICRO
+    lengths = np.full(B, BERT_SEQ)
+    rng = np.random.default_rng(seed + 51)
+    padded = rng.choice(B, B // 4, replace=False)
+    lengths[padded] = rng.integers(64, BERT_SEQ, size=B // 4)
+    batch, _ = mlm_batch(wrapped.config_model.vocab_size, B, BERT_SEQ, seed + 52, lengths=lengths)
+    batch = {k: torch.as_tensor(v, device=CHECK_DEVICE) for k, v in batch.items()}
+    rule = compress_train_launch_rule(engine)
+    losses, step_s, per_step, active = [], [], [], []
+    for _ in range(COMPRESS_STEPS):
+        active.append({r.technique: wrapped._active[id(r)] for r in wrapped.rules})
+        lo, st, ps = _timed_steps(engine, batch, 1)
+        losses += lo
+        step_s += st
+        per_step += ps
+        sched.step()
+    peak = _peak_gb()
+    offsets = {r.technique: int(r.params["schedule_offset"]) for r in wrapped.rules}
+    want_active = [{t: i >= o for t, o in offsets.items()} for i in range(COMPRESS_STEPS)]
+    if active != want_active:
+        failures.append(f"active sets {active} != {want_active}")
+    if not all(np.isfinite(losses)):
+        failures.append(f"non-finite losses {losses}")
+    if not losses[-1] < losses[0]:
+        failures.append(f"loss did not fall: {losses}")
+    if CHECK_DEVICE == "cuda":
+        for i, s in enumerate(per_step):
+            if {k: s[k] for k in rule} != rule:
+                failures.append(f"step {i + 1} launches {({k: s[k] for k in rule})} != {rule}")
+    with torch.no_grad():
+        compress_ms = cuda_ms(lambda: wrapped.compress_params(engine.state.params), reps=5,
+                              warmup=1) if CHECK_DEVICE == "cuda" else None
+        cleaned = redundancy_clean(engine.state.params, COMPRESS_CONFIG)
+    serve = deepspeed_tpu_torch.init_inference(wrapped.model, params=cleaned,
+                                               dtype=ENCODER_DTYPE, device=CHECK_DEVICE)
+    r2 = np.random.default_rng(seed + 53)
+    s_len = r2.integers(32, BERT_SEQ + 1, size=COMPRESS_SERVE_REQUESTS)
+    sb, _ = mlm_batch(wrapped.config_model.vocab_size, COMPRESS_SERVE_REQUESTS, BERT_SEQ,
+                      seed + 54, lengths=s_len)
+    batches = _serve_batches([sb["input_ids"][i, :n] for i, n in enumerate(s_len)],
+                             BERT_SERVE_BATCH)
+    serve_ms, top1 = [], []
+    with torch.no_grad():
+        serve.forward(batches[0][0], attention_mask=batches[0][1])      # warm-up
+        _sync()
+        _reset_train_counters()
+        for ids, mask in batches:
+            t = time.perf_counter()
+            top1.append(serve.forward(ids, attention_mask=mask).argmax(-1))
+            _sync()
+            serve_ms.append((time.perf_counter() - t) * 1e3)
+        serve_launches = _launch_counts()
+        dev = top1[0].device
+        ref = [wrapped.forward(engine.state.params, torch.as_tensor(ids, device=dev),
+                               torch.as_tensor(mask, device=dev)).argmax(-1)
+               for ids, mask in batches]
+    masked = [torch.as_tensor(ids == BERT_MASK, device=dev) for ids, _ in batches]
+    differ = sum(int((a[m] != b[m]).sum()) for a, b, m in zip(top1, ref, masked))
+    n_masked = sum(int(m.sum()) for m in masked)
+    if differ:
+        failures.append(f"{differ} of {n_masked} masked top-1 differ from the CompressedModel's")
+    n = wrapped.config_model.n_layer
+    serve_rule = bert_serve_launch_rule(n, len(batches))
+    if CHECK_DEVICE == "cuda" and {k: serve_launches[k] for k in serve_rule} != serve_rule:
+        failures.append(f"serve launches {serve_launches} != {serve_rule}")
+    timed = step_s[1:]
+    step_ms = float(np.median(timed)) * 1e3
+    tokens = B * BERT_SEQ
+    peak_tflops = get_accelerator(CHECK_DEVICE).peak_tflops()
+    fpt = wrapped.flops_per_token(BERT_SEQ)
+    mfu = (tokens / (step_ms / 1e3)) * fpt / (peak_tflops * 1e12) if peak_tflops else None
+    state["compress_train_launches"] = {
+        f"{k}_bert": sum(s[k] for s in per_step)
+        for k in ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+                  "fused_ce_fwd", "fused_ce_ds", "fused_ce_dh_gemm", "fused_ce_dw_gemm")}
+    state["compress_train_launches"]["fused_adam"] = sum(s["fused_adam"] for s in per_step)
+    state["compress_train_launches"]["flash_attention_fwd_bert"] += \
+        serve_launches["flash_attention_fwd"]
+    emit("compress_train", teacher_layers=24, student_layers=n, teacher_layer=tl,
+         batch=[B, BERT_SEQ], config=COMPRESS_CONFIG, student_init_s=init_s,
+         params=sum(p.numel() for p in engine.state.params.parameters()), losses=losses,
+         step_ms=[s * 1e3 for s in step_s], active_by_step=active,
+         transitions={t: o for t, o in offsets.items()}, step_ms_median=step_ms,
+         tokens_per_s=tokens / (step_ms / 1e3), flops_per_token=fpt, peak_tflops=peak_tflops,
+         mfu=mfu, compress_params_ms=compress_ms, peak_mem_gb=peak,
+         launches_per_step=per_step, launch_rule=rule, serve_requests=COMPRESS_SERVE_REQUESTS,
+         serve_batch_ms=serve_ms, masked_positions=n_masked, top1_differ=differ,
+         serve_launches=serve_launches, serve_launch_rule=serve_rule, card=state.get("card"))
+    del engine, serve, cleaned
+    _free()
+    check(not failures, "compress_train failed: " + "; ".join(failures))
+
+
+def moq_launch_rule(engine):
+    """moq_eigenvalue's launches a step: E once a port leaf; K8 and its
+    absmax once a port leaf of each JAX leaf of stacked rank >= 2 (the
+    stochastic symmetric MoQ, as train_lamb); no A, C, D or fused CE (fp32,
+    plain attention)."""
+    from deepspeed_tpu_torch.runtime.utils import jax_leaves
+    named = dict(engine.state.params.named_parameters())
+    q = sum(len(ns) for path, ns in jax_leaves(named).items()
+            if named[ns[0]].dim() + (path[0] == "layers") >= 2)
+    return {"fused_adam": len(named), "sr_quantize": q, "sr_absmax": q,
+            "flash_attention_fwd": 0, "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
+            "fused_ce_fwd": 0}
+
+
+def phase_moq_eigenvalue(state, seed):
+    """The MoQ eigenvalue schedule on BERT-large at 24 layers: fp32 (the
+    JAX engine's HVP refuses bf16 params), plain attention, micro 2 x 512
+    (cut from 32 for the double backward), AdamW, quantize_training 12 ->
+    8 bits, period 1, stochastic rounding (K8), eigenvalue over 24 layer
+    blocks, max_iter MOQ_EV_MAX_ITER; MOQ_EV_STEPS steps, the eigenvalues
+    computed at each (a switch is pending): each block's eigenvalue and
+    iterations, the HVPs' ms (CUDA events), the step ms. Gates: computed at
+    least twice; every leaf's period after a switch (old << 1) x (1 +
+    floor(4 x the step's mean)) for the stacked layer leaves and x 1 for
+    the others (limit 0); per step the launch rule; A, C, D and the fused
+    CE 0 inside the HVPs."""
+    import math
+    import numpy as np
+    import torch
+    failures = []
+    model = bert_large(remat=False, mlm_gather_budget=BERT_BUDGET, attention_backend="xla")
+    config = {"train_batch_size": MOQ_EV_MICRO, "train_micro_batch_size_per_gpu": MOQ_EV_MICRO,
+              "gradient_accumulation_steps": 1,
+              "optimizer": {"type": "AdamW", "params": {"lr": 1e-4, "weight_decay": 0.01}},
+              "quantize_training": MOQ_EV_CONFIG}
+    gen = torch.Generator(device=CHECK_DEVICE).manual_seed(seed + 70)
+    params = model.init_params(gen, device=CHECK_DEVICE, dtype=torch.float32)
+    _reset_peak()
+    engine = _train_engine(model, params, config, device=CHECK_DEVICE)
+    del params
+    ev = engine.eigenvalue
+    check(ev is not None and engine.quantizer.q_eigenvalue, "the eigenvalue schedule is off")
+    computed = []
+    real = ev.compute_eigenvalue
+
+    def timed(*a, **k):
+        _sync()
+        before = _train_counters()
+        t = time.perf_counter()
+        vals = real(*a, **k)
+        _sync()
+        after = _train_counters()
+        computed.append({"values": vals, "iterations": list(ev.iterations),
+                         "ms": (time.perf_counter() - t) * 1e3,
+                         "launches": {k2: after[k2] - before[k2] for k2 in after
+                                      if after[k2] != before[k2]}})
+        return vals
+    ev.compute_eigenvalue = timed
+    batch, _ = mlm_batch(model.config.vocab_size, MOQ_EV_MICRO, BERT_SEQ, seed + 71,
+                         full_rows=MOQ_EV_MICRO)
+    batch = {k: torch.as_tensor(v, device=CHECK_DEVICE) for k, v in batch.items()}
+    rule = moq_launch_rule(engine)
+    losses, step_s, per_step, switches = [], [], [], []
+    for step in range(MOQ_EV_STEPS):
+        before = {k: dict(v) for k, v in engine.quantizer.state_dict()["leaf_state"].items()}
+        n_before = len(computed)
+        lo, st, ps = _timed_steps(engine, batch, 1)
+        losses += lo
+        step_s += st
+        per_step += ps
+        after = engine.quantizer.state_dict()["leaf_state"]
+        mean = (sum(computed[-1]["values"]) / len(computed[-1]["values"])
+                if len(computed) > n_before else None)
+        for key, st_ in after.items():
+            old = before.get(key, {"bits": MOQ_EV_CONFIG["quantize_bits"]["start_bits"],
+                                   "period": MOQ_EV_CONFIG["quantize_schedule"]["quantize_period"]})
+            if st_["bits"] == old["bits"]:
+                continue
+            layers = key.startswith("['layers']")
+            factor = 1 + math.floor(mean * 4) if layers and mean is not None else 1
+            switches.append({"step": step + 1, "leaf": key, "old": old["period"],
+                             "new": st_["period"], "factor": factor})
+            if st_["period"] != (old["period"] << 1) * factor:
+                failures.append(f"step {step + 1} {key}: period {st_['period']} != "
+                                f"({old['period']} << 1) x {factor}")
+    peak = _peak_gb()
+    if len(computed) < 2:
+        failures.append(f"eigenvalues computed {len(computed)} times")
+    if not all(np.isfinite(losses)):
+        failures.append(f"non-finite losses {losses}")
+    if CHECK_DEVICE == "cuda":
+        for i, s in enumerate(per_step):
+            if {k: s[k] for k in rule} != rule:
+                failures.append(f"step {i + 1} launches {({k: s[k] for k in rule})} != {rule}")
+        inside = ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+                  "fused_ce_fwd", "fused_ce_ds", "fused_ce_dh_gemm", "fused_ce_dw_gemm")
+        for c in computed:
+            if any(c["launches"].get(k, 0) for k in inside):
+                failures.append(f"kernels launched inside the HVPs: {c['launches']}")
+    state["moq_eigenvalue_launches"] = {k: sum(s[k] for s in per_step)
+                                        for k in ("fused_adam", "sr_quantize", "sr_absmax")}
+    hvps = [sum(c["iterations"]) for c in computed]
+    emit("moq_eigenvalue", layers=model.config.n_layer, batch=[MOQ_EV_MICRO, BERT_SEQ],
+         dtype="fp32", attention="xla", config=MOQ_EV_CONFIG, losses=losses,
+         step_ms=[s * 1e3 for s in step_s],
+         eigen=[{"block_eigenvalues": c["values"], "iterations": c["iterations"],
+                 "mean": sum(c["values"]) / len(c["values"]), "ms": c["ms"],
+                 "launches_inside": c["launches"]} for c in computed],
+         hvps=hvps, ms_per_hvp=[c["ms"] / max(h, 1) for c, h in zip(computed, hvps)],
+         switches=switches[:8], n_switches=len(switches),
+         quantizer_bits={k: v["bits"] for k, v in
+                         engine.quantizer.state_dict()["leaf_state"].items()},
+         peak_mem_gb=peak, launches_per_step=per_step, launch_rule=rule,
+         card=state.get("card"))
+    del engine
+    _free()
+    check(not failures, "moq_eigenvalue failed: " + "; ".join(failures))
+
+
 def phase_kernels(state):
     res = state.get("kernel_results", {})
     serve = state.get("launches", {})
@@ -8636,6 +9366,8 @@ def phase_kernels(state):
     bert_serve = state.get("bert_serve_launches", {})
     bert_train = state.get("bert_train_launches", {})
     clip_encode = state.get("clip_encode_launches", {})
+    compress_train = state.get("compress_train_launches", {})
+    moq_eigenvalue = state.get("moq_eigenvalue_launches", {})
     rows = []
     meta = {
         "flash_attention_fwd": (
@@ -8751,7 +9483,9 @@ def phase_kernels(state):
                                            ("train_offload", train_offload),
                                            ("bert_serve", bert_serve),
                                            ("bert_train", bert_train),
-                                           ("clip_encode", clip_encode))
+                                           ("clip_encode", clip_encode),
+                                           ("compress_train", compress_train),
+                                           ("moq_eigenvalue", moq_eigenvalue))
                    if name in n}
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                      "launches": sum(by_path.values()) if by_path else None,

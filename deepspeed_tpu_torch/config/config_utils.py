@@ -102,3 +102,17 @@ class ConfigModel:
                              f"replacing parameter '{new_field}' together")
         obj = reduce(getattr, parts[:-1], self)
         setattr(obj, parts[-1], getattr(self, name))
+
+
+def deep_update(base: dict, override: dict) -> dict:
+    """Recursive dict merge returning a new dict (the JAX package's
+    ``config_utils.deep_update``, read by ``compression/config.py``)."""
+    import copy
+
+    out = copy.deepcopy(base)
+    for k, v in override.items():
+        if isinstance(v, dict) and isinstance(out.get(k), dict):
+            out[k] = deep_update(out[k], v)
+        else:
+            out[k] = v
+    return out

@@ -7,7 +7,10 @@ resolved and validated as the JAX package does (reference
 ``runtime/config.py:853-907``); the optimizer and scheduler names and
 params; ``gradient_clipping``; fp16 / bf16 / amp; the gradient accumulation
 dtype; ``fused_cross_entropy``; ``quantize_training`` (MoQ, read as the
-JAX package reads it: on only with ``enabled: true``); the ``checkpoint``
+JAX package reads it: on only with ``enabled: true``; its ``eigenvalue``
+schedule too); ``compression_training`` (parsed into
+``compression_config``, which the user's ``compression.init_compression``
+applies, not the engine); the ``checkpoint``
 section (:class:`CheckpointConfig`, the crash-safe engine's knobs) and
 ``dataloader_drop_last``; ``steps_per_print`` and ``wall_clock_breakdown``;
 ``telemetry`` (``monitor/config.py``: the engine refuses its unported
@@ -95,6 +98,7 @@ _READ = {
     C.FP16, C.BFLOAT16, C.BFLOAT16_OLD, C.AMP, C.DATA_TYPES, C.ZERO_OPTIMIZATION,
     C.FUSED_CROSS_ENTROPY, C.SPARSE_ATTENTION, "mesh", "quantize_training", "checkpoint",
     "dataloader_drop_last", "telemetry", "tensorboard", "wandb", "csv_monitor",
+    "compression_training",
 }
 # keys the JAX package reads whose effect is on multi-device runs or on
 # engine features outside training itself; on one device they change nothing
@@ -110,7 +114,6 @@ _IGNORED = {"comet", "weight_quantization"}
 # sections that are not ported: key -> (what, ROADMAP.md item)
 _NOT_PORTED = {
     "pipeline": ("pipeline parallelism", "runtime/pipe/"),
-    "compression_training": ("compression", "compression"),
     "comms_logger": ("the comms logger", "comm/"),
     "flops_profiler": ("the flops profiler", "profiling/"),
     "nebula": ("nebula checkpointing", "checkpoint ingestion (orbax)"),
@@ -173,10 +176,6 @@ def _refuse_outside_slice(param_dict: Dict, client_optimizer: bool = False) -> N
     opt = (param_dict.get(C.OPTIMIZER) or {}).get(C.TYPE)
     if opt is not None and str(opt).lower() in _ONEBIT:
         not_ported(f"the 1-bit optimizer {opt}", "queue 1: runtime/fp16/onebit/")
-    qt = param_dict.get("quantize_training") or {}
-    if qt.get("enabled", False) and (qt.get("eigenvalue") or {}).get("enabled", False):
-        not_ported("the MoQ eigenvalue schedule (quantize_training.eigenvalue)",
-                   "queue 1: compression (MoQ eigenvalue, runtime/eigenvalue.py)")
     ckpt = param_dict.get("checkpoint") or {}
     if str(ckpt.get("engine", "safe")).lower() == "orbax":
         not_ported("the orbax checkpoint engine (checkpoint.engine='orbax')",
@@ -280,6 +279,12 @@ class DeepSpeedConfig:
         qt = param_dict.get("quantize_training", {})
         self.quantize_training_enabled = bool(qt.get("enabled", False))
         self.quantize_training = qt if self.quantize_training_enabled else {}
+
+        # compression (compression/config.py), parsed as the JAX config
+        # parses it; the engine does not apply it: the user wraps the model
+        # with compression.init_compression
+        from deepspeed_tpu_torch.compression.config import get_compression_config
+        self.compression_config = get_compression_config(param_dict)
 
         # the sparse attention section, kept as the JAX package keeps it: the
         # model's sparsity config (ops/sparse_attention) decides, nothing reads it

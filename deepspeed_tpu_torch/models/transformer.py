@@ -299,11 +299,25 @@ def _w(entry, like):
     return maybe_dequant(entry, like.dtype)
 
 
+def _maybe_act_quant(cfg: TransformerConfig, x):
+    """QAT activation fake-quant at the matmul inputs (the reference's
+    QuantAct placement); dynamic per-tensor range, STE backward."""
+    if cfg.act_quant_bits:
+        from deepspeed_tpu_torch.compression.functional import quantize_activation
+        return quantize_activation(x, cfg.act_quant_bits, cfg.act_quant_sym)
+    return x
+
+
 def _qkv_project(cfg: TransformerConfig, x, lp, positions):
-    """q ``[B,T,H,Hd]``, k/v ``[B,T,KV,Hd]`` from ``x [B,T,D]``: projections,
-    optional biases, head reshape, rope."""
+    """q ``[B,T,H,Hd]``, k/v ``[B,T,KV,Hd]`` from ``x [B,T,D]``: act-quant,
+    projections, optional biases, head reshape, rope. Every attention path
+    projects here (the training :func:`attention` too), so the fake-quant
+    of the JAX package's two sites, ``attention`` and ``_qkv_project``,
+    lands once, and the prefill / decode logits of a QAT model match its
+    forward."""
     B, T, _ = x.shape
     H, KV, Hd = cfg.n_head, cfg.kv_heads, cfg.head_dim
+    x = _maybe_act_quant(cfg, x)
     q, k, v = x @ _w(lp["wq"], x), x @ _w(lp["wk"], x), x @ _w(lp["wv"], x)
     if cfg.attn_bias:
         q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
@@ -320,6 +334,7 @@ def _out_project(cfg: TransformerConfig, out, lp):
 
 
 def mlp(cfg: TransformerConfig, x, lp):
+    x = _maybe_act_quant(cfg, x)
     if cfg.activation == "swiglu":
         return (F.silu(x @ _w(lp["w_gate"], x)) * (x @ _w(lp["w_up"], x))) @ _w(lp["w_down"], x)
     h = x @ _w(lp["w_up"], x) + lp["b_up"]
@@ -443,8 +458,6 @@ def forward_cached(cfg: TransformerConfig, params, tokens, cache, pos: int, pad_
         raise NotImplementedError(
             "sparse_attention is not supported by the KV-cache decode path; "
             "serve with the dense forward() or drop the sparsity config")
-    if cfg.act_quant_bits:
-        not_ported("activation fake-quant (act_quant_bits)", "queue 1: compression")
     pos = int(pos)
     x, positions = cached_embed(cfg, params, tokens, pos, cache["k"].dtype)
     for i, lp in enumerate(params["layers"]):
@@ -619,10 +632,6 @@ def _check_paged_config(cfg: TransformerConfig):
     if cfg.sparse_attention is not None:
         raise NotImplementedError(
             "sparse_attention is not supported by the paged KV decode path")
-    if cfg.act_quant_bits:
-        raise NotImplementedError(
-            "activation fake-quant (act_quant_bits) is not ported: ROADMAP.md "
-            "queue 1, compression")
 
 
 def forward_paged_prefill(cfg: TransformerConfig, params, tokens, pools, slots, last_idx):
@@ -787,8 +796,6 @@ def attention(cfg: TransformerConfig, x, lp, positions, mask_bias):
         not_ported(f"sequence parallelism ({cfg.sequence_parallel})", "queue 1: sequence/")
     if cfg.manual_tp:
         not_ported("manual tensor parallelism (manual_tp)", "queue 1: runtime/pipe/")
-    if cfg.act_quant_bits:
-        not_ported("activation fake-quant (act_quant_bits)", "queue 1: compression")
     B, S, _ = x.shape
     H, Hd = cfg.n_head, cfg.head_dim
     q, k, v = _qkv_project(cfg, x, lp, positions)

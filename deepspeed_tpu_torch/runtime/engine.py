@@ -14,7 +14,11 @@ so it updates each group of per-layer leaves at once: the moments pass over
 every leaf of the group, then the group's ratio on the device, then the
 apply pass. With ``quantize_training`` enabled, ``train_batch`` then
 fake-quantizes the compute-dtype params (MoQ, ``runtime/quantize.py``) as the
-JAX engine's ``_quantize_step`` does. With ``gas == 1`` the micro-step's gradients feed the update directly
+JAX engine's ``_quantize_step`` does, its periods stretched by the
+per-block Hessian eigenvalues under ``quantize_training.eigenvalue``
+(``runtime/eigenvalue.py``). A ``compression.CompressedModel`` trains as
+any model does, and a JSON ``fused_cross_entropy`` reaches both of its
+variants. With ``gas == 1`` the micro-step's gradients feed the update directly
 in the compute dtype, with no buffers, as the JAX engine's fused path does.
 The ``forward`` / ``backward`` / ``step`` trio gives the same result.
 
@@ -102,10 +106,12 @@ import numpy as np
 import torch
 
 from deepspeed_tpu_torch.accelerator.real_accelerator import get_accelerator, resolve_device
+from deepspeed_tpu_torch.compression.compress import CompressedModel
 from deepspeed_tpu_torch.config.core import DeepSpeedConfig
 from deepspeed_tpu_torch.models.transformer import ParamTree, map_tree
 from deepspeed_tpu_torch.monitor.monitor import MonitorMaster
 from deepspeed_tpu_torch.runtime import lr_schedules
+from deepspeed_tpu_torch.runtime.eigenvalue import Eigenvalue, hvp_model
 from deepspeed_tpu_torch.runtime.loss_scaler import (LossScaleState, has_overflow,
                                                      make_loss_scale_state)
 from deepspeed_tpu_torch.runtime.loss_scaler import update as scaler_update
@@ -219,7 +225,14 @@ class DeepSpeedEngine:
         # a JSON-level "fused_cross_entropy" beats the model config's default
         fce = self._config.fused_cross_entropy
         mcfg = getattr(model, "config", None)
-        if fce is not None and mcfg is not None and hasattr(mcfg, "fused_cross_entropy"):
+        if isinstance(model, CompressedModel):
+            # the wrapped model's config; both variants that the compression
+            # schedule switches between take the override
+            mcfg = getattr(model, "config_model", None)
+            if fce is not None and hasattr(mcfg, "fused_cross_entropy"):
+                model.replace_model_config(fused_cross_entropy=fce)
+                mcfg = model.config_model
+        elif fce is not None and mcfg is not None and hasattr(mcfg, "fused_cross_entropy"):
             model.config = dataclasses.replace(mcfg, fused_cross_entropy=fce)
             mcfg = model.config
         self.device = resolve_device(device)
@@ -265,6 +278,17 @@ class DeepSpeedEngine:
         self.quantizer = (quantizer_from_config(self._config.quantize_training)
                           if self._config.quantize_training_enabled else None)
         self._moq_seen_skipped = 0
+        self.eigenvalue = None
+        ev = (self._config.quantize_training.get("eigenvalue") or {}) if self.quantizer else {}
+        if ev.get("enabled", False):
+            self.eigenvalue = Eigenvalue(
+                verbose=ev.get("verbose", False),
+                max_iter=ev.get("max_iter", 100),
+                tol=ev.get("tol", 1e-2),
+                stability=ev.get("stability", 1e-6),
+                gas_boundary_resolution=ev.get("gas_boundary_resolution", 1))
+            self._ev_layer_name = ev.get("layer_name", "layers")
+            self._ev_layer_num = ev.get("layer_num", 0)
 
         # ---- lr schedule ----
         self.lr_scheduler = None
@@ -865,7 +889,7 @@ class DeepSpeedEngine:
         if self._telemetry is not None:
             self._tel_after_train_batch(batch, loss, t0)
         if self.quantizer is not None:
-            self._quantize_step()
+            self._quantize_step(batch)
         self._write_monitor_events(loss)
         self._report_progress(loss)
         return loss
@@ -911,18 +935,52 @@ class DeepSpeedEngine:
             self._data_iter_external = False
         return self._data_iterator
 
-    def _quantize_step(self) -> None:
+    def _quantize_step(self, batch) -> None:
         """MoQ after the update (the JAX engine's ``_quantize_step``, run by
         ``train_batch`` only): walk the per-leaf bit schedule and
         fake-quantize the compute-dtype params in place, never the fp32
         masters. An fp16 overflow step skipped its update and does not
-        advance the schedule."""
+        advance the schedule. With eigenvalue enabled, per-block curvature is
+        re-estimated at gas boundaries while a precision switch is pending,
+        on the batch's first micro-batch, and the MEAN across blocks scales
+        the stacked-layers leaves' periods (the JAX engine's deviation from
+        the reference's per-block factor, forced by the stacked-layers leaf
+        layout; max is useless here because post_process normalizes the
+        largest eigenvalue to 1.0). The HVPs run the model on plain attention
+        and the plain CE head (``runtime/eigenvalue.hvp_model``)."""
         overflow = False
         if self.fp16_enabled():
             cur = self.state.skipped_steps
             overflow = cur > self._moq_seen_skipped
             self._moq_seen_skipped = cur
-        self.quantizer.quantize_tree(self._param_dict(self.state.params), overflow=overflow)
+        named = self._param_dict(self.state.params)
+        block_ev = None
+        # the JAX engine's host step count: train_batch calls, this one included
+        if self.eigenvalue is not None and \
+                self._data_progress["iterations"] % self.eigenvalue.gas_boundary_resolution == 0 \
+                and self.quantizer.any_precision_switch():
+            micro = {k: x[0] for k, x in batch.items()}
+            params = self.state.params
+            name = self._ev_layer_name
+            n_blocks = self._ev_layer_num or 0
+            if n_blocks > 0 and params.get(name) is not None:
+                masks = self.eigenvalue.layer_masks(params, name, n_blocks)
+            else:
+                masks = [dict.fromkeys(named, 1.0)]
+            # the JAX engine splits its key: one seed for the start vectors
+            # and the loss's dropout (the same mask in every HVP)
+            seed = int(torch.randint(0, 2**62, (1,), generator=self._rng))
+            loss_fn = _loss_fn_of(hvp_model(self.client_model))
+
+            def scalar_loss(p):
+                out = loss_fn(p, micro, torch.Generator().manual_seed(seed))
+                return out[0] if isinstance(out, tuple) else out
+
+            vals = self.eigenvalue.compute_eigenvalue(
+                scalar_loss, params, masks,
+                generator=torch.Generator(device=self.device).manual_seed(seed))
+            block_ev = {name: sum(vals) / len(vals)} if vals else None
+        self.quantizer.quantize_tree(named, overflow=overflow, block_eigenvalue=block_ev)
 
     def forward(self, batch):
         """Loss of one micro-batch, with its graph kept for ``backward``."""

@@ -16,11 +16,16 @@ on the stacked shape (so the stacked norm scales ``[L, D]`` are quantized),
 whose ``q_groups`` groups run over the flattened stacked leaf (a group may
 span layers), and whose rounding seed is ``qsteps + 7919 * leaf_idx`` over
 the JAX flattened order (:func:`~deepspeed_tpu_torch.runtime.utils.jax_leaves`).
-The eigenvalue-guided schedule is not ported (the config refuses it).
+With ``q_eigenvalue`` the schedule is eigenvalue-guided as in the JAX
+package: ``quantize_tree(..., block_eigenvalue={segment: value})`` stretches
+the period of every JAX leaf whose path holds that exact segment by ``1 +
+floor(value * 4)`` at its next bit drop (curvier blocks quantize later;
+the engine computes the values, ``runtime/eigenvalue.py``).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, List, Optional
 
 import torch
@@ -61,10 +66,6 @@ class Quantizer:
                  q_rounding: str = "nearest", q_verbose: bool = False,
                  q_eigenvalue: bool = False, start_bits: int = 16,
                  target_bits: int = 8, q_period: int = 100):
-        if q_eigenvalue:
-            from deepspeed_tpu_torch.utils.not_ported import not_ported
-            not_ported("the MoQ eigenvalue schedule",
-                       "queue 1: compression (MoQ eigenvalue, runtime/eigenvalue.py)")
         self.q_groups = q_groups
         self.q_mixed_fp16 = q_mixed_fp16
         self.q_change_ratio = q_change_ratio
@@ -116,12 +117,14 @@ class Quantizer:
 
     # -------------------- quantization -------------------- #
 
-    def _compute_one(self, key: str, leaves: List[torch.Tensor], leaf_idx: int) -> None:
+    def _compute_one(self, key: str, leaves: List[torch.Tensor], leaf_idx: int,
+                     eigenvalue: Optional[float] = None) -> None:
         """Quantize the port leaves of one JAX leaf in place."""
         st = self._leaf_state(key)
         if st["bits"] != self.target_bits and self.qsteps >= st["period"]:
+            factor = 1 + math.floor(eigenvalue * 4) if eigenvalue is not None else 1
             self.quantize_real_ratio = 1.0
-            st["period"] = st["period"] << 1
+            st["period"] = (st["period"] << 1) * factor
             st["bits"] -= 1
             if self.q_verbose:
                 logger.info(f"quantize {key}: bits={st['bits']} "
@@ -157,9 +160,14 @@ class Quantizer:
                 x.copy_(r * x + (1 - r) * qx)
 
     @torch.no_grad()
-    def quantize_tree(self, named_params: Dict[str, torch.Tensor], overflow: bool = False):
+    def quantize_tree(self, named_params: Dict[str, torch.Tensor], overflow: bool = False,
+                      block_eigenvalue: Optional[Dict[str, float]] = None):
         """Quantize every JAX leaf of stacked rank >= 2 per its schedule, in
-        place; ``named_params`` maps the port's leaf names to its tensors."""
+        place; ``named_params`` maps the port's leaf names to its tensors.
+        ``block_eigenvalue`` maps an exact path SEGMENT of the JAX leaf (e.g.
+        ``"layers"``) to its normalized eigenvalue, so ``"layer1"`` cannot
+        match ``"layer10"``. With ``q_eigenvalue`` an overflow step still
+        quantizes, as in the JAX package."""
         if overflow and not self.q_eigenvalue:
             return
         self.step()
@@ -169,7 +177,13 @@ class Quantizer:
             rank = leaves[0].dim() + (1 if path[0] == "layers" and len(path) > 1 else 0)
             if rank < 2:
                 continue
-            self._compute_one(keystr(path), leaves, idx)
+            ev = None
+            if block_eigenvalue:
+                for segment, val in block_eigenvalue.items():
+                    if segment in path:
+                        ev = val
+                        break
+            self._compute_one(keystr(path), leaves, idx, ev)
 
 
 def quantizer_from_config(qt: Dict[str, Any]) -> Optional[Quantizer]:

@@ -239,9 +239,32 @@ def test_quantizer_overflow_and_resume():
     assert resumed.state_dict() == pq.state_dict()
 
 
-def test_quantizer_refuses_eigenvalue():
-    with pytest.raises(NotImplementedError, match="eigenvalue"):
-        PQ.Quantizer(q_eigenvalue=True)
+@pytest.mark.parametrize("ev", [0.3, 0.76, 1.0])
+def test_quantizer_eigenvalue_periods_match_jax(ev):
+    """q_eigenvalue: each bit drop of a leaf whose path holds the segment
+    "layers" stretches its period by 1 + floor(4 ev), the others by 1; an
+    overflow step still quantizes; state and values equal JAX's after 7
+    steps, and a segment that is only a prefix ("layer") reaches nothing."""
+    kw = dict(q_groups=3, start_bits=12, target_bits=8, q_period=1, q_eigenvalue=True)
+    jq, pq = JQ.Quantizer(**kw), PQ.Quantizer(**kw)
+    tree = _tree()
+    jtree = jax.tree.map(jnp.asarray, tree)
+    named = _port_named(tree)
+    for step in range(7):
+        overflow = step == 3
+        jtree = jq.quantize_tree(jtree, overflow=overflow, block_eigenvalue={"layers": ev})
+        pq.quantize_tree(named, overflow=overflow, block_eigenvalue={"layers": ev})
+        assert pq.state_dict() == jq.state_dict(), step
+        got, want = _stacked(named), jax.tree.map(np.asarray, jtree)
+        for g, w in zip(jax.tree.leaves(got), jax.tree.leaves(want)):
+            assert np.abs(g - w).max() <= LEAF_TOL * np.abs(w).max(), step
+        if step == 0:       # the first drop: period 1 -> 2 x the factor
+            leaf = pq.state_dict()["leaf_state"]
+            assert leaf["['layers']['attn']['wq']"]["period"] == 2 * (1 + int(4 * ev))
+            assert leaf["['embed']['tokens']"]["period"] == 2
+    prefix = PQ.Quantizer(**kw)
+    prefix.quantize_tree(_port_named(tree), block_eigenvalue={"layer": ev})
+    assert prefix.state_dict()["leaf_state"]["['layers']['attn']['wq']"]["period"] == 2
 
 
 def test_per_port_leaf_quantize_misses_the_jax_leaf():

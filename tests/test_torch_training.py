@@ -394,10 +394,8 @@ def test_config_fields_match_jax():
     ({"flops_profiler": {"enabled": True}}, "profiling"),
     ({"optimizer": {"type": "OneBitAdam", "params": {}}}, "onebit"),
     ({"optimizer": {"type": "onebitlamb", "params": {}}}, "lamb"),
-    ({"quantize_training": {"enabled": True, "eigenvalue": {"enabled": True}}}, "eigenvalue"),
     ({"pipeline": {"stages": 2}}, "runtime/pipe"),
     ({"mesh": {"dp": 1, "sp": 2}}, "multi-device"),
-    ({"compression_training": {"weight_quantization": {}}}, "compression"),
     ({"comms_logger": {"enabled": True}}, "comm/"),
     ({"checkpoint": {"engine": "orbax"}}, "checkpoint"),
     ({"elasticity": {"enabled": True}}, "elasticity"),
@@ -407,6 +405,32 @@ def test_outside_the_slice_raises_naming_its_item(over, match):
     _, jparams = _jax_params(LLAMA)
     with pytest.raises(NotImplementedError, match=match):
         _port(LLAMA, jparams, _config(**over)).train_batch(_batches(0, 1, 4)[0])
+
+
+@pytest.mark.parametrize("over", [
+    {"quantize_training": {"enabled": True, "eigenvalue": {"enabled": True, "max_iter": 2,
+                                                           "layer_num": 2}}},
+    {"compression_training": {"weight_quantization": {
+        "shared_parameters": {"enabled": True},
+        "different_groups": {"g": {"params": {"start_bits": 8}, "modules": ["mlp"]}}}}},
+])
+def test_compression_sections_are_accepted_like_jax(over):
+    """The MoQ eigenvalue schedule and the compression_training section,
+    which the port took in with compression/ and runtime/eigenvalue.py: the
+    config parses as the JAX config does, the eigenvalue engine trains a
+    step, and compression_training is parsed, not applied (the user wraps
+    the model with init_compression)."""
+    _, jparams = _jax_params(LLAMA)
+    cfg = _config(**over)
+    want, got = JaxConfig(cfg, world_size=1), DeepSpeedConfig(cfg)
+    assert got.compression_config == want.compression_config
+    assert got.quantize_training == want.quantize_training
+    engine = _port(LLAMA, jparams, cfg, attention_backend="xla")
+    assert (engine.eigenvalue is not None) == ("quantize_training" in over)
+    assert np.isfinite(float(engine.train_batch(_batches(0, 1, 4)[0])))
+    if engine.eigenvalue is not None:             # two layer blocks, at most 2 HVPs each
+        assert len(engine.eigenvalue.iterations) == 2
+        assert all(1 <= i <= 2 for i in engine.eigenvalue.iterations)
 
 
 @pytest.mark.parametrize("device", ["cpu", "nvme"])

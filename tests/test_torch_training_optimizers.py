@@ -230,7 +230,6 @@ def test_per_port_leaf_quantize_misses_the_jax_engine(one_device_mesh):  # noqa:
 
 
 @pytest.mark.parametrize("over,match", [
-    ({"quantize_training": {**MOQ, "eigenvalue": {"enabled": True}}}, "eigenvalue"),
     ({"optimizer": {"type": "OneBitLamb", "params": {}}}, "onebit"),
     ({"optimizer": {"type": "ZeroOneAdam", "params": {}}}, "onebit"),
 ])
@@ -238,6 +237,23 @@ def test_new_refusals_name_their_item(over, match):
     _, jparams = _jax_params(LLAMA)
     with pytest.raises(NotImplementedError, match=match):
         _port(LLAMA, jparams, _config(**over))
+
+
+def test_eigenvalue_moq_is_built_as_the_jax_engine_builds_it():
+    """quantize_training.eigenvalue, refused before runtime/eigenvalue.py was
+    ported: the engine builds the Eigenvalue with the JAX engine's keys and
+    defaults, and the Quantizer with q_eigenvalue."""
+    _, jparams = _jax_params(LLAMA)
+    ev = {"enabled": True, "max_iter": 7, "tol": 0.05, "layer_name": "layers",
+          "layer_num": 2, "verbose": True}
+    eng = _port(LLAMA, jparams, _config(quantize_training={**MOQ, "eigenvalue": ev}))
+    assert eng.quantizer.q_eigenvalue
+    e = eng.eigenvalue
+    assert (e.max_iter, e.tol, e.stability, e.gas_boundary_resolution, e.verbose) == \
+        (7, 0.05, 1e-6, 1, True)
+    assert (eng._ev_layer_name, eng._ev_layer_num) == ("layers", 2)
+    off = _port(LLAMA, jparams, _config(quantize_training={**MOQ, "eigenvalue": {}}))
+    assert off.eigenvalue is None and not off.quantizer.q_eigenvalue
 
 
 def test_quantize_training_is_off_unless_enabled():
