@@ -51,7 +51,10 @@ Phases, each printing one JSON line:
                 ([16, 77, 12 x 64], causal) and vision ([8, 257, 16 x 64])
                 towers, with the padding mask dropped and the causal flag
                 flipped planted too, timed against SDPA (the padding as an
-                additive mask); A, C and D with Hd-64 bidirectional layouts
+                additive mask), and at a ragged S of the data-efficiency
+                curriculum ([32, 360, 16 x 64], padded), A there and at the
+                encoder shapes through its op dstpu::flash_fwd, the path a
+                training forward takes; A, C and D with Hd-64 bidirectional layouts
                 (the sparse BERT's BigBird block 128 at S 1024, timed, and
                 blocks of 64); F, G, dh and dW at BERT's MLM head (N 4096
                 gathered rows, D 1024, V 30522, the decoder bias, the tied
@@ -65,7 +68,7 @@ Phases, each printing one JSON line:
                 through init_inference + generate_batch with the default
                 serving config; the kernels' launch counters must match the
                 scheduler's prefill and decode actions
-  serve_async   full Llama-2-7B on the default serving config through the
+  serve_async   Llama-2-7B cut to 8 layers on the default serving config through the
                 async serving front-end (AsyncServingEngine): two replays of
                 a seeded arrival trace identical (actions and tokens); planted
                 step faults under replay (a per-request prefill fault retries,
@@ -81,7 +84,7 @@ Phases, each printing one JSON line:
                 /metrics against the registry, TTFT / TPOT); one controller
                 action moving prefill_chunk a rung and the next prefill's
                 chunks following it
-  serve_tier    full Llama-2-7B with the tiered KV cache (serving.kv_host,
+  serve_tier    Llama-2-7B cut to 8 layers with the tiered KV cache (serving.kv_host,
                 128 host blocks) on a 48-block device pool: turn 1 (the serve
                 prompts), a filler wave that reclaims every block of turn 1
                 into host RAM, turn 2 (each turn-1 row and 64 new tokens):
@@ -92,7 +95,7 @@ Phases, each printing one JSON line:
                 again under a persistent fetch fault (recompute), the pool
                 drained with no live block; spill and fetch GB/s and ms a
                 block, turn 2's TTFT against recompute, host RSS, device peak
-  serve_fleet   two replicas of full Llama-2-7B on the card behind the replica
+  serve_fleet   two replicas of Llama-2-7B cut to 8 layers on the card behind the replica
                 router, one weight tree (equal data_ptrs) and one host KV
                 tier: a session trace replayed twice with equal decisions,
                 rows against generate_batch (near-tie rule); roles
@@ -122,8 +125,8 @@ Phases, each printing one JSON line:
                 class, int8 against bf16; the bf16 engine's top-1 agreement
                 (printed, not gated)
   moe_generate  DeepSpeed-MoE 350M+MoE-128 (d 1024, 16 heads x 64, 128
-                experts of d_ff 4096, top-1, capacity 1.0) cut to its 12 MoE
-                layers (12.9 B expert parameters, seeded bf16 weights drawn
+                experts of d_ff 4096, top-1, capacity 1.0) cut to 6 of its 12
+                MoE layers (6.4 B expert parameters, seeded bf16 weights drawn
                 on the card) through init_inference + generate on an [8, 512]
                 batch, 64 new tokens: tokens/s, prefill ms, ms a decode step,
                 peak memory, each layer's expert counts and share of tokens
@@ -296,7 +299,7 @@ Phases, each printing one JSON line:
                 decode step, tokens/s and peak beside the resident engine's,
                 the stream's GB/s against one plain pinned copy's, the copy
                 stream's busy share of a decode step, host RSS
-  serve_stream_nvme  the same model cut to 4 layers with device "nvme" under
+  serve_stream_nvme  the same model cut to 2 layers with device "nvme" under
                 .zero_inference/ (free disk checked first): rows equal to the
                 cpu-mode streamed engine (limit 0), K5 = L x 15, the swap dir
                 gone once the engine is released; the layer files' read GB/s
@@ -305,11 +308,11 @@ Phases, each printing one JSON line:
                 offload_optimizer.device "cpu" (OFFLOAD_LAYERS layers, the host
                 state within 60 % of MemTotal), 1 + 5 steps: losses finite and
                 falling, A = 2 L gas, C = D = L gas, each K3 kernel gas, E 0 a
-                step; at 4 layers against the device optimizer (E) from the
+                step; at 2 layers against the device optimizer (E) from the
                 same seeded state: grads at steps 1-2 equal (limit 0), masters
                 after step 2 within 1e-6 of each leaf's largest; the masters
                 following load_module_state_dict, and not refreshed planted
-                above 1e-6; 2 layers on NVMe bit-equal to cpu mode after 3
+                above 1e-6; 1 layer on NVMe bit-equal to cpu mode after 3
                 steps; step ms split into device accumulation, D2H, host
                 optimizer and H2D, tokens/s, MFU, peaks, host RSS
   encoder_parity  the encoders, card (bf16, kernels) against CPU (fp32,
@@ -384,13 +387,33 @@ Phases, each printing one JSON line:
                 factor rule of the step's own mean (limit 0), per step E
                 once a leaf and K8 and its absmax once a quantized leaf, no
                 A, C, D or K3 inside the HVPs
+  train_remat   the train cell (Llama-2-7B width, 8 layers, S 2048, micro 4
+                x gas 2) under the remat policies full, selective, dots and
+                offload_dots: the step-1 loss and every gradient bit-equal to
+                full's (limit 0), A's forwards in the backward (L, 0 under
+                selective); then 3 steps each: step ms, tokens/s, the device
+                peak beside the reckoned saved bytes, A, C, D a step (A 16
+                under selective, 32 under the others), offload_dots' pinned
+                host bytes; the peaks ordered offload_dots within 0.5 GB of
+                full < selective < dots
+  train_data_efficiency  BERT-large MLM as bert_train fed by the
+                data-efficiency pipeline: 2048 seeded rows in an mmap indexed
+                dataset under .data_efficiency/ (deleted after), a
+                DataAnalyzer seqlen metric, a DeepSpeedDataSampler over its
+                curriculum into the engine's dataloader, the engine's seqlen
+                curriculum (128 -> 512, step 8), random-LTD on layers 1..22
+                (bert_sample_tokens, 128 -> 512 over 20 steps), PLD theta
+                after each step: 6 steps, each step's S and kept count the
+                schedulers', the rows a fresh sampler's order, A, C, D 24 a
+                step at the kept and full S; step ms, tokens/s, losses
   kernels       every ported kernel with its launches in the serve, spec_serve
                 (its oracle run), generate, train, train_lamb, train_sparse,
                 resume, ingest, telemetry, client_opt, health, serve_async,
                 serve_tier, serve_fleet, serve_gptj, serve_int8, train_gptj,
                 moe_generate, moe_train, serve_stream, serve_stream_nvme,
                 train_offload, bert_serve, bert_train, clip_encode,
-                compress_train and moq_eigenvalue phases
+                compress_train, moq_eigenvalue, train_remat and
+                train_data_efficiency phases
                 (the encoder shapes in rows of their own; A, C and D with a
                 layout in
                 rows of their own, as A, B, C, D and K5 at head_dim 256; C's
@@ -438,7 +461,7 @@ PHASES = ("env", "build", "kernel", "slice_parity", "serve", "serve_async", "ser
           "train_sparse", "resume", "ingest", "telemetry", "client_opt", "health",
           "serve_stream", "serve_stream_nvme", "train_offload", "encoder_parity",
           "bert_serve", "bert_train", "clip_encode", "compress_parity", "compress_train",
-          "moq_eigenvalue", "kernels",
+          "moq_eigenvalue", "train_remat", "train_data_efficiency", "kernels",
           "profile",
           "train_profile", "train_lamb_profile", "generate_profile", "train_sparse_profile",
           "health_profile")
@@ -1157,9 +1180,12 @@ def _check_bwd_hd256(gen, fa, results, failures):
 # the padding as mask_bias), and A at CLIP ViT-L/14's text tower (a batch of
 # 16 prompts, 77 tokens, 12 heads, causal) and vision tower (8 images, 257
 # tokens, 16 heads, non-causal)
+# "ltd": BERT-large at a ragged S of the data-efficiency curriculum (the
+# train_data_efficiency phase's step 3), A through its op dstpu::flash_fwd
 ENCODER_FLASH = {"bert": (BERT_MICRO, BERT_SEQ, 16, 64, False, True),
                  "clip_text": (CLIP_TEXT_BATCH, 77, 12, 64, True, False),
-                 "clip_vision": (CLIP_IMAGE_BATCH, 257, 16, 64, False, False)}
+                 "clip_vision": (CLIP_IMAGE_BATCH, 257, 16, 64, False, False),
+                 "ltd": (BERT_MICRO, 360, 16, 64, False, True)}
 
 
 def padding_bias(gen, B, S, share=0.25):
@@ -1177,9 +1203,11 @@ def _check_encoder_attention(gen, fa, results, failures):
     """A, C and D at the encoder shapes (ENCODER_FLASH) against their plain
     versions under the phase's per-row measures, with the phase's planted
     faults, the padding mask dropped and the causal flag flipped above the
-    limit, two launches bit-equal; each timed with its plain version, SDPA
-    (the padding as an additive float mask; its backward for C and D) and
-    the bound of the pairs this run's lengths leave."""
+    limit, two launches bit-equal (A once through its op
+    ``dstpu::flash_fwd``, the path a training forward takes, once through
+    the wrapper); each timed with its plain version, SDPA (the padding as
+    an additive float mask; its backward for C and D) and the bound of the
+    pairs this run's lengths leave. C and D at "bert" and "ltd"."""
     import torch
     import torch.nn.functional as F
     for name, (B, S, H, Hd, causal, padded) in ENCODER_FLASH.items():
@@ -1187,7 +1215,7 @@ def _check_encoder_attention(gen, fa, results, failures):
         q, k, v = (torch.randn((B, S, H, Hd), generator=gen, device=dev).to(dt) for _ in range(3))
         mb, lengths = padding_bias(gen, B, S) if padded else (None, torch.full((B,), S))
         kw = {"mask_bias": mb, "causal": causal}
-        o, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+        o, lse = fa.flash_fwd(q, k, v, mb, None, None, causal, None)
         ro, rlse = fa.flash_attention_plain(q, k, v, mb, causal)
         faults = {f: r[0] for f, r in _flash_faults(fa, q, k, v, mb, causal, None).items()}
         faults["causal_flipped"] = fa.flash_attention_plain(q, k, v, mb, not causal)[0]
@@ -1226,7 +1254,7 @@ def _check_encoder_attention(gen, fa, results, failures):
             4 * pairs * Hd)
         results[f"flash_attention_fwd_{name}"] = rec
         emit("kernel", **rec)
-        if name != "bert":
+        if name not in ("bert", "ltd"):
             del q, k, v, o, lse
             continue
         do = torch.randn(q.shape, generator=gen, device=dev).to(dt)
@@ -1275,8 +1303,8 @@ def _check_encoder_attention(gen, fa, results, failures):
         rec_d["bound_ms"], rec_d["bound_by"] = bound(
             elem * (q.numel() + 2 * k.numel() + 2 * v.numel() + do.numel()) + rows_bytes
             + mask_bytes, 4 * one)
-        results["flash_attention_bwd_dq_bert"] = rec_c
-        results["flash_attention_bwd_dkv_bert"] = rec_d
+        results[f"flash_attention_bwd_dq_{name}"] = rec_c
+        results[f"flash_attention_bwd_dkv_{name}"] = rec_d
         emit("kernel", **rec_c)
         emit("kernel", **rec_d)
         del q, k, v, o, lse, do, delta, args, dq, dk, dv, qg, kg, vg
@@ -2771,6 +2799,29 @@ def _llama7b(seed):
 
 
 SHARED_PREFIX_TOKENS = 256      # the prefix two of the serve prompts share
+# serve_async, serve_tier and serve_fleet: Llama-2-7B cut 32 -> 8 layers to
+# keep the default run inside its time limit (their loops, tiers and
+# routers are what they hold; the serve cell keeps all 32)
+SERVE_LOOP_LAYERS = 8
+
+
+def _llama7b_cut(seed, n_layer):
+    """``_llama7b(seed)`` with its first ``n_layer`` layers only (as it is
+    when it has no more): the dropped layers are freed and the device's peak
+    counter restarts, so a phase's peak holds only the layers it serves."""
+    import dataclasses
+    from deepspeed_tpu_torch.models.transformer import ParamTree
+    model, params = _llama7b(seed)
+    if model.config.n_layer <= n_layer:
+        return model, params
+    tree = params.to_dict()
+    del params
+    tree["layers"] = tree["layers"][:n_layer]
+    cut = ParamTree(tree)
+    del tree
+    _free()
+    _reset_peak()
+    return type(model)(dataclasses.replace(model.config, n_layer=n_layer)), cut
 
 
 def _serve_prompts(cfg, seed):
@@ -5899,7 +5950,7 @@ def _async_knob(model, params, prompt, failures):
 
 
 def phase_serve_async(state, seed):
-    """Full Llama-2-7B on the serve cell's default serving config through the
+    """Llama-2-7B (SERVE_LOOP_LAYERS layers) on the serve cell's default serving config through the
     async serving front-end. ``generate_batch`` on the serve phase's 12
     prompts (32 new tokens, greedy) gives the reference rows; the seeded
     trace replayed twice through ``AsyncServingEngine(start=False)`` gives
@@ -5929,7 +5980,7 @@ def phase_serve_async(state, seed):
     failures = []
     acc = get_accelerator("cuda" if ASYNC_DEVICE is None else ASYNC_DEVICE)
     acc.reset_peak_memory_stats()
-    model, params = _llama7b(seed)
+    model, params = _llama7b_cut(seed, SERVE_LOOP_LAYERS)
     cfg = model.config
     prompts = _serve_prompts(cfg, seed)
     _reset_telemetry()
@@ -6157,7 +6208,7 @@ def _xfer_rates(engine, n):
 
 
 def phase_serve_tier(state, seed):
-    """Full Llama-2-7B with the tiered KV cache (``serving.kv_host``,
+    """Llama-2-7B (SERVE_LOOP_LAYERS layers) with the tiered KV cache (``serving.kv_host``,
     max_host_blocks TIER_HOST_BLOCKS) on a device pool of TIER_BLOCKS
     blocks: turn 1 (the serve prompts, 32 new tokens), a filler wave of
     distinct prompts that reclaims every block of turn 1 (demoted to host
@@ -6185,7 +6236,7 @@ def phase_serve_tier(state, seed):
     failures = []
     acc = get_accelerator("cuda" if ASYNC_DEVICE is None else ASYNC_DEVICE)
     acc.reset_peak_memory_stats()
-    model, params = _llama7b(seed)
+    model, params = _llama7b_cut(seed, SERVE_LOOP_LAYERS)
     cfg = model.config
     prompts = _serve_prompts(cfg, seed)
     rng = np.random.default_rng(seed + 20)
@@ -6434,7 +6485,7 @@ def _fleet_threaded(engines, prompts, mode):
 
 
 def phase_serve_fleet(state, seed):
-    """Two replicas of full Llama-2-7B on the one card behind the replica
+    """Two replicas of Llama-2-7B (SERVE_LOOP_LAYERS layers) on the one card behind the replica
     router: one weight tree (equal data_ptrs) and one host KV tier, the
     device peak under the weights, two pools and 2 GB. The seeded trace with
     session keys driven by ``step()`` twice gives equal decisions (limit 0)
@@ -6463,7 +6514,7 @@ def phase_serve_fleet(state, seed):
     failures = []
     acc = get_accelerator("cuda" if ASYNC_DEVICE is None else ASYNC_DEVICE)
     acc.reset_peak_memory_stats()
-    model, params = _llama7b(seed)
+    model, params = _llama7b_cut(seed, SERVE_LOOP_LAYERS)
     cfg = model.config
     prompts = _serve_prompts(cfg, seed)
     weights_gb = sum(p.numel() * p.element_size() for p in params.parameters()) / 1e9
@@ -6894,7 +6945,9 @@ MOE_350M_128 = dict(vocab_size=50257, n_layer=24, n_head=16, d_model=1024, max_s
                     tie_embeddings=True, attn_bias=True)
 MOE_128 = dict(num_experts=128, k=1, capacity_factor=1.0, eval_capacity_factor=1.0,
                min_capacity=4, aux_loss_coef=0.01, expert_ff_mult=4)
-MOE_GENERATE_LAYERS = 12       # the published model's 12 MoE layers, its 12 dense ones dropped
+# the published model's 12 MoE layers (its 12 dense ones dropped), cut to 6
+# to keep the default run inside its time limit
+MOE_GENERATE_LAYERS = 6
 MOE_TRAIN_LAYERS = 2
 MOE_BATCH, MOE_PROMPT, MOE_MAX_NEW = 8, 512, 64
 MOE_LOGIT_ROWS = (0, 3, 6)     # rows held teacher-forced
@@ -7322,7 +7375,7 @@ def phase_serve_int8(state, seed):
 
 STREAM_DTYPE = "bf16"
 STREAM_MAX_NEW = 16             # serve_stream: generate's [8, 512] batch, cut 64 -> 16 new (time)
-STREAM_NVME_LAYERS = 4          # serve_stream_nvme: Llama-2-7B cut 32 -> 4 layers (disk, time)
+STREAM_NVME_LAYERS = 2          # serve_stream_nvme: Llama-2-7B cut 32 -> 2 layers (disk, time)
 STREAM_TF_ROWS = 2              # rows of the output held teacher-forced
 STREAM_PEAK_MARGIN = 1.5e9      # device peak over embedding + head + 2 layers + KV workspace
 STREAM_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), ".zero_inference")
@@ -7332,9 +7385,9 @@ OFFLOAD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), ".offload
 # GB) fit, 24 do not; cut to 12 (2.69 B, 48.4 GB) after a default run at
 # 16 took 1155.7 s of its 1200, and to 8 (1.88 B, 33.8 GB) when the
 # compression phases added 62 s to a 1112.6 s run (PERF.md section 4)
-OFFLOAD_LAYERS = 8              # train_offload: Llama-2-7B cut 32 -> 8 layers (the run's clock)
-OFFLOAD_CHECK_LAYERS = 4        # the depth held against the E engine (8 before the compression phases)
-OFFLOAD_NVME_LAYERS = 2         # the NVMe run held bit-equal to cpu mode
+OFFLOAD_LAYERS = 4              # train_offload: Llama-2-7B cut 32 -> 4 layers (the run's clock)
+OFFLOAD_CHECK_LAYERS = 2        # the depth held against the E engine
+OFFLOAD_NVME_LAYERS = 1         # the NVMe run held bit-equal to cpu mode
 OFFLOAD_NVME_STEPS = 3
 # host bytes a parameter under ZeRO-Offload: fp32 master and two moments, the
 # pinned fp32 grad and bf16 param staging; the depth must fit this share of
@@ -9339,6 +9392,433 @@ def phase_moq_eigenvalue(state, seed):
     check(not failures, "moq_eigenvalue failed: " + "; ".join(failures))
 
 
+# ------------------------------------------------------------------ #
+# the training extras: the remat policies, and the data-efficiency pipeline
+# (a seqlen curriculum over a sampler, random-LTD, progressive layer drop)
+
+REMAT_POLICIES = ("full", "selective", "dots", "offload_dots")
+REMAT_STEPS = 3                 # a policy's train_batch steps: step ms = median of steps 2-3
+REMAT_SEQ = TRAIN_SEQ
+REMAT_OFFLOAD_SLACK_GB = 0.5    # offload_dots' device peak within this of full's
+DE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), ".data_efficiency")
+DE_SAMPLES = 2048               # rows of the seeded indexed dataset, a quarter padded
+DE_STEPS = 6
+DE_CURRICULUM = {"enabled": True, "curriculum_type": "seqlen", "min_difficulty": 128,
+                 "max_difficulty": BERT_SEQ, "schedule_type": "fixed_linear",
+                 "schedule_config": {"total_curriculum_step": 5, "difficulty_step": 8}}
+DE_LTD = {"random_ltd_schedule": {"min_value": 128, "max_value": BERT_SEQ,
+                                  "schedule_type": "fixed_linear",
+                                  "schedule_config": {"require_steps": 20, "seq_per_step": 16}}}
+DE_PLD = {"enabled": True, "theta": 0.5, "gamma": 0.001}
+
+
+def remat_llama():
+    """train_remat's model: the train cell's (Llama-2-7B width, TRAIN_LAYERS)."""
+    from deepspeed_tpu_torch.models import llama
+    return llama("7b", n_layer=TRAIN_LAYERS)
+
+
+def remat_reckoned_gb(cfg, tokens):
+    """What each policy keeps beyond "full" a micro-step of ``tokens``,
+    reckoned from the shapes (bf16 products, fp32 lse): "selective" the q,
+    k, v, wo and ff_down products and kernel A's o (4 D + 2 KV Hd a token)
+    and lse (H floats); "dots" every product (3 D + 2 KV Hd + 2 d_ff);
+    "offload_dots" none on the device."""
+    D, KVD, H = cfg.d_model, cfg.kv_heads * cfg.head_dim, cfg.n_head
+    per_layer = {"selective": 2 * (4 * D + 2 * KVD) + 4 * H,
+                 "dots": 2 * (3 * D + 2 * KVD + 2 * cfg.ff_dim), "offload_dots": 0}
+    return {p: cfg.n_layer * tokens * b / 1e9 for p, b in per_layer.items()}
+
+
+@contextlib.contextmanager
+def attention_calls():
+    """The attention wrappers' calls inside the ``with`` body, as (name,
+    S): A's forward ("flash_attention"), C and D, through
+    ``flash_attention._dispatch``, which every one of them passes on the
+    card and on the CPU alike."""
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    calls, real = [], fa._dispatch
+
+    def spy(cuda_fn, plain_fn, name, q, *args):
+        calls.append((name, int(q.shape[1])))
+        return real(cuda_fn, plain_fn, name, q, *args)
+    fa._dispatch = spy
+    try:
+        yield calls
+    finally:
+        fa._dispatch = real
+
+
+def _bits(t):
+    """``t``'s bit patterns as integers (bit-equality with NaNs and -0 told apart)."""
+    import torch
+    return t.view({2: torch.int16, 4: torch.int32}[t.element_size()])
+
+
+def phase_train_remat(state, seed):
+    """The train cell (Llama-2-7B width at TRAIN_LAYERS, S 2048, micro 4 x
+    gas 2, FusedAdam, bf16, fused CE) under each remat policy. First the
+    step-1 loss and every gradient at the same weights and batch, through
+    the engine's forward and autograd, under "full" and then each other
+    policy: bit-equal (limit 0), A's forwards in each micro-step's backward
+    counted (L, or 0 under "selective"). Then REMAT_STEPS train_batch steps a
+    policy: step ms (median of steps 2-3), tokens/s, the device peak of its
+    steps against "full"'s beside the reckoned bytes, A, C and D launches a
+    step, the pinned host bytes held at the peak (offload_dots). Gates: the
+    bit-equality; A 2 L gas a step (L gas under "selective"), C and D L gas;
+    on the card the launch rule and the peaks ordered offload_dots within
+    REMAT_OFFLOAD_SLACK_GB of full < selective < dots; losses finite."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from deepspeed_tpu_torch.runtime.activation_checkpointing import checkpointing as ck
+    model = remat_llama()
+    gen = torch.Generator(device=CHECK_DEVICE).manual_seed(seed)
+    params = model.init_params(gen, device=CHECK_DEVICE, dtype=torch.bfloat16)
+    engine = _train_engine(model, params, TRAIN_CONFIG, device=CHECK_DEVICE)
+    cfg = model.config          # with the engine's fused_cross_entropy
+    del params
+    _free()
+    B = TRAIN_CONFIG["train_batch_size"]
+    tokens = np.random.default_rng(seed + 2).integers(0, cfg.vocab_size, size=(B, REMAT_SEQ))
+    batch = {"input_ids": torch.from_numpy(tokens).to(CHECK_DEVICE)}
+    gas = engine.gradient_accumulation_steps()
+    micro, L = B // gas, cfg.n_layer
+    leaves = [p for _, p in engine.state.params.named_parameters()]
+    failures, grad_check, want = [], {}, None
+    with attention_calls() as calls:
+        for policy in REMAT_POLICIES:
+            model.config = dataclasses.replace(cfg, remat=policy)
+            got, reruns = [], []
+            for i in range(gas):
+                loss = engine({k: x[i * micro:(i + 1) * micro] for k, x in batch.items()})
+                calls.clear()
+                grads = torch.autograd.grad(loss.float(), leaves)
+                engine._cached_loss = None
+                reruns.append(sum(1 for c in calls if c[0] == "flash_attention"))
+                got.append((_bits(loss.detach()), [_bits(g) for g in grads]))
+                del loss, grads
+            if want is None:
+                want, differ = got, 0
+            else:
+                differ = sum(int((a != b).sum()) for (_, ga), (_, gb) in zip(got, want)
+                             for a, b in zip(ga, gb))
+                differ += sum(int((la != lb).sum()) for (la, _), (lb, _) in zip(got, want))
+            grad_check[policy] = {"elements_differing": differ, "a_in_backward": reruns}
+            if differ:
+                failures.append(f"{policy}: {differ} loss and gradient elements differ from full's")
+            rerun = 0 if policy == "selective" else L
+            if reruns != [rerun] * gas:
+                failures.append(f"{policy}: A ran {reruns} times in the backward, not {rerun}")
+            del got
+        del want
+        _free()
+        runs, per_policy_launches = {}, {}
+        rule = train_launch_rule(engine)
+        reckoned = remat_reckoned_gb(cfg, micro * REMAT_SEQ)
+        for policy in REMAT_POLICIES:
+            model.config = dataclasses.replace(cfg, remat=policy)
+            _free()
+            _reset_peak()
+            ck.reset_stats()
+            calls.clear()
+            losses, step_s, per_step = _timed_steps(engine, batch, REMAT_STEPS)
+            a_calls = sum(1 for c in calls if c[0] == "flash_attention") / REMAT_STEPS
+            want_a = (1 if policy == "selective" else 2) * L * gas
+            if a_calls != want_a:
+                failures.append(f"{policy}: A called {a_calls} times a step, not {want_a}")
+            if not all(np.isfinite(losses)):
+                failures.append(f"{policy}: non-finite losses {losses}")
+            rule_p = {**rule, "flash_attention_fwd": want_a}
+            if CHECK_DEVICE == "cuda":
+                for i, s in enumerate(per_step):
+                    if {k: s[k] for k in rule_p} != rule_p:
+                        failures.append(f"{policy} step {i + 1} launches "
+                                        f"{({k: s[k] for k in rule_p})} != {rule_p}")
+            step_ms = float(np.median(step_s[1:])) * 1e3
+            runs[policy] = {
+                "losses": losses, "step_ms": [s * 1e3 for s in step_s],
+                "step_ms_median_steps_2_3": step_ms,
+                "tokens_per_s": B * REMAT_SEQ / (step_ms / 1e3), "peak_mem_gb": _peak_gb(),
+                "reckoned_over_full_gb": reckoned[policy] if policy != "full" else 0.0,
+                "a_c_d_a_step": [per_step[-1][k] for k in ("flash_attention_fwd",
+                                                             "flash_attention_bwd_dq",
+                                                             "flash_attention_bwd_dkv")],
+                "pinned_host_gb_at_peak": ck.stats["host_bytes_peak"] / 1e9,
+                "saved_gb_a_step": ck.stats["saved_bytes"] / 1e9 / REMAT_STEPS}
+            per_policy_launches[policy] = per_step
+    peaks = {p: r["peak_mem_gb"] for p, r in runs.items()}
+    for p, r in runs.items():
+        r["peak_over_full_gb"] = peaks[p] - peaks["full"]
+    if CHECK_DEVICE == "cuda":
+        if not peaks["full"] < peaks["selective"] < peaks["dots"]:
+            failures.append(f"device peaks not ordered full < selective < dots: {peaks}")
+        if not peaks["offload_dots"] <= peaks["full"] + REMAT_OFFLOAD_SLACK_GB:
+            failures.append(f"offload_dots' peak {peaks['offload_dots']:.2f} GB over full's "
+                            f"{peaks['full']:.2f} + {REMAT_OFFLOAD_SLACK_GB}")
+        if not runs["offload_dots"]["pinned_host_gb_at_peak"] > 0:
+            failures.append("offload_dots held no pinned host memory")
+    keys = ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+            "fused_ce_fwd", "fused_ce_ds", "fused_ce_dh_gemm", "fused_ce_dw_gemm", "fused_adam")
+    state["train_remat_launches"] = {
+        k: sum(s[k] for steps in per_policy_launches.values() for s in steps) for k in keys}
+    emit("train_remat", model="llama-2-7b width", layers=L, seq=REMAT_SEQ, micro=micro, gas=gas,
+         config=TRAIN_CONFIG, grad_check=grad_check, policies=runs,
+         reckoned_over_full_gb=reckoned, launches_per_step=per_policy_launches,
+         launch_rule=rule, card=state.get("card"))
+    model.config = cfg
+    del engine, batch
+    _free()
+    check(not failures, "train_remat failed: " + "; ".join(failures))
+
+
+class DEDataset:
+    """train_data_efficiency's samples: row i of the indexed dataset (its
+    real tokens) padded with 0 to BERT_SEQ, MLM_RATE of its inner positions
+    masked from a generator seeded by the row (as ``mlm_batch`` builds a
+    row). ``read`` records the rows asked for, in order."""
+
+    def __init__(self, ds, seed):
+        self.ds, self.seed, self.read = ds, seed, []
+
+    def __len__(self):
+        return len(self.ds)
+
+    def __getitem__(self, i):
+        import numpy as np
+        self.read.append(int(i))
+        toks = np.asarray(self.ds[i], np.int64)
+        n = len(toks)
+        pos = np.arange(BERT_SEQ)
+        ids = np.zeros(BERT_SEQ, np.int64)
+        ids[:n] = toks
+        rng = np.random.default_rng([self.seed, int(i)])
+        masked = (pos > 0) & (pos < n - 1) & (rng.random(BERT_SEQ) < MLM_RATE)
+        return {"input_ids": np.where(masked, BERT_MASK, ids),
+                "attention_mask": (pos < n).astype(np.int64),
+                "token_type_ids": np.zeros(BERT_SEQ, np.int64),
+                "labels": np.where(masked, ids, -100)}
+
+
+def de_rows(vocab, seed):
+    """DE_SAMPLES fill-mask rows' tokens ([CLS] seeded ids [SEP]): a quarter
+    of them shorter than BERT_SEQ, at lengths seeded in 64..BERT_SEQ-1."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    lengths = np.full(DE_SAMPLES, BERT_SEQ)
+    short = rng.choice(DE_SAMPLES, DE_SAMPLES // 4, replace=False)
+    lengths[short] = rng.integers(64, BERT_SEQ, size=len(short))
+    rows = []
+    for n in lengths:
+        row = rng.integers(1000, vocab, size=n)
+        row[0], row[-1] = BERT_CLS, BERT_SEP
+        rows.append(row)
+    return rows
+
+
+def ltd_bert(base):
+    """``base`` (a BertModel) as a model whose layers 1..L-2 run under
+    random-LTD, wired as a user of the package wires it: a subclass whose
+    forward wraps those blocks in ``RandomLayerTokenDrop`` over the per-row
+    token sets of ``bert_sample_tokens`` (``keep`` tokens of each row, drawn
+    from ``ltd_gen``), layers 0 and L-1 on every token. The caller sets
+    ``keep`` each step; ``seen`` records each forward's (S, keep)."""
+    from deepspeed_tpu_torch.models import transformer as T
+    from deepspeed_tpu_torch.ops.random_ltd.dropping_utils import bert_sample_tokens
+    from deepspeed_tpu_torch.runtime.data_pipeline.data_routing import RandomLayerTokenDrop
+
+    class LTDBert(type(base)):
+
+        def __call__(self, params, input_ids, token_type_ids=None, attention_mask=None,
+                     rng=None):
+            import torch
+            cfg = self.zoo_cfg
+            emb = params["embed"]
+            input_ids = torch.as_tensor(input_ids, device=emb["tokens"].device).long()
+            B, S = input_ids.shape
+            x = emb["tokens"][input_ids] + emb["positions"][:S][None]
+            if token_type_ids is None:
+                token_type_ids = torch.zeros_like(input_ids)
+            x = x + emb["token_type"][torch.as_tensor(token_type_ids, device=x.device).long()]
+            x = T._norm(cfg, x, emb["ln"])
+            k_embed, k_layers = (T._seeds(rng, 2) if rng is not None and cfg.dropout
+                                 else (None, None))
+            x = T._dropout(cfg, x, T._generator(k_embed, x.device))
+            mask = None if attention_mask is None else torch.as_tensor(attention_mask,
+                                                                       device=x.device)
+            mb = T.key_mask_bias(mask)
+            layers = list(params["layers"])
+            seeds = T._seeds(T._generator(k_layers, "cpu") if cfg.dropout else None, len(layers))
+            keep = min(self.keep or S, S)
+            idx = None
+            if keep < S:
+                idx, _ = bert_sample_tokens(keep, S, B, layers=len(layers) - 2, rng=self.ltd_gen)
+            self.seen.append((S, keep))
+            policy = T._remat(cfg.remat)
+            for l, (lp, seed) in enumerate(zip(layers, seeds)):
+                def layer(h, m, lp=lp, seed=seed):
+                    pos = torch.arange(h.shape[1], device=h.device)[None].expand(h.shape[:2])
+                    if policy is None:
+                        return T.block(cfg, h, lp, pos, m, seed)
+                    return T.remat(policy, T.block, cfg, h, lp, pos, m, seed)
+                if idx is not None and 0 < l < len(layers) - 1:
+                    x = RandomLayerTokenDrop(layer)(x, None, keep, mb, indices=idx[l - 1])
+                else:
+                    x = layer(x, mb)
+            pooled = torch.tanh(x[:, 0] @ params["pooler"]["w"] + params["pooler"]["b"])
+            return x, pooled
+
+    model = LTDBert(base.config, with_mlm_head=True)
+    model.keep, model.ltd_gen, model.seen = None, None, []
+    return model
+
+
+def phase_train_data_efficiency(state, seed):
+    """BERT-large MLM as bert_train (micro 32 x 512, AdamW 1e-4 wd 0.01,
+    bf16, fused CE, gather budget 0.25, no remat; nothing cut) fed by the
+    data-efficiency pipeline: DE_SAMPLES seeded rows written with
+    ``MMapIndexedDatasetBuilder`` under DE_DIR (a quarter shorter than 512),
+    a ``DataAnalyzer`` seqlen metric over them, a ``DeepSpeedDataSampler``
+    drawing from its curriculum over that metric into the engine's
+    ``DeepSpeedDataLoader``; the engine's config: the seqlen curriculum of
+    data_efficiency.data_sampling (128 -> 512 in 5 steps, step 8),
+    progressive_layer_drop (theta 0.5, gamma 0.001), activation_checkpointing
+    with its defaults; random-LTD on layers 1..22 (``ltd_bert``) at the
+    ``RandomLTDScheduler``'s count (128 -> 512 over 20 steps, 16 a step).
+    DE_STEPS steps: S and the kept count, step ms, tokens/s on the valid
+    tokens trained, losses, theta (``progressive_layer_drop.update_state``
+    after each step, as a user calls it: nothing in either package does).
+    Gates: each step's S the port's CurriculumScheduler's and its kept
+    count the RandomLTDScheduler's, below S; an S that is not a multiple of
+    64; the rows read the order of a fresh sampler with the same seed;
+    losses finite; A, C and D 24 a step, at [32, keep, 16 x 64] on layers
+    1..22 and at [32, S, 16 x 64] on layers 0 and 23 (and on the card the
+    counters)."""
+    import numpy as np
+    import torch
+    from deepspeed_tpu_torch.runtime.data_pipeline.curriculum_scheduler import (
+        CurriculumScheduler)
+    from deepspeed_tpu_torch.runtime.data_pipeline.data_routing import RandomLTDScheduler
+    from deepspeed_tpu_torch.runtime.data_pipeline.data_sampling import (
+        DataAnalyzer, DeepSpeedDataSampler, MMapIndexedDataset, MMapIndexedDatasetBuilder,
+        load_metric_values)
+    from deepspeed_tpu_torch.runtime.data_pipeline.data_sampling.data_analyzer import (
+        get_metric_value_percentiles)
+    from deepspeed_tpu_torch.runtime.dataloader import DeepSpeedDataLoader
+
+    base = bert_large(remat=False, mlm_gather_budget=BERT_BUDGET)
+    model = ltd_bert(base)
+    L = model.config.n_layer
+    config = {"train_batch_size": BERT_MICRO, "train_micro_batch_size_per_gpu": BERT_MICRO,
+              "gradient_accumulation_steps": 1,
+              "optimizer": {"type": "AdamW", "params": {"lr": 1e-4, "weight_decay": 0.01}},
+              "bf16": {"enabled": ENCODER_DTYPE == "bf16"}, "fused_cross_entropy": "auto",
+              "data_efficiency": {"enabled": True, "seed": seed + 60, "data_sampling": {
+                  "enabled": True, "curriculum_learning": DE_CURRICULUM}},
+              "progressive_layer_drop": DE_PLD, "activation_checkpointing": {}}
+    failures = []
+    shutil.rmtree(DE_DIR, ignore_errors=True)
+    os.makedirs(DE_DIR)
+    try:
+        t0 = time.perf_counter()
+        prefix = os.path.join(DE_DIR, "bert_rows")
+        builder = MMapIndexedDatasetBuilder(prefix, dtype=np.int32)
+        for row in de_rows(model.config.vocab_size, seed + 61):
+            builder.add_item(row)
+        builder.finalize()
+        ds = MMapIndexedDataset(prefix)
+        DataAnalyzer(ds, ["seqlen"], [len], os.path.join(DE_DIR, "analysis")).run()
+        values = load_metric_values(os.path.join(DE_DIR, "analysis"), "seqlen")
+        pct = get_metric_value_percentiles(os.path.join(DE_DIR, "analysis"), "seqlen")
+        data_s = time.perf_counter() - t0
+
+        def sampler():
+            return DeepSpeedDataSampler(
+                DE_SAMPLES, micro_batch_size=BERT_MICRO, data_parallel_rank=0,
+                data_parallel_size=1, curriculum_scheduler=CurriculumScheduler(
+                    dict(DE_CURRICULUM)), difficulties=values, seed=seed + 62)
+        dataset = DEDataset(ds, seed + 63)
+        gen = torch.Generator(device=CHECK_DEVICE).manual_seed(seed)
+        params = model.init_params(gen, device=CHECK_DEVICE, dtype=torch.bfloat16
+                                   if ENCODER_DTYPE == "bf16" else torch.float32)
+        engine = _train_engine(model, params, config, device=CHECK_DEVICE)
+        del params
+        engine.set_dataloader(DeepSpeedDataLoader(dataset, BERT_MICRO, data_sampler=sampler()))
+        model.ltd_gen = torch.Generator(device=CHECK_DEVICE).manual_seed(seed + 64)
+        ltd, want_ltd = RandomLTDScheduler(DE_LTD), RandomLTDScheduler(DE_LTD)
+        want_curr = CurriculumScheduler(dict(DE_CURRICULUM))
+        check(engine.curriculum_scheduler is not None and engine.pld_enabled(),
+              "the curriculum or PLD is off")
+        rule = bert_train_launch_rule(engine)
+        steps = []
+        with attention_calls() as calls:
+            for step in range(1, DE_STEPS + 1):
+                model.keep = ltd.update_seq(step)
+                calls.clear()
+                before = _train_counters()
+                t = time.perf_counter()
+                loss = float(engine.train_batch())
+                _sync()
+                dt = time.perf_counter() - t
+                after = _train_counters()
+                engine.progressive_layer_drop.update_state(engine.global_steps)
+                S, keep = model.seen[-1]
+                rows = dataset.read[-BERT_MICRO:]
+                valid = int(sum(min(int(values[i]), S) for i in rows))
+                steps.append({"step": step, "S": S, "keep": keep, "ms": dt * 1e3, "loss": loss,
+                              "theta": engine.get_pld_theta(), "valid_tokens": valid,
+                              "tokens_per_s": valid / dt,
+                              "layer_token_share": (2 * S + (L - 2) * keep) / (L * S),
+                              "calls": sorted({(n, s, calls.count((n, s))) for n, s in calls}),
+                              "launches": {k: after[k] - before[k] for k in after}})
+                want_s, want_k = want_curr.update_difficulty(step), want_ltd.update_seq(step)
+                if (S, keep) != (want_s, want_k) or not keep < S:
+                    failures.append(f"step {step}: S {S}, keep {keep}; the schedulers give "
+                                    f"{want_s}, {want_k}")
+                difficulty = engine.curriculum_scheduler.get_current_difficulty()
+                if difficulty != S:
+                    failures.append(f"step {step}: the engine's difficulty {difficulty} != {S}")
+                for name in ("flash_attention", "flash_attention_dq", "flash_attention_dkv"):
+                    seqs = sorted(s for n, s in calls if n == name)
+                    if seqs != sorted([keep] * (L - 2) + [S] * 2):
+                        failures.append(f"step {step}: {name} at {seqs}")
+                if CHECK_DEVICE == "cuda":
+                    got = {k: steps[-1]["launches"][k] for k in rule}
+                    if got != rule:
+                        failures.append(f"step {step} launches {got} != rule {rule}")
+        fresh = [i for b, _ in zip(sampler(), range(DE_STEPS)) for i in b]
+        if dataset.read[:len(fresh)] != fresh:
+            failures.append("the rows read are not a fresh sampler's order")
+        losses = [s["loss"] for s in steps]
+        if not all(np.isfinite(losses)):
+            failures.append(f"non-finite losses {losses}")
+        if all(s["S"] % 64 == 0 for s in steps):
+            failures.append("no step ran a ragged S")
+        timed = steps[1:]
+        keys = ("fused_ce_fwd", "fused_ce_ds", "fused_ce_dh_gemm", "fused_ce_dw_gemm")
+        state["train_data_efficiency_launches"] = {
+            **{f"{k}_ltd": sum(s["launches"][k] for s in steps)
+               for k in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                         "flash_attention_bwd_dkv")},
+            **{f"{k}_bert": sum(s["launches"][k] for s in steps) for k in keys},
+            "fused_adam": sum(s["launches"]["fused_adam"] for s in steps)}
+        emit("train_data_efficiency", layers=L, batch=[BERT_MICRO, BERT_SEQ],
+             samples=DE_SAMPLES, rows_short=int((values < BERT_SEQ).sum()),
+             seqlen_percentiles=pct, data_s=data_s, curriculum=DE_CURRICULUM, random_ltd=DE_LTD,
+             ltd_layers=[1, L - 2], pld=DE_PLD, steps=[{k: v for k, v in s.items()
+                                                         if k != "launches"} for s in steps],
+             tokens_per_s_steps_2_6=sum(s["valid_tokens"] for s in timed)
+             / sum(s["ms"] for s in timed) * 1e3,
+             losses=losses, theta=[s["theta"] for s in steps], peak_mem_gb=_peak_gb(),
+             launch_rule=rule, launches_per_step=[s["launches"] for s in steps],
+             card=state.get("card"))
+        del engine
+    finally:
+        shutil.rmtree(DE_DIR, ignore_errors=True)
+    _free()
+    check(not failures, "train_data_efficiency failed: " + "; ".join(failures))
+
+
 def phase_kernels(state):
     res = state.get("kernel_results", {})
     serve = state.get("launches", {})
@@ -9368,6 +9848,8 @@ def phase_kernels(state):
     clip_encode = state.get("clip_encode_launches", {})
     compress_train = state.get("compress_train_launches", {})
     moq_eigenvalue = state.get("moq_eigenvalue_launches", {})
+    train_remat = state.get("train_remat_launches", {})
+    train_data_efficiency = state.get("train_data_efficiency_launches", {})
     rows = []
     meta = {
         "flash_attention_fwd": (
@@ -9452,6 +9934,11 @@ def phase_kernels(state):
         meta[kern + "_bert"] = (
             meta[kern][0], f"deepspeed_tpu/ops/pallas/flash_attention.py:{line} ({what}; "
             "BERT-large: head_dim 64, non-causal, a padding mask_bias)")
+        meta[kern + "_ltd"] = (
+            meta[kern][0], f"deepspeed_tpu/ops/pallas/flash_attention.py:{line} ({what}; "
+            "BERT-large under the seqlen curriculum and random-LTD: head_dim 64, "
+            "non-causal, a padding mask_bias, S and kept counts not multiples of 64; "
+            f"checked at S {ENCODER_FLASH['ltd'][1]})")
     for tower in ("clip_text", "clip_vision"):
         meta[f"flash_attention_fwd_{tower}"] = (
             meta["flash_attention_fwd"][0],
@@ -9485,7 +9972,9 @@ def phase_kernels(state):
                                            ("bert_train", bert_train),
                                            ("clip_encode", clip_encode),
                                            ("compress_train", compress_train),
-                                           ("moq_eigenvalue", moq_eigenvalue))
+                                           ("moq_eigenvalue", moq_eigenvalue),
+                                           ("train_remat", train_remat),
+                                           ("train_data_efficiency", train_data_efficiency))
                    if name in n}
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                      "launches": sum(by_path.values()) if by_path else None,

@@ -38,6 +38,8 @@ _LAZY_EXPORTS = {
     "log_dist": ("deepspeed_tpu_torch.utils.logging", "log_dist"),
     "add_tuning_arguments": ("deepspeed_tpu_torch.runtime.lr_schedules",
                              "add_tuning_arguments"),
+    "checkpointing": ("deepspeed_tpu_torch.runtime.activation_checkpointing.checkpointing",
+                      None),
     "module_inject": ("deepspeed_tpu_torch.module_inject", None),
 }
 

@@ -98,7 +98,8 @@ _READ = {
     C.FP16, C.BFLOAT16, C.BFLOAT16_OLD, C.AMP, C.DATA_TYPES, C.ZERO_OPTIMIZATION,
     C.FUSED_CROSS_ENTROPY, C.SPARSE_ATTENTION, "mesh", "quantize_training", "checkpoint",
     "dataloader_drop_last", "telemetry", "tensorboard", "wandb", "csv_monitor",
-    "compression_training",
+    "compression_training", "activation_checkpointing", "curriculum_learning",
+    "data_efficiency", "progressive_layer_drop",
 }
 # keys the JAX package reads whose effect is on multi-device runs or on
 # engine features outside training itself; on one device they change nothing
@@ -119,11 +120,6 @@ _NOT_PORTED = {
     "nebula": ("nebula checkpointing", "checkpoint ingestion (orbax)"),
     "elasticity": ("elastic training", "elasticity/"),
     "autotuning": ("autotuning", "autotuning/"),
-    "activation_checkpointing": ("the activation_checkpointing section",
-                                 "activation_checkpointing/"),
-    "curriculum_learning": ("curriculum learning", "data_pipeline/"),
-    "data_efficiency": ("data efficiency", "data_pipeline/"),
-    "progressive_layer_drop": ("progressive layer drop", "data_pipeline/"),
 }
 _ONEBIT = (ONEBIT_ADAM_OPTIMIZER, ZERO_ONE_ADAM_OPTIMIZER, ONEBIT_LAMB_OPTIMIZER)
 _OFFLOAD_DEVICES = ("none", "null", "cpu", "nvme")
@@ -285,6 +281,25 @@ class DeepSpeedConfig:
         # with compression.init_compression
         from deepspeed_tpu_torch.compression.config import get_compression_config
         self.compression_config = get_compression_config(param_dict)
+
+        # progressive layer drop and the legacy curriculum section, read as
+        # the JAX config reads them (config/core.py:228-233); the engine
+        # builds the curriculum from the legacy section or data_efficiency
+        pld = param_dict.get("progressive_layer_drop", {})
+        self.pld_enabled = pld.get("enabled", False)
+        self.pld_params = pld if self.pld_enabled else False
+        self.curriculum_enabled_legacy = param_dict.get("curriculum_learning", {}).get(
+            "enabled", False)
+        self.curriculum_params_legacy = param_dict.get("curriculum_learning", False)
+        from deepspeed_tpu_torch.runtime.data_pipeline.config import get_data_efficiency_config
+        self.data_efficiency_config = get_data_efficiency_config(param_dict)
+        self.data_efficiency_enabled = self.data_efficiency_config.get("enabled", False)
+        # recorded for runtime/activation_checkpointing's configure(); on
+        # one device only cpu_checkpointing has an effect there
+        from deepspeed_tpu_torch.runtime.activation_checkpointing.config import (
+            DeepSpeedActivationCheckpointingConfig)
+        self.activation_checkpointing_config = DeepSpeedActivationCheckpointingConfig(
+            **param_dict.get("activation_checkpointing", {}))
 
         # the sparse attention section, kept as the JAX package keeps it: the
         # model's sparsity config (ops/sparse_attention) decides, nothing reads it

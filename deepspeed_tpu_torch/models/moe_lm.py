@@ -161,10 +161,11 @@ class MoECausalLM(nn.Module):
         mask_bias = T.key_mask_bias(attn_mask)
         layers = list(params["layers"])
         seeds = T._seeds(rng, len(layers))
-        remat = T._remat(cfg.remat)
         aux = torch.zeros((), device=x.device, dtype=torch.float32)
         for lp, seed in zip(layers, seeds):
-            if remat:
+            # any truthy remat (a policy's name, "none" too) is full remat,
+            # as in the JAX model (moe_lm.py:178)
+            if cfg.remat:
                 x, l_aux = checkpoint(self._block, x, lp, positions, mask_bias, seed, train,
                                       use_reentrant=False)
             else:

@@ -26,9 +26,11 @@ one-token step attends through the dense decode kernel (K5).
 Training (:func:`lm_loss`) runs the same blocks under autograd: flash
 attention is differentiable through the backward kernels, ``remat`` True /
 "full" recomputes each block in the backward pass
-(``torch.utils.checkpoint``, non-reentrant), and the vocab head runs the
-fused logits-free CE kernels (K3) where ``fused_cross_entropy`` selects
-them, else the plain ``chunked_vocab_ce``.
+(``torch.utils.checkpoint``, non-reentrant), "selective", "dots" and
+"offload_dots" keep what the JAX policies of those names keep
+(``runtime/activation_checkpointing/checkpointing.py``), and the vocab head
+runs the fused logits-free CE kernels (K3) where ``fused_cross_entropy``
+selects them, else the plain ``chunked_vocab_ce``.
 Dropout draws from an explicit ``torch.Generator`` through per-layer integer
 seeds taken before each checkpointed block, so a recomputed block draws the
 same mask.
@@ -53,6 +55,8 @@ from deepspeed_tpu_torch.ops.kernels.fused_cross_entropy import fused_cross_entr
 from deepspeed_tpu_torch.ops.kernels.paged_decode_attention import (paged_decode_attention,
                                                                     paged_envelope_ok)
 from deepspeed_tpu_torch.ops.quant import Quantized8, maybe_dequant
+from deepspeed_tpu_torch.runtime.activation_checkpointing.checkpointing import (checkpoint_name,
+                                                                                 remat)
 from deepspeed_tpu_torch.sequence._streaming import chunked_attention
 from deepspeed_tpu_torch.utils.not_ported import not_ported
 
@@ -318,7 +322,9 @@ def _qkv_project(cfg: TransformerConfig, x, lp, positions):
     B, T, _ = x.shape
     H, KV, Hd = cfg.n_head, cfg.kv_heads, cfg.head_dim
     x = _maybe_act_quant(cfg, x)
-    q, k, v = x @ _w(lp["wq"], x), x @ _w(lp["wk"], x), x @ _w(lp["wv"], x)
+    q = _named_mm(cfg, "q_proj", x, _w(lp["wq"], x))
+    k = _named_mm(cfg, "k_proj", x, _w(lp["wk"], x))
+    v = _named_mm(cfg, "v_proj", x, _w(lp["wv"], x))
     if cfg.attn_bias:
         q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
     q, k, v = q.reshape(B, T, H, Hd), k.reshape(B, T, KV, Hd), v.reshape(B, T, KV, Hd)
@@ -328,15 +334,26 @@ def _qkv_project(cfg: TransformerConfig, x, lp, positions):
     return q, k, v
 
 
+def _named_mm(cfg: TransformerConfig, name: str, x, w):
+    """``x @ w``, named for the ``"selective"`` remat policy (the JAX
+    package's ``checkpoint_name`` on the product); unnamed under any other
+    policy, where no one reads the name."""
+    if cfg.remat != "selective":
+        return x @ w
+    with checkpoint_name(name):
+        return x @ w
+
+
 def _out_project(cfg: TransformerConfig, out, lp):
-    out = out @ _w(lp["wo"], out)
+    out = _named_mm(cfg, "wo_out", out, _w(lp["wo"], out))
     return out + lp["bo"] if cfg.attn_bias else out
 
 
 def mlp(cfg: TransformerConfig, x, lp):
     x = _maybe_act_quant(cfg, x)
     if cfg.activation == "swiglu":
-        return (F.silu(x @ _w(lp["w_gate"], x)) * (x @ _w(lp["w_up"], x))) @ _w(lp["w_down"], x)
+        gated = F.silu(x @ _w(lp["w_gate"], x)) * (x @ _w(lp["w_up"], x))
+        return _named_mm(cfg, "ff_down", gated, _w(lp["w_down"], x))
     h = x @ _w(lp["w_up"], x) + lp["b_up"]
     if cfg.activation == "gelu":
         h = F.gelu(h, approximate="tanh")
@@ -346,7 +363,7 @@ def mlp(cfg: TransformerConfig, x, lp):
         h = h * torch.sigmoid(1.702 * h)
     else:
         h = F.relu(h)
-    return h @ _w(lp["w_down"], h) + lp["b_down"]
+    return _named_mm(cfg, "ff_down", h, _w(lp["w_down"], h)) + lp["b_down"]
 
 
 def cached_embed(cfg: TransformerConfig, params, tokens, pos, dtype):
@@ -827,16 +844,18 @@ def block(cfg: TransformerConfig, x, lp, positions, mask_bias, seed: Optional[in
     return x + _dropout(cfg, mlp(cfg, _norm(cfg, x, lp["ln_mlp"]), lp["mlp"]), gen)
 
 
-def _remat(remat) -> bool:
-    """Whether each block is recomputed in the backward pass: True / "full"
-    (the JAX package's full remat), or not at all (False / "none")."""
-    if remat is True or remat == "full":
-        return True
-    if not remat or remat == "none":
-        return False
-    if remat in ("selective", "dots", "offload_dots"):
-        not_ported(f"the remat policy {remat!r}", "queue 3: remat policies")
-    raise ValueError(f"unknown remat policy {remat!r} (expected True/'full', "
+def _remat(setting) -> Optional[str]:
+    """The policy each block is recomputed under in the backward pass
+    (``runtime/activation_checkpointing``): "full" for True / "full" (the
+    JAX package's full remat), "selective", "dots" or "offload_dots"; None
+    for False / "none" (no recompute)."""
+    if setting is True or setting == "full":
+        return "full"
+    if not setting or setting == "none":
+        return None
+    if setting in ("selective", "dots", "offload_dots"):
+        return setting
+    raise ValueError(f"unknown remat policy {setting!r} (expected True/'full', "
                      "'dots', 'selective', 'offload_dots', False/'none')")
 
 
@@ -847,10 +866,10 @@ def run_layers(cfg: TransformerConfig, x, layer_params, positions, mask_bias,
     every path deterministic."""
     layers = list(layer_params)
     seeds = _seeds(rng if cfg.dropout else None, len(layers))
-    full = _remat(cfg.remat)
+    policy = _remat(cfg.remat)
     for lp, seed in zip(layers, seeds):
-        if full:
-            x = checkpoint(block, cfg, x, lp, positions, mask_bias, seed, use_reentrant=False)
+        if policy is not None:
+            x = remat(policy, block, cfg, x, lp, positions, mask_bias, seed)
         else:
             x = block(cfg, x, lp, positions, mask_bias, seed)
     return x

@@ -40,7 +40,8 @@ each element. A row with no live key gets o = 0 and lse = +1e30, and zero
 gradients, as in the TPU kernels. ``tile_counts()`` reads the tiles each
 kernel walked on the card since ``reset_tile_counts()``.
 
-:func:`flash_attention` is differentiable: its autograd Function saves
+:func:`flash_attention` is differentiable: its forward is the op
+``dstpu::flash_fwd`` (:func:`flash_fwd`), whose autograd saves
 ``(q, k, v, o, lse, mask, slopes)``, computes ``delta = sum(do * o)`` in fp32
 with plain torch (as the JAX package does in XLA) and runs C and D. With
 ``return_lse=True`` the lse is differentiable too (the JAX package's
@@ -57,7 +58,7 @@ from __future__ import annotations
 import ctypes
 import math
 from collections import OrderedDict
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -541,14 +542,39 @@ def _forward(q, k, v, mask_bias, causal, alibi_slopes, scale, block_layout):
                      q, k, v, mask_bias, causal, alibi_slopes, scale, block_layout)
 
 
-class _FlashAttention(torch.autograd.Function):
-    """Kernel A forward; kernels C and D backward (the TPU package's
-    ``jax.custom_vjp`` around ``_fwd_kernel`` / ``_dq_kernel`` /
-    ``_dkv_kernel``: ``flash``, and ``flash_lse`` when the lse is used too).
-    The forward reads nothing but its inputs, so a rematerialising
-    checkpoint recomputes exactly the saved o and lse. The block layout
-    rides along for the backward as it is (its live-tile lists are cached
-    by content).
+@torch.library.custom_op("dstpu::flash_fwd", mutates_args=())
+def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              mask_bias: Optional[torch.Tensor], alibi_slopes: Optional[torch.Tensor],
+              block_layout: Optional[torch.Tensor], causal: bool,
+              scale: Optional[float]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel A's ``(o, lse)`` as one dispatcher op (the TPU package's
+    ``flash`` / ``flash_lse`` ``jax.custom_vjp``, whose outputs carry the
+    ``flash_o`` / ``flash_lse`` checkpoint names): kernel A for CUDA
+    tensors, :func:`flash_attention_plain` for CPU tensors. An op, not a
+    Python ``autograd.Function``, so that a selective checkpoint policy
+    (``runtime/activation_checkpointing``) sees it, saves its outputs and
+    skips it in the recompute. Its backward runs kernels C and D."""
+    return _forward(q, k, v, mask_bias, causal, alibi_slopes, scale, block_layout)
+
+
+@flash_fwd.register_fake
+def _(q, k, v, mask_bias, alibi_slopes, block_layout, causal, scale):
+    B, S, H, _ = q.shape
+    return torch.empty_like(q), q.new_empty((B, H, S), dtype=torch.float32)
+
+
+def _flash_setup(ctx, inputs, output):
+    q, k, v, mask_bias, alibi_slopes, block_layout, causal, scale = inputs
+    ctx.set_materialize_grads(False)     # an unused output's cotangent stays None
+    ctx.save_for_backward(q, k, v, *output, mask_bias, alibi_slopes)
+    ctx.causal, ctx.scale, ctx.block_layout = causal, scale, block_layout
+
+
+def _flash_backward(ctx, do, dlse):
+    """Kernels C and D. The forward reads nothing but its inputs, so a
+    rematerialising checkpoint recomputes exactly the saved o and lse. The
+    block layout rides along for the backward as it is (its live-tile
+    lists are cached by content).
 
     The lse is the log2-domain ``log2(sum_k exp2(s2_k))`` with s2 =
     log2(e) * s, so d lse / d s_k = log2(e) p_k: an lse cotangent adds
@@ -556,28 +582,20 @@ class _FlashAttention(torch.autograd.Function):
     ``delta - log2(e) * dlse`` as their row term with no other change
     (``bwd_impl(res, g, glse)`` of the JAX package). A row with no mass
     (lse = +1e30) has p = 0 and drops its lse cotangent there too."""
+    q, k, v, o, lse, mask_bias, slopes = ctx.saved_tensors
+    do = torch.zeros_like(o) if do is None else do.contiguous()
+    # delta in fp32 with plain torch, as the JAX package does in XLA
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2)
+    if dlse is not None:
+        delta = delta - _LOG2E * dlse.float()
+    args = (q, k, v, do, lse, delta.contiguous(), mask_bias, ctx.causal, slopes,
+            ctx.scale, ctx.block_layout)
+    dq = flash_attention_dq(*args)
+    dk, dv = flash_attention_dkv(*args)
+    return dq, dk, dv, None, None, None, None, None
 
-    @staticmethod
-    def forward(ctx, q, k, v, mask_bias, alibi_slopes, causal, scale, block_layout):
-        ctx.set_materialize_grads(False)     # an unused output's cotangent stays None
-        o, lse = _forward(q, k, v, mask_bias, causal, alibi_slopes, scale, block_layout)
-        ctx.save_for_backward(q, k, v, o, lse, mask_bias, alibi_slopes)
-        ctx.causal, ctx.scale, ctx.block_layout = causal, scale, block_layout
-        return o, lse
 
-    @staticmethod
-    def backward(ctx, do, dlse):
-        q, k, v, o, lse, mask_bias, slopes = ctx.saved_tensors
-        do = torch.zeros_like(o) if do is None else do.contiguous()
-        # delta in fp32 with plain torch, as the JAX package does in XLA
-        delta = (do.float() * o.float()).sum(-1).transpose(1, 2)
-        if dlse is not None:
-            delta = delta - _LOG2E * dlse.float()
-        args = (q, k, v, do, lse, delta.contiguous(), mask_bias, ctx.causal, slopes,
-                ctx.scale, ctx.block_layout)
-        dq = flash_attention_dq(*args)
-        dk, dv = flash_attention_dkv(*args)
-        return dq, dk, dv, None, None, None, None, None
+flash_fwd.register_autograd(_flash_backward, setup_context=_flash_setup)
 
 
 def flash_attention(q, k, v, mask_bias=None, causal: bool = True, alibi_slopes=None,
@@ -603,8 +621,9 @@ def flash_attention(q, k, v, mask_bias=None, causal: bool = True, alibi_slopes=N
     if H % k.shape[2]:
         raise ValueError(f"q heads {H} not a multiple of kv heads {k.shape[2]}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        o, lse = _FlashAttention.apply(q, k, v, mask_bias, alibi_slopes, causal, scale,
-                                       block_layout)
+        if block_layout is not None:
+            block_layout = torch.as_tensor(block_layout)
+        o, lse = flash_fwd(q, k, v, mask_bias, alibi_slopes, block_layout, causal, scale)
     else:
         o, lse = _forward(q, k, v, mask_bias, causal, alibi_slopes, scale, block_layout)
     return (o, lse) if return_lse else o

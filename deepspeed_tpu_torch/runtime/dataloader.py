@@ -5,8 +5,10 @@ after a number of consumed batches.
 
 The loader yields the JAX package's host numpy batches in the same order for
 the same dataset, seed, ``shuffle`` and ``drop_last``: each epoch shuffles
-with ``np.random.default_rng(seed + epoch)``. The engine moves each batch to
-its device.
+with ``np.random.default_rng(seed + epoch)``. A ``data_sampler`` gives the
+order instead: an iterable of indices, or of index batches such as
+``runtime/data_pipeline``'s ``DeepSpeedDataSampler`` yields. The engine
+moves each batch to its device.
 """
 
 from __future__ import annotations
@@ -112,7 +114,15 @@ class DeepSpeedDataLoader:
     def __iter__(self):
         n = len(self.dataset)
         if self.data_sampler is not None:
-            order = list(iter(self.data_sampler))
+            # indices, or batches of indices taken in turn (a
+            # DeepSpeedDataSampler yields micro-batches: at its micro-batch
+            # size each batch here is one of them)
+            order = []
+            for item in self.data_sampler:
+                if isinstance(item, (list, tuple, np.ndarray)):
+                    order.extend(item)
+                else:
+                    order.append(item)
         elif self.shuffle:
             rng = np.random.default_rng(self.seed + self.epoch)
             order = rng.permutation(n).tolist()

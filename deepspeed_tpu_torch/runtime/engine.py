@@ -345,6 +345,7 @@ class DeepSpeedEngine:
         self._last_lr = None             # the lr of the last update
         self._skipped_before_step = None
         self._init_telemetry()
+        self._init_data_efficiency()
         ccfg = self._config.checkpoint_config
         if ccfg.preemption_save:
             self.enable_preemption_handler(ccfg.save_dir)
@@ -447,6 +448,56 @@ class DeepSpeedEngine:
         sampler = sampler_from_config(tcfg, reg, self._tel_events)
         if sampler is not None:
             self._tel_sampler = sampler.start()
+
+    def _init_data_efficiency(self) -> None:
+        """The curriculum (the JAX engine's legacy ``curriculum_learning``
+        section, or ``data_efficiency.data_sampling.curriculum_learning`` with
+        its parent switches as gates) and progressive layer drop, which the
+        engine builds and nothing in it updates (as in the JAX engine: the
+        user calls ``progressive_layer_drop.update_state(step)``)."""
+        self.curriculum_scheduler = None
+        self._curriculum_metric = None
+        raw = self._config._param_dict
+        legacy = raw.get("curriculum_learning", {})
+        de = self._config.data_efficiency_config
+        sampling = de["data_sampling"]
+        curr_cfg = None
+        if isinstance(legacy, dict) and legacy.get("enabled", False):
+            curr_cfg = legacy
+        elif de["enabled"] and sampling["enabled"] and \
+                sampling["curriculum_learning"].get("enabled", False):
+            curr_cfg = sampling["curriculum_learning"]
+        if curr_cfg is not None:
+            from deepspeed_tpu_torch.runtime.data_pipeline.curriculum_scheduler import (
+                CurriculumScheduler)
+            self.curriculum_scheduler = CurriculumScheduler(dict(curr_cfg))
+            self._curriculum_metric = curr_cfg.get("curriculum_type", "seqlen")
+        self.progressive_layer_drop = None
+        if self._config.pld_enabled:
+            from deepspeed_tpu_torch.runtime.progressive_layer_drop import ProgressiveLayerDrop
+            self.progressive_layer_drop = ProgressiveLayerDrop(
+                theta=self._config.pld_params.get("theta", 1.0),
+                gamma=self._config.pld_params.get("gamma", 0.001))
+
+    def _curriculum_truncate(self, batch):
+        """The seqlen curriculum (the JAX engine's ``train_batch``, reference
+        ``engine.py:1691-1694``): each ``[gas, B, S, ...]`` leaf cut to the
+        step's difficulty on dim 2, and a 4-D leaf square in its last two
+        dims (``[gas, B, S, S]``, an attention mask) on dim 3 too; later
+        dims stay whole, as in the JAX engine."""
+        difficulty = self.curriculum_scheduler.update_difficulty(self._host_global_steps)
+        seq = max((x.shape[2] for x in batch.values() if x.dim() >= 3), default=0)
+        if difficulty >= seq:
+            return batch
+
+        def trunc(x):
+            if x.dim() >= 3 and x.shape[2] == seq:
+                x = x[:, :, :difficulty]
+                if x.dim() == 4 and x.shape[3] == seq:
+                    x = x[:, :, :, :difficulty]
+                x = x.contiguous()
+            return x
+        return {k: trunc(x) for k, x in batch.items()}
 
     def _update_buffer(self):
         """The sentinels' update-norm buffer and whether it holds norms:
@@ -872,6 +923,9 @@ class DeepSpeedEngine:
                 micros = [self._batch_fn(m) for m in micros]
             micros = [self._batch_to_device(m) for m in micros]
             batch = {k: torch.stack([m[k] for m in micros]) for k in micros[0]}
+        self._host_global_steps += 1
+        if self.curriculum_scheduler is not None and self._curriculum_metric == "seqlen":
+            batch = self._curriculum_truncate(batch)
         self._skipped_before_step = self.state.skipped_steps
         self.tput_timer.start()
         prof = self._profiler
@@ -1098,7 +1152,6 @@ class DeepSpeedEngine:
         loss_v, norm_v, sen_v = self._tel_read(loss)
         dt_s = time.perf_counter() - t0
         wait_s = t0 - self._t_prev_step_end if self._t_prev_step_end is not None else 0.0
-        self._host_global_steps += 1
         self._tel_record_step(batch, dt_s, loss_v, norm_v, wait_s)
         if self._health is not None:
             self._observe_health(loss_v, norm_v, sen_v, dt_s, wait_s)
@@ -1369,10 +1422,13 @@ class DeepSpeedEngine:
         all or nothing. Returns ``(path, client_state)``, ``(None, {})``
         when there is nothing to load (unless ``strict``)."""
         from deepspeed_tpu_torch.runtime.checkpoint_engine.engine import load_engine_checkpoint
-        return load_engine_checkpoint(self, load_dir, tag=tag,
-                                      load_optimizer_states=load_optimizer_states,
-                                      load_module_only=load_module_only, strict=strict,
-                                      load_data_progress=load_data_progress)
+        result = load_engine_checkpoint(self, load_dir, tag=tag,
+                                        load_optimizer_states=load_optimizer_states,
+                                        load_module_only=load_module_only, strict=strict,
+                                        load_data_progress=load_data_progress)
+        # the host step counter (the curriculum's clock) follows the restored step
+        self._host_global_steps = int(self.global_steps)
+        return result
 
     def auto_resume(self, save_dir, tag=None, strict=False):
         """Restore params, masters, optimizer, loss scaler, RNG and counters
@@ -1573,6 +1629,23 @@ class DeepSpeedEngine:
 
     # ------------------------------------------------------------------ #
     # accessors
+
+    def pld_enabled(self) -> bool:
+        return bool(self._config.pld_enabled)
+
+    def curriculum_enabled_legacy(self) -> bool:
+        return bool(self._config.curriculum_enabled_legacy)
+
+    def random_ltd_enabled(self) -> bool:
+        return bool(self._config.data_efficiency_config["data_routing"]["random_ltd"]
+                    .get("enabled", False))
+
+    def get_pld_theta(self):
+        """Current progressive-layer-drop theta, or None when PLD is off
+        (reference ``engine.py:2180``)."""
+        if self.progressive_layer_drop is not None:
+            return self.progressive_layer_drop.get_theta()
+        return None
 
     def train_batch_size(self) -> int:
         return self._config.train_batch_size

@@ -8,6 +8,7 @@ engine's dropout stream as it seeds the JAX engine's key."""
 import math
 
 import numpy as np
+import pytest
 import torch
 
 import deepspeed_tpu_torch
@@ -63,19 +64,20 @@ def test_kept_share_and_scaling():
     assert not torch.equal(kept, other != 0)
 
 
-def test_full_remat_recomputes_the_same_masks():
-    """With dropout on, full remat gives the gradients of no remat from the
-    same dropout stream: each block's recompute draws the masks again from
-    its own seed."""
+@pytest.mark.parametrize("policy", [True, "selective", "dots", "offload_dots"])
+def test_full_remat_recomputes_the_same_masks(policy):
+    """With dropout on, full remat and the other remat policies give the
+    gradients of no remat from the same dropout stream: each block's
+    recompute draws the masks again from its own seed."""
     grads = []
-    for remat in (True, False):
+    for remat in (policy, False):
         cfg = TransformerConfig(**{**TINY, "dropout": RATE, "remat": remat})
         params = _params(cfg).map(lambda t: t, requires_grad=True)
         PT.lm_loss(cfg, params, _batch(), rng=torch.Generator().manual_seed(9)).backward()
         grads.append([p.grad for p in params.parameters()])
     for a, b in zip(*grads):
         assert torch.allclose(a, b, rtol=0, atol=1e-6 * float(b.abs().max()))
-    cfg = TransformerConfig(**{**TINY, "dropout": RATE, "remat": True})
+    cfg = TransformerConfig(**{**TINY, "dropout": RATE, "remat": policy})
     params = _params(cfg).map(lambda t: t, requires_grad=True)
     PT.lm_loss(cfg, params, _batch(), rng=torch.Generator().manual_seed(10)).backward()
     other = [p.grad for p in params.parameters()]

@@ -17,6 +17,8 @@ weights (``params_from_jax``): logits and aux within 1e-5, loss and every
 leaf's gradient within 3e-5 of its largest value (``tests/test_torch_training.py``);
 three engine steps' losses within 1e-5, relative."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -222,12 +224,13 @@ def test_moe_param_classification_and_ep_refusal():
         MoE(hidden_size=8, num_experts=3, ep_size=2)
 
 
-def _pair(k=1, residual=False, seed=0, **moe):
+def _pair(k=1, residual=False, seed=0, remat=False, **moe):
     mkw = dict(num_experts=4, k=k, capacity_factor=1.0, eval_capacity_factor=1.0,
                expert_ff_mult=2, use_residual=residual, use_rts=False, **moe)
-    jm = JaxMoELM(JaxTConfig(**MODEL), JaxMoEConfig(**mkw))
+    model = {**MODEL, "remat": remat}
+    jm = JaxMoELM(JaxTConfig(**model), JaxMoEConfig(**mkw))
     jp = jax.tree.map(np.asarray, jm.init_params(jax.random.key(seed)))
-    pm = MoECausalLM(TransformerConfig(**MODEL), MoEConfig(**mkw))
+    pm = MoECausalLM(TransformerConfig(**model), MoEConfig(**mkw))
     return jm, jp, pm, params_from_jax(pm.config, jp)
 
 
@@ -257,6 +260,35 @@ def test_moe_causal_lm_matches_jax(k, residual):
                         params_to_jax(pm.config, grads), jax.tree.map(np.asarray, want))
     assert max(jax.tree.leaves(errs)) <= LEAF_TOL, errs
     assert pm.num_parameters == jm.num_parameters
+
+
+@pytest.mark.parametrize("remat", ["selective", "none"])
+def test_any_truthy_remat_is_full_remat(remat):
+    """A policy's name, and the string "none", mean full remat in the MoE
+    model, as in the JAX one: the loss and every leaf's gradient equal the
+    JAX MoECausalLM's under the same setting, and the port's own under
+    full remat bit for bit."""
+    jm, jp, pm, pp = _pair(remat=remat)
+    toks = np.random.default_rng(6).integers(0, 64, size=(2, 16))
+    want_loss, want = jax.value_and_grad(lambda p: jm.loss(p, {"input_ids": jnp.asarray(toks)}))(
+        jax.tree.map(jnp.asarray, jp))
+    runs = []
+    for model in (pm, MoECausalLM(dataclasses.replace(pm.config, remat=True), pm.moe)):
+        params = pp.map(lambda t: t, requires_grad=True)
+        loss = model.loss(params, {"input_ids": torch.from_numpy(toks)})
+        loss.backward()
+        runs.append((loss.detach(), params))
+    loss, params = runs[0]
+    assert torch.equal(loss, runs[1][0])
+    assert all(torch.equal(a.grad, b.grad) for a, b in zip(params.parameters(),
+                                                            runs[1][1].parameters()))
+    assert float(loss) == pytest.approx(float(want_loss), rel=LOSS_TOL)
+    grads = params.map(torch.zeros_like)
+    for (_, p), (_, g) in zip(params.named_parameters(), grads.named_parameters()):
+        g.data.copy_(p.grad)
+    errs = jax.tree.map(lambda a, b: float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30)),
+                        params_to_jax(pm.config, grads), jax.tree.map(np.asarray, want))
+    assert max(jax.tree.leaves(errs)) <= LEAF_TOL, errs
 
 
 def test_routing_draws_repeat_under_remat():

@@ -379,15 +379,47 @@ def test_bad_batch_triad_raises_in_both(i):
         DeepSpeedConfig(BAD_TRIADS[i])
 
 
-def test_config_fields_match_jax():
+DATA_EFFICIENCY_SECTIONS = [
+    {},
+    {"progressive_layer_drop": {"enabled": True, "theta": 0.5, "gamma": 0.001},
+     "curriculum_learning": {"enabled": True, "curriculum_type": "seqlen", "min_difficulty": 8,
+                             "max_difficulty": 64, "schedule_type": "fixed_linear",
+                             "schedule_config": {"total_curriculum_step": 4,
+                                                 "difficulty_step": 8}},
+     "activation_checkpointing": {"partition_activations": True, "cpu_checkpointing": True,
+                                  "number_checkpoints": 4, "profile": True}},
+    {"progressive_layer_drop": {"enabled": False},
+     "data_efficiency": {"enabled": True, "seed": 7,
+                         "data_sampling": {"enabled": True, "curriculum_learning": {
+                             "enabled": True, "min_difficulty": 16, "max_difficulty": 64,
+                             "schedule_type": "fixed_root",
+                             "schedule_config": {"total_curriculum_step": 4,
+                                                 "difficulty_step": 8, "root_degree": 2}}},
+                         "data_routing": {"random_ltd": {"enabled": True}}},
+     "activation_checkpointing": {"contiguous_memory_optimization": True,
+                                  "synchronize_checkpoint_boundary": True}},
+]
+CHECKPOINTING_FIELDS = ("partition_activations", "contiguous_memory_optimization",
+                        "cpu_checkpointing", "number_checkpoints",
+                        "synchronize_checkpoint_boundary", "profile")
+
+
+@pytest.mark.parametrize("sections", range(len(DATA_EFFICIENCY_SECTIONS)))
+def test_config_fields_match_jax(sections):
     cfg = _config(bf16={"enabled": True}, zero_optimization={"stage": 2},
-                  data_types={"grad_accum_dtype": "fp32"}, steps_per_print=5)
+                  data_types={"grad_accum_dtype": "fp32"}, steps_per_print=5,
+                  **DATA_EFFICIENCY_SECTIONS[sections])
     want, got = JaxConfig(cfg, world_size=1), DeepSpeedConfig(cfg)
     for key in ("optimizer_name", "optimizer_params", "scheduler_name", "scheduler_params",
                 "gradient_clipping", "bfloat16_enabled", "fp16_enabled",
                 "zero_optimization_stage", "gradient_accumulation_dtype", "fused_cross_entropy",
-                "steps_per_print"):
+                "steps_per_print", "pld_enabled", "pld_params", "curriculum_enabled_legacy",
+                "curriculum_params_legacy", "data_efficiency_config",
+                "data_efficiency_enabled"):
         assert getattr(got, key) == getattr(want, key), key
+    for key in CHECKPOINTING_FIELDS:
+        assert getattr(got.activation_checkpointing_config, key) == \
+            getattr(want.activation_checkpointing_config, key), key
 
 
 @pytest.mark.parametrize("over,match", [
@@ -484,10 +516,17 @@ def test_engine_refusals():
     with pytest.raises(DeepSpeedConfigError, match="unknown config key"):
         deepspeed_tpu_torch.initialize(model=model, config=_config(train_batchsize=3),
                                        device="cpu")
-    with pytest.raises(NotImplementedError, match="remat"):
-        cfg = TransformerConfig(**{**LLAMA, "remat": "selective"})
-        PT.lm_loss(cfg, params_from_jax(cfg, _jax_params(LLAMA)[1]),
-                   {"input_ids": torch.zeros((1, 8), dtype=torch.long)})
+    # the remat policies run (tests/test_torch_remat.py holds them to the
+    # JAX model); an unknown name raises
+    tokens = {"input_ids": torch.zeros((1, 8), dtype=torch.long)}
+    losses = []
+    for remat in (True, "selective"):
+        cfg = TransformerConfig(**{**LLAMA, "remat": remat})
+        losses.append(PT.lm_loss(cfg, params_from_jax(cfg, _jax_params(LLAMA)[1]), tokens))
+    assert torch.equal(losses[0], losses[1])
+    with pytest.raises(ValueError, match="unknown remat policy"):
+        cfg = TransformerConfig(**{**LLAMA, "remat": "attention"})
+        PT.lm_loss(cfg, params_from_jax(cfg, _jax_params(LLAMA)[1]), tokens)
     engine = deepspeed_tpu_torch.initialize(model=model, config=_config(), device="cpu")[0]
     with pytest.raises(ValueError, match="leading dim"):
         engine.train_batch(_batches(0, 1, 3)[0])
