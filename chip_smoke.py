@@ -58,7 +58,11 @@ Phases, each printing one JSON line:
                 (the sparse BERT's BigBird block 128 at S 1024, timed, and
                 blocks of 64); F, G, dh and dW at BERT's MLM head (N 4096
                 gathered rows, D 1024, V 30522, the decoder bias, the tied
-                embedding read in place), timed
+                embedding read in place), timed; S (the NHWC bias adds, its
+                three forms) at the denoiser's [2, 64, 64, 320] and the VAE's
+                [1, 512, 512, 128] bf16 activations, bit-equal to its plain
+                twin (limit 0), timed against a + bias; A at the denoiser's
+                self-attention ([2, 4096, 8 x 40], non-causal), timed
   slice_parity  Llama-7B width cut to 2 layers: the same seeded weights served
                 on the card (kernels) and on the CPU (plain versions, fp32);
                 the CPU's greedy tokens fed to both sides' paged prefill and
@@ -104,9 +108,9 @@ Phases, each printing one JSON line:
                 its breaker opens, every request completing on r1 (/healthz
                 503 for r0, 200 for the router); the fleet against one loop,
                 threaded, tokens/s and the device peak
-  serve_gptj    GPT-J-6B at full width and depth (EleutherAI/gpt-j-6b's
-                config.json as a dict through GPTJPolicy; 28 layers, 16
-                heads x 256, rotary 64 interleaved, untied head with its
+  serve_gptj    GPT-J-6B at full width (EleutherAI/gpt-j-6b's
+                config.json as a dict through GPTJPolicy; cut 28 -> 14
+                layers, 16 heads x 256, rotary 64 interleaved, untied head with its
                 bias; seeded bf16 weights) serving the serve phase's prompts
                 through generate_batch (A, then B, at Hd 256) and static
                 generate over their first 32 tokens (then K5): rows
@@ -115,7 +119,7 @@ Phases, each printing one JSON line:
                 within LOGIT_ULP_TOL with A reading the next kv head planted
                 above it, A = L x prefills, B = L x decodes, K5 = L x
                 (generated - 1); TTFT / TPOT p50, tokens/s, peak memory
-  serve_int8    full Llama-2-7B with dtype "int8" (q_groups 1): bytes at rest
+  serve_int8    Llama-2-7B cut to 8 layers with dtype "int8" (q_groups 1): bytes at rest
                 against the bf16 engine's, the serve phase's prompts on A, B
                 and the dequant kernel (7 L + 1 launches a forward), TTFT /
                 TPOT, tokens/s and peak memory beside the bf16 engine's; the
@@ -144,7 +148,7 @@ Phases, each printing one JSON line:
                 within LOGIT_ULP_TOL, and within it of the card's own
                 teacher-forced decode steps; kernel B handed pos instead of
                 pos + t planted through the model above it
-  spec_serve    full Llama-2-7B with serving.speculative ngram, k 4, on 8
+  spec_serve    Llama-2-7B cut to 8 layers with serving.speculative ngram, k 4, on 8
                 repetitive prompts (64 new tokens each): spec off, spec on
                 with the n-gram proposer, and spec on with an oracle proposer
                 (the spec-off output's next tokens), all of them and with its
@@ -287,8 +291,8 @@ Phases, each printing one JSON line:
                 serve phase's prompts with events on: cli trace <rid> phases
                 summing to each request's time, TTFT p99 and a TTFT
                 objective's burn rate
-  serve_stream  ZeRO-Inference from host RAM: full Llama-2-7B with
-                zero.offload_param.device "cpu" (32 layers in one pinned host
+  serve_stream  ZeRO-Inference from host RAM: Llama-2-7B cut to 16 layers with
+                zero.offload_param.device "cpu" (the layers in one pinned host
                 slab, two layer buffers on the card, copies on a copy stream)
                 on generate's [8, 512] prompts, 16 new tokens (cut from 64 for
                 time): rows equal (limit 0) to a resident engine's generate on
@@ -406,14 +410,39 @@ Phases, each printing one JSON line:
                 after each step: 6 steps, each step's S and kept count the
                 schedulers', the rows a fresh sampler's order, A, C, D 24 a
                 step at the kept and full S; step ms, tokens/s, losses
+  diffusers     Stable Diffusion v1.5's first UNet level at full width (batch 2
+                for classifier-free guidance, 64 x 64 latents; conv_in, a
+                ResNet block with the time bias through nhwc_bias_add and the
+                residual through nhwc_bias_add_add, self-attention over 4096
+                tokens through A, GEGLU, conv_out) through DSUNet's CUDA graph
+                and eagerly, 20 calls each alternated: outputs bit-equal, A
+                once and S 8 times a call (replays x the captured launches);
+                DSVAE's encode (conv 3 -> 128 at 512 x 512, a ResNet block)
+                and decode (conv_in 4 -> 512 at 64 x 64, a ResNet block)
+                graphs bit-equal to eager; donate_latents; one step at a
+                16 x 16 latent, card bf16 against CPU fp32, within
+                LOGIT_ULP_TOL, A's kv head shifted above it
+  tiled_linear  TiledLinear at Llama-2-7B's MLP up-projection (4096 -> 11008,
+                tiled 4 x 4, x [4, 2048, 4096] bf16), both lowerings, forward
+                and backward against the dense product within 2 bf16 ulps of
+                each row's largest; ms and device peak against dense
+  autotune      the autotuner on the train cell (8 layers, S 2048), fast mode,
+                ZeRO stage 0, micro-batches 1, 2 and 4: each trial's estimate
+                beside its peak, its launches by the train rule, the winner
+                the best measured, ds_config_optimal.json trains one step
+  tooling       OnDevice(meta) of the full Llama-2-7B (nothing allocated,
+                shapes of a real 1-layer build), the flops profiler on
+                bert_train's model at 2 layers ([32, 512]: products as
+                reckoned, A counting 0), dscli report and dscli elastic -w 1
+                as subprocesses, initialize taking the elastic plan's batch
   kernels       every ported kernel with its launches in the serve, spec_serve
                 (its oracle run), generate, train, train_lamb, train_sparse,
                 resume, ingest, telemetry, client_opt, health, serve_async,
                 serve_tier, serve_fleet, serve_gptj, serve_int8, train_gptj,
                 moe_generate, moe_train, serve_stream, serve_stream_nvme,
                 train_offload, bert_serve, bert_train, clip_encode,
-                compress_train, moq_eigenvalue, train_remat and
-                train_data_efficiency phases
+                compress_train, moq_eigenvalue, train_remat,
+                train_data_efficiency, diffusers, autotune and tooling phases
                 (the encoder shapes in rows of their own; A, C and D with a
                 layout in
                 rows of their own, as A, B, C, D and K5 at head_dim 256; C's
@@ -461,7 +490,8 @@ PHASES = ("env", "build", "kernel", "slice_parity", "serve", "serve_async", "ser
           "train_sparse", "resume", "ingest", "telemetry", "client_opt", "health",
           "serve_stream", "serve_stream_nvme", "train_offload", "encoder_parity",
           "bert_serve", "bert_train", "clip_encode", "compress_parity", "compress_train",
-          "moq_eigenvalue", "train_remat", "train_data_efficiency", "kernels",
+          "moq_eigenvalue", "train_remat", "train_data_efficiency", "diffusers",
+          "tiled_linear", "autotune", "tooling", "kernels",
           "profile",
           "train_profile", "train_lamb_profile", "generate_profile", "train_sparse_profile",
           "health_profile")
@@ -663,7 +693,8 @@ _KERNEL_NAMES = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kerne
                  "fused_ce_db_kernel", "ce_dh_gemm_kernel", "ce_dw_gemm_kernel",
                  "lamb_moments_kernel", "lamb_ratio_kernel", "lamb_apply_kernel",
                  "sr_quantize_kernel", "sr_absmax_kernel", "sr_scale_kernel",
-                 "dequant_int8_vec_kernel", "dequant_int8_scalar_kernel")
+                 "dequant_int8_vec_kernel", "dequant_int8_scalar_kernel",
+                 "spatial_bias_add_kernel")
 
 
 def ptxas_summary(log):
@@ -710,7 +741,7 @@ _NO_SPILL_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_k
                      "ce_dw_gemm_kernel", "paged_decode_kernel", "paged_decode_combine_kernel",
                      "dense_decode_kernel", "dense_decode_combine_kernel", "sr_quantize_kernel",
                      "sr_absmax_kernel", "sr_scale_kernel", "dequant_int8_vec_kernel",
-                     "dequant_int8_scalar_kernel")
+                     "dequant_int8_scalar_kernel", "spatial_bias_add_kernel")
 
 
 def spilling_kernels(rows):
@@ -989,6 +1020,10 @@ def phase_kernel(state, seed):
     _check_dequant_int8(torch.Generator(device="cuda").manual_seed(seed + 8), results, failures)
     _check_encoder_attention(torch.Generator(device="cuda").manual_seed(seed + 64), fa, results,
                              failures)
+    _check_spatial_bias_add(torch.Generator(device="cuda").manual_seed(seed + 25), results,
+                            failures)
+    _check_sd_attention(torch.Generator(device="cuda").manual_seed(seed + 40), fa, results,
+                        failures)
     check(not failures, "kernel checks failed: " + "; ".join(failures))
 
 
@@ -3113,7 +3148,7 @@ SPEC_RUNS = {"off": ("off", None), "ngram": ("ngram", None), "oracle": ("ngram",
 
 
 def phase_spec_serve(state, seed):
-    """Full Llama-2-7B with n-gram speculation (k 4) on the default serving
+    """Llama-2-7B cut to SERVE_LOOP_LAYERS with n-gram speculation (k 4) on the default serving
     config, one model for every run: 8 repetitive prompts served with
     speculation off, with the n-gram proposer, with an oracle proposer (the
     spec-off output's next tokens) and with an oracle whose third candidate
@@ -3131,7 +3166,7 @@ def phase_spec_serve(state, seed):
 
     acc = get_accelerator("cuda")
     acc.reset_peak_memory_stats()
-    model, params = _llama7b(seed)
+    model, params = _llama7b_cut(seed, SERVE_LOOP_LAYERS)
     cfg = model.config
     prompts = spec_prompts(cfg, seed)
 
@@ -6686,18 +6721,19 @@ GPTJ_6B_CONFIG = {"architectures": ["GPTJForCausalLM"], "model_type": "gptj",
                   "n_head": 16, "rotary_dim": 64, "n_inner": None,
                   "activation_function": "gelu_new", "layer_norm_epsilon": 1e-5,
                   "tie_word_embeddings": False, "bos_token_id": 50256, "eos_token_id": 50256}
+GPTJ_SERVE_LAYERS = 14       # serve_gptj: GPT-J-6B cut 28 -> 14 layers (the run's clock)
 GPTJ_STATIC_PROMPT = 32      # static generate: every serve prompt's first 32 tokens, one batch
 GPTJ_LOGIT_ROWS = (0, 5, 10)  # serve prompts held teacher-forced (32, 256 and 512 tokens)
 
 
 def _gptj6b(seed):
-    """GPT-J-6B at full width and depth (GPTJPolicy over the published
-    config.json; no file is read) with seeded bf16 weights drawn on the card,
-    the head's bias too (so it is seen)."""
+    """GPT-J-6B at full width, GPTJ_SERVE_LAYERS deep (GPTJPolicy over the
+    published config.json; no file is read) with seeded bf16 weights drawn
+    on the card, the head's bias too (so it is seen)."""
     import torch
     from deepspeed_tpu_torch.models import CausalLM
     from deepspeed_tpu_torch.module_inject.policies import GPTJPolicy
-    model = CausalLM(GPTJPolicy().zoo_config(GPTJ_6B_CONFIG))
+    model = CausalLM(GPTJPolicy().zoo_config({**GPTJ_6B_CONFIG, "n_layer": GPTJ_SERVE_LAYERS}))
     gen = torch.Generator(device="cuda").manual_seed(seed)
     params = model.init_params(gen, device="cuda", dtype=torch.bfloat16)
     bias = params["lm_head_bias"]
@@ -6730,8 +6766,9 @@ def _allocated_gb():
 
 
 def phase_serve_gptj(state, seed):
-    """GPT-J-6B at full width and depth (28 layers, 16 heads x 256, rotary
-    64 interleaved, untied head with its bias) serving the serve phase's
+    """GPT-J-6B at full width, cut to GPTJ_SERVE_LAYERS of its 28 layers
+    (16 heads x 256, rotary 64 interleaved, untied head with its bias)
+    serving the serve phase's
     prompts through generate_batch (A, then B, at Hd 256) and static
     generate over their first GPTJ_STATIC_PROMPT tokens (the cached path's
     grouped einsum over the prompt, as in the JAX package, then K5), against
@@ -7204,6 +7241,7 @@ def phase_moe_train(state, seed):
 
 INT8_TWIN_ROWS = (0, 10)        # serve prompts held teacher-forced against the twin (32, 512)
 INT8_TOP1_ROWS = (0, 3, 5, 10)  # and for the bf16 engine's top-1 agreement
+SERVE_INT8_LAYERS = 8           # serve_int8: Llama-2-7B cut 32 -> 8 layers (the run's clock)
 
 
 @contextlib.contextmanager
@@ -7251,8 +7289,8 @@ def _fresh_serve(engine, prompts):
 
 
 def phase_serve_int8(state, seed):
-    """Llama-2-7B at full width and depth with dtype "int8" (weight-only,
-    q_groups 1): bytes at rest (memory_allocated after init) against the
+    """Llama-2-7B at full width cut to SERVE_INT8_LAYERS layers with dtype
+    "int8" (weight-only, q_groups 1): bytes at rest (memory_allocated after init) against the
     bf16 engine's; the serve phase's prompts through generate_batch on A, B
     and the dequant kernel (7 x L + 1 launches a forward), then the same
     int8 params with the dequant's plain twin on the card: rows equal
@@ -7275,7 +7313,7 @@ def phase_serve_int8(state, seed):
     _free()
     base = _allocated_gb()
     t0 = time.perf_counter()
-    model, params = _llama7b(seed)
+    model, params = _llama7b_cut(seed, SERVE_INT8_LAYERS)
     cfg = model.config
     engine = deepspeed_tpu_torch.init_inference(model, params=params, dtype="int8",
                                                 device=ASYNC_DEVICE, telemetry=True)
@@ -7334,7 +7372,7 @@ def phase_serve_int8(state, seed):
     _free()
 
     mid = _allocated_gb()
-    model_bf, params = _llama7b(seed)
+    model_bf, params = _llama7b_cut(seed, SERVE_INT8_LAYERS)
     bf16 = deepspeed_tpu_torch.init_inference(model_bf, params=params, dtype=ASYNC_DTYPE,
                                               device=ASYNC_DEVICE, telemetry=True)
     del params
@@ -7375,6 +7413,7 @@ def phase_serve_int8(state, seed):
 
 STREAM_DTYPE = "bf16"
 STREAM_MAX_NEW = 16             # serve_stream: generate's [8, 512] batch, cut 64 -> 16 new (time)
+STREAM_LAYERS = 16              # serve_stream: Llama-2-7B cut 32 -> 16 layers (the run's clock)
 STREAM_NVME_LAYERS = 2          # serve_stream_nvme: Llama-2-7B cut 32 -> 2 layers (disk, time)
 STREAM_TF_ROWS = 2              # rows of the output held teacher-forced
 STREAM_PEAK_MARGIN = 1.5e9      # device peak over embedding + head + 2 layers + KV workspace
@@ -7509,8 +7548,8 @@ def pinned_copy_gbps(nbytes):
 
 
 def phase_serve_stream(state, seed):
-    """ZeRO-Inference from host RAM: full Llama-2-7B (seeded bf16 weights)
-    with ``zero.offload_param.device="cpu"``, its 32 layers in one pinned
+    """ZeRO-Inference from host RAM: Llama-2-7B cut to STREAM_LAYERS (seeded
+    bf16 weights) with ``zero.offload_param.device="cpu"``, its layers in one pinned
     host slab and two layer buffers on the card, on generate's [8, 512]
     prompts with STREAM_MAX_NEW new tokens. Rows equal (limit 0) to a
     resident engine's generate on the same weights (both run cached_block
@@ -7532,7 +7571,7 @@ def phase_serve_stream(state, seed):
     # what earlier phases still hold on the card (caches, workspaces) is not
     # the streamed engine's: the peak gate counts from it
     held = _allocated_gb() or 0.0
-    model, params = _stream_model(seed)
+    model, params = _stream_model(seed, STREAM_LAYERS)
     cfg = model.config
     L = cfg.n_layer
     ids = np.random.default_rng(seed + 5).integers(0, cfg.vocab_size,
@@ -9819,6 +9858,822 @@ def phase_train_data_efficiency(state, seed):
     check(not failures, "train_data_efficiency failed: " + "; ".join(failures))
 
 
+# ----------------------------------------------------------------------- #
+# Stable Diffusion wrappers (DSUNet / DSVAE on CUDA graphs, kernel S),
+# TiledLinear, the autotuner and the one-card tooling
+
+# Stable Diffusion v1.5's first UNet level at full width
+# (runwayml/stable-diffusion-v1-5 unet/config.json: in_channels 4,
+# block_out_channels[0] 320, attention_head_dim 8, norm_num_groups 32,
+# sample_size 64, time embedding 4 x 320) and its VAE's widths
+# (vae/config.json: latent_channels 4, block_out_channels [128, 256, 512, 512],
+# sample_size 512). Cross-attention is left out (A takes equal q and kv
+# lengths).
+SD_UNET = {"in_channels": 4, "channels": 320, "heads": 8, "groups": 32, "ff": 1280,
+           "temb": 1280, "latent": 64, "eps": 1e-5}
+SD_VAE = {"in_channels": 3, "latent": 4, "enc_channels": 128, "dec_channels": 512,
+          "groups": 32, "image": 512, "eps": 1e-6}
+SD_BATCH = 2                    # classifier-free guidance: the conditional and unconditional halves
+SD_STEPS = 20                   # denoiser calls through DSUNet, and as many eager, alternated
+SD_PARITY_LATENT = 16           # the card-vs-CPU step: a 16 x 16 latent
+SD_QK_SCALE = 3.0               # q / k weights scaled: attention peaked, faults reach the output
+SD_S_PER_CALL = 8               # S a denoiser call: conv_in, 2 in the ResNet, 5 in attention
+SD_VAE_S_PER_CALL = 3           # S an encode or decode call: the conv's bias, 2 in the ResNet
+
+
+def _card_dtype():
+    """bf16 on the card; fp32 where the CPU tests run the phases."""
+    import torch
+    return torch.bfloat16 if CHECK_DEVICE == "cuda" else torch.float32
+
+
+def sd_unet_params(gen, device, dtype, width=None):
+    """Seeded weights of the denoiser (``width``: SD_UNET's keys). Conv
+    weights are ``[out, in, 3, 3]`` (channels-last memory on the card, the
+    layout cuDNN's NHWC kernels read), matmul weights ``[in, out]``."""
+    import torch
+    w_ = width or SD_UNET
+    C, Cin, F, T = w_["channels"], w_["in_channels"], w_["ff"], w_["temb"]
+
+    def rnd(*shape, std=1.0, base=0.0):
+        x = torch.randn(shape, generator=gen, device=device) * std + base
+        return x.to(dtype)
+
+    def conv(cout, cin):
+        x = rnd(cout, cin, 3, 3, std=(9 * cin) ** -0.5)
+        return x.to(memory_format=torch.channels_last) if x.is_cuda else x
+
+    def lin(i, o, scale=1.0):
+        return rnd(i, o, std=scale * i**-0.5)
+
+    def norm(n):
+        return rnd(n, std=0.1, base=1.0), rnd(n, std=0.1)
+
+    gn1, gn2, gn, ln1, ln3, gno = (norm(C) for _ in range(6))
+    return {
+        "conv_in_w": conv(C, Cin), "conv_in_b": rnd(C, std=0.1),
+        "time_w1": lin(C, T), "time_b1": rnd(T, std=0.1),
+        "time_w2": lin(T, T), "time_b2": rnd(T, std=0.1),
+        "res": {"gn1_w": gn1[0], "gn1_b": gn1[1], "conv1_w": conv(C, C), "conv1_b": rnd(C, std=0.1),
+                "temb_w": lin(T, C), "temb_b": rnd(C, std=0.1),
+                "gn2_w": gn2[0], "gn2_b": gn2[1], "conv2_w": conv(C, C),
+                "conv2_b": rnd(C, std=0.1)},
+        "attn": {"gn_w": gn[0], "gn_b": gn[1], "proj_in_w": lin(C, C), "proj_in_b": rnd(C, std=0.1),
+                 "ln1_w": ln1[0], "ln1_b": ln1[1], "wq": lin(C, C, SD_QK_SCALE),
+                 "wk": lin(C, C, SD_QK_SCALE), "wv": lin(C, C), "wo": lin(C, C),
+                 "bo": rnd(C, std=0.1), "ln3_w": ln3[0], "ln3_b": ln3[1],
+                 "ff_w": lin(C, 2 * F), "ff_b": rnd(2 * F, std=0.1), "ff2_w": lin(F, C),
+                 "ff2_b": rnd(C, std=0.1), "proj_out_w": lin(C, C), "proj_out_b": rnd(C, std=0.1)},
+        "out_gn_w": gno[0], "out_gn_b": gno[1], "conv_out_w": conv(Cin, C),
+        "conv_out_b": rnd(Cin, std=0.1),
+    }
+
+
+def sd_vae_params(gen, device, dtype, width=None):
+    """Seeded weights of the VAE's first encoder level (conv 3 -> 128 and a
+    ResNet block) and its decoder's entry (conv_in 4 -> 512 and a ResNet
+    block)."""
+    import torch
+    w_ = width or SD_VAE
+
+    def rnd(*shape, std=1.0, base=0.0):
+        return (torch.randn(shape, generator=gen, device=device) * std + base).to(dtype)
+
+    def conv(cout, cin):
+        x = rnd(cout, cin, 3, 3, std=(9 * cin) ** -0.5)
+        return x.to(memory_format=torch.channels_last) if x.is_cuda else x
+
+    def level(cin, c):
+        return {"conv_w": conv(c, cin), "conv_b": rnd(c, std=0.1),
+                "res": {"gn1_w": rnd(c, std=0.1, base=1.0), "gn1_b": rnd(c, std=0.1),
+                        "conv1_w": conv(c, c), "conv1_b": rnd(c, std=0.1),
+                        "gn2_w": rnd(c, std=0.1, base=1.0), "gn2_b": rnd(c, std=0.1),
+                        "conv2_w": conv(c, c), "conv2_b": rnd(c, std=0.1)}}
+    return {"encoder": level(w_["in_channels"], w_["enc_channels"]),
+            "decoder": level(w_["latent"], w_["dec_channels"])}
+
+
+def _sd_conv(x, w, b=None):
+    """A 3 x 3, padding 1 convolution of an NHWC activation (cuDNN; the view
+    handed to it is channels-last memory)."""
+    import torch.nn.functional as F
+    return F.conv2d(x.permute(0, 3, 1, 2), w, b, padding=1).permute(0, 2, 3, 1).contiguous()
+
+
+def _sd_group_norm(x, w, b, groups, eps):
+    import torch.nn.functional as F
+    return F.group_norm(x.permute(0, 3, 1, 2), groups, w, b, eps).permute(0, 2, 3, 1).contiguous()
+
+
+def _sd_attention(q, k, v):
+    """The denoiser's self-attention: kernel A, non-causal, no mask (a
+    module-level name, so a fault can be planted where the model calls it)."""
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    return fa.flash_attention(q, k, v, causal=False)
+
+
+def _sd_resnet(x, p, temb_bias, groups, eps):
+    """A ResNet block (diffusers ``ResnetBlock2D`` at equal widths): the
+    time bias through ``nhwc_bias_add``, the residual through
+    ``nhwc_bias_add_add``."""
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops.spatial import kernels as sk
+    h = _sd_conv(F.silu(_sd_group_norm(x, p["gn1_w"], p["gn1_b"], groups, eps)), p["conv1_w"])
+    bias = p["conv1_b"] if temb_bias is None else p["conv1_b"] + temb_bias
+    h = sk.nhwc_bias_add(h, bias)
+    h = _sd_conv(F.silu(_sd_group_norm(h, p["gn2_w"], p["gn2_b"], groups, eps)), p["conv2_w"])
+    return sk.nhwc_bias_add_add(h, p["conv2_b"], x)
+
+
+def _sd_time_embedding(p, timestep, C):
+    """SD's sinusoidal timestep embedding (flip_sin_to_cos, 10000^(-i/half))
+    through the two-layer time MLP."""
+    import math
+    import torch
+    import torch.nn.functional as F
+    half = C // 2
+    freqs = torch.exp(-math.log(10000.0) * torch.arange(half, device=timestep.device,
+                                                        dtype=torch.float32) / half)
+    arg = timestep.float().reshape(1) * freqs
+    emb = torch.cat([torch.cos(arg), torch.sin(arg)]).to(p["time_w1"].dtype)
+    return F.silu(emb @ p["time_w1"] + p["time_b1"]) @ p["time_w2"] + p["time_b2"]
+
+
+def sd_denoiser(p, latents, timestep, context=None, width=None):
+    """One denoiser call: latents ``[N, H, W, 4]`` NHWC and a 0-dim timestep
+    (one for the CFG pair) to the noise prediction ``[N, H, W, 4]``.
+    conv_in, a ResNet block with the time embedding, a transformer block
+    (GroupNorm, proj_in, self-attention over the H*W tokens through A,
+    GEGLU feed-forward, proj_out, the residual), conv_out. Reads nothing
+    from the device, so a CUDA graph can hold it."""
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops.spatial import kernels as sk
+    w_ = width or SD_UNET
+    C, G, eps, heads = w_["channels"], w_["groups"], w_["eps"], w_["heads"]
+    temb = _sd_time_embedding(p, timestep, C)
+    temb_bias = F.silu(temb) @ p["res"]["temb_w"] + p["res"]["temb_b"]
+    h = sk.nhwc_bias_add(_sd_conv(latents, p["conv_in_w"]), p["conv_in_b"])
+    h = _sd_resnet(h, p["res"], temb_bias, G, eps)
+    a = p["attn"]
+    N, H, W, _ = h.shape
+    S = H * W
+    x = _sd_group_norm(h, a["gn_w"], a["gn_b"], G, 1e-6).reshape(N, S, C)
+    x = sk.nhwc_bias_add(x @ a["proj_in_w"], a["proj_in_b"])
+    n = F.layer_norm(x, (C,), a["ln1_w"], a["ln1_b"], 1e-5)
+    q, k, v = ((n @ a[w]).reshape(N, S, heads, C // heads) for w in ("wq", "wk", "wv"))
+    o = _sd_attention(q, k, v).reshape(N, S, C)
+    x = sk.nhwc_bias_add_add(o @ a["wo"], a["bo"], x)
+    n = F.layer_norm(x, (C,), a["ln3_w"], a["ln3_b"], 1e-5)
+    u, gate = sk.nhwc_bias_add(n @ a["ff_w"], a["ff_b"]).chunk(2, dim=-1)
+    x = sk.nhwc_bias_add_add((u * F.gelu(gate)) @ a["ff2_w"], a["ff2_b"], x)
+    h = sk.nhwc_bias_add_add(x @ a["proj_out_w"], a["proj_out_b"], h.reshape(N, S, C))
+    h = F.silu(_sd_group_norm(h.reshape(N, H, W, C), p["out_gn_w"], p["out_gn_b"], G, eps))
+    return _sd_conv(h, p["conv_out_w"], p["conv_out_b"])
+
+
+def _sd_vae_level(p, x, width):
+    from deepspeed_tpu_torch.ops.spatial import kernels as sk
+    w_ = width or SD_VAE
+    h = sk.nhwc_bias_add(_sd_conv(x, p["conv_w"]), p["conv_b"])
+    return _sd_resnet(h, p["res"], None, w_["groups"], w_["eps"])
+
+
+def sd_vae_encode(p, images, width=None):
+    """The VAE encoder's first level: conv 3 -> 128 at the image's size and
+    one ResNet block (NHWC)."""
+    return _sd_vae_level(p["encoder"], images, width)
+
+
+def sd_vae_decode(p, latents, width=None):
+    """The VAE decoder's entry: conv_in 4 -> 512 at the latent's size and
+    one ResNet block (NHWC)."""
+    return _sd_vae_level(p["decoder"], latents, width)
+
+
+@contextlib.contextmanager
+def sd_kv_head_shifted():
+    """Kernel A fed the next kv head, where the denoiser calls it."""
+    global _sd_attention
+    real = _sd_attention
+    _sd_attention = lambda q, k, v: real(q, k.roll(1, 2), v.roll(1, 2))
+    try:
+        yield
+    finally:
+        _sd_attention = real
+
+
+def _sd_counts():
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    from deepspeed_tpu_torch.ops.spatial import kernels as sk
+    return {"flash_attention_fwd_sd": fa.launches, "spatial_bias_add": sk.launches}
+
+
+def _sd_reset():
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    from deepspeed_tpu_torch.ops.spatial import kernels as sk
+    fa.launches = sk.launches = 0
+
+
+def _sd_sample_ulps(got, want):
+    """Each sample's largest difference in bf16 ulps of its largest |want|."""
+    return float(row_ulp_errs(got.reshape(got.shape[0], -1),
+                              want.reshape(want.shape[0], -1)).max())
+
+
+def _sd_card_vs_cpu(seed):
+    """One denoiser step at a SD_PARITY_LATENT latent: the card in bf16
+    (kernels) against the CPU in fp32 (plain versions) on the same
+    bf16-rounded weights and inputs, each sample within LOGIT_ULP_TOL bf16
+    ulps of its largest CPU value; A fed the next kv head must read above."""
+    import torch
+    gen = torch.Generator().manual_seed(seed + 5)
+    p32 = sd_unet_params(gen, "cpu", torch.bfloat16)
+    lat = torch.randn((SD_BATCH, SD_PARITY_LATENT, SD_PARITY_LATENT, SD_UNET["in_channels"]),
+                      generator=gen).to(torch.bfloat16)
+    t = torch.tensor(500.0)
+    from deepspeed_tpu_torch.models.transformer import map_tree
+    cpu_p = map_tree(lambda x: x.float(), p32)
+    dev_p = map_tree(lambda x: x.to(CHECK_DEVICE, memory_format=torch.channels_last)
+                     if x.dim() == 4 else x.to(CHECK_DEVICE), p32)
+    if CHECK_DEVICE != "cuda":        # the CPU tests: both sides fp32
+        dev_p = cpu_p
+    want = sd_denoiser(cpu_p, lat.float(), t)
+    dev_lat = lat.to(CHECK_DEVICE) if CHECK_DEVICE == "cuda" else lat.float()
+    got = sd_denoiser(dev_p, dev_lat, t.to(CHECK_DEVICE)).float().cpu()
+    with sd_kv_head_shifted():
+        fault = sd_denoiser(dev_p, dev_lat, t.to(CHECK_DEVICE)).float().cpu()
+    rec = {"latent": [SD_BATCH, SD_PARITY_LATENT, SD_PARITY_LATENT],
+           "ulp_err": _sd_sample_ulps(got, want), "ulp_tol": LOGIT_ULP_TOL,
+           "fault_ulp_err": {"kv_head_shifted": _sd_sample_ulps(fault, want)},
+           "finite": bool(torch.isfinite(got).all())}
+    failures = []
+    if not rec["finite"]:
+        failures.append("card-vs-CPU denoiser step: non-finite output")
+    if not rec["ulp_err"] <= LOGIT_ULP_TOL:
+        failures.append(f"card-vs-CPU denoiser step: {rec['ulp_err']} ulps > {LOGIT_ULP_TOL}")
+    if not rec["fault_ulp_err"]["kv_head_shifted"] > LOGIT_ULP_TOL:
+        failures.append(f"card-vs-CPU denoiser step: kv_head_shifted reads "
+                        f"{rec['fault_ulp_err']['kv_head_shifted']} <= {LOGIT_ULP_TOL}")
+    return rec, failures
+
+
+def _timed(fn):
+    """``(result, ms)``: one call on the host clock, ending in a sync."""
+    _sync()
+    t0 = time.perf_counter()
+    out = fn()
+    _sync()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def phase_diffusers(state, seed):
+    """Stable Diffusion v1.5's first UNet level (SD_UNET, batch 2 for
+    classifier-free guidance) through ``DSUNet`` (one CUDA graph) and
+    eagerly, SD_STEPS calls each, alternated on the same evolving latents:
+    every step's outputs bit-equal; A once a call and S SD_S_PER_CALL
+    times, counted for the graph as replays x the launches its capture
+    recorded; ms a step each way. ``DSVAE`` at SD v1.5's VAE widths: the
+    encode graph (conv 3 -> 128 at 512 x 512 and a ResNet block) and the
+    decode graph (conv_in 4 -> 512 at 64 x 64 and a ResNet block), each
+    bit-equal to eager. ``donate_latents`` writes into the caller's
+    latents. Then one step at a 16 x 16 latent, card bf16 against CPU fp32
+    (:func:`_sd_card_vs_cpu`)."""
+    import torch
+    from deepspeed_tpu_torch.models import DSUNet, DSVAE
+    dev, dt = CHECK_DEVICE, _card_dtype()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    p = sd_unet_params(gen, dev, dt)
+    L = SD_UNET["latent"]
+    lat0 = torch.randn((SD_BATCH, L, L, SD_UNET["in_channels"]), generator=gen,
+                       device=dev).to(dt)
+    failures = []
+
+    # launches of one eager call, then the capture (its warm-up runs the
+    # function once more, eagerly)
+    _sd_reset()
+    t = torch.tensor(999.0, device=dev)
+    sd_denoiser(p, lat0, t)
+    per_call = _sd_counts()
+    unet = DSUNet(sd_denoiser)
+    _sd_reset()
+    unet(p, lat0, t)
+    setup = _sd_counts()
+    graphed = unet.captures == 1
+    captured = {k: setup[k] - per_call[k] if graphed else 0 for k in setup}
+
+    _sd_reset()
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    replays0 = unet.replays
+    lat = lat0.clone()
+    graph_ms, eager_ms, differ = [], [], []
+    for i in range(SD_STEPS):
+        t = torch.tensor(999.0 - 50.0 * i, device=dev)
+        pair = []
+        for mode in ((0, 1) if i % 2 == 0 else (1, 0)):
+            fn = (lambda: unet(p, lat, t)) if mode == 0 else (lambda: sd_denoiser(p, lat, t))
+            out, ms = _timed(fn)
+            (graph_ms if mode == 0 else eager_ms).append(ms)
+            pair.append((mode, out))
+        g = dict(pair)[0]
+        e = dict(pair)[1]
+        differ.append(int((_bits(g) != _bits(e)).sum()))
+        lat = (lat.float() - 0.05 * g.float()).to(dt)     # an Euler-like update, both ways alike
+    counts = _sd_counts()
+    replays = unet.replays - replays0
+    launches = {k: counts[k] + replays * captured[k] for k in counts}
+    peak = torch.cuda.max_memory_allocated() / 1e9 if dev == "cuda" else None
+    rec = {"unet": {"latents": list(lat0.shape), "dtype": str(dt), "steps": SD_STEPS,
+                    "captures": unet.captures, "replays": replays,
+                    "per_call_launches": per_call, "captured_launches": captured,
+                    "launches": launches, "elements_differing_per_step": differ,
+                    "graph_ms_median": statistics.median(graph_ms),
+                    "eager_ms_median": statistics.median(eager_ms),
+                    "graph_ms": graph_ms, "eager_ms": eager_ms, "peak_gb": peak,
+                    "finite": bool(torch.isfinite(lat.float()).all())}}
+    want = {"flash_attention_fwd_sd": 2 * SD_STEPS,
+            "spatial_bias_add": 2 * SD_STEPS * SD_S_PER_CALL}
+    if dev == "cuda":     # the plain versions on the CPU launch nothing
+        if per_call != {"flash_attention_fwd_sd": 1, "spatial_bias_add": SD_S_PER_CALL}:
+            failures.append(f"an eager denoiser call launched {per_call}")
+        if not graphed or captured != per_call:
+            failures.append(f"the capture recorded {captured} (captures {unet.captures})")
+        if launches != want:
+            failures.append(f"denoiser launches {launches}, expected {want}")
+    if any(differ):
+        failures.append(f"graph and eager outputs differ: {differ} elements a step")
+    if not rec["unet"]["finite"]:
+        failures.append("non-finite latents after the loop")
+
+    # donate_latents: the result lands in the caller's tensor
+    donor = DSUNet(sd_denoiser, donate_latents=True)
+    buf = lat0.clone()
+    want_out = sd_denoiser(p, lat0, torch.tensor(999.0, device=dev))
+    got = donor(p, buf, torch.tensor(999.0, device=dev))
+    rec["donate_latents"] = {"same_tensor": got.data_ptr() == buf.data_ptr() or dev != "cuda",
+                             "bit_equal": bool(torch.equal(_bits(got), _bits(want_out)))}
+    if not all(rec["donate_latents"].values()):
+        failures.append(f"donate_latents: {rec['donate_latents']}")
+    del donor, buf, got, want_out
+
+    # the VAE: two graphs, each bit-equal to eager
+    vp = sd_vae_params(gen, dev, dt)
+    vae = DSVAE(encode_fn=sd_vae_encode, decode_fn=sd_vae_decode)
+    img = torch.randn((1, SD_VAE["image"], SD_VAE["image"], SD_VAE["in_channels"]),
+                      generator=gen, device=dev).to(dt)
+    z = torch.randn((1, L, L, SD_VAE["latent"]), generator=gen, device=dev).to(dt)
+    vae_rec = {}
+    for name, call, eager, x in (("encode", vae.encode, sd_vae_encode, img),
+                                 ("decode", vae.decode, sd_vae_decode, z)):
+        call(vp, x)                                 # capture
+        _sd_reset()
+        (g, g_ms), (e, e_ms) = _timed(lambda: call(vp, x)), _timed(lambda: eager(vp, x))
+        n_s = _sd_counts()["spatial_bias_add"]
+        n = int((_bits(g) != _bits(e)).sum())
+        vae_rec[name] = {"input": list(x.shape), "output": list(g.shape),
+                         "elements_differing": n, "graph_ms": g_ms, "eager_ms": e_ms,
+                         "s_launches_eager": n_s}
+        if n:
+            failures.append(f"DSVAE.{name}: {n} elements differ from eager")
+        if dev == "cuda" and n_s != SD_VAE_S_PER_CALL:
+            failures.append(f"an eager VAE {name} launched S {n_s} times")
+        del g, e
+    vae_rec["replays"] = vae.replays
+    rec["vae"] = vae_rec
+    del vae, vp, img, z
+
+    rec["card_vs_cpu"], more = _sd_card_vs_cpu(seed)
+    failures += more
+    state["diffusers_launches"] = launches
+    emit("diffusers", **rec)
+    check(not failures, "diffusers failed: " + "; ".join(failures))
+
+
+TILED_SHAPE = (4, 2048, 4096, 11008)    # x [4, 2048, 4096] into Llama-2-7B's MLP up-projection
+TILED_SPLITS = (4, 4)                   # in_splits, out_splits
+TILED_ULP_TOL = 2.0
+
+
+def phase_tiled_linear(state, seed):
+    """``TiledLinear`` at Llama-2-7B's MLP up-projection (4096 -> 11008,
+    tiled 4 x 4) on x ``[4, 2048, 4096]``: both lowerings (one einsum; the
+    loop over out-rows of tiles) against the dense product, forward and
+    backward: outputs, dx and dW (tiled back to dense) within TILED_ULP_TOL
+    bf16 ulps of each row's largest dense value; the tile grid read
+    transposed must read above it. Each lowering's forward and forward +
+    backward ms against dense, and its device peak."""
+    import torch
+    from deepspeed_tpu_torch.runtime.zero.tiling import TiledLinear
+    B, S, Din, Dout = TILED_SHAPE
+    dev, dt = CHECK_DEVICE, _card_dtype()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((B, S, Din), generator=gen, device=dev).to(dt)
+    w = (torch.randn((Din, Dout), generator=gen, device=dev) * Din**-0.5).to(dt)
+    dy = torch.randn((B, S, Dout), generator=gen, device=dev).to(dt)
+
+    def fwd_bwd(fn, weight):
+        xr, wr = x.detach().requires_grad_(), weight.detach().requires_grad_()
+        y = fn(xr, wr)
+        y.backward(dy)
+        return y.detach(), xr.grad, wr.grad
+
+    def peak_of(fn):
+        if dev != "cuda":
+            return None
+        _sync()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fn()
+        _sync()
+        return (torch.cuda.max_memory_allocated() - base) / 1e9
+
+    dense = lambda xr, wr: xr @ wr
+    y0, dx0, dw0 = fwd_bwd(dense, w)
+    timer = cuda_ms if dev == "cuda" else (lambda fn, reps=1, warmup=0: _timed(fn)[1])
+    rec = {"shape": list(TILED_SHAPE), "splits": list(TILED_SPLITS), "dtype": str(dt),
+           "ulp_tol": TILED_ULP_TOL,
+           "dense": {"fwd_ms": timer(lambda: dense(x, w), reps=10),
+                     "fwd_bwd_ms": timer(lambda: fwd_bwd(dense, w), reps=5),
+                     "peak_gb": peak_of(lambda: fwd_bwd(dense, w))}}
+    failures = []
+    for scan in (False, True):
+        tl = TiledLinear(Din, Dout, *TILED_SPLITS, bias=False, scan_tiles=scan)
+        wt = tl.from_dense(w)["w"]
+        run = lambda xr, wr: tl({"w": wr}, xr)
+        y, dx, dwt = fwd_bwd(run, wt)
+        dw = tl.to_dense({"w": dwt})
+        errs = {"out": ulp_err(y, y0), "dx": ulp_err(dx, dx0), "dw": ulp_err(dw, dw0)}
+        # a fault: the tile grid read with its in and out splits swapped
+        fault = ulp_err(tl({"w": wt.transpose(0, 1)}, x).detach(), y0)
+        name = "scan_tiles" if scan else "einsum"
+        rec[name] = {"ulp_err": errs, "fault_ulp_err": {"grid_transposed": fault},
+                     "fwd_ms": timer(lambda: run(x, wt), reps=10),
+                     "fwd_bwd_ms": timer(lambda: fwd_bwd(run, wt), reps=5),
+                     "peak_gb": peak_of(lambda: fwd_bwd(run, wt))}
+        for k, e in errs.items():
+            if not e <= TILED_ULP_TOL:
+                failures.append(f"{name} {k}: {e} bf16 ulps > {TILED_ULP_TOL}")
+        if not fault > TILED_ULP_TOL:
+            failures.append(f"{name}: the transposed grid reads {fault} <= {TILED_ULP_TOL}")
+        del y, dx, dwt, dw, wt
+    emit("tiled_linear", **rec)
+    check(not failures, "tiled_linear failed: " + "; ".join(failures))
+
+
+AUTOTUNE_MICRO = (1, 4)          # min and max micro-batch: 1, 2 and 4 measured
+AUTOTUNE_PROFILE = (1, 3)        # start_profile_step, end_profile_step: 1 warm + 2 timed steps
+AUTOTUNE_SEQ = TRAIN_SEQ
+AUTOTUNE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), ".chip_check", "autotune")
+
+
+def autotune_llama():
+    """autotune's model: the train cell's (Llama-2-7B width, TRAIN_LAYERS)."""
+    from deepspeed_tpu_torch.models import llama
+    return llama("7b", n_layer=TRAIN_LAYERS)
+
+
+def autotune_launch_rule(model, params, gas, steps):
+    """The kernels' launches of ``steps`` train_batch calls of the train cell
+    without remat (the autotuner's fast mode searches remat "none"): A, C
+    and D once a layer a micro-step, each fused CE kernel once a
+    micro-step, E once a parameter leaf a step."""
+    L = model.config.n_layer
+    leaves = len(list(params.parameters()))
+    return {"flash_attention_fwd": L * gas * steps, "flash_attention_bwd_dq": L * gas * steps,
+            "flash_attention_bwd_dkv": L * gas * steps, "fused_adam": leaves * steps,
+            **dict.fromkeys(("fused_ce_fwd", "fused_ce_ds", "fused_ce_dh_gemm",
+                             "fused_ce_dw_gemm"), gas * steps)}
+
+
+def phase_autotune(state, seed):
+    """The autotuner on the train cell (TRAIN_CONFIG, S TRAIN_SEQ), fast
+    mode, ZeRO stage 0, micro-batches 1, 2 and 4, profile steps 1-3: each
+    trial's estimate beside its measured device peak and its launches
+    against the train rule; the winner the best of the measured records;
+    ``ds_config_optimal.json`` (with its model overrides applied) trains
+    one step through ``initialize``. The results directory is deleted
+    after."""
+    import numpy as np
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.autotuning import Autotuner, AutotuningConfig, apply_optimal
+    dev, dt = CHECK_DEVICE, _card_dtype()
+    model = autotune_llama()
+    params = model.init_params(torch.Generator(device=dev).manual_seed(seed), device=dev,
+                               dtype=dt)
+    base = {k: v for k, v in TRAIN_CONFIG.items() if k != "train_batch_size"}
+    shutil.rmtree(AUTOTUNE_DIR, ignore_errors=True)
+    cfg = AutotuningConfig(fast=True, zero_stages=[0],
+                           min_train_micro_batch_size_per_gpu=AUTOTUNE_MICRO[0],
+                           max_train_micro_batch_size_per_gpu=AUTOTUNE_MICRO[1],
+                           start_profile_step=AUTOTUNE_PROFILE[0],
+                           end_profile_step=AUTOTUNE_PROFILE[1], results_dir=AUTOTUNE_DIR)
+    at = Autotuner(model, params, base, cfg, seq_len=AUTOTUNE_SEQ, device=dev)
+    steps = max(1, cfg.start_profile_step) + max(1, cfg.end_profile_step - cfg.start_profile_step)
+    gas = base["gradient_accumulation_steps"]
+    trials, failures = [], []
+    real = at.measure
+
+    def measured(cand):
+        _reset_train_counters()
+        t0 = time.perf_counter()
+        val = real(cand)
+        got = {k: v for k, v in _train_counters().items() if v}
+        want = autotune_launch_rule(model, params, gas, steps)
+        est = at.estimate_bytes(cand)
+        trials.append({"candidate": cand.name(), "metric": val, "seconds": time.perf_counter() - t0,
+                       "est_gb": est / 1e9, "peak_gb": (at.last_peak_bytes or 0) / 1e9 or None,
+                       "launches": got})
+        if dev == "cuda" and got != want:
+            failures.append(f"{cand.name()}: launches {got}, expected {want}")
+        return val
+    at.measure = measured
+    try:
+        best = at.tune()
+        measured_recs = [r for r in at.records if r.metric_val is not None]
+        winner = max(measured_recs, key=lambda r: r.metric_val)
+        with open(os.path.join(AUTOTUNE_DIR, "ds_config_optimal.json")) as f:
+            optimal = json.load(f)
+        if best["train_micro_batch_size_per_gpu"] != winner.candidate.micro_batch:
+            failures.append(f"the optimal micro-batch {best['train_micro_batch_size_per_gpu']} "
+                            f"is not the best measured {winner.candidate.name()}")
+        if optimal != best:
+            failures.append("ds_config_optimal.json is not the returned config")
+        if len(measured_recs) != len(at._mbs_list()):
+            failures.append(f"{len(measured_recs)} trials measured")
+        # the optimal config trains one step through initialize
+        tuned, config = apply_optimal(model, optimal)
+        _reset_train_counters()
+        engine, _, _, _ = deepspeed_tpu_torch.initialize(model=tuned, model_parameters=params,
+                                                         config=config, device=dev)
+        micro = engine.train_micro_batch_size_per_gpu()
+        ids = np.random.default_rng(seed).integers(0, model.config.vocab_size,
+                                                   size=(micro * gas, AUTOTUNE_SEQ))
+        loss = float(engine.train_batch({"input_ids": ids}))
+        step_launches = {k: v for k, v in _train_counters().items() if v}
+        if not np.isfinite(loss):
+            failures.append(f"the optimal config's step: loss {loss}")
+        if dev == "cuda" and step_launches != autotune_launch_rule(model, params, gas, 1):
+            failures.append(f"the optimal config's step launched {step_launches}")
+        del engine
+        _free()
+    finally:
+        shutil.rmtree(AUTOTUNE_DIR, ignore_errors=True)
+    launches = {}
+    for t in trials:
+        for k, v in t["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    for k, v in step_launches.items():
+        launches[k] = launches.get(k, 0) + v
+    state["autotune_launches"] = launches
+    emit("autotune", trials=trials, optimal=optimal, winner=winner.candidate.name(),
+         optimal_step_loss=loss, budget_gb=at.hbm_budget() / 1e9, launches=launches)
+    check(not failures, "autotune failed: " + "; ".join(failures))
+
+
+TOOLING_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), ".chip_check", "tooling")
+TOOLING_BERT = (2, 32, 512)      # the flops profile: bert_train's model at 2 layers, [32, 512]
+ELASTIC_SECTION = {"enabled": True, "max_train_batch_size": 64, "micro_batch_sizes": [2, 4],
+                   "min_gpus": 1, "max_gpus": 8, "version": 0.2}
+
+
+def _tree_shapes(tree):
+    from deepspeed_tpu_torch.models.transformer import map_tree
+    return map_tree(lambda t: (tuple(t.shape), t.dtype), tree.to_dict())
+
+
+def bert_products(cfg, B, S, plain_attention=False):
+    """The product flops of one BertModel MLM forward at [B, S], reckoned
+    from the shapes: a layer's q, k, v, o and two FFN matmuls, the pooler
+    (the [CLS] rows), the MLM transform and the tied decoder. Attention's
+    two products run inside kernel A and count 0; with
+    ``plain_attention`` (its plain version, on the CPU) they count
+    2 B H S^2 Hd each."""
+    N, D, F, V = B * S, cfg.d_model, cfg.d_ff, cfg.vocab_size
+    attn = 4 * B * S * S * D if plain_attention else 0
+    return float(cfg.n_layer * (2 * N * (4 * D * D + 2 * D * F) + attn) + 2 * B * D * D
+                 + 2 * N * D * D + 2 * N * D * V)
+
+
+def _dscli(*argv):
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": repo + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    return subprocess.run([sys.executable, "-m", "deepspeed_tpu_torch.cli", *argv],
+                          capture_output=True, text=True, timeout=600, cwd=repo, env=env)
+
+
+def phase_tooling(state, seed):
+    """The one-card tooling. OnDevice(meta): the full Llama-2-7B built on
+    the meta device leaves ``memory_allocated`` unchanged, with the shapes
+    (and dtype override) of a real 1-layer build's layer and outer leaves.
+    The flops profiler: bert_train's model at 2 layers on [32, 512] with
+    its padding mask, the profile's product flops equal to the reckoned
+    products, A launched and counting 0. ``dscli report`` in a subprocess
+    exits 0 and names the card as nvidia-smi does. ``dscli elastic -w 1``
+    prints the in-process plan, and ``initialize`` takes its batch from it."""
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import OnDevice
+    from deepspeed_tpu_torch.elasticity import compute_elastic_config
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    from deepspeed_tpu_torch.profiling.flops_profiler import FlopsProfiler
+    dev, dt = CHECK_DEVICE, _card_dtype()
+    failures = []
+
+    # OnDevice(meta)
+    alloc = lambda: torch.cuda.memory_allocated() if dev == "cuda" else 0
+    before = alloc()
+    t0 = time.perf_counter()
+    with OnDevice(dtype=dt, device="meta"):
+        meta = tooling_llama().init_params(device=dev)
+    meta_s = time.perf_counter() - t0
+    grown = alloc() - before
+    real_model = tooling_llama(n_layer=1)
+    real = real_model.init_params(torch.Generator(device=dev).manual_seed(seed), device=dev,
+                                  dtype=dt)
+    ms, rs = _tree_shapes(meta), _tree_shapes(real)
+    n_meta = sum(p.numel() for p in meta.parameters())
+    on_meta = all(p.is_meta for p in meta.parameters())
+    same = (all(ms[k] == rs[k] for k in rs if k != "layers")
+            and all(layer == rs["layers"][0] for layer in ms["layers"]))
+    rec = {"on_device_meta": {"params": n_meta, "layers": len(ms["layers"]),
+                              "allocated_bytes_grown": grown, "all_meta": on_meta,
+                              "shapes_equal_real_build": same, "seconds": meta_s}}
+    if grown != 0 or not on_meta or not same:
+        failures.append(f"OnDevice(meta): {rec['on_device_meta']}")
+    del meta, real, real_model
+
+    # the flops profiler
+    L, B, S = TOOLING_BERT
+    model = bert_large(n_layer=L, attention_backend="flash")
+    params = model.init_params(torch.Generator(device=dev).manual_seed(seed), device=dev,
+                               dtype=dt)
+    batch, _ = mlm_batch(model.config.vocab_size, B, S, seed)
+    ids = torch.as_tensor(batch["input_ids"], device=dev)
+    mask = torch.as_tensor(batch["attention_mask"], device=dev)
+    fa.launches = 0
+    prof = FlopsProfiler(model=model)
+    prof.profile_fn(model.forward, params, ids, mask)
+    out_file = os.path.join(TOOLING_DIR, "flops.txt")
+    os.makedirs(TOOLING_DIR, exist_ok=True)
+    prof.print_model_profile(output_file=out_file)
+    with open(out_file) as f:
+        written = f.read()
+    want = bert_products(model.config, B, S, plain_attention=dev != "cuda")
+    rec["flops_profiler"] = {"shape": [L, B, S], "products": prof.breakdown.get("dot_general"),
+                             "products_reckoned": want, "total": prof.get_total_flops(),
+                             "breakdown": prof.breakdown, "a_launches": fa.launches,
+                             "params": prof.get_total_params(),
+                             "written": written.strip().splitlines()}
+    if prof.breakdown.get("dot_general") != want:
+        failures.append(f"profiled products {prof.breakdown.get('dot_general')} != {want}")
+    if "conv_general_dilated" in prof.breakdown:
+        failures.append("a convolution counted in a BERT forward")
+    if fa.launches != (L if dev == "cuda" else 0):
+        failures.append(f"A launched {fa.launches} times in the profiled forward")
+    state["tooling_launches"] = {"flash_attention_fwd_bert": fa.launches}
+
+    # dscli report
+    res = _dscli("report")
+    card = state.get("card", "").split(",")[0].strip()
+    rec["report"] = {"rc": res.returncode, "names_card": bool(card) and card in res.stdout,
+                     "card": card, "tail": res.stdout.strip().splitlines()[-6:]}
+    if res.returncode != 0 or (dev == "cuda" and not rec["report"]["names_card"]):
+        failures.append(f"dscli report: rc {res.returncode}, card {card!r} named "
+                        f"{rec['report']['names_card']}: {res.stderr[-500:]}")
+
+    # dscli elastic, and initialize taking its batch from the plan
+    config = {"elasticity": ELASTIC_SECTION, "bf16": {"enabled": dev == "cuda"},
+              "optimizer": {"type": "AdamW", "params": {"lr": 1e-4}}}
+    path = os.path.join(TOOLING_DIR, "elastic.json")
+    with open(path, "w") as f:
+        json.dump(config, f)
+    res = _dscli("elastic", path, "-w", "1")
+    batch_sz, micro, gas = compute_elastic_config(config, world_size=1)
+    line = f"world_size=1: train_batch={batch_sz}, micro_batch={micro}, " \
+           f"gradient_accumulation_steps={gas}"
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(
+        model=model, model_parameters=params, device=dev,
+        config={**config, "train_batch_size": batch_sz, "train_micro_batch_size_per_gpu": micro,
+                "gradient_accumulation_steps": gas})
+    got = (engine.train_batch_size(), engine.train_micro_batch_size_per_gpu(),
+           engine.gradient_accumulation_steps())
+    rec["elastic"] = {"rc": res.returncode, "printed": res.stdout.strip(),
+                      "in_process": [batch_sz, micro, gas], "engine": list(got)}
+    if res.returncode != 0 or res.stdout.strip() != line:
+        failures.append(f"dscli elastic printed {res.stdout.strip()!r}, expected {line!r}")
+    if got != (batch_sz, micro, gas):
+        failures.append(f"initialize took batch {got}, the plan {(batch_sz, micro, gas)}")
+    del engine, params, model
+    shutil.rmtree(TOOLING_DIR, ignore_errors=True)
+    emit("tooling", **rec)
+    check(not failures, "tooling failed: " + "; ".join(failures))
+
+
+def tooling_llama(n_layer=None):
+    """OnDevice's model: Llama-2-7B (``n_layer`` layers; default all 32)."""
+    from deepspeed_tpu_torch.models import llama
+    return llama("7b", **({"n_layer": n_layer} if n_layer else {}))
+
+
+# kernel S at the denoiser's activation (batch 2, 64 x 64, 320 channels) and
+# the VAE encoder's (1, 512 x 512, 128 channels)
+SPATIAL_CASES = {"sd_unet_320": (2, 64, 64, 320), "sd_vae_128": (1, 512, 512, 128)}
+
+
+def _check_spatial_bias_add(gen, results, failures):
+    """Kernel S against its plain twin (the torch chain), each of the three
+    forms at SPATIAL_CASES in bf16: bit-equal (limit 0: the same fp32 adds,
+    rounded after each), two launches bit-equal, and planted faults above
+    0 (the bias read from the neighbouring channel; the residual forms'
+    adds rounded once instead of after each). Time, the plain version's,
+    the bound (bytes over 3.35 TB/s) and, for the first form, the library
+    call ``a + bias``; the first form at the denoiser's shape is the
+    kernels line's row."""
+    import torch
+    from deepspeed_tpu_torch.ops.spatial import kernels as sk
+    forms = {"bias_add": (sk.nhwc_bias_add, sk.nhwc_bias_add_plain),
+             "bias_add_add": (sk.nhwc_bias_add_add, sk.nhwc_bias_add_add_plain),
+             "bias_add_bias_add": (sk.nhwc_bias_add_bias_add, sk.nhwc_bias_add_bias_add_plain)}
+    bits = lambda x: x.view(torch.int16)
+    for case, shape in SPATIAL_CASES.items():
+        C = shape[-1]
+        dt = torch.bfloat16
+        a = torch.randn(shape, generator=gen, device="cuda").to(dt)
+        other = torch.randn(shape, generator=gen, device="cuda").to(dt)
+        bias = (torch.randn((C,), generator=gen, device="cuda") * 0.5).to(dt)
+        obias = (torch.randn((C,), generator=gen, device="cuda") * 0.5).to(dt)
+        for mode, (form, (run_fn, plain_fn)) in enumerate(forms.items()):
+            args = (a, bias) + ((other,) if mode >= 1 else ()) + ((obias,) if mode == 2 else ())
+            run = lambda: run_fn(*args)
+            plain = lambda: plain_fn(*args)
+            got, want = run(), plain()
+            wide = sum(x.float() if x.dim() > 1 else x.float().reshape(1, 1, 1, C)
+                       for x in args)
+            faults = {"neighbour_channel_bias": plain_fn(a, bias.roll(1), *args[2:])}
+            if mode >= 1:
+                faults["rounded_once"] = wide.to(dt)
+            torch.cuda.synchronize()
+            differ = lambda x: int((bits(x) != bits(want)).sum())
+            rec = {"kernel": "spatial_bias_add", "case": case, "form": form,
+                   "shape": list(shape), "elements_differing": differ(got), "limit": 0,
+                   "fault_elements_differing": {f: differ(x) for f, x in faults.items()},
+                   "max_abs_err": float((got.float() - want.float()).abs().max())}
+            rec["repeat_bit_equal"] = bool(torch.equal(bits(got), bits(run())))
+            if rec["elements_differing"] != 0 or not rec["repeat_bit_equal"]:
+                failures.append(f"spatial_bias_add {case} {form}: {rec['elements_differing']} "
+                                f"elements differ (repeat equal {rec['repeat_bit_equal']})")
+            for f, n in rec["fault_elements_differing"].items():
+                if not n > 0:
+                    failures.append(f"spatial_bias_add {case} {form}: planted fault {f} reads 0")
+            rec["ms"] = cuda_ms(run)
+            rec["plain_ms"] = cuda_ms(plain)
+            rec["library_ms"] = cuda_ms(lambda: a + bias) if mode == 0 else None
+            n_in = 1 if mode == 0 else 2
+            nbytes = 2 * a.numel() * (n_in + 1) + 2 * C * (2 if mode == 2 else 1)
+            rec["bound_ms"], rec["bound_by"] = bound(nbytes, a.numel() * (1, 2, 3)[mode],
+                                                     FP32_PEAK_TFLOPS)
+            if case == "sd_unet_320" and mode == 0:
+                results["spatial_bias_add"] = rec
+            del got, want, wide, faults
+            emit("kernel", **rec)
+
+
+# A at the denoiser's self-attention: batch 2, 4096 tokens, 8 heads x 40
+# (padded to 64 by the wrapper), non-causal, no mask
+SD_FLASH = (SD_BATCH, 4096, 8, 8, 40, False, False, False)
+
+
+def _check_sd_attention(gen, fa, results, failures):
+    """A at SD_FLASH against its plain version (the ulp measure of phase
+    kernel, the kv head shifted and the last key dropped planted), two
+    launches bit-equal, timed against SDPA; the bound counts the 40 real
+    columns of each head."""
+    import torch
+    import torch.nn.functional as F
+    B, S, H, KV, Hd, causal, alibi, mask = SD_FLASH
+    args = _flash_case(gen, B, S, H, KV, Hd, causal, alibi, mask)
+    run = lambda: fa.flash_attention(*args)
+    o, ro = run(), fa.flash_attention_plain(*args)[0]
+    faults = _flash_faults(fa, *args)
+    torch.cuda.synchronize()
+    rec = {"kernel": "flash_attention_fwd", "case": "sd_unet_self_attention",
+           "shape": [B, S, H, KV, Hd], "causal": causal,
+           **_hold("flash_attention_fwd", "sd_unet_self_attention", [o], [ro],
+                   {f: [r[0]] for f, r in faults.items()}, failures)}
+    _repeat("flash_attention_fwd", "sd_unet_self_attention", run, o, rec, failures)
+    q, k, v = args[:3]
+    rec["ms"] = cuda_ms(run)
+    rec["plain_ms"] = cuda_ms(lambda: fa.flash_attention_plain(*args), reps=5, warmup=1)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    rec["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
+    nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel()) + 4 * B * H * S
+    rec["bound_ms"], rec["bound_by"] = bound(nbytes, 4 * B * H * Hd * S * S)
+    results["flash_attention_fwd_sd"] = rec
+    del o, ro, faults
+    emit("kernel", **rec)
+
+
 def phase_kernels(state):
     res = state.get("kernel_results", {})
     serve = state.get("launches", {})
@@ -9850,6 +10705,9 @@ def phase_kernels(state):
     moq_eigenvalue = state.get("moq_eigenvalue_launches", {})
     train_remat = state.get("train_remat_launches", {})
     train_data_efficiency = state.get("train_data_efficiency_launches", {})
+    diffusers = state.get("diffusers_launches", {})
+    autotune = state.get("autotune_launches", {})
+    tooling = state.get("tooling_launches", {})
     rows = []
     meta = {
         "flash_attention_fwd": (
@@ -9924,6 +10782,15 @@ def phase_kernels(state):
             "deepspeed_tpu_torch/csrc/dequant_int8.cu",
             "deepspeed_tpu/ops/quant.py:35 (Quantized8.dequant, which XLA fuses into the "
             "matmul's operand read; not a pallas_call site)"),
+        "spatial_bias_add": (
+            "deepspeed_tpu_torch/csrc/spatial_bias_add.cu",
+            "deepspeed_tpu/ops/spatial/kernels.py:17-30 (nhwc_bias_add, nhwc_bias_add_add, "
+            "nhwc_bias_add_bias_add, which XLA fuses into one elementwise pass each; not a "
+            "pallas_call site)"),
+        "flash_attention_fwd_sd": (
+            "deepspeed_tpu_torch/csrc/flash_attention_fwd.cu",
+            "deepspeed_tpu/ops/pallas/flash_attention.py:127 (_fwd_kernel; Stable Diffusion "
+            "v1.5's first UNet level: 4096 tokens, 8 heads x 40 padded to 64, non-causal)"),
     }
     for kern, (line, what) in {"flash_attention_fwd": (127, "_fwd_kernel"),
                                "flash_attention_bwd_dq": (182, "_dq_kernel"),
@@ -9974,7 +10841,9 @@ def phase_kernels(state):
                                            ("compress_train", compress_train),
                                            ("moq_eigenvalue", moq_eigenvalue),
                                            ("train_remat", train_remat),
-                                           ("train_data_efficiency", train_data_efficiency))
+                                           ("train_data_efficiency", train_data_efficiency),
+                                           ("diffusers", diffusers), ("autotune", autotune),
+                                           ("tooling", tooling))
                    if name in n}
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                      "launches": sum(by_path.values()) if by_path else None,

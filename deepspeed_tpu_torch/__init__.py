@@ -41,6 +41,7 @@ _LAZY_EXPORTS = {
     "checkpointing": ("deepspeed_tpu_torch.runtime.activation_checkpointing.checkpointing",
                       None),
     "module_inject": ("deepspeed_tpu_torch.module_inject", None),
+    "OnDevice": ("deepspeed_tpu_torch.utils.init_on_device", "OnDevice"),
 }
 
 

@@ -20,10 +20,17 @@ JAX package's ``dscli``), run as ``python -m deepspeed_tpu_torch.cli
   chrome trace, or of each ``trace_<n>.json`` a ``ProfileWindow``
   (``engine.profile(steps=N)``, ``telemetry.profile``) wrote into a directory
 
-``run``, ``report``, ``bench``, ``lint``,
-``elastic``, ``autotune`` and ``ssh`` are not ported: each prints the
+- ``report [--telemetry <jsonl>]`` — the environment report (``env_report.py``):
+  the kernel libraries built, torch / CUDA / nvcc versions, the devices
+- ``elastic <config> [-w N]`` — the elastic batch-size plan of a config's
+  ``elasticity`` section (``elasticity/``)
+- ``autotune <config> [--model m] [--seq-len S] [--device d]`` — the config
+  search of ``autotuning/``; writes ``ds_config_optimal.json`` into the
+  section's ``results_dir``
+
+``run``, ``bench``, ``lint`` and ``ssh`` are not ported: each prints the
 refusal naming its ROADMAP.md item and returns 2. Nothing here imports
-torch until ``serve`` runs.
+torch until a command that needs it runs.
 """
 
 from __future__ import annotations
@@ -38,11 +45,8 @@ from deepspeed_tpu_torch.monitor.top import top_cli
 #: ROADMAP.md item that brings each
 NOT_PORTED = {
     "run": ("the launcher (dscli run)", "queue 1: launcher/"),
-    "report": ("the environment report (dscli report)", "queue 1: env_report.py"),
     "bench": ("the collective micro-benchmarks (dscli bench)", "queue 1: comm/"),
     "lint": ("the trace-safety analyzer (dscli lint)", "queue 1: tools/dslint for the port"),
-    "elastic": ("the elastic-config inspector (dscli elastic)", "queue 1: elasticity/"),
-    "autotune": ("the config autotuner (dscli autotune)", "queue 1: autotuning/"),
     "ssh": ("the host broadcaster (dscli ssh)", "queue 1: launcher/"),
 }
 
@@ -302,6 +306,79 @@ def _serve(argv):
         return 2
 
 
+def _report(argv):
+    """``report``: the environment / kernel-library / device-memory report."""
+    import argparse
+
+    parser = argparse.ArgumentParser(prog="python -m deepspeed_tpu_torch.cli report",
+                                     description="environment / kernel / device-memory report")
+    parser.add_argument("--telemetry", type=str, default=None,
+                        help="JSONL telemetry sink path; also prints the latest snapshot summary")
+    args = parser.parse_args(argv)
+    from deepspeed_tpu_torch import env_report
+    env_report.main(telemetry_path=args.telemetry)
+    return 0
+
+
+def _elastic(argv):
+    """``elastic <config>``: the valid world sizes and the batch of a
+    config's elastic plan, or at ``-w N`` the batch, micro-batch and
+    accumulation steps for that world size."""
+    import argparse
+    import json
+
+    from deepspeed_tpu_torch.elasticity import compute_elastic_config
+
+    parser = argparse.ArgumentParser(prog="python -m deepspeed_tpu_torch.cli elastic",
+                                     description="elastic batch-size planner")
+    parser.add_argument("config", type=str, help="ds_config json path")
+    parser.add_argument("-w", "--world-size", type=int, default=0)
+    args = parser.parse_args(argv)
+    with open(args.config) as fd:
+        ds_config = json.load(fd)
+    if args.world_size:
+        batch, micro, gas = compute_elastic_config(ds_config, world_size=args.world_size)
+        print(f"world_size={args.world_size}: train_batch={batch}, "
+              f"micro_batch={micro}, gradient_accumulation_steps={gas}")
+    else:
+        batch, valid_worlds = compute_elastic_config(ds_config)
+        print(f"valid world sizes: {valid_worlds}")
+        print(f"max train_batch:   {batch}")
+    return 0
+
+
+def _autotune(argv):
+    """``autotune <config>``: search zero stage x micro-batch x remat x
+    loss chunk for a zoo preset (reference ``deepspeed --autotuning``) and
+    print the optimal config."""
+    import argparse
+    import json
+
+    parser = argparse.ArgumentParser(
+        prog="python -m deepspeed_tpu_torch.cli autotune",
+        description="search zero stage x micro-batch x remat x loss-chunk "
+                    "(reference: deepspeed --autotuning)")
+    parser.add_argument("config", type=str, help="ds_config json path")
+    parser.add_argument("--model", type=str, default="gpt2:125m",
+                        help="model zoo preset, e.g. gpt2:125m, llama:tiny")
+    parser.add_argument("--seq-len", type=int, default=None)
+    parser.add_argument("--device", type=str, default=None,
+                        help="where the trials run (default cuda:0; cpu runs the plain kernels)")
+    args = parser.parse_args(argv)
+
+    from deepspeed_tpu_torch.autotuning import Autotuner
+    from deepspeed_tpu_torch.models.presets import get_model
+
+    with open(args.config) as fd:
+        ds_config = json.load(fd)
+    name, _, size = args.model.partition(":")
+    model = get_model(name, *([size] if size else []))
+    best = Autotuner(model, base_config=ds_config, seq_len=args.seq_len,
+                     device=args.device).tune()
+    print(json.dumps(best, indent=2))
+    return 0
+
+
 def _not_ported(cmd):
     def run(argv):
         what, item = NOT_PORTED[cmd]
@@ -315,7 +392,8 @@ def _not_ported(cmd):
 
 
 COMMANDS = {"health": health_cli, "top": top_cli, "ckpt": _ckpt, "trace": _trace, "ctl": _ctl,
-            "serve": _serve, "profile": _profile,
+            "serve": _serve, "profile": _profile, "report": _report, "elastic": _elastic,
+            "autotune": _autotune,
             **{cmd: _not_ported(cmd) for cmd in NOT_PORTED}}
 
 

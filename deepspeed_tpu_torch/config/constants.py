@@ -72,3 +72,31 @@ FUSED_CROSS_ENTROPY_DEFAULT = None
 # Sparse attention (kept, read by nothing: the model's sparsity config decides)
 #############################################
 SPARSE_ATTENTION = "sparse_attention"
+
+#############################################
+# Elasticity (elasticity/config.py, elasticity/elasticity.py)
+#############################################
+ELASTICITY = "elasticity"
+ENABLED = "enabled"
+ENABLED_DEFAULT = False
+MAX_ACCEPTABLE_BATCH_SIZE = "max_train_batch_size"
+MAX_ACCEPTABLE_BATCH_SIZE_DEFAULT = 2000
+MICRO_BATCHES = "micro_batch_sizes"
+MICRO_BATCHES_DEFAULT = [2, 4, 6]
+MIN_GPUS = "min_gpus"
+MIN_GPUS_DEFAULT = 1
+MAX_GPUS = "max_gpus"
+MAX_GPUS_DEFAULT = 10000
+MIN_TIME = "min_time"
+MIN_TIME_DEFAULT = 0
+VERSION = "version"
+LATEST_ELASTICITY_VERSION = 0.2
+ELASTICITY_DEFAULT_VERSION = 0.2
+PREFER_LARGER_BATCH = "prefer_larger_batch"
+PREFER_LARGER_BATCH_DEFAULT = True
+IGNORE_NON_ELASTIC_BATCH_INFO = "ignore_non_elastic_batch_info"
+IGNORE_NON_ELASTIC_BATCH_INFO_DEFAULT = False
+MODEL_PARALLEL_SIZE = "model_parallel_size"
+MODEL_PARALLEL_SIZE_DEFAULT = 1
+NUM_GPUS_PER_NODE = "num_gpus_per_node"
+NUM_GPUS_PER_NODE_DEFAULT = 1

@@ -14,7 +14,9 @@ applies, not the engine); the ``checkpoint``
 section (:class:`CheckpointConfig`, the crash-safe engine's knobs) and
 ``dataloader_drop_last``; ``steps_per_print`` and ``wall_clock_breakdown``;
 ``telemetry`` (``monitor/config.py``: the engine refuses its unported
-sub-blocks) and the ``tensorboard`` / ``wandb`` / ``csv_monitor`` sinks.
+sub-blocks) and the ``tensorboard`` / ``wandb`` / ``csv_monitor`` sinks;
+``flops_profiler`` (the engine profiles the loss at its ``profile_step``),
+``elasticity`` and ``autotuning``, parsed as the JAX config parses them.
 
 The world size is 1. ``zero_optimization.stage`` 0-3 is accepted: on one
 device every ZeRO stage replicates everything, as the JAX sharding rules do
@@ -99,7 +101,7 @@ _READ = {
     C.FUSED_CROSS_ENTROPY, C.SPARSE_ATTENTION, "mesh", "quantize_training", "checkpoint",
     "dataloader_drop_last", "telemetry", "tensorboard", "wandb", "csv_monitor",
     "compression_training", "activation_checkpointing", "curriculum_learning",
-    "data_efficiency", "progressive_layer_drop",
+    "data_efficiency", "progressive_layer_drop", "flops_profiler", "elasticity", "autotuning",
 }
 # keys the JAX package reads whose effect is on multi-device runs or on
 # engine features outside training itself; on one device they change nothing
@@ -116,10 +118,7 @@ _IGNORED = {"comet", "weight_quantization"}
 _NOT_PORTED = {
     "pipeline": ("pipeline parallelism", "runtime/pipe/"),
     "comms_logger": ("the comms logger", "comm/"),
-    "flops_profiler": ("the flops profiler", "profiling/"),
     "nebula": ("nebula checkpointing", "checkpoint ingestion (orbax)"),
-    "elasticity": ("elastic training", "elasticity/"),
-    "autotuning": ("autotuning", "autotuning/"),
 }
 _ONEBIT = (ONEBIT_ADAM_OPTIMIZER, ZERO_ONE_ADAM_OPTIMIZER, ONEBIT_LAMB_OPTIMIZER)
 _OFFLOAD_DEVICES = ("none", "null", "cpu", "nvme")
@@ -304,6 +303,21 @@ class DeepSpeedConfig:
         # the sparse attention section, kept as the JAX package keeps it: the
         # model's sparsity config (ops/sparse_attention) decides, nothing reads it
         self.sparse_attention = param_dict.get(C.SPARSE_ATTENTION, None)
+
+        # the one-card tooling, read as the JAX config reads it
+        # (JAX config/core.py:268-305): the engine profiles the loss at
+        # flops_profiler.profile_step; the elastic plan and the autotuner
+        # read their sections (elasticity/, autotuning/)
+        from deepspeed_tpu_torch.profiling.config import DeepSpeedFlopsProfilerConfig
+        self.flops_profiler_config = DeepSpeedFlopsProfilerConfig(
+            **param_dict.get("flops_profiler", {}))
+        from deepspeed_tpu_torch.elasticity.config import ElasticityConfig
+        self.elasticity_enabled = param_dict.get(C.ELASTICITY, {}).get(C.ENABLED,
+                                                                       C.ENABLED_DEFAULT)
+        self.elasticity_config = (ElasticityConfig(param_dict.get(C.ELASTICITY, {}))
+                                  if self.elasticity_enabled else None)
+        from deepspeed_tpu_torch.autotuning.config import AutotuningConfig
+        self.autotuning_config = AutotuningConfig(**param_dict.get("autotuning", {}))
 
         self._initialize_checkpoint_params(param_dict)
         self.dataloader_drop_last = bool(param_dict.get("dataloader_drop_last", False))

@@ -22,6 +22,7 @@ from torch import nn
 
 from deepspeed_tpu_torch.accelerator.real_accelerator import get_accelerator
 from deepspeed_tpu_torch.models import transformer as T
+from deepspeed_tpu_torch.utils.init_on_device import honors_on_device
 
 
 def _check_gather_budget(n_masked: int, k: int, budget: float) -> None:
@@ -107,6 +108,7 @@ class BertModel(nn.Module):
         self._zoo_over = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)
                           if getattr(cfg, f.name) != getattr(base, f.name)}
 
+    @honors_on_device
     def init_params(self, generator: Optional[torch.Generator] = None, device="cpu",
                     dtype=None) -> T.ParamTree:
         """Random parameters in the JAX package's layout, drawn from

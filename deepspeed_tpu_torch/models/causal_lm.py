@@ -10,6 +10,7 @@ import torch
 from torch import nn
 
 from deepspeed_tpu_torch.models import transformer as T
+from deepspeed_tpu_torch.utils.init_on_device import honors_on_device
 
 
 class CausalLM(nn.Module):
@@ -25,6 +26,7 @@ class CausalLM(nn.Module):
         self.config = config
         self.param_dtype = param_dtype
 
+    @honors_on_device
     def init_params(self, generator: Optional[torch.Generator] = None, device="cpu",
                     dtype=None) -> T.ParamTree:
         return T.init_params(self.config, generator, device,

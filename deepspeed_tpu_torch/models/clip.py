@@ -19,6 +19,7 @@ import torch
 from torch import nn
 
 from deepspeed_tpu_torch.models import transformer as T
+from deepspeed_tpu_torch.utils.init_on_device import honors_on_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,6 +90,7 @@ class CLIPTextEncoder(nn.Module):
         self.zoo_cfg = config.zoo()
         self.param_dtype = param_dtype
 
+    @honors_on_device
     def init_params(self, generator: Optional[torch.Generator] = None, device="cpu",
                     dtype=None) -> T.ParamTree:
         dtype = self.param_dtype if dtype is None else dtype
@@ -138,6 +140,7 @@ class CLIPVisionEncoder(nn.Module):
         self.zoo_cfg = config.zoo()
         self.param_dtype = param_dtype
 
+    @honors_on_device
     def init_params(self, generator: Optional[torch.Generator] = None, device="cpu",
                     dtype=None) -> T.ParamTree:
         c = self.config

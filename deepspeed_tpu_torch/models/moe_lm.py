@@ -34,6 +34,7 @@ from deepspeed_tpu_torch.models import transformer as T
 from deepspeed_tpu_torch.moe.experts import expert_ffn
 from deepspeed_tpu_torch.moe.layer import residual_blend
 from deepspeed_tpu_torch.moe.sharded_moe import TopKGate, dispatch_combine
+from deepspeed_tpu_torch.utils.init_on_device import honors_on_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,6 +79,7 @@ class MoECausalLM(nn.Module):
 
     # -------------------- params -------------------- #
 
+    @honors_on_device
     def init_params(self, generator: Optional[torch.Generator] = None, device="cpu",
                     dtype=None) -> T.ParamTree:
         """Random parameters in the JAX package's layout and scales (gate

@@ -15,6 +15,7 @@ import torch.nn.functional as F
 from deepspeed_tpu_torch.moe.experts import ExpertFFN
 from deepspeed_tpu_torch.moe.sharded_moe import MOELayer, TopKGate
 from deepspeed_tpu_torch.ops.quant import maybe_dequant
+from deepspeed_tpu_torch.utils.init_on_device import honors_on_device
 from deepspeed_tpu_torch.utils.logging import log_dist
 from deepspeed_tpu_torch.utils.not_ported import not_ported
 
@@ -57,6 +58,7 @@ class MoE:
         log_dist(f"MoE: {num_experts} experts, k={k}, capacity_factor={capacity_factor}, "
                  f"residual={use_residual}", ranks=[0])
 
+    @honors_on_device
     def init_params(self, generator: Optional[torch.Generator] = None, device="cpu",
                     dtype=torch.float32) -> Dict[str, Any]:
         params: Dict[str, Any] = {"gate": self.gate.init(generator, device, dtype),

@@ -43,6 +43,7 @@ SOURCES: Dict[str, str] = {
     "fused_lamb": "fused_lamb.cu",
     "sr_quantize": "sr_quantize.cu",
     "dequant_int8": "dequant_int8.cu",
+    "spatial_bias_add": "spatial_bias_add.cu",
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -19,6 +19,7 @@ import torch
 
 from deepspeed_tpu_torch.models import transformer as T
 from deepspeed_tpu_torch.ops.quantizer.kernels import ds_sr_quantize
+from deepspeed_tpu_torch.utils.init_on_device import honors_on_device
 
 __all__ = ["DeepSpeedTransformerConfig", "DeepSpeedTransformerLayer"]
 
@@ -69,6 +70,7 @@ class DeepSpeedTransformerLayer:
             x = ds_sr_quantize(x.contiguous(), groups=B, bits=16, seed=self._seed_offset + seed)
         return T.block(self._cfg, x, params, positions, mask_bias)
 
+    @honors_on_device
     def init_params(self, generator: Optional[torch.Generator] = None, device="cpu",
                     dtype=torch.float32):
         """One layer's parameters, drawn as ``models.transformer.init_params``

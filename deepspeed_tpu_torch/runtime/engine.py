@@ -369,6 +369,7 @@ class DeepSpeedEngine:
         self._telemetry = tcfg if tcfg.enabled else None
         self._tel_flops_per_token_v = None
         self._host_global_steps = 0
+        self.flops_profiler = None      # the FlopsProfiler of flops_profiler.profile_step
         self._t_prev_step_end = None     # data-wait base
         self._trio_busy_s = 0.0          # per-cycle fwd+bwd+step phase time
         self._tel_wait_total = 0.0
@@ -924,6 +925,7 @@ class DeepSpeedEngine:
             micros = [self._batch_to_device(m) for m in micros]
             batch = {k: torch.stack([m[k] for m in micros]) for k in micros[0]}
         self._host_global_steps += 1
+        self._maybe_profile_flops(batch)
         if self.curriculum_scheduler is not None and self._curriculum_metric == "seqlen":
             batch = self._curriculum_truncate(batch)
         self._skipped_before_step = self.state.skipped_steps
@@ -947,6 +949,25 @@ class DeepSpeedEngine:
         self._write_monitor_events(loss)
         self._report_progress(loss)
         return loss
+
+    def _maybe_profile_flops(self, batch) -> None:
+        """The flops profiler (reference engine.py:1664,2060; JAX
+        ``runtime/engine.py:997-1009``): at ``flops_profiler.profile_step``,
+        one profile of the loss on the batch's first micro-batch, printed
+        (or written to ``output_file``) and kept as ``self.flops_profiler``.
+        The loss runs with ``rng=None`` (dropout off), so the engine's
+        generator does not move."""
+        fp_cfg = self._config.flops_profiler_config
+        if not (fp_cfg.enabled and self._host_global_steps == fp_cfg.profile_step):
+            return
+        from deepspeed_tpu_torch.profiling.flops_profiler import FlopsProfiler
+        prof = FlopsProfiler(model=self.module, ds_engine=self,
+                             recompute_fwd_factor=fp_cfg.recompute_fwd_factor)
+        micro = {k: x[0][:self.train_micro_batch_size_per_gpu()] for k, x in batch.items()}
+        prof.profile_fn(lambda p, b: self.loss_fn(p, b, None), self.state.params, micro)
+        prof.print_model_profile(profile_step=self._host_global_steps,
+                                 output_file=fp_cfg.output_file)
+        self.flops_profiler = prof
 
     def _train_batch_body(self, batch, gas: int) -> torch.Tensor:
         """gas micro-steps and the update; returns the mean loss."""

@@ -3,7 +3,8 @@ one naming scheme that checkpoint files and the tools that read them share.
 
 ``leaf_key`` takes a path of keys, or of objects carrying ``.key`` or
 ``.idx`` as JAX's path entries do; ``leaf_paths`` flattens a nested dict
-(and, with ``descend_sequences``, list / tuple) tree of tensors or arrays."""
+(and, with ``descend_sequences``, list / tuple) tree of tensors or arrays;
+``tree_leaves`` lists a tree's leaves in order."""
 
 from __future__ import annotations
 
@@ -34,3 +35,15 @@ def leaf_paths(tree: Any, prefix: str = "", *,
         out.update(leaf_paths(v, prefix + str(k) + ".",
                               descend_sequences=descend_sequences))
     return out
+
+
+def tree_leaves(tree: Any) -> list:
+    """The leaves of a nested dict / list / tuple tree in order, a module
+    (a ``ParamTree``) standing for its state tensors."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    if callable(getattr(tree, "state_dict", None)):
+        return list(tree.state_dict(keep_vars=True).values())
+    return [tree]

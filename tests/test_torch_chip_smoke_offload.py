@@ -39,6 +39,7 @@ def small(monkeypatch, tmp_path):
     monkeypatch.setattr(chip_smoke, "GEN_BATCH", 2)
     monkeypatch.setattr(chip_smoke, "GEN_PROMPT", 20)
     monkeypatch.setattr(chip_smoke, "STREAM_MAX_NEW", 4)
+    monkeypatch.setattr(chip_smoke, "STREAM_LAYERS", 3)
     monkeypatch.setattr(chip_smoke, "STREAM_NVME_LAYERS", 2)
     monkeypatch.setattr(chip_smoke, "STREAM_DIR", str(tmp_path / "zi"))
     monkeypatch.setattr(chip_smoke, "OFFLOAD_DIR", str(tmp_path / "off"))

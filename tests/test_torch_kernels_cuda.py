@@ -19,6 +19,7 @@ from deepspeed_tpu_torch.ops.kernels import fused_cross_entropy as fce
 from deepspeed_tpu_torch.ops.kernels import paged_decode_attention as pda
 from deepspeed_tpu_torch.ops.lamb import fused_lamb_kernel as fl
 from deepspeed_tpu_torch.ops.quantizer import kernels as qk
+from deepspeed_tpu_torch.ops.spatial import kernels as sk
 
 torch.set_num_threads(1)   # the test runner's workers share the host's cores: one thread each
 
@@ -885,3 +886,47 @@ def test_sr_quantize_wrapper_raises_instead_of_falling_back(cuda):
         qk.ds_sr_quantize(x, 4, noise=torch.zeros(4, 16, device=cuda))
     with pytest.raises(TypeError, match="fp16 / bf16 / fp32"):
         qk.ds_sr_quantize(x.double(), 4)
+
+
+SPATIAL_FORMS = {"nhwc_bias_add": 2, "nhwc_bias_add_add": 3, "nhwc_bias_add_bias_add": 4}
+
+
+@pytest.mark.parametrize("shape", [(2, 64, 64, 320), (1, 512, 512, 128), (3, 5, 7, 24),
+                                   (1, 1, 1, 8)])
+@pytest.mark.parametrize("form", sorted(SPATIAL_FORMS))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+def test_spatial_bias_add_is_bit_equal_to_plain(cuda, shape, form, dtype):
+    """Kernel S: each add in fp32 rounded to the dtype after it, the plain
+    chain's order, so its output is the plain twin's bit for bit; one
+    launch a call; two launches bit-equal."""
+    r = np.random.default_rng(sum(shape) + SPATIAL_FORMS[form])
+    C = shape[-1]
+    args = [_randn(r, shape if i % 2 == 0 else (C,), cuda, dtype) * (3 if i % 2 == 0 else 1)
+            for i in range(SPATIAL_FORMS[form])]
+    n0 = sk.launches
+    got = getattr(sk, form)(*args)
+    again = getattr(sk, form)(*args)
+    want = getattr(sk, form + "_plain")(*args)
+    torch.cuda.synchronize()
+    assert sk.launches == n0 + 2 and got.dtype == dtype and got.shape == want.shape
+    bits = {2: torch.int16, 4: torch.int32}[got.element_size()]
+    assert torch.equal(got.view(bits), want.view(bits))
+    assert torch.equal(got.view(bits), again.view(bits))
+
+
+def test_spatial_bias_add_raises_instead_of_falling_back(cuda):
+    a = torch.zeros((1, 2, 2, 16), device=cuda, dtype=torch.bfloat16)
+    b = torch.zeros((16,), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="one dtype"):
+        sk.nhwc_bias_add(a, b.float())
+    with pytest.raises(ValueError, match="multiple of 8"):
+        sk.nhwc_bias_add(a[..., :12].contiguous(), b[:12])
+    with pytest.raises(ValueError, match="contiguous"):
+        sk.nhwc_bias_add_add(a, b, a.transpose(1, 2))
+    with pytest.raises(ValueError, match="shape"):
+        sk.nhwc_bias_add_bias_add(a, b, a, b[:8])
+    with pytest.raises(TypeError, match="fp16/bf16/fp32"):
+        sk.nhwc_bias_add(a.double(), b.double())
+    with pytest.raises(ValueError, match="too wide"):
+        w = torch.zeros((1, 1, 1, 12800), device=cuda, dtype=torch.float32)
+        sk.nhwc_bias_add(w, w.reshape(-1))

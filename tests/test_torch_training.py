@@ -423,20 +423,45 @@ def test_config_fields_match_jax(sections):
 
 
 @pytest.mark.parametrize("over,match", [
-    ({"flops_profiler": {"enabled": True}}, "profiling"),
+    ({"nebula": {"enabled": True}}, "orbax"),
     ({"optimizer": {"type": "OneBitAdam", "params": {}}}, "onebit"),
     ({"optimizer": {"type": "onebitlamb", "params": {}}}, "lamb"),
     ({"pipeline": {"stages": 2}}, "runtime/pipe"),
     ({"mesh": {"dp": 1, "sp": 2}}, "multi-device"),
     ({"comms_logger": {"enabled": True}}, "comm/"),
     ({"checkpoint": {"engine": "orbax"}}, "checkpoint"),
-    ({"elasticity": {"enabled": True}}, "elasticity"),
-    ({"autotuning": {"enabled": True}}, "autotuning"),
+    ({"mesh": {"tp": 2}}, "multi-device"),
+    ({"optimizer": {"type": "ZeroOneAdam", "params": {}}}, "onebit"),
 ])
 def test_outside_the_slice_raises_naming_its_item(over, match):
     _, jparams = _jax_params(LLAMA)
     with pytest.raises(NotImplementedError, match=match):
         _port(LLAMA, jparams, _config(**over)).train_batch(_batches(0, 1, 4)[0])
+
+
+@pytest.mark.parametrize("section", ["flops_profiler", "elasticity", "autotuning"])
+def test_tooling_sections_are_accepted_like_jax(section, tmp_path):
+    """The one-card tooling's sections, which the port took in with
+    profiling/, elasticity/ and autotuning/: parsed as the JAX config
+    parses them, and an engine with the section trains a step (the flops
+    profiler writing its profile at step 1)."""
+    over = {"flops_profiler": {"enabled": True, "output_file": str(tmp_path / "flops.txt")},
+            "elasticity": {"enabled": True, "max_train_batch_size": 64,
+                           "micro_batch_sizes": [2, 4]},
+            "autotuning": {"enabled": True, "fast": False, "zero_stages": [0]}}[section]
+    _, jparams = _jax_params(LLAMA)
+    cfg = _config(**{section: over})
+    want, got = JaxConfig(cfg, world_size=1), DeepSpeedConfig(cfg)
+    attr = {"flops_profiler": "flops_profiler_config", "elasticity": "elasticity_config",
+            "autotuning": "autotuning_config"}[section]
+    fields = (vars(getattr(want, attr)) if section == "elasticity"
+              else getattr(want, attr).model_dump())
+    for key, value in fields.items():
+        assert getattr(getattr(got, attr), key) == value, key
+    engine = _port(LLAMA, jparams, cfg)
+    assert np.isfinite(float(engine.train_batch(_batches(0, 1, 4)[0])))
+    if section == "flops_profiler":
+        assert (tmp_path / "flops.txt").read_text().splitlines()[1] == "flops profile at step 1"
 
 
 @pytest.mark.parametrize("over", [
