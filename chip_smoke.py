@@ -435,6 +435,23 @@ Phases, each printing one JSON line:
                 bert_train's model at 2 layers ([32, 512]: products as
                 reckoned, A counting 0), dscli report and dscli elastic -w 1
                 as subprocesses, initialize taking the elastic plan's batch
+  comm          comm/ over NCCL at one rank (init_distributed(rank=0,
+                world_size=1)): every collective on fp32 and bf16 tensors
+                (SUM, AVG, MAX, MIN, PRODUCT; tiled and stacked gathers,
+                reduce_scatter_tensor, all_to_all_single, broadcast,
+                ring_send_recv, barrier) against numpy's values for JAX's
+                one-device mesh (limit 0; PRODUCT within 1e-6 relative), the
+                comms logger's count and bytes per op equal to the calls;
+                then dscli bench at 1, 8, 64 and 256 MB (algbw, busbw, the
+                card's name and power limit)
+  launch        python -m deepspeed_tpu_torch.cli run --num_gpus 1 spawns
+                one rank (this script behind --worker launch; its stdout in
+                .chip_check/launch/logs) that trains the train cell for 3
+                steps on NCCL at world 1, its gradients averaged over dp; its
+                losses and every state tensor equal to the same 3 steps run
+                here without a process group (limit 0), its launches the
+                train rule; then DSElasticAgent over the comm checks as a
+                worker that fails its first attempt: SUCCEEDED, 1 restart
   kernels       every ported kernel with its launches in the serve, spec_serve
                 (its oracle run), generate, train, train_lamb, train_sparse,
                 resume, ingest, telemetry, client_opt, health, serve_async,
@@ -442,7 +459,8 @@ Phases, each printing one JSON line:
                 moe_generate, moe_train, serve_stream, serve_stream_nvme,
                 train_offload, bert_serve, bert_train, clip_encode,
                 compress_train, moq_eigenvalue, train_remat,
-                train_data_efficiency, diffusers, autotune and tooling phases
+                train_data_efficiency, diffusers, autotune, tooling and
+                launch phases
                 (the encoder shapes in rows of their own; A, C and D with a
                 layout in
                 rows of their own, as A, B, C, D and K5 at head_dim 256; C's
@@ -491,7 +509,7 @@ PHASES = ("env", "build", "kernel", "slice_parity", "serve", "serve_async", "ser
           "serve_stream", "serve_stream_nvme", "train_offload", "encoder_parity",
           "bert_serve", "bert_train", "clip_encode", "compress_parity", "compress_train",
           "moq_eigenvalue", "train_remat", "train_data_efficiency", "diffusers",
-          "tiled_linear", "autotune", "tooling", "kernels",
+          "tiled_linear", "autotune", "tooling", "comm", "launch", "kernels",
           "profile",
           "train_profile", "train_lamb_profile", "generate_profile", "train_sparse_profile",
           "health_profile")
@@ -10576,6 +10594,386 @@ def tooling_llama(n_layer=None):
     return llama("7b", **({"n_layer": n_layer} if n_layer else {}))
 
 
+# the multi-process phases (comm, launch): comm/ over NCCL at one rank, the
+# launcher spawning the train cell's rank, the elastic agent
+LAUNCH_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), ".chip_check", "launch")
+LAUNCH_STEPS = 3
+LAUNCH_MODEL = None          # None: llama("7b", n_layer=TRAIN_LAYERS); else TransformerConfig kwargs
+COMM_SHAPE = (4, 1024)       # the phase's fp32 and bf16 tensors
+COMM_PRODUCT_BF16 = 64       # the bf16 PRODUCT's elements (its roundings are the card's own)
+COMM_BENCH_SIZES = ((1 << 20, 64 << 20), (256 << 20, 256 << 20))   # dscli bench: 1, 8, 64, 256 MB
+COMM_PRODUCT_TOL = 1e-6      # PRODUCT, relative: numpy's log / exp against the card's
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _bf16_round(x):
+    """``x`` (fp32 numpy) rounded to bf16 by round-to-nearest-even, as fp32."""
+    import numpy as np
+    u = np.ascontiguousarray(x, np.float32).view(np.uint32).astype(np.uint64)
+    u = (u + 0x7FFF + ((u >> 16) & 1)) & 0xFFFF0000
+    return u.astype(np.uint32).view(np.float32)
+
+
+def _product_want(x, bf16):
+    """JAX's sign-aware PRODUCT over one rank, in numpy: sign(x) exp(log|x|),
+    each op rounded to bf16 for a bf16 tensor."""
+    import numpy as np
+    r = _bf16_round if bf16 else (lambda a: a.astype(np.float32))
+    return r(np.sign(x) * r(np.exp(r(np.log(np.abs(x))))))
+
+
+def comm_checks(seed):
+    """Every collective of ``comm`` at one rank on its own process group
+    (nccl on the card, gloo on the CPU), on fp32 and bf16 tensors, against
+    the values numpy gives for JAX's one-device mesh: the identity, but
+    PRODUCT's formula. Limit 0; PRODUCT within COMM_PRODUCT_TOL relative.
+    The comms logger's count and bytes per op must equal the calls made.
+    Returns the record; raises on a failure. The process group is destroyed,
+    and MASTER_ADDR / MASTER_PORT (a free port where unset) restored, before
+    returning."""
+    import numpy as np
+    import torch
+    import torch.distributed as tdist
+
+    import deepspeed_tpu_torch.comm as dist
+
+    device = CHECK_DEVICE
+    saved = {k: os.environ.get(k) for k in ("MASTER_ADDR", "MASTER_PORT")}
+    os.environ.setdefault("MASTER_ADDR", "127.0.0.1")
+    os.environ.setdefault("MASTER_PORT", str(_free_port()))
+    try:
+        t0 = time.perf_counter()
+        dist.init_distributed(dist_backend="nccl" if device == "cuda" else "gloo", rank=0,
+                              world_size=1, verbose=False)
+        init_s = time.perf_counter() - t0
+        check(dist.has_process_group() and tdist.get_world_size() == 1,
+              "init_distributed(rank=0, world_size=1) made no process group")
+        backend = tdist.get_backend()
+        check(backend == ("nccl" if device == "cuda" else "gloo"), f"backend {backend}")
+        dist.init_mesh({"dp": 1})
+        cl = dist.comms_logger()
+        cl.comms_dict = {}
+        dist.configure(enabled=True, prof_all=True)
+        rng = np.random.default_rng(seed + 26)
+        calls, failures, gaps = {}, [], {}
+
+        def called(name, t):
+            sizes = calls.setdefault(name, {})
+            nbytes = t.numel() * t.element_size()
+            sizes[nbytes] = sizes.get(nbytes, 0) + 1
+
+        for dt in ("fp32", "bf16"):
+            tdt = torch.float32 if dt == "fp32" else torch.bfloat16
+            x = rng.standard_normal(COMM_SHAPE).astype(np.float32)
+            want = _bf16_round(x) if dt == "bf16" else x
+            t = torch.from_numpy(x).to(device=device, dtype=tdt)
+            cases = {f"all_reduce_{op}": (lambda op=op: dist.all_reduce(
+                t, op=getattr(dist.ReduceOp, op)), "all_reduce", want)
+                for op in ("SUM", "AVG", "MAX", "MIN")}
+            cases.update({
+                "all_gather_tiled": (lambda: dist.all_gather(t), "all_gather", want),
+                "all_gather_stacked": (lambda: dist.all_gather(t, tiled=False), "all_gather",
+                                       want[None]),
+                "reduce_scatter_tensor": (lambda: dist.reduce_scatter_tensor(None, t),
+                                          "reduce_scatter", want),
+                "all_to_all_single": (lambda: dist.all_to_all_single(t), "all_to_all", want),
+                "broadcast": (lambda: dist.broadcast(t, src=0), "broadcast", want),
+                "ring_send_recv": (lambda: dist.ring_send_recv(t, shift=1), "ppermute", want),
+            })
+            for name, (fn, log_name, w) in cases.items():
+                got = fn().float().cpu().numpy()
+                called(log_name, t)
+                gap = float(np.abs(got - w).max()) if got.shape == w.shape else float("inf")
+                gaps[f"{name}_{dt}"] = gap
+                if gap != 0.0:
+                    failures.append(f"{name} {dt}: {gap} from numpy")
+            n = COMM_SHAPE[0] * COMM_SHAPE[1] if dt == "fp32" else COMM_PRODUCT_BF16
+            p = (rng.uniform(0.5, 2.0, n) * np.where(rng.random(n) < 0.4, -1.0, 1.0))
+            p = p.astype(np.float32)
+            p = _bf16_round(p) if dt == "bf16" else p
+            tp = torch.from_numpy(p).to(device=device, dtype=tdt)
+            got = dist.all_reduce(tp, op=dist.ReduceOp.PRODUCT).float().cpu().numpy()
+            called("all_reduce", tp)
+            w = _product_want(p, dt == "bf16")
+            gap = float(np.abs(got - w).max() / np.abs(w).max())
+            gaps[f"all_reduce_PRODUCT_{dt}"] = gap
+            if not gap <= COMM_PRODUCT_TOL:
+                failures.append(f"PRODUCT {dt}: {gap} relative from numpy")
+        b = dist.barrier()
+        called("all_reduce", b)
+        if float(b.abs().sum()) != 0.0:
+            failures.append("barrier returned non-zero")
+        records = {name: {size: rec[0] for size, rec in sizes.items()}
+                   for name, sizes in cl.comms_dict.items()}
+        if records != calls:
+            failures.append(f"comms logger records {records} != calls {calls}")
+        op_ms = {name: {str(size): {"count": v["count"], "avg_ms": v["avg_latency_ms"]}
+                        for size, v in sizes.items()}
+                 for name, sizes in cl.log_all(print_log=False).items()}
+        dist.configure(enabled=False)
+        check(not failures, "comm failed: " + "; ".join(failures))
+        return {"backend": backend, "init_s": init_s, "gaps": gaps, "records": {
+            k: {str(s): c for s, c in v.items()} for k, v in records.items()},
+            "op_ms": op_ms}
+    finally:
+        dist.configure(enabled=False)
+        dist.destroy_process_group()
+        _restore_env(saved)
+
+
+def _restore_env(saved):
+    for k, v in saved.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+
+
+def _bench_table(text):
+    rows = []
+    for line in text.splitlines():
+        parts = line.split()
+        if len(parts) == 5 and parts[0] in ("all_reduce", "all_gather", "reduce_scatter",
+                                            "all_to_all", "broadcast"):
+            rows.append({"op": parts[0], "bytes": int(parts[1]), "latency_us": float(parts[2]),
+                         "algbw_GBps": float(parts[3]), "busbw_GBps": float(parts[4])})
+    return rows
+
+
+def _bench_sizes(lo, hi):
+    sizes, size = [], lo
+    while size <= hi:
+        sizes.append(size)
+        size *= 8
+    return sizes
+
+
+def phase_comm(state, seed):
+    """comm/ at one rank over NCCL: :func:`comm_checks`, then ``dscli
+    bench`` (in this process, its own world of one) at 1 MB to 256 MB,
+    its table with the card's name and power limit."""
+    import io
+
+    from deepspeed_tpu_torch import cli
+
+    t0 = time.perf_counter()
+    rec = comm_checks(seed)
+    checks_s = time.perf_counter() - t0
+    text = []
+    for lo, hi in COMM_BENCH_SIZES:
+        # bench sets MASTER_ADDR / MASTER_PORT where unset (a free port), as
+        # its own process would
+        saved = {k: os.environ.pop(k, None) for k in ("MASTER_ADDR", "MASTER_PORT")}
+        buf = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(buf):
+                cli.main(["bench", "--minsize", str(lo), "--maxsize", str(hi),
+                          "--device", CHECK_DEVICE])
+        finally:
+            _restore_env(saved)
+        text.append(buf.getvalue())
+    table = _bench_table("\n".join(text))
+    header = [line for t in text for line in t.splitlines() if line.startswith("comm bench")]
+    want = sorted((op, size) for op in ("all_reduce", "all_gather", "reduce_scatter",
+                                        "all_to_all", "broadcast")
+                  for lo, hi in COMM_BENCH_SIZES for size in _bench_sizes(lo, hi))
+    emit("comm", **rec, checks_s=checks_s, bench=table, bench_header=header,
+         seconds=time.perf_counter() - t0, card=state.get("card"))
+    check(sorted((r["op"], r["bytes"]) for r in table) == want,
+          f"dscli bench printed {[(r['op'], r['bytes']) for r in table]}, expected {want}")
+    check(all(r["latency_us"] > 0 and r["algbw_GBps"] >= 0 for r in table),
+          "a bench row with no time")
+
+
+def _launch_setup(seed):
+    """The launch phase's engine on CHECK_DEVICE, its model (Llama-2-7B
+    width at TRAIN_LAYERS, or LAUNCH_MODEL) and one seeded token batch: the
+    same in the launched rank and in this process."""
+    import numpy as np
+    import torch
+    from deepspeed_tpu_torch.models import CausalLM, TransformerConfig, llama
+
+    cuda = CHECK_DEVICE == "cuda"
+    model = llama("7b", n_layer=TRAIN_LAYERS) if LAUNCH_MODEL is None \
+        else CausalLM(TransformerConfig(**LAUNCH_MODEL))
+    config = TRAIN_CONFIG if cuda else {**TRAIN_CONFIG, "bf16": {"enabled": False}}
+    gen = torch.Generator(device=CHECK_DEVICE).manual_seed(seed)
+    params = model.init_params(gen, device=CHECK_DEVICE,
+                               dtype=torch.bfloat16 if cuda else torch.float32)
+    engine = _train_engine(model, params, config, device=CHECK_DEVICE)
+    del params
+    _free()
+    rng = np.random.default_rng(seed + 2)
+    seq = TRAIN_SEQ if LAUNCH_MODEL is None else LAUNCH_MODEL["max_seq"]
+    tokens = rng.integers(0, model.config.vocab_size, size=(config["train_batch_size"], seq))
+    return engine, {"input_ids": torch.from_numpy(tokens).to(CHECK_DEVICE)}
+
+
+def _json_round(x):
+    return json.loads(json.dumps(x))
+
+
+def worker_launch(out, seed):
+    """The launched rank: the kernels from the build cache, the train cell
+    for LAUNCH_STEPS steps on the process group the launcher's variables
+    make, its losses, state fingerprint and launches written to
+    ``out/result.json``."""
+    t_start = time.time()
+    import torch
+
+    import deepspeed_tpu_torch.comm as dist
+    rec = {"t_start": t_start, "torch_import_s": time.time() - t_start,
+           "env": {k: os.environ.get(k) for k in ("RANK", "LOCAL_RANK", "WORLD_SIZE",
+                                                  "CUDA_VISIBLE_DEVICES", "MASTER_PORT")}}
+    if CHECK_DEVICE == "cuda":
+        from deepspeed_tpu_torch.ops.kernels import build
+        t = time.perf_counter()
+        _, log = build.build()
+        for name in build.SOURCES:
+            build.load(name)
+        rec.update(build_cache_s=time.perf_counter() - t, built=sorted(log))
+    t = time.perf_counter()
+    engine, batch = _launch_setup(seed)
+    _sync()
+    rec["init_s"] = time.perf_counter() - t
+    import torch.distributed as tdist
+    rec.update(process_group=dist.has_process_group(), backend=tdist.get_backend()
+               if dist.has_process_group() else None,
+               world=tdist.get_world_size() if dist.has_process_group() else None,
+               dp=list(engine._dp or ()), flat=engine._flat_grads is not None,
+               device=str(engine.device))
+    _reset_train_counters()
+    losses, step_s, per_step = _timed_steps(engine, batch, LAUNCH_STEPS)
+    rec.update(losses=losses, step_s=step_s, per_step=per_step,
+               fingerprint=_json_round(state_fingerprint(engine)),
+               launch_rule=train_launch_rule(engine) if CHECK_DEVICE == "cuda" else {})
+    with open(os.path.join(out, "result.json"), "w") as f:
+        json.dump(rec, f)
+    del engine
+    dist.destroy_process_group()
+    return 0
+
+
+def worker_elastic(out, seed):
+    """The elastic agent's worker: attempt 0 exits 1 at once; later
+    attempts run :func:`comm_checks` on the agent's rank environment."""
+    attempt = int(os.environ["DSTPU_RESTART_COUNT"])
+    with open(os.path.join(out, f"attempt_{attempt}"), "w") as f:
+        f.write(os.environ.get("RANK", ""))
+    if attempt == 0:
+        return 1
+    rec = comm_checks(seed)
+    with open(os.path.join(out, "elastic.json"), "w") as f:
+        json.dump({"attempt": attempt, "backend": rec["backend"]}, f)
+    return 0
+
+
+def _worker_cmd(kind, out, seed):
+    return [os.path.abspath(__file__), "--worker", kind, "--worker-out", out, "--seed", str(seed),
+            "--worker-device", CHECK_DEVICE,
+            *(["--worker-model", json.dumps(LAUNCH_MODEL)] if LAUNCH_MODEL else [])]
+
+
+def phase_launch(state, seed):
+    """The launcher end to end: ``python -m deepspeed_tpu_torch.cli run
+    --num_gpus 1`` spawns one rank of the train cell (this script behind
+    ``--worker launch``) through the runner and launch.py, its stdout in
+    LAUNCH_DIR/logs; its LAUNCH_STEPS losses and state must equal the same
+    steps run here without a process group (limit 0), its launches the
+    train rule. Then DSElasticAgent runs the comm checks as a worker that
+    fails its first attempt: SUCCEEDED after 1 restart."""
+    import torch
+
+    import deepspeed_tpu_torch.comm as dist
+    from deepspeed_tpu_torch.elasticity import DSElasticAgent, WorkerSpec, WorkerState
+
+    shutil.rmtree(LAUNCH_DIR, ignore_errors=True)
+    os.makedirs(LAUNCH_DIR)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": repo + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    _free()
+    t0 = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-m", "deepspeed_tpu_torch.cli", "run", "--num_gpus", "1",
+         f"--master_port={_free_port()}",
+         f"--enable_each_rank_log={os.path.join(LAUNCH_DIR, 'logs')}",
+         *_worker_cmd("launch", LAUNCH_DIR, seed)],
+        cwd=repo, env=env, capture_output=True, text=True, timeout=600)
+    run_s = time.time() - t0
+    if proc.returncode != 0:
+        log = os.path.join(LAUNCH_DIR, "logs", "rank_0.log")
+        tail = open(log).read()[-4000:] if os.path.exists(log) else ""
+        raise RuntimeError(f"cli run exited {proc.returncode}: {proc.stderr[-2000:]}\n{tail}")
+    with open(os.path.join(LAUNCH_DIR, "result.json")) as f:
+        rank = json.load(f)
+
+    check(not dist.has_process_group(), "the reference run must have no process group")
+    t = time.perf_counter()
+    engine, batch = _launch_setup(seed)
+    _sync()
+    init_s = time.perf_counter() - t
+    check(engine._dp is None, "the in-process engine averaged over a process group")
+    _reset_train_counters()
+    losses, step_s, per_step = _timed_steps(engine, batch, LAUNCH_STEPS)
+    fingerprint = _json_round(state_fingerprint(engine))
+    del engine, batch
+    _free()
+
+    failures = []
+    if rank["env"]["CUDA_VISIBLE_DEVICES"] != "0" or rank["env"]["WORLD_SIZE"] != "1":
+        failures.append(f"rank environment {rank['env']}")
+    want_backend = "nccl" if CHECK_DEVICE == "cuda" else "gloo"
+    if not (rank["process_group"] and rank["backend"] == want_backend and rank["world"] == 1
+            and rank["dp"] == ["dp"] and rank["flat"]):
+        failures.append(f"the rank trained without a {want_backend} data-parallel group: "
+                        f"{ {k: rank[k] for k in ('process_group', 'backend', 'world', 'dp')} }")
+    if rank.get("built"):
+        failures.append(f"the rank compiled {rank['built']} (the build cache missed)")
+    if rank["losses"] != losses:
+        failures.append(f"launched losses {rank['losses']} != in-process {losses}")
+    if rank["fingerprint"] != fingerprint:
+        diff = sorted(k for k in fingerprint if rank["fingerprint"].get(k) != fingerprint[k])
+        failures.append(f"launched state differs from the in-process run's in {diff[:8]}")
+    for k, n in rank["launch_rule"].items():
+        if any(s[k] != n for s in rank["per_step"]):
+            failures.append(f"{k} launches per step {[s[k] for s in rank['per_step']]} != {n}")
+    state["launch_launches"] = {k: sum(s[k] for s in rank["per_step"])
+                                for k in rank["launch_rule"]}
+
+    # the elastic agent over the comm checks; attempt 0 fails
+    agent_dir = os.path.join(LAUNCH_DIR, "elastic")
+    os.makedirs(agent_dir)
+    t = time.perf_counter()
+    spec = WorkerSpec(entrypoint=[sys.executable, *_worker_cmd("elastic", agent_dir, seed)],
+                      local_world_size=1, max_restarts=2, monitor_interval=0.2,
+                      master_port=_free_port())
+    res = DSElasticAgent(spec, env={"PYTHONPATH": env["PYTHONPATH"]}).run()
+    elastic_s = time.perf_counter() - t
+    attempts = sorted(f for f in os.listdir(agent_dir) if f.startswith("attempt_"))
+    if res.state != WorkerState.SUCCEEDED or res.restarts != 1 or \
+            attempts != ["attempt_0", "attempt_1"]:
+        failures.append(f"elastic agent: {res.state} after {res.restarts} restarts, {attempts}")
+    emit("launch", steps=LAUNCH_STEPS, losses=losses, launched_losses=rank["losses"],
+         fingerprint_equal=rank["fingerprint"] == fingerprint,
+         spawn_s=rank["t_start"] - t0, run_s=run_s, torch_import_s=rank["torch_import_s"],
+         build_cache_s=rank.get("build_cache_s"), built=rank.get("built"),
+         launched_init_s=rank["init_s"], launched_step_s=rank["step_s"], init_s=init_s,
+         step_s=step_s, launches_per_step=rank["per_step"], launch_rule=rank["launch_rule"],
+         rank_env=rank["env"], backend=rank["backend"],
+         elastic={"state": res.state.value, "restarts": res.restarts,
+                  "return_codes": res.return_codes, "attempts": attempts,
+                  "seconds": elastic_s},
+         card=state.get("card"))
+    check(not failures, "launch failed: " + "; ".join(failures))
+    shutil.rmtree(LAUNCH_DIR, ignore_errors=True)
+
+
 # kernel S at the denoiser's activation (batch 2, 64 x 64, 320 channels) and
 # the VAE encoder's (1, 512 x 512, 128 channels)
 SPATIAL_CASES = {"sd_unet_320": (2, 64, 64, 320), "sd_vae_128": (1, 512, 512, 128)}
@@ -10708,6 +11106,7 @@ def phase_kernels(state):
     diffusers = state.get("diffusers_launches", {})
     autotune = state.get("autotune_launches", {})
     tooling = state.get("tooling_launches", {})
+    launch = state.get("launch_launches", {})
     rows = []
     meta = {
         "flash_attention_fwd": (
@@ -10843,7 +11242,7 @@ def phase_kernels(state):
                                            ("train_remat", train_remat),
                                            ("train_data_efficiency", train_data_efficiency),
                                            ("diffusers", diffusers), ("autotune", autotune),
-                                           ("tooling", tooling))
+                                           ("tooling", tooling), ("launch", launch))
                    if name in n}
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                      "launches": sum(by_path.values()) if by_path else None,
@@ -10867,8 +11266,20 @@ def main(argv=None):
     ap.add_argument("--fused-ce", choices=("auto", "on", "off"), default="auto",
                     help="fused_cross_entropy of the train and train_profile phases "
                          "(off: the plain vocab head, to compare against)")
+    # a rank that phase launch spawns through the launcher (or the elastic
+    # agent's worker): its record goes to --worker-out, not to stdout
+    ap.add_argument("--worker", choices=("launch", "elastic"), help=argparse.SUPPRESS)
+    ap.add_argument("--worker-out", help=argparse.SUPPRESS)
+    ap.add_argument("--worker-device", default="cuda", help=argparse.SUPPRESS)
+    ap.add_argument("--worker-model", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     TRAIN_CONFIG["fused_cross_entropy"] = args.fused_ce
+    if args.worker:
+        global CHECK_DEVICE, LAUNCH_MODEL
+        CHECK_DEVICE = args.worker_device
+        LAUNCH_MODEL = json.loads(args.worker_model) if args.worker_model else None
+        worker = worker_launch if args.worker == "launch" else worker_elastic
+        return worker(args.worker_out, args.seed)
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES)
     if unknown:

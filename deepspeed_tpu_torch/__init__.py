@@ -22,7 +22,7 @@ The exports below load lazily, so ``import deepspeed_tpu_torch`` builds no
 kernel and imports no model code.
 """
 
-__version__ = "0.1.0"
+from deepspeed_tpu_torch.version import __version__, git_branch, git_hash  # noqa: F401
 
 _LAZY_EXPORTS = {
     "DeepSpeedEngine": ("deepspeed_tpu_torch.runtime.engine", "DeepSpeedEngine"),
@@ -68,7 +68,10 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     training_dataloader, lr_scheduler)``; the dataloader batches
     ``training_data`` (None without it). ``device`` defaults to ``cuda:0``
     and raises without a CUDA device; ``device="cpu"`` runs the kernels'
-    plain versions (the CPU tests)."""
+    plain versions (the CPU tests). Under the launcher (``python -m
+    deepspeed_tpu_torch.cli run``) the engine joins the process group
+    (``comm.init_distributed``: nccl, or gloo on the CPU) and trains
+    data-parallel over the config's mesh."""
     from deepspeed_tpu_torch.runtime.engine import DeepSpeedEngine
 
     if config is None:

@@ -28,9 +28,17 @@ JAX package's ``dscli``), run as ``python -m deepspeed_tpu_torch.cli
   search of ``autotuning/``; writes ``ds_config_optimal.json`` into the
   section's ``results_dir``
 
-``run``, ``bench``, ``lint`` and ``ssh`` are not ported: each prints the
-refusal naming its ROADMAP.md item and returns 2. Nothing here imports
-torch until a command that needs it runs.
+- ``run [--num_gpus N] [-H hostfile] ... <script> [args...]`` — the launcher
+  (``launcher/runner.py``): one rank a GPU, locally or over the hostfile's
+  nodes (pdsh, OpenMPI, MPICH, MVAPICH, Intel MPI, SLURM)
+- ``bench [--minsize B] [--maxsize B] [--ops ...] [--device cuda|cpu]`` — the
+  collective micro-benchmarks (``benchmarks/comm_bench.py``)
+- ``ssh [-f hostfile] <command>`` — run a shell command on every hostfile
+  host over pdsh
+
+``lint`` is not ported: it prints the refusal naming its ROADMAP.md item
+and returns 2. Nothing here imports torch until a command that needs it
+runs.
 """
 
 from __future__ import annotations
@@ -38,17 +46,59 @@ from __future__ import annotations
 import os
 import sys
 
-from deepspeed_tpu_torch.monitor.health import health_cli
-from deepspeed_tpu_torch.monitor.top import top_cli
 
 #: the JAX package's subcommands the port does not have yet, with the
 #: ROADMAP.md item that brings each
 NOT_PORTED = {
-    "run": ("the launcher (dscli run)", "queue 1: launcher/"),
-    "bench": ("the collective micro-benchmarks (dscli bench)", "queue 1: comm/"),
     "lint": ("the trace-safety analyzer (dscli lint)", "queue 1: tools/dslint for the port"),
-    "ssh": ("the host broadcaster (dscli ssh)", "queue 1: launcher/"),
 }
+
+
+def _health(argv):
+    from deepspeed_tpu_torch.monitor.health import health_cli
+    return health_cli(argv)
+
+
+def _top(argv):
+    from deepspeed_tpu_torch.monitor.top import top_cli
+    return top_cli(argv)
+
+
+def _run(argv):
+    from deepspeed_tpu_torch.launcher import runner
+    runner.main(argv)
+
+
+def _bench(argv):
+    from deepspeed_tpu_torch.benchmarks.comm_bench import main as bench_main
+    bench_main(argv)
+
+
+def _ssh(argv):
+    """Run a shell command on every hostfile host over pdsh (the
+    reference's ``ds_ssh``)."""
+    import argparse
+    import shutil
+    import subprocess
+
+    from deepspeed_tpu_torch.launcher.runner import DLTS_HOSTFILE, fetch_hostfile
+
+    parser = argparse.ArgumentParser(prog="python -m deepspeed_tpu_torch.cli ssh",
+                                     description="run a command on all hosts")
+    parser.add_argument("-f", "--hostfile", type=str, default=None,
+                        help=f"hostfile path (default {DLTS_HOSTFILE})")
+    parser.add_argument("command", nargs=argparse.REMAINDER,
+                        help="command to run on every host")
+    args = parser.parse_args(argv)
+    if not args.command:
+        parser.error("no command given")
+    if shutil.which("pdsh") is None:
+        raise RuntimeError("cannot find pdsh; install it (apt-get install pdsh)")
+    resources = fetch_hostfile(args.hostfile or DLTS_HOSTFILE)
+    if not resources:
+        raise RuntimeError(f"missing or empty hostfile {args.hostfile or DLTS_HOSTFILE}")
+    env = dict(os.environ, PDSH_RCMD_TYPE="ssh")
+    return subprocess.call(["pdsh", "-w", ",".join(resources)] + args.command, env=env)
 
 
 def _ckpt(argv):
@@ -391,9 +441,9 @@ def _not_ported(cmd):
     return run
 
 
-COMMANDS = {"health": health_cli, "top": top_cli, "ckpt": _ckpt, "trace": _trace, "ctl": _ctl,
-            "serve": _serve, "profile": _profile, "report": _report, "elastic": _elastic,
-            "autotune": _autotune,
+COMMANDS = {"run": _run, "health": _health, "top": _top, "bench": _bench, "ckpt": _ckpt,
+            "trace": _trace, "ctl": _ctl, "serve": _serve, "profile": _profile,
+            "report": _report, "elastic": _elastic, "autotune": _autotune, "ssh": _ssh,
             **{cmd: _not_ported(cmd) for cmd in NOT_PORTED}}
 
 

@@ -100,3 +100,6 @@ MODEL_PARALLEL_SIZE = "model_parallel_size"
 MODEL_PARALLEL_SIZE_DEFAULT = 1
 NUM_GPUS_PER_NODE = "num_gpus_per_node"
 NUM_GPUS_PER_NODE_DEFAULT = 1
+
+MESH = "mesh"
+MESH_AXES_DEFAULT = {"dp": -1}

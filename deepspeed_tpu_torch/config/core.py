@@ -18,9 +18,13 @@ sub-blocks) and the ``tensorboard`` / ``wandb`` / ``csv_monitor`` sinks;
 ``flops_profiler`` (the engine profiles the loss at its ``profile_step``),
 ``elasticity`` and ``autotuning``, parsed as the JAX config parses them.
 
-The world size is 1. ``zero_optimization.stage`` 0-3 is accepted: on one
-device every ZeRO stage replicates everything, as the JAX sharding rules do
-over a mesh of one. ``zero_optimization.offload_optimizer`` ``cpu`` or
+``world_size`` is the data-parallel world: the ranks of the mesh's ``dp``
+axis (``mesh``, default ``{"dp": -1}``); every other axis must be 1, and
+``comms_logger`` configures ``comm``'s logger. On one rank
+``zero_optimization.stage`` 0-3 is accepted: every ZeRO stage replicates
+everything, as the JAX sharding rules do over a mesh of one; over several
+ranks only stage 0 (plain data parallelism) is ported, without offload.
+``zero_optimization.offload_optimizer`` ``cpu`` or
 ``nvme`` (with ``nvme_path``) puts the optimizer on the host
 (``runtime/zero/offload.py``); ``offload_param`` is read and, as in the JAX
 training engine, has no effect on one device. Sections that change the result or the schedule and are
@@ -102,6 +106,7 @@ _READ = {
     "dataloader_drop_last", "telemetry", "tensorboard", "wandb", "csv_monitor",
     "compression_training", "activation_checkpointing", "curriculum_learning",
     "data_efficiency", "progressive_layer_drop", "flops_profiler", "elasticity", "autotuning",
+    "comms_logger",
 }
 # keys the JAX package reads whose effect is on multi-device runs or on
 # engine features outside training itself; on one device they change nothing
@@ -117,7 +122,6 @@ _IGNORED = {"comet", "weight_quantization"}
 # sections that are not ported: key -> (what, ROADMAP.md item)
 _NOT_PORTED = {
     "pipeline": ("pipeline parallelism", "runtime/pipe/"),
-    "comms_logger": ("the comms logger", "comm/"),
     "nebula": ("nebula checkpointing", "checkpoint ingestion (orbax)"),
 }
 _ONEBIT = (ONEBIT_ADAM_OPTIMIZER, ZERO_ONE_ADAM_OPTIMIZER, ONEBIT_LAMB_OPTIMIZER)
@@ -145,7 +149,8 @@ def _enabled(section) -> bool:
     return bool(section)
 
 
-def _refuse_outside_slice(param_dict: Dict, client_optimizer: bool = False) -> None:
+def _refuse_outside_slice(param_dict: Dict, client_optimizer: bool = False,
+                          world_size: int = 1) -> None:
     for key, value in param_dict.items():
         if key in _NOT_PORTED:
             if _enabled(value):
@@ -165,9 +170,24 @@ def _refuse_outside_slice(param_dict: Dict, client_optimizer: bool = False) -> N
             if dev not in _OFFLOAD_DEVICES:
                 raise DeepSpeedConfigError(
                     f"zero_optimization.{off}.device={dev!r} (expected none|cpu|nvme)")
+    # data parallelism over a dp axis (ZeRO stage 0) is ported; every other
+    # axis spanning more than one rank is not
     mesh = param_dict.get("mesh") or {}
-    if any(int(n) not in (1, -1) for n in mesh.values()):
+    if any(int(n) not in (1, -1) or (int(n) == -1 and world_size > 1)
+           for ax, n in mesh.items() if ax != "dp"):
         not_ported(f"a multi-device mesh {mesh}", "queue 1: runtime/zero/ multi-rank")
+    if world_size > 1:
+        zero = param_dict.get(C.ZERO_OPTIMIZATION, {})
+        zero = {C.ZERO_STAGE: int(zero)} if isinstance(zero, bool) else zero
+        stage = int(zero.get(C.ZERO_STAGE, C.ZERO_STAGE_DEFAULT))
+        if stage > 0:
+            not_ported(f"ZeRO stage {stage} over {world_size} ranks",
+                       "queue 1: runtime/zero/ multi-rank")
+        off = zero.get("offload_optimizer") or ({"device": "cpu"} if zero.get("cpu_offload")
+                                                else {})
+        if str(off.get("device", "none")).lower() not in ("none", "null"):
+            not_ported(f"ZeRO-Offload over {world_size} ranks",
+                       "queue 1: runtime/zero/ multi-rank")
     opt = (param_dict.get(C.OPTIMIZER) or {}).get(C.TYPE)
     if opt is not None and str(opt).lower() in _ONEBIT:
         not_ported(f"the 1-bit optimizer {opt}", "queue 1: runtime/fp16/onebit/")
@@ -190,10 +210,9 @@ class DeepSpeedConfig:
         else:
             raise DeepSpeedConfigError(
                 f"Expected a string path to an existing config file, or a dict. Received: {config}")
-        if world_size != 1:
-            not_ported(f"data parallelism over {world_size} devices", "queue 1: runtime/zero/ multi-rank")
-        self.world_size = 1
-        _refuse_outside_slice(self._param_dict, client_optimizer)
+        # the data-parallel world (the mesh's dp axis; the other axes are 1)
+        self.world_size = int(world_size)
+        _refuse_outside_slice(self._param_dict, client_optimizer, self.world_size)
         self._initialize_params(self._param_dict)
         self._configure_train_batch_size()
         self._do_sanity_check()
@@ -208,6 +227,10 @@ class DeepSpeedConfig:
         self.wall_clock_breakdown = param_dict.get(C.WALL_CLOCK_BREAKDOWN,
                                                    C.WALL_CLOCK_BREAKDOWN_DEFAULT)
         self.monitor_config = get_monitor_config(param_dict)
+        from deepspeed_tpu_torch.comm.config import DeepSpeedCommsConfig
+        self.comms_config = DeepSpeedCommsConfig(param_dict)
+        # the mesh's named axes: {"dp": -1} puts every rank on dp
+        self.mesh_axes: Dict[str, int] = dict(param_dict.get(C.MESH) or C.MESH_AXES_DEFAULT)
         self.telemetry_config = get_telemetry_config(param_dict)
 
         zero = param_dict.get(C.ZERO_OPTIMIZATION, {})

@@ -88,9 +88,25 @@ params in place without a sync; the scaler, the counters and the lr
 scheduler follow. A tag then carries ``offload_state_p0.npz`` in the JAX
 layout.
 
-Settings outside the port's slices (the 1-bit optimizers, pipeline and
-multi-device runs, ...) raise ``NotImplementedError`` naming their
-ROADMAP.md item.
+The engine starts the world as the JAX engine does: ``comm.init_distributed``
+(a process group when the launcher's variables are set: nccl on the card,
+gloo for ``device="cpu"``) and the config's ``mesh`` over its ranks. With a
+process group it trains data-parallel at ZeRO stage 0 (at world 1 too):
+``train_batch`` takes the global batch, ``gas * micro * dp`` rows, and
+each rank its block (the rows the JAX engine's sharding of the batch dim
+gives its device; the engine's dataloader yields global micro-batches of
+``micro * dp``); the accumulation buffers are views of one flat buffer,
+which one all-reduce averages over ``dp`` before the update, so the clip
+norm and the fp16 overflow check (its flag MAX-reduced besides) read the
+averaged grads; the reported loss is the dp mean; ``save_checkpoint``
+writes from rank 0 and then meets the other ranks at a barrier. The
+``forward`` / ``backward`` / ``step`` trio and ``eval_batch`` take each
+rank's own micro-batch, as torch's DDP does; ``step`` averages at the
+boundary as ``train_batch`` does.
+
+Settings outside the port's slices (the 1-bit optimizers, pipeline, ZeRO
+stages 1-3 over several ranks, ...) raise ``NotImplementedError`` naming
+their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -105,6 +121,7 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 import torch
 
+import deepspeed_tpu_torch.comm as dist
 from deepspeed_tpu_torch.accelerator.real_accelerator import get_accelerator, resolve_device
 from deepspeed_tpu_torch.compression.compress import CompressedModel
 from deepspeed_tpu_torch.config.core import DeepSpeedConfig
@@ -125,6 +142,16 @@ from deepspeed_tpu_torch.utils.timer import (NoopTimer, SynchronizedWallClockTim
 
 _DTYPES = {None: torch.float32, "fp32": torch.float32, "fp16": torch.float16,
            "bf16": torch.bfloat16}
+
+
+def _world_size() -> int:
+    import torch.distributed as tdist
+    return tdist.get_world_size() if dist.has_process_group() else 1
+
+
+# each leaf's view of the flat gradient buffer starts on a multiple of this
+# many elements (256 bytes in fp32), so the kernels' vector loads stay aligned
+_FLAT_ALIGN = 64
 
 
 @dataclasses.dataclass
@@ -220,8 +247,21 @@ class DeepSpeedEngine:
                             "or a callable params -> torch.optim.Optimizer")
         self.client_model = model
         self.loss_fn = _loss_fn_of(model)
-        self._config = DeepSpeedConfig(config if config is not None else {},
+        self.device = resolve_device(device)
+        self._acc = get_accelerator(self.device.type)
+
+        # ---- the world and its mesh (the JAX engine's start-up): a process
+        # group when the launcher's variables are set (nccl on the card,
+        # gloo on the CPU), the config's mesh over its ranks ----
+        dist.init_distributed(dist_backend="gloo" if self.device.type == "cpu" else "nccl",
+                              verbose=False)
+        dp_world = (dist.get_world_size(dist.data_parallel_axes(dist.get_mesh())) if dist.has_mesh()
+                    else _world_size())
+        self._config = DeepSpeedConfig(config if config is not None else {}, world_size=dp_world,
                                        client_optimizer=optimizer is not None)
+        dist.configure(self._config)
+        self.mesh = dist.get_mesh() if dist.has_mesh() else dist.init_mesh(self._config.mesh_axes)
+        self._init_data_parallel()
         # a JSON-level "fused_cross_entropy" beats the model config's default
         fce = self._config.fused_cross_entropy
         mcfg = getattr(model, "config", None)
@@ -235,8 +275,6 @@ class DeepSpeedEngine:
         elif fce is not None and mcfg is not None and hasattr(mcfg, "fused_cross_entropy"):
             model.config = dataclasses.replace(mcfg, fused_cross_entropy=fce)
             mcfg = model.config
-        self.device = resolve_device(device)
-        self._acc = get_accelerator(self.device.type)
 
         # ---- precision ----
         if self.bfloat16_enabled():
@@ -324,7 +362,7 @@ class DeepSpeedEngine:
         if training_data is not None:
             from deepspeed_tpu_torch.runtime.dataloader import DeepSpeedDataLoader
             self.training_dataloader = DeepSpeedDataLoader(
-                training_data, batch_size=self.train_micro_batch_size_per_gpu(),
+                training_data, batch_size=self.train_micro_batch_size_per_gpu() * self.dp_world_size,
                 collate_fn=collate_fn, drop_last=self._config.dataloader_drop_last)
 
         # ---- state ----
@@ -353,6 +391,33 @@ class DeepSpeedEngine:
                  f"dtype={self.compute_dtype}, device={self.device}, "
                  f"micro_bs={self.train_micro_batch_size_per_gpu()} x "
                  f"gas={self.gradient_accumulation_steps()}", ranks=[0])
+
+    def _init_data_parallel(self) -> None:
+        """The data-parallel group: the mesh's data axes, their size and this
+        rank's index along them. ``_dp`` (the axes) is set only with a
+        process group, and then the gradients are averaged over it at every
+        boundary, at one rank too; without one there is nothing to average."""
+        self._dp_axes = tuple(dist.data_parallel_axes(self.mesh))
+        self.dp_world_size = dist.get_world_size(self._dp_axes)
+        coords = self.mesh.coords(dist.get_rank())
+        rank = 0
+        for ax in self._dp_axes:
+            rank = rank * self.mesh.shape[ax] + coords[ax]
+        self.dp_rank = rank
+        self._dp = self._dp_axes if dist.has_process_group() else None
+        self._flat_grads = None
+
+    def _rank_block(self, x, lead: int):
+        """This rank's block of a global batch leaf ``[gas * micro * dp,
+        ...]`` (``lead`` = gas) or micro-batch leaf ``[micro * dp, ...]``
+        (``lead`` = None): the rows the JAX engine's sharding of the batch
+        dim over dp gives device ``dp_rank``, as ``[gas, micro, ...]`` or
+        ``[micro, ...]``."""
+        micro = self.train_micro_batch_size_per_gpu()
+        lo = self.dp_rank * micro
+        if lead is None:
+            return x[lo:lo + micro]
+        return x.reshape((lead, -1) + tuple(x.shape[1:]))[:, lo:lo + micro]
 
     def _init_telemetry(self) -> None:
         """Timers, the monitor sinks and the telemetry series (the JAX
@@ -635,16 +700,36 @@ class DeepSpeedEngine:
         return optimizer
 
     def _uses_acc_grad_buffers(self) -> bool:
-        """Whether train_batch reads the accumulation buffers (gas > 1, or
-        the host optimizer's boundary)."""
-        return self.gradient_accumulation_steps() != 1 or self._offload is not None
+        """Whether train_batch reads the accumulation buffers (gas > 1, the
+        host optimizer's boundary, or a data-parallel group)."""
+        return (self.gradient_accumulation_steps() != 1 or self._offload is not None
+                or self._dp is not None)
 
     def _ensure_acc_grads(self) -> None:
-        """Allocate the accumulation buffers (gas > 1, or the trio)."""
-        if self.state.acc_grads is None:
+        """Allocate the accumulation buffers (gas > 1, or the trio). With a
+        data-parallel group they are views of one flat buffer, which the
+        boundary averages with one all-reduce."""
+        if self.state.acc_grads is not None:
+            return
+        named = list(self.state.params.named_parameters())
+        if self._dp is None:
             self.state.acc_grads = {
                 n: torch.zeros(p.shape, dtype=self.grad_acc_dtype, device=p.device)
-                for n, p in self.state.params.named_parameters()}
+                for n, p in named}
+            return
+        offsets, total = [], 0
+        for _, p in named:
+            offsets.append(total)
+            total += -(-p.numel() // _FLAT_ALIGN) * _FLAT_ALIGN
+        self._flat_grads = torch.zeros(total, dtype=self.grad_acc_dtype, device=self.device)
+        self.state.acc_grads = {
+            n: self._flat_grads[o:o + p.numel()].view(p.shape)
+            for (n, p), o in zip(named, offsets)}
+
+    def _average_grads(self) -> None:
+        """The data-parallel mean of the accumulated gradients: one
+        all-reduce (AVG) of the flat buffer in place."""
+        dist.all_reduce_in_place(self._flat_grads, op=dist.ReduceOp.AVG, group=self._dp)
 
     def load_train_state(self, params=None, master=None, opt_state=None,
                          global_steps: Optional[int] = None) -> None:
@@ -743,6 +828,8 @@ class DeepSpeedEngine:
         vector is gathered on the way (:class:`_Sentinels`)."""
         st = self.state
         from_buffers = grads is None
+        if from_buffers and self._dp is not None:
+            self._average_grads()
         denom = st.scaler.loss_scale * gas
         if from_buffers:
             # fp32 buffers are unscaled in place (they are zeroed after)
@@ -754,6 +841,10 @@ class DeepSpeedEngine:
         names = self._names
         overflow = bool(has_overflow(unscaled(n) for n in names)) if self.fp16_enabled() \
             else False
+        if self._dp is not None and self.fp16_enabled():
+            # every rank skips together: the flag's MAX over the group
+            flag = torch.tensor([float(overflow)], device=self.device)
+            overflow = bool(dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=self._dp)[0])
         clip = float(self.gradient_clipping() or 0.0)
         sen = _Sentinels(*self._sentinel_layout) if self._sentinels_on else None
         # the pre-clip norm: for clipping, and for the grad-norm series
@@ -906,7 +997,7 @@ class DeepSpeedEngine:
         mean loss (a 0-dim tensor on the device)."""
         gas = self.gradient_accumulation_steps()
         micro_bs = self.train_micro_batch_size_per_gpu()
-        expected = gas * micro_bs
+        expected = gas * micro_bs * self.dp_world_size
         if batch is not None and self._batch_fn is not None:
             # the batch_fn normalizes the raw batch before any shape check
             batch = self._batch_fn(batch)
@@ -915,14 +1006,14 @@ class DeepSpeedEngine:
             if lead != expected:
                 raise ValueError(
                     f"train_batch leading dim {lead} != gas({gas}) * micro_bs({micro_bs}) "
-                    f"* dp(1) = {expected}")
-            batch = {k: x.reshape((gas, -1) + tuple(x.shape[1:]))
-                     for k, x in self._batch_to_device(batch).items()}
+                    f"* dp({self.dp_world_size}) = {expected}")
+            batch = self._batch_to_device({k: self._rank_block(x, gas) for k, x in batch.items()})
         else:
             micros = [next(self._standing_iterator(data_iter)) for _ in range(gas)]
             if self._batch_fn is not None:
                 micros = [self._batch_fn(m) for m in micros]
-            micros = [self._batch_to_device(m) for m in micros]
+            micros = [self._batch_to_device({k: self._rank_block(x, None) for k, x in m.items()})
+                      for m in micros]
             batch = {k: torch.stack([m[k] for m in micros]) for k in micros[0]}
         self._host_global_steps += 1
         self._maybe_profile_flops(batch)
@@ -971,7 +1062,7 @@ class DeepSpeedEngine:
 
     def _train_batch_body(self, batch, gas: int) -> torch.Tensor:
         """gas micro-steps and the update; returns the mean loss."""
-        if gas == 1 and self._offload is None:
+        if gas == 1 and not self._uses_acc_grad_buffers():
             loss = self._micro_grads({k: x[0] for k, x in batch.items()})
             self.state.micro_steps += 1
             grads = {}
@@ -993,6 +1084,9 @@ class DeepSpeedEngine:
             else:
                 self._apply_update(gas)
             loss = torch.stack(losses).mean()
+        if self._dp is not None:
+            # the global batch's mean, as the JAX engine reports it
+            loss = dist.all_reduce(loss, op=dist.ReduceOp.AVG, group=self._dp)
         return loss
 
     def _standing_iterator(self, data_iter=None):
@@ -1433,8 +1527,17 @@ class DeepSpeedEngine:
         ``checkpoint.async_save``) leaves the persist to the background
         writer, otherwise the tag is durably on disk on return."""
         from deepspeed_tpu_torch.runtime.checkpoint_engine.engine import save_engine_checkpoint
-        return save_engine_checkpoint(self, save_dir, tag=tag, client_state=client_state,
-                                      save_latest=save_latest, asynchronous=asynchronous)
+        if self._dp is None:
+            return save_engine_checkpoint(self, save_dir, tag=tag, client_state=client_state,
+                                          save_latest=save_latest, asynchronous=asynchronous)
+        # with a process group the ranks hold the same state: rank 0 writes,
+        # then every rank meets at a barrier, as the JAX writer does
+        ok = True
+        if dist.get_rank() == 0:
+            ok = save_engine_checkpoint(self, save_dir, tag=tag, client_state=client_state,
+                                        save_latest=save_latest, asynchronous=asynchronous)
+        dist.barrier()
+        return ok
 
     def load_checkpoint(self, load_dir, tag=None, load_optimizer_states=True,
                         load_lr_scheduler_states=True, load_module_only=False, strict=False,
@@ -1562,14 +1665,15 @@ class DeepSpeedEngine:
         """Change the global batch through the gradient-accumulation steps;
         the micro-batch size stays."""
         micro = self.train_micro_batch_size_per_gpu()
-        if train_batch_size % micro:
+        dp = self.dp_world_size
+        if train_batch_size % (micro * dp):
             raise ValueError(
                 f"Train batch size ({train_batch_size}) must be divisible by "
-                f"micro-batch ({micro}) x data parallelism (1)")
-        new_gas = train_batch_size // micro
+                f"micro-batch ({micro}) x data parallelism ({dp})")
+        new_gas = train_batch_size // (micro * dp)
         if new_gas < 1:
             raise ValueError(f"Train batch size ({train_batch_size}) must cover "
-                             f"at least one micro-batch per dp rank ({micro})")
+                             f"at least one micro-batch per dp rank ({micro * dp})")
         self._config.train_batch_size = train_batch_size
         self._config.gradient_accumulation_steps = new_gas
         if new_gas > 1 and self._config.gradient_accumulation_dtype is None and \

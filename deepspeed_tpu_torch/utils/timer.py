@@ -245,3 +245,19 @@ class ThroughputTimer:
         if self.global_step_count > self.start_step and self.total_elapsed_time > 0:
             return self.total_samples / self.total_elapsed_time
         return -1.0
+
+
+def trim_mean(data: List[float], trim_percent: float) -> float:
+    """The mean of ``data`` without its tails (the JAX package's
+    ``utils/timer.trim_mean``)."""
+    if not 0.0 <= trim_percent <= 1.0:
+        raise ValueError(f"trim_percent {trim_percent} outside [0, 1]")
+    n = len(data)
+    if n == 0:
+        return 0.0
+    data_sorted = sorted(data)
+    trim_off = int(n * trim_percent)
+    trimmed = data_sorted[trim_off:max(n - trim_off, trim_off + 1)]
+    if not trimmed:
+        trimmed = data_sorted
+    return sum(trimmed) / len(trimmed)

@@ -189,6 +189,39 @@ MOE_MODULES = (
 )
 
 
+# the multi-process slice's modules: comm/, the launcher, the collective
+# benchmarks, the elastic agent, the group helpers and the comms logger
+MULTI_PROCESS_MODULES = (
+    "deepspeed_tpu_torch.comm", "deepspeed_tpu_torch.comm.comm", "deepspeed_tpu_torch.comm.mesh",
+    "deepspeed_tpu_torch.comm.config", "deepspeed_tpu_torch.launcher.runner",
+    "deepspeed_tpu_torch.launcher.launch", "deepspeed_tpu_torch.launcher.multinode_runner",
+    "deepspeed_tpu_torch.benchmarks.comm_bench", "deepspeed_tpu_torch.elasticity.elastic_agent",
+    "deepspeed_tpu_torch.utils.groups", "deepspeed_tpu_torch.utils.comms_logging",
+    "deepspeed_tpu_torch.version",
+)
+
+
+def test_multi_process_modules_import_no_jax_nor_the_jax_package():
+    """``comm/``, ``launcher/``, ``benchmarks/`` and
+    ``elasticity/elastic_agent.py`` import neither jax, the JAX package nor
+    pydantic, and importing them creates no process group and touches no
+    device."""
+    for name in MULTI_PROCESS_MODULES:
+        path = ROOT / (name.replace(".", "/") + ".py")
+        path = path if path.exists() else path.with_suffix("") / "__init__.py"
+        assert not any(m.split(".")[0] in FORBIDDEN for m in _imported_modules(path)), name
+    code = ("import importlib, sys, torch\n"
+            f"for m in {MULTI_PROCESS_MODULES!r}: importlib.import_module(m)\n"
+            "import torch.distributed as d\n"
+            "assert not torch.cuda.is_initialized() and not d.is_initialized()\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r}))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+
+
 def test_import_leaves_jax_and_pydantic_out():
     mods = ["deepspeed_tpu_torch"] + sorted(
         "deepspeed_tpu_torch." + ".".join(p.relative_to(ROOT / "deepspeed_tpu_torch")
@@ -206,6 +239,7 @@ def test_import_leaves_jax_and_pydantic_out():
     assert set(ASYNC_SERVING_MODULES) <= set(mods)
     assert set(TIER_AND_ROUTER_MODULES) <= set(mods)
     assert set(MOE_MODULES) <= set(mods)
+    assert set(MULTI_PROCESS_MODULES) - {"deepspeed_tpu_torch.comm"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "

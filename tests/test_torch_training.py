@@ -428,7 +428,7 @@ def test_config_fields_match_jax(sections):
     ({"optimizer": {"type": "onebitlamb", "params": {}}}, "lamb"),
     ({"pipeline": {"stages": 2}}, "runtime/pipe"),
     ({"mesh": {"dp": 1, "sp": 2}}, "multi-device"),
-    ({"comms_logger": {"enabled": True}}, "comm/"),
+    ({"mesh": {"pp": 2}}, "multi-device"),
     ({"checkpoint": {"engine": "orbax"}}, "checkpoint"),
     ({"mesh": {"tp": 2}}, "multi-device"),
     ({"optimizer": {"type": "ZeroOneAdam", "params": {}}}, "onebit"),
@@ -437,6 +437,20 @@ def test_outside_the_slice_raises_naming_its_item(over, match):
     _, jparams = _jax_params(LLAMA)
     with pytest.raises(NotImplementedError, match=match):
         _port(LLAMA, jparams, _config(**over)).train_batch(_batches(0, 1, 4)[0])
+
+
+def test_comms_logger_section_is_accepted_like_jax():
+    """The comms logger's section, which the port took in with comm/:
+    parsed as the JAX config parses it, and an engine with it trains a
+    step (no process group here, so no collective runs)."""
+    cfg = _config(comms_logger={"enabled": True, "verbose": False, "prof_ops": ["all_reduce"]})
+    want, got = JaxConfig(cfg, world_size=1), DeepSpeedConfig(cfg)
+    for key in ("enabled", "verbose", "prof_all", "debug", "prof_ops"):
+        assert getattr(got.comms_config.comms_logger, key) == \
+            getattr(want.comms_config.comms_logger, key), key
+    assert got.comms_config.comms_logger_enabled == want.comms_config.comms_logger_enabled
+    _, jparams = _jax_params(LLAMA)
+    assert np.isfinite(float(_port(LLAMA, jparams, cfg).train_batch(_batches(0, 1, 4)[0])))
 
 
 @pytest.mark.parametrize("section", ["flops_profiler", "elasticity", "autotuning"])
