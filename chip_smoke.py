@@ -452,6 +452,19 @@ Phases, each printing one JSON line:
                 here without a process group (limit 0), its launches the
                 train rule; then DSElasticAgent over the comm checks as a
                 worker that fails its first attempt: SUCCEEDED, 1 restart
+  zero          cli run --num_gpus 1 spawns one NCCL rank (--worker zero) that
+                trains the train cell (Llama-2-7B width, 8 layers, bf16,
+                micro 4 x gas 2, S 2048) 3 steps at ZeRO stage 0, 1, 2 and 3
+                (AdamW on kernel E; stage 3 under the default remat, each
+                layer gathered in its block) and the train_lamb cell's
+                LAMB (K7) with MoQ (K8, stochastic) at stages 0 and 2:
+                every stage's losses and every state tensor, gathered,
+                bit-equal to stage 0's (limit 0: over one rank a partition
+                is the whole unit), its launches per step by the train rule,
+                its collectives' count and bytes (comms logger, one more
+                step), step ms and the device peak; beside them the bytes a
+                rank would hold at dp 2, 4 and 8, reckoned from the
+                partition sizes
   kernels       every ported kernel with its launches in the serve, spec_serve
                 (its oracle run), generate, train, train_lamb, train_sparse,
                 resume, ingest, telemetry, client_opt, health, serve_async,
@@ -459,8 +472,8 @@ Phases, each printing one JSON line:
                 moe_generate, moe_train, serve_stream, serve_stream_nvme,
                 train_offload, bert_serve, bert_train, clip_encode,
                 compress_train, moq_eigenvalue, train_remat,
-                train_data_efficiency, diffusers, autotune, tooling and
-                launch phases
+                train_data_efficiency, diffusers, autotune, tooling, launch
+                and zero phases
                 (the encoder shapes in rows of their own; A, C and D with a
                 layout in
                 rows of their own, as A, B, C, D and K5 at head_dim 256; C's
@@ -509,7 +522,7 @@ PHASES = ("env", "build", "kernel", "slice_parity", "serve", "serve_async", "ser
           "serve_stream", "serve_stream_nvme", "train_offload", "encoder_parity",
           "bert_serve", "bert_train", "clip_encode", "compress_parity", "compress_train",
           "moq_eigenvalue", "train_remat", "train_data_efficiency", "diffusers",
-          "tiled_linear", "autotune", "tooling", "comm", "launch", "kernels",
+          "tiled_linear", "autotune", "tooling", "comm", "launch", "zero", "kernels",
           "profile",
           "train_profile", "train_lamb_profile", "generate_profile", "train_sparse_profile",
           "health_profile")
@@ -10974,6 +10987,241 @@ def phase_launch(state, seed):
     shutil.rmtree(LAUNCH_DIR, ignore_errors=True)
 
 
+ZERO_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), ".chip_check", "zero")
+ZERO_STEPS = 3
+#: the zero phase's runs: (tag, ZeRO stage, LAMB); each holds to the
+#: stage-0 run of its optimizer
+ZERO_RUNS = (("adamw_stage0", 0, False), ("adamw_stage1", 1, False),
+             ("adamw_stage2", 2, False), ("adamw_stage3", 3, False),
+             ("lamb_stage0", 0, True), ("lamb_stage2", 2, True))
+ZERO_RECKON_WORLDS = (2, 4, 8)
+
+
+def _zero_config(stage, lamb):
+    """The train cell's config (AdamW through FusedAdam) or the train_lamb
+    cell's (FusedLamb with MoQ, stochastic rounding on K8) at ZeRO
+    ``stage``, gas 2."""
+    cfg = {**(LAMB_CONFIG if lamb else TRAIN_CONFIG), "zero_optimization": {"stage": stage}}
+    if CHECK_DEVICE != "cuda":
+        cfg["bf16"] = {"enabled": False}
+    return cfg
+
+
+def _zero_shapes(engine):
+    """Every leaf's name and full shape, partitioned or not."""
+    if engine._zero is not None:
+        return [(n, engine._zero.shape(n)) for n in engine._names]
+    return [(n, tuple(p.shape)) for n, p in engine.state.params.named_parameters()]
+
+
+def zero_launch_rule(engine, lamb):
+    """The kernels' launches in one train_batch of a ZeRO run: A twice a
+    layer a micro-step (forward and remat recompute), C and D once, each
+    fused CE kernel once a micro-step; E (or K7's moments and apply) once a
+    leaf segment this rank updates (every leaf over one rank), K7's ratio
+    once a JAX leaf; with LAMB, MoQ's K8 and its absmax kernel once a port
+    leaf of each JAX leaf of stacked rank >= 2 (the compute params are
+    whole at stages 1-2), as in the train_lamb phase."""
+    from deepspeed_tpu_torch.runtime.utils import jax_leaves
+    cfg = engine.module.config
+    gas = engine.gradient_accumulation_steps()
+    segments = len(engine._zero.names) if engine._zero is not None else len(engine._names)
+    ce = gas if engine._config.fused_cross_entropy != "off" else 0
+    rule = {"flash_attention_fwd": 2 * cfg.n_layer * gas,
+            "flash_attention_bwd_dq": cfg.n_layer * gas,
+            "flash_attention_bwd_dkv": cfg.n_layer * gas,
+            **dict.fromkeys(("fused_ce_fwd", "fused_ce_ds", "fused_ce_dh_gemm",
+                             "fused_ce_dw_gemm"), ce)}
+    shapes = dict(_zero_shapes(engine))
+    quantized = sum(len(ns) for path, ns in jax_leaves(list(shapes)).items()
+                    if len(shapes[ns[0]]) + (path[0] == "layers") >= 2) if lamb else 0
+    if lamb:
+        rule.update(fused_adam=0, fused_lamb_moments=segments, fused_lamb_apply=segments,
+                    fused_lamb_ratio=len(engine._groups))
+    else:
+        rule.update(fused_adam=segments, fused_lamb_moments=0, fused_lamb_apply=0,
+                    fused_lamb_ratio=0)
+    rule.update(sr_quantize=quantized, sr_absmax=quantized)
+    return rule
+
+
+def zero_reckoned_bytes(engine, stage, worlds=ZERO_RECKON_WORLDS):
+    """The bytes one rank would hold at each data-parallel world, reckoned
+    from the flat units' partition sizes (not measured: one card): compute
+    params in the compute dtype, fp32 masters (mixed precision), the
+    optimizer's two fp32 moments, the accumulation buffer."""
+    import torch
+    from deepspeed_tpu_torch.runtime.zero.partition import build_units, held_elements
+    shapes = _zero_shapes(engine)
+    cbytes = torch.finfo(engine.compute_dtype).bits // 8
+    gbytes = torch.finfo(engine.grad_acc_dtype).bits // 8
+    out = {}
+    for n in worlds:
+        held = held_elements(build_units(shapes, n), stage, engine.zero_rules)
+        parts = {"params": held["params"] * cbytes,
+                 "master": held["master"] * 4 if engine.mixed_precision else 0,
+                 "optimizer": 2 * held["master"] * 4, "grads": held["grads"] * gbytes}
+        out[str(n)] = {**parts, "total": sum(parts.values())}
+    return out
+
+
+def _zero_setup(seed):
+    """The zero phase's model (Llama-2-7B width at TRAIN_LAYERS, or
+    LAUNCH_MODEL), its seeded params on CHECK_DEVICE and one token batch."""
+    import numpy as np
+    import torch
+    from deepspeed_tpu_torch.models import CausalLM, TransformerConfig, llama
+
+    cuda = CHECK_DEVICE == "cuda"
+    model = llama("7b", n_layer=TRAIN_LAYERS) if LAUNCH_MODEL is None \
+        else CausalLM(TransformerConfig(**LAUNCH_MODEL))
+    gen = torch.Generator(device=CHECK_DEVICE).manual_seed(seed)
+    params = model.init_params(gen, device=CHECK_DEVICE,
+                               dtype=torch.bfloat16 if cuda else torch.float32)
+    rng = np.random.default_rng(seed + 2)
+    seq = TRAIN_SEQ if LAUNCH_MODEL is None else LAUNCH_MODEL["max_seq"]
+    tokens = rng.integers(0, model.config.vocab_size, size=(TRAIN_CONFIG["train_batch_size"], seq))
+    return model, params, {"input_ids": torch.from_numpy(tokens).to(CHECK_DEVICE)}
+
+
+def _comms_summary(cl):
+    """The comms logger's records as count and bytes per op."""
+    return {name: {"count": sum(r[0] for r in sizes.values()),
+                   "bytes": sum(size * r[0] for size, r in sizes.items())}
+            for name, sizes in cl.comms_dict.items()}
+
+
+def worker_zero(out, seed):
+    """The zero phase's rank: each of ZERO_RUNS from the same seeded params
+    on the launcher's process group, its losses, state fingerprint,
+    launches, step times, device peak and (one more step with the comms
+    logger on) collectives written to ``out/result.json``."""
+    t_start = time.time()
+    import torch
+
+    import deepspeed_tpu_torch.comm as dist
+    rec = {"t_start": t_start,
+           "env": {k: os.environ.get(k) for k in ("RANK", "WORLD_SIZE", "CUDA_VISIBLE_DEVICES")}}
+    cuda = CHECK_DEVICE == "cuda"
+    if cuda:
+        from deepspeed_tpu_torch.ops.kernels import build
+        _, log = build.build()
+        for name in build.SOURCES:
+            build.load(name)
+        rec["built"] = sorted(log)
+    model, params, batch = _zero_setup(seed)
+    runs = {}
+    for tag, stage, lamb in ZERO_RUNS:
+        _free()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        engine = _train_engine(model, params, _zero_config(stage, lamb), device=CHECK_DEVICE)
+        _sync()
+        init_s = time.perf_counter() - t
+        _reset_train_counters()
+        losses, step_s, per_step = _timed_steps(engine, batch, ZERO_STEPS)
+        peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+        fingerprint = _json_round(state_fingerprint(engine))
+        cl = dist.comms_logger()
+        cl.comms_dict = {}
+        dist.configure(enabled=True, prof_all=True)
+        engine.train_batch(batch)
+        _sync()
+        dist.configure(enabled=False)
+        runs[tag] = {"stage": stage, "optimizer": "FusedLamb" if lamb else "FusedAdam",
+                     "moq": engine.quantizer is not None, "losses": losses, "step_s": step_s, "per_step": per_step,
+                     "fingerprint": fingerprint, "peak_gb": peak, "init_s": init_s,
+                     "held_bytes": engine.zero_held_bytes(),
+                     "describe": engine.zero_rules.describe(),
+                     "partitioned": engine._zero is not None,
+                     "group": list(engine._zero.group) if engine._zero is not None else None,
+                     "units": len(engine._zero.units) if engine._zero is not None else None,
+                     "comms_per_step": _comms_summary(cl),
+                     "launch_rule": zero_launch_rule(engine, lamb) if cuda else {},
+                     "reckoned_bytes_per_rank": zero_reckoned_bytes(engine, stage)}
+        del engine
+    import torch.distributed as tdist
+    rec.update(runs=runs, backend=tdist.get_backend() if dist.has_process_group() else None,
+               world=tdist.get_world_size() if dist.has_process_group() else None)
+    with open(os.path.join(out, "result.json"), "w") as f:
+        json.dump(rec, f)
+    del params
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_zero(state, seed):
+    """ZeRO stages 1-3 end to end on the card: ``cli run --num_gpus 1``
+    spawns one NCCL rank (``--worker zero``) that runs ZERO_RUNS; every
+    stage must give its optimizer's stage-0 losses and state bit for bit
+    (limit 0), launch the train rule's kernels each step, and issue the
+    collectives of its stage (the all-gather that refreshes the params,
+    and the reduce-scatter of the gradients from stage 2)."""
+    shutil.rmtree(ZERO_DIR, ignore_errors=True)
+    os.makedirs(ZERO_DIR)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": repo + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    _free()
+    t0 = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-m", "deepspeed_tpu_torch.cli", "run", "--num_gpus", "1",
+         f"--master_port={_free_port()}",
+         f"--enable_each_rank_log={os.path.join(ZERO_DIR, 'logs')}",
+         *_worker_cmd("zero", ZERO_DIR, seed)],
+        cwd=repo, env=env, capture_output=True, text=True, timeout=600)
+    run_s = time.time() - t0
+    if proc.returncode != 0:
+        log = os.path.join(ZERO_DIR, "logs", "rank_0.log")
+        tail = open(log).read()[-4000:] if os.path.exists(log) else ""
+        raise RuntimeError(f"cli run exited {proc.returncode}: {proc.stderr[-2000:]}\n{tail}")
+    with open(os.path.join(ZERO_DIR, "result.json")) as f:
+        rank = json.load(f)
+    failures = []
+    want_backend = "nccl" if CHECK_DEVICE == "cuda" else "gloo"
+    if rank["backend"] != want_backend or rank["world"] != 1:
+        failures.append(f"the rank ran on {rank['backend']} at world {rank['world']}")
+    if rank.get("built"):
+        failures.append(f"the rank compiled {rank['built']} (the build cache missed)")
+    runs = rank["runs"]
+    launches = {}
+    for tag, stage, lamb in ZERO_RUNS:
+        r = runs[tag]
+        ref = runs["lamb_stage0" if lamb else "adamw_stage0"]
+        if stage > 0 and r["losses"] != ref["losses"]:
+            failures.append(f"{tag} losses {r['losses']} != stage 0's {ref['losses']}")
+        if stage > 0 and r["fingerprint"] != ref["fingerprint"]:
+            diff = sorted(k for k in ref["fingerprint"]
+                          if r["fingerprint"].get(k) != ref["fingerprint"][k])
+            failures.append(f"{tag}: state differs from stage 0's in {diff[:8]}")
+        if r["partitioned"] != (stage > 0) or r["moq"] != lamb:
+            failures.append(f"{tag}: partitioned {r['partitioned']}, MoQ {r['moq']}")
+        for k, n in r["launch_rule"].items():
+            if any(s[k] != n for s in r["per_step"]):
+                failures.append(f"{tag}: {k} launches per step {[s[k] for s in r['per_step']]} "
+                                f"!= {n}")
+        comms = r["comms_per_step"]
+        if stage > 0 and not comms.get("all_gather", {}).get("count"):
+            failures.append(f"{tag}: no all-gather refreshed the params ({comms})")
+        if stage > 1 and not comms.get("reduce_scatter", {}).get("count"):
+            failures.append(f"{tag}: no reduce-scatter of the gradients ({comms})")
+        if stage > 0:
+            for k in r["launch_rule"]:
+                launches[k] = launches.get(k, 0) + sum(s[k] for s in r["per_step"])
+    state["zero_launches"] = launches
+    emit("zero", steps=ZERO_STEPS, runs={tag: {k: v for k, v in r.items() if k != "fingerprint"}
+                                         for tag, r in runs.items()},
+         fingerprints_equal={tag: runs[tag]["fingerprint"] == runs[
+             "lamb_stage0" if lamb else "adamw_stage0"]["fingerprint"]
+             for tag, _, lamb in ZERO_RUNS},
+         reckoned_note="reckoned_bytes_per_rank: computed from the partition sizes, not "
+                       "measured (one card); peak_gb is the measured world-1 peak",
+         spawn_s=rank["t_start"] - t0, run_s=run_s, backend=rank["backend"],
+         card=state.get("card"))
+    check(not failures, "zero failed: " + "; ".join(failures))
+    shutil.rmtree(ZERO_DIR, ignore_errors=True)
+
+
 # kernel S at the denoiser's activation (batch 2, 64 x 64, 320 channels) and
 # the VAE encoder's (1, 512 x 512, 128 channels)
 SPATIAL_CASES = {"sd_unet_320": (2, 64, 64, 320), "sd_vae_128": (1, 512, 512, 128)}
@@ -11107,6 +11355,7 @@ def phase_kernels(state):
     autotune = state.get("autotune_launches", {})
     tooling = state.get("tooling_launches", {})
     launch = state.get("launch_launches", {})
+    zero = state.get("zero_launches", {})
     rows = []
     meta = {
         "flash_attention_fwd": (
@@ -11242,7 +11491,8 @@ def phase_kernels(state):
                                            ("train_remat", train_remat),
                                            ("train_data_efficiency", train_data_efficiency),
                                            ("diffusers", diffusers), ("autotune", autotune),
-                                           ("tooling", tooling), ("launch", launch))
+                                           ("tooling", tooling), ("launch", launch),
+                                           ("zero", zero))
                    if name in n}
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                      "launches": sum(by_path.values()) if by_path else None,
@@ -11268,7 +11518,7 @@ def main(argv=None):
                          "(off: the plain vocab head, to compare against)")
     # a rank that phase launch spawns through the launcher (or the elastic
     # agent's worker): its record goes to --worker-out, not to stdout
-    ap.add_argument("--worker", choices=("launch", "elastic"), help=argparse.SUPPRESS)
+    ap.add_argument("--worker", choices=("launch", "elastic", "zero"), help=argparse.SUPPRESS)
     ap.add_argument("--worker-out", help=argparse.SUPPRESS)
     ap.add_argument("--worker-device", default="cuda", help=argparse.SUPPRESS)
     ap.add_argument("--worker-model", default=None, help=argparse.SUPPRESS)
@@ -11278,7 +11528,8 @@ def main(argv=None):
         global CHECK_DEVICE, LAUNCH_MODEL
         CHECK_DEVICE = args.worker_device
         LAUNCH_MODEL = json.loads(args.worker_model) if args.worker_model else None
-        worker = worker_launch if args.worker == "launch" else worker_elastic
+        worker = {"launch": worker_launch, "elastic": worker_elastic,
+                  "zero": worker_zero}[args.worker]
         return worker(args.worker_out, args.seed)
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES)

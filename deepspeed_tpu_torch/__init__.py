@@ -42,6 +42,8 @@ _LAZY_EXPORTS = {
                       None),
     "module_inject": ("deepspeed_tpu_torch.module_inject", None),
     "OnDevice": ("deepspeed_tpu_torch.utils.init_on_device", "OnDevice"),
+    # deepspeed.zero.Init / GatheredParameters
+    "zero": ("deepspeed_tpu_torch.runtime.zero", None),
 }
 
 
@@ -71,7 +73,10 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     plain versions (the CPU tests). Under the launcher (``python -m
     deepspeed_tpu_torch.cli run``) the engine joins the process group
     (``comm.init_distributed``: nccl, or gloo on the CPU) and trains
-    data-parallel over the config's mesh."""
+    data-parallel over the config's mesh, partitioning its state at ZeRO
+    stages 1-3. ``mpu``: its ``get_data_parallel_world_size()`` is the
+    data-parallel world (the reference contract), which must equal the
+    process group's; a model-parallel world above 1 is not ported."""
     from deepspeed_tpu_torch.runtime.engine import DeepSpeedEngine
 
     if config is None:
@@ -80,14 +85,10 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
         config = args.deepspeed_config
     if model is None:
         raise ValueError("deepspeed_tpu_torch.initialize: model is required")
-    if mpu is not None:
-        raise NotImplementedError("model parallelism (mpu) is not ported to "
-                                  "deepspeed_tpu_torch yet (ROADMAP.md queue 1: "
-                                  "runtime/zero/ multi-rank)")
     engine = DeepSpeedEngine(model=model, config=config, model_parameters=model_parameters,
                              optimizer=optimizer, lr_scheduler=lr_scheduler,
                              training_data=training_data, collate_fn=collate_fn,
-                             device=device)
+                             device=device, mpu=mpu)
     return engine, engine.optimizer, engine.training_dataloader, engine.lr_scheduler
 
 

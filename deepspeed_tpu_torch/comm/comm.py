@@ -477,6 +477,46 @@ def reduce_scatter(tensor, op: ReduceOp = ReduceOp.SUM, group: GroupLike = None,
     return out.movedim(0, axis)
 
 
+def group_rank(group: GroupLike = None) -> int:
+    """This rank's index in the torch process group of its slice along
+    ``group`` (members numbered by ascending global rank): the block that a
+    flat partition gives it (:func:`all_gather_flat`). 0 without a process
+    group."""
+    axes = _resolve_axes(group)
+    if not axes or not has_process_group():
+        return 0
+    pg, _ = _group(axes)
+    return _dist().get_rank(pg)
+
+
+@_log_wrap("all_gather", group_pos=1)
+def all_gather_flat(tensor, out, group: GroupLike = None):
+    """``out`` (``n * tensor.numel()`` elements, contiguous) gets every
+    member's 1-D ``tensor`` in :func:`group_rank` order, with no copy
+    through a temporary: the ZeRO engine's refresh and gather of a flat
+    unit. Returns ``out``."""
+    axes = _resolve_axes(group)
+    if not axes or not has_process_group():
+        return out.copy_(tensor.reshape(out.shape))
+    pg, _ = _group(axes)
+    _dist().all_gather_into_tensor(out, tensor, group=pg)
+    return out
+
+
+@_log_wrap("reduce_scatter", group_pos=1)
+def reduce_scatter_flat(tensor, out, group: GroupLike = None):
+    """The sum over the group of every member's 1-D ``tensor``, of which
+    ``out`` gets block :func:`group_rank` (``tensor.numel() / n``
+    elements): the ZeRO engine's gradient reduction into a rank's
+    partition. Returns ``out``."""
+    axes = _resolve_axes(group)
+    if not axes or not has_process_group():
+        return out.copy_(tensor.reshape(out.shape))
+    pg, _ = _group(axes)
+    _dist().reduce_scatter_tensor(out, tensor, op=_dist().ReduceOp.SUM, group=pg)
+    return out
+
+
 def reduce_scatter_tensor(output_tensor=None, tensor=None, op: ReduceOp = ReduceOp.SUM,
                           group: GroupLike = None, async_op: bool = False):
     out = reduce_scatter(tensor, op=op, group=group)

@@ -19,11 +19,15 @@ sub-blocks) and the ``tensorboard`` / ``wandb`` / ``csv_monitor`` sinks;
 ``elasticity`` and ``autotuning``, parsed as the JAX config parses them.
 
 ``world_size`` is the data-parallel world: the ranks of the mesh's ``dp``
-axis (``mesh``, default ``{"dp": -1}``); every other axis must be 1, and
-``comms_logger`` configures ``comm``'s logger. On one rank
-``zero_optimization.stage`` 0-3 is accepted: every ZeRO stage replicates
-everything, as the JAX sharding rules do over a mesh of one; over several
-ranks only stage 0 (plain data parallelism) is ported, without offload.
+and ``fsdp`` axes (``mesh``, default ``{"dp": -1}``); every other axis must
+be 1, and ``comms_logger`` configures ``comm``'s logger.
+``zero_optimization`` is parsed into ``zero_config``
+(``runtime/zero/config.py``). ZeRO stages 0-3 are accepted at every world
+size: with a process group the engine partitions the masters and the
+optimizer state (stage 1), the gradients (stage 2) and the compute params
+(stage 3) over the data-parallel axes; without one every stage replicates
+everything, as the JAX sharding rules do over a mesh of one device.
+ZeRO-Offload runs on one rank only.
 ``zero_optimization.offload_optimizer`` ``cpu`` or
 ``nvme`` (with ``nvme_path``) puts the optimizer on the host
 (``runtime/zero/offload.py``); ``offload_param`` is read and, as in the JAX
@@ -125,6 +129,9 @@ _NOT_PORTED = {
     "nebula": ("nebula checkpointing", "checkpoint ingestion (orbax)"),
 }
 _ONEBIT = (ONEBIT_ADAM_OPTIMIZER, ZERO_ONE_ADAM_OPTIMIZER, ONEBIT_LAMB_OPTIMIZER)
+# the mesh axes training does not split the batch over, by ROADMAP.md item
+_AXIS_ITEMS = {"pp": "runtime/pipe/", "sp": "sequence/", "ep": "MoE with ep > 1"}
+_DATA_AXES = ("dp", "fsdp")
 _OFFLOAD_DEVICES = ("none", "null", "cpu", "nvme")
 
 
@@ -170,24 +177,20 @@ def _refuse_outside_slice(param_dict: Dict, client_optimizer: bool = False,
             if dev not in _OFFLOAD_DEVICES:
                 raise DeepSpeedConfigError(
                     f"zero_optimization.{off}.device={dev!r} (expected none|cpu|nvme)")
-    # data parallelism over a dp axis (ZeRO stage 0) is ported; every other
-    # axis spanning more than one rank is not
+    # data parallelism over the dp and fsdp axes (ZeRO stages 0-3) is
+    # ported; every other axis spanning more than one rank is not
     mesh = param_dict.get("mesh") or {}
-    if any(int(n) not in (1, -1) or (int(n) == -1 and world_size > 1)
-           for ax, n in mesh.items() if ax != "dp"):
-        not_ported(f"a multi-device mesh {mesh}", "queue 1: runtime/zero/ multi-rank")
+    for ax, n in mesh.items():
+        if ax not in _DATA_AXES and (int(n) not in (1, -1) or (int(n) == -1 and world_size > 1)):
+            not_ported(f"a multi-device mesh {mesh}",
+                       f"queue 1: {_AXIS_ITEMS.get(ax, 'tensor-parallel training')}")
     if world_size > 1:
         zero = param_dict.get(C.ZERO_OPTIMIZATION, {})
         zero = {C.ZERO_STAGE: int(zero)} if isinstance(zero, bool) else zero
-        stage = int(zero.get(C.ZERO_STAGE, C.ZERO_STAGE_DEFAULT))
-        if stage > 0:
-            not_ported(f"ZeRO stage {stage} over {world_size} ranks",
-                       "queue 1: runtime/zero/ multi-rank")
         off = zero.get("offload_optimizer") or ({"device": "cpu"} if zero.get("cpu_offload")
                                                 else {})
         if str(off.get("device", "none")).lower() not in ("none", "null"):
-            not_ported(f"ZeRO-Offload over {world_size} ranks",
-                       "queue 1: runtime/zero/ multi-rank")
+            not_ported(f"ZeRO-Offload over {world_size} ranks", "queue 1: ZeRO-Offload over dp")
     opt = (param_dict.get(C.OPTIMIZER) or {}).get(C.TYPE)
     if opt is not None and str(opt).lower() in _ONEBIT:
         not_ported(f"the 1-bit optimizer {opt}", "queue 1: runtime/fp16/onebit/")
@@ -216,6 +219,8 @@ class DeepSpeedConfig:
         self._initialize_params(self._param_dict)
         self._configure_train_batch_size()
         self._do_sanity_check()
+        from deepspeed_tpu_torch.runtime.zero.config import get_zero_config
+        self.zero_config = get_zero_config(self._param_dict)
 
     def _initialize_params(self, param_dict: Dict) -> None:
         self.train_batch_size = param_dict.get(C.TRAIN_BATCH_SIZE, C.TRAIN_BATCH_SIZE_DEFAULT)

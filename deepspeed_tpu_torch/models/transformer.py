@@ -195,6 +195,7 @@ def init_params(cfg: TransformerConfig, generator: Optional[torch.Generator] = N
     from ``generator`` on ``device``. The values differ from ``jax.random``'s;
     to hold the two packages to each other, convert one tree with
     ``checkpoint.from_jax.params_from_jax``."""
+    from deepspeed_tpu_torch.runtime.zero.partition_parameters import stream_unit
     std = cfg.init_std
     L, D, Fd = cfg.n_layer, cfg.d_model, cfg.ff_dim
     H, KV, Hd = cfg.n_head, cfg.kv_heads, cfg.head_dim
@@ -226,8 +227,10 @@ def init_params(cfg: TransformerConfig, generator: Optional[torch.Generator] = N
         else:
             mlp_p = {"w_up": dense((D, Fd)), "b_up": zeros(Fd),
                      "w_down": dense((Fd, D), out_std), "b_down": zeros(D)}
-        layers.append({"ln_attn": norm_params(), "attn": attn,
-                       "ln_mlp": norm_params(), "mlp": mlp_p})
+        # under zero.Init a rank keeps its block of each layer as it is made
+        layers.append(stream_unit(f"layers.{len(layers)}",
+                                  {"ln_attn": norm_params(), "attn": attn,
+                                   "ln_mlp": norm_params(), "mlp": mlp_p}))
     params["layers"] = layers
     params["ln_f"] = norm_params()
     if cfg.pos_embedding == "learned":
@@ -868,11 +871,21 @@ def run_layers(cfg: TransformerConfig, x, layer_params, positions, mask_bias,
     seeds = _seeds(rng if cfg.dropout else None, len(layers))
     policy = _remat(cfg.remat)
     for lp, seed in zip(layers, seeds):
+        # a ZeRO stage-3 layer is gathered inside the block, so a remat
+        # recompute gathers it again and only its block is saved
+        fn = _gathered_block if hasattr(lp, "gather") else block
         if policy is not None:
-            x = remat(policy, block, cfg, x, lp, positions, mask_bias, seed)
+            x = remat(policy, fn, cfg, x, lp, positions, mask_bias, seed)
         else:
-            x = block(cfg, x, lp, positions, mask_bias, seed)
+            x = fn(cfg, x, lp, positions, mask_bias, seed)
     return x
+
+
+def _gathered_block(cfg: TransformerConfig, x, unit, positions, mask_bias,
+                    seed: Optional[int] = None):
+    """:func:`block` over a ZeRO stage-3 layer unit
+    (``runtime/zero/partition_parameters.LayerUnit``), gathered here."""
+    return block(cfg, x, unit.gather(), positions, mask_bias, seed)
 
 
 def hidden_states(cfg: TransformerConfig, params, tokens, attn_mask=None,

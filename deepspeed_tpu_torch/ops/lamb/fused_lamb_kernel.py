@@ -226,22 +226,29 @@ GradSource = Union[Sequence[torch.Tensor], Callable[[int], torch.Tensor]]
 def lamb_group_step(ps: List[torch.Tensor], grads: GradSource, ms: List[torch.Tensor],
                     vs: List[torch.Tensor], *, step, lr: float, b1: float = 0.9,
                     b2: float = 0.999, eps: float = 1e-6, weight_decay: float = 0.0,
-                    bias_correction: bool = True, unorm=None) -> torch.Tensor:
+                    bias_correction: bool = True, unorm=None, reduce=None,
+                    device=None) -> torch.Tensor:
     """One LAMB step over the flat leaves ``ps`` of one JAX leaf, all in
     place (p, m, v); one trust ratio over the group, returned as a device
     scalar. ``grads``: the flat gradients, or a function of the leaf's
     index that returns it (so that only one is alive at a time).
-    ``unorm``: see :func:`lamb_ratio`."""
+    ``unorm``: see :func:`lamb_ratio`. ``reduce``: maps the moments' fp64
+    partial buffer to the one the ratio reads (ZeRO: the sums over the
+    ranks that hold parts of the JAX leaf, ``ps`` this rank's parts, maybe
+    none; ``device`` then names the device)."""
     bc1, bc2 = bias_corrections(step, b1, b2, bias_correction)
     kw = dict(bc1=bc1, bc2=bc2, eps=float(eps), weight_decay=float(weight_decay))
     grad = grads if callable(grads) else grads.__getitem__
     blocks = [lamb_blocks(p.numel()) for p in ps]
-    partials = torch.empty((sum(blocks), 2), dtype=torch.float64, device=ps[0].device)
+    partials = torch.empty((sum(blocks), 2), dtype=torch.float64,
+                           device=device if device is not None else ps[0].device)
     start = 0
     for i, (p, m, v) in enumerate(zip(ps, ms, vs)):
         lamb_moments(p, grad(i), m, v, partials[start:start + blocks[i]], b1=float(b1),
                      b2=float(b2), **kw)
         start += blocks[i]
+    if reduce is not None:
+        partials = reduce(partials)
     ratio = lamb_ratio(partials, unorm)
     for p, m, v in zip(ps, ms, vs):
         lamb_apply(p, m, v, ratio, lr=float(lr), **kw)

@@ -126,14 +126,52 @@ class _Scalar:
         self.put(np.asarray(a).item())
 
 
-def _nest(groups, named) -> Dict[str, Any]:
+class _ZeroLeaf:
+    """One JAX leaf of a ZeRO-partitioned engine's state
+    (``runtime/zero/state.py``): read by gathering each layer's unit (a
+    collective: every rank reads the leaves in the same order), written by
+    each rank into the part it holds. ``kind``: "params", "master", "acc" or
+    ``("opt", field)``."""
+
+    def __init__(self, zero, kind, names: List[str], stacked: bool, dtype, opt_state=None):
+        self.zero, self.kind, self.names, self.stacked = zero, kind, names, stacked
+        self.opt_state = opt_state
+        self.shape = ((len(names),) if stacked else ()) + zero.shape(names[0])
+        self.dtype = dtype
+
+    @property
+    def tensors(self) -> List[torch.Tensor]:
+        return [self.zero.leaf(self.kind, n, self.opt_state) for n in self.names]
+
+    def snapshot(self) -> torch.Tensor:
+        host = torch.empty(self.shape, dtype=self.dtype)
+        for i, n in enumerate(self.names):
+            (host[i] if self.stacked else host).copy_(self.zero.leaf(self.kind, n, self.opt_state))
+        return host
+
+    def restore(self, a) -> None:
+        src = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.asarray(a))
+        for i, n in enumerate(self.names):
+            self.zero.set_leaf(self.kind, n, src[i] if self.stacked else src, self.opt_state)
+
+
+def _nest(groups, named=None, make=None) -> Dict[str, Any]:
+    """The JAX tree of leaves over the engine's tensors ``named`` (or of the
+    leaves ``make(names, stacked)`` builds)."""
+    if make is None:
+        make = lambda names, stacked: _Leaf([named[n] for n in names], stacked)
     out: Dict[str, Any] = {}
     for path, names in groups.items():
         node = out
         for k in path[:-1]:
             node = node.setdefault(k, {})
-        node[path[-1]] = _Leaf([named[n] for n in names], path[0] == "layers")
+        node[path[-1]] = make(names, path[0] == "layers")
     return out
+
+
+def _zero_nest(engine, groups, kind, dtype, opt_state=None) -> Dict[str, Any]:
+    return _nest(groups, make=lambda names, stacked: _ZeroLeaf(engine._zero, kind, names, stacked,
+                                                               dtype, opt_state))
 
 
 _CLIENT_PATH = re.compile(r"^client\.state\[(\d+)\]\.(.+)$")
@@ -143,6 +181,10 @@ def _client_fields(engine):
     """A client optimizer's state tensors in its param order, keys sorted
     within a param: ``(label, leaf)``."""
     opt = engine.client_optimizer
+    zero = getattr(engine, "_zero", None)
+    if zero is not None and zero.world > 1:
+        not_ported("a client optimizer's state under ZeRO stages 1-3 over several ranks",
+                   "queue 1: client optimizer state under ZeRO")
     held = [p for g in opt.param_groups for p in g["params"]]
     out = []
     for i, (p, name) in enumerate(zip(held, engine._client_names)):
@@ -224,6 +266,7 @@ def _opt_fields(engine):
     prefix, fields = jax_state_layout(cfg.optimizer_name, cfg.optimizer_params)
     opt = engine.state.opt_state
     groups = jax_leaves(engine._names)
+    zero = getattr(engine, "_zero", None)
     out = []
     for field in fields:
         if field == "count":
@@ -235,9 +278,11 @@ def _opt_fields(engine):
         named = getattr(opt, field)
         moment = field if field in ("mu", "nu") else None
         for path, names in groups.items():
+            stacked = path[0] == "layers"
+            leaf = _ZeroLeaf(zero, ("opt", field), names, stacked, torch.float32, opt) \
+                if zero is not None else _Leaf([named[n] for n in names], stacked)
             out.append(({"moment": moment, "param": ".".join(path) if moment else "",
-                         "path": prefix + "." + field + keystr(path)},
-                        _Leaf([named[n] for n in names], path[0] == "layers")))
+                         "path": prefix + "." + field + keystr(path)}, leaf))
     return out
 
 
@@ -261,10 +306,19 @@ def _state_tree(engine, with_opt: bool = True) -> Dict[str, Any]:
         return _Scalar(lambda: getattr(state, field),
                        lambda v: setattr(state, field, int(v)), np.int32)
 
-    tree: Dict[str, Any] = {
-        "params": _nest(groups, engine._param_dict(state.params)),
+    zero = getattr(engine, "_zero", None)
+    if zero is not None:
+        # the partitioned state's full leaves, gathered as they are read
+        zero.clear_cache()
+        params = _zero_nest(engine, groups, "params", engine.compute_dtype)
+        acc = _zero_nest(engine, groups, "acc", zero.grad_acc_dtype)
+    else:
+        params = _nest(groups, engine._param_dict(state.params))
         # the gas-1 path keeps no buffers: an empty container vanishes
-        "acc_grads": _nest(groups, state.acc_grads) if state.acc_grads is not None else {},
+        acc = _nest(groups, state.acc_grads) if state.acc_grads is not None else {}
+    tree: Dict[str, Any] = {
+        "params": params,
+        "acc_grads": acc,
         "scaler": {
             "loss_scale": scaler("loss_scale", np.float32, float),
             "good_steps": scaler("good_steps", np.int32, int),
@@ -273,7 +327,8 @@ def _state_tree(engine, with_opt: bool = True) -> Dict[str, Any]:
         "counters": {f: counter(f) for f in ("micro_steps", "global_steps", "skipped_steps")},
     }
     if state.master is not None:
-        tree["master"] = _nest(groups, state.master)
+        tree["master"] = _zero_nest(engine, groups, "master", torch.float32) \
+            if zero is not None else _nest(groups, state.master)
     if with_opt:
         tree["opt_state_flat"] = {f"leaf_{i}": leaf
                                   for i, (_, leaf) in enumerate(_opt_fields(engine))}
@@ -383,13 +438,16 @@ def _read_offload(path: str) -> Optional[Dict[str, Any]]:
     return sd
 
 
-def _snapshot_arrays(engine) -> Dict[str, Any]:
+def _snapshot_arrays(engine, keep: bool = True) -> Dict[str, Any]:
     """Phase 1 of a save: every leaf of the state tree copied to the host
     (bf16 leaves stay torch tensors, the rest become numpy), plus the RNG
-    arrays."""
+    arrays. ``keep=False``: a ZeRO rank that does not write reads every
+    leaf for the gathers and keeps nothing."""
     arrays: Dict[str, Any] = {}
     for k, leaf in _flatten_tree(_state_tree(engine)).items():
         a = leaf.snapshot()
+        if not keep:
+            continue
         arrays[k] = a.numpy() if isinstance(a, torch.Tensor) and \
             a.dtype not in safe_engine._RAW_BITS else a
     arrays[RNG_KEY] = np.asarray([0, engine._rng_seed % 2**32], np.uint32)
@@ -399,7 +457,12 @@ def _snapshot_arrays(engine) -> Dict[str, Any]:
 
 def save_engine_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
                            client_state=None, save_latest: bool = True,
-                           asynchronous: Optional[bool] = None) -> bool:
+                           asynchronous: Optional[bool] = None, write: bool = True) -> bool:
+    """Save a tag. ``write=False``: a ZeRO rank other than the writer takes
+    part in the snapshot's gathers and writes nothing."""
+    if not write:
+        _snapshot_arrays(engine, keep=False)
+        return True
     if tag is None:
         tag = f"global_step{engine.global_steps}"
     tag = str(tag)
@@ -540,6 +603,8 @@ def _apply_prepared(engine, prepared, load_optimizer_states: bool,
         if k.startswith("opt_state_flat.") and not load_optimizer_states:
             continue
         leaf.restore(restored[k])
+    if getattr(engine, "_zero", None) is not None:
+        engine._zero.clear_cache()
 
     meta = prepared["meta"]
     if prepared["offload_sd"] is not None and not load_module_only:

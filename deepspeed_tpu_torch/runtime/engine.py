@@ -49,7 +49,9 @@ master's ``.grad`` to its clipped fp32 gradient (so all of them are alive at
 once), calls ``step()`` and never applies its own lr. It sees the port's
 per-layer leaves, so an optimizer with per-tensor statistics (a LAMB-like
 trust ratio) computes them per layer where the JAX engine's spans the
-stacked leaf; elementwise optimizers and global norms match.
+stacked leaf; elementwise optimizers and global norms match. Under ZeRO
+stages 1-3 a callable is called over the rank's segments of the leaves,
+so such a statistic spans a segment.
 
 With ``telemetry`` on, ``train_batch`` records the JAX engine's series in
 the metrics registry (``train/step_time_ms``, ``tokens_per_sec``,
@@ -90,22 +92,41 @@ layout.
 
 The engine starts the world as the JAX engine does: ``comm.init_distributed``
 (a process group when the launcher's variables are set: nccl on the card,
-gloo for ``device="cpu"``) and the config's ``mesh`` over its ranks. With a
-process group it trains data-parallel at ZeRO stage 0 (at world 1 too):
+gloo for ``device="cpu"``) and the config's ``mesh`` over its ranks, and
+logs the ZeRO rules' ``describe()``. With a process group it trains
+data-parallel over the ``dp`` and ``fsdp`` axes (at world 1 too):
 ``train_batch`` takes the global batch, ``gas * micro * dp`` rows, and
 each rank its block (the rows the JAX engine's sharding of the batch dim
 gives its device; the engine's dataloader yields global micro-batches of
-``micro * dp``); the accumulation buffers are views of one flat buffer,
-which one all-reduce averages over ``dp`` before the update, so the clip
-norm and the fp16 overflow check (its flag MAX-reduced besides) read the
-averaged grads; the reported loss is the dp mean; ``save_checkpoint``
-writes from rank 0 and then meets the other ranks at a barrier. The
-``forward`` / ``backward`` / ``step`` trio and ``eval_batch`` take each
+``micro * dp``); the reported loss is the dp mean. The accumulation
+buffers are views of one flat buffer laid out in the flat units of
+``runtime/zero/partition.py`` (``runtime/zero/state.flat_buffer``): at
+stages 0 and 1 it is whole and one all-reduce averages it before the
+update, so the clip norm and the fp16 overflow check (its flag
+MAX-reduced besides) read the averaged grads. At stages 1-3 the
+state is partitioned over the data-parallel ranks in flat units
+(``runtime/zero/state.py``; ``runtime/zero/partition.py`` says which rank
+holds what): each rank keeps the fp32 masters and the optimizer state of
+its block of every unit and updates only those (the clip norm from the
+group's summed partial squares, LAMB's partials summed over the group
+before each trust ratio, the sentinels' sums reduced once), then one
+all-gather a unit refreshes the compute params; from stage 2 the buffer
+holds the rank's blocks only, and each micro-step's gradients are
+reduce-scattered into it in its dtype; stage 3
+also partitions the compute params (``PartitionedParams``: each unit
+gathered on use by the model and its gradient reduce-scattered by the
+gather's backward; built under ``zero.Init`` when no params are given). A
+world of one rank partitions into whole units and gives stage 0's bits.
+``save_checkpoint`` writes from rank 0 (under ZeRO every rank takes part in
+gathering the same full files) and meets the other ranks at a barrier,
+as ``save_16bit_model`` does;
+``load_checkpoint`` re-partitions a tag for the loading world and stage.
+The ``forward`` / ``backward`` / ``step`` trio and ``eval_batch`` take each
 rank's own micro-batch, as torch's DDP does; ``step`` averages at the
 boundary as ``train_batch`` does.
 
-Settings outside the port's slices (the 1-bit optimizers, pipeline, ZeRO
-stages 1-3 over several ranks, ...) raise ``NotImplementedError`` naming
+Settings outside the port's slices (the 1-bit optimizers, pipeline,
+ZeRO-Offload over several ranks, ...) raise ``NotImplementedError`` naming
 their ROADMAP.md item.
 """
 
@@ -114,6 +135,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import inspect
+import math
 import os
 import time
 from typing import Any, Callable, Dict, Optional
@@ -136,6 +158,12 @@ from deepspeed_tpu_torch.runtime.optimizers import build_optimizer, optimizer_mo
 from deepspeed_tpu_torch.runtime.quantize import quantizer_from_config
 from deepspeed_tpu_torch.runtime.utils import (clip_grad_norm_, global_norm, jax_leaves,
                                                norm_of_norms)
+from deepspeed_tpu_torch.runtime.zero.partition import ZeroShardingRules, build_units
+from deepspeed_tpu_torch.runtime.zero.partition_parameters import (Init, PartitionedParams,
+                                                                   gather_window, unit_leaves,
+                                                                   zero_group)
+from deepspeed_tpu_torch.runtime.zero.state import ZeroState, flat_buffer
+from deepspeed_tpu_torch.utils.not_ported import not_ported
 from deepspeed_tpu_torch.utils.logging import log_dist, logger
 from deepspeed_tpu_torch.utils.timer import (NoopTimer, SynchronizedWallClockTimer,
                                              ThroughputTimer)
@@ -147,11 +175,6 @@ _DTYPES = {None: torch.float32, "fp32": torch.float32, "fp16": torch.float16,
 def _world_size() -> int:
     import torch.distributed as tdist
     return tdist.get_world_size() if dist.has_process_group() else 1
-
-
-# each leaf's view of the flat gradient buffer starts on a multiple of this
-# many elements (256 bytes in fp32), so the kernels' vector loads stay aligned
-_FLAT_ALIGN = 64
 
 
 @dataclasses.dataclass
@@ -204,6 +227,7 @@ class _Sentinels:
         self.lr = 0.0
         self.grad_norms, self.nf_grads = [], []
         self.param_norms, self.nf_params, self.update_norms = [], [], []
+        self.updated_names = []
 
     def grad_leaf(self, g: torch.Tensor) -> torch.Tensor:
         nrm = torch.linalg.vector_norm(g, dtype=torch.float32)
@@ -211,13 +235,51 @@ class _Sentinels:
         self.nf_grads.append(g.numel() - torch.isfinite(g).sum())
         return nrm
 
-    def updated(self, new: torch.Tensor, delta: Optional[torch.Tensor] = None) -> None:
+    def updated(self, new: torch.Tensor, delta: Optional[torch.Tensor] = None,
+                name: Optional[str] = None) -> None:
         """Account one leaf after the update; ``delta`` is a client
-        optimizer's ``new - old``."""
+        optimizer's ``new - old``; ``name`` the leaf's (for :meth:`reduce`)."""
+        self.updated_names.append(name)
         self.param_norms.append(torch.linalg.vector_norm(new, dtype=torch.float32))
         self.nf_params.append(new.numel() - torch.isfinite(new).sum())
         if delta is not None:
             self.update_norms.append(torch.linalg.vector_norm(delta, dtype=torch.float32))
+
+    def reduce(self, all_names, local_names, group) -> None:
+        """Under ZeRO over several ranks: the per-leaf lists, kept for this
+        rank's segments (``local_names``), become every leaf's (``all_names``,
+        the bucket assignment's order) through one all-reduce of their
+        squares and counts; a leaf-wise optimizer's ``Σu²`` rows are summed
+        with them (LAMB's ``ratio * ||u||`` is the group's already)."""
+        L = len(all_names)
+        dev = self.upd.device if self.upd is not None else \
+            (self.param_norms[0].device if self.param_norms else torch.device("cpu"))
+        pos = {n: i for i, n in enumerate(all_names)}
+
+        def index(order):
+            return torch.tensor([pos[n] for n in order], dtype=torch.long, device=dev)
+        cols = [(self.grad_norms, local_names), (self.nf_grads, local_names),
+                (self.param_norms, self.updated_names), (self.nf_params, self.updated_names),
+                (self.update_norms, self.updated_names)]
+        squared = (True, False, True, False, True)
+        v = torch.zeros(5, L, dtype=torch.float32, device=dev)
+        for row, ((xs, order), sq) in enumerate(zip(cols, squared)):
+            if xs:
+                x = torch.stack([t.float().to(dev) for t in xs])
+                v[row].index_copy_(0, index(order), x * x if sq else x)
+        flat = v.reshape(-1)
+        if self.upd is not None and not self.upd_is_norm:
+            flat = torch.cat([flat, self.upd.reshape(-1)])
+        flat = dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+        v = flat[:5 * L].reshape(5, L)
+        if self.upd is not None and not self.upd_is_norm:
+            self.upd.copy_(flat[5 * L:].reshape(self.upd.shape))
+        self.grad_norms = list(torch.sqrt(v[0]))
+        self.nf_grads = list(v[1])
+        self.param_norms = list(torch.sqrt(v[2]))
+        self.nf_params = list(v[3])
+        if self.update_norms:
+            self.update_norms = list(torch.sqrt(v[4]))
 
     def vector(self, grad_norm) -> torch.Tensor:
         from deepspeed_tpu_torch.monitor.health import bucket_norms, compute_sentinels
@@ -240,7 +302,7 @@ class DeepSpeedEngine:
 
     def __init__(self, model, config: Optional[Any] = None, model_parameters=None,
                  optimizer=None, lr_scheduler=None, training_data=None, collate_fn=None,
-                 device=None):
+                 device=None, mpu=None):
         if optimizer is not None and not (isinstance(optimizer, torch.optim.Optimizer)
                                           or callable(optimizer)):
             raise TypeError("optimizer must be a torch.optim.Optimizer over model_parameters "
@@ -257,11 +319,16 @@ class DeepSpeedEngine:
                               verbose=False)
         dp_world = (dist.get_world_size(dist.data_parallel_axes(dist.get_mesh())) if dist.has_mesh()
                     else _world_size())
+        if mpu is not None:
+            # the reference contract (JAX config/core.py:141-145): the data
+            # parallel world is the mpu's
+            dp_world = self._mpu_world(mpu, dp_world)
         self._config = DeepSpeedConfig(config if config is not None else {}, world_size=dp_world,
                                        client_optimizer=optimizer is not None)
         dist.configure(self._config)
         self.mesh = dist.get_mesh() if dist.has_mesh() else dist.init_mesh(self._config.mesh_axes)
         self._init_data_parallel()
+        self._init_zero(model, optimizer, mpu)
         # a JSON-level "fused_cross_entropy" beats the model config's default
         fce = self._config.fused_cross_entropy
         mcfg = getattr(model, "config", None)
@@ -370,9 +437,13 @@ class DeepSpeedEngine:
         if model_parameters is None:
             if not hasattr(model, "init_params"):
                 raise ValueError("model_parameters is required (or model must expose init_params)")
-            # seeded random init on the device (the JAX engine's key(0))
+            # seeded random init on the device (the JAX engine's key(0));
+            # partitioned at stage 3, as the JAX engine builds under zero.Init
             gen = torch.Generator(device=self.device).manual_seed(0)
-            model_parameters = model.init_params(gen, device=self.device)
+            with (Init(mesh=self.mesh, config=self._config.zero_config)
+                  if self._zero_mode and self.zero_optimization_stage() >= 3
+                  else contextlib.nullcontext()):
+                model_parameters = model.init_params(gen, device=self.device)
         self.state = self._init_state(model_parameters)
         # dropout stream, seeded from DS_SEED as the JAX engine's key is
         self._rng_seed = int(os.environ.get("DS_SEED", 42))
@@ -406,6 +477,51 @@ class DeepSpeedEngine:
         self.dp_rank = rank
         self._dp = self._dp_axes if dist.has_process_group() else None
         self._flat_grads = None
+
+    @staticmethod
+    def _mpu_world(mpu, dp_world: int) -> int:
+        """The data-parallel world an ``mpu`` names (reference contract;
+        JAX ``config/core.py:141-145``), which must be this process's
+        group; a model-parallel world above 1 is not ported."""
+        mp = int(getattr(mpu, "get_model_parallel_world_size", lambda: 1)())
+        if mp > 1:
+            not_ported(f"model parallelism over {mp} ranks (mpu)",
+                       "queue 1: tensor-parallel training")
+        world = int(mpu.get_data_parallel_world_size())
+        if world != dp_world:
+            raise ValueError(f"mpu.get_data_parallel_world_size() is {world}, but this "
+                             f"process's data-parallel group has {dp_world} ranks")
+        return world
+
+    def _init_zero(self, model, optimizer, mpu) -> None:
+        """The ZeRO rules over the mesh, logged as the JAX engine logs them.
+        With a process group at stage >= 1 (and no ZeRO-Offload) the state
+        is partitioned over the data-parallel axes (``_zero_mode``;
+        ``runtime/zero/state.py``); without one every stage replicates, as
+        the JAX rules do over a mesh of one device. Refuses what the
+        partitioned engine does not port."""
+        self.mpu = mpu
+        self.zero_rules = ZeroShardingRules(self.mesh, self._config.zero_config)
+        log_dist(self.zero_rules.describe(), ranks=[0])
+        stage = self.zero_rules.stage
+        self._zero = None
+        self._zero_mode = (self._dp is not None and stage >= 1
+                           and self._config.offload_optimizer_device not in ("cpu", "nvme"))
+        if not self._zero_mode:
+            return
+        self._zero_group = zero_group(self.mesh, self.zero_rules)
+        if set(self._zero_group) != set(self._dp_axes):
+            not_ported(f"ZeRO partitioning over {self._zero_group} where the batch splits over "
+                       f"{tuple(self._dp_axes)}", "queue 1: hybrid ZeRO partitioning")
+        if stage >= 3 and (self._config.quantize_training_enabled
+                           or isinstance(model, CompressedModel)):
+            not_ported("MoQ, compression and the eigenvalue schedule under ZeRO stage 3",
+                       "queue 1: MoQ and compression under ZeRO-3")
+        if isinstance(optimizer, torch.optim.Optimizer) and \
+                dist.get_world_size(self._zero_group) > 1:
+            not_ported("a client optimizer built over model_parameters under ZeRO stages 1-3 "
+                       "over several ranks (pass a callable)",
+                       "queue 1: client optimizer state under ZeRO")
 
     def _rank_block(self, x, lead: int):
         """This rank's block of a global batch leaf ``[gas * micro * dp,
@@ -575,16 +691,22 @@ class DeepSpeedEngine:
             return None, False
         if self.tx.group_update is not None:
             return torch.zeros(len(self._groups), 1, device=self.device), True
-        named = self._param_dict(self.state.params)
-        slots = max(self.tx.sq_slots(p.numel()) for p in named.values())
+        # under ZeRO sized by the whole leaves, so every rank's buffer (which
+        # the sentinels' reduction sums) has one shape
+        sizes = [math.prod(self._zero.shape(n)) for n in self._names] \
+            if self._zero is not None else \
+            [p.numel() for p in self._param_dict(self.state.params).values()]
+        slots = max(self.tx.sq_slots(n) for n in sizes)
         return torch.zeros(len(self._names), slots, device=self.device), False
 
     # ------------------------------------------------------------------ #
     # state
 
     def _init_state(self, model_parameters) -> TrainState:
-        tree = model_parameters.to_dict() if isinstance(model_parameters, ParamTree) \
-            else model_parameters
+        if self._zero_mode:
+            return self._init_zero_state(model_parameters)
+        tree = model_parameters.to_dict() \
+            if isinstance(model_parameters, (ParamTree, PartitionedParams)) else model_parameters
         dev = self.device
         params = ParamTree(map_tree(
             lambda a: torch.as_tensor(a).detach().to(dev, self.compute_dtype, copy=True), tree),
@@ -605,22 +727,63 @@ class DeepSpeedEngine:
             self.client_optimizer = self._bind_client_optimizer(self.client_optimizer, target)
         elif self._offload is None:
             opt_state = self.tx.init(target)
-        if self.fp16_enabled() and self._config.fp16_config.dynamic_loss_scale:
-            args = self._config.dynamic_loss_scale_args
-            scaler = make_loss_scale_state(init_scale=args["init_scale"],
-                                           scale_window=args["scale_window"],
-                                           min_scale=args["min_scale"],
-                                           delayed_shift=args["delayed_shift"])
-        elif self.fp16_enabled():
-            scaler = make_loss_scale_state(init_scale=self._config.loss_scale or 1.0, dynamic=False)
-        else:
-            scaler = make_loss_scale_state(init_scale=1.0, dynamic=False)
         state = TrainState(params=params, master=master, opt_state=opt_state, acc_grads=None,
-                           scaler=scaler)
+                           scaler=self._make_scaler())
         self.state = state
         if self._uses_acc_grad_buffers():
             self._ensure_acc_grads()
         return state
+
+    def _make_scaler(self) -> LossScaleState:
+        if self.fp16_enabled() and self._config.fp16_config.dynamic_loss_scale:
+            args = self._config.dynamic_loss_scale_args
+            return make_loss_scale_state(init_scale=args["init_scale"],
+                                         scale_window=args["scale_window"],
+                                         min_scale=args["min_scale"],
+                                         delayed_shift=args["delayed_shift"])
+        if self.fp16_enabled():
+            return make_loss_scale_state(init_scale=self._config.loss_scale or 1.0, dynamic=False)
+        return make_loss_scale_state(init_scale=1.0, dynamic=False)
+
+    def _init_zero_state(self, model_parameters) -> TrainState:
+        """The partitioned state (``runtime/zero/state.py``) from a full
+        tree or a ``PartitionedParams`` (``zero.Init``): this rank's masters
+        and optimizer state (the optimizer built over its segments), its
+        part of the accumulation buffer, the compute params of the stage."""
+        group = self._zero_group
+        world, rank = dist.get_world_size(group), dist.group_rank(group)
+        if isinstance(model_parameters, PartitionedParams):
+            given = model_parameters
+            named_shapes = [(n, s) for u in given.units for n, s in zip(u.names, u.shapes)]
+        else:
+            tree = model_parameters.to_dict() if isinstance(model_parameters, ParamTree) \
+                else model_parameters
+            given = {n: p.detach() for n, p in ParamTree(tree).named_parameters()}
+            named_shapes = [(n, tuple(t.shape)) for n, t in given.items()]
+        self._names = [n for n, _ in named_shapes]
+        self._groups = list(jax_leaves(self._names).values())
+        self._name_index = {n: i for i, n in enumerate(self._names)}
+        zero = ZeroState(self.zero_rules, build_units(named_shapes, world), self._names, group,
+                         rank, world, self.device, self.compute_dtype, self.grad_acc_dtype,
+                         self.mixed_precision)
+        zero.build(given)
+        del given
+        self._zero = zero
+        opt_state = None
+        if self.client_optimizer is not None:
+            self.client_optimizer = self._bind_client_optimizer(self.client_optimizer,
+                                                                zero.targets)
+        else:
+            opt_state = self.tx.init(zero.targets)
+        self.state = TrainState(params=zero.params,
+                                master=zero.targets if self.mixed_precision else None,
+                                opt_state=opt_state, acc_grads=None,
+                                scaler=self._make_scaler())
+        self._ensure_acc_grads()
+        log_dist(f"ZeRO stage {zero.stage} over {group} ({world} ranks): "
+                 f"{len(zero.units)} units, this rank holds {zero.held_bytes(opt_state)} bytes",
+                 ranks=[0])
+        return self.state
 
     @staticmethod
     def _param_dict(params: ParamTree) -> Dict[str, torch.Tensor]:
@@ -686,7 +849,7 @@ class DeepSpeedEngine:
                 g["params"] = new
                 k += len(new)
         else:
-            given = [n for names in self._groups for n in names]
+            given = [n for names in self._groups for n in names if n in targets]
             optimizer = optimizer([targets[n] for n in given])
             if not isinstance(optimizer, torch.optim.Optimizer):
                 raise TypeError(f"the optimizer callable returned {type(optimizer).__name__}, "
@@ -707,28 +870,38 @@ class DeepSpeedEngine:
 
     def _ensure_acc_grads(self) -> None:
         """Allocate the accumulation buffers (gas > 1, or the trio). With a
-        data-parallel group they are views of one flat buffer, which the
-        boundary averages with one all-reduce."""
+        data-parallel group they are views of one flat buffer laid out in
+        the flat units of ``runtime/zero/partition.py``: whole at stages 0-1,
+        averaged by one all-reduce at the boundary (stage 1 updates its
+        block of each unit); the rank's blocks at stages 2-3, which each
+        micro-step's gradients are reduce-scattered into."""
         if self.state.acc_grads is not None:
             return
-        named = list(self.state.params.named_parameters())
+        zero = self._zero
+        named = list(self.state.params.named_parameters()) if zero is None else None
         if self._dp is None:
             self.state.acc_grads = {
                 n: torch.zeros(p.shape, dtype=self.grad_acc_dtype, device=p.device)
                 for n, p in named}
             return
-        offsets, total = [], 0
-        for _, p in named:
-            offsets.append(total)
-            total += -(-p.numel() // _FLAT_ALIGN) * _FLAT_ALIGN
-        self._flat_grads = torch.zeros(total, dtype=self.grad_acc_dtype, device=self.device)
-        self.state.acc_grads = {
-            n: self._flat_grads[o:o + p.numel()].view(p.shape)
-            for (n, p), o in zip(named, offsets)}
+        units = zero.units if zero is not None else \
+            build_units([(n, tuple(p.shape)) for n, p in named], 1)
+        blocks = zero is not None and zero.stage >= 2
+        self._flat_grads, views = flat_buffer(units, self.grad_acc_dtype, self.device,
+                                              zero.rank if blocks else None)
+        if zero is not None:
+            zero.bind_acc(self._flat_grads, views)
+        self.state.acc_grads = zero.grads if blocks else {
+            n: v for u, flat in zip(units, views) for n, v in zip(u.names, unit_leaves(u, flat))}
 
     def _average_grads(self) -> None:
         """The data-parallel mean of the accumulated gradients: one
-        all-reduce (AVG) of the flat buffer in place."""
+        all-reduce (AVG) of the flat buffer in place; at stages 2-3 the
+        reduce-scattered sums divided by the group's size."""
+        if self._zero is not None and self._zero.stage >= 2:
+            if self._zero.world > 1:
+                self._flat_grads.div_(self._zero.world)
+            return
         dist.all_reduce_in_place(self._flat_grads, op=dist.ReduceOp.AVG, group=self._dp)
 
     def load_train_state(self, params=None, master=None, opt_state=None,
@@ -741,6 +914,11 @@ class DeepSpeedEngine:
         tensors; what is not given stays. Under ZeRO-Offload the host
         masters take ``master`` (else ``params``); the host optimizer's
         state loads through a checkpoint's ``offload_state_p0.npz``."""
+        if self._zero is not None:
+            self._zero_load_train_state(params, master, opt_state)
+            if global_steps is not None:
+                self.state.global_steps = int(global_steps)
+            return
         named = self._param_dict(self.state.params)
         if self._offload is not None:
             if opt_state is not None:
@@ -789,6 +967,63 @@ class DeepSpeedEngine:
         if global_steps is not None:
             self.state.global_steps = int(global_steps)
 
+    def _zero_load_train_state(self, params, master, opt_state) -> None:
+        """:meth:`load_train_state` under ZeRO: each rank writes its part of
+        every given leaf (no collective)."""
+        z = self._zero
+        if params is not None:
+            tree = params.to_dict() if isinstance(params, ParamTree) else params
+            self._zero_load_params(dict(ParamTree(tree).named_parameters()),
+                                   masters=master is None)
+        if master is not None:
+            for n in self._names:
+                z.set_leaf("master", n, master[n])
+                z.set_leaf("params", n, torch.as_tensor(master[n]).to(self.compute_dtype))
+        if opt_state is not None:
+            if self.client_optimizer is not None:
+                raise TypeError("a client optimizer's state loads through its own "
+                                "load_state_dict")
+            mine = self.state.opt_state
+            if type(opt_state) is not type(mine):
+                raise TypeError(f"{type(opt_state).__name__} given, the engine's "
+                                f"{self._optimizer_name} keeps a {type(mine).__name__}")
+            for field in mine.FIELDS:
+                for n in self._names:
+                    z.set_leaf(("opt", field), n, getattr(opt_state, field)[n], opt_state=mine)
+            mine.count = int(opt_state.count)
+
+    def _zero_load_params(self, src: Dict[str, torch.Tensor], masters: bool = True) -> None:
+        """The leaves of ``src`` (by name) into the compute params and, with
+        ``masters``, the fp32 masters, under ZeRO."""
+        for n in self._names:
+            if n in src:
+                self._zero.set_leaf("params", n, src[n].detach())
+                if masters and self.mixed_precision:
+                    self._zero.set_leaf("master", n, src[n].detach().float())
+
+    def zero_held_bytes(self) -> Dict[str, int]:
+        """Bytes of state this rank holds outside a gather window, by kind
+        (``params``, ``master``, ``optimizer``, ``grads``): under ZeRO its
+        partition's; else the whole state's."""
+        if self._zero is not None:
+            return self._zero.held_bytes(self.state.opt_state)
+        nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)
+        st = self.state
+        opt = sum(nbytes(getattr(st.opt_state, f).values())
+                  for f in getattr(st.opt_state, "FIELDS", ()))
+        return {"params": nbytes(st.params.parameters()),
+                "master": nbytes(st.master.values()) if st.master is not None else 0,
+                "optimizer": opt,
+                "grads": nbytes(st.acc_grads.values()) if st.acc_grads is not None else 0}
+
+    def gathered_params(self) -> ParamTree:
+        """The compute params whole (gathered under ZeRO stage 3: a
+        collective on every rank)."""
+        params = self.state.params
+        if isinstance(params, PartitionedParams):
+            return ParamTree(params.to_dict())
+        return params
+
     # ------------------------------------------------------------------ #
     # the step's parts
 
@@ -802,13 +1037,18 @@ class DeepSpeedEngine:
     def _micro_grads(self, batch) -> torch.Tensor:
         """Loss of one micro-batch; the loss-scaled grads land in the
         params' ``.grad`` (compute dtype)."""
-        out = self.loss_fn(self.state.params, batch, self._rng)
+        with gather_window(self.state.params):
+            out = self.loss_fn(self.state.params, batch, self._rng)
         loss = out[0] if isinstance(out, tuple) else out
         (loss.float() * self.state.scaler.loss_scale).backward()
         return loss.detach()
 
     def _accumulate(self) -> None:
-        """Add each leaf's ``.grad`` to its buffer and release it."""
+        """Add each leaf's ``.grad`` to its buffer and release it (at ZeRO
+        stages 2-3, ``ZeroState.accumulate``: reduced into the partition)."""
+        if self._zero is not None and self._zero.stage >= 2:
+            self._zero.accumulate()
+            return
         acc = self.state.acc_grads
         for n, p in self.state.params.named_parameters():
             g = p.grad
@@ -825,20 +1065,32 @@ class DeepSpeedEngine:
         refresh the compute params from the masters in place. ``grads``:
         the gas == 1 micro-step grads; default the accumulation buffers,
         which are zeroed afterwards. With health sentinels on, the sentinel
-        vector is gathered on the way (:class:`_Sentinels`)."""
+        vector is gathered on the way (:class:`_Sentinels`).
+
+        Under ZeRO (``self._zero``) only this rank's segments are unscaled
+        and updated: the norm is the square root of the group's summed
+        partial squares, the overflow flag the group's MAX, each LAMB
+        group's ``Σp²`` and ``Σu²`` partials are summed over the group
+        before its trust ratio, the sentinels' per-leaf sums reduced once;
+        then one all-gather a unit refreshes the compute params. Over a
+        group of one rank no collective changes a bit, so the step equals
+        stage 0's."""
         st = self.state
+        zero = self._zero
+        many = zero is not None and zero.world > 1
         from_buffers = grads is None
         if from_buffers and self._dp is not None:
             self._average_grads()
         denom = st.scaler.loss_scale * gas
         if from_buffers:
             # fp32 buffers are unscaled in place (they are zeroed after)
+            src = zero.grads if zero is not None else st.acc_grads
             grads = {n: (g.div_(denom) if g.dtype == torch.float32 else g.float() / denom)
-                     for n, g in st.acc_grads.items()}
+                     for n, g in src.items()}
             unscaled = grads.__getitem__
         else:
             unscaled = lambda n: grads[n].float() / denom
-        names = self._names
+        names = zero.names if zero is not None else self._names
         overflow = bool(has_overflow(unscaled(n) for n in names)) if self.fp16_enabled() \
             else False
         if self._dp is not None and self.fp16_enabled():
@@ -855,11 +1107,18 @@ class DeepSpeedEngine:
             norm = norm_of_norms([sen.grad_leaf(unscaled(n)) for n in names])
         elif clip > 0.0 or self._telemetry is not None:
             norm = global_norm(unscaled(n) for n in names)
+        if many and norm is not None:
+            sq = torch.square(norm.to(self.device, torch.float32)).reshape(1)
+            norm = torch.sqrt(dist.all_reduce(sq, op=dist.ReduceOp.SUM,
+                                              group=zero.group)[0])
         self._global_grad_norm = norm
         lr = float(self._lr_fn(st.global_steps))
         self._last_lr = lr
-        params = self._param_dict(st.params)
-        targets = st.master if st.master is not None else params
+        params = self._param_dict(st.params) if zero is None else None
+        targets = zero.targets if zero is not None else \
+            (st.master if st.master is not None else params)
+        refresh = st.master is not None and zero is None
+        row = (lambda i, n: self._name_index[n]) if zero is not None else (lambda i, n: i)
         if not overflow:
             def clipped(n):
                 g = unscaled(n)
@@ -876,43 +1135,57 @@ class DeepSpeedEngine:
                     # refreshed after the group's apply pass
                     for gi, group in enumerate(self._groups):
                         unorm = sen.upd[gi] if sen is not None else None
+                        if zero is not None:
+                            group = [n for n in group if n in targets]
                         self.tx.group_update(st.opt_state, group, clipped, targets, lr,
-                                             unorm=unorm)
+                                             unorm=unorm,
+                                             reduce=self._zero_reduce_partials if many else None,
+                                             device=self.device)
                         for n in group:
                             if sen is not None:
-                                sen.updated(targets[n])
-                            if st.master is not None:
+                                sen.updated(targets[n], name=n)
+                            if refresh:
                                 params[n].copy_(targets[n])
                 else:
                     st.opt_state.count += 1
                     for i, n in enumerate(names):
-                        sq = (sen.upd[i, :self.tx.sq_slots(targets[n].numel())]
+                        sq = (sen.upd[row(i, n), :self.tx.sq_slots(targets[n].numel())]
                               if sen is not None else None)
                         self.tx.leaf_update(st.opt_state, n, clipped(n), targets[n], lr, sq=sq)
                         if sen is not None:
-                            sen.updated(targets[n])
-                        if st.master is not None:
+                            sen.updated(targets[n], name=n)
+                        if refresh:
                             params[n].copy_(targets[n])
+                if zero is not None:
+                    zero.refresh_params()
                 if sen is not None:
                     sen.lr = lr
         elif sen is not None:
             for n in names:     # an fp16 skip: params read as they stand, update norm 0
-                sen.updated(targets[n])
+                sen.updated(targets[n], name=n)
         if sen is not None:
+            if many:
+                sen.reduce(self._names, names, zero.group)
             self._sentinels = sen.vector(norm)
         st.scaler = scaler_update(st.scaler, overflow)
         if from_buffers:
-            for g in st.acc_grads.values():
-                g.zero_()
+            self._zero_acc_grads()
         st.global_steps += 1
         st.skipped_steps += int(overflow)
+
+    def _zero_reduce_partials(self, partials: torch.Tensor) -> torch.Tensor:
+        """A LAMB group's ``[k, 2]`` fp64 partials (``Σp²``, ``Σu²``) of this
+        rank's segments -> the group's sums over every rank, ``[1, 2]``."""
+        return dist.all_reduce(partials.sum(0, keepdim=True), op=dist.ReduceOp.SUM,
+                               group=self._zero.group)
 
     def _client_step(self, clipped, targets, params, sen) -> None:
         """The client optimizer's update: every target's ``.grad`` set to its
         clipped fp32 gradient (all alive together), one ``step()``, the
-        grads cleared, the compute params refreshed. With sentinels on, a
-        full copy of the targets is kept across the step for the update
-        norm: a torch optimizer exposes no update vector."""
+        grads cleared, the compute params refreshed (under ZeRO by the
+        caller). With sentinels on, a full copy of the targets is kept
+        across the step for the update norm: a torch optimizer exposes no
+        update vector."""
         order = self._client_names
         for n in order:
             targets[n].grad = clipped(n)
@@ -921,9 +1194,9 @@ class DeepSpeedEngine:
         for i, n in enumerate(order):
             targets[n].grad = None
             if sen is not None:
-                sen.updated(targets[n], old[i].sub_(targets[n]))
+                sen.updated(targets[n], old[i].sub_(targets[n]), name=n)
                 old[i] = None
-            if self.state.master is not None:
+            if self.state.master is not None and self._zero is None:
                 params[n].copy_(targets[n])
 
     def _host_step(self, gas: int) -> None:
@@ -1155,7 +1428,8 @@ class DeepSpeedEngine:
         """Loss of one micro-batch, with its graph kept for ``backward``."""
         self.timers(SynchronizedWallClockTimer.FORWARD_GLOBAL_TIMER).start()
         t0 = time.perf_counter()
-        out = self.loss_fn(self.state.params, self._batch_to_device(batch), self._rng)
+        with gather_window(self.state.params):
+            out = self.loss_fn(self.state.params, self._batch_to_device(batch), self._rng)
         loss = out[0] if isinstance(out, tuple) else out
         self._tel_phase("fwd", t0)
         self.timers(SynchronizedWallClockTimer.FORWARD_GLOBAL_TIMER).stop()
@@ -1215,7 +1489,7 @@ class DeepSpeedEngine:
 
     def eval_batch(self, batch):
         """Evaluation loss, deterministic (no dropout) and without grads."""
-        with torch.no_grad():
+        with torch.no_grad(), gather_window(self.state.params):
             out = self.loss_fn(self.state.params, self._batch_to_device(batch), None)
         return out[0] if isinstance(out, tuple) else out
 
@@ -1530,12 +1804,15 @@ class DeepSpeedEngine:
         if self._dp is None:
             return save_engine_checkpoint(self, save_dir, tag=tag, client_state=client_state,
                                           save_latest=save_latest, asynchronous=asynchronous)
-        # with a process group the ranks hold the same state: rank 0 writes,
-        # then every rank meets at a barrier, as the JAX writer does
+        # with a process group rank 0 writes, then every rank meets at a
+        # barrier, as the JAX writer does; under ZeRO every rank takes part
+        # in the snapshot's gathers of the partitioned state (the files are
+        # the same: full params, masters and optimizer state)
         ok = True
-        if dist.get_rank() == 0:
+        if dist.get_rank() == 0 or self._zero is not None:
             ok = save_engine_checkpoint(self, save_dir, tag=tag, client_state=client_state,
-                                        save_latest=save_latest, asynchronous=asynchronous)
+                                        save_latest=save_latest, asynchronous=asynchronous,
+                                        write=dist.get_rank() == 0)
         dist.barrier()
         return ok
 
@@ -1620,7 +1897,9 @@ class DeepSpeedEngine:
                          exclude_frozen_parameters: bool = False):
         """Write the module weights as one 16-bit flat-key .npz in the JAX
         package's layout (stacked layer leaves; fp32 rounded to bf16; bf16
-        stored as raw bits under ``key::bf16``). Returns the path."""
+        stored as raw bits under ``key::bf16``). Returns the path. With a
+        process group every rank calls it (under ZeRO each leaf is a
+        gather), rank 0 writes, and the ranks meet at a barrier."""
         from deepspeed_tpu_torch.runtime.checkpoint_engine.engine import _nest
         from deepspeed_tpu_torch.utils.pytree import leaf_paths
 
@@ -1630,7 +1909,12 @@ class DeepSpeedEngine:
                 "frozen-parameter registry; filter the tree before saving")
         os.makedirs(save_dir, exist_ok=True)
         path = os.path.join(save_dir, save_filename)
-        tree = _nest(jax_leaves(self._names), self._param_dict(self.state.params))
+        if self._zero is not None:
+            from deepspeed_tpu_torch.runtime.checkpoint_engine.engine import _zero_nest
+            self._zero.clear_cache()
+            tree = _zero_nest(self, jax_leaves(self._names), "params", self.compute_dtype)
+        else:
+            tree = _nest(jax_leaves(self._names), self._param_dict(self.state.params))
         flat = {}
         for key, leaf in leaf_paths(tree).items():
             a = leaf.snapshot()
@@ -1640,7 +1924,10 @@ class DeepSpeedEngine:
                 flat[key + "::bf16"] = a.view(torch.int16).numpy().view(np.uint16)
             else:
                 flat[key] = a.numpy()
-        np.savez(path, **flat)
+        if self._dp is None or dist.get_rank() == 0:
+            np.savez(path, **flat)
+        if self._dp is not None:
+            dist.barrier()
         log_dist(f"saved 16-bit model weights to {path}", ranks=[0])
         return path
 
@@ -1651,12 +1938,17 @@ class DeepSpeedEngine:
     # ------------------------------------------------------------------ #
     # the rest of the engine surface
 
+    def _zero_acc_grads(self) -> None:
+        if self._flat_grads is not None:
+            self._flat_grads.zero_()
+        elif self.state.acc_grads is not None:
+            for g in self.state.acc_grads.values():
+                g.zero_()
+
     def zero_grad(self) -> None:
         """Zero the gradient-accumulation buffers and drop a pending
         forward's graph (between trio steps)."""
-        if self.state.acc_grads is not None:
-            for g in self.state.acc_grads.values():
-                g.zero_()
+        self._zero_acc_grads()
         for p in self.state.params.parameters():
             p.grad = None
         self._cached_loss = None
@@ -1711,6 +2003,13 @@ class DeepSpeedEngine:
         only the leaves present in ``state_dict`` (by dotted name)."""
         tree = state_dict.to_dict() if isinstance(state_dict, ParamTree) else state_dict
         src = dict(ParamTree(tree).named_parameters())
+        if self._zero is not None:
+            if strict and (set(src) != set(self._names) or any(
+                    tuple(src[n].shape) != self._zero.shape(n) for n in self._names)):
+                raise ValueError("state_dict structure does not match module parameters (pass "
+                                 "strict=False to overlay matching leaves only)")
+            self._zero_load_params(src)
+            return
         named = self._param_dict(self.state.params)
         if strict and (set(src) != set(named) or
                        any(tuple(src[n].shape) != tuple(p.shape) for n, p in named.items())):

@@ -149,18 +149,23 @@ class Lamb:
 
     def group_update(self, state: AdamState, names: List[str],
                      grad: Callable[[str], torch.Tensor], params: Dict[str, torch.Tensor],
-                     lr: float, unorm: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     lr: float, unorm: Optional[torch.Tensor] = None,
+                     reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+                     device=None) -> torch.Tensor:
         """``param <- param - lr * ratio * u`` in place for the leaves
         ``names`` of one JAX leaf at update count ``state.count``; ``grad(n)``
         returns leaf n's unscaled, clipped gradient (called once each, in
         order, so only one is alive at a time). The ratio stays on the
         device and is returned; ``unorm`` (one fp32 value, when given) gets
-        ``ratio * ||u||``."""
+        ``ratio * ||u||``. Under ZeRO ``names`` are this rank's segments of
+        the JAX leaf (maybe none, on ``device``) and ``reduce`` sums the
+        partials over the ranks before the ratio (:func:`lamb_group_step`)."""
         flat = lambda d: [d[n].view(-1) for n in names]
         return lamb.lamb_group_step(
             flat(params), lambda i: grad(names[i]).reshape(-1), flat(state.mu), flat(state.nu),
             step=state.count, lr=lr, b1=self.b1, b2=self.b2, eps=self.eps,
-            weight_decay=self.weight_decay, bias_correction=self.bias_correction, unorm=unorm)
+            weight_decay=self.weight_decay, bias_correction=self.bias_correction, unorm=unorm,
+            reduce=reduce, device=device)
 
 
 class SGD(_OneSlot):

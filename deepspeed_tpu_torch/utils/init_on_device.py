@@ -85,7 +85,17 @@ def _cast_floats(tree, dtype):
 def materialize_params(init_fn, *args, **kwargs) -> Any:
     """Run a params-init function under the active :class:`OnDevice`
     context (a passthrough when none is active). ``init_fn`` takes a
-    ``device`` keyword, which ``device="meta"`` sets to ``"meta"``."""
+    ``device`` keyword, which ``device="meta"`` sets to ``"meta"``. Under a
+    ZeRO ``Init`` context the tree comes back partitioned
+    (``runtime/zero/partition_parameters.Init.materialize``)."""
+    from deepspeed_tpu_torch.runtime.zero.partition_parameters import active_init
+    init = active_init()
+    if init is not None:
+        return init.materialize(lambda: _on_device(init_fn, *args, **kwargs))
+    return _on_device(init_fn, *args, **kwargs)
+
+
+def _on_device(init_fn, *args, **kwargs) -> Any:
     ctx = OnDevice.current()
     if ctx is None:
         return init_fn(*args, **kwargs)
